@@ -1,0 +1,12 @@
+"""PyTorch + CUDA port of ``llm_quest_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package ``llm_quest_tpu`` is the reference: every module here has its
+counterpart at the same relative path there, with the same function names,
+and the tests hold the two to each other on the CPU. This package imports
+torch and numpy only — never jax and never ``llm_quest_tpu``.
+
+Slice ported so far: Qwen3.5-0.8B multimodal generation
+(``models/qwen3_5.py::generate_multimodal``) and the batched text decode
+engine (``inference/generate.py``), with the four TPU kernels on that path
+rewritten as CUDA C++ for ``sm_90a`` (``csrc/``, bound in ``kernels/``).
+"""

@@ -1,0 +1,63 @@
+"""Model configurations (counterpart of ``llm_quest_tpu/config.py``).
+
+Plain dicts with the reference's keys; dtypes are torch dtypes. Only the
+configuration of the ported slice is here.
+"""
+
+import torch
+
+# Qwen3.5-0.8B Vision + Text config (same keys and values as the JAX package's)
+QWEN3_5_08B_CONFIG = {
+    # ------ Text config keys ------
+    "model_path": "Qwen/Qwen3.5-0.8B",
+    "vocab_size": 248_320,
+    "emb_dim": 1024,
+    "hidden_dim": 3584,
+    "n_layers": 24,
+    "linear_sdpa_ratio": 4,
+    "n_heads": 8,
+    "num_kv_groups": 2,
+    "head_dim": 256,
+    "rope_base": 10_000_000,
+    "partial_rope_factor": 0.25,
+    "context_length": 8192,
+    # GDN
+    "linear_num_qk_heads": 16,
+    "linear_num_value_heads": 16,
+    "linear_qk_head_dim": 128,
+    "linear_value_head_dim": 128,
+    "linear_conv_kernel_size": 4,
+    "tie_embeddings": True,
+    "dtype": torch.bfloat16,
+    "p_dropout": 0.0,
+    "training": False,
+    # interleaved 3D (T, H, W) MRoPE sections; sum == head_dim * partial_rope_factor / 2
+    "mrope_section": [11, 11, 10],
+    # ------ Vision config keys ------
+    "vision_n_layers": 12,
+    "vision_emb_dim": 768,
+    "vision_hidden_act": "gelu_pytorch_tanh",
+    "vision_hidden_dim": 3072,
+    "vision_num_heads": 12,
+    "llm_d_in": 1024,
+    "in_channels": 3,
+    "patch_size": 16,
+    "spatial_merge_size": 2,
+    "temporal_patch_size": 2,
+    "num_position_embeddings": 2304,
+    "img_width": 384,
+    "img_height": 384,
+    "vision_rope_base": 10_000,
+    # Special token IDs
+    "image_token_id": 248056,
+    "vision_start_token_id": 248053,
+    "vision_end_token_id": 248054,
+    "video_token_id": 248057,
+    "image_mean": [0.5, 0.5, 0.5],
+    "image_std": [0.5, 0.5, 0.5],
+}
+
+
+def model_dtype(cfg):
+    """Resolve a config's parameter/computation dtype (default fp32)."""
+    return cfg.get("dtype", torch.float32)

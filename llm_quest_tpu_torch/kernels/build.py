@@ -1,0 +1,127 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use, into ``llm_quest_tpu_torch/_build/``, under a name keyed
+by a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the library already built. Nothing here runs at import.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# element-type codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    # dtype, q, k, v, beta, alpha, s0, s_out, out, B, H, S, DK, DV, 9 strides, scale, stream
+    "llmq_gdn_prefill": [_I] + [_P] * 8 + [_I] * 5 + [_L] * 9 + [_F, _P],
+    # dtype, q, k, v, beta, alpha, stacked, layer, out, B, H, DK, DV, 6 strides, scale, stream
+    "llmq_gdn_step_stacked": [_I] + [_P] * 6 + [_I, _P] + [_I] * 4 + [_L] * 6 + [_F, _P],
+    # dtype, q, k, v, o, key_mask, B, HQ, HKV, SQ, SK, D, 13 strides, causal, q_start, scale, stream
+    "llmq_attention_fwd": [_I] + [_P] * 5 + [_I] * 6 + [_L] * 13 + [_I, _I, _F, _P],
+}
+
+
+class _Library:
+    """The loaded kernels library and the seconds its build took (0.0 when
+    an existing build was loaded)."""
+
+    def __init__(self, cdll, build_seconds):
+        self.cdll = cdll
+        self.build_seconds = build_seconds
+
+
+_loaded = None
+
+
+def _nvcc():
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    return nvcc
+
+
+def _source_digest(sources):
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library():
+    """Build (if needed) and load the kernels library; returns ``_Library``.
+    Raises ``RuntimeError`` with the compiler's output when the build fails."""
+    global _loaded
+    if _loaded is not None:
+        return _loaded
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
+    so_path = BUILD_DIR / f"libllmq_kernels_{_source_digest(sources + headers)}.so"
+    build_seconds = 0.0
+    if not so_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, so_path)  # atomic: a concurrent loader never sees a partial file
+        build_seconds = time.perf_counter() - t0
+    cdll = ctypes.CDLL(str(so_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(cdll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    cdll.llmq_error_string.argtypes = [ctypes.c_int]
+    cdll.llmq_error_string.restype = ctypes.c_char_p
+    _loaded = _Library(cdll, build_seconds)
+    return _loaded
+
+
+def launch(name, *args):
+    """Call C entry ``name`` and raise if it reports a CUDA error."""
+    cdll = library().cdll
+    err = getattr(cdll, name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err} ({cdll.llmq_error_string(err).decode()})")
+
+
+def stream_of(t):
+    """The current CUDA stream of ``t``'s device, as the C interface takes it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t):
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"kernels take float32 or bfloat16 tensors, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def require(cond, msg):
+    """Validate a kernel argument; raises ValueError (never falls back)."""
+    if not cond:
+        raise ValueError(msg)
+
+
+def require_cuda(*tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        require(t.is_cuda and t.device == dev, "kernel operands must all lie on one CUDA device")

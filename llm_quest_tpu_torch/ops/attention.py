@@ -1,0 +1,93 @@
+"""Scaled-dot-product attention and its router (counterpart of
+``llm_quest_tpu/ops/attention.py``).
+
+- ``sdpa``: the plain attention core. GQA by reshaping q into kv-head groups
+  (no materialized repeat); boolean masks (b|1, 1|hq, sq, sk), True = masked,
+  filled with finfo.min/2; scores, softmax and the value sum in fp32, as the
+  JAX version's preferred_element_type gives them.
+- ``attention``: the router. Long causal prefills go to the flash kernel
+  (kernels/attention.py, K4); everything else, the decode step included, to
+  ``sdpa``. The int8-KV, head-shard and context-parallel branches of the JAX
+  router are not ported, and neither is its short-sequence fused-MHA kernel
+  (K6): the JAX router sends that kernel only maskless calls, which Qwen3.5's
+  text attention never makes.
+- ``mha_packed``: bidirectional maskless MHA on packed (b, s, h·d)
+  projections, the vision-tower path (K7).
+
+``cfg["use_kernels"] = False`` runs the kernels' plain versions on any device
+(kernel-vs-plain comparisons only).
+"""
+
+import torch
+
+from llm_quest_tpu_torch.ops.masks import causal_mask, mask_value
+
+
+def sdpa(q, k, v, *, mask=None, scale=None):
+    """q: (b, hq, sq, d); k: (b, hkv, sk, d); v: (b, hkv, sk, dv); mask: bool
+    (b|1, 1|hq, sq, sk), True = masked, or None. Returns (b, hq, sq, dv)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    group = hq // hkv
+    qg = q.float().reshape(b, hkv, group, sq, d)
+    scores = (qg @ k.float()[:, :, None].transpose(-1, -2)).reshape(b, hq, sq, sk) * scale
+    if mask is not None:
+        scores = scores.masked_fill(mask, mask_value(torch.float32))
+    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = weights.float().reshape(b, hkv, group, sq, sk) @ v.float()[:, :, None]
+    return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+
+
+def attention(q, k, v, *, cfg=None, mask=None, causal=True, attn_mask=None, scale=None, flash_ok=True, q_start=None):
+    """Attention router: the flash kernel when legal and profitable, ``sdpa``
+    otherwise.
+
+    Flash takes full-sequence calls (sq == sk) and cached prefills (sq < sk
+    against the max_len cache view) whose static query offset ``q_start`` is
+    known, from ``cfg["flash_min_seq"]`` (default 256) queries up. Flash reads
+    only the structured mask (causal, ``attn_mask`` as (b, sk) True = real);
+    ``mask`` is the dense rendering of the same for ``sdpa``. A dense mask
+    with no structured counterpart (causal=False) stays on ``sdpa``.
+    """
+    shape_ok = q.shape[2] == k.shape[2] or (causal and q_start is not None and q.shape[2] < k.shape[2])
+    use_flash = (
+        flash_ok
+        and cfg is not None
+        and shape_ok
+        and q.shape[2] >= cfg.get("flash_min_seq", 256)
+        and (mask is None or causal)
+    )
+    if use_flash:
+        from llm_quest_tpu_torch.kernels.attention import flash_attention
+
+        return flash_attention(
+            q, k, v, attn_mask=attn_mask, causal=causal, q_start=q_start or 0, scale=scale,
+            plain=not cfg.get("use_kernels", True),
+        )
+    if mask is None and causal and q.shape[2] > 1:
+        mask = causal_mask(
+            q.shape[2], k.shape[2], q_start=k.shape[2] - q.shape[2], attn_mask=attn_mask, device=q.device
+        )
+    return sdpa(q, k, v, mask=mask, scale=scale)
+
+
+def mha_packed(q, k, v, n_heads, *, cfg=None, scale=None):
+    """Bidirectional maskless MHA on packed (b, s, h·d) projection outputs,
+    through the transpose-free packed kernel (kernels/attention.py, K7)."""
+    from llm_quest_tpu_torch.kernels.attention import packed_mha
+
+    return packed_mha(q, k, v, n_heads, scale, plain=cfg is not None and not cfg.get("use_kernels", True))
+
+
+def merge_heads(x):
+    """(b, h, s, d) → (b, s, h*d)."""
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def split_heads(x, num_heads):
+    """(b, s, h*d) → (b, h, s, d)."""
+    b, s, hd = x.shape
+    return x.reshape(b, s, num_heads, hd // num_heads).transpose(1, 2)

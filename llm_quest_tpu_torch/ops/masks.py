@@ -1,0 +1,35 @@
+"""Attention mask construction (counterpart of ``llm_quest_tpu/ops/masks.py``).
+
+Polarity: boolean masks built here are True = MASKED. (b, s) padding masks
+coming in are True = REAL token and are inverted when combined. The flash
+kernel's ``attn_mask`` keeps the padding polarity: (b, sk), True = real key.
+Masked scores are filled with finfo.min/2, not -inf, so a fully-masked row
+softmaxes to uniform instead of NaN.
+"""
+
+import torch
+
+
+def mask_value(dtype):
+    """finfo.min/2 fill value."""
+    return torch.finfo(dtype).min / 2
+
+
+def causal_mask(q_len, k_len=None, *, q_start=0, attn_mask=None, device=None):
+    """(b|1, 1, q_len, k_len) bool mask, True = masked.
+
+    Queries sit at absolute positions q_start .. q_start+q_len-1 against keys
+    0 .. k_len-1 (no cache: q_start=0, k_len=q_len; static KV cache:
+    q_start=pos, k_len=max_len). attn_mask: optional (b, k_len) bool padding
+    mask, True = real token.
+    """
+    if k_len is None:
+        k_len = q_len
+    if attn_mask is not None:
+        device = attn_mask.device
+    k_pos = torch.arange(k_len, device=device)
+    q_pos = q_start + torch.arange(q_len, device=device)
+    masked = (k_pos[None, :] > q_pos[:, None])[None, None]
+    if attn_mask is not None:
+        masked = masked | ~attn_mask[:, None, None, :]
+    return masked

@@ -1,0 +1,27 @@
+"""Normalization layers (counterpart of ``llm_quest_tpu/ops/norms.py``).
+
+- ``layer_norm_torch``: (x − μ)/sqrt(σ² + eps)·γ + β in the input dtype.
+- ``rms_norm_torch_parity``: the whole op, weight multiply included, in fp32;
+  cast back to the input dtype at the end.
+- ``zero_centered_rms_norm``: Qwen3-Next (1 + weight) RMSNorm, fp32 island.
+"""
+
+import torch
+
+
+def layer_norm_torch(x, scale, shift, *, eps=1e-6):
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    return scale * ((x - mean) * torch.rsqrt(var + eps)) + shift
+
+
+def rms_norm_torch_parity(x, scale, *, eps=1e-6):
+    x32 = x.float()
+    normed = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    return (scale.float() * normed).to(x.dtype)
+
+
+def zero_centered_rms_norm(x, scale, *, eps=1e-6):
+    x32 = x.float()
+    normed = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    return ((1.0 + scale.float()) * normed).to(x.dtype)

@@ -1,0 +1,106 @@
+"""Rotary position embeddings (counterpart of ``llm_quest_tpu/ops/rope.py``):
+partial RoPE, MRoPE-I (interleaved 3-D multimodal) and 2-D axial VisionRoPE.
+
+Tables are built once in fp32 with numpy, exactly as the JAX package builds
+them. Half-split convention: x = [h1, h2] → cos·x + sin·[-h2, h1].
+"""
+
+import numpy as np
+import torch
+
+
+def partial_rotation(head_dim, factor):
+    """Scaled rotation dim = floor(head_dim * factor)."""
+    if not 0 < factor <= 1.0:
+        raise ValueError("rotation factor must be in (0, 1]")
+    return int(head_dim * factor)
+
+
+def compute_angles(base, head_dim, ctx_len, *, rotation_factor=1.0, device=None):
+    """(cos, sin) tables, each (ctx_len, rotation_dim) fp32; rotation_dim =
+    floor(head_dim·rotation_factor) for partial RoPE."""
+    if head_dim % 2:
+        raise ValueError("head_dim must be even")
+    if rotation_factor != 1.0:
+        head_dim = partial_rotation(head_dim, rotation_factor)
+    i = np.arange(0, head_dim // 2, dtype=np.float32)
+    theta = 1.0 / base ** (2 * i / head_dim)
+    angles = np.outer(np.arange(0, ctx_len, dtype=np.float32), theta)
+    angles = np.concatenate([angles, angles], axis=-1)
+    return _tables(angles, device)
+
+
+def compute_angles_2d(base, head_dim, height_patches, width_patches, *, num_frames=1, device=None):
+    """2-D axial VisionRoPE tables: first half of head_dim encodes rows, second
+    half columns. Returns (cos, sin), each (num_frames·H·W, head_dim) fp32."""
+    if head_dim % 4:
+        raise ValueError("head_dim must be divisible by 4 for 2D RoPE")
+    half_dim = head_dim // 2
+    i = np.arange(0, half_dim // 2, dtype=np.float32)
+    theta = 1.0 / base ** (2 * i / half_dim)
+    row_pos, col_pos = np.meshgrid(
+        np.arange(height_patches, dtype=np.float32), np.arange(width_patches, dtype=np.float32), indexing="ij"
+    )
+    angles_2d = np.concatenate([np.outer(row_pos.reshape(-1), theta), np.outer(col_pos.reshape(-1), theta)], axis=-1)
+    if num_frames > 1:
+        angles_2d = np.tile(angles_2d, (num_frames, 1))
+    return _tables(np.concatenate([angles_2d, angles_2d], axis=-1), device)
+
+
+def _tables(angles, device):
+    return (
+        torch.from_numpy(np.cos(angles)).to(device),
+        torch.from_numpy(np.sin(angles)).to(device),
+    )
+
+
+def rotate_half(x):
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def _rotate(x, cos_g, sin_g):
+    """cos·x + sin·rotate_half(x) over the first rotation_dim features; the
+    rest pass through (partial RoPE)."""
+    rot = cos_g.shape[-1]
+    if rot < x.shape[-1]:
+        x_rot, x_rest = x[..., :rot], x[..., rot:]
+        return torch.cat([cos_g * x_rot + sin_g * rotate_half(x_rot), x_rest], dim=-1)
+    return cos_g * x + sin_g * rotate_half(x)
+
+
+def apply_packed(x, cos, sin):
+    """RoPE on the packed head layout x: (b, s, n_heads, head_dim), positions
+    0..s-1 (the vision tower's transpose-free form)."""
+    s = x.shape[1]
+    return _rotate(x, cos[:s].to(x.dtype)[None, :, None, :], sin[:s].to(x.dtype)[None, :, None, :])
+
+
+def interleave_mrope_coeffs(cos3, sin3, mrope_section):
+    """MRoPE-I: interleave chunked [TTT..HHH..WWW] rotary coeffs into the
+    [T,H,W, T,H,W, ..., T,T] layout. cos3/sin3: (3, b, s, half_dim) →
+    (b, s, half_dim) each. T fills every slot by default; H takes the
+    stride-3 slots from 1, W those from 2, each within its section."""
+    half_dim = cos3.shape[-1]
+    feat = np.arange(half_dim)
+    sel = np.zeros(half_dim, dtype=np.int64)
+    sel[(feat % 3 == 1) & (feat < mrope_section[1] * 3)] = 1
+    sel[(feat % 3 == 2) & (feat < mrope_section[2] * 3)] = 2
+    sel = torch.from_numpy(sel).to(cos3.device)
+    feat_t = torch.arange(half_dim, device=cos3.device)
+    return cos3[sel, ..., feat_t].movedim(0, -1), sin3[sel, ..., feat_t].movedim(0, -1)
+
+
+def apply_mrope(x, cos, sin, position_ids, mrope_section):
+    """Multimodal RoPE with interleaved 3-D (T, H, W) sections.
+
+    x: (b, h, s, head_dim); cos/sin: (ctx_len, rotation_dim) tables;
+    position_ids: (3, b, s). Identical T=H=W ids reduce to standard RoPE.
+    """
+    half_dim = cos.shape[-1] // 2
+    mcos, msin = interleave_mrope_coeffs(
+        cos[:, :half_dim][position_ids], sin[:, :half_dim][position_ids], mrope_section
+    )
+    mcos = torch.cat([mcos, mcos], dim=-1)[:, None].to(x.dtype)  # (b, 1, s, rot)
+    msin = torch.cat([msin, msin], dim=-1)[:, None].to(x.dtype)
+    return _rotate(x, mcos, msin)

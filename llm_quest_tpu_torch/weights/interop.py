@@ -1,0 +1,47 @@
+"""Load a JAX parameter tree into the port's modules (counterpart of
+``llm_quest_tpu/weights/interop.py``; only the JAX → torch direction).
+
+Layout rule: the JAX package stores linear weights ``(in, out)`` for
+``x @ w``; the port stores them as torch does, ``(out, in)``, for
+``F.linear``. So every ``Linear`` weight is transposed on the way in, and no
+other leaf is: embedding tables are ``(num, dim)``, the patch conv weight
+keeps its conv layout and the depthwise conv1d weight its ``(channels,
+kernel)`` layout in both packages. The GDN recurrent state is ``(dv, dk)`` in
+both, so cache states compare directly.
+"""
+
+import numpy as np
+import torch
+
+from llm_quest_tpu_torch.models import qwen3_5
+from llm_quest_tpu_torch.ops.linear import Linear
+
+
+def from_jax_flat(flat, cfg, *, device=None):
+    """Build a Qwen3.5 model from a flattened JAX param tree.
+
+    flat: {"/"-joined path: numpy array}, i.e. ``flatten_params`` of the
+    JAX params converted with ``np.asarray``. A tree with "vision/" and
+    "text/" prefixes (``init``) gives a ``qwen3_5.Qwen3_5``; a bare text tree
+    (``init_text``) a ``qwen3_5.TextModel``. Raises on a missing, unexpected
+    or mis-shaped leaf.
+    """
+    is_vlm = any(name.startswith("text/") for name in flat)
+    model = qwen3_5.Qwen3_5(cfg, device) if is_vlm else qwen3_5.TextModel(cfg, device)
+    state = model.state_dict()
+    names = {name.replace("/", "."): arr for name, arr in flat.items()}
+    missing, unexpected = sorted(set(state) - set(names)), sorted(set(names) - set(state))
+    if missing or unexpected:
+        raise ValueError(f"parameter names differ: missing {missing[:5]}, unexpected {unexpected[:5]}")
+    linear_weights = {f"{name}.w" for name, m in model.named_modules() if isinstance(m, Linear)}
+    for name, arr in names.items():
+        arr = np.array(arr)  # a writable copy
+        if arr.dtype.name == "bfloat16":  # numpy's bf16 (ml_dtypes) has no torch view
+            arr = arr.astype(np.float32)
+        t = torch.from_numpy(arr)
+        if name in linear_weights:
+            t = t.T
+        if t.shape != state[name].shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(state[name].shape)}")
+        state[name].copy_(t)
+    return model

@@ -1,0 +1,125 @@
+"""The port's gated-delta-rule kernels' plain versions against the JAX package.
+
+On the CPU the wrappers in ``llm_quest_tpu_torch/kernels/gdn.py`` run their
+plain PyTorch versions; they are held to the Pallas kernels in interpret mode
+(the way the JAX package's own tests run them here) and to the JAX scan:
+
+- K1 (prefill): outputs and final state within 1e-4 fp32, the tolerance of an
+  exact scan against the exact chunked form in another summation order;
+- K2 (stacked decode step): within 1e-5, and every other layer untouched.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_quest_tpu.kernels.gdn_pallas import gated_delta_rule_pallas, gated_delta_rule_step_stacked_pallas
+from llm_quest_tpu.ops import gdn as jgdn
+from llm_quest_tpu_torch.kernels import gdn as kgdn
+from llm_quest_tpu_torch.ops import gdn as tgdn
+
+K1_TOL = 1e-4
+K2_TOL = 1e-5
+
+
+def T(x):
+    return torch.from_numpy(np.array(x))
+
+
+def inputs(b, h, s, dk, dv, seed=0):
+    """l2-normalized q/k (as the model feeds them), β ∈ (0, 1), α near 1."""
+    rng = np.random.default_rng(seed)
+
+    def unit(x):
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+    q = unit(rng.standard_normal((b, h, s, dk)))
+    k = unit(rng.standard_normal((b, h, s, dk)))
+    v = rng.standard_normal((b, h, s, dv)).astype(np.float32)
+    beta = (1 / (1 + np.exp(-rng.standard_normal((b, h, s))))).astype(np.float32)
+    alpha = (1 / (1 + np.exp(-(rng.standard_normal((b, h, s)) * 0.3 + 2.0)))).astype(np.float32)
+    s0 = (rng.standard_normal((b, h, dv, dk)) * 0.1).astype(np.float32)
+    return q, k, v, beta, alpha, s0
+
+
+def assert_close(got, ref, tol):
+    err = float(np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64)).max())
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("s", [1, 5, 156, 300])
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_k1_plain_matches_pallas_and_scan(s, with_prev):
+    q, k, v, beta, alpha, s0 = inputs(2, 2, s, 16, 8, seed=s)
+    prev = s0 if with_prev else None
+    out, st = kgdn.gated_delta_rule_fwd(T(q), T(k), T(v), T(beta), T(alpha), None if prev is None else T(prev))
+    ref_out, ref_st = gated_delta_rule_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(beta), jnp.asarray(alpha),
+        jnp.asarray(s0 if with_prev else np.zeros_like(s0)), 64, True,
+    )
+    assert_close(out, ref_out, K1_TOL)
+    assert_close(st, ref_st, K1_TOL)
+    scan_out, scan_st = jgdn.gated_delta_rule(*map(jnp.asarray, (q, k, v, beta, alpha)), prev_state=prev)
+    assert_close(out, scan_out, K1_TOL)
+    assert_close(st, scan_st, K1_TOL)
+
+
+def test_k1_masked_pad_row():
+    """A right-padded row (β = 0, α = 1 on the pads): the pads leave the state
+    alone, so the final state equals the state after the row's last real token."""
+    b, s, real = 2, 40, 23
+    q, k, v, beta, alpha, s0 = inputs(b, 2, s, 16, 8, seed=7)
+    mask = np.ones((b, s), bool)
+    mask[1, real:] = False
+    fb, fa = tgdn.freeze_masked_updates(T(beta), T(alpha), T(mask))
+    jb, ja = jgdn.freeze_masked_updates(jnp.asarray(beta), jnp.asarray(alpha), jnp.asarray(mask))
+    out, st = kgdn.gated_delta_rule_fwd(T(q), T(k), T(v), fb, fa, T(s0))
+    ref_out, ref_st = gated_delta_rule_pallas(*map(jnp.asarray, (q, k, v)), jb, ja, jnp.asarray(s0), 64, True)
+    assert_close(out, ref_out, K1_TOL)
+    assert_close(st, ref_st, K1_TOL)
+    _, st_real = jgdn.gated_delta_rule(
+        *(jnp.asarray(x[1:, :, :real]) for x in (q, k, v, beta, alpha)), prev_state=jnp.asarray(s0[1:])
+    )
+    assert_close(st[1:], st_real, K1_TOL)
+
+
+@pytest.mark.parametrize("s", [1, 5, 130])
+def test_auto_dispatch_matches_jax(s):
+    q, k, v, beta, alpha, s0 = inputs(1, 2, s, 16, 8, seed=3)
+    out, st = tgdn.gated_delta_rule_auto(T(q), T(k), T(v), T(beta), T(alpha), T(s0))
+    ref_out, ref_st = jgdn.gated_delta_rule_auto(*map(jnp.asarray, (q, k, v, beta, alpha, s0)))
+    assert_close(out, ref_out, K1_TOL)
+    assert_close(st, ref_st, K1_TOL)
+
+
+@pytest.mark.parametrize("layer", [0, 2, 3])
+def test_k2_plain_stacked_step_matches_pallas(layer):
+    n_layers, b, h, dk, dv = 4, 2, 4, 16, 8
+    q, k, v, beta, alpha, _ = inputs(b, h, 1, dk, dv, seed=layer)
+    q, k, v, beta, alpha = (x[:, :, 0] for x in (q, k, v, beta, alpha))
+    stacked = (np.random.default_rng(9).standard_normal((n_layers, b, h, dv, dk)) * 0.1).astype(np.float32)
+    t_stacked = T(stacked)
+    out, new = kgdn.gated_delta_rule_step_stacked(T(q), T(k), T(v), T(beta), T(alpha), t_stacked, layer)
+    assert new is t_stacked  # updated in place
+    ref_out, ref_stacked = gated_delta_rule_step_stacked_pallas(
+        *map(jnp.asarray, (q, k, v, beta, alpha, stacked)), layer, interpret=True
+    )
+    assert_close(out, ref_out, K2_TOL)
+    assert_close(new[layer], ref_stacked[layer], K2_TOL)
+    for other in range(n_layers):
+        if other != layer:
+            assert np.array_equal(new[other].numpy(), stacked[other])
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """A CPU tensor never reaches a kernel: no launch is counted and the
+    result is the plain version's, bit for bit."""
+    q, k, v, beta, alpha, s0 = (T(x) for x in inputs(1, 2, 9, 16, 8))
+    before = kgdn.gated_delta_rule_fwd.launches, kgdn.gated_delta_rule_step_stacked.launches
+    out, st = kgdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0)
+    ref_out, ref_st = kgdn.gated_delta_rule_fwd_plain(q, k, v, beta, alpha, s0)
+    assert torch.equal(out, ref_out) and torch.equal(st, ref_st)
+    step = (x[:, :, 0] for x in (q, k, v, beta, alpha))
+    kgdn.gated_delta_rule_step_stacked(*step, s0[None].clone(), 0)
+    assert (kgdn.gated_delta_rule_fwd.launches, kgdn.gated_delta_rule_step_stacked.launches) == before
