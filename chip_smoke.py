@@ -4,25 +4,45 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the port's
-kernels from ``llm_quest_tpu_torch/csrc`` at first use. Phases, one JSON line
-each on stdout:
+kernels from ``llm_quest_tpu_torch/csrc`` at first use. Two main paths are
+driven: Qwen3.5-0.8B generation and the dense Qwen3 training step of
+bench.py's train workload. Phases, one JSON line each on stdout:
 
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, fp32 and bf16, at Qwen3.5-0.8B shapes, with the tolerances below,
-   and the time of both versions at the main path's shape;
-3. check_fp32: the full-width Qwen3.5-0.8B main path (random weights from a
-   seeded generator) in fp32, once through the kernels and once with the
-   plain versions forced: prefill logits close, first 16 greedy tokens equal;
-4. main_path: the same two entry points in bf16 with every kernel's launch
-   count reset first — ``generate_multimodal`` (a 384 px image, the
-   156-token prompt of bench.py, 64 greedy tokens) and ``generate_kv_cache``
-   at b = 4 with a 300-token prompt — and every kernel must have launched;
-5. timing: tok/s and TTFT of both, with the card's name and power limit.
+   card, fp32 and bf16, with the tolerances below, and the time of both
+   versions at its main path's shape. The flash backward's dq/dk/dv are held
+   to autograd through the plain ``sdpa`` (d 64/128/256, key mask on/off,
+   GQA 16/8 and 8/2; and, in bf16, one layer of the train step at b = 4,
+   s = 2048, output included) and timed forward + backward at that shape
+   and at b = 1;
+3. check_fp32: the full-width Qwen3.5-0.8B generation path (random weights
+   from a seeded generator) in fp32, once through the kernels and once with
+   the plain versions forced: prefill logits close, first 16 greedy tokens
+   equal;
+4. main_path: the same two entry points in bf16 with every launch count reset
+   first — ``generate_multimodal`` (a 384 px image, the 156-token prompt of
+   bench.py, 64 greedy tokens) and ``generate_kv_cache`` at b = 4 with a
+   300-token prompt — and every kernel of the path must have launched;
+5. timing: tok/s and TTFT of both, with the card's name and power limit;
+6. train_fp32: a 2-layer Qwen3 at Qwen3-0.6B widths, b = 1, s = 2048, the
+   loss and every gradient through the kernels against the plain versions;
+7. train: bench.py's train configuration (16 layers, b = 4, s = 2048, bf16,
+   fused-head CE) through ``make_optimizer`` → ``make_train_step``, launch
+   counts reset first, 1 warm-up and 4 timed steps: the loss is finite and
+   falls, flash forward and backward each launch 16 times a step, and tok/s,
+   step ms and MFU are printed with the card's name and power limit.
 
 Then the kernels summary line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits nonzero before the
 last line; there is no CPU fallback.
+
+    python3 chip_smoke.py --profile
+
+runs only the device phase and a ``torch.profiler`` breakdown of phase 7's
+train step (2 warm-up and 2 profiled steps): the device's busy share of the
+profiled wall and the device time per step by kernel group (flash forward,
+dq, dk/dv, cuBLAS GEMMs, the rest), one JSON line.
 """
 
 import json
@@ -38,6 +58,11 @@ import time
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # whole-path fp32 check: prefill logits, kernels vs plain, absolute
 LOGIT_TOL = 2e-3
+# fp32 train check, kernels vs plain: the loss relative, each gradient's
+# max |g_kernel - g_plain| relative to max |g_plain| (other summation orders
+# through 2 layers and the 151,936-row head)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
 SEED = 0
 DEVICE = "cuda"
 
@@ -187,6 +212,64 @@ def kernel_k4(gen, dtypes):
     return max(errs), ms, plain_ms, cases
 
 
+def kernel_k4_bwd(gen, dtypes):
+    """dq/dk/dv of the flash kernels against autograd through the plain sdpa."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import attention as attn
+
+    errs, cases = [], []
+    for dtype in dtypes:
+        for d in (64, 128, 256):
+            for hq, hkv in ((16, 8), (8, 2)):
+                q, k, v, key_mask = attn_inputs(gen, 2, hq, hkv, 300, 300, d, dtype)
+                do = randn(gen, 2, hq, 300, d, dtype=dtype)
+                for mask in (None, key_mask):
+                    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+                    attn.flash_attention(qg, kg, vg, attn_mask=mask).backward(do)
+                    refs = attn.flash_attention_bwd(q, k, v, None, None, do, attn_mask=mask, plain=True)
+                    torch_sync()
+                    e = max(check(f"K4 bwd {name} d={d} {hq}/{hkv} mask={mask is not None} {dtype}", got, ref, dtype)
+                            for name, got, ref in zip("qkv", (qg.grad, kg.grad, vg.grad), refs))
+                    cases.append({"d": d, "heads": [hq, hkv], "key_mask": mask is not None, "dtype": str(dtype),
+                                  "max_abs_err": e})
+                    if dtype == dtypes[0]:
+                        errs.append(e)
+    # training shape: one layer of bench.py's train step (b = 4) in bf16, the
+    # output and dq/dk/dv held to plain, then fwd + bwd timed on the same
+    # tensors; the b = 1 layer is timed too
+    for b in (4, 1):
+        dtype = dtypes[-1]
+        q, k, v, _ = attn_inputs(gen, b, 16, 8, 2048, 2048, 128, dtype)
+        do = randn(gen, b, 16, 2048, 128, dtype=dtype)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def fwd_bwd(plain):
+            out = attn.flash_attention(qg, kg, vg, plain=plain)
+            return (out.detach(),) + torch.autograd.grad(out, (qg, kg, vg), do)
+
+        case = {"shape": f"q ({b}, 16, 2048, 128), kv ({b}, 8, 2048, 128) {dtype}"}
+        if b == 4:
+            got, ref = fwd_bwd(False), fwd_bwd(True)
+            torch_sync()
+            case["max_abs_err"] = {name: check(f"K4 fwd+bwd {name} train shape {dtype}", g, r, dtype)
+                                   for name, g, r in zip(("o", "dq", "dk", "dv"), got, ref)}
+            case["max_abs_ref"] = {name: max_err(g, r)[1] for name, g, r in zip(("o", "dq", "dk", "dv"), got, ref)}
+            del got, ref
+        case["fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(False), iters=5, warmup=1)
+        case["plain_fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(True), iters=5, warmup=1)
+        o = attn.flash_attention(q, k, v)
+        lse = attn._plain_lse(q, k, None, True, 0, 128**-0.5)
+        case["bwd_ms"] = cuda_ms(lambda: attn.flash_attention_bwd(q, k, v, o, lse, do), iters=5, warmup=1)
+        case["fwd_ms"] = cuda_ms(lambda: attn.flash_attention(q, k, v), iters=5, warmup=1)
+        cases.append(case)
+        if b == 4:
+            ms, plain_ms = case["fwd_bwd_ms"], case["plain_fwd_bwd_ms"]
+        del q, k, v, do, qg, kg, vg, o, lse
+        torch.cuda.empty_cache()
+    return max(errs), ms, plain_ms, cases
+
+
 def kernel_k7(gen, dtypes):
     from llm_quest_tpu_torch.kernels import attention as attn
 
@@ -213,16 +296,19 @@ def torch_sync():
     torch.cuda.synchronize()  # a fault inside a kernel surfaces here, at its phase
 
 
+GENERATE, TRAIN = "generate", "train"  # the main paths
 KERNELS = [
-    # name, wrapper (module, attribute), source, replaced TPU kernel, check
+    # name, wrapper (module, attribute), source, replaced TPU kernel, check, main paths that launch it
     ("gdn_prefill", ("gdn", "gated_delta_rule_fwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
-     "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1),
+     "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1, (GENERATE,)),
     ("gdn_step_stacked", ("gdn", "gated_delta_rule_step_stacked"), "llm_quest_tpu_torch/csrc/gdn.cu",
-     "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2),
+     "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2, (GENERATE,)),
     ("flash_attention_fwd", ("attention", "flash_attention"), "llm_quest_tpu_torch/csrc/attention.cu",
-     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4),
+     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4, (GENERATE, TRAIN)),
+    ("flash_attention_bwd", ("attention", "flash_attention_bwd"), "llm_quest_tpu_torch/csrc/attention.cu",
+     "llm_quest_tpu/kernels/flash_attention.py:175", kernel_k4_bwd, (TRAIN,)),
     ("packed_mha", ("attention", "packed_mha"), "llm_quest_tpu_torch/csrc/attention.cu",
-     "llm_quest_tpu/kernels/fused_mha.py:422", kernel_k7),
+     "llm_quest_tpu/kernels/fused_mha.py:422", kernel_k7, (GENERATE,)),
 ]
 
 
@@ -237,12 +323,32 @@ def kernel_phase():
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     records = []
-    for name, spec, source, replaces, fn in KERNELS:
+    for name, spec, source, replaces, fn, _ in KERNELS:
         err, ms, plain_ms, cases = fn(gen, (torch.float32, torch.bfloat16))
         emit({"phase": "kernel", "name": name, "cases": cases, "ms_bf16": ms, "plain_ms_bf16": plain_ms})
         records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     return records
+
+
+def reset_launches():
+    for spec in KERNELS:
+        wrapper(spec[1]).launches = 0
+
+
+def read_launches(path, records):
+    """The launch counts of the path just driven, added to ``records``;
+    fails if a kernel of the path never launched."""
+    counts = {}
+    for (name, spec, *_, paths), rec in zip(KERNELS, records):
+        n = wrapper(spec).launches
+        counts[name] = n
+        if path in paths:
+            rec["launches"] += n
+    missing = [name for (name, *_, paths) in KERNELS if path in paths and counts[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: {counts}")
+    return counts
 
 
 # ---------------------------------------------------------------- main path
@@ -346,23 +452,16 @@ def main_path(cfg, inputs, records, card):
     if not (torch.isfinite(lm).all() and torch.isfinite(lt).all()):
         raise AssertionError("bf16 prefill logits are not finite")
 
-    wrappers = [wrapper(spec) for _, spec, *_ in KERNELS]
-    for w in wrappers:
-        w.launches = 0
+    reset_launches()
     mm_seq, text_seq = run_main_path(model, cfg, *inputs, max_gen=64)
     torch.cuda.synchronize()
-    launches = [w.launches for w in wrappers]
-    for rec, n in zip(records, launches):
-        rec["launches"] = n
-    if not all(launches):
-        counts = dict(zip([r["name"] for r in records], launches))
-        raise AssertionError(f"kernels not launched on the main path: {counts}")
+    launches = read_launches(GENERATE, records)
     vocab = cfg["vocab_size"]
     expected = ((1, mm_ids.shape[1] + 64), (text_ids.shape[0], text_ids.shape[1] + 64))
     for name, seq, shape in zip(("multimodal", "text_b4"), (mm_seq, text_seq), expected):
         if tuple(seq.shape) != shape or not bool(((seq >= 0) & (seq < vocab)).all()):
             raise AssertionError(f"{name}: bad sequences {tuple(seq.shape)}")
-    emit({"phase": "main_path", "dtype": "bfloat16", "launches": dict(zip([r["name"] for r in records], launches)),
+    emit({"phase": "main_path", "dtype": "bfloat16", "launches": launches,
           "multimodal_tokens": mm_seq[0, -64:-48].tolist(), "text_b4_tokens": text_seq[0, -64:-48].tolist()})
 
     px = pixels.to(cfg["dtype"])
@@ -379,9 +478,177 @@ def main_path(cfg, inputs, records, card):
           "text_b4": {"tok_s": 4 * 64 / tx_s, "ttft_ms": tx_ttft * 1e3, "run_s": tx_all}})
 
 
-def main():
+# ------------------------------------------------------------ train path
+
+
+def train_cfg(n_layers, dtype):
+    """bench.py's train workload: Qwen3-0.6B widths, 16 layers at s = 2048,
+    no remat (``bench.py::bench_train_step``)."""
+    from llm_quest_tpu_torch.config import qwen3_config_creator
+
+    return dict(
+        qwen3_config_creator("temp_dense"), n_layers=n_layers, emb_dim=1024, n_heads=16, num_kv_groups=8,
+        hidden_dim=3072, context_length=2048, dtype=dtype, gradient_checkpointing=False,
+    )
+
+
+def train_batch(b, s):
+    import numpy as np
     import torch
 
+    ids = torch.as_tensor(np.random.default_rng(0).integers(0, 32_000, (b, s)), device=DEVICE)
+    return {"input_ids": ids, "targets": torch.roll(ids, -1, 1)}
+
+
+def train_fp32():
+    """One fp32 step's loss and gradients, kernels vs plain, same weights."""
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3
+    from llm_quest_tpu_torch.training import engine
+
+    cfg = train_cfg(2, torch.float32)
+    batch = train_batch(1, 2048)
+    results = []
+    for use_kernels in (True, False):
+        model = qwen3.init(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+        run_cfg = dict(cfg, use_kernels=use_kernels)
+        loss = engine.make_loss_fn(qwen3, run_cfg, fused_head_ce=True)(model, batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        results.append((float(loss.detach()), [g.detach() for g in grads], [n for n, _ in model.named_parameters()]))
+        del model
+    (lk, gk, names), (lp, gp, _) = results
+    loss_rel = abs(lk - lp) / abs(lp)
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"fp32 train loss, kernels {lk} vs plain {lp}: rel {loss_rel} > {TRAIN_LOSS_RTOL}")
+    worst_name, worst = None, 0.0
+    for name, a, b in zip(names, gk, gp):
+        rel = float((a - b).abs().max()) / float(b.abs().max())
+        if not rel <= TRAIN_GRAD_RTOL:
+            raise AssertionError(f"fp32 grad {name}: max |kernel - plain| / max |plain| = {rel} > {TRAIN_GRAD_RTOL}")
+        if rel >= worst:
+            worst_name, worst = name, rel
+    emit({"phase": "train_fp32", "layers": 2, "b": 1, "s": 2048, "loss_kernels": lk, "loss_plain": lp,
+          "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL, "n_grads": len(names),
+          "worst_grad": worst_name, "worst_grad_rel_err": worst, "grad_rtol": TRAIN_GRAD_RTOL})
+    del results
+    torch.cuda.empty_cache()
+
+
+def train_main_path(records, card, steps=4):
+    """bench.py's train step in bf16 through the port's entry points."""
+    import math
+
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3
+    from llm_quest_tpu_torch.training import engine
+    from llm_quest_tpu_torch.training import flops as F
+
+    b, s = 4, 2048
+    cfg = train_cfg(16, torch.bfloat16)
+    model = qwen3.init(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    optimizer = engine.make_optimizer(3e-4)
+    opt_state = optimizer.init(model)
+    step = engine.make_train_step(qwen3, cfg, optimizer, fused_head_ce=True)
+    batch = train_batch(b, s)
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt_state, loss0 = step(model, opt_state, batch)  # warm-up
+    torch.cuda.synchronize()
+    losses = [loss0]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        model, opt_state, loss = step(model, opt_state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    launches = read_launches(TRAIN, records)
+    losses = [float(x) for x in losses]
+    n_steps = steps + 1
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        if launches[name] != cfg["n_layers"] * n_steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in {n_steps} steps, "
+                                 f"expected {cfg['n_layers']} per step")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 train losses not finite and falling: {losses}")
+    tok_s = b * s / dt
+    flops_per_token = F.text_train_flops_per_token(cfg, seq_len=s)
+    emit({"phase": "train", "card": card, "dtype": "bfloat16", "layers": cfg["n_layers"], "b": b, "s": s,
+          "launches": launches, "losses": losses, "step_ms": dt * 1e3, "tok_s": tok_s,
+          "flops_per_token": flops_per_token, "mfu": F.mfu(tok_s, flops_per_token),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del model, opt_state
+    torch.cuda.empty_cache()
+
+
+def profile_train(card, steps=2):
+    """``torch.profiler`` breakdown of bench.py's bf16 train step: device
+    busy share of the profiled wall, and device time by kernel group (the
+    flash kernels, cuBLAS GEMMs, everything else). One JSON line."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from llm_quest_tpu_torch.models import qwen3
+    from llm_quest_tpu_torch.training import engine
+
+    cfg = train_cfg(16, torch.bfloat16)
+    model = qwen3.init(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    optimizer = engine.make_optimizer(3e-4)
+    opt_state = optimizer.init(model)
+    step = engine.make_train_step(qwen3, cfg, optimizer, fused_head_ce=True)
+    batch = train_batch(4, 2048)
+    for _ in range(2):  # warm-up: kernels built, allocator filled
+        model, opt_state, _ = step(model, opt_state, batch)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model, opt_state, _ = step(model, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device kernel")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:  # union of the kernel intervals
+        if s > hi:
+            busy_us, lo = busy_us + hi - lo, s
+        hi = max(hi, e)
+    busy_us += hi - lo
+    groups = {"flash_fwd": "attention_fwd_kernel", "flash_bwd_dq": "attention_bwd_dq_kernel",
+              "flash_bwd_dkv": "attention_bwd_dkv_kernel"}
+    by_group = dict.fromkeys([*groups, "gemm", "other"], 0.0)
+    by_name = {}
+    for e in kernels:
+        ms = e.time_range.elapsed_us() / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        group = next((g for g, key in groups.items() if key in e.name), None)
+        if group is None:
+            gemm = any(t in e.name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet"))
+            group = "gemm" if gemm else "other"
+        by_group[group] += ms
+    total_ms = sum(by_group.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    emit({"phase": "profile_train", "card": card, "steps": steps, "wall_ms": wall_ms,
+          "device_kernel_ms": total_ms, "device_busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
+          "group_ms_per_step": {g: ms / steps for g, ms in by_group.items()},
+          "group_share": {g: ms / total_ms for g, ms in by_group.items()},
+          "top_ms_per_step": [[name[:90], ms / steps] for name, ms in top]})
+
+
+def main(argv):
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="only profile bench.py's bf16 train step (torch.profiler) and print its breakdown")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
@@ -403,12 +670,17 @@ def main():
     emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": lib.build_seconds, "load_s": time.perf_counter() - t0})
+    if args.profile:
+        profile_train(smi)
+        return 0
 
     records = kernel_phase()
     cfg = dict(QWEN3_5_08B_CONFIG)
     inputs = make_inputs(cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
     check_fp32(cfg, inputs)
     main_path(cfg, inputs, records, smi)
+    train_fp32()
+    train_main_path(records, smi)
 
     emit({"kernels": records})
     print(smi)
@@ -418,4 +690,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -5,8 +5,10 @@ counterpart at the same relative path there, with the same function names,
 and the tests hold the two to each other on the CPU. This package imports
 torch and numpy only — never jax and never ``llm_quest_tpu``.
 
-Slice ported so far: Qwen3.5-0.8B multimodal generation
-(``models/qwen3_5.py::generate_multimodal``) and the batched text decode
-engine (``inference/generate.py``), with the four TPU kernels on that path
-rewritten as CUDA C++ for ``sm_90a`` (``csrc/``, bound in ``kernels/``).
+Slices ported so far: Qwen3.5-0.8B multimodal generation
+(``models/qwen3_5.py::generate_multimodal``) with the batched text decode
+engine (``inference/generate.py``), and the dense Qwen3 training step
+(``models/qwen3.py``, ``training/engine.py``). The TPU kernels on those paths
+are rewritten as CUDA C++ for ``sm_90a`` (``csrc/``, bound in ``kernels/``),
+flash attention with its backward.
 """

@@ -1,7 +1,8 @@
 """Model configurations (counterpart of ``llm_quest_tpu/config.py``).
 
 Plain dicts with the reference's keys; dtypes are torch dtypes. Only the
-configuration of the ported slice is here.
+configurations of the ported slices are here: Qwen3.5-0.8B and the dense
+Qwen3 entries (the MoE entries wait for ``ops/moe.py``).
 """
 
 import torch
@@ -56,6 +57,33 @@ QWEN3_5_08B_CONFIG = {
     "image_mean": [0.5, 0.5, 0.5],
     "image_std": [0.5, 0.5, 0.5],
 }
+
+
+def qwen3_config_creator(model_size="0.6B", base_model=True):
+    """Qwen3 dense configs with the JAX package's values (HF config.json);
+    model_size: "temp_dense" | "0.6B" | "1.7B" | "4B"."""
+    base_config = {
+        "vocab_size": 151_936,
+        "rope_base": 1_000_000,
+        "head_dim": 128,
+        "dtype": torch.bfloat16,
+        "model_path": f"Qwen/Qwen3-{model_size}{'-Base' if base_model else ''}",
+        "model_type": "dense",
+        "tie_embeddings": True,
+    }
+    configs = {
+        "temp_dense": {"emb_dim": 896, "n_layers": 12, "n_heads": 8, "num_kv_groups": 4,
+                       "hidden_dim": 4 * 896, "context_length": 512},
+        "0.6B": {"emb_dim": 1024, "n_layers": 28, "n_heads": 16, "num_kv_groups": 8,
+                 "hidden_dim": 3072, "context_length": 40_960},
+        "1.7B": {"emb_dim": 2048, "n_layers": 28, "n_heads": 16, "num_kv_groups": 8,
+                 "hidden_dim": 6144, "context_length": 40_960},
+        "4B": {"emb_dim": 2560, "n_layers": 36, "n_heads": 32, "num_kv_groups": 8,
+               "hidden_dim": 9728, "context_length": 40_960},
+    }
+    if model_size not in configs:
+        raise ValueError(f"model_size must be one of {sorted(configs)} (the MoE entries are not ported)")
+    return {**base_config, **configs[model_size]}
 
 
 def model_dtype(cfg):

@@ -1,8 +1,9 @@
-// Blockwise online-softmax attention forward for Hopper.
+// Blockwise online-softmax attention, forward and backward, for Hopper.
 //
-// Replaces two TPU kernels:
-//   llm_quest_tpu/kernels/flash_attention.py::flash_attention (forward, _fwd /
-//     _fwd_kernel): causal masking with a static query offset q_start (query
+// Replaces these TPU kernels:
+//   llm_quest_tpu/kernels/flash_attention.py::flash_attention, forward (_fwd /
+//     _fwd_kernel) and recompute backward (_bwd_dq_kernel, _bwd_dkv_kernel,
+//     the custom VJP of _flash_core): causal masking with a static query offset q_start (query
 //     row i sits at absolute position q_start + i; key j is visible iff
 //     j <= q_start + i), a (b, sk) key-validity mask (nonzero = real key) and
 //     GQA (q head h reads kv head h / (hq / hkv)). Qwen3.5 text: hq 8, hkv 2,
@@ -19,8 +20,9 @@
 // of BK = 32 in order, stages K and V in shared memory as fp32, computes its
 // 16 x 32 score tile, and keeps the running max, sum and the (16, d) fp32
 // output accumulator (d / 8 values per thread, in registers) of the online
-// softmax. Causal blocks past the diagonal of the block's last row are never
-// loaded. Masked scores are finfo(float32).min / 2, as in the JAX package, so
+// softmax. The flash forward also writes the row logsumexp m + log(l) (fp32)
+// for the backward. Causal blocks past the diagonal of the block's last row
+// are never loaded. Masked scores are finfo(float32).min / 2, as in the JAX package, so
 // a row with no visible key averages the keys it visited instead of NaN;
 // keys past sk contribute nothing.
 //
@@ -28,7 +30,8 @@
 // the tensor cores, so it is bound by shared-memory bandwidth of the score
 // and PV loops. The tensor-core (wgmma) form is later work. At d = 256 the
 // staged tiles take 84 KB, above the 48 KB default, so the launch raises the
-// kernel's dynamic shared-memory limit first.
+// kernel's dynamic shared-memory limit first. The backward's design is
+// described above its kernels below.
 #include "common.cuh"
 
 namespace llmq {
@@ -50,7 +53,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, const uint8_t* __restrict__ key_mask, int HQ, int HKV,
+                     T* __restrict__ o, float* __restrict__ lse,
+                     const uint8_t* __restrict__ key_mask, int HQ, int HKV,
                      int SQ, int SK, long long q_sb, long long q_sh, long long q_ss,
                      long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                      long long v_sh, long long v_ss, long long o_sb, long long o_sh,
@@ -150,12 +154,266 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const float inv = 1.f / l;
 #pragma unroll
     for (int n = 0; n < NC; ++n) orow[c + kTPR * n] = from_f<T>(acc[n] * inv);
+    if (lse != nullptr && c == 0) lse[(long long)bh * SQ + q0 + r] = m + logf(l);
   }
 }
 
+// ------------------------------------------------------------------ backward
+//
+// Recompute backward (FlashAttention-2), from the forward's row logsumexp
+// lse and delta = rowsum(dO * O) (minus an optional per-row shift, the
+// cotangent of lse when a caller differentiates through it):
+//   p = exp(s - lse), dp = dO V^T, ds = p * (dp - delta),
+//   dq = scale * ds K, dk = scale * ds^T Q, dv = p^T dO.
+// Masked scores have p = 0 and ds = 0 (the score there is a constant).
+// Two kernels, no atomics, so the gradients are deterministic:
+//   dq:  one block per (b*hq, 16 query rows), walking the visible key tiles;
+//   dkv: one block per (b*hkv, 16 keys), walking the visible query tiles of
+//        every q head of the GQA group, so dk/dv need no per-q-head buffers
+//        and no group sum afterwards.
+// Both keep their fp32 accumulators in registers (d/8 values per thread per
+// accumulator, eight threads per row) and stage the operand tiles as fp32 in
+// shared memory with a padded row stride; at d = 256 a block stages ~100 KB,
+// so each launch raises the kernel's dynamic shared-memory limit first.
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;          // (b*hq, sq)
+  const float* delta;        // (b*hq, sq)
+  const float* delta_shift;  // (b*hq, sq) or nullptr
+  void* dq;                  // contiguous (b, hq, sq, d)
+  void* dk;                  // contiguous (b, hkv, sk, d)
+  void* dv;                  // contiguous (b, hkv, sk, d)
+  const uint8_t* key_mask;   // (b, sk) with row stride mask_sb, or nullptr
+  int B, HQ, HKV, SQ, SK;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss, mask_sb;
+  int causal, q_start;
+  float scale;
+};
+
+__device__ __forceinline__ float row_delta(const BwdArgs& a, long long i) {
+  return a.delta[i] - (a.delta_shift != nullptr ? a.delta_shift[i] : 0.f);
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * (2 * kBQ * (D + 1) + 2 * kBK * (D + 1) + kBQ * kPS);
+}
+
+// grid (ceil(sq / kBQ), b*hq), block kThreads, dynamic smem dq_smem_bytes<D>().
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, const uint8_t* key_mask, int B,
-           int HQ, int HKV, int SQ, int SK, long long q_sb, long long q_sh, long long q_ss,
+__global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int DP = D + 1;
+  constexpr int NC = D / kTPR;
+  constexpr int NS = kBK / kTPR;
+  extern __shared__ float smem[];
+  float* q_s = smem;             // kBQ x DP, pre-scaled as in the forward
+  float* do_s = q_s + kBQ * DP;  // kBQ x DP
+  float* k_s = do_s + kBQ * DP;  // kBK x DP
+  float* v_s = k_s + kBK * DP;   // kBK x DP
+  float* ds_s = v_s + kBK * DP;  // kBQ x kPS
+
+  const int bh = blockIdx.y;
+  const int bi = bh / a.HQ, hq = bh % a.HQ;
+  const int hk = hq / (a.HQ / a.HKV);
+  const int q0 = blockIdx.x * kBQ;
+  const int tid = threadIdx.x;
+  const int r = tid / kTPR, c = tid % kTPR;
+
+  const T* qb = static_cast<const T*>(a.q) + bi * a.q_sb + hq * a.q_sh;
+  const T* dob = static_cast<const T*>(a.dout) + bi * a.do_sb + hq * a.do_sh;
+  const T* kb = static_cast<const T*>(a.k) + bi * a.k_sb + hk * a.k_sh;
+  const T* vb = static_cast<const T*>(a.v) + bi * a.v_sb + hk * a.v_sh;
+  const uint8_t* mb = a.key_mask != nullptr ? a.key_mask + bi * a.mask_sb : nullptr;
+
+  for (int i = tid; i < kBQ * D; i += kThreads) {
+    const int rr = i / D, d = i % D;
+    const bool ok = q0 + rr < a.SQ;
+    q_s[rr * DP + d] = ok ? to_f(qb[(q0 + rr) * a.q_ss + d]) * a.scale : 0.f;
+    do_s[rr * DP + d] = ok ? to_f(dob[(q0 + rr) * a.do_ss + d]) : 0.f;
+  }
+
+  const int row = q0 + r;
+  const bool row_ok = row < a.SQ;
+  const long long stat = (long long)bh * a.SQ + row;
+  const float lse_r = row_ok ? a.lse[stat] : 0.f;
+  const float delta_r = row_ok ? row_delta(a, stat) : 0.f;
+  const int q_last = min(q0 + kBQ, a.SQ) - 1;
+  const int k_end = a.causal ? min(a.SK, a.q_start + q_last + 1) : a.SK;
+  const int qpos = a.q_start + row;
+
+  float acc[NC];
+#pragma unroll
+  for (int n = 0; n < NC; ++n) acc[n] = 0.f;
+
+  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+    __syncthreads();  // the previous tile is consumed (and q_s/do_s are staged)
+    for (int i = tid; i < kBK * D; i += kThreads) {
+      const int j = i / D, d = i % D;
+      const bool ok = k0 + j < a.SK;
+      k_s[j * DP + d] = ok ? to_f(kb[(k0 + j) * a.k_ss + d]) : 0.f;
+      v_s[j * DP + d] = ok ? to_f(vb[(k0 + j) * a.v_ss + d]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[NS], dp[NS];
+#pragma unroll
+    for (int jj = 0; jj < NS; ++jj) s[jj] = dp[jj] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float qd = q_s[r * DP + d], od = do_s[r * DP + d];
+#pragma unroll
+      for (int jj = 0; jj < NS; ++jj) {
+        const int j = c + kTPR * jj;
+        s[jj] += qd * k_s[j * DP + d];
+        dp[jj] += od * v_s[j * DP + d];
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < NS; ++jj) {
+      const int kpos = k0 + c + kTPR * jj;
+      const bool vis = row_ok && kpos < a.SK && !(a.causal && kpos > qpos) && (mb == nullptr || mb[kpos] != 0);
+      const float p = vis ? expf(s[jj] - lse_r) : 0.f;
+      ds_s[r * kPS + c + kTPR * jj] = p * (dp[jj] - delta_r);
+    }
+    __syncwarp();  // the row's ds (written by its 8 threads) are visible
+    for (int j = 0; j < kBK; ++j) {
+      const float g = ds_s[r * kPS + j];
+#pragma unroll
+      for (int n = 0; n < NC; ++n) acc[n] += g * k_s[j * DP + c + kTPR * n];
+    }
+  }
+
+  if (row_ok) {
+    T* dqrow = static_cast<T*>(a.dq) + stat * D;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) dqrow[c + kTPR * n] = from_f<T>(acc[n] * a.scale);
+  }
+}
+
+constexpr int kKvBK = kThreads / kTPR;  // keys per dkv block (16), eight threads per key
+constexpr int kKvBQ = 32;               // query rows per staged tile
+constexpr int kKvPS = kKvBQ + 1;        // padded row stride of the p / ds tiles
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) * (2 * kKvBK * (D + 1) + 2 * kKvBQ * (D + 1) + 2 * kKvBK * kKvPS + 2 * kKvBQ);
+}
+
+// grid (ceil(sk / kKvBK), b*hkv), block kThreads, dynamic smem dkv_smem_bytes<D>().
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdArgs a) {
+  constexpr int DP = D + 1;
+  constexpr int NC = D / kTPR;
+  constexpr int NR = kKvBQ / kTPR;  // query rows per thread per tile
+  extern __shared__ float smem[];
+  float* k_s = smem;                    // kKvBK x DP
+  float* v_s = k_s + kKvBK * DP;        // kKvBK x DP
+  float* q_s = v_s + kKvBK * DP;        // kKvBQ x DP
+  float* do_s = q_s + kKvBQ * DP;       // kKvBQ x DP
+  float* p_s = do_s + kKvBQ * DP;       // kKvBK x kKvPS
+  float* ds_s = p_s + kKvBK * kKvPS;    // kKvBK x kKvPS
+  float* lse_s = ds_s + kKvBK * kKvPS;  // kKvBQ
+  float* dl_s = lse_s + kKvBQ;          // kKvBQ
+
+  const int bh = blockIdx.y;
+  const int bi = bh / a.HKV, hk = bh % a.HKV;
+  const int group = a.HQ / a.HKV;
+  const int k0 = blockIdx.x * kKvBK;
+  const int tid = threadIdx.x;
+  const int j = tid / kTPR, c = tid % kTPR;
+  const int kpos = k0 + j;
+
+  const T* kb = static_cast<const T*>(a.k) + bi * a.k_sb + hk * a.k_sh;
+  const T* vb = static_cast<const T*>(a.v) + bi * a.v_sb + hk * a.v_sh;
+  const uint8_t* mb = a.key_mask != nullptr ? a.key_mask + bi * a.mask_sb : nullptr;
+  for (int i = tid; i < kKvBK * D; i += kThreads) {
+    const int jj = i / D, d = i % D;
+    const bool ok = k0 + jj < a.SK;
+    k_s[jj * DP + d] = ok ? to_f(kb[(k0 + jj) * a.k_ss + d]) : 0.f;
+    v_s[jj * DP + d] = ok ? to_f(vb[(k0 + jj) * a.v_ss + d]) : 0.f;
+  }
+  const bool key_ok = kpos < a.SK && (mb == nullptr || mb[kpos] != 0);
+  // causal: query row i sees key k0 only from i = k0 - q_start on
+  const int i_min = a.causal ? max(0, k0 - a.q_start) : 0;
+  const int t0 = (i_min / kKvBQ) * kKvBQ;
+
+  float dk_acc[NC], dv_acc[NC];
+#pragma unroll
+  for (int n = 0; n < NC; ++n) dk_acc[n] = dv_acc[n] = 0.f;
+
+  for (int g = 0; g < group; ++g) {
+    const int hq = hk * group + g;
+    const T* qb = static_cast<const T*>(a.q) + bi * a.q_sb + hq * a.q_sh;
+    const T* dob = static_cast<const T*>(a.dout) + bi * a.do_sb + hq * a.do_sh;
+    const long long stat0 = ((long long)bi * a.HQ + hq) * a.SQ;
+    for (int q0 = t0; q0 < a.SQ; q0 += kKvBQ) {
+      __syncthreads();  // the previous tile is consumed (and k_s/v_s are staged)
+      for (int i = tid; i < kKvBQ * D; i += kThreads) {
+        const int rr = i / D, d = i % D;
+        const bool ok = q0 + rr < a.SQ;
+        q_s[rr * DP + d] = ok ? to_f(qb[(q0 + rr) * a.q_ss + d]) : 0.f;
+        do_s[rr * DP + d] = ok ? to_f(dob[(q0 + rr) * a.do_ss + d]) : 0.f;
+      }
+      if (tid < kKvBQ) {
+        const bool ok = q0 + tid < a.SQ;
+        lse_s[tid] = ok ? a.lse[stat0 + q0 + tid] : 0.f;
+        dl_s[tid] = ok ? row_delta(a, stat0 + q0 + tid) : 0.f;
+      }
+      __syncthreads();
+
+      float s[NR], dp[NR];
+#pragma unroll
+      for (int ii = 0; ii < NR; ++ii) s[ii] = dp[ii] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float kd = k_s[j * DP + d], vd = v_s[j * DP + d];
+#pragma unroll
+        for (int ii = 0; ii < NR; ++ii) {
+          const int rr = c + kTPR * ii;
+          s[ii] += q_s[rr * DP + d] * kd;
+          dp[ii] += do_s[rr * DP + d] * vd;
+        }
+      }
+#pragma unroll
+      for (int ii = 0; ii < NR; ++ii) {
+        const int rr = c + kTPR * ii;
+        const int row = q0 + rr;
+        const bool vis = key_ok && row < a.SQ && !(a.causal && kpos > a.q_start + row);
+        const float p = vis ? expf(s[ii] * a.scale - lse_s[rr]) : 0.f;
+        p_s[j * kKvPS + rr] = p;
+        ds_s[j * kKvPS + rr] = p * (dp[ii] - dl_s[rr]);
+      }
+      __syncwarp();  // the key's p / ds (written by its 8 threads) are visible
+      for (int rr = 0; rr < kKvBQ; ++rr) {
+        const float p = p_s[j * kKvPS + rr], gs = ds_s[j * kKvPS + rr];
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          dv_acc[n] += p * do_s[rr * DP + c + kTPR * n];
+          dk_acc[n] += gs * q_s[rr * DP + c + kTPR * n];
+        }
+      }
+    }
+  }
+
+  if (kpos < a.SK) {
+    const long long off = ((long long)bh * a.SK + kpos) * D;
+    T* dkrow = static_cast<T*>(a.dk) + off;
+    T* dvrow = static_cast<T*>(a.dv) + off;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      dkrow[c + kTPR * n] = from_f<T>(dk_acc[n] * a.scale);
+      dvrow[c + kTPR * n] = from_f<T>(dv_acc[n]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launches
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, const uint8_t* key_mask,
+           int B, int HQ, int HKV, int SQ, int SK, long long q_sb, long long q_sh, long long q_ss,
            long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
            long long v_ss, long long o_sb, long long o_sh, long long o_ss, long long mask_sb,
            int causal, int q_start, float scale, cudaStream_t stream) {
@@ -167,22 +425,23 @@ int launch(const void* q, const void* k, const void* v, void* o, const uint8_t* 
   const dim3 grid((SQ + kBQ - 1) / kBQ, B * HQ);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), key_mask, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-      v_ss, o_sb, o_sh, o_ss, mask_sb, causal, q_start, scale);
+      static_cast<T*>(o), lse, key_mask, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
+      v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal, q_start, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o, const uint8_t* key_mask,
-             int B, int HQ, int HKV, int SQ, int SK, long long q_sb, long long q_sh,
-             long long q_ss, long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-             long long v_sh, long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-             long long mask_sb, int causal, int q_start, float scale, cudaStream_t stream) {
-#define LLMQ_ATTN_CASE(DIM)                                                                      \
-  case DIM:                                                                                      \
-    return launch<T, DIM>(q, k, v, o, key_mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb, k_sh, \
-                          k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal, q_start,     \
-                          scale, stream);
+int launch_d(int D, const void* q, const void* k, const void* v, void* o, float* lse,
+             const uint8_t* key_mask, int B, int HQ, int HKV, int SQ, int SK, long long q_sb,
+             long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+             long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+             long long o_ss, long long mask_sb, int causal, int q_start, float scale,
+             cudaStream_t stream) {
+#define LLMQ_ATTN_CASE(DIM)                                                                   \
+  case DIM:                                                                                   \
+    return launch<T, DIM>(q, k, v, o, lse, key_mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb, \
+                          k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal,     \
+                          q_start, scale, stream);
   switch (D) {
     LLMQ_ATTN_CASE(64)
     LLMQ_ATTN_CASE(128)
@@ -193,31 +452,112 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o, const 
 #undef LLMQ_ATTN_CASE
 }
 
+template <typename T, int D>
+int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t dq_smem = dq_smem_bytes<D>();
+  constexpr size_t kv_smem = dkv_smem_bytes<D>();
+  auto dq_kernel = attention_bwd_dq_kernel<T, D>;
+  auto dkv_kernel = attention_bwd_dkv_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
+  if (err != cudaSuccess) return (int)err;
+  dq_kernel<<<dim3((a.SQ + kBQ - 1) / kBQ, a.B * a.HQ), kThreads, dq_smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dkv_kernel<<<dim3((a.SK + kKvBK - 1) / kKvBK, a.B * a.HKV), kThreads, kv_smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_d(int D, const BwdArgs& a, cudaStream_t stream) {
+  switch (D) {
+    case 64:
+      return launch_bwd<T, 64>(a, stream);
+    case 128:
+      return launch_bwd<T, 128>(a, stream);
+    case 256:
+      return launch_bwd<T, 256>(a, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace llmq
 
 using namespace llmq;
 
 extern "C" int llmq_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
-                                  const void* key_mask, int B, int HQ, int HKV, int SQ, int SK,
-                                  int D, long long q_sb, long long q_sh, long long q_ss,
+                                  void* lse, const void* key_mask, int B, int HQ, int HKV, int SQ,
+                                  int SK, int D, long long q_sb, long long q_sh, long long q_ss,
                                   long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                                   long long v_sh, long long v_ss, long long o_sb, long long o_sh,
                                   long long o_ss, long long mask_sb, int causal, int q_start,
                                   float scale, void* stream) {
   if (HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SK <= 0) return (int)cudaErrorInvalidValue;
   const uint8_t* mask = static_cast<const uint8_t*>(key_mask);
+  float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) {
-    return launch_d<float>(D, q, k, v, o, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb, k_sh,
-                           k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal, q_start,
-                           scale, st);
+    return launch_d<float>(D, q, k, v, o, lse_f, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb,
+                           k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal,
+                           q_start, scale, st);
   }
   if (dtype == kBFloat16) {
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss,
-                                   k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb,
-                                   causal, q_start, scale, st);
+    return launch_d<__nv_bfloat16>(D, q, k, v, o, lse_f, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh,
+                                   q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+                                   mask_sb, causal, q_start, scale, st);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int llmq_attention_bwd(int dtype, const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse, const void* delta,
+                                  const void* delta_shift, void* dq, void* dk, void* dv,
+                                  const void* key_mask, int B, int HQ, int HKV, int SQ, int SK, int D,
+                                  long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+                                  long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+                                  long long v_ss, long long do_sb, long long do_sh, long long do_ss,
+                                  long long mask_sb, int causal, int q_start, float scale,
+                                  void* stream) {
+  if (HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SK <= 0) return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.delta_shift = static_cast<const float*>(delta_shift);
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.key_mask = static_cast<const uint8_t*>(key_mask);
+  a.B = B;
+  a.HQ = HQ;
+  a.HKV = HKV;
+  a.SQ = SQ;
+  a.SK = SK;
+  a.q_sb = q_sb;
+  a.q_sh = q_sh;
+  a.q_ss = q_ss;
+  a.k_sb = k_sb;
+  a.k_sh = k_sh;
+  a.k_ss = k_ss;
+  a.v_sb = v_sb;
+  a.v_sh = v_sh;
+  a.v_ss = v_ss;
+  a.do_sb = do_sb;
+  a.do_sh = do_sh;
+  a.do_ss = do_ss;
+  a.mask_sb = mask_sb;
+  a.causal = causal;
+  a.q_start = q_start;
+  a.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) return launch_bwd_d<float>(D, a, st);
+  if (dtype == kBFloat16) return launch_bwd_d<__nv_bfloat16>(D, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

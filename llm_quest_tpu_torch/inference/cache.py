@@ -22,6 +22,13 @@ def init_kv_cache(n_layers, batch, n_kv_heads, max_len, head_dim, *, dtype=torch
     }
 
 
+def update_layer(cache, layer_idx, k_new, v_new):
+    """``write_layer`` at the cache's own position (models with one stacked
+    KV cache, e.g. Qwen3); ``pos`` is advanced by ``advance`` after the last
+    layer."""
+    return write_layer(cache, layer_idx, k_new, v_new, cache["pos"])
+
+
 def write_layer(cache, layer_idx, k_new, v_new, pos):
     """Write (b, h, s, d) new keys/values at column ``pos`` of layer
     ``layer_idx`` in place; returns (cache, full max_len k view, v view).
@@ -40,6 +47,11 @@ def cur_token_mask(attn_mask, s, pos0):
     if attn_mask.shape[1] == s:
         return attn_mask
     return attn_mask[:, pos0 : pos0 + s]
+
+
+def advance(cache, seq_len):
+    """The cache with its filled-position counter advanced by seq_len."""
+    return {**cache, "pos": cache["pos"] + seq_len}
 
 
 def max_len(cache):

@@ -31,8 +31,11 @@ _SIGNATURES = {
     "llmq_gdn_prefill": [_I] + [_P] * 8 + [_I] * 5 + [_L] * 9 + [_F, _P],
     # dtype, q, k, v, beta, alpha, stacked, layer, out, B, H, DK, DV, 6 strides, scale, stream
     "llmq_gdn_step_stacked": [_I] + [_P] * 6 + [_I, _P] + [_I] * 4 + [_L] * 6 + [_F, _P],
-    # dtype, q, k, v, o, key_mask, B, HQ, HKV, SQ, SK, D, 13 strides, causal, q_start, scale, stream
-    "llmq_attention_fwd": [_I] + [_P] * 5 + [_I] * 6 + [_L] * 13 + [_I, _I, _F, _P],
+    # dtype, q, k, v, o, lse, key_mask, B, HQ, HKV, SQ, SK, D, 13 strides, causal, q_start, scale, stream
+    "llmq_attention_fwd": [_I] + [_P] * 6 + [_I] * 6 + [_L] * 13 + [_I, _I, _F, _P],
+    # dtype, q, k, v, dout, lse, delta, delta_shift, dq, dk, dv, key_mask, B, HQ, HKV, SQ, SK, D,
+    # 13 strides, causal, q_start, scale, stream
+    "llmq_attention_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_L] * 13 + [_I, _I, _F, _P],
 }
 
 
@@ -125,3 +128,15 @@ def require_cuda(*tensors):
     dev = tensors[0].device
     for t in tensors:
         require(t.is_cuda and t.device == dev, "kernel operands must all lie on one CUDA device")
+
+
+def needs_grad(*tensors):
+    """True when autograd would record a gradient through one of ``tensors`` (None is skipped)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def require_no_grad(name, *tensors):
+    """A kernel whose backward is not ported refuses to run where a gradient
+    would be needed; raises ``NotImplementedError`` (never drops the gradient)."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(f"{name}: the kernel's backward is not ported")

@@ -8,6 +8,10 @@
   ``gdn_pallas.py::gated_delta_rule_step_stacked_pallas``. Plain version:
   ``ops/gdn.py::gated_delta_rule_step`` plus an indexed write.
 
+Both are forward-only on the card: their backward is not ported, so on a
+CUDA tensor they raise ``NotImplementedError`` when grad mode is on and an
+input requires grad (the plain versions, on the CPU, differentiate).
+
 Device rule: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain version. ``plain=True`` forces the plain version on any device; only
 comparisons against the kernel pass it. Each wrapper counts its launches in
@@ -34,6 +38,7 @@ def gated_delta_rule_fwd(q, k, v, beta, alpha, prev_state=None, *, chunk_size=64
     """
     if plain or not q.is_cuda:
         return gated_delta_rule_fwd_plain(q, k, v, beta, alpha, prev_state, chunk_size=chunk_size)
+    build.require_no_grad("gated_delta_rule_fwd", q, k, v, beta, alpha, prev_state)
     b, h, s, dk = q.shape
     dv = v.shape[-1]
     operands = (q, k, v, beta, alpha) + (() if prev_state is None else (prev_state,))
@@ -83,6 +88,7 @@ def gated_delta_rule_step_stacked(q_t, k_t, v_t, beta_t, alpha_t, stacked, layer
     """
     if plain or not q_t.is_cuda:
         return gated_delta_rule_step_stacked_plain(q_t, k_t, v_t, beta_t, alpha_t, stacked, layer)
+    build.require_no_grad("gated_delta_rule_step_stacked", q_t, k_t, v_t, beta_t, alpha_t, stacked)
     b, h, dk = q_t.shape
     dv = v_t.shape[-1]
     n_layers = stacked.shape[0]

@@ -5,12 +5,13 @@
   (no materialized repeat); boolean masks (b|1, 1|hq, sq, sk), True = masked,
   filled with finfo.min/2; scores, softmax and the value sum in fp32, as the
   JAX version's preferred_element_type gives them.
-- ``attention``: the router. Long causal prefills go to the flash kernel
-  (kernels/attention.py, K4); everything else, the decode step included, to
+- ``attention``: the router. Long causal calls (training forwards and
+  cached prefills) go to the flash kernel (kernels/attention.py, K4), which
+  is differentiable; everything else, the decode step included, to
   ``sdpa``. The int8-KV, head-shard and context-parallel branches of the JAX
   router are not ported, and neither is its short-sequence fused-MHA kernel
-  (K6): the JAX router sends that kernel only maskless calls, which Qwen3.5's
-  text attention never makes.
+  (K6): the JAX router sends that kernel only maskless calls, which the text
+  attention of Qwen3.5 and Qwen3 never makes (it passes its causal mask).
 - ``mha_packed``: bidirectional maskless MHA on packed (b, s, h·d)
   projections, the vision-tower path (K7).
 

@@ -26,20 +26,23 @@ def tied_head(w, h):
     return F.linear(h, w)
 
 
-def params(**tensors):
-    """An inference-only parameter group: its keys are the JAX leaf names, so
-    state-dict keys mirror the JAX parameter paths."""
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False) for k, t in tensors.items()})
+def params(*, trainable=False, **tensors):
+    """A parameter group whose keys are the JAX leaf names, so state-dict
+    keys mirror the JAX parameter paths. Frozen (inference) unless
+    ``trainable``."""
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=trainable) for k, t in tensors.items()})
 
 
 class Linear(nn.Module):
     """Parameters {"w": (out, in)[, "b": (out,)]} — the JAX leaf dict
-    {"w", "b"} under the same names."""
+    {"w", "b"} under the same names. Frozen (inference) unless ``trainable``."""
 
-    def __init__(self, d_in, d_out, *, bias, dtype, device=None):
+    def __init__(self, d_in, d_out, *, bias, dtype, device=None, trainable=False):
         super().__init__()
-        self.w = nn.Parameter(torch.empty(d_out, d_in, dtype=dtype, device=device), requires_grad=False)
-        self.b = nn.Parameter(torch.empty(d_out, dtype=dtype, device=device), requires_grad=False) if bias else None
+        self.w = nn.Parameter(torch.empty(d_out, d_in, dtype=dtype, device=device), requires_grad=trainable)
+        self.b = (
+            nn.Parameter(torch.empty(d_out, dtype=dtype, device=device), requires_grad=trainable) if bias else None
+        )
 
     def forward(self, x):
         return linear(x, self.w, self.b)

@@ -69,6 +69,20 @@ def _rotate(x, cos_g, sin_g):
     return cos_g * x + sin_g * rotate_half(x)
 
 
+def apply(x, cos, sin, position_ids=None):
+    """RoPE on x: (b, n_heads, s, head_dim); cos/sin: (ctx_len, rotation_dim).
+    position_ids: optional (b, s) int positions (default 0..s-1). With
+    rotation_dim < head_dim only the first rotation_dim features rotate
+    (partial RoPE)."""
+    if position_ids is not None:
+        cos_g = cos[position_ids][:, None].to(x.dtype)  # (b, 1, s, rot)
+        sin_g = sin[position_ids][:, None].to(x.dtype)
+    else:
+        s = x.shape[2]
+        cos_g, sin_g = cos[:s].to(x.dtype), sin[:s].to(x.dtype)
+    return _rotate(x, cos_g, sin_g)
+
+
 def apply_packed(x, cos, sin):
     """RoPE on the packed head layout x: (b, s, n_heads, head_dim), positions
     0..s-1 (the vision tower's transpose-free form)."""

@@ -1,0 +1,298 @@
+"""Core training engine (counterpart of ``llm_quest_tpu/training/engine.py``).
+
+One train step = forward, global loss, backward, global-norm clip, LR
+schedule and AdamW update, with the parameters and optimizer state updated
+IN PLACE (JAX donates the buffers to the same effect). Mixed precision is the
+config dtype (bf16 parameters and compute), as in the JAX package.
+
+``make_optimizer`` is written to optax's semantics, not as
+``torch.optim.AdamW``: ``clip_by_global_norm`` without an epsilon, Adam's μ
+in ``mu_dtype`` (fp32) and ν in the parameter dtype, ε = 1e-8 outside the
+square root, decoupled weight decay on every leaf (norms and the embedding
+included) scaled by the learning rate, the learning rate of update n taken
+from ``schedule(n)`` with n counted from 0, and gradient accumulation as
+``optax.MultiSteps`` (running mean of the micro-gradients, an update every
+k-th call, none in between). The global norm is accumulated in fp32.
+
+Not ported yet: the last-token classification loss (no classifier model is
+ported), dropout (no model of this package has it; a config asking for it
+makes ``training_eval_loop`` raise), and the ``checkpoint_every`` and
+``profiler`` options of ``training_eval_loop`` (``training/checkpointing.py``
+and ``training/profiling.py``), which raise.
+"""
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from llm_quest_tpu_torch.ops.losses import cross_entropy
+
+
+def make_lr_schedule(total_steps, init_lr, peak_lr, warmup_steps=0, min_lr=None, decay=None):
+    """Linear warmup init→peak over ``warmup_steps``, then cosine decay
+    peak→min over the remaining steps (``decay="cosine"``) or constant peak.
+    Returns a function of the step (int) → learning rate (float)."""
+    if warmup_steps > 0 and init_lr >= peak_lr:
+        raise ValueError(
+            f"Warmup enabled (warmup_steps={warmup_steps}) but init_lr ({init_lr:.2e}) "
+            f">= peak_lr ({peak_lr:.2e}). Either set warmup_steps=0 or init_lr < peak_lr."
+        )
+    if min_lr is not None and min_lr >= peak_lr:
+        raise ValueError(
+            f"min_lr ({min_lr:.2e}) >= peak_lr ({peak_lr:.2e}). "
+            f"Either set min_lr=None (no decay) or min_lr < peak_lr."
+        )
+    if decay is not None and min_lr is None:
+        raise ValueError(f"decay='{decay}' was set but min_lr=None. Either set min_lr < peak_lr or decay=None.")
+    if decay is None and min_lr is not None:
+        raise ValueError(f"min_lr ({min_lr:.2e}) was set but decay=None. Either set decay 'cosine' or min_lr=None.")
+
+    init_lr = init_lr if warmup_steps > 0 else peak_lr
+    lr_step = (peak_lr - init_lr) / warmup_steps if warmup_steps > 0 else 0.0
+    eff_min_lr = min_lr if min_lr is not None else peak_lr
+
+    def schedule(step):
+        if step < warmup_steps:
+            return init_lr + lr_step * step
+        if decay == "cosine":
+            total_decay = max(total_steps - warmup_steps, 1)
+            cos = 0.5 * (1 + math.cos(math.pi * (step - warmup_steps) / total_decay))
+            return eff_min_lr + (peak_lr - eff_min_lr) * cos
+        return peak_lr
+
+    return schedule
+
+
+def _leaves(params):
+    """The parameter tensors of an ``nn.Module``, a dict or a list, in a fixed order."""
+    if isinstance(params, torch.nn.Module):
+        return list(params.parameters())
+    if isinstance(params, dict):
+        return list(params.values())
+    return list(params)
+
+
+class AdamW:
+    """``optax.chain(clip_by_global_norm, adamw)`` (inside ``optax.MultiSteps``
+    when ``accumulation_steps > 1``), applied in place. ``init(params)``
+    makes the state; ``update(grads, state, params)`` applies one call."""
+
+    def __init__(self, lr_or_schedule, *, weight_decay, b1, b2, eps, grad_clip_norm, accumulation_steps, mu_dtype):
+        self.schedule = lr_or_schedule if callable(lr_or_schedule) else (lambda step: lr_or_schedule)
+        self.weight_decay, self.b1, self.b2, self.eps = weight_decay, b1, b2, eps
+        self.grad_clip_norm = grad_clip_norm
+        self.accumulation_steps = accumulation_steps
+        self.mu_dtype = mu_dtype
+
+    def init(self, params):
+        leaves = _leaves(params)
+        state = {
+            "count": 0,
+            "mu": [torch.zeros_like(p, dtype=self.mu_dtype) for p in leaves],
+            "nu": [torch.zeros_like(p) for p in leaves],
+        }
+        if self.accumulation_steps > 1:
+            state["mini_step"] = 0
+            state["acc"] = [torch.zeros_like(p) for p in leaves]
+        return state
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        leaves = _leaves(params)
+        if self.accumulation_steps > 1:
+            n = state["mini_step"]
+            for acc, g in zip(state["acc"], grads):
+                acc.add_((g - acc) / (n + 1))
+            state["mini_step"] = (n + 1) % self.accumulation_steps
+            if n != self.accumulation_steps - 1:
+                return state
+            grads = state["acc"]
+        if self.grad_clip_norm is not None:
+            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            keep = norm < self.grad_clip_norm  # optax's trigger: no epsilon
+            grads = [torch.where(keep, g, g / norm.to(g.dtype) * self.grad_clip_norm) for g in grads]
+        lr = self.schedule(state["count"])
+        state["count"] += 1
+        bc1 = 1 - self.b1 ** state["count"]
+        bc2 = 1 - self.b2 ** state["count"]
+        for p, g, mu, nu in zip(leaves, grads, state["mu"], state["nu"]):
+            mu.mul_(self.b1).add_(g.to(mu.dtype), alpha=1 - self.b1)
+            nu.mul_(self.b2).add_(g.square(), alpha=1 - self.b2)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            u = u + self.weight_decay * p
+            p.copy_(p + u * -lr)
+        if self.accumulation_steps > 1:
+            for acc in state["acc"]:
+                acc.zero_()
+        return state
+
+
+def make_optimizer(
+    lr_or_schedule, *, weight_decay=0.1, b1=0.9, b2=0.999, grad_clip_norm=1.0, accumulation_steps=1,
+    mu_dtype=torch.float32,
+):
+    """AdamW + global-norm clipping (+ MultiSteps gradient accumulation), to
+    optax's semantics; μ in ``mu_dtype`` (fp32 by default, so the first
+    moment stays full precision under bf16 parameters)."""
+    return AdamW(
+        lr_or_schedule, weight_decay=weight_decay, b1=b1, b2=b2, eps=1e-8, grad_clip_norm=grad_clip_norm,
+        accumulation_steps=accumulation_steps, mu_dtype=mu_dtype,
+    )
+
+
+def global_loss(logits, targets, aux=None):
+    """CE + the model's MoE auxiliary loss (aux["moe_loss"]) when present."""
+    loss = cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+    if aux and "moe_loss" in aux:
+        loss = loss + aux["moe_loss"]
+    return loss
+
+
+def _device_of(params):
+    return _leaves(params)[0].device
+
+
+def _as_tensors(batch, device):
+    """A batch dict (numpy arrays, lists or tensors) as tensors on ``device``."""
+    return {k: v.to(device) if torch.is_tensor(v) else torch.as_tensor(np.asarray(v), device=device)
+            for k, v in batch.items()}
+
+
+def make_loss_fn(model, cfg, *, fused_head_ce=False):
+    """The training loss of one batch: ``loss_fn(params, batch) -> 0-d
+    tensor``, differentiable in the parameters (see ``make_train_step``)."""
+
+    def loss_fn(params, batch):
+        if fused_head_ce:
+            from llm_quest_tpu_torch.ops.losses import cross_entropy_fused_head
+
+            hidden, _, aux = model.apply(
+                params, cfg, batch["input_ids"], attn_mask=batch.get("attn_mask"), training=True,
+                output_hidden_states=True,
+            )
+            loss = cross_entropy_fused_head(hidden, model.head_weights(params, cfg), batch["targets"])
+            if aux and "moe_loss" in aux:
+                loss = loss + aux["moe_loss"]
+            return loss
+        logits, _, aux = model.apply(params, cfg, batch["input_ids"], attn_mask=batch.get("attn_mask"), training=True)
+        return global_loss(logits, batch["targets"], aux)
+
+    return loss_fn
+
+
+def make_train_step(model, cfg, optimizer, *, fused_head_ce=False):
+    """One train step: (params, opt_state, batch) → (params, opt_state,
+    loss). ``params`` (an ``nn.Module``) and ``opt_state`` are updated in
+    place; ``loss`` is a 0-d device tensor (reading it synchronises).
+
+    fused_head_ce: CE fused with the LM head over row chunks
+    (ops/losses.py::cross_entropy_fused_head), so the (tokens, vocab) logits
+    never exist. Needs ``output_hidden_states`` in ``model.apply`` and
+    ``model.head_weights``."""
+    loss_fn = make_loss_fn(model, cfg, fused_head_ce=fused_head_ce)
+
+    def train_step(params, opt_state, batch):
+        batch = _as_tensors(batch, _device_of(params))
+        leaves = _leaves(params)
+        with torch.enable_grad():
+            loss = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, loss.detach()
+
+    return train_step
+
+
+def make_eval_step(model, cfg):
+    @torch.no_grad()
+    def eval_step(params, batch):
+        batch = _as_tensors(batch, _device_of(params))
+        logits, _, _ = model.apply(params, cfg, batch["input_ids"], attn_mask=batch.get("attn_mask"))
+        return global_loss(logits, batch["targets"])
+
+    return eval_step
+
+
+def calc_loss_loader(loader, eval_step, params, num_batches=None):
+    """Mean eval loss over (up to) num_batches batches."""
+    batches = list(loader) if not isinstance(loader, list) else loader
+    if len(batches) == 0:
+        return float("nan")
+    n = len(batches) if num_batches is None else min(num_batches, len(batches))
+    total = 0.0
+    for batch in batches[:n]:
+        total += float(eval_step(params, batch))
+    return total / n
+
+
+def evaluate(train_loader, val_loader, eval_step, params, eval_iter):
+    """(train_loss, val_loss) over eval_iter batches of each loader."""
+    train_loss = calc_loss_loader(train_loader, eval_step, params, num_batches=eval_iter)
+    val_loss = calc_loss_loader(val_loader, eval_step, params, num_batches=eval_iter)
+    return train_loss, val_loss
+
+
+def training_eval_loop(
+    model, cfg, params, train_loader, val_loader, *, num_epoch, peak_lr=4e-4, init_lr=1e-5, min_lr=None,
+    warmup_steps=0, decay=None, weight_decay=0.1, accumulation_steps=1, eval_freq=5, eval_iter=5,
+    log=print, timing=False, checkpoint_every=None, checkpoint_path=None, profiler=None,
+):
+    """Training loop with LR schedule, gradient accumulation, clipping and
+    periodic evaluation (at step 1 and every ``eval_freq`` optimizer steps).
+
+    train_loader / val_loader: re-iterable iterables of dict batches with
+    "input_ids", "targets" and an optional "attn_mask" (numpy arrays or
+    tensors); the training batches reach the device through
+    ``data/prefetch.py``. ``params`` (an ``nn.Module``) is trained in place.
+
+    Returns (params, train_losses, val_losses).
+    """
+    if checkpoint_every is not None or profiler is not None:
+        raise NotImplementedError(
+            "training_eval_loop: checkpoint_every= and profiler= wait for training/checkpointing.py "
+            "and training/profiling.py"
+        )
+    if cfg.get("drop_rate", cfg.get("p_dropout", 0.0)) > 0:
+        raise NotImplementedError("training_eval_loop: dropout is not ported")
+    del checkpoint_path  # used only with checkpoint_every
+    train_batches = list(train_loader)
+    steps_per_epoch = math.ceil(len(train_batches) / accumulation_steps)
+    total_steps = steps_per_epoch * num_epoch
+
+    schedule = make_lr_schedule(total_steps, init_lr, peak_lr, warmup_steps, min_lr, decay)
+    optimizer = make_optimizer(schedule, weight_decay=weight_decay, accumulation_steps=accumulation_steps)
+    opt_state = optimizer.init(params)
+
+    train_step = make_train_step(model, cfg, optimizer)
+    eval_step = make_eval_step(model, cfg)
+
+    train_losses, val_losses = [], []
+    step = 0
+    tokens_seen, t0 = 0, time.time()
+
+    from llm_quest_tpu_torch.data.prefetch import prefetch_to_device
+
+    for epoch in range(1, num_epoch + 1):
+        for i, batch in enumerate(prefetch_to_device(iter(train_batches), device=_device_of(params))):
+            params, opt_state, loss = train_step(params, opt_state, batch)
+            tokens_seen += batch["input_ids"].numel()
+
+            micro_step = i + 1 + (epoch - 1) * len(train_batches)
+            if micro_step % accumulation_steps == 0:
+                step += 1
+                if step == 1 or step % eval_freq == 0:
+                    tr, va = evaluate(train_batches, val_loader, eval_step, params, eval_iter)
+                    train_losses.append(tr)
+                    val_losses.append(va)
+                    msg = (
+                        f"Epoch: {epoch}, Step: {step}  | "
+                        f"Train loss: {tr:.5f}  Val loss: {va:.5f}  | "
+                        f"lr: {schedule(step):.1e}"
+                    )
+                    if timing:
+                        elapsed = time.time() - t0
+                        msg += f"  | tok/s: {tokens_seen / max(elapsed, 1e-9):.0f}"
+                    log(msg)
+    return params, train_losses, val_losses

@@ -13,21 +13,29 @@ both, so cache states compare directly.
 import numpy as np
 import torch
 
-from llm_quest_tpu_torch.models import qwen3_5
+from llm_quest_tpu_torch.models import qwen3, qwen3_5
 from llm_quest_tpu_torch.ops.linear import Linear
 
 
+def _model_for(flat, cfg, device):
+    if "linear_sdpa_ratio" not in cfg:  # no GDN/attention hybrid: the dense Qwen3
+        return qwen3.Qwen3(cfg, device)
+    if any(name.startswith("text/") for name in flat):
+        return qwen3_5.Qwen3_5(cfg, device)
+    return qwen3_5.TextModel(cfg, device)
+
+
 def from_jax_flat(flat, cfg, *, device=None):
-    """Build a Qwen3.5 model from a flattened JAX param tree.
+    """Build a model from a flattened JAX param tree.
 
     flat: {"/"-joined path: numpy array}, i.e. ``flatten_params`` of the
-    JAX params converted with ``np.asarray``. A tree with "vision/" and
-    "text/" prefixes (``init``) gives a ``qwen3_5.Qwen3_5``; a bare text tree
-    (``init_text``) a ``qwen3_5.TextModel``. Raises on a missing, unexpected
-    or mis-shaped leaf.
+    JAX params converted with ``np.asarray``. A Qwen3.5 config gives a
+    ``qwen3_5.Qwen3_5`` for a tree with "vision/" and "text/" prefixes
+    (``init``) and a ``qwen3_5.TextModel`` for a bare text tree
+    (``init_text``); a dense Qwen3 config (no ``linear_sdpa_ratio``) gives a
+    ``qwen3.Qwen3``. Raises on a missing, unexpected or mis-shaped leaf.
     """
-    is_vlm = any(name.startswith("text/") for name in flat)
-    model = qwen3_5.Qwen3_5(cfg, device) if is_vlm else qwen3_5.TextModel(cfg, device)
+    model = _model_for(flat, cfg, device)
     state = model.state_dict()
     names = {name.replace("/", "."): arr for name, arr in flat.items()}
     missing, unexpected = sorted(set(state) - set(names)), sorted(set(names) - set(state))

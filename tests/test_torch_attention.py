@@ -8,6 +8,11 @@ them, within 1e-4 fp32:
 - K4: ``flash_attention(..., interpret=True, block_q=128, block_k=128)`` with
   GQA 8/2, d = 256, a static query offset into a longer key range and a
   (b, sk) key mask (True = real key);
+- K4's backward: the plain version's dq/dk/dv (autograd through ``sdpa``)
+  against ``jax.grad`` of the same interpret-mode kernel (its custom VJP),
+  with causal masking, a static ``q_start``, a key mask and GQA; and the
+  plain backward's ``delta_shift`` against the logsumexp cotangent of
+  ``flash_attention_with_lse``;
 - K7: ``packed_mha(q, k, v, n_heads, None, True)`` at d = 64.
 """
 
@@ -16,7 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from llm_quest_tpu.kernels.flash_attention import flash_attention as jflash
+from llm_quest_tpu.kernels.flash_attention import flash_attention_with_lse as jflash_lse
 from llm_quest_tpu.kernels.fused_mha import packed_mha as jpacked
 from llm_quest_tpu.ops import attention as jattn
 from llm_quest_tpu.ops.masks import causal_mask as jcausal
@@ -56,6 +64,52 @@ def test_k4_plain_matches_pallas(q_start, with_mask):
     assert_close(got, ref)
 
 
+@pytest.mark.parametrize("q_start", [0, 40])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_k4_plain_gradients_match_pallas_vjp(q_start, with_mask):
+    b, hq, hkv, sq, sk, d = 2, 4, 2, 100, 140, 64
+    q, k, v = rand(b, hq, sq, d), rand(b, hkv, sk, d, seed=1), rand(b, hkv, sk, d, seed=2)
+    do = rand(b, hq, sq, d, seed=4)
+    mask = None
+    if with_mask:
+        mask = np.random.default_rng(3).random((b, sk)) > 0.25
+        mask[:, 0] = True
+
+    def jloss(q, k, v):
+        out = jflash(q, k, v, attn_mask=None if mask is None else jnp.asarray(mask), causal=True,
+                     q_start=q_start, interpret=True, block_q=128, block_k=128)
+        return jnp.sum(out * jnp.asarray(do))
+
+    refs = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (T(x).requires_grad_() for x in (q, k, v))
+    out = kattn.flash_attention(qt, kt, vt, attn_mask=None if mask is None else T(mask), q_start=q_start)
+    grads = torch.autograd.grad(out, (qt, kt, vt), T(do))
+    for got, ref in zip(grads, refs):
+        assert_close(got, ref)
+    plain = kattn.flash_attention_bwd(
+        T(q), T(k), T(v), None, None, T(do), attn_mask=None if mask is None else T(mask), q_start=q_start
+    )
+    for got, ref in zip(plain, refs):
+        assert_close(got, ref)
+
+
+def test_k4_plain_delta_shift_matches_lse_cotangent():
+    """delta_shift is the cotangent of the row logsumexp (JAX's
+    flash_attention_with_lse folds it into the same backward)."""
+    b, h, s, d = 1, 2, 130, 64
+    q, k, v, do = (rand(b, h, s, d, seed=i) for i in range(4))
+    g_lse = rand(b, h, s, seed=5)
+
+    def jloss(q, k, v):
+        out, lse = jflash_lse(q, k, v, causal=False, interpret=True, block_q=128, block_k=128)
+        return jnp.sum(out * jnp.asarray(do)) + jnp.sum(lse * jnp.asarray(g_lse))
+
+    refs = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = kattn.flash_attention_bwd(T(q), T(k), T(v), None, None, T(do), causal=False, delta_shift=T(g_lse))
+    for g, r in zip(got, refs):
+        assert_close(g, r)
+
+
 @pytest.mark.parametrize("s", [20, 576])
 def test_k7_plain_matches_pallas(s):
     b, h, d = 1, 2, 64
@@ -81,6 +135,23 @@ def test_router_flash_prefill_matches_jax_sdpa():
     )
     got = tattn.attention(T(q), T(k), T(v), cfg=cfg, mask=T(dense), attn_mask=T(pad), q_start=4)
     assert_close(got, ref)
+
+
+def test_router_flash_route_carries_gradients():
+    """A full-sequence call from flash_min_seq up takes the router's flash
+    route; its gradients match JAX's router on the interpret-mode kernel."""
+    b, hq, hkv, s, d = 1, 4, 2, 40, 64
+    q, k, v, do = rand(b, hq, s, d), rand(b, hkv, s, d, seed=1), rand(b, hkv, s, d, seed=2), rand(b, hq, s, d, seed=3)
+    jcfg = {"flash_min_seq": 32, "use_flash": True}
+
+    def jloss(q, k, v):
+        return jnp.sum(jattn.attention(q, k, v, cfg=jcfg, causal=True) * jnp.asarray(do))
+
+    refs = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (T(x).requires_grad_() for x in (q, k, v))
+    out = tattn.attention(qt, kt, vt, cfg={"flash_min_seq": 32}, causal=True)
+    for got, ref in zip(torch.autograd.grad(out, (qt, kt, vt), T(do)), refs):
+        assert_close(got, ref)
 
 
 def test_flash_wrapper_rejects_unported_features():

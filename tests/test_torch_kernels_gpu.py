@@ -8,7 +8,8 @@ machine with an H100:
 
 Tolerances on max |kernel - plain| relative to max(1, max |plain|): fp32 2e-4
 (both compute in fp32, in another summation order), bf16 2e-2 (bf16 inputs
-and outputs round once more).
+and outputs round once more). The flash backward's gradients are held to
+autograd through the plain forward with the same tolerances.
 """
 
 import pytest
@@ -99,6 +100,135 @@ def test_packed_mha_kernel(gen, dtype, s):
 
     q, k, v = (randn(gen, 2, s, 12 * 64, dtype=dtype) for _ in range(3))
     assert_close(attention.packed_mha(q, k, v, 12), attention.packed_mha(q, k, v, 12, plain=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("heads", [(16, 8), (8, 2)])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_flash_attention_backward_kernel(gen, dtype, d, heads, with_mask):
+    from llm_quest_tpu_torch.kernels import attention
+
+    hq, hkv = heads
+    q0 = randn(gen, 2, hq, 150, d, dtype=dtype)
+    k0, v0 = randn(gen, 2, hkv, 150, d, dtype=dtype), randn(gen, 2, hkv, 150, d, dtype=dtype)
+    do = randn(gen, 2, hq, 150, d, dtype=dtype)
+    mask = None
+    if with_mask:
+        mask = torch.rand(2, 150, generator=gen, device="cuda") > 0.2
+        mask[:, 0] = True
+    q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+    n_fwd, n_bwd = attention.flash_attention.launches, attention.flash_attention_bwd.launches
+    out = attention.flash_attention(q, k, v, attn_mask=mask)
+    out.backward(do)
+    assert (attention.flash_attention.launches, attention.flash_attention_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    refs = attention.flash_attention_bwd_plain(q0, k0, v0, do, attn_mask=mask)
+    assert_close(out, attention.flash_attention(q0, k0, v0, attn_mask=mask, plain=True), dtype)
+    for got, ref in zip((q.grad, k.grad, v.grad), refs):
+        assert got.dtype == dtype
+        assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_backward_q_start_and_delta_shift(gen, dtype):
+    """Cached-prefill geometry (sq < sk, q_start > 0) and the lse cotangent."""
+    from llm_quest_tpu_torch.kernels import attention
+
+    q = randn(gen, 2, 8, 100, 128, dtype=dtype)
+    k, v = randn(gen, 2, 2, 164, 128, dtype=dtype), randn(gen, 2, 2, 164, 128, dtype=dtype)
+    do = randn(gen, 2, 8, 100, 128, dtype=dtype)
+    shift = randn(gen, 2, 8, 100, scale=0.1)
+    mask = torch.rand(2, 164, generator=gen, device="cuda") > 0.2
+    mask[:, 0] = True
+    for delta_shift in (None, shift):
+        o = attention.flash_attention(q, k, v, attn_mask=mask, q_start=40)
+        lse = attention._plain_lse(q, k, mask, True, 40, 128**-0.5)
+        got = attention.flash_attention_bwd(q, k, v, o, lse, do, attn_mask=mask, q_start=40, delta_shift=delta_shift)
+        ref = attention.flash_attention_bwd(
+            q, k, v, o, lse, do, attn_mask=mask, q_start=40, delta_shift=delta_shift, plain=True
+        )
+        for g, r in zip(got, ref):
+            assert_close(g, r, dtype)
+
+
+def test_forward_only_kernels_raise_under_grad(gen):
+    """K1, K2 and K7 have no backward yet: on the card they refuse to run
+    when a gradient would be needed, and run under no_grad."""
+    from llm_quest_tpu_torch.kernels import attention, gdn
+
+    q, k, v, beta, alpha, s0 = gdn_inputs(gen, 1, 2, 8, torch.float32)
+    x = randn(gen, 1, 8, 2 * 64)
+    stacked = randn(gen, 2, 1, 2, 128, 128, scale=0.1)
+    calls = {
+        "K1": lambda g: gdn.gated_delta_rule_fwd(q.clone().requires_grad_(g), k, v, beta, alpha, s0),
+        "K2": lambda g: gdn.gated_delta_rule_step_stacked(
+            q[:, :, 0].clone().requires_grad_(g), k[:, :, 0], v[:, :, 0], beta[..., 0], alpha[..., 0], stacked, 0
+        ),
+        "K7": lambda g: attention.packed_mha(x.clone().requires_grad_(g), x, x, 2),
+    }
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError):
+            call(True)
+        with torch.no_grad():
+            call(True)
+        call(False)
+
+
+TINY_QWEN3 = {
+    "vocab_size": 256, "emb_dim": 64, "hidden_dim": 128, "n_layers": 2, "n_heads": 4, "num_kv_groups": 2,
+    "head_dim": 64, "rope_base": 1_000_000, "context_length": 128, "tie_embeddings": True,
+    "model_type": "dense", "flash_min_seq": 16, "dtype": torch.float32,
+}
+
+
+def _tiny_batch(gen, b=2, s=64):
+    ids = torch.randint(0, TINY_QWEN3["vocab_size"], (b, s), generator=gen, device="cuda")
+    mask = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    mask[1, -9:] = False
+    return {"input_ids": ids, "targets": torch.where(mask, torch.roll(ids, -1, 1), -100), "attn_mask": mask}
+
+
+@pytest.mark.parametrize("policy", ["none", "full", "dots"])
+def test_qwen3_gradients_through_kernels(gen, policy):
+    """Dense Qwen3 loss gradients through the flash kernels (with each remat
+    policy) against the plain versions, fp32."""
+    from llm_quest_tpu_torch.kernels import attention
+    from llm_quest_tpu_torch.models import qwen3
+    from llm_quest_tpu_torch.training import engine
+
+    cfg = dict(TINY_QWEN3, gradient_checkpointing=policy != "none", remat_policy=policy)
+    model = qwen3.init(cfg, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    batch = _tiny_batch(gen)
+    n_bwd = attention.flash_attention_bwd.launches
+    grads = {}
+    for use_kernels in (True, False):
+        loss = engine.make_loss_fn(qwen3, dict(cfg, use_kernels=use_kernels), fused_head_ce=True)(model, batch)
+        grads[use_kernels] = torch.autograd.grad(loss, list(model.parameters()))
+    assert attention.flash_attention_bwd.launches == n_bwd + cfg["n_layers"]
+    for got, ref in zip(grads[True], grads[False]):
+        assert_close(got, ref, torch.float32)
+
+
+def test_training_eval_loop_and_prefetch_on_the_card(gen):
+    from llm_quest_tpu_torch.data.prefetch import prefetch_to_device
+    from llm_quest_tpu_torch.kernels import attention
+    from llm_quest_tpu_torch.models import qwen3
+    from llm_quest_tpu_torch.training import engine
+
+    batches = [{k: v.cpu().numpy() for k, v in _tiny_batch(gen).items()} for _ in range(3)]
+    moved = list(prefetch_to_device(iter(batches), device="cuda"))
+    for got, ref in zip(moved, batches):
+        for k in ref:
+            assert got[k].is_cuda and (got[k].cpu().numpy() == ref[k]).all()
+    model = qwen3.init(TINY_QWEN3, generator=torch.Generator(device="cuda").manual_seed(2), device="cuda")
+    n_bwd = attention.flash_attention_bwd.launches
+    _, train_losses, val_losses = engine.training_eval_loop(
+        qwen3, TINY_QWEN3, model, batches, batches[:1], num_epoch=2, peak_lr=3e-3, eval_freq=2, eval_iter=3,
+        log=lambda _: None,
+    )
+    assert attention.flash_attention_bwd.launches == n_bwd + 6 * TINY_QWEN3["n_layers"]
+    assert len(train_losses) == 4 and all(map(torch.isfinite, torch.tensor(train_losses + val_losses)))
+    assert train_losses[-1] < train_losses[0]
 
 
 def test_wrappers_raise_on_unsupported_shapes(gen):
