@@ -4,18 +4,25 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the port's
-kernels from ``llm_quest_tpu_torch/csrc`` at first use. Two main paths are
-driven: Qwen3.5-0.8B generation and the dense Qwen3 training step of
-bench.py's train workload. Phases, one JSON line each on stdout:
+kernels from ``llm_quest_tpu_torch/csrc`` at first use. Three main paths are
+driven: Qwen3.5-0.8B generation, the dense Qwen3 training step of bench.py's
+train workload, and the Qwen3-Next hybrid training step of
+``scripts/bench_hybrid_training.py``. Phases, one JSON line each on stdout:
 
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
    card, fp32 and bf16, with the tolerances below, and the time of both
-   versions at its main path's shape. The flash backward's dq/dk/dv are held
-   to autograd through the plain ``sdpa`` (d 64/128/256, key mask on/off,
-   GQA 16/8 and 8/2; and, in bf16, one layer of the train step at b = 4,
-   s = 2048, output included) and timed forward + backward at that shape
-   and at b = 1;
+   versions at its main path's shape. K1's forward covers dk 64 and 128 and
+   the hybrid step's shape (b 4, h 8, s 2048, dk = dv = 64, bf16). K1's
+   backward is held to its plain version (the per-chunk replay) on the
+   kernel's own anchors — dk 64 and 128, s 300 (a partial last chunk),
+   prev_state on and off, a nonzero final-state cotangent, and in bf16 the
+   hybrid step's shape — and through autograd to autograd of the plain
+   chunked form; forward + backward are timed at the hybrid step's shape.
+   The flash backward's dq/dk/dv are held to autograd through the plain
+   ``sdpa`` (d 64/128/256, key mask on/off, GQA 16/8 and 8/2; and, in bf16,
+   one layer of the dense train step at b = 4, s = 2048, output included)
+   and timed forward + backward at that shape and at b = 1;
 3. check_fp32: the full-width Qwen3.5-0.8B generation path (random weights
    from a seeded generator) in fp32, once through the kernels and once with
    the plain versions forced: prefill logits close, first 16 greedy tokens
@@ -31,7 +38,15 @@ bench.py's train workload. Phases, one JSON line each on stdout:
    fused-head CE) through ``make_optimizer`` → ``make_train_step``, launch
    counts reset first, 1 warm-up and 4 timed steps: the loss is finite and
    falls, flash forward and backward each launch 16 times a step, and tok/s,
-   step ms and MFU are printed with the card's name and power limit.
+   step ms and MFU are printed with the card's name and power limit;
+8. hybrid_fp32: Qwen3-Next-small at full width cut to 4 layers (3 GDN + 1
+   GatedAttention), b = 1, s = 512, the loss and every gradient through the
+   kernels against the plain versions;
+9. hybrid_train: ``QWEN3_NEXT_SMALL_CONFIG`` at full width and depth (8
+   layers), b = 4, s = 2048, bf16, fused-head CE, exact (ragged) MoE
+   dispatch, as phase 7: K1 forward and backward launch 6 times a step,
+   flash forward and backward twice; then the same with capacity dispatch
+   (factor 1.25).
 
 Then the kernels summary line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits nonzero before the
@@ -39,10 +54,11 @@ last line; there is no CPU fallback.
 
     python3 chip_smoke.py --profile
 
-runs only the device phase and a ``torch.profiler`` breakdown of phase 7's
-train step (2 warm-up and 2 profiled steps): the device's busy share of the
-profiled wall and the device time per step by kernel group (flash forward,
-dq, dk/dv, cuBLAS GEMMs, the rest), one JSON line.
+runs only the device phase and a ``torch.profiler`` breakdown of the train
+steps of phases 7 and 9 (2 warm-up and 2 profiled steps each): the device's
+busy share of the profiled wall and the device time per step by kernel group
+(flash forward, dq, dk/dv, GDN forward, backward and its reduction, cuBLAS
+GEMMs, the rest), one JSON line each.
 """
 
 import json
@@ -58,9 +74,10 @@ import time
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # whole-path fp32 check: prefill logits, kernels vs plain, absolute
 LOGIT_TOL = 2e-3
-# fp32 train check, kernels vs plain: the loss relative, each gradient's
+# fp32 train checks, kernels vs plain: the loss relative, each gradient's
 # max |g_kernel - g_plain| relative to max |g_plain| (other summation orders
-# through 2 layers and the 151,936-row head)
+# through 2 to 4 layers and the 151,936-row head; the GDN kernels are the
+# exact scan, their plain versions the chunked form)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 SEED = 0
@@ -122,24 +139,116 @@ def gdn_inputs(gen, b, h, s, dtype, dk=128, dv=128):
 
 
 def kernel_k1(gen, dtypes):
+    import torch
+
     from llm_quest_tpu_torch.kernels import gdn
 
     errs, cases = [], []
     for dtype in dtypes:
-        for b, s in ((1, 156), (4, 300)):
-            q, k, v, beta, alpha, s0 = gdn_inputs(gen, b, 16, s, dtype)
+        for b, h, s, d in ((1, 16, 156, 128), (4, 16, 300, 128), (2, 8, 300, 64)):
+            q, k, v, beta, alpha, s0 = gdn_inputs(gen, b, h, s, dtype, dk=d, dv=d)
             out, st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0)
             ref_out, ref_st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0, plain=True)
             torch_sync()
-            e = max(check(f"K1 out b={b} s={s} {dtype}", out, ref_out, dtype),
-                    check(f"K1 state b={b} s={s} {dtype}", st, ref_st, dtype))
-            cases.append({"b": b, "s": s, "dtype": str(dtype), "max_abs_err": e})
+            e = max(check(f"K1 out b={b} s={s} dk={d} {dtype}", out, ref_out, dtype),
+                    check(f"K1 state b={b} s={s} dk={d} {dtype}", st, ref_st, dtype))
+            cases.append({"b": b, "h": h, "s": s, "dk": d, "dtype": str(dtype), "max_abs_err": e})
             if dtype == dtypes[0]:
                 errs.append(e)
+    # the hybrid train step's shape, bf16, from a zero state: checked and timed
+    q, k, v, beta, alpha, _ = gdn_inputs(gen, 4, 8, 2048, dtypes[-1], dk=64, dv=64)
+    out, st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha)
+    ref_out, ref_st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, plain=True)
+    torch_sync()
+    cases.append({"shape": f"b 4, h 8, s 2048, dk = dv = 64 {dtypes[-1]}",
+                  "max_abs_err": max(check("K1 out hybrid shape", out, ref_out, dtypes[-1]),
+                                     check("K1 state hybrid shape", st, ref_st, dtypes[-1])),
+                  "ms": cuda_ms(lambda: gdn.gated_delta_rule_fwd(q, k, v, beta, alpha), iters=5, warmup=1),
+                  "plain_ms": cuda_ms(lambda: gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, plain=True),
+                                      iters=5, warmup=1)})
+    del q, k, v, beta, alpha, out, st, ref_out, ref_st
+    torch.cuda.empty_cache()
+    # the record's time: the generation path's prefill shape
     q, k, v, beta, alpha, s0 = gdn_inputs(gen, 1, 16, 156, dtypes[-1])
     ms = cuda_ms(lambda: gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0))
     plain_ms = cuda_ms(lambda: gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0, plain=True))
     return max(errs), ms, plain_ms, cases
+
+
+def kernel_k1_bwd(gen, dtypes):
+    """K1's backward against its plain version (the per-chunk replay) on the
+    kernel's own anchors, and the autograd Function against autograd through
+    the plain chunked forward; forward + backward timed at the hybrid step's
+    shape."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import gdn
+
+    c = gdn.ANCHOR_CHUNK
+    names = ("dq", "dk", "dv", "dbeta", "dalpha", "d_prev")
+    errs, cases = [], []
+    for dtype in dtypes:
+        for d in (64, 128):
+            for with_prev in (False, True):
+                q, k, v, beta, alpha, s0 = gdn_inputs(gen, 2, 8, 300, dtype, dk=d, dv=d)
+                prev = s0 if with_prev else None
+                d_out, d_state = randn(gen, 2, 8, 300, d, dtype=dtype), randn(gen, 2, 8, d, d)
+                _, _, anchors = gdn._launch_fwd(q, k, v, beta, alpha, prev, anchor_chunk=c)
+                got = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, d_state, chunk_size=c)
+                ref = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, d_state, chunk_size=c,
+                                               plain=True)
+                torch_sync()
+                e = max(check(f"K1 bwd {n} dk={d} prev={with_prev} {dtype}", g, r, dtype)
+                        for n, g, r in zip(names, got, ref))
+                cases.append({"b": 2, "h": 8, "s": 300, "dk": d, "prev_state": with_prev, "d_state": True,
+                              "dtype": str(dtype), "max_abs_err": e})
+                if dtype == dtypes[0]:
+                    errs.append(e)
+        # through autograd, from the wrapper a model calls
+        q, k, v, beta, alpha, s0 = gdn_inputs(gen, 2, 8, 300, dtype, dk=64, dv=64)
+        d_out, d_state = randn(gen, 2, 8, 300, 64, dtype=dtype), randn(gen, 2, 8, 64, 64)
+        grads = []
+        for plain in (False, True):
+            args = [t.clone().requires_grad_() for t in (q, k, v, beta, alpha, s0)]
+            out, st = gdn.gated_delta_rule_fwd(*args, plain=plain)
+            grads.append(torch.autograd.grad((out, st), args, (d_out, d_state)))
+        torch_sync()
+        e = max(check(f"K1 autograd {n} {dtype}", g, r, dtype) for n, g, r in zip(names, *grads))
+        cases.append({"autograd": True, "b": 2, "h": 8, "s": 300, "dk": 64, "dtype": str(dtype), "max_abs_err": e})
+    # the hybrid train step's shape, bf16: checked, then timed
+    dtype = dtypes[-1]
+    q, k, v, beta, alpha, _ = gdn_inputs(gen, 4, 8, 2048, dtype, dk=64, dv=64)
+    d_out = randn(gen, 4, 8, 2048, 64, dtype=dtype)
+    _, _, anchors = gdn._launch_fwd(q, k, v, beta, alpha, None, anchor_chunk=c)
+    got = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=c)
+    ref = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=c, plain=True)
+    torch_sync()
+    case = {"shape": f"b 4, h 8, s 2048, dk = dv = 64 {dtype}",
+            "max_abs_err": {n: check(f"K1 bwd {n} hybrid shape", g, r, dtype) for n, g, r in zip(names, got, ref)},
+            "max_abs_ref": {n: max_err(g, r)[1] for n, g, r in zip(names, got, ref)}}
+    del got, ref
+    args = [t.clone().requires_grad_() for t in (q, k, v, beta, alpha)]
+
+    def kernel_fwd_bwd():
+        out, _ = gdn.gated_delta_rule_fwd(*args)
+        return torch.autograd.grad(out, args, d_out)
+
+    def plain_fwd_bwd():  # the plain halves at the JAX chunk of 64
+        _, _, anc = gdn.gated_delta_rule_fwd_plain(q, k, v, beta, alpha, chunk_size=64, with_anchors=True)
+        return gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anc, d_out, None, chunk_size=64, plain=True)
+
+    case["fwd_bwd_ms"] = cuda_ms(kernel_fwd_bwd, iters=5, warmup=1)
+    case["plain_fwd_bwd_ms"] = cuda_ms(plain_fwd_bwd, iters=3, warmup=1)
+    case["fwd_anchors_ms"] = cuda_ms(lambda: gdn._launch_fwd(q, k, v, beta, alpha, None, anchor_chunk=c),
+                                     iters=5, warmup=1)
+    case["bwd_ms"] = cuda_ms(lambda: gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None,
+                                                              chunk_size=c), iters=5, warmup=1)
+    case["plain_bwd_ms"] = cuda_ms(lambda: gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None,
+                                                                    chunk_size=c, plain=True), iters=3, warmup=1)
+    cases.append(case)
+    del q, k, v, beta, alpha, d_out, anchors, args
+    torch.cuda.empty_cache()
+    return max(errs), case["fwd_bwd_ms"], case["plain_fwd_bwd_ms"], cases
 
 
 def kernel_k2(gen, dtypes):
@@ -296,17 +405,19 @@ def torch_sync():
     torch.cuda.synchronize()  # a fault inside a kernel surfaces here, at its phase
 
 
-GENERATE, TRAIN = "generate", "train"  # the main paths
+GENERATE, TRAIN, HYBRID = "generate", "train", "hybrid_train"  # the main paths
 KERNELS = [
     # name, wrapper (module, attribute), source, replaced TPU kernel, check, main paths that launch it
     ("gdn_prefill", ("gdn", "gated_delta_rule_fwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
-     "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1, (GENERATE,)),
+     "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1, (GENERATE, HYBRID)),
+    ("gdn_prefill_bwd", ("gdn", "gated_delta_rule_bwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
+     "llm_quest_tpu/kernels/gdn_pallas.py:255", kernel_k1_bwd, (HYBRID,)),
     ("gdn_step_stacked", ("gdn", "gated_delta_rule_step_stacked"), "llm_quest_tpu_torch/csrc/gdn.cu",
      "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2, (GENERATE,)),
     ("flash_attention_fwd", ("attention", "flash_attention"), "llm_quest_tpu_torch/csrc/attention.cu",
-     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4, (GENERATE, TRAIN)),
+     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4, (GENERATE, TRAIN, HYBRID)),
     ("flash_attention_bwd", ("attention", "flash_attention_bwd"), "llm_quest_tpu_torch/csrc/attention.cu",
-     "llm_quest_tpu/kernels/flash_attention.py:175", kernel_k4_bwd, (TRAIN,)),
+     "llm_quest_tpu/kernels/flash_attention.py:175", kernel_k4_bwd, (TRAIN, HYBRID)),
     ("packed_mha", ("attention", "packed_mha"), "llm_quest_tpu_torch/csrc/attention.cu",
      "llm_quest_tpu/kernels/fused_mha.py:422", kernel_k7, (GENERATE,)),
 ]
@@ -323,11 +434,11 @@ def kernel_phase():
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     records = []
-    for name, spec, source, replaces, fn, _ in KERNELS:
+    for name, spec, source, replaces, fn, paths in KERNELS:
         err, ms, plain_ms, cases = fn(gen, (torch.float32, torch.bfloat16))
         emit({"phase": "kernel", "name": name, "cases": cases, "ms_bf16": ms, "plain_ms_bf16": plain_ms})
         records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "paths": list(paths)})
     return records
 
 
@@ -336,14 +447,14 @@ def reset_launches():
         wrapper(spec[1]).launches = 0
 
 
-def read_launches(path, records):
-    """The launch counts of the path just driven, added to ``records``;
-    fails if a kernel of the path never launched."""
+def read_launches(path, records, *, add=True):
+    """The launch counts of the path just driven, added to ``records`` (with
+    ``add``); fails if a kernel of the path never launched."""
     counts = {}
     for (name, spec, *_, paths), rec in zip(KERNELS, records):
         n = wrapper(spec).launches
         counts[name] = n
-        if path in paths:
+        if add and path in paths:
             rec["launches"] += n
     missing = [name for (name, *_, paths) in KERNELS if path in paths and counts[name] == 0]
     if missing:
@@ -478,7 +589,7 @@ def main_path(cfg, inputs, records, card):
           "text_b4": {"tok_s": 4 * 64 / tx_s, "ttft_ms": tx_ttft * 1e3, "run_s": tx_all}})
 
 
-# ------------------------------------------------------------ train path
+# ------------------------------------------------------------ train paths
 
 
 def train_cfg(n_layers, dtype):
@@ -492,6 +603,18 @@ def train_cfg(n_layers, dtype):
     )
 
 
+def hybrid_cfg(n_layers, dtype, capacity_factor=None):
+    """``scripts/bench_hybrid_training.py``'s configuration: Qwen3-Next-small
+    at s = 2048, no dropout, no remat; exact MoE dispatch, or capacity
+    dispatch at ``capacity_factor``."""
+    from llm_quest_tpu_torch.config import QWEN3_NEXT_SMALL_CONFIG
+
+    return dict(
+        QWEN3_NEXT_SMALL_CONFIG, n_layers=n_layers, context_length=2048, dtype=dtype, p_dropout=0.0,
+        gradient_checkpointing=False, moe_capacity_factor=capacity_factor,
+    )
+
+
 def train_batch(b, s):
     import numpy as np
     import torch
@@ -500,104 +623,130 @@ def train_batch(b, s):
     return {"input_ids": ids, "targets": torch.roll(ids, -1, 1)}
 
 
-def train_fp32():
+def init_model(model_mod, cfg):
+    import torch
+
+    return model_mod.init(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+
+
+def grads_check(phase, model_mod, cfg, b, s):
     """One fp32 step's loss and gradients, kernels vs plain, same weights."""
     import torch
 
-    from llm_quest_tpu_torch.models import qwen3
     from llm_quest_tpu_torch.training import engine
 
-    cfg = train_cfg(2, torch.float32)
-    batch = train_batch(1, 2048)
+    model = init_model(model_mod, cfg)
+    names = [n for n, _ in model.named_parameters()]
+    batch = train_batch(b, s)
     results = []
     for use_kernels in (True, False):
-        model = qwen3.init(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
-        run_cfg = dict(cfg, use_kernels=use_kernels)
-        loss = engine.make_loss_fn(qwen3, run_cfg, fused_head_ce=True)(model, batch)
+        loss = engine.make_loss_fn(model_mod, dict(cfg, use_kernels=use_kernels), fused_head_ce=True)(model, batch)
         grads = torch.autograd.grad(loss, list(model.parameters()))
-        results.append((float(loss.detach()), [g.detach() for g in grads], [n for n, _ in model.named_parameters()]))
-        del model
-    (lk, gk, names), (lp, gp, _) = results
+        results.append((float(loss.detach()), [g.detach() for g in grads]))
+    (lk, gk), (lp, gp) = results
     loss_rel = abs(lk - lp) / abs(lp)
     if not loss_rel <= TRAIN_LOSS_RTOL:
-        raise AssertionError(f"fp32 train loss, kernels {lk} vs plain {lp}: rel {loss_rel} > {TRAIN_LOSS_RTOL}")
+        raise AssertionError(f"{phase} loss, kernels {lk} vs plain {lp}: rel {loss_rel} > {TRAIN_LOSS_RTOL}")
     worst_name, worst = None, 0.0
-    for name, a, b in zip(names, gk, gp):
-        rel = float((a - b).abs().max()) / float(b.abs().max())
+    for name, a, r in zip(names, gk, gp):
+        diff, scale = float((a - r).abs().max()), float(r.abs().max())
+        rel = diff / scale if scale > 0 else diff  # a leaf no token reached: both must be zero
         if not rel <= TRAIN_GRAD_RTOL:
-            raise AssertionError(f"fp32 grad {name}: max |kernel - plain| / max |plain| = {rel} > {TRAIN_GRAD_RTOL}")
+            raise AssertionError(f"{phase} grad {name}: max |kernel - plain| / max |plain| = {rel} > {TRAIN_GRAD_RTOL}")
         if rel >= worst:
             worst_name, worst = name, rel
-    emit({"phase": "train_fp32", "layers": 2, "b": 1, "s": 2048, "loss_kernels": lk, "loss_plain": lp,
+    emit({"phase": phase, "layers": cfg["n_layers"], "b": b, "s": s, "loss_kernels": lk, "loss_plain": lp,
           "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL, "n_grads": len(names),
           "worst_grad": worst_name, "worst_grad_rel_err": worst, "grad_rtol": TRAIN_GRAD_RTOL})
-    del results
+    del model, results
     torch.cuda.empty_cache()
 
 
-def train_main_path(records, card, steps=4):
-    """bench.py's train step in bf16 through the port's entry points."""
+def train_run(phase, model_mod, cfg, records, card, path, per_step, *, add=True, steps=4, b=4, s=2048):
+    """A bf16 train step through the port's entry points (``make_optimizer``
+    → ``make_train_step``, fused-head CE): 1 warm-up and ``steps`` timed
+    steps, each ended by a device sync; every kernel of ``per_step`` must
+    launch that many times a step, and the loss must be finite and fall."""
     import math
 
     import torch
 
-    from llm_quest_tpu_torch.models import qwen3
     from llm_quest_tpu_torch.training import engine
     from llm_quest_tpu_torch.training import flops as F
 
-    b, s = 4, 2048
-    cfg = train_cfg(16, torch.bfloat16)
-    model = qwen3.init(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    model = init_model(model_mod, cfg)
     optimizer = engine.make_optimizer(3e-4)
     opt_state = optimizer.init(model)
-    step = engine.make_train_step(qwen3, cfg, optimizer, fused_head_ce=True)
+    step = engine.make_train_step(model_mod, cfg, optimizer, fused_head_ce=True)
     batch = train_batch(b, s)
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     model, opt_state, loss0 = step(model, opt_state, batch)  # warm-up
     torch.cuda.synchronize()
-    losses = [loss0]
-    t0 = time.perf_counter()
+    losses, step_s = [loss0], []
     for _ in range(steps):
+        t0 = time.perf_counter()
         model, opt_state, loss = step(model, opt_state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
         losses.append(loss)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / steps
-    launches = read_launches(TRAIN, records)
+    dt = sum(step_s) / steps
+    launches = read_launches(path, records, add=add)
     losses = [float(x) for x in losses]
     n_steps = steps + 1
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
-        if launches[name] != cfg["n_layers"] * n_steps:
-            raise AssertionError(f"{name}: {launches[name]} launches in {n_steps} steps, "
-                                 f"expected {cfg['n_layers']} per step")
+    for name, n in per_step.items():
+        if launches[name] != n * n_steps:
+            raise AssertionError(f"{phase} {name}: {launches[name]} launches in {n_steps} steps, expected {n} per step")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"bf16 train losses not finite and falling: {losses}")
+        raise AssertionError(f"{phase} bf16 losses not finite and falling: {losses}")
     tok_s = b * s / dt
     flops_per_token = F.text_train_flops_per_token(cfg, seq_len=s)
-    emit({"phase": "train", "card": card, "dtype": "bfloat16", "layers": cfg["n_layers"], "b": b, "s": s,
-          "launches": launches, "losses": losses, "step_ms": dt * 1e3, "tok_s": tok_s,
+    emit({"phase": phase, "card": card, "dtype": "bfloat16", "layers": cfg["n_layers"], "b": b, "s": s,
+          "moe_capacity_factor": cfg.get("moe_capacity_factor"), "launches": launches, "losses": losses,
+          "step_ms": dt * 1e3, "step_ms_each": [x * 1e3 for x in step_s], "tok_s": tok_s,
           "flops_per_token": flops_per_token, "mfu": F.mfu(tok_s, flops_per_token),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     del model, opt_state
     torch.cuda.empty_cache()
 
 
-def profile_train(card, steps=2):
-    """``torch.profiler`` breakdown of bench.py's bf16 train step: device
-    busy share of the profiled wall, and device time by kernel group (the
-    flash kernels, cuBLAS GEMMs, everything else). One JSON line."""
+def train_paths(records, card):
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3, qwen3_next
+
+    grads_check("train_fp32", qwen3, train_cfg(2, torch.float32), 1, 2048)
+    train_run("train", qwen3, train_cfg(16, torch.bfloat16), records, card, TRAIN,
+              {"flash_attention_fwd": 16, "flash_attention_bwd": 16})
+    # 4 layers keep one GatedAttention layer (the 4th); s = 512 takes flash
+    grads_check("hybrid_fp32", qwen3_next, hybrid_cfg(4, torch.float32), 1, 512)
+    hybrid = {"gdn_prefill": 6, "gdn_prefill_bwd": 6, "flash_attention_fwd": 2, "flash_attention_bwd": 2}
+    train_run("hybrid_train", qwen3_next, hybrid_cfg(8, torch.bfloat16), records, card, HYBRID, hybrid)
+    train_run("hybrid_train", qwen3_next, hybrid_cfg(8, torch.bfloat16, 1.25), records, card, HYBRID, hybrid,
+              add=False)
+
+
+PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names
+    "flash_fwd": "attention_fwd_kernel", "flash_bwd_dq": "attention_bwd_dq_kernel",
+    "flash_bwd_dkv": "attention_bwd_dkv_kernel", "gdn_fwd": "gdn_prefill_kernel",
+    "gdn_bwd": "gdn_prefill_bwd_kernel", "gdn_bwd_reduce": "gdn_bwd_reduce_kernel",
+}
+
+
+def profile_step(phase, model_mod, cfg, card, steps=2):
+    """``torch.profiler`` breakdown of a bf16 train step (b = 4, s = 2048):
+    device busy share of the profiled wall, and device time by kernel group
+    (the hand-written kernels, cuBLAS GEMMs, everything else). One JSON line."""
     import torch
     from torch.autograd import DeviceType
 
-    from llm_quest_tpu_torch.models import qwen3
     from llm_quest_tpu_torch.training import engine
 
-    cfg = train_cfg(16, torch.bfloat16)
-    model = qwen3.init(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    model = init_model(model_mod, cfg)
     optimizer = engine.make_optimizer(3e-4)
     opt_state = optimizer.init(model)
-    step = engine.make_train_step(qwen3, cfg, optimizer, fused_head_ce=True)
+    step = engine.make_train_step(model_mod, cfg, optimizer, fused_head_ce=True)
     batch = train_batch(4, 2048)
     for _ in range(2):  # warm-up: kernels built, allocator filled
         model, opt_state, _ = step(model, opt_state, batch)
@@ -619,25 +768,34 @@ def profile_train(card, steps=2):
             busy_us, lo = busy_us + hi - lo, s
         hi = max(hi, e)
     busy_us += hi - lo
-    groups = {"flash_fwd": "attention_fwd_kernel", "flash_bwd_dq": "attention_bwd_dq_kernel",
-              "flash_bwd_dkv": "attention_bwd_dkv_kernel"}
-    by_group = dict.fromkeys([*groups, "gemm", "other"], 0.0)
+    by_group = dict.fromkeys([*PROFILE_GROUPS, "gemm", "other"], 0.0)
     by_name = {}
     for e in kernels:
         ms = e.time_range.elapsed_us() / 1e3
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
-        group = next((g for g, key in groups.items() if key in e.name), None)
+        group = next((g for g, key in PROFILE_GROUPS.items() if key in e.name), None)
         if group is None:
             gemm = any(t in e.name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet"))
             group = "gemm" if gemm else "other"
         by_group[group] += ms
     total_ms = sum(by_group.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    emit({"phase": "profile_train", "card": card, "steps": steps, "wall_ms": wall_ms,
+    emit({"phase": phase, "card": card, "steps": steps, "wall_ms": wall_ms,
           "device_kernel_ms": total_ms, "device_busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
           "group_ms_per_step": {g: ms / steps for g, ms in by_group.items()},
           "group_share": {g: ms / total_ms for g, ms in by_group.items()},
           "top_ms_per_step": [[name[:90], ms / steps] for name, ms in top]})
+    del model, opt_state
+    torch.cuda.empty_cache()
+
+
+def profile_paths(card):
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3, qwen3_next
+
+    profile_step("profile_train", qwen3, train_cfg(16, torch.bfloat16), card)
+    profile_step("profile_hybrid_train", qwen3_next, hybrid_cfg(8, torch.bfloat16), card)
 
 
 def main(argv):
@@ -647,7 +805,7 @@ def main(argv):
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="only profile bench.py's bf16 train step (torch.profiler) and print its breakdown")
+                        help="only profile the bf16 dense and hybrid train steps (torch.profiler) and print the breakdowns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -671,7 +829,7 @@ def main(argv):
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": lib.build_seconds, "load_s": time.perf_counter() - t0})
     if args.profile:
-        profile_train(smi)
+        profile_paths(smi)
         return 0
 
     records = kernel_phase()
@@ -679,8 +837,7 @@ def main(argv):
     inputs = make_inputs(cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
     check_fp32(cfg, inputs)
     main_path(cfg, inputs, records, smi)
-    train_fp32()
-    train_main_path(records, smi)
+    train_paths(records, smi)
 
     emit({"kernels": records})
     print(smi)

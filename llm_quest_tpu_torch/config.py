@@ -1,11 +1,45 @@
 """Model configurations (counterpart of ``llm_quest_tpu/config.py``).
 
 Plain dicts with the reference's keys; dtypes are torch dtypes. Only the
-configurations of the ported slices are here: Qwen3.5-0.8B and the dense
-Qwen3 entries (the MoE entries wait for ``ops/moe.py``).
+configurations of the ported slices are here: Qwen3.5-0.8B, the dense Qwen3
+entries and Qwen3-Next-small (the Qwen3 MoE entries wait for the Qwen3 MoE
+model).
 """
 
 import torch
+
+# Qwen3-Next small hybrid (same keys and values as the JAX package's): 8
+# blocks, GatedAttention every 4th, Qwen3-MoE FFNs with a weighted shared expert
+QWEN3_NEXT_SMALL_CONFIG = {
+    "vocab_size": 151_936,
+    "rope_base": 10_000,
+    "partial_rope_factor": 0.25,
+    "n_layers": 8,
+    "linear_sdpa_ratio": 4,
+    "dtype": torch.bfloat16,
+    "tie_embeddings": False,
+    "emb_dim": 896,
+    # gated attention
+    "head_dim": 64,
+    "n_heads": 8,
+    "num_kv_groups": 4,
+    "context_length": 512,
+    # gated deltanet
+    "linear_num_qk_heads": 4,
+    "linear_num_value_heads": 8,
+    "linear_qk_head_dim": 64,
+    "linear_value_head_dim": 64,
+    "linear_conv_kernel_size": 4,
+    # moe
+    "re_init_router_weights": True,
+    "moe_hidden_dim": 4 * 896,
+    "shared_expert_hidden_dim": 4 * 896,
+    "num_experts": 8,
+    "top_k": 2,
+    "aux_loss_coef": 0.001,
+    # training
+    "p_dropout": 0.1,
+}
 
 # Qwen3.5-0.8B Vision + Text config (same keys and values as the JAX package's)
 QWEN3_5_08B_CONFIG = {

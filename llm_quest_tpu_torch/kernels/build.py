@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-happens at first use, into ``llm_quest_tpu_torch/_build/``, under a name keyed
-by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the library already built. Nothing here runs at import.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+of them at once, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The build happens at first use,
+into ``llm_quest_tpu_torch/_build/``, under a name keyed by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one loads the
+library already built. Nothing here runs at import.
 """
 
 import ctypes
@@ -12,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -20,15 +22,21 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # element-type codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # dtype, q, k, v, beta, alpha, s0, s_out, out, B, H, S, DK, DV, 9 strides, scale, stream
-    "llmq_gdn_prefill": [_I] + [_P] * 8 + [_I] * 5 + [_L] * 9 + [_F, _P],
+    # dtype, q, k, v, beta, alpha, s0, s_out, anchors, out, B, H, S, DK, DV, chunk, 9 strides, scale, stream
+    "llmq_gdn_prefill": [_I] + [_P] * 9 + [_I] * 6 + [_L] * 9 + [_F, _P],
+    # dtype, q, k, v, beta, alpha, anchors, dout, dstate, part, dq, dk, dv, dbeta, dalpha, dprev,
+    # B, H, S, DK, DV, chunk, scale, stream
+    "llmq_gdn_prefill_bwd": [_I] + [_P] * 15 + [_I] * 6 + [_F, _P],
+    # DK, DV
+    "llmq_gdn_prefill_bwd_blocks": [_I, _I],
     # dtype, q, k, v, beta, alpha, stacked, layer, out, B, H, DK, DV, 6 strides, scale, stream
     "llmq_gdn_step_stacked": [_I] + [_P] * 6 + [_I, _P] + [_I] * 4 + [_L] * 6 + [_F, _P],
     # dtype, q, k, v, o, lse, key_mask, B, HQ, HKV, SQ, SK, D, 13 strides, causal, q_start, scale, stream
@@ -66,6 +74,26 @@ def _source_digest(sources):
     return h.hexdigest()[:16]
 
 
+def _run_all(commands):
+    """Start every command at once, wait for all; raise with the output of the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in commands]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(commands, procs, outputs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+
+
+def _compile_and_link(sources, so_path):
+    """One nvcc per source in parallel, then one link; the library appears atomically."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objects = [Path(tmp_dir) / f"{src.stem}.o" for src in sources]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects)])
+        tmp = Path(tmp_dir) / so_path.name
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+        os.replace(tmp, so_path)  # atomic: a concurrent loader never sees a partial file
+
+
 def library():
     """Build (if needed) and load the kernels library; returns ``_Library``.
     Raises ``RuntimeError`` with the compiler's output when the build fails."""
@@ -78,15 +106,8 @@ def library():
     build_seconds = 0.0
     if not so_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so_path)  # atomic: a concurrent loader never sees a partial file
+        _compile_and_link(sources, so_path)
         build_seconds = time.perf_counter() - t0
     cdll = ctypes.CDLL(str(so_path))
     for name, argtypes in _SIGNATURES.items():

@@ -1,0 +1,302 @@
+"""Qwen3-Next: GatedDeltaNet / GatedAttention hybrid with Qwen3-MoE blocks
+(counterpart of ``llm_quest_tpu/models/qwen3_next.py``, its training and
+uncached paths).
+
+- hybrid layout: block i is GatedDeltaNet unless (i+1) % linear_sdpa_ratio
+  == 0, then GatedAttention;
+- GatedAttention: fused q+gate projection (per-head [q‖gate] chunks),
+  zero-centred QK RMSNorm before partial RoPE, sigmoid output gate;
+- GatedDeltaNet: depthwise causal convs + SiLU on the q/k/v projections,
+  clamped L2 norm on q/k, q/k heads repeated to the v heads, β =
+  sigmoid(w_β x), α = exp(−exp(log_A)·softplus(w_α x + dt_bias)), the fp32
+  delta rule, per-v-head fp32 RMSNorm and an fp32 SiLU gate;
+- every block ends in Qwen3-MoE with a weighted shared expert; zero-centred
+  RMSNorm throughout; untied output head.
+
+The ``nn.Module`` classes hold the parameters under the JAX tree's names
+(``blocks.3.moe.experts.lin1`` is ``blocks/3/moe/experts/lin1`` there) and
+are trainable. Not ported yet (raise ``NotImplementedError``): the cached
+paths — ``init_cache``, the one-token ``gated_delta_net_step`` and the
+``gdn_state`` prefill — which come with the Qwen3-Next serving slice
+(ROADMAP Queue 1).
+
+Kernels on this path: the GDN prefill (K1, forward and backward) and flash
+attention (K4, forward and backward, from ``flash_min_seq`` tokens up).
+"""
+
+import torch
+from torch import nn
+
+from llm_quest_tpu_torch.config import model_dtype
+from llm_quest_tpu_torch.ops import gdn as gdn_ops
+from llm_quest_tpu_torch.ops import moe as moe_ops
+from llm_quest_tpu_torch.ops import rope
+from llm_quest_tpu_torch.ops.activations import silu
+from llm_quest_tpu_torch.ops.attention import attention, merge_heads, split_heads
+from llm_quest_tpu_torch.ops.linear import Linear, embedding, params
+from llm_quest_tpu_torch.ops.masks import causal_mask
+from llm_quest_tpu_torch.ops.norms import rms_norm_torch_parity, zero_centered_rms_norm
+from llm_quest_tpu_torch.ops.remat import checkpoint_block
+
+_CACHED = "qwen3_next: the cached paths come with the Qwen3-Next serving slice (ROADMAP Queue 1)"
+
+
+def is_gdn_layer(cfg, layer_idx):
+    return (layer_idx + 1) % cfg["linear_sdpa_ratio"] != 0
+
+
+def gdn_layer_indices(cfg):
+    return [i for i in range(cfg["n_layers"]) if is_gdn_layer(cfg, i)]
+
+
+def ga_layer_indices(cfg):
+    return [i for i in range(cfg["n_layers"]) if not is_gdn_layer(cfg, i)]
+
+
+def _linear(d_in, d_out, dtype, device):
+    return Linear(d_in, d_out, bias=False, dtype=dtype, device=device, trainable=True)
+
+
+def _zero_centered_norm(dim, dtype, device):
+    return params(scale=torch.zeros(dim, dtype=dtype, device=device), trainable=True)
+
+
+# ---------------------------------------------------------------- GatedAttention
+
+
+class GatedAttention(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d, hd = cfg["emb_dim"], cfg["head_dim"]
+        d_out = cfg["n_heads"] * hd
+        self.wqg = _linear(d, 2 * d_out, dtype, device)  # fused q + gate
+        self.wk = _linear(d, cfg["num_kv_groups"] * hd, dtype, device)
+        self.wv = _linear(d, cfg["num_kv_groups"] * hd, dtype, device)
+        self.q_norm = _zero_centered_norm(hd, dtype, device)
+        self.k_norm = _zero_centered_norm(hd, dtype, device)
+        self.out_proj = _linear(d_out, d, dtype, device)
+
+
+def gated_attention(params, cfg, x, mask, cos, sin, position_ids, kv_view, attn_mask=None):
+    """kv_view: None (no cache); a cache view raises (not ported)."""
+    if kv_view is not None:
+        raise NotImplementedError(_CACHED)
+    b, s, _ = x.shape
+    n_heads, hd = cfg["n_heads"], cfg["head_dim"]
+
+    q, gate = params.wqg(x).reshape(b, s, n_heads, 2 * hd).split(hd, dim=-1)  # per-head chunks
+    q = q.transpose(1, 2)
+    gate = torch.sigmoid(gate.reshape(b, s, n_heads * hd))
+
+    k = split_heads(params.wk(x), cfg["num_kv_groups"])
+    v = split_heads(params.wv(x), cfg["num_kv_groups"])
+
+    q = rope.apply(zero_centered_rms_norm(q, params.q_norm["scale"]), cos, sin, position_ids)
+    k = rope.apply(zero_centered_rms_norm(k, params.k_norm["scale"]), cos, sin, position_ids)
+
+    out = merge_heads(attention(q, k, v, cfg=cfg, mask=mask, causal=True, attn_mask=attn_mask))
+    return params.out_proj(out * gate.to(out.dtype))
+
+
+# ---------------------------------------------------------------- GatedDeltaNet
+
+
+class GatedDeltaNet(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d = cfg["emb_dim"]
+        d_qk = cfg["linear_num_qk_heads"] * cfg["linear_qk_head_dim"]
+        d_vg = cfg["linear_num_value_heads"] * cfg["linear_value_head_dim"]
+        nv, ksz = cfg["linear_num_value_heads"], cfg["linear_conv_kernel_size"]
+        self.wq = _linear(d, d_qk, dtype, device)
+        self.wk = _linear(d, d_qk, dtype, device)
+        self.wv = _linear(d, d_vg, dtype, device)
+        self.wb = _linear(d, nv, dtype, device)
+        self.wa = _linear(d, nv, dtype, device)
+        self.log_A = nn.Parameter(torch.empty(nv, dtype=torch.float32, device=device))  # fp32 island
+        self.dt_bias = nn.Parameter(torch.ones(nv, dtype=dtype, device=device))
+        self.conv_q = params(w=torch.empty(d_qk, ksz, dtype=dtype, device=device), trainable=True)
+        self.conv_k = params(w=torch.empty(d_qk, ksz, dtype=dtype, device=device), trainable=True)
+        self.conv_v = params(w=torch.empty(d_vg, ksz, dtype=dtype, device=device), trainable=True)
+        self.post_norm = params(scale=torch.ones(cfg["linear_value_head_dim"], dtype=torch.float32, device=device),
+                                trainable=True)
+        self.w_gate = _linear(d, d_vg, dtype, device)
+        self.out_proj = _linear(d_vg, d, dtype, device)
+
+    def reset_parameters(self, generator):
+        """A ~ U(0, 16) stored as log; depthwise convs U(±1/sqrt(kernel_size))."""
+        self.log_A.copy_(torch.log(torch.empty_like(self.log_A).uniform_(0.0, 16.0, generator=generator)))
+        for conv in (self.conv_q, self.conv_k, self.conv_v):
+            bound = 1.0 / conv["w"].shape[1] ** 0.5
+            conv["w"].uniform_(-bound, bound, generator=generator)
+
+
+def _gdn_heads(cfg, q, k, v):
+    """(b, s, c) projections → (b, h, s, hd), channels grouped per head."""
+    b, s = q.shape[:2]
+    nqk, dqk = cfg["linear_num_qk_heads"], cfg["linear_qk_head_dim"]
+    nv, dv = cfg["linear_num_value_heads"], cfg["linear_value_head_dim"]
+    return (
+        q.reshape(b, s, nqk, dqk).transpose(1, 2),
+        k.reshape(b, s, nqk, dqk).transpose(1, 2),
+        v.reshape(b, s, nv, dv).transpose(1, 2),
+    )
+
+
+def gated_delta_net(params, cfg, x, attn_mask_cur, gdn_state):
+    """GDN over a full sequence from a zero state (training / uncached
+    forward). attn_mask_cur: (b, s) bool, True = real token, or None.
+    Returns (out, None); a ``gdn_state`` (cached prefill) raises."""
+    if gdn_state is not None:
+        raise NotImplementedError(_CACHED)
+    num_repeat = cfg["linear_num_value_heads"] // cfg["linear_num_qk_heads"]
+    if attn_mask_cur is not None:
+        x = x * attn_mask_cur[..., None].to(x.dtype)
+
+    q = silu(gdn_ops.causal_conv1d(params.conv_q["w"], params.wq(x)))
+    k = silu(gdn_ops.causal_conv1d(params.conv_k["w"], params.wk(x)))
+    v = silu(gdn_ops.causal_conv1d(params.conv_v["w"], params.wv(x)))
+    q, k, v = _gdn_heads(cfg, q, k, v)
+    q = gdn_ops.l2_norm_clamp(q)
+    k = gdn_ops.l2_norm_clamp(k)
+    if num_repeat > 1:
+        q = q.repeat_interleave(num_repeat, dim=1)
+        k = k.repeat_interleave(num_repeat, dim=1)
+
+    beta = torch.sigmoid(params.wb(x)).transpose(1, 2)  # (b, hv, s)
+    alpha = gdn_ops.compute_alpha_factor(params.log_A, params.wa(x), params.dt_bias).transpose(1, 2)
+    # pad tokens must be a state no-op
+    beta, alpha = gdn_ops.freeze_masked_updates(beta, alpha, attn_mask_cur)
+
+    ctx, _ = gdn_ops.gated_delta_rule_dispatch(cfg, q, k, v, beta, alpha)
+    return _gdn_output(params, cfg, x, ctx), None
+
+
+def gated_delta_net_step(params, cfg, x, conv_states, rec_stacked, layer):
+    raise NotImplementedError(_CACHED)
+
+
+def _gdn_output(params, cfg, x, ctx):
+    """Post-norm (fp32, per v-head), fp32 SiLU gate product, out projection.
+    ctx: (b, h, s, dv)."""
+    b, h, s, dv = ctx.shape
+    ctx = rms_norm_torch_parity(ctx.float(), params.post_norm["scale"])
+    ctx = ctx.transpose(1, 2).reshape(b, s, h * dv)
+    gate = silu(params.w_gate(x).float())
+    # the fp32 gate island collapses back to the model compute dtype
+    return params.out_proj((gate * ctx).to(cfg["dtype"]))
+
+
+# ----------------------------------------------------------------------- model
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, dtype, device, layer_idx):
+        super().__init__()
+        d = cfg["emb_dim"]
+        self.norm1 = _zero_centered_norm(d, dtype, device)
+        self.att = GatedDeltaNet(cfg, dtype, device) if is_gdn_layer(cfg, layer_idx) else GatedAttention(
+            cfg, dtype, device
+        )
+        self.norm2 = _zero_centered_norm(d, dtype, device)
+        self.moe = moe_ops.Qwen3MoE(cfg, dtype, device)
+
+
+class Qwen3Next(nn.Module):
+    """The hybrid MoE model; ``forward`` is ``apply``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        dtype = model_dtype(cfg)
+        self.cfg = cfg
+        self.tok_emb = params(w=torch.empty(cfg["vocab_size"], cfg["emb_dim"], dtype=dtype, device=device),
+                              trainable=True)
+        self.blocks = nn.ModuleList([Block(cfg, dtype, device, i) for i in range(cfg["n_layers"])])
+        self.final_norm = _zero_centered_norm(cfg["emb_dim"], dtype, device)
+        self.out = _linear(cfg["emb_dim"], cfg["vocab_size"], dtype, device)
+        # RoPE tables: constants of the config, built once (not parameters)
+        cos, sin = rope_tables(cfg, device=device)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    def reset_parameters(self, generator):
+        self.tok_emb["w"].normal_(generator=generator)
+
+    def forward(self, x, **kwargs):
+        return apply(self, self.cfg, x, **kwargs)
+
+
+@torch.no_grad()
+def init(cfg, *, generator, device=None):
+    """Model with random weights drawn from ``generator`` (which lives on
+    ``device``), with the JAX ``init`` distributions."""
+    model = Qwen3Next(cfg, device)
+    for module in model.modules():
+        if hasattr(module, "reset_parameters"):
+            module.reset_parameters(generator)
+    return model
+
+
+def rope_tables(cfg, device=None):
+    return rope.compute_angles(
+        cfg["rope_base"], cfg["head_dim"], cfg["context_length"],
+        rotation_factor=cfg["partial_rope_factor"], device=device,
+    )
+
+
+def init_cache(cfg, batch, max_len, *, dtype=None, device=None):
+    raise NotImplementedError(_CACHED)
+
+
+def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, training=False,
+          output_hidden_states=False, **_):
+    """Uncached forward. x: (b, s) ids; attn_mask: optional (b, s) bool, True
+    = real token. Returns (logits, None, aux), or the final-norm hidden
+    states in place of the logits with ``output_hidden_states``. aux has
+    "gate_probas" (one (b·s, E) fp32 tensor per block) and, when training,
+    "moe_loss" (the blocks' summed LBL terms). A cache raises (not ported)."""
+    if cache is not None:
+        raise NotImplementedError(_CACHED)
+    b, s = x.shape
+    cos, sin = params.rope_cos, params.rope_sin
+    mask = causal_mask(s, s, q_start=0, attn_mask=attn_mask, device=x.device)
+
+    h = embedding(params.tok_emb["w"], x)
+    aux = {"gate_probas": []}
+    moe_loss = 0.0
+    use_ckpt = cfg.get("gradient_checkpointing", False) and training
+    capacity_factor = cfg.get("moe_capacity_factor") if training else None
+
+    for i, block in enumerate(params.blocks):
+        def block_fn(h, block=block, i=i):
+            hn = zero_centered_rms_norm(h, block.norm1["scale"])
+            if is_gdn_layer(cfg, i):
+                att_out, _ = gated_delta_net(block.att, cfg, hn, attn_mask, None)
+            else:
+                att_out = gated_attention(block.att, cfg, hn, mask, cos, sin, position_ids, None, attn_mask=attn_mask)
+            h = h + att_out
+            ffn_out, moe_aux = moe_ops.qwen3_moe(
+                block.moe, zero_centered_rms_norm(h, block.norm2["scale"]), top_k=cfg["top_k"],
+                load_coeff=cfg["aux_loss_coef"], training=training, capacity_factor=capacity_factor,
+            )
+            return h + ffn_out, moe_aux
+
+        # rematerialising the whole block: the MoE and GDN activations dominate training memory
+        h, moe_aux = checkpoint_block(cfg, block_fn)(h) if use_ckpt else block_fn(h)
+        aux["gate_probas"].append(moe_aux["gate_probas"])
+        if "moe_loss" in moe_aux:
+            moe_loss = moe_loss + moe_aux["moe_loss"]
+
+    if training:
+        aux["moe_loss"] = moe_loss
+
+    h = zero_centered_rms_norm(h, params.final_norm["scale"])
+    if output_hidden_states:
+        return h, None, aux
+    return params.out(h), None, aux
+
+
+def head_weights(params, cfg):
+    """(d, vocab) output-head matrix, a view of the untied head — for the
+    fused-CE training path."""
+    return params.out.w.T

@@ -198,35 +198,42 @@ def gdn_chunk(qq, kk, vv, bb, aa, state):
     return new_state, out
 
 
-def gated_delta_rule_chunked(q, k, v, beta, alpha, prev_state=None, *, chunk_size=64):
-    """Chunked-parallel gated delta rule — exact, same args/returns as
-    ``gated_delta_rule``. The tail is padded with β=0, α=1 (a no-op)."""
+def chunk_views(q, k, v, beta, alpha, c):
+    """fp32 chunk views (b, h, n, c, ·) of a sequence padded to n·c tokens
+    with β=0, α=1 (a no-op), q pre-scaled by dk^-0.5; returns the five views
+    and the padded length."""
     b, h, s, dk = k.shape
-    dv = v.shape[-1]
-    c = min(chunk_size, s)
     s_pad = -(-s // c) * c
     pad = s_pad - s
 
     def prep(x, fill=0.0):
         x = x.float()
-        if not pad:
-            return x
-        return F.pad(x, (0, 0, 0, pad) if x.ndim == 4 else (0, pad), value=fill)
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad) if x.ndim == 4 else (0, pad), value=fill)
+        return x.reshape(b, h, s_pad // c, c, *x.shape[3:])
 
-    n = s_pad // c
-    qc = prep(q.float() * dk**-0.5).reshape(b, h, n, c, dk)
-    kc = prep(k).reshape(b, h, n, c, dk)
-    vc = prep(v).reshape(b, h, n, c, dv)
-    bc = prep(beta).reshape(b, h, n, c)
-    ac = prep(alpha, fill=1.0).reshape(b, h, n, c)
+    return prep(q.float() * dk**-0.5), prep(k), prep(v), prep(beta), prep(alpha, fill=1.0), s_pad
+
+
+def gated_delta_rule_chunked(q, k, v, beta, alpha, prev_state=None, *, chunk_size=64, return_chunk_states=False):
+    """Chunked-parallel gated delta rule — exact, same args/returns as
+    ``gated_delta_rule``. The tail is padded with β=0, α=1 (a no-op).
+    ``return_chunk_states`` adds a third result: the state before each chunk
+    of c = min(chunk_size, s) tokens, (n_chunks, b, h, dv, dk) fp32."""
+    b, h, s, _ = k.shape
+    dv = v.shape[-1]
+    qc, kc, vc, bc, ac, s_pad = chunk_views(q, k, v, beta, alpha, min(chunk_size, s))
 
     state = _zero_state(q, k, v) if prev_state is None else prev_state.float()
-    outs = []
-    for i in range(n):
+    outs, chunk_states = [], []
+    for i in range(qc.shape[2]):
+        chunk_states.append(state)
         state, o = gdn_chunk(qc[:, :, i], kc[:, :, i], vc[:, :, i], bc[:, :, i], ac[:, :, i], state)
         outs.append(o)
-    out = torch.stack(outs, dim=2).reshape(b, h, s_pad, dv)[:, :, :s]
-    return out.to(q.dtype), state
+    out = torch.stack(outs, dim=2).reshape(b, h, s_pad, dv)[:, :, :s].to(q.dtype)
+    if return_chunk_states:
+        return out, state, torch.stack(chunk_states)
+    return out, state
 
 
 def _zero_state(q, k, v):

@@ -1,0 +1,178 @@
+"""Qwen3 Mixture-of-Experts (counterpart of ``llm_quest_tpu/ops/moe.py``,
+the parts Qwen3-Next calls).
+
+- ``load_balance_loss``: N·Σ_i f_i·p_i; ``router_weights_init``: the
+  sigma-MoE router re-init.
+- ``ExpertStack``: stacked gated expert weights in the JAX layout, (E, d,
+  hidden) for ``lin1``/``gate`` and (E, hidden, d) for ``lin2``, applied
+  as ``x @ w`` (no transpose on the way in from JAX).
+- ``dispatch``: sort-based dispatch. Assignments are flattened, stably
+  sorted by expert id, run through the experts and scatter-added back to
+  their tokens with their gate weights. ``capacity_factor=None`` is the
+  exact (ragged) dispatch: every assignment computed, each expert's
+  contiguous group through plain matmuls (JAX uses ``lax.ragged_dot``, an XLA
+  op, not a Pallas kernel). The group sizes are read on the host, one device
+  sync per call. A float is the GShard capacity dispatch: each expert takes
+  at most C = ceil(int(cf·T·k)/E) rows, rounded up to a multiple of 8 and
+  capped at T·k, in a dense (E, C, d) batch; the rows ranked past C within
+  their expert (last in stable token order) go to a trash slot and are
+  dropped.
+- ``qwen3_moe``: fp32 gate softmax, top-k renormalised, LBL auxiliary loss,
+  and the sigmoid-weighted shared expert.
+
+Classic, DeepSeek and Latent MoE come with the models that call them.
+"""
+
+import torch
+from torch import nn
+
+from llm_quest_tpu_torch.ops.activations import silu
+
+
+def load_balance_loss(gate_probas, topk_idxs, num_experts, top_k):
+    """N · Σ_i f_i·p_i with f_i the share of assignments to expert i and p_i
+    its mean gate probability."""
+    t = gate_probas.shape[0]
+    counts = torch.bincount(topk_idxs.reshape(-1), minlength=num_experts).float()
+    f_i = counts / (top_k * t)
+    p_i = gate_probas.float().mean(dim=0)
+    return num_experts * (f_i @ p_i)
+
+
+def router_weights_init(weights):
+    """sigma-MoE router re-init: each expert's column (weights: (in, E))
+    L2-normalised, then rescaled to the original standard deviation."""
+    og_std = weights.std(unbiased=False)
+    normed = weights / torch.linalg.vector_norm(weights, dim=0, keepdim=True)
+    return normed * (og_std / normed.std(unbiased=False))
+
+
+class ExpertStack(nn.ParameterDict):
+    """Gated expert MLPs stacked on a leading expert axis (JAX layout)."""
+
+    def __init__(self, num_experts, d_in, hidden, *, dtype, device=None):
+        super().__init__({
+            "lin1": nn.Parameter(torch.empty(num_experts, d_in, hidden, dtype=dtype, device=device)),
+            "gate": nn.Parameter(torch.empty(num_experts, d_in, hidden, dtype=dtype, device=device)),
+            "lin2": nn.Parameter(torch.empty(num_experts, hidden, d_in, dtype=dtype, device=device)),
+        })
+
+    def reset_parameters(self, generator):
+        """U(±1/sqrt(d_in)) for lin1 and gate, U(±1/sqrt(hidden)) for lin2."""
+        for p in self.values():
+            bound = 1.0 / p.shape[1] ** 0.5
+            p.uniform_(-bound, bound, generator=generator)
+
+
+def _expert_mlp(x, lin1, gate, lin2, activation):
+    """lin2(lin1(x) · act(gate(x))), the gate branch activated as in the
+    reference Expert."""
+    return (x @ lin1 * activation(x @ gate)) @ lin2
+
+
+def _expert_mlp_ragged(experts, x_sorted, group_sizes, activation):
+    """The expert MLP over expert-sorted rows: one expert's contiguous group
+    at a time. group_sizes: a list of E ints."""
+    outs = [
+        _expert_mlp(xg, experts["lin1"][e], experts["gate"][e], experts["lin2"][e], activation)
+        for e, xg in enumerate(torch.split(x_sorted, group_sizes))
+        if xg.shape[0]
+    ]
+    if not outs:
+        return x_sorted.new_zeros(0, experts["lin2"].shape[-1])
+    return torch.cat(outs)
+
+
+def _expert_mlp_dense(experts, xe, activation):
+    """The expert MLP over a dense (E, C, d) capacity batch: batched matmuls."""
+    return _expert_mlp(xe, experts["lin1"], experts["gate"], experts["lin2"], activation)
+
+
+def dispatch(experts, x2d, topk_idxs, topk_weights, num_experts, *, activation=silu, capacity_factor=None):
+    """x2d: (T, d); topk_idxs/topk_weights: (T, k). Returns (T, d_out): the
+    sum over each token's k experts of weight·expert(x)."""
+    t, k = topk_idxs.shape
+    d_out = experts["lin2"].shape[-1]
+    flat_expert = topk_idxs.reshape(-1)
+    flat_weight = topk_weights.reshape(-1)
+    token_of = torch.arange(t, device=x2d.device).repeat_interleave(k)
+
+    order = torch.argsort(flat_expert, stable=True)
+    expert_sorted = flat_expert[order]
+    group_sizes = torch.bincount(flat_expert, minlength=num_experts)
+    token_sorted = token_of[order]
+    x_sorted = x2d[token_sorted]
+
+    if capacity_factor is not None:
+        cap = -(-int(capacity_factor * t * k) // num_experts)
+        cap = min(-(-cap // 8) * 8, t * k)  # multiple of 8, never above T·k
+        starts = torch.cumsum(group_sizes, 0) - group_sizes
+        rank = torch.arange(t * k, device=x2d.device) - starts[expert_sorted]  # position within its group
+        keep = rank < cap
+        # slot in the (E·C + 1 trash) padded buffer; dropped rows go to the trash
+        dest = torch.where(keep, expert_sorted * cap + rank.clamp_max(cap - 1), num_experts * cap)
+        xe = x2d.new_zeros(num_experts * cap + 1, x2d.shape[1]).index_put((dest,), x_sorted)
+        he = _expert_mlp_dense(experts, xe[: num_experts * cap].reshape(num_experts, cap, -1), activation)
+        out_rows = he.reshape(num_experts * cap, d_out)[dest.clamp_max(num_experts * cap - 1)]
+        out_rows = out_rows * (flat_weight[order] * keep)[:, None].to(he.dtype)
+        return out_rows.new_zeros(t, d_out).index_add(0, token_sorted, out_rows)
+
+    out_sorted = _expert_mlp_ragged(experts, x_sorted, group_sizes.tolist(), activation)
+    out_sorted = out_sorted * flat_weight[order][:, None].to(out_sorted.dtype)
+    return out_sorted.new_zeros(t, d_out).index_add(0, token_sorted, out_sorted)
+
+
+def _shared_experts_sum(shared, x2d, activation=silu):
+    """Every shared expert on every token, summed over the experts."""
+    h = torch.einsum("td,edh->teh", x2d, shared["lin1"])
+    h = h * activation(torch.einsum("td,edh->teh", x2d, shared["gate"]))
+    return torch.einsum("teh,ehd->ted", h, shared["lin2"]).sum(dim=1)
+
+
+class Qwen3MoE(nn.Module):
+    """Parameters {"experts", "gate_w" (d, E)[, "shared", "shared_gate_w" (d, 1)]}
+    under the JAX tree's names."""
+
+    def __init__(self, cfg, dtype, device=None):
+        super().__init__()
+        d, e = cfg["emb_dim"], cfg["num_experts"]
+        self.re_init_router = cfg.get("re_init_router_weights", False)
+        self.experts = ExpertStack(e, d, cfg["moe_hidden_dim"], dtype=dtype, device=device)
+        self.gate_w = nn.Parameter(torch.empty(d, e, dtype=dtype, device=device))
+        shared_hidden = cfg.get("shared_expert_hidden_dim")
+        if shared_hidden is not None:
+            self.shared = ExpertStack(1, d, shared_hidden, dtype=dtype, device=device)
+            self.shared_gate_w = nn.Parameter(torch.empty(d, 1, dtype=dtype, device=device))
+
+    def reset_parameters(self, generator):
+        """The router and the shared gate U(±1/sqrt(d)); the router then
+        re-initialised when the config asks for it."""
+        bound = 1.0 / self.gate_w.shape[0] ** 0.5
+        self.gate_w.uniform_(-bound, bound, generator=generator)
+        if self.re_init_router:
+            self.gate_w.copy_(router_weights_init(self.gate_w))
+        if hasattr(self, "shared_gate_w"):
+            self.shared_gate_w.uniform_(-bound, bound, generator=generator)
+
+
+def qwen3_moe(params, x, *, top_k, load_coeff, training=True, capacity_factor=None):
+    """x: (b, s, d). Returns (out, aux); aux has "gate_probas" (T, E) fp32 and,
+    when training, "moe_loss" = load_coeff · LBL. (JAX's ``gate_probas``
+    argument, the RL routing replay, comes with the alignment trainers.)"""
+    b, s, d = x.shape
+    num_experts = params.experts["lin1"].shape[0]
+    x2d = x.reshape(-1, d)
+    gate_probas = torch.softmax((x2d @ params.gate_w).float(), dim=-1)
+
+    topk_probas, topk_idxs = torch.topk(gate_probas, top_k, dim=-1)
+    topk_probas = topk_probas / topk_probas.sum(dim=-1, keepdim=True)
+
+    aux = {"gate_probas": gate_probas}
+    if training:
+        aux["moe_loss"] = load_coeff * load_balance_loss(gate_probas, topk_idxs, num_experts, top_k)
+
+    out = dispatch(params.experts, x2d, topk_idxs, topk_probas, num_experts, capacity_factor=capacity_factor)
+    if hasattr(params, "shared"):
+        shared_w = torch.sigmoid(x2d @ params.shared_gate_w)
+        out = out + _shared_experts_sum(params.shared, x2d) * shared_w.to(out.dtype)
+    return out.reshape(b, s, d), aux

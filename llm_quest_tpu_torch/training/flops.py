@@ -1,5 +1,5 @@
 """Analytic model-FLOPs accounting → MFU (counterpart of
-``llm_quest_tpu/training/flops.py``, dense text models only).
+``llm_quest_tpu/training/flops.py``, text models).
 
 **MFU**: achieved matmul FLOP/s over the card's peak — the lens for training,
 which is compute-bound.
@@ -7,9 +7,10 @@ which is compute-bound.
 FLOP counts are analytic from the model config (matmul FLOPs only: norms,
 softmax, activations and RoPE are small next to the matmuls), 2·m·n·k per
 matmul and 3× forward for a train step (backward ≈ 2× forward); the same
-formulas as the JAX package for a dense GQA model with a SwiGLU FFN. The
-MoE, hybrid (GDN) and ViT counts, MBU and the decode byte counts come with
-the first ported path that reads them.
+formulas as the JAX package for GQA attention (gated in the hybrids), SwiGLU
+or Qwen3-MoE FFNs and GatedDeltaNet layers. The GPT-2 MLP and ViT counts,
+MBU and the decode byte counts come with the first ported path that reads
+them.
 
 Peaks are those of the card present, looked up by
 ``torch.cuda.get_device_name()``; an unknown card, or no card, raises.
@@ -42,26 +43,59 @@ def mfu(rate_per_sec, flops_per_unit, *, dtype="bf16", device=None):
 # ---------------------------------------------------------- text models
 
 
+def _ffn_flops(cfg):
+    """Per-token FLOPs of one FFN or MoE sublayer."""
+    d = cfg["emb_dim"]
+    if cfg.get("model_type") == "moe" or ("num_experts" in cfg and "moe_hidden_dim" in cfg):
+        router = 2 * d * cfg["num_experts"]
+        experts = cfg["top_k"] * 3 * 2 * d * cfg["moe_hidden_dim"]  # SwiGLU per routed expert
+        shared = 3 * 2 * d * cfg["shared_expert_hidden_dim"] if cfg.get("shared_expert_hidden_dim") else 0
+        return router + experts + shared
+    if "hidden_dim" not in cfg:
+        raise NotImplementedError("_ffn_flops: the GPT-2 MLP count comes with the GPT-2 model")
+    return 3 * 2 * d * cfg["hidden_dim"]  # SwiGLU: gate/up/down
+
+
 def _attn_layer_flops(cfg, kv_len):
-    """Per-token FLOPs of one GQA attention sublayer at context kv_len."""
+    """Per-token FLOPs of one full-attention sublayer at context kv_len."""
     d = cfg["emb_dim"]
     nq = cfg["n_heads"]
     hd = cfg.get("head_dim", d // nq)
+    vhd = cfg.get("value_head_dim", hd)
     nkv = cfg.get("num_kv_groups", nq)
-    q = 2 * d * nq * hd
-    kv = 2 * d * nkv * 2 * hd
-    o = 2 * nq * hd * d
-    scores = 2 * kv_len * nq * 2 * hd  # QKᵀ + AV
+    gated = "linear_sdpa_ratio" in cfg  # hybrids fuse a sigmoid out-gate with Q
+    q = 2 * d * nq * hd * (2 if gated else 1)
+    kv = 2 * d * nkv * (hd + vhd)
+    o = 2 * nq * vhd * d
+    scores = 2 * kv_len * nq * (hd + vhd)  # QKᵀ + AV
     return q + kv + o + scores
 
 
+def _gdn_layer_flops(cfg):
+    """Per-token FLOPs of one GatedDeltaNet sublayer (the decode-step form;
+    the chunked and scan forms do the same MACs reassociated)."""
+    d = cfg["emb_dim"]
+    nqk, dk = cfg["linear_num_qk_heads"], cfg["linear_qk_head_dim"]
+    nv, dv = cfg["linear_num_value_heads"], cfg["linear_value_head_dim"]
+    fused = 2 * nqk * dk + 2 * nv * dv + 2 * nv  # q, k, v, z, b, a in-projections
+    in_proj = 2 * d * fused
+    conv = 2 * cfg["linear_conv_kernel_size"] * (2 * nqk * dk + nv * dv)
+    delta = 8 * nv * dk * dv  # S·k, the rank-1 update, decay, S·q ≈ 4 dk·dv MACs per head
+    out = 2 * nv * dv * d
+    return in_proj + conv + delta + out
+
+
 def text_forward_flops_per_token(cfg, *, kv_len):
-    """Forward matmul FLOPs per processed token at attention context kv_len
-    (dense GQA with a SwiGLU FFN and the LM head)."""
-    if cfg.get("model_type") == "moe" or "linear_sdpa_ratio" in cfg or "hidden_dim" not in cfg:
-        raise NotImplementedError("text_forward_flops_per_token: only dense SwiGLU models are counted")
-    ffn = 3 * 2 * cfg["emb_dim"] * cfg["hidden_dim"]  # SwiGLU: gate/up/down
-    total = cfg["n_layers"] * (_attn_layer_flops(cfg, kv_len) + ffn)
+    """Forward matmul FLOPs per processed token at attention context kv_len:
+    GQA (gated in the hybrids), SwiGLU or MoE FFNs, GatedDeltaNet layers of
+    the hybrids (Qwen3-Next, Qwen3.5 text) and the LM head."""
+    layers = cfg["n_layers"]
+    ratio = cfg.get("linear_sdpa_ratio")
+    n_attn = layers // ratio if ratio else layers
+    total = n_attn * _attn_layer_flops(cfg, kv_len)
+    if layers > n_attn:
+        total += (layers - n_attn) * _gdn_layer_flops(cfg)
+    total += layers * _ffn_flops(cfg)
     total += 2 * cfg["emb_dim"] * cfg["vocab_size"]  # LM head
     return total
 

@@ -13,13 +13,15 @@ both, so cache states compare directly.
 import numpy as np
 import torch
 
-from llm_quest_tpu_torch.models import qwen3, qwen3_5
+from llm_quest_tpu_torch.models import qwen3, qwen3_5, qwen3_next
 from llm_quest_tpu_torch.ops.linear import Linear
 
 
 def _model_for(flat, cfg, device):
     if "linear_sdpa_ratio" not in cfg:  # no GDN/attention hybrid: the dense Qwen3
         return qwen3.Qwen3(cfg, device)
+    if "num_experts" in cfg or any("/moe/" in name for name in flat):  # the MoE hybrid
+        return qwen3_next.Qwen3Next(cfg, device)
     if any(name.startswith("text/") for name in flat):
         return qwen3_5.Qwen3_5(cfg, device)
     return qwen3_5.TextModel(cfg, device)
@@ -29,7 +31,9 @@ def from_jax_flat(flat, cfg, *, device=None):
     """Build a model from a flattened JAX param tree.
 
     flat: {"/"-joined path: numpy array}, i.e. ``flatten_params`` of the
-    JAX params converted with ``np.asarray``. A Qwen3.5 config gives a
+    JAX params converted with ``np.asarray``. A hybrid config with MoE keys
+    (``num_experts``), or a hybrid tree with "moe/" parameters, gives a
+    ``qwen3_next.Qwen3Next``; another hybrid (Qwen3.5) config gives a
     ``qwen3_5.Qwen3_5`` for a tree with "vision/" and "text/" prefixes
     (``init``) and a ``qwen3_5.TextModel`` for a bare text tree
     (``init_text``); a dense Qwen3 config (no ``linear_sdpa_ratio``) gives a

@@ -5,21 +5,33 @@ plain PyTorch versions; they are held to the Pallas kernels in interpret mode
 (the way the JAX package's own tests run them here) and to the JAX scan:
 
 - K1 (prefill): outputs and final state within 1e-4 fp32, the tolerance of an
-  exact scan against the exact chunked form in another summation order;
+  exact scan against the exact chunked form in another summation order; the
+  chunk anchors within 1e-5 of the Pallas kernel's saved chunk states;
+- K1's VJP (the autograd Function, both halves plain on the CPU) against
+  ``jax.vjp`` of the Pallas kernel (its custom VJP) in interpret mode: every
+  gradient within 1e-5 relative to max(1, max |g|), the same chunk algebra in
+  another summation order;
 - K2 (stacked decode step): within 1e-5, and every other layer untouched.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from llm_quest_tpu.kernels.gdn_pallas import gated_delta_rule_pallas, gated_delta_rule_step_stacked_pallas
+from llm_quest_tpu.kernels.gdn_pallas import (
+    _gdn_pallas_call,
+    gated_delta_rule_pallas,
+    gated_delta_rule_step_stacked_pallas,
+)
 from llm_quest_tpu.ops import gdn as jgdn
 from llm_quest_tpu_torch.kernels import gdn as kgdn
 from llm_quest_tpu_torch.ops import gdn as tgdn
 
 K1_TOL = 1e-4
+K1_ANCHOR_TOL = 1e-5
+K1_GRAD_RTOL = 1e-5
 K2_TOL = 1e-5
 
 
@@ -82,6 +94,48 @@ def test_k1_masked_pad_row():
         *(jnp.asarray(x[1:, :, :real]) for x in (q, k, v, beta, alpha)), prev_state=jnp.asarray(s0[1:])
     )
     assert_close(st[1:], st_real, K1_TOL)
+
+
+@pytest.mark.parametrize("s", [64, 130])
+def test_k1_anchors_match_pallas_chunk_states(s):
+    """The forward's anchors are the state before each chunk of 64 tokens."""
+    q, k, v, beta, alpha, s0 = inputs(2, 2, s, 16, 8, seed=11)
+    _, _, anchors = kgdn.gated_delta_rule_fwd_plain(*map(T, (q, k, v, beta, alpha, s0)), with_anchors=True)
+    _, _, ref = _gdn_pallas_call(*map(jnp.asarray, (q, k, v, beta, alpha, s0)), chunk_size=64, interpret=True,
+                                 save_chunk_states=True)
+    assert anchors.shape == ref.shape == (-(-s // 64), 2, 2, 8, 16)
+    assert_close(anchors, ref, K1_ANCHOR_TOL)
+
+
+@pytest.mark.parametrize("s, with_prev", [(130, True), (130, False), (64, True), (5, False)])
+def test_k1_vjp_matches_pallas_vjp(s, with_prev):
+    """A padded tail (130 = 2·64 + 2), prev_state on and off, and nonzero
+    cotangents of both the output and the final state."""
+    q, k, v, beta, alpha, s0 = inputs(2, 2, s, 16, 8, seed=20 + s)
+    rng = np.random.default_rng(s)
+    ct_out = rng.standard_normal((2, 2, s, 8)).astype(np.float32)
+    ct_state = rng.standard_normal((2, 2, 8, 16)).astype(np.float32)
+    prev = s0 if with_prev else np.zeros_like(s0)
+    _, vjp = jax.vjp(lambda *a: gated_delta_rule_pallas(*a, 64, True), *map(jnp.asarray, (q, k, v, beta, alpha, prev)))
+    ref = vjp((jnp.asarray(ct_out), jnp.asarray(ct_state)))
+    args = [T(x).requires_grad_() for x in (q, k, v, beta, alpha, prev)]
+    before = kgdn.gated_delta_rule_fwd.launches, kgdn.gated_delta_rule_bwd.launches
+    out, state = kgdn.gated_delta_rule_fwd(*args[:5], args[5] if with_prev else None)
+    grads = torch.autograd.grad((out, state), args if with_prev else args[:5], (T(ct_out), T(ct_state)))
+    assert (kgdn.gated_delta_rule_fwd.launches, kgdn.gated_delta_rule_bwd.launches) == before  # plain on the CPU
+    for name, got, r in zip(("q", "k", "v", "beta", "alpha", "prev_state"), grads, ref):
+        assert_close(got, r, K1_GRAD_RTOL * max(1.0, float(np.abs(np.asarray(r)).max())))
+
+
+def test_k1_bwd_plain_without_state_cotangent():
+    """``d_state=None`` is a zero cotangent of the final state."""
+    q, k, v, beta, alpha, s0 = (T(x) for x in inputs(1, 2, 40, 16, 8, seed=5))
+    d_out = torch.from_numpy(np.random.default_rng(6).standard_normal((1, 2, 40, 8)).astype(np.float32))
+    _, _, anchors = kgdn.gated_delta_rule_fwd_plain(q, k, v, beta, alpha, s0, chunk_size=16, with_anchors=True)
+    got = kgdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=16)
+    ref = kgdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, torch.zeros_like(s0), chunk_size=16)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("s", [1, 5, 130])

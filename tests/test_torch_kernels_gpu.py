@@ -9,7 +9,8 @@ machine with an H100:
 Tolerances on max |kernel - plain| relative to max(1, max |plain|): fp32 2e-4
 (both compute in fp32, in another summation order), bf16 2e-2 (bf16 inputs
 and outputs round once more). The flash backward's gradients are held to
-autograd through the plain forward with the same tolerances.
+autograd through the plain forward with the same tolerances, and K1's
+backward to its plain version (the per-chunk replay) on the same anchors.
 """
 
 import pytest
@@ -39,29 +40,70 @@ def assert_close(got, ref, dtype):
     assert err <= TOL[dtype] * max(1.0, float(ref.float().abs().max())), err
 
 
-def gdn_inputs(gen, b, h, s, dtype):
+def gdn_inputs(gen, b, h, s, dtype, dk=128, dv=128):
     from llm_quest_tpu_torch.ops.gdn import l2_norm_clamp
 
-    q = l2_norm_clamp(randn(gen, b, h, s, 128)).to(dtype)
-    k = l2_norm_clamp(randn(gen, b, h, s, 128)).to(dtype)
-    v = randn(gen, b, h, s, 128, dtype=dtype)
+    q = l2_norm_clamp(randn(gen, b, h, s, dk)).to(dtype)
+    k = l2_norm_clamp(randn(gen, b, h, s, dk)).to(dtype)
+    v = randn(gen, b, h, s, dv, dtype=dtype)
     beta = torch.sigmoid(randn(gen, b, h, s))
     alpha = torch.sigmoid(randn(gen, b, h, s, scale=0.3) + 2.0)
-    return q, k, v, beta, alpha, randn(gen, b, h, 128, 128, scale=0.1)
+    return q, k, v, beta, alpha, randn(gen, b, h, dv, dk, scale=0.1)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("s", [1, 37, 156])
-def test_gdn_prefill_kernel(gen, dtype, s):
+@pytest.mark.parametrize("dk", [64, 128])
+def test_gdn_prefill_kernel(gen, dtype, s, dk):
     from llm_quest_tpu_torch.kernels import gdn
 
-    q, k, v, beta, alpha, s0 = gdn_inputs(gen, 2, 4, s, dtype)
+    q, k, v, beta, alpha, s0 = gdn_inputs(gen, 2, 4, s, dtype, dk=dk, dv=dk)
     n = gdn.gated_delta_rule_fwd.launches
     out, st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0)
     assert gdn.gated_delta_rule_fwd.launches == n + 1
     ref_out, ref_st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0, plain=True)
     assert_close(out, ref_out, dtype)
     assert_close(st, ref_st, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dk, dv", [(64, 64), (128, 128), (64, 128)])
+@pytest.mark.parametrize("s", [20, 300])
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_gdn_prefill_backward_kernel(gen, dtype, dk, dv, s, with_prev):
+    """K1's backward against the plain per-chunk replay on the kernel's own
+    anchors (s = 300 ends in a partial chunk), then the autograd Function
+    against autograd through the plain chunked forward."""
+    from llm_quest_tpu_torch.kernels import gdn
+
+    q, k, v, beta, alpha, s0 = gdn_inputs(gen, 2, 4, s, dtype, dk=dk, dv=dv)
+    prev = s0 if with_prev else None
+    d_out = randn(gen, 2, 4, s, dv, dtype=dtype)
+    d_state = randn(gen, 2, 4, dv, dk)
+    out, st, anchors = gdn._launch_fwd(q, k, v, beta, alpha, prev, anchor_chunk=gdn.ANCHOR_CHUNK)
+    _, _, ref_anchors = gdn.gated_delta_rule_fwd_plain(
+        q, k, v, beta, alpha, prev, chunk_size=gdn.ANCHOR_CHUNK, with_anchors=True
+    )
+    assert_close(anchors, ref_anchors, dtype)
+    n = gdn.gated_delta_rule_bwd.launches
+    got = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, d_state, chunk_size=gdn.ANCHOR_CHUNK)
+    assert gdn.gated_delta_rule_bwd.launches == n + 1
+    ref = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, d_state, chunk_size=gdn.ANCHOR_CHUNK,
+                                   plain=True)
+    for g, r, src in zip(got, ref, (q, k, v, beta, alpha, d_state)):
+        assert g.dtype == src.dtype
+        assert_close(g, r, dtype)
+
+    args = [t.clone().requires_grad_() for t in (q, k, v, beta, alpha, s0)]
+    n_fwd, n_bwd = gdn.gated_delta_rule_fwd.launches, gdn.gated_delta_rule_bwd.launches
+    o, fin = gdn.gated_delta_rule_fwd(*args[:5], args[5] if with_prev else None)
+    grads = torch.autograd.grad((o, fin), args if with_prev else args[:5], (d_out, d_state))
+    assert (gdn.gated_delta_rule_fwd.launches, gdn.gated_delta_rule_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    plain_args = [t.clone().requires_grad_() for t in (q, k, v, beta, alpha, s0)]
+    po, pfin = gdn.gated_delta_rule_fwd(*plain_args[:5], plain_args[5] if with_prev else None, plain=True)
+    refs = torch.autograd.grad((po, pfin), plain_args if with_prev else plain_args[:5], (d_out, d_state))
+    for g, r in zip(grads, refs):
+        assert_close(g, r, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -152,15 +194,14 @@ def test_flash_attention_backward_q_start_and_delta_shift(gen, dtype):
 
 
 def test_forward_only_kernels_raise_under_grad(gen):
-    """K1, K2 and K7 have no backward yet: on the card they refuse to run
-    when a gradient would be needed, and run under no_grad."""
+    """K2 and K7 have no backward: on the card they refuse to run when a
+    gradient would be needed, and run under no_grad."""
     from llm_quest_tpu_torch.kernels import attention, gdn
 
     q, k, v, beta, alpha, s0 = gdn_inputs(gen, 1, 2, 8, torch.float32)
     x = randn(gen, 1, 8, 2 * 64)
     stacked = randn(gen, 2, 1, 2, 128, 128, scale=0.1)
     calls = {
-        "K1": lambda g: gdn.gated_delta_rule_fwd(q.clone().requires_grad_(g), k, v, beta, alpha, s0),
         "K2": lambda g: gdn.gated_delta_rule_step_stacked(
             q[:, :, 0].clone().requires_grad_(g), k[:, :, 0], v[:, :, 0], beta[..., 0], alpha[..., 0], stacked, 0
         ),
@@ -209,6 +250,33 @@ def test_qwen3_gradients_through_kernels(gen, policy):
         assert_close(got, ref, torch.float32)
 
 
+@pytest.mark.parametrize("capacity", [None, 1.25])
+def test_qwen3_next_gradients_through_kernels(gen, capacity):
+    """Qwen3-Next loss gradients through K1 and K4 (forward and backward)
+    against the plain versions, fp32, exact and capacity dispatch."""
+    from llm_quest_tpu_torch.config import QWEN3_NEXT_SMALL_CONFIG
+    from llm_quest_tpu_torch.kernels import attention, gdn
+    from llm_quest_tpu_torch.models import qwen3_next
+    from llm_quest_tpu_torch.training import engine
+
+    cfg = dict(
+        QWEN3_NEXT_SMALL_CONFIG, n_layers=4, emb_dim=64, n_heads=2, num_kv_groups=1, head_dim=64,
+        linear_num_qk_heads=1, linear_num_value_heads=2, linear_qk_head_dim=64, linear_value_head_dim=64,
+        moe_hidden_dim=96, shared_expert_hidden_dim=96, num_experts=4, vocab_size=256, context_length=128,
+        p_dropout=0.0, flash_min_seq=16, dtype=torch.float32, moe_capacity_factor=capacity,
+    )
+    model = qwen3_next.init(cfg, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    batch = _tiny_batch(gen)
+    n = gdn.gated_delta_rule_bwd.launches, attention.flash_attention_bwd.launches
+    grads = {}
+    for use_kernels in (True, False):
+        loss = engine.make_loss_fn(qwen3_next, dict(cfg, use_kernels=use_kernels), fused_head_ce=True)(model, batch)
+        grads[use_kernels] = torch.autograd.grad(loss, list(model.parameters()))
+    assert (gdn.gated_delta_rule_bwd.launches, attention.flash_attention_bwd.launches) == (n[0] + 3, n[1] + 1)
+    for got, ref in zip(grads[True], grads[False]):
+        assert_close(got, ref, torch.float32)
+
+
 def test_training_eval_loop_and_prefetch_on_the_card(gen):
     from llm_quest_tpu_torch.data.prefetch import prefetch_to_device
     from llm_quest_tpu_torch.kernels import attention
@@ -234,9 +302,13 @@ def test_training_eval_loop_and_prefetch_on_the_card(gen):
 def test_wrappers_raise_on_unsupported_shapes(gen):
     from llm_quest_tpu_torch.kernels import attention, gdn
 
-    q = randn(gen, 1, 2, 4, 64)  # dk = 64: the GDN kernels take 128
+    q = randn(gen, 1, 2, 4, 96)  # dk = 96: the GDN prefill takes 64 and 128
     with pytest.raises(ValueError):
         gdn.gated_delta_rule_fwd(q, q, q, q[..., 0], q[..., 0])
+    q = randn(gen, 1, 2, 4, 64)  # the decode step takes dk = 128 only
+    with pytest.raises(ValueError):
+        gdn.gated_delta_rule_step_stacked(q[:, :, 0], q[:, :, 0], q[:, :, 0], q[..., 0, 0], q[..., 0, 0],
+                                          randn(gen, 1, 1, 2, 64, 64), 0)
     x = randn(gen, 1, 4, 2 * 48)  # head dim 48 has no instantiation
     with pytest.raises(ValueError):
         attention.packed_mha(x, x, x, 2)

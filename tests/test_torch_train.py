@@ -290,9 +290,13 @@ def test_flop_counts_match_jax_and_peaks_need_a_card():
     got = tflops.text_train_flops_per_token(bench, seq_len=2048)
     assert got == jflops.text_train_flops_per_token(dict(bench, dtype=jnp.bfloat16), seq_len=2048)
     assert 2.8e9 < got < 2.9e9
-    for uncounted in (dict(bench, model_type="moe"), dict(bench, linear_sdpa_ratio=4)):
-        with pytest.raises(NotImplementedError):
-            tflops.text_train_flops_per_token(uncounted, seq_len=2048)
+    # the hybrids: Qwen3-Next (MoE FFNs, gated attention, GDN) and the Qwen3.5 text model
+    from llm_quest_tpu import config as jconfig
+
+    for name in ("QWEN3_NEXT_SMALL_CONFIG", "QWEN3_5_08B_CONFIG"):
+        got = tflops.text_train_flops_per_token(getattr(tconfig, name), seq_len=2048)
+        assert got == jflops.text_train_flops_per_token(getattr(jconfig, name), seq_len=2048), name
+    assert 2.30e9 < tflops.text_train_flops_per_token(tconfig.QWEN3_NEXT_SMALL_CONFIG, seq_len=2048) < 2.32e9
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tflops.device_peaks()
