@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the port's
-kernels from ``llm_quest_tpu_torch/csrc`` at first use. Three main paths are
+kernels from ``llm_quest_tpu_torch/csrc`` at first use. Five main paths are
 driven: Qwen3.5-0.8B generation, the dense Qwen3 training step of bench.py's
-train workload, and the Qwen3-Next hybrid training step of
-``scripts/bench_hybrid_training.py``. Phases, one JSON line each on stdout:
+train workload, the Qwen3-Next hybrid training step of
+``scripts/bench_hybrid_training.py``, int8 Qwen3.5-0.8B text generation and
+int8 Qwen3-Next cached decode. Phases, one JSON line each on stdout:
 
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
@@ -22,7 +23,12 @@ train workload, and the Qwen3-Next hybrid training step of
    The flash backward's dq/dk/dv are held to autograd through the plain
    ``sdpa`` (d 64/128/256, key mask on/off, GQA 16/8 and 8/2; and, in bf16,
    one layer of the dense train step at b = 4, s = 2048, output included)
-   and timed forward + backward at that shape and at b = 1;
+   and timed forward + backward at that shape and at b = 1. K10 (int8 flash
+   decode) at the int8 decode shape, a long context and Qwen3's head dim;
+   K11 (int8 grouped matmul) at Qwen3-Next-small's decode and prefill
+   shapes, both row tilings, and a sweep of both tilings from T 32 to 512;
+   K2 also at dk 64. Each record carries its bound and, where one PyTorch
+   call computes the same function, that call's time;
 3. check_fp32: the full-width Qwen3.5-0.8B generation path (random weights
    from a seeded generator) in fp32, once through the kernels and once with
    the plain versions forced: prefill logits close, first 16 greedy tokens
@@ -46,7 +52,17 @@ train workload, and the Qwen3-Next hybrid training step of
    layers), b = 4, s = 2048, bf16, fused-head CE, exact (ragged) MoE
    dispatch, as phase 7: K1 forward and backward launch 6 times a step,
    flash forward and backward twice; then the same with capacity dispatch
-   (factor 1.25).
+   (factor 1.25);
+10. int8_generate_fp32, next_serve_fp32: int8 Qwen3.5-0.8B text and int8
+    Qwen3-Next-small at full width cut to 4 layers, fp32, kernels against
+    plain: prefill logits within INT8_LOGIT_TOL, 16 greedy tokens equal;
+11. int8_generate: Qwen3.5-0.8B text, 24 layers, bf16, weights, tied table
+    and KV cache int8, b = 1, prompt 32, 64 greedy tokens (K1, K2, K10);
+12. next_serve: Qwen3-Next-small, 8 layers, bf16, linears and expert stacks
+    int8, b = 4, 300-token prompts, 64 greedy tokens (K1, K2 at dk 64, K11).
+    Phases 11 and 12 reset the counts, drive the int8 model once, then print
+    tok/s, TTFT and MBU beside the bf16 model's, and the per-step cost of
+    the int8 → bf16 weight copies.
 
 Then the kernels summary line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits nonzero before the
@@ -80,8 +96,15 @@ LOGIT_TOL = 2e-3
 # exact scan, their plain versions the chunked form)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
+# fp32 serving checks at 4 layers, kernels vs plain: last prefill logits,
+# absolute (the GDN kernel is the exact scan, its plain version the chunked form)
+INT8_LOGIT_TOL = 1e-4
 SEED = 0
 DEVICE = "cuda"
+# the card's published rates (H100 SXM, NVIDIA's data sheet, dense, at 700 W):
+# device memory, bf16 on the tensor cores, fp32 outside them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def emit(obj):
@@ -103,6 +126,26 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, key, iters=20):
+    """Device time per call of the kernels whose names contain ``key``, summed
+    from a ``torch.profiler`` trace of ``iters`` calls (CUDA events around a
+    call of a few microseconds time the host's launch work instead)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and key in e.name]
+    if not events:
+        raise AssertionError(f"the profiler recorded no {key} kernel")
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+
+
 def max_err(got, ref):
     return float((got.float() - ref.float()).abs().max()), float(ref.float().abs().max())
 
@@ -113,6 +156,19 @@ def check(name, got, ref, dtype):
     if not err <= tol:  # also catches NaN
         raise AssertionError(f"{name}: max abs err {err} > {tol}")
     return err
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, flops, dtype="bfloat16"):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of the inputs' type;
+    ``simt_bound_ms`` takes the fp32 rate outside the tensor cores instead."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "simt_bound_ms": max(t_bytes, flops / PEAK_FLOPS["float32"]) * 1e3, "bytes": n_bytes, "flops": flops}
 
 
 def randn(gen, *shape, dtype=None, scale=1.0):
@@ -165,14 +221,18 @@ def kernel_k1(gen, dtypes):
                                      check("K1 state hybrid shape", st, ref_st, dtypes[-1])),
                   "ms": cuda_ms(lambda: gdn.gated_delta_rule_fwd(q, k, v, beta, alpha), iters=5, warmup=1),
                   "plain_ms": cuda_ms(lambda: gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, plain=True),
-                                      iters=5, warmup=1)})
+                                      iters=5, warmup=1),
+                  **bound(nbytes(q, k, v, beta, alpha, out, st), 8 * 64 * 64 * 4 * 8 * 2048)})
     del q, k, v, beta, alpha, out, st, ref_out, ref_st
     torch.cuda.empty_cache()
     # the record's time: the generation path's prefill shape
     q, k, v, beta, alpha, s0 = gdn_inputs(gen, 1, 16, 156, dtypes[-1])
     ms = cuda_ms(lambda: gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0))
     plain_ms = cuda_ms(lambda: gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0, plain=True))
-    return max(errs), ms, plain_ms, cases
+    out, st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0)
+    # 4 dk·dv multiply-adds a token and head (S·k, the rank-1 update, the decay, S·q)
+    extra = {**bound(nbytes(q, k, v, beta, alpha, s0, out, st), 8 * 128 * 128 * 16 * 156), "library_ms": None}
+    return max(errs), ms, plain_ms, cases, extra
 
 
 def kernel_k1_bwd(gen, dtypes):
@@ -246,9 +306,14 @@ def kernel_k1_bwd(gen, dtypes):
     case["plain_bwd_ms"] = cuda_ms(lambda: gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None,
                                                                     chunk_size=c, plain=True), iters=3, warmup=1)
     cases.append(case)
+    # forward + backward: the inputs and d_out read, out and the five gradients
+    # written; 3x the forward's 4 dk·dv multiply-adds a token and head
+    grads = nbytes(q, k, v) + 2 * nbytes(beta)
+    extra = {**bound(nbytes(q, k, v, beta, alpha, d_out) + nbytes(d_out) + grads, 3 * 8 * 64 * 64 * 4 * 8 * 2048),
+             "library_ms": None}
     del q, k, v, beta, alpha, d_out, anchors, args
     torch.cuda.empty_cache()
-    return max(errs), case["fwd_bwd_ms"], case["plain_fwd_bwd_ms"], cases
+    return max(errs), case["fwd_bwd_ms"], case["plain_fwd_bwd_ms"], cases, extra
 
 
 def kernel_k2(gen, dtypes):
@@ -276,12 +341,39 @@ def kernel_k2(gen, dtypes):
             cases.append({"b": b, "layer": layer, "dtype": str(dtype), "max_abs_err": e, "others_bitwise_equal": True})
             if dtype == dtypes[0]:
                 errs.append(e)
+    # dk = dv = 64: Qwen3-Next-small's decode step (6 GDN layers, b 4, 8 v heads)
+    for dtype in dtypes:
+        q, k, v, beta, alpha, _ = gdn_inputs(gen, 4, 8, 1, dtype, dk=64, dv=64)
+        q, k, v, beta, alpha = q[:, :, 0], k[:, :, 0], v[:, :, 0], beta[:, :, 0], alpha[:, :, 0]
+        stacked = randn(gen, 6, 4, 8, 64, 64, scale=0.1)
+        ref_stacked = stacked.clone()
+        out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 3)
+        ref_out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, ref_stacked, 3, plain=True)
+        torch_sync()
+        e = max(check(f"K2 dk=64 out {dtype}", out, ref_out, dtype),
+                check(f"K2 dk=64 state {dtype}", stacked[3], ref_stacked[3], torch.float32))
+        case = {"L": 6, "b": 4, "h": 8, "dk": 64, "dtype": str(dtype), "max_abs_err": e}
+        if dtype == dtypes[-1]:
+            case["ms"] = cuda_ms(lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 3))
+            case["device_ms"] = device_ms(
+                lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 3), "gdn_step_stacked")
+            case["plain_ms"] = cuda_ms(
+                lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 3, plain=True))
+            case.update(bound(nbytes(q, k, v, beta, alpha, out) + 2 * nbytes(stacked[3]), 8 * 64 * 64 * 4 * 8))
+        cases.append(case)
+        if dtype == dtypes[0]:
+            errs.append(e)
     q, k, v, beta, alpha, _ = gdn_inputs(gen, 1, 16, 1, dtypes[-1])
     q, k, v, beta, alpha = q[:, :, 0], k[:, :, 0], v[:, :, 0], beta[:, :, 0], alpha[:, :, 0]
     stacked = randn(gen, 18, 1, 16, 128, 128, scale=0.1)
     ms = cuda_ms(lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, layer))
     plain_ms = cuda_ms(lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, layer, plain=True))
-    return max(errs), ms, plain_ms, cases
+    out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, layer)
+    # one layer's fp32 state read and written in place
+    extra = {**bound(nbytes(q, k, v, beta, alpha, out) + 2 * nbytes(stacked[layer]), 8 * 128 * 128 * 16),
+             "library_ms": None, "device_ms": device_ms(
+                 lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, layer), "gdn_step_stacked")}
+    return max(errs), ms, plain_ms, cases, extra
 
 
 def attn_inputs(gen, b, hq, hkv, sq, sk, d, dtype):
@@ -318,7 +410,16 @@ def kernel_k4(gen, dtypes):
     key_mask[:, :300] = True
     ms = cuda_ms(lambda: attn.flash_attention(q, k, v, attn_mask=key_mask))
     plain_ms = cuda_ms(lambda: attn.flash_attention(q, k, v, attn_mask=key_mask, plain=True))
-    return max(errs), ms, plain_ms, cases
+    # the same function in one library call: keys past 299 are masked by the
+    # causal rule already (q_start 0: key j is visible to query i iff j <= i)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+    check("K4 vs sdpa (library)", lib(), attn.flash_attention(q, k, v, attn_mask=key_mask), dtypes[-1])
+    pairs = 300 * 301 // 2  # visible (query, key) pairs of a causal 300-row block
+    out = attn.flash_attention(q, k, v, attn_mask=key_mask)
+    extra = {**bound(nbytes(q, k, v, key_mask, out) + 4 * 8 * 300 * 4, 4 * 256 * pairs * 4 * 8),
+             "library_ms": cuda_ms(lib)}
+    return max(errs), ms, plain_ms, cases, extra
 
 
 def kernel_k4_bwd(gen, dtypes):
@@ -367,6 +468,17 @@ def kernel_k4_bwd(gen, dtypes):
             del got, ref
         case["fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(False), iters=5, warmup=1)
         case["plain_fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(True), iters=5, warmup=1)
+        # the function's work, 3x the forward's 4·d per visible pair and head:
+        # QKᵀ and PV forward, dV, dP, dQ and dK backward (the flash
+        # backward's recompute of the scores is the algorithm's, not counted)
+        case.update(bound(2 * nbytes(q, k, v, do), 3 * 4 * 128 * (2048 * 2049 // 2) * b * 16))
+        if b == 4:
+            def lib_fwd_bwd():
+                out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+                return torch.autograd.grad(out, (qg, kg, vg), do)
+
+            extra = {key: case[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops")}
+            extra["library_ms"] = cuda_ms(lib_fwd_bwd, iters=5, warmup=1)
         o = attn.flash_attention(q, k, v)
         lse = attn._plain_lse(q, k, None, True, 0, 128**-0.5)
         case["bwd_ms"] = cuda_ms(lambda: attn.flash_attention_bwd(q, k, v, o, lse, do), iters=5, warmup=1)
@@ -376,10 +488,12 @@ def kernel_k4_bwd(gen, dtypes):
             ms, plain_ms = case["fwd_bwd_ms"], case["plain_fwd_bwd_ms"]
         del q, k, v, do, qg, kg, vg, o, lse
         torch.cuda.empty_cache()
-    return max(errs), ms, plain_ms, cases
+    return max(errs), ms, plain_ms, cases, extra
 
 
 def kernel_k7(gen, dtypes):
+    import torch
+
     from llm_quest_tpu_torch.kernels import attention as attn
 
     errs, cases = [], []
@@ -396,7 +510,133 @@ def kernel_k7(gen, dtypes):
     q, k, v = (randn(gen, 1, 576, 12 * 64, dtype=dtypes[-1]) for _ in range(3))
     ms = cuda_ms(lambda: attn.packed_mha(q, k, v, 12))
     plain_ms = cuda_ms(lambda: attn.packed_mha(q, k, v, 12, plain=True))
-    return max(errs), ms, plain_ms, cases
+    heads = lambda t: t.view(1, 576, 12, 64).transpose(1, 2)  # noqa: E731  the split-head view
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(heads(q), heads(k), heads(v))  # noqa: E731
+    check("K7 vs sdpa (library)", lib().transpose(1, 2).reshape(1, 576, -1), attn.packed_mha(q, k, v, 12), dtypes[-1])
+    extra = {**bound(4 * nbytes(q), 4 * 64 * 576 * 576 * 12), "library_ms": cuda_ms(lib)}
+    return max(errs), ms, plain_ms, cases, extra
+
+
+def int8_cache_inputs(gen, b, hq, hkv, s_len, d, dtype):
+    """q and one layer of the int8 KV cache as the model writes it (views of
+    a (2, b, hkv, S, d) buffer), and a random key mask as the bias."""
+    import torch
+
+    from llm_quest_tpu_torch.inference import cache as kv_cache
+    from llm_quest_tpu_torch.ops.masks import mask_value
+
+    cache = kv_cache.init_kv_cache(2, b, hkv, s_len, d, quant="int8", device=DEVICE)
+    _, k, v = kv_cache.write_layer(cache, 1, randn(gen, b, hkv, s_len, d, dtype=dtype),
+                                   randn(gen, b, hkv, s_len, d, dtype=dtype), 0)
+    valid = torch.rand(b, s_len, generator=gen, device=DEVICE) > 0.1
+    valid[:, 0] = True
+    bias = torch.where(valid, 0.0, mask_value(torch.float32)).float()
+    return randn(gen, b, hq, 1, d, dtype=dtype), k, v, bias
+
+
+def kernel_k10(gen, dtypes):
+    """K10 at the int8 generation path's decode shape (b 1, 8/2 heads, d 256,
+    S 96: 32 prompt + 64 generated) and at a long context (b 16, S 8192),
+    and at Qwen3's head dim 128."""
+    from llm_quest_tpu_torch.kernels import flash_decode as fd
+
+    errs, cases = [], []
+    shapes = {"decode": (1, 8, 2, 96, 256), "long": (16, 8, 2, 8192, 256), "qwen3": (4, 16, 8, 300, 128)}
+    for dtype in dtypes:
+        for name, (b, hq, hkv, s_len, d) in shapes.items():
+            q, k, v, bias = int8_cache_inputs(gen, b, hq, hkv, s_len, d, dtype)
+            call = lambda plain=False: fd.flash_decode(q, k.data, k.scale, v.data, v.scale, bias, plain=plain)  # noqa: E731
+            out, ref = call(), call(True)
+            torch_sync()
+            e = check(f"K10 {name} {dtype}", out, ref, dtype)
+            case = {"shape": name, "b": b, "heads": [hq, hkv], "S": s_len, "d": d, "dtype": str(dtype),
+                    "max_abs_err": e}
+            if dtype == dtypes[-1]:
+                case["ms"], case["plain_ms"] = cuda_ms(call), cuda_ms(lambda: call(True))
+                case["device_ms"] = device_ms(call, "flash_decode")
+                # int8 K/V, their scales, the bias and q read once, the output written once
+                case.update(bound(nbytes(q, k.data, k.scale, v.data, v.scale, bias, out), 4 * b * hq * s_len * d))
+            cases.append(case)
+            if dtype == dtypes[0]:
+                errs.append(e)
+    rec = next(c for c in cases if c["shape"] == "decode" and "ms" in c)
+    extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "device_ms")}
+    return max(errs), rec["ms"], rec["plain_ms"], cases, {**extra, "library_ms": None}
+
+
+def kernel_k11(gen, dtypes):
+    """K11 at Qwen3-Next-small's shapes (8 experts, 896 -> 3584 for lin1 and
+    gate, 3584 -> 896 for lin2) with a top-2 routing of b 4 tokens (decode,
+    T = 8 rows) and of b 4 x 300 tokens (prefill, T = 2400 rows)."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import quantized_gmm as qg
+
+    errs, cases = [], []
+    e = 8
+    for tokens in (4, 1200):
+        logits = torch.randn(tokens, e, generator=gen, device=DEVICE)
+        group_sizes = torch.bincount(logits.topk(2, dim=-1).indices.reshape(-1), minlength=e)
+        t = 2 * tokens
+        for mat, (k_dim, n_dim) in (("lin1", (896, 3584)), ("lin2", (3584, 896))):
+            w_q = torch.randint(-127, 128, (e, k_dim, n_dim), generator=gen, device=DEVICE, dtype=torch.int8)
+            scale = torch.rand(e, n_dim, generator=gen, device=DEVICE) * 0.02 + 1e-3
+            for dtype in dtypes:
+                x = randn(gen, t, k_dim, dtype=dtype)
+                call = lambda plain=False: qg.quantized_ragged_dot(x, w_q, scale, group_sizes, plain=plain)  # noqa: E731
+                out, ref = call(), call(True)
+                torch_sync()
+                # both row tilings (16 and 64 rows a tile) at both shapes; the
+                # wrapper takes 16 up to qg._FEW_ROWS rows, 64 above (see
+                # k11_tiling_sweep)
+                tiles = {16 * rm: (lambda rm=rm: qg._launch(x, w_q, scale, group_sizes, rm)) for rm in (1, 4)}
+                err = max(check(f"K11 T={t} {mat} {rows}-row tiles {dtype}", fn(), ref, dtype)
+                          for rows, fn in tiles.items())
+                err = max(err, check(f"K11 T={t} {mat} {dtype}", out, ref, dtype))
+                case = {"T": t, "matrix": mat, "K": k_dim, "N": n_dim, "group_sizes": group_sizes.tolist(),
+                        "dtype": str(dtype), "max_abs_err": err}
+                if dtype == dtypes[-1]:
+                    case["ms"], case["plain_ms"] = cuda_ms(call), cuda_ms(lambda: call(True))
+                    case["device_ms"] = device_ms(call, "quantized_gmm")
+                    case["tile_rows_device_ms"] = {rows: device_ms(fn, "quantized_gmm") for rows, fn in tiles.items()}
+                    hit = int((group_sizes > 0).sum())  # the weights of the experts with rows are read
+                    case.update(bound(nbytes(x, out, group_sizes) + hit * (k_dim * n_dim + 4 * n_dim),
+                                      2 * t * k_dim * n_dim))
+                cases.append(case)
+                if dtype == dtypes[0]:
+                    errs.append(err)
+    rec = next(c for c in cases if c["T"] == 8 and c["matrix"] == "lin1" and "ms" in c)
+    extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "device_ms")}
+    extra["tiling_sweep"] = k11_tiling_sweep(gen, dtypes[-1])
+    return max(errs), rec["ms"], rec["plain_ms"], cases, {**extra, "library_ms": None}
+
+
+def k11_tiling_sweep(gen, dtype):
+    """Device ms of K11's two row tilings between the decode and prefill
+    shapes (8 experts, top-2 routing), where the wrapper switches at
+    qg._FEW_ROWS rows; each tiling checked against plain."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import quantized_gmm as qg
+
+    e, sweep = 8, []
+    for t in (32, 64, 128, 256, 512):
+        logits = torch.randn(t // 2, e, generator=gen, device=DEVICE)
+        group_sizes = torch.bincount(logits.topk(2, dim=-1).indices.reshape(-1), minlength=e)
+        row = {"T": t, "max_group": int(group_sizes.max())}
+        for mat, (k_dim, n_dim) in (("lin1", (896, 3584)), ("lin2", (3584, 896))):
+            w_q = torch.randint(-127, 128, (e, k_dim, n_dim), generator=gen, device=DEVICE, dtype=torch.int8)
+            scale = torch.rand(e, n_dim, generator=gen, device=DEVICE) * 0.02 + 1e-3
+            x = randn(gen, t, k_dim, dtype=dtype)
+            ref = qg.quantized_ragged_dot(x, w_q, scale, group_sizes, plain=True)
+            times = {}
+            for rm in (1, 4):
+                fn = lambda rm=rm: qg._launch(x, w_q, scale, group_sizes, rm)  # noqa: E731
+                check(f"K11 sweep T={t} {mat} {16 * rm}-row tiles {dtype}", fn(), ref, dtype)
+                times[16 * rm] = device_ms(fn, "quantized_gmm")
+            row[mat] = times
+        sweep.append(row)
+    return sweep
 
 
 def torch_sync():
@@ -405,21 +645,27 @@ def torch_sync():
     torch.cuda.synchronize()  # a fault inside a kernel surfaces here, at its phase
 
 
-GENERATE, TRAIN, HYBRID = "generate", "train", "hybrid_train"  # the main paths
+# the main paths
+GENERATE, TRAIN, HYBRID = "generate", "train", "hybrid_train"
+INT8_GENERATE, NEXT_SERVE = "int8_generate", "next_serve"
 KERNELS = [
     # name, wrapper (module, attribute), source, replaced TPU kernel, check, main paths that launch it
     ("gdn_prefill", ("gdn", "gated_delta_rule_fwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
-     "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1, (GENERATE, HYBRID)),
+     "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1, (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE)),
     ("gdn_prefill_bwd", ("gdn", "gated_delta_rule_bwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
      "llm_quest_tpu/kernels/gdn_pallas.py:255", kernel_k1_bwd, (HYBRID,)),
     ("gdn_step_stacked", ("gdn", "gated_delta_rule_step_stacked"), "llm_quest_tpu_torch/csrc/gdn.cu",
-     "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2, (GENERATE,)),
+     "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2, (GENERATE, INT8_GENERATE, NEXT_SERVE)),
     ("flash_attention_fwd", ("attention", "flash_attention"), "llm_quest_tpu_torch/csrc/attention.cu",
      "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4, (GENERATE, TRAIN, HYBRID)),
     ("flash_attention_bwd", ("attention", "flash_attention_bwd"), "llm_quest_tpu_torch/csrc/attention.cu",
      "llm_quest_tpu/kernels/flash_attention.py:175", kernel_k4_bwd, (TRAIN, HYBRID)),
     ("packed_mha", ("attention", "packed_mha"), "llm_quest_tpu_torch/csrc/attention.cu",
      "llm_quest_tpu/kernels/fused_mha.py:422", kernel_k7, (GENERATE,)),
+    ("flash_decode", ("flash_decode", "flash_decode"), "llm_quest_tpu_torch/csrc/flash_decode.cu",
+     "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10, (INT8_GENERATE,)),
+    ("quantized_ragged_dot", ("quantized_gmm", "quantized_ragged_dot"), "llm_quest_tpu_torch/csrc/quantized_gmm.cu",
+     "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11, (NEXT_SERVE,)),
 ]
 
 
@@ -435,10 +681,14 @@ def kernel_phase():
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     records = []
     for name, spec, source, replaces, fn, paths in KERNELS:
-        err, ms, plain_ms, cases = fn(gen, (torch.float32, torch.bfloat16))
-        emit({"phase": "kernel", "name": name, "cases": cases, "ms_bf16": ms, "plain_ms_bf16": plain_ms})
+        err, ms, plain_ms, cases, extra = fn(gen, (torch.float32, torch.bfloat16))
+        emit({"phase": "kernel", "name": name, "cases": cases, "ms_bf16": ms, "plain_ms_bf16": plain_ms, **extra})
         records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "paths": list(paths)})
+                        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": extra["bound_ms"], "bound_by": extra["bound_by"],
+                        "library_ms": extra["library_ms"], "simt_bound_ms": extra["simt_bound_ms"],
+                        "paths": list(paths)})
+        torch.cuda.empty_cache()
     return records
 
 
@@ -727,6 +977,148 @@ def train_paths(records, card):
               add=False)
 
 
+# ------------------------------------------------------------ serving paths
+
+
+def ids_on_card(b, s, seed=SEED):
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(np.random.default_rng(seed).integers(0, 32_000, (b, s)), device=DEVICE)
+
+
+def text_int8_cfg(n_layers, dtype):
+    """Qwen3.5-0.8B's text model (``bench.py:129``'s int8 decode cell) with
+    the int8 KV cache."""
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+
+    return dict(QWEN3_5_08B_CONFIG, n_layers=n_layers, dtype=dtype, kv_quant="int8")
+
+
+def next_serve_cfg(n_layers, dtype):
+    """Qwen3-Next-small as published in the JAX package's config (context 512)."""
+    from llm_quest_tpu_torch.config import QWEN3_NEXT_SMALL_CONFIG
+
+    return dict(QWEN3_NEXT_SMALL_CONFIG, n_layers=n_layers, dtype=dtype, p_dropout=0.0)
+
+
+def generate(entry, model, cfg, ids, max_gen):
+    from llm_quest_tpu_torch.inference import generate as gen
+
+    return gen.generate_kv_cache(entry, model, cfg, ids, max_gen=max_gen, eos_ids=-1, pad_id=0)["sequences"]
+
+
+def last_prefill_logits(mod, model, cfg, ids):
+    import torch
+
+    apply = mod.apply_text if hasattr(mod, "apply_text") else mod.apply
+    with torch.inference_mode():
+        logits, _, _ = apply(model, cfg, ids, cache=mod.init_cache(cfg, ids.shape[0], ids.shape[1], device=DEVICE))
+    return logits[:, -1].float()
+
+
+def serve_check_fp32(phase, mod, entry, model, cfg, ids, max_gen=16):
+    """fp32, the same int8 model through the kernels and through the plain
+    versions: prefill logits within INT8_LOGIT_TOL and equal greedy tokens."""
+    import torch
+
+    plain = dict(cfg, use_kernels=False)
+    err = float((last_prefill_logits(mod, model, cfg, ids) - last_prefill_logits(mod, model, plain, ids)).abs().max())
+    if not err <= INT8_LOGIT_TOL:
+        raise AssertionError(f"{phase}: prefill logits, kernels vs plain, max abs err {err} > {INT8_LOGIT_TOL}")
+    seq_k, seq_p = generate(entry, model, cfg, ids, max_gen), generate(entry, model, plain, ids, max_gen)
+    if not torch.equal(seq_k, seq_p):
+        raise AssertionError(f"{phase}: greedy tokens differ, kernels vs plain:\n{seq_k[:, -max_gen:]}\n{seq_p[:, -max_gen:]}")
+    emit({"phase": phase, "layers": cfg["n_layers"], "b": ids.shape[0], "prompt": ids.shape[1],
+          "logit_max_abs_err": err, "logit_tol": INT8_LOGIT_TOL, "greedy_tokens_equal": max_gen})
+
+
+def serve_rates(entry, model, cfg, ids, max_gen=64):
+    """Generated tok/s (median of 3 whole calls) and TTFT (median of 5 calls
+    generating one token), each call ended by a device sync."""
+    run_s, runs = timed(lambda: generate(entry, model, cfg, ids, max_gen), 3)
+    ttft_s, _ = timed(lambda: generate(entry, model, cfg, ids, 1), 5)
+    return {"tok_s": ids.shape[0] * max_gen / run_s, "ttft_ms": ttft_s * 1e3, "run_s": runs}
+
+
+def int8_copy_ms(model):
+    """Device time of converting every int8 weight matrix that a decode step
+    converts to bf16 once (the linears, the tied table, the shared expert;
+    not the routed expert stacks, which K11 reads as int8)."""
+    import torch
+
+    mats = [t for n, t in model.state_dict().items() if t.dtype == torch.int8 and ".experts." not in n]
+    return cuda_ms(lambda: [t.to(torch.bfloat16) for t in mats], iters=5, warmup=1), sum(map(nbytes, mats))
+
+
+def serve_path(phase, path, make_model, entry, cfg_bf16, cfg_int8, ids, records, card, quant_options):
+    """The bf16 model's rates, then the same weights quantized in place
+    (``quantize_params_int8``) driven once with the launch counts reset, then
+    timed; MBU from ``training/flops.py``'s byte count at the mean context."""
+    import torch
+
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
+    from llm_quest_tpu_torch.training import flops as F
+
+    max_gen = 64
+    kv_len = ids.shape[1] + max_gen // 2
+    model = make_model(cfg_bf16)
+    bf16 = serve_rates(entry, model, cfg_bf16, ids)
+    bf16["mbu"] = F.mbu(bf16["tok_s"], F.decode_bytes_per_token(model, cfg_bf16, kv_len=kv_len, batch=ids.shape[0]))
+    quantize_params_int8(model, **quant_options)
+    torch.cuda.empty_cache()
+    reset_launches()
+    seq = generate(entry, model, cfg_int8, ids, max_gen)
+    torch.cuda.synchronize()
+    launches = read_launches(path, records)
+    if tuple(seq.shape) != (ids.shape[0], ids.shape[1] + max_gen) or not bool(
+            ((seq >= 0) & (seq < cfg_int8["vocab_size"])).all()):
+        raise AssertionError(f"{phase}: bad sequences {tuple(seq.shape)}")
+    int8 = serve_rates(entry, model, cfg_int8, ids)
+    bytes_per_token = F.decode_bytes_per_token(model, cfg_int8, kv_len=kv_len, batch=ids.shape[0])
+    int8["mbu"] = F.mbu(int8["tok_s"], bytes_per_token)
+    copy_ms, int8_bytes = int8_copy_ms(model)
+    emit({"phase": phase, "card": card, "dtype": "bfloat16", "layers": cfg_int8["n_layers"], "b": ids.shape[0],
+          "prompt": ids.shape[1], "max_gen": max_gen, "launches": launches, "tokens": seq[0, -64:-48].tolist(),
+          "int8": int8, "bf16": bf16, "decode_bytes_per_token": bytes_per_token, "mbu_kv_len": kv_len,
+          "int8_weight_bytes": int8_bytes, "int8_to_bf16_copy_ms_per_step": copy_ms,
+          "step_ms": 1e3 * ids.shape[0] / int8["tok_s"]})
+    del model
+    torch.cuda.empty_cache()
+
+
+def serving_paths(records, card):
+    """Qwen3.5-0.8B int8 text generation (int8 linears, tied table and KV
+    cache; K1, K2, K10) and Qwen3-Next-small int8 cached decode (int8
+    linears and expert stacks; K1, K2 at dk 64, K11), each first checked in
+    fp32 at 4 layers, kernels against plain."""
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3_5, qwen3_next
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
+
+    # fp32 checks: the tables stay fp32 (an int8 table gathers bf16 rows,
+    # which would make them bf16 checks)
+    def text_model(cfg):
+        return qwen3_5.init_text(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+
+    text = text_int8_cfg(4, torch.float32)
+    model = quantize_params_int8(text_model(text))
+    serve_check_fp32("int8_generate_fp32", qwen3_5, qwen3_5.TextOnly, model, text, ids_on_card(1, 32))
+    nxt = next_serve_cfg(4, torch.float32)
+    model = quantize_params_int8(init_model(qwen3_next, nxt))
+    serve_check_fp32("next_serve_fp32", qwen3_next, qwen3_next, model, nxt, ids_on_card(2, 64))
+    del model
+    torch.cuda.empty_cache()
+
+    text_bf16 = {k: v for k, v in text_int8_cfg(24, torch.bfloat16).items() if k != "kv_quant"}
+    serve_path("int8_generate", INT8_GENERATE, text_model, qwen3_5.TextOnly, text_bf16,
+               text_int8_cfg(24, torch.bfloat16), ids_on_card(1, 32), records, card, {"quantize_embeddings": True})
+    nxt = next_serve_cfg(8, torch.bfloat16)
+    serve_path("next_serve", NEXT_SERVE, lambda cfg: init_model(qwen3_next, cfg), qwen3_next, nxt, nxt,
+               ids_on_card(4, 300), records, card, {})
+
+
 PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names
     "flash_fwd": "attention_fwd_kernel", "flash_bwd_dq": "attention_bwd_dq_kernel",
     "flash_bwd_dkv": "attention_bwd_dkv_kernel", "gdn_fwd": "gdn_prefill_kernel",
@@ -838,6 +1230,7 @@ def main(argv):
     check_fp32(cfg, inputs)
     main_path(cfg, inputs, records, smi)
     train_paths(records, smi)
+    serving_paths(records, smi)
 
     emit({"kernels": records})
     print(smi)

@@ -494,27 +494,28 @@ extern "C" int llmq_gdn_prefill_bwd_blocks(int DK, int DV) {
   return rows == 0 || DV <= 0 || DV % rows != 0 ? 0 : DV / rows;
 }
 
+// DK in {64, 128} (Qwen3.5 at 128, Qwen3-Next at 64), dv % kRows == 0.
 extern "C" int llmq_gdn_step_stacked(int dtype, const void* q, const void* k, const void* v,
                                      const float* beta, const float* alpha, float* stacked,
                                      int layer, void* out, int B, int H, int DK, int DV,
                                      long long q_sb, long long q_sh, long long k_sb,
                                      long long k_sh, long long v_sb, long long v_sh, float scale,
                                      void* stream) {
-  if (DK != 128 || DV <= 0 || DV % kRows != 0) return (int)cudaErrorInvalidValue;
+  if ((DK != 64 && DK != 128) || DV <= 0 || DV % kRows != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(DV / kRows, B * H), block(kRows * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LLMQ_GDN_STEP(T, D)                                                                    \
+  gdn_step_stacked_kernel<T, D><<<grid, block, 0, st>>>(                                      \
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), beta,     \
+      alpha, stacked, layer, static_cast<T*>(out), B, H, DV, q_sb, q_sh, k_sb, k_sh, v_sb,   \
+      v_sh, scale)
   if (dtype == kFloat32) {
-    gdn_step_stacked_kernel<float, 128><<<grid, block, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        beta, alpha, stacked, layer, static_cast<float*>(out), B, H, DV, q_sb, q_sh, k_sb, k_sh,
-        v_sb, v_sh, scale);
+    if (DK == 64) LLMQ_GDN_STEP(float, 64); else LLMQ_GDN_STEP(float, 128);
   } else if (dtype == kBFloat16) {
-    gdn_step_stacked_kernel<__nv_bfloat16, 128><<<grid, block, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), beta, alpha, stacked, layer,
-        static_cast<__nv_bfloat16*>(out), B, H, DV, q_sb, q_sh, k_sb, k_sh, v_sb, v_sh, scale);
+    if (DK == 64) LLMQ_GDN_STEP(__nv_bfloat16, 64); else LLMQ_GDN_STEP(__nv_bfloat16, 128);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+#undef LLMQ_GDN_STEP
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,132 @@
+// Grouped matmul over int8 expert stacks (MoE serving), for Hopper.
+//
+// Replaces llm_quest_tpu/kernels/quantized_gmm.py::quantized_ragged_dot (the
+// Pallas kernel _qgmm_kernel): y[r] = (x[r] @ w_q[e(r)]) * scale[e(r)] for
+// rows x (T, K) sorted by expert, w_q (E, K, N) int8, scale (E, N) fp32 and
+// the device-side group offsets (E + 1,) int32 (offsets[e] .. offsets[e + 1]
+// are expert e's rows). The int8 weights are read once per row tile and
+// converted in registers; the scale is the epilogue.
+//
+// Grid: the TPU wrapper scatters the rows into a group-aligned layout and
+// scalar-prefetches an expert id per row tile, so that one expert's whole
+// int8 block stays resident in VMEM. Here grid (ceil(N / kBN), E): each block
+// reads its expert's row range from the offsets (no host sync; the offsets
+// come from a cumsum on the device), returns before reading any weight when
+// the expert has no row (as the TPU kernel never fetches an empty expert),
+// and for every tile of BM = 16 * RM rows walks K in chunks of kBK: the
+// (kBK, kBN) int8 weight tile goes to shared memory with 16-byte loads and
+// the (BM, kBK) row tile as fp32, each thread accumulates RM x 4 outputs in
+// fp32, and the scale multiplies once, before the single rounding to the
+// rows' type (the TPU kernel rounds bf16 rows' product to bf16 first).
+//
+// Bound: at decode (T = 8 rows) bytes, the int8 weights of the experts hit
+// (at most E*K*N); at prefill (T in the thousands) operations, 2*T*K*N. This
+// first version multiplies on the fp32 SIMT units, far from the tensor-core
+// rate a prefill could reach (wgmma is later work).
+#include "common.cuh"
+
+namespace llmq {
+namespace {
+
+constexpr int kGmmThreads = 256;  // 16 x 16 threads
+constexpr int kBN = 64;           // output columns per block (4 per thread)
+constexpr int kBK = 64;           // contraction chunk
+
+// grid (ceil(N / kBN), E), block kGmmThreads. x (T, K) and y (T, N) and
+// w_q (E, K, N) contiguous; N % 16 == 0.
+template <typename T, int RM>
+__global__ void __launch_bounds__(kGmmThreads)
+quantized_gmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+                     const float* __restrict__ scale, const int* __restrict__ offsets,
+                     T* __restrict__ y, int K, int N) {
+  constexpr int BM = 16 * RM;
+  __shared__ __align__(16) float xs[BM][kBK + 1];  // padded: two row groups per warp, other banks
+  __shared__ __align__(16) int8_t ws[kBK][kBN];
+  const int e = blockIdx.y, n0 = blockIdx.x * kBN;
+  const int start = offsets[e], end = offsets[e + 1];
+  if (start >= end) return;  // an expert with no rows reads no weight
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int8_t* we = w + (size_t)e * K * N;
+
+  for (int m0 = start; m0 < end; m0 += BM) {
+    float acc[RM][4];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += kBK) {
+      __syncthreads();  // the previous chunk is consumed
+      {  // weight tile: thread -> row tid / 4, 16 bytes at column (tid % 4) * 16
+        const int r = tid / 4, c = (tid % 4) * 16;
+        int4 raw = make_int4(0, 0, 0, 0);
+        if (k0 + r < K && n0 + c < N) raw = *reinterpret_cast<const int4*>(we + (size_t)(k0 + r) * N + n0 + c);
+        *reinterpret_cast<int4*>(&ws[r][c]) = raw;
+      }
+      for (int i = tid; i < BM * kBK; i += kGmmThreads) {
+        const int r = i / kBK, c = i % kBK;
+        const int row = m0 + r, col = k0 + c;
+        xs[r][c] = (row < end && col < K) ? to_f(x[(size_t)row * K + col]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < kBK; ++kk) {
+        const char4 w4 = *reinterpret_cast<const char4*>(&ws[kk][tx * 4]);
+        const float b0 = (float)w4.x, b1 = (float)w4.y, b2 = (float)w4.z, b3 = (float)w4.w;
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const float a = xs[ty * RM + i][kk];
+          acc[i][0] += a * b0;
+          acc[i][1] += a * b1;
+          acc[i][2] += a * b2;
+          acc[i][3] += a * b3;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int row = m0 + ty * RM + i;
+      if (row >= end) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + tx * 4 + j;
+        if (col < N) y[(size_t)row * N + col] = from_f<T>(acc[i][j] * scale[(size_t)e * N + col]);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_gmm(const void* x, const int8_t* w, const float* scale, const int* offsets, void* y,
+               int E, int K, int N, int rm, cudaStream_t stream) {
+  const dim3 grid((N + kBN - 1) / kBN, E);
+  if (rm == 1) {
+    quantized_gmm_kernel<T, 1><<<grid, kGmmThreads, 0, stream>>>(
+        static_cast<const T*>(x), w, scale, offsets, static_cast<T*>(y), K, N);
+  } else {
+    quantized_gmm_kernel<T, 4><<<grid, kGmmThreads, 0, stream>>>(
+        static_cast<const T*>(x), w, scale, offsets, static_cast<T*>(y), K, N);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace llmq
+
+using namespace llmq;
+
+// x (T, K), y (T, N), w_q (E, K, N) int8 and scale (E, N) fp32, all
+// contiguous; offsets (E + 1,) int32 on the device, nondecreasing from 0 to T.
+// N % 16 == 0; rm (rows per thread) in {1, 4}.
+extern "C" int llmq_quantized_gmm(int dtype, const void* x, const void* w_q, const float* scale,
+                                  const int* offsets, void* y, int T, int E, int K, int N, int rm,
+                                  void* stream) {
+  if (T < 0 || E < 1 || K < 1 || N < 16 || N % 16 != 0 || (rm != 1 && rm != 4)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (T == 0) return (int)cudaSuccess;
+  const int8_t* w = static_cast<const int8_t*>(w_q);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) return launch_gmm<float>(x, w, scale, offsets, y, E, K, N, rm, s);
+  if (dtype == kBFloat16) return launch_gmm<__nv_bfloat16>(x, w, scale, offsets, y, E, K, N, rm, s);
+  return (int)cudaErrorInvalidValue;
+}

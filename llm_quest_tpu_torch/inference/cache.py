@@ -4,17 +4,37 @@ The cache is a dict of tensors pre-allocated to ``max_len`` once, layout
 (n_layers, b, n_kv_heads, max_len, head_dim), plus an int ``pos`` counting
 the filled positions. Unlike the JAX version, writes go IN PLACE into the
 preallocated buffers (no copy of the cache per step); ``pos`` is a plain int
-returned in a new dict. Only scalar-position writes are ported; the per-row
-vector positions and the int8 cache of continuous-batching serving wait for
-the serving port.
+returned in a new dict.
+
+``quant="int8"`` allocates the int8 serving cache instead ({"k_q", "k_s",
+"v_q", "v_s", "pos"}): int8 data and per-(layer, row, head, position) fp32
+scales, kept with JAX's trailing singleton. New keys and values are quantized
+once at write time (``ops/quantization.py::quantize_rows_int8``) and the
+layer views come back as ``QuantKV``, which the attention router streams
+through K10 or dequantizes.
+
+Only scalar-position writes are ported; the per-row vector positions of
+continuous-batching serving wait for the serving port.
 """
 
 import torch
 
+from llm_quest_tpu_torch.ops.quantization import QuantKV, quantize_rows_int8
 
-def init_kv_cache(n_layers, batch, n_kv_heads, max_len, head_dim, *, dtype=torch.float32, device=None):
-    """Zero-filled cache {"k", "v", "pos"}."""
+
+def init_kv_cache(n_layers, batch, n_kv_heads, max_len, head_dim, *, dtype=torch.float32, device=None, quant=None):
+    """Zero-filled cache {"k", "v", "pos"}, or the int8 cache with ``quant="int8"``."""
     shape = (n_layers, batch, n_kv_heads, max_len, head_dim)
+    if quant == "int8":
+        return {
+            "k_q": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_s": torch.zeros(*shape[:4], 1, dtype=torch.float32, device=device),
+            "v_q": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v_s": torch.zeros(*shape[:4], 1, dtype=torch.float32, device=device),
+            "pos": 0,
+        }
+    if quant is not None:
+        raise ValueError(f"quant must be None or 'int8', got {quant!r}")
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -31,9 +51,19 @@ def update_layer(cache, layer_idx, k_new, v_new):
 
 def write_layer(cache, layer_idx, k_new, v_new, pos):
     """Write (b, h, s, d) new keys/values at column ``pos`` of layer
-    ``layer_idx`` in place; returns (cache, full max_len k view, v view).
-    ``pos`` is not advanced here."""
+    ``layer_idx`` in place; returns (cache, full max_len k view, v view) —
+    ``QuantKV`` views for an int8 cache. ``pos`` is not advanced here."""
     s = k_new.shape[2]
+    if "k_q" in cache:
+        for name, new in (("k", k_new), ("v", v_new)):
+            data, scale = quantize_rows_int8(new)
+            cache[f"{name}_q"][layer_idx, :, :, pos : pos + s] = data
+            cache[f"{name}_s"][layer_idx, :, :, pos : pos + s, 0] = scale
+        return (
+            cache,
+            QuantKV(cache["k_q"][layer_idx], cache["k_s"][layer_idx, ..., 0]),
+            QuantKV(cache["v_q"][layer_idx], cache["v_s"][layer_idx, ..., 0]),
+        )
     cache["k"][layer_idx, :, :, pos : pos + s] = k_new
     cache["v"][layer_idx, :, :, pos : pos + s] = v_new
     return cache, cache["k"][layer_idx], cache["v"][layer_idx]
@@ -55,4 +85,4 @@ def advance(cache, seq_len):
 
 
 def max_len(cache):
-    return cache["k"].shape[3]
+    return cache["k_q" if "k_q" in cache else "k"].shape[3]

@@ -13,7 +13,8 @@
   ``ops/gdn.py::gdn_chunk``, one call per chunk, from the same anchors.
 - ``gated_delta_rule_step_stacked``: K2, the one-token decode step on the
   stacked (L, b, h, dv, dk) state, in place at ``layer``; replaces
-  ``gdn_pallas.py::gated_delta_rule_step_stacked_pallas``. Plain version:
+  ``gdn_pallas.py::gated_delta_rule_step_stacked_pallas``, at dk 64
+  (Qwen3-Next) and 128 (Qwen3.5). Plain version:
   ``ops/gdn.py::gated_delta_rule_step`` plus an indexed write. A decode step
   has no backward: on a CUDA tensor it raises ``NotImplementedError`` when
   grad mode is on and an input requires grad.
@@ -30,7 +31,7 @@ import torch
 from llm_quest_tpu_torch.kernels import build
 from llm_quest_tpu_torch.ops import gdn as gdn_ops
 
-KERNEL_DK = (64, 128)  # the q/k head dims csrc/gdn.cu's prefill is instantiated for
+KERNEL_DK = (64, 128)  # the q/k head dims csrc/gdn.cu's prefill and step are instantiated for
 ANCHOR_CHUNK = 32  # tokens between two anchors of the CUDA path (the backward's replay window, kMaxAnchor)
 
 
@@ -235,7 +236,7 @@ def gated_delta_rule_step_stacked(q_t, k_t, v_t, beta_t, alpha_t, stacked, layer
     build.require(k_t.shape == q_t.shape and v_t.shape == (b, h, dv), "q/k (b, h, dk), v (b, h, dv)")
     build.require(beta_t.shape == (b, h) and alpha_t.shape == (b, h), "beta/alpha must be (b, h)")
     build.require(k_t.dtype == q_t.dtype and v_t.dtype == q_t.dtype, "q, k and v must share one dtype")
-    build.require(dk == 128 and dv % 8 == 0, f"kernel takes dk = 128 and dv % 8 == 0, got dk={dk} dv={dv}")
+    build.require(dk in KERNEL_DK and dv % 8 == 0, f"kernel takes dk in {KERNEL_DK} and dv % 8 == 0, got dk={dk} dv={dv}")
     build.require(all(t.stride(-1) == 1 for t in (q_t, k_t, v_t)), "q/k/v need a contiguous last dim")
     build.require(
         stacked.shape == (n_layers, b, h, dv, dk) and stacked.dtype == torch.float32 and stacked.is_contiguous(),

@@ -12,7 +12,10 @@ the functions with the JAX package's names compute on them. The MoE variant
 (``model_type="moe"``) waits for ``ops/moe.py`` and raises.
 
 Kernels on this path: flash attention (K4, forward and backward) through the
-attention router, for every call with s ≥ ``flash_min_seq``.
+attention router, for every call with s ≥ ``flash_min_seq``, and with
+``cfg["kv_quant"] = "int8"`` the decode step over the int8 KV cache (K10).
+A model quantized by ``ops/quantization.py::quantize_params_int8`` serves
+unchanged (``QuantLinear`` layers, an int8 table through ``ops/linear.py``).
 """
 
 import torch
@@ -114,7 +117,7 @@ def rope_tables(cfg, device=None):
 def init_cache(cfg, batch, max_len, *, dtype=None, device=None):
     return kv_cache.init_kv_cache(
         cfg["n_layers"], batch, cfg["num_kv_groups"], max_len, cfg["head_dim"],
-        dtype=dtype or model_dtype(cfg), device=device,
+        dtype=dtype or model_dtype(cfg), device=device, quant=cfg.get("kv_quant"),
     )
 
 
@@ -157,7 +160,7 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
 
     k_len = kv_cache.max_len(cache) if cache is not None else s
     mask = causal_mask(s, k_len, q_start=pos0, attn_mask=attn_mask, device=device)
-    h = embedding(params.tok_emb["w"], x)
+    h = embedding(params.tok_emb, x)
     use_ckpt = cfg.get("gradient_checkpointing", False) and training and cache is None
 
     for i, block in enumerate(params.blocks):
@@ -171,8 +174,7 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
             hn = rms_norm_torch_parity(h, block.pre_att_norm["scale"])
             h = h + _attention(block.att, cfg, hn, mask, cos, sin, kv_view, position_ids, attn_mask, q_start)
             hn = rms_norm_torch_parity(h, block.pre_ffn_norm["scale"])
-            ffn = block.ffn
-            return h + swiglu(hn, ffn["gate"].w, ffn["up"].w, ffn["down"].w)
+            return h + swiglu(block.ffn, hn)
 
         h = checkpoint_block(cfg, block_fn)(h) if use_ckpt else block_fn(h)
 
@@ -181,7 +183,7 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
         cache = kv_cache.advance(cache, s)
     if output_hidden_states:
         return h, cache, {}
-    logits = tied_head(params.tok_emb["w"], h) if cfg["tie_embeddings"] else params.out(h)
+    logits = tied_head(params.tok_emb, h) if cfg["tie_embeddings"] else params.out(h)
     return logits, cache, {}
 
 

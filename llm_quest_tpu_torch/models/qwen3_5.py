@@ -9,8 +9,12 @@ and fp32 recurrent states for the GDN layers), updated in place, and the
 vision tower runs once per prompt.
 
 Kernels on this path (``llm_quest_tpu_torch/kernels``): the vision blocks'
-packed attention (K7), the GDN prefill (K1) and decode step (K2), and the
-attention layers' flash prefill (K4). Everything else is plain torch.
+packed attention (K7), the GDN prefill (K1) and decode step (K2), the
+attention layers' flash prefill (K4) and, with ``cfg["kv_quant"] = "int8"``,
+their decode step over the int8 KV cache (K10). Everything else is plain
+torch. A model quantized by ``ops/quantization.py::quantize_params_int8``
+serves unchanged: its linears are ``QuantLinear``s, and the embedding and
+tied head read an int8 table through ``ops/linear.py``.
 """
 
 import numpy as np
@@ -397,12 +401,14 @@ class TextModel(nn.Module):
 def init_cache(cfg, batch, max_len, *, dtype=None, device=None):
     """Hybrid cache: stacked KV (attention layers) + fused conv taps and fp32
     recurrent states (GDN layers), the state kept (dv, dk) as in the JAX
-    package."""
+    package. ``cfg["kv_quant"] = "int8"`` makes the KV part the int8 cache;
+    the GDN states stay in ``dtype`` and fp32."""
     dtype = dtype or model_dtype(cfg)
     n_gdn = len(gdn_layer_indices(cfg))
     _, _, fused = _fused_dims(cfg)
     kv = kv_cache.init_kv_cache(
-        len(attn_layer_indices(cfg)), batch, cfg["num_kv_groups"], max_len, cfg["head_dim"], dtype=dtype, device=device
+        len(attn_layer_indices(cfg)), batch, cfg["num_kv_groups"], max_len, cfg["head_dim"], dtype=dtype,
+        device=device, quant=cfg.get("kv_quant"),
     )
     return {
         **kv,
@@ -418,7 +424,7 @@ def apply_text(params, cfg, x=None, *, attn_mask=None, inputs_embs=None, positio
     """Text forward. position_ids: (3, b, s) MRoPE ids, (b, s) 1-D ids
     (→ T=H=W) or None (sequential from the cache position). The cache, when
     given, is updated in place; returns (logits, cache with pos advanced, {})."""
-    h = inputs_embs if inputs_embs is not None else embedding(params.tok_emb["w"], x)
+    h = inputs_embs if inputs_embs is not None else embedding(params.tok_emb, x)
     b, s = h.shape[:2]
     device = h.device
     cos, sin = params.rope_cos, params.rope_sin
@@ -470,13 +476,12 @@ def apply_text(params, cfg, x=None, *, attn_mask=None, inputs_embs=None, positio
             attn_i += 1
 
         h = residual + att_out
-        ffn = block.ffn
-        h = h + swiglu(zero_centered_rms_norm(h, block.norm2["scale"]), ffn["gate"].w, ffn["up"].w, ffn["down"].w)
+        h = h + swiglu(block.ffn, zero_centered_rms_norm(h, block.norm2["scale"]))
 
     h = zero_centered_rms_norm(h, params.final_norm["scale"])
     if cache is not None:
         cache = {**cache, "pos": pos0 + s}
-    logits = tied_head(params.tok_emb["w"], h) if cfg["tie_embeddings"] else params.out(h)
+    logits = tied_head(params.tok_emb, h) if cfg["tie_embeddings"] else params.out(h)
     return logits, cache, {}
 
 
@@ -572,7 +577,7 @@ def _prompt_position_ids(cfg, input_ids, image_pixels):
 def fuse_embeddings(params, cfg, input_ids, image_pixels):
     """Embed ids and scatter the vision embeddings into the image-placeholder
     slots. Returns (b, s, d)."""
-    inputs_embs = embedding(params.text.tok_emb["w"], input_ids)
+    inputs_embs = embedding(params.text.tok_emb, input_ids)
     if image_pixels is None:
         return inputs_embs
     vision = apply_vision(params.vision, cfg, image_pixels)  # (b, Nv, d)

@@ -5,12 +5,18 @@
   (no materialized repeat); boolean masks (b|1, 1|hq, sq, sk), True = masked,
   filled with finfo.min/2; scores, softmax and the value sum in fp32, as the
   JAX version's preferred_element_type gives them.
-- ``attention``: the router. Long causal calls (training forwards and
-  cached prefills) go to the flash kernel (kernels/attention.py, K4), which
-  is differentiable; everything else, the decode step included, to
-  ``sdpa``. The int8-KV, head-shard and context-parallel branches of the JAX
-  router are not ported, and neither is its short-sequence fused-MHA kernel
-  (K6): the JAX router sends that kernel only maskless calls, which the text
+- ``attention``: the router. k/v given as ``QuantKV`` views of the int8 KV
+  cache (inference/cache.py) take JAX's int8 branch: a single-query step
+  with a dense mask and 128-multiple head dims (``supports_flash_decode``)
+  streams them through the flash-decode kernel (kernels/flash_decode.py,
+  K10) with the mask as an additive finfo.min/2 bias, unless
+  ``cfg["use_flash_decode"]`` is False; any other call dequantizes them once
+  and routes on. Long causal calls (training forwards and cached prefills)
+  go to the flash kernel (kernels/attention.py, K4), which is
+  differentiable; everything else, the bf16-cache decode step included, to
+  ``sdpa``. The head-shard and context-parallel branches of the JAX router
+  are not ported, and neither is its short-sequence fused-MHA kernel (K6):
+  the JAX router sends that kernel only maskless calls, which the text
   attention of Qwen3.5 and Qwen3 never makes (it passes its causal mask).
 - ``mha_packed``: bidirectional maskless MHA on packed (b, s, h·d)
   projections, the vision-tower path (K7).
@@ -22,6 +28,7 @@
 import torch
 
 from llm_quest_tpu_torch.ops.masks import causal_mask, mask_value
+from llm_quest_tpu_torch.ops.quantization import QuantKV
 
 
 def sdpa(q, k, v, *, mask=None, scale=None):
@@ -50,8 +57,18 @@ def attention(q, k, v, *, cfg=None, mask=None, causal=True, attn_mask=None, scal
     known, from ``cfg["flash_min_seq"]`` (default 256) queries up. Flash reads
     only the structured mask (causal, ``attn_mask`` as (b, sk) True = real);
     ``mask`` is the dense rendering of the same for ``sdpa``. A dense mask
-    with no structured counterpart (causal=False) stays on ``sdpa``.
+    with no structured counterpart (causal=False) stays on ``sdpa``. k/v may
+    be ``QuantKV`` views of an int8 cache (module docstring).
     """
+    plain = cfg is not None and not cfg.get("use_kernels", True)
+    if isinstance(k, QuantKV):
+        from llm_quest_tpu_torch.kernels.flash_decode import flash_decode, supports_flash_decode
+
+        if supports_flash_decode(q, k.data) and mask is not None and (cfg is None or cfg.get("use_flash_decode", True)):
+            bias = torch.where(mask[:, 0, 0, :], mask_value(torch.float32), 0.0).float()
+            bias = bias.expand(q.shape[0], -1).contiguous()
+            return flash_decode(q, k.data, k.scale, v.data, v.scale, bias, scale=scale, plain=plain)
+        k, v = k.dequant(q.dtype), v.dequant(q.dtype)
     shape_ok = q.shape[2] == k.shape[2] or (causal and q_start is not None and q.shape[2] < k.shape[2])
     use_flash = (
         flash_ok
@@ -64,8 +81,7 @@ def attention(q, k, v, *, cfg=None, mask=None, causal=True, attn_mask=None, scal
         from llm_quest_tpu_torch.kernels.attention import flash_attention
 
         return flash_attention(
-            q, k, v, attn_mask=attn_mask, causal=causal, q_start=q_start or 0, scale=scale,
-            plain=not cfg.get("use_kernels", True),
+            q, k, v, attn_mask=attn_mask, causal=causal, q_start=q_start or 0, scale=scale, plain=plain,
         )
     if mask is None and causal and q.shape[2] > 1:
         mask = causal_mask(

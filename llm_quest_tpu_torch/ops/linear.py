@@ -4,6 +4,18 @@ Layout rule: the port stores linear weights as torch does, ``(out, in)``, and
 applies them with ``F.linear``. The JAX package stores them ``(in, out)`` for
 ``x @ w``, so ``weights/interop.py::from_jax_flat`` transposes every
 ``Linear`` weight on the way in. Embedding tables are ``(num, dim)`` in both.
+
+``embedding`` and ``tied_head`` take the table's parameter group and dispatch
+on it: ``{"w"}``, or the int8 ``{"w_q", "w_scale"}`` of
+``ops/quantization.py`` (per-row scales). The int8 linear is
+``quantization.QuantLinear``.
+
+Operand types are not promoted: ``linear`` raises on x and w of two types
+(a mis-cast model fails instead of running in fp32). Divergence by design:
+JAX's ``x @ w`` promotes, which only an fp32 model with an int8 table and an
+unquantized linear reaches (the table's bf16 rows meeting an fp32 weight);
+such a model quantizes every linear (``min_size=0``) or, as Qwen3.5, takes
+fp32 rows (``embedding(..., dtype=torch.float32)``) as ``inputs_embs``.
 """
 
 import torch
@@ -16,14 +28,23 @@ def linear(x, w, b=None):
     return F.linear(x, w, b)
 
 
-def embedding(w, ids):
-    """Token-id lookup. ids: (...,) int → (..., dim)."""
-    return w[ids]
+def embedding(table, ids, *, dtype=None):
+    """Token-id lookup. ids: (...,) int → (..., dim). An int8 table
+    dequantizes only the gathered rows, in bf16 unless ``dtype`` says
+    otherwise (JAX's rule: quantized tables are a bf16 serving transform)."""
+    if "w_q" in table:
+        dt = dtype or torch.bfloat16
+        return table["w_q"][ids].to(dt) * table["w_scale"][ids][..., None].to(dt)
+    w = table["w"][ids]
+    return w if dtype is None else w.to(dtype)
 
 
-def tied_head(w, h):
-    """Tied-embedding output head ``h @ w.T``; w: (vocab, d)."""
-    return F.linear(h, w)
+def tied_head(table, h):
+    """Tied-embedding output head ``h @ wᵀ``; an int8 table gives ``(h @
+    w_qᵀ) · scale``, its per-row scale being the head's output-channel scale."""
+    if "w_q" in table:
+        return linear(h, table["w_q"].to(h.dtype)) * table["w_scale"].to(h.dtype)
+    return linear(h, table["w"])
 
 
 def params(*, trainable=False, **tensors):

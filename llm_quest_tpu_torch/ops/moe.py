@@ -19,6 +19,13 @@ the parts Qwen3-Next calls).
   dropped.
 - ``qwen3_moe``: fp32 gate softmax, top-k renormalised, LBL auxiliary loss,
   and the sigmoid-weighted shared expert.
+- int8 expert stacks (``ops/quantization.py::quantize_expert_stack_int8``:
+  ``<name>_q`` (E, in, out) int8 and ``<name>_scale`` (E, out)): the exact
+  dispatch sends each matrix to the grouped int8 matmul (K11,
+  ``kernels/quantized_gmm.py``), which takes the group sizes on the device
+  (no host sync); they keep the exact dispatch even when a capacity factor
+  is given, and the shared expert's einsums multiply the scale after the
+  product.
 
 Classic, DeepSeek and Latent MoE come with the models that call them.
 """
@@ -70,9 +77,23 @@ def _expert_mlp(x, lin1, gate, lin2, activation):
     return (x @ lin1 * activation(x @ gate)) @ lin2
 
 
-def _expert_mlp_ragged(experts, x_sorted, group_sizes, activation):
-    """The expert MLP over expert-sorted rows: one expert's contiguous group
-    at a time. group_sizes: a list of E ints."""
+def _ragged(experts, name, x, group_sizes, plain):
+    """One int8 stacked matrix over expert-sorted rows: K11 (the scale is its
+    epilogue; each output row belongs to one expert group)."""
+    from llm_quest_tpu_torch.kernels.quantized_gmm import quantized_ragged_dot
+
+    return quantized_ragged_dot(x, experts[name + "_q"], experts[name + "_scale"], group_sizes, plain=plain)
+
+
+def _expert_mlp_ragged(experts, x_sorted, group_sizes, activation, plain=False):
+    """The expert MLP over expert-sorted rows. group_sizes: (E,) tensor.
+    int8 stacks go through K11 with the sizes on the device; fp stacks take
+    one expert's contiguous group at a time (the sizes read on the host)."""
+    if "lin1_q" in experts:
+        h = _ragged(experts, "lin1", x_sorted, group_sizes, plain)
+        h = h * activation(_ragged(experts, "gate", x_sorted, group_sizes, plain))
+        return _ragged(experts, "lin2", h, group_sizes, plain)
+    group_sizes = group_sizes.tolist()
     outs = [
         _expert_mlp(xg, experts["lin1"][e], experts["gate"][e], experts["lin2"][e], activation)
         for e, xg in enumerate(torch.split(x_sorted, group_sizes))
@@ -88,11 +109,15 @@ def _expert_mlp_dense(experts, xe, activation):
     return _expert_mlp(xe, experts["lin1"], experts["gate"], experts["lin2"], activation)
 
 
-def dispatch(experts, x2d, topk_idxs, topk_weights, num_experts, *, activation=silu, capacity_factor=None):
+def dispatch(experts, x2d, topk_idxs, topk_weights, num_experts, *, activation=silu, capacity_factor=None,
+             plain=False):
     """x2d: (T, d); topk_idxs/topk_weights: (T, k). Returns (T, d_out): the
-    sum over each token's k experts of weight·expert(x)."""
+    sum over each token's k experts of weight·expert(x). ``plain`` runs K11's
+    plain version (int8 stacks; comparisons only)."""
     t, k = topk_idxs.shape
-    d_out = experts["lin2"].shape[-1]
+    d_out = (experts["lin2"] if "lin2" in experts else experts["lin2_q"]).shape[-1]
+    if "lin1" not in experts:
+        capacity_factor = None  # int8 stacks keep the exact path (K11)
     flat_expert = topk_idxs.reshape(-1)
     flat_weight = topk_weights.reshape(-1)
     token_of = torch.arange(t, device=x2d.device).repeat_interleave(k)
@@ -117,16 +142,25 @@ def dispatch(experts, x2d, topk_idxs, topk_weights, num_experts, *, activation=s
         out_rows = out_rows * (flat_weight[order] * keep)[:, None].to(he.dtype)
         return out_rows.new_zeros(t, d_out).index_add(0, token_sorted, out_rows)
 
-    out_sorted = _expert_mlp_ragged(experts, x_sorted, group_sizes.tolist(), activation)
+    out_sorted = _expert_mlp_ragged(experts, x_sorted, group_sizes, activation, plain)
     out_sorted = out_sorted * flat_weight[order][:, None].to(out_sorted.dtype)
     return out_sorted.new_zeros(t, d_out).index_add(0, token_sorted, out_sorted)
 
 
+def _shared_einsum(shared, name, spec, x):
+    """A batched-over-experts einsum on one stacked matrix; an int8 stack
+    multiplies its (E, out) scale into the product."""
+    if name + "_q" in shared:
+        y = torch.einsum(spec, x, shared[name + "_q"].to(x.dtype))
+        return y * shared[name + "_scale"][None].to(y.dtype)
+    return torch.einsum(spec, x, shared[name])
+
+
 def _shared_experts_sum(shared, x2d, activation=silu):
     """Every shared expert on every token, summed over the experts."""
-    h = torch.einsum("td,edh->teh", x2d, shared["lin1"])
-    h = h * activation(torch.einsum("td,edh->teh", x2d, shared["gate"]))
-    return torch.einsum("teh,ehd->ted", h, shared["lin2"]).sum(dim=1)
+    h = _shared_einsum(shared, "lin1", "td,edh->teh", x2d)
+    h = h * activation(_shared_einsum(shared, "gate", "td,edh->teh", x2d))
+    return _shared_einsum(shared, "lin2", "teh,ehd->ted", h).sum(dim=1)
 
 
 class Qwen3MoE(nn.Module):
@@ -155,12 +189,14 @@ class Qwen3MoE(nn.Module):
             self.shared_gate_w.uniform_(-bound, bound, generator=generator)
 
 
-def qwen3_moe(params, x, *, top_k, load_coeff, training=True, capacity_factor=None):
+def qwen3_moe(params, x, *, top_k, load_coeff, training=True, capacity_factor=None, plain=False):
     """x: (b, s, d). Returns (out, aux); aux has "gate_probas" (T, E) fp32 and,
     when training, "moe_loss" = load_coeff · LBL. (JAX's ``gate_probas``
-    argument, the RL routing replay, comes with the alignment trainers.)"""
+    argument, the RL routing replay, comes with the alignment trainers.)
+    ``plain`` runs K11's plain version (int8 stacks; comparisons only)."""
     b, s, d = x.shape
-    num_experts = params.experts["lin1"].shape[0]
+    experts = params.experts
+    num_experts = (experts["lin1"] if "lin1" in experts else experts["lin1_q"]).shape[0]
     x2d = x.reshape(-1, d)
     gate_probas = torch.softmax((x2d @ params.gate_w).float(), dim=-1)
 
@@ -171,7 +207,7 @@ def qwen3_moe(params, x, *, top_k, load_coeff, training=True, capacity_factor=No
     if training:
         aux["moe_loss"] = load_coeff * load_balance_loss(gate_probas, topk_idxs, num_experts, top_k)
 
-    out = dispatch(params.experts, x2d, topk_idxs, topk_probas, num_experts, capacity_factor=capacity_factor)
+    out = dispatch(experts, x2d, topk_idxs, topk_probas, num_experts, capacity_factor=capacity_factor, plain=plain)
     if hasattr(params, "shared"):
         shared_w = torch.sigmoid(x2d @ params.shared_gate_w)
         out = out + _shared_experts_sum(params.shared, x2d) * shared_w.to(out.dtype)

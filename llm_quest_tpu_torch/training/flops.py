@@ -1,22 +1,31 @@
-"""Analytic model-FLOPs accounting → MFU (counterpart of
-``llm_quest_tpu/training/flops.py``, text models).
+"""Analytic model-FLOPs and decode-byte accounting → MFU / MBU (counterpart
+of ``llm_quest_tpu/training/flops.py``, text models).
 
 **MFU**: achieved matmul FLOP/s over the card's peak — the lens for training,
-which is compute-bound.
+which is compute-bound. **MBU**: achieved device-memory bytes/s over the
+card's peak — the lens for small-batch decode, which streams every weight
+once per step.
 
 FLOP counts are analytic from the model config (matmul FLOPs only: norms,
 softmax, activations and RoPE are small next to the matmuls), 2·m·n·k per
 matmul and 3× forward for a train step (backward ≈ 2× forward); the same
 formulas as the JAX package for GQA attention (gated in the hybrids), SwiGLU
-or Qwen3-MoE FFNs and GatedDeltaNet layers. The GPT-2 MLP and ViT counts,
-MBU and the decode byte counts come with the first ported path that reads
-them.
+or Qwen3-MoE FFNs and GatedDeltaNet layers. The GPT-2 MLP and ViT counts
+come with the first ported path that reads them.
+
+Decode bytes count the KV cache as it is stored: bf16 (or the model's type)
+at its element size, an int8 cache (``cfg["kv_quant"] = "int8"``) at one
+byte an element plus its fp32 k and v scales. Divergence by design: the JAX
+count takes 2 bytes an element whatever the cache holds and leaves the
+scales out, so it overstates an int8 cache's bytes and MBU.
 
 Peaks are those of the card present, looked up by
 ``torch.cuda.get_device_name()``; an unknown card, or no card, raises.
 """
 
 import torch
+
+from llm_quest_tpu_torch.ops.quantization import param_bytes
 
 # Peak dense rates by device name (NVIDIA's data sheet, SXM part, without
 # sparsity, at the full 700 W power limit).
@@ -28,7 +37,7 @@ _DEVICE_PEAKS = {
 def device_peaks(device=None):
     """Peak-rate dict of the CUDA card ``device`` (default: the current one)."""
     if not torch.cuda.is_available():
-        raise RuntimeError("device_peaks: no CUDA device; MFU is a card metric")
+        raise RuntimeError("device_peaks: no CUDA device; MFU and MBU are card metrics")
     name = torch.cuda.get_device_name(device)
     if name not in _DEVICE_PEAKS:
         raise ValueError(f"device_peaks: no peak rates known for {name!r} (known: {sorted(_DEVICE_PEAKS)})")
@@ -38,6 +47,12 @@ def device_peaks(device=None):
 def mfu(rate_per_sec, flops_per_unit, *, dtype="bf16", device=None):
     """Fraction of peak matmul throughput: (units/s · FLOPs/unit) / peak."""
     return rate_per_sec * flops_per_unit / device_peaks(device)[dtype]
+
+
+def mbu(tok_per_sec, bytes_per_token, *, device=None):
+    """Fraction of peak device-memory bandwidth streamed by decode (weights
+    and state read once per token); a lower bound: activations are left out."""
+    return tok_per_sec * bytes_per_token / (device_peaks(device)["hbm_gbps"] * 1e9)
 
 
 # ---------------------------------------------------------- text models
@@ -104,3 +119,27 @@ def text_train_flops_per_token(cfg, *, seq_len):
     """Train-step FLOPs per token: 3× forward, causal attention averaged over
     positions (mean context = seq_len / 2)."""
     return 3 * text_forward_flops_per_token(cfg, kv_len=seq_len // 2)
+
+
+def decode_bytes_per_token(params, cfg, *, kv_len, batch=1):
+    """Device-memory bytes read per decode step ÷ batch: one pass over the
+    weights, shared by the batch, plus each sequence's KV cache at context
+    kv_len (as stored: see the module docstring) and the hybrids' fp32 GDN
+    states."""
+    weights = param_bytes(params)
+    ratio = cfg.get("linear_sdpa_ratio")
+    layers = cfg["n_layers"]
+    n_attn = layers // ratio if ratio else layers
+    nkv = cfg.get("num_kv_groups", cfg["n_heads"])
+    hd = cfg.get("head_dim", cfg["emb_dim"] // cfg["n_heads"])
+    vhd = cfg.get("value_head_dim", hd)
+    if cfg.get("kv_quant") == "int8":
+        per_position = nkv * ((hd + vhd) + 2 * 4)  # int8 k and v, one fp32 scale each per head
+    else:
+        per_position = nkv * (hd + vhd) * torch.finfo(cfg.get("dtype", torch.float32)).bits // 8
+    kv = n_attn * kv_len * per_position
+    state = 0
+    if ratio:
+        nv, dk, dv = cfg["linear_num_value_heads"], cfg["linear_qk_head_dim"], cfg["linear_value_head_dim"]
+        state = (layers - n_attn) * nv * dk * dv * 4  # the fp32 recurrent state
+    return weights // batch + kv + state

@@ -8,6 +8,13 @@ other leaf is: embedding tables are ``(num, dim)``, the patch conv weight
 keeps its conv layout and the depthwise conv1d weight its ``(channels,
 kernel)`` layout in both packages. The GDN recurrent state is ``(dv, dk)`` in
 both, so cache states compare directly.
+
+A tree quantized by the JAX ``quantize_params_int8`` loads too: the model
+takes the quantized structure first (``ops/quantization.py::quantized_like``).
+A linear's ``w_q`` is transposed like ``w``; its ``w_scale`` ((out,) or
+(nb, out)), an int8 embedding table and its per-row scales, and the expert
+stacks' ``<name>_q`` (E, in, out) and ``<name>_scale`` (E, out) have one
+layout in both packages.
 """
 
 import numpy as np
@@ -15,6 +22,7 @@ import torch
 
 from llm_quest_tpu_torch.models import qwen3, qwen3_5, qwen3_next
 from llm_quest_tpu_torch.ops.linear import Linear
+from llm_quest_tpu_torch.ops.quantization import quantized_like
 
 
 def _model_for(flat, cfg, device):
@@ -40,12 +48,13 @@ def from_jax_flat(flat, cfg, *, device=None):
     ``qwen3.Qwen3``. Raises on a missing, unexpected or mis-shaped leaf.
     """
     model = _model_for(flat, cfg, device)
-    state = model.state_dict()
     names = {name.replace("/", "."): arr for name, arr in flat.items()}
+    transposed = quantized_like(model, names)
+    state = model.state_dict()
     missing, unexpected = sorted(set(state) - set(names)), sorted(set(names) - set(state))
     if missing or unexpected:
         raise ValueError(f"parameter names differ: missing {missing[:5]}, unexpected {unexpected[:5]}")
-    linear_weights = {f"{name}.w" for name, m in model.named_modules() if isinstance(m, Linear)}
+    linear_weights = {f"{name}.w" for name, m in model.named_modules() if isinstance(m, Linear)} | transposed
     for name, arr in names.items():
         arr = np.array(arr)  # a writable copy
         if arr.dtype.name == "bfloat16":  # numpy's bf16 (ml_dtypes) has no torch view

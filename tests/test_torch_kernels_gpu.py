@@ -107,11 +107,12 @@ def test_gdn_prefill_backward_kernel(gen, dtype, dk, dv, s, with_prev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_gdn_step_stacked_kernel_in_place(gen, dtype):
+@pytest.mark.parametrize("dk", [64, 128])
+def test_gdn_step_stacked_kernel_in_place(gen, dtype, dk):
     from llm_quest_tpu_torch.kernels import gdn
 
-    q, k, v, beta, alpha = (x[:, :, 0] for x in gdn_inputs(gen, 3, 4, 1, dtype)[:5])
-    stacked = randn(gen, 5, 3, 4, 128, 128, scale=0.1)
+    q, k, v, beta, alpha = (x[:, :, 0] for x in gdn_inputs(gen, 3, 4, 1, dtype, dk=dk, dv=dk)[:5])
+    stacked = randn(gen, 5, 3, 4, dk, dk, scale=0.1)
     before, ref_stacked = stacked.clone(), stacked.clone()
     out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 2)
     ref_out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, ref_stacked, 2, plain=True)
@@ -300,15 +301,102 @@ def test_training_eval_loop_and_prefetch_on_the_card(gen):
 
 
 def test_wrappers_raise_on_unsupported_shapes(gen):
-    from llm_quest_tpu_torch.kernels import attention, gdn
+    from llm_quest_tpu_torch.kernels import attention, flash_decode, gdn, quantized_gmm
 
     q = randn(gen, 1, 2, 4, 96)  # dk = 96: the GDN prefill takes 64 and 128
     with pytest.raises(ValueError):
         gdn.gated_delta_rule_fwd(q, q, q, q[..., 0], q[..., 0])
-    q = randn(gen, 1, 2, 4, 64)  # the decode step takes dk = 128 only
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # the decode step takes dk 64 and 128
         gdn.gated_delta_rule_step_stacked(q[:, :, 0], q[:, :, 0], q[:, :, 0], q[..., 0, 0], q[..., 0, 0],
-                                          randn(gen, 1, 1, 2, 64, 64), 0)
+                                          randn(gen, 1, 1, 2, 96, 96), 0)
     x = randn(gen, 1, 4, 2 * 48)  # head dim 48 has no instantiation
     with pytest.raises(ValueError):
         attention.packed_mha(x, x, x, 2)
+    kq = torch.zeros(1, 2, 8, 64, dtype=torch.int8, device="cuda")  # K10 takes d 128 and 256
+    ks, bias = randn(gen, 1, 2, 8), randn(gen, 1, 8)
+    with pytest.raises(ValueError):
+        flash_decode.flash_decode(randn(gen, 1, 4, 1, 64), kq, ks, kq, ks, bias)
+    w_q = torch.zeros(2, 32, 24, dtype=torch.int8, device="cuda")  # K11 takes N % 16 == 0
+    with pytest.raises(ValueError):
+        quantized_gmm.quantized_ragged_dot(randn(gen, 4, 32), w_q, randn(gen, 2, 24),
+                                           torch.tensor([1, 3], device="cuda"))
+
+
+def int8_cache_inputs(gen, b, hq, hkv, s_len, d, dtype):
+    """q and an int8 KV cache layer as the model writes it (a (L, b, hkv,
+    S, d) buffer and its layer view), with a random key mask as the bias."""
+    from llm_quest_tpu_torch.inference import cache as kv_cache
+    from llm_quest_tpu_torch.ops.masks import mask_value
+
+    cache = kv_cache.init_kv_cache(2, b, hkv, s_len, d, quant="int8", device="cuda")
+    _, k, v = kv_cache.write_layer(cache, 1, randn(gen, b, hkv, s_len, d, dtype=dtype),
+                                   randn(gen, b, hkv, s_len, d, dtype=dtype), 0)
+    valid = torch.rand(b, s_len, generator=gen, device="cuda") > 0.3
+    valid[:, 0] = True
+    bias = torch.where(valid, 0.0, mask_value(torch.float32)).float()
+    return randn(gen, b, hq, 1, d, dtype=dtype), k, v, bias
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("shape", [(1, 8, 2, 96), (3, 4, 4, 75), (2, 16, 2, 1000), (1, 8, 8, 1)])
+def test_flash_decode_kernel(gen, dtype, d, shape):
+    """K10 against its plain version: one or many splits, a ragged tail, GQA
+    groups 1 to 8, one key."""
+    from llm_quest_tpu_torch.kernels import flash_decode
+
+    b, hq, hkv, s_len = shape
+    q, k, v, bias = int8_cache_inputs(gen, b, hq, hkv, s_len, d, dtype)
+    n = flash_decode.flash_decode.launches
+    got = flash_decode.flash_decode(q, k.data, k.scale, v.data, v.scale, bias)
+    assert flash_decode.flash_decode.launches == n + 1
+    ref = flash_decode.flash_decode(q, k.data, k.scale, v.data, v.scale, bias, plain=True)
+    assert got.dtype == dtype and got.shape == (b, hq, 1, d)
+    assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sizes", [[0, 3, 0, 5], [1, 0, 2, 1, 0, 3, 1, 0], [300, 0, 257, 43]])
+@pytest.mark.parametrize("k, n", [(96, 160), (64, 48)])
+def test_quantized_gmm_kernel(gen, dtype, sizes, k, n):
+    """K11 against its plain version: empty experts, ragged groups, both row
+    tilings (few rows and many), a K that is not a multiple of 64."""
+    from llm_quest_tpu_torch.kernels import quantized_gmm
+
+    e = len(sizes)
+    x = randn(gen, sum(sizes), k, dtype=dtype)
+    w_q = torch.randint(-127, 128, (e, k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand(e, n, generator=gen, device="cuda") * 0.02 + 0.001
+    gs = torch.tensor(sizes, device="cuda")
+    cnt = quantized_gmm.quantized_ragged_dot.launches
+    got = quantized_gmm.quantized_ragged_dot(x, w_q, scale, gs)
+    assert quantized_gmm.quantized_ragged_dot.launches == cnt + 1
+    assert_close(got, quantized_gmm.quantized_ragged_dot(x, w_q, scale, gs, plain=True), dtype)
+
+
+def test_int8_serving_through_kernels_matches_plain(gen):
+    """A small int8 Qwen3-Next (int8 linears, experts and KV cache) and an
+    int8 Qwen3.5 text model at head dim 256 decode the same greedy tokens
+    through the kernels (K1, K2 at dk 64 and 128, K10, K11) as through the
+    plain versions, fp32."""
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG, QWEN3_NEXT_SMALL_CONFIG
+    from llm_quest_tpu_torch.inference import generate
+    from llm_quest_tpu_torch.kernels import flash_decode, gdn, quantized_gmm
+    from llm_quest_tpu_torch.models import qwen3_5, qwen3_next
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
+
+    nxt = dict(QWEN3_NEXT_SMALL_CONFIG, n_layers=4, emb_dim=128, moe_hidden_dim=128, shared_expert_hidden_dim=128,
+               vocab_size=256, dtype=torch.float32, kv_quant="int8")
+    txt = dict(QWEN3_5_08B_CONFIG, n_layers=4, emb_dim=256, hidden_dim=256, vocab_size=256, dtype=torch.float32,
+               kv_quant="int8")
+    ids = torch.randint(0, 256, (2, 40), generator=gen, device="cuda")
+    for mod, entry, cfg, launched in ((qwen3_next, qwen3_next, nxt, quantized_gmm.quantized_ragged_dot),
+                                      (qwen3_5, qwen3_5.TextOnly, txt, flash_decode.flash_decode)):
+        init = mod.init if mod is qwen3_next else mod.init_text
+        model = quantize_params_int8(init(cfg, generator=torch.Generator(device="cuda").manual_seed(4), device="cuda"),
+                                     min_size=0, quantize_embeddings=mod is qwen3_5)
+        counts = launched.launches, gdn.gated_delta_rule_step_stacked.launches
+        seqs = [generate.generate_kv_cache(entry, model, dict(cfg, use_kernels=k), ids, max_gen=8, eos_ids=-1,
+                                           pad_id=0)["sequences"] for k in (True, False)]
+        assert launched.launches > counts[0] and gdn.gated_delta_rule_step_stacked.launches > counts[1]
+        assert torch.equal(seqs[0], seqs[1])

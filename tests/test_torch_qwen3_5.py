@@ -205,3 +205,77 @@ def test_torch_init_matches_jax_init_layout_and_ranges():
     assert float(text.tok_emb["w"].abs().max()) <= bound
     assert float(att.w_qkv.w.abs().max()) <= TINY["emb_dim"] ** -0.5
     assert float(model.vision.pos_embed["w"].std()) == pytest.approx(1.0, abs=0.15)
+
+
+# ------------------------------------------------------------------ int8 serving
+#
+# A tiny text model at head dim 128 (so that JAX's router takes K10 at every
+# decode step), quantized by JAX's ``quantize_params_int8`` with the int8
+# tied table, loaded into the port, both asking for the int8 KV cache. JAX's
+# rule gathers an int8 table's rows in bf16 (a bf16 serving transform), so in
+# an fp32 model the first blocks then run on a bf16 stream in both packages,
+# where XLA's bf16 logistic and torch's differ by one bf16 unit (measured:
+# sigmoid and silu of the same bf16 inputs). The fp32 bar therefore holds
+# with the rows gathered in fp32 in both packages (``inputs_embs``), the int8
+# table still read by the tied head; the default bf16 rows are held to a
+# bf16 bar; greedy tokens are compared with the fp table.
+
+INT8 = dict(TINY, head_dim=128, mrope_section=[6, 5, 5])
+
+
+def int8_text(quantize_embeddings):
+    from llm_quest_tpu.ops.quantization import quantize_params_int8
+
+    params = quantize_params_int8(jq.init_text(jax.random.PRNGKey(2), dict(INT8, dtype=jnp.float32)),
+                                  min_size=0, quantize_embeddings=quantize_embeddings)
+    jcfg = dict(INT8, dtype=jnp.float32, kv_quant="int8")
+    tcfg = dict(INT8, dtype=torch.float32, kv_quant="int8")
+    model = from_jax_flat({k: np.asarray(v) for k, v in flatten_params(params).items()}, tcfg)
+    return params, jcfg, model, tcfg
+
+
+def _int8_steps(quantize_embeddings, rows_dtype):
+    """Prefill 9 tokens into the int8 cache (dequantized attention in both),
+    then two decode steps (K10's plain version against the Pallas kernel in
+    interpret mode); yields (port logits, JAX logits) of each call."""
+    from llm_quest_tpu.ops.linear import embedding as jembedding
+    from llm_quest_tpu_torch.ops.linear import embedding as tembedding
+
+    params, jcfg, model, tcfg = int8_text(quantize_embeddings)
+    ids = np.random.default_rng(5).integers(0, 256, (2, 9)).astype(np.int32)
+    jc, tc = jq.init_cache(jcfg, 2, 12), tq.init_cache(tcfg, 2, 12)
+    assert tc["k_q"].dtype == torch.int8 and tc["k_q"].shape == jc["k_q"].shape
+    for _ in range(3):
+        je = jembedding(params["tok_emb"], jnp.asarray(ids), dtype=None if rows_dtype is None else jnp.float32)
+        te = tembedding(model.tok_emb, torch.from_numpy(np.array(ids)).long(), dtype=rows_dtype)
+        assert np.array_equal(np.asarray(je, np.float32), te.float().numpy())
+        jl, jc, _ = jq.apply_text(params, jcfg, inputs_embs=je, cache=jc)
+        tl, tc, _ = tq.apply_text(model, tcfg, inputs_embs=te, cache=tc)
+        yield tl, jl
+        ids = np.asarray(jnp.argmax(jl[:, -1], -1), np.int32)[:, None]
+
+
+def test_int8_text_prefill_and_decode_logits_match():
+    """int8 linears, int8 tied table and int8 KV cache, fp32 rows: within 1e-4."""
+    for tl, jl in _int8_steps(True, torch.float32):
+        assert_close(tl, jl)
+
+
+def test_int8_text_bf16_rows_match_at_bf16_precision():
+    """The default gather (bf16 rows, the same bits in both packages) puts a
+    bf16 stream through the first blocks: logits within 5e-2 × max |ref|
+    (bf16's unit is 2⁻⁸ ≈ 3.9e-3, and one-unit differences of XLA's and
+    torch's bf16 sigmoid/silu grow through 4 blocks; measured 2.9e-2)."""
+    for tl, jl in _int8_steps(True, None):
+        assert_close(tl, jl, tol=5e-2 * float(np.abs(np.asarray(jl)).max()))
+
+
+def test_int8_text_generate_tokens_match():
+    """int8 linears and the int8 KV cache (K10 at every step), fp32 table:
+    identical greedy tokens."""
+    params, jcfg, model, tcfg = int8_text(False)
+    ids = np.random.default_rng(6).integers(0, 256, (2, 12)).astype(np.int32)
+    ref = jgen.generate_kv_cache(JaxText, params, jcfg, jnp.asarray(ids), max_gen=6, temp=0.0, eos_ids=-1, pad_id=0)
+    got = tgen.generate_kv_cache(tq.TextOnly, model, tcfg, torch.from_numpy(ids).long(), max_gen=6, eos_ids=-1,
+                                 pad_id=0)
+    assert got["sequences"].tolist() == np.asarray(ref["sequences"]).tolist()

@@ -135,15 +135,32 @@ def test_hybrid_tree_with_moe_leaves_is_never_a_qwen3_5_model(jparams):
         from_jax_flat(flat(jparams), cfg)
 
 
-def test_cached_paths_raise(jparams):
+def test_cached_paths_raise():
+    """The cached path refuses a KV cache type other than the model's or
+    int8 (JAX's Qwen3-Next cache reads any other ``kv_quant`` as none and
+    gives the bf16 cache; the port's shared cache raises)."""
+    with pytest.raises(ValueError, match="quant must be None or 'int8'"):
+        tq.init_cache(dict(TCFG, kv_quant="int4"), B, S)
+
+
+def test_cached_paths_run_and_prefill_matches_uncached(jparams):
+    """The cached paths are ported (tests/test_torch_qwen3_next_serving.py
+    holds them to JAX): init_cache, a cached apply and a GDN decode step run,
+    and a cached prefill gives the uncached forward's logits."""
     model = from_jax_flat(flat(jparams), TCFG)
     ids = T(batch_np(0)["input_ids"]).long()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.init_cache(TCFG, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.apply(model, TCFG, ids, cache={})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.gated_delta_net_step(model.blocks[0].att, TCFG, None, None, None, 0)
+    cache = tq.init_cache(TCFG, B, S)
+    assert set(cache) == set(jq.init_cache(JCFG, B, S))
+    with torch.no_grad():
+        cached, cache, _ = tq.apply(model, TCFG, ids, cache=cache)
+        uncached, none, _ = tq.apply(model, TCFG, ids)
+        step, convs, _ = tq.gated_delta_net_step(
+            model.blocks[0].att, TCFG, torch.zeros(B, 1, TINY["emb_dim"]),
+            {n: cache[n][0] for n in ("conv_q", "conv_k", "conv_v")}, cache["recurrent"], 0,
+        )
+    assert none is None and cache["pos"] == S
+    assert max_err(cached, uncached.numpy()) <= 1e-4
+    assert step.shape == (B, 1, TINY["emb_dim"]) and set(convs) == {"conv_q", "conv_k", "conv_v"}
 
 
 # ------------------------------------------------------------------ forward
