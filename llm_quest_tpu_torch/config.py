@@ -123,3 +123,14 @@ def qwen3_config_creator(model_size="0.6B", base_model=True):
 def model_dtype(cfg):
     """Resolve a config's parameter/computation dtype (default fp32)."""
     return cfg.get("dtype", torch.float32)
+
+def resolve_device(device=None):
+    """The device a public entry point allocates on: ``device`` as given, or
+    the current CUDA device for None. The port runs on the card: None with no
+    CUDA device present raises ``RuntimeError`` (CPU callers say
+    ``device="cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: pass device="cpu" to build on the CPU')
+    return torch.device("cuda", torch.cuda.current_device())

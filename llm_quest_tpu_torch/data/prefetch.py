@@ -14,6 +14,8 @@ import threading
 import numpy as np
 import torch
 
+from llm_quest_tpu_torch.config import resolve_device
+
 
 def _host_tensor(x, pin):
     t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
@@ -22,11 +24,11 @@ def _host_tensor(x, pin):
 
 def prefetch_to_device(iterator, size=2, device=None):
     """Yield the dict batches of ``iterator`` as tensors on ``device``
-    (default: the current CUDA device, or the CPU without one), with up to
-    ``size`` batches converted and in flight ahead of the consumer. An
-    exception in the iterator or a copy is re-raised at the consumer's next
-    pull."""
-    device = torch.device(device if device is not None else ("cuda" if torch.cuda.is_available() else "cpu"))
+    (default: the current CUDA device; raises without one, see
+    ``config.resolve_device``), with up to ``size`` batches converted and in
+    flight ahead of the consumer. An exception in the iterator or a copy is
+    re-raised at the consumer's next pull."""
+    device = resolve_device(device)
     on_cuda = device.type == "cuda"
     side = torch.cuda.Stream(device) if on_cuda else None
     q = queue.Queue(maxsize=size)

@@ -21,7 +21,7 @@ unchanged (``QuantLinear`` layers, an int8 table through ``ops/linear.py``).
 import torch
 from torch import nn
 
-from llm_quest_tpu_torch.config import model_dtype
+from llm_quest_tpu_torch.config import model_dtype, resolve_device
 from llm_quest_tpu_torch.inference import cache as kv_cache
 from llm_quest_tpu_torch.ops import rope
 from llm_quest_tpu_torch.ops.attention import attention, merge_heads, split_heads
@@ -73,7 +73,7 @@ class Qwen3(nn.Module):
         super().__init__()
         if cfg.get("model_type", "dense") != "dense":
             raise NotImplementedError("qwen3: only the dense model is ported (MoE waits for ops/moe.py)")
-        dtype = model_dtype(cfg)
+        dtype, device = model_dtype(cfg), resolve_device(device)
         self.cfg = cfg
         self.tok_emb = params(w=torch.empty(cfg["vocab_size"], cfg["emb_dim"], dtype=dtype, device=device),
                               trainable=True)
@@ -117,7 +117,7 @@ def rope_tables(cfg, device=None):
 def init_cache(cfg, batch, max_len, *, dtype=None, device=None):
     return kv_cache.init_kv_cache(
         cfg["n_layers"], batch, cfg["num_kv_groups"], max_len, cfg["head_dim"],
-        dtype=dtype or model_dtype(cfg), device=device, quant=cfg.get("kv_quant"),
+        dtype=dtype or model_dtype(cfg), device=resolve_device(device), quant=cfg.get("kv_quant"),
     )
 
 

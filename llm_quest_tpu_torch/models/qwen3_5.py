@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from llm_quest_tpu_torch.config import model_dtype
+from llm_quest_tpu_torch.config import model_dtype, resolve_device
 from llm_quest_tpu_torch.inference import cache as kv_cache
 from llm_quest_tpu_torch.ops import gdn as gdn_ops
 from llm_quest_tpu_torch.ops import rope
@@ -374,7 +374,7 @@ class TextModel(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        dtype = model_dtype(cfg)
+        dtype, device = model_dtype(cfg), resolve_device(device)
         self.cfg = cfg
         self.tok_emb = params(w=torch.empty(cfg["vocab_size"], cfg["emb_dim"], dtype=dtype, device=device))
         self.blocks = nn.ModuleList([TextBlock(cfg, dtype, device, i) for i in range(cfg["n_layers"])])
@@ -403,7 +403,7 @@ def init_cache(cfg, batch, max_len, *, dtype=None, device=None):
     recurrent states (GDN layers), the state kept (dv, dk) as in the JAX
     package. ``cfg["kv_quant"] = "int8"`` makes the KV part the int8 cache;
     the GDN states stay in ``dtype`` and fp32."""
-    dtype = dtype or model_dtype(cfg)
+    dtype, device = dtype or model_dtype(cfg), resolve_device(device)
     n_gdn = len(gdn_layer_indices(cfg))
     _, _, fused = _fused_dims(cfg)
     kv = kv_cache.init_kv_cache(
@@ -500,6 +500,7 @@ class Qwen3_5(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.vision = VisionTower(cfg, model_dtype(cfg), device)
         self.text = TextModel(cfg, device)

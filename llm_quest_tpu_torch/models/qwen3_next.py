@@ -35,7 +35,7 @@ matmul (K11).
 import torch
 from torch import nn
 
-from llm_quest_tpu_torch.config import model_dtype
+from llm_quest_tpu_torch.config import model_dtype, resolve_device
 from llm_quest_tpu_torch.inference import cache as kv_cache
 from llm_quest_tpu_torch.ops import gdn as gdn_ops
 from llm_quest_tpu_torch.ops import moe as moe_ops
@@ -261,7 +261,7 @@ class Qwen3Next(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        dtype = model_dtype(cfg)
+        dtype, device = model_dtype(cfg), resolve_device(device)
         self.cfg = cfg
         self.tok_emb = params(w=torch.empty(cfg["vocab_size"], cfg["emb_dim"], dtype=dtype, device=device),
                               trainable=True)
@@ -303,7 +303,7 @@ def init_cache(cfg, batch, max_len, *, dtype=None, device=None):
     cache with ``cfg["kv_quant"] = "int8"``), the GDN layers' conv_q /
     conv_k / conv_v taps (oldest first) and fp32 (dv, dk) recurrent states,
     and ``pos``; the JAX package's layout."""
-    dtype = dtype or model_dtype(cfg)
+    dtype, device = dtype or model_dtype(cfg), resolve_device(device)
     n_gdn = len(gdn_layer_indices(cfg))
     d_qk = cfg["linear_num_qk_heads"] * cfg["linear_qk_head_dim"]
     d_vg = cfg["linear_num_value_heads"] * cfg["linear_value_head_dim"]

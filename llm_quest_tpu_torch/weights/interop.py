@@ -20,6 +20,7 @@ layout in both packages.
 import numpy as np
 import torch
 
+from llm_quest_tpu_torch.config import resolve_device
 from llm_quest_tpu_torch.models import qwen3, qwen3_5, qwen3_next
 from llm_quest_tpu_torch.ops.linear import Linear
 from llm_quest_tpu_torch.ops.quantization import quantized_like
@@ -45,9 +46,11 @@ def from_jax_flat(flat, cfg, *, device=None):
     ``qwen3_5.Qwen3_5`` for a tree with "vision/" and "text/" prefixes
     (``init``) and a ``qwen3_5.TextModel`` for a bare text tree
     (``init_text``); a dense Qwen3 config (no ``linear_sdpa_ratio``) gives a
-    ``qwen3.Qwen3``. Raises on a missing, unexpected or mis-shaped leaf.
+    ``qwen3.Qwen3``. ``device`` defaults to the current CUDA device
+    (``config.resolve_device``). Raises on a missing, unexpected or
+    mis-shaped leaf.
     """
-    model = _model_for(flat, cfg, device)
+    model = _model_for(flat, cfg, resolve_device(device))
     names = {name.replace("/", "."): arr for name, arr in flat.items()}
     transposed = quantized_like(model, names)
     state = model.state_dict()

@@ -169,10 +169,10 @@ def test_walk_selects_jax_leaves_and_from_jax_flat_equals_it(jax_models, which, 
     quantization of the fp model, leaf for leaf."""
     jparams, cfg = jax_models[which]
     jflat = flat(jquant.quantize_params_int8(jparams, **options))
-    mine = tquant.quantize_params_int8(from_jax_flat(flat(jparams), cfg), **options)
+    mine = tquant.quantize_params_int8(from_jax_flat(flat(jparams), cfg, device="cpu"), **options)
     state = mine.state_dict()
     assert set(state) == {k.replace("/", ".") for k in jflat}
-    loaded = from_jax_flat(jflat, cfg).state_dict()
+    loaded = from_jax_flat(jflat, cfg, device="cpu").state_dict()
     for name, t in state.items():
         assert loaded[name].dtype == t.dtype and torch.equal(loaded[name], t), name
     assert any(t.dtype == torch.int8 for t in state.values())
@@ -181,8 +181,8 @@ def test_walk_selects_jax_leaves_and_from_jax_flat_equals_it(jax_models, which, 
 def test_byte_fraction_and_param_bytes_match_jax(jax_models):
     jparams, cfg = jax_models["next"]
     options = {"quantize_embeddings": True}
-    fp = from_jax_flat(flat(jparams), cfg)
-    q = tquant.quantize_params_int8(from_jax_flat(flat(jparams), cfg), **options)
+    fp = from_jax_flat(flat(jparams), cfg, device="cpu")
+    q = tquant.quantize_params_int8(from_jax_flat(flat(jparams), cfg, device="cpu"), **options)
     jq = jquant.quantize_params_int8(jparams, **options)
     assert tquant.quantized_byte_fraction(q, fp) == pytest.approx(jquant.quantized_byte_fraction(jq, jparams), rel=1e-12)
     assert tflops.param_bytes(q) == jflops.param_bytes(jq)
@@ -198,7 +198,7 @@ def test_decode_bytes_match_jax_for_a_bf16_cache_and_count_int8_as_stored():
     element and no scales (the documented fault in the reference)."""
     jbf = jqn.init(jax.random.PRNGKey(0), dict(NEXT, dtype=jnp.bfloat16))  # fp32 islands stay fp32
     cfg = dict(NEXT, dtype=torch.bfloat16)
-    model = from_jax_flat(flat(jbf), cfg)
+    model = from_jax_flat(flat(jbf), cfg, device="cpu")
     kv_len, batch = 100, 4
     got = tflops.decode_bytes_per_token(model, cfg, kv_len=kv_len, batch=batch)
     assert got == jflops.decode_bytes_per_token(jbf, dict(NEXT, dtype=jnp.bfloat16), kv_len=kv_len, batch=batch)
@@ -236,9 +236,9 @@ def test_int8_qwen3_decode_matches_jax():
            "model_type": "dense", "kv_quant": "int8"}
     jcfg, tcfg = dict(cfg, dtype=jnp.float32), dict(cfg, dtype=torch.float32)
     jparams = jquant.quantize_params_int8(jq3.init(jax.random.PRNGKey(3), jcfg), min_size=0)
-    model = from_jax_flat(flat(jparams), tcfg)
+    model = from_jax_flat(flat(jparams), tcfg, device="cpu")
     ids = rng(7).integers(0, 128, (2, 10)).astype(np.int32)
-    jc, tc = jq3.init_cache(jcfg, 2, 13), tq3.init_cache(tcfg, 2, 13)
+    jc, tc = jq3.init_cache(jcfg, 2, 13), tq3.init_cache(tcfg, 2, 13, device="cpu")
     for _ in range(3):
         jl, jc, _ = jq3.apply(jparams, jcfg, jnp.asarray(ids), cache=jc)
         with torch.no_grad():

@@ -72,7 +72,7 @@ class JaxText:
 @pytest.fixture(scope="module")
 def models():
     params = jq.init(jax.random.PRNGKey(0), JCFG)
-    model = from_jax_flat({k: np.asarray(v) for k, v in flatten_params(params).items()}, TCFG)
+    model = from_jax_flat({k: np.asarray(v) for k, v in flatten_params(params).items()}, TCFG, device="cpu")
     pixels = np.random.default_rng(1).standard_normal((1, 3, 2, 16, 16)).astype(np.float32)
     return params, model, pixels
 
@@ -118,7 +118,7 @@ def test_prefill_cache_states_match(models):
     _, jc, _ = jq.apply(params, JCFG, jnp.asarray(IDS), image_pixels=jnp.asarray(pixels),
                         attn_mask=jnp.asarray(mask), cache=jq.init_cache(JCFG, 1, max_len))
     _, tc, _ = tq.apply(model, TCFG, torch.from_numpy(IDS).long(), image_pixels=torch.from_numpy(pixels),
-                        attn_mask=torch.from_numpy(mask), cache=tq.init_cache(TCFG, 1, max_len))
+                        attn_mask=torch.from_numpy(mask), cache=tq.init_cache(TCFG, 1, max_len, device="cpu"))
     assert tc["pos"] == int(jc["pos"]) == s
     for name in ("k", "v", "conv", "recurrent"):
         assert tc[name].shape == jc[name].shape, name
@@ -178,18 +178,18 @@ def test_generate_kv_cache_flash_prefill_matches(models):
 def test_from_jax_flat_checks_names_and_shapes(models):
     params, _, _ = models
     flat = {k: np.asarray(v) for k, v in flatten_params(params["text"]).items()}
-    assert isinstance(from_jax_flat(flat, TCFG), tq.TextModel)
+    assert isinstance(from_jax_flat(flat, TCFG, device="cpu"), tq.TextModel)
     with pytest.raises(ValueError, match="missing"):
-        from_jax_flat({k: v for k, v in flat.items() if k != "final_norm/scale"}, TCFG)
+        from_jax_flat({k: v for k, v in flat.items() if k != "final_norm/scale"}, TCFG, device="cpu")
     bad = dict(flat, **{"blocks/0/att/w_qkv/w": flat["blocks/0/att/w_qkv/w"].T})
     with pytest.raises(ValueError, match="shape"):
-        from_jax_flat(bad, TCFG)
+        from_jax_flat(bad, TCFG, device="cpu")
 
 
 def test_torch_init_matches_jax_init_layout_and_ranges():
     """``init`` from a torch.Generator gives the JAX init's shapes, dtypes and
     distributions' supports."""
-    model = tq.init(TCFG, generator=torch.Generator().manual_seed(0))
+    model = tq.init(TCFG, generator=torch.Generator().manual_seed(0), device="cpu")
     jflat = flatten_params(jq.init(jax.random.PRNGKey(0), JCFG))
     state = model.state_dict()
     assert set(state) == {k.replace("/", ".") for k in jflat}
@@ -230,7 +230,7 @@ def int8_text(quantize_embeddings):
                                   min_size=0, quantize_embeddings=quantize_embeddings)
     jcfg = dict(INT8, dtype=jnp.float32, kv_quant="int8")
     tcfg = dict(INT8, dtype=torch.float32, kv_quant="int8")
-    model = from_jax_flat({k: np.asarray(v) for k, v in flatten_params(params).items()}, tcfg)
+    model = from_jax_flat({k: np.asarray(v) for k, v in flatten_params(params).items()}, tcfg, device="cpu")
     return params, jcfg, model, tcfg
 
 
@@ -243,7 +243,7 @@ def _int8_steps(quantize_embeddings, rows_dtype):
 
     params, jcfg, model, tcfg = int8_text(quantize_embeddings)
     ids = np.random.default_rng(5).integers(0, 256, (2, 9)).astype(np.int32)
-    jc, tc = jq.init_cache(jcfg, 2, 12), tq.init_cache(tcfg, 2, 12)
+    jc, tc = jq.init_cache(jcfg, 2, 12), tq.init_cache(tcfg, 2, 12, device="cpu")
     assert tc["k_q"].dtype == torch.int8 and tc["k_q"].shape == jc["k_q"].shape
     for _ in range(3):
         je = jembedding(params["tok_emb"], jnp.asarray(ids), dtype=None if rows_dtype is None else jnp.float32)

@@ -115,16 +115,16 @@ def test_config_matches_jax():
 
 def test_from_jax_flat_builds_qwen3_next_and_rejects_bad_trees(jparams):
     f = flat(jparams)
-    model = from_jax_flat(f, TCFG)
+    model = from_jax_flat(f, TCFG, device="cpu")
     assert isinstance(model, tq.Qwen3Next)
     assert all(p.requires_grad for p in model.parameters())
     assert {n.replace(".", "/") for n, _ in model.named_parameters()} == set(f)
     missing = {k: v for k, v in f.items() if k != "blocks/0/moe/gate_w"}
     with pytest.raises(ValueError, match="missing"):
-        from_jax_flat(missing, TCFG)
+        from_jax_flat(missing, TCFG, device="cpu")
     bad = dict(f, **{"blocks/3/att/wqg/w": np.zeros((3, 3), np.float32)})
     with pytest.raises(ValueError, match="shape"):
-        from_jax_flat(bad, TCFG)
+        from_jax_flat(bad, TCFG, device="cpu")
 
 
 def test_hybrid_tree_with_moe_leaves_is_never_a_qwen3_5_model(jparams):
@@ -132,7 +132,7 @@ def test_hybrid_tree_with_moe_leaves_is_never_a_qwen3_5_model(jparams):
     by its "moe/" names: it fails as a Qwen3-Next, not as a Qwen3.5 text model."""
     cfg = {k: v for k, v in TCFG.items() if k not in ("num_experts",)}
     with pytest.raises(KeyError, match="num_experts"):
-        from_jax_flat(flat(jparams), cfg)
+        from_jax_flat(flat(jparams), cfg, device="cpu")
 
 
 def test_cached_paths_raise():
@@ -140,16 +140,16 @@ def test_cached_paths_raise():
     int8 (JAX's Qwen3-Next cache reads any other ``kv_quant`` as none and
     gives the bf16 cache; the port's shared cache raises)."""
     with pytest.raises(ValueError, match="quant must be None or 'int8'"):
-        tq.init_cache(dict(TCFG, kv_quant="int4"), B, S)
+        tq.init_cache(dict(TCFG, kv_quant="int4"), B, S, device="cpu")
 
 
 def test_cached_paths_run_and_prefill_matches_uncached(jparams):
     """The cached paths are ported (tests/test_torch_qwen3_next_serving.py
     holds them to JAX): init_cache, a cached apply and a GDN decode step run,
     and a cached prefill gives the uncached forward's logits."""
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     ids = T(batch_np(0)["input_ids"]).long()
-    cache = tq.init_cache(TCFG, B, S)
+    cache = tq.init_cache(TCFG, B, S, device="cpu")
     assert set(cache) == set(jq.init_cache(JCFG, B, S))
     with torch.no_grad():
         cached, cache, _ = tq.apply(model, TCFG, ids, cache=cache)
@@ -168,7 +168,7 @@ def test_cached_paths_run_and_prefill_matches_uncached(jparams):
 
 @pytest.mark.parametrize("padded", [False, True])
 def test_apply_matches_jax(jparams, padded):
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     b = batch_np(1, padded)
     mask = b.get("attn_mask")
     ref, _, raux = jq.apply(jparams, JCFG, jnp.asarray(b["input_ids"]),
@@ -259,7 +259,7 @@ def port_loss_and_grads(model, cfg, batch):
 def test_fused_ce_loss_and_gradients_match_jax(jparams, mode):
     b = batch_np(2)
     ref_loss, ref_grads = jax_loss_and_grads(jparams, with_capacity(JCFG, mode), {k: jnp.asarray(v) for k, v in b.items()})
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     loss, grads = port_loss_and_grads(model, with_capacity(TCFG, mode), b)
     assert abs(loss - float(ref_loss)) <= 1e-5 * abs(float(ref_loss))
     ref = {torch_name(k): v for k, v in flat(ref_grads).items()}
@@ -277,7 +277,7 @@ def test_padded_batch_loss_matches_jax_and_gradients_are_finite(jparams):
     jhidden, _, jaux = jq.apply(jparams, JCFG, jnp.asarray(b["input_ids"]), attn_mask=jnp.asarray(b["attn_mask"]),
                                 training=True, output_hidden_states=True)
     ref = jlosses.cross_entropy_fused_head(jhidden, jq.head_weights(jparams, JCFG), jnp.asarray(b["targets"]))
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     loss, grads = port_loss_and_grads(model, TCFG, b)
     assert abs(loss - float(ref + jaux["moe_loss"])) <= 1e-5 * abs(float(ref))
     assert all(bool(torch.isfinite(g).all()) for g in grads)
@@ -285,7 +285,7 @@ def test_padded_batch_loss_matches_jax_and_gradients_are_finite(jparams):
 
 @pytest.mark.parametrize("mode", ["exact", "capacity"])
 def test_train_step_matches_jax(jparams, mode):
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     jstep = jengine.make_train_step(jq, with_capacity(JCFG, mode), jengine.make_optimizer(1e-3), fused_head_ce=True)
     tstep = tengine.make_train_step(tq, with_capacity(TCFG, mode), tengine.make_optimizer(1e-3), fused_head_ce=True)
     jp = jax.tree.map(jnp.copy, jparams)  # the JAX step donates its params
@@ -304,7 +304,7 @@ def test_exact_dispatch_equals_capacity_4(jparams):
     """Capacity ≥ the worst case drops nothing: the loss equals the exact
     dispatch's (the JAX package's own check, tests/test_training.py)."""
     b = tengine._as_tensors(batch_np(3), "cpu")
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     losses = [float(tengine.make_loss_fn(tq, cfg, fused_head_ce=True)(model, b))
               for cfg in (TCFG, dict(TCFG, moe_capacity_factor=4.0))]
     assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0]), losses
@@ -312,7 +312,7 @@ def test_exact_dispatch_equals_capacity_4(jparams):
 
 @pytest.mark.parametrize("policy", ["full", "dots"])
 def test_gradient_checkpointing_keeps_gradients(jparams, policy):
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     b = tengine._as_tensors(batch_np(4, padded=True), "cpu")
 
     def grads(cfg):

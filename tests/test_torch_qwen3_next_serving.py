@@ -65,7 +65,7 @@ def models(trees, variant):
     jparams = trees[variant]
     jcfg = dict(TINY, dtype=jnp.float32, **VARIANTS[variant])
     tcfg = dict(TINY, dtype=torch.float32, **VARIANTS[variant])
-    model = from_jax_flat({k: np.asarray(v) for k, v in flatten_params(jparams).items()}, tcfg)
+    model = from_jax_flat({k: np.asarray(v) for k, v in flatten_params(jparams).items()}, tcfg, device="cpu")
     return jparams, jcfg, model, tcfg
 
 
@@ -76,7 +76,7 @@ def prompt(seed):
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_init_cache_matches_jax(trees, variant):
     _, jcfg, _, tcfg = models(trees, variant)
-    jc, tc = jq.init_cache(jcfg, B, 20), tq.init_cache(tcfg, B, 20)
+    jc, tc = jq.init_cache(jcfg, B, 20), tq.init_cache(tcfg, B, 20, device="cpu")
     assert set(tc) == set(jc)
     for name, t in tc.items():
         if name == "pos":
@@ -97,7 +97,7 @@ def test_prefill_and_decode_steps_match_jax(trees, variant):
     mask = np.zeros((B, max_len), bool)
     mask[:, :S] = True
     mask[1, S - 3:S] = False
-    jc, tc = jq.init_cache(jcfg, B, max_len), tq.init_cache(tcfg, B, max_len)
+    jc, tc = jq.init_cache(jcfg, B, max_len), tq.init_cache(tcfg, B, max_len, device="cpu")
     jl, jc, _ = jq.apply(jparams, jcfg, jnp.asarray(ids), attn_mask=jnp.asarray(mask), cache=jc)
     with torch.no_grad():
         tl, tc, _ = tq.apply(model, tcfg, T(ids).long(), attn_mask=T(mask), cache=tc)
@@ -142,8 +142,8 @@ def test_cached_prefill_continues_like_one_prefill(trees):
     _, _, model, tcfg = models(trees, "bf16-cache")
     ids = T(prompt(3)).long()
     with torch.no_grad():
-        one, _, _ = tq.apply(model, tcfg, ids, cache=tq.init_cache(tcfg, B, S))
-        cache = tq.init_cache(tcfg, B, S)
+        one, _, _ = tq.apply(model, tcfg, ids, cache=tq.init_cache(tcfg, B, S, device="cpu"))
+        cache = tq.init_cache(tcfg, B, S, device="cpu")
         _, cache, _ = tq.apply(model, tcfg, ids[:, :6], cache=cache)
         two, _, _ = tq.apply(model, tcfg, ids[:, 6:], cache=cache)
     assert max_err(two[:, -1], one[:, -1].numpy()) <= 1e-4

@@ -87,7 +87,7 @@ def jparams():
 
 
 def test_qwen3_params_trainable_and_named_like_jax(jparams):
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     assert isinstance(model, tq.Qwen3)
     assert all(p.requires_grad for p in model.parameters())
     names = {n.replace(".", "/") for n, _ in model.named_parameters()}
@@ -98,20 +98,20 @@ def test_from_jax_flat_rejects_bad_qwen3_trees(jparams):
     f = flat(jparams)
     missing = {k: v for k, v in f.items() if k != "final_norm/scale"}
     with pytest.raises(ValueError, match="missing"):
-        from_jax_flat(missing, TCFG)
+        from_jax_flat(missing, TCFG, device="cpu")
     bad = dict(f, **{"blocks/0/att/wq/w": np.zeros((3, 3), np.float32)})
     with pytest.raises(ValueError, match="shape"):
-        from_jax_flat(bad, TCFG)
+        from_jax_flat(bad, TCFG, device="cpu")
 
 
 def test_moe_config_raises():
     with pytest.raises(NotImplementedError):
-        tq.Qwen3(dict(TCFG, model_type="moe"))
+        tq.Qwen3(dict(TCFG, model_type="moe"), device="cpu")
 
 
 @pytest.mark.parametrize("padded", [False, True])
 def test_apply_matches_jax(jparams, padded):
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     b = batch_np(0, padded)
     mask = b.get("attn_mask")
     ref, _, _ = jq.apply(jparams, JCFG, jnp.asarray(b["input_ids"]),
@@ -123,7 +123,7 @@ def test_apply_matches_jax(jparams, padded):
 def test_generate_kv_cache_matches_jax(jparams):
     """Prompt of 20 ≥ flash_min_seq tokens: the cached prefill takes flash
     with q_start against the max_len cache view, in both packages."""
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     ids = np.random.default_rng(5).integers(0, TINY["vocab_size"], (2, 20)).astype(np.int32)
     ref = jgen.generate_kv_cache(jq, jparams, JCFG, jnp.asarray(ids), max_gen=8, temp=0.0, eos_ids=-1, pad_id=0)
     got = tgen.generate_kv_cache(tq, model, TCFG, T(ids).long(), max_gen=8, temp=0.0, eos_ids=-1, pad_id=0)
@@ -132,7 +132,7 @@ def test_generate_kv_cache_matches_jax(jparams):
 
 @pytest.mark.parametrize("policy", ["full", "dots"])
 def test_gradient_checkpointing_keeps_gradients(jparams, policy):
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     b = {k: T(v) for k, v in batch_np(1, True).items()}
 
     def grads(cfg):
@@ -240,7 +240,7 @@ def test_optimizer_matches_optax(accumulation_steps):
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("padded", [False, True])
 def test_train_step_matches_jax(jparams, fused, padded):
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     jstep = jengine.make_train_step(jq, JCFG, jengine.make_optimizer(1e-3), fused_head_ce=fused)
     tstep = tengine.make_train_step(tq, TCFG, tengine.make_optimizer(1e-3), fused_head_ce=fused)
     jp = jax.tree.map(jnp.copy, jparams)  # the JAX step donates its params
@@ -264,7 +264,7 @@ def test_training_eval_loop_matches_jax(jparams):
     kw = dict(num_epoch=1, peak_lr=1e-3, init_lr=1e-4, warmup_steps=2, min_lr=1e-4, decay="cosine",
               eval_freq=2, eval_iter=2, log=lambda _: None)
     _, jtr, jva = jengine.training_eval_loop(jq, JCFG, jax.tree.map(jnp.copy, jparams), batches, val, **kw)
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     logs = []
     _, ttr, tva = tengine.training_eval_loop(tq, TCFG, model, batches, val, **dict(kw, log=logs.append))
     assert len(ttr) == len(jtr) == 3 and len(logs) == 3  # steps 1, 2, 4
@@ -273,7 +273,7 @@ def test_training_eval_loop_matches_jax(jparams):
 
 
 def test_training_eval_loop_unported_options_raise(jparams):
-    model = from_jax_flat(flat(jparams), TCFG)
+    model = from_jax_flat(flat(jparams), TCFG, device="cpu")
     for kw in ({"checkpoint_every": 1, "checkpoint_path": "x"}, {"profiler": object()}):
         with pytest.raises(NotImplementedError):
             tengine.training_eval_loop(tq, TCFG, model, [batch_np(0, False)], [], num_epoch=1, **kw)
@@ -329,3 +329,32 @@ def test_prefetch_yields_batches_and_reraises():
     next(it)
     with pytest.raises(KeyError, match="producer failed"):
         next(it)
+
+
+@pytest.mark.parametrize("entry", [
+    "resolve_device", "from_jax_flat", "qwen3.init", "qwen3.init_cache", "qwen3_5.init", "qwen3_5.init_text",
+    "qwen3_5.init_cache", "qwen3_next.init", "qwen3_next.init_cache", "prefetch_to_device",
+])
+def test_device_none_means_the_card_and_raises_without_one(jparams, monkeypatch, entry):
+    """The public entry points build on the current CUDA device by default;
+    with no card they raise and name the CPU opt-in instead of falling back."""
+    from llm_quest_tpu_torch.models import qwen3_5 as tq35
+    from llm_quest_tpu_torch.models import qwen3_next as tqn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator()
+    calls = {
+        "resolve_device": lambda: tconfig.resolve_device(None),
+        "from_jax_flat": lambda: from_jax_flat(flat(jparams), TCFG),
+        "qwen3.init": lambda: tq.init(TCFG, generator=gen),
+        "qwen3.init_cache": lambda: tq.init_cache(TCFG, 1, 8),
+        "qwen3_5.init": lambda: tq35.init(tconfig.QWEN3_5_08B_CONFIG, generator=gen),
+        "qwen3_5.init_text": lambda: tq35.init_text(tconfig.QWEN3_5_08B_CONFIG, generator=gen),
+        "qwen3_5.init_cache": lambda: tq35.init_cache(tconfig.QWEN3_5_08B_CONFIG, 1, 8),
+        "qwen3_next.init": lambda: tqn.init(tconfig.QWEN3_NEXT_SMALL_CONFIG, generator=gen),
+        "qwen3_next.init_cache": lambda: tqn.init_cache(tconfig.QWEN3_NEXT_SMALL_CONFIG, 1, 8),
+        "prefetch_to_device": lambda: next(prefetch_to_device(iter([batch_np(0, False)]))),
+    }
+    with pytest.raises(RuntimeError, match='no CUDA device: pass device="cpu"'):
+        calls[entry]()
+    assert tconfig.resolve_device("cpu") == torch.device("cpu")
