@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the port's
-kernels from ``llm_quest_tpu_torch/csrc`` at first use. Five main paths are
+kernels from ``llm_quest_tpu_torch/csrc`` at first use. Six main paths are
 driven: Qwen3.5-0.8B generation, the dense Qwen3 training step of bench.py's
 train workload, the Qwen3-Next hybrid training step of
-``scripts/bench_hybrid_training.py``, int8 Qwen3.5-0.8B text generation and
-int8 Qwen3-Next cached decode. Phases, one JSON line each on stdout:
+``scripts/bench_hybrid_training.py``, the Gemma-3 sliding-window training
+step at Gemma-3-270M's widths, int8 Qwen3.5-0.8B text generation and int8
+Qwen3-Next cached decode. Phases, one JSON line each on stdout:
 
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
@@ -27,8 +28,12 @@ int8 Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    decode) at the int8 decode shape, a long context and Qwen3's head dim;
    K11 (int8 grouped matmul) at Qwen3-Next-small's decode and prefill
    shapes, both row tilings, and a sweep of both tilings from T 32 to 512;
-   K2 also at dk 64. Each record carries its bound and, where one PyTorch
-   call computes the same function, that call's time;
+   K2 also at dk 64. K4 at one Gemma-3-270M layer (b 4, q/kv heads 4/1,
+   d 256, s 2048), fp32 and bf16, forward and forward + backward, each with
+   window 512 and causal, and softcap 30 with sinks (dsink checked); then
+   ``k4_window_ratio``: the windowed times at most 0.6x the causal ones.
+   Each record carries its bound and, where one PyTorch call computes the
+   same function, that call's time;
 3. check_fp32: the full-width Qwen3.5-0.8B generation path (random weights
    from a seeded generator) in fp32, once through the kernels and once with
    the plain versions forced: prefill logits close, first 16 greedy tokens
@@ -53,14 +58,23 @@ int8 Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    dispatch, as phase 7: K1 forward and backward launch 6 times a step,
    flash forward and backward twice; then the same with capacity dispatch
    (factor 1.25);
-10. int8_generate_fp32, next_serve_fp32: int8 Qwen3.5-0.8B text and int8
+10. gemma_fp32: Gemma-3-270M widths cut to 6 layers (5 SWA + 1 global),
+    b 2, s 1024, the loss and every gradient through the kernels against the
+    plain versions (full-logits CE: the Gemma-3 model has no fused head);
+    gemma_fp32_cached: a 700-token prompt's cached prefill (``sdpa`` on the
+    dense masks) against the uncached flash forward, last logits;
+11. gemma_train: the 18-layer model, b 4, s 2048, bf16, as phase 7: K4
+    forward and backward each launch 18 times a step, 15 with the window;
+    MFU with the port's SWA FLOP count; gemma_generate: b 1, a 300-token
+    prompt, 16 greedy tokens through the cache branch, tok/s and TTFT;
+12. int8_generate_fp32, next_serve_fp32: int8 Qwen3.5-0.8B text and int8
     Qwen3-Next-small at full width cut to 4 layers, fp32, kernels against
     plain: prefill logits within INT8_LOGIT_TOL, 16 greedy tokens equal;
-11. int8_generate: Qwen3.5-0.8B text, 24 layers, bf16, weights, tied table
+13. int8_generate: Qwen3.5-0.8B text, 24 layers, bf16, weights, tied table
     and KV cache int8, b = 1, prompt 32, 64 greedy tokens (K1, K2, K10);
-12. next_serve: Qwen3-Next-small, 8 layers, bf16, linears and expert stacks
+14. next_serve: Qwen3-Next-small, 8 layers, bf16, linears and expert stacks
     int8, b = 4, 300-token prompts, 64 greedy tokens (K1, K2 at dk 64, K11).
-    Phases 11 and 12 reset the counts, drive the int8 model once, then print
+    Phases 13 and 14 reset the counts, drive the int8 model once, then print
     tok/s, TTFT and MBU beside the bf16 model's, and the per-step cost of
     the int8 → bf16 weight copies.
 
@@ -71,7 +85,7 @@ last line; there is no CPU fallback.
     python3 chip_smoke.py --profile
 
 runs only the device phase and a ``torch.profiler`` breakdown of the train
-steps of phases 7 and 9 (2 warm-up and 2 profiled steps each): the device's
+steps of phases 7, 9 and 11 (2 warm-up and 2 profiled steps each): the device's
 busy share of the profiled wall and the device time per step by kernel group
 (flash forward, dq, dk/dv, GDN forward, backward and its reduction, cuBLAS
 GEMMs, the rest), one JSON line each.
@@ -491,6 +505,111 @@ def kernel_k4_bwd(gen, dtypes):
     return max(errs), ms, plain_ms, cases, extra
 
 
+# one attention layer of Gemma-3-270M's train step: b 4, q/kv heads 4/1, d 256, s 2048
+GEMMA_K4 = {"b": 4, "hq": 4, "hkv": 1, "s": 2048, "d": 256}
+GEMMA_WINDOW = 512
+
+
+def visible_pairs(s, window=None):
+    """(query, key) pairs a causal (optionally windowed) s-row block sees."""
+    w = min(window or s, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def gemma_k4_case(gen, dtypes, *, window=None, softcap=None, sink=False, backward=False):
+    """K4 at GEMMA_K4 with the given features against its plain version in
+    each dtype (the output, and with ``backward`` dq/dk/dv and dsink through
+    autograd), then the kernel, the plain version and (without softcap or
+    sinks) ``F.scaled_dot_product_attention`` on the dense mask timed in bf16."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import attention as attn
+
+    b, hq, hkv, s, d = (GEMMA_K4[key] for key in ("b", "hq", "hkv", "s", "d"))
+    errs, cases = [], []
+    for dtype in dtypes:
+        # a softcap of 30 bends scores only where they reach its scale
+        q = randn(gen, b, hq, s, d, dtype=dtype, scale=20.0 if softcap else 1.0)
+        k, v = randn(gen, b, hkv, s, d, dtype=dtype), randn(gen, b, hkv, s, d, dtype=dtype)
+        do = randn(gen, b, hq, s, d, dtype=dtype)
+        # sinks near the rows' logsumexp, so their share and dsink are not negligible
+        sk = randn(gen, hq, scale=0.5) + 5.0 if sink else None
+        kw = {"window_size": window, "softcap": softcap}
+        leaves = [t.clone().requires_grad_(backward) for t in (q, k, v) + ((sk,) if sink else ())]
+
+        def run(plain, leaves=leaves, kw=kw, do=do):
+            out = attn.flash_attention(*leaves[:3], sink=leaves[3] if sink else None, plain=plain, **kw)
+            if not backward:
+                return (out,)
+            return (out.detach(),) + torch.autograd.grad(out, leaves, do)
+
+        names = ("o", "dq", "dk", "dv", "dsink")[: (4 + sink) if backward else 1]
+        got, ref = run(False), run(True)
+        torch_sync()
+        label = f"K4 gemma window={window} softcap={softcap} sink={sink} bwd={backward} {dtype}"
+        err = {n: check(f"{label} {n}", g, r, dtype) for n, g, r in zip(names, got, ref)}
+        case = {"dtype": str(dtype), "max_abs_err": err, "max_abs_ref": {n: max_err(g, r)[1]
+                                                                        for n, g, r in zip(names, got, ref)}}
+        del got, ref
+        if dtype == dtypes[0]:  # the record's error is the fp32 one, as for the other kernels
+            errs.append(max(err.values()))
+        if dtype == dtypes[-1]:
+            iters = (5, 1) if backward else (10, 2)
+            case["ms"] = cuda_ms(lambda: run(False), *iters)
+            case["plain_ms"] = cuda_ms(lambda: run(True), *iters)
+            pairs = visible_pairs(s, window)
+            # forward 4·d FLOPs per visible pair and head (QKᵀ, PV); backward 2× that
+            flops = (3 if backward else 1) * 4 * d * pairs * b * hq
+            n_bytes = 2 * nbytes(q, k, v, do) if backward else nbytes(q, k, v, q) + 4 * b * hq * s
+            case.update(bound(n_bytes, flops, "bfloat16"))
+            case["library_ms"] = None
+            if softcap is None and not sink:
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                allowed = None
+                if window is not None:
+                    pos = torch.arange(s, device=DEVICE)
+                    allowed = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+                def lib():
+                    lq, lk, lv = leaves[:3]
+                    if allowed is None:
+                        out = sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
+                    else:
+                        out = sdpa(lq, lk, lv, attn_mask=allowed, enable_gqa=True)
+                    return torch.autograd.grad(out, leaves[:3], do) if backward else out
+
+                if not backward:
+                    check(f"{label} vs sdpa (library)", lib(), attn.flash_attention(q, k, v, **kw), dtype)
+                case["library_ms"] = cuda_ms(lib, *iters)
+        cases.append(case)
+        del q, k, v, do, leaves
+        torch.cuda.empty_cache()
+    rec = cases[-1]
+    extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "library_ms")}
+    extra["shape"] = {**GEMMA_K4, "window": window, "softcap": softcap, "sink": sink, "backward": backward}
+    return max(errs), rec["ms"], rec["plain_ms"], cases, extra
+
+
+def kernel_k4_window(gen, dtypes):
+    return gemma_k4_case(gen, dtypes, window=GEMMA_WINDOW)
+
+
+def kernel_k4_window_bwd(gen, dtypes):
+    return gemma_k4_case(gen, dtypes, window=GEMMA_WINDOW, backward=True)
+
+
+def kernel_k4_causal_d256(gen, dtypes):
+    return gemma_k4_case(gen, dtypes)
+
+
+def kernel_k4_causal_d256_bwd(gen, dtypes):
+    return gemma_k4_case(gen, dtypes, backward=True)
+
+
+def kernel_k4_softcap_sink(gen, dtypes):
+    return gemma_k4_case(gen, dtypes, softcap=30.0, sink=True, backward=True)
+
+
 def kernel_k7(gen, dtypes):
     import torch
 
@@ -648,8 +767,11 @@ def torch_sync():
 # the main paths
 GENERATE, TRAIN, HYBRID = "generate", "train", "hybrid_train"
 INT8_GENERATE, NEXT_SERVE = "int8_generate", "next_serve"
+GEMMA = "gemma_train"
 KERNELS = [
-    # name, wrapper (module, attribute), source, replaced TPU kernel, check, main paths that launch it
+    # name, wrapper (module, attribute[, which launches: "window" = those with a
+    # sliding window, "full" = those without, "softcap_sink" = those with a
+    # softcap or sinks]), source, replaced TPU kernel, check, main paths that launch it
     ("gdn_prefill", ("gdn", "gated_delta_rule_fwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
      "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1, (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE)),
     ("gdn_prefill_bwd", ("gdn", "gated_delta_rule_bwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
@@ -666,6 +788,22 @@ KERNELS = [
      "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10, (INT8_GENERATE,)),
     ("quantized_ragged_dot", ("quantized_gmm", "quantized_ragged_dot"), "llm_quest_tpu_torch/csrc/quantized_gmm.cu",
      "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11, (NEXT_SERVE,)),
+    # K4 at one Gemma-3-270M layer: the SWA layers' window, the global layers'
+    # causal call at the same shape, and the softcap and sinks (on no path yet)
+    ("flash_attention_fwd_window", ("attention", "flash_attention", "window"), "llm_quest_tpu_torch/csrc/attention.cu",
+     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4_window, (GEMMA,)),
+    ("flash_attention_fwd_bwd_window", ("attention", "flash_attention_bwd", "window"),
+     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
+     kernel_k4_window_bwd, (GEMMA,)),
+    ("flash_attention_fwd_causal_d256", ("attention", "flash_attention", "full"),
+     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:544",
+     kernel_k4_causal_d256, (GEMMA,)),
+    ("flash_attention_fwd_bwd_causal_d256", ("attention", "flash_attention_bwd", "full"),
+     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
+     kernel_k4_causal_d256_bwd, (GEMMA,)),
+    ("flash_attention_softcap_sink", ("attention", "flash_attention_bwd", "softcap_sink"),
+     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
+     kernel_k4_softcap_sink, ()),
 ]
 
 
@@ -673,6 +811,17 @@ def wrapper(spec):
     import importlib
 
     return getattr(importlib.import_module(f"llm_quest_tpu_torch.kernels.{spec[0]}"), spec[1])
+
+
+def launch_count(spec):
+    """The wrapper's launches of the kind ``spec`` names (see KERNELS): all,
+    those with a sliding window, those without, or those with a softcap or
+    sinks."""
+    w = wrapper(spec)
+    kind = spec[2] if len(spec) > 2 else "all"
+    if kind == "full":
+        return w.launches - w.window_launches
+    return w.launches if kind == "all" else getattr(w, f"{kind}_launches")
 
 
 def kernel_phase():
@@ -694,7 +843,10 @@ def kernel_phase():
 
 def reset_launches():
     for spec in KERNELS:
-        wrapper(spec[1]).launches = 0
+        w = wrapper(spec[1])
+        for counter in ("launches", "window_launches", "softcap_sink_launches"):
+            if hasattr(w, counter):
+                setattr(w, counter, 0)
 
 
 def read_launches(path, records, *, add=True):
@@ -702,7 +854,7 @@ def read_launches(path, records, *, add=True):
     ``add``); fails if a kernel of the path never launched."""
     counts = {}
     for (name, spec, *_, paths), rec in zip(KERNELS, records):
-        n = wrapper(spec).launches
+        n = launch_count(spec)
         counts[name] = n
         if add and path in paths:
             rec["launches"] += n
@@ -879,8 +1031,13 @@ def init_model(model_mod, cfg):
     return model_mod.init(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
 
 
-def grads_check(phase, model_mod, cfg, b, s):
-    """One fp32 step's loss and gradients, kernels vs plain, same weights."""
+def grads_check(phase, model_mod, cfg, b, s, *, fused=True, invariant=None):
+    """One fp32 step's loss and gradients, kernels vs plain, same weights;
+    ``fused``: the fused-head CE (a model without it takes the full logits).
+    ``invariant`` maps the name of a leaf whose gradient is zero in exact
+    arithmetic (fp32 noise on both sides, so no relative bar) to the leaf
+    that scales it: both its gradients must stay under TRAIN_GRAD_RTOL times
+    that leaf's (plain) gradient."""
     import torch
 
     from llm_quest_tpu_torch.training import engine
@@ -890,15 +1047,23 @@ def grads_check(phase, model_mod, cfg, b, s):
     batch = train_batch(b, s)
     results = []
     for use_kernels in (True, False):
-        loss = engine.make_loss_fn(model_mod, dict(cfg, use_kernels=use_kernels), fused_head_ce=True)(model, batch)
+        loss = engine.make_loss_fn(model_mod, dict(cfg, use_kernels=use_kernels), fused_head_ce=fused)(model, batch)
         grads = torch.autograd.grad(loss, list(model.parameters()))
         results.append((float(loss.detach()), [g.detach() for g in grads]))
     (lk, gk), (lp, gp) = results
     loss_rel = abs(lk - lp) / abs(lp)
     if not loss_rel <= TRAIN_LOSS_RTOL:
         raise AssertionError(f"{phase} loss, kernels {lk} vs plain {lp}: rel {loss_rel} > {TRAIN_LOSS_RTOL}")
-    worst_name, worst = None, 0.0
+    worst_name, worst, worst_zero = None, 0.0, 0.0
+    by_name = dict(zip(names, gp))
     for name, a, r in zip(names, gk, gp):
+        ref_name = invariant(name) if invariant else None
+        if ref_name is not None:
+            rel = max(float(a.abs().max()), float(r.abs().max())) / float(by_name[ref_name].abs().max())
+            if not rel <= TRAIN_GRAD_RTOL:
+                raise AssertionError(f"{phase} grad {name} (zero in exact arithmetic): {rel} of {ref_name}'s")
+            worst_zero = max(worst_zero, rel)
+            continue
         diff, scale = float((a - r).abs().max()), float(r.abs().max())
         rel = diff / scale if scale > 0 else diff  # a leaf no token reached: both must be zero
         if not rel <= TRAIN_GRAD_RTOL:
@@ -907,14 +1072,16 @@ def grads_check(phase, model_mod, cfg, b, s):
             worst_name, worst = name, rel
     emit({"phase": phase, "layers": cfg["n_layers"], "b": b, "s": s, "loss_kernels": lk, "loss_plain": lp,
           "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL, "n_grads": len(names),
-          "worst_grad": worst_name, "worst_grad_rel_err": worst, "grad_rtol": TRAIN_GRAD_RTOL})
+          "worst_grad": worst_name, "worst_grad_rel_err": worst, "grad_rtol": TRAIN_GRAD_RTOL,
+          **({"worst_zero_grad_ratio": worst_zero} if invariant else {})})
     del model, results
     torch.cuda.empty_cache()
 
 
-def train_run(phase, model_mod, cfg, records, card, path, per_step, *, add=True, steps=4, b=4, s=2048):
+def train_run(phase, model_mod, cfg, records, card, path, per_step, *, add=True, steps=4, b=4, s=2048, fused=True,
+              lr=3e-4):
     """A bf16 train step through the port's entry points (``make_optimizer``
-    → ``make_train_step``, fused-head CE): 1 warm-up and ``steps`` timed
+    → ``make_train_step``, fused-head CE unless not ``fused``): 1 warm-up and ``steps`` timed
     steps, each ended by a device sync; every kernel of ``per_step`` must
     launch that many times a step, and the loss must be finite and fall."""
     import math
@@ -925,9 +1092,9 @@ def train_run(phase, model_mod, cfg, records, card, path, per_step, *, add=True,
     from llm_quest_tpu_torch.training import flops as F
 
     model = init_model(model_mod, cfg)
-    optimizer = engine.make_optimizer(3e-4)
+    optimizer = engine.make_optimizer(lr)
     opt_state = optimizer.init(model)
-    step = engine.make_train_step(model_mod, cfg, optimizer, fused_head_ce=True)
+    step = engine.make_train_step(model_mod, cfg, optimizer, fused_head_ce=fused)
     batch = train_batch(b, s)
 
     reset_launches()
@@ -952,8 +1119,9 @@ def train_run(phase, model_mod, cfg, records, card, path, per_step, *, add=True,
         raise AssertionError(f"{phase} bf16 losses not finite and falling: {losses}")
     tok_s = b * s / dt
     flops_per_token = F.text_train_flops_per_token(cfg, seq_len=s)
-    emit({"phase": phase, "card": card, "dtype": "bfloat16", "layers": cfg["n_layers"], "b": b, "s": s,
-          "moe_capacity_factor": cfg.get("moe_capacity_factor"), "launches": launches, "losses": losses,
+    emit({"phase": phase, "card": card, "dtype": "bfloat16", "layers": cfg["n_layers"], "b": b, "s": s, "lr": lr,
+          "moe_capacity_factor": cfg.get("moe_capacity_factor"), "fused_head_ce": fused, "launches": launches,
+          "launches_per_step": {name: n / n_steps for name, n in launches.items()}, "losses": losses,
           "step_ms": dt * 1e3, "step_ms_each": [x * 1e3 for x in step_s], "tok_s": tok_s,
           "flops_per_token": flops_per_token, "mfu": F.mfu(tok_s, flops_per_token),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -975,6 +1143,95 @@ def train_paths(records, card):
     train_run("hybrid_train", qwen3_next, hybrid_cfg(8, torch.bfloat16), records, card, HYBRID, hybrid)
     train_run("hybrid_train", qwen3_next, hybrid_cfg(8, torch.bfloat16, 1.25), records, card, HYBRID, hybrid,
               add=False)
+
+
+# ------------------------------------------------------------ Gemma-3 path
+
+
+def gemma_cfg(n_layers, dtype):
+    """Gemma-3-270M's published widths (google/gemma-3-270m ``config.json``,
+    typed in) on the repo's Gemma-3 architecture: 18 layers, 15 of them SWA
+    (window 512, every 6th global), 4/1 heads of 256, about 268 M parameters.
+    The one RoPE base is Gemma's local one."""
+    return {
+        "vocab_size": 262_144, "context_length": 32_768, "emb_dim": 640, "n_layers": n_layers, "n_heads": 4,
+        "num_kv_groups": 1, "head_dim": 256, "hidden_dim": 2048, "window_size": GEMMA_WINDOW,
+        "local_global_att_ratio": 5, "rope_base": 10_000, "dtype": dtype,
+    }
+
+
+def k4_window_ratio(records):
+    """The windowed K4 against the causal one at the same shape: skipping the
+    key tiles outside the window must make it at most 0.6× as long (its
+    visible work is 0.44×)."""
+    ms = {rec["name"]: rec["ms"] for rec in records}
+    ratios = {"fwd": ms["flash_attention_fwd_window"] / ms["flash_attention_fwd_causal_d256"],
+              "fwd_bwd": ms["flash_attention_fwd_bwd_window"] / ms["flash_attention_fwd_bwd_causal_d256"]}
+    work = visible_pairs(GEMMA_K4["s"], GEMMA_WINDOW) / visible_pairs(GEMMA_K4["s"])
+    emit({"phase": "k4_window_ratio", "ms_ratio": ratios, "visible_work_ratio": work, "limit": 0.6})
+    if not all(r <= 0.6 for r in ratios.values()):
+        raise AssertionError(f"windowed K4 not faster than 0.6x causal: {ratios}")
+
+
+def gemma_generate_check(model, cfg, ids):
+    """fp32: the cached prefill (``sdpa`` on the dense SWA and global masks)
+    against the uncached forward through the flash kernels, last-position
+    logits within LOGIT_TOL."""
+    import torch
+
+    from llm_quest_tpu_torch.models import gemma3
+
+    with torch.inference_mode():
+        uncached, _, _ = gemma3.apply(model, cfg, ids)
+        cache = gemma3.init_cache(cfg, ids.shape[0], ids.shape[1], device=DEVICE)
+        cached, _, _ = gemma3.apply(model, cfg, ids, cache=cache)
+    err = float((uncached[:, -1].float() - cached[:, -1].float()).abs().max())
+    if not err <= LOGIT_TOL:
+        raise AssertionError(f"gemma fp32 cached vs uncached (flash) logits: max abs err {err} > {LOGIT_TOL}")
+    return err
+
+
+def gemma_paths(records, card):
+    """Gemma-3-270M: the fp32 check (6 layers, 5 SWA + 1 global, b 2, s 1024:
+    loss and gradients kernels vs plain, cached vs flash logits), the bf16
+    train step at full depth and the bf16 cached generation."""
+    import torch
+
+    from llm_quest_tpu_torch.models import gemma3
+
+    fp32 = gemma_cfg(6, torch.float32)
+    # a shift common to every key adds one constant to a row's scores, which
+    # the softmax cancels: the k-norm shifts' gradients are zero but for noise
+    grads_check("gemma_fp32", gemma3, fp32, 2, 1024, fused=False,
+                invariant=lambda n: n.replace(".shift", ".scale") if n.endswith("k_norm.shift") else None)
+    model = init_model(gemma3, fp32)
+    err = gemma_generate_check(model, fp32, ids_on_card(1, 700))
+    emit({"phase": "gemma_fp32_cached", "layers": 6, "prompt": 700, "logit_max_abs_err": err, "logit_tol": LOGIT_TOL})
+    del model
+    torch.cuda.empty_cache()
+
+    per_step = {"flash_attention_fwd_window": 15, "flash_attention_fwd_bwd_window": 15,
+                "flash_attention_fwd_causal_d256": 3, "flash_attention_fwd_bwd_causal_d256": 3,
+                "flash_attention_fwd": 18, "flash_attention_bwd": 18}
+    cfg = gemma_cfg(18, torch.bfloat16)
+    # 1e-4: at 3e-4 Adam's first steps overshoot on the N(0, 1) tied table (loss ~120)
+    train_run("gemma_train", gemma3, cfg, records, card, GEMMA, per_step, fused=False, lr=1e-4)
+
+    # cached generation: b 1, a 300-token prompt, 16 greedy tokens (the cache
+    # branch runs sdpa on the dense masks, as JAX's flash_ok=cache is None)
+    model = init_model(gemma3, cfg)
+    ids = ids_on_card(1, 300)
+    reset_launches()
+    seq = generate(gemma3, model, cfg, ids, 16)
+    torch.cuda.synchronize()
+    launches = {name: launch_count(spec) for name, spec, *_ in KERNELS}
+    if tuple(seq.shape) != (1, ids.shape[1] + 16) or not bool(((seq >= 0) & (seq < cfg["vocab_size"])).all()):
+        raise AssertionError(f"gemma generation: bad sequences {tuple(seq.shape)}")
+    rates = serve_rates(gemma3, model, cfg, ids, max_gen=16)
+    emit({"phase": "gemma_generate", "card": card, "dtype": "bfloat16", "layers": 18, "b": 1, "prompt": 300,
+          "max_gen": 16, "tokens": seq[0, -16:].tolist(), "launches": launches, **rates})
+    del model
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ serving paths
@@ -1126,7 +1383,7 @@ PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names
 }
 
 
-def profile_step(phase, model_mod, cfg, card, steps=2):
+def profile_step(phase, model_mod, cfg, card, steps=2, fused=True):
     """``torch.profiler`` breakdown of a bf16 train step (b = 4, s = 2048):
     device busy share of the profiled wall, and device time by kernel group
     (the hand-written kernels, cuBLAS GEMMs, everything else). One JSON line."""
@@ -1138,7 +1395,7 @@ def profile_step(phase, model_mod, cfg, card, steps=2):
     model = init_model(model_mod, cfg)
     optimizer = engine.make_optimizer(3e-4)
     opt_state = optimizer.init(model)
-    step = engine.make_train_step(model_mod, cfg, optimizer, fused_head_ce=True)
+    step = engine.make_train_step(model_mod, cfg, optimizer, fused_head_ce=fused)
     batch = train_batch(4, 2048)
     for _ in range(2):  # warm-up: kernels built, allocator filled
         model, opt_state, _ = step(model, opt_state, batch)
@@ -1184,10 +1441,11 @@ def profile_step(phase, model_mod, cfg, card, steps=2):
 def profile_paths(card):
     import torch
 
-    from llm_quest_tpu_torch.models import qwen3, qwen3_next
+    from llm_quest_tpu_torch.models import gemma3, qwen3, qwen3_next
 
     profile_step("profile_train", qwen3, train_cfg(16, torch.bfloat16), card)
     profile_step("profile_hybrid_train", qwen3_next, hybrid_cfg(8, torch.bfloat16), card)
+    profile_step("profile_gemma_train", gemma3, gemma_cfg(18, torch.bfloat16), card, fused=False)
 
 
 def main(argv):
@@ -1197,7 +1455,8 @@ def main(argv):
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="only profile the bf16 dense and hybrid train steps (torch.profiler) and print the breakdowns")
+                        help="only profile the bf16 dense, hybrid and Gemma-3 train steps (torch.profiler) "
+                             "and print the breakdowns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -1225,11 +1484,13 @@ def main(argv):
         return 0
 
     records = kernel_phase()
+    k4_window_ratio(records)
     cfg = dict(QWEN3_5_08B_CONFIG)
     inputs = make_inputs(cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
     check_fp32(cfg, inputs)
     main_path(cfg, inputs, records, smi)
     train_paths(records, smi)
+    gemma_paths(records, smi)
     serving_paths(records, smi)
 
     emit({"kernels": records})

@@ -8,8 +8,11 @@ torch and numpy only — never jax and never ``llm_quest_tpu``.
 Slices ported so far: Qwen3.5-0.8B multimodal generation
 (``models/qwen3_5.py::generate_multimodal``) with the batched text decode
 engine (``inference/generate.py``), the dense Qwen3 training step
-(``models/qwen3.py``, ``training/engine.py``) and the Qwen3-Next hybrid MoE
-training step (``models/qwen3_next.py``, ``ops/moe.py``). The TPU kernels on
+(``models/qwen3.py``, ``training/engine.py``), the Qwen3-Next hybrid MoE
+training step (``models/qwen3_next.py``, ``ops/moe.py``), the int8 serving
+path (``ops/quantization.py``, the int8 KV cache) and the Gemma-3
+sliding-window training step (``models/gemma3.py``). The TPU kernels on
 those paths are rewritten as CUDA C++ for ``sm_90a`` (``csrc/``, bound in
-``kernels/``), flash attention and the GDN prefill with their backward.
+``kernels/``), flash attention (with its sliding window, softcap and sinks)
+and the GDN prefill with their backward.
 """

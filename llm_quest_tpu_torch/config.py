@@ -2,11 +2,35 @@
 
 Plain dicts with the reference's keys; dtypes are torch dtypes. Only the
 configurations of the ported slices are here: Qwen3.5-0.8B, the dense Qwen3
-entries and Qwen3-Next-small (the Qwen3 MoE entries wait for the Qwen3 MoE
-model).
+entries, Qwen3-Next-small and Gemma-3-small (the Qwen3 MoE entries wait for
+the Qwen3 MoE model).
 """
 
 import torch
+
+# Gemma-3 small (same keys and values as the JAX package's)
+GEMMA3_SMALL_CONFIG = {
+    "vocab_size": 50304,
+    "context_length": 512,
+    "emb_dim": 768,
+    "n_heads": 12,
+    "n_layers": 12,
+    "num_kv_groups": 6,
+    "hidden_dim": 4 * 768,
+    "window_size": 3,
+    # 0 → all global attn; n_layers → all SWA; else alternate every Nth layer global
+    "local_global_att_ratio": 5,
+    "rope_base": 10_000,
+    "rope_freq": {
+        "factor": 32.0,
+        "alpha": 1.0,
+        "beta": 32.0,
+        "og_ctx_len": 4096,
+        "ctx_len": 8192,
+    },
+    "logits_softcap": 30.0,
+    "dtype": torch.float32,
+}
 
 # Qwen3-Next small hybrid (same keys and values as the JAX package's): 8
 # blocks, GatedAttention every 4th, Qwen3-MoE FFNs with a weighted shared expert
@@ -123,6 +147,7 @@ def qwen3_config_creator(model_size="0.6B", base_model=True):
 def model_dtype(cfg):
     """Resolve a config's parameter/computation dtype (default fp32)."""
     return cfg.get("dtype", torch.float32)
+
 
 def resolve_device(device=None):
     """The device a public entry point allocates on: ``device`` as given, or

@@ -5,9 +5,14 @@
 //     _fwd_kernel) and recompute backward (_bwd_dq_kernel, _bwd_dkv_kernel,
 //     the custom VJP of _flash_core): causal masking with a static query offset q_start (query
 //     row i sits at absolute position q_start + i; key j is visible iff
-//     j <= q_start + i), a (b, sk) key-validity mask (nonzero = real key) and
-//     GQA (q head h reads kv head h / (hq / hkv)). Qwen3.5 text: hq 8, hkv 2,
-//     d 256.
+//     j <= q_start + i), a (b, sk) key-validity mask (nonzero = real key),
+//     GQA (q head h reads kv head h / (hq / hkv)), a sliding window (key j
+//     is masked for query position p when j <= p - window: _score_mask),
+//     score soft-capping s -> cap * tanh(s / cap) (before the mask, as in
+//     _fwd_kernel / _recompute_p) and per-head sink logits (one more term
+//     exp(sink[h] - m) in each row's normalizer, no value: _fwd_kernel's last
+//     k step). Qwen3.5 text: hq 8, hkv 2, d 256; Gemma-3-270M: hq 4, hkv 1,
+//     d 256, window 512.
 //   llm_quest_tpu/kernels/fused_mha.py::packed_mha (_packed_mha_kernel):
 //     bidirectional maskless attention read straight from the packed
 //     (b, s, h*d) projection outputs. Qwen3.5 vision: 12 heads x 64, s 576.
@@ -21,8 +26,12 @@
 // 16 x 32 score tile, and keeps the running max, sum and the (16, d) fp32
 // output accumulator (d / 8 values per thread, in registers) of the online
 // softmax. The flash forward also writes the row logsumexp m + log(l) (fp32)
-// for the backward. Causal blocks past the diagonal of the block's last row
-// are never loaded. Masked scores are finfo(float32).min / 2, as in the JAX package, so
+// for the backward; with sinks the lse includes them, so the backward's
+// p = exp(s - lse) needs no change. Causal blocks past the diagonal of the
+// block's last row are never loaded, and neither are the key blocks below
+// the window of the block's first row: the loop starts there, so a windowed
+// layer costs O(s * window), not O(s^2) (the TPU kernel's clamped index
+// maps skip the same blocks). Masked scores are finfo(float32).min / 2, as in the JAX package, so
 // a row with no visible key averages the keys it visited instead of NaN;
 // keys past sk contribute nothing.
 //
@@ -44,6 +53,18 @@ constexpr int kTPR = kThreads / kBQ;  // threads per query row (8, within one wa
 constexpr int kPS = kBK + 1;          // padded row stride of the probability tile
 constexpr float kMasked = -1.7014117331926443e38f;  // finfo(float32).min / 2
 
+// First key of the kBK-aligned tile that the query at absolute position
+// qpos0 (a block's first row) needs: keys at or below qpos - window are
+// outside every later row's window too. window 0 = none.
+__device__ __forceinline__ int window_begin(int qpos0, int window) {
+  return window > 0 ? (max(0, qpos0 - window + 1) / kBK) * kBK : 0;
+}
+
+// Whether a score is masked: causal, outside the window, or a padded key.
+__device__ __forceinline__ bool score_masked(int kpos, int qpos, int causal, int window, const uint8_t* mb) {
+  return (causal && kpos > qpos) || (window > 0 && kpos <= qpos - window) || (mb != nullptr && mb[kpos] == 0);
+}
+
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kPS);
@@ -58,7 +79,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      int SQ, int SK, long long q_sb, long long q_sh, long long q_ss,
                      long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                      long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-                     long long o_ss, long long mask_sb, int causal, int q_start, float scale) {
+                     long long o_ss, long long mask_sb, int causal, int q_start, float scale,
+                     int window, float softcap, const float* __restrict__ sink) {
   constexpr int DP = D + 1;      // padded stride: the 8 keys a row reads hit 8 banks
   constexpr int NC = D / kTPR;   // output columns per thread
   constexpr int NS = kBK / kTPR; // scores per thread per tile
@@ -94,7 +116,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int n = 0; n < NC; ++n) acc[n] = 0.f;
   float m = -INFINITY, l = 0.f;
 
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  for (int k0 = window_begin(q_start + q0, window); k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile is consumed (and q_s is staged)
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int j = i / D, d = i % D;
@@ -117,9 +139,10 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
     for (int jj = 0; jj < NS; ++jj) {
       const int kpos = k0 + c + kTPR * jj;
+      if (softcap > 0.f) s[jj] = softcap * tanhf(s[jj] / softcap);
       if (kpos >= SK) {
         s[jj] = -INFINITY;
-      } else if ((causal && kpos > qpos) || (mb != nullptr && mb[kpos] == 0)) {
+      } else if (score_masked(kpos, qpos, causal, window, mb)) {
         s[jj] = kMasked;
       }
       mx = fmaxf(mx, s[jj]);
@@ -149,9 +172,17 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     }
   }
 
+  if (sink != nullptr) {  // one more logit in the normalizer, with no value
+    const float m_new = fmaxf(m, sink[hq]);
+    const float corr = expf(m - m_new);
+    l = l * corr + expf(sink[hq] - m_new);
+    m = m_new;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) acc[n] *= corr;
+  }
   if (q0 + r < SQ) {
     T* orow = o + bi * o_sb + hq * o_sh + (q0 + r) * o_ss;
-    const float inv = 1.f / l;
+    const float inv = l > 0.f ? 1.f / l : 0.f;  // l = 0 only for a row with no key tile at all
 #pragma unroll
     for (int n = 0; n < NC; ++n) orow[c + kTPR * n] = from_f<T>(acc[n] * inv);
     if (lse != nullptr && c == 0) lse[(long long)bh * SQ + q0 + r] = m + logf(l);
@@ -165,7 +196,14 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // cotangent of lse when a caller differentiates through it):
 //   p = exp(s - lse), dp = dO V^T, ds = p * (dp - delta),
 //   dq = scale * ds K, dk = scale * ds^T Q, dv = p^T dO.
-// Masked scores have p = 0 and ds = 0 (the score there is a constant).
+// With a softcap, s = cap * t, t = tanh(s_raw / cap), and ds is multiplied
+// by ds/ds_raw = 1 - t^2 (JAX's _recompute_p). Sinks need nothing here: the
+// forward's lse includes them, and dsink is a reduction over the rows (the
+// wrapper's, as in JAX). Masked scores have p = 0 and ds = 0 (the score
+// there is a constant). Both kernels skip the tiles outside the window:
+// the dq kernel starts its key walk at the window of its first row, the
+// dk/dv kernel stops its row walk at the last row that sees its last key
+// (JAX's _q_index_map_for_dkv).
 // Two kernels, no atomics, so the gradients are deterministic:
 //   dq:  one block per (b*hq, 16 query rows), walking the visible key tiles;
 //   dkv: one block per (b*hkv, 16 keys), walking the visible query tiles of
@@ -192,7 +230,23 @@ struct BwdArgs {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss, mask_sb;
   int causal, q_start;
   float scale;
+  int window;     // 0 = none
+  float softcap;  // 0 = none
 };
+
+// p and ds of one recomputed score s_raw (scaled); ds carries the softcap's
+// chain factor.
+__device__ __forceinline__ void recompute_p(const BwdArgs& a, float s_raw, float lse, float dp, float delta,
+                                            float& p, float& ds) {
+  float dcap = 1.f;
+  if (a.softcap > 0.f) {
+    const float t = tanhf(s_raw / a.softcap);
+    s_raw = a.softcap * t;
+    dcap = 1.f - t * t;
+  }
+  p = expf(s_raw - lse);
+  ds = p * (dp - delta) * dcap;
+}
 
 __device__ __forceinline__ float row_delta(const BwdArgs& a, long long i) {
   return a.delta[i] - (a.delta_shift != nullptr ? a.delta_shift[i] : 0.f);
@@ -249,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
 #pragma unroll
   for (int n = 0; n < NC; ++n) acc[n] = 0.f;
 
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  for (int k0 = window_begin(a.q_start + q0, a.window); k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile is consumed (and q_s/do_s are staged)
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int j = i / D, d = i % D;
@@ -274,9 +328,11 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
 #pragma unroll
     for (int jj = 0; jj < NS; ++jj) {
       const int kpos = k0 + c + kTPR * jj;
-      const bool vis = row_ok && kpos < a.SK && !(a.causal && kpos > qpos) && (mb == nullptr || mb[kpos] != 0);
-      const float p = vis ? expf(s[jj] - lse_r) : 0.f;
-      ds_s[r * kPS + c + kTPR * jj] = p * (dp[jj] - delta_r);
+      float p = 0.f, ds = 0.f;
+      if (row_ok && kpos < a.SK && !score_masked(kpos, qpos, a.causal, a.window, mb)) {
+        recompute_p(a, s[jj], lse_r, dp[jj], delta_r, p, ds);
+      }
+      ds_s[r * kPS + c + kTPR * jj] = ds;
     }
     __syncwarp();  // the row's ds (written by its 8 threads) are visible
     for (int j = 0; j < kBK; ++j) {
@@ -336,8 +392,11 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
     v_s[jj * DP + d] = ok ? to_f(vb[(k0 + jj) * a.v_ss + d]) : 0.f;
   }
   const bool key_ok = kpos < a.SK && (mb == nullptr || mb[kpos] != 0);
-  // causal: query row i sees key k0 only from i = k0 - q_start on
+  // causal: query row i sees key k0 only from i = k0 - q_start on;
+  // window: the block's last key leaves the window after row
+  // k0 + kKvBK - 1 + window - 1 - q_start
   const int i_min = a.causal ? max(0, k0 - a.q_start) : 0;
+  const int i_end = a.window > 0 ? min(a.SQ, max(0, k0 + kKvBK - 1 + a.window - a.q_start)) : a.SQ;
   const int t0 = (i_min / kKvBQ) * kKvBQ;
 
   float dk_acc[NC], dv_acc[NC];
@@ -349,7 +408,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
     const T* qb = static_cast<const T*>(a.q) + bi * a.q_sb + hq * a.q_sh;
     const T* dob = static_cast<const T*>(a.dout) + bi * a.do_sb + hq * a.do_sh;
     const long long stat0 = ((long long)bi * a.HQ + hq) * a.SQ;
-    for (int q0 = t0; q0 < a.SQ; q0 += kKvBQ) {
+    for (int q0 = t0; q0 < i_end; q0 += kKvBQ) {
       __syncthreads();  // the previous tile is consumed (and k_s/v_s are staged)
       for (int i = tid; i < kKvBQ * D; i += kThreads) {
         const int rr = i / D, d = i % D;
@@ -380,10 +439,12 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
       for (int ii = 0; ii < NR; ++ii) {
         const int rr = c + kTPR * ii;
         const int row = q0 + rr;
-        const bool vis = key_ok && row < a.SQ && !(a.causal && kpos > a.q_start + row);
-        const float p = vis ? expf(s[ii] * a.scale - lse_s[rr]) : 0.f;
+        float p = 0.f, ds = 0.f;
+        if (key_ok && row < a.SQ && !score_masked(kpos, a.q_start + row, a.causal, a.window, nullptr)) {
+          recompute_p(a, s[ii] * a.scale, lse_s[rr], dp[ii], dl_s[rr], p, ds);
+        }
         p_s[j * kKvPS + rr] = p;
-        ds_s[j * kKvPS + rr] = p * (dp[ii] - dl_s[rr]);
+        ds_s[j * kKvPS + rr] = ds;
       }
       __syncwarp();  // the key's p / ds (written by its 8 threads) are visible
       for (int rr = 0; rr < kKvBQ; ++rr) {
@@ -416,7 +477,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
            int B, int HQ, int HKV, int SQ, int SK, long long q_sb, long long q_sh, long long q_ss,
            long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
            long long v_ss, long long o_sb, long long o_sh, long long o_ss, long long mask_sb,
-           int causal, int q_start, float scale, cudaStream_t stream) {
+           int causal, int q_start, float scale, int window, float softcap, const float* sink,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto kernel = attention_fwd_kernel<T, D>;
   // above 48 KB the launch is refused unless the kernel's limit is raised
@@ -426,7 +488,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, key_mask, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
-      v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal, q_start, scale);
+      v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal, q_start, scale, window, softcap, sink);
   return (int)cudaGetLastError();
 }
 
@@ -435,13 +497,13 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o, float*
              const uint8_t* key_mask, int B, int HQ, int HKV, int SQ, int SK, long long q_sb,
              long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
              long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-             long long o_ss, long long mask_sb, int causal, int q_start, float scale,
-             cudaStream_t stream) {
+             long long o_ss, long long mask_sb, int causal, int q_start, float scale, int window,
+             float softcap, const float* sink, cudaStream_t stream) {
 #define LLMQ_ATTN_CASE(DIM)                                                                   \
   case DIM:                                                                                   \
     return launch<T, DIM>(q, k, v, o, lse, key_mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb, \
                           k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal,     \
-                          q_start, scale, stream);
+                          q_start, scale, window, softcap, sink, stream);
   switch (D) {
     LLMQ_ATTN_CASE(64)
     LLMQ_ATTN_CASE(128)
@@ -494,20 +556,22 @@ extern "C" int llmq_attention_fwd(int dtype, const void* q, const void* k, const
                                   long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                                   long long v_sh, long long v_ss, long long o_sb, long long o_sh,
                                   long long o_ss, long long mask_sb, int causal, int q_start,
-                                  float scale, void* stream) {
-  if (HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SK <= 0) return (int)cudaErrorInvalidValue;
+                                  float scale, int window, float softcap, const void* sink,
+                                  void* stream) {
+  if (HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SK <= 0 || window < 0) return (int)cudaErrorInvalidValue;
   const uint8_t* mask = static_cast<const uint8_t*>(key_mask);
+  const float* sink_f = static_cast<const float*>(sink);
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) {
     return launch_d<float>(D, q, k, v, o, lse_f, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb,
                            k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal,
-                           q_start, scale, st);
+                           q_start, scale, window, softcap, sink_f, st);
   }
   if (dtype == kBFloat16) {
     return launch_d<__nv_bfloat16>(D, q, k, v, o, lse_f, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh,
                                    q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                                   mask_sb, causal, q_start, scale, st);
+                                   mask_sb, causal, q_start, scale, window, softcap, sink_f, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -520,8 +584,8 @@ extern "C" int llmq_attention_bwd(int dtype, const void* q, const void* k, const
                                   long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                                   long long v_ss, long long do_sb, long long do_sh, long long do_ss,
                                   long long mask_sb, int causal, int q_start, float scale,
-                                  void* stream) {
-  if (HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SK <= 0) return (int)cudaErrorInvalidValue;
+                                  int window, float softcap, void* stream) {
+  if (HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SK <= 0 || window < 0) return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.q = q;
   a.k = k;
@@ -555,6 +619,8 @@ extern "C" int llmq_attention_bwd(int dtype, const void* q, const void* k, const
   a.causal = causal;
   a.q_start = q_start;
   a.scale = scale;
+  a.window = window;
+  a.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return launch_bwd_d<float>(D, a, st);
   if (dtype == kBFloat16) return launch_bwd_d<__nv_bfloat16>(D, a, st);

@@ -1,16 +1,19 @@
 """Attention kernels (csrc/attention.cu) and their plain PyTorch versions.
 
 - ``flash_attention``: K4, blockwise online-softmax attention with causal
-  masking from a static ``q_start``, a (b, sk) key-validity mask and GQA,
-  differentiable: on a CUDA tensor it is a ``torch.autograd.Function`` whose
-  forward launches ``llmq_attention_fwd`` (which also writes the row
-  logsumexp) and whose backward is ``flash_attention_bwd``. Replaces
+  masking from a static ``q_start``, a (b, sk) key-validity mask, GQA, a
+  sliding window, score soft-capping and per-head sinks, differentiable: on
+  a CUDA tensor it is a ``torch.autograd.Function`` whose forward launches
+  ``llmq_attention_fwd`` (which also writes the row logsumexp, the sinks
+  included) and whose backward is ``flash_attention_bwd``. Replaces
   ``llm_quest_tpu/kernels/flash_attention.py::flash_attention`` (forward and
-  custom VJP). Plain version: ``ops/attention.py::sdpa`` on the dense mask,
+  custom VJP). Plain version: ``ops/attention.py::sdpa`` on the dense mask
+  (causal, window and key mask rendered into it) with the sink and softcap,
   differentiated by autograd.
 - ``flash_attention_bwd``: K4's backward, the two recompute kernels of
   ``llmq_attention_bwd`` (dq; dk and dv), replacing ``_bwd_dq_kernel`` and
-  ``_bwd_dkv_kernel``. δ = rowsum(dO ⊙ O) is a torch reduction, as it is
+  ``_bwd_dkv_kernel``. δ = rowsum(dO ⊙ O) and the sinks' gradient
+  dsink_h = −Σ_rows exp(sink_h − lse)·δ are torch reductions, as they are
   outside the Pallas kernels in JAX; ``delta_shift`` is JAX's per-row shift
   (the cotangent of the logsumexp). Plain version: autograd through the plain
   forward.
@@ -25,7 +28,9 @@ JAX flash kernel; the dense masks of ``ops/masks.py`` are True = MASKED.
 Device rule: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain version. ``plain=True`` forces the plain version on any device; only
 comparisons against the kernel pass it. Each wrapper counts its launches in
-its ``launches`` attribute.
+its ``launches`` attribute; the two flash wrappers also count those with a
+sliding window in ``window_launches`` and those with a softcap or sinks in
+``softcap_sink_launches``.
 """
 
 import torch
@@ -37,7 +42,7 @@ from llm_quest_tpu_torch.ops.masks import causal_mask, mask_value
 HEAD_DIMS = (64, 128, 256)  # the head dims csrc/attention.cu is instantiated for
 
 
-def _check(q, k, v, key_mask, causal, q_start):
+def _check(q, k, v, key_mask, causal, q_start, window_size=None, softcap=None, sink=None):
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     build.require(d in HEAD_DIMS, f"kernel head dims are {HEAD_DIMS}, got {d}")
@@ -46,9 +51,13 @@ def _check(q, k, v, key_mask, causal, q_start):
     build.require(k.dtype == q.dtype and v.dtype == q.dtype, "q, k and v must share one dtype")
     build.require(all(t.stride(-1) == 1 for t in (q, k, v)), "q/k/v need a contiguous last dim")
     build.require(not causal or q_start + sq <= sk, "causal queries must lie inside the key range")
+    build.require(window_size is None or window_size >= 1, "window_size must be at least 1")
+    build.require(softcap is None or softcap > 0, "softcap must be positive")
     if key_mask is not None:
         build.require(key_mask.shape == (b, sk), f"attn_mask must be (b, sk) = {(b, sk)}")
-    build.require_cuda(q, k, v, *(() if key_mask is None else (key_mask,)))
+    if sink is not None:
+        build.require(sink.shape == (hq,), f"sink must be (hq,) = {(hq,)}")
+    build.require_cuda(q, k, v, *(t for t in (key_mask, sink) if t is not None))
 
 
 def _mask_arg(key_mask):
@@ -59,21 +68,24 @@ def _mask_arg(key_mask):
     return m, m.data_ptr(), m.shape[1]
 
 
-def _launch_fwd(q, k, v, o, lse, key_mask, *, causal, q_start, scale, qs, ks, vs, os_, dims):
+def _launch_fwd(q, k, v, o, lse, key_mask, *, causal, q_start, scale, qs, ks, vs, os_, dims,
+                window_size=None, softcap=None, sink=None):
     """q/k/v/o strides are (batch, head, seq) triples; dims = (b, hq, hkv, sq, sk, d);
     lse: contiguous fp32 (b, hq, sq) or None."""
     b, hq, hkv, sq, sk, d = dims
     mask, mask_ptr, mask_sb = _mask_arg(key_mask)
+    sink32 = None if sink is None else sink.float().contiguous()
     build.launch(
         "llmq_attention_fwd", build.dtype_code(q),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr(), mask_ptr,
         b, hq, hkv, sq, sk, d, *qs, *ks, *vs, *os_, mask_sb,
-        int(causal), int(q_start), float(scale), build.stream_of(q),
+        int(causal), int(q_start), float(scale), int(window_size or 0), float(softcap or 0.0),
+        None if sink32 is None else sink32.data_ptr(), build.stream_of(q),
     )
-    del mask  # freed to the caching allocator: only later work on this stream reuses it
+    del mask, sink32  # freed to the caching allocator: only later work on this stream reuses them
 
 
-def _flash_fwd(q, k, v, key_mask, causal, q_start, scale, with_lse):
+def _flash_fwd(q, k, v, key_mask, sink, causal, q_start, scale, window_size, softcap, with_lse):
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     o = torch.empty(b, hq, sq, d, dtype=q.dtype, device=q.device)
@@ -81,111 +93,142 @@ def _flash_fwd(q, k, v, key_mask, causal, q_start, scale, with_lse):
     _launch_fwd(
         q, k, v, o, lse, key_mask, causal=causal, q_start=q_start, scale=scale,
         qs=q.stride()[:3], ks=k.stride()[:3], vs=v.stride()[:3], os_=o.stride()[:3],
-        dims=(b, hq, hkv, sq, sk, d),
+        dims=(b, hq, hkv, sq, sk, d), window_size=window_size, softcap=softcap, sink=sink,
     )
     flash_attention.launches += 1
+    flash_attention.window_launches += int(window_size is not None)
+    flash_attention.softcap_sink_launches += int(softcap is not None or sink is not None)
     return o, lse
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K4 forward + recompute backward; saves q, k, v, o and the fp32 lse."""
+    """K4 forward + recompute backward; saves q, k, v, o, the fp32 lse and the sink."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, causal, q_start, scale):
-        o, lse = _flash_fwd(q, k, v, key_mask, causal, q_start, scale, with_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse, key_mask)
-        ctx.causal, ctx.q_start, ctx.scale = causal, q_start, scale
+    def forward(ctx, q, k, v, key_mask, sink, causal, q_start, scale, window_size, softcap):
+        o, lse = _flash_fwd(q, k, v, key_mask, sink, causal, q_start, scale, window_size, softcap, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse, key_mask, sink)
+        ctx.causal, ctx.q_start, ctx.scale, ctx.window_size, ctx.softcap = causal, q_start, scale, window_size, softcap
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, key_mask = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, o, lse, do, attn_mask=key_mask, causal=ctx.causal, q_start=ctx.q_start, scale=ctx.scale
+        q, k, v, o, lse, key_mask, sink = ctx.saved_tensors
+        want_dsink = ctx.needs_input_grad[4]
+        grads = flash_attention_bwd(
+            q, k, v, o, lse, do, attn_mask=key_mask, causal=ctx.causal, q_start=ctx.q_start, scale=ctx.scale,
+            window_size=ctx.window_size, softcap=ctx.softcap, sink=sink if want_dsink else None,
         )
-        return dq, dk, dv, None, None, None, None
+        return *grads[:3], None, grads[3] if want_dsink else None, None, None, None, None, None
 
 
-def flash_attention_plain(q, k, v, *, attn_mask=None, causal=True, q_start=0, scale=None):
-    return sdpa(q, k, v, mask=_dense_mask(q, k, attn_mask, causal, q_start), scale=scale)
+def flash_attention_plain(q, k, v, *, attn_mask=None, causal=True, q_start=0, scale=None, window_size=None,
+                          sink=None, softcap=None):
+    mask = _dense_mask(q, k, attn_mask, causal, q_start, window_size)
+    return sdpa(q, k, v, mask=mask, scale=scale, sink=sink, softcap=softcap)
 
 
-def _dense_mask(q, k, attn_mask, causal, q_start):
+def _dense_mask(q, k, attn_mask, causal, q_start, window_size=None):
+    """The (b|1, 1, sq, sk) True = masked rendering of the structured mask."""
+    sq, sk = q.shape[2], k.shape[2]
     if causal:
-        return causal_mask(q.shape[2], k.shape[2], q_start=q_start, attn_mask=attn_mask, device=q.device)
-    return None if attn_mask is None else ~attn_mask[:, None, None, :]
+        return causal_mask(sq, sk, q_start=q_start, window_size=window_size, attn_mask=attn_mask, device=q.device)
+    masked = None if attn_mask is None else ~attn_mask[:, None, None, :]
+    if window_size is not None:  # a window without causality: only the keys behind it are masked
+        q_pos = q_start + torch.arange(sq, device=q.device)
+        outside = (torch.arange(sk, device=q.device)[None, :] <= q_pos[:, None] - window_size)[None, None]
+        masked = outside if masked is None else masked | outside
+    return masked
 
 
 def flash_attention(
     q, k, v, *, attn_mask=None, causal=True, q_start=0, scale=None,
     window_size=None, sink=None, softcap=None, plain=False,
 ):
-    """Attention, differentiable in q, k and v. q: (b, hq, sq, d); k/v:
-    (b, hkv, sk, d), hq % hkv == 0. ``q_start`` (int) is the absolute position
-    of query row 0: key j is visible to query i iff j <= q_start + i.
-    attn_mask: optional (b, sk) bool, True = real key. Returns (b, hq, sq, d)
-    in q's dtype.
-
-    Sliding windows, sinks and softcapping are not ported and raise.
+    """Attention, differentiable in q, k, v and the sink. q: (b, hq, sq, d);
+    k/v: (b, hkv, sk, d), hq % hkv == 0. ``q_start`` (int) is the absolute
+    position of query row 0: key j is visible to query i iff j <= q_start + i
+    (causal). attn_mask: optional (b, sk) bool, True = real key.
+    window_size: optional sliding window, keys in [p - window + 1, p] for the
+    query at position p. sink: optional (hq,) sink logits (one more softmax
+    term per head, no value). softcap: optional cap, scores → cap·tanh(s /
+    cap) before the masks. Returns (b, hq, sq, d) in q's dtype.
     """
-    if window_size is not None or sink is not None or softcap is not None:
-        raise NotImplementedError("flash_attention: window_size, sink and softcap are not ported")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if plain or not q.is_cuda:
-        return flash_attention_plain(q, k, v, attn_mask=attn_mask, causal=causal, q_start=q_start, scale=scale)
-    _check(q, k, v, attn_mask, causal, q_start)
+        return flash_attention_plain(
+            q, k, v, attn_mask=attn_mask, causal=causal, q_start=q_start, scale=scale, window_size=window_size,
+            sink=sink, softcap=softcap,
+        )
+    _check(q, k, v, attn_mask, causal, q_start, window_size, softcap, sink)
     q_start, scale = int(q_start), float(scale)
-    if build.needs_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, attn_mask, causal, q_start, scale)
-    return _flash_fwd(q, k, v, attn_mask, causal, q_start, scale, with_lse=False)[0]
+    window_size = None if window_size is None else int(window_size)
+    softcap = None if softcap is None else float(softcap)
+    if build.needs_grad(q, k, v, sink):
+        return _FlashAttention.apply(q, k, v, attn_mask, sink, causal, q_start, scale, window_size, softcap)
+    return _flash_fwd(q, k, v, attn_mask, sink, causal, q_start, scale, window_size, softcap, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+flash_attention.window_launches = 0
+flash_attention.softcap_sink_launches = 0
 
 
-def _plain_lse(q, k, attn_mask, causal, q_start, scale):
-    """Row logsumexp of the plain version's masked scores, fp32 (b, hq, sq)."""
+def _plain_lse(q, k, attn_mask, causal, q_start, scale, window_size=None, softcap=None, sink=None):
+    """Row logsumexp of the plain version's masked scores (the sink column
+    included), fp32 (b, hq, sq)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, hkv, hq // hkv, sq, d)
     scores = (qg @ k.float()[:, :, None].transpose(-1, -2)).reshape(b, hq, sq, sk) * scale
-    mask = _dense_mask(q, k, attn_mask, causal, q_start)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    mask = _dense_mask(q, k, attn_mask, causal, q_start, window_size)
     if mask is not None:
         scores = scores.masked_fill(mask, mask_value(torch.float32))
+    if sink is not None:
+        scores = torch.cat([scores, sink.float()[None, :, None, None].expand(b, hq, sq, 1)], dim=-1)
     return torch.logsumexp(scores, dim=-1)
 
 
-def flash_attention_bwd_plain(q, k, v, do, *, attn_mask=None, causal=True, q_start=0, scale=None, delta_shift=None):
-    """(dq, dk, dv) by autograd through the plain forward; ``delta_shift``
-    is the cotangent of the row logsumexp."""
+def flash_attention_bwd_plain(q, k, v, do, *, attn_mask=None, causal=True, q_start=0, scale=None, window_size=None,
+                              softcap=None, sink=None, delta_shift=None):
+    """(dq, dk, dv[, dsink]) by autograd through the plain forward;
+    ``delta_shift`` is the cotangent of the row logsumexp."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     with torch.enable_grad():
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        outs = [flash_attention_plain(qg, kg, vg, attn_mask=attn_mask, causal=causal, q_start=q_start, scale=scale)]
-        cts = [do]
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, sink) if t is not None]
+        qg, kg, vg = leaves[:3]
+        sg = leaves[3] if sink is not None else None
+        out = flash_attention_plain(qg, kg, vg, attn_mask=attn_mask, causal=causal, q_start=q_start, scale=scale,
+                                    window_size=window_size, sink=sg, softcap=softcap)
+        outs, cts = [out], [do]
         if delta_shift is not None:
-            outs.append(_plain_lse(qg, kg, attn_mask, causal, q_start, scale))
+            outs.append(_plain_lse(qg, kg, attn_mask, causal, q_start, scale, window_size, softcap, sg))
             cts.append(delta_shift.float())
-        return torch.autograd.grad(outs, (qg, kg, vg), cts)
+        return torch.autograd.grad(outs, leaves, cts)
 
 
 def flash_attention_bwd(
-    q, k, v, o, lse, do, *, attn_mask=None, causal=True, q_start=0, scale=None, delta_shift=None, plain=False,
+    q, k, v, o, lse, do, *, attn_mask=None, causal=True, q_start=0, scale=None, window_size=None, softcap=None,
+    sink=None, delta_shift=None, plain=False,
 ):
     """Gradients (dq, dk, dv) of attention for the output cotangent ``do``,
     recomputed from q, k, v, the forward's output ``o`` and its fp32 row
-    logsumexp ``lse`` (b, hq, sq). ``delta_shift``: optional (b, hq, sq)
-    cotangent of the logsumexp, folded in as δ − shift. dq/dk/dv come back in
-    q's dtype. The plain version ignores ``o`` and ``lse``."""
+    logsumexp ``lse`` (b, hq, sq; the sinks included); with ``sink`` given,
+    (dq, dk, dv, dsink). ``delta_shift``: optional (b, hq, sq) cotangent of
+    the logsumexp, folded in as δ − shift. dq/dk/dv come back in q's dtype,
+    dsink in the sink's. The plain version ignores ``o`` and ``lse``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if plain or not q.is_cuda:
         return flash_attention_bwd_plain(
-            q, k, v, do, attn_mask=attn_mask, causal=causal, q_start=q_start, scale=scale, delta_shift=delta_shift
+            q, k, v, do, attn_mask=attn_mask, causal=causal, q_start=q_start, scale=scale, window_size=window_size,
+            softcap=softcap, sink=sink, delta_shift=delta_shift,
         )
-    _check(q, k, v, attn_mask, causal, q_start)
+    _check(q, k, v, attn_mask, causal, q_start, window_size, softcap, sink)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     build.require(do.shape == q.shape and o.shape == q.shape, "do and o must be (b, hq, sq, d)")
@@ -211,14 +254,23 @@ def flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         None if shift is None else shift.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), mask_ptr,
         b, hq, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], mask_sb,
-        int(causal), int(q_start), float(scale), build.stream_of(q),
+        int(causal), int(q_start), float(scale), int(window_size or 0), float(softcap or 0.0), build.stream_of(q),
     )
     del mask
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    flash_attention_bwd.window_launches += int(window_size is not None)
+    flash_attention_bwd.softcap_sink_launches += int(softcap is not None or sink is not None)
+    if sink is None:
+        return dq, dk, dv
+    # the sink's probability exp(sink - lse) times d out / d sink = -out: a reduction over batch and rows
+    shifted = delta if shift is None else delta - shift
+    dsink = -(torch.exp(sink.float()[None, :, None] - lse) * shifted).sum((0, 2))
+    return dq, dk, dv, dsink.to(sink.dtype)
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.window_launches = 0
+flash_attention_bwd.softcap_sink_launches = 0
 
 
 def packed_mha_plain(q, k, v, n_heads, scale=None):

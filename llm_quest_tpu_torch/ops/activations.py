@@ -3,6 +3,7 @@
 - ``gelu_erf``: exact GELU x·Φ(x) via erf.
 - ``gelu_tanh``: tanh approximation (Qwen3.5 vision FFN).
 - ``silu``: x·sigmoid(x) (SwiGLU gates, GDN).
+- ``softcap``: cap·tanh(x / cap), logit soft-capping (Gemma).
 """
 
 import math
@@ -21,3 +22,7 @@ def gelu_tanh(x):
 
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+def softcap(x, cap):
+    return cap * torch.tanh(x / cap)

@@ -3,18 +3,21 @@
 
 - ``sdpa``: the plain attention core. GQA by reshaping q into kv-head groups
   (no materialized repeat); boolean masks (b|1, 1|hq, sq, sk), True = masked,
-  filled with finfo.min/2; scores, softmax and the value sum in fp32, as the
-  JAX version's preferred_element_type gives them.
+  filled with finfo.min/2; optional score soft-capping (Gemma) and per-head
+  sink logits (MiMo-V2: one extra softmax column per head, dropped after the
+  softmax); scores, softmax and the value sum in fp32, as the JAX version's
+  preferred_element_type gives them.
 - ``attention``: the router. k/v given as ``QuantKV`` views of the int8 KV
   cache (inference/cache.py) take JAX's int8 branch: a single-query step
   with a dense mask and 128-multiple head dims (``supports_flash_decode``)
   streams them through the flash-decode kernel (kernels/flash_decode.py,
   K10) with the mask as an additive finfo.min/2 bias, unless
-  ``cfg["use_flash_decode"]`` is False; any other call dequantizes them once
-  and routes on. Long causal calls (training forwards and cached prefills)
-  go to the flash kernel (kernels/attention.py, K4), which is
-  differentiable; everything else, the bf16-cache decode step included, to
-  ``sdpa``. The head-shard and context-parallel branches of the JAX router
+  ``cfg["use_flash_decode"]`` is False or a sink or softcap is given; any
+  other call dequantizes them once and routes on. Long causal or windowed
+  calls (training forwards and cached prefills) go to the flash kernel
+  (kernels/attention.py, K4), which is differentiable and takes the sliding
+  window, softcap and sinks; everything else, the bf16-cache decode step
+  included, to ``sdpa``. The head-shard and context-parallel branches of the JAX router
   are not ported, and neither is its short-sequence fused-MHA kernel (K6):
   the JAX router sends that kernel only maskless calls, which the text
   attention of Qwen3.5 and Qwen3 never makes (it passes its causal mask).
@@ -31,9 +34,12 @@ from llm_quest_tpu_torch.ops.masks import causal_mask, mask_value
 from llm_quest_tpu_torch.ops.quantization import QuantKV
 
 
-def sdpa(q, k, v, *, mask=None, scale=None):
+def sdpa(q, k, v, *, mask=None, scale=None, sink=None, softcap=None):
     """q: (b, hq, sq, d); k: (b, hkv, sk, d); v: (b, hkv, sk, dv); mask: bool
-    (b|1, 1|hq, sq, sk), True = masked, or None. Returns (b, hq, sq, dv)."""
+    (b|1, 1|hq, sq, sk), True = masked, or None; sink: optional (hq,) logits
+    appended as one key column before the softmax and dropped after it;
+    softcap: optional cap, scores → cap·tanh(scores / cap) before the mask.
+    Returns (b, hq, sq, dv)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if scale is None:
@@ -41,30 +47,42 @@ def sdpa(q, k, v, *, mask=None, scale=None):
     group = hq // hkv
     qg = q.float().reshape(b, hkv, group, sq, d)
     scores = (qg @ k.float()[:, :, None].transpose(-1, -2)).reshape(b, hq, sq, sk) * scale
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
     if mask is not None:
         scores = scores.masked_fill(mask, mask_value(torch.float32))
-    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    if sink is not None:
+        scores = torch.cat([scores, sink.float()[None, :, None, None].expand(b, hq, sq, 1)], dim=-1)
+    weights = torch.softmax(scores, dim=-1)[..., :sk].to(v.dtype)
     out = weights.float().reshape(b, hkv, group, sq, sk) @ v.float()[:, :, None]
     return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
 
 
-def attention(q, k, v, *, cfg=None, mask=None, causal=True, attn_mask=None, scale=None, flash_ok=True, q_start=None):
+def attention(
+    q, k, v, *, cfg=None, mask=None, causal=True, window_size=None, attn_mask=None, sink=None, softcap=None,
+    scale=None, flash_ok=True, q_start=None,
+):
     """Attention router: the flash kernel when legal and profitable, ``sdpa``
     otherwise.
 
     Flash takes full-sequence calls (sq == sk) and cached prefills (sq < sk
     against the max_len cache view) whose static query offset ``q_start`` is
     known, from ``cfg["flash_min_seq"]`` (default 256) queries up. Flash reads
-    only the structured mask (causal, ``attn_mask`` as (b, sk) True = real);
-    ``mask`` is the dense rendering of the same for ``sdpa``. A dense mask
-    with no structured counterpart (causal=False) stays on ``sdpa``. k/v may
-    be ``QuantKV`` views of an int8 cache (module docstring).
+    only the structured mask (causal, ``window_size``, ``attn_mask`` as (b,
+    sk) True = real); ``mask`` is the dense rendering of the same for
+    ``sdpa``. A dense mask with no structured counterpart (causal=False, no
+    window) stays on ``sdpa``. ``sink`` (hq,) and ``softcap`` reach both
+    routes. k/v may be ``QuantKV`` views of an int8 cache (module docstring).
     """
     plain = cfg is not None and not cfg.get("use_kernels", True)
     if isinstance(k, QuantKV):
         from llm_quest_tpu_torch.kernels.flash_decode import flash_decode, supports_flash_decode
 
-        if supports_flash_decode(q, k.data) and mask is not None and (cfg is None or cfg.get("use_flash_decode", True)):
+        if (
+            supports_flash_decode(q, k.data, sink=sink, softcap=softcap)
+            and mask is not None
+            and (cfg is None or cfg.get("use_flash_decode", True))
+        ):
             bias = torch.where(mask[:, 0, 0, :], mask_value(torch.float32), 0.0).float()
             bias = bias.expand(q.shape[0], -1).contiguous()
             return flash_decode(q, k.data, k.scale, v.data, v.scale, bias, scale=scale, plain=plain)
@@ -75,19 +93,20 @@ def attention(q, k, v, *, cfg=None, mask=None, causal=True, attn_mask=None, scal
         and cfg is not None
         and shape_ok
         and q.shape[2] >= cfg.get("flash_min_seq", 256)
-        and (mask is None or causal)
+        and (mask is None or causal or window_size is not None)
     )
     if use_flash:
         from llm_quest_tpu_torch.kernels.attention import flash_attention
 
         return flash_attention(
-            q, k, v, attn_mask=attn_mask, causal=causal, q_start=q_start or 0, scale=scale, plain=plain,
+            q, k, v, attn_mask=attn_mask, causal=causal, q_start=q_start or 0, scale=scale,
+            window_size=window_size, sink=sink, softcap=softcap, plain=plain,
         )
     if mask is None and causal and q.shape[2] > 1:
         mask = causal_mask(
             q.shape[2], k.shape[2], q_start=k.shape[2] - q.shape[2], attn_mask=attn_mask, device=q.device
         )
-    return sdpa(q, k, v, mask=mask, scale=scale)
+    return sdpa(q, k, v, mask=mask, scale=scale, sink=sink, softcap=softcap)
 
 
 def mha_packed(q, k, v, n_heads, *, cfg=None, scale=None):

@@ -15,13 +15,14 @@ def mask_value(dtype):
     return torch.finfo(dtype).min / 2
 
 
-def causal_mask(q_len, k_len=None, *, q_start=0, attn_mask=None, device=None):
+def causal_mask(q_len, k_len=None, *, q_start=0, window_size=None, attn_mask=None, device=None):
     """(b|1, 1, q_len, k_len) bool mask, True = masked.
 
     Queries sit at absolute positions q_start .. q_start+q_len-1 against keys
     0 .. k_len-1 (no cache: q_start=0, k_len=q_len; static KV cache:
-    q_start=pos, k_len=max_len). attn_mask: optional (b, k_len) bool padding
-    mask, True = real token.
+    q_start=pos, k_len=max_len). window_size: optional sliding window; keys
+    at or below q_pos - window_size are masked too (Gemma SWA). attn_mask:
+    optional (b, k_len) bool padding mask, True = real token.
     """
     if k_len is None:
         k_len = q_len
@@ -29,7 +30,10 @@ def causal_mask(q_len, k_len=None, *, q_start=0, attn_mask=None, device=None):
         device = attn_mask.device
     k_pos = torch.arange(k_len, device=device)
     q_pos = q_start + torch.arange(q_len, device=device)
-    masked = (k_pos[None, :] > q_pos[:, None])[None, None]
+    masked = k_pos[None, :] > q_pos[:, None]
+    if window_size is not None:
+        masked = masked | (k_pos[None, :] <= q_pos[:, None] - window_size)
+    masked = masked[None, None]
     if attn_mask is not None:
         masked = masked | ~attn_mask[:, None, None, :]
     return masked

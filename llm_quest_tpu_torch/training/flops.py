@@ -9,9 +9,17 @@ once per step.
 FLOP counts are analytic from the model config (matmul FLOPs only: norms,
 softmax, activations and RoPE are small next to the matmuls), 2·m·n·k per
 matmul and 3× forward for a train step (backward ≈ 2× forward); the same
-formulas as the JAX package for GQA attention (gated in the hybrids), SwiGLU
-or Qwen3-MoE FFNs and GatedDeltaNet layers. The GPT-2 MLP and ViT counts
-come with the first ported path that reads them.
+formulas as the JAX package for GQA attention (gated in the hybrids), SwiGLU,
+GeGLU or Qwen3-MoE FFNs and GatedDeltaNet layers. The GPT-2 MLP and ViT
+counts come with the first ported path that reads them.
+
+Divergence by design: the train count takes a sliding-window layer (Gemma-3's
+``is_swa_layer``) at its mean visible context, the mean over positions of
+min(pos + 1, window), where the JAX count takes every attention layer at the
+causal mean s/2. At Gemma-3-270M's widths and s = 2048 (window 512, 15 of 18
+layers SWA) that is 1.7286e9 FLOP/token against JAX's 1.8347e9, which would
+read MFU about 6 % high. A window at or above s, and every config without
+one, keeps JAX's count exactly.
 
 Decode bytes count the KV cache as it is stored: bf16 (or the model's type)
 at its element size, an int8 cache (``cfg["kv_quant"] = "int8"``) at one
@@ -25,6 +33,7 @@ Peaks are those of the card present, looked up by
 
 import torch
 
+from llm_quest_tpu_torch.models.gemma3 import is_swa_layer
 from llm_quest_tpu_torch.ops.quantization import param_bytes
 
 # Peak dense rates by device name (NVIDIA's data sheet, SXM part, without
@@ -115,10 +124,23 @@ def text_forward_flops_per_token(cfg, *, kv_len):
     return total
 
 
+def swa_mean_context(window, seq_len):
+    """Mean over positions 0..seq_len-1 of the keys a sliding-window query
+    sees, min(pos + 1, window)."""
+    return (window * (window + 1) / 2 + (seq_len - window) * window) / seq_len
+
+
 def text_train_flops_per_token(cfg, *, seq_len):
     """Train-step FLOPs per token: 3× forward, causal attention averaged over
-    positions (mean context = seq_len / 2)."""
-    return 3 * text_forward_flops_per_token(cfg, kv_len=seq_len // 2)
+    positions (mean context = seq_len / 2), sliding-window layers with a
+    window below seq_len at ``swa_mean_context`` (module docstring)."""
+    total = text_forward_flops_per_token(cfg, kv_len=seq_len // 2)
+    window = cfg.get("window_size", 0)
+    if "local_global_att_ratio" in cfg and 0 < window < seq_len:
+        n_swa = sum(is_swa_layer(cfg, i) for i in range(cfg["n_layers"]))
+        total += n_swa * (_attn_layer_flops(cfg, swa_mean_context(window, seq_len))
+                          - _attn_layer_flops(cfg, seq_len // 2))
+    return 3 * total
 
 
 def decode_bytes_per_token(params, cfg, *, kv_len, batch=1):

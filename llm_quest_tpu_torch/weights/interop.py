@@ -21,12 +21,14 @@ import numpy as np
 import torch
 
 from llm_quest_tpu_torch.config import resolve_device
-from llm_quest_tpu_torch.models import qwen3, qwen3_5, qwen3_next
+from llm_quest_tpu_torch.models import gemma3, qwen3, qwen3_5, qwen3_next
 from llm_quest_tpu_torch.ops.linear import Linear
 from llm_quest_tpu_torch.ops.quantization import quantized_like
 
 
 def _model_for(flat, cfg, device):
+    if "window_size" in cfg and "local_global_att_ratio" in cfg:  # local/global attention: Gemma-3
+        return gemma3.Gemma3(cfg, device)
     if "linear_sdpa_ratio" not in cfg:  # no GDN/attention hybrid: the dense Qwen3
         return qwen3.Qwen3(cfg, device)
     if "num_experts" in cfg or any("/moe/" in name for name in flat):  # the MoE hybrid
@@ -40,7 +42,9 @@ def from_jax_flat(flat, cfg, *, device=None):
     """Build a model from a flattened JAX param tree.
 
     flat: {"/"-joined path: numpy array}, i.e. ``flatten_params`` of the
-    JAX params converted with ``np.asarray``. A hybrid config with MoE keys
+    JAX params converted with ``np.asarray``. A config with ``window_size``
+    and ``local_global_att_ratio`` gives a ``gemma3.Gemma3``; a hybrid
+    config with MoE keys
     (``num_experts``), or a hybrid tree with "moe/" parameters, gives a
     ``qwen3_next.Qwen3Next``; another hybrid (Qwen3.5) config gives a
     ``qwen3_5.Qwen3_5`` for a tree with "vision/" and "text/" prefixes

@@ -13,7 +13,14 @@ them, within 1e-4 fp32:
   with causal masking, a static ``q_start``, a key mask and GQA; and the
   plain backward's ``delta_shift`` against the logsumexp cotangent of
   ``flash_attention_with_lse``;
+- K4's sliding window, softcap and sinks: the plain version and its
+  dq/dk/dv/dsink against the interpret-mode kernel and ``jax.grad`` of it at
+  the shapes of ``tests/test_flash_attention.py`` (b 2, 4/2 heads, s 200,
+  d 64), within that file's bars: 2e-5 forward, 5e-5 gradients;
 - K7: ``packed_mha(q, k, v, n_heads, None, True)`` at d = 64.
+
+``causal_mask(window_size=)`` is held to ``swa_causal_mask_table`` and to
+JAX's ``causal_mask``, and ``sdpa``'s sink and softcap to JAX's ``sdpa``.
 """
 
 import jax.numpy as jnp
@@ -28,8 +35,10 @@ from llm_quest_tpu.kernels.flash_attention import flash_attention_with_lse as jf
 from llm_quest_tpu.kernels.fused_mha import packed_mha as jpacked
 from llm_quest_tpu.ops import attention as jattn
 from llm_quest_tpu.ops.masks import causal_mask as jcausal
+from llm_quest_tpu.ops.masks import swa_causal_mask_table
 from llm_quest_tpu_torch.kernels import attention as kattn
 from llm_quest_tpu_torch.ops import attention as tattn
+from llm_quest_tpu_torch.ops.masks import causal_mask as tcausal
 
 TOL = 1e-4
 
@@ -155,10 +164,20 @@ def test_router_flash_route_carries_gradients():
 
 
 def test_flash_wrapper_rejects_unported_features():
+    """The kernel's argument check refuses, before any launch, what the CUDA
+    kernels do not take: dv ≠ d and head dims other than 64/128/256 (the
+    window, softcap and sinks are ported), and malformed feature arguments."""
     q = torch.zeros(1, 2, 4, 64)
-    for kw in ({"window_size": 8}, {"sink": torch.zeros(2)}, {"softcap": 30.0}):
-        with pytest.raises(NotImplementedError):
-            kattn.flash_attention(q, q, q, **kw)
+    with pytest.raises(ValueError, match="k/v must be"):
+        kattn._check(q, q, torch.zeros(1, 2, 4, 32), None, True, 0)
+    with pytest.raises(ValueError, match="head dims"):
+        kattn._check(torch.zeros(1, 2, 4, 96), torch.zeros(1, 2, 4, 96), torch.zeros(1, 2, 4, 96), None, True, 0)
+    with pytest.raises(ValueError, match="window_size"):
+        kattn._check(q, q, q, None, True, 0, window_size=0)
+    with pytest.raises(ValueError, match="softcap"):
+        kattn._check(q, q, q, None, True, 0, softcap=-1.0)
+    with pytest.raises(ValueError, match="sink"):
+        kattn._check(q, q, q, None, True, 0, sink=torch.zeros(3))
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -168,3 +187,135 @@ def test_cpu_tensors_take_the_plain_version():
     qh = q.reshape(1, 8, 2, 64).transpose(1, 2)
     assert torch.equal(kattn.flash_attention(qh, qh, qh), kattn.flash_attention_plain(qh, qh, qh, scale=64**-0.5))
     assert (kattn.packed_mha.launches, kattn.flash_attention.launches) == before
+
+
+# ------------------------------------------------ K4: window, softcap, sinks
+
+# the feature sets of tests/test_flash_attention.py
+FEATURES = {
+    "window": {"window_size": 32},
+    "softcap": {"softcap": 30.0},
+    "sink": {"sink": True},
+    "window_softcap_padding": {"window_size": 64, "softcap": 20.0, "padding": True},
+}
+FWD_TOL, GRAD_TOL = 2e-5, 5e-5  # tests/test_flash_attention.py:21-22, interpret mode
+
+
+def feature_case(name):
+    """q, k, v, do (b 2, 4/2 heads, s 200, d 64) and the feature kwargs as numpy."""
+    b, hq, hkv, s, d = 2, 4, 2, 200, 64
+    q, k, v = rand(b, hq, s, d), rand(b, hkv, s, d, seed=1), rand(b, hkv, s, d, seed=2)
+    do = rand(b, hq, s, d, seed=3)
+    kw = {key: val for key, val in FEATURES[name].items() if key not in ("sink", "padding")}
+    if FEATURES[name].get("sink"):
+        kw["sink"] = rand(hq, seed=5)
+    if FEATURES[name].get("padding"):
+        pad = np.random.default_rng(1).random((b, s)) > 0.2
+        pad[:, 0] = True  # every row keeps a visible key (fully masked rows are unspecified)
+        kw["attn_mask"] = pad
+    return q, k, v, do, kw
+
+
+def as_jax(kw):
+    return {key: jnp.asarray(val) if isinstance(val, np.ndarray) else val for key, val in kw.items()}
+
+
+def as_torch(kw):
+    return {key: T(val) if isinstance(val, np.ndarray) else val for key, val in kw.items()}
+
+
+@pytest.mark.parametrize("name", FEATURES)
+def test_k4_plain_window_softcap_sink_match_pallas(name):
+    q, k, v, _, kw = feature_case(name)
+    ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, interpret=True, block_q=128,
+                 block_k=128, **as_jax(kw))
+    got = kattn.flash_attention(T(q), T(k), T(v), **as_torch(kw))
+    assert_close(got, ref, FWD_TOL)
+
+
+@pytest.mark.parametrize("name", FEATURES)
+def test_k4_plain_window_softcap_sink_gradients_match_pallas_vjp(name):
+    """dq/dk/dv (and dsink) of the wrapper's autograd and of the plain
+    backward against jax.grad of the interpret-mode kernel (its custom VJP)."""
+    q, k, v, do, kw = feature_case(name)
+    sink = kw.pop("sink", None)
+    jkw = as_jax(kw)
+
+    def jloss(q, k, v, *sink_arg):
+        out = jflash(q, k, v, causal=True, interpret=True, block_q=128, block_k=128,
+                     sink=sink_arg[0] if sink_arg else None, **jkw)
+        return jnp.sum(out * jnp.asarray(do))
+
+    args = [jnp.asarray(x) for x in (q, k, v)] + ([] if sink is None else [jnp.asarray(sink)])
+    refs = jax.grad(jloss, argnums=tuple(range(len(args))))(*args)
+    leaves = [T(x).requires_grad_() for x in (q, k, v) + (() if sink is None else (sink,))]
+    tkw = as_torch(kw)
+    out = kattn.flash_attention(*leaves[:3], sink=leaves[3] if sink is not None else None, **tkw)
+    grads = torch.autograd.grad(out, leaves, T(do))
+    plain = kattn.flash_attention_bwd(T(q), T(k), T(v), None, None, T(do), sink=None if sink is None else T(sink),
+                                      **tkw)
+    assert len(grads) == len(plain) == len(refs) == (3 if sink is None else 4)
+    for got, got_plain, ref in zip(grads, plain, refs):
+        assert_close(got, ref, GRAD_TOL)
+        assert_close(got_plain, ref, GRAD_TOL)
+
+
+def test_k4_window_at_least_s_is_causal():
+    q, k, v = rand(1, 4, 40, 64), rand(1, 2, 40, 64, seed=1), rand(1, 2, 40, 64, seed=2)
+    causal = kattn.flash_attention(T(q), T(k), T(v))
+    for w in (40, 41, 1000):
+        assert torch.equal(kattn.flash_attention(T(q), T(k), T(v), window_size=w), causal)
+
+
+@pytest.mark.parametrize("s, w", [(16, 5), (33, 8), (64, 64), (20, 1)])
+def test_causal_mask_window_matches_table(s, w):
+    got = tcausal(s, s, window_size=w)[0, 0].numpy()
+    np.testing.assert_array_equal(got, swa_causal_mask_table(s, w))
+
+
+def test_causal_mask_window_with_offset_and_padding_matches_jax():
+    pad = np.random.default_rng(4).random((2, 30)) > 0.3
+    for q_start, q_len in ((0, 30), (10, 6), (29, 1)):
+        ref = jcausal(q_len, 30, q_start=q_start, window_size=7, attn_mask=jnp.asarray(pad))
+        got = tcausal(q_len, 30, q_start=q_start, window_size=7, attn_mask=T(pad))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("hq, hkv", [(4, 4), (4, 2)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_sdpa_sink_and_softcap_match_jax(hq, hkv, masked):
+    b, sq, sk, d = 2, 9, 13, 16
+    q, k, v = rand(b, hq, sq, d) * 3, rand(b, hkv, sk, d, seed=1), rand(b, hkv, sk, d, seed=2)
+    sink = rand(hq, seed=3)
+    mask = np.asarray(jcausal(sq, sk, q_start=sk - sq, window_size=5)) if masked else None
+    for kw in ({"sink": sink}, {"softcap": 5.0}, {"sink": sink, "softcap": 5.0}):
+        ref = jattn.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask=None if mask is None else jnp.asarray(mask),
+                         **as_jax(kw))
+        got = tattn.sdpa(T(q), T(k), T(v), mask=None if mask is None else T(mask), **as_torch(kw))
+        assert_close(got, ref, 1e-5)
+
+
+def test_router_window_softcap_sink_take_flash_and_carry_gradients():
+    """A windowed call with a softcap and sinks takes the router's flash route
+    (its plain version here) and matches JAX's router on the interpret-mode
+    kernel, gradients (the sink's included) too; the dense SWA mask passed
+    for ``sdpa`` is ignored there, as in JAX."""
+    b, hq, hkv, s, d = 1, 4, 2, 40, 64
+    q, k, v, do = rand(b, hq, s, d), rand(b, hkv, s, d, seed=1), rand(b, hkv, s, d, seed=2), rand(b, hq, s, d, seed=3)
+    sink = rand(hq, seed=4)
+    dense = np.asarray(jcausal(s, s, window_size=12))
+    jcfg = {"flash_min_seq": 32, "use_flash": True}
+
+    def jloss(q, k, v, sink):
+        out = jattn.attention(q, k, v, cfg=jcfg, mask=jnp.asarray(dense), causal=True, window_size=12, sink=sink,
+                              softcap=10.0)
+        return jnp.sum(out * jnp.asarray(do))
+
+    refs = jax.grad(jloss, argnums=(0, 1, 2, 3))(*(jnp.asarray(x) for x in (q, k, v, sink)))
+    leaves = [T(x).requires_grad_() for x in (q, k, v, sink)]
+    before = kattn.flash_attention.launches
+    out = tattn.attention(*leaves[:3], cfg={"flash_min_seq": 32}, mask=T(dense), causal=True, window_size=12,
+                          sink=leaves[3], softcap=10.0)
+    assert kattn.flash_attention.launches == before  # the CPU runs the plain version
+    for got, ref in zip(torch.autograd.grad(out, leaves, T(do)), refs):
+        assert_close(got, ref, GRAD_TOL)

@@ -194,6 +194,48 @@ def test_flash_attention_backward_q_start_and_delta_shift(gen, dtype):
             assert_close(g, r, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("features", [
+    {"window_size": 40}, {"window_size": 1}, {"window_size": 500}, {"softcap": 30.0}, {"sink": True},
+    {"window_size": 64, "softcap": 20.0, "sink": True, "padding": True},
+])
+def test_flash_attention_window_softcap_sink_kernels(gen, dtype, features):
+    """K4's sliding window, softcap and sinks, forward and backward (dsink
+    included), against autograd through the plain version; s 300 spans
+    several key tiles on either side of the window."""
+    from llm_quest_tpu_torch.kernels import attention
+
+    q0 = randn(gen, 2, 4, 300, 256, dtype=dtype)
+    k0, v0 = randn(gen, 2, 1, 300, 256, dtype=dtype), randn(gen, 2, 1, 300, 256, dtype=dtype)
+    do = randn(gen, 2, 4, 300, 256, dtype=dtype)
+    kw = {key: val for key, val in features.items() if key not in ("sink", "padding")}
+    if features.get("padding"):
+        kw["attn_mask"] = torch.rand(2, 300, generator=gen, device="cuda") > 0.2
+        kw["attn_mask"][:, 0] = True
+    sink0 = randn(gen, 4) if features.get("sink") else None
+    leaves = [t.clone().requires_grad_() for t in (q0, k0, v0) + (() if sink0 is None else (sink0,))]
+    n_fwd, n_bwd = attention.flash_attention.launches, attention.flash_attention_bwd.launches
+    out = attention.flash_attention(*leaves[:3], sink=None if sink0 is None else leaves[3], **kw)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert (attention.flash_attention.launches, attention.flash_attention_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    assert_close(out, attention.flash_attention(q0, k0, v0, sink=sink0, plain=True, **kw), dtype)
+    refs = attention.flash_attention_bwd_plain(q0, k0, v0, do, sink=sink0, **kw)
+    assert len(grads) == len(refs)
+    for got, ref in zip(grads, refs):
+        assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_window_at_least_s_is_causal_on_the_card(gen, dtype):
+    from llm_quest_tpu_torch.kernels import attention
+
+    q, k, v = randn(gen, 1, 4, 200, 128, dtype=dtype), randn(gen, 1, 2, 200, 128, dtype=dtype), \
+        randn(gen, 1, 2, 200, 128, dtype=dtype)
+    causal = attention.flash_attention(q, k, v)
+    for w in (200, 1000):
+        assert torch.equal(attention.flash_attention(q, k, v, window_size=w), causal)
+
+
 def test_forward_only_kernels_raise_under_grad(gen):
     """K2 and K7 have no backward: on the card they refuse to run when a
     gradient would be needed, and run under no_grad."""

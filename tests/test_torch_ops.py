@@ -66,6 +66,20 @@ def test_norms():
     close(tnorms.zero_centered_rms_norm(T(x), T(scale)), jnorms.zero_centered_rms_norm({"scale": J(scale)}, J(x)))
 
 
+def test_gemma_norms_and_softcap():
+    """The GPT-2 LayerNorm (eps outside the sqrt), the Llama RMSNorm (fp32
+    mean-square, scale after the cast back) and the softcap."""
+    x, scale, shift = rand(3, 5, 24) * 4, rand(24, seed=1), rand(24, seed=2)
+    close(tnorms.layer_norm(T(x), T(scale), T(shift)), jnorms.layer_norm({"scale": J(scale), "shift": J(shift)}, J(x)))
+    close(tnorms.rms_norm(T(x), T(scale)), jnorms.rms_norm({"scale": J(scale)}, J(x)))
+    close(tact.softcap(T(x), 5.0), jact.softcap(J(x), 5.0))
+    # the cast order in bf16: the normed value is rounded before the scale multiplies it
+    xb = T(x).bfloat16()
+    assert torch.equal(tnorms.rms_norm(xb, T(scale).bfloat16()),
+                       (T(scale).bfloat16() * (xb.float() / (xb.float().square().mean(-1, keepdim=True).sqrt() + 1e-6))
+                        .bfloat16()))
+
+
 def test_rope_tables():
     for got, ref in zip(trope.compute_angles(10_000_000, 256, 64, rotation_factor=0.25),
                         jrope.compute_angles(10_000_000, 256, 64, rotation_factor=0.25)):
