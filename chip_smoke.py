@@ -93,6 +93,7 @@ GEMMs, the rest), one JSON line each.
 
 import json
 import statistics
+from functools import partial
 import subprocess
 import sys
 import time
@@ -590,26 +591,6 @@ def gemma_k4_case(gen, dtypes, *, window=None, softcap=None, sink=False, backwar
     return max(errs), rec["ms"], rec["plain_ms"], cases, extra
 
 
-def kernel_k4_window(gen, dtypes):
-    return gemma_k4_case(gen, dtypes, window=GEMMA_WINDOW)
-
-
-def kernel_k4_window_bwd(gen, dtypes):
-    return gemma_k4_case(gen, dtypes, window=GEMMA_WINDOW, backward=True)
-
-
-def kernel_k4_causal_d256(gen, dtypes):
-    return gemma_k4_case(gen, dtypes)
-
-
-def kernel_k4_causal_d256_bwd(gen, dtypes):
-    return gemma_k4_case(gen, dtypes, backward=True)
-
-
-def kernel_k4_softcap_sink(gen, dtypes):
-    return gemma_k4_case(gen, dtypes, softcap=30.0, sink=True, backward=True)
-
-
 def kernel_k7(gen, dtypes):
     import torch
 
@@ -791,19 +772,19 @@ KERNELS = [
     # K4 at one Gemma-3-270M layer: the SWA layers' window, the global layers'
     # causal call at the same shape, and the softcap and sinks (on no path yet)
     ("flash_attention_fwd_window", ("attention", "flash_attention", "window"), "llm_quest_tpu_torch/csrc/attention.cu",
-     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4_window, (GEMMA,)),
+     "llm_quest_tpu/kernels/flash_attention.py:544", partial(gemma_k4_case, window=GEMMA_WINDOW), (GEMMA,)),
     ("flash_attention_fwd_bwd_window", ("attention", "flash_attention_bwd", "window"),
      "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
-     kernel_k4_window_bwd, (GEMMA,)),
+     partial(gemma_k4_case, window=GEMMA_WINDOW, backward=True), (GEMMA,)),
     ("flash_attention_fwd_causal_d256", ("attention", "flash_attention", "full"),
      "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:544",
-     kernel_k4_causal_d256, (GEMMA,)),
+     gemma_k4_case, (GEMMA,)),
     ("flash_attention_fwd_bwd_causal_d256", ("attention", "flash_attention_bwd", "full"),
      "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
-     kernel_k4_causal_d256_bwd, (GEMMA,)),
+     partial(gemma_k4_case, backward=True), (GEMMA,)),
     ("flash_attention_softcap_sink", ("attention", "flash_attention_bwd", "softcap_sink"),
      "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
-     kernel_k4_softcap_sink, ()),
+     partial(gemma_k4_case, softcap=30.0, sink=True, backward=True), ()),
 ]
 
 

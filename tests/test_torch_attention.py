@@ -197,6 +197,7 @@ FEATURES = {
     "softcap": {"softcap": 30.0},
     "sink": {"sink": True},
     "window_softcap_padding": {"window_size": 64, "softcap": 20.0, "padding": True},
+    "window_noncausal": {"window_size": 48, "causal": False},
 }
 FWD_TOL, GRAD_TOL = 2e-5, 5e-5  # tests/test_flash_attention.py:21-22, interpret mode
 
@@ -227,8 +228,8 @@ def as_torch(kw):
 @pytest.mark.parametrize("name", FEATURES)
 def test_k4_plain_window_softcap_sink_match_pallas(name):
     q, k, v, _, kw = feature_case(name)
-    ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, interpret=True, block_q=128,
-                 block_k=128, **as_jax(kw))
+    ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True, block_q=128, block_k=128,
+                 **{"causal": True, **as_jax(kw)})
     got = kattn.flash_attention(T(q), T(k), T(v), **as_torch(kw))
     assert_close(got, ref, FWD_TOL)
 
@@ -239,11 +240,11 @@ def test_k4_plain_window_softcap_sink_gradients_match_pallas_vjp(name):
     backward against jax.grad of the interpret-mode kernel (its custom VJP)."""
     q, k, v, do, kw = feature_case(name)
     sink = kw.pop("sink", None)
-    jkw = as_jax(kw)
+    jkw = {"causal": True, **as_jax(kw)}
 
     def jloss(q, k, v, *sink_arg):
-        out = jflash(q, k, v, causal=True, interpret=True, block_q=128, block_k=128,
-                     sink=sink_arg[0] if sink_arg else None, **jkw)
+        out = jflash(q, k, v, interpret=True, block_q=128, block_k=128, sink=sink_arg[0] if sink_arg else None,
+                     **jkw)
         return jnp.sum(out * jnp.asarray(do))
 
     args = [jnp.asarray(x) for x in (q, k, v)] + ([] if sink is None else [jnp.asarray(sink)])

@@ -27,12 +27,10 @@ import numpy as np
 import pytest
 import torch
 
-from llm_quest_tpu import config as jconfig
 from llm_quest_tpu.inference import generate as jgen
 from llm_quest_tpu.models import gemma3 as jg
 from llm_quest_tpu.training import engine as jengine
 from llm_quest_tpu.weights.interop import flatten_params
-from llm_quest_tpu_torch import config as tconfig
 from llm_quest_tpu_torch.inference import generate as tgen
 from llm_quest_tpu_torch.models import gemma3 as tg
 from llm_quest_tpu_torch.ops.linear import Linear
@@ -104,12 +102,6 @@ def model(jparams):
 
 
 # ------------------------------------------------------------------ config, weights
-
-
-def test_config_matches_jax():
-    ref = {k: v for k, v in jconfig.GEMMA3_SMALL_CONFIG.items() if k != "dtype"}
-    assert {k: v for k, v in tconfig.GEMMA3_SMALL_CONFIG.items() if k != "dtype"} == ref
-    assert tconfig.GEMMA3_SMALL_CONFIG["dtype"] == torch.float32 and jconfig.GEMMA3_SMALL_CONFIG["dtype"] == jnp.float32
 
 
 @pytest.mark.parametrize("n_layers, ratio, window", [(4, 1, 8), (6, 5, 512), (18, 5, 512), (4, 0, 8), (4, 4, 8),

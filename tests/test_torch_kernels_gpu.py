@@ -197,7 +197,7 @@ def test_flash_attention_backward_q_start_and_delta_shift(gen, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("features", [
     {"window_size": 40}, {"window_size": 1}, {"window_size": 500}, {"softcap": 30.0}, {"sink": True},
-    {"window_size": 64, "softcap": 20.0, "sink": True, "padding": True},
+    {"window_size": 64, "softcap": 20.0, "sink": True, "padding": True}, {"window_size": 100, "causal": False},
 ])
 def test_flash_attention_window_softcap_sink_kernels(gen, dtype, features):
     """K4's sliding window, softcap and sinks, forward and backward (dsink
@@ -316,6 +316,30 @@ def test_qwen3_next_gradients_through_kernels(gen, capacity):
         loss = engine.make_loss_fn(qwen3_next, dict(cfg, use_kernels=use_kernels), fused_head_ce=True)(model, batch)
         grads[use_kernels] = torch.autograd.grad(loss, list(model.parameters()))
     assert (gdn.gated_delta_rule_bwd.launches, attention.flash_attention_bwd.launches) == (n[0] + 3, n[1] + 1)
+    for got, ref in zip(grads[True], grads[False]):
+        assert_close(got, ref, torch.float32)
+
+
+def test_gemma3_gradients_through_kernels(gen):
+    """Gemma-3 loss gradients through K4 with the window on the SWA layers
+    (2 of 3) against the plain versions, fp32, padded batch."""
+    from llm_quest_tpu_torch.kernels import attention
+    from llm_quest_tpu_torch.models import gemma3
+    from llm_quest_tpu_torch.training import engine
+
+    cfg = {
+        "vocab_size": 256, "context_length": 128, "emb_dim": 64, "n_heads": 4, "n_layers": 3, "num_kv_groups": 1,
+        "head_dim": 64, "hidden_dim": 128, "rope_base": 10_000, "window_size": 24, "local_global_att_ratio": 2,
+        "flash_min_seq": 16, "dtype": torch.float32,
+    }
+    model = gemma3.init(cfg, generator=torch.Generator(device="cuda").manual_seed(4), device="cuda")
+    batch = _tiny_batch(gen)
+    n, n_win = attention.flash_attention_bwd.launches, attention.flash_attention_bwd.window_launches
+    grads = {}
+    for use_kernels in (True, False):
+        loss = engine.make_loss_fn(gemma3, dict(cfg, use_kernels=use_kernels))(model, batch)
+        grads[use_kernels] = torch.autograd.grad(loss, list(model.parameters()))
+    assert (attention.flash_attention_bwd.launches, attention.flash_attention_bwd.window_launches) == (n + 3, n_win + 2)
     for got, ref in zip(grads[True], grads[False]):
         assert_close(got, ref, torch.float32)
 

@@ -311,6 +311,9 @@ def test_configs_match_jax():
         assert {k: v for k, v in got.items() if k != "dtype"} == {k: v for k, v in ref.items() if k != "dtype"}
     with pytest.raises(ValueError):
         tconfig.qwen3_config_creator("temp_moe")
+    strip = lambda c: {k: v for k, v in c.items() if k != "dtype"}  # noqa: E731
+    assert strip(tconfig.GEMMA3_SMALL_CONFIG) == strip(jconfig.GEMMA3_SMALL_CONFIG)
+    assert tconfig.GEMMA3_SMALL_CONFIG["dtype"] == torch.float32
 
 
 def test_prefetch_yields_batches_and_reraises():
