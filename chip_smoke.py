@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the port's
-kernels from ``llm_quest_tpu_torch/csrc`` at first use. Six main paths are
-driven: Qwen3.5-0.8B generation, the dense Qwen3 training step of bench.py's
-train workload, the Qwen3-Next hybrid training step of
+kernels from ``llm_quest_tpu_torch/csrc`` at first use. Seven main paths are
+driven: the ViT-B/224 encode of bench.py's ViT cell (through K7, K8 and K9),
+Qwen3.5-0.8B generation, the dense Qwen3 training step of bench.py's train
+workload, the Qwen3-Next hybrid training step of
 ``scripts/bench_hybrid_training.py``, the Gemma-3 sliding-window training
 step at Gemma-3-270M's widths, int8 Qwen3.5-0.8B text generation and int8
 Qwen3-Next cached decode. Phases, one JSON line each on stdout:
@@ -32,49 +33,62 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    d 256, s 2048), fp32 and bf16, forward and forward + backward, each with
    window 512 and causal, and softcap 30 with sinks (dsink checked); then
    ``k4_window_ratio``: the windowed times at most 0.6x the causal ones.
-   Each record carries its bound and, where one PyTorch call computes the
-   same function, that call's time;
-3. check_fp32: the full-width Qwen3.5-0.8B generation path (random weights
+   K7 at ViT-B's encode shape (b 128, s 197, 12 x 64) and at d 32 (b 128,
+   s 65, 8 x 32), and its recompute backward (b 16 checked, b 128 timed);
+   K8 with dynamic and with static scales and K9 at ViT-B's shape, K9 equal
+   to K8 static bit for bit. Each record carries its bound and, where one
+   PyTorch call computes the same function, that call's time (none for K8
+   and K9: ``bf16_sdpa_ms`` stands beside them);
+3. vit_fp32: ViT-B's widths cut to 2 layers, b 8, fp32: the logits through
+   K7, K8 (dynamic, static) and K9 against the plain versions, within
+   LOGIT_TOL;
+4. vit_encode: ViT-B/224 at full width and depth, b 128, bf16, under
+   ``torch.inference_mode``, launch counts reset first, once in each mode
+   (bf16 through K7; int8 dynamic and int8 static through K8; int8 inkernel
+   through K9; 12 launches each), then img/s, MFU, peak memory and the int8
+   modes' logits against the bf16 encode's;
+5. check_fp32: the full-width Qwen3.5-0.8B generation path (random weights
    from a seeded generator) in fp32, once through the kernels and once with
    the plain versions forced: prefill logits close, first 16 greedy tokens
    equal;
-4. main_path: the same two entry points in bf16 with every launch count reset
+6. main_path: the same two entry points in bf16 with every launch count reset
    first — ``generate_multimodal`` (a 384 px image, the 156-token prompt of
    bench.py, 64 greedy tokens) and ``generate_kv_cache`` at b = 4 with a
-   300-token prompt — and every kernel of the path must have launched;
-5. timing: tok/s and TTFT of both, with the card's name and power limit;
-6. train_fp32: a 2-layer Qwen3 at Qwen3-0.6B widths, b = 1, s = 2048, the
+   300-token prompt — and every kernel of the path must have launched, and
+   K7 none (the tower's s 576 is above ``fused_mha_max_seq``: ``sdpa``);
+7. timing: tok/s and TTFT of both, with the card's name and power limit;
+8. train_fp32: a 2-layer Qwen3 at Qwen3-0.6B widths, b = 1, s = 2048, the
    loss and every gradient through the kernels against the plain versions;
-7. train: bench.py's train configuration (16 layers, b = 4, s = 2048, bf16,
+9. train: bench.py's train configuration (16 layers, b = 4, s = 2048, bf16,
    fused-head CE) through ``make_optimizer`` → ``make_train_step``, launch
    counts reset first, 1 warm-up and 4 timed steps: the loss is finite and
    falls, flash forward and backward each launch 16 times a step, and tok/s,
    step ms and MFU are printed with the card's name and power limit;
-8. hybrid_fp32: Qwen3-Next-small at full width cut to 4 layers (3 GDN + 1
-   GatedAttention), b = 1, s = 512, the loss and every gradient through the
-   kernels against the plain versions;
-9. hybrid_train: ``QWEN3_NEXT_SMALL_CONFIG`` at full width and depth (8
-   layers), b = 4, s = 2048, bf16, fused-head CE, exact (ragged) MoE
-   dispatch, as phase 7: K1 forward and backward launch 6 times a step,
-   flash forward and backward twice; then the same with capacity dispatch
-   (factor 1.25);
-10. gemma_fp32: Gemma-3-270M widths cut to 6 layers (5 SWA + 1 global),
+10. hybrid_fp32: Qwen3-Next-small at full width cut to 4 layers (3 GDN + 1
+    GatedAttention), b = 1, s = 512, the loss and every gradient through the
+    kernels against the plain versions;
+11. hybrid_train: ``QWEN3_NEXT_SMALL_CONFIG`` at full width and depth (8
+    layers), b = 4, s = 2048, bf16, fused-head CE, exact (ragged) MoE
+    dispatch, as phase 9: K1 forward and backward launch 6 times a step,
+    flash forward and backward twice; then the same with capacity dispatch
+    (factor 1.25);
+12. gemma_fp32: Gemma-3-270M widths cut to 6 layers (5 SWA + 1 global),
     b 2, s 1024, the loss and every gradient through the kernels against the
     plain versions (full-logits CE: the Gemma-3 model has no fused head);
     gemma_fp32_cached: a 700-token prompt's cached prefill (``sdpa`` on the
     dense masks) against the uncached flash forward, last logits;
-11. gemma_train: the 18-layer model, b 4, s 2048, bf16, as phase 7: K4
+13. gemma_train: the 18-layer model, b 4, s 2048, bf16, as phase 9: K4
     forward and backward each launch 18 times a step, 15 with the window;
     MFU with the port's SWA FLOP count; gemma_generate: b 1, a 300-token
     prompt, 16 greedy tokens through the cache branch, tok/s and TTFT;
-12. int8_generate_fp32, next_serve_fp32: int8 Qwen3.5-0.8B text and int8
+14. int8_generate_fp32, next_serve_fp32: int8 Qwen3.5-0.8B text and int8
     Qwen3-Next-small at full width cut to 4 layers, fp32, kernels against
     plain: prefill logits within INT8_LOGIT_TOL, 16 greedy tokens equal;
-13. int8_generate: Qwen3.5-0.8B text, 24 layers, bf16, weights, tied table
+15. int8_generate: Qwen3.5-0.8B text, 24 layers, bf16, weights, tied table
     and KV cache int8, b = 1, prompt 32, 64 greedy tokens (K1, K2, K10);
-14. next_serve: Qwen3-Next-small, 8 layers, bf16, linears and expert stacks
+16. next_serve: Qwen3-Next-small, 8 layers, bf16, linears and expert stacks
     int8, b = 4, 300-token prompts, 64 greedy tokens (K1, K2 at dk 64, K11).
-    Phases 13 and 14 reset the counts, drive the int8 model once, then print
+    Phases 15 and 16 reset the counts, drive the int8 model once, then print
     tok/s, TTFT and MBU beside the bf16 model's, and the per-step cost of
     the int8 → bf16 weight copies.
 
@@ -85,10 +99,12 @@ last line; there is no CPU fallback.
     python3 chip_smoke.py --profile
 
 runs only the device phase and a ``torch.profiler`` breakdown of the train
-steps of phases 7, 9 and 11 (2 warm-up and 2 profiled steps each): the device's
-busy share of the profiled wall and the device time per step by kernel group
-(flash forward, dq, dk/dv, GDN forward, backward and its reduction, cuBLAS
-GEMMs, the rest), one JSON line each.
+steps of phases 9, 11 and 13 (2 warm-up and 2 profiled steps each) and of the
+ViT-B encode through K7 and through K8 with static scales (1 warm-up, 2
+profiled encodes each): the device's busy share of the profiled wall and the
+device time per step by kernel group (flash forward, which is also K7's,
+dq, dk/dv, GDN forward, backward and its reduction, K8/K9 and K8's
+quantization, cuBLAS GEMMs, the rest), one JSON line each.
 """
 
 import json
@@ -119,7 +135,7 @@ DEVICE = "cuda"
 # the card's published rates (H100 SXM, NVIDIA's data sheet, dense, at 700 W):
 # device memory, bf16 on the tensor cores, fp32 outside them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 
 def emit(obj):
@@ -184,6 +200,17 @@ def bound(n_bytes, flops, dtype="bfloat16"):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "simt_bound_ms": max(t_bytes, flops / PEAK_FLOPS["float32"]) * 1e3, "bytes": n_bytes, "flops": flops}
+
+
+def bound_int8(n_bytes, int8_ops, bf16_flops):
+    """``bound`` for the int8-score kernels: the score products at the int8
+    peak and p·V at the bf16 peak, in series; ``simt_bound_ms`` takes both at
+    the fp32 rate outside the tensor cores."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = int8_ops / PEAK_FLOPS["int8"] + bf16_flops / PEAK_FLOPS["bfloat16"]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "simt_bound_ms": max(t_bytes, (int8_ops + bf16_flops) / PEAK_FLOPS["float32"]) * 1e3,
+            "bytes": n_bytes, "flops": int8_ops + bf16_flops, "int8_ops": int8_ops}
 
 
 def randn(gen, *shape, dtype=None, scale=1.0):
@@ -591,29 +618,135 @@ def gemma_k4_case(gen, dtypes, *, window=None, softcap=None, sink=False, backwar
     return max(errs), rec["ms"], rec["plain_ms"], cases, extra
 
 
-def kernel_k7(gen, dtypes):
+# ViT-B/224's encode (bench.py:297): b 128, s 197 (196 patches + CLS), 12 heads of 64
+VIT_B = (128, 197, 12, 64)
+# TinyViT's heads (TINY_VIT_CONFIG: 256 = 8 x 32) at s 65 (64 patches + CLS), b 128
+VIT_D32 = (128, 65, 8, 32)
+
+
+def packed_inputs(gen, shape, dtype):
+    b, s, h, d = shape
+    return tuple(randn(gen, b, s, h * d, dtype=dtype) for _ in range(3))
+
+
+def packed_flops(shape):
+    """QKᵀ or PV of every (image, head): 2·s²·d each."""
+    b, s, h, d = shape
+    return 2 * b * h * s * s * d
+
+
+def split_view(t, h):
+    """The (b, h, s, d) view of a packed (b, s, h·d) tensor, for the library call."""
+    b, s, hd = t.shape
+    return t.view(b, s, h, hd // h).transpose(1, 2)
+
+
+def kernel_k7(gen, dtypes, shape=VIT_B):
+    """K7 at ``shape`` (ViT-B's encode, or TinyViT's d 32), fp32 and bf16
+    against plain; timed in bf16 beside ``sdpa`` on the split-head view."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import attention as attn
+
+    b, s, h, d = shape
+    errs, cases = [], []
+    for dtype in dtypes:
+        q, k, v = packed_inputs(gen, shape, dtype)
+        out, ref = attn.packed_mha(q, k, v, h), attn.packed_mha(q, k, v, h, plain=True)
+        torch_sync()
+        e = check(f"K7 {shape} {dtype}", out, ref, dtype)
+        cases.append({"b": b, "s": s, "heads": h, "d": d, "dtype": str(dtype), "max_abs_err": e})
+        if dtype == dtypes[0]:
+            errs.append(e)
+    ms = cuda_ms(lambda: attn.packed_mha(q, k, v, h))
+    plain_ms = cuda_ms(lambda: attn.packed_mha(q, k, v, h, plain=True), iters=5, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = lambda: sdpa(split_view(q, h), split_view(k, h), split_view(v, h))  # noqa: E731
+    check("K7 vs sdpa (library)", lib().transpose(1, 2).reshape(b, s, -1), attn.packed_mha(q, k, v, h), dtypes[-1])
+    extra = {**bound(4 * nbytes(q), 2 * packed_flops(shape)), "library_ms": cuda_ms(lib), "shape": list(shape)}
+    return max(errs), ms, plain_ms, cases, extra
+
+
+def kernel_k7_bwd(gen, dtypes):
+    """K7's recompute backward (autograd through the plain version, after the
+    kernel's forward) against autograd of the plain version: fp32 and bf16 at
+    b 16 of ViT-B's shape, then forward + backward timed at b 128 in bf16."""
     import torch
 
     from llm_quest_tpu_torch.kernels import attention as attn
 
     errs, cases = [], []
     for dtype in dtypes:
-        for b, s in ((1, 576), (8, 197)):
-            q, k, v = (randn(gen, b, s, 12 * 64, dtype=dtype) for _ in range(3))
-            out = attn.packed_mha(q, k, v, 12)
-            ref = attn.packed_mha(q, k, v, 12, plain=True)
+        for b in (16, VIT_B[0]) if dtype == dtypes[-1] else (16,):
+            shape = (b, *VIT_B[1:])
+            h = shape[2]
+            q, k, v = packed_inputs(gen, shape, dtype)
+            do = randn(gen, *q.shape, dtype=dtype)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+            def fwd_bwd(plain=False, leaves=leaves, do=do, h=h):
+                out = attn.packed_mha(*leaves, h, plain=plain)
+                return torch.autograd.grad(out, leaves, do)
+
+            got, ref = fwd_bwd(), fwd_bwd(True)
             torch_sync()
-            e = check(f"K7 b={b} s={s} {dtype}", out, ref, dtype)
-            cases.append({"b": b, "s": s, "dtype": str(dtype), "max_abs_err": e})
+            e = max(check(f"K7 bwd d{n} b={b} {dtype}", g, r, dtype) for n, g, r in zip("qkv", got, ref))
+            cases.append({"b": b, "dtype": str(dtype), "max_abs_err": e})
             if dtype == dtypes[0]:
                 errs.append(e)
-    q, k, v = (randn(gen, 1, 576, 12 * 64, dtype=dtypes[-1]) for _ in range(3))
-    ms = cuda_ms(lambda: attn.packed_mha(q, k, v, 12))
-    plain_ms = cuda_ms(lambda: attn.packed_mha(q, k, v, 12, plain=True))
-    heads = lambda t: t.view(1, 576, 12, 64).transpose(1, 2)  # noqa: E731  the split-head view
-    lib = lambda: torch.nn.functional.scaled_dot_product_attention(heads(q), heads(k), heads(v))  # noqa: E731
-    check("K7 vs sdpa (library)", lib().transpose(1, 2).reshape(1, 576, -1), attn.packed_mha(q, k, v, 12), dtypes[-1])
-    extra = {**bound(4 * nbytes(q), 4 * 64 * 576 * 576 * 12), "library_ms": cuda_ms(lib)}
+            del got, ref
+    ms = cuda_ms(fwd_bwd, iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: fwd_bwd(True), iters=5, warmup=1)
+
+    def lib():
+        out = torch.nn.functional.scaled_dot_product_attention(*(split_view(t, h) for t in leaves))
+        return torch.autograd.grad(out, leaves, split_view(do, h))
+
+    # forward and backward: the inputs and do read, out and dq/dk/dv written;
+    # 3x the forward's products (QKᵀ, PV; dV, dP, dQ, dK)
+    extra = {**bound(2 * nbytes(q, k, v, do), 3 * 2 * packed_flops(shape)), "library_ms": cuda_ms(lib, 5, 1)}
+    del q, k, v, do, leaves
+    torch.cuda.empty_cache()
+    return max(errs), ms, plain_ms, cases, extra
+
+
+def kernel_int8(gen, dtypes, mode):
+    """K8 (``mode`` "dynamic" or "static") or K9 ("inkernel") at ViT-B's
+    encode shape, fp32 and bf16 against plain; K9 also equal to K8 with the
+    same static scales, bit for bit. Timed in bf16 beside bf16 ``sdpa``
+    (no PyTorch call computes int8-score attention: library_ms is null)."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import fused_mha as fm
+
+    b, s, h, d = VIT_B
+    errs, cases = [], []
+    for dtype in dtypes:
+        q, k, v = packed_inputs(gen, VIT_B, dtype)
+        ss = None
+        if mode != "dynamic":
+            ss = (float(q.float().abs().max()) / 127.0, float(k.float().abs().max()) / 127.0)
+        if mode == "inkernel":
+            call = lambda plain=False: fm.packed_mha_int8_inkernel(q, k, v, h, ss, plain=plain)  # noqa: E731
+        else:
+            call = lambda plain=False: fm.packed_mha_int8(q, k, v, h, static_scales=ss, plain=plain)  # noqa: E731
+        out, ref = call(), call(True)
+        torch_sync()
+        case = {"b": b, "s": s, "heads": h, "d": d, "dtype": str(dtype), "static_scales": ss,
+                "max_abs_err": check(f"K8/K9 {mode} {dtype}", out, ref, dtype)}
+        if mode == "inkernel":
+            if not torch.equal(out, fm.packed_mha_int8(q, k, v, h, static_scales=ss)):
+                raise AssertionError(f"K9 differs from K8 with the same static scales ({dtype})")
+            case["equal_to_k8_static"] = True
+        cases.append(case)
+        if dtype == dtypes[0]:
+            errs.append(case["max_abs_err"])
+    ms = cuda_ms(call)
+    plain_ms = cuda_ms(lambda: call(True), iters=5, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    extra = {**bound_int8(4 * nbytes(q), packed_flops(VIT_B), packed_flops(VIT_B)), "library_ms": None,
+             "bf16_sdpa_ms": cuda_ms(lambda: sdpa(split_view(q, h), split_view(k, h), split_view(v, h))),
+             "shape": list(VIT_B)}
     return max(errs), ms, plain_ms, cases, extra
 
 
@@ -749,10 +882,12 @@ def torch_sync():
 GENERATE, TRAIN, HYBRID = "generate", "train", "hybrid_train"
 INT8_GENERATE, NEXT_SERVE = "int8_generate", "next_serve"
 GEMMA = "gemma_train"
+VIT = "vit_encode"
 KERNELS = [
     # name, wrapper (module, attribute[, which launches: "window" = those with a
     # sliding window, "full" = those without, "softcap_sink" = those with a
-    # softcap or sinks]), source, replaced TPU kernel, check, main paths that launch it
+    # softcap or sinks, "static" = those with static scales, "dynamic" = those
+    # without]), source, replaced TPU kernel, check, main paths that launch it
     ("gdn_prefill", ("gdn", "gated_delta_rule_fwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
      "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1, (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE)),
     ("gdn_prefill_bwd", ("gdn", "gated_delta_rule_bwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
@@ -764,7 +899,19 @@ KERNELS = [
     ("flash_attention_bwd", ("attention", "flash_attention_bwd"), "llm_quest_tpu_torch/csrc/attention.cu",
      "llm_quest_tpu/kernels/flash_attention.py:175", kernel_k4_bwd, (TRAIN, HYBRID)),
     ("packed_mha", ("attention", "packed_mha"), "llm_quest_tpu_torch/csrc/attention.cu",
-     "llm_quest_tpu/kernels/fused_mha.py:422", kernel_k7, (GENERATE,)),
+     "llm_quest_tpu/kernels/fused_mha.py:422", kernel_k7, (VIT,)),
+    ("packed_mha_d32", ("attention", "packed_mha"), "llm_quest_tpu_torch/csrc/attention.cu",
+     "llm_quest_tpu/kernels/fused_mha.py:422", partial(kernel_k7, shape=VIT_D32), ()),
+    ("packed_mha_fwd_bwd", ("attention", "packed_mha"), "llm_quest_tpu_torch/csrc/attention.cu",
+     "llm_quest_tpu/kernels/fused_mha.py:442", kernel_k7_bwd, ()),
+    ("packed_mha_int8", ("fused_mha", "packed_mha_int8", "dynamic"), "llm_quest_tpu_torch/csrc/packed_mha_int8.cu",
+     "llm_quest_tpu/kernels/fused_mha.py:405", partial(kernel_int8, mode="dynamic"), (VIT,)),
+    ("packed_mha_int8_static", ("fused_mha", "packed_mha_int8", "static"),
+     "llm_quest_tpu_torch/csrc/packed_mha_int8.cu", "llm_quest_tpu/kernels/fused_mha.py:405",
+     partial(kernel_int8, mode="static"), (VIT,)),
+    ("packed_mha_int8_inkernel", ("fused_mha", "packed_mha_int8_inkernel"),
+     "llm_quest_tpu_torch/csrc/packed_mha_int8.cu", "llm_quest_tpu/kernels/fused_mha.py:372",
+     partial(kernel_int8, mode="inkernel"), (VIT,)),
     ("flash_decode", ("flash_decode", "flash_decode"), "llm_quest_tpu_torch/csrc/flash_decode.cu",
      "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10, (INT8_GENERATE,)),
     ("quantized_ragged_dot", ("quantized_gmm", "quantized_ragged_dot"), "llm_quest_tpu_torch/csrc/quantized_gmm.cu",
@@ -796,12 +943,14 @@ def wrapper(spec):
 
 def launch_count(spec):
     """The wrapper's launches of the kind ``spec`` names (see KERNELS): all,
-    those with a sliding window, those without, or those with a softcap or
-    sinks."""
+    those with a sliding window, those without, those with a softcap or
+    sinks, those with static scales or those without."""
     w = wrapper(spec)
     kind = spec[2] if len(spec) > 2 else "all"
     if kind == "full":
         return w.launches - w.window_launches
+    if kind == "dynamic":
+        return w.launches - w.static_launches
     return w.launches if kind == "all" else getattr(w, f"{kind}_launches")
 
 
@@ -817,6 +966,7 @@ def kernel_phase():
                         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": extra["bound_ms"], "bound_by": extra["bound_by"],
                         "library_ms": extra["library_ms"], "simt_bound_ms": extra["simt_bound_ms"],
+                        **({"bf16_sdpa_ms": extra["bf16_sdpa_ms"]} if "bf16_sdpa_ms" in extra else {}),
                         "paths": list(paths)})
         torch.cuda.empty_cache()
     return records
@@ -825,7 +975,7 @@ def kernel_phase():
 def reset_launches():
     for spec in KERNELS:
         w = wrapper(spec[1])
-        for counter in ("launches", "window_launches", "softcap_sink_launches"):
+        for counter in ("launches", "window_launches", "softcap_sink_launches", "static_launches"):
             if hasattr(w, counter):
                 setattr(w, counter, 0)
 
@@ -950,6 +1100,9 @@ def main_path(cfg, inputs, records, card):
     mm_seq, text_seq = run_main_path(model, cfg, *inputs, max_gen=64)
     torch.cuda.synchronize()
     launches = read_launches(GENERATE, records)
+    # the 384 px tower's s 576 is above fused_mha_max_seq: split-heads sdpa, as in JAX
+    if launches["packed_mha"] != 0:
+        raise AssertionError(f"packed_mha launched {launches['packed_mha']} times on the {GENERATE} path")
     vocab = cfg["vocab_size"]
     expected = ((1, mm_ids.shape[1] + 64), (text_ids.shape[0], text_ids.shape[1] + 64))
     for name, seq, shape in zip(("multimodal", "text_b4"), (mm_seq, text_seq), expected):
@@ -970,6 +1123,117 @@ def main_path(cfg, inputs, records, card):
     emit({"phase": "timing", "card": card, "dtype": "bfloat16",
           "multimodal": {"tok_s": 64 / mm_s, "ttft_ms": mm_ttft * 1e3, "run_s": mm_all},
           "text_b4": {"tok_s": 4 * 64 / tx_s, "ttft_ms": tx_ttft * 1e3, "run_s": tx_all}})
+
+
+# ------------------------------------------------------------ ViT encode path
+
+
+VIT_ENCODES = 4  # encodes in one timed run
+
+
+def vit_cfg(n_layers, dtype):
+    """bench.py:304's ViT-B/224: ``VIT_BASE_CONFIG`` without dropout (224 px,
+    patch 16, emb 768, 12 heads of 64: s 197)."""
+    from llm_quest_tpu_torch.config import VIT_BASE_CONFIG
+
+    return dict(VIT_BASE_CONFIG, n_layers=n_layers, drop_rate=0.0, dtype=dtype)
+
+
+def vit_mode_cfgs(cfg, scales):
+    """The encode through K7, and through K8 (dynamic, then calibrated static
+    scales) and K9 (the static scales, quantized inside the kernel)."""
+    int8 = dict(cfg, int8_scores=True)
+    return {"bf16": cfg, "int8_dynamic": int8, "int8_static": dict(int8, int8_qk_scales=scales),
+            "int8_inkernel": dict(int8, int8_qk_scales=scales, int8_scores_mode="inkernel")}
+
+
+def images(b, dtype):
+    import torch
+
+    return randn(torch.Generator(device=DEVICE).manual_seed(SEED + 1), b, 3, 224, 224, dtype=dtype)
+
+
+def vit_fp32():
+    """ViT-B's widths cut to 2 layers, b 8, fp32: the logits through each
+    packed kernel against the plain versions, within LOGIT_TOL."""
+    import torch
+
+    from llm_quest_tpu_torch.models import vit
+
+    cfg = vit_cfg(2, torch.float32)
+    model = init_model(vit, cfg)
+    x = images(8, torch.float32)
+    scales = vit.calibrate_int8_scales(model, cfg, x)
+    errs = {}
+    with torch.inference_mode():
+        for name, mode_cfg in vit_mode_cfgs(cfg, scales).items():
+            got, ref = vit.apply(model, mode_cfg, x), vit.apply(model, dict(mode_cfg, use_kernels=False), x)
+            errs[name] = float((got - ref).abs().max())
+    if not all(e <= LOGIT_TOL for e in errs.values()):
+        raise AssertionError(f"vit fp32 logits, kernels vs plain: {errs} > {LOGIT_TOL}")
+    emit({"phase": "vit_fp32", "layers": 2, "b": 8, "logit_max_abs_err": errs, "logit_tol": LOGIT_TOL,
+          "int8_qk_scales": scales})
+    del model
+    torch.cuda.empty_cache()
+
+
+def vit_encode(records, card, b=128):
+    """The ViT-B/224 encode at full width and depth, b 128, bf16, under
+    ``torch.inference_mode``: once in each mode with the launch counts reset
+    first (K7, K8 dynamic, K8 static, K9: 12 launches each), then img/s
+    (median of 3 timed runs of VIT_ENCODES encodes), MFU, peak memory and,
+    for the int8 modes, the logits' distance from the bf16 encode's."""
+    import torch
+
+    from llm_quest_tpu_torch.models import vit
+    from llm_quest_tpu_torch.training import flops as F
+
+    cfg = vit_cfg(12, torch.bfloat16)
+    model = init_model(vit, cfg)
+    x = images(b, torch.bfloat16)
+    scales = vit.calibrate_int8_scales(model, cfg, x)  # before the reset: it runs K7
+    cfgs = vit_mode_cfgs(cfg, scales)
+    reset_launches()
+    with torch.inference_mode():
+        logits = {name: vit.apply(model, mode_cfg, x) for name, mode_cfg in cfgs.items()}
+    torch.cuda.synchronize()
+    launches = read_launches(VIT, records)
+    per_encode = {name: launches[name] for name, *_, paths in KERNELS if VIT in paths}
+    if any(n != cfg["n_layers"] for n in per_encode.values()):
+        raise AssertionError(f"vit_encode launches {per_encode}, expected {cfg['n_layers']} each")
+    for name, out in logits.items():
+        if tuple(out.shape) != (b, cfg["num_classes"]) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"vit_encode {name}: bad logits {tuple(out.shape)}")
+    ref = logits["bf16"].float()
+    flops = F.vit_flops_per_image(cfg)
+    modes = {}
+    for name, mode_cfg in cfgs.items():
+        torch.cuda.reset_peak_memory_stats()
+
+        def encodes(mode_cfg=mode_cfg):
+            with torch.inference_mode():
+                for _ in range(VIT_ENCODES):
+                    vit.apply(model, mode_cfg, x)
+
+        encodes()  # warm
+        run_s, runs = timed(encodes, 3)
+        img_s = b * VIT_ENCODES / run_s
+        modes[name] = {"img_s": img_s, "mfu": F.mfu(img_s, flops), "encode_ms": 1e3 * run_s / VIT_ENCODES,
+                       "run_s": runs, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if name != "bf16":
+            out = logits[name].float()
+            modes[name]["max_abs_dlogits_vs_bf16"] = float((out - ref).abs().max())
+            modes[name]["argmax_agreement"] = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+    emit({"phase": "vit_encode", "card": card, "dtype": "bfloat16", "layers": cfg["n_layers"], "b": b,
+          "launches_per_encode": per_encode, "flops_per_image": flops, "encodes_per_run": VIT_ENCODES,
+          "max_abs_logit_bf16": float(ref.abs().max()), "modes": modes})
+    del model, logits
+    torch.cuda.empty_cache()
+
+
+def vit_paths(records, card):
+    vit_fp32()
+    vit_encode(records, card)
 
 
 # ------------------------------------------------------------ train paths
@@ -1357,35 +1621,28 @@ def serving_paths(records, card):
                ids_on_card(4, 300), records, card, {})
 
 
-PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names
+PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names (K7 runs K4's forward kernel)
     "flash_fwd": "attention_fwd_kernel", "flash_bwd_dq": "attention_bwd_dq_kernel",
     "flash_bwd_dkv": "attention_bwd_dkv_kernel", "gdn_fwd": "gdn_prefill_kernel",
     "gdn_bwd": "gdn_prefill_bwd_kernel", "gdn_bwd_reduce": "gdn_bwd_reduce_kernel",
+    "packed_mha_int8": "packed_mha_int8_kernel", "quantize_int8": "quantize_int8_kernel",
 }
 
 
-def profile_step(phase, model_mod, cfg, card, steps=2, fused=True):
-    """``torch.profiler`` breakdown of a bf16 train step (b = 4, s = 2048):
-    device busy share of the profiled wall, and device time by kernel group
-    (the hand-written kernels, cuBLAS GEMMs, everything else). One JSON line."""
+def profile_window(phase, card, run, steps=2):
+    """``torch.profiler`` breakdown of ``steps`` calls of ``run`` (already
+    warm): device busy share of the profiled wall, and device time by kernel
+    group (the hand-written kernels, cuBLAS GEMMs, everything else). One
+    JSON line."""
     import torch
     from torch.autograd import DeviceType
 
-    from llm_quest_tpu_torch.training import engine
-
-    model = init_model(model_mod, cfg)
-    optimizer = engine.make_optimizer(3e-4)
-    opt_state = optimizer.init(model)
-    step = engine.make_train_step(model_mod, cfg, optimizer, fused_head_ce=fused)
-    batch = train_batch(4, 2048)
-    for _ in range(2):  # warm-up: kernels built, allocator filled
-        model, opt_state, _ = step(model, opt_state, batch)
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            model, opt_state, _ = step(model, opt_state, batch)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1415,7 +1672,49 @@ def profile_step(phase, model_mod, cfg, card, steps=2, fused=True):
           "group_ms_per_step": {g: ms / steps for g, ms in by_group.items()},
           "group_share": {g: ms / total_ms for g, ms in by_group.items()},
           "top_ms_per_step": [[name[:90], ms / steps] for name, ms in top]})
-    del model, opt_state
+
+
+def profile_step(phase, model_mod, cfg, card, fused=True):
+    """The breakdown of a bf16 train step (b = 4, s = 2048) after 2 warm-up steps."""
+    import torch
+
+    from llm_quest_tpu_torch.training import engine
+
+    model = init_model(model_mod, cfg)
+    optimizer = engine.make_optimizer(3e-4)
+    state = {"model": model, "opt": optimizer.init(model)}
+    step = engine.make_train_step(model_mod, cfg, optimizer, fused_head_ce=fused)
+    batch = train_batch(4, 2048)
+
+    def run():
+        state["model"], state["opt"], _ = step(state["model"], state["opt"], batch)
+
+    for _ in range(2):  # warm-up: kernels built, allocator filled
+        run()
+    profile_window(phase, card, run)
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def profile_vit(card, b=128):
+    """The breakdown of the bf16 ViT-B/224 encode at b 128, through K7 and
+    through K8 with calibrated static scales, after a warm-up encode each."""
+    import torch
+
+    from llm_quest_tpu_torch.models import vit
+
+    cfg = vit_cfg(12, torch.bfloat16)
+    model = init_model(vit, cfg)
+    x = images(b, torch.bfloat16)
+    cfgs = vit_mode_cfgs(cfg, vit.calibrate_int8_scales(model, cfg, x))
+    for name in ("bf16", "int8_static"):
+        def run(mode_cfg=cfgs[name]):
+            with torch.inference_mode():
+                vit.apply(model, mode_cfg, x)
+
+        run()
+        profile_window(f"profile_vit_encode_{name}", card, run)
+    del model
     torch.cuda.empty_cache()
 
 
@@ -1427,6 +1726,7 @@ def profile_paths(card):
     profile_step("profile_train", qwen3, train_cfg(16, torch.bfloat16), card)
     profile_step("profile_hybrid_train", qwen3_next, hybrid_cfg(8, torch.bfloat16), card)
     profile_step("profile_gemma_train", gemma3, gemma_cfg(18, torch.bfloat16), card, fused=False)
+    profile_vit(card)
 
 
 def main(argv):
@@ -1436,8 +1736,8 @@ def main(argv):
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="only profile the bf16 dense, hybrid and Gemma-3 train steps (torch.profiler) "
-                             "and print the breakdowns")
+                        help="only profile the bf16 dense, hybrid and Gemma-3 train steps and the ViT-B "
+                             "encode (torch.profiler) and print the breakdowns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -1466,6 +1766,7 @@ def main(argv):
 
     records = kernel_phase()
     k4_window_ratio(records)
+    vit_paths(records, smi)
     cfg = dict(QWEN3_5_08B_CONFIG)
     inputs = make_inputs(cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
     check_fp32(cfg, inputs)

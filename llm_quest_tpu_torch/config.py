@@ -2,8 +2,9 @@
 
 Plain dicts with the reference's keys; dtypes are torch dtypes. Only the
 configurations of the ported slices are here: Qwen3.5-0.8B, the dense Qwen3
-entries, Qwen3-Next-small and Gemma-3-small (the Qwen3 MoE entries wait for
-the Qwen3 MoE model).
+entries, Qwen3-Next-small, Gemma-3-small and the two ViTs (the Qwen3 MoE
+entries wait for the Qwen3 MoE model). A config without a "dtype" key (the
+ViTs, as in the JAX package) runs in torch.float32 (``model_dtype``).
 """
 
 import torch
@@ -114,6 +115,34 @@ QWEN3_5_08B_CONFIG = {
     "video_token_id": 248057,
     "image_mean": [0.5, 0.5, 0.5],
     "image_std": [0.5, 0.5, 0.5],
+}
+
+
+# ViT-B/16 at 224 px and the CIFAR-sized TinyViT (same keys and values as the JAX package's)
+VIT_BASE_CONFIG = {
+    "img_width": 224,
+    "img_height": 224,
+    "patch_size": 16,
+    "num_channels": 3,
+    "emb_dim": 768,
+    "n_layers": 12,
+    "n_heads": 12,
+    "drop_rate": 0.1,
+    "qkv_bias": True,
+    "num_classes": 100,
+}
+
+TINY_VIT_CONFIG = {
+    "img_width": 32,
+    "img_height": 32,
+    "patch_size": 4,
+    "num_channels": 3,
+    "emb_dim": 256,
+    "n_layers": 12,
+    "n_heads": 8,
+    "drop_rate": 0.3,
+    "qkv_bias": True,
+    "num_classes": 10,
 }
 
 

@@ -15,7 +15,8 @@
 //     d 256, window 512.
 //   llm_quest_tpu/kernels/fused_mha.py::packed_mha (_packed_mha_kernel):
 //     bidirectional maskless attention read straight from the packed
-//     (b, s, h*d) projection outputs. Qwen3.5 vision: 12 heads x 64, s 576.
+//     (b, s, h*d) projection outputs, head dims 32, 64 and 128. ViT-B/224:
+//     12 heads x 64, s 197.
 // Both are one kernel: every operand is addressed by (batch, head, seq)
 // strides with a contiguous last dim, so the packed layout needs no
 // transposes and the GQA head map is a division.
@@ -505,6 +506,7 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o, float*
                           k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal,     \
                           q_start, scale, window, softcap, sink, stream);
   switch (D) {
+    LLMQ_ATTN_CASE(32)  // the packed path only (K7); K4's wrapper takes 64, 128, 256
     LLMQ_ATTN_CASE(64)
     LLMQ_ATTN_CASE(128)
     LLMQ_ATTN_CASE(256)

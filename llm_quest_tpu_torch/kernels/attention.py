@@ -18,9 +18,14 @@
   (the cotangent of the logsumexp). Plain version: autograd through the plain
   forward.
 - ``packed_mha``: K7, bidirectional maskless MHA on packed (b, s, h·d)
-  projections; replaces ``llm_quest_tpu/kernels/fused_mha.py::packed_mha``.
-  Plain version: split heads, ``sdpa``, merge heads. Its backward is not
-  ported: on the CUDA path it raises when a gradient would be needed.
+  projections (h·d % 128 == 0, d ∈ {32, 64, 128}), the flash forward kernel
+  read by packed strides; replaces
+  ``llm_quest_tpu/kernels/fused_mha.py::packed_mha``. Plain version: split
+  heads, ``sdpa``, merge heads. Differentiable: on a CUDA tensor that needs a
+  gradient it is a ``torch.autograd.Function`` whose backward is autograd
+  through the plain version, as JAX's ``_packed_bwd`` is an XLA recompute
+  (``packed_mha_bwd_plain``, shared with the int8 kernels' straight-through
+  backward).
 
 Mask polarity: ``attn_mask`` here is (b, sk) with True = REAL key, as in the
 JAX flash kernel; the dense masks of ``ops/masks.py`` are True = MASKED.
@@ -39,7 +44,8 @@ from llm_quest_tpu_torch.kernels import build
 from llm_quest_tpu_torch.ops.attention import merge_heads, sdpa, split_heads
 from llm_quest_tpu_torch.ops.masks import causal_mask, mask_value
 
-HEAD_DIMS = (64, 128, 256)  # the head dims csrc/attention.cu is instantiated for
+HEAD_DIMS = (64, 128, 256)  # the head dims of K4 (flash_attention)
+PACKED_HEAD_DIMS = (32, 64, 128)  # the head dims of the packed kernels (K7, K8, K9)
 
 
 def _check(q, k, v, key_mask, causal, q_start, window_size=None, softcap=None, sink=None):
@@ -278,23 +284,34 @@ def packed_mha_plain(q, k, v, n_heads, scale=None):
     return merge_heads(out)
 
 
-def packed_mha(q, k, v, n_heads, scale=None, *, plain=False):
-    """Bidirectional maskless MHA on packed (b, s, h·d) tensors, read and
-    written by stride (no head transposes). Returns (b, s, h·d). Forward
-    only on the card: raises ``NotImplementedError`` there when an input
-    requires grad."""
+def packed_mha_bwd_plain(q, k, v, do, n_heads, scale=None):
+    """(dq, dk, dv) of ``packed_mha_plain`` for the output cotangent ``do``,
+    by autograd: JAX's recompute backward of the packed kernels."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(packed_mha_plain(*leaves, n_heads, scale), leaves, do)
+
+
+def check_packed(q, k, v, n_heads):
+    """JAX's assertion of the packed kernels (128 % d == 0, h·d % 128 == 0),
+    made on every device; raises ValueError."""
+    b, s, hd = q.shape
+    build.require(k.shape == q.shape and v.shape == q.shape and hd % n_heads == 0, "q/k/v must be (b, s, h·d)")
+    d = hd // n_heads
+    build.require(128 % d == 0 and hd % 128 == 0, f"packed kernels need 128 % d == 0 and h·d % 128 == 0, got d {d}")
+
+
+def check_packed_cuda(q, k, v, n_heads):
+    """What the CUDA packed kernels take besides ``check_packed``."""
+    d = q.shape[2] // n_heads
+    build.require(d in PACKED_HEAD_DIMS, f"packed kernel head dims are {PACKED_HEAD_DIMS}, got {d}")
+    build.require(k.dtype == q.dtype and v.dtype == q.dtype, "q, k and v must share one dtype")
+    build.require_cuda(q, k, v)
+
+
+def _packed_fwd(q, k, v, n_heads, scale):
     b, s, hd = q.shape
     d = hd // n_heads
-    if scale is None:
-        scale = d**-0.5
-    if plain or not q.is_cuda:
-        return packed_mha_plain(q, k, v, n_heads, scale)
-    build.require_no_grad("packed_mha", q, k, v)
-    build.require_cuda(q, k, v)
-    build.require(k.shape == q.shape and v.shape == q.shape and hd % n_heads == 0, "q/k/v must be (b, s, h·d)")
-    build.require(d in HEAD_DIMS, f"kernel head dims are {HEAD_DIMS}, got {d}")
-    build.require(k.dtype == q.dtype and v.dtype == q.dtype, "q, k and v must share one dtype")
-    build.require(all(t.stride(-1) == 1 for t in (q, k, v)), "q/k/v need a contiguous last dim")
     o = torch.empty(b, s, hd, dtype=q.dtype, device=q.device)
     # (batch, head, seq) strides of the packed layout
     packed = lambda t: (t.stride(0), d, t.stride(1))  # noqa: E731
@@ -304,6 +321,36 @@ def packed_mha(q, k, v, n_heads, scale=None, *, plain=False):
     )
     packed_mha.launches += 1
     return o
+
+
+class _PackedMHA(torch.autograd.Function):
+    """K7 forward, recompute backward through the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_heads, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.n_heads, ctx.scale = n_heads, scale
+        return _packed_fwd(q, k, v, n_heads, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        return *packed_mha_bwd_plain(*ctx.saved_tensors, do, ctx.n_heads, ctx.scale), None, None
+
+
+def packed_mha(q, k, v, n_heads, scale=None, *, plain=False):
+    """Bidirectional maskless MHA on packed (b, s, h·d) tensors, read and
+    written by stride (no head transposes). Returns (b, s, h·d);
+    differentiable in q, k and v."""
+    check_packed(q, k, v, n_heads)
+    if scale is None:
+        scale = (q.shape[2] // n_heads) ** -0.5
+    if plain or not q.is_cuda:
+        return packed_mha_plain(q, k, v, n_heads, scale)
+    check_packed_cuda(q, k, v, n_heads)
+    build.require(all(t.stride(-1) == 1 for t in (q, k, v)), "q/k/v need a contiguous last dim")
+    if build.needs_grad(q, k, v):
+        return _PackedMHA.apply(q, k, v, n_heads, float(scale))
+    return _packed_fwd(q, k, v, n_heads, float(scale))
 
 
 packed_mha.launches = 0

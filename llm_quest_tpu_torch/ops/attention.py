@@ -16,16 +16,27 @@
   other call dequantizes them once and routes on. Long causal or windowed
   calls (training forwards and cached prefills) go to the flash kernel
   (kernels/attention.py, K4), which is differentiable and takes the sliding
-  window, softcap and sinks; everything else, the bf16-cache decode step
-  included, to ``sdpa``. The head-shard and context-parallel branches of the JAX router
-  are not ported, and neither is its short-sequence fused-MHA kernel (K6):
-  the JAX router sends that kernel only maskless calls, which the text
-  attention of Qwen3.5 and Qwen3 never makes (it passes its causal mask).
+  window, softcap and sinks, unless ``cfg["use_flash"]`` is False;
+  everything else, the bf16-cache decode step included, to ``sdpa``. The
+  head-shard and context-parallel branches of the JAX router are not
+  ported, and neither is its short-sequence fused-MHA kernel (K6): the JAX
+  router sends that kernel only maskless calls, which the text attention of
+  Qwen3.5 and Qwen3 never makes (it passes its causal mask).
 - ``mha_packed``: bidirectional maskless MHA on packed (b, s, h·d)
-  projections, the vision-tower path (K7).
+  projections, the vision-tower path, routed by JAX's conditions: the packed
+  kernel (K7) when ``cfg["use_fused_mha"]`` is not False, h·d % 128 == 0,
+  d ∈ {32, 64, 128} and 2 ≤ s ≤ ``cfg["fused_mha_max_seq"]`` (512); with
+  ``cfg["int8_scores"]`` the int8-score kernels instead (K8, or K9 with
+  ``int8_scores_mode="inkernel"`` and calibrated scales); split-heads
+  ``sdpa`` otherwise.
 
-``cfg["use_kernels"] = False`` runs the kernels' plain versions on any device
-(kernel-vs-plain comparisons only).
+The per-kernel switches are JAX's keys: ``use_flash``, ``use_fused_mha`` and
+(ops/gdn.py) ``use_gdn_kernel``, each defaulting to True. Divergence by
+design: JAX also asks ``jax.default_backend() == "tpu"`` before a kernel; the
+port routes the same way on every device, and a kernel wrapper launches its
+CUDA kernel for a tensor on the card and runs its plain PyTorch version for
+a tensor on the CPU. ``cfg["use_kernels"] = False`` runs the kernels' plain
+versions on any device (kernel-vs-plain comparisons only).
 """
 
 import torch
@@ -91,6 +102,7 @@ def attention(
     use_flash = (
         flash_ok
         and cfg is not None
+        and cfg.get("use_flash", True)
         and shape_ok
         and q.shape[2] >= cfg.get("flash_min_seq", 256)
         and (mask is None or causal or window_size is not None)
@@ -109,12 +121,38 @@ def attention(
     return sdpa(q, k, v, mask=mask, scale=scale, sink=sink, softcap=softcap)
 
 
-def mha_packed(q, k, v, n_heads, *, cfg=None, scale=None):
-    """Bidirectional maskless MHA on packed (b, s, h·d) projection outputs,
-    through the transpose-free packed kernel (kernels/attention.py, K7)."""
+def mha_packed(q, k, v, n_heads, *, cfg=None, scale=None, layer_idx=None):
+    """Bidirectional maskless MHA on packed (b, s, h·d) projection outputs:
+    the packed kernels where JAX's conditions hold (module docstring),
+    split heads + ``sdpa`` + merge heads otherwise. ``layer_idx`` picks the
+    layer's pair from per-layer ``cfg["int8_qk_scales"]``."""
+    b, s, hd = q.shape
+    d = hd // n_heads
+    use_kernel = (
+        (cfg is None or cfg.get("use_fused_mha", True))
+        and hd % 128 == 0
+        and d in (32, 64, 128)
+        and 2 <= s <= (cfg.get("fused_mha_max_seq", 512) if cfg else 512)
+    )
+    if not use_kernel:
+        heads = (split_heads(t, n_heads) for t in (q, k, v))
+        return merge_heads(sdpa(*heads, scale=scale))
+    plain = cfg is not None and not cfg.get("use_kernels", True)
+    if cfg is not None and cfg.get("int8_scores", False):
+        from llm_quest_tpu_torch.kernels.fused_mha import packed_mha_int8, packed_mha_int8_inkernel
+
+        scales = cfg.get("int8_qk_scales")
+        if scales is not None:
+            if isinstance(scales[0], (tuple, list)):
+                scales = tuple(scales[layer_idx if layer_idx is not None else 0])
+            else:
+                scales = tuple(scales)
+        if cfg.get("int8_scores_mode") == "inkernel" and scales is not None:
+            return packed_mha_int8_inkernel(q, k, v, n_heads, scales, scale=scale, plain=plain)
+        return packed_mha_int8(q, k, v, n_heads, scale=scale, static_scales=scales, plain=plain)
     from llm_quest_tpu_torch.kernels.attention import packed_mha
 
-    return packed_mha(q, k, v, n_heads, scale, plain=cfg is not None and not cfg.get("use_kernels", True))
+    return packed_mha(q, k, v, n_heads, scale, plain=plain)
 
 
 def merge_heads(x):

@@ -13,6 +13,8 @@
 
 The chunked form and the step are the plain versions of the CUDA kernels
 (kernels/gdn.py); the ``*_auto`` / ``*_dispatch`` functions route to them.
+``cfg["use_gdn_kernel"] = False`` (JAX's switch) takes those plain versions,
+the counterparts of JAX's XLA forms, as ``cfg["use_kernels"] = False`` does.
 """
 
 import torch
@@ -69,7 +71,7 @@ def gated_delta_rule_step_stacked_auto(cfg, q_t, k_t, v_t, beta_t, alpha_t, stac
     from llm_quest_tpu_torch.kernels.gdn import gated_delta_rule_step_stacked
 
     return gated_delta_rule_step_stacked(
-        q_t, k_t, v_t, beta_t, alpha_t, stacked, layer, plain=not cfg.get("use_kernels", True)
+        q_t, k_t, v_t, beta_t, alpha_t, stacked, layer, plain=not _use_gdn_kernel(cfg)
     )
 
 
@@ -89,8 +91,12 @@ def gated_delta_rule_dispatch(cfg, q, k, v, beta, alpha, prev_state=None):
     """Model-level dispatch (the JAX context-parallel branch is not ported)."""
     return gated_delta_rule_auto(
         q, k, v, beta, alpha, prev_state,
-        chunk_size=cfg.get("gdn_chunk_size", 64), use_kernel=cfg.get("use_kernels", True),
+        chunk_size=cfg.get("gdn_chunk_size", 64), use_kernel=_use_gdn_kernel(cfg),
     )
+
+
+def _use_gdn_kernel(cfg):
+    return cfg.get("use_kernels", True) and cfg.get("use_gdn_kernel", True)
 
 
 def causal_conv1d(w, x):

@@ -10,8 +10,8 @@ FLOP counts are analytic from the model config (matmul FLOPs only: norms,
 softmax, activations and RoPE are small next to the matmuls), 2·m·n·k per
 matmul and 3× forward for a train step (backward ≈ 2× forward); the same
 formulas as the JAX package for GQA attention (gated in the hybrids), SwiGLU,
-GeGLU or Qwen3-MoE FFNs and GatedDeltaNet layers. The GPT-2 MLP and ViT
-counts come with the first ported path that reads them.
+GeGLU or Qwen3-MoE FFNs and GatedDeltaNet layers, and for the ViT (per
+image). The GPT-2 MLP count comes with the first ported path that reads it.
 
 Divergence by design: the train count takes a sliding-window layer (Gemma-3's
 ``is_swa_layer``) at its mean visible context, the mean over positions of
@@ -165,3 +165,23 @@ def decode_bytes_per_token(params, cfg, *, kv_len, batch=1):
         nv, dk, dv = cfg["linear_num_value_heads"], cfg["linear_qk_head_dim"], cfg["linear_value_head_dim"]
         state = (layers - n_attn) * nv * dk * dv * 4  # the fp32 recurrent state
     return weights // batch + kv + state
+
+
+# ----------------------------------------------------------------- vision
+
+
+def vit_flops_per_image(cfg):
+    """Forward matmul FLOPs per image for the scratch ViT (CLS + patches,
+    bidirectional attention, GELU MLP at 4·d)."""
+    p = cfg["patch_size"]
+    n_patches = (cfg["img_height"] // p) * (cfg["img_width"] // p)
+    n = n_patches + 1  # CLS
+    d = cfg["emb_dim"]
+    patchify = 2 * n_patches * cfg["num_channels"] * p * p * d
+    per_layer = n * (8 * d * d + 16 * d * d) + 4 * n * n * d  # QKVO+MLP / scores
+    head = 2 * d * cfg["num_classes"]
+    return patchify + cfg["n_layers"] * per_layer + head
+
+
+def vit_train_flops_per_image(cfg):
+    return 3 * vit_flops_per_image(cfg)

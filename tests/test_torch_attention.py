@@ -320,3 +320,77 @@ def test_router_window_softcap_sink_take_flash_and_carry_gradients():
     assert kattn.flash_attention.launches == before  # the CPU runs the plain version
     for got, ref in zip(torch.autograd.grad(out, leaves, T(do)), refs):
         assert_close(got, ref, GRAD_TOL)
+
+
+# ------------------------------------------- routing: JAX's switches and conditions
+
+
+def _spy(monkeypatch, module, name, calls):
+    """Replace ``module.name`` by a wrapper that records (name, kwargs) and calls it."""
+    original = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append((name, kwargs))
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, spy)
+
+
+# (heads, d, s, cfg, layer_idx, expected route); the kernel takes h·d % 128 == 0,
+# d ∈ {32, 64, 128} and 2 ≤ s ≤ fused_mha_max_seq, as JAX's mha_packed
+PACKED_ROUTES = {
+    "k7_d64": (2, 64, 20, {}, None, "packed_mha"),
+    "k7_d32": (4, 32, 20, {}, None, "packed_mha"),
+    "k7_d128_no_cfg": (1, 128, 20, None, None, "packed_mha"),
+    "k7_s512": (2, 64, 512, {}, None, "packed_mha"),
+    "s576": (2, 64, 576, {}, None, "sdpa"),
+    "s1": (2, 64, 1, {}, None, "sdpa"),
+    "hd96": (3, 32, 20, {}, None, "sdpa"),
+    "d16": (8, 16, 20, {}, None, "sdpa"),
+    "fused_off": (2, 64, 20, {"use_fused_mha": False}, None, "sdpa"),
+    "max_seq": (2, 64, 20, {"fused_mha_max_seq": 16}, None, "sdpa"),
+    "int8_dynamic": (2, 64, 20, {"int8_scores": True}, 1, "packed_mha_int8"),
+    "int8_shared_pair": (2, 64, 20, {"int8_scores": True, "int8_qk_scales": (0.02, 0.03)}, 1, "packed_mha_int8"),
+    "int8_per_layer": (2, 64, 20, {"int8_scores": True, "int8_qk_scales": [(0.01, 0.02), (0.03, 0.04)]}, 1,
+                       "packed_mha_int8"),
+    "inkernel": (2, 64, 20, {"int8_scores": True, "int8_scores_mode": "inkernel",
+                             "int8_qk_scales": [(0.01, 0.02), (0.03, 0.04)]}, 1, "packed_mha_int8_inkernel"),
+    "inkernel_no_scales": (2, 64, 20, {"int8_scores": True, "int8_scores_mode": "inkernel"}, None,
+                           "packed_mha_int8"),
+    "int8_fused_off": (2, 64, 20, {"int8_scores": True, "use_fused_mha": False}, None, "sdpa"),
+}
+
+
+@pytest.mark.parametrize("name", list(PACKED_ROUTES))
+def test_mha_packed_routes_by_jax_conditions(monkeypatch, name):
+    from llm_quest_tpu_torch.kernels import fused_mha as kfused
+
+    heads, d, s, cfg, layer_idx, route = PACKED_ROUTES[name]
+    calls = []
+    _spy(monkeypatch, kattn, "packed_mha", calls)
+    _spy(monkeypatch, kfused, "packed_mha_int8", calls)
+    _spy(monkeypatch, kfused, "packed_mha_int8_inkernel", calls)
+    q, k, v = (rand(2, s, heads * d, seed=i) for i in range(3))
+    got = tattn.mha_packed(T(q), T(k), T(v), heads, cfg=cfg, layer_idx=layer_idx)
+    assert [c[0] for c in calls] == ([] if route == "sdpa" else [route])
+    if route == "sdpa":  # JAX's CPU route is the same split-heads sdpa
+        assert_close(got, jattn.mha_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads, cfg=cfg), 1e-5)
+    scales = (cfg or {}).get("int8_qk_scales")
+    if route == "packed_mha_int8":
+        picked = None if scales is None else tuple(scales[layer_idx] if isinstance(scales, list) else scales)
+        assert calls[0][1]["static_scales"] == picked
+
+
+def test_router_honours_use_flash(monkeypatch):
+    """use_flash=False sends a 300-token causal call to sdpa on the dense
+    mask, as JAX's router; the default takes the flash wrapper."""
+    b, hq, hkv, s, d = 1, 4, 2, 300, 64
+    q, k, v = rand(b, hq, s, d), rand(b, hkv, s, d, seed=1), rand(b, hkv, s, d, seed=2)
+    calls = []
+    _spy(monkeypatch, kattn, "flash_attention", calls)
+    got = tattn.attention(T(q), T(k), T(v), cfg={"use_flash": False}, causal=True)
+    assert calls == []
+    ref = jattn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), cfg={"use_flash": False}, causal=True)
+    assert_close(got, ref, 1e-5)
+    tattn.attention(T(q), T(k), T(v), cfg={}, causal=True)
+    assert len(calls) == 1

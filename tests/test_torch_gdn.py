@@ -177,3 +177,25 @@ def test_cpu_tensors_take_the_plain_version():
     step = (x[:, :, 0] for x in (q, k, v, beta, alpha))
     kgdn.gated_delta_rule_step_stacked(*step, s0[None].clone(), 0)
     assert (kgdn.gated_delta_rule_fwd.launches, kgdn.gated_delta_rule_step_stacked.launches) == before
+
+
+def test_dispatch_honours_use_gdn_kernel(monkeypatch):
+    """cfg["use_gdn_kernel"] = False (JAX's switch) reaches the plain GDN
+    versions, the prefill's chunked form and the plain step, as
+    ``use_kernels=False`` does; the default asks for the kernels."""
+    calls = []
+    for name in ("gated_delta_rule_fwd", "gated_delta_rule_step_stacked"):
+        original = getattr(kgdn, name)
+
+        def spy(*args, _original=original, _name=name, **kwargs):
+            calls.append((_name, kwargs.get("plain", False)))
+            return _original(*args, **kwargs)
+
+        monkeypatch.setattr(kgdn, name, spy)
+    q, k, v, beta, alpha, s0 = (T(x) for x in inputs(1, 2, 9, 16, 8))
+    step = [x[:, :, 0] for x in (q, k, v, beta, alpha)]
+    for cfg, plain in (({}, False), ({"use_gdn_kernel": False}, True), ({"use_kernels": False}, True)):
+        calls.clear()
+        tgdn.gated_delta_rule_dispatch(cfg, q, k, v, beta, alpha, s0)
+        tgdn.gated_delta_rule_step_stacked_auto(cfg, *step, s0[None].clone(), 0)
+        assert calls == [("gated_delta_rule_fwd", plain), ("gated_delta_rule_step_stacked", plain)], cfg

@@ -237,9 +237,9 @@ def test_flash_attention_window_at_least_s_is_causal_on_the_card(gen, dtype):
 
 
 def test_forward_only_kernels_raise_under_grad(gen):
-    """K2 and K7 have no backward: on the card they refuse to run when a
+    """K2 and K9 have no backward: on the card they refuse to run when a
     gradient would be needed, and run under no_grad."""
-    from llm_quest_tpu_torch.kernels import attention, gdn
+    from llm_quest_tpu_torch.kernels import fused_mha, gdn
 
     q, k, v, beta, alpha, s0 = gdn_inputs(gen, 1, 2, 8, torch.float32)
     x = randn(gen, 1, 8, 2 * 64)
@@ -248,7 +248,7 @@ def test_forward_only_kernels_raise_under_grad(gen):
         "K2": lambda g: gdn.gated_delta_rule_step_stacked(
             q[:, :, 0].clone().requires_grad_(g), k[:, :, 0], v[:, :, 0], beta[..., 0], alpha[..., 0], stacked, 0
         ),
-        "K7": lambda g: attention.packed_mha(x.clone().requires_grad_(g), x, x, 2),
+        "K9": lambda g: fused_mha.packed_mha_int8_inkernel(x.clone().requires_grad_(g), x, x, 2, (0.02, 0.02)),
     }
     for name, call in calls.items():
         with pytest.raises(NotImplementedError):
@@ -256,6 +256,118 @@ def test_forward_only_kernels_raise_under_grad(gen):
         with torch.no_grad():
             call(True)
         call(False)
+
+
+# (heads, d) of the packed kernels: ViT-B's 12 x 64, TinyViT's 8 x 32, 2 x 128
+PACKED_HEADS = [(12, 64), (8, 32), (2, 128)]
+
+
+def int8_scales(q, k):
+    return float(q.float().abs().max()) / 127.0, float(k.float().abs().max()) / 127.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [20, 197, 512])
+@pytest.mark.parametrize("heads, d", PACKED_HEADS)
+@pytest.mark.parametrize("mode", ["dynamic", "static", "inkernel"])
+def test_packed_mha_int8_kernels(gen, dtype, s, heads, d, mode):
+    """K8 (dynamic and static scales) and K9 against their plain versions;
+    K9 equal to K8 with the same static scales, bit for bit."""
+    from llm_quest_tpu_torch.kernels import fused_mha
+
+    q, k, v = (randn(gen, 2, s, heads * d, dtype=dtype) for _ in range(3))
+    ss = None if mode == "dynamic" else int8_scales(q, k)
+    n8, n9 = fused_mha.packed_mha_int8.launches, fused_mha.packed_mha_int8_inkernel.launches
+    if mode == "inkernel":
+        got = fused_mha.packed_mha_int8_inkernel(q, k, v, heads, ss)
+        assert fused_mha.packed_mha_int8_inkernel.launches == n9 + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, fused_mha.packed_mha_int8(q, k, v, heads, static_scales=ss))
+        ref = fused_mha.packed_mha_int8_inkernel(q, k, v, heads, ss, plain=True)
+    else:
+        got = fused_mha.packed_mha_int8(q, k, v, heads, static_scales=ss)
+        assert fused_mha.packed_mha_int8.launches == n8 + 1
+        ref = fused_mha.packed_mha_int8(q, k, v, heads, static_scales=ss, plain=True)
+    assert got.dtype == dtype
+    assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_packed_mha_kernel_d32(gen, dtype):
+    from llm_quest_tpu_torch.kernels import attention
+
+    q, k, v = (randn(gen, 4, 65, 8 * 32, dtype=dtype) for _ in range(3))
+    n = attention.packed_mha.launches
+    got = attention.packed_mha(q, k, v, 8)
+    assert attention.packed_mha.launches == n + 1
+    assert_close(got, attention.packed_mha(q, k, v, 8, plain=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["k7", "k8_dynamic", "k8_static"])
+def test_packed_backward(gen, dtype, kernel):
+    """K7's recompute and K8's straight-through backward: the kernel forward,
+    and gradients against autograd through the plain packed sdpa."""
+    from llm_quest_tpu_torch.kernels import attention, fused_mha
+
+    q, k, v, do = (randn(gen, 2, 197, 12 * 64, dtype=dtype) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    if kernel == "k7":
+        counter, out = attention.packed_mha, lambda: attention.packed_mha(*leaves, 12)
+    else:
+        ss = int8_scales(q, k) if kernel == "k8_static" else None
+        counter, out = fused_mha.packed_mha_int8, lambda: fused_mha.packed_mha_int8(*leaves, 12, static_scales=ss)
+    n = counter.launches
+    grads = torch.autograd.grad(out(), leaves, do)
+    assert counter.launches == n + 1
+    for got, ref in zip(grads, attention.packed_mha_bwd_plain(q, k, v, do, 12)):
+        assert_close(got, ref, dtype)
+
+
+def test_packed_wrappers_raise_on_unsupported_shapes(gen):
+    """d 96 (128 % d != 0) and h·d % 128 != 0 are refused by K7, K8 and K9."""
+    from llm_quest_tpu_torch.kernels import attention, fused_mha
+
+    for heads, d in ((4, 96), (3, 64)):
+        x = randn(gen, 1, 8, heads * d)
+        calls = (lambda: attention.packed_mha(x, x, x, heads), lambda: fused_mha.packed_mha_int8(x, x, x, heads),
+                 lambda: fused_mha.packed_mha_int8_inkernel(x, x, x, heads, (0.02, 0.02)))
+        for call in calls:
+            with pytest.raises(ValueError):
+                call()
+
+
+@pytest.mark.parametrize("mode", ["k7", "dynamic", "static", "inkernel"])
+def test_vit_through_kernels_matches_plain(gen, mode):
+    """A 2-layer ViT at ViT-B's widths through each packed kernel against the
+    plain versions, fp32, one launch a layer: logits within 2e-4 relative
+    through K7; within 2e-3 absolute through K8/K9, since the second layer's
+    q and k differ between the runs in the last fp32 bits, which moves a few
+    of their int8 roundings by one."""
+    from llm_quest_tpu_torch.config import VIT_BASE_CONFIG
+    from llm_quest_tpu_torch.kernels import attention, fused_mha
+    from llm_quest_tpu_torch.models import vit
+
+    cfg = dict(VIT_BASE_CONFIG, n_layers=2, drop_rate=0.0, dtype=torch.float32)
+    model = vit.init(cfg, generator=gen, device="cuda")
+    x = randn(gen, 4, 3, 224, 224)
+    if mode != "k7":
+        cfg["int8_scores"] = True
+    if mode in ("static", "inkernel"):
+        cfg["int8_qk_scales"] = vit.calibrate_int8_scales(model, cfg, x)
+    if mode == "inkernel":
+        cfg["int8_scores_mode"] = "inkernel"
+    counter = {"k7": attention.packed_mha, "dynamic": fused_mha.packed_mha_int8,
+               "static": fused_mha.packed_mha_int8, "inkernel": fused_mha.packed_mha_int8_inkernel}[mode]
+    n = counter.launches
+    with torch.inference_mode():
+        got = vit.apply(model, cfg, x)
+        assert counter.launches == n + 2
+        ref = vit.apply(model, dict(cfg, use_kernels=False), x)
+    if mode == "k7":
+        assert_close(got, ref, torch.float32)
+    else:
+        assert float((got - ref).abs().max()) <= 2e-3
 
 
 TINY_QWEN3 = {

@@ -18,6 +18,7 @@ from llm_quest_tpu.ops import activations as jact
 from llm_quest_tpu.ops import attention as jattn
 from llm_quest_tpu.ops import gdn as jgdn
 from llm_quest_tpu.ops import masks as jmasks
+from llm_quest_tpu.ops import mlp as jmlp
 from llm_quest_tpu.ops import norms as jnorms
 from llm_quest_tpu.ops import rope as jrope
 from llm_quest_tpu.ops import sampling as jsamp
@@ -26,6 +27,7 @@ from llm_quest_tpu_torch.ops import activations as tact
 from llm_quest_tpu_torch.ops import attention as tattn
 from llm_quest_tpu_torch.ops import gdn as tgdn
 from llm_quest_tpu_torch.ops import masks as tmasks
+from llm_quest_tpu_torch.ops import mlp as tmlp
 from llm_quest_tpu_torch.ops import norms as tnorms
 from llm_quest_tpu_torch.ops import rope as trope
 from llm_quest_tpu_torch.ops import sampling as tsamp
@@ -218,18 +220,38 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m in ('jax', 'llm_quest_tpu') or m.startswith(('jax.', 'llm_quest_tpu.')))\n"
         "assert len(mods) >= 15, mods\n"
+        "assert {'llm_quest_tpu_torch.models.vit', 'llm_quest_tpu_torch.kernels.fused_mha'} <= set(mods), mods\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
 def test_config_matches_jax():
-    from llm_quest_tpu.config import QWEN3_5_08B_CONFIG as jax_cfg
-    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG as torch_cfg
+    from llm_quest_tpu import config as jconfig
+    from llm_quest_tpu_torch import config as tconfig
 
-    assert set(torch_cfg) == set(jax_cfg)
-    for key, value in jax_cfg.items():
-        if key == "dtype":
-            assert str(torch_cfg[key]).removeprefix("torch.") == jnp.dtype(value).name
-        else:
-            assert torch_cfg[key] == value, key
+    for name in ("QWEN3_5_08B_CONFIG", "VIT_BASE_CONFIG", "TINY_VIT_CONFIG"):
+        jax_cfg, torch_cfg = getattr(jconfig, name), getattr(tconfig, name)
+        assert set(torch_cfg) == set(jax_cfg), name
+        for key, value in jax_cfg.items():
+            if key == "dtype":
+                assert str(torch_cfg[key]).removeprefix("torch.") == jnp.dtype(value).name
+            else:
+                assert torch_cfg[key] == value, (name, key)
+    # a config without a dtype (the ViTs, as in JAX) runs in fp32
+    assert tconfig.model_dtype(tconfig.VIT_BASE_CONFIG) == torch.float32
+
+
+@pytest.mark.parametrize("tanh_approx", [False, True])
+def test_mlp_gelu_matches_jax(tanh_approx):
+    import jax
+
+    params = jmlp.init_mlp_gelu(jax.random.PRNGKey(0), 32, 64, bias=True)
+    ffn = tmlp.init_mlp_gelu(32, 64, bias=True, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        for name in ("fc", "proj"):
+            ffn[name].w.copy_(T(params[name]["w"]).T)
+            ffn[name].b.copy_(T(params[name]["b"]))
+    x = rand(3, 5, 32)
+    close(tmlp.mlp_gelu(ffn, T(x), tanh_approx=tanh_approx),
+          jmlp.mlp_gelu(params, jnp.asarray(x), tanh_approx=tanh_approx))
