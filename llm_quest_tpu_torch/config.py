@@ -2,8 +2,8 @@
 
 Plain dicts with the reference's keys; dtypes are torch dtypes. Only the
 configurations of the ported slices are here: Qwen3.5-0.8B, the dense Qwen3
-entries, Qwen3-Next-small, Gemma-3-small and the two ViTs (the Qwen3 MoE
-entries wait for the Qwen3 MoE model). A config without a "dtype" key (the
+entries, Qwen3-Next-small, Gemma-3-small, MiMo-V2-Flash small and the two
+ViTs (the Qwen3 MoE entries wait for the Qwen3 MoE model). A config without a "dtype" key (the
 ViTs, as in the JAX package) runs in torch.float32 (``model_dtype``).
 """
 
@@ -30,6 +30,35 @@ GEMMA3_SMALL_CONFIG = {
         "ctx_len": 8192,
     },
     "logits_softcap": 30.0,
+    "dtype": torch.float32,
+}
+
+# MiMo-V2-Flash small (same keys and values as the JAX package's): SWA with
+# sinks and GA layers (layer 0 and every hybrid_ratio-th), decoupled value
+# head dim, DeepSeek MoE from layer 1, shrinking-slice MTP
+MIMO_V2_SMALL_CONFIG = {
+    "vocab_size": 50304,
+    "context_length": 512,
+    "emb_dim": 768,
+    "n_layers": 12,
+    "n_heads": 12,
+    "num_swa_kv_groups": 4,
+    "num_ga_kv_groups": 2,
+    "head_dim": 64,
+    "value_head_dim": 32,
+    "hidden_dim": 4 * 768,
+    "window_size": 128,
+    "hybrid_ratio": 6,  # every 6th layer global attention; layer 0 also GA
+    "rope_base": 10_000,
+    "rope_base_ga": 640_000,
+    "partial_rope_factor": 0.33,
+    "mtp_depth": 2,
+    "mtp_loss_coeff": 0.3,
+    "num_experts": 8,
+    "top_k": 2,
+    "num_shared_experts": 0,
+    "moe_scaling_factor": 1.0,
+    "moe_bias_update_rate": 1e-3,
     "dtype": torch.float32,
 }
 

@@ -11,8 +11,11 @@
 //     score soft-capping s -> cap * tanh(s / cap) (before the mask, as in
 //     _fwd_kernel / _recompute_p) and per-head sink logits (one more term
 //     exp(sink[h] - m) in each row's normalizer, no value: _fwd_kernel's last
-//     k step). Qwen3.5 text: hq 8, hkv 2, d 256; Gemma-3-270M: hq 4, hkv 1,
-//     d 256, window 512.
+//     k step). v may have its own head dim dv (JAX takes v as (b, hkv, sk,
+//     dv), out (b, hq, sq, dv)): the q/k width D and the v/out width DV are
+//     two template widths. Qwen3.5 text: hq 8, hkv 2, d 256; Gemma-3-270M:
+//     hq 4, hkv 1, d 256, window 512; MiMo-V2-Flash small: hq 12, hkv 4 (SWA,
+//     window 128, sinks) or 2 (GA), d 64, dv 32.
 //   llm_quest_tpu/kernels/fused_mha.py::packed_mha (_packed_mha_kernel):
 //     bidirectional maskless attention read straight from the packed
 //     (b, s, h*d) projection outputs, head dims 32, 64 and 128. ViT-B/224:
@@ -24,8 +27,8 @@
 // Design: one block of 128 threads owns BQ = 16 query rows of one
 // (batch, q-head); eight threads share a row. The block walks the key blocks
 // of BK = 32 in order, stages K and V in shared memory as fp32, computes its
-// 16 x 32 score tile, and keeps the running max, sum and the (16, d) fp32
-// output accumulator (d / 8 values per thread, in registers) of the online
+// 16 x 32 score tile, and keeps the running max, sum and the (16, dv) fp32
+// output accumulator (dv / 8 values per thread, in registers) of the online
 // softmax. The flash forward also writes the row logsumexp m + log(l) (fp32)
 // for the backward; with sinks the lse includes them, so the backward's
 // p = exp(s - lse) needs no change. Causal blocks past the diagonal of the
@@ -66,13 +69,14 @@ __device__ __forceinline__ bool score_masked(int kpos, int qpos, int causal, int
   return (causal && kpos > qpos) || (window > 0 && kpos <= qpos - window) || (mb != nullptr && mb[kpos] == 0);
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kPS);
+  return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * DV + kBQ * kPS);
 }
 
-// grid (ceil(sq / kBQ), b*hq), block kThreads, dynamic smem smem_bytes<D>().
-template <typename T, int D>
+// grid (ceil(sq / kBQ), b*hq), block kThreads, dynamic smem smem_bytes<D, DV>().
+// q/k rows are D wide, v/o rows DV wide.
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ o, float* __restrict__ lse,
@@ -82,14 +86,15 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      long long v_sh, long long v_ss, long long o_sb, long long o_sh,
                      long long o_ss, long long mask_sb, int causal, int q_start, float scale,
                      int window, float softcap, const float* __restrict__ sink) {
+  static_assert(D % kTPR == 0 && DV % kTPR == 0 && DV <= D, "head dims: multiples of 8, dv <= d");
   constexpr int DP = D + 1;      // padded stride: the 8 keys a row reads hit 8 banks
-  constexpr int NC = D / kTPR;   // output columns per thread
+  constexpr int NC = DV / kTPR;  // output columns per thread
   constexpr int NS = kBK / kTPR; // scores per thread per tile
   extern __shared__ float smem[];
   float* q_s = smem;              // kBQ x DP, pre-scaled
   float* k_s = q_s + kBQ * DP;    // kBK x DP
-  float* v_s = k_s + kBK * DP;    // kBK x D
-  float* p_s = v_s + kBK * D;     // kBQ x kPS
+  float* v_s = k_s + kBK * DP;    // kBK x DV
+  float* p_s = v_s + kBK * DV;    // kBQ x kPS
 
   const int bh = blockIdx.y;
   const int bi = bh / HQ, hq = bh % HQ;
@@ -119,11 +124,18 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   for (int k0 = window_begin(q_start + q0, window); k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile is consumed (and q_s is staged)
+    // K and V in one loop at DV == D, V in a loop of its own when it is narrower
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int j = i / D, d = i % D;
       const bool ok = k0 + j < SK;
       k_s[j * DP + d] = ok ? to_f(kb[(k0 + j) * k_ss + d]) : 0.f;
-      v_s[j * D + d] = ok ? to_f(vb[(k0 + j) * v_ss + d]) : 0.f;
+      if constexpr (DV == D) v_s[j * DV + d] = ok ? to_f(vb[(k0 + j) * v_ss + d]) : 0.f;
+    }
+    if constexpr (DV < D) {
+      for (int i = tid; i < kBK * DV; i += kThreads) {
+        const int j = i / DV, d = i % DV;
+        v_s[j * DV + d] = k0 + j < SK ? to_f(vb[(k0 + j) * v_ss + d]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -169,7 +181,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int j = 0; j < kBK; ++j) {
       const float p = p_s[r * kPS + j];
 #pragma unroll
-      for (int n = 0; n < NC; ++n) acc[n] += p * v_s[j * D + c + kTPR * n];
+      for (int n = 0; n < NC; ++n) acc[n] += p * v_s[j * DV + c + kTPR * n];
     }
   }
 
@@ -210,8 +222,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 //   dkv: one block per (b*hkv, 16 keys), walking the visible query tiles of
 //        every q head of the GQA group, so dk/dv need no per-q-head buffers
 //        and no group sum afterwards.
-// Both keep their fp32 accumulators in registers (d/8 values per thread per
-// accumulator, eight threads per row) and stage the operand tiles as fp32 in
+// Both keep their fp32 accumulators in registers (d/8 or dv/8 values per
+// thread per accumulator, eight threads per row: dq and dk are D wide, dv is
+// DV wide, and dp = dO V^T runs over DV) and stage the operand tiles as fp32 in
 // shared memory with a padded row stride; at d = 256 a block stages ~100 KB,
 // so each launch raises the kernel's dynamic shared-memory limit first.
 
@@ -225,7 +238,7 @@ struct BwdArgs {
   const float* delta_shift;  // (b*hq, sq) or nullptr
   void* dq;                  // contiguous (b, hq, sq, d)
   void* dk;                  // contiguous (b, hkv, sk, d)
-  void* dv;                  // contiguous (b, hkv, sk, d)
+  void* dv;                  // contiguous (b, hkv, sk, dv)
   const uint8_t* key_mask;   // (b, sk) with row stride mask_sb, or nullptr
   int B, HQ, HKV, SQ, SK;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss, mask_sb;
@@ -253,23 +266,24 @@ __device__ __forceinline__ float row_delta(const BwdArgs& a, long long i) {
   return a.delta[i] - (a.delta_shift != nullptr ? a.delta_shift[i] : 0.f);
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (2 * kBQ * (D + 1) + 2 * kBK * (D + 1) + kBQ * kPS);
+  return sizeof(float) * ((kBQ + kBK) * (D + 1) + (kBQ + kBK) * (DV + 1) + kBQ * kPS);
 }
 
-// grid (ceil(sq / kBQ), b*hq), block kThreads, dynamic smem dq_smem_bytes<D>().
-template <typename T, int D>
+// grid (ceil(sq / kBQ), b*hq), block kThreads, dynamic smem dq_smem_bytes<D, DV>().
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArgs a) {
   constexpr int DP = D + 1;
+  constexpr int DVP = DV + 1;
   constexpr int NC = D / kTPR;
   constexpr int NS = kBK / kTPR;
   extern __shared__ float smem[];
-  float* q_s = smem;             // kBQ x DP, pre-scaled as in the forward
-  float* do_s = q_s + kBQ * DP;  // kBQ x DP
-  float* k_s = do_s + kBQ * DP;  // kBK x DP
-  float* v_s = k_s + kBK * DP;   // kBK x DP
-  float* ds_s = v_s + kBK * DP;  // kBQ x kPS
+  float* q_s = smem;              // kBQ x DP, pre-scaled as in the forward
+  float* do_s = q_s + kBQ * DP;   // kBQ x DVP
+  float* k_s = do_s + kBQ * DVP;  // kBK x DP
+  float* v_s = k_s + kBK * DP;    // kBK x DVP
+  float* ds_s = v_s + kBK * DVP;  // kBQ x kPS
 
   const int bh = blockIdx.y;
   const int bi = bh / a.HQ, hq = bh % a.HQ;
@@ -284,11 +298,18 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
   const T* vb = static_cast<const T*>(a.v) + bi * a.v_sb + hk * a.v_sh;
   const uint8_t* mb = a.key_mask != nullptr ? a.key_mask + bi * a.mask_sb : nullptr;
 
+  // the D-wide and DV-wide operands in one loop at DV == D, in two below
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int rr = i / D, d = i % D;
     const bool ok = q0 + rr < a.SQ;
     q_s[rr * DP + d] = ok ? to_f(qb[(q0 + rr) * a.q_ss + d]) * a.scale : 0.f;
-    do_s[rr * DP + d] = ok ? to_f(dob[(q0 + rr) * a.do_ss + d]) : 0.f;
+    if constexpr (DV == D) do_s[rr * DVP + d] = ok ? to_f(dob[(q0 + rr) * a.do_ss + d]) : 0.f;
+  }
+  if constexpr (DV < D) {
+    for (int i = tid; i < kBQ * DV; i += kThreads) {
+      const int rr = i / DV, d = i % DV;
+      do_s[rr * DVP + d] = q0 + rr < a.SQ ? to_f(dob[(q0 + rr) * a.do_ss + d]) : 0.f;
+    }
   }
 
   const int row = q0 + r;
@@ -310,20 +331,34 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
       const int j = i / D, d = i % D;
       const bool ok = k0 + j < a.SK;
       k_s[j * DP + d] = ok ? to_f(kb[(k0 + j) * a.k_ss + d]) : 0.f;
-      v_s[j * DP + d] = ok ? to_f(vb[(k0 + j) * a.v_ss + d]) : 0.f;
+      if constexpr (DV == D) v_s[j * DVP + d] = ok ? to_f(vb[(k0 + j) * a.v_ss + d]) : 0.f;
+    }
+    if constexpr (DV < D) {
+      for (int i = tid; i < kBK * DV; i += kThreads) {
+        const int j = i / DV, d = i % DV;
+        v_s[j * DVP + d] = k0 + j < a.SK ? to_f(vb[(k0 + j) * a.v_ss + d]) : 0.f;
+      }
     }
     __syncthreads();
 
+    // s = q K^T over D, dp = dO V^T over DV: one loop at DV == D
     float s[NS], dp[NS];
 #pragma unroll
     for (int jj = 0; jj < NS; ++jj) s[jj] = dp[jj] = 0.f;
     for (int d = 0; d < D; ++d) {
-      const float qd = q_s[r * DP + d], od = do_s[r * DP + d];
+      const float qd = q_s[r * DP + d], od = DV == D ? do_s[r * DVP + d] : 0.f;
 #pragma unroll
       for (int jj = 0; jj < NS; ++jj) {
         const int j = c + kTPR * jj;
         s[jj] += qd * k_s[j * DP + d];
-        dp[jj] += od * v_s[j * DP + d];
+        if constexpr (DV == D) dp[jj] += od * v_s[j * DVP + d];
+      }
+    }
+    if constexpr (DV < D) {
+      for (int d = 0; d < DV; ++d) {
+        const float od = do_s[r * DVP + d];
+#pragma unroll
+        for (int jj = 0; jj < NS; ++jj) dp[jj] += od * v_s[(c + kTPR * jj) * DVP + d];
       }
     }
 #pragma unroll
@@ -354,23 +389,26 @@ constexpr int kKvBK = kThreads / kTPR;  // keys per dkv block (16), eight thread
 constexpr int kKvBQ = 32;               // query rows per staged tile
 constexpr int kKvPS = kKvBQ + 1;        // padded row stride of the p / ds tiles
 
-template <int D>
+template <int D, int DV>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (2 * kKvBK * (D + 1) + 2 * kKvBQ * (D + 1) + 2 * kKvBK * kKvPS + 2 * kKvBQ);
+  return sizeof(float) *
+         ((kKvBK + kKvBQ) * (D + 1) + (kKvBK + kKvBQ) * (DV + 1) + 2 * kKvBK * kKvPS + 2 * kKvBQ);
 }
 
-// grid (ceil(sk / kKvBK), b*hkv), block kThreads, dynamic smem dkv_smem_bytes<D>().
-template <typename T, int D>
+// grid (ceil(sk / kKvBK), b*hkv), block kThreads, dynamic smem dkv_smem_bytes<D, DV>().
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdArgs a) {
   constexpr int DP = D + 1;
-  constexpr int NC = D / kTPR;
+  constexpr int DVP = DV + 1;
+  constexpr int NC = D / kTPR;    // dk columns per thread
+  constexpr int NCV = DV / kTPR;  // dv columns per thread
   constexpr int NR = kKvBQ / kTPR;  // query rows per thread per tile
   extern __shared__ float smem[];
   float* k_s = smem;                    // kKvBK x DP
-  float* v_s = k_s + kKvBK * DP;        // kKvBK x DP
-  float* q_s = v_s + kKvBK * DP;        // kKvBQ x DP
-  float* do_s = q_s + kKvBQ * DP;       // kKvBQ x DP
-  float* p_s = do_s + kKvBQ * DP;       // kKvBK x kKvPS
+  float* v_s = k_s + kKvBK * DP;        // kKvBK x DVP
+  float* q_s = v_s + kKvBK * DVP;       // kKvBQ x DP
+  float* do_s = q_s + kKvBQ * DP;       // kKvBQ x DVP
+  float* p_s = do_s + kKvBQ * DVP;      // kKvBK x kKvPS
   float* ds_s = p_s + kKvBK * kKvPS;    // kKvBK x kKvPS
   float* lse_s = ds_s + kKvBK * kKvPS;  // kKvBQ
   float* dl_s = lse_s + kKvBQ;          // kKvBQ
@@ -390,7 +428,13 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
     const int jj = i / D, d = i % D;
     const bool ok = k0 + jj < a.SK;
     k_s[jj * DP + d] = ok ? to_f(kb[(k0 + jj) * a.k_ss + d]) : 0.f;
-    v_s[jj * DP + d] = ok ? to_f(vb[(k0 + jj) * a.v_ss + d]) : 0.f;
+    if constexpr (DV == D) v_s[jj * DVP + d] = ok ? to_f(vb[(k0 + jj) * a.v_ss + d]) : 0.f;
+  }
+  if constexpr (DV < D) {
+    for (int i = tid; i < kKvBK * DV; i += kThreads) {
+      const int jj = i / DV, d = i % DV;
+      v_s[jj * DVP + d] = k0 + jj < a.SK ? to_f(vb[(k0 + jj) * a.v_ss + d]) : 0.f;
+    }
   }
   const bool key_ok = kpos < a.SK && (mb == nullptr || mb[kpos] != 0);
   // causal: query row i sees key k0 only from i = k0 - q_start on;
@@ -400,9 +444,12 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
   const int i_end = a.window > 0 ? min(a.SQ, max(0, k0 + kKvBK - 1 + a.window - a.q_start)) : a.SQ;
   const int t0 = (i_min / kKvBQ) * kKvBQ;
 
-  float dk_acc[NC], dv_acc[NC];
+  float dk_acc[NC], dv_acc[NCV];
 #pragma unroll
-  for (int n = 0; n < NC; ++n) dk_acc[n] = dv_acc[n] = 0.f;
+  for (int n = 0; n < NC; ++n) {
+    dk_acc[n] = 0.f;
+    if (n < NCV) dv_acc[n] = 0.f;
+  }
 
   for (int g = 0; g < group; ++g) {
     const int hq = hk * group + g;
@@ -415,7 +462,13 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
         const int rr = i / D, d = i % D;
         const bool ok = q0 + rr < a.SQ;
         q_s[rr * DP + d] = ok ? to_f(qb[(q0 + rr) * a.q_ss + d]) : 0.f;
-        do_s[rr * DP + d] = ok ? to_f(dob[(q0 + rr) * a.do_ss + d]) : 0.f;
+        if constexpr (DV == D) do_s[rr * DVP + d] = ok ? to_f(dob[(q0 + rr) * a.do_ss + d]) : 0.f;
+      }
+      if constexpr (DV < D) {
+        for (int i = tid; i < kKvBQ * DV; i += kThreads) {
+          const int rr = i / DV, d = i % DV;
+          do_s[rr * DVP + d] = q0 + rr < a.SQ ? to_f(dob[(q0 + rr) * a.do_ss + d]) : 0.f;
+        }
       }
       if (tid < kKvBQ) {
         const bool ok = q0 + tid < a.SQ;
@@ -427,13 +480,21 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
       float s[NR], dp[NR];
 #pragma unroll
       for (int ii = 0; ii < NR; ++ii) s[ii] = dp[ii] = 0.f;
+      // s = Q k^T over D, dp = dO v^T over DV: one loop at DV == D
       for (int d = 0; d < D; ++d) {
-        const float kd = k_s[j * DP + d], vd = v_s[j * DP + d];
+        const float kd = k_s[j * DP + d], vd = DV == D ? v_s[j * DVP + d] : 0.f;
 #pragma unroll
         for (int ii = 0; ii < NR; ++ii) {
           const int rr = c + kTPR * ii;
           s[ii] += q_s[rr * DP + d] * kd;
-          dp[ii] += do_s[rr * DP + d] * vd;
+          if constexpr (DV == D) dp[ii] += do_s[rr * DVP + d] * vd;
+        }
+      }
+      if constexpr (DV < D) {
+        for (int d = 0; d < DV; ++d) {
+          const float vd = v_s[j * DVP + d];
+#pragma unroll
+          for (int ii = 0; ii < NR; ++ii) dp[ii] += do_s[(c + kTPR * ii) * DVP + d] * vd;
         }
       }
 #pragma unroll
@@ -452,7 +513,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
         const float p = p_s[j * kKvPS + rr], gs = ds_s[j * kKvPS + rr];
 #pragma unroll
         for (int n = 0; n < NC; ++n) {
-          dv_acc[n] += p * do_s[rr * DP + c + kTPR * n];
+          if (n < NCV) dv_acc[n] += p * do_s[rr * DVP + c + kTPR * n];
           dk_acc[n] += gs * q_s[rr * DP + c + kTPR * n];
         }
       }
@@ -460,28 +521,28 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
   }
 
   if (kpos < a.SK) {
-    const long long off = ((long long)bh * a.SK + kpos) * D;
-    T* dkrow = static_cast<T*>(a.dk) + off;
-    T* dvrow = static_cast<T*>(a.dv) + off;
+    const long long row = (long long)bh * a.SK + kpos;
+    T* dkrow = static_cast<T*>(a.dk) + row * D;
+    T* dvrow = static_cast<T*>(a.dv) + row * DV;
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
       dkrow[c + kTPR * n] = from_f<T>(dk_acc[n] * a.scale);
-      dvrow[c + kTPR * n] = from_f<T>(dv_acc[n]);
+      if (n < NCV) dvrow[c + kTPR * n] = from_f<T>(dv_acc[n]);
     }
   }
 }
 
 // ------------------------------------------------------------------ launches
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, const uint8_t* key_mask,
            int B, int HQ, int HKV, int SQ, int SK, long long q_sb, long long q_sh, long long q_ss,
            long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
            long long v_ss, long long o_sb, long long o_sh, long long o_ss, long long mask_sb,
            int causal, int q_start, float scale, int window, float softcap, const float* sink,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = attention_fwd_kernel<T, D>;
+  constexpr size_t smem = smem_bytes<D, DV>();
+  auto kernel = attention_fwd_kernel<T, D, DV>;
   // above 48 KB the launch is refused unless the kernel's limit is raised
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -493,35 +554,36 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
   return (int)cudaGetLastError();
 }
 
+// The (d, dv) pairs the kernels are built for: dv = d at 32 (the packed path
+// only, K7; K4's wrapper takes the others), 64, 128 and 256, and d 64 with
+// dv 32 (MiMo-V2-Flash). A pair is one more case here and in launch_bwd_d.
 template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o, float* lse,
+int launch_d(int D, int DV, const void* q, const void* k, const void* v, void* o, float* lse,
              const uint8_t* key_mask, int B, int HQ, int HKV, int SQ, int SK, long long q_sb,
              long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
              long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
              long long o_ss, long long mask_sb, int causal, int q_start, float scale, int window,
              float softcap, const float* sink, cudaStream_t stream) {
-#define LLMQ_ATTN_CASE(DIM)                                                                   \
-  case DIM:                                                                                   \
-    return launch<T, DIM>(q, k, v, o, lse, key_mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb, \
-                          k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal,     \
-                          q_start, scale, window, softcap, sink, stream);
-  switch (D) {
-    LLMQ_ATTN_CASE(32)  // the packed path only (K7); K4's wrapper takes 64, 128, 256
-    LLMQ_ATTN_CASE(64)
-    LLMQ_ATTN_CASE(128)
-    LLMQ_ATTN_CASE(256)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define LLMQ_ATTN_CASE(DIM, VDIM)                                                              \
+  if (D == DIM && DV == VDIM)                                                                  \
+    return launch<T, DIM, VDIM>(q, k, v, o, lse, key_mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, \
+                                k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb,   \
+                                causal, q_start, scale, window, softcap, sink, stream);
+  LLMQ_ATTN_CASE(32, 32)
+  LLMQ_ATTN_CASE(64, 64)
+  LLMQ_ATTN_CASE(128, 128)
+  LLMQ_ATTN_CASE(256, 256)
+  LLMQ_ATTN_CASE(64, 32)
 #undef LLMQ_ATTN_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t dq_smem = dq_smem_bytes<D>();
-  constexpr size_t kv_smem = dkv_smem_bytes<D>();
-  auto dq_kernel = attention_bwd_dq_kernel<T, D>;
-  auto dkv_kernel = attention_bwd_dkv_kernel<T, D>;
+  constexpr size_t dq_smem = dq_smem_bytes<D, DV>();
+  constexpr size_t kv_smem = dkv_smem_bytes<D, DV>();
+  auto dq_kernel = attention_bwd_dq_kernel<T, D, DV>;
+  auto dkv_kernel = attention_bwd_dkv_kernel<T, D, DV>;
   cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
@@ -534,17 +596,12 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch_bwd_d(int D, const BwdArgs& a, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch_bwd<T, 64>(a, stream);
-    case 128:
-      return launch_bwd<T, 128>(a, stream);
-    case 256:
-      return launch_bwd<T, 256>(a, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+int launch_bwd_d(int D, int DV, const BwdArgs& a, cudaStream_t stream) {
+  if (D == 64 && DV == 64) return launch_bwd<T, 64, 64>(a, stream);
+  if (D == 128 && DV == 128) return launch_bwd<T, 128, 128>(a, stream);
+  if (D == 256 && DV == 256) return launch_bwd<T, 256, 256>(a, stream);
+  if (D == 64 && DV == 32) return launch_bwd<T, 64, 32>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -554,7 +611,7 @@ using namespace llmq;
 
 extern "C" int llmq_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                                   void* lse, const void* key_mask, int B, int HQ, int HKV, int SQ,
-                                  int SK, int D, long long q_sb, long long q_sh, long long q_ss,
+                                  int SK, int D, int DV, long long q_sb, long long q_sh, long long q_ss,
                                   long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                                   long long v_sh, long long v_ss, long long o_sb, long long o_sh,
                                   long long o_ss, long long mask_sb, int causal, int q_start,
@@ -566,12 +623,12 @@ extern "C" int llmq_attention_fwd(int dtype, const void* q, const void* k, const
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) {
-    return launch_d<float>(D, q, k, v, o, lse_f, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb,
+    return launch_d<float>(D, DV, q, k, v, o, lse_f, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb,
                            k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal,
                            q_start, scale, window, softcap, sink_f, st);
   }
   if (dtype == kBFloat16) {
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, lse_f, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh,
+    return launch_d<__nv_bfloat16>(D, DV, q, k, v, o, lse_f, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh,
                                    q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
                                    mask_sb, causal, q_start, scale, window, softcap, sink_f, st);
   }
@@ -582,6 +639,7 @@ extern "C" int llmq_attention_bwd(int dtype, const void* q, const void* k, const
                                   const void* dout, const void* lse, const void* delta,
                                   const void* delta_shift, void* dq, void* dk, void* dv,
                                   const void* key_mask, int B, int HQ, int HKV, int SQ, int SK, int D,
+                                  int DV,
                                   long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                                   long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                                   long long v_ss, long long do_sb, long long do_sh, long long do_ss,
@@ -624,8 +682,8 @@ extern "C" int llmq_attention_bwd(int dtype, const void* q, const void* k, const
   a.window = window;
   a.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_bwd_d<float>(D, a, st);
-  if (dtype == kBFloat16) return launch_bwd_d<__nv_bfloat16>(D, a, st);
+  if (dtype == kFloat32) return launch_bwd_d<float>(D, DV, a, st);
+  if (dtype == kBFloat16) return launch_bwd_d<__nv_bfloat16>(D, DV, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

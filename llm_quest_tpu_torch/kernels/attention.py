@@ -2,7 +2,8 @@
 
 - ``flash_attention``: K4, blockwise online-softmax attention with causal
   masking from a static ``q_start``, a (b, sk) key-validity mask, GQA, a
-  sliding window, score soft-capping and per-head sinks, differentiable: on
+  sliding window, score soft-capping and per-head sinks, and v's own head
+  dim dv (the (d, dv) pairs of ``HEAD_DIMS``), differentiable: on
   a CUDA tensor it is a ``torch.autograd.Function`` whose forward launches
   ``llmq_attention_fwd`` (which also writes the row logsumexp, the sinks
   included) and whose backward is ``flash_attention_bwd``. Replaces
@@ -44,15 +45,17 @@ from llm_quest_tpu_torch.kernels import build
 from llm_quest_tpu_torch.ops.attention import merge_heads, sdpa, split_heads
 from llm_quest_tpu_torch.ops.masks import causal_mask, mask_value
 
-HEAD_DIMS = (64, 128, 256)  # the head dims of K4 (flash_attention)
+# the (q/k head dim d, v head dim dv) pairs K4 (flash_attention) is built for:
+# dv = d, and MiMo-V2-Flash's decoupled value head (d 64, dv 32)
+HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (64, 32)})
 PACKED_HEAD_DIMS = (32, 64, 128)  # the head dims of the packed kernels (K7, K8, K9)
 
 
 def _check(q, k, v, key_mask, causal, q_start, window_size=None, softcap=None, sink=None):
     b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    build.require(d in HEAD_DIMS, f"kernel head dims are {HEAD_DIMS}, got {d}")
-    build.require(k.shape == (b, hkv, sk, d) and v.shape == (b, hkv, sk, d), "k/v must be (b, hkv, sk, d)")
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    build.require(k.shape == (b, hkv, sk, d) and v.shape == (b, hkv, sk, dv), "k/v must be (b, hkv, sk, d|dv)")
+    build.require((d, dv) in HEAD_DIMS, f"kernel head dims (d, dv) are {sorted(HEAD_DIMS)}, got {(d, dv)}")
     build.require(hq % hkv == 0, "q heads must be a multiple of kv heads")
     build.require(k.dtype == q.dtype and v.dtype == q.dtype, "q, k and v must share one dtype")
     build.require(all(t.stride(-1) == 1 for t in (q, k, v)), "q/k/v need a contiguous last dim")
@@ -76,15 +79,15 @@ def _mask_arg(key_mask):
 
 def _launch_fwd(q, k, v, o, lse, key_mask, *, causal, q_start, scale, qs, ks, vs, os_, dims,
                 window_size=None, softcap=None, sink=None):
-    """q/k/v/o strides are (batch, head, seq) triples; dims = (b, hq, hkv, sq, sk, d);
+    """q/k/v/o strides are (batch, head, seq) triples; dims = (b, hq, hkv, sq, sk, d, dv);
     lse: contiguous fp32 (b, hq, sq) or None."""
-    b, hq, hkv, sq, sk, d = dims
+    b, hq, hkv, sq, sk, d, dv = dims
     mask, mask_ptr, mask_sb = _mask_arg(key_mask)
     sink32 = None if sink is None else sink.float().contiguous()
     build.launch(
         "llmq_attention_fwd", build.dtype_code(q),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr(), mask_ptr,
-        b, hq, hkv, sq, sk, d, *qs, *ks, *vs, *os_, mask_sb,
+        b, hq, hkv, sq, sk, d, dv, *qs, *ks, *vs, *os_, mask_sb,
         int(causal), int(q_start), float(scale), int(window_size or 0), float(softcap or 0.0),
         None if sink32 is None else sink32.data_ptr(), build.stream_of(q),
     )
@@ -93,13 +96,13 @@ def _launch_fwd(q, k, v, o, lse, key_mask, *, causal, q_start, scale, qs, ks, vs
 
 def _flash_fwd(q, k, v, key_mask, sink, causal, q_start, scale, window_size, softcap, with_lse):
     b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    o = torch.empty(b, hq, sq, d, dtype=q.dtype, device=q.device)
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    o = torch.empty(b, hq, sq, dv, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device) if with_lse else None
     _launch_fwd(
         q, k, v, o, lse, key_mask, causal=causal, q_start=q_start, scale=scale,
         qs=q.stride()[:3], ks=k.stride()[:3], vs=v.stride()[:3], os_=o.stride()[:3],
-        dims=(b, hq, hkv, sq, sk, d), window_size=window_size, softcap=softcap, sink=sink,
+        dims=(b, hq, hkv, sq, sk, d, dv), window_size=window_size, softcap=softcap, sink=sink,
     )
     flash_attention.launches += 1
     flash_attention.window_launches += int(window_size is not None)
@@ -152,13 +155,14 @@ def flash_attention(
     window_size=None, sink=None, softcap=None, plain=False,
 ):
     """Attention, differentiable in q, k, v and the sink. q: (b, hq, sq, d);
-    k/v: (b, hkv, sk, d), hq % hkv == 0. ``q_start`` (int) is the absolute
+    k: (b, hkv, sk, d); v: (b, hkv, sk, dv), hq % hkv == 0; the kernel takes
+    the (d, dv) pairs of ``HEAD_DIMS``. ``q_start`` (int) is the absolute
     position of query row 0: key j is visible to query i iff j <= q_start + i
     (causal). attn_mask: optional (b, sk) bool, True = real key.
     window_size: optional sliding window, keys in [p - window + 1, p] for the
     query at position p. sink: optional (hq,) sink logits (one more softmax
     term per head, no value). softcap: optional cap, scores → cap·tanh(s /
-    cap) before the masks. Returns (b, hq, sq, d) in q's dtype.
+    cap) before the masks. Returns (b, hq, sq, dv) in q's dtype.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -221,9 +225,9 @@ def flash_attention_bwd(
     q, k, v, o, lse, do, *, attn_mask=None, causal=True, q_start=0, scale=None, window_size=None, softcap=None,
     sink=None, delta_shift=None, plain=False,
 ):
-    """Gradients (dq, dk, dv) of attention for the output cotangent ``do``,
-    recomputed from q, k, v, the forward's output ``o`` and its fp32 row
-    logsumexp ``lse`` (b, hq, sq; the sinks included); with ``sink`` given,
+    """Gradients (dq, dk, dv) of attention for the output cotangent ``do``
+    (b, hq, sq, dv), recomputed from q, k, v, the forward's output ``o`` and
+    its fp32 row logsumexp ``lse`` (b, hq, sq; the sinks included); with ``sink`` given,
     (dq, dk, dv, dsink). ``delta_shift``: optional (b, hq, sq) cotangent of
     the logsumexp, folded in as δ − shift. dq/dk/dv come back in q's dtype,
     dsink in the sink's. The plain version ignores ``o`` and ``lse``."""
@@ -236,8 +240,8 @@ def flash_attention_bwd(
         )
     _check(q, k, v, attn_mask, causal, q_start, window_size, softcap, sink)
     b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    build.require(do.shape == q.shape and o.shape == q.shape, "do and o must be (b, hq, sq, d)")
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    build.require(do.shape == (b, hq, sq, dv) and o.shape == do.shape, "do and o must be (b, hq, sq, dv)")
     build.require(do.dtype == q.dtype, "do must have q's dtype")
     build.require(
         lse.shape == (b, hq, sq) and lse.dtype == torch.float32 and lse.is_contiguous(),
@@ -253,13 +257,13 @@ def flash_attention_bwd(
         shift = delta_shift.float().contiguous()
     dq = torch.empty(b, hq, sq, d, dtype=q.dtype, device=q.device)
     dk = torch.empty(b, hkv, sk, d, dtype=q.dtype, device=q.device)
-    dv = torch.empty(b, hkv, sk, d, dtype=q.dtype, device=q.device)
+    dv_grad = torch.empty(b, hkv, sk, dv, dtype=q.dtype, device=q.device)
     mask, mask_ptr, mask_sb = _mask_arg(attn_mask)
     build.launch(
         "llmq_attention_bwd", build.dtype_code(q),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        None if shift is None else shift.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), mask_ptr,
-        b, hq, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], mask_sb,
+        None if shift is None else shift.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_grad.data_ptr(), mask_ptr,
+        b, hq, hkv, sq, sk, d, dv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], mask_sb,
         int(causal), int(q_start), float(scale), int(window_size or 0), float(softcap or 0.0), build.stream_of(q),
     )
     del mask
@@ -267,11 +271,11 @@ def flash_attention_bwd(
     flash_attention_bwd.window_launches += int(window_size is not None)
     flash_attention_bwd.softcap_sink_launches += int(softcap is not None or sink is not None)
     if sink is None:
-        return dq, dk, dv
+        return dq, dk, dv_grad
     # the sink's probability exp(sink - lse) times d out / d sink = -out: a reduction over batch and rows
     shifted = delta if shift is None else delta - shift
     dsink = -(torch.exp(sink.float()[None, :, None] - lse) * shifted).sum((0, 2))
-    return dq, dk, dv, dsink.to(sink.dtype)
+    return dq, dk, dv_grad, dsink.to(sink.dtype)
 
 
 flash_attention_bwd.launches = 0
@@ -317,7 +321,7 @@ def _packed_fwd(q, k, v, n_heads, scale):
     packed = lambda t: (t.stride(0), d, t.stride(1))  # noqa: E731
     _launch_fwd(
         q, k, v, o, None, None, causal=False, q_start=0, scale=scale,
-        qs=packed(q), ks=packed(k), vs=packed(v), os_=packed(o), dims=(b, n_heads, n_heads, s, s, d),
+        qs=packed(q), ks=packed(k), vs=packed(v), os_=packed(o), dims=(b, n_heads, n_heads, s, s, d, d),
     )
     packed_mha.launches += 1
     return o

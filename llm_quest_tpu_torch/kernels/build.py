@@ -39,12 +39,12 @@ _SIGNATURES = {
     "llmq_gdn_prefill_bwd_blocks": [_I, _I],
     # dtype, q, k, v, beta, alpha, stacked, layer, out, B, H, DK, DV, 6 strides, scale, stream
     "llmq_gdn_step_stacked": [_I] + [_P] * 6 + [_I, _P] + [_I] * 4 + [_L] * 6 + [_F, _P],
-    # dtype, q, k, v, o, lse, key_mask, B, HQ, HKV, SQ, SK, D, 13 strides, causal, q_start, scale,
+    # dtype, q, k, v, o, lse, key_mask, B, HQ, HKV, SQ, SK, D, DV, 13 strides, causal, q_start, scale,
     # window, softcap, sink, stream
-    "llmq_attention_fwd": [_I] + [_P] * 6 + [_I] * 6 + [_L] * 13 + [_I, _I, _F, _I, _F, _P, _P],
-    # dtype, q, k, v, dout, lse, delta, delta_shift, dq, dk, dv, key_mask, B, HQ, HKV, SQ, SK, D,
+    "llmq_attention_fwd": [_I] + [_P] * 6 + [_I] * 7 + [_L] * 13 + [_I, _I, _F, _I, _F, _P, _P],
+    # dtype, q, k, v, dout, lse, delta, delta_shift, dq, dk, dv, key_mask, B, HQ, HKV, SQ, SK, D, DV,
     # 13 strides, causal, q_start, scale, window, softcap, stream
-    "llmq_attention_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_L] * 13 + [_I, _I, _F, _I, _F, _P],
+    "llmq_attention_bwd": [_I] + [_P] * 11 + [_I] * 7 + [_L] * 13 + [_I, _I, _F, _I, _F, _P],
     # dtype, q, k_q, k_s, v_q, v_s, bias, part_acc, part_ml, out, B, HQ, HKV, S, D, n_splits, split_len,
     # 13 strides, scale, stream
     "llmq_flash_decode": [_I] + [_P] * 9 + [_I] * 7 + [_L] * 13 + [_F, _P],

@@ -1,11 +1,16 @@
-"""Qwen3 Mixture-of-Experts (counterpart of ``llm_quest_tpu/ops/moe.py``,
-the parts Qwen3-Next calls).
+"""Qwen3 and DeepSeek Mixture-of-Experts (counterpart of
+``llm_quest_tpu/ops/moe.py``, the parts Qwen3-Next and MiMo-V2-Flash call).
 
 - ``load_balance_loss``: N·Σ_i f_i·p_i; ``router_weights_init``: the
   sigma-MoE router re-init.
-- ``ExpertStack``: stacked gated expert weights in the JAX layout, (E, d,
-  hidden) for ``lin1``/``gate`` and (E, hidden, d) for ``lin2``, applied
-  as ``x @ w`` (no transpose on the way in from JAX).
+- ``expert_counts``, ``aux_free_bias_update`` (biases += rate·sign(mean −
+  count)) and ``max_violation`` ((max − mean)/mean): the DeepSeek
+  aux-loss-free balancing.
+- ``ExpertStack``: stacked expert weights in the JAX layout, (E, d, hidden)
+  for ``lin1``/``gate`` and (E, hidden, d) for ``lin2``, applied as ``x @
+  w`` (no transpose on the way in from JAX); gated (``lin1``, ``gate``,
+  ``lin2``) or not (``lin1``, ``lin2``), optionally with biases ``b1`` (E,
+  hidden) and ``b2`` (E, d).
 - ``dispatch``: sort-based dispatch. Assignments are flattened, stably
   sorted by expert id, run through the experts and scatter-added back to
   their tokens with their gate weights. ``capacity_factor=None`` is the
@@ -19,6 +24,16 @@ the parts Qwen3-Next calls).
   dropped.
 - ``qwen3_moe``: fp32 gate softmax, top-k renormalised, LBL auxiliary loss,
   and the sigmoid-weighted shared expert.
+- ``deepseek_moe``: fp32 gate softmax of ``x @ gate_w + gate_b``; the
+  top-k taken on the probabilities plus the balancing ``biases``, the
+  weights the unbiased probabilities renormalised; exact dispatch of the
+  gated routed experts, plus every non-gated shared expert (``b1``/``b2``)
+  on every token. ``DeepSeekMoE`` keeps ``biases`` as an fp32 buffer, not a
+  parameter: it has no gradient and no optimizer touches it; the train step
+  folds ``aux_free_bias_update`` into it after the optimizer step.
+  Divergence by design: JAX keeps ``biases`` as a leaf of ``params``, so
+  its AdamW (no mask) decays it by lr·wd·b every step; the reference keeps
+  a non-gradient buffer, as the port does.
 - int8 expert stacks (``ops/quantization.py::quantize_expert_stack_int8``:
   ``<name>_q`` (E, in, out) int8 and ``<name>_scale`` (E, out)): the exact
   dispatch sends each matrix to the grouped int8 matmul (K11,
@@ -27,7 +42,7 @@ the parts Qwen3-Next calls).
   is given, and the shared expert's einsums multiply the scale after the
   product.
 
-Classic, DeepSeek and Latent MoE come with the models that call them.
+Classic and Latent MoE come with the models that call them.
 """
 
 import torch
@@ -54,20 +69,41 @@ def router_weights_init(weights):
     return normed * (og_std / normed.std(unbiased=False))
 
 
-class ExpertStack(nn.ParameterDict):
-    """Gated expert MLPs stacked on a leading expert axis (JAX layout)."""
+def expert_counts(topk_idxs, num_experts):
+    """Assignments per expert (bincount of the top-k ids), fp32; no gradient."""
+    return torch.bincount(topk_idxs.reshape(-1), minlength=num_experts).float()
 
-    def __init__(self, num_experts, d_in, hidden, *, dtype, device=None):
-        super().__init__({
-            "lin1": nn.Parameter(torch.empty(num_experts, d_in, hidden, dtype=dtype, device=device)),
-            "gate": nn.Parameter(torch.empty(num_experts, d_in, hidden, dtype=dtype, device=device)),
-            "lin2": nn.Parameter(torch.empty(num_experts, hidden, d_in, dtype=dtype, device=device)),
-        })
+
+def aux_free_bias_update(biases, counts, rate):
+    """biases + rate·sign(mean(counts) − counts): under-used experts gain."""
+    return biases + rate * torch.sign(counts.mean() - counts)
+
+
+def max_violation(counts):
+    """The load-balance metric (max − mean)/mean of the expert counts."""
+    mean = counts.mean()
+    return (counts.max() - mean) / mean
+
+
+class ExpertStack(nn.ParameterDict):
+    """Expert MLPs stacked on a leading expert axis (JAX layout): gated
+    {"lin1", "gate", "lin2"} or not {"lin1", "lin2"}, with ``bias`` also
+    {"b1", "b2"}."""
+
+    def __init__(self, num_experts, d_in, hidden, *, dtype, device=None, gated=True, bias=False):
+        shapes = {"lin1": (d_in, hidden), "gate": (d_in, hidden), "lin2": (hidden, d_in)}
+        if not gated:
+            del shapes["gate"]
+        if bias:
+            shapes.update(b1=(hidden,), b2=(d_in,))
+        super().__init__({name: nn.Parameter(torch.empty(num_experts, *shape, dtype=dtype, device=device))
+                          for name, shape in shapes.items()})
 
     def reset_parameters(self, generator):
-        """U(±1/sqrt(d_in)) for lin1 and gate, U(±1/sqrt(hidden)) for lin2."""
-        for p in self.values():
-            bound = 1.0 / p.shape[1] ** 0.5
+        """U(±1/sqrt(d_in)) for lin1, gate and b1, U(±1/sqrt(hidden)) for lin2 and b2."""
+        d_in, hidden = self["lin1"].shape[1:]
+        for name, p in self.items():
+            bound = 1.0 / (hidden if name in ("lin2", "b2") else d_in) ** 0.5
             p.uniform_(-bound, bound, generator=generator)
 
 
@@ -157,10 +193,19 @@ def _shared_einsum(shared, name, spec, x):
 
 
 def _shared_experts_sum(shared, x2d, activation=silu):
-    """Every shared expert on every token, summed over the experts."""
+    """Every shared expert on every token, summed over the experts: gated,
+    lin2(lin1(x) · act(gate(x))), or not, lin2(act(lin1(x) + b1)) + b2."""
     h = _shared_einsum(shared, "lin1", "td,edh->teh", x2d)
-    h = h * activation(_shared_einsum(shared, "gate", "td,edh->teh", x2d))
-    return _shared_einsum(shared, "lin2", "teh,ehd->ted", h).sum(dim=1)
+    if "b1" in shared:
+        h = h + shared["b1"][None]
+    if "gate" in shared or "gate_q" in shared:
+        h = h * activation(_shared_einsum(shared, "gate", "td,edh->teh", x2d))
+    else:
+        h = activation(h)
+    out = _shared_einsum(shared, "lin2", "teh,ehd->ted", h)
+    if "b2" in shared:
+        out = out + shared["b2"][None]
+    return out.sum(dim=1)
 
 
 class Qwen3MoE(nn.Module):
@@ -212,3 +257,53 @@ def qwen3_moe(params, x, *, top_k, load_coeff, training=True, capacity_factor=No
         shared_w = torch.sigmoid(x2d @ params.shared_gate_w)
         out = out + _shared_experts_sum(params.shared, x2d) * shared_w.to(out.dtype)
     return out.reshape(b, s, d), aux
+
+
+class DeepSeekMoE(nn.Module):
+    """Parameters {"routed" (gated stack), "gate_w" (d, E), "gate_b" (E,)[,
+    "shared" (non-gated stack with biases)]} and the fp32 buffer "biases"
+    (E,), under the JAX tree's names. E counts the routed experts:
+    ``num_experts − num_shared_experts``; each expert's width is
+    int(``moe_scaling_factor`` · ``hidden_dim``), "auto" being 1/(top_k +
+    num_shared)."""
+
+    def __init__(self, cfg, dtype, device=None):
+        super().__init__()
+        d, num_shared = cfg["emb_dim"], cfg["num_shared_experts"]
+        sf = cfg["moe_scaling_factor"]
+        if sf == "auto":
+            sf = 1 / (cfg["top_k"] + num_shared)
+        hidden = int(sf * cfg["hidden_dim"])
+        num_routed = cfg["num_experts"] - num_shared
+        self.routed = ExpertStack(num_routed, d, hidden, dtype=dtype, device=device)
+        self.gate_w = nn.Parameter(torch.empty(d, num_routed, dtype=dtype, device=device))
+        self.gate_b = nn.Parameter(torch.empty(num_routed, dtype=dtype, device=device))
+        self.register_buffer("biases", torch.zeros(num_routed, dtype=torch.float32, device=device))
+        if num_shared > 0:
+            self.shared = ExpertStack(num_shared, d, hidden, dtype=dtype, device=device, gated=False, bias=True)
+
+    def reset_parameters(self, generator):
+        """The router's weight and bias U(±1/sqrt(d)); the biases zero."""
+        bound = 1.0 / self.gate_w.shape[0] ** 0.5
+        self.gate_w.uniform_(-bound, bound, generator=generator)
+        self.gate_b.uniform_(-bound, bound, generator=generator)
+        self.biases.zero_()
+
+
+def deepseek_moe(params, x, *, top_k):
+    """x: (b, s, d). Returns (out, aux); aux has "counts" (E,) fp32, to fold
+    into the biases with ``aux_free_bias_update`` after the optimizer step,
+    and "max_vio"."""
+    b, s, d = x.shape
+    num_routed = params.gate_w.shape[-1]
+    x2d = x.reshape(-1, d)
+    gate_probas = torch.softmax((x2d @ params.gate_w + params.gate_b).float(), dim=-1)
+    topk_idxs = torch.topk(gate_probas + params.biases, top_k, dim=-1).indices
+    topk_probas = gate_probas.gather(-1, topk_idxs)  # unbiased weights
+    topk_probas = topk_probas / topk_probas.sum(dim=-1, keepdim=True)
+
+    out = dispatch(params.routed, x2d, topk_idxs, topk_probas, num_routed)
+    if hasattr(params, "shared"):
+        out = _shared_experts_sum(params.shared, x2d) + out
+    counts = expert_counts(topk_idxs, num_routed)
+    return out.reshape(b, s, d), {"counts": counts, "max_vio": max_violation(counts)}

@@ -21,6 +21,18 @@ layers SWA) that is 1.7286e9 FLOP/token against JAX's 1.8347e9, which would
 read MFU about 6 % high. A window at or above s, and every config without
 one, keeps JAX's count exactly.
 
+MiMo-V2-Flash (a config with ``hybrid_ratio``) is counted as it is built
+(``mimo_train_flops_per_token``): each layer type with its own kv groups and
+dv; layer 0's dense SwiGLU; the DeepSeek MoE of layers 1+ at top_k routed
+experts of int(``moe_scaling_factor``·``hidden_dim``), its router and any
+shared experts; the SWA layers (``hybrid_ratio``) at ``swa_mean_context``;
+and the MTP modules (down projection, one SWA block with a dense FFN, the
+shared head), module k on s − k − 1 of the s tokens. Divergence by design:
+the JAX count reads ``num_kv_groups``, which MiMo lacks (so every layer
+takes n_heads kv heads), a dense FFN in every layer, every layer at s/2,
+and no MTP: at ``MIMO_V2_SMALL_CONFIG`` and s 2048 it gives 9.54e8
+FLOP/token against the port's 1.899e9, so JAX's MFU would read about half.
+
 Decode bytes count the KV cache as it is stored: bf16 (or the model's type)
 at its element size, an int8 cache (``cfg["kv_quant"] = "int8"``) at one
 byte an element plus its fp32 k and v scales. Divergence by design: the JAX
@@ -33,6 +45,7 @@ Peaks are those of the card present, looked up by
 
 import torch
 
+from llm_quest_tpu_torch.models import mimo_v2_flash
 from llm_quest_tpu_torch.models.gemma3 import is_swa_layer
 from llm_quest_tpu_torch.ops.quantization import param_bytes
 
@@ -130,10 +143,44 @@ def swa_mean_context(window, seq_len):
     return (window * (window + 1) / 2 + (seq_len - window) * window) / seq_len
 
 
+def _deepseek_moe_flops(cfg):
+    """Per-token FLOPs of one DeepSeek MoE sublayer: the router, top_k
+    gated routed experts and every non-gated shared expert."""
+    d, num_shared = cfg["emb_dim"], cfg["num_shared_experts"]
+    sf = cfg["moe_scaling_factor"]
+    hidden = int((1 / (cfg["top_k"] + num_shared) if sf == "auto" else sf) * cfg["hidden_dim"])
+    router = 2 * d * (cfg["num_experts"] - num_shared)
+    return router + cfg["top_k"] * 3 * 2 * d * hidden + num_shared * 2 * 2 * d * hidden
+
+
+def mimo_train_flops_per_token(cfg, *, seq_len):
+    """MiMo-V2-Flash's train-step FLOPs per token (module docstring): 3×
+    the main model's forward and its MTP modules'."""
+    d, window = cfg["emb_dim"], cfg["window_size"]
+
+    def attn(swa, s):
+        groups = cfg["num_swa_kv_groups"] if swa else cfg["num_ga_kv_groups"]
+        kv_len = swa_mean_context(window, s) if swa and window < s else s / 2
+        return _attn_layer_flops(dict(cfg, num_kv_groups=groups), kv_len)
+
+    dense_ffn, head = 3 * 2 * d * cfg["hidden_dim"], 2 * d * cfg["vocab_size"]
+    total = head
+    for i in range(cfg["n_layers"]):
+        ffn = _deepseek_moe_flops(cfg) if mimo_v2_flash.is_moe_layer(cfg, i) else dense_ffn
+        total += attn(mimo_v2_flash.is_swa_layer(cfg, i), seq_len) + ffn
+    for k in range(1, cfg.get("mtp_depth", 0) + 1):
+        s_k = seq_len - k - 1
+        total += (2 * 2 * d * d + attn(True, s_k) + dense_ffn + head) * s_k / seq_len
+    return 3 * total
+
+
 def text_train_flops_per_token(cfg, *, seq_len):
     """Train-step FLOPs per token: 3× forward, causal attention averaged over
     positions (mean context = seq_len / 2), sliding-window layers with a
-    window below seq_len at ``swa_mean_context`` (module docstring)."""
+    window below seq_len at ``swa_mean_context`` (module docstring);
+    MiMo-V2-Flash by ``mimo_train_flops_per_token``."""
+    if "hybrid_ratio" in cfg:
+        return mimo_train_flops_per_token(cfg, seq_len=seq_len)
     total = text_forward_flops_per_token(cfg, kv_len=seq_len // 2)
     window = cfg.get("window_size", 0)
     if "local_global_att_ratio" in cfg and 0 < window < seq_len:

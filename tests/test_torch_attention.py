@@ -17,6 +17,9 @@ them, within 1e-4 fp32:
   dq/dk/dv/dsink against the interpret-mode kernel and ``jax.grad`` of it at
   the shapes of ``tests/test_flash_attention.py`` (b 2, 4/2 heads, s 200,
   d 64), within that file's bars: 2e-5 forward, 5e-5 gradients;
+- K4 with v's own head dim (d 64, dv 32, MiMo-V2-Flash's): the plain version
+  and its dq/dk/dv/dsink against the interpret-mode kernel and ``jax.grad``
+  of it, windowed with sinks (GQA 3) and causal (GQA 6), at the same bars;
 - K7: ``packed_mha(q, k, v, n_heads, None, True)`` at d = 64.
 
 ``causal_mask(window_size=)`` is held to ``swa_causal_mask_table`` and to
@@ -165,13 +168,17 @@ def test_router_flash_route_carries_gradients():
 
 def test_flash_wrapper_rejects_unported_features():
     """The kernel's argument check refuses, before any launch, what the CUDA
-    kernels do not take: dv ≠ d and head dims other than 64/128/256 (the
-    window, softcap and sinks are ported), and malformed feature arguments."""
+    kernels do not take: (d, dv) pairs other than (64, 64), (128, 128),
+    (256, 256) and (64, 32) (the window, softcap and sinks are ported),
+    k/v of another shape than q's batch and head dim, and malformed feature
+    arguments."""
     q = torch.zeros(1, 2, 4, 64)
     with pytest.raises(ValueError, match="k/v must be"):
-        kattn._check(q, q, torch.zeros(1, 2, 4, 32), None, True, 0)
-    with pytest.raises(ValueError, match="head dims"):
-        kattn._check(torch.zeros(1, 2, 4, 96), torch.zeros(1, 2, 4, 96), torch.zeros(1, 2, 4, 96), None, True, 0)
+        kattn._check(q, torch.zeros(1, 2, 4, 32), q, None, True, 0)
+    for d, dv in ((96, 96), (64, 48), (128, 32), (96, 64)):
+        qd, vd = torch.zeros(1, 2, 4, d), torch.zeros(1, 2, 4, dv)
+        with pytest.raises(ValueError, match="head dims"):
+            kattn._check(qd, qd, vd, None, True, 0)
     with pytest.raises(ValueError, match="window_size"):
         kattn._check(q, q, q, None, True, 0, window_size=0)
     with pytest.raises(ValueError, match="softcap"):
@@ -256,6 +263,47 @@ def test_k4_plain_window_softcap_sink_gradients_match_pallas_vjp(name):
     plain = kattn.flash_attention_bwd(T(q), T(k), T(v), None, None, T(do), sink=None if sink is None else T(sink),
                                       **tkw)
     assert len(grads) == len(plain) == len(refs) == (3 if sink is None else 4)
+    for got, got_plain, ref in zip(grads, plain, refs):
+        assert_close(got, ref, GRAD_TOL)
+        assert_close(got_plain, ref, GRAD_TOL)
+
+
+# MiMo-V2-Flash's heads: d 64, dv 32; SWA layers window + sinks with 3 q heads
+# per kv head, GA layers causal with 6
+DV_CASES = {
+    "window_sink": {"hq": 6, "hkv": 2, "window_size": 32, "sink": True},
+    "causal_gqa6": {"hq": 6, "hkv": 1},
+}
+
+
+@pytest.mark.parametrize("name", DV_CASES)
+def test_k4_plain_dv_matches_pallas(name):
+    """K4 at d 64 / dv 32: the plain version, its autograd dq/dk/dv(/dsink)
+    and the plain backward against the interpret-mode kernel and jax.grad of
+    it; s 200 ends inside a key tile."""
+    case = DV_CASES[name]
+    b, s, d, dv = 2, 200, 64, 32
+    q, k = rand(b, case["hq"], s, d), rand(b, case["hkv"], s, d, seed=1)
+    v, do = rand(b, case["hkv"], s, dv, seed=2), rand(b, case["hq"], s, dv, seed=3)
+    sink = rand(case["hq"], seed=5) if case.get("sink") else None
+    kw = {"window_size": case.get("window_size")}
+
+    def jout(q, k, v, *sink_arg):
+        return jflash(q, k, v, causal=True, interpret=True, block_q=128, block_k=128,
+                      sink=sink_arg[0] if sink_arg else None, **kw)
+
+    args = [jnp.asarray(x) for x in (q, k, v) + (() if sink is None else (sink,))]
+    ref_out = jout(*args)
+    assert ref_out.shape == (b, case["hq"], s, dv)
+    refs = jax.grad(lambda *a: jnp.sum(jout(*a) * jnp.asarray(do)), argnums=tuple(range(len(args))))(*args)
+    leaves = [T(x).requires_grad_() for x in (q, k, v) + (() if sink is None else (sink,))]
+    out = kattn.flash_attention(*leaves[:3], sink=leaves[3] if sink is not None else None, **kw)
+    assert_close(out.detach(), ref_out, FWD_TOL)
+    grads = torch.autograd.grad(out, leaves, T(do))
+    plain = kattn.flash_attention_bwd(T(q), T(k), T(v), None, None, T(do), sink=None if sink is None else T(sink),
+                                      **kw)
+    assert len(grads) == len(plain) == len(refs) == (3 if sink is None else 4)
+    assert grads[2].shape == (b, case["hkv"], s, dv)
     for got, got_plain, ref in zip(grads, plain, refs):
         assert_close(got, ref, GRAD_TOL)
         assert_close(got_plain, ref, GRAD_TOL)

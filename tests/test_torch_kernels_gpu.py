@@ -236,6 +236,64 @@ def test_flash_attention_window_at_least_s_is_causal_on_the_card(gen, dtype):
         assert torch.equal(attention.flash_attention(q, k, v, window_size=w), causal)
 
 
+# K4 at MiMo-V2-Flash's heads (d 64, dv 32), and one d = dv case:
+# name -> (hq, hkv, sq, sk, q_start, d, dv, features)
+DV_CASES = {
+    "window_sink_padding": (12, 4, 300, 300, 0, 64, 32, {"window_size": 128, "sink": True, "padding": True}),
+    "causal_gqa6": (12, 2, 300, 300, 0, 64, 32, {}),
+    "ragged_2045_window_sink": (6, 2, 2045, 2045, 0, 64, 32, {"window_size": 128, "sink": True}),
+    "ragged_2045_causal": (6, 1, 2045, 2045, 0, 64, 32, {}),
+    "window_q_start": (12, 4, 100, 164, 40, 64, 32, {"window_size": 32, "sink": True, "padding": True}),
+    "window_q_start_d128": (8, 2, 100, 164, 40, 128, 128, {"window_size": 48}),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", DV_CASES)
+def test_flash_attention_dv_kernels(gen, dtype, name):
+    """K4 with v's head dim 32 beside q/k's 64, forward and backward (dsink
+    included), against autograd through the plain version: the SWA layers'
+    window and sinks with key padding, the GA layers' causal GQA at group 6,
+    the MTP blocks' ragged length (2045: no multiple of the 16-row or 32-key
+    tiles) and a window with q_start > 0 (sq < sk, the dk/dv row bound),
+    the last also at d = dv = 128."""
+    from llm_quest_tpu_torch.kernels import attention
+
+    hq, hkv, sq, sk, q_start, d, dv, features = DV_CASES[name]
+    b = 2 if sq < 1000 else 1
+    q0, k0 = randn(gen, b, hq, sq, d, dtype=dtype), randn(gen, b, hkv, sk, d, dtype=dtype)
+    v0, do = randn(gen, b, hkv, sk, dv, dtype=dtype), randn(gen, b, hq, sq, dv, dtype=dtype)
+    kw = {"q_start": q_start, "window_size": features.get("window_size")}
+    if features.get("padding"):
+        kw["attn_mask"] = torch.rand(b, sk, generator=gen, device="cuda") > 0.2
+        kw["attn_mask"][:, 0] = True
+    sink0 = randn(gen, hq, scale=0.5) + 2.0 if features.get("sink") else None
+    leaves = [t.clone().requires_grad_() for t in (q0, k0, v0) + (() if sink0 is None else (sink0,))]
+    n_fwd, n_bwd = attention.flash_attention.launches, attention.flash_attention_bwd.launches
+    out = attention.flash_attention(*leaves[:3], sink=None if sink0 is None else leaves[3], **kw)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert (attention.flash_attention.launches, attention.flash_attention_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    assert out.shape == (b, hq, sq, dv) and grads[2].shape == v0.shape and grads[0].dtype == dtype
+    assert_close(out, attention.flash_attention(q0, k0, v0, sink=sink0, plain=True, **kw), dtype)
+    refs = attention.flash_attention_bwd_plain(q0, k0, v0, do, sink=sink0, **kw)
+    assert len(grads) == len(refs)
+    for got, ref in zip(grads, refs):
+        assert_close(got, ref, dtype)
+
+
+def test_flash_attention_refuses_unsupported_head_dim_pairs(gen):
+    """The (d, dv) pairs without a kernel instantiation raise a ValueError
+    naming the pairs that have one, before any launch."""
+    from llm_quest_tpu_torch.kernels import attention
+
+    n = attention.flash_attention.launches
+    for d, dv in ((64, 48), (128, 64), (96, 64), (32, 32)):
+        q, v = randn(gen, 1, 2, 40, d), randn(gen, 1, 2, 40, dv)
+        with pytest.raises(ValueError, match=r"kernel head dims \(d, dv\) are \[\(64, 32\)"):
+            attention.flash_attention(q, q, v)
+    assert attention.flash_attention.launches == n
+
+
 def test_forward_only_kernels_raise_under_grad(gen):
     """K2 and K9 have no backward: on the card they refuse to run when a
     gradient would be needed, and run under no_grad."""
@@ -454,6 +512,35 @@ def test_gemma3_gradients_through_kernels(gen):
     assert (attention.flash_attention_bwd.launches, attention.flash_attention_bwd.window_launches) == (n + 3, n_win + 2)
     for got, ref in zip(grads[True], grads[False]):
         assert_close(got, ref, torch.float32)
+
+
+def test_mimo_gradients_through_kernels(gen):
+    """A tiny MiMo-V2-Flash (d 64 / dv 32, GA / SWA + sinks / GA, MTP depth
+    2): the loss and every gradient through K4 (3 main layers and 2 MTP
+    blocks, 3 of them windowed) against the plain versions, fp32; then a
+    train step folds the expert counts into the biases."""
+    from llm_quest_tpu_torch.config import MIMO_V2_SMALL_CONFIG
+    from llm_quest_tpu_torch.kernels import attention
+    from llm_quest_tpu_torch.models import mimo_v2_flash as mimo
+    from llm_quest_tpu_torch.training import engine, mtp_engine
+
+    cfg = dict(MIMO_V2_SMALL_CONFIG, vocab_size=256, context_length=128, emb_dim=96, n_layers=3, n_heads=6,
+               num_swa_kv_groups=2, num_ga_kv_groups=1, hidden_dim=128, window_size=24, hybrid_ratio=3,
+               num_experts=4, flash_min_seq=16)
+    model = mimo.init(cfg, generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    batch = {k: v for k, v in _tiny_batch(gen).items() if k != "attn_mask"}
+    n, n_win = attention.flash_attention_bwd.launches, attention.flash_attention_bwd.window_launches
+    results = {}
+    for use_kernels in (True, False):
+        loss, _ = mimo.loss(model, dict(cfg, use_kernels=use_kernels), batch["input_ids"], batch["targets"])
+        results[use_kernels] = (loss.detach(), torch.autograd.grad(loss, list(model.parameters())))
+    assert (attention.flash_attention_bwd.launches, attention.flash_attention_bwd.window_launches) == (n + 5, n_win + 3)
+    assert_close(results[True][0], results[False][0], torch.float32)
+    for got, ref in zip(results[True][1], results[False][1]):
+        assert_close(got, ref, torch.float32)
+    opt = engine.make_optimizer(1e-3)
+    mtp_engine.make_mimo_train_step(mimo, cfg, opt)(model, opt.init(model), batch)
+    assert all(float(b.moe.biases.abs().max()) == pytest.approx(1e-3) for b in model.blocks[1:])
 
 
 def test_training_eval_loop_and_prefetch_on_the_card(gen):
