@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the port's
-kernels from ``llm_quest_tpu_torch/csrc`` at first use. Eight main paths are
+kernels from ``llm_quest_tpu_torch/csrc`` at first use. Nine main paths are
 driven: the ViT-B/224 encode of bench.py's ViT cell (through K7, K8 and K9),
 Qwen3.5-0.8B generation, the dense Qwen3 training step of bench.py's train
 workload, the Qwen3-Next hybrid training step of
 ``scripts/bench_hybrid_training.py``, the Gemma-3 sliding-window training
 step at Gemma-3-270M's widths, the MiMo-V2-Flash training step of
-``scripts/mimo_training.py`` at ``MIMO_V2_SMALL_CONFIG``, int8 Qwen3.5-0.8B
+``scripts/mimo_training.py`` at ``MIMO_V2_SMALL_CONFIG``, the DeepSeek-V3
+MTP training step of ``scripts/deepseek_training.py`` at
+``DEEPSEEK_SMALL_CONFIG`` (and its cached generation), int8 Qwen3.5-0.8B
 text generation and int8 Qwen3-Next cached decode. Phases, one JSON line
 each on stdout:
 
@@ -38,6 +40,9 @@ each on stdout:
    K4 with v's head dim 32 beside q/k's 64 at one MiMo-V2-Flash small layer
    (b 4, s 2048): the SWA layers' 12/4 heads with window 128 and sinks, and
    the GA layers' 12/2 heads causal, forward and forward + backward.
+   K4 at DeepSeek-V3's MLA head dims (q/k 96, v 64) at one layer of its
+   train step (b 4, 12/12 heads, s 2048, causal), forward and forward +
+   backward.
    K7 at ViT-B's encode shape (b 128, s 197, 12 x 64) and at d 32 (b 128,
    s 65, 8 x 32), and its recompute backward (b 16 checked, b 128 timed);
    K8 with dynamic and with static scales and K9 at ViT-B's shape, K9 equal
@@ -94,14 +99,26 @@ each on stdout:
     after the optimizer step), as phase 9: K4 forward and backward launch
     14 times a step (11 windowed with sinks: 9 SWA layers and 2 MTP blocks;
     3 causal GA layers), with MFU by the port's MiMo FLOP count;
-15. int8_generate_fp32, next_serve_fp32: int8 Qwen3.5-0.8B text and int8
+15. dsv3_fp32: DeepSeek-V3 small at full width cut to 5 layers (3 dense, 2
+    MoE), b 1, s 512, MTP depth 2, a batch from the MTP collator, fp32: the
+    loss (within 1e-5 relative) and every gradient (within 1e-4) through the
+    kernels against the plain versions, the expert counts equal; dsv3_train:
+    12 layers, b 4, s 2048, bf16, full-logits CE, through
+    ``make_deepseek_train_step`` (the bias fold after the optimizer step), as
+    phase 9: K4 at (96, 64) forward and backward launch 14 times a step (12
+    layers, 2 MTP blocks at the full s), with MFU by the port's DeepSeek
+    FLOP count and the last step's max_vio; dsv3_generate_fp32: 2 layers,
+    b 1, a 300-token prompt, 16 greedy cached tokens (``sdpa`` over the
+    q/k 96, v 64 cache) equal to ``generate_loop_uncached``'s (K4 at each
+    step); dsv3_generate: 12 layers, bf16, the same prompt, tok/s and TTFT;
+16. int8_generate_fp32, next_serve_fp32: int8 Qwen3.5-0.8B text and int8
     Qwen3-Next-small at full width cut to 4 layers, fp32, kernels against
     plain: prefill logits within INT8_LOGIT_TOL, 16 greedy tokens equal;
-16. int8_generate: Qwen3.5-0.8B text, 24 layers, bf16, weights, tied table
+17. int8_generate: Qwen3.5-0.8B text, 24 layers, bf16, weights, tied table
     and KV cache int8, b = 1, prompt 32, 64 greedy tokens (K1, K2, K10);
-17. next_serve: Qwen3-Next-small, 8 layers, bf16, linears and expert stacks
+18. next_serve: Qwen3-Next-small, 8 layers, bf16, linears and expert stacks
     int8, b = 4, 300-token prompts, 64 greedy tokens (K1, K2 at dk 64, K11).
-    Phases 16 and 17 reset the counts, drive the int8 model once, then print
+    Phases 17 and 18 reset the counts, drive the int8 model once, then print
     tok/s, TTFT and MBU beside the bf16 model's, and the per-step cost of
     the int8 → bf16 weight copies.
 
@@ -112,7 +129,7 @@ last line; there is no CPU fallback.
     python3 chip_smoke.py --profile
 
 runs only the device phase and a ``torch.profiler`` breakdown of the train
-steps of phases 9, 11, 13 and 14 (2 warm-up and 2 profiled steps each) and of the
+steps of phases 9, 11, 13, 14 and 15 (2 warm-up and 2 profiled steps each) and of the
 ViT-B encode through K7 and through K8 with static scales (1 warm-up, 2
 profiled encodes each): the device's busy share of the profiled wall and the
 device time per step by kernel group (flash forward, which is also K7's,
@@ -554,6 +571,9 @@ GEMMA_WINDOW = 512
 MIMO_SWA_K4 = {"b": 4, "hq": 12, "hkv": 4, "s": 2048, "d": 64, "dv": 32}
 MIMO_GA_K4 = {"b": 4, "hq": 12, "hkv": 2, "s": 2048, "d": 64, "dv": 32}
 MIMO_WINDOW = 128
+# one attention layer of DeepSeek-V3 small's train step: MLA's 12 heads (as
+# many kv heads), q/k 96 (latent-up 64 and decoupled RoPE 32), v 64, causal
+DSV3_K4 = {"b": 4, "hq": 12, "hkv": 12, "s": 2048, "d": 96, "dv": 64}
 
 
 def visible_pairs(s, window=None):
@@ -906,6 +926,7 @@ INT8_GENERATE, NEXT_SERVE = "int8_generate", "next_serve"
 GEMMA = "gemma_train"
 VIT = "vit_encode"
 MIMO = "mimo_train"
+DSV3 = "dsv3_train"
 KERNELS = [
     # name, wrapper (module, attribute[, which launches: "window" = those with a
     # sliding window, "full" = those without, "softcap_sink" = those with a
@@ -970,6 +991,13 @@ KERNELS = [
     ("flash_attention_fwd_bwd_causal_dv32", ("attention", "flash_attention_bwd", "full"),
      "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
      partial(k4_case, shape=MIMO_GA_K4, backward=True), (MIMO,)),
+    # K4 at DeepSeek-V3's MLA head dims (96, 64), one layer of its train step
+    ("flash_attention_fwd_causal_d96_dv64", ("attention", "flash_attention", "full"),
+     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:544",
+     partial(k4_case, shape=DSV3_K4), (DSV3,)),
+    ("flash_attention_fwd_bwd_causal_d96_dv64", ("attention", "flash_attention_bwd", "full"),
+     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
+     partial(k4_case, shape=DSV3_K4, backward=True), (DSV3,)),
 ]
 
 
@@ -1315,11 +1343,12 @@ def init_model(model_mod, cfg):
 
 
 def grads_check(phase, model_mod, cfg, b, s, *, fused=True, invariant=None, loss_fn=None,
-                loss_rtol=TRAIN_LOSS_RTOL, grad_rtol=TRAIN_GRAD_RTOL):
+                loss_rtol=TRAIN_LOSS_RTOL, grad_rtol=TRAIN_GRAD_RTOL, batch=None):
     """One fp32 step's loss and gradients, kernels vs plain, same weights;
     ``fused``: the fused-head CE (a model without it takes the full logits).
     ``loss_fn(cfg, model, batch)``, when given, is the loss instead of
-    ``make_loss_fn``'s. ``invariant`` maps the name of a leaf whose gradient
+    ``make_loss_fn``'s; ``batch`` (default ``train_batch(b, s)``) its
+    input. ``invariant`` maps the name of a leaf whose gradient
     is zero in exact arithmetic (fp32 noise on both sides, so no relative
     bar) to the leaf that scales it: both its gradients must stay under
     ``grad_rtol`` times that leaf's (plain) gradient."""
@@ -1329,7 +1358,7 @@ def grads_check(phase, model_mod, cfg, b, s, *, fused=True, invariant=None, loss
 
     model = init_model(model_mod, cfg)
     names = [n for n, _ in model.named_parameters()]
-    batch = train_batch(b, s)
+    batch = train_batch(b, s) if batch is None else batch
     results = []
     for use_kernels in (True, False):
         run_cfg = dict(cfg, use_kernels=use_kernels)
@@ -1368,10 +1397,11 @@ def grads_check(phase, model_mod, cfg, b, s, *, fused=True, invariant=None, loss
 
 
 def train_run(phase, model_mod, cfg, records, card, path, per_step, *, add=True, steps=4, b=4, s=2048, fused=True,
-              lr=3e-4, make_step=None):
+              lr=3e-4, make_step=None, batch=None):
     """A bf16 train step through the port's entry points (``make_optimizer``
     → ``make_train_step``, fused-head CE unless not ``fused``; or
-    ``make_step(model_mod, cfg, optimizer)``): 1 warm-up and ``steps`` timed
+    ``make_step(model_mod, cfg, optimizer)``) on ``batch`` (default
+    ``train_batch(b, s)``): 1 warm-up and ``steps`` timed
     steps, each ended by a device sync; every kernel of ``per_step`` must
     launch that many times a step, and the loss must be finite and fall."""
     import math
@@ -1388,7 +1418,7 @@ def train_run(phase, model_mod, cfg, records, card, path, per_step, *, add=True,
         step = engine.make_train_step(model_mod, cfg, optimizer, fused_head_ce=fused)
     else:
         step = make_step(model_mod, cfg, optimizer)
-    batch = train_batch(b, s)
+    batch = train_batch(b, s) if batch is None else batch
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1576,6 +1606,112 @@ def mimo_paths(records, card):
           "k4_fwd_causal": launches["flash_attention_fwd_causal_dv32"], "k4_bwd": launches["flash_attention_bwd"],
           "moe_host_syncs_per_step": sum(mimo.is_moe_layer(cfg, i) for i in range(cfg["n_layers"])),
           "final_loss": losses[-1]})
+
+
+# ------------------------------------------------------------ DeepSeek-V3 path
+
+
+def dsv3_cfg(n_layers, dtype):
+    """``DEEPSEEK_SMALL_CONFIG`` at full width (q_rank 1536, the default),
+    ``context_length`` set to the sequence length as
+    ``scripts/deepseek_training.py`` does (it lengthens only the RoPE
+    tables); ``n_layers`` below 12 keeps the 3 dense layers first."""
+    from llm_quest_tpu_torch.config import DEEPSEEK_SMALL_CONFIG
+
+    return dict(DEEPSEEK_SMALL_CONFIG, n_layers=n_layers, context_length=2048, dtype=dtype)
+
+
+def mtp_batch(b, s, seed=SEED):
+    """b rows of s random ids through the MTP collator (its 1-shifted targets
+    and 2 pre-shifted pairs), on the card."""
+    import numpy as np
+
+    from llm_quest_tpu_torch.data.datasets import collate_function_mtp
+    from llm_quest_tpu_torch.training.engine import _as_tensors
+
+    rows = np.random.default_rng(seed).integers(0, 50_000, (b, s)).tolist()
+    return _as_tensors(collate_function_mtp(rows, 2), DEVICE)
+
+
+def dsv3_paths(records, card):
+    """DeepSeek-V3 small: the fp32 check (5 layers: 3 dense, 2 MoE; b 1, s
+    512: the MTP loss and every gradient through the kernels against the
+    plain versions, with the same routing), the bf16 12-layer train step at
+    b 4, s 2048 through ``make_deepseek_train_step`` (K4 at (96, 64) forward
+    and backward 14 times a step: 12 layers and 2 MTP blocks), then cached
+    generation: fp32 tokens against the uncached oracle at 2 layers, and the
+    bf16 12-layer model's tok/s and TTFT."""
+    import types
+
+    import torch
+
+    from llm_quest_tpu_torch.inference import generate as gen
+    from llm_quest_tpu_torch.models import deepseek_v3 as dsv3
+    from llm_quest_tpu_torch.ops import moe as moe_ops
+    from llm_quest_tpu_torch.training import mtp_engine
+
+    counts = []
+
+    def loss_fn(cfg, model, batch):
+        loss, aux = dsv3.loss(model, cfg, batch["input_ids"], batch["targets"], batch["shifted_inputs"],
+                              batch["shifted_targets"])
+        counts.append(torch.stack(aux["moe_counts"]))
+        return loss
+
+    # wk_up's bias adds one vector to every key of a head, so one constant
+    # to each row's scores, which the softmax cancels: its gradients are zero
+    # but for noise (the decoupled key's bias is RoPE'd per position: not so)
+    grads_check("dsv3_fp32", dsv3, dsv3_cfg(5, torch.float32), 1, 512, loss_fn=loss_fn, loss_rtol=1e-5,
+                grad_rtol=1e-4, batch=mtp_batch(1, 512),
+                invariant=lambda n: n.replace(".b", ".w") if n.endswith("att.wk_up.b") else None)
+    if not torch.equal(counts[0], counts[1]):  # a near-tie routed one token to another expert
+        raise AssertionError(f"dsv3_fp32: expert counts differ, kernels vs plain:\n{counts[0]}\n{counts[1]}")
+
+    # the train step, its bias fold recording each step's max_vio (the mean
+    # over the MoE layers of (max - mean) / mean of the expert counts)
+    vios = []
+
+    def fold(params, cfg, moe_counts):
+        vios.append(torch.stack([moe_ops.max_violation(c) for c in moe_counts]).mean())
+        return dsv3.update_moe_biases(params, cfg, moe_counts)
+
+    step_model = types.SimpleNamespace(loss=dsv3.loss, update_moe_biases=fold)
+    per_step = {"flash_attention_fwd": 14, "flash_attention_bwd": 14,
+                "flash_attention_fwd_causal_d96_dv64": 14, "flash_attention_fwd_bwd_causal_d96_dv64": 14}
+    cfg = dsv3_cfg(12, torch.bfloat16)
+    launches, losses = train_run(
+        "dsv3_train", dsv3, cfg, records, card, DSV3, per_step, fused=False, batch=mtp_batch(4, 2048),
+        make_step=lambda _, cfg, opt: mtp_engine.make_deepseek_train_step(step_model, cfg, opt))
+    emit({"phase": "dsv3_train_launches", "k4_fwd": launches["flash_attention_fwd"],
+          "k4_bwd": launches["flash_attention_bwd"], "max_vio_last_step": float(vios[-1]),
+          "max_vio_each_step": [float(v) for v in vios], "moe_host_syncs_per_step": cfg["n_layers"] - cfg["num_ffn"],
+          "final_loss": losses[-1]})
+
+    # cached generation: the cache holds k at 96 and v at 64 and the calls
+    # run sdpa (JAX's flash_ok=cache is None); the uncached oracle runs K4
+    fp32 = dsv3_cfg(2, torch.float32)
+    model = init_model(dsv3, fp32)
+    ids = ids_on_card(1, 300)
+    cached = generate(dsv3, model, fp32, ids, 16)
+    uncached = gen.generate_loop_uncached(dsv3, model, fp32, ids, max_gen=16)
+    if not torch.equal(cached, uncached):
+        raise AssertionError(f"dsv3 fp32 cached vs uncached tokens differ:\n{cached[0, -16:]}\n{uncached[0, -16:]}")
+    emit({"phase": "dsv3_generate_fp32", "layers": 2, "b": 1, "prompt": 300, "greedy_tokens_equal": 16})
+    del model
+    torch.cuda.empty_cache()
+
+    model = init_model(dsv3, cfg)
+    reset_launches()
+    seq = generate(dsv3, model, cfg, ids, 16)
+    torch.cuda.synchronize()
+    launches = {name: launch_count(spec) for name, spec, *_ in KERNELS}
+    if tuple(seq.shape) != (1, ids.shape[1] + 16) or not bool(((seq >= 0) & (seq < cfg["vocab_size"])).all()):
+        raise AssertionError(f"dsv3 generation: bad sequences {tuple(seq.shape)}")
+    rates = serve_rates(dsv3, model, cfg, ids, max_gen=16)
+    emit({"phase": "dsv3_generate", "card": card, "dtype": "bfloat16", "layers": 12, "b": 1, "prompt": 300,
+          "max_gen": 16, "tokens": seq[0, -16:].tolist(), "launches": launches, **rates})
+    del model
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ serving paths
@@ -1773,9 +1909,9 @@ def profile_window(phase, card, run, steps=2):
           "top_ms_per_step": [[name[:90], ms / steps] for name, ms in top]})
 
 
-def profile_step(phase, model_mod, cfg, card, fused=True, make_step=None):
+def profile_step(phase, model_mod, cfg, card, fused=True, make_step=None, batch=None):
     """The breakdown of a bf16 train step (b = 4, s = 2048) after 2 warm-up
-    steps (``make_step`` as in ``train_run``)."""
+    steps (``make_step`` and ``batch`` as in ``train_run``)."""
     import torch
 
     from llm_quest_tpu_torch.training import engine
@@ -1787,7 +1923,7 @@ def profile_step(phase, model_mod, cfg, card, fused=True, make_step=None):
         step = engine.make_train_step(model_mod, cfg, optimizer, fused_head_ce=fused)
     else:
         step = make_step(model_mod, cfg, optimizer)
-    batch = train_batch(4, 2048)
+    batch = train_batch(4, 2048) if batch is None else batch
 
     def run():
         state["model"], state["opt"], _ = step(state["model"], state["opt"], batch)
@@ -1824,7 +1960,7 @@ def profile_vit(card, b=128):
 def profile_paths(card):
     import torch
 
-    from llm_quest_tpu_torch.models import gemma3, mimo_v2_flash, qwen3, qwen3_next
+    from llm_quest_tpu_torch.models import deepseek_v3, gemma3, mimo_v2_flash, qwen3, qwen3_next
     from llm_quest_tpu_torch.training import mtp_engine
 
     profile_step("profile_train", qwen3, train_cfg(16, torch.bfloat16), card)
@@ -1832,6 +1968,8 @@ def profile_paths(card):
     profile_step("profile_gemma_train", gemma3, gemma_cfg(18, torch.bfloat16), card, fused=False)
     profile_step("profile_mimo_train", mimo_v2_flash, mimo_cfg(12, torch.bfloat16), card,
                  make_step=mtp_engine.make_mimo_train_step)
+    profile_step("profile_dsv3_train", deepseek_v3, dsv3_cfg(12, torch.bfloat16), card,
+                 make_step=mtp_engine.make_deepseek_train_step, batch=mtp_batch(4, 2048))
     profile_vit(card)
 
 
@@ -1842,7 +1980,7 @@ def main(argv):
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="only profile the bf16 dense, hybrid, Gemma-3 and MiMo-V2-Flash train steps and "
+                        help="only profile the bf16 dense, hybrid, Gemma-3, MiMo-V2-Flash and DeepSeek-V3 train steps and "
                              "the ViT-B encode (torch.profiler) and print the breakdowns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1880,6 +2018,7 @@ def main(argv):
     train_paths(records, smi)
     gemma_paths(records, smi)
     mimo_paths(records, smi)
+    dsv3_paths(records, smi)
     serving_paths(records, smi)
 
     emit({"kernels": records})

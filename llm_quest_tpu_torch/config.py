@@ -2,12 +2,43 @@
 
 Plain dicts with the reference's keys; dtypes are torch dtypes. Only the
 configurations of the ported slices are here: Qwen3.5-0.8B, the dense Qwen3
-entries, Qwen3-Next-small, Gemma-3-small, MiMo-V2-Flash small and the two
-ViTs (the Qwen3 MoE entries wait for the Qwen3 MoE model). A config without a "dtype" key (the
-ViTs, as in the JAX package) runs in torch.float32 (``model_dtype``).
+entries, Qwen3-Next-small, Gemma-3-small, DeepSeek-V3 small, MiMo-V2-Flash
+small and the two ViTs (the Qwen3 MoE entries wait for the Qwen3 MoE model).
+A config without a "dtype" key (the ViTs, as in the JAX package) runs in
+torch.float32 (``model_dtype``).
 """
 
 import torch
+
+# DeepSeek-V3 small (same keys and values as the JAX package's): MLA with the
+# default q_rank 1536, the first num_ffn layers dense SwiGLU, then DeepSeek
+# MoE (num_experts counts the shared expert), pre-shifted MTP of depth 2.
+# "rope_freq" is kept as JAX keeps it; DeepSeek's RoPE tables do not read it.
+DEEPSEEK_SMALL_CONFIG = {
+    "vocab_size": 50304,
+    "context_length": 512,
+    "emb_dim": 768,
+    "n_heads": 12,
+    "n_layers": 12,
+    "hidden_dim": 4 * 768,
+    "num_ffn": 3,
+    "num_experts": 8,
+    "num_shared_experts": 1,
+    "top_k": 3,
+    "moe_scaling_factor": "auto",  # "auto" → width scaled by 1/(top_k + num_shared)
+    "moe_bias_update_rate": 1e-3,
+    "mtp_depth": 2,
+    "mtp_loss_coeff": 0.2,
+    "rope_base": 10_000,
+    "rope_freq": {
+        "factor": 32.0,
+        "alpha": 1.0,
+        "beta": 32.0,
+        "og_ctx_len": 4096,
+        "ctx_len": 8192,
+    },
+    "dtype": torch.float32,
+}
 
 # Gemma-3 small (same keys and values as the JAX package's)
 GEMMA3_SMALL_CONFIG = {

@@ -15,7 +15,11 @@
 //     dv), out (b, hq, sq, dv)): the q/k width D and the v/out width DV are
 //     two template widths. Qwen3.5 text: hq 8, hkv 2, d 256; Gemma-3-270M:
 //     hq 4, hkv 1, d 256, window 512; MiMo-V2-Flash small: hq 12, hkv 4 (SWA,
-//     window 128, sinks) or 2 (GA), d 64, dv 32.
+//     window 128, sinks) or 2 (GA), d 64, dv 32; DeepSeek-V3 small's MLA:
+//     hq = hkv = 12, causal, d 96 (the latent-up 64 and the RoPE'd
+//     decoupled 32, concatenated), dv 64. At d 96, the first width that is
+//     no power of two, each of a row's eight threads owns 12 q/k columns
+//     and 8 v columns; no loop depends on D beyond D % 8 == 0.
 //   llm_quest_tpu/kernels/fused_mha.py::packed_mha (_packed_mha_kernel):
 //     bidirectional maskless attention read straight from the packed
 //     (b, s, h*d) projection outputs, head dims 32, 64 and 128. ViT-B/224:
@@ -555,8 +559,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
 }
 
 // The (d, dv) pairs the kernels are built for: dv = d at 32 (the packed path
-// only, K7; K4's wrapper takes the others), 64, 128 and 256, and d 64 with
-// dv 32 (MiMo-V2-Flash). A pair is one more case here and in launch_bwd_d.
+// only, K7; K4's wrapper takes the others), 64, 128 and 256, d 64 with dv 32
+// (MiMo-V2-Flash) and d 96 with dv 64 (DeepSeek-V3's MLA; shared memory
+// 28.9 KB forward, 33.2 KB dq, 35.6 KB dk/dv). A pair is one more case here
+// and in launch_bwd_d.
 template <typename T>
 int launch_d(int D, int DV, const void* q, const void* k, const void* v, void* o, float* lse,
              const uint8_t* key_mask, int B, int HQ, int HKV, int SQ, int SK, long long q_sb,
@@ -574,6 +580,7 @@ int launch_d(int D, int DV, const void* q, const void* k, const void* v, void* o
   LLMQ_ATTN_CASE(128, 128)
   LLMQ_ATTN_CASE(256, 256)
   LLMQ_ATTN_CASE(64, 32)
+  LLMQ_ATTN_CASE(96, 64)
 #undef LLMQ_ATTN_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -601,6 +608,7 @@ int launch_bwd_d(int D, int DV, const BwdArgs& a, cudaStream_t stream) {
   if (D == 128 && DV == 128) return launch_bwd<T, 128, 128>(a, stream);
   if (D == 256 && DV == 256) return launch_bwd<T, 256, 256>(a, stream);
   if (D == 64 && DV == 32) return launch_bwd<T, 64, 32>(a, stream);
+  if (D == 96 && DV == 64) return launch_bwd<T, 96, 64>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,9 @@
 """Static-shape KV cache (counterpart of ``llm_quest_tpu/inference/cache.py``).
 
 The cache is a dict of tensors pre-allocated to ``max_len`` once, layout
-(n_layers, b, n_kv_heads, max_len, head_dim), plus an int ``pos`` counting
-the filled positions. Unlike the JAX version, writes go IN PLACE into the
+(n_layers, b, n_kv_heads, max_len, head_dim) for k and the same with
+``v_head_dim`` (default head_dim) for v, plus an int ``pos`` counting the
+filled positions. Unlike the JAX version, writes go IN PLACE into the
 preallocated buffers (no copy of the cache per step); ``pos`` is a plain int
 returned in a new dict.
 
@@ -22,14 +23,18 @@ import torch
 from llm_quest_tpu_torch.ops.quantization import QuantKV, quantize_rows_int8
 
 
-def init_kv_cache(n_layers, batch, n_kv_heads, max_len, head_dim, *, dtype=torch.float32, device=None, quant=None):
-    """Zero-filled cache {"k", "v", "pos"}, or the int8 cache with ``quant="int8"``."""
+def init_kv_cache(n_layers, batch, n_kv_heads, max_len, head_dim, *, v_head_dim=None, dtype=torch.float32,
+                  device=None, quant=None):
+    """Zero-filled cache {"k", "v", "pos"}, or the int8 cache with
+    ``quant="int8"``; v rows are ``v_head_dim`` wide (default ``head_dim``:
+    MLA caches q/k at 96 and v at 64)."""
     shape = (n_layers, batch, n_kv_heads, max_len, head_dim)
+    v_shape = shape[:4] + (head_dim if v_head_dim is None else v_head_dim,)
     if quant == "int8":
         return {
             "k_q": torch.zeros(shape, dtype=torch.int8, device=device),
             "k_s": torch.zeros(*shape[:4], 1, dtype=torch.float32, device=device),
-            "v_q": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v_q": torch.zeros(v_shape, dtype=torch.int8, device=device),
             "v_s": torch.zeros(*shape[:4], 1, dtype=torch.float32, device=device),
             "pos": 0,
         }
@@ -37,7 +42,7 @@ def init_kv_cache(n_layers, batch, n_kv_heads, max_len, head_dim, *, dtype=torch
         raise ValueError(f"quant must be None or 'int8', got {quant!r}")
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(v_shape, dtype=dtype, device=device),
         "pos": 0,
     }
 

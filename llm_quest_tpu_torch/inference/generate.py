@@ -11,6 +11,10 @@ the decode step in a CUDA graph is later work.
   decode positions continue from mask.sum().
 - left padding: prompt positions are cumsum(mask) - 1 with pads pinned to 0;
   logits are taken at the last column.
+
+``generate_loop_uncached`` is the parity oracle of the cached engine: each
+step reruns the whole (context-truncated) sequence through ``model.apply``
+without a cache.
 """
 
 import torch
@@ -91,3 +95,25 @@ def generate_kv_cache(
         model, params, cfg, input_ids, mask, max_gen=max_gen, top_k=top_k, top_p=top_p, min_p=min_p,
         temp=temp, eos_ids=eos_ids, pad_id=pad_id, generator=generator,
     )
+
+
+@torch.inference_mode()
+def generate_loop_uncached(
+    model, params, cfg, input_ids, *, max_gen, context_length=None, top_k=None, top_p=None, min_p=None, temp=0.0,
+    eos_ids=None, generator=None,
+):
+    """Uncached decode loop with context truncation: each step runs
+    ``model.apply`` on the last ``context_length`` (default
+    ``cfg["context_length"]``) tokens and samples from the last position
+    (``generator`` drives sampling when temp > 0). Stops before appending a
+    step in which any row drew one of ``eos_ids``. Returns (b, prompt_len +
+    generated) ids."""
+    context_length = context_length or cfg["context_length"]
+    eos = None if eos_ids is None else torch.tensor(_normalize_eos(eos_ids, None), device=input_ids.device)
+    for _ in range(max_gen):
+        logits, _, _ = model.apply(params, cfg, input_ids[:, -context_length:])
+        next_token = sampling(generator, logits[:, -1], top_k=top_k, top_p=top_p, min_p=min_p, temp=temp)
+        if eos is not None and bool(torch.isin(next_token, eos).any()):
+            break
+        input_ids = torch.cat([input_ids, next_token[:, None].to(input_ids.dtype)], dim=-1)
+    return input_ids

@@ -46,8 +46,9 @@ from llm_quest_tpu_torch.ops.attention import merge_heads, sdpa, split_heads
 from llm_quest_tpu_torch.ops.masks import causal_mask, mask_value
 
 # the (q/k head dim d, v head dim dv) pairs K4 (flash_attention) is built for:
-# dv = d, and MiMo-V2-Flash's decoupled value head (d 64, dv 32)
-HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (64, 32)})
+# dv = d, MiMo-V2-Flash's decoupled value head (d 64, dv 32) and DeepSeek-V3
+# small's MLA (q/k 96: the latent-up 64 and the RoPE'd decoupled 32; v 64)
+HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (64, 32), (96, 64)})
 PACKED_HEAD_DIMS = (32, 64, 128)  # the head dims of the packed kernels (K7, K8, K9)
 
 

@@ -9,7 +9,8 @@ dense branch).
 The ``nn.Module`` classes hold the parameters under the JAX tree's names
 (``blocks.3.att.wq.w`` is ``blocks/3/att/wq/w`` there) and are trainable;
 the functions with the JAX package's names compute on them. The MoE variant
-(``model_type="moe"``) waits for ``ops/moe.py`` and raises.
+(``model_type="moe"``) is not ported yet and raises; its layer,
+``ops/moe.py::qwen3_moe``, is ported and runs in Qwen3-Next.
 
 Kernels on this path: flash attention (K4, forward and backward) through the
 attention router, for every call with s ≥ ``flash_min_seq``, and with
@@ -72,7 +73,7 @@ class Qwen3(nn.Module):
     def __init__(self, cfg, device=None):
         super().__init__()
         if cfg.get("model_type", "dense") != "dense":
-            raise NotImplementedError("qwen3: only the dense model is ported (MoE waits for ops/moe.py)")
+            raise NotImplementedError("qwen3: only the dense model is ported (model_type='moe' is not)")
         dtype, device = model_dtype(cfg), resolve_device(device)
         self.cfg = cfg
         self.tok_emb = params(w=torch.empty(cfg["vocab_size"], cfg["emb_dim"], dtype=dtype, device=device),

@@ -17,8 +17,9 @@
   calls (training forwards and cached prefills) go to the flash kernel
   (kernels/attention.py, K4), which is differentiable and takes the sliding
   window, softcap and sinks, and v with its own head dim dv (the (d, dv)
-  pairs of ``kernels/attention.py::HEAD_DIMS``: dv = d, and MiMo-V2-Flash's
-  d 64 / dv 32), unless ``cfg["use_flash"]`` is False;
+  pairs of ``kernels/attention.py::HEAD_DIMS``: dv = d, MiMo-V2-Flash's
+  d 64 / dv 32 and DeepSeek-V3's MLA at d 96 / dv 64), unless
+  ``cfg["use_flash"]`` is False;
   everything else, the bf16-cache decode step included, to ``sdpa``. The
   head-shard and context-parallel branches of the JAX router are not
   ported, and neither is its short-sequence fused-MHA kernel (K6): the JAX

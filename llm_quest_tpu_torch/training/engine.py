@@ -154,9 +154,18 @@ def _device_of(params):
     return _leaves(params)[0].device
 
 
+_LIST_KEYS = ("shifted_inputs", "shifted_targets")  # the MTP collator's per-depth lists
+
+
+def _as_tensor(v, device):
+    return v.to(device) if torch.is_tensor(v) else torch.as_tensor(np.asarray(v), device=device)
+
+
 def _as_tensors(batch, device):
-    """A batch dict (numpy arrays, lists or tensors) as tensors on ``device``."""
-    return {k: v.to(device) if torch.is_tensor(v) else torch.as_tensor(np.asarray(v), device=device)
+    """A batch dict (numpy arrays, lists or tensors) as tensors on ``device``;
+    the MTP collator's ``shifted_inputs`` / ``shifted_targets`` stay lists,
+    one tensor per depth."""
+    return {k: [_as_tensor(a, device) for a in v] if k in _LIST_KEYS else _as_tensor(v, device)
             for k, v in batch.items()}
 
 

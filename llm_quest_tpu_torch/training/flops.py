@@ -33,6 +33,15 @@ takes n_heads kv heads), a dense FFN in every layer, every layer at s/2,
 and no MTP: at ``MIMO_V2_SMALL_CONFIG`` and s 2048 it gives 9.54e8
 FLOP/token against the port's 1.899e9, so JAX's MFU would read about half.
 
+DeepSeek-V3 (a config with ``num_ffn``) is counted as built too
+(``deepseek_train_flops_per_token``): MLA's eight projections through the q
+and kv latents, its scores at the q/k width head_dim·3/2 and the value sum
+at head_dim; the first ``num_ffn`` layers' dense SwiGLU and the DeepSeek MoE
+of the rest; the untied head; and the MTP modules, each on all s tokens
+(the collator pre-shifts). Divergence by design: the JAX count reads dense
+MHA with a dense FFN in every layer and no MTP: at ``DEEPSEEK_SMALL_CONFIG``
+and s 2048 it gives 1.0245e9 FLOP/token against the port's 1.7866e9.
+
 Decode bytes count the KV cache as it is stored: bf16 (or the model's type)
 at its element size, an int8 cache (``cfg["kv_quant"] = "int8"``) at one
 byte an element plus its fp32 k and v scales. Divergence by design: the JAX
@@ -45,7 +54,7 @@ Peaks are those of the card present, looked up by
 
 import torch
 
-from llm_quest_tpu_torch.models import mimo_v2_flash
+from llm_quest_tpu_torch.models import deepseek_v3, mimo_v2_flash
 from llm_quest_tpu_torch.models.gemma3 import is_swa_layer
 from llm_quest_tpu_torch.ops.quantization import param_bytes
 
@@ -174,13 +183,42 @@ def mimo_train_flops_per_token(cfg, *, seq_len):
     return 3 * total
 
 
+def _mla_flops(cfg, kv_len):
+    """Per-token FLOPs of one MLA sublayer at context kv_len."""
+    d, n = cfg["emb_dim"], cfg["n_heads"]
+    hd, dhd = deepseek_v3.head_dims(cfg)
+    qr, kvr = deepseek_v3.q_rank(cfg), 4 * hd
+    q = 2 * d * qr + 2 * qr * d + 2 * qr * n * dhd  # down, up, decoupled
+    kv = 2 * d * kvr + 2 * 2 * kvr * d + 2 * d * dhd  # down, k and v up, decoupled k
+    out = 2 * d * d
+    scores = 2 * kv_len * n * ((hd + dhd) + hd)  # QKᵀ at q/k width, AV at v width
+    return q + kv + out + scores
+
+
+def deepseek_train_flops_per_token(cfg, *, seq_len):
+    """DeepSeek-V3's train-step FLOPs per token (module docstring): 3× the
+    main model's forward and its MTP modules', causal attention at the mean
+    context seq_len / 2."""
+    d = cfg["emb_dim"]
+    attn = _mla_flops(cfg, seq_len // 2)
+    dense_ffn, head = 3 * 2 * d * cfg["hidden_dim"], 2 * d * cfg["vocab_size"]
+    total = head
+    for i in range(cfg["n_layers"]):
+        total += attn + (dense_ffn if i < cfg["num_ffn"] else _deepseek_moe_flops(cfg))
+    total += cfg["mtp_depth"] * (2 * 2 * d * d + attn + dense_ffn + head)
+    return 3 * total
+
+
 def text_train_flops_per_token(cfg, *, seq_len):
     """Train-step FLOPs per token: 3× forward, causal attention averaged over
     positions (mean context = seq_len / 2), sliding-window layers with a
     window below seq_len at ``swa_mean_context`` (module docstring);
-    MiMo-V2-Flash by ``mimo_train_flops_per_token``."""
+    MiMo-V2-Flash by ``mimo_train_flops_per_token``, DeepSeek-V3 by
+    ``deepseek_train_flops_per_token``."""
     if "hybrid_ratio" in cfg:
         return mimo_train_flops_per_token(cfg, seq_len=seq_len)
+    if "num_ffn" in cfg:
+        return deepseek_train_flops_per_token(cfg, seq_len=seq_len)
     total = text_forward_flops_per_token(cfg, kv_len=seq_len // 2)
     window = cfg.get("window_size", 0)
     if "local_global_att_ratio" in cfg and 0 < window < seq_len:

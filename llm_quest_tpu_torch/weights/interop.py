@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from llm_quest_tpu_torch.config import resolve_device
-from llm_quest_tpu_torch.models import gemma3, mimo_v2_flash, qwen3, qwen3_5, qwen3_next, vit
+from llm_quest_tpu_torch.models import deepseek_v3, gemma3, mimo_v2_flash, qwen3, qwen3_5, qwen3_next, vit
 from llm_quest_tpu_torch.ops.linear import Linear
 from llm_quest_tpu_torch.ops.quantization import quantized_like
 
@@ -29,6 +29,8 @@ from llm_quest_tpu_torch.ops.quantization import quantized_like
 def _model_for(flat, cfg, device):
     if "img_width" in cfg and "vocab_size" not in cfg:  # an image model with no text side: the ViT
         return vit.ViT(cfg, device)
+    if "num_ffn" in cfg:  # dense blocks, then DeepSeek MoE, with MLA and MTP: DeepSeek-V3
+        return deepseek_v3.DeepSeekV3(cfg, device)
     if "hybrid_ratio" in cfg:  # the SWA/GA hybrid with MTP: MiMo-V2-Flash
         return mimo_v2_flash.MiMoV2Flash(cfg, device)
     if "window_size" in cfg and "local_global_att_ratio" in cfg:  # local/global attention: Gemma-3
@@ -48,10 +50,11 @@ def from_jax_flat(flat, cfg, *, device=None):
     flat: {"/"-joined path: numpy array}, i.e. ``flatten_params`` of the
     JAX params converted with ``np.asarray``. An image config with no
     vocabulary (``img_width``, no ``vocab_size``) gives a ``vit.ViT`` (its
-    patch conv weight keeps its conv layout). A config with
-    ``hybrid_ratio`` gives a ``mimo_v2_flash.MiMoV2Flash`` (its "mtp/<k>/…"
-    modules, and the "blocks/<i>/moe/biases" leaves loaded into the MoE
-    buffers). A config with ``window_size``
+    patch conv weight keeps its conv layout). A config with ``num_ffn``
+    gives a ``deepseek_v3.DeepSeekV3`` and one with ``hybrid_ratio`` a
+    ``mimo_v2_flash.MiMoV2Flash`` (each with its "mtp/<k>/…" modules, and
+    the "blocks/<i>/moe/biases" leaves loaded into the MoE buffers). A
+    config with ``window_size``
     and ``local_global_att_ratio`` gives a ``gemma3.Gemma3``; a hybrid
     config with MoE keys
     (``num_experts``), or a hybrid tree with "moe/" parameters, gives a

@@ -17,9 +17,10 @@ them, within 1e-4 fp32:
   dq/dk/dv/dsink against the interpret-mode kernel and ``jax.grad`` of it at
   the shapes of ``tests/test_flash_attention.py`` (b 2, 4/2 heads, s 200,
   d 64), within that file's bars: 2e-5 forward, 5e-5 gradients;
-- K4 with v's own head dim (d 64, dv 32, MiMo-V2-Flash's): the plain version
-  and its dq/dk/dv/dsink against the interpret-mode kernel and ``jax.grad``
-  of it, windowed with sinks (GQA 3) and causal (GQA 6), at the same bars;
+- K4 with v's own head dim (d 64, dv 32, MiMo-V2-Flash's; d 96, dv 64,
+  DeepSeek-V3's MLA): the plain version and its dq/dk/dv/dsink against the
+  interpret-mode kernel and ``jax.grad`` of it, windowed with sinks (GQA 3),
+  causal (GQA 6) and causal MHA at (96, 64), at the same bars;
 - K7: ``packed_mha(q, k, v, n_heads, None, True)`` at d = 64.
 
 ``causal_mask(window_size=)`` is held to ``swa_causal_mask_table`` and to
@@ -169,16 +170,20 @@ def test_router_flash_route_carries_gradients():
 def test_flash_wrapper_rejects_unported_features():
     """The kernel's argument check refuses, before any launch, what the CUDA
     kernels do not take: (d, dv) pairs other than (64, 64), (128, 128),
-    (256, 256) and (64, 32) (the window, softcap and sinks are ported),
-    k/v of another shape than q's batch and head dim, and malformed feature
-    arguments."""
+    (256, 256), (64, 32) and (96, 64) (the window, softcap and sinks are
+    ported), k/v of another shape than q's batch and head dim, and malformed
+    feature arguments. DeepSeek-V3's MLA pair (96, 64) passes the head-dim
+    check and is refused here only for lying on the CPU."""
     q = torch.zeros(1, 2, 4, 64)
     with pytest.raises(ValueError, match="k/v must be"):
         kattn._check(q, torch.zeros(1, 2, 4, 32), q, None, True, 0)
-    for d, dv in ((96, 96), (64, 48), (128, 32), (96, 64)):
+    for d, dv in ((96, 96), (64, 48), (128, 32), (192, 128)):
         qd, vd = torch.zeros(1, 2, 4, d), torch.zeros(1, 2, 4, dv)
         with pytest.raises(ValueError, match="head dims"):
             kattn._check(qd, qd, vd, None, True, 0)
+    qd, vd = torch.zeros(1, 2, 4, 96), torch.zeros(1, 2, 4, 64)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kattn._check(qd, qd, vd, None, True, 0)
     with pytest.raises(ValueError, match="window_size"):
         kattn._check(q, q, q, None, True, 0, window_size=0)
     with pytest.raises(ValueError, match="softcap"):
@@ -269,20 +274,22 @@ def test_k4_plain_window_softcap_sink_gradients_match_pallas_vjp(name):
 
 
 # MiMo-V2-Flash's heads: d 64, dv 32; SWA layers window + sinks with 3 q heads
-# per kv head, GA layers causal with 6
+# per kv head, GA layers causal with 6. DeepSeek-V3's MLA: d 96, dv 64,
+# causal, as many kv heads as q heads (MLA's scale is q's width^-0.5, the default)
 DV_CASES = {
     "window_sink": {"hq": 6, "hkv": 2, "window_size": 32, "sink": True},
     "causal_gqa6": {"hq": 6, "hkv": 1},
+    "mla_96_64": {"hq": 4, "hkv": 4, "d": 96, "dv": 64},
 }
 
 
 @pytest.mark.parametrize("name", DV_CASES)
 def test_k4_plain_dv_matches_pallas(name):
-    """K4 at d 64 / dv 32: the plain version, its autograd dq/dk/dv(/dsink)
-    and the plain backward against the interpret-mode kernel and jax.grad of
-    it; s 200 ends inside a key tile."""
+    """K4 at d 64 / dv 32 and at d 96 / dv 64: the plain version, its
+    autograd dq/dk/dv(/dsink) and the plain backward against the
+    interpret-mode kernel and jax.grad of it; s 200 ends inside a key tile."""
     case = DV_CASES[name]
-    b, s, d, dv = 2, 200, 64, 32
+    b, s, d, dv = 2, 200, case.get("d", 64), case.get("dv", 32)
     q, k = rand(b, case["hq"], s, d), rand(b, case["hkv"], s, d, seed=1)
     v, do = rand(b, case["hkv"], s, dv, seed=2), rand(b, case["hq"], s, dv, seed=3)
     sink = rand(case["hq"], seed=5) if case.get("sink") else None

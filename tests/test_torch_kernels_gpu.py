@@ -236,9 +236,12 @@ def test_flash_attention_window_at_least_s_is_causal_on_the_card(gen, dtype):
         assert torch.equal(attention.flash_attention(q, k, v, window_size=w), causal)
 
 
-# K4 at MiMo-V2-Flash's heads (d 64, dv 32), and one d = dv case:
+# K4 at MiMo-V2-Flash's heads (d 64, dv 32), at DeepSeek-V3's MLA (d 96,
+# dv 64, causal MHA), and one d = dv case:
 # name -> (hq, hkv, sq, sk, q_start, d, dv, features)
 DV_CASES = {
+    "mla_causal_padding": (12, 12, 300, 300, 0, 96, 64, {"padding": True}),
+    "ragged_2045_mla": (12, 12, 2045, 2045, 0, 96, 64, {}),
     "window_sink_padding": (12, 4, 300, 300, 0, 64, 32, {"window_size": 128, "sink": True, "padding": True}),
     "causal_gqa6": (12, 2, 300, 300, 0, 64, 32, {}),
     "ragged_2045_window_sink": (6, 2, 2045, 2045, 0, 64, 32, {"window_size": 128, "sink": True}),
@@ -256,7 +259,8 @@ def test_flash_attention_dv_kernels(gen, dtype, name):
     window and sinks with key padding, the GA layers' causal GQA at group 6,
     the MTP blocks' ragged length (2045: no multiple of the 16-row or 32-key
     tiles) and a window with q_start > 0 (sq < sk, the dk/dv row bound),
-    the last also at d = dv = 128."""
+    the last also at d = dv = 128; and DeepSeek-V3's MLA pair (96, 64),
+    causal MHA with key padding and at the ragged 2045."""
     from llm_quest_tpu_torch.kernels import attention
 
     hq, hkv, sq, sk, q_start, d, dv, features = DV_CASES[name]
@@ -287,7 +291,7 @@ def test_flash_attention_refuses_unsupported_head_dim_pairs(gen):
     from llm_quest_tpu_torch.kernels import attention
 
     n = attention.flash_attention.launches
-    for d, dv in ((64, 48), (128, 64), (96, 64), (32, 32)):
+    for d, dv in ((64, 48), (128, 64), (192, 128), (32, 32)):
         q, v = randn(gen, 1, 2, 40, d), randn(gen, 1, 2, 40, dv)
         with pytest.raises(ValueError, match=r"kernel head dims \(d, dv\) are \[\(64, 32\)"):
             attention.flash_attention(q, q, v)
@@ -540,6 +544,39 @@ def test_mimo_gradients_through_kernels(gen):
         assert_close(got, ref, torch.float32)
     opt = engine.make_optimizer(1e-3)
     mtp_engine.make_mimo_train_step(mimo, cfg, opt)(model, opt.init(model), batch)
+    assert all(float(b.moe.biases.abs().max()) == pytest.approx(1e-3) for b in model.blocks[1:])
+
+
+def test_deepseek_gradients_through_kernels(gen):
+    """A tiny DeepSeek-V3 at the small config's head dims (4 heads of 64, so
+    MLA's q/k 96 and v 64; 3 layers, 1 dense, MTP depth 2, a batch from the
+    MTP collator): the loss and every gradient through K4 (3 main layers and
+    2 MTP blocks, each at the full length) against the plain versions, fp32;
+    then a train step folds the expert counts into the biases."""
+    from llm_quest_tpu_torch.config import DEEPSEEK_SMALL_CONFIG
+    from llm_quest_tpu_torch.data.datasets import collate_function_mtp
+    from llm_quest_tpu_torch.kernels import attention
+    from llm_quest_tpu_torch.models import deepseek_v3 as dsv3
+    from llm_quest_tpu_torch.training import engine, mtp_engine
+
+    cfg = dict(DEEPSEEK_SMALL_CONFIG, vocab_size=256, context_length=128, emb_dim=256, n_heads=4, n_layers=3,
+               num_ffn=1, hidden_dim=256, q_rank=128, num_experts=5, flash_min_seq=16)
+    model = dsv3.init(cfg, generator=torch.Generator(device="cuda").manual_seed(6), device="cuda")
+    rows = torch.randint(1, 256, (2, 96), generator=gen, device="cuda").tolist()
+    batch = collate_function_mtp([rows[0], rows[1][:80]], cfg["mtp_depth"], pad_token_id=0)
+    b = engine._as_tensors(batch, torch.device("cuda"))
+    args = (b["input_ids"], b["targets"], b["shifted_inputs"], b["shifted_targets"])
+    n, n_fwd = attention.flash_attention_bwd.launches, attention.flash_attention.launches
+    results = {}
+    for use_kernels in (True, False):
+        loss, _ = dsv3.loss(model, dict(cfg, use_kernels=use_kernels), *args)
+        results[use_kernels] = (loss.detach(), torch.autograd.grad(loss, list(model.parameters())))
+    assert (attention.flash_attention.launches, attention.flash_attention_bwd.launches) == (n_fwd + 5, n + 5)
+    assert_close(results[True][0], results[False][0], torch.float32)
+    for got, ref in zip(results[True][1], results[False][1]):
+        assert_close(got, ref, torch.float32)
+    opt = engine.make_optimizer(1e-3)
+    mtp_engine.make_deepseek_train_step(dsv3, cfg, opt)(model, opt.init(model), batch)
     assert all(float(b.moe.biases.abs().max()) == pytest.approx(1e-3) for b in model.blocks[1:])
 
 

@@ -401,22 +401,52 @@ def test_train_step_matches_jax(jparams, japply, model, routing):
         assert max_err(ref[f"blocks/{i}/moe/biases"], bias.numpy()) <= LR * 0.1 * 1e-3 * 1.01
 
 
-def test_optimizer_decays_jax_biases_not_the_ports(jparams, routing):
-    """The reference fault (ROADMAP Queue 3): JAX keeps ``biases`` as a leaf
-    of ``params`` and its AdamW has no mask, so one step with weight decay
-    0.1 at learning rate 1e-2 shrinks them by lr·wd·b before the sign
-    update; the port's buffers move by the sign update alone."""
+# a tiny DeepSeek-V3 (tests/test_deepseek.py's widths, 3 layers: 1 dense, 2
+# MoE with 4 routed experts at top-2 and 1 shared) for the reference fault
+DSV3_TINY = {
+    "vocab_size": 128, "context_length": 64, "emb_dim": 48, "n_heads": 4, "n_layers": 3, "hidden_dim": 96,
+    "num_ffn": 1, "num_experts": 5, "num_shared_experts": 1, "top_k": 2, "moe_scaling_factor": 1,
+    "moe_bias_update_rate": 1e-3, "mtp_depth": 2, "mtp_loss_coeff": 0.2, "rope_base": 10_000, "q_rank": 64,
+}
+
+
+def bias_fault_case(name, jparams):
+    """(JAX params, JAX step maker, JAX batch, port config, port step maker,
+    port batch) of MiMo-V2-Flash's (``jparams``) or DeepSeek-V3's tiny model."""
+    if name == "mimo":
+        b = batch_np(20)
+        return (jax.tree.map(jnp.copy, jparams), lambda opt: jmake_step(JCFG, opt), jbatch(b), TCFG,
+                lambda opt: mtp_engine.make_mimo_train_step(tm, TCFG, opt), b)
+    from llm_quest_tpu.models import deepseek_v3 as jd
+    from llm_quest_tpu.training.mtp_engine import make_deepseek_train_step as jmake_dsv3_step
+    from llm_quest_tpu_torch.data.datasets import collate_function_mtp
+    from llm_quest_tpu_torch.models import deepseek_v3 as td
+
+    jcfg, tcfg = dict(DSV3_TINY, dtype=jnp.float32), dict(DSV3_TINY, dtype=torch.float32)
+    rng = np.random.default_rng(20)
+    b = collate_function_mtp([rng.integers(1, 128, n).tolist() for n in (S, S - 5)], 2, pad_token_id=0)
+    jb = {k: [jnp.asarray(a) for a in v] if isinstance(v, list) else jnp.asarray(v) for k, v in b.items()}
+    return (jd.init(jax.random.PRNGKey(0), jcfg), lambda opt: jmake_dsv3_step(jcfg, opt), jb, tcfg,
+            lambda opt: mtp_engine.make_deepseek_train_step(td, tcfg, opt), b)
+
+
+@pytest.mark.parametrize("name", ["mimo", "deepseek_v3"])
+def test_optimizer_decays_jax_biases_not_the_ports(name, jparams, routing):
+    """The reference fault (ROADMAP Queue 3), in both models with the
+    DeepSeek MoE: JAX keeps ``biases`` as a leaf of ``params`` and its AdamW
+    has no mask, so one step with weight decay 0.1 at learning rate 1e-2
+    shrinks them by lr·wd·b before the sign update; the port's buffers move
+    by the sign update alone."""
     lr, wd, rate = 1e-2, 0.1, TINY["moe_bias_update_rate"]
     start = {1: np.asarray([0.02, -0.01, 0.015, -0.03], np.float32), 2: np.asarray([-0.02, 0.01, 0.03, 0.0], np.float32)}
-    jp = jax.tree.map(jnp.copy, jparams)
+    jp, jmake, jb, tcfg, tmake, b = bias_fault_case(name, jparams)
     for i, bias in start.items():
         jp["blocks"][i]["moe"]["biases"] = jnp.asarray(bias)
-    model = from_jax_flat(flat(jp), TCFG, device="cpu")
-    b = batch_np(20)
-    jstep = jmake_step(JCFG, jengine.make_optimizer(lr, weight_decay=wd))
-    jp, _, _ = jstep(jp, jengine.make_optimizer(lr, weight_decay=wd).init(jp), jbatch(b), jax.random.PRNGKey(0))
+    model = from_jax_flat(flat(jp), tcfg, device="cpu")
+    jp, _, _ = jmake(jengine.make_optimizer(lr, weight_decay=wd))(
+        jp, jengine.make_optimizer(lr, weight_decay=wd).init(jp), jb, jax.random.PRNGKey(0))
     opt = tengine.make_optimizer(lr, weight_decay=wd)
-    mtp_engine.make_mimo_train_step(tm, TCFG, opt)(model, opt.init(model), b)
+    tmake(opt)(model, opt.init(model), b)
     assert min(routing["margins"]) > MARGIN
     for (i, bias), counts in zip(start.items(), routing["counts"]):  # the main model's MoE blocks
         moe = model.blocks[i].moe
