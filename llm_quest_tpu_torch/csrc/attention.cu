@@ -43,13 +43,16 @@
 // a row with no visible key averages the keys it visited instead of NaN;
 // keys past sk contribute nothing.
 //
-// Bound: this first version runs the products on the fp32 SIMT units, not
-// the tensor cores, so it is bound by shared-memory bandwidth of the score
-// and PV loops. The tensor-core (wgmma) form is later work. At d = 256 the
-// staged tiles take 84 KB, above the 48 KB default, so the launch raises the
-// kernel's dynamic shared-memory limit first. The backward's design is
-// described above its kernels below.
-#include "common.cuh"
+// Dtypes: this file's kernels run fp32 inputs, with every product on the
+// fp32 SIMT units, so they are bound by shared-memory bandwidth of the score
+// and PV loops; fp32 keeps them, because the fp32 checks hold the port to
+// its plain versions at 2e-4 down to 1e-6, which TF32 or bf16 operands
+// would break. bf16 inputs go to the tensor-core (wgmma) kernels of
+// attention_tc.cu; the C entry points at the end of this file branch on the
+// dtype. At d = 256 the staged tiles take 84 KB, above the 48 KB default, so
+// the launch raises the kernel's dynamic shared-memory limit first. The
+// backward's design is described above its kernels below.
+#include "attention.cuh"
 
 namespace llmq {
 namespace {
@@ -59,7 +62,6 @@ constexpr int kBK = 32;       // keys per staged tile
 constexpr int kThreads = 128;
 constexpr int kTPR = kThreads / kBQ;  // threads per query row (8, within one warp)
 constexpr int kPS = kBK + 1;          // padded row stride of the probability tile
-constexpr float kMasked = -1.7014117331926443e38f;  // finfo(float32).min / 2
 
 // First key of the kBK-aligned tile that the query at absolute position
 // qpos0 (a block's first row) needs: keys at or below qpos - window are
@@ -80,10 +82,10 @@ constexpr size_t smem_bytes() {
 
 // grid (ceil(sq / kBQ), b*hq), block kThreads, dynamic smem smem_bytes<D, DV>().
 // q/k rows are D wide, v/o rows DV wide.
-template <typename T, int D, int DV>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, float* __restrict__ lse,
+attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     float* __restrict__ o, float* __restrict__ lse,
                      const uint8_t* __restrict__ key_mask, int HQ, int HKV,
                      int SQ, int SK, long long q_sb, long long q_sh, long long q_ss,
                      long long k_sb, long long k_sh, long long k_ss, long long v_sb,
@@ -107,14 +109,14 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int tid = threadIdx.x;
   const int r = tid / kTPR, c = tid % kTPR;
 
-  const T* qb = q + bi * q_sb + hq * q_sh;
-  const T* kb = k + bi * k_sb + hk * k_sh;
-  const T* vb = v + bi * v_sb + hk * v_sh;
+  const float* qb = q + bi * q_sb + hq * q_sh;
+  const float* kb = k + bi * k_sb + hk * k_sh;
+  const float* vb = v + bi * v_sb + hk * v_sh;
   const uint8_t* mb = key_mask != nullptr ? key_mask + bi * mask_sb : nullptr;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int rr = i / D, d = i % D;
-    q_s[rr * DP + d] = q0 + rr < SQ ? to_f(qb[(q0 + rr) * q_ss + d]) * scale : 0.f;
+    q_s[rr * DP + d] = q0 + rr < SQ ? qb[(q0 + rr) * q_ss + d] * scale : 0.f;
   }
 
   const int q_last = min(q0 + kBQ, SQ) - 1;
@@ -132,13 +134,13 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int j = i / D, d = i % D;
       const bool ok = k0 + j < SK;
-      k_s[j * DP + d] = ok ? to_f(kb[(k0 + j) * k_ss + d]) : 0.f;
-      if constexpr (DV == D) v_s[j * DV + d] = ok ? to_f(vb[(k0 + j) * v_ss + d]) : 0.f;
+      k_s[j * DP + d] = ok ? kb[(k0 + j) * k_ss + d] : 0.f;
+      if constexpr (DV == D) v_s[j * DV + d] = ok ? vb[(k0 + j) * v_ss + d] : 0.f;
     }
     if constexpr (DV < D) {
       for (int i = tid; i < kBK * DV; i += kThreads) {
         const int j = i / DV, d = i % DV;
-        v_s[j * DV + d] = k0 + j < SK ? to_f(vb[(k0 + j) * v_ss + d]) : 0.f;
+        v_s[j * DV + d] = k0 + j < SK ? vb[(k0 + j) * v_ss + d] : 0.f;
       }
     }
     __syncthreads();
@@ -198,10 +200,10 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int n = 0; n < NC; ++n) acc[n] *= corr;
   }
   if (q0 + r < SQ) {
-    T* orow = o + bi * o_sb + hq * o_sh + (q0 + r) * o_ss;
+    float* orow = o + bi * o_sb + hq * o_sh + (q0 + r) * o_ss;
     const float inv = l > 0.f ? 1.f / l : 0.f;  // l = 0 only for a row with no key tile at all
 #pragma unroll
-    for (int n = 0; n < NC; ++n) orow[c + kTPR * n] = from_f<T>(acc[n] * inv);
+    for (int n = 0; n < NC; ++n) orow[c + kTPR * n] = acc[n] * inv;
     if (lse != nullptr && c == 0) lse[(long long)bh * SQ + q0 + r] = m + logf(l);
   }
 }
@@ -232,26 +234,6 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // shared memory with a padded row stride; at d = 256 a block stages ~100 KB,
 // so each launch raises the kernel's dynamic shared-memory limit first.
 
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;          // (b*hq, sq)
-  const float* delta;        // (b*hq, sq)
-  const float* delta_shift;  // (b*hq, sq) or nullptr
-  void* dq;                  // contiguous (b, hq, sq, d)
-  void* dk;                  // contiguous (b, hkv, sk, d)
-  void* dv;                  // contiguous (b, hkv, sk, dv)
-  const uint8_t* key_mask;   // (b, sk) with row stride mask_sb, or nullptr
-  int B, HQ, HKV, SQ, SK;
-  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss, mask_sb;
-  int causal, q_start;
-  float scale;
-  int window;     // 0 = none
-  float softcap;  // 0 = none
-};
-
 // p and ds of one recomputed score s_raw (scaled); ds carries the softcap's
 // chain factor.
 __device__ __forceinline__ void recompute_p(const BwdArgs& a, float s_raw, float lse, float dp, float delta,
@@ -276,7 +258,7 @@ constexpr size_t dq_smem_bytes() {
 }
 
 // grid (ceil(sq / kBQ), b*hq), block kThreads, dynamic smem dq_smem_bytes<D, DV>().
-template <typename T, int D, int DV>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArgs a) {
   constexpr int DP = D + 1;
   constexpr int DVP = DV + 1;
@@ -296,23 +278,23 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
   const int tid = threadIdx.x;
   const int r = tid / kTPR, c = tid % kTPR;
 
-  const T* qb = static_cast<const T*>(a.q) + bi * a.q_sb + hq * a.q_sh;
-  const T* dob = static_cast<const T*>(a.dout) + bi * a.do_sb + hq * a.do_sh;
-  const T* kb = static_cast<const T*>(a.k) + bi * a.k_sb + hk * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + bi * a.v_sb + hk * a.v_sh;
+  const float* qb = static_cast<const float*>(a.q) + bi * a.q_sb + hq * a.q_sh;
+  const float* dob = static_cast<const float*>(a.dout) + bi * a.do_sb + hq * a.do_sh;
+  const float* kb = static_cast<const float*>(a.k) + bi * a.k_sb + hk * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + bi * a.v_sb + hk * a.v_sh;
   const uint8_t* mb = a.key_mask != nullptr ? a.key_mask + bi * a.mask_sb : nullptr;
 
   // the D-wide and DV-wide operands in one loop at DV == D, in two below
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int rr = i / D, d = i % D;
     const bool ok = q0 + rr < a.SQ;
-    q_s[rr * DP + d] = ok ? to_f(qb[(q0 + rr) * a.q_ss + d]) * a.scale : 0.f;
-    if constexpr (DV == D) do_s[rr * DVP + d] = ok ? to_f(dob[(q0 + rr) * a.do_ss + d]) : 0.f;
+    q_s[rr * DP + d] = ok ? qb[(q0 + rr) * a.q_ss + d] * a.scale : 0.f;
+    if constexpr (DV == D) do_s[rr * DVP + d] = ok ? dob[(q0 + rr) * a.do_ss + d] : 0.f;
   }
   if constexpr (DV < D) {
     for (int i = tid; i < kBQ * DV; i += kThreads) {
       const int rr = i / DV, d = i % DV;
-      do_s[rr * DVP + d] = q0 + rr < a.SQ ? to_f(dob[(q0 + rr) * a.do_ss + d]) : 0.f;
+      do_s[rr * DVP + d] = q0 + rr < a.SQ ? dob[(q0 + rr) * a.do_ss + d] : 0.f;
     }
   }
 
@@ -334,13 +316,13 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int j = i / D, d = i % D;
       const bool ok = k0 + j < a.SK;
-      k_s[j * DP + d] = ok ? to_f(kb[(k0 + j) * a.k_ss + d]) : 0.f;
-      if constexpr (DV == D) v_s[j * DVP + d] = ok ? to_f(vb[(k0 + j) * a.v_ss + d]) : 0.f;
+      k_s[j * DP + d] = ok ? kb[(k0 + j) * a.k_ss + d] : 0.f;
+      if constexpr (DV == D) v_s[j * DVP + d] = ok ? vb[(k0 + j) * a.v_ss + d] : 0.f;
     }
     if constexpr (DV < D) {
       for (int i = tid; i < kBK * DV; i += kThreads) {
         const int j = i / DV, d = i % DV;
-        v_s[j * DVP + d] = k0 + j < a.SK ? to_f(vb[(k0 + j) * a.v_ss + d]) : 0.f;
+        v_s[j * DVP + d] = k0 + j < a.SK ? vb[(k0 + j) * a.v_ss + d] : 0.f;
       }
     }
     __syncthreads();
@@ -383,9 +365,9 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
   }
 
   if (row_ok) {
-    T* dqrow = static_cast<T*>(a.dq) + stat * D;
+    float* dqrow = static_cast<float*>(a.dq) + stat * D;
 #pragma unroll
-    for (int n = 0; n < NC; ++n) dqrow[c + kTPR * n] = from_f<T>(acc[n] * a.scale);
+    for (int n = 0; n < NC; ++n) dqrow[c + kTPR * n] = acc[n] * a.scale;
   }
 }
 
@@ -400,7 +382,7 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 // grid (ceil(sk / kKvBK), b*hkv), block kThreads, dynamic smem dkv_smem_bytes<D, DV>().
-template <typename T, int D, int DV>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdArgs a) {
   constexpr int DP = D + 1;
   constexpr int DVP = DV + 1;
@@ -425,19 +407,19 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
   const int j = tid / kTPR, c = tid % kTPR;
   const int kpos = k0 + j;
 
-  const T* kb = static_cast<const T*>(a.k) + bi * a.k_sb + hk * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + bi * a.v_sb + hk * a.v_sh;
+  const float* kb = static_cast<const float*>(a.k) + bi * a.k_sb + hk * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + bi * a.v_sb + hk * a.v_sh;
   const uint8_t* mb = a.key_mask != nullptr ? a.key_mask + bi * a.mask_sb : nullptr;
   for (int i = tid; i < kKvBK * D; i += kThreads) {
     const int jj = i / D, d = i % D;
     const bool ok = k0 + jj < a.SK;
-    k_s[jj * DP + d] = ok ? to_f(kb[(k0 + jj) * a.k_ss + d]) : 0.f;
-    if constexpr (DV == D) v_s[jj * DVP + d] = ok ? to_f(vb[(k0 + jj) * a.v_ss + d]) : 0.f;
+    k_s[jj * DP + d] = ok ? kb[(k0 + jj) * a.k_ss + d] : 0.f;
+    if constexpr (DV == D) v_s[jj * DVP + d] = ok ? vb[(k0 + jj) * a.v_ss + d] : 0.f;
   }
   if constexpr (DV < D) {
     for (int i = tid; i < kKvBK * DV; i += kThreads) {
       const int jj = i / DV, d = i % DV;
-      v_s[jj * DVP + d] = k0 + jj < a.SK ? to_f(vb[(k0 + jj) * a.v_ss + d]) : 0.f;
+      v_s[jj * DVP + d] = k0 + jj < a.SK ? vb[(k0 + jj) * a.v_ss + d] : 0.f;
     }
   }
   const bool key_ok = kpos < a.SK && (mb == nullptr || mb[kpos] != 0);
@@ -457,21 +439,21 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
 
   for (int g = 0; g < group; ++g) {
     const int hq = hk * group + g;
-    const T* qb = static_cast<const T*>(a.q) + bi * a.q_sb + hq * a.q_sh;
-    const T* dob = static_cast<const T*>(a.dout) + bi * a.do_sb + hq * a.do_sh;
+    const float* qb = static_cast<const float*>(a.q) + bi * a.q_sb + hq * a.q_sh;
+    const float* dob = static_cast<const float*>(a.dout) + bi * a.do_sb + hq * a.do_sh;
     const long long stat0 = ((long long)bi * a.HQ + hq) * a.SQ;
     for (int q0 = t0; q0 < i_end; q0 += kKvBQ) {
       __syncthreads();  // the previous tile is consumed (and k_s/v_s are staged)
       for (int i = tid; i < kKvBQ * D; i += kThreads) {
         const int rr = i / D, d = i % D;
         const bool ok = q0 + rr < a.SQ;
-        q_s[rr * DP + d] = ok ? to_f(qb[(q0 + rr) * a.q_ss + d]) : 0.f;
-        if constexpr (DV == D) do_s[rr * DVP + d] = ok ? to_f(dob[(q0 + rr) * a.do_ss + d]) : 0.f;
+        q_s[rr * DP + d] = ok ? qb[(q0 + rr) * a.q_ss + d] : 0.f;
+        if constexpr (DV == D) do_s[rr * DVP + d] = ok ? dob[(q0 + rr) * a.do_ss + d] : 0.f;
       }
       if constexpr (DV < D) {
         for (int i = tid; i < kKvBQ * DV; i += kThreads) {
           const int rr = i / DV, d = i % DV;
-          do_s[rr * DVP + d] = q0 + rr < a.SQ ? to_f(dob[(q0 + rr) * a.do_ss + d]) : 0.f;
+          do_s[rr * DVP + d] = q0 + rr < a.SQ ? dob[(q0 + rr) * a.do_ss + d] : 0.f;
         }
       }
       if (tid < kKvBQ) {
@@ -526,19 +508,19 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
 
   if (kpos < a.SK) {
     const long long row = (long long)bh * a.SK + kpos;
-    T* dkrow = static_cast<T*>(a.dk) + row * D;
-    T* dvrow = static_cast<T*>(a.dv) + row * DV;
+    float* dkrow = static_cast<float*>(a.dk) + row * D;
+    float* dvrow = static_cast<float*>(a.dv) + row * DV;
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
-      dkrow[c + kTPR * n] = from_f<T>(dk_acc[n] * a.scale);
-      if (n < NCV) dvrow[c + kTPR * n] = from_f<T>(dv_acc[n]);
+      dkrow[c + kTPR * n] = dk_acc[n] * a.scale;
+      if (n < NCV) dvrow[c + kTPR * n] = dv_acc[n];
     }
   }
 }
 
 // ------------------------------------------------------------------ launches
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, const uint8_t* key_mask,
            int B, int HQ, int HKV, int SQ, int SK, long long q_sb, long long q_sh, long long q_ss,
            long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
@@ -546,14 +528,14 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
            int causal, int q_start, float scale, int window, float softcap, const float* sink,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, DV>();
-  auto kernel = attention_fwd_kernel<T, D, DV>;
+  auto kernel = attention_fwd_kernel<D, DV>;
   // above 48 KB the launch is refused unless the kernel's limit is raised
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((SQ + kBQ - 1) / kBQ, B * HQ);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, key_mask, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, key_mask, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
       v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal, q_start, scale, window, softcap, sink);
   return (int)cudaGetLastError();
 }
@@ -563,7 +545,6 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
 // (MiMo-V2-Flash) and d 96 with dv 64 (DeepSeek-V3's MLA; shared memory
 // 28.9 KB forward, 33.2 KB dq, 35.6 KB dk/dv). A pair is one more case here
 // and in launch_bwd_d.
-template <typename T>
 int launch_d(int D, int DV, const void* q, const void* k, const void* v, void* o, float* lse,
              const uint8_t* key_mask, int B, int HQ, int HKV, int SQ, int SK, long long q_sb,
              long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
@@ -572,7 +553,7 @@ int launch_d(int D, int DV, const void* q, const void* k, const void* v, void* o
              float softcap, const float* sink, cudaStream_t stream) {
 #define LLMQ_ATTN_CASE(DIM, VDIM)                                                              \
   if (D == DIM && DV == VDIM)                                                                  \
-    return launch<T, DIM, VDIM>(q, k, v, o, lse, key_mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, \
+    return launch<DIM, VDIM>(q, k, v, o, lse, key_mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, \
                                 k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb,   \
                                 causal, q_start, scale, window, softcap, sink, stream);
   LLMQ_ATTN_CASE(32, 32)
@@ -585,12 +566,12 @@ int launch_d(int D, int DV, const void* q, const void* k, const void* v, void* o
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   constexpr size_t dq_smem = dq_smem_bytes<D, DV>();
   constexpr size_t kv_smem = dkv_smem_bytes<D, DV>();
-  auto dq_kernel = attention_bwd_dq_kernel<T, D, DV>;
-  auto dkv_kernel = attention_bwd_dkv_kernel<T, D, DV>;
+  auto dq_kernel = attention_bwd_dq_kernel<D, DV>;
+  auto dkv_kernel = attention_bwd_dkv_kernel<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
@@ -602,13 +583,12 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_bwd_d(int D, int DV, const BwdArgs& a, cudaStream_t stream) {
-  if (D == 64 && DV == 64) return launch_bwd<T, 64, 64>(a, stream);
-  if (D == 128 && DV == 128) return launch_bwd<T, 128, 128>(a, stream);
-  if (D == 256 && DV == 256) return launch_bwd<T, 256, 256>(a, stream);
-  if (D == 64 && DV == 32) return launch_bwd<T, 64, 32>(a, stream);
-  if (D == 96 && DV == 64) return launch_bwd<T, 96, 64>(a, stream);
+  if (D == 64 && DV == 64) return launch_bwd<64, 64>(a, stream);
+  if (D == 128 && DV == 128) return launch_bwd<128, 128>(a, stream);
+  if (D == 256 && DV == 256) return launch_bwd<256, 256>(a, stream);
+  if (D == 64 && DV == 32) return launch_bwd<64, 32>(a, stream);
+  if (D == 96 && DV == 64) return launch_bwd<96, 64>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -631,14 +611,15 @@ extern "C" int llmq_attention_fwd(int dtype, const void* q, const void* k, const
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) {
-    return launch_d<float>(D, DV, q, k, v, o, lse_f, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb,
+    return launch_d(D, DV, q, k, v, o, lse_f, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh, q_ss, k_sb,
                            k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal,
                            q_start, scale, window, softcap, sink_f, st);
   }
-  if (dtype == kBFloat16) {
-    return launch_d<__nv_bfloat16>(D, DV, q, k, v, o, lse_f, mask, B, HQ, HKV, SQ, SK, q_sb, q_sh,
-                                   q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                                   mask_sb, causal, q_start, scale, window, softcap, sink_f, st);
+  if (dtype == kBFloat16) {  // the tensor-core kernels of attention_tc.cu
+    const FwdArgs a{q,    k,    v,    o,    lse_f, mask, sink_f, B,       HQ,     HKV,   SQ,    SK,
+                    q_sb, q_sh, q_ss, k_sb, k_sh,  k_ss, v_sb,   v_sh,    v_ss,   o_sb,  o_sh,  o_ss,
+                    mask_sb, causal, q_start, scale, window, softcap};
+    return launch_tc_fwd(D, DV, a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -690,8 +671,8 @@ extern "C" int llmq_attention_bwd(int dtype, const void* q, const void* k, const
   a.window = window;
   a.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_bwd_d<float>(D, DV, a, st);
-  if (dtype == kBFloat16) return launch_bwd_d<__nv_bfloat16>(D, DV, a, st);
+  if (dtype == kFloat32) return launch_bwd_d(D, DV, a, st);
+  if (dtype == kBFloat16) return launch_tc_bwd(D, DV, a, st);  // attention_tc.cu
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,18 @@
-"""Attention kernels (csrc/attention.cu) and their plain PyTorch versions.
+"""Attention kernels (csrc/attention.cu, csrc/attention_tc.cu) and their
+plain PyTorch versions.
+
+Dtype routing, for K4, K5 and K7 alike: the C entry points
+``llmq_attention_fwd`` / ``llmq_attention_bwd`` send bf16 inputs to the
+tensor-core kernels of ``csrc/attention_tc.cu`` (wgmma, bf16 operands, fp32
+accumulators; p and ds become bf16 operands of their products) and fp32
+inputs to the SIMT kernels of ``csrc/attention.cu`` (every product in fp32).
+A bf16 call the tensor-core kernels cannot take (a stride that is no
+multiple of 8 elements, an unaligned start, a (d, dv) pair they are not
+built for) raises before any launch; nothing falls back. Each wrapper counts
+in ``tc_launches`` beside ``launches`` (K5's backward in ``tc_bwd_launches``)
+the calls that the library itself counted as tensor-core launches
+(``llmq_attention_tc_launches``), so a call the C side routed elsewhere does
+not count.
 
 - ``flash_attention``: K4, blockwise online-softmax attention with causal
   masking from a static ``q_start``, a (b, sk) key-validity mask, GQA, a
@@ -73,6 +87,15 @@ HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (64, 32), (96, 64)})
 PACKED_HEAD_DIMS = (32, 64, 128)  # the head dims of the packed kernels (K7, K8, K9)
 
 
+def _check_tc(*tensors):
+    """What the bf16 tensor-core kernels add: their TMA tensor maps need
+    every (batch, head, seq) stride a multiple of 16 bytes (8 elements) and
+    a 16-byte aligned start. Raises ValueError."""
+    for t in tensors:
+        build.require(t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1]),
+                      "bf16 kernel operands need strides that are multiples of 8 and a 16-byte aligned start")
+
+
 def _check(q, k, v, key_mask, causal, q_start, window_size=None, softcap=None, sink=None):
     b, hq, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -89,6 +112,8 @@ def _check(q, k, v, key_mask, causal, q_start, window_size=None, softcap=None, s
     if sink is not None:
         build.require(sink.shape == (hq,), f"sink must be (hq,) = {(hq,)}")
     build.require_cuda(q, k, v, *(t for t in (key_mask, sink) if t is not None))
+    if q.dtype == torch.bfloat16:
+        _check_tc(q, k, v)
 
 
 def _mask_arg(key_mask):
@@ -99,13 +124,21 @@ def _mask_arg(key_mask):
     return m, m.data_ptr(), m.shape[1]
 
 
+def _tc_calls():
+    """The library's count of calls that launched the bf16 tensor-core
+    kernels, kept where the C entry points launch them."""
+    return build.library().cdll.llmq_attention_tc_launches()
+
+
 def _launch_fwd(q, k, v, o, lse, key_mask, *, causal, q_start, scale, qs, ks, vs, os_, dims,
                 window_size=None, softcap=None, sink=None):
     """q/k/v/o strides are (batch, head, seq) triples; dims = (b, hq, hkv, sq, sk, d, dv);
-    lse: contiguous fp32 (b, hq, sq) or None."""
+    lse: contiguous fp32 (b, hq, sq) or None. Returns 1 if the call took the
+    tensor-core kernels, else 0."""
     b, hq, hkv, sq, sk, d, dv = dims
     mask, mask_ptr, mask_sb = _mask_arg(key_mask)
     sink32 = None if sink is None else sink.float().contiguous()
+    tc_before = _tc_calls()
     build.launch(
         "llmq_attention_fwd", build.dtype_code(q),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr(), mask_ptr,
@@ -114,6 +147,7 @@ def _launch_fwd(q, k, v, o, lse, key_mask, *, causal, q_start, scale, qs, ks, vs
         None if sink32 is None else sink32.data_ptr(), build.stream_of(q),
     )
     del mask, sink32  # freed to the caching allocator: only later work on this stream reuses them
+    return _tc_calls() - tc_before
 
 
 def _flash_fwd(q, k, v, key_mask, sink, causal, q_start, scale, window_size, softcap, with_lse):
@@ -121,21 +155,22 @@ def _flash_fwd(q, k, v, key_mask, sink, causal, q_start, scale, window_size, sof
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     o = torch.empty(b, hq, sq, dv, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device) if with_lse else None
-    _launch_fwd(
+    tc = _launch_fwd(
         q, k, v, o, lse, key_mask, causal=causal, q_start=q_start, scale=scale,
         qs=q.stride()[:3], ks=k.stride()[:3], vs=v.stride()[:3], os_=o.stride()[:3],
         dims=(b, hq, hkv, sq, sk, d, dv), window_size=window_size, softcap=softcap, sink=sink,
     )
-    return o, lse
+    return o, lse, tc
 
 
 def _k4_fwd(q, k, v, key_mask, sink, causal, q_start, scale, window_size, softcap, with_lse):
     """K4's forward, counted in ``flash_attention``'s counters."""
-    out = _flash_fwd(q, k, v, key_mask, sink, causal, q_start, scale, window_size, softcap, with_lse)
+    o, lse, tc = _flash_fwd(q, k, v, key_mask, sink, causal, q_start, scale, window_size, softcap, with_lse)
     flash_attention.launches += 1
+    flash_attention.tc_launches += tc
     flash_attention.window_launches += int(window_size is not None)
     flash_attention.softcap_sink_launches += int(softcap is not None or sink is not None)
-    return out
+    return o, lse
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -209,6 +244,7 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0  # the launches that took the tensor-core kernels
 flash_attention.window_launches = 0
 flash_attention.softcap_sink_launches = 0
 
@@ -251,7 +287,7 @@ def flash_attention_bwd_plain(q, k, v, do, *, attn_mask=None, causal=True, q_sta
 
 def _bwd_launch(q, k, v, o, lse, do, attn_mask, causal, q_start, scale, window_size, softcap, delta_shift):
     """``llmq_attention_bwd`` on checked q/k/v; returns (dq, dk, dv, δ, the
-    fp32 shift or None)."""
+    fp32 shift or None, 1 if the call took the tensor-core kernels else 0)."""
     b, hq, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     build.require(do.shape == (b, hq, sq, dv) and o.shape == do.shape, "do and o must be (b, hq, sq, dv)")
@@ -261,7 +297,7 @@ def _bwd_launch(q, k, v, o, lse, do, attn_mask, causal, q_start, scale, window_s
         "lse must be contiguous fp32 (b, hq, sq)",
     )
     build.require_cuda(q, o, lse, do, *(() if delta_shift is None else (delta_shift,)))
-    if do.stride(-1) != 1:
+    if do.stride(-1) != 1 or any(st % 8 for st in do.stride()[:-1]) or do.data_ptr() % 16:
         do = do.contiguous()
     delta = (do.float() * o.float()).sum(-1)  # (b, hq, sq), contiguous
     shift = None
@@ -272,6 +308,7 @@ def _bwd_launch(q, k, v, o, lse, do, attn_mask, causal, q_start, scale, window_s
     dk = torch.empty(b, hkv, sk, d, dtype=q.dtype, device=q.device)
     dv_grad = torch.empty(b, hkv, sk, dv, dtype=q.dtype, device=q.device)
     mask, mask_ptr, mask_sb = _mask_arg(attn_mask)
+    tc_before = _tc_calls()
     build.launch(
         "llmq_attention_bwd", build.dtype_code(q),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -280,7 +317,7 @@ def _bwd_launch(q, k, v, o, lse, do, attn_mask, causal, q_start, scale, window_s
         int(causal), int(q_start), float(scale), int(window_size or 0), float(softcap or 0.0), build.stream_of(q),
     )
     del mask
-    return dq, dk, dv_grad, delta, shift
+    return dq, dk, dv_grad, delta, shift, _tc_calls() - tc_before
 
 
 def flash_attention_bwd(
@@ -301,9 +338,10 @@ def flash_attention_bwd(
             softcap=softcap, sink=sink, delta_shift=delta_shift,
         )
     _check(q, k, v, attn_mask, causal, q_start, window_size, softcap, sink)
-    dq, dk, dv_grad, delta, shift = _bwd_launch(q, k, v, o, lse, do, attn_mask, causal, q_start, scale, window_size,
-                                                softcap, delta_shift)
+    dq, dk, dv_grad, delta, shift, tc = _bwd_launch(q, k, v, o, lse, do, attn_mask, causal, q_start, scale,
+                                                    window_size, softcap, delta_shift)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.tc_launches += tc
     flash_attention_bwd.window_launches += int(window_size is not None)
     flash_attention_bwd.softcap_sink_launches += int(softcap is not None or sink is not None)
     if sink is None:
@@ -315,6 +353,7 @@ def flash_attention_bwd(
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.tc_launches = 0
 flash_attention_bwd.window_launches = 0
 flash_attention_bwd.softcap_sink_launches = 0
 
@@ -343,16 +382,18 @@ class _FlashAttentionLse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv, _, _ = _bwd_launch(q, k, v, o, lse, do, None, ctx.causal, 0, ctx.scale, None, None, dlse)
+        dq, dk, dv, _, _, tc = _bwd_launch(q, k, v, o, lse, do, None, ctx.causal, 0, ctx.scale, None, None, dlse)
         flash_attention_with_lse.bwd_launches += 1
+        flash_attention_with_lse.tc_bwd_launches += tc
         flash_attention_with_lse.causal_bwd_launches += int(ctx.causal)
         return dq, dk, dv, None, None
 
 
 def _lse_fwd(q, k, v, causal, scale):
     """K4's forward with its lse, counted in ``flash_attention_with_lse``'s counters."""
-    o, lse = _flash_fwd(q, k, v, None, None, causal, 0, scale, None, None, with_lse=True)
+    o, lse, tc = _flash_fwd(q, k, v, None, None, causal, 0, scale, None, None, with_lse=True)
     flash_attention_with_lse.launches += 1
+    flash_attention_with_lse.tc_launches += tc
     flash_attention_with_lse.causal_launches += int(causal)
     return o, lse
 
@@ -378,6 +419,8 @@ flash_attention_with_lse.launches = 0  # forward launches
 flash_attention_with_lse.bwd_launches = 0  # backward launches (K4's backward kernels, counted here)
 flash_attention_with_lse.causal_launches = 0  # the causal ones among them
 flash_attention_with_lse.causal_bwd_launches = 0
+flash_attention_with_lse.tc_launches = 0  # the tensor-core ones among the forward launches
+flash_attention_with_lse.tc_bwd_launches = 0  # and among the backward launches
 
 
 def packed_mha_plain(q, k, v, n_heads, scale=None):
@@ -416,11 +459,12 @@ def _packed_fwd(q, k, v, n_heads, scale):
     o = torch.empty(b, s, hd, dtype=q.dtype, device=q.device)
     # (batch, head, seq) strides of the packed layout
     packed = lambda t: (t.stride(0), d, t.stride(1))  # noqa: E731
-    _launch_fwd(
+    tc = _launch_fwd(
         q, k, v, o, None, None, causal=False, q_start=0, scale=scale,
         qs=packed(q), ks=packed(k), vs=packed(v), os_=packed(o), dims=(b, n_heads, n_heads, s, s, d, d),
     )
     packed_mha.launches += 1
+    packed_mha.tc_launches += tc
     return o
 
 
@@ -449,9 +493,12 @@ def packed_mha(q, k, v, n_heads, scale=None, *, plain=False):
         return packed_mha_plain(q, k, v, n_heads, scale)
     check_packed_cuda(q, k, v, n_heads)
     build.require(all(t.stride(-1) == 1 for t in (q, k, v)), "q/k/v need a contiguous last dim")
+    if q.dtype == torch.bfloat16:
+        _check_tc(q, k, v)
     if build.needs_grad(q, k, v):
         return _PackedMHA.apply(q, k, v, n_heads, float(scale))
     return _packed_fwd(q, k, v, n_heads, float(scale))
 
 
 packed_mha.launches = 0
+packed_mha.tc_launches = 0

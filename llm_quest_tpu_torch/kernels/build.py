@@ -45,6 +45,8 @@ _SIGNATURES = {
     # dtype, q, k, v, dout, lse, delta, delta_shift, dq, dk, dv, key_mask, B, HQ, HKV, SQ, SK, D, DV,
     # 13 strides, causal, q_start, scale, window, softcap, stream
     "llmq_attention_bwd": [_I] + [_P] * 11 + [_I] * 7 + [_L] * 13 + [_I, _I, _F, _I, _F, _P],
+    # the calls of the two above that launched the bf16 tensor-core kernels
+    "llmq_attention_tc_launches": [],
     # dtype, q, k_q, k_s, v_q, v_s, bias, part_acc, part_ml, out, B, HQ, HKV, S, D, n_splits, split_len,
     # 13 strides, scale, stream
     "llmq_flash_decode": [_I] + [_P] * 9 + [_I] * 7 + [_L] * 13 + [_F, _P],

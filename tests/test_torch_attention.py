@@ -282,6 +282,62 @@ def test_k4_plain_window_softcap_sink_gradients_match_pallas_vjp(name):
         assert_close(got_plain, ref, GRAD_TOL)
 
 
+# The restated divergence of the bf16 tensor-core kernels (csrc/attention_tc.cu):
+# p (forward and backward) and ds are rounded to bf16 before their products,
+# accumulated in fp32. The card's tests hold those kernels to the plain
+# version at the bf16 bar; this pins, on the CPU, that the rounding alone
+# stays inside that bar at these shapes.
+BF16_TOL = 2e-2  # tests/test_torch_kernels_gpu.py's TOL[bfloat16], relative to max(1, max |ref|)
+
+
+def _recompute_backward(q, k, v, do, kw, round_operands):
+    """dq, dk, dv of attention as the flash backward recomputes them, in
+    fp32, with p and ds rounded to bf16 before dV = pᵀ dO, dQ = ds K and
+    dK = dsᵀ Q when ``round_operands``."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    scale, softcap, sink = d**-0.5, kw.get("softcap"), kw.get("sink")
+    kx, vx = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+    scores = q @ kx.transpose(-1, -2) * scale
+    dcap = torch.ones_like(scores)
+    if softcap is not None:
+        th = torch.tanh(scores / softcap)
+        scores, dcap = softcap * th, 1 - th * th
+    hidden = kattn._dense_mask(q, k, kw.get("attn_mask"), kw.get("causal", True), 0, kw.get("window_size"))
+    if hidden is not None:
+        scores = scores.masked_fill(hidden, torch.finfo(torch.float32).min / 2)
+    cols = scores if sink is None else torch.cat([scores, sink[None, :, None, None].expand(b, hq, s, 1)], -1)
+    lse = torch.logsumexp(cols, -1, keepdim=True)
+    p = torch.exp(scores - lse)
+    delta = (do * (p @ vx)).sum(-1, keepdim=True)
+    ds = p * (do @ vx.transpose(-1, -2) - delta) * dcap
+    if hidden is not None:
+        ds = ds.masked_fill(hidden, 0.0)
+    if round_operands:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    group = lambda t: t.reshape(b, hkv, hq // hkv, *t.shape[2:]).sum(2)  # noqa: E731
+    return ds @ kx * scale, group(ds.transpose(-1, -2) @ q) * scale, group(p.transpose(-1, -2) @ do)
+
+
+@pytest.mark.parametrize("name", ["causal", *FEATURES])
+def test_k4_bf16_operand_rounding_stays_within_the_bf16_bar(name):
+    """The plain backward with p and ds rounded to bf16 (the tensor-core
+    kernels' operands) against the fp32 plain backward, at the window,
+    softcap and sink cases' shapes (b 2, 4/2 heads, s 200, d 64): within
+    the card's bf16 bar, and not equal (the rounding is real)."""
+    q, k, v, do, kw = feature_case(name) if name != "causal" else (*feature_case("window")[:4], {})
+    kw = as_torch(kw)
+    q, k, v, do = (T(x) for x in (q, k, v, do))
+    ref = kattn.flash_attention_bwd_plain(q, k, v, do, **kw)[:3]
+    exact = _recompute_backward(q, k, v, do, kw, round_operands=False)
+    rounded = _recompute_backward(q, k, v, do, kw, round_operands=True)
+    for r, e, g in zip(ref, exact, rounded):
+        scale = max(1.0, float(r.abs().max()))
+        assert_close(e, r, TOL * scale)  # the recompute is the plain backward
+        err = float((g - r).abs().max())
+        assert 0 < err <= BF16_TOL * scale, err
+
+
 # MiMo-V2-Flash's heads: d 64, dv 32; SWA layers window + sinks with 3 q heads
 # per kv head, GA layers causal with 6. DeepSeek-V3's MLA: d 96, dv 64,
 # causal, as many kv heads as q heads (MLA's scale is q's width^-0.5, the default)

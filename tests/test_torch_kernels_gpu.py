@@ -8,7 +8,10 @@ machine with an H100:
 
 Tolerances on max |kernel - plain| relative to max(1, max |plain|): fp32 2e-4
 (both compute in fp32, in another summation order), bf16 2e-2 (bf16 inputs
-and outputs round once more). The flash backward's gradients are held to
+and outputs round once more; K4, K5 and K7 take bf16 inputs to their
+tensor-core kernels, which also round p and ds to bf16 before their
+products, and each of their cases asserts which route its launches took).
+The flash backward's gradients are held to
 autograd through the plain forward with the same tolerances, and K1's
 backward to its plain version (the per-chunk replay) on the same anchors.
 K12 (bf16 or int8 scores, no fp32 form) has its own, ``attn_core.py::
@@ -42,6 +45,22 @@ def assert_close(got, ref, dtype):
     torch.cuda.synchronize()
     err = float((got.float() - ref.float()).abs().max())
     assert err <= TOL[dtype] * max(1.0, float(ref.float().abs().max())), err
+
+
+def tc_counts():
+    """The tensor-core launch counts of K4 (forward, backward), K5 (forward,
+    backward) and K7."""
+    from llm_quest_tpu_torch.kernels import attention as a
+
+    return (a.flash_attention.tc_launches, a.flash_attention_bwd.tc_launches, a.flash_attention_with_lse.tc_launches,
+            a.flash_attention_with_lse.tc_bwd_launches, a.packed_mha.tc_launches)
+
+
+def assert_tc_moved(before, dtype, k4=0, k4_bwd=0, k5=0, k5_bwd=0, k7=0):
+    """bf16 launches went to the tensor-core kernels (the counts moved by the
+    launches made), fp32 launches to the SIMT kernels (no count moved)."""
+    moved = (k4, k4_bwd, k5, k5_bwd, k7) if dtype == torch.bfloat16 else (0,) * 5
+    assert tc_counts() == tuple(n + m for n, m in zip(before, moved))
 
 
 def gdn_inputs(gen, b, h, s, dtype, dk=128, dv=128):
@@ -135,18 +154,25 @@ def test_flash_attention_kernel(gen, dtype, q_start):
     k, v = randn(gen, 2, 2, 200, 256, dtype=dtype), randn(gen, 2, 2, 200, 256, dtype=dtype)
     mask = torch.rand(2, 200, generator=gen, device="cuda") > 0.2
     mask[:, 0] = True
+    tc = tc_counts()
     for m in (None, mask):
         got = attention.flash_attention(q, k, v, attn_mask=m, q_start=q_start)
         assert_close(got, attention.flash_attention(q, k, v, attn_mask=m, q_start=q_start, plain=True), dtype)
+    assert_tc_moved(tc, dtype, k4=2)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("s", [20, 576])
-def test_packed_mha_kernel(gen, dtype, s):
+@pytest.mark.parametrize("s", [20, 197, 576])
+@pytest.mark.parametrize("heads, d", [(8, 32), (12, 64), (2, 128)])
+def test_packed_mha_kernel(gen, dtype, s, heads, d):
+    """K7 at each head dim and at ViT lengths on both sides of a 64-key tile."""
     from llm_quest_tpu_torch.kernels import attention
 
-    q, k, v = (randn(gen, 2, s, 12 * 64, dtype=dtype) for _ in range(3))
-    assert_close(attention.packed_mha(q, k, v, 12), attention.packed_mha(q, k, v, 12, plain=True), dtype)
+    q, k, v = (randn(gen, 2, s, heads * d, dtype=dtype) for _ in range(3))
+    tc = tc_counts()
+    got = attention.packed_mha(q, k, v, heads)
+    assert_tc_moved(tc, dtype, k7=1)
+    assert_close(got, attention.packed_mha(q, k, v, heads, plain=True), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -165,10 +191,11 @@ def test_flash_attention_backward_kernel(gen, dtype, d, heads, with_mask):
         mask = torch.rand(2, 150, generator=gen, device="cuda") > 0.2
         mask[:, 0] = True
     q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
-    n_fwd, n_bwd = attention.flash_attention.launches, attention.flash_attention_bwd.launches
+    n_fwd, n_bwd, tc = attention.flash_attention.launches, attention.flash_attention_bwd.launches, tc_counts()
     out = attention.flash_attention(q, k, v, attn_mask=mask)
     out.backward(do)
     assert (attention.flash_attention.launches, attention.flash_attention_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    assert_tc_moved(tc, dtype, k4=1, k4_bwd=1)
     refs = attention.flash_attention_bwd_plain(q0, k0, v0, do, attn_mask=mask)
     assert_close(out, attention.flash_attention(q0, k0, v0, attn_mask=mask, plain=True), dtype)
     for got, ref in zip((q.grad, k.grad, v.grad), refs):
@@ -187,6 +214,7 @@ def test_flash_attention_backward_q_start_and_delta_shift(gen, dtype):
     shift = randn(gen, 2, 8, 100, scale=0.1)
     mask = torch.rand(2, 164, generator=gen, device="cuda") > 0.2
     mask[:, 0] = True
+    tc = tc_counts()
     for delta_shift in (None, shift):
         o = attention.flash_attention(q, k, v, attn_mask=mask, q_start=40)
         lse = attention._plain_lse(q, k, mask, True, 40, 128**-0.5)
@@ -196,6 +224,7 @@ def test_flash_attention_backward_q_start_and_delta_shift(gen, dtype):
         )
         for g, r in zip(got, ref):
             assert_close(g, r, dtype)
+    assert_tc_moved(tc, dtype, k4=2, k4_bwd=2)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -218,10 +247,11 @@ def test_flash_attention_window_softcap_sink_kernels(gen, dtype, features):
         kw["attn_mask"][:, 0] = True
     sink0 = randn(gen, 4) if features.get("sink") else None
     leaves = [t.clone().requires_grad_() for t in (q0, k0, v0) + (() if sink0 is None else (sink0,))]
-    n_fwd, n_bwd = attention.flash_attention.launches, attention.flash_attention_bwd.launches
+    n_fwd, n_bwd, tc = attention.flash_attention.launches, attention.flash_attention_bwd.launches, tc_counts()
     out = attention.flash_attention(*leaves[:3], sink=None if sink0 is None else leaves[3], **kw)
     grads = torch.autograd.grad(out, leaves, do)
     assert (attention.flash_attention.launches, attention.flash_attention_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    assert_tc_moved(tc, dtype, k4=1, k4_bwd=1)
     assert_close(out, attention.flash_attention(q0, k0, v0, sink=sink0, plain=True, **kw), dtype)
     refs = attention.flash_attention_bwd_plain(q0, k0, v0, do, sink=sink0, **kw)
     assert len(grads) == len(refs)
@@ -241,8 +271,12 @@ def test_flash_attention_window_at_least_s_is_causal_on_the_card(gen, dtype):
 
 
 # K4 at MiMo-V2-Flash's heads (d 64, dv 32), at DeepSeek-V3's MLA (d 96,
-# dv 64, causal MHA), and one d = dv case:
-# name -> (hq, hkv, sq, sk, q_start, d, dv, features)
+# dv 64, causal MHA), and one d = dv case; then the cases that reach the edges
+# of the tensor-core kernels (csrc/attention_tc.cu): query counts on both sides
+# of a 64-row tile (1, 63, 64, 65, 300, 1000), sk > sq with q_start, every
+# (d, dv) pair at GQA groups 1, 2 and 8, a window inside one 64-key tile and
+# one straddling tile edges, softcap, sinks, padded keys, and a transposed
+# (b, s, h, d) view: name -> (hq, hkv, sq, sk, q_start, d, dv, features)
 DV_CASES = {
     "mla_causal_padding": (12, 12, 300, 300, 0, 96, 64, {"padding": True}),
     "ragged_2045_mla": (12, 12, 2045, 2045, 0, 96, 64, {}),
@@ -252,41 +286,91 @@ DV_CASES = {
     "ragged_2045_causal": (6, 1, 2045, 2045, 0, 64, 32, {}),
     "window_q_start": (12, 4, 100, 164, 40, 64, 32, {"window_size": 32, "sink": True, "padding": True}),
     "window_q_start_d128": (8, 2, 100, 164, 40, 128, 128, {"window_size": 48}),
+    **{f"sq{sq}": (4, 2, sq, sq, 0, 128, 128, {}) for sq in (1, 63, 64, 65, 300, 1000)},
+    "sk_gt_sq_q_start": (4, 2, 100, 356, 256, 128, 128, {"padding": True}),
+    **{f"d{d}_dv{dv}_group{g}": (8, 8 // g, 300, 300, 0, d, dv, {})
+       for d, dv in ((64, 64), (128, 128), (256, 256), (64, 32), (96, 64)) for g in (1, 2, 8)},
+    "window_in_tile": (4, 2, 300, 300, 0, 64, 64, {"window_size": 17}),
+    "window_straddles_tiles": (4, 2, 300, 300, 0, 128, 128, {"window_size": 100}),
+    "softcap": (4, 1, 300, 300, 0, 128, 128, {"softcap": 20.0}),
+    "sinks": (4, 2, 300, 300, 0, 64, 32, {"sink": True}),
+    "padded_keys": (4, 2, 300, 300, 0, 96, 64, {"padding": True}),
+    "transposed_view": (4, 2, 300, 300, 0, 128, 128, {"transposed": True}),
 }
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", DV_CASES)
 def test_flash_attention_dv_kernels(gen, dtype, name):
-    """K4 with v's head dim 32 beside q/k's 64, forward and backward (dsink
-    included), against autograd through the plain version: the SWA layers'
-    window and sinks with key padding, the GA layers' causal GQA at group 6,
-    the MTP blocks' ragged length (2045: no multiple of the 16-row or 32-key
-    tiles) and a window with q_start > 0 (sq < sk, the dk/dv row bound),
-    the last also at d = dv = 128; and DeepSeek-V3's MLA pair (96, 64),
-    causal MHA with key padding and at the ragged 2045."""
+    """K4 forward and backward (dsink included) against autograd through the
+    plain version, fp32 on the SIMT kernels and bf16 on the tensor-core
+    ones: MiMo-V2-Flash's SWA layers (window and sinks with key padding),
+    its GA layers' causal GQA at group 6, the MTP blocks' ragged length (2045:
+    no multiple of a row or key tile) and a window with q_start > 0 (sq < sk,
+    the dk/dv row bound), the last also at d = dv = 128; DeepSeek-V3's MLA
+    pair (96, 64), causal MHA with key padding and at the ragged 2045; and
+    the tensor-core kernels' edge cases."""
     from llm_quest_tpu_torch.kernels import attention
 
     hq, hkv, sq, sk, q_start, d, dv, features = DV_CASES[name]
-    b = 2 if sq < 1000 else 1
-    q0, k0 = randn(gen, b, hq, sq, d, dtype=dtype), randn(gen, b, hkv, sk, d, dtype=dtype)
-    v0, do = randn(gen, b, hkv, sk, dv, dtype=dtype), randn(gen, b, hq, sq, dv, dtype=dtype)
-    kw = {"q_start": q_start, "window_size": features.get("window_size")}
+    b = 2 if sq < 2000 else 1
+    if features.get("transposed"):  # (b, s, h, d) storage read as (b, h, s, d)
+        q0 = randn(gen, b, sq, hq, d, dtype=dtype).transpose(1, 2)
+        k0, v0 = (randn(gen, b, sk, hkv, w, dtype=dtype).transpose(1, 2) for w in (d, dv))
+    else:
+        q0, k0 = randn(gen, b, hq, sq, d, dtype=dtype), randn(gen, b, hkv, sk, d, dtype=dtype)
+        v0 = randn(gen, b, hkv, sk, dv, dtype=dtype)
+    do = randn(gen, b, hq, sq, dv, dtype=dtype)
+    kw = {"q_start": q_start, "window_size": features.get("window_size"), "softcap": features.get("softcap")}
     if features.get("padding"):
         kw["attn_mask"] = torch.rand(b, sk, generator=gen, device="cuda") > 0.2
         kw["attn_mask"][:, 0] = True
     sink0 = randn(gen, hq, scale=0.5) + 2.0 if features.get("sink") else None
     leaves = [t.clone().requires_grad_() for t in (q0, k0, v0) + (() if sink0 is None else (sink0,))]
-    n_fwd, n_bwd = attention.flash_attention.launches, attention.flash_attention_bwd.launches
+    n_fwd, n_bwd, tc = attention.flash_attention.launches, attention.flash_attention_bwd.launches, tc_counts()
     out = attention.flash_attention(*leaves[:3], sink=None if sink0 is None else leaves[3], **kw)
     grads = torch.autograd.grad(out, leaves, do)
     assert (attention.flash_attention.launches, attention.flash_attention_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    assert_tc_moved(tc, dtype, k4=1, k4_bwd=1)
     assert out.shape == (b, hq, sq, dv) and grads[2].shape == v0.shape and grads[0].dtype == dtype
     assert_close(out, attention.flash_attention(q0, k0, v0, sink=sink0, plain=True, **kw), dtype)
     refs = attention.flash_attention_bwd_plain(q0, k0, v0, do, sink=sink0, **kw)
     assert len(grads) == len(refs)
     for got, ref in zip(grads, refs):
         assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("d, dv", [(128, 128), (256, 256)])
+def test_flash_attention_tensor_core_backward_is_bit_equal(gen, d, dv):
+    """Two kernels and no atomics: the bf16 backward repeats to the bit."""
+    from llm_quest_tpu_torch.kernels import attention
+
+    q, k, v = randn(gen, 2, 8, 1000, d), randn(gen, 2, 2, 1000, d), randn(gen, 2, 2, 1000, dv)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, randn(gen, 2, 8, 1000, dv)))
+    o = attention.flash_attention(q, k, v)
+    lse = attention._plain_lse(q, k, None, True, 0, d**-0.5)
+    tc = tc_counts()
+    first = attention.flash_attention_bwd(q, k, v, o, lse, do)
+    second = attention.flash_attention_bwd(q, k, v, o, lse, do)
+    assert_tc_moved(tc, torch.bfloat16, k4_bwd=2)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_tensor_core_kernels_refuse_unaligned_strides(gen):
+    """The bf16 kernels copy 16-byte chunks: a stride that is no multiple of
+    8 elements raises before any launch (fp32 takes it, on the SIMT kernels)."""
+    from llm_quest_tpu_torch.kernels import attention
+
+    wide = randn(gen, 1, 2, 40, 68)
+    q32, q16 = wide[..., :64], wide.to(torch.bfloat16)[..., :64]  # row stride 68
+    n = attention.flash_attention.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        attention.flash_attention(q16, q16, q16)
+    assert attention.flash_attention.launches == n
+    got = attention.flash_attention(q32, q32, q32)
+    assert_close(got, attention.flash_attention(q32, q32, q32, plain=True), torch.float32)
 
 
 def test_flash_attention_refuses_unsupported_head_dim_pairs(gen):
@@ -745,13 +829,14 @@ def test_flash_attention_with_lse_kernel(gen, dtype, causal, dims):
     counts = lambda: (attention.flash_attention_with_lse.launches,  # noqa: E731
                       attention.flash_attention_with_lse.bwd_launches,
                       attention.flash_attention.launches, attention.flash_attention_bwd.launches)
-    n = counts()
+    n, tc = counts(), tc_counts()
     got, ref = [], []
     for plain, out_list in ((False, got), (True, ref)):
         leaves = [t.clone().requires_grad_() for t in (q0, k0, v0)]
         out, lse = attention.flash_attention_with_lse(*leaves, causal=causal, plain=plain)
         out_list.extend([out.detach(), lse.detach(), *torch.autograd.grad((out, lse), leaves, (do, g_lse))])
     assert counts() == (n[0] + 1, n[1] + 1, n[2], n[3])
+    assert_tc_moved(tc, dtype, k5=1, k5_bwd=1)
     assert got[1].dtype == torch.float32
     for g, r in zip(got, ref):
         assert_close(g, r, dtype)
