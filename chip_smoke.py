@@ -48,8 +48,10 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    train step (b 4, 12/12 heads, s 2048, causal), forward and forward +
    backward.
    K7 at ViT-B's encode shape (b 128, s 197, 12 x 64) and at d 32 (b 128,
-   s 65, 8 x 32; TinyViT's training shape), and its recompute backward (b 16
-   checked, b 128 timed; the ViT-B train step's attention);
+   s 65, 8 x 32; TinyViT's training shape), with its row lse, and forward +
+   backward at both (b 16 checked, b 128 timed; the ViT-B and TinyViT train
+   steps' attention), beside K4's tensor-core forward at ViT-B's packed
+   strides (what K7's bf16 forward borrowed before);
    K8 with dynamic and with static scales and K9 at ViT-B's shape, K9 equal
    to K8 static bit for bit. K3 (one layer's decode step) at b 1 and 32,
    16 heads of 128. K5 (flash attention with its lse) at one layer of the
@@ -57,7 +59,8 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    forward and forward + backward with a random lse cotangent, fp32
    against plain within NEW_TOL, bf16 (o, lse, dq, dk, dv) within TOL and
    tile by tile. K6 (short-sequence MHA) at ViT-B's heads
-   (not causal) and causal at b 4, 16 heads of 128, s 300. K12 (the
+   (not causal) and causal at b 4, 16 heads of 128, s 300, forward (with
+   its row lse) and forward + backward. K12 (the
    ablation's attention core) at its two shapes, bf16 scores (G 1536, M 208,
    D 64) and int8 scores (M 224, D 128 zero-padded): bf16 within one bf16
    unit of max |plain|; int8 each output within one bf16 unit of its plain
@@ -79,10 +82,11 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    within VIT_LOSS_RTOL and every gradient within VIT_GRAD_RTOL of its
    largest; vit_train: the TinyViT script's ``main`` (12 layers, d 32, b 128,
    dropout 0.3, 20 epochs of its 3 seeded batches), launch counts reset
-   first: K7 launches 12 times a step; img/s and the losses;
+   first: K7 launches 12 times a step forward and 12 backward; img/s, peak
+   memory and the losses;
    vit_b_train: ``VIT_BASE_CONFIG`` (dropout 0.1), b 128, bf16, 1 warm-up
-   and 4 timed steps: 12 K7 launches a step, finite losses, img/s, MFU by
-   ``vit_train_flops_per_image``, peak memory;
+   and 4 timed steps: 12 K7 launches a step forward and 12 backward, finite
+   losses, img/s, MFU by ``vit_train_flops_per_image``, peak memory;
 4b. ablate_int8_scores: the ablation's ``main()`` with the counts reset
    first: each K12 variant launches WARMUP + N_ITERS times; both times and
    the speedup of int8 scores;
@@ -150,6 +154,7 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
     the same call, its losses within the bf16 tolerance; cp_fallback: 16
     layers with 16/16 heads, b 2, s 300 (will not shard), fp32: K6 launches
     16 times and the logits match the forward with ``use_fused_mha`` False;
+    its tok/s and peak memory;
 17. int8_generate_fp32, next_serve_fp32: int8 Qwen3.5-0.8B text and int8
     Qwen3-Next-small at full width cut to 4 layers, fp32, kernels against
     plain: prefill logits within INT8_LOGIT_TOL, 16 greedy tokens equal;
@@ -161,17 +166,24 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
     tok/s, TTFT and MBU beside the bf16 model's, and the per-step cost of
     the int8 → bf16 weight copies.
 
-K4, K5 and K7 take two routes by dtype: bf16 runs the tensor-core kernels of
-``csrc/attention_tc.cu``, fp32 the SIMT kernels of ``csrc/attention.cu``.
-Their records keep the fp32 error as ``max_abs_err`` and add
+K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
+tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
+short-sequence tensor-core kernel of ``csrc/fused_mha_tc.cu`` forward and
+``attention_tc.cu``'s backward kernels; in fp32 the SIMT kernels of
+``csrc/attention.cu`` (and ``csrc/fused_mha.cu``, K6's forward). Their
+records keep the fp32 error as ``max_abs_err`` and add
 ``max_abs_err_bf16`` (the tensor-core error on the same bf16 inputs); K5's
 bf16 records and the dense train shape's bf16 fwd + bwd are also held tile
 by tile (TILE_TOL, LSE_TOL), beside the readings of a result with one key
-tile dropped, which must exceed those bars; the bf16 backward at the dense
-train shape runs twice and must be bit-equal; every path's reading of the
-launch counts fails if a bf16 path's K4/K5/K7 launches were not all
-tensor-core launches (``tc_launches``, counted by the C library where it
-launches those kernels), or an fp32 path's were not all SIMT.
+tile dropped, which must exceed those bars, and so are K6's and K7's bf16
+records (against the plain version in fp32 on the same values); the bf16
+backward at the dense train shape runs twice and must be bit-equal; every
+path's reading of the launch counts fails if a bf16 path's K4/K5/K6/K7
+launches, forward and backward, were not all tensor-core launches
+(``tc_launches``, ``tc_bwd_launches``, counted by the C library where it
+launches those kernels), or an fp32 path's were not all SIMT; and every
+phase after the kernel phase fails if K6's plain version or K7's plain
+backward ran in it (``phase``).
 ``k4_window_ratio`` prints the CUDA-event ratio beside the checked device
 ratio, and ``k4_host_cost`` where a bf16 K4 fwd + bwd call's time goes
 (device, host, the C entry points). Every record carries ``tflops``, its
@@ -192,8 +204,8 @@ steps of phases 9, 11, 13, 14, 15, 16 (cp_train) and 4a (vit_b_train and
 the TinyViT step of vit_train; 2 warm-up and 2 profiled steps each) and of the
 ViT-B encode through K7 and through K8 with static scales (1 warm-up, 2
 profiled encodes each): the device's busy share of the profiled wall and the
-device time per step by kernel group (flash forward, which is also K7's,
-dq, dk/dv, GDN forward, backward and its reduction, K8/K9 and K8's
+device time per step by kernel group (the short-sequence forward of K6
+and K7, flash forward, dq, dk/dv (also K6's and K7's backward), GDN forward, backward and its reduction, K8/K9 and K8's
 quantization, cuBLAS GEMMs, the rest), one JSON line each.
 """
 
@@ -235,8 +247,8 @@ NEW_TOL = 1e-5
 CP_LOSS_RTOL = 1e-5
 CP_GRAD_RTOL = 1e-4
 # the ViT train step in fp32 at 2 layers, K7 vs plain: the loss relative, each
-# gradient relative to its largest value (K7's forward against the plain
-# packed sdpa, the backward through the plain version on both sides)
+# gradient relative to its largest value (K7's SIMT forward and backward
+# against autograd through the plain packed sdpa)
 VIT_LOSS_RTOL = 1e-6
 VIT_GRAD_RTOL = 1e-5
 # fp32 serving checks at 4 layers, kernels vs plain: last prefill logits,
@@ -348,6 +360,8 @@ def device_ms(fn, key, iters=20):
 
 
 TC_KERNELS = "attention_tc_"  # the name stem of the bf16 tensor-core attention kernels (csrc/attention_tc.cu)
+# the stem shared by those and the short-sequence tensor-core kernel (csrc/fused_mha_tc.cu)
+TC_KEY = "_tc_"
 
 
 def max_err(got, ref):
@@ -911,9 +925,37 @@ def split_view(t, h):
     return t.view(b, s, h, hd // h).transpose(1, 2)
 
 
+def short_check(label, got, ref, names, dtype, s, tol=None):
+    """The short-sequence kernels' (K6, K7) results ``names`` against plain:
+    each within ``tol`` (default TOL of the dtype) and, in bf16 at s >= 128,
+    tile by tile (TILE_TOL, the lse within LSE_TOL); in bf16 the plain
+    version runs in fp32 on the same values (in bf16 it rounds p before p·V
+    and its gradients lose the cancellation in dP - delta). Returns (max
+    error, the tile readings or None)."""
+    err = max(check(f"{label} {n}", g, r, dtype, tol) for n, g, r in zip(names, got, ref))
+    tiles = None
+    if str(dtype) == "torch.bfloat16" and s >= 128:
+        tiles = check_tiles(label, [t if t.dim() == 4 or n == "lse" else t.unflatten(-1, (-1, 64)).transpose(1, 2)
+                                    for n, t in zip(names, got)],
+                            [t if t.dim() == 4 or n == "lse" else t.unflatten(-1, (-1, 64)).transpose(1, 2)
+                             for n, t in zip(names, ref)], names)
+    return err, tiles
+
+
+def tc_moved(label, counter, before, n):
+    """A bf16 call's launches took the tensor-core kernels: ``counter``'s
+    count (``tc_launches`` or ``tc_bwd_launches``) moved by ``n``."""
+    if counter - before != n:
+        raise AssertionError(f"{label}: {counter - before} tensor-core launches, expected {n}")
+
+
 def kernel_k7(gen, dtypes, shape=VIT_B):
-    """K7 at ``shape`` (ViT-B's encode, or TinyViT's d 32), fp32 and bf16
-    against plain; timed in bf16 beside ``sdpa`` on the split-head view."""
+    """K7 at ``shape`` (ViT-B's encode, or TinyViT's d 32), fp32 (the SIMT
+    flash forward) and bf16 (the short-sequence tensor-core kernel) against
+    plain, with the row lse its forward keeps for the backward; timed in
+    bf16 beside ``sdpa`` on the split-head view and, at d 64, beside K4's
+    tensor-core forward at the same packed strides (the kernel K7's bf16
+    forward borrowed before)."""
     import torch
 
     from llm_quest_tpu_torch.kernels import attention as attn
@@ -922,50 +964,75 @@ def kernel_k7(gen, dtypes, shape=VIT_B):
     errs, errs_bf16, cases = [], [], []
     for dtype in dtypes:
         q, k, v = packed_inputs(gen, shape, dtype)
-        out, ref = attn.packed_mha(q, k, v, h), attn.packed_mha(q, k, v, h, plain=True)
+        tc = attn.packed_mha.tc_launches
+        out = attn.packed_mha(q, k, v, h)
+        out_lse, lse = attn._packed_fwd(q, k, v, h, d**-0.5, with_lse=True)
+        bf16 = dtype == dtypes[-1]
+        tc_moved(f"K7 {shape}", attn.packed_mha.tc_launches, tc, 2 if bf16 else 0)
+        ref = attn.packed_mha(*(t.float() for t in (q, k, v)), h, plain=True)
         torch_sync()
-        e = check(f"K7 {shape} {dtype}", out, ref, dtype)
-        cases.append({"b": b, "s": s, "heads": h, "d": d, "dtype": str(dtype), "max_abs_err": e})
-        (errs if dtype == dtypes[0] else errs_bf16).append(e)
-    ms = cuda_ms(lambda: attn.packed_mha(q, k, v, h))
+        e, tiles = short_check(f"K7 {shape} {dtype}", (out, out_lse), (ref, ref), ("o", "o_lse"), dtype, s)
+        lse_err = check(f"K7 {shape} lse {dtype}", lse, attn.packed_mha_lse_plain(q, k, h), torch.float32,
+                        LSE_TOL if bf16 else NEW_TOL)
+        cases.append({"b": b, "s": s, "heads": h, "d": d, "dtype": str(dtype), "max_abs_err": e, "lse_err": lse_err,
+                      "tile_err": tiles})
+        (errs_bf16 if bf16 else errs).append(e)
+    ms = cuda_ms(lambda: attn.packed_mha(q, k, v, h), iters=200, warmup=10)
     plain_ms = cuda_ms(lambda: attn.packed_mha(q, k, v, h, plain=True), iters=5, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = lambda: sdpa(split_view(q, h), split_view(k, h), split_view(v, h))  # noqa: E731
     check("K7 vs sdpa (library)", lib().transpose(1, 2).reshape(b, s, -1), attn.packed_mha(q, k, v, h), dtypes[-1])
-    extra = {**bound(4 * nbytes(q), 2 * packed_flops(shape)), "library_ms": cuda_ms(lib), "shape": list(shape),
-             "max_abs_err_bf16": max(errs_bf16),
-             "device_ms": device_ms(lambda: attn.packed_mha(q, k, v, h), TC_KERNELS)}
+    extra = {**bound(4 * nbytes(q), 2 * packed_flops(shape)), "library_ms": cuda_ms(lib, iters=200, warmup=10),
+             "shape": list(shape), "max_abs_err_bf16": max(errs_bf16),
+             "device_ms": device_ms(lambda: attn.packed_mha(q, k, v, h), TC_KEY)}
+    if (d, d) in attn.HEAD_DIMS:
+        heads = [split_view(t, h) for t in (q, k, v)]
+        k4 = lambda: attn._flash_fwd(*heads, None, None, False, 0, d**-0.5, None, None, False)  # noqa: E731
+        check("K7 vs K4's tensor-core forward", k4()[0].transpose(1, 2).reshape(b, s, -1), attn.packed_mha(q, k, v, h),
+              dtypes[-1])
+        extra["k4_tc_fwd_ms"] = cuda_ms(k4, iters=200, warmup=10)
     return max(errs), ms, plain_ms, cases, extra
 
 
-def kernel_k7_bwd(gen, dtypes):
-    """K7's recompute backward (autograd through the plain version, after the
-    kernel's forward) against autograd of the plain version: fp32 and bf16 at
-    b 16 of ViT-B's shape, then forward + backward timed at b 128 in bf16."""
+def kernel_k7_bwd(gen, dtypes, shape=VIT_B):
+    """K7 forward + backward (the flash recompute kernels fed K7's lse,
+    gradients written in the packed layout) against autograd of the plain
+    version: fp32 and bf16 at b 16 and at the full b of ``shape``, held
+    tile by tile in bf16, then forward + backward timed at the full b in
+    bf16, beside ``sdpa`` and its backward."""
     import torch
 
     from llm_quest_tpu_torch.kernels import attention as attn
 
     errs, errs_bf16, cases = [], [], []
+    tiles_bf16 = []
     for dtype in dtypes:
-        for b in (16, VIT_B[0]) if dtype == dtypes[-1] else (16,):
-            shape = (b, *VIT_B[1:])
-            h = shape[2]
-            q, k, v = packed_inputs(gen, shape, dtype)
+        bf16 = dtype == dtypes[-1]
+        for b in (16, shape[0]):
+            cur = (b, *shape[1:])
+            h, s = cur[2], cur[1]
+            q, k, v = packed_inputs(gen, cur, dtype)
             do = randn(gen, *q.shape, dtype=dtype)
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
             def fwd_bwd(plain=False, leaves=leaves, do=do, h=h):
                 out = attn.packed_mha(*leaves, h, plain=plain)
-                return torch.autograd.grad(out, leaves, do)
+                return (out.detach(),) + torch.autograd.grad(out, leaves, do)
 
-            got, ref = fwd_bwd(), fwd_bwd(True)
+            tc, tc_bwd = attn.packed_mha.tc_launches, attn.packed_mha.tc_bwd_launches
+            got = fwd_bwd()
+            tc_moved(f"K7 fwd {cur}", attn.packed_mha.tc_launches, tc, 1 if bf16 else 0)
+            tc_moved(f"K7 bwd {cur}", attn.packed_mha.tc_bwd_launches, tc_bwd, 1 if bf16 else 0)
+            ref_leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            ref = fwd_bwd(True, ref_leaves, do.float())
             torch_sync()
-            e = max(check(f"K7 bwd d{n} b={b} {dtype}", g, r, dtype) for n, g, r in zip("qkv", got, ref))
-            cases.append({"b": b, "dtype": str(dtype), "max_abs_err": e})
-            (errs if dtype == dtypes[0] else errs_bf16).append(e)
-            del got, ref
-    ms = cuda_ms(fwd_bwd, iters=5, warmup=1)
+            e, tiles = short_check(f"K7 fwd+bwd b={b} {dtype}", got, ref, ("o", "dq", "dk", "dv"), dtype, s)
+            cases.append({"b": b, "dtype": str(dtype), "max_abs_err": e, "tile_err": tiles})
+            (errs_bf16 if bf16 else errs).append(e)
+            if tiles:
+                tiles_bf16.extend(tiles.values())
+            del got, ref, ref_leaves
+    ms = cuda_ms(fwd_bwd, iters=50, warmup=5)
     plain_ms = cuda_ms(lambda: fwd_bwd(True), iters=5, warmup=1)
 
     def lib():
@@ -974,8 +1041,12 @@ def kernel_k7_bwd(gen, dtypes):
 
     # forward and backward: the inputs and do read, out and dq/dk/dv written;
     # 3x the forward's products (QKᵀ, PV; dV, dP, dQ, dK)
-    extra = {**bound(2 * nbytes(q, k, v, do), 3 * 2 * packed_flops(shape)), "library_ms": cuda_ms(lib, 5, 1),
-             "max_abs_err_bf16": max(errs_bf16)}
+    extra = {**bound(2 * nbytes(q, k, v, do), 3 * 2 * packed_flops(cur)), "library_ms": cuda_ms(lib, 50, 5),
+             "max_abs_err_bf16": max(errs_bf16), "shape": list(cur),
+             "device_ms": device_ms(fwd_bwd, TC_KEY),
+             "plain_bwd_ms": cuda_ms(lambda: attn.packed_mha_bwd_plain(q, k, v, do, h), iters=5, warmup=1)}
+    if tiles_bf16:
+        extra["tile_err_bf16"] = max(tiles_bf16)
     del q, k, v, do, leaves
     torch.cuda.empty_cache()
     return max(errs), ms, plain_ms, cases, extra
@@ -1273,30 +1344,71 @@ K6_VIT = {"b": 128, "h": 12, "s": 197, "d": 64}
 K6_CAUSAL = {"b": 4, "h": 16, "s": 300, "d": 128}
 
 
-def kernel_k6(gen, dtypes, *, causal=False, shape=K6_VIT):
-    """K6 at ``shape``, fp32 and bf16 against its plain version (``sdpa``
-    with the causal mask), timed in bf16 beside ``F.scaled_dot_product_attention``."""
+def kernel_k6(gen, dtypes, *, causal=False, shape=K6_VIT, backward=False):
+    """K6 at ``shape``, fp32 (the SIMT kernel, within NEW_TOL) and bf16 (the
+    short-sequence tensor-core kernel; tile by tile at s >= 128) against
+    its plain version (``sdpa`` with the causal mask), with the row lse its
+    forward keeps; with ``backward``, forward + backward (the flash
+    recompute kernels fed that lse). Timed in bf16 beside
+    ``F.scaled_dot_product_attention`` (and its backward)."""
     import torch
 
     from llm_quest_tpu_torch.kernels import fused_mha as fm
 
     b, h, s, d = (shape[key] for key in ("b", "h", "s", "d"))
-    errs, cases = [], []
+    errs, errs_bf16, cases, tiles_bf16 = [], [], [], []
+    w = fm.fused_mha
     for dtype in dtypes:
-        q, k, v = (randn(gen, b, h, s, d, dtype=dtype) for _ in range(3))
-        out, ref = fm.fused_mha(q, k, v, causal=causal), fm.fused_mha(q, k, v, causal=causal, plain=True)
+        bf16 = dtype == dtypes[-1]
+        q, k, v, do = (randn(gen, b, h, s, d, dtype=dtype) for _ in range(4))
+        leaves = [t.clone().requires_grad_(backward) for t in (q, k, v)]
+
+        def run(plain=False, leaves=leaves, do=do):
+            out = fm.fused_mha(*leaves, causal=causal, plain=plain)
+            if not backward:
+                return (out,)
+            return (out.detach(),) + torch.autograd.grad(out, leaves, do)
+
+        label = f"K6 {shape} causal={causal} bwd={backward} {dtype}"
+        tc, tc_bwd = w.tc_launches, w.tc_bwd_launches
+        got = run()
+        tc_moved(label, w.tc_launches, tc, 1 if bf16 else 0)
+        tc_moved(label, w.tc_bwd_launches, tc_bwd, 1 if bf16 and backward else 0)
+        ref = run(True, [t.detach().float().requires_grad_(backward) for t in (q, k, v)], do.float())
+        names = ("o", "dq", "dk", "dv")[: len(got)]
         torch_sync()
-        e = check(f"K6 {shape} causal={causal} {dtype}", out, ref, dtype, NEW_TOL if dtype == dtypes[0] else None)
-        cases.append({**shape, "causal": causal, "dtype": str(dtype), "max_abs_err": e})
-        if dtype == dtypes[0]:
-            errs.append(e)
-    ms = cuda_ms(lambda: fm.fused_mha(q, k, v, causal=causal))
-    plain_ms = cuda_ms(lambda: fm.fused_mha(q, k, v, causal=causal, plain=True), iters=5, warmup=1)
-    lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
-    check("K6 vs sdpa (library)", lib(), fm.fused_mha(q, k, v, causal=causal), dtypes[-1])
+        e, tiles = short_check(label, got, ref, names, dtype, s, None if bf16 else NEW_TOL)
+        _, lse = fm._fused_fwd(q, k, v, causal, d**-0.5, with_lse=True)
+        lse_err = check(f"{label} lse", lse, fm.fused_mha_lse_plain(q, k, causal=causal), torch.float32,
+                        LSE_TOL if bf16 else NEW_TOL)
+        cases.append({**shape, "causal": causal, "dtype": str(dtype), "max_abs_err": e, "lse_err": lse_err,
+                      "tile_err": tiles})
+        (errs_bf16 if bf16 else errs).append(e)
+        if tiles:
+            tiles_bf16.extend(tiles.values())
+        del got, ref
+    iters = (50, 5) if backward else (200, 10)
+    ms = cuda_ms(run, *iters)
+    plain_ms = cuda_ms(lambda: run(True), iters=5, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib():
+        out = sdpa(*leaves, is_causal=causal)
+        return torch.autograd.grad(out, leaves, do) if backward else out
+
+    if not backward:
+        check("K6 vs sdpa (library)", lib(), fm.fused_mha(q, k, v, causal=causal), dtypes[-1])
     pairs = s * (s + 1) // 2 if causal else s * s
-    extra = {**bound(4 * nbytes(q), 4 * d * pairs * b * h), "library_ms": cuda_ms(lib),
-             "shape": {**shape, "causal": causal}}
+    # forward: q/k/v read, o written, 4·d per visible pair and head (QKᵀ, PV);
+    # with the backward also do read and dq/dk/dv written, 3x the products
+    n_bytes, flops = (2 * nbytes(q, k, v, do), 3 * 4 * d * pairs * b * h) if backward else \
+        (4 * nbytes(q), 4 * d * pairs * b * h)
+    extra = {**bound(n_bytes, flops), "library_ms": cuda_ms(lib, *iters), "shape": {**shape, "causal": causal},
+             "max_abs_err_bf16": max(errs_bf16), "device_ms": device_ms(run, TC_KEY)}
+    if tiles_bf16:
+        extra["tile_err_bf16"] = max(tiles_bf16)
+    del q, k, v, do, leaves
+    torch.cuda.empty_cache()
     return max(errs), ms, plain_ms, cases, extra
 
 
@@ -1359,30 +1471,44 @@ DSV3 = "dsv3_train"
 VIT_TRAIN, VIT_B_TRAIN = "vit_train", "vit_b_train"
 ABLATE = "ablate_int8_scores"
 CP_TRAIN, CP_FALLBACK = "cp_train", "cp_fallback"
+# the attention records' sources by dtype: bf16 takes the tensor-core
+# kernels, fp32 the SIMT ones
+ATTN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/attention_tc.cu",
+            "float32": "llm_quest_tpu_torch/csrc/attention.cu"}
+FUSED_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/fused_mha_tc.cu",
+             "float32": "llm_quest_tpu_torch/csrc/fused_mha.cu"}
+PACKED_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/fused_mha_tc.cu",
+              "float32": "llm_quest_tpu_torch/csrc/attention.cu"}
+FP32_PATHS = (VIT_TRAIN, CP_FALLBACK)  # the paths that run in fp32
 KERNELS = [
     # name, wrapper (module, attribute[, which launches: "window" = those with a
     # sliding window, "full" = those without, "softcap_sink" = those with a
     # softcap or sinks, "static" = those with static scales, "dynamic" = those
     # without, "causal" / "noncausal" and "causal_bwd" / "noncausal_bwd" the
     # forward and backward launches with and without causality, "int8" /
-    # "bf16" those with int8 or bf16 scores]), source,
-    # replaced TPU kernel, check, main paths that launch it
+    # "bf16" those with int8 or bf16 scores]), source (or the source of each
+    # dtype's kernel), replaced TPU kernel, check, main paths that launch it
     ("gdn_prefill", ("gdn", "gated_delta_rule_fwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
      "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1, (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE)),
     ("gdn_prefill_bwd", ("gdn", "gated_delta_rule_bwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
      "llm_quest_tpu/kernels/gdn_pallas.py:255", kernel_k1_bwd, (HYBRID,)),
     ("gdn_step_stacked", ("gdn", "gated_delta_rule_step_stacked"), "llm_quest_tpu_torch/csrc/gdn.cu",
      "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2, (GENERATE, INT8_GENERATE, NEXT_SERVE)),
-    ("flash_attention_fwd", ("attention", "flash_attention"), "llm_quest_tpu_torch/csrc/attention.cu",
+    ("flash_attention_fwd", ("attention", "flash_attention"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4, (GENERATE, TRAIN, HYBRID)),
-    ("flash_attention_bwd", ("attention", "flash_attention_bwd"), "llm_quest_tpu_torch/csrc/attention.cu",
+    ("flash_attention_bwd", ("attention", "flash_attention_bwd"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:175", kernel_k4_bwd, (TRAIN, HYBRID)),
-    ("packed_mha", ("attention", "packed_mha"), "llm_quest_tpu_torch/csrc/attention.cu",
-     "llm_quest_tpu/kernels/fused_mha.py:422", kernel_k7, (VIT,)),
-    ("packed_mha_d32", ("attention", "packed_mha"), "llm_quest_tpu_torch/csrc/attention.cu",
+    # K7: its bf16 forward is the short-sequence tensor-core kernel (fp32: the
+    # SIMT flash forward of attention.cu); its backward the flash recompute
+    # kernels (attention_tc.cu in bf16, attention.cu in fp32), counted as "bwd"
+    ("packed_mha", ("attention", "packed_mha"), PACKED_SRC,
+     "llm_quest_tpu/kernels/fused_mha.py:422", kernel_k7, (VIT, VIT_B_TRAIN)),
+    ("packed_mha_d32", ("attention", "packed_mha"), PACKED_SRC,
      "llm_quest_tpu/kernels/fused_mha.py:422", partial(kernel_k7, shape=VIT_D32), (VIT_TRAIN,)),
-    ("packed_mha_fwd_bwd", ("attention", "packed_mha"), "llm_quest_tpu_torch/csrc/attention.cu",
+    ("packed_mha_fwd_bwd", ("attention", "packed_mha", "bwd"), ATTN_SRC,
      "llm_quest_tpu/kernels/fused_mha.py:442", kernel_k7_bwd, (VIT_B_TRAIN,)),
+    ("packed_mha_fwd_bwd_d32", ("attention", "packed_mha", "bwd"), ATTN_SRC,
+     "llm_quest_tpu/kernels/fused_mha.py:442", partial(kernel_k7_bwd, shape=VIT_D32), (VIT_TRAIN,)),
     ("packed_mha_int8", ("fused_mha", "packed_mha_int8", "dynamic"), "llm_quest_tpu_torch/csrc/packed_mha_int8.cu",
      "llm_quest_tpu/kernels/fused_mha.py:405", partial(kernel_int8, mode="dynamic"), (VIT,)),
     ("packed_mha_int8_static", ("fused_mha", "packed_mha_int8", "static"),
@@ -1397,41 +1523,41 @@ KERNELS = [
      "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11, (NEXT_SERVE,)),
     # K4 at one Gemma-3-270M layer: the SWA layers' window, the global layers'
     # causal call at the same shape, and the softcap and sinks (on no path yet)
-    ("flash_attention_fwd_window", ("attention", "flash_attention", "window"), "llm_quest_tpu_torch/csrc/attention.cu",
+    ("flash_attention_fwd_window", ("attention", "flash_attention", "window"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:544", partial(k4_case, window=GEMMA_WINDOW), (GEMMA,)),
     ("flash_attention_fwd_bwd_window", ("attention", "flash_attention_bwd", "window"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:175",
      partial(k4_case, window=GEMMA_WINDOW, backward=True), (GEMMA,)),
     ("flash_attention_fwd_causal_d256", ("attention", "flash_attention", "full"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:544",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:544",
      k4_case, (GEMMA,)),
     ("flash_attention_fwd_bwd_causal_d256", ("attention", "flash_attention_bwd", "full"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:175",
      partial(k4_case, backward=True), (GEMMA,)),
     # softcap and sinks at the Gemma-3 shape; MiMo-V2-Flash's sinks launch it
     ("flash_attention_softcap_sink", ("attention", "flash_attention_bwd", "softcap_sink"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:175",
      partial(k4_case, softcap=30.0, sink=True, backward=True), (MIMO,)),
     # K4 at d 64 / dv 32, one MiMo-V2-Flash small layer: the SWA layers' window
     # 128 with sinks (12/4 heads), the GA layers' causal call (12/2 heads)
     ("flash_attention_fwd_window_sink_dv32", ("attention", "flash_attention", "window"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:544",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:544",
      partial(k4_case, shape=MIMO_SWA_K4, window=MIMO_WINDOW, sink=True), (MIMO,)),
     ("flash_attention_fwd_bwd_window_sink_dv32", ("attention", "flash_attention_bwd", "window"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:175",
      partial(k4_case, shape=MIMO_SWA_K4, window=MIMO_WINDOW, sink=True, backward=True), (MIMO,)),
     ("flash_attention_fwd_causal_dv32", ("attention", "flash_attention", "full"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:544",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:544",
      partial(k4_case, shape=MIMO_GA_K4), (MIMO,)),
     ("flash_attention_fwd_bwd_causal_dv32", ("attention", "flash_attention_bwd", "full"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:175",
      partial(k4_case, shape=MIMO_GA_K4, backward=True), (MIMO,)),
     # K4 at DeepSeek-V3's MLA head dims (96, 64), one layer of its train step
     ("flash_attention_fwd_causal_d96_dv64", ("attention", "flash_attention", "full"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:544",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:544",
      partial(k4_case, shape=DSV3_K4), (DSV3,)),
     ("flash_attention_fwd_bwd_causal_d96_dv64", ("attention", "flash_attention_bwd", "full"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:175",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:175",
      partial(k4_case, shape=DSV3_K4, backward=True), (DSV3,)),
     # K3: one layer's decode step (no model calls it, as in JAX)
     ("gdn_step", ("gdn", "gated_delta_rule_step"), "llm_quest_tpu_torch/csrc/gdn.cu",
@@ -1439,22 +1565,28 @@ KERNELS = [
     # K5 at one layer of the context-parallel step: causal (the diagonal block,
     # the only one at world 1) and not (the past blocks of a larger ring)
     ("flash_attention_with_lse_causal", ("attention", "flash_attention_with_lse", "causal"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:627",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:627",
      partial(kernel_k5, causal=True), (CP_TRAIN,)),
     ("flash_attention_with_lse_fwd_bwd_causal", ("attention", "flash_attention_with_lse", "causal_bwd"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:613",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:613",
      partial(kernel_k5, causal=True, backward=True), (CP_TRAIN,)),
     ("flash_attention_with_lse_noncausal", ("attention", "flash_attention_with_lse", "noncausal"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:627",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:627",
      partial(kernel_k5, causal=False), ()),
     ("flash_attention_with_lse_fwd_bwd_noncausal", ("attention", "flash_attention_with_lse", "noncausal_bwd"),
-     "llm_quest_tpu_torch/csrc/attention.cu", "llm_quest_tpu/kernels/flash_attention.py:613",
+     ATTN_SRC, "llm_quest_tpu/kernels/flash_attention.py:613",
      partial(kernel_k5, causal=False, backward=True), ()),
-    # K6: ViT-B's heads (not causal), and the CP fallback's causal call
-    ("fused_mha", ("fused_mha", "fused_mha", "noncausal"), "llm_quest_tpu_torch/csrc/fused_mha.cu",
+    # K6: ViT-B's heads (not causal), and the CP fallback's causal call; bf16
+    # (timed) on the short-sequence tensor-core kernel, fp32 on fused_mha.cu;
+    # forward + backward (the flash recompute kernels) at both shapes
+    ("fused_mha", ("fused_mha", "fused_mha", "noncausal"), FUSED_SRC,
      "llm_quest_tpu/kernels/fused_mha.py:139", kernel_k6, ()),
-    ("fused_mha_causal", ("fused_mha", "fused_mha", "causal"), "llm_quest_tpu_torch/csrc/fused_mha.cu",
+    ("fused_mha_causal", ("fused_mha", "fused_mha", "causal"), FUSED_SRC,
      "llm_quest_tpu/kernels/fused_mha.py:139", partial(kernel_k6, causal=True, shape=K6_CAUSAL), (CP_FALLBACK,)),
+    ("fused_mha_fwd_bwd", ("fused_mha", "fused_mha", "noncausal_bwd"), ATTN_SRC,
+     "llm_quest_tpu/kernels/fused_mha.py:126", partial(kernel_k6, backward=True), ()),
+    ("fused_mha_fwd_bwd_causal", ("fused_mha", "fused_mha", "causal_bwd"), ATTN_SRC,
+     "llm_quest_tpu/kernels/fused_mha.py:126", partial(kernel_k6, causal=True, shape=K6_CAUSAL, backward=True), ()),
     # K12: the int8-score ablation's attention core, bf16 and int8 scores
     ("attn_core_bf16", ("attn_core", "attn_core", "bf16"), "llm_quest_tpu_torch/csrc/attn_core.cu",
      "scripts/ablate_int8_scores.py:55", partial(kernel_k12, int8=False), (ABLATE,)),
@@ -1498,7 +1630,11 @@ def kernel_phase():
     for name, spec, source, replaces, fn, paths in KERNELS:
         err, ms, plain_ms, cases, extra = fn(gen, (torch.float32, torch.bfloat16))
         emit({"phase": "kernel", "name": name, "cases": cases, "ms_bf16": ms, "plain_ms_bf16": plain_ms, **extra})
-        records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+        routes = {}
+        if isinstance(source, dict):  # the kernel of the paths' dtype (bf16 where no path runs it)
+            routes = {"sources": source}
+            source = source["float32" if paths and all(p in FP32_PATHS for p in paths) else "bfloat16"]
+        records.append({"name": name, "route": "cuda", "source": source, **routes, "replaces": replaces,
                         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": extra["bound_ms"], "bound_by": extra["bound_by"],
                         "library_ms": extra["library_ms"], "simt_bound_ms": extra["simt_bound_ms"],
@@ -1519,32 +1655,70 @@ def reset_launches():
                 setattr(w, counter, 0)
 
 
-# the attention wrappers' (K4, K4 bwd, K5 fwd and bwd, K7) launch counters and,
-# beside each, the count of those that took the bf16 tensor-core kernels
-TC_COUNTERS = (("flash_attention", "launches", "tc_launches"), ("flash_attention_bwd", "launches", "tc_launches"),
-               ("flash_attention_with_lse", "launches", "tc_launches"),
-               ("flash_attention_with_lse", "bwd_launches", "tc_bwd_launches"),
-               ("packed_mha", "launches", "tc_launches"))
+# the attention wrappers' (K4, K4 bwd, K5, K6 and K7, forward and backward)
+# launch counters (module, wrapper, launches) and, beside each, the count of
+# those that took the bf16 tensor-core kernels
+TC_COUNTERS = (("attention", "flash_attention", "launches", "tc_launches"),
+               ("attention", "flash_attention_bwd", "launches", "tc_launches"),
+               ("attention", "flash_attention_with_lse", "launches", "tc_launches"),
+               ("attention", "flash_attention_with_lse", "bwd_launches", "tc_bwd_launches"),
+               ("fused_mha", "fused_mha", "launches", "tc_launches"),
+               ("fused_mha", "fused_mha", "bwd_launches", "tc_bwd_launches"),
+               ("attention", "packed_mha", "launches", "tc_launches"),
+               ("attention", "packed_mha", "bwd_launches", "tc_bwd_launches"))
 
 
 def check_routes(path, bf16):
-    """On a bf16 path every K4/K5/K7 launch took the tensor-core kernels; on
-    an fp32 path none did (the SIMT kernels)."""
-    from llm_quest_tpu_torch.kernels import attention as attn
-
-    for name, total, tc in TC_COUNTERS:
-        n, n_tc = getattr(getattr(attn, name), total), getattr(getattr(attn, name), tc)
+    """On a bf16 path every K4/K5/K6/K7 launch, forward and backward, took
+    the tensor-core kernels; on an fp32 path none did (the SIMT kernels)."""
+    for module, name, total, tc in TC_COUNTERS:
+        w = wrapper((module, name))
+        n, n_tc = getattr(w, total), getattr(w, tc)
         if n_tc != (n if bf16 else 0):
             raise AssertionError(f"{path}: {name} {total} {n}, on the tensor cores {n_tc}; "
                                  f"expected {'all' if bf16 else 'none'} ({'bf16' if bf16 else 'fp32'} path)")
 
 
-def read_launches(path, records, *, add=True, bf16=True):
+# The plain backward of K6 and K7 runs on the card only in the kernel
+# records' comparisons: after the kernel phase every call of these counts
+# (``install_plain_sentinels``), and a phase in which one ran fails
+# (``phase``). The int8 K8's straight-through backward still calls
+# packed_mha_bwd_plain, but no card path trains with int8 scores.
+PLAIN_SENTINELS = (("attention", "packed_mha_bwd_plain"), ("fused_mha", "packed_mha_bwd_plain"),
+                   ("fused_mha", "fused_mha_plain"))
+PLAIN_CALLS = {"packed_mha_bwd_plain": 0, "fused_mha_plain": 0}
+
+
+def install_plain_sentinels():
+    import importlib
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            PLAIN_CALLS[name] += 1
+            return fn(*args, **kwargs)
+
+        return call
+
+    for module, name in PLAIN_SENTINELS:
+        mod = importlib.import_module(f"llm_quest_tpu_torch.kernels.{module}")
+        setattr(mod, name, counted(name, getattr(mod, name)))
+
+
+def phase(fn, *args):
+    """Run a phase after the kernel phase; fails if K6's or K7's plain
+    version or plain backward ran in it."""
+    before = dict(PLAIN_CALLS)
+    fn(*args)
+    if PLAIN_CALLS != before:
+        raise AssertionError(f"{fn.__name__}: the plain versions ran on the card: {before} -> {PLAIN_CALLS}")
+
+
+def read_launches(path, records, *, add=True):
     """The launch counts of the path just driven, added to ``records`` (with
     ``add``); fails if a kernel of the path never launched, or if the path's
-    attention launches did not take the route of its dtype (``bf16``: the
-    tensor-core kernels; otherwise the SIMT ones)."""
-    check_routes(path, bf16)
+    attention launches did not take the route of its dtype (bf16: the
+    tensor-core kernels; the FP32_PATHS: the SIMT ones)."""
+    check_routes(path, path not in FP32_PATHS)
     counts = {}
     for (name, spec, *_, paths), rec in zip(KERNELS, records):
         n = launch_count(spec)
@@ -1873,20 +2047,24 @@ def vit_train(records, card, eval_freq=10):
 
     lines = []
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, metrics = vit_training.main(eval_freq=eval_freq, log=lines.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches(VIT_TRAIN, records, bf16=False)  # TinyViT trains in fp32
+    launches = read_launches(VIT_TRAIN, records)  # TinyViT trains in fp32
     steps = 3 * vit_training.NUM_EPOCH  # 3 whole batches of 128 an epoch
-    if launches["packed_mha_d32"] != 12 * steps:
-        raise AssertionError(f"vit_train: {launches['packed_mha_d32']} K7 launches in {steps} steps, expected 12 a step")
+    for name in ("packed_mha_d32", "packed_mha_fwd_bwd_d32"):  # forward and backward
+        if launches[name] != 12 * steps:
+            raise AssertionError(f"vit_train: {launches[name]} {name} launches in {steps} steps, expected 12 a step")
     if not all(math.isfinite(x) for x in metrics["train_loss"]):
         raise AssertionError(f"vit_train: losses {metrics['train_loss']}")
     emit({"phase": "vit_train", "card": card, "dtype": "float32", "layers": 12, "b": vit_training.BATCH_SIZE,
           "epochs": vit_training.NUM_EPOCH, "steps": steps, "wall_s": wall,
           "img_s": steps * vit_training.BATCH_SIZE / wall, "k7_launches_per_step": launches["packed_mha_d32"] / steps,
+          "k7_bwd_launches_per_step": launches["packed_mha_fwd_bwd_d32"] / steps,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "train_loss": metrics["train_loss"], "val_acc": metrics["val_acc"], "log": lines[-2:]})
     torch.cuda.empty_cache()
 
@@ -1895,9 +2073,10 @@ def vit_b_train(records, card, b=128, steps=4):
     """ViT-B/224 (``VIT_BASE_CONFIG``, dropout 0.1) at b 128, bf16, through
     ``make_optimizer`` → ``make_vit_train_step``, launch counts reset first:
     1 warm-up and ``steps`` timed steps, each ended by a device sync; K7
-    launches 12 times a step (forward; its gradient is autograd through the
-    plain packed ``sdpa``); img/s, MFU by ``vit_train_flops_per_image``
-    against 989 TFLOP/s, peak memory, finite losses."""
+    launches 12 times a step forward (the short-sequence tensor-core kernel)
+    and 12 backward (the flash recompute kernels); img/s, MFU by
+    ``vit_train_flops_per_image`` against 989 TFLOP/s, peak memory, finite
+    losses."""
     import math
 
     import torch
@@ -1929,14 +2108,16 @@ def vit_b_train(records, card, b=128, steps=4):
         losses.append(loss)
     launches = read_launches(VIT_B_TRAIN, records)
     losses = [float(x) for x in losses]
-    if launches["packed_mha_fwd_bwd"] != cfg["n_layers"] * (steps + 1):
-        raise AssertionError(f"vit_b_train: {launches['packed_mha_fwd_bwd']} K7 launches in {steps + 1} steps")
+    for name in ("packed_mha", "packed_mha_fwd_bwd"):  # forward and backward
+        if launches[name] != cfg["n_layers"] * (steps + 1):
+            raise AssertionError(f"vit_b_train: {launches[name]} {name} launches in {steps + 1} steps")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"vit_b_train: losses {losses}")
     dt = sum(step_s) / steps
     flops = F.vit_train_flops_per_image(cfg)
     emit({"phase": "vit_b_train", "card": card, "dtype": "bfloat16", "layers": cfg["n_layers"], "b": b,
-          "drop_rate": cfg["drop_rate"], "k7_launches_per_step": launches["packed_mha_fwd_bwd"] / (steps + 1),
+          "drop_rate": cfg["drop_rate"], "k7_launches_per_step": launches["packed_mha"] / (steps + 1),
+          "k7_bwd_launches_per_step": launches["packed_mha_fwd_bwd"] / (steps + 1),
           "losses": losses, "step_ms": dt * 1e3, "step_ms_each": [x * 1e3 for x in step_s], "img_s": b / dt,
           "flops_per_image": flops, "mfu": F.mfu(b / dt, flops), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     del model, opt_state
@@ -2549,7 +2730,8 @@ def cp_fallback(records, group):
     """A 16-layer forward at the same widths with equal head counts (16/16),
     fp32, b 2, s 300 under CP: the batch will not shard, so each layer takes
     the short-sequence kernel (K6, causal, 16 launches); the logits against
-    the same forward with ``use_fused_mha`` False (K4)."""
+    the same forward with ``use_fused_mha`` False (K4); then tok/s (median of
+    3 timed forwards) and peak memory."""
     import torch
 
     from llm_quest_tpu_torch.models import qwen3
@@ -2562,17 +2744,21 @@ def cp_fallback(records, group):
         raise AssertionError("cp_fallback: a 300-token batch was sharded")
     with torch.inference_mode():
         reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         got, _, _ = qwen3.apply(model, cfg, batch["input_ids"])
         torch_sync()
-        launches = read_launches(CP_FALLBACK, records, bf16=False)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = read_launches(CP_FALLBACK, records)
         ref, _, _ = qwen3.apply(model, dict(cfg, use_fused_mha=False), batch["input_ids"])
+        run_s, runs = timed(lambda: qwen3.apply(model, cfg, batch["input_ids"]), 3)
     if launches["fused_mha_causal"] != 16:
         raise AssertionError(f"cp_fallback: K6 launched {launches['fused_mha_causal']} times, expected 16")
     err = float((got.float() - ref.float()).abs().max())
     if not err <= LOGIT_TOL:
         raise AssertionError(f"cp_fallback logits, K6 vs K4: max abs err {err} > {LOGIT_TOL}")
     emit({"phase": "cp_fallback", "layers": 16, "heads": [16, 16], "b": 2, "s": CP_FALLBACK_SEQ, "dtype": "float32",
-          "k6_launches": launches["fused_mha_causal"], "logit_max_abs_err": err, "logit_tol": LOGIT_TOL})
+          "k6_launches": launches["fused_mha_causal"], "logit_max_abs_err": err, "logit_tol": LOGIT_TOL,
+          "forward_ms": run_s * 1e3, "run_s": runs, "tok_s": 2 * CP_FALLBACK_SEQ / run_s, "peak_mem_gb": peak})
     del model
     torch.cuda.empty_cache()
 
@@ -2749,8 +2935,11 @@ def serving_paths(records, card):
                ids_on_card(4, 300), records, card, {})
 
 
-PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names (K7 runs K4's forward kernel)
-    # bf16: the tensor-core kernels (csrc/attention_tc.cu); fp32: the SIMT ones (csrc/attention.cu)
+PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names
+    # bf16: the tensor-core kernels (csrc/attention_tc.cu); fp32: the SIMT ones (csrc/attention.cu);
+    # K6 and K7 run the short-sequence forward (csrc/fused_mha_tc.cu in bf16; in fp32 K6 csrc/fused_mha.cu,
+    # K7 the SIMT flash forward) and the flash backward kernels
+    "short_fwd": "fused_mha_tc_kernel", "short_fwd_simt": "fused_mha_kernel",
     "flash_fwd": "attention_tc_fwd_kernel", "flash_bwd_dq": "attention_tc_dq_kernel",
     "flash_bwd_dkv": "attention_tc_dkv_kernel", "flash_fwd_simt": "attention_fwd_kernel",
     "flash_bwd_dq_simt": "attention_bwd_dq_kernel", "flash_bwd_dkv_simt": "attention_bwd_dkv_kernel",
@@ -2950,21 +3139,22 @@ def main(argv):
         return 0
 
     records = kernel_phase()
-    k4_window_ratio(records)
-    k4_host_cost()
-    vit_paths(records, smi)
-    vit_train_paths(records, smi)
-    ablate_path(records, smi)
+    install_plain_sentinels()
+    phase(k4_window_ratio, records)
+    phase(k4_host_cost)
+    phase(vit_paths, records, smi)
+    phase(vit_train_paths, records, smi)
+    phase(ablate_path, records, smi)
     cfg = dict(QWEN3_5_08B_CONFIG)
     inputs = make_inputs(cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
-    check_fp32(cfg, inputs)
-    main_path(cfg, inputs, records, smi)
-    train_paths(records, smi)
-    gemma_paths(records, smi)
-    mimo_paths(records, smi)
-    dsv3_paths(records, smi)
-    cp_paths(records, smi)
-    serving_paths(records, smi)
+    phase(check_fp32, cfg, inputs)
+    phase(main_path, cfg, inputs, records, smi)
+    phase(train_paths, records, smi)
+    phase(gemma_paths, records, smi)
+    phase(mimo_paths, records, smi)
+    phase(dsv3_paths, records, smi)
+    phase(cp_paths, records, smi)
+    phase(serving_paths, records, smi)
 
     emit({"phase": "device_timing", **PROFILER})
     emit({"kernels": records})

@@ -23,9 +23,13 @@
 //   llm_quest_tpu/kernels/fused_mha.py::packed_mha (_packed_mha_kernel):
 //     bidirectional maskless attention read straight from the packed
 //     (b, s, h*d) projection outputs, head dims 32, 64 and 128. ViT-B/224:
-//     12 heads x 64, s 197.
-// Both are one kernel: every operand is addressed by (batch, head, seq)
-// strides with a contiguous last dim, so the packed layout needs no
+//     12 heads x 64, s 197. Its fp32 forward only: bf16 takes
+//     fused_mha_tc.cu.
+//   The recompute VJPs of fused_mha.py::fused_mha and ::packed_mha (XLA's in
+//     JAX): the backward kernels below, fed the forward's lse, write their
+//     gradients by the caller's strides (the packed layout needs no copy).
+// All are one kernel each way: every operand is addressed by (batch, head,
+// seq) strides with a contiguous last dim, so the packed layout needs no
 // transposes and the GQA head map is a division.
 //
 // Design: one block of 128 threads owns BQ = 16 query rows of one
@@ -365,7 +369,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
   }
 
   if (row_ok) {
-    float* dqrow = static_cast<float*>(a.dq) + stat * D;
+    float* dqrow = row_at<float>(a.dq, a.dq_sb, a.dq_sh, a.dq_ss, bi, hq, row);
 #pragma unroll
     for (int n = 0; n < NC; ++n) dqrow[c + kTPR * n] = acc[n] * a.scale;
   }
@@ -507,9 +511,8 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
   }
 
   if (kpos < a.SK) {
-    const long long row = (long long)bh * a.SK + kpos;
-    float* dkrow = static_cast<float*>(a.dk) + row * D;
-    float* dvrow = static_cast<float*>(a.dv) + row * DV;
+    float* dkrow = row_at<float>(a.dk, a.dk_sb, a.dk_sh, a.dk_ss, bi, hk, kpos);
+    float* dvrow = row_at<float>(a.dv, a.dv_sb, a.dv_sh, a.dv_ss, bi, hk, kpos);
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
       dkrow[c + kTPR * n] = dk_acc[n] * a.scale;
@@ -540,8 +543,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
   return (int)cudaGetLastError();
 }
 
-// The (d, dv) pairs the kernels are built for: dv = d at 32 (the packed path
-// only, K7; K4's wrapper takes the others), 64, 128 and 256, d 64 with dv 32
+// The (d, dv) pairs the kernels are built for: dv = d at 32 (K7's forward and
+// the K6/K7 backward only; K4's wrapper takes the others), 64, 128 and 256, d 64 with dv 32
 // (MiMo-V2-Flash) and d 96 with dv 64 (DeepSeek-V3's MLA; shared memory
 // 28.9 KB forward, 33.2 KB dq, 35.6 KB dk/dv). A pair is one more case here
 // and in launch_bwd_d.
@@ -584,6 +587,7 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 }
 
 int launch_bwd_d(int D, int DV, const BwdArgs& a, cudaStream_t stream) {
+  if (D == 32 && DV == 32) return launch_bwd<32, 32>(a, stream);
   if (D == 64 && DV == 64) return launch_bwd<64, 64>(a, stream);
   if (D == 128 && DV == 128) return launch_bwd<128, 128>(a, stream);
   if (D == 256 && DV == 256) return launch_bwd<256, 256>(a, stream);
@@ -632,7 +636,9 @@ extern "C" int llmq_attention_bwd(int dtype, const void* q, const void* k, const
                                   long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                                   long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                                   long long v_ss, long long do_sb, long long do_sh, long long do_ss,
-                                  long long mask_sb, int causal, int q_start, float scale,
+                                  long long dq_sb, long long dq_sh, long long dq_ss, long long dk_sb,
+                                  long long dk_sh, long long dk_ss, long long dv_sb, long long dv_sh,
+                                  long long dv_ss, long long mask_sb, int causal, int q_start, float scale,
                                   int window, float softcap, void* stream) {
   if (HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SK <= 0 || window < 0) return (int)cudaErrorInvalidValue;
   BwdArgs a;
@@ -664,6 +670,15 @@ extern "C" int llmq_attention_bwd(int dtype, const void* q, const void* k, const
   a.do_sb = do_sb;
   a.do_sh = do_sh;
   a.do_ss = do_ss;
+  a.dq_sb = dq_sb;
+  a.dq_sh = dq_sh;
+  a.dq_ss = dq_ss;
+  a.dk_sb = dk_sb;
+  a.dk_sh = dk_sh;
+  a.dk_ss = dk_ss;
+  a.dv_sb = dv_sb;
+  a.dv_sh = dv_sh;
+  a.dv_ss = dv_ss;
   a.mask_sb = mask_sb;
   a.causal = causal;
   a.q_start = q_start;

@@ -33,12 +33,13 @@ struct BwdArgs {
   const float* lse;          // (b*hq, sq)
   const float* delta;        // (b*hq, sq)
   const float* delta_shift;  // (b*hq, sq) or nullptr
-  void* dq;                  // contiguous (b, hq, sq, d)
-  void* dk;                  // contiguous (b, hkv, sk, d)
-  void* dv;                  // contiguous (b, hkv, sk, dv)
+  void* dq;                  // (b, hq, sq, d) by its dq_* strides
+  void* dk;                  // (b, hkv, sk, d) by its dk_* strides
+  void* dv;                  // (b, hkv, sk, dv) by its dv_* strides
   const uint8_t* key_mask;   // (b, sk) with row stride mask_sb, or nullptr
   int B, HQ, HKV, SQ, SK;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss, mask_sb;
+  long long dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
   int causal, q_start;
   float scale;
   int window;     // 0 = none

@@ -7,14 +7,17 @@
 //   llm_quest_tpu/kernels/flash_attention.py::flash_attention (_fwd_kernel,
 //     _bwd_dq_kernel, _bwd_dkv_kernel) and, through the same forward,
 //     flash_attention_with_lse;
-//   llm_quest_tpu/kernels/fused_mha.py::packed_mha (packed strides).
+//   and, for the backward only, the recompute VJPs of
+//   llm_quest_tpu/kernels/fused_mha.py::fused_mha and ::packed_mha (XLA's in
+//   JAX): their short-sequence forward is fused_mha_tc.cu, their gradients
+//   these kernels, written by the caller's strides.
 // Semantics are attention.cu's, on the accumulator registers: causal rule
 // with q_start, (b, sk) key mask, GQA by head division, sliding window,
 // softcap cap * tanh(s / cap) in fp32 before the mask, per-head sinks added
 // to the row sum after the last tile, masked scores at finfo(float32).min / 2
 // (a row with no visible key averages the keys it visited), keys past sk
-// zero-filled and at -inf. (d, dv) pairs: (32, 32) (the packed path only),
-// (64, 64), (128, 128), (256, 256), (64, 32) and (96, 64).
+// zero-filled and at -inf. (d, dv) pairs: (64, 64), (128, 128), (256, 256),
+// (64, 32) and (96, 64), and (32, 32) in the backward (K6 and K7 only).
 //
 // Bound: the products. In bf16 the score and value products run on the
 // tensor cores (989 TFLOP/s dense) instead of the fp32 SIMT units (67
@@ -28,15 +31,11 @@
 //   registers, so they never touch shared memory. Wide products are issued
 //   as N = 64 (or 32) column chunks: an N chunk is one swizzle block.
 //   Issue is synchronous: fence, issue, commit, wait for 0.
-// - Layout: every tile is bf16 rows split into column blocks of 64 (128-byte
-//   swizzle) or, where a width is no multiple of 64 (d 32 and 96, dv 32),
-//   of 32 (64-byte swizzle); a 16-byte chunk c of row r sits at chunk
-//   c ^ (r % 8) (128 B) or c ^ ((r / 2) % 4) (64 B), as TMA writes it and
-//   wgmma reads it.
-//   The same tile serves as a K-major operand (the contraction runs along
-//   its columns: Q and K in S = Q K^T) and as an MN-major one with the
-//   transpose flag (the contraction runs along its rows: V in P V, K in
-//   dQ = dS K, Q and dO in dK and dV), so V keeps its natural (key, dv) rows.
+// - Layout: the swizzled tiles of tma_wgmma.cuh, which also holds the
+//   primitives (mbarriers, TMA, wgmma, the tensor-map encoder). One tile serves as a
+//   K-major operand (Q and K in S = Q K^T) and as an MN-major one with the
+//   transpose flag (V in P V, K in dQ = dS K, Q and dO in dK and dV), so V
+//   keeps its natural (key, dv) rows.
 // - Copies: TMA (cp.async.bulk.tensor), issued by one thread, completing on
 //   an mbarrier a ring stage, each box one swizzle block of a tile. Every
 //   operand is a 4-d tensor map (columns, seq, head, batch) built per call
@@ -71,175 +70,13 @@
 //   unrolled loop over a thread's 32 scores serialises them.
 #include <atomic>
 
-#include <cuda.h>  // CUtensorMap (the encoder is reached through cudaGetDriverEntryPoint)
-
 #include "attention.cuh"
+#include "tma_wgmma.cuh"
 
 namespace llmq {
 namespace {
 
-constexpr int kBK = 64;            // keys (forward, dq) or query rows (dk/dv) per streamed tile
-constexpr int kWG = 128;           // threads of a warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
-
-// ---------------------------------------------------------------- primitives
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// mbarriers (one arrival: the thread that issues a stage's copies, plus the
-// copies' bytes) and TMA tile copies
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-// one box of a 4-d tensor map (columns, seq, head, batch) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, uint32_t bar, int col, int row,
-                                         int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(col), "r"(row), "r"(head), "r"(batch)
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// keeps the compiler from moving accumulator accesses across an async product
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma matrix descriptor: start address, leading and stride byte offsets,
-// swizzle mode (1 = 128 B, 2 = 64 B)
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int mode) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (static_cast<uint64_t>(mode) << 62);
-}
-
-#define LLMQ_F8(i)                                                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
-      "+f"(d[i + 7])
-#define LLMQ_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-#define LLMQ_D32                                                                                            \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
-  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// S (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64), both K-major in shared memory
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LLMQ_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : LLMQ_F8(0), LLMQ_F8(8), LLMQ_F8(16), LLMQ_F8(24)
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// D (64 x N, fp32) += A (64 x 16, bf16 fragments in registers) B (16 x N),
-// B MN-major (transposed) in shared memory
-template <int N>
-__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LLMQ_D32
-        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : LLMQ_F8(0), LLMQ_F8(8), LLMQ_F8(16), LLMQ_F8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  } else {
-    static_assert(N == 32, "N chunks are 64 or 32 columns");
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " LLMQ_D16
-        ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : LLMQ_F8(0), LLMQ_F8(8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-}
-
-#undef LLMQ_F8
-#undef LLMQ_D16
-#undef LLMQ_D32
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A bf16 tile of R rows by C columns in shared memory, in column blocks of
-// BW (64: 128-byte swizzle; 32: 64-byte swizzle), each block R rows of BW:
-// the 16-byte chunk c of row r sits at chunk c ^ (r % 8) (128 B) or
-// c ^ ((r / 2) % 4) (64 B), as TMA writes it and wgmma reads it.
-template <int R, int C>
-struct Tile {
-  static_assert(C % 32 == 0 && R % 64 == 0, "tiles are 64-row multiples of 32 columns");
-  static constexpr int BW = C % 64 == 0 ? 64 : 32;
-  static constexpr int ROWB = BW * 2;
-  static constexpr int BLOCKB = R * ROWB;
-  static constexpr int BYTES = (C / BW) * BLOCKB;
-  static constexpr int MODE = BW == 64 ? 1 : 2;
-
-  // the contraction along the columns: rows row0 .. row0 + 63, columns 16kk .. 16kk + 15
-  __device__ static __forceinline__ uint64_t kmajor(uint32_t base, int row0, int kk) {
-    return make_desc(base + (16 * kk / BW) * BLOCKB + row0 * ROWB + (16 * kk % BW) * 2, 16, 8 * ROWB, MODE);
-  }
-  // the contraction along the rows: rows 16kk .. 16kk + 15, columns of block nb
-  __device__ static __forceinline__ uint64_t mnmajor(uint32_t base, int kk, int nb) {
-    return make_desc(base + nb * BLOCKB + 16 * kk * ROWB, BLOCKB, 8 * ROWB, MODE);
-  }
-  // rows row0 .. row0 + R - 1 of (batch, head) of a tensor map whose box is
-  // (BW, R): one TMA copy a column block, each writing its block's swizzle;
-  // rows past the tensor's end arrive as zeros. Issued by one thread.
-  __device__ static __forceinline__ void tma(uint32_t base, const CUtensorMap& map, uint32_t bar, int row0, int head,
-                                             int batch) {
-#pragma unroll
-    for (int nb = 0; nb < C / BW; ++nb) tma_load(base + nb * BLOCKB, map, bar, nb * BW, row0, head, batch);
-  }
-};
-
-// accumulator fragment of m64nN: element e (0..3) of n8 block j sits at row
-// 16 * warp + lane / 4 + 8 * (e / 2), column 8j + 2 * (lane % 4) + e % 2.
-// The 4 threads of a row are lanes 4g .. 4g + 3.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFullMask, x, 1);
-  return x + __shfl_xor_sync(kFullMask, x, 2);
-}
-
-// the 64 x 64 fp32 fragment s (keys or query rows along N) as four k16 A
-// operands in bf16
-__device__ __forceinline__ void to_a_frags(const float (&s)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
+constexpr int kBK = 64;  // keys (forward, dq) or query rows (dk/dv) per streamed tile
 
 // first key of the kBK-aligned tile the query at absolute position qpos0 needs
 __device__ __forceinline__ int window_begin(int qpos0, int window) {
@@ -290,18 +127,9 @@ __device__ __forceinline__ void mask_rows(float (&s)[32], float masked, int k0, 
 
 // shared memory of a kernel: its tiles, 1024-byte aligned, plus the slack
 // that aligning the dynamic base takes, and kBars mbarriers at the end
-__device__ __forceinline__ uint32_t smem_base(uint8_t* raw) { return (smem_u32(raw) + 1023u) & ~1023u; }
 constexpr int kBars = 4;
-constexpr size_t kSlack = 1024 + 8 * kBars;
+constexpr size_t kSlack = kAlignSlack + 8 * kBars;
 
-// thread 0 makes the block's mbarriers at `bars`; every thread waits for them
-__device__ __forceinline__ void init_bars(uint32_t bars, int tid) {
-  if (tid == 0) {
-    for (int i = 0; i < kBars; ++i) mbar_init(bars + 8 * i);
-    mbar_fence_init();
-  }
-  __syncthreads();
-}
 
 // ------------------------------------------------------------------ forward
 
@@ -359,7 +187,7 @@ __global__ void __launch_bounds__(kWG * fwd_wgs<D>())
   const int k_begin = window_begin(a.q_start + q0, a.window);
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
-  init_bars(bars, tid);
+  init_bars(bars, kBars, tid);
   if (tid == 0) {
     mbar_expect(bars, QT::BYTES);
     QT::tma(q_s, tq, bars, q0, hq, bi);
@@ -539,7 +367,7 @@ __global__ void __launch_bounds__(kWG * fwd_wgs<D>())
   const int k_begin = window_begin(a.q_start + q0, a.window);
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
-  init_bars(bars, tid);
+  init_bars(bars, kBars, tid);
   if (tid == 0) {
     mbar_expect(bars, QT::BYTES + OT::BYTES);
     QT::tma(q_s, tq, bars, q0, hq, bi);
@@ -623,7 +451,7 @@ __global__ void __launch_bounds__(kWG * fwd_wgs<D>())
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + 8 * h;
     if (row >= a.SQ) continue;
-    __nv_bfloat16* dqrow = static_cast<__nv_bfloat16*>(a.dq) + ((long long)bh * a.SQ + row) * D;
+    __nv_bfloat16* dqrow = row_at<__nv_bfloat16>(a.dq, a.dq_sb, a.dq_sh, a.dq_ss, bi, hq, row);
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
@@ -752,7 +580,7 @@ __device__ __forceinline__ void dkv_body(const BwdArgs& a, uint8_t* smem_raw, co
     }
   };
 
-  init_bars(bars, tid);
+  init_bars(bars, kBars, tid);
   if (tid == 0) {
     mbar_expect(bars, KT::BYTES + VT::BYTES);
     KT::tma(k_s, tk, bars, k0, hk, bi);
@@ -824,9 +652,8 @@ __device__ __forceinline__ void dkv_body(const BwdArgs& a, uint8_t* smem_raw, co
   for (int h = 0; h < 2; ++h) {
     const int kpos = key0 + 8 * h;
     if (kpos >= a.SK) continue;
-    const long long row = (long long)bh * a.SK + kpos;
     {
-      __nv_bfloat16* dkrow = static_cast<__nv_bfloat16*>(a.dk) + row * D;
+      __nv_bfloat16* dkrow = row_at<__nv_bfloat16>(a.dk, a.dk_sb, a.dk_sh, a.dk_ss, bi, hk, kpos);
 #pragma unroll
       for (int nb = 0; nb < NBK; ++nb)
 #pragma unroll
@@ -835,7 +662,7 @@ __device__ __forceinline__ void dkv_body(const BwdArgs& a, uint8_t* smem_raw, co
               __floats2bfloat162_rn(dk[nb][4 * j + 2 * h] * a.scale, dk[nb][4 * j + 2 * h + 1] * a.scale);
     }
     {
-      __nv_bfloat16* dvrow = static_cast<__nv_bfloat16*>(a.dv) + row * DV;
+      __nv_bfloat16* dvrow = row_at<__nv_bfloat16>(a.dv, a.dv_sb, a.dv_sh, a.dv_ss, bi, hk, kpos);
 #pragma unroll
       for (int nb = 0; nb < NBV; ++nb)
 #pragma unroll
@@ -910,7 +737,7 @@ __device__ __forceinline__ void dkv_body_columns(const BwdArgs& a, uint8_t* smem
     }
   };
 
-  init_bars(bars, tid);
+  init_bars(bars, kBars, tid);
   if (tid == 0) {
     mbar_expect(bars, KT::BYTES + VT::BYTES);
     KT::tma(k_s, tk, bars, k0, hk, bi);
@@ -989,9 +816,8 @@ __device__ __forceinline__ void dkv_body_columns(const BwdArgs& a, uint8_t* smem
   for (int h = 0; h < 2; ++h) {
     const int kpos = key0 + 8 * h;
     if (kpos >= a.SK) continue;
-    const long long row = (long long)bh * a.SK + kpos;
-    __nv_bfloat16* dkrow = static_cast<__nv_bfloat16*>(a.dk) + row * D + wg * NBK * QT::BW;
-    __nv_bfloat16* dvrow = static_cast<__nv_bfloat16*>(a.dv) + row * DV + wg * NBV * OT::BW;
+    __nv_bfloat16* dkrow = row_at<__nv_bfloat16>(a.dk, a.dk_sb, a.dk_sh, a.dk_ss, bi, hk, kpos) + wg * NBK * QT::BW;
+    __nv_bfloat16* dvrow = row_at<__nv_bfloat16>(a.dv, a.dv_sb, a.dv_sh, a.dv_ss, bi, hk, kpos) + wg * NBV * OT::BW;
 #pragma unroll
     for (int nb = 0; nb < NBK; ++nb)
 #pragma unroll
@@ -1023,55 +849,14 @@ __global__ void __launch_bounds__(2 * kWG)
 
 // ------------------------------------------------------------------ launches
 
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  // above 48 KB the launch is refused unless the kernel's limit is raised
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's tensor-map encoder, found once through the runtime, so the
-// library links without -lcuda
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const bool ok = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
-                    found == cudaDriverEntryPointSuccess;
-    return ok ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// the 4-d tensor map (columns, seq, head, batch) of a bf16 (b, h, s, C)
-// operand with (batch, head, seq) strides in elements; its box is one column
-// block of a Tile<R, C>, swizzled as wgmma reads it; false if the encoder
-// refuses it
-template <int R, int C>
-bool make_map(CUtensorMap* map, const void* ptr, int B, int H, int S, long long sb, long long sh, long long ss) {
-  using T = Tile<R, C>;
-  const EncodeTiled encode = encoder();
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)T::BW, (cuuint32_t)R, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, T::MODE == 1 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, int DV>
 int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<D, DV>();
   constexpr int BQ = 64 * fwd_wgs<D>();
   CUtensorMap tq, tk, tv;
-  if (!make_map<BQ, D>(&tq, a.q, a.B, a.HQ, a.SQ, a.q_sb, a.q_sh, a.q_ss) ||
-      !make_map<kBK, D>(&tk, a.k, a.B, a.HKV, a.SK, a.k_sb, a.k_sh, a.k_ss) ||
-      !make_map<kBK, DV>(&tv, a.v, a.B, a.HKV, a.SK, a.v_sb, a.v_sh, a.v_ss)) {
+  if (!make_map<D>(&tq, a.q, a.B, a.HQ, a.SQ, a.q_sb, a.q_sh, a.q_ss, BQ) ||
+      !make_map<D>(&tk, a.k, a.B, a.HKV, a.SK, a.k_sb, a.k_sh, a.k_ss, kBK) ||
+      !make_map<DV>(&tv, a.v, a.B, a.HKV, a.SK, a.v_sb, a.v_sh, a.v_ss, kBK)) {
     return (int)cudaErrorInvalidValue;
   }
   auto kernel = attention_tc_fwd_kernel<D, DV>;
@@ -1087,14 +872,14 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   constexpr int BQ = 64 * fwd_wgs<D>(), BKV = dkv_keys<D>();
   // the dq kernel's Q and dO boxes are its BQ rows, the dk/dv kernel's K and V boxes its BKV keys
   CUtensorMap dq_q, dq_do, dq_k, dq_v, kv_k, kv_v, kv_q, kv_do;
-  if (!make_map<BQ, D>(&dq_q, a.q, a.B, a.HQ, a.SQ, a.q_sb, a.q_sh, a.q_ss) ||
-      !make_map<BQ, DV>(&dq_do, a.dout, a.B, a.HQ, a.SQ, a.do_sb, a.do_sh, a.do_ss) ||
-      !make_map<kBK, D>(&dq_k, a.k, a.B, a.HKV, a.SK, a.k_sb, a.k_sh, a.k_ss) ||
-      !make_map<kBK, DV>(&dq_v, a.v, a.B, a.HKV, a.SK, a.v_sb, a.v_sh, a.v_ss) ||
-      !make_map<BKV, D>(&kv_k, a.k, a.B, a.HKV, a.SK, a.k_sb, a.k_sh, a.k_ss) ||
-      !make_map<BKV, DV>(&kv_v, a.v, a.B, a.HKV, a.SK, a.v_sb, a.v_sh, a.v_ss) ||
-      !make_map<kBK, D>(&kv_q, a.q, a.B, a.HQ, a.SQ, a.q_sb, a.q_sh, a.q_ss) ||
-      !make_map<kBK, DV>(&kv_do, a.dout, a.B, a.HQ, a.SQ, a.do_sb, a.do_sh, a.do_ss)) {
+  if (!make_map<D>(&dq_q, a.q, a.B, a.HQ, a.SQ, a.q_sb, a.q_sh, a.q_ss, BQ) ||
+      !make_map<DV>(&dq_do, a.dout, a.B, a.HQ, a.SQ, a.do_sb, a.do_sh, a.do_ss, BQ) ||
+      !make_map<D>(&dq_k, a.k, a.B, a.HKV, a.SK, a.k_sb, a.k_sh, a.k_ss, kBK) ||
+      !make_map<DV>(&dq_v, a.v, a.B, a.HKV, a.SK, a.v_sb, a.v_sh, a.v_ss, kBK) ||
+      !make_map<D>(&kv_k, a.k, a.B, a.HKV, a.SK, a.k_sb, a.k_sh, a.k_ss, BKV) ||
+      !make_map<DV>(&kv_v, a.v, a.B, a.HKV, a.SK, a.v_sb, a.v_sh, a.v_ss, BKV) ||
+      !make_map<D>(&kv_q, a.q, a.B, a.HQ, a.SQ, a.q_sb, a.q_sh, a.q_ss, kBK) ||
+      !make_map<DV>(&kv_do, a.dout, a.B, a.HQ, a.SQ, a.do_sb, a.do_sh, a.do_ss, kBK)) {
     return (int)cudaErrorInvalidValue;
   }
   auto dq_kernel = attention_tc_dq_kernel<D, DV>;
@@ -1108,9 +893,7 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// (32, 32) is the packed path's (K7), forward only
 int dispatch_fwd(int D, int DV, const FwdArgs& a, cudaStream_t stream) {
-  if (D == 32 && DV == 32) return launch_fwd<32, 32>(a, stream);
   if (D == 64 && DV == 64) return launch_fwd<64, 64>(a, stream);
   if (D == 128 && DV == 128) return launch_fwd<128, 128>(a, stream);
   if (D == 256 && DV == 256) return launch_fwd<256, 256>(a, stream);
@@ -1119,7 +902,9 @@ int dispatch_fwd(int D, int DV, const FwdArgs& a, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// (32, 32) is the short-sequence kernels' (K6 and K7 at d 32), backward only
 int dispatch_bwd(int D, int DV, const BwdArgs& a, cudaStream_t stream) {
+  if (D == 32 && DV == 32) return launch_bwd<32, 32>(a, stream);
   if (D == 64 && DV == 64) return launch_bwd<64, 64>(a, stream);
   if (D == 128 && DV == 128) return launch_bwd<128, 128>(a, stream);
   if (D == 256 && DV == 256) return launch_bwd<256, 256>(a, stream);

@@ -30,4 +30,11 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
+// the row at (batch bi, head h, position pos) of a (b, h, s, w) tensor with
+// (batch, head, seq) strides in elements
+template <typename T>
+__device__ __forceinline__ T* row_at(void* base, long long sb, long long sh, long long ss, int bi, int h, int pos) {
+  return static_cast<T*>(base) + bi * sb + h * sh + pos * ss;
+}
+
 }  // namespace llmq

@@ -1,4 +1,4 @@
-// Short-sequence fused multi-head attention for Hopper.
+// Short-sequence fused multi-head attention for Hopper, fp32 inputs.
 //
 // Replaces llm_quest_tpu/kernels/fused_mha.py::fused_mha (_fused_mha_kernel):
 // maskless attention over (b, h, s, d) heads with as many k/v heads as q
@@ -7,31 +7,34 @@
 // exact softmax in two passes (the row max over the whole row, then exp),
 // casts the unnormalised p to v's type, and gets the denominator from a
 // ones column appended to V, so it sums the rounded p; it divides the
-// (s, d) output once.
+// (s, d) output once. In fp32 the cast is the identity.
+//
+// Dtypes: this file's kernel runs fp32 inputs; the C entry point at its end
+// sends bf16 inputs to the tensor-core kernel of fused_mha_tc.cu (which also
+// serves packed_mha's bf16 forward).
 //
 // Design: the grid is (b*h, query tiles of 32 rows); one block of 256
 // threads owns 32 query rows of one head, eight threads of one warp a row.
 // Each thread keeps its row's q in fp32 registers. Pass 1 walks the keys in
-// tiles of 64 staged in shared memory as fp32 (row stride d + 4, so the
-// eight rows a warp reads at once fall in eight different groups of four
-// banks) and writes each scaled score of the block's rows into a (32, s)
-// fp32 tile in shared memory: the whole score row is held, as the TPU
-// kernel holds its (s, s) tile, so the softmax is exact with no online
-// rescale. Pass 2 takes each row's true max, then exp, rounds p to v's type
-// in the tile and sums the rounded values (the ones column's sum). Pass 3
-// streams V in tiles of 32 keys staged as fp32 and accumulates p.V in
-// registers (d / 32 float4 columns a thread), then divides by the sum. K and
-// V never sit in shared memory together, so d 128 at s 1024 fits (about
-// 186 KB). Causal rows stop at their own position and a causal block stops
-// staging keys past its last row; keys past s are never read (the TPU
-// kernel pads s to 16 and masks the pad).
+// tiles of 64 staged in shared memory (row stride d + 4, so the eight rows
+// a warp reads at once fall in eight different groups of four banks) and
+// writes each scaled score of the block's rows into a (32, s) fp32 tile in
+// shared memory: the whole score row is held, as the TPU kernel holds its
+// (s, s) tile, so the softmax is exact with no online rescale. Pass 2 takes
+// each row's true max, then exp, and sums p (the ones column's sum). Pass 3
+// streams V in tiles of 32 keys and accumulates p.V in registers (d / 32
+// float4 columns a thread), then divides by the sum; with an lse pointer the
+// row's m + log(sum) is written for the backward (attention.cu's recompute
+// kernels). K and V never sit in shared memory together, so d 128 at s 1024
+// fits (about 186 KB). Causal rows stop at their own position and a causal
+// block stops staging keys past its last row; keys past s are never read
+// (the TPU kernel pads s to 16 and masks the pad).
 //
 // Bound: both products run on the SIMT units in fp32 (the q.k dot products
-// and p.V), not the tensor cores, so fp32 FMA issue and the shared-memory
-// reads of the K and V tiles bound the kernel; at ViT-B's shape (b 128,
-// 12 heads, s 197, d 64) the bytes alone would take 0.046 ms. A tensor-core
-// (mma/wgmma) form is later work.
-#include "common.cuh"
+// and p.V), so fp32 FMA issue and the shared-memory reads of the K and V
+// tiles bound the kernel; fp32 keeps it, because the fp32 checks hold the
+// port to its plain version at 1e-5, which TF32 or bf16 operands would break.
+#include "fused_mha.cuh"
 
 namespace llmq {
 namespace {
@@ -50,24 +53,16 @@ size_t fused_smem_bytes(int S) {
   return sizeof(float) * ((size_t)kFRows * fused_score_stride(S) + kFKeyTile * (D + 4) + kFValTile * D);
 }
 
-struct FusedArgs {
-  int H, S;
-  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-  float scale;
-};
-
 // grid (B * H, ceil(S / kFRows)), block kFThreads, dynamic smem fused_smem_bytes<D>(S).
-template <typename T, int D, bool kCausal>
-__global__ void __launch_bounds__(kFThreads)
-fused_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-                 const FusedArgs a) {
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kFThreads) fused_mha_kernel(const ShortArgs a) {
   constexpr int KP = D + 4;                   // padded K row stride (floats)
   constexpr int NS = kFKeyTile / kFTPR;       // scores per thread per K tile
   constexpr int NC4 = D / (4 * kFTPR);        // float4 output columns per thread
   const int S = a.S;
   const int SP = fused_score_stride(S);
   extern __shared__ float smem[];
-  float* p_s = smem;                          // kFRows x SP: scores, then rounded p
+  float* p_s = smem;                          // kFRows x SP: scores, then p
   float* k_s = p_s + kFRows * SP;             // kFKeyTile x KP
   float* v_s = k_s + kFKeyTile * KP;          // kFValTile x D
 
@@ -83,13 +78,13 @@ fused_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   // keys this row sees
   const int n_keys = row_ok ? (kCausal ? row + 1 : S) : 0;
 
-  const T* qrow = q + bi * a.q_sb + h * a.q_sh + (long long)min(row, S - 1) * a.q_ss;
+  const float* qrow = static_cast<const float*>(a.q) + bi * a.q_sb + h * a.q_sh + (long long)min(row, S - 1) * a.q_ss;
   float qr[D];
 #pragma unroll
-  for (int dd = 0; dd < D; ++dd) qr[dd] = to_f(qrow[dd]);
+  for (int dd = 0; dd < D; ++dd) qr[dd] = qrow[dd];
 
-  const T* kh = k + bi * a.k_sb + h * a.k_sh;
-  const T* vh = v + bi * a.v_sb + h * a.v_sh;
+  const float* kh = static_cast<const float*>(a.k) + bi * a.k_sb + h * a.k_sh;
+  const float* vh = static_cast<const float*>(a.v) + bi * a.v_sb + h * a.v_sh;
 
   // pass 1: the scaled scores of the block's rows against every key it needs
   float* prow = p_s + r * SP;
@@ -97,7 +92,7 @@ fused_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();  // the previous K tile is consumed
     for (int i = tid; i < kFKeyTile * D; i += kFThreads) {
       const int j = i / D, dd = i % D;
-      k_s[j * KP + dd] = k0 + j < k_end ? to_f(kh[(long long)(k0 + j) * a.k_ss + dd]) : 0.f;
+      k_s[j * KP + dd] = k0 + j < k_end ? kh[(long long)(k0 + j) * a.k_ss + dd] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -118,15 +113,15 @@ fused_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
   __syncwarp();  // a row's scores were written by its own eight threads
 
-  // pass 2: the row's true max, then exp; p rounded to v's type stays in the
-  // tile and the denominator sums the rounded values
+  // pass 2: the row's true max, then exp; p stays in the tile and the
+  // denominator sums it
   float m = -INFINITY;
   for (int j = c; j < n_keys; j += kFTPR) m = fmaxf(m, prow[j]);
 #pragma unroll
   for (int off = kFTPR / 2; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFullMask, m, off));
   float den = 0.f;
   for (int j = c; j < n_keys; j += kFTPR) {
-    const float p = to_f(from_f<T>(expf(__fsub_rn(prow[j], m))));
+    const float p = expf(__fsub_rn(prow[j], m));
     den += p;
     prow[j] = p;
   }
@@ -141,7 +136,7 @@ fused_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();  // the previous V tile (or the last K tile) is consumed
     for (int i = tid; i < kFValTile * D; i += kFThreads) {
       const int j = i / D, dd = i % D;
-      v_s[j * D + dd] = j0 + j < k_end ? to_f(vh[(long long)(j0 + j) * a.v_ss + dd]) : 0.f;
+      v_s[j * D + dd] = j0 + j < k_end ? vh[(long long)(j0 + j) * a.v_ss + dd] : 0.f;
     }
     __syncthreads();
     const int jn = min(kFValTile, n_keys - j0);
@@ -159,52 +154,43 @@ fused_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
   if (row_ok) {
-    T* orow = o + bi * a.o_sb + h * a.o_sh + (long long)row * a.o_ss;
+    float* orow = row_at<float>(a.o, a.o_sb, a.o_sh, a.o_ss, bi, h, row);
 #pragma unroll
     for (int n = 0; n < NC4; ++n) {
       const int col = 4 * (c + kFTPR * n);
-      orow[col] = from_f<T>(__fdiv_rn(acc[n].x, den));
-      orow[col + 1] = from_f<T>(__fdiv_rn(acc[n].y, den));
-      orow[col + 2] = from_f<T>(__fdiv_rn(acc[n].z, den));
-      orow[col + 3] = from_f<T>(__fdiv_rn(acc[n].w, den));
+      orow[col] = __fdiv_rn(acc[n].x, den);
+      orow[col + 1] = __fdiv_rn(acc[n].y, den);
+      orow[col + 2] = __fdiv_rn(acc[n].z, den);
+      orow[col + 3] = __fdiv_rn(acc[n].w, den);
     }
+    if (a.lse != nullptr && c == 0) a.lse[(long long)bh * S + row] = m + logf(den);
   }
 }
 
-template <typename T, int D, bool kCausal>
-int launch_fused(const void* q, const void* k, const void* v, void* o, int B, const FusedArgs& a,
-                 cudaStream_t stream) {
+template <int D, bool kCausal>
+int launch_fused(const ShortArgs& a, cudaStream_t stream) {
   const size_t smem = fused_smem_bytes<D>(a.S);
-  auto kernel = fused_mha_kernel<T, D, kCausal>;
+  auto kernel = fused_mha_kernel<D, kCausal>;
   // above 48 KB the launch is refused unless the kernel's limit is raised
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * a.H, (a.S + kFRows - 1) / kFRows);
-  kernel<<<grid, kFThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                            static_cast<const T*>(v), static_cast<T*>(o), a);
+  const dim3 grid(a.B * a.H, (a.S + kFRows - 1) / kFRows);
+  kernel<<<grid, kFThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kCausal>
-int launch_fused_d(int D, const void* q, const void* k, const void* v, void* o, int B, const FusedArgs& a,
-                   cudaStream_t stream) {
+template <bool kCausal>
+int launch_fused_d(int D, const ShortArgs& a, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_fused<T, 32, kCausal>(q, k, v, o, B, a, stream);
+      return launch_fused<32, kCausal>(a, stream);
     case 64:
-      return launch_fused<T, 64, kCausal>(q, k, v, o, B, a, stream);
+      return launch_fused<64, kCausal>(a, stream);
     case 128:
-      return launch_fused<T, 128, kCausal>(q, k, v, o, B, a, stream);
+      return launch_fused<128, kCausal>(a, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-template <typename T>
-int launch_fused_c(int causal, int D, const void* q, const void* k, const void* v, void* o, int B,
-                   const FusedArgs& a, cudaStream_t stream) {
-  if (causal) return launch_fused_d<T, true>(D, q, k, v, o, B, a, stream);
-  return launch_fused_d<T, false>(D, q, k, v, o, B, a, stream);
 }
 
 }  // namespace
@@ -212,16 +198,21 @@ int launch_fused_c(int causal, int D, const void* q, const void* k, const void* 
 
 using namespace llmq;
 
-// K6: q/k/v/o (B, H, S, D) with a contiguous last dim and (batch, head, seq)
-// strides in elements; 1 <= S <= 1024 (the score tile in shared memory).
-extern "C" int llmq_fused_mha(int dtype, const void* q, const void* k, const void* v, void* o, int B, int H, int S,
-                              int D, long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-                              long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-                              long long o_sh, long long o_ss, int causal, float scale, void* stream) {
+// K6 (and, for bf16 with fp32_den, K7's forward): q/k/v/o (B, H, S, D) with a
+// contiguous last dim and (batch, head, seq) strides in elements;
+// 1 <= S <= 1024. lse: contiguous fp32 (B, H, S) or null. fp32 inputs take
+// this file's SIMT kernel (where fp32_den makes no difference), bf16 inputs
+// the tensor-core kernel of fused_mha_tc.cu.
+extern "C" int llmq_fused_mha(int dtype, const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                              int H, int S, int D, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+                              long long k_sh, long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+                              long long o_sb, long long o_sh, long long o_ss, int causal, int fp32_den,
+                              float scale, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || S > 1024) return (int)cudaErrorInvalidValue;
-  const FusedArgs a{H, S, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale};
+  const ShortArgs a{q, k, v, o, static_cast<float*>(lse), B, H, S, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                    v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, causal, fp32_den, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_fused_c<float>(causal, D, q, k, v, o, B, a, st);
-  if (dtype == kBFloat16) return launch_fused_c<__nv_bfloat16>(causal, D, q, k, v, o, B, a, st);
+  if (dtype == kFloat32) return causal ? launch_fused_d<true>(D, a, st) : launch_fused_d<false>(D, a, st);
+  if (dtype == kBFloat16) return launch_short_tc(D, a, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,8 +11,9 @@ multiple of 8 elements, an unaligned start, a (d, dv) pair they are not
 built for) raises before any launch; nothing falls back. Each wrapper counts
 in ``tc_launches`` beside ``launches`` (K5's backward in ``tc_bwd_launches``)
 the calls that the library itself counted as tensor-core launches
-(``llmq_attention_tc_launches``), so a call the C side routed elsewhere does
-not count.
+(``llmq_attention_tc_launches``, and ``llmq_fused_mha_tc_launches`` for the
+short-sequence kernel), so a call the C side routed elsewhere does not
+count.
 
 - ``flash_attention``: K4, blockwise online-softmax attention with causal
   masking from a static ``q_start``, a (b, sk) key-validity mask, GQA, a
@@ -33,14 +34,19 @@ not count.
   (the cotangent of the logsumexp). Plain version: autograd through the plain
   forward.
 - ``packed_mha``: K7, bidirectional maskless MHA on packed (b, s, h·d)
-  projections (h·d % 128 == 0, d ∈ {32, 64, 128}), the flash forward kernel
-  read by packed strides; replaces
-  ``llm_quest_tpu/kernels/fused_mha.py::packed_mha``. Plain version: split
-  heads, ``sdpa``, merge heads. Differentiable: on a CUDA tensor that needs a
-  gradient it is a ``torch.autograd.Function`` whose backward is autograd
-  through the plain version, as JAX's ``_packed_bwd`` is an XLA recompute
-  (``packed_mha_bwd_plain``, shared with the int8 kernels' straight-through
-  backward).
+  projections (h·d % 128 == 0, d ∈ {32, 64, 128}), read and written by
+  stride; replaces ``llm_quest_tpu/kernels/fused_mha.py::packed_mha``. bf16
+  inputs take K6's short-sequence tensor-core kernel (``csrc/fused_mha_tc.cu``
+  through ``llmq_fused_mha``, with the fp32 sum of p as the denominator, as
+  JAX's kernel), fp32 inputs the SIMT flash forward of ``csrc/attention.cu``.
+  Plain version: split heads, ``sdpa``, merge heads. Differentiable: on a
+  CUDA tensor that needs a gradient it is a ``torch.autograd.Function``
+  whose forward also writes the row logsumexp and whose backward is the
+  flash recompute backward (``llmq_attention_bwd``, the exact ``sdpa``
+  gradient that JAX's ``_packed_bwd`` takes through XLA), its gradients
+  written in the packed layout; counted in ``bwd_launches`` and
+  ``tc_bwd_launches``. ``packed_mha_bwd_plain`` is the plain version of that
+  backward (and the int8 kernels' straight-through backward).
 - ``flash_attention_with_lse``: K5, K4's forward returning the fp32 row
   logsumexp beside the output, causal or not, with no mask, window, softcap
   or sinks; replaces
@@ -85,6 +91,7 @@ from llm_quest_tpu_torch.ops.masks import causal_mask, mask_value
 # small's MLA (q/k 96: the latent-up 64 and the RoPE'd decoupled 32; v 64)
 HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (64, 32), (96, 64)})
 PACKED_HEAD_DIMS = (32, 64, 128)  # the head dims of the packed kernels (K7, K8, K9)
+MAX_SEQ = 1024  # the short-sequence kernels' longest sequence (K6, K8, K9, and K7 in bf16)
 
 
 def _check_tc(*tensors):
@@ -285,9 +292,14 @@ def flash_attention_bwd_plain(q, k, v, do, *, attn_mask=None, causal=True, q_sta
         return torch.autograd.grad(outs, leaves, cts)
 
 
-def _bwd_launch(q, k, v, o, lse, do, attn_mask, causal, q_start, scale, window_size, softcap, delta_shift):
+def _bwd_launch(q, k, v, o, lse, do, attn_mask, causal, q_start, scale, window_size, softcap, delta_shift,
+                grads=None):
     """``llmq_attention_bwd`` on checked q/k/v; returns (dq, dk, dv, δ, the
-    fp32 shift or None, 1 if the call took the tensor-core kernels else 0)."""
+    fp32 shift or None, 1 if the call took the tensor-core kernels else 0).
+    ``o``: the forward's output (δ = rowsum(dO ⊙ O) is taken in fp32).
+    ``grads``: the (dq, dk, dv) tensors to write, any (batch, head, seq)
+    strides with a contiguous last dim (K7's packed views); contiguous new
+    ones when None."""
     b, hq, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     build.require(do.shape == (b, hq, sq, dv) and o.shape == do.shape, "do and o must be (b, hq, sq, dv)")
@@ -299,21 +311,24 @@ def _bwd_launch(q, k, v, o, lse, do, attn_mask, causal, q_start, scale, window_s
     build.require_cuda(q, o, lse, do, *(() if delta_shift is None else (delta_shift,)))
     if do.stride(-1) != 1 or any(st % 8 for st in do.stride()[:-1]) or do.data_ptr() % 16:
         do = do.contiguous()
-    delta = (do.float() * o.float()).sum(-1)  # (b, hq, sq), contiguous
+    delta = (do.float() * o).sum(-1).contiguous()  # (b, hq, sq), the products in fp32
     shift = None
     if delta_shift is not None:
         build.require(delta_shift.shape == (b, hq, sq), "delta_shift must be (b, hq, sq)")
         shift = delta_shift.float().contiguous()
-    dq = torch.empty(b, hq, sq, d, dtype=q.dtype, device=q.device)
-    dk = torch.empty(b, hkv, sk, d, dtype=q.dtype, device=q.device)
-    dv_grad = torch.empty(b, hkv, sk, dv, dtype=q.dtype, device=q.device)
+    if grads is None:
+        grads = (torch.empty(b, hq, sq, d, dtype=q.dtype, device=q.device),
+                 torch.empty(b, hkv, sk, d, dtype=q.dtype, device=q.device),
+                 torch.empty(b, hkv, sk, dv, dtype=q.dtype, device=q.device))
+    dq, dk, dv_grad = grads
     mask, mask_ptr, mask_sb = _mask_arg(attn_mask)
     tc_before = _tc_calls()
     build.launch(
         "llmq_attention_bwd", build.dtype_code(q),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         None if shift is None else shift.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_grad.data_ptr(), mask_ptr,
-        b, hq, hkv, sq, sk, d, dv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], mask_sb,
+        b, hq, hkv, sq, sk, d, dv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *dq.stride()[:3], *dk.stride()[:3], *dv_grad.stride()[:3], mask_sb,
         int(causal), int(q_start), float(scale), int(window_size or 0), float(softcap or 0.0), build.stream_of(q),
     )
     del mask
@@ -428,6 +443,15 @@ def packed_mha_plain(q, k, v, n_heads, scale=None):
     return merge_heads(out)
 
 
+def packed_mha_lse_plain(q, k, n_heads, scale=None):
+    """The fp32 (b, h, s) row logsumexp of ``packed_mha_plain``'s scaled
+    scores: the plain version of the lse K7's forward keeps for its
+    backward."""
+    if scale is None:
+        scale = (q.shape[2] // n_heads) ** -0.5
+    return _plain_lse(split_heads(q, n_heads), split_heads(k, n_heads), None, False, 0, scale)
+
+
 def packed_mha_bwd_plain(q, k, v, do, n_heads, scale=None):
     """(dq, dk, dv) of ``packed_mha_plain`` for the output cotangent ``do``,
     by autograd: JAX's recompute backward of the packed kernels."""
@@ -453,33 +477,74 @@ def check_packed_cuda(q, k, v, n_heads):
     build.require_cuda(q, k, v)
 
 
-def _packed_fwd(q, k, v, n_heads, scale):
+def launch_fused_mha(q, k, v, o, lse, *, causal, fp32_den, scale):
+    """``llmq_fused_mha`` on checked (b, h, s, d) q/k/v and the output ``o``,
+    any (batch, head, seq) strides with a contiguous last dim: fp32 on K6's
+    SIMT kernel, bf16 on the short-sequence tensor-core kernel, whose
+    denominator sums the fp32 p (``fp32_den``, K7's) or the p rounded to
+    bf16 (K6's). ``lse``: contiguous fp32 (b, h, s) to write, or None.
+    Returns 1 if the call took the tensor-core kernel, else 0."""
+    b, h, s, d = q.shape
+    lib = build.library().cdll
+    before = lib.llmq_fused_mha_tc_launches()
+    build.launch(
+        "llmq_fused_mha", build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, h, s, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], int(causal), int(fp32_den), float(scale),
+        build.stream_of(q),
+    )
+    return lib.llmq_fused_mha_tc_launches() - before
+
+
+def short_lse(o, with_lse):
+    """The fp32 (b, h, s) row lse K6's and K7's forward write beside ``o``
+    (b, h, s, d) when a gradient is needed, else None."""
+    b, h, s, _ = o.shape
+    return torch.empty(b, h, s, dtype=torch.float32, device=o.device) if with_lse else None
+
+
+def _packed_fwd(q, k, v, n_heads, scale, with_lse):
+    """K7's forward on the (b, h, s, d) views of the packed tensors; returns
+    (out (b, s, h·d), the fp32 (b, h, s) row lse or None)."""
     b, s, hd = q.shape
     d = hd // n_heads
     o = torch.empty(b, s, hd, dtype=q.dtype, device=q.device)
-    # (batch, head, seq) strides of the packed layout
-    packed = lambda t: (t.stride(0), d, t.stride(1))  # noqa: E731
-    tc = _launch_fwd(
-        q, k, v, o, None, None, causal=False, q_start=0, scale=scale,
-        qs=packed(q), ks=packed(k), vs=packed(v), os_=packed(o), dims=(b, n_heads, n_heads, s, s, d, d),
-    )
+    qh, kh, vh, oh = (split_heads(t, n_heads) for t in (q, k, v, o))
+    lse = short_lse(oh, with_lse)
+    if q.dtype == torch.bfloat16:
+        tc = launch_fused_mha(qh, kh, vh, oh, lse, causal=False, fp32_den=True, scale=scale)
+    else:
+        tc = _launch_fwd(
+            qh, kh, vh, oh, lse, None, causal=False, q_start=0, scale=scale,
+            qs=qh.stride()[:3], ks=kh.stride()[:3], vs=vh.stride()[:3], os_=oh.stride()[:3],
+            dims=(b, n_heads, n_heads, s, s, d, d),
+        )
     packed_mha.launches += 1
     packed_mha.tc_launches += tc
-    return o
+    return o, lse
 
 
 class _PackedMHA(torch.autograd.Function):
-    """K7 forward, recompute backward through the plain version."""
+    """K7 forward, keeping its lse; the flash recompute backward, writing the
+    gradients in the packed layout."""
 
     @staticmethod
     def forward(ctx, q, k, v, n_heads, scale):
-        ctx.save_for_backward(q, k, v)
+        o, lse = _packed_fwd(q, k, v, n_heads, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.n_heads, ctx.scale = n_heads, scale
-        return _packed_fwd(q, k, v, n_heads, scale)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        return *packed_mha_bwd_plain(*ctx.saved_tensors, do, ctx.n_heads, ctx.scale), None, None
+        q, k, v, o, lse = ctx.saved_tensors
+        h = ctx.n_heads
+        grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+        *_, tc = _bwd_launch(*(split_heads(t, h) for t in (q, k, v, o)), lse, split_heads(do, h), None, False, 0,
+                             ctx.scale, None, None, None, grads=tuple(split_heads(g, h) for g in grads))
+        packed_mha.bwd_launches += 1
+        packed_mha.tc_bwd_launches += tc
+        return *grads, None, None
 
 
 def packed_mha(q, k, v, n_heads, scale=None, *, plain=False):
@@ -493,12 +558,15 @@ def packed_mha(q, k, v, n_heads, scale=None, *, plain=False):
         return packed_mha_plain(q, k, v, n_heads, scale)
     check_packed_cuda(q, k, v, n_heads)
     build.require(all(t.stride(-1) == 1 for t in (q, k, v)), "q/k/v need a contiguous last dim")
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16:  # the short-sequence kernel
+        build.require(q.shape[1] <= MAX_SEQ, f"packed_mha takes s <= {MAX_SEQ} in bf16, got {q.shape[1]}")
         _check_tc(q, k, v)
     if build.needs_grad(q, k, v):
         return _PackedMHA.apply(q, k, v, n_heads, float(scale))
-    return _packed_fwd(q, k, v, n_heads, float(scale))
+    return _packed_fwd(q, k, v, n_heads, float(scale), with_lse=False)[0]
 
 
 packed_mha.launches = 0
-packed_mha.tc_launches = 0
+packed_mha.tc_launches = 0  # the forward launches that took the tensor-core kernel
+packed_mha.bwd_launches = 0  # backward launches (the flash backward kernels, counted here)
+packed_mha.tc_bwd_launches = 0  # the tensor-core ones among them

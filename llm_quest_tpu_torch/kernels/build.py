@@ -43,8 +43,8 @@ _SIGNATURES = {
     # window, softcap, sink, stream
     "llmq_attention_fwd": [_I] + [_P] * 6 + [_I] * 7 + [_L] * 13 + [_I, _I, _F, _I, _F, _P, _P],
     # dtype, q, k, v, dout, lse, delta, delta_shift, dq, dk, dv, key_mask, B, HQ, HKV, SQ, SK, D, DV,
-    # 13 strides, causal, q_start, scale, window, softcap, stream
-    "llmq_attention_bwd": [_I] + [_P] * 11 + [_I] * 7 + [_L] * 13 + [_I, _I, _F, _I, _F, _P],
+    # 12 input and 9 output strides, mask stride, causal, q_start, scale, window, softcap, stream
+    "llmq_attention_bwd": [_I] + [_P] * 11 + [_I] * 7 + [_L] * 22 + [_I, _I, _F, _I, _F, _P],
     # the calls of the two above that launched the bf16 tensor-core kernels
     "llmq_attention_tc_launches": [],
     # dtype, q, k_q, k_s, v_q, v_s, bias, part_acc, part_ml, out, B, HQ, HKV, S, D, n_splits, split_len,
@@ -56,8 +56,10 @@ _SIGNATURES = {
     "llmq_packed_mha_int8": [_I] + [_P] * 4 + [_I, _P] + [_F] * 4 + [_I] * 4 + [_P],
     # dtype, x, out, n, scale, inv, stream
     "llmq_quantize_int8": [_I, _P, _P, _L, _P, _F, _P],
-    # dtype, q, k, v, o, B, H, S, D, 12 strides, causal, scale, stream
-    "llmq_fused_mha": [_I] + [_P] * 4 + [_I] * 4 + [_L] * 12 + [_I, _F, _P],
+    # dtype, q, k, v, o, lse, B, H, S, D, 12 strides, causal, fp32_den, scale, stream
+    "llmq_fused_mha": [_I] + [_P] * 5 + [_I] * 4 + [_L] * 12 + [_I, _I, _F, _P],
+    # the calls of the above that launched the bf16 tensor-core kernel
+    "llmq_fused_mha_tc_launches": [],
     # int8, t, q, k, v, o, G, M, stream
     "llmq_attn_core": [_I] + [_P] * 5 + [_I] * 2 + [_P],
 }

@@ -4,12 +4,19 @@ csrc/packed_mha_int8.cu) and their plain PyTorch versions; named after
 
 - ``fused_mha``: K6, maskless attention over (b, h, s, d) heads with equal
   q and k/v head counts, 1 <= s <= ``MAX_SEQ``, optionally causal; replaces
-  ``fused_mha`` (:139, kernel :41). The kernel holds its query rows' whole
-  fp32 score rows in shared memory and takes the exact two-pass softmax,
-  the unnormalised p rounded to v's type and summed for the denominator (the
-  TPU kernel's ones column). Differentiable with JAX's recompute backward
-  (``_fused_diff_bwd``, :116-136): autograd through the plain version.
-  Plain version: ``ops/attention.py::sdpa`` with an optional causal mask.
+  ``fused_mha`` (:139, kernel :41). fp32 inputs take the SIMT kernel of
+  ``csrc/fused_mha.cu`` (its rows' whole score rows in shared memory, the
+  exact two-pass softmax), bf16 inputs the tensor-core kernel of
+  ``csrc/fused_mha_tc.cu`` (the head's K and V on chip, 128-key score chunks
+  with one online rescale each; it also runs K7's bf16 forward), counted in
+  ``tc_launches``; both sum the unnormalised p as p·V sees it, rounded to
+  v's type, for the denominator (the TPU kernel's ones column). Differentiable: on a CUDA tensor
+  that needs a gradient the forward also writes the row logsumexp and the
+  backward is the flash recompute backward (``llmq_attention_bwd``: the
+  exact ``sdpa`` gradient that JAX's ``_fused_diff_bwd``, :116-136, takes
+  through XLA), counted in ``bwd_launches`` (``causal_bwd_launches``,
+  ``tc_bwd_launches``). Plain version: ``ops/attention.py::sdpa`` with an
+  optional causal mask, differentiated by autograd.
 - ``quantize_sym``: JAX's ``_quantize_sym``, per-tensor symmetric int8 with
   s = max|x| / 127 + 1e-12 (fp32) and clip(round(x / s)); rounding is half
   to even (``torch.round``, as ``jnp.round``).
@@ -33,7 +40,7 @@ the scales kept on the device (no host sync). A CPU tensor runs the plain
 version; ``plain=True`` forces it on any device (comparisons only). Each
 wrapper counts its calls that launch the kernel in ``launches``; K8 also
 counts those with static scales in ``static_launches``, K6 the causal ones
-in ``causal_launches``.
+in ``causal_launches`` and its backward as above.
 """
 
 import numpy as np
@@ -41,15 +48,20 @@ import torch
 
 from llm_quest_tpu_torch.kernels import build
 from llm_quest_tpu_torch.kernels.attention import (
+    MAX_SEQ,
+    _bwd_launch,
+    _check_tc,
+    _plain_lse,
     check_packed,
     check_packed_cuda,
+    launch_fused_mha,
     packed_mha_bwd_plain,
+    short_lse,
 )
 from llm_quest_tpu_torch.ops.attention import merge_heads, sdpa, split_heads
 from llm_quest_tpu_torch.ops.masks import causal_mask
 
-MAX_SEQ = 1024  # the kernels hold a (32, s) fp32 score tile in shared memory
-FUSED_HEAD_DIMS = (32, 64, 128)  # the head dims csrc/fused_mha.cu is instantiated for
+FUSED_HEAD_DIMS = (32, 64, 128)  # the head dims csrc/fused_mha.cu and csrc/fused_mha_tc.cu are built for
 
 
 def fused_mha_plain(q, k, v, *, causal=False, scale=None):
@@ -58,34 +70,44 @@ def fused_mha_plain(q, k, v, *, causal=False, scale=None):
     return sdpa(q, k, v, mask=mask, scale=scale)
 
 
-def _fused_fwd(q, k, v, causal, scale):
-    b, h, s, d = q.shape
-    o = torch.empty(b, h, s, d, dtype=q.dtype, device=q.device)
-    build.launch(
-        "llmq_fused_mha", build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, s, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], int(causal), float(scale),
-        build.stream_of(q),
-    )
+def fused_mha_lse_plain(q, k, *, causal=False, scale=None):
+    """The fp32 (b, h, s) row logsumexp of ``fused_mha_plain``'s scaled
+    (causally masked) scores: the plain version of the lse K6's forward
+    keeps for its backward."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _plain_lse(q, k, None, causal, 0, scale)
+
+
+def _fused_fwd(q, k, v, causal, scale, with_lse):
+    """K6's forward; returns (out, the fp32 row lse or None)."""
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = short_lse(o, with_lse)
+    tc = launch_fused_mha(q, k, v, o, lse, causal=causal, fp32_den=False, scale=scale)
     fused_mha.launches += 1
+    fused_mha.tc_launches += tc
     fused_mha.causal_launches += int(causal)
-    return o
+    return o, lse
 
 
 class _FusedMHA(torch.autograd.Function):
-    """K6 forward, recompute backward through the plain version."""
+    """K6 forward, keeping its lse; the flash recompute backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        ctx.save_for_backward(q, k, v)
+        o, lse = _fused_fwd(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
-        return _fused_fwd(q, k, v, causal, scale)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = fused_mha_plain(*leaves, causal=ctx.causal, scale=ctx.scale)
-            return *torch.autograd.grad(out, leaves, do), None, None
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv, *_, tc = _bwd_launch(q, k, v, o, lse, do, None, ctx.causal, 0, ctx.scale, None, None, None)
+        fused_mha.bwd_launches += 1
+        fused_mha.tc_bwd_launches += tc
+        fused_mha.causal_bwd_launches += int(ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def fused_mha(q, k, v, *, causal=False, scale=None, plain=False):
@@ -105,13 +127,19 @@ def fused_mha(q, k, v, *, causal=False, scale=None, plain=False):
     build.require(all(t.stride(-1) == 1 for t in (q, k, v)), "q/k/v need a contiguous last dim")
     build.require_cuda(q, k, v)
     build.dtype_code(q)
+    if q.dtype == torch.bfloat16:
+        _check_tc(q, k, v)
     if build.needs_grad(q, k, v):
         return _FusedMHA.apply(q, k, v, bool(causal), float(scale))
-    return _fused_fwd(q, k, v, bool(causal), float(scale))
+    return _fused_fwd(q, k, v, bool(causal), float(scale), with_lse=False)[0]
 
 
 fused_mha.launches = 0
 fused_mha.causal_launches = 0  # the causal ones among them
+fused_mha.tc_launches = 0  # the ones that took the tensor-core kernel
+fused_mha.bwd_launches = 0  # backward launches (the flash backward kernels, counted here)
+fused_mha.causal_bwd_launches = 0
+fused_mha.tc_bwd_launches = 0
 
 
 def _f32(x):

@@ -29,7 +29,12 @@ them, within 1e-4 fp32:
 - K6: ``fused_mha``'s plain version and its gradients against JAX's
   ``fused_mha(interpret=True)`` and ``jax.grad`` of it (its recompute VJP),
   causal and not, within 1e-5; and the router's K6 branch by JAX's
-  conditions (maskless, equal heads, 2 ≤ s ≤ ``fused_mha_max_seq``).
+  conditions (maskless, equal heads, 2 ≤ s ≤ ``fused_mha_max_seq``);
+- K6's backward on the card (the flash recompute fed its lse): the plain
+  lse against ``jax.nn.logsumexp`` of JAX's scores, the lse-fed recompute
+  against ``jax.grad`` of the interpret-mode kernel, within 1e-5, and its
+  bf16 operand rounding (K6's denominator included) within the card's bf16
+  bar (K7's cases are in ``tests/test_torch_vit.py``).
 
 ``causal_mask(window_size=)`` is held to ``swa_causal_mask_table`` and to
 JAX's ``causal_mask``, and ``sdpa``'s sink and softcap to JAX's ``sdpa``.
@@ -602,3 +607,103 @@ def test_router_fused_mha_branch_by_jax_conditions(monkeypatch, name):
     jkw = {key: jnp.asarray(val.numpy()) if torch.is_tensor(val) else val for key, val in kw.items()}
     ref = jattn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), cfg=cfg, **jkw)
     assert_close(got, ref, K56_TOL)
+
+
+# ------------------------------------------------- K6/K7's lse and backward
+#
+# On the card K6 and K7 keep the row lse of their forward and take the flash
+# recompute backward (llmq_attention_bwd) in place of autograd through the
+# plain sdpa. These cases hold, on the CPU, the plain lse to JAX's scores,
+# the lse-fed recompute to jax.grad of the interpret-mode kernels, and the
+# tensor-core kernels' bf16 rounding (each kernel's own denominator
+# included) to the card tests' bf16 bar. tests/test_torch_vit.py holds K7's.
+
+
+def short_recompute(q, k, v, do, lse, causal, scale, *, round_operands=False, fp32_den=True):
+    """The short-sequence kernels' forward and recompute backward in fp32 on
+    (b, h, s, d) tensors, fed the row ``lse`` (b, h, s): P = exp(S − lse),
+    O = P V, δ = rowsum(dO ⊙ O), dS = P ⊙ (dP − δ), dQ = dS K·scale,
+    dK = dSᵀ Q·scale, dV = Pᵀ dO. With ``round_operands``, what the
+    tensor-core kernels round to bf16: the forward's unnormalised p =
+    exp(S − max) before P·V, divided by the sum of the fp32 p
+    (``fp32_den``, K7's) or of the rounded p (K6's ones column); the
+    backward's p and dS before their products, and δ from the forward's
+    bf16 output. Returns (o, dq, dk, dv)."""
+    s = q.shape[2]
+    scores = q @ k.transpose(-1, -2) * scale
+    if causal:
+        scores = scores.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), float("-inf"))
+    p = torch.exp(scores - lse[..., None])
+    o = p @ v
+    out = o
+    if round_operands:
+        pu = torch.exp(scores - scores.amax(-1, keepdim=True))
+        pr = pu.bfloat16().float()
+        out = (pr @ v) / (pu if fp32_den else pr).sum(-1, keepdim=True)
+    delta = (do * (out.bfloat16().float() if round_operands else o)).sum(-1, keepdim=True)
+    ds = p * (do @ v.transpose(-1, -2) - delta)
+    if round_operands:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    return out, ds @ k * scale, ds.transpose(-1, -2) @ q * scale, p.transpose(-1, -2) @ do
+
+
+def jax_lse(q, k, scale, causal):
+    """JAX's row logsumexp of the kernels' scaled scores, (b, h, s, d) numpy
+    inputs; masked scores at fused_mha.py's NEG_INF, as the kernels mask."""
+    from llm_quest_tpu.kernels.fused_mha import NEG_INF
+
+    scores = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), jnp.asarray(k)) * scale
+    if causal:
+        s = q.shape[2]
+        scores = jnp.where(jnp.triu(jnp.ones((s, s), bool), 1), NEG_INF, scores)
+    return jax.nn.logsumexp(scores, axis=-1)
+
+
+K6_SHORT = [(causal, s) for causal in (False, True) for s in (20, 197)]
+
+
+@pytest.mark.parametrize("causal, s", K6_SHORT)
+def test_k6_lse_plain_matches_jax_scores(causal, s):
+    from llm_quest_tpu_torch.kernels import fused_mha as kfused
+
+    q, k = rand(2, 3, s, 64), rand(2, 3, s, 64, seed=1)
+    got = kfused.fused_mha_lse_plain(T(q), T(k), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, s)
+    assert_close(got, jax_lse(q, k, 64**-0.5, causal), K56_TOL)
+
+
+@pytest.mark.parametrize("causal, s", K6_SHORT)
+def test_k6_lse_recompute_matches_jax_grad(causal, s):
+    """The recompute backward fed the plain lse equals jax.grad of JAX's
+    interpret-mode fused_mha (its recompute VJP), and its O the kernel's."""
+    from llm_quest_tpu_torch.kernels import fused_mha as kfused
+
+    q, k, v, do = (rand(2, 3, s, 64, seed=i) for i in range(4))
+    jargs = tuple(map(jnp.asarray, (q, k, v)))
+    ref_out = jfused(*jargs, causal=causal, interpret=True)
+    refs = jax.grad(lambda *a: jnp.sum(jfused(*a, causal=causal, interpret=True) * jnp.asarray(do)),
+                    argnums=(0, 1, 2))(*jargs)
+    lse = kfused.fused_mha_lse_plain(T(q), T(k), causal=causal)
+    got = short_recompute(T(q), T(k), T(v), T(do), lse, causal, 64**-0.5)
+    for g, r in zip(got, (ref_out, *refs)):
+        assert_close(g, r, K56_TOL)
+
+
+@pytest.mark.parametrize("causal, s", K6_SHORT)
+def test_k6_bf16_operand_rounding_stays_within_the_bf16_bar(causal, s):
+    """K6's tensor-core rounding (p to bf16, the rounded p's sum as the
+    denominator; p and dS to bf16 in the backward) against the fp32 plain
+    forward and its autograd on the same bf16-valued inputs: within the
+    card's bf16 bar, and not equal (the rounding is real)."""
+    from llm_quest_tpu_torch.kernels import fused_mha as kfused
+
+    q, k, v, do = (T(rand(2, 3, s, 64, seed=i)).bfloat16().float() for i in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = kfused.fused_mha(*leaves, causal=causal)
+    refs = (out.detach(), *torch.autograd.grad(out, leaves, do))
+    lse = kfused.fused_mha_lse_plain(q, k, causal=causal)
+    got = short_recompute(q, k, v, do, lse, causal, 64**-0.5, round_operands=True, fp32_den=False)
+    for g, r in zip(got, refs):
+        scale = max(1.0, float(r.abs().max()))
+        err = float((g - r).abs().max())
+        assert 0 < err <= BF16_TOL * scale, err

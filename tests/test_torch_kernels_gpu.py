@@ -49,18 +49,52 @@ def assert_close(got, ref, dtype):
 
 def tc_counts():
     """The tensor-core launch counts of K4 (forward, backward), K5 (forward,
-    backward) and K7."""
+    backward), K6 (forward, backward) and K7 (forward, backward)."""
     from llm_quest_tpu_torch.kernels import attention as a
+    from llm_quest_tpu_torch.kernels import fused_mha as f
 
     return (a.flash_attention.tc_launches, a.flash_attention_bwd.tc_launches, a.flash_attention_with_lse.tc_launches,
-            a.flash_attention_with_lse.tc_bwd_launches, a.packed_mha.tc_launches)
+            a.flash_attention_with_lse.tc_bwd_launches, f.fused_mha.tc_launches, f.fused_mha.tc_bwd_launches,
+            a.packed_mha.tc_launches, a.packed_mha.tc_bwd_launches)
 
 
-def assert_tc_moved(before, dtype, k4=0, k4_bwd=0, k5=0, k5_bwd=0, k7=0):
+def assert_tc_moved(before, dtype, k4=0, k4_bwd=0, k5=0, k5_bwd=0, k6=0, k6_bwd=0, k7=0, k7_bwd=0):
     """bf16 launches went to the tensor-core kernels (the counts moved by the
     launches made), fp32 launches to the SIMT kernels (no count moved)."""
-    moved = (k4, k4_bwd, k5, k5_bwd, k7) if dtype == torch.bfloat16 else (0,) * 5
+    moved = (k4, k4_bwd, k5, k5_bwd, k6, k6_bwd, k7, k7_bwd) if dtype == torch.bfloat16 else (0,) * 8
     assert tc_counts() == tuple(n + m for n, m in zip(before, moved))
+
+
+# bf16 results of the short-sequence kernels at s >= 128 are also held tile
+# by tile: ||kernel - plain|| / ||plain|| over each 64-row tile of the
+# sequence axis within TILE_TOL (chip_smoke.py's bar). TOL's bar scales with
+# max |plain|, which late causal rows are far below. Their plain version runs
+# in fp32 on the same bf16 values: in bf16 it rounds p before p·V, and at s
+# 257, causal, its dk tile of the one last key was 3.4% off an fp64 reference
+# on the card, where the kernel's was 0.74%.
+TILE_TOL = 2e-2
+
+
+def f32(*tensors):
+    """fp32 copies of the inputs, for the plain version as the reference."""
+    return [t.float() for t in tensors]
+
+
+def assert_tiles_close(got, ref):
+    """(..., s, w) results, tile by tile along s (64 rows)."""
+    torch.cuda.synchronize()
+    diff, ref = got.float() - ref.float(), ref.float()
+    pad = (-ref.shape[-2]) % 64
+    tiles = lambda t: torch.nn.functional.pad(t, (0, 0, 0, pad)).unflatten(-2, (-1, 64)).square().sum((-2, -1))  # noqa: E731
+    err = float((tiles(diff) / tiles(ref).clamp_min(torch.finfo(torch.float32).tiny)).sqrt().max())
+    assert err <= TILE_TOL, err
+
+
+def assert_short_close(got, ref, dtype, s):
+    """The short-sequence kernels' bar: TOL, and at s >= 128 in bf16 TILE_TOL."""
+    assert_close(got, ref, dtype)
+    if dtype == torch.bfloat16 and s >= 128:
+        assert_tiles_close(got, ref)
 
 
 def gdn_inputs(gen, b, h, s, dtype, dk=128, dv=128):
@@ -161,18 +195,29 @@ def test_flash_attention_kernel(gen, dtype, q_start):
     assert_tc_moved(tc, dtype, k4=2)
 
 
+# sequence lengths of the short-sequence kernels (K6, K7): one 16-key step,
+# a partial one, TinyViT's 65, ViT-B's 197, one whole 256-key chunk and one
+# key past it, the causal fallback's 300, fused_mha_max_seq
+SHORT_SEQS = [2, 17, 65, 197, 256, 257, 300, 512]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("s", [20, 197, 576])
+@pytest.mark.parametrize("s", SHORT_SEQS + [576])
 @pytest.mark.parametrize("heads, d", [(8, 32), (12, 64), (2, 128)])
 def test_packed_mha_kernel(gen, dtype, s, heads, d):
-    """K7 at each head dim and at ViT lengths on both sides of a 64-key tile."""
+    """K7 at each head dim and at ViT lengths on both sides of a 64-key tile
+    and a 256-key chunk, and the lse its forward keeps for the backward."""
     from llm_quest_tpu_torch.kernels import attention
 
     q, k, v = (randn(gen, 2, s, heads * d, dtype=dtype) for _ in range(3))
     tc = tc_counts()
     got = attention.packed_mha(q, k, v, heads)
-    assert_tc_moved(tc, dtype, k7=1)
-    assert_close(got, attention.packed_mha(q, k, v, heads, plain=True), dtype)
+    out, lse = attention._packed_fwd(q, k, v, heads, d**-0.5, with_lse=True)
+    assert_tc_moved(tc, dtype, k7=2)
+    ref = attention.packed_mha(*f32(q, k, v), heads, plain=True)
+    assert_short_close(got, ref, dtype, s)
+    assert_short_close(out, ref, dtype, s)
+    assert_close(lse, attention.packed_mha_lse_plain(q, k, heads), torch.float32)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -444,20 +489,28 @@ def test_packed_mha_int8_kernels(gen, dtype, s, heads, d, mode):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_packed_mha_kernel_d32(gen, dtype):
+    """K7 at TinyViT's shape (s 65, 8 heads of 32): forward, and forward +
+    backward against autograd through the plain version."""
     from llm_quest_tpu_torch.kernels import attention
 
-    q, k, v = (randn(gen, 4, 65, 8 * 32, dtype=dtype) for _ in range(3))
-    n = attention.packed_mha.launches
+    q, k, v, do = (randn(gen, 4, 65, 8 * 32, dtype=dtype) for _ in range(4))
+    n, tc = (attention.packed_mha.launches, attention.packed_mha.bwd_launches), tc_counts()
     got = attention.packed_mha(q, k, v, 8)
-    assert attention.packed_mha.launches == n + 1
-    assert_close(got, attention.packed_mha(q, k, v, 8, plain=True), dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(attention.packed_mha(*leaves, 8), leaves, do)
+    assert (attention.packed_mha.launches, attention.packed_mha.bwd_launches) == (n[0] + 2, n[1] + 1)
+    assert_tc_moved(tc, dtype, k7=2, k7_bwd=1)
+    assert_close(got, attention.packed_mha(*f32(q, k, v), 8, plain=True), dtype)
+    for g, r in zip(grads, attention.packed_mha_bwd_plain(*f32(q, k, v, do), 8)):
+        assert_close(g, r, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kernel", ["k7", "k8_dynamic", "k8_static"])
 def test_packed_backward(gen, dtype, kernel):
-    """K7's recompute and K8's straight-through backward: the kernel forward,
-    and gradients against autograd through the plain packed sdpa."""
+    """K7's backward (the flash recompute kernels, gradients written in the
+    packed layout) and K8's straight-through one: the kernel forward, and
+    gradients against autograd through the plain packed sdpa."""
     from llm_quest_tpu_torch.kernels import attention, fused_mha
 
     q, k, v, do = (randn(gen, 2, 197, 12 * 64, dtype=dtype) for _ in range(4))
@@ -467,11 +520,39 @@ def test_packed_backward(gen, dtype, kernel):
     else:
         ss = int8_scales(q, k) if kernel == "k8_static" else None
         counter, out = fused_mha.packed_mha_int8, lambda: fused_mha.packed_mha_int8(*leaves, 12, static_scales=ss)
-    n = counter.launches
+    n, n_bwd, tc = counter.launches, attention.packed_mha.bwd_launches, tc_counts()
     grads = torch.autograd.grad(out(), leaves, do)
     assert counter.launches == n + 1
-    for got, ref in zip(grads, attention.packed_mha_bwd_plain(q, k, v, do, 12)):
-        assert_close(got, ref, dtype)
+    assert attention.packed_mha.bwd_launches == n_bwd + (kernel == "k7")
+    if kernel == "k7":
+        assert_tc_moved(tc, dtype, k7=1, k7_bwd=1)
+    refs = attention.packed_mha_bwd_plain(*(f32(q, k, v, do) if kernel == "k7" else (q, k, v, do)), 12)
+    for got, ref in zip(grads, refs):
+        if kernel == "k7":  # per head: the packed (b, s, h·d) gradients as (b, h, s, d)
+            assert_short_close(got.unflatten(-1, (12, 64)).transpose(1, 2), ref.unflatten(-1, (12, 64)).transpose(1, 2),
+                               dtype, 197)
+        else:
+            assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", SHORT_SEQS)
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_packed_mha_backward(gen, dtype, s, d):
+    """K7 forward + backward at each head dim and short length against
+    autograd through the plain version (heads · d = 256)."""
+    from llm_quest_tpu_torch.kernels import attention
+
+    h = 256 // d
+    q, k, v, do = (randn(gen, 2, s, h * d, dtype=dtype) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    tc = tc_counts()
+    out = attention.packed_mha(*leaves, h)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert_tc_moved(tc, dtype, k7=1, k7_bwd=1)
+    heads = lambda t: t.unflatten(-1, (h, d)).transpose(1, 2)  # noqa: E731
+    for got, ref in zip(grads, attention.packed_mha_bwd_plain(*f32(q, k, v, do), h)):
+        assert_short_close(heads(got), heads(ref), dtype, s)
 
 
 def test_packed_wrappers_raise_on_unsupported_shapes(gen):
@@ -844,21 +925,48 @@ def test_flash_attention_with_lse_kernel(gen, dtype, causal, dims):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("s, d", [(2, 64), (197, 64), (300, 128), (512, 128), (65, 32), (1024, 128)])
+@pytest.mark.parametrize("s", SHORT_SEQS + [1024])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_fused_mha_kernel(gen, dtype, causal, s, d):
-    """K6 against its plain version, the forward and the recompute backward."""
+    """K6's forward against its plain version, and the lse it keeps for the
+    backward against the plain lse."""
     from llm_quest_tpu_torch.kernels import fused_mha
 
+    q, k, v = (randn(gen, 2, 3, s, d, dtype=dtype) for _ in range(3))
+    n, tc = fused_mha.fused_mha.launches, tc_counts()
+    got = fused_mha.fused_mha(q, k, v, causal=causal)
+    out, lse = fused_mha._fused_fwd(q, k, v, causal, d**-0.5, with_lse=True)
+    assert fused_mha.fused_mha.launches == n + 2
+    assert_tc_moved(tc, dtype, k6=2)
+    ref = fused_mha.fused_mha(*f32(q, k, v), causal=causal, plain=True)
+    assert_short_close(got, ref, dtype, s)
+    assert_short_close(out, ref, dtype, s)
+    assert_close(lse, fused_mha.fused_mha_lse_plain(q, k, causal=causal), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", SHORT_SEQS + [1024])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_fused_mha_backward(gen, dtype, causal, s, d):
+    """K6 forward + backward (the flash recompute kernels fed K6's lse)
+    against autograd through the plain version; the backward's launches
+    are K6's own, not K4's."""
+    from llm_quest_tpu_torch.kernels import attention, fused_mha
+
     q0, k0, v0, do = (randn(gen, 2, 3, s, d, dtype=dtype) for _ in range(4))
-    n = fused_mha.fused_mha.launches
+    counts = lambda: (fused_mha.fused_mha.launches, fused_mha.fused_mha.bwd_launches,  # noqa: E731
+                      fused_mha.fused_mha.causal_bwd_launches, attention.flash_attention_bwd.launches)
+    n, tc = counts(), tc_counts()
     got, ref = [], []
     for plain, out_list in ((False, got), (True, ref)):
-        leaves = [t.clone().requires_grad_() for t in (q0, k0, v0)]
+        leaves = [t.clone().requires_grad_() for t in (f32(q0, k0, v0) if plain else (q0, k0, v0))]
         out = fused_mha.fused_mha(*leaves, causal=causal, plain=plain)
-        out_list.extend([out.detach(), *torch.autograd.grad(out, leaves, do)])
-    assert fused_mha.fused_mha.launches == n + 1
+        out_list.extend([out.detach(), *torch.autograd.grad(out, leaves, do.to(out.dtype))])
+    assert counts() == (n[0] + 1, n[1] + 1, n[2] + causal, n[3])
+    assert_tc_moved(tc, dtype, k6=1, k6_bwd=1)
     for g, r in zip(got, ref):
-        assert_close(g, r, dtype)
+        assert_short_close(g, r, dtype, s)
 
 
 def test_fused_mha_kernel_reads_strided_heads(gen):

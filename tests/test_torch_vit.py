@@ -235,3 +235,66 @@ def test_vit_flop_counts_match_jax(name):
     cfg = getattr(tconfig, name)
     assert tflops.vit_flops_per_image(cfg) == jflops.vit_flops_per_image(getattr(jconfig, name))
     assert tflops.vit_train_flops_per_image(cfg) == jflops.vit_train_flops_per_image(cfg)
+
+
+# K7's lse and its lse-fed recompute backward (the kernels' on the card),
+# with the helpers of tests/test_torch_attention.py: (b, s, h·d) packed
+# inputs, d 32 (TinyViT) and 64 (ViT-B)
+K7_SHORT = {"d32": (65, 4, 32), "d64": (197, 2, 64)}
+
+
+def _heads(x, h):
+    return torch.from_numpy(np.asarray(x)).unflatten(-1, (h, -1)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("name", list(K7_SHORT))
+def test_k7_lse_plain_matches_jax_scores(name):
+    from tests.test_torch_attention import jax_lse
+
+    s, h, d = K7_SHORT[name]
+    q, k = rand(2, s, h * d), rand(2, s, h * d, seed=1)
+    got = kattn.packed_mha_lse_plain(T(q), T(k), h)
+    assert got.dtype == torch.float32 and got.shape == (2, h, s)
+    # JAX's packed kernel scales q in fp32 before the product
+    ref = jax_lse(_heads(q * np.float32(d**-0.5), h).numpy(), _heads(k, h).numpy(), 1.0, False)
+    assert max_err(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("name", list(K7_SHORT))
+def test_k7_lse_recompute_matches_jax_grad(name):
+    """The recompute backward fed the plain lse, at K7's packed layout,
+    equals jax.grad of JAX's interpret-mode packed_mha (its recompute VJP),
+    and its O the kernel's."""
+    from tests.test_torch_attention import short_recompute
+
+    s, h, d = K7_SHORT[name]
+    q, k, v, do = (rand(2, s, h * d, seed=i) for i in range(4))
+    jargs = tuple(map(J, (q, k, v)))
+    ref_out = jf.packed_mha(*jargs, h, None, True)
+    refs = jax.grad(lambda *a: jnp.sum(jf.packed_mha(*a, h, None, True) * J(do)), argnums=(0, 1, 2))(*jargs)
+    lse = kattn.packed_mha_lse_plain(T(q), T(k), h)
+    got = short_recompute(*(_heads(x, h) for x in (q, k, v, do)), lse, False, d**-0.5)
+    for g, r in zip(got, (ref_out, *refs)):
+        assert max_err(g.transpose(1, 2).flatten(2), r) <= 1e-5
+
+
+@pytest.mark.parametrize("name", list(K7_SHORT))
+def test_k7_bf16_operand_rounding_stays_within_the_bf16_bar(name):
+    """K7's tensor-core rounding (p to bf16 before p·V, the fp32 p's sum as
+    the denominator; p and dS to bf16 in the backward) against the fp32
+    plain forward and its autograd on the same bf16-valued inputs: within
+    the card's bf16 bar, and not equal."""
+    from tests.test_torch_attention import BF16_TOL, short_recompute
+
+    s, h, d = K7_SHORT[name]
+    q, k, v, do = (T(rand(2, s, h * d, seed=i)).bfloat16().float() for i in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = kattn.packed_mha(*leaves, h)
+    refs = (out.detach(), *torch.autograd.grad(out, leaves, do))
+    lse = kattn.packed_mha_lse_plain(q, k, h)
+    got = short_recompute(*(t.unflatten(-1, (h, -1)).transpose(1, 2) for t in (q, k, v, do)), lse, False, d**-0.5,
+                          round_operands=True, fp32_den=True)
+    for g, r in zip(got, refs):
+        scale = max(1.0, float(r.abs().max()))
+        err = float((g.transpose(1, 2).flatten(2) - r).abs().max())
+        assert 0 < err <= BF16_TOL * scale, err
