@@ -22,13 +22,21 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
    card, fp32 and bf16, with the tolerances below, and the time of both
-   versions at its main path's shape. K1's forward covers dk 64 and 128 and
-   the hybrid step's shape (b 4, h 8, s 2048, dk = dv = 64, bf16). K1's
+   versions at its main path's shape. K1's forward covers dk 64 and 128,
+   dv beside them, s 1 to 300 and the hybrid step's shape (b 4, h 8,
+   s 2048, dk = dv = 64, bf16); its bf16 calls take the chunked tensor-core
+   kernels (csrc/gdn_tc.cu, ``tc_launches``), fp32 the SIMT scan. K1's
    backward is held to its plain version (the per-chunk replay) on the
-   kernel's own anchors — dk 64 and 128, s 300 (a partial last chunk),
-   prev_state on and off, a nonzero final-state cotangent, and in bf16 the
-   hybrid step's shape — and through autograd to autograd of the plain
-   chunked form; forward + backward are timed at the hybrid step's shape.
+   kernel's own anchors (every 32 tokens in fp32, 64 in bf16) — (dk, dv)
+   (64, 64), (128, 128), (64, 128), s 300 (a partial last chunk),
+   prev_state on and off, a nonzero final-state cotangent — and through
+   autograd to autograd of the plain chunked form. At the hybrid step's
+   shape the bf16 output, final state and five gradients are also held
+   per 64-token tile (TILE_TOL) beside a dropped-chunk control (one
+   chunk's state update left out), which must read above the bar; the
+   backward runs twice and must be bit-equal; forward, backward and
+   forward + backward are timed there (CUDA events and device time), the
+   forward also at the Qwen3.5 prefill (b 1, h 16, s 156, dk = dv = 128).
    The flash backward's dq/dk/dv are held to autograd through the plain
    ``sdpa`` (d 64/128/256, key mask on/off, GQA 16/8 and 8/2; and, in bf16,
    one layer of the dense train step at b = 4, s = 2048, output included)
@@ -163,14 +171,17 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
 19. next_serve: Qwen3-Next-small, 8 layers, bf16, linears and expert stacks
     int8, b = 4, 300-token prompts, 64 greedy tokens (K1, K2 at dk 64, K11).
     Phases 18 and 19 reset the counts, drive the int8 model once, then print
-    tok/s, TTFT and MBU beside the bf16 model's, and the per-step cost of
-    the int8 → bf16 weight copies.
+    tok/s, TTFT and MBU beside the bf16 model's, the per-step cost of the
+    int8 → bf16 weight copies, and the device time of K1's forward in a TTFT
+    call beside the call's whole device time (``torch.profiler``).
 
 K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
 tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
 short-sequence tensor-core kernel of ``csrc/fused_mha_tc.cu`` forward and
 ``attention_tc.cu``'s backward kernels; in fp32 the SIMT kernels of
-``csrc/attention.cu`` (and ``csrc/fused_mha.cu``, K6's forward). Their
+``csrc/attention.cu`` (and ``csrc/fused_mha.cu``, K6's forward). K1 takes
+two routes the same way: bf16 the chunked kernels of ``csrc/gdn_tc.cu``,
+fp32 the scan of ``csrc/gdn.cu``. Their
 records keep the fp32 error as ``max_abs_err`` and add
 ``max_abs_err_bf16`` (the tensor-core error on the same bf16 inputs); K5's
 bf16 records and the dense train shape's bf16 fwd + bwd are also held tile
@@ -178,7 +189,7 @@ by tile (TILE_TOL, LSE_TOL), beside the readings of a result with one key
 tile dropped, which must exceed those bars, and so are K6's and K7's bf16
 records (against the plain version in fp32 on the same values); the bf16
 backward at the dense train shape runs twice and must be bit-equal; every
-path's reading of the launch counts fails if a bf16 path's K4/K5/K6/K7
+path's reading of the launch counts fails if a bf16 path's K1/K4/K5/K6/K7
 launches, forward and backward, were not all tensor-core launches
 (``tc_launches``, ``tc_bwd_launches``, counted by the C library where it
 launches those kernels), or an fp32 path's were not all SIMT; and every
@@ -205,8 +216,9 @@ the TinyViT step of vit_train; 2 warm-up and 2 profiled steps each) and of the
 ViT-B encode through K7 and through K8 with static scales (1 warm-up, 2
 profiled encodes each): the device's busy share of the profiled wall and the
 device time per step by kernel group (the short-sequence forward of K6
-and K7, flash forward, dq, dk/dv (also K6's and K7's backward), GDN forward, backward and its reduction, K8/K9 and K8's
-quantization, cuBLAS GEMMs, the rest), one JSON line each.
+and K7, flash forward, dq, dk/dv (also K6's and K7's backward), GDN's
+bf16 kernels by phase and its fp32 forward, backward and reduction, K8/K9
+and K8's quantization, cuBLAS GEMMs, the rest), one JSON line each.
 """
 
 import json
@@ -487,123 +499,226 @@ def gdn_inputs(gen, b, h, s, dtype, dk=128, dv=128):
     return q, k, v, beta, alpha, s0
 
 
+GDN_HYBRID = (4, 8, 2048, 64, 64)  # b, h, s, dk, dv of the hybrid train step's GDN layers
+GDN_PREFILL = (1, 16, 156, 128, 128)  # the Qwen3.5-0.8B prefill of the generation path
+# the chunk of 64 whose state update the dropped-chunk control leaves out (of 32 at s 2048): the last
+# chunk's output and the gradients see it; the final state's control leaves out the last chunk's update
+# (an earlier chunk's reaches it only through gamma_C, about 3e-4 with these inputs)
+GDN_SKIP = 30
+GDN_TC_KEY = "gdn_tc_"  # the name stem of the bf16 tensor-core GDN kernels (csrc/gdn_tc.cu)
+
+
+def gdn_flops(b, h, s, dk, dv):
+    """The recurrence's 4 dk·dv multiply-adds a token and head (S·k, the
+    rank-1 update, the decay, S·q), as FLOPs."""
+    return 8 * dk * dv * b * h * s
+
+
+def gdn_tiles(got, ref, names):
+    """TILE_TOL's readings of K1's outputs: 64-token tiles of (b, h, s[, w])
+    tensors (the state: 64-row tiles of its dv rows)."""
+    def as_rows(t):
+        return t.unsqueeze(-1) if t.dim() == 3 else t
+
+    return {n: tile_rel_err(as_rows(g), as_rows(r)) for n, g, r in zip(names, got, ref)}
+
+
+def gdn_skip_chunk(q, k, v, beta, alpha, skip, chunk=64):
+    """The plain chunked form from a zero state with chunk ``skip``'s state
+    update left out (its output kept): a fault the tile bars must catch."""
+    import torch
+
+    from llm_quest_tpu_torch.ops import gdn as gdn_ops
+
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    qc, kc, vc, bc, ac, s_pad = gdn_ops.chunk_views(q, k, v, beta, alpha, chunk)
+    state = torch.zeros(b, h, dv, dk, device=q.device)
+    outs = []
+    for i in range(qc.shape[2]):
+        new, o = gdn_ops.gdn_chunk(qc[:, :, i], kc[:, :, i], vc[:, :, i], bc[:, :, i], ac[:, :, i], state)
+        outs.append(o)
+        state = state if i == skip else new
+    return torch.stack(outs, 2).reshape(b, h, s_pad, dv)[:, :, :s].to(q.dtype), state
+
+
+def check_gdn_tiles(name, got, ref, names, control):
+    """K1's bf16 outputs against plain, tile by tile, each within TILE_TOL;
+    the dropped-chunk ``control`` must read above it on every output."""
+    readings, dropped = gdn_tiles(got, ref, names), gdn_tiles(control, ref, names)
+    for n in names:
+        if not readings[n] <= TILE_TOL:  # also catches NaN
+            raise AssertionError(f"{name} {n}: tile error {readings[n]} > {TILE_TOL}")
+        if not dropped[n] > TILE_TOL:
+            raise AssertionError(f"{name} {n}: the dropped-chunk control reads {dropped[n]}, within {TILE_TOL}")
+    return readings, dropped
+
+
+def tc_count(wrapper, fn):
+    """``fn()`` and how many of its launches of ``wrapper`` took the bf16 tensor-core kernels."""
+    before = wrapper.tc_launches
+    result = fn()
+    return result, wrapper.tc_launches - before
+
+
 def kernel_k1(gen, dtypes):
     import torch
 
     from llm_quest_tpu_torch.kernels import gdn
 
-    errs, cases = [], []
+    fwd = gdn.gated_delta_rule_fwd
+    errs, errs_bf16, cases = [], [], []
     for dtype in dtypes:
-        for b, h, s, d in ((1, 16, 156, 128), (4, 16, 300, 128), (2, 8, 300, 64)):
-            q, k, v, beta, alpha, s0 = gdn_inputs(gen, b, h, s, dtype, dk=d, dv=d)
-            out, st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0)
-            ref_out, ref_st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0, plain=True)
+        for b, h, s, dk, dv in ((1, 16, 156, 128, 128), (4, 16, 300, 128, 128), (2, 8, 300, 64, 64),
+                                (2, 4, 37, 64, 128), (2, 4, 1, 128, 64)):
+            q, k, v, beta, alpha, s0 = gdn_inputs(gen, b, h, s, dtype, dk=dk, dv=dv)
+            (out, st), tc = tc_count(fwd, lambda: fwd(q, k, v, beta, alpha, s0))
+            ref_out, ref_st = fwd(q, k, v, beta, alpha, s0, plain=True)
             torch_sync()
-            e = max(check(f"K1 out b={b} s={s} dk={d} {dtype}", out, ref_out, dtype),
-                    check(f"K1 state b={b} s={s} dk={d} {dtype}", st, ref_st, dtype))
-            cases.append({"b": b, "h": h, "s": s, "dk": d, "dtype": str(dtype), "max_abs_err": e})
-            if dtype == dtypes[0]:
-                errs.append(e)
-    # the hybrid train step's shape, bf16, from a zero state: checked and timed
-    q, k, v, beta, alpha, _ = gdn_inputs(gen, 4, 8, 2048, dtypes[-1], dk=64, dv=64)
-    out, st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha)
-    ref_out, ref_st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, plain=True)
+            if tc != int(dtype == torch.bfloat16):
+                raise AssertionError(f"K1 {dtype}: {tc} tensor-core launches of 1")
+            e = max(check(f"K1 out b={b} s={s} dk={dk} dv={dv} {dtype}", out, ref_out, dtype),
+                    check(f"K1 state b={b} s={s} dk={dk} dv={dv} {dtype}", st, ref_st, dtype))
+            cases.append({"b": b, "h": h, "s": s, "dk": dk, "dv": dv, "dtype": str(dtype), "max_abs_err": e,
+                          "tc_launches": tc})
+            (errs if dtype == dtypes[0] else errs_bf16).append(e)
+    # the hybrid train step's shape, bf16, from a zero state: checked (whole and by tile, beside the
+    # dropped-chunk control) and timed
+    b, h, s, dk, dv = GDN_HYBRID
+    q, k, v, beta, alpha, _ = gdn_inputs(gen, b, h, s, dtypes[-1], dk=dk, dv=dv)
+    (out, st), tc = tc_count(fwd, lambda: fwd(q, k, v, beta, alpha))
+    ref_out, ref_st = fwd(q, k, v, beta, alpha, plain=True)
     torch_sync()
-    cases.append({"shape": f"b 4, h 8, s 2048, dk = dv = 64 {dtypes[-1]}",
-                  "max_abs_err": max(check("K1 out hybrid shape", out, ref_out, dtypes[-1]),
-                                     check("K1 state hybrid shape", st, ref_st, dtypes[-1])),
-                  "ms": cuda_ms(lambda: gdn.gated_delta_rule_fwd(q, k, v, beta, alpha), iters=5, warmup=1),
-                  "plain_ms": cuda_ms(lambda: gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, plain=True),
-                                      iters=5, warmup=1),
-                  **bound(nbytes(q, k, v, beta, alpha, out, st), 8 * 64 * 64 * 4 * 8 * 2048)})
+    control = (gdn_skip_chunk(q, k, v, beta, alpha, GDN_SKIP)[0],
+               gdn_skip_chunk(q, k, v, beta, alpha, s // 64 - 1)[1])
+    readings, dropped = check_gdn_tiles("K1 hybrid shape", (out, st), (ref_out, ref_st), ("out", "state"), control)
+    hybrid = {"shape": f"b {b}, h {h}, s {s}, dk {dk}, dv {dv}, {dtypes[-1]}", "tc_launches": tc,
+              "max_abs_err": max(check("K1 out hybrid shape", out, ref_out, dtypes[-1]),
+                                 check("K1 state hybrid shape", st, ref_st, dtypes[-1])),
+              "tile_err": readings, "dropped_chunk_tile_err": dropped,
+              "ms": cuda_ms(lambda: fwd(q, k, v, beta, alpha), iters=10, warmup=2),
+              "device_ms": device_ms(lambda: fwd(q, k, v, beta, alpha), GDN_TC_KEY, iters=10),
+              "plain_ms": cuda_ms(lambda: fwd(q, k, v, beta, alpha, plain=True), iters=5, warmup=1),
+              **bound(nbytes(q, k, v, beta, alpha, out, st), gdn_flops(*GDN_HYBRID))}
+    cases.append(hybrid)
     del q, k, v, beta, alpha, out, st, ref_out, ref_st
     torch.cuda.empty_cache()
     # the record's time: the generation path's prefill shape
-    q, k, v, beta, alpha, s0 = gdn_inputs(gen, 1, 16, 156, dtypes[-1])
-    ms = cuda_ms(lambda: gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0))
-    plain_ms = cuda_ms(lambda: gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0, plain=True))
-    out, st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0)
-    # 4 dk·dv multiply-adds a token and head (S·k, the rank-1 update, the decay, S·q)
-    extra = {**bound(nbytes(q, k, v, beta, alpha, s0, out, st), 8 * 128 * 128 * 16 * 156), "library_ms": None}
+    b, h, s, dk, dv = GDN_PREFILL
+    q, k, v, beta, alpha, s0 = gdn_inputs(gen, b, h, s, dtypes[-1], dk=dk, dv=dv)
+    ms = cuda_ms(lambda: fwd(q, k, v, beta, alpha, s0))
+    plain_ms = cuda_ms(lambda: fwd(q, k, v, beta, alpha, s0, plain=True))
+    out, st = fwd(q, k, v, beta, alpha, s0)
+    extra = {**bound(nbytes(q, k, v, beta, alpha, s0, out, st), gdn_flops(*GDN_PREFILL)), "library_ms": None,
+             "max_abs_err_bf16": max(errs_bf16), "tile_err_bf16": readings,
+             "device_ms": device_ms(lambda: fwd(q, k, v, beta, alpha, s0), GDN_TC_KEY),
+             "record": {"hybrid_fwd_ms": hybrid["ms"], "hybrid_fwd_device_ms": hybrid["device_ms"],
+                        "hybrid_fwd_bound_ms": hybrid["bound_ms"]}}
     return max(errs), ms, plain_ms, cases, extra
 
 
 def kernel_k1_bwd(gen, dtypes):
     """K1's backward against its plain version (the per-chunk replay) on the
-    kernel's own anchors, and the autograd Function against autograd through
-    the plain chunked forward; forward + backward timed at the hybrid step's
-    shape."""
+    kernel's own anchors (every 32 tokens in fp32, every 64 in bf16), and the
+    autograd Function against autograd through the plain chunked forward; at
+    the hybrid step's shape in bf16 also tile by tile beside the
+    dropped-chunk control, twice for bit-equal gradients, and forward,
+    backward and forward + backward timed."""
     import torch
 
     from llm_quest_tpu_torch.kernels import gdn
 
-    c = gdn.ANCHOR_CHUNK
+    fwd, bwd = gdn.gated_delta_rule_fwd, gdn.gated_delta_rule_bwd
     names = ("dq", "dk", "dv", "dbeta", "dalpha", "d_prev")
-    errs, cases = [], []
+    errs, errs_bf16, cases = [], [], []
     for dtype in dtypes:
-        for d in (64, 128):
+        c = gdn.anchor_chunk(dtype)
+        for dk, dv in ((64, 64), (128, 128), (64, 128)):
             for with_prev in (False, True):
-                q, k, v, beta, alpha, s0 = gdn_inputs(gen, 2, 8, 300, dtype, dk=d, dv=d)
+                q, k, v, beta, alpha, s0 = gdn_inputs(gen, 2, 8, 300, dtype, dk=dk, dv=dv)
                 prev = s0 if with_prev else None
-                d_out, d_state = randn(gen, 2, 8, 300, d, dtype=dtype), randn(gen, 2, 8, d, d)
+                d_out, d_state = randn(gen, 2, 8, 300, dv, dtype=dtype), randn(gen, 2, 8, dv, dk)
                 _, _, anchors = gdn._launch_fwd(q, k, v, beta, alpha, prev, anchor_chunk=c)
-                got = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, d_state, chunk_size=c)
-                ref = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, d_state, chunk_size=c,
-                                               plain=True)
+                got, tc = tc_count(bwd, lambda: bwd(q, k, v, beta, alpha, anchors, d_out, d_state, chunk_size=c))
+                ref = bwd(q, k, v, beta, alpha, anchors, d_out, d_state, chunk_size=c, plain=True)
                 torch_sync()
-                e = max(check(f"K1 bwd {n} dk={d} prev={with_prev} {dtype}", g, r, dtype)
+                if tc != int(dtype == torch.bfloat16):
+                    raise AssertionError(f"K1 bwd {dtype}: {tc} tensor-core launches of 1")
+                e = max(check(f"K1 bwd {n} dk={dk} dv={dv} prev={with_prev} {dtype}", g, r, dtype)
                         for n, g, r in zip(names, got, ref))
-                cases.append({"b": 2, "h": 8, "s": 300, "dk": d, "prev_state": with_prev, "d_state": True,
-                              "dtype": str(dtype), "max_abs_err": e})
-                if dtype == dtypes[0]:
-                    errs.append(e)
+                cases.append({"b": 2, "h": 8, "s": 300, "dk": dk, "dv": dv, "prev_state": with_prev, "d_state": True,
+                              "anchor_chunk": c, "dtype": str(dtype), "max_abs_err": e, "tc_launches": tc})
+                (errs if dtype == dtypes[0] else errs_bf16).append(e)
         # through autograd, from the wrapper a model calls
         q, k, v, beta, alpha, s0 = gdn_inputs(gen, 2, 8, 300, dtype, dk=64, dv=64)
         d_out, d_state = randn(gen, 2, 8, 300, 64, dtype=dtype), randn(gen, 2, 8, 64, 64)
         grads = []
         for plain in (False, True):
             args = [t.clone().requires_grad_() for t in (q, k, v, beta, alpha, s0)]
-            out, st = gdn.gated_delta_rule_fwd(*args, plain=plain)
+            out, st = fwd(*args, plain=plain)
             grads.append(torch.autograd.grad((out, st), args, (d_out, d_state)))
         torch_sync()
         e = max(check(f"K1 autograd {n} {dtype}", g, r, dtype) for n, g, r in zip(names, *grads))
         cases.append({"autograd": True, "b": 2, "h": 8, "s": 300, "dk": 64, "dtype": str(dtype), "max_abs_err": e})
-    # the hybrid train step's shape, bf16: checked, then timed
+    # the hybrid train step's shape, bf16
     dtype = dtypes[-1]
-    q, k, v, beta, alpha, _ = gdn_inputs(gen, 4, 8, 2048, dtype, dk=64, dv=64)
-    d_out = randn(gen, 4, 8, 2048, 64, dtype=dtype)
+    c = gdn.anchor_chunk(dtype)
+    b, h, s, dk, dv = GDN_HYBRID
+    q, k, v, beta, alpha, _ = gdn_inputs(gen, b, h, s, dtype, dk=dk, dv=dv)
+    d_out = randn(gen, b, h, s, dv, dtype=dtype)
     _, _, anchors = gdn._launch_fwd(q, k, v, beta, alpha, None, anchor_chunk=c)
-    got = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=c)
-    ref = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=c, plain=True)
+    got = bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=c)
+    again = bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=c)
+    ref = bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=c, plain=True)
     torch_sync()
-    case = {"shape": f"b 4, h 8, s 2048, dk = dv = 64 {dtype}",
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError("K1 bwd hybrid shape: two runs from the same anchors differ")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, beta, alpha)]
+    with torch.enable_grad():
+        control = torch.autograd.grad(gdn_skip_chunk(*leaves, GDN_SKIP)[0], leaves, d_out)
+    readings, dropped = check_gdn_tiles("K1 bwd hybrid shape", got[:5], ref[:5], names[:5], control)
+    case = {"shape": f"b {b}, h {h}, s {s}, dk {dk}, dv {dv}, {dtype}", "bitwise_equal_runs": True,
             "max_abs_err": {n: check(f"K1 bwd {n} hybrid shape", g, r, dtype) for n, g, r in zip(names, got, ref)},
-            "max_abs_ref": {n: max_err(g, r)[1] for n, g, r in zip(names, got, ref)}}
-    del got, ref
+            "max_abs_ref": {n: max_err(g, r)[1] for n, g, r in zip(names, got, ref)},
+            "tile_err": readings, "dropped_chunk_tile_err": dropped}
+    del got, again, ref, control
     args = [t.clone().requires_grad_() for t in (q, k, v, beta, alpha)]
 
     def kernel_fwd_bwd():
-        out, _ = gdn.gated_delta_rule_fwd(*args)
+        out, _ = fwd(*args)
         return torch.autograd.grad(out, args, d_out)
 
     def plain_fwd_bwd():  # the plain halves at the JAX chunk of 64
         _, _, anc = gdn.gated_delta_rule_fwd_plain(q, k, v, beta, alpha, chunk_size=64, with_anchors=True)
-        return gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anc, d_out, None, chunk_size=64, plain=True)
+        return bwd(q, k, v, beta, alpha, anc, d_out, None, chunk_size=64, plain=True)
 
-    case["fwd_bwd_ms"] = cuda_ms(kernel_fwd_bwd, iters=5, warmup=1)
+    def kernel_bwd():
+        return bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=c)
+
+    case["fwd_bwd_ms"] = cuda_ms(kernel_fwd_bwd, iters=10, warmup=2)
+    case["fwd_bwd_device_ms"] = device_ms(kernel_fwd_bwd, GDN_TC_KEY, iters=10)
     case["plain_fwd_bwd_ms"] = cuda_ms(plain_fwd_bwd, iters=3, warmup=1)
     case["fwd_anchors_ms"] = cuda_ms(lambda: gdn._launch_fwd(q, k, v, beta, alpha, None, anchor_chunk=c),
-                                     iters=5, warmup=1)
-    case["bwd_ms"] = cuda_ms(lambda: gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None,
-                                                              chunk_size=c), iters=5, warmup=1)
-    case["plain_bwd_ms"] = cuda_ms(lambda: gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None,
-                                                                    chunk_size=c, plain=True), iters=3, warmup=1)
-    cases.append(case)
+                                     iters=10, warmup=2)
+    case["bwd_ms"] = cuda_ms(kernel_bwd, iters=10, warmup=2)
+    case["bwd_device_ms"] = device_ms(kernel_bwd, GDN_TC_KEY, iters=10)
+    case["plain_bwd_ms"] = cuda_ms(lambda: bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=c, plain=True),
+                                   iters=3, warmup=1)
     # forward + backward: the inputs and d_out read, out and the five gradients
-    # written; 3x the forward's 4 dk·dv multiply-adds a token and head
+    # written; 3x the forward's 4 dk·dv multiply-adds a token and head. The
+    # backward alone: the inputs, d_out and the chunk states read (their
+    # fp32 size, which the hi + lo halves take; D^T, which the kernels also
+    # keep, is not counted: it follows from the states), the gradients
+    # written; 2x the forward's
     grads = nbytes(q, k, v) + 2 * nbytes(beta)
-    extra = {**bound(nbytes(q, k, v, beta, alpha, d_out) + nbytes(d_out) + grads, 3 * 8 * 64 * 64 * 4 * 8 * 2048),
-             "library_ms": None}
+    case["bwd_bound"] = bound(nbytes(q, k, v, beta, alpha, d_out, anchors.states) + grads,
+                              2 * gdn_flops(*GDN_HYBRID))
+    cases.append(case)
+    extra = {**bound(nbytes(q, k, v, beta, alpha, d_out) + nbytes(d_out) + grads, 3 * gdn_flops(*GDN_HYBRID)),
+             "library_ms": None, "max_abs_err_bf16": max(errs_bf16), "tile_err_bf16": readings,
+             "device_ms": case["fwd_bwd_device_ms"],
+             "record": {"bwd_ms": case["bwd_ms"], "bwd_device_ms": case["bwd_device_ms"],
+                        "bwd_bound_ms": case["bwd_bound"]["bound_ms"], "bitwise_equal_runs": True}}
     del q, k, v, beta, alpha, d_out, anchors, args
     torch.cuda.empty_cache()
     return max(errs), case["fwd_bwd_ms"], case["plain_fwd_bwd_ms"], cases, extra
@@ -1479,6 +1594,8 @@ FUSED_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/fused_mha_tc.cu",
              "float32": "llm_quest_tpu_torch/csrc/fused_mha.cu"}
 PACKED_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/fused_mha_tc.cu",
               "float32": "llm_quest_tpu_torch/csrc/attention.cu"}
+# K1's: bf16 takes the chunked tensor-core kernels, fp32 the SIMT scan
+GDN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/gdn_tc.cu", "float32": "llm_quest_tpu_torch/csrc/gdn.cu"}
 FP32_PATHS = (VIT_TRAIN, CP_FALLBACK)  # the paths that run in fp32
 KERNELS = [
     # name, wrapper (module, attribute[, which launches: "window" = those with a
@@ -1488,9 +1605,9 @@ KERNELS = [
     # forward and backward launches with and without causality, "int8" /
     # "bf16" those with int8 or bf16 scores]), source (or the source of each
     # dtype's kernel), replaced TPU kernel, check, main paths that launch it
-    ("gdn_prefill", ("gdn", "gated_delta_rule_fwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
+    ("gdn_prefill", ("gdn", "gated_delta_rule_fwd"), GDN_SRC,
      "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1, (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE)),
-    ("gdn_prefill_bwd", ("gdn", "gated_delta_rule_bwd"), "llm_quest_tpu_torch/csrc/gdn.cu",
+    ("gdn_prefill_bwd", ("gdn", "gated_delta_rule_bwd"), GDN_SRC,
      "llm_quest_tpu/kernels/gdn_pallas.py:255", kernel_k1_bwd, (HYBRID,)),
     ("gdn_step_stacked", ("gdn", "gated_delta_rule_step_stacked"), "llm_quest_tpu_torch/csrc/gdn.cu",
      "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2, (GENERATE, INT8_GENERATE, NEXT_SERVE)),
@@ -1641,6 +1758,7 @@ def kernel_phase():
                         "tflops": extra.get("tflops", extra["flops"] / ms / 1e9),
                         **{key: extra[key] for key in ("bf16_sdpa_ms", "max_abs_err_bf16", "tile_err_bf16",
                                                        "device_ms") if key in extra},
+                        **extra.get("record", {}),
                         "paths": list(paths)})
         torch.cuda.empty_cache()
     return records
@@ -1656,9 +1774,12 @@ def reset_launches():
 
 
 # the attention wrappers' (K4, K4 bwd, K5, K6 and K7, forward and backward)
-# launch counters (module, wrapper, launches) and, beside each, the count of
-# those that took the bf16 tensor-core kernels
-TC_COUNTERS = (("attention", "flash_attention", "launches", "tc_launches"),
+# and K1's (forward and backward) launch counters (module, wrapper,
+# launches) and, beside each, the count of those that took the bf16
+# tensor-core kernels
+TC_COUNTERS = (("gdn", "gated_delta_rule_fwd", "launches", "tc_launches"),
+               ("gdn", "gated_delta_rule_bwd", "launches", "tc_launches"),
+               ("attention", "flash_attention", "launches", "tc_launches"),
                ("attention", "flash_attention_bwd", "launches", "tc_launches"),
                ("attention", "flash_attention_with_lse", "launches", "tc_launches"),
                ("attention", "flash_attention_with_lse", "bwd_launches", "tc_bwd_launches"),
@@ -1669,7 +1790,7 @@ TC_COUNTERS = (("attention", "flash_attention", "launches", "tc_launches"),
 
 
 def check_routes(path, bf16):
-    """On a bf16 path every K4/K5/K6/K7 launch, forward and backward, took
+    """On a bf16 path every K1/K4/K5/K6/K7 launch, forward and backward, took
     the tensor-core kernels; on an fp32 path none did (the SIMT kernels)."""
     for module, name, total, tc in TC_COUNTERS:
         w = wrapper((module, name))
@@ -1715,9 +1836,11 @@ def phase(fn, *args):
 
 def read_launches(path, records, *, add=True):
     """The launch counts of the path just driven, added to ``records`` (with
-    ``add``); fails if a kernel of the path never launched, or if the path's
-    attention launches did not take the route of its dtype (bf16: the
-    tensor-core kernels; the FP32_PATHS: the SIMT ones)."""
+    ``add``; a record of all its wrapper's launches also adds those that took
+    the tensor-core kernels, ``tc_launches``); fails if a kernel of the path
+    never launched, or if the path's K1 and attention launches did not take
+    the route of its dtype (bf16: the tensor-core kernels; the FP32_PATHS:
+    the SIMT ones)."""
     check_routes(path, path not in FP32_PATHS)
     counts = {}
     for (name, spec, *_, paths), rec in zip(KERNELS, records):
@@ -1725,6 +1848,9 @@ def read_launches(path, records, *, add=True):
         counts[name] = n
         if add and path in paths:
             rec["launches"] += n
+            w = wrapper(spec)
+            if len(spec) == 2 and hasattr(w, "tc_launches"):  # all the wrapper's launches: those on the tensor cores
+                rec["tc_launches"] = rec.get("tc_launches", 0) + w.tc_launches
     missing = [name for (name, *_, paths) in KERNELS if path in paths and counts[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: {counts}")
@@ -2867,6 +2993,17 @@ def int8_copy_ms(model):
     return cuda_ms(lambda: [t.to(torch.bfloat16) for t in mats], iters=5, warmup=1), sum(map(nbytes, mats))
 
 
+def prefill_k1_device_ms(fn, iters=3):
+    """Per call of ``fn`` (a TTFT call: the prefill and one token), the
+    device time of K1's forward kernels and of all its kernels, from one
+    ``torch.profiler`` trace; (None, None) where the profiler gives none."""
+    _, events = profiled(fn, iters, GDN_TC_KEY)
+    if not events:
+        return None, None
+    k1 = sum(e.time_range.elapsed_us() for e in events if GDN_TC_KEY in e.name) / 1e3 / iters
+    return k1, sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+
+
 def serve_path(phase, path, make_model, entry, cfg_bf16, cfg_int8, ids, records, card, quant_options):
     """The bf16 model's rates, then the same weights quantized in place
     (``quantize_params_int8``) driven once with the launch counts reset, then
@@ -2891,6 +3028,8 @@ def serve_path(phase, path, make_model, entry, cfg_bf16, cfg_int8, ids, records,
             ((seq >= 0) & (seq < cfg_int8["vocab_size"])).all()):
         raise AssertionError(f"{phase}: bad sequences {tuple(seq.shape)}")
     int8 = serve_rates(entry, model, cfg_int8, ids)
+    int8["k1_fwd_device_ms"], int8["ttft_device_ms"] = prefill_k1_device_ms(
+        lambda: generate(entry, model, cfg_int8, ids, 1))
     bytes_per_token = F.decode_bytes_per_token(model, cfg_int8, kv_len=kv_len, batch=ids.shape[0])
     int8["mbu"] = F.mbu(int8["tok_s"], bytes_per_token)
     copy_ms, int8_bytes = int8_copy_ms(model)
@@ -2943,8 +3082,12 @@ PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names
     "flash_fwd": "attention_tc_fwd_kernel", "flash_bwd_dq": "attention_tc_dq_kernel",
     "flash_bwd_dkv": "attention_tc_dkv_kernel", "flash_fwd_simt": "attention_fwd_kernel",
     "flash_bwd_dq_simt": "attention_bwd_dq_kernel", "flash_bwd_dkv_simt": "attention_bwd_dkv_kernel",
-    "gdn_fwd": "gdn_prefill_kernel",
-    "gdn_bwd": "gdn_prefill_bwd_kernel", "gdn_bwd_reduce": "gdn_bwd_reduce_kernel",
+    "gdn_fwd_simt": "gdn_prefill_kernel",
+    "gdn_bwd_simt": "gdn_prefill_bwd_kernel", "gdn_bwd_reduce_simt": "gdn_bwd_reduce_kernel",
+    # bf16 K1 (csrc/gdn_tc.cu): the chunk-local kernel of the forward and the backward, the state pass,
+    # the output, the reverse pass and the per-chunk gradients
+    "gdn_tc_chunk": "gdn_tc_chunk_kernel", "gdn_tc_state": "gdn_tc_state_kernel", "gdn_tc_out": "gdn_tc_out_kernel",
+    "gdn_tc_reverse": "gdn_tc_reverse_kernel", "gdn_tc_grad": "gdn_tc_grad_kernel",
     "packed_mha_int8": "packed_mha_int8_kernel", "quantize_int8": "quantize_int8_kernel",
 }
 

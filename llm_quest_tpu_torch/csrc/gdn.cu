@@ -1,12 +1,15 @@
-// Gated delta rule (GatedDeltaNet) kernels for Hopper.
+// Gated delta rule (GatedDeltaNet) kernels for Hopper: the fp32 prefill and
+// its backward on the SIMT units, and the decode step in fp32 and bf16. A
+// bf16 prefill or backward goes to the chunked tensor-core kernels of
+// gdn_tc.cu; the C entry points below branch on the dtype.
 //
 // Replaces these parts of llm_quest_tpu/kernels/gdn_pallas.py:
 //   llmq_gdn_prefill           <- gated_delta_rule_pallas, forward (the chunked
 //                                 _gdn_chunk_kernel with its state in VMEM),
 //                                 optionally streaming the chunk-initial
-//                                 states (save_chunk_states)
+//                                 states (save_chunk_states); fp32 here
 //   llmq_gdn_prefill_bwd       <- its custom VJP (_gdn_bwd: a reverse scan of
-//                                 per-chunk vjps from those states)
+//                                 per-chunk vjps from those states); fp32 here
 //   llmq_gdn_step_stacked      <- gated_delta_rule_step_stacked_pallas (the
 //                                 in-place one-token step on the stacked
 //                                 (L, b, h, dv, dk) decode state)
@@ -18,11 +21,12 @@
 //   o_i     = (a*S[i,:].q + d_i*(k.q)) * dk^-1/2
 // so one warp owns one state row in registers (DK / 32 fp32 per lane; DK is
 // 64 or 128) for the whole call, and the dot products of a token are
-// interleaved warp butterflies. The prefill walks the tokens in order (the
-// exact scan, any s >= 1), staging kChunk tokens of q and k in shared memory
-// for the block's kRows warps. Padding needs no special case: beta = 0,
-// alpha = 1 is a no-op step. The Newton-Schulz inverse of the TPU kernel is a
-// workaround for the TPU's slow triangular solve and has no counterpart here.
+// interleaved warp butterflies. The fp32 prefill walks the tokens in order
+// (the exact scan, any s >= 1), staging kChunk tokens of q and k in shared
+// memory for the block's kRows warps. Padding needs no special case: beta =
+// 0, alpha = 1 is a no-op step. The Newton-Schulz inverse of the TPU kernel
+// is a workaround for the TPU's slow triangular solve and has no counterpart
+// here.
 //
 // Backward, per row i, walking t downward from H = dL/dS_T (the final-state
 // cotangent), with G = a_t S_{t-1}, u = G k_t, d = b_t (v_t - u):
@@ -32,19 +36,21 @@
 //   H  = a_t dG            (after t = 0, H is d_prev_state)
 // dv is row-local; dq, dk, db and da are sums over the dv rows. S_{t-1} is
 // not recovered by dividing by a (a underflows towards 0 in the models): the
-// forward streams the state at every `chunk`-th token (the anchors), and the
-// backward replays each chunk forward from its anchor into shared memory,
-// then walks it in reverse. Cross-row sums are deterministic: the warps of a
-// block add their rows in shared memory in a fixed order, each block writes
-// its sum to a partial buffer, and a second kernel adds the blocks' partials
-// in a fixed order.
+// forward streams the state at every `chunk`-th token (the anchors, every
+// 32 tokens), and the backward replays each chunk forward from its anchor
+// into shared memory, then walks it in reverse. Cross-row sums are
+// deterministic: the warps of a block add their rows in shared memory in a
+// fixed order, each block writes its sum to a partial buffer, and a second
+// kernel adds the blocks' partials in a fixed order.
 //
-// Bound: the prefill and its backward are latency-bound on the sequential
-// token loop (one or five interleaved shuffle trees per token, and in the
-// backward one block barrier per token); the decode step is bound by reading
-// and writing the fp32 state once (64 KB per (b, h) at dv = dk = 128), which
-// is the minimum traffic: the state stays in registers between read and write.
+// Bound: the fp32 prefill and its backward are latency-bound on the
+// sequential token loop (one or five interleaved shuffle trees per token,
+// and in the backward one block barrier per token); the decode step is
+// bound by reading and writing the fp32 state once (64 KB per (b, h) at dv =
+// dk = 128), which is the minimum traffic: the state stays in registers
+// between read and write.
 #include "common.cuh"
+#include "gdn.cuh"
 
 namespace llmq {
 namespace {
@@ -439,59 +445,87 @@ int launch_prefill_bwd(const void* q, const void* k, const void* v, const float*
 
 using namespace llmq;
 
-// DK in {64, 128}, dv % 8 == 0, s >= 1; anchors nullable, else 1 <= chunk.
+// fp32: DK in {64, 128}, dv % 8 == 0, s >= 1; anchors nullable, else 1 <= chunk;
+// saved_d and work unused. bf16 (gdn_tc.cu): DK and dv in {64, 128}, chunk 64,
+// anchors and saved_d both given or both null, work of
+// llmq_gdn_prefill_work_bytes bytes.
 extern "C" int llmq_gdn_prefill(int dtype, const void* q, const void* k, const void* v,
                                 const float* beta, const float* alpha, const float* s0,
-                                float* s_out, float* anchors, void* out, int B, int H, int S,
-                                int DK, int DV, int chunk, long long q_sb, long long q_sh,
-                                long long q_ss, long long k_sb, long long k_sh, long long k_ss,
-                                long long v_sb, long long v_sh, long long v_ss, float scale,
-                                void* stream) {
-  if ((DK != 64 && DK != 128) || DV <= 0 || DV % kRows != 0 || S < 1 || chunk < 1) {
+                                float* s_out, void* anchors, void* saved_d, void* out, void* work,
+                                int B, int H, int S, int DK, int DV, int chunk, long long q_sb,
+                                long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+                                long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+                                float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16) {
+    if (chunk != 64) return (int)cudaErrorInvalidValue;
+    GdnTcCall c{};
+    c.q = q, c.k = k, c.v = v;
+    c.q_sb = q_sb, c.q_sh = q_sh, c.q_ss = q_ss, c.k_sb = k_sb, c.k_sh = k_sh, c.k_ss = k_ss;
+    c.v_sb = v_sb, c.v_sh = v_sh, c.v_ss = v_ss;
+    c.beta = beta, c.alpha = alpha, c.s0 = s0, c.s_out = s_out, c.out = out;
+    c.anchors = anchors, c.saved_d = saved_d, c.work = work;
+    c.B = B, c.H = H, c.S = S, c.DK = DK, c.DV = DV, c.scale = scale;
+    return gdn_tc_prefill(c, s);
+  }
+  if (dtype != kFloat32 || (DK != 64 && DK != 128) || DV <= 0 || DV % kRows != 0 || S < 1 || chunk < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) {
-    return DK == 64 ? launch_prefill<float, 64>(q, k, v, beta, alpha, s0, s_out, anchors, out, B, H, S, DV, chunk, st, scale, s)
-                    : launch_prefill<float, 128>(q, k, v, beta, alpha, s0, s_out, anchors, out, B, H, S, DV, chunk, st, scale, s);
-  }
-  if (dtype == kBFloat16) {
-    return DK == 64 ? launch_prefill<__nv_bfloat16, 64>(q, k, v, beta, alpha, s0, s_out, anchors, out, B, H, S, DV, chunk, st, scale, s)
-                    : launch_prefill<__nv_bfloat16, 128>(q, k, v, beta, alpha, s0, s_out, anchors, out, B, H, S, DV, chunk, st, scale, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  float* anc = static_cast<float*>(anchors);
+  return DK == 64
+             ? launch_prefill<float, 64>(q, k, v, beta, alpha, s0, s_out, anc, out, B, H, S, DV, chunk, st, scale, s)
+             : launch_prefill<float, 128>(q, k, v, beta, alpha, s0, s_out, anc, out, B, H, S, DV, chunk, st, scale, s);
 }
 
-// Contiguous operands (see gdn_prefill_bwd_kernel); part: scratch of
-// llmq_gdn_prefill_bwd_blocks(DK, DV) * B * H * S * (2 * DK + 4) fp32.
-// DK in {64, 128}, dv a multiple of the block's rows, 1 <= chunk <= 32.
+// Bytes of llmq_gdn_prefill's work buffer (0 for fp32; -1 for a shape it
+// does not take); saved: the caller keeps the anchors and D^T.
+extern "C" long long llmq_gdn_prefill_work_bytes(int dtype, int B, int H, int S, int DK, int DV, int saved) {
+  if (dtype == kFloat32) return 0;
+  return dtype == kBFloat16 ? gdn_tc_work_bytes(0, B, H, S, DK, DV, saved) : -1;
+}
+
+// fp32: contiguous operands (see gdn_prefill_bwd_kernel), anchors every
+// `chunk` tokens (1 <= chunk <= 32), work the partial-sum scratch, saved_d
+// unused. bf16 (gdn_tc.cu): the forward's anchors and saved_d, chunk 64.
+// Either way the work buffer takes llmq_gdn_prefill_bwd_work_bytes bytes.
 extern "C" int llmq_gdn_prefill_bwd(int dtype, const void* q, const void* k, const void* v,
-                                    const float* beta, const float* alpha, const float* anchors,
-                                    const void* dout, const float* dstate, float* part, void* dq,
-                                    void* dk, void* dv, float* dbeta, float* dalpha, float* dprev,
-                                    int B, int H, int S, int DK, int DV, int chunk, float scale,
-                                    void* stream) {
-  if ((DK != 64 && DK != 128) || DV <= 0 || S < 1 || chunk < 1 || chunk > kMaxAnchor) {
+                                    const float* beta, const float* alpha, const void* anchors,
+                                    const void* saved_d, const void* dout, const float* dstate,
+                                    void* work, void* dq, void* dk, void* dv, float* dbeta,
+                                    float* dalpha, float* dprev, int B, int H, int S, int DK, int DV,
+                                    int chunk, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16) {
+    if (chunk != 64) return (int)cudaErrorInvalidValue;
+    GdnTcCall c{};
+    c.q = q, c.k = k, c.v = v;
+    c.beta = beta, c.alpha = alpha;
+    c.anchors = const_cast<void*>(anchors), c.saved_d = const_cast<void*>(saved_d), c.work = work;
+    c.dout = dout, c.dstate = dstate, c.dq = dq, c.dk = dk, c.dv = dv;
+    c.dbeta = dbeta, c.dalpha = dalpha, c.dprev = dprev;
+    c.B = B, c.H = H, c.S = S, c.DK = DK, c.DV = DV, c.scale = scale;
+    return gdn_tc_prefill_bwd(c, s);
+  }
+  if (dtype != kFloat32 || (DK != 64 && DK != 128) || DV <= 0 || S < 1 || chunk < 1 || chunk > kMaxAnchor) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LLMQ_GDN_BWD(T, D)                                                                     \
-  launch_prefill_bwd<T, D>(q, k, v, beta, alpha, anchors, dout, dstate, part, dq, dk, dv,     \
-                           dbeta, dalpha, dprev, B, H, S, DV, chunk, scale, s)
-  if (dtype == kFloat32) return DK == 64 ? LLMQ_GDN_BWD(float, 64) : LLMQ_GDN_BWD(float, 128);
-  if (dtype == kBFloat16) {
-    return DK == 64 ? LLMQ_GDN_BWD(__nv_bfloat16, 64) : LLMQ_GDN_BWD(__nv_bfloat16, 128);
-  }
-#undef LLMQ_GDN_BWD
-  return (int)cudaErrorInvalidValue;
+  const float* anc = static_cast<const float*>(anchors);
+  float* part = static_cast<float*>(work);
+  return DK == 64 ? launch_prefill_bwd<float, 64>(q, k, v, beta, alpha, anc, dout, dstate, part, dq, dk, dv,
+                                                  dbeta, dalpha, dprev, B, H, S, DV, chunk, scale, s)
+                  : launch_prefill_bwd<float, 128>(q, k, v, beta, alpha, anc, dout, dstate, part, dq, dk, dv,
+                                                   dbeta, dalpha, dprev, B, H, S, DV, chunk, scale, s);
 }
 
-// Blocks (row groups) the backward splits dv into: the first dimension of
-// its partial-sum scratch; 0 for an unsupported DK or dv.
-extern "C" int llmq_gdn_prefill_bwd_blocks(int DK, int DV) {
+// Bytes of llmq_gdn_prefill_bwd's work buffer: fp32, the partial rows of
+// the (dv / block rows) blocks, (blocks, b*h, s, 2 dk + 4) fp32; bf16, the
+// tensor-core kernels' scratch; -1 for a shape the kernels do not take.
+extern "C" long long llmq_gdn_prefill_bwd_work_bytes(int dtype, int B, int H, int S, int DK, int DV) {
+  if (dtype == kBFloat16) return gdn_tc_work_bytes(1, B, H, S, DK, DV, 1);
   const int rows = DK == 64 ? Bwd<64>::kRowsB : DK == 128 ? Bwd<128>::kRowsB : 0;
-  return rows == 0 || DV <= 0 || DV % rows != 0 ? 0 : DV / rows;
+  if (dtype != kFloat32 || rows == 0 || DV <= 0 || DV % rows != 0) return -1;
+  return (long long)(DV / rows) * B * H * S * (2 * DK + 4) * (long long)sizeof(float);
 }
 
 // DK in {64, 128} (Qwen3.5 at 128, Qwen3-Next at 64), dv % kRows == 0.

@@ -30,13 +30,16 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # dtype, q, k, v, beta, alpha, s0, s_out, anchors, out, B, H, S, DK, DV, chunk, 9 strides, scale, stream
-    "llmq_gdn_prefill": [_I] + [_P] * 9 + [_I] * 6 + [_L] * 9 + [_F, _P],
-    # dtype, q, k, v, beta, alpha, anchors, dout, dstate, part, dq, dk, dv, dbeta, dalpha, dprev,
+    # dtype, q, k, v, beta, alpha, s0, s_out, anchors, saved_d, out, work, B, H, S, DK, DV, chunk, 9 strides,
+    # scale, stream
+    "llmq_gdn_prefill": [_I] + [_P] * 11 + [_I] * 6 + [_L] * 9 + [_F, _P],
+    # dtype, B, H, S, DK, DV, saved
+    "llmq_gdn_prefill_work_bytes": [_I] * 7,
+    # dtype, q, k, v, beta, alpha, anchors, saved_d, dout, dstate, work, dq, dk, dv, dbeta, dalpha, dprev,
     # B, H, S, DK, DV, chunk, scale, stream
-    "llmq_gdn_prefill_bwd": [_I] + [_P] * 15 + [_I] * 6 + [_F, _P],
-    # DK, DV
-    "llmq_gdn_prefill_bwd_blocks": [_I, _I],
+    "llmq_gdn_prefill_bwd": [_I] + [_P] * 16 + [_I] * 6 + [_F, _P],
+    # dtype, B, H, S, DK, DV
+    "llmq_gdn_prefill_bwd_work_bytes": [_I] * 6,
     # dtype, q, k, v, beta, alpha, stacked, layer, out, B, H, DK, DV, 6 strides, scale, stream
     "llmq_gdn_step_stacked": [_I] + [_P] * 6 + [_I, _P] + [_I] * 4 + [_L] * 6 + [_F, _P],
     # dtype, q, k, v, o, lse, key_mask, B, HQ, HKV, SQ, SK, D, DV, 13 strides, causal, q_start, scale,
@@ -63,6 +66,8 @@ _SIGNATURES = {
     # int8, t, q, k, v, o, G, M, stream
     "llmq_attn_core": [_I] + [_P] * 5 + [_I] * 2 + [_P],
 }
+# entries returning other than an int (a CUDA error code or a count)
+_RESTYPES = {"llmq_gdn_prefill_work_bytes": ctypes.c_longlong, "llmq_gdn_prefill_bwd_work_bytes": ctypes.c_longlong}
 
 
 class _Library:
@@ -131,7 +136,7 @@ def library():
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(cdll, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     cdll.llmq_error_string.argtypes = [ctypes.c_int]
     cdll.llmq_error_string.restype = ctypes.c_char_p
     _loaded = _Library(cdll, build_seconds)

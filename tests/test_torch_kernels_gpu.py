@@ -13,7 +13,10 @@ tensor-core kernels, which also round p and ds to bf16 before their
 products, and each of their cases asserts which route its launches took).
 The flash backward's gradients are held to
 autograd through the plain forward with the same tolerances, and K1's
-backward to its plain version (the per-chunk replay) on the same anchors.
+backward to its plain version (the per-chunk replay) on the same anchors;
+K1 in bf16 takes the chunked tensor-core kernels (its cases assert
+``tc_launches``) and is also held per 64-token tile at the hybrid step's
+shape.
 K12 (bf16 or int8 scores, no fp32 form) has its own, ``attn_core.py::
 k12_tolerance``: bf16 within one bf16 unit of max |plain|; int8 each output
 within one bf16 unit of its plain value plus the fp32 summation bound of
@@ -109,44 +112,50 @@ def gdn_inputs(gen, b, h, s, dtype, dk=128, dv=128):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("s", [1, 37, 156])
-@pytest.mark.parametrize("dk", [64, 128])
-def test_gdn_prefill_kernel(gen, dtype, s, dk):
+@pytest.mark.parametrize("s", [1, 37, 156, 300])
+@pytest.mark.parametrize("dk, dv", [(64, 64), (128, 128), (64, 128)])
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_gdn_prefill_kernel(gen, dtype, s, dk, dv, with_prev):
+    """K1's forward against the plain chunked form; a bf16 call takes the
+    chunked tensor-core kernels (``tc_launches``), an fp32 one the scan."""
     from llm_quest_tpu_torch.kernels import gdn
 
-    q, k, v, beta, alpha, s0 = gdn_inputs(gen, 2, 4, s, dtype, dk=dk, dv=dk)
-    n = gdn.gated_delta_rule_fwd.launches
-    out, st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0)
+    q, k, v, beta, alpha, s0 = gdn_inputs(gen, 2, 4, s, dtype, dk=dk, dv=dv)
+    prev = s0 if with_prev else None
+    n, tc = gdn.gated_delta_rule_fwd.launches, gdn.gated_delta_rule_fwd.tc_launches
+    out, st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, prev)
     assert gdn.gated_delta_rule_fwd.launches == n + 1
-    ref_out, ref_st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0, plain=True)
+    assert gdn.gated_delta_rule_fwd.tc_launches == tc + (dtype == torch.bfloat16)
+    ref_out, ref_st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, prev, plain=True)
     assert_close(out, ref_out, dtype)
     assert_close(st, ref_st, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dk, dv", [(64, 64), (128, 128), (64, 128)])
-@pytest.mark.parametrize("s", [20, 300])
+@pytest.mark.parametrize("s", [20, 37, 300])
 @pytest.mark.parametrize("with_prev", [False, True])
 def test_gdn_prefill_backward_kernel(gen, dtype, dk, dv, s, with_prev):
     """K1's backward against the plain per-chunk replay on the kernel's own
-    anchors (s = 300 ends in a partial chunk), then the autograd Function
-    against autograd through the plain chunked forward."""
+    anchors (every 32 tokens in fp32, every 64 in bf16; s = 300 ends in a
+    partial chunk), then the autograd Function against autograd through the
+    plain chunked forward; bf16 calls take the tensor-core kernels."""
     from llm_quest_tpu_torch.kernels import gdn
 
+    c = gdn.anchor_chunk(dtype)
     q, k, v, beta, alpha, s0 = gdn_inputs(gen, 2, 4, s, dtype, dk=dk, dv=dv)
     prev = s0 if with_prev else None
     d_out = randn(gen, 2, 4, s, dv, dtype=dtype)
     d_state = randn(gen, 2, 4, dv, dk)
-    out, st, anchors = gdn._launch_fwd(q, k, v, beta, alpha, prev, anchor_chunk=gdn.ANCHOR_CHUNK)
-    _, _, ref_anchors = gdn.gated_delta_rule_fwd_plain(
-        q, k, v, beta, alpha, prev, chunk_size=gdn.ANCHOR_CHUNK, with_anchors=True
-    )
-    assert_close(anchors, ref_anchors, dtype)
-    n = gdn.gated_delta_rule_bwd.launches
-    got = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, d_state, chunk_size=gdn.ANCHOR_CHUNK)
+    out, st, anchors = gdn._launch_fwd(q, k, v, beta, alpha, prev, anchor_chunk=c)
+    _, _, ref_anchors = gdn.gated_delta_rule_fwd_plain(q, k, v, beta, alpha, prev, chunk_size=c, with_anchors=True)
+    assert isinstance(anchors, gdn.TcAnchors) == (dtype == torch.bfloat16)
+    assert_close(gdn.anchor_states(anchors), ref_anchors, dtype)
+    n, tc = gdn.gated_delta_rule_bwd.launches, gdn.gated_delta_rule_bwd.tc_launches
+    got = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, d_state, chunk_size=c)
     assert gdn.gated_delta_rule_bwd.launches == n + 1
-    ref = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, d_state, chunk_size=gdn.ANCHOR_CHUNK,
-                                   plain=True)
+    assert gdn.gated_delta_rule_bwd.tc_launches == tc + (dtype == torch.bfloat16)
+    ref = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, d_state, chunk_size=c, plain=True)
     for g, r, src in zip(got, ref, (q, k, v, beta, alpha, d_state)):
         assert g.dtype == src.dtype
         assert_close(g, r, dtype)
@@ -161,6 +170,26 @@ def test_gdn_prefill_backward_kernel(gen, dtype, dk, dv, s, with_prev):
     refs = torch.autograd.grad((po, pfin), plain_args if with_prev else plain_args[:5], (d_out, d_state))
     for g, r in zip(grads, refs):
         assert_close(g, r, dtype)
+
+
+def test_gdn_tc_tiles_at_the_hybrid_shape(gen):
+    """bf16 K1 at the hybrid train step's shape (b 4, h 8, s 2048, dk = dv =
+    64): the output and the five gradients of the tensor-core kernels
+    against the plain versions per 64-token tile (TILE_TOL), and two
+    backward runs bit for bit."""
+    from llm_quest_tpu_torch.kernels import gdn
+
+    q, k, v, beta, alpha, _ = gdn_inputs(gen, 4, 8, 2048, torch.bfloat16, dk=64, dv=64)
+    d_out = randn(gen, 4, 8, 2048, 64, dtype=torch.bfloat16)
+    out, _, anchors = gdn._launch_fwd(q, k, v, beta, alpha, None, anchor_chunk=gdn.TC_CHUNK)
+    ref_out, _ = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, plain=True)
+    assert_tiles_close(out, ref_out)
+    got = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=gdn.TC_CHUNK)
+    again = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=gdn.TC_CHUNK)
+    ref = gdn.gated_delta_rule_bwd(q, k, v, beta, alpha, anchors, d_out, None, chunk_size=gdn.TC_CHUNK, plain=True)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    for g, r in zip(got[:5], ref):
+        assert_tiles_close(g if g.dim() == 4 else g[..., None], r if r.dim() == 4 else r[..., None])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
