@@ -61,7 +61,11 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    steps' attention), beside K4's tensor-core forward at ViT-B's packed
    strides (what K7's bf16 forward borrowed before);
    K8 with dynamic and with static scales and K9 at ViT-B's shape, K9 equal
-   to K8 static bit for bit. K3 (one layer's decode step) at b 1 and 32,
+   to K8 static bit for bit, two runs bit-equal; in bf16 on the int8-score
+   tensor-core kernel (``tc_launches``), held tile by tile (TILE_TOL) beside
+   the plain version with one 64-key piece dropped, and timed by CUDA
+   events and profiler (``device_ms``: the kernel; ``call_device_ms``: with
+   K8 dynamic's scale reductions). K3 (one layer's decode step) at b 1 and 32,
    16 heads of 128. K5 (flash attention with its lse) at one layer of the
    context-parallel step (b 1, 16/8 heads, d 128, s 8192), causal and not,
    forward and forward + backward with a random lse cotangent, fp32
@@ -77,14 +81,18 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    carries its bound and, where one PyTorch call computes the same
    function, that call's time (none for K8 and K9: ``bf16_sdpa_ms`` stands
    beside them; ``sdpa`` beside K5 returns no lse);
+2a. int8_vs_bf16_scores: K9 beside K7's bf16 forward on the same bf16
+   inputs at ViT-B's encode shape (the same bytes), CUDA events in turns and
+   profiler times: whether int8 scores speed up the attention core;
 3. vit_fp32: ViT-B's widths cut to 2 layers, b 8, fp32: the logits through
    K7, K8 (dynamic, static) and K9 against the plain versions, within
    LOGIT_TOL;
 4. vit_encode: ViT-B/224 at full width and depth, b 128, bf16, under
    ``torch.inference_mode``, launch counts reset first, once in each mode
    (bf16 through K7; int8 dynamic and int8 static through K8; int8 inkernel
-   through K9; 12 launches each), then img/s, MFU, peak memory and the int8
-   modes' logits against the bf16 encode's;
+   through K9; 12 launches each, all on the tensor cores), then img/s, MFU,
+   peak memory, each int8 mode's encode ms over bf16's and its logits
+   against the bf16 encode's;
 4a. vit_train_fp32: ViT-B's widths cut to 2 layers, b 8, fp32, no dropout:
    one ``make_vit_train_step`` through K7 against the plain step, the loss
    within VIT_LOSS_RTOL and every gradient within VIT_GRAD_RTOL of its
@@ -189,12 +197,13 @@ by tile (TILE_TOL, LSE_TOL), beside the readings of a result with one key
 tile dropped, which must exceed those bars, and so are K6's and K7's bf16
 records (against the plain version in fp32 on the same values); the bf16
 backward at the dense train shape runs twice and must be bit-equal; every
-path's reading of the launch counts fails if a bf16 path's K1/K4/K5/K6/K7
-launches, forward and backward, were not all tensor-core launches
-(``tc_launches``, ``tc_bwd_launches``, counted by the C library where it
-launches those kernels), or an fp32 path's were not all SIMT; and every
-phase after the kernel phase fails if K6's plain version or K7's plain
-backward ran in it (``phase``).
+path's reading of the launch counts fails if a bf16 path's
+K1/K4/K5/K6/K7/K8/K9 launches, forward and backward, were not all
+tensor-core launches (``tc_launches``, ``tc_bwd_launches``, counted by the
+C library where it launches those kernels), or an fp32 path's were not all
+SIMT; and every phase after the kernel phase fails if K6's plain version,
+the plain backward of K6, K7 or K8, or the plain version of K8 and K9 ran
+in it (``phase``).
 ``k4_window_ratio`` prints the CUDA-event ratio beside the checked device
 ratio, and ``k4_host_cost`` where a bf16 K4 fwd + bwd call's time goes
 (device, host, the C entry points). Every record carries ``tflops``, its
@@ -217,8 +226,8 @@ ViT-B encode through K7 and through K8 with static scales (1 warm-up, 2
 profiled encodes each): the device's busy share of the profiled wall and the
 device time per step by kernel group (the short-sequence forward of K6
 and K7, flash forward, dq, dk/dv (also K6's and K7's backward), GDN's
-bf16 kernels by phase and its fp32 forward, backward and reduction, K8/K9
-and K8's quantization, cuBLAS GEMMs, the rest), one JSON line each.
+bf16 kernels by phase and its fp32 forward, backward and reduction, K8/K9's
+tensor-core and SIMT kernels, cuBLAS GEMMs, the rest), one JSON line each.
 """
 
 import json
@@ -1167,44 +1176,122 @@ def kernel_k7_bwd(gen, dtypes, shape=VIT_B):
     return max(errs), ms, plain_ms, cases, extra
 
 
+INT8_TC_KEY = "packed_mha_int8_tc_"  # the name stem of K8/K9's bf16 tensor-core kernel (csrc/packed_mha_int8_tc.cu)
+
+
+def int8_static_scales(q, k):
+    return float(q.float().abs().max()) / 127.0, float(k.float().abs().max()) / 127.0
+
+
+def int8_dropped(q, k, v, h, ss, drop):
+    """The plain int8-score attention with the keys ``drop`` left out (q and
+    k quantized at the scales of all keys, as the kernel's): a fault the
+    tile bar must catch."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import fused_mha as fm
+
+    scale = (q.shape[-1] // h) ** -0.5
+    if ss is None:
+        (qi, qs), (ki, ks) = fm.quantize_sym(q), fm.quantize_sym(k)
+        dq = qs * ks * scale
+    else:
+        qi, ki = fm.quantize_static(q, ss[0]), fm.quantize_static(k, ss[1])
+        dq = fm._f32(ss[0] * ss[1] * scale)
+    keep = torch.ones(k.shape[1], dtype=torch.bool, device=k.device)
+    keep[drop] = False
+    return fm._scores_attention(qi, ki[:, keep], v[:, keep], h, dq, q.dtype)
+
+
 def kernel_int8(gen, dtypes, mode):
     """K8 (``mode`` "dynamic" or "static") or K9 ("inkernel") at ViT-B's
-    encode shape, fp32 and bf16 against plain; K9 also equal to K8 with the
-    same static scales, bit for bit. Timed in bf16 beside bf16 ``sdpa``
-    (no PyTorch call computes int8-score attention: library_ms is null)."""
+    encode shape, fp32 (the SIMT kernel) and bf16 (the tensor-core kernel,
+    ``tc_launches``) against plain; in bf16 also each 64-row tile of each
+    head (TILE_TOL) beside the plain version with the 64 keys [s - 128,
+    s - 64) dropped, which must read above the bar. Two runs bit-equal, and
+    K9 equal to K8 with the same static scales, bit for bit. Timed in bf16
+    (CUDA events; ``device_ms`` the tensor-core kernel's profiler time, K8
+    dynamic's scale reductions apart, ``call_device_ms`` all of the call's
+    device work) beside bf16 ``sdpa`` (no PyTorch call computes int8-score
+    attention: library_ms is null)."""
     import torch
 
     from llm_quest_tpu_torch.kernels import fused_mha as fm
 
     b, s, h, d = VIT_B
-    errs, cases = [], []
+    errs, errs_bf16, cases = [], [], []
+    extra = {}
     for dtype in dtypes:
+        bf16 = dtype == dtypes[-1]
         q, k, v = packed_inputs(gen, VIT_B, dtype)
-        ss = None
-        if mode != "dynamic":
-            ss = (float(q.float().abs().max()) / 127.0, float(k.float().abs().max()) / 127.0)
+        ss = None if mode == "dynamic" else int8_static_scales(q, k)
         if mode == "inkernel":
-            call = lambda plain=False: fm.packed_mha_int8_inkernel(q, k, v, h, ss, plain=plain)  # noqa: E731
+            w = fm.packed_mha_int8_inkernel
+            call = lambda plain=False: w(q, k, v, h, ss, plain=plain)  # noqa: E731
         else:
-            call = lambda plain=False: fm.packed_mha_int8(q, k, v, h, static_scales=ss, plain=plain)  # noqa: E731
-        out, ref = call(), call(True)
+            w = fm.packed_mha_int8
+            call = lambda plain=False: w(q, k, v, h, static_scales=ss, plain=plain)  # noqa: E731
+        out, tc = tc_count(w, call)
+        ref = call(True)
         torch_sync()
-        case = {"b": b, "s": s, "heads": h, "d": d, "dtype": str(dtype), "static_scales": ss,
+        tc_moved(f"K8/K9 {mode} {dtype}", tc, 0, 1 if bf16 else 0)
+        case = {"b": b, "s": s, "heads": h, "d": d, "dtype": str(dtype), "static_scales": ss, "tc_launches": tc,
                 "max_abs_err": check(f"K8/K9 {mode} {dtype}", out, ref, dtype)}
+        if not torch.equal(out, call()):
+            raise AssertionError(f"K8/K9 {mode} {dtype}: two runs differ")
         if mode == "inkernel":
             if not torch.equal(out, fm.packed_mha_int8(q, k, v, h, static_scales=ss)):
                 raise AssertionError(f"K9 differs from K8 with the same static scales ({dtype})")
             case["equal_to_k8_static"] = True
+        if bf16:
+            heads = lambda t: split_view(t, h)  # noqa: E731
+            case["tile_err"] = check_tiles(f"K8/K9 {mode} tiles", [heads(out)], [heads(ref)], ("o",))["o"]
+            dropped = tile_readings([heads(int8_dropped(q, k, v, h, ss, slice(s - 128, s - 64)))], [heads(ref)],
+                                    ("o",))["o"]
+            if not dropped > TILE_TOL:
+                raise AssertionError(f"K8/K9 {mode}: a dropped key piece reads {dropped}, within {TILE_TOL}")
+            case["dropped_piece_tile_err"] = dropped
+            extra["tile_err_bf16"] = case["tile_err"]
         cases.append(case)
-        if dtype == dtypes[0]:
-            errs.append(case["max_abs_err"])
+        (errs_bf16 if bf16 else errs).append(case["max_abs_err"])
     ms = cuda_ms(call)
     plain_ms = cuda_ms(lambda: call(True), iters=5, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    extra = {**bound_int8(4 * nbytes(q), packed_flops(VIT_B), packed_flops(VIT_B)), "library_ms": None,
-             "bf16_sdpa_ms": cuda_ms(lambda: sdpa(split_view(q, h), split_view(k, h), split_view(v, h))),
-             "shape": list(VIT_B)}
+    extra.update({**bound_int8(4 * nbytes(q), packed_flops(VIT_B), packed_flops(VIT_B)), "library_ms": None,
+                  "bf16_sdpa_ms": cuda_ms(lambda: sdpa(split_view(q, h), split_view(k, h), split_view(v, h))),
+                  "shape": list(VIT_B), "max_abs_err_bf16": max(errs_bf16),
+                  "device_ms": device_ms(call, INT8_TC_KEY),
+                  "record": {"call_device_ms": device_ms(call, "")}})
     return max(errs), ms, plain_ms, cases, extra
+
+
+def int8_vs_bf16_scores(card):
+    """Whether int8 scores speed up the attention core on this card: K9 (q
+    and k quantized in the kernel, s8 ``wgmma`` scores) beside K7's bf16
+    forward (bf16 ``wgmma`` scores) on the same bf16 inputs at ViT-B's
+    encode shape, which read and write the same bytes: CUDA events over 200
+    launches in turns (K7, K9, K9, K7) and each kernel's profiler time."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import attention as attn
+    from llm_quest_tpu_torch.kernels import fused_mha as fm
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    b, s, h, d = VIT_B
+    q, k, v = packed_inputs(gen, VIT_B, torch.bfloat16)
+    ss = int8_static_scales(q, k)
+    calls = {"k7_bf16": (lambda: attn.packed_mha(q, k, v, h), "fused_mha_tc_"),
+             "k9_int8": (lambda: fm.packed_mha_int8_inkernel(q, k, v, h, ss), INT8_TC_KEY)}
+    ms = {name: [] for name in calls}
+    for name in ("k7_bf16", "k9_int8", "k9_int8", "k7_bf16"):
+        ms[name].append(cuda_ms(calls[name][0], iters=200, warmup=10))
+    dev = {name: device_ms(fn, key) for name, (fn, key) in calls.items()}
+    emit({"phase": "int8_vs_bf16_scores", "card": card, "shape": list(VIT_B), "ms": ms, "device_ms": dev,
+          "k9_over_k7_device": dev["k9_int8"] / dev["k7_bf16"],
+          "k9_over_k7_ms": statistics.mean(ms["k9_int8"]) / statistics.mean(ms["k7_bf16"]),
+          "bound_ms": bound(4 * nbytes(q), 2 * packed_flops(VIT_B))["bound_ms"]})
+    del q, k, v
+    torch.cuda.empty_cache()
 
 
 def int8_cache_inputs(gen, b, hq, hkv, s_len, d, dtype):
@@ -1594,6 +1681,9 @@ FUSED_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/fused_mha_tc.cu",
              "float32": "llm_quest_tpu_torch/csrc/fused_mha.cu"}
 PACKED_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/fused_mha_tc.cu",
               "float32": "llm_quest_tpu_torch/csrc/attention.cu"}
+# K8's and K9's: bf16 takes the int8-score tensor-core kernel, fp32 the SIMT one
+INT8_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/packed_mha_int8_tc.cu",
+            "float32": "llm_quest_tpu_torch/csrc/packed_mha_int8.cu"}
 # K1's: bf16 takes the chunked tensor-core kernels, fp32 the SIMT scan
 GDN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/gdn_tc.cu", "float32": "llm_quest_tpu_torch/csrc/gdn.cu"}
 FP32_PATHS = (VIT_TRAIN, CP_FALLBACK)  # the paths that run in fp32
@@ -1626,14 +1716,13 @@ KERNELS = [
      "llm_quest_tpu/kernels/fused_mha.py:442", kernel_k7_bwd, (VIT_B_TRAIN,)),
     ("packed_mha_fwd_bwd_d32", ("attention", "packed_mha", "bwd"), ATTN_SRC,
      "llm_quest_tpu/kernels/fused_mha.py:442", partial(kernel_k7_bwd, shape=VIT_D32), (VIT_TRAIN,)),
-    ("packed_mha_int8", ("fused_mha", "packed_mha_int8", "dynamic"), "llm_quest_tpu_torch/csrc/packed_mha_int8.cu",
+    # K8 and K9: bf16 on the int8-score tensor-core kernel, fp32 on the SIMT one
+    ("packed_mha_int8", ("fused_mha", "packed_mha_int8", "dynamic"), INT8_SRC,
      "llm_quest_tpu/kernels/fused_mha.py:405", partial(kernel_int8, mode="dynamic"), (VIT,)),
-    ("packed_mha_int8_static", ("fused_mha", "packed_mha_int8", "static"),
-     "llm_quest_tpu_torch/csrc/packed_mha_int8.cu", "llm_quest_tpu/kernels/fused_mha.py:405",
-     partial(kernel_int8, mode="static"), (VIT,)),
-    ("packed_mha_int8_inkernel", ("fused_mha", "packed_mha_int8_inkernel"),
-     "llm_quest_tpu_torch/csrc/packed_mha_int8.cu", "llm_quest_tpu/kernels/fused_mha.py:372",
-     partial(kernel_int8, mode="inkernel"), (VIT,)),
+    ("packed_mha_int8_static", ("fused_mha", "packed_mha_int8", "static"), INT8_SRC,
+     "llm_quest_tpu/kernels/fused_mha.py:405", partial(kernel_int8, mode="static"), (VIT,)),
+    ("packed_mha_int8_inkernel", ("fused_mha", "packed_mha_int8_inkernel"), INT8_SRC,
+     "llm_quest_tpu/kernels/fused_mha.py:372", partial(kernel_int8, mode="inkernel"), (VIT,)),
     ("flash_decode", ("flash_decode", "flash_decode"), "llm_quest_tpu_torch/csrc/flash_decode.cu",
      "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10, (INT8_GENERATE,)),
     ("quantized_ragged_dot", ("quantized_gmm", "quantized_ragged_dot"), "llm_quest_tpu_torch/csrc/quantized_gmm.cu",
@@ -1773,10 +1862,10 @@ def reset_launches():
                 setattr(w, counter, 0)
 
 
-# the attention wrappers' (K4, K4 bwd, K5, K6 and K7, forward and backward)
-# and K1's (forward and backward) launch counters (module, wrapper,
-# launches) and, beside each, the count of those that took the bf16
-# tensor-core kernels
+# the attention wrappers' (K4, K4 bwd, K5, K6 and K7, forward and backward;
+# K8 forward and backward, K9), and K1's (forward and backward) launch
+# counters (module, wrapper, launches) and, beside each, the count of those
+# that took the bf16 tensor-core kernels
 TC_COUNTERS = (("gdn", "gated_delta_rule_fwd", "launches", "tc_launches"),
                ("gdn", "gated_delta_rule_bwd", "launches", "tc_launches"),
                ("attention", "flash_attention", "launches", "tc_launches"),
@@ -1786,12 +1875,16 @@ TC_COUNTERS = (("gdn", "gated_delta_rule_fwd", "launches", "tc_launches"),
                ("fused_mha", "fused_mha", "launches", "tc_launches"),
                ("fused_mha", "fused_mha", "bwd_launches", "tc_bwd_launches"),
                ("attention", "packed_mha", "launches", "tc_launches"),
-               ("attention", "packed_mha", "bwd_launches", "tc_bwd_launches"))
+               ("attention", "packed_mha", "bwd_launches", "tc_bwd_launches"),
+               ("fused_mha", "packed_mha_int8", "launches", "tc_launches"),
+               ("fused_mha", "packed_mha_int8", "bwd_launches", "tc_bwd_launches"),
+               ("fused_mha", "packed_mha_int8_inkernel", "launches", "tc_launches"))
 
 
 def check_routes(path, bf16):
-    """On a bf16 path every K1/K4/K5/K6/K7 launch, forward and backward, took
-    the tensor-core kernels; on an fp32 path none did (the SIMT kernels)."""
+    """On a bf16 path every K1/K4/K5/K6/K7/K8/K9 launch, forward and
+    backward, took the tensor-core kernels; on an fp32 path none did (the
+    SIMT kernels)."""
     for module, name, total, tc in TC_COUNTERS:
         w = wrapper((module, name))
         n, n_tc = getattr(w, total), getattr(w, tc)
@@ -1800,14 +1893,14 @@ def check_routes(path, bf16):
                                  f"expected {'all' if bf16 else 'none'} ({'bf16' if bf16 else 'fp32'} path)")
 
 
-# The plain backward of K6 and K7 runs on the card only in the kernel
-# records' comparisons: after the kernel phase every call of these counts
+# K6's plain version, the plain backward of K6, K7 and K8, and the plain
+# version of K8 and K9 run on the card only in comparisons (the kernel
+# records, ``vit_fp32``): after the kernel phase every call of these counts
 # (``install_plain_sentinels``), and a phase in which one ran fails
-# (``phase``). The int8 K8's straight-through backward still calls
-# packed_mha_bwd_plain, but no card path trains with int8 scores.
+# (``phase``).
 PLAIN_SENTINELS = (("attention", "packed_mha_bwd_plain"), ("fused_mha", "packed_mha_bwd_plain"),
-                   ("fused_mha", "fused_mha_plain"))
-PLAIN_CALLS = {"packed_mha_bwd_plain": 0, "fused_mha_plain": 0}
+                   ("fused_mha", "fused_mha_plain"), ("fused_mha", "packed_mha_int8_plain"))
+PLAIN_CALLS = {"packed_mha_bwd_plain": 0, "fused_mha_plain": 0, "packed_mha_int8_plain": 0}
 
 
 def install_plain_sentinels():
@@ -1826,8 +1919,8 @@ def install_plain_sentinels():
 
 
 def phase(fn, *args):
-    """Run a phase after the kernel phase; fails if K6's or K7's plain
-    version or plain backward ran in it."""
+    """Run a phase after the kernel phase; fails if a plain version that
+    ``PLAIN_SENTINELS`` names ran in it."""
     before = dict(PLAIN_CALLS)
     fn(*args)
     if PLAIN_CALLS != before:
@@ -1851,6 +1944,8 @@ def read_launches(path, records, *, add=True):
             w = wrapper(spec)
             if len(spec) == 2 and hasattr(w, "tc_launches"):  # all the wrapper's launches: those on the tensor cores
                 rec["tc_launches"] = rec.get("tc_launches", 0) + w.tc_launches
+            elif spec[-1] in ("dynamic", "static"):  # K8's by scales: all or none on the tensor cores (check_routes)
+                rec["tc_launches"] = rec.get("tc_launches", 0) + n * (path not in FP32_PATHS)
     missing = [name for (name, *_, paths) in KERNELS if path in paths and counts[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: {counts}")
@@ -2083,6 +2178,7 @@ def vit_encode(records, card, b=128):
         modes[name] = {"img_s": img_s, "mfu": F.mfu(img_s, flops), "encode_ms": 1e3 * run_s / VIT_ENCODES,
                        "run_s": runs, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         if name != "bf16":
+            modes[name]["encode_ms_over_bf16"] = modes[name]["encode_ms"] / modes["bf16"]["encode_ms"]
             out = logits[name].float()
             modes[name]["max_abs_dlogits_vs_bf16"] = float((out - ref).abs().max())
             modes[name]["argmax_agreement"] = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
@@ -2094,8 +2190,10 @@ def vit_encode(records, card, b=128):
 
 
 def vit_paths(records, card):
+    """``vit_fp32`` (kernels against the plain versions, which it runs on
+    purpose), then the encode path, checked as a phase."""
     vit_fp32()
-    vit_encode(records, card)
+    phase(vit_encode, records, card)
 
 
 # ------------------------------------------------------------ ViT training
@@ -3088,7 +3186,8 @@ PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names
     # the output, the reverse pass and the per-chunk gradients
     "gdn_tc_chunk": "gdn_tc_chunk_kernel", "gdn_tc_state": "gdn_tc_state_kernel", "gdn_tc_out": "gdn_tc_out_kernel",
     "gdn_tc_reverse": "gdn_tc_reverse_kernel", "gdn_tc_grad": "gdn_tc_grad_kernel",
-    "packed_mha_int8": "packed_mha_int8_kernel", "quantize_int8": "quantize_int8_kernel",
+    # K8/K9: the int8-score tensor-core kernel (bf16; csrc/packed_mha_int8_tc.cu) and the SIMT one (fp32)
+    "packed_mha_int8_tc": "packed_mha_int8_tc_kernel", "packed_mha_int8_simt": "packed_mha_int8_kernel",
 }
 
 
@@ -3285,7 +3384,8 @@ def main(argv):
     install_plain_sentinels()
     phase(k4_window_ratio, records)
     phase(k4_host_cost)
-    phase(vit_paths, records, smi)
+    phase(int8_vs_bf16_scores, smi)
+    vit_paths(records, smi)
     phase(vit_train_paths, records, smi)
     phase(ablate_path, records, smi)
     cfg = dict(QWEN3_5_08B_CONFIG)

@@ -1,8 +1,9 @@
-// Hopper primitives shared by the bf16 tensor-core kernels (attention_tc.cu,
-// fused_mha_tc.cu): mbarriers, TMA tile copies through 4-d tensor maps,
-// wgmma.mma_async with bf16 operands and fp32 accumulators, the swizzled
-// shared-memory tile layout that TMA writes and wgmma reads, and the host
-// side's tensor-map encoder. sm_90a only.
+// Hopper primitives shared by the tensor-core kernels (attention_tc.cu,
+// fused_mha_tc.cu, gdn_tc.cu, packed_mha_int8_tc.cu): mbarriers, TMA tile
+// copies through 4-d tensor maps, wgmma.mma_async with bf16 operands and
+// fp32 accumulators or s8 operands and s32 accumulators, the swizzled
+// shared-memory tile layouts that TMA (or the threads) write and wgmma
+// reads, and the host side's tensor-map encoder. sm_90a only.
 //
 // Layout: every tile is bf16 rows split into column blocks of 64 (128-byte
 // swizzle) or, where a width is no multiple of 64 (32, 96), of 32 (64-byte
@@ -85,6 +86,20 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// 16 bytes into shared memory at a 32-bit shared address
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+// makes this thread's shared-memory stores visible to the async proxy
+// (wgmma's operand reads); a barrier after it orders them for the issuers
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // wgmma matrix descriptor: start address, leading and stride byte offsets,
 // swizzle mode (1 = 128 B, 2 = 64 B)
@@ -160,6 +175,45 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4]
   }
 }
 
+#define LLMQ_I8(i)                                                                                       \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), \
+      "+r"(d[i + 7])
+
+// S (64 x N, s32) (+)= A (64 x 32) B (32 x N), s8, both K-major in shared
+// memory (8-bit wgmma takes no other), N 16, 32, 48 or 64: the first N / 2
+// registers of d, as in the bf16 form above; the fragment's layout is the
+// fp32 accumulator's
+template <int N = 64>
+__device__ __forceinline__ void mma_ss(int (&d)[32], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " LLMQ_D32 ", %32, %33, p;\n}\n"
+        : LLMQ_I8(0), LLMQ_I8(8), LLMQ_I8(16), LLMQ_I8(24)
+        : "l"(da), "l"(db), "r"(acc));
+  } else if constexpr (N == 48) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 " LLMQ_D24 ", %24, %25, p;\n}\n"
+        : LLMQ_I8(0), LLMQ_I8(8), LLMQ_I8(16)
+        : "l"(da), "l"(db), "r"(acc));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 " LLMQ_D16 ", %16, %17, p;\n}\n"
+        : LLMQ_I8(0), LLMQ_I8(8)
+        : "l"(da), "l"(db), "r"(acc));
+  } else {
+    static_assert(N == 16, "score pieces are 16, 32, 48 or 64 keys wide");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 " LLMQ_D8 ", %8, %9, p;\n}\n"
+        : LLMQ_I8(0)
+        : "l"(da), "l"(db), "r"(acc));
+  }
+}
+
+#undef LLMQ_I8
 #undef LLMQ_F8
 #undef LLMQ_D8
 #undef LLMQ_D16
@@ -201,6 +255,27 @@ struct Tile {
                                              int batch, int rows = R) {
 #pragma unroll
     for (int nb = 0; nb < C / BW; ++nb) tma_load(base + nb * rows * ROWB, map, bar, nb * BW, row0, head, batch);
+  }
+};
+
+// An int8 tile of rows of RB bytes (32, 64 or 128: one head dim's row) in
+// shared memory, written by the threads (not TMA) and read by the s8 wgmma
+// as a K-major operand: one column block whose swizzle spans the row (the
+// 32-, 64- or 128-byte swizzle), so the 16-byte chunk c of row r sits at
+// chunk c ^ ((r / 4) % 2), c ^ ((r / 2) % 4) or c ^ (r % 8). A tile starts
+// on a 1024-byte boundary.
+template <int RB>
+struct I8Tile {
+  static_assert(RB == 32 || RB == 64 || RB == 128, "int8 rows are 32, 64 or 128 bytes");
+  static constexpr int MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  // the shared address of chunk c of row r
+  __device__ static __forceinline__ uint32_t at(uint32_t base, int r, int c) {
+    const int swz = RB == 128 ? r & 7 : RB == 64 ? (r >> 1) & 3 : (r >> 2) & 1;
+    return base + r * RB + 16 * (c ^ swz);
+  }
+  // the contraction along the row: rows row0 .. row0 + 63, bytes 32kk .. 32kk + 31
+  __device__ static __forceinline__ uint64_t kmajor(uint32_t base, int row0, int kk) {
+    return make_desc(base + row0 * RB + 32 * kk, 16, 8 * RB, MODE);
   }
 };
 

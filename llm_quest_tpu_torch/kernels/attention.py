@@ -46,7 +46,8 @@ count.
   gradient that JAX's ``_packed_bwd`` takes through XLA), its gradients
   written in the packed layout; counted in ``bwd_launches`` and
   ``tc_bwd_launches``. ``packed_mha_bwd_plain`` is the plain version of that
-  backward (and the int8 kernels' straight-through backward).
+  backward (and of the int8 kernel's straight-through backward, which runs
+  on the card through ``packed_mha_bwd_launch``).
 - ``flash_attention_with_lse``: K5, K4's forward returning the fp32 row
   logsumexp beside the output, causal or not, with no mask, window, softcap
   or sinks; replaces
@@ -503,9 +504,10 @@ def short_lse(o, with_lse):
     return torch.empty(b, h, s, dtype=torch.float32, device=o.device) if with_lse else None
 
 
-def _packed_fwd(q, k, v, n_heads, scale, with_lse):
-    """K7's forward on the (b, h, s, d) views of the packed tensors; returns
-    (out (b, s, h·d), the fp32 (b, h, s) row lse or None)."""
+def _packed_launch(q, k, v, n_heads, scale, with_lse):
+    """K7's forward on the (b, h, s, d) views of the packed tensors, not
+    counted; returns (out (b, s, h·d), the fp32 (b, h, s) row lse or None,
+    1 if the call took the tensor-core kernel else 0)."""
     b, s, hd = q.shape
     d = hd // n_heads
     o = torch.empty(b, s, hd, dtype=q.dtype, device=q.device)
@@ -519,9 +521,32 @@ def _packed_fwd(q, k, v, n_heads, scale, with_lse):
             qs=qh.stride()[:3], ks=kh.stride()[:3], vs=vh.stride()[:3], os_=oh.stride()[:3],
             dims=(b, n_heads, n_heads, s, s, d, d),
         )
+    return o, lse, tc
+
+
+def _packed_fwd(q, k, v, n_heads, scale, with_lse):
+    """K7's forward, counted; returns (out (b, s, h·d), the fp32 (b, h, s)
+    row lse or None)."""
+    o, lse, tc = _packed_launch(q, k, v, n_heads, scale, with_lse)
     packed_mha.launches += 1
     packed_mha.tc_launches += tc
     return o, lse
+
+
+def packed_mha_bwd_launch(q, k, v, do, n_heads, scale, o=None, lse=None):
+    """The recompute backward of packed MHA on the card (the flash backward
+    kernels, gradients written in the packed layout): K7's, from its forward's
+    output and lse, and, with ``o`` and ``lse`` None, K8's straight-through
+    one, which first runs K7's forward (not counted in ``packed_mha``) for
+    the softmax's output and lse. Returns ((dq, dk, dv), 1 if every launch
+    took the tensor-core kernels else 0)."""
+    tc_fwd = 1
+    if o is None:
+        o, lse, tc_fwd = _packed_launch(q, k, v, n_heads, scale, with_lse=True)
+    grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    *_, tc = _bwd_launch(*(split_heads(t, n_heads) for t in (q, k, v, o)), lse, split_heads(do, n_heads), None,
+                         False, 0, scale, None, None, None, grads=tuple(split_heads(g, n_heads) for g in grads))
+    return grads, tc * tc_fwd
 
 
 class _PackedMHA(torch.autograd.Function):
@@ -538,10 +563,7 @@ class _PackedMHA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        h = ctx.n_heads
-        grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
-        *_, tc = _bwd_launch(*(split_heads(t, h) for t in (q, k, v, o)), lse, split_heads(do, h), None, False, 0,
-                             ctx.scale, None, None, None, grads=tuple(split_heads(g, h) for g in grads))
+        grads, tc = packed_mha_bwd_launch(q, k, v, do, ctx.n_heads, ctx.scale, o, lse)
         packed_mha.bwd_launches += 1
         packed_mha.tc_bwd_launches += tc
         return *grads, None, None

@@ -55,10 +55,10 @@ _SIGNATURES = {
     "llmq_flash_decode": [_I] + [_P] * 9 + [_I] * 7 + [_L] * 13 + [_F, _P],
     # dtype, x, w_q, scale, offsets, y, T, E, K, N, rows per thread, stream
     "llmq_quantized_gmm": [_I] + [_P] * 5 + [_I] * 5 + [_P],
-    # dtype, q, k, v, o, quant_in, dyn_scales, dq_static, inv_q, inv_k, scale, B, S, H, D, stream
-    "llmq_packed_mha_int8": [_I] + [_P] * 4 + [_I, _P] + [_F] * 4 + [_I] * 4 + [_P],
-    # dtype, x, out, n, scale, inv, stream
-    "llmq_quantize_int8": [_I, _P, _P, _L, _P, _F, _P],
+    # dtype, q, k, v, o, dyn_scales, dq_static, inv_q, inv_k, scale, B, S, H, D, 12 strides, stream
+    "llmq_packed_mha_int8": [_I] + [_P] * 5 + [_F] * 4 + [_I] * 4 + [_L] * 12 + [_P],
+    # the calls of the above that launched the bf16 tensor-core kernel
+    "llmq_packed_mha_int8_tc_launches": [],
     # dtype, q, k, v, o, lse, B, H, S, D, 12 strides, causal, fp32_den, scale, stream
     "llmq_fused_mha": [_I] + [_P] * 5 + [_I] * 4 + [_L] * 12 + [_I, _I, _F, _P],
     # the calls of the above that launched the bf16 tensor-core kernel

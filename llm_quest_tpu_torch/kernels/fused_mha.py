@@ -1,5 +1,6 @@
 """Short-sequence and int8-score MHA kernels (csrc/fused_mha.cu,
-csrc/packed_mha_int8.cu) and their plain PyTorch versions; named after
+csrc/fused_mha_tc.cu, csrc/packed_mha_int8.cu, csrc/packed_mha_int8_tc.cu)
+and their plain PyTorch versions; named after
 ``llm_quest_tpu/kernels/fused_mha.py``.
 
 - ``fused_mha``: K6, maskless attention over (b, h, s, d) heads with equal
@@ -26,21 +27,33 @@ csrc/packed_mha_int8.cu) and their plain PyTorch versions; named after
   taken in double and cast to fp32); int32 scores times dq = q_s·k_s·scale
   in fp32, fp32 softmax, p cast to v's type for p·V, the fp32 denominator.
   Replaces ``packed_mha_int8`` (:405). Differentiable with JAX's
-  straight-through backward (``_packed_int8_bwd``): autograd through the
-  plain packed ``sdpa``, quantization taken as the identity.
+  straight-through backward (``_packed_int8_bwd``): the exact packed
+  ``sdpa`` gradient, quantization taken as the identity; on a CUDA tensor
+  K7's forward recovers the softmax's output and lse and the flash
+  recompute kernels take the gradients (``attention.packed_mha_bwd_launch``,
+  counted in ``bwd_launches`` and ``tc_bwd_launches``), on a CPU tensor
+  autograd through the plain version.
 - ``packed_mha_int8_inkernel``: K9, K8 with static scales and q/k quantized
   inside the kernel (replaces ``packed_mha_int8_inkernel`` :372); forward
   only, as JAX's: it raises where a gradient would be needed.
 
-On a CUDA tensor the int8 wrappers launch ``llmq_packed_mha_int8`` (one body for
-both kernels, so K9 equals K8 with the same static scales bit for bit); K8's
-quantization runs before it, as XLA's does before the Pallas kernel in JAX:
-the max|x| reduction in torch, the quantization in ``llmq_quantize_int8``,
-the scales kept on the device (no host sync). A CPU tensor runs the plain
-version; ``plain=True`` forces it on any device (comparisons only). Each
-wrapper counts its calls that launch the kernel in ``launches``; K8 also
-counts those with static scales in ``static_launches``, K6 the causal ones
-in ``causal_launches`` and its backward as above.
+On a CUDA tensor the int8 wrappers launch ``llmq_packed_mha_int8``, which
+takes q, k and v in their own type and quantizes q and k inside the kernel
+in all three modes (x / s for K8's dynamic scales, x · (1 / s) for static
+ones), so K9 and K8 with the same static scales are one call and agree bit
+for bit, and int8 q and k never reach device memory. bf16 inputs take the
+tensor-core kernel of ``csrc/packed_mha_int8_tc.cu`` (s8 ``wgmma`` scores,
+the exact two-pass softmax from each row's integer max, bf16 p·V), counted
+in ``tc_launches``; fp32 inputs the SIMT kernel of ``csrc/packed_mha_int8.cu``.
+q/k/v are read at their strides (a contiguous last dim; in bf16 strides
+that are multiples of 8 and a 16-byte aligned start, else ValueError). K8's
+dynamic scales are the one step outside the kernel, as XLA's reduction is
+in JAX: one max|x| reduction each in torch, kept on the device (no host
+sync). A CPU tensor runs the plain version; ``plain=True`` forces it on any
+device (comparisons only). Each wrapper counts its calls that launch the
+kernel in ``launches``; K8 also counts those with static scales in
+``static_launches``, K6 the causal ones in ``causal_launches`` and its
+backward as above.
 """
 
 import numpy as np
@@ -55,6 +68,7 @@ from llm_quest_tpu_torch.kernels.attention import (
     check_packed,
     check_packed_cuda,
     launch_fused_mha,
+    packed_mha_bwd_launch,
     packed_mha_bwd_plain,
     short_lse,
 )
@@ -196,59 +210,84 @@ def packed_mha_int8_plain(q, k, v, n_heads, scale, static_scales=None):
 def _check_cuda(q, k, v, n_heads):
     check_packed_cuda(q, k, v, n_heads)
     build.require(q.shape[1] <= MAX_SEQ, f"s must be at most {MAX_SEQ}, got {q.shape[1]}")
-    build.require(all(t.is_contiguous() for t in (q, k, v)), "q/k/v must be contiguous")
+    build.require(all(t.stride(-1) == 1 for t in (q, k, v)), "q/k/v need a contiguous last dim")
     build.dtype_code(q)
+    if q.dtype == torch.bfloat16:
+        _check_tc(q, k, v)
 
 
-def _quantize(x, *, scale=None, inv=0.0):
-    """int8 of x by llmq_quantize_int8: x / scale (a device fp32 0-dim) or x · inv."""
-    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    build.launch("llmq_quantize_int8", build.dtype_code(x), x.data_ptr(), out.data_ptr(), x.numel(),
-                 None if scale is None else scale.data_ptr(), float(inv), build.stream_of(x))
-    return out
+def dynamic_scales(q, k):
+    """(q_s, k_s): ``dynamic_scale`` of q and of k as one fp32 (2,) tensor on
+    their device, from one max|x| reduction each (exact, as ``amax``)."""
+    amax = torch.stack([torch.linalg.vector_norm(t, float("inf"), dtype=torch.float32) for t in (q, k)])
+    return amax / amax.new_full((2,), 127.0) + 1e-12
 
 
-def _launch(q, k, v, n_heads, *, quant_in, dyn_scales=None, dq_static=0.0, inv_q=0.0, inv_k=0.0, scale=0.0):
+def _tc_calls():
+    """The library's count of calls that launched the bf16 tensor-core kernel."""
+    return build.library().cdll.llmq_packed_mha_int8_tc_launches()
+
+
+def _launch(q, k, v, n_heads, *, dyn_scales=None, dq_static=0.0, inv_q=0.0, inv_k=0.0, scale=0.0):
+    """``llmq_packed_mha_int8`` on checked packed q/k/v: q and k quantized in
+    the kernel by x / ``dyn_scales`` (a device fp32 (2,) tensor) or x · inv.
+    Returns (out, 1 if the call took the tensor-core kernel else 0)."""
     b, s, hd = v.shape
-    o = torch.empty_like(v)
+    o = torch.empty(b, s, hd, dtype=v.dtype, device=v.device)
+    before = _tc_calls()
     build.launch(
         "llmq_packed_mha_int8", build.dtype_code(v), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        int(quant_in), None if dyn_scales is None else dyn_scales.data_ptr(), float(dq_static), float(inv_q),
-        float(inv_k), float(scale), b, s, n_heads, hd // n_heads, build.stream_of(v),
+        None if dyn_scales is None else dyn_scales.data_ptr(), float(dq_static), float(inv_q), float(inv_k),
+        float(scale), b, s, n_heads, hd // n_heads,
+        *(st for t in (q, k, v, o) for st in split_heads(t, n_heads).stride()[:3]), build.stream_of(v),
     )
-    return o
+    return o, _tc_calls() - before
+
+
+def _static_args(static_scales, scale):
+    """The kernel's static-scale arguments, as JAX folds them: dq = q_s · k_s
+    · scale and the reciprocals, each rounded to fp32."""
+    q_s, k_s = static_scales
+    return {"dq_static": _f32(q_s * k_s * scale), "inv_q": _f32(1.0 / q_s), "inv_k": _f32(1.0 / k_s)}
 
 
 def _int8_fwd(q, k, v, n_heads, scale, static_scales):
-    """K8 on the card: quantize q and k, then the kernel."""
+    """K8 on the card: the dynamic scales reduced (no host sync), then the kernel."""
     if static_scales is None:
-        scales = torch.stack((dynamic_scale(q), dynamic_scale(k)))  # (q_s, k_s) fp32, on the device
-        qi, ki = _quantize(q, scale=scales[0]), _quantize(k, scale=scales[1])
-        o = _launch(qi, ki, v, n_heads, quant_in=False, dyn_scales=scales, scale=_f32(scale))
+        scales = dynamic_scales(q, k)
+        o, tc = _launch(q, k, v, n_heads, dyn_scales=scales, scale=_f32(scale))
         del scales  # freed to the caching allocator: only later work on this stream reuses it
     else:
-        q_s, k_s = static_scales
-        qi, ki = _quantize(q, inv=_f32(1.0 / q_s)), _quantize(k, inv=_f32(1.0 / k_s))
-        o = _launch(qi, ki, v, n_heads, quant_in=False, dq_static=_f32(q_s * k_s * scale))
+        o, tc = _launch(q, k, v, n_heads, **_static_args(static_scales, scale))
         packed_mha_int8.static_launches += 1
     packed_mha_int8.launches += 1
+    packed_mha_int8.tc_launches += tc
     return o
 
 
 class _PackedMHAInt8(torch.autograd.Function):
-    """K8 forward (kernel or plain), straight-through backward."""
+    """K8 forward (kernel or plain), JAX's straight-through backward: the
+    exact ``sdpa`` gradient, quantization taken as the identity. On the card
+    K7's forward recovers the bf16 (or fp32) softmax's output and row lse,
+    and the flash recompute kernels take the gradients in the packed layout."""
 
     @staticmethod
     def forward(ctx, q, k, v, n_heads, scale, static_scales, on_card):
         ctx.save_for_backward(q, k, v)
-        ctx.n_heads, ctx.scale = n_heads, scale
+        ctx.n_heads, ctx.scale, ctx.on_card = n_heads, scale, on_card
         if on_card:
             return _int8_fwd(q, k, v, n_heads, scale, static_scales)
         return packed_mha_int8_plain(q, k, v, n_heads, scale, static_scales)
 
     @staticmethod
     def backward(ctx, do):
-        return *packed_mha_bwd_plain(*ctx.saved_tensors, do, ctx.n_heads, ctx.scale), None, None, None, None
+        q, k, v = ctx.saved_tensors
+        if not ctx.on_card:
+            return *packed_mha_bwd_plain(q, k, v, do, ctx.n_heads, ctx.scale), None, None, None, None
+        grads, tc = packed_mha_bwd_launch(q, k, v, do, ctx.n_heads, ctx.scale)
+        packed_mha_int8.bwd_launches += 1
+        packed_mha_int8.tc_bwd_launches += tc
+        return *grads, None, None, None, None
 
 
 def packed_mha_int8(q, k, v, n_heads, scale=None, static_scales=None, *, plain=False):
@@ -272,6 +311,9 @@ def packed_mha_int8(q, k, v, n_heads, scale=None, static_scales=None, *, plain=F
 
 packed_mha_int8.launches = 0
 packed_mha_int8.static_launches = 0
+packed_mha_int8.tc_launches = 0  # the launches that took the tensor-core kernel
+packed_mha_int8.bwd_launches = 0  # backward launches (K7's forward and the flash backward kernels, counted here)
+packed_mha_int8.tc_bwd_launches = 0  # the tensor-core ones among them
 
 
 def packed_mha_int8_inkernel(q, k, v, n_heads, static_scales, scale=None, *, plain=False):
@@ -284,14 +326,15 @@ def packed_mha_int8_inkernel(q, k, v, n_heads, static_scales, scale=None, *, pla
         raise NotImplementedError("packed_mha_int8_inkernel is forward only; packed_mha_int8 has a gradient")
     if scale is None:
         scale = (q.shape[2] // n_heads) ** -0.5
-    q_s, k_s = (float(x) for x in static_scales)
+    static_scales = tuple(float(x) for x in static_scales)
     if plain or not q.is_cuda:
-        return packed_mha_int8_plain(q, k, v, n_heads, float(scale), (q_s, k_s))
+        return packed_mha_int8_plain(q, k, v, n_heads, float(scale), static_scales)
     _check_cuda(q, k, v, n_heads)
-    o = _launch(q, k, v, n_heads, quant_in=True, dq_static=_f32(q_s * k_s * float(scale)),
-                inv_q=_f32(1.0 / q_s), inv_k=_f32(1.0 / k_s))
+    o, tc = _launch(q, k, v, n_heads, **_static_args(static_scales, float(scale)))
     packed_mha_int8_inkernel.launches += 1
+    packed_mha_int8_inkernel.tc_launches += tc
     return o
 
 
 packed_mha_int8_inkernel.launches = 0
+packed_mha_int8_inkernel.tc_launches = 0  # the launches that took the tensor-core kernel

@@ -11,7 +11,9 @@ Tolerances on max |kernel - plain| relative to max(1, max |plain|): fp32 2e-4
 and outputs round once more; K4, K5 and K7 take bf16 inputs to their
 tensor-core kernels, which also round p and ds to bf16 before their
 products, and each of their cases asserts which route its launches took).
-The flash backward's gradients are held to
+K8 and K9 take bf16 inputs to their own tensor-core kernel (int8 scores
+on ``wgmma``): their cases assert ``tc_launches`` and hold each 64-row tile
+of the bf16 output within TILE_TOL. The flash backward's gradients are held to
 autograd through the plain forward with the same tolerances, and K1's
 backward to its plain version (the per-chunk replay) on the same anchors;
 K1 in bf16 takes the chunked tensor-core kernels (its cases assert
@@ -490,30 +492,103 @@ def int8_scales(q, k):
     return float(q.float().abs().max()) / 127.0, float(k.float().abs().max()) / 127.0
 
 
+# K8/K9's lengths: one key, a partial 16-key step, one 64-row tile and past
+# it, ViT-B's 197, whole and partial 128-key chunks, and MAX_SEQ (d 128 at
+# s 1024 streams V through the tensor-core kernel's ring)
+INT8_SEQS = [2, 17, 20, 65, 197, 256, 257, 512, 1024]
+
+
+def packed_heads(t, heads):
+    """The (b, h, s, d) view of a packed (b, s, h·d) tensor."""
+    return t.unflatten(-1, (heads, -1)).transpose(1, 2)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("s", [20, 197, 512])
+@pytest.mark.parametrize("s", INT8_SEQS)
 @pytest.mark.parametrize("heads, d", PACKED_HEADS)
 @pytest.mark.parametrize("mode", ["dynamic", "static", "inkernel"])
 def test_packed_mha_int8_kernels(gen, dtype, s, heads, d, mode):
-    """K8 (dynamic and static scales) and K9 against their plain versions;
-    K9 equal to K8 with the same static scales, bit for bit."""
+    """K8 (dynamic and static scales) and K9 against their plain versions:
+    within TOL and, in bf16, each 64-row tile of each head within TILE_TOL;
+    a bf16 call takes the tensor-core kernel (``tc_launches``), an fp32 one
+    the SIMT kernel; two runs are bit-equal, and K9 equals K8 with the same
+    static scales bit for bit."""
     from llm_quest_tpu_torch.kernels import fused_mha
 
     q, k, v = (randn(gen, 2, s, heads * d, dtype=dtype) for _ in range(3))
     ss = None if mode == "dynamic" else int8_scales(q, k)
-    n8, n9 = fused_mha.packed_mha_int8.launches, fused_mha.packed_mha_int8_inkernel.launches
     if mode == "inkernel":
-        got = fused_mha.packed_mha_int8_inkernel(q, k, v, heads, ss)
-        assert fused_mha.packed_mha_int8_inkernel.launches == n9 + 1
-        torch.cuda.synchronize()
-        assert torch.equal(got, fused_mha.packed_mha_int8(q, k, v, heads, static_scales=ss))
-        ref = fused_mha.packed_mha_int8_inkernel(q, k, v, heads, ss, plain=True)
+        wrapper = fused_mha.packed_mha_int8_inkernel
+        call = lambda plain=False: wrapper(q, k, v, heads, ss, plain=plain)  # noqa: E731
     else:
-        got = fused_mha.packed_mha_int8(q, k, v, heads, static_scales=ss)
-        assert fused_mha.packed_mha_int8.launches == n8 + 1
-        ref = fused_mha.packed_mha_int8(q, k, v, heads, static_scales=ss, plain=True)
+        wrapper = fused_mha.packed_mha_int8
+        call = lambda plain=False: wrapper(q, k, v, heads, static_scales=ss, plain=plain)  # noqa: E731
+    n, tc = wrapper.launches, wrapper.tc_launches
+    got = call()
+    assert (wrapper.launches, wrapper.tc_launches) == (n + 1, tc + (dtype == torch.bfloat16))
     assert got.dtype == dtype
+    torch.cuda.synchronize()
+    assert torch.equal(got, call())
+    if mode == "inkernel":
+        assert torch.equal(got, fused_mha.packed_mha_int8(q, k, v, heads, static_scales=ss))
+    ref = call(plain=True)
     assert_close(got, ref, dtype)
+    if dtype == torch.bfloat16:
+        assert_tiles_close(packed_heads(got, heads), packed_heads(ref, heads))
+
+
+def test_packed_mha_int8_refuses_unaligned_strides(gen):
+    """A bf16 operand whose token stride is no multiple of 8 elements, or
+    whose start is not 16-byte aligned, makes K8 and K9 raise before any
+    launch; fp32 takes both (the SIMT kernel reads by stride)."""
+    from llm_quest_tpu_torch.kernels import fused_mha
+
+    def views(dtype):
+        wide = randn(gen, 2, 40, 132, dtype=dtype)
+        flat = randn(gen, 2 * 40 * 128 + 1, dtype=dtype)
+        return wide[..., :128], flat[1:].view(2, 40, 128)
+
+    k8, k9 = fused_mha.packed_mha_int8, fused_mha.packed_mha_int8_inkernel
+    n = (k8.launches, k9.launches)
+    for x in views(torch.bfloat16):
+        for call in (lambda: k8(x, x, x, 2), lambda: k8(x, x, x, 2, static_scales=(0.02, 0.02)),
+                     lambda: k9(x, x, x, 2, (0.02, 0.02))):
+            with pytest.raises(ValueError, match="multiples of 8"):
+                call()
+    assert (k8.launches, k9.launches) == n
+    for x in views(torch.float32):
+        for ss in (None, (0.02, 0.02)):
+            assert_close(k8(x, x, x, 2, static_scales=ss), k8(x, x, x, 2, static_scales=ss, plain=True),
+                         torch.float32)
+        assert_close(k9(x, x, x, 2, (0.02, 0.02)), k9(x, x, x, 2, (0.02, 0.02), plain=True), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s, heads, d", [(197, 12, 64), (65, 8, 32), (256, 2, 128)])
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+def test_packed_mha_int8_backward(gen, dtype, s, heads, d, mode):
+    """K8's straight-through backward on the card (K7's forward for the
+    softmax's output and lse, then the flash recompute kernels) against
+    autograd through the plain packed sdpa in fp32 on the same values, at
+    K7's bars; counted in K8's ``bwd_launches`` (in bf16 also in
+    ``tc_bwd_launches``), not in K7's counts."""
+    from llm_quest_tpu_torch.kernels import attention, fused_mha
+
+    q, k, v, do = (randn(gen, 2, s, heads * d, dtype=dtype) for _ in range(4))
+    ss = None if mode == "dynamic" else int8_scales(q, k)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    w, k7 = fused_mha.packed_mha_int8, attention.packed_mha
+
+    def counts():
+        return w.launches, w.bwd_launches, w.tc_bwd_launches, k7.launches, k7.bwd_launches
+
+    before = counts()
+    grads = torch.autograd.grad(w(*leaves, heads, static_scales=ss), leaves, do)
+    bf16 = int(dtype == torch.bfloat16)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + bf16, before[3], before[4])
+    for got, ref in zip(grads, attention.packed_mha_bwd_plain(*f32(q, k, v, do), heads)):
+        assert got.dtype == dtype
+        assert_short_close(packed_heads(got, heads), packed_heads(ref, heads), dtype, s)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -537,9 +612,10 @@ def test_packed_mha_kernel_d32(gen, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kernel", ["k7", "k8_dynamic", "k8_static"])
 def test_packed_backward(gen, dtype, kernel):
-    """K7's backward (the flash recompute kernels, gradients written in the
-    packed layout) and K8's straight-through one: the kernel forward, and
-    gradients against autograd through the plain packed sdpa."""
+    """K7's backward and K8's straight-through one (both the flash recompute
+    kernels, gradients written in the packed layout; K8's from K7's forward
+    run again for the lse): the kernel forward, and gradients against
+    autograd through the plain packed sdpa in fp32, at K7's bars."""
     from llm_quest_tpu_torch.kernels import attention, fused_mha
 
     q, k, v, do = (randn(gen, 2, 197, 12 * 64, dtype=dtype) for _ in range(4))
@@ -549,19 +625,16 @@ def test_packed_backward(gen, dtype, kernel):
     else:
         ss = int8_scales(q, k) if kernel == "k8_static" else None
         counter, out = fused_mha.packed_mha_int8, lambda: fused_mha.packed_mha_int8(*leaves, 12, static_scales=ss)
-    n, n_bwd, tc = counter.launches, attention.packed_mha.bwd_launches, tc_counts()
+    n, n_bwd, tc = counter.launches, counter.bwd_launches, tc_counts()
+    k7_bwd = attention.packed_mha.bwd_launches
     grads = torch.autograd.grad(out(), leaves, do)
-    assert counter.launches == n + 1
-    assert attention.packed_mha.bwd_launches == n_bwd + (kernel == "k7")
+    assert (counter.launches, counter.bwd_launches) == (n + 1, n_bwd + 1)
+    assert attention.packed_mha.bwd_launches == k7_bwd + (kernel == "k7")
     if kernel == "k7":
         assert_tc_moved(tc, dtype, k7=1, k7_bwd=1)
-    refs = attention.packed_mha_bwd_plain(*(f32(q, k, v, do) if kernel == "k7" else (q, k, v, do)), 12)
-    for got, ref in zip(grads, refs):
-        if kernel == "k7":  # per head: the packed (b, s, h·d) gradients as (b, h, s, d)
-            assert_short_close(got.unflatten(-1, (12, 64)).transpose(1, 2), ref.unflatten(-1, (12, 64)).transpose(1, 2),
-                               dtype, 197)
-        else:
-            assert_close(got, ref, dtype)
+    for got, ref in zip(grads, attention.packed_mha_bwd_plain(*f32(q, k, v, do), 12)):
+        # per head: the packed (b, s, h·d) gradients as (b, h, s, d)
+        assert_short_close(packed_heads(got, 12), packed_heads(ref, 12), dtype, 197)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -10,7 +10,15 @@ their plain versions. They are held to the Pallas kernels in interpret mode:
   and the output within 2e-2 relative; K9 (``packed_mha_int8_inkernel``)
   within 1e-5 and equal to K8's static plain version bit for bit;
 - K8's straight-through gradient and K7's recompute gradient against
-  ``jax.grad`` of the interpret-mode kernels (their custom VJPs), 1e-5.
+  ``jax.grad`` of the interpret-mode kernels (their custom VJPs), 1e-5;
+- the bf16 tensor-core kernel of K8/K9 (``csrc/packed_mha_int8_tc.cu``):
+  its pass 1 keeps each row's integer max, equal bit for bit to the max of
+  the scaled row at d 32/64/128 and dq from 1e-8 to 1; its x / s, a product
+  by fl(1 / s) with the exact quotient near half-integers, rounds to JAX's
+  int8 values bit for bit; and its arithmetic,
+  emulated in plain PyTorch (``emulate_int8_tc``), is held to JAX's
+  interpret-mode kernels in the three modes at s 197 within the bf16 bar,
+  its dynamic int8 values equal to ``_quantize_sym``'s.
 
 The tiny ViT of ``tests/test_flash_attention.py`` (32 px, patch 8, emb 128,
 2 heads of 64, 2 layers) and a 4-head d-32 variant are initialised in JAX,
@@ -143,6 +151,117 @@ def test_packed_gradients_match_jax_vjp(kernel):
     grads = torch.autograd.grad(tfn(*leaves), leaves, T(do))
     for got, ref in zip(grads, refs):
         assert max_err(got, ref) <= 1e-5
+
+
+# K8/K9's tensor-core kernel (csrc/packed_mha_int8_tc.cu), emulated on the
+# CPU: its row max is the largest int32 score scaled once, and its arithmetic
+# step by step is held to JAX's interpret-mode kernels. Heads of 128, 64, 32
+# at h·d 128.
+K8_HEADS = {"d128": 1, "d64": 2, "d32": 4}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_k8_integer_row_max_is_the_scaled_max(d):
+    """fl(max_j s_j · dq) == max_j fl(s_j · dq), bit for bit, for int32 rows
+    of int8 dot products and dq > 0: the kernel's pass 1 keeps only the
+    integer max, the TPU kernel takes the max of the scaled row."""
+    rng = np.random.default_rng(d)
+    qi = rng.integers(-127, 128, (24, d)).astype(np.int64)
+    ki = rng.integers(-127, 128, (300, d)).astype(np.int64)
+    s32 = qi @ ki.T
+    assert np.abs(s32).max() < 2**24  # exact in fp32
+    s32f = s32.astype(np.float32)
+    for dq in np.concatenate([np.geomspace(1e-8, 1.0, 61), rng.uniform(1e-8, 1.0, 40)]).astype(np.float32):
+        scaled_max = (s32.max(-1).astype(np.float32) * dq).astype(np.float32)
+        max_scaled = (s32f * dq).astype(np.float32).max(-1)
+        np.testing.assert_array_equal(scaled_max.view(np.int32), max_scaled.view(np.int32))
+
+
+def test_k8_tc_division_rule_is_exact():
+    """K8's dynamic quantization on the tensor cores (``quotient`` in
+    csrc/packed_mha_int8_tc.cu): y = fl(x · fl(1 / s)), and where a
+    half-integer lies within 2^-14 of y the exact fl(x / s). clip(round(y))
+    equals JAX's clip(round(x / s)) bit for bit, in float32, on bf16 tensors
+    at their dynamic scales and on x at and beside every half-integer
+    quotient, where the exact branch must be taken."""
+    f32 = np.float32
+    rng = np.random.default_rng(7)
+
+    def rule(x, s):
+        y = x * (f32(1) / s)
+        n = (y + f32(12582912)) - f32(12582912)  # y rounded to an integer
+        near = np.abs(np.abs(y - n) - f32(0.5)) < f32(2**-14)
+        return np.where(near, x / s, y), near
+
+    def int8(y):
+        return np.clip(np.rint(y), -127, 127)
+
+    exact_taken = 0
+    for scale in (1e-3, 0.7, 30.0):
+        x = torch.from_numpy(rng.standard_normal(200_000).astype(f32) * f32(scale)).bfloat16().float().numpy()
+        s = np.abs(x).max() / f32(127) + f32(1e-12)  # dynamic_scale's fp32 arithmetic
+        assert s.dtype == f32
+        half = ((np.arange(-127, 127) + 0.5) * np.float64(s)).astype(f32)
+        around, up, down = [half], half, half
+        for _ in range(3):  # three float32 steps either side
+            up, down = np.nextafter(up, f32(np.inf)), np.nextafter(down, f32(-np.inf))
+            around += [up, down]
+        for xs in (x, np.concatenate(around)):
+            y, near = rule(xs, s)
+            np.testing.assert_array_equal(int8(y), int8(xs / s))
+            exact_taken += int(near.sum())
+    assert exact_taken > 0
+
+
+def emulate_int8_tc(q, k, v, heads, static_scales=None):
+    """packed_mha_int8_tc.cu's arithmetic in plain PyTorch, on bf16 packed
+    q/k/v: q and k quantized by x / s (the wrapper's ``dynamic_scales``) or
+    x · fl(1 / s), exact int32 scores, each row's integer max scaled once,
+    p = exp(fl(s · dq) − m) in fp32, p rounded to bf16 for p·V with fp32
+    sums, the fp32 sum of the unrounded p as the denominator. Returns (out,
+    int8 q, int8 k)."""
+    d = q.shape[-1] // heads
+    scale = np.float32(d**-0.5)
+    if static_scales is None:
+        s = tf.dynamic_scales(q, k)
+        qi, ki = (torch.round(x.float() / s[i]).clamp(-127, 127) for i, x in enumerate((q, k)))
+        dq = np.float32(np.float32(s[0]) * np.float32(s[1])) * scale
+    else:
+        q_s, k_s = static_scales
+        qi, ki = (torch.round(x.float() * np.float32(1.0 / sc)).clamp(-127, 127) for x, sc in ((q, q_s), (k, k_s)))
+        dq = np.float32(q_s * k_s * float(scale))
+    qh, kh = (t.to(torch.int64).unflatten(-1, (heads, d)).transpose(1, 2) for t in (qi, ki))
+    s32 = qh @ kh.transpose(-1, -2)
+    m = s32.amax(-1, keepdim=True).float() * float(dq)
+    p = torch.exp(s32.float() * float(dq) - m)
+    num = p.bfloat16().float() @ v.float().unflatten(-1, (heads, d)).transpose(1, 2)
+    out = (num / p.sum(-1, keepdim=True)).transpose(1, 2).flatten(2).bfloat16()
+    return out, qi.to(torch.int8), ki.to(torch.int8)
+
+
+@pytest.mark.parametrize("heads", list(K8_HEADS.values()), ids=list(K8_HEADS))
+@pytest.mark.parametrize("mode", ["dynamic", "static", "inkernel"])
+def test_k8_tc_emulation_matches_pallas(heads, mode):
+    """The emulation against JAX's _packed_mha_int8_kernel (dynamic, static)
+    and _packed_mha_int8_ik_kernel (inkernel) in interpret mode, bf16 inputs
+    at s 197 (a partial last 16-key step), within the bf16 bar; dynamic
+    int8 values equal to _quantize_sym's."""
+    q, k, v = qkv(s=197)
+    qb, kb, vb = (T(x).to(torch.bfloat16) for x in (q, k, v))
+    jq, jk, jvv = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (qb, kb, vb))
+    ss = None if mode == "dynamic" else static_scales(qb.float().numpy(), kb.float().numpy())
+    got, qi, ki = emulate_int8_tc(qb, kb, vb, heads, ss)
+    if mode == "dynamic":
+        for mine, x in ((qi, jq), (ki, jk)):
+            np.testing.assert_array_equal(mine.numpy(), np.asarray(jf._quantize_sym(x)[0]))
+        assert torch.equal(tf.dynamic_scales(qb, kb), torch.stack([tf.dynamic_scale(qb), tf.dynamic_scale(kb)]))
+    if mode == "inkernel":
+        ref = jf.packed_mha_int8_inkernel(jq, jk, jvv, n_heads=heads, static_scales=ss, interpret=True)
+    else:
+        ref = jf.packed_mha_int8(jq, jk, jvv, heads, None, True, ss)
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert got.dtype == torch.bfloat16
+    assert max_err(got, ref) <= 2e-2 * max(1.0, float(np.abs(ref).max()))
 
 
 def _models(cfg, seed=3):
