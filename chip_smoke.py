@@ -43,7 +43,14 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    and timed forward + backward at that shape and at b = 1. K10 (int8 flash
    decode) at the int8 decode shape, a long context and Qwen3's head dim;
    K11 (int8 grouped matmul) at Qwen3-Next-small's decode and prefill
-   shapes, both row tilings, and a sweep of both tilings from T 32 to 512;
+   shapes: fp32 rows on the SIMT kernel (both its row tilings), bf16 rows
+   on the tensor-core kernel (csrc/quantized_gmm_tc.cu, ``tc_launches``) at
+   the wrapper's row tile and K split, two runs bit-equal, each (expert,
+   64-channel) tile within TILE_TOL beside a control with one K chunk of
+   one expert dropped, timed beside ``torch._grouped_mm`` on a bf16 copy of
+   the stack (``bf16_grouped_mm_ms``); then ``tiling_sweep``: the
+   tensor-core kernel's row tiles and K splits around the wrapper's choice
+   from T 8 to 2400, and the SIMT tilings (fp32) from T 32 to 512;
    K2 also at dk 64. K4 at one Gemma-3-270M layer (b 4, q/kv heads 4/1,
    d 256, s 2048), fp32 and bf16, forward and forward + backward, each with
    window 512 and causal, and softcap 30 with sinks (dsink checked); then
@@ -171,17 +178,21 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
     layers with 16/16 heads, b 2, s 300 (will not shard), fp32: K6 launches
     16 times and the logits match the forward with ``use_fused_mha`` False;
     its tok/s and peak memory;
-17. int8_generate_fp32, next_serve_fp32: int8 Qwen3.5-0.8B text and int8
-    Qwen3-Next-small at full width cut to 4 layers, fp32, kernels against
-    plain: prefill logits within INT8_LOGIT_TOL, 16 greedy tokens equal;
+17. int8_generate_fp32, next_serve_fp32 (``serving_checks_fp32``, the one
+    phase after the kernel phase where plain versions run): int8 Qwen3.5-0.8B
+    text and int8 Qwen3-Next-small at full width cut to 4 layers, fp32,
+    kernels against plain: prefill logits within INT8_LOGIT_TOL, 16 greedy
+    tokens equal;
 18. int8_generate: Qwen3.5-0.8B text, 24 layers, bf16, weights, tied table
     and KV cache int8, b = 1, prompt 32, 64 greedy tokens (K1, K2, K10);
 19. next_serve: Qwen3-Next-small, 8 layers, bf16, linears and expert stacks
     int8, b = 4, 300-token prompts, 64 greedy tokens (K1, K2 at dk 64, K11).
     Phases 18 and 19 reset the counts, drive the int8 model once, then print
     tok/s, TTFT and MBU beside the bf16 model's, the per-step cost of the
-    int8 → bf16 weight copies, and the device time of K1's forward in a TTFT
-    call beside the call's whole device time (``torch.profiler``).
+    int8 → bf16 weight copies, and the device time of K1's forward and of
+    K11 in a TTFT call beside the call's whole device time, and K11's and
+    all device time per decode step (a 17-token call less the TTFT call,
+    over 16 steps; ``torch.profiler``).
 
 K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
 tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
@@ -189,7 +200,9 @@ short-sequence tensor-core kernel of ``csrc/fused_mha_tc.cu`` forward and
 ``attention_tc.cu``'s backward kernels; in fp32 the SIMT kernels of
 ``csrc/attention.cu`` (and ``csrc/fused_mha.cu``, K6's forward). K1 takes
 two routes the same way: bf16 the chunked kernels of ``csrc/gdn_tc.cu``,
-fp32 the scan of ``csrc/gdn.cu``. Their
+fp32 the scan of ``csrc/gdn.cu``; K11 too: bf16 rows the tensor-core
+kernel of ``csrc/quantized_gmm_tc.cu``, fp32 rows the SIMT one of
+``csrc/quantized_gmm.cu``. Their
 records keep the fp32 error as ``max_abs_err`` and add
 ``max_abs_err_bf16`` (the tensor-core error on the same bf16 inputs); K5's
 bf16 records and the dense train shape's bf16 fwd + bwd are also held tile
@@ -198,12 +211,12 @@ tile dropped, which must exceed those bars, and so are K6's and K7's bf16
 records (against the plain version in fp32 on the same values); the bf16
 backward at the dense train shape runs twice and must be bit-equal; every
 path's reading of the launch counts fails if a bf16 path's
-K1/K4/K5/K6/K7/K8/K9 launches, forward and backward, were not all
+K1/K4/K5/K6/K7/K8/K9/K11 launches, forward and backward, were not all
 tensor-core launches (``tc_launches``, ``tc_bwd_launches``, counted by the
 C library where it launches those kernels), or an fp32 path's were not all
 SIMT; and every phase after the kernel phase fails if K6's plain version,
-the plain backward of K6, K7 or K8, or the plain version of K8 and K9 ran
-in it (``phase``).
+the plain backward of K6, K7 or K8, or the plain version of K8, K9 or
+K11 ran in it (``phase``).
 ``k4_window_ratio`` prints the CUDA-event ratio beside the checked device
 ratio, and ``k4_host_cost`` where a bf16 K4 fwd + bwd call's time goes
 (device, host, the C entry points). Every record carries ``tflops``, its
@@ -1341,77 +1354,175 @@ def kernel_k10(gen, dtypes):
     return max(errs), rec["ms"], rec["plain_ms"], cases, {**extra, "library_ms": None}
 
 
+K11_EXPERTS = 8  # Qwen3-Next-small's experts; lin1 and gate 896 -> 3584, lin2 3584 -> 896
+K11_MATS = {"lin1": (896, 3584), "lin2": (3584, 896)}
+
+
+def k11_routing(gen, tokens, e=K11_EXPERTS):
+    """The group sizes (int64, on the card) of a top-2 routing of ``tokens`` tokens by random logits."""
+    import torch
+
+    logits = torch.randn(tokens, e, generator=gen, device=DEVICE)
+    return torch.bincount(logits.topk(2, dim=-1).indices.reshape(-1), minlength=e)
+
+
+def k11_stack(gen, k_dim, n_dim, e=K11_EXPERTS):
+    import torch
+
+    w_q = torch.randint(-127, 128, (e, k_dim, n_dim), generator=gen, device=DEVICE, dtype=torch.int8)
+    return w_q, torch.rand(e, n_dim, generator=gen, device=DEVICE) * 0.02 + 1e-3
+
+
+def k11_tiles(got, ref, group_sizes):
+    """TILE_TOL's reading of K11's output: max over the (expert, 64-channel)
+    tiles of ||got - ref|| / ||ref||, each expert's rows one tile's rows."""
+    readings = []
+    for rows_g, ref_g in zip(got.float().split(group_sizes.tolist()), ref.float().split(group_sizes.tolist())):
+        if rows_g.shape[0]:
+            readings.append(tile_rel_err(rows_g.T, ref_g.T))  # the channels on dim -2, 64 a tile
+    return max(readings)
+
+
+def k11_grouped_mm_ms(x, w_q, scale, group_sizes):
+    """The time of ``torch._grouped_mm`` on a bf16 copy of the stack (made
+    outside the timed region) times each row's scale, and its error against
+    K11's plain version; (None, None) where this torch lacks the call."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import quantized_gmm as qg
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, None
+    wb = w_q.to(torch.bfloat16)
+    offs = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+    scale_rows = scale.repeat_interleave(group_sizes, dim=0, output_size=x.shape[0]).to(torch.bfloat16)
+    try:
+        out = torch._grouped_mm(x, wb, offs=offs) * scale_rows
+    except (RuntimeError, TypeError) as e:
+        print(f"K11: torch._grouped_mm refused ({e})", file=sys.stderr)
+        return None, None
+    err = max_err(out, qg.quantized_ragged_dot(x, w_q, scale, group_sizes, plain=True))[0]
+    return cuda_ms(lambda: torch._grouped_mm(x, wb, offs=offs) * scale_rows), err
+
+
 def kernel_k11(gen, dtypes):
     """K11 at Qwen3-Next-small's shapes (8 experts, 896 -> 3584 for lin1 and
     gate, 3584 -> 896 for lin2) with a top-2 routing of b 4 tokens (decode,
-    T = 8 rows) and of b 4 x 300 tokens (prefill, T = 2400 rows)."""
+    T = 8 rows) and of b 4 x 300 tokens (prefill, T = 2400 rows). fp32 rows
+    on the SIMT kernel (both row tilings checked), bf16 rows on the
+    tensor-core kernel (``tc_launches``) at the wrapper's row tile and K
+    split: two runs bit-equal, each (expert, 64-channel) tile within TILE_TOL
+    of the fp32 plain version beside a control with one 64-deep K chunk of
+    the largest expert dropped, which must read above the bar; timed by CUDA
+    events and profiler, beside ``torch._grouped_mm`` on a bf16 copy of the
+    stack (``bf16_grouped_mm_ms``; no PyTorch call takes the int8 stack:
+    library_ms is null)."""
     import torch
 
     from llm_quest_tpu_torch.kernels import quantized_gmm as qg
 
-    errs, cases = [], []
-    e = 8
+    w = qg.quantized_ragged_dot
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs, errs_bf16, cases = [], [], []
     for tokens in (4, 1200):
-        logits = torch.randn(tokens, e, generator=gen, device=DEVICE)
-        group_sizes = torch.bincount(logits.topk(2, dim=-1).indices.reshape(-1), minlength=e)
+        group_sizes = k11_routing(gen, tokens)
         t = 2 * tokens
-        for mat, (k_dim, n_dim) in (("lin1", (896, 3584)), ("lin2", (3584, 896))):
-            w_q = torch.randint(-127, 128, (e, k_dim, n_dim), generator=gen, device=DEVICE, dtype=torch.int8)
-            scale = torch.rand(e, n_dim, generator=gen, device=DEVICE) * 0.02 + 1e-3
+        for mat, (k_dim, n_dim) in K11_MATS.items():
+            w_q, scale = k11_stack(gen, k_dim, n_dim)
             for dtype in dtypes:
+                bf16 = dtype == torch.bfloat16
                 x = randn(gen, t, k_dim, dtype=dtype)
-                call = lambda plain=False: qg.quantized_ragged_dot(x, w_q, scale, group_sizes, plain=plain)  # noqa: E731
-                out, ref = call(), call(True)
+                call = lambda plain=False: w(x, w_q, scale, group_sizes, plain=plain)  # noqa: E731
+                out, tc = tc_count(w, call)
+                ref = call(True)
                 torch_sync()
-                # both row tilings (16 and 64 rows a tile) at both shapes; the
-                # wrapper takes 16 up to qg._FEW_ROWS rows, 64 above (see
-                # k11_tiling_sweep)
-                tiles = {16 * rm: (lambda rm=rm: qg._launch(x, w_q, scale, group_sizes, rm)) for rm in (1, 4)}
-                err = max(check(f"K11 T={t} {mat} {rows}-row tiles {dtype}", fn(), ref, dtype)
-                          for rows, fn in tiles.items())
-                err = max(err, check(f"K11 T={t} {mat} {dtype}", out, ref, dtype))
+                tc_moved(f"K11 T={t} {mat} {dtype}", tc, 0, 1 if bf16 else 0)
+                err = check(f"K11 T={t} {mat} {dtype}", out, ref, dtype)
                 case = {"T": t, "matrix": mat, "K": k_dim, "N": n_dim, "group_sizes": group_sizes.tolist(),
-                        "dtype": str(dtype), "max_abs_err": err}
-                if dtype == dtypes[-1]:
-                    case["ms"], case["plain_ms"] = cuda_ms(call), cuda_ms(lambda: call(True))
-                    case["device_ms"] = device_ms(call, "quantized_gmm")
-                    case["tile_rows_device_ms"] = {rows: device_ms(fn, "quantized_gmm") for rows, fn in tiles.items()}
-                    hit = int((group_sizes > 0).sum())  # the weights of the experts with rows are read
-                    case.update(bound(nbytes(x, out, group_sizes) + hit * (k_dim * n_dim + 4 * n_dim),
-                                      2 * t * k_dim * n_dim))
-                cases.append(case)
-                if dtype == dtypes[0]:
+                        "dtype": str(dtype), "tc_launches": tc}
+                if not bf16:  # the SIMT kernel's two row tilings (16 and 64 rows a tile)
+                    for rm in (1, 4):
+                        err = max(err, check(f"K11 T={t} {mat} {16 * rm}-row tiles {dtype}",
+                                             qg._launch(x, w_q, scale, group_sizes, rows_per_thread=rm), ref, dtype))
+                    case["max_abs_err"] = err
                     errs.append(err)
+                    cases.append(case)
+                    continue
+                if not torch.equal(out, call()):
+                    raise AssertionError(f"K11 T={t} {mat}: two runs differ")
+                ref32 = qg.quantized_ragged_dot(x.float(), w_q, scale, group_sizes, plain=True)
+                tile_err = k11_tiles(out, ref32, group_sizes)
+                if not tile_err <= TILE_TOL:  # also catches NaN
+                    raise AssertionError(f"K11 T={t} {mat}: tile error {tile_err} > {TILE_TOL}")
+                big = int(group_sizes.argmax())
+                w_drop = w_q.clone()
+                w_drop[big, 64:128] = 0  # one 64-deep K chunk of the largest expert
+                dropped = k11_tiles(qg.quantized_ragged_dot(x.float(), w_drop, scale, group_sizes, plain=True), ref32,
+                                    group_sizes)
+                if not dropped > TILE_TOL:
+                    raise AssertionError(f"K11 T={t} {mat}: a dropped K chunk reads {dropped}, within {TILE_TOL}")
+                rows, split = qg.plan(t, k_dim, n_dim, K11_EXPERTS, sms)
+                hit = int((group_sizes > 0).sum())  # the weights of the experts with rows are read
+                gmm_ms, gmm_err = k11_grouped_mm_ms(x, w_q, scale, group_sizes)
+                case.update({"max_abs_err": err, "rows": rows, "split": split, "tile_err": tile_err,
+                             "dropped_chunk_tile_err": dropped, "ms": cuda_ms(call),
+                             "plain_ms": cuda_ms(lambda: call(True)), "device_ms": device_ms(call, "quantized_gmm"),
+                             "bf16_grouped_mm_ms": gmm_ms, "bf16_grouped_mm_err": gmm_err,
+                             **bound(nbytes(x, out, group_sizes) + hit * (k_dim * n_dim + 4 * n_dim),
+                                     2 * t * k_dim * n_dim)})
+                errs_bf16.append(err)
+                cases.append(case)
     rec = next(c for c in cases if c["T"] == 8 and c["matrix"] == "lin1" and "ms" in c)
-    extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "device_ms")}
-    extra["tiling_sweep"] = k11_tiling_sweep(gen, dtypes[-1])
-    return max(errs), rec["ms"], rec["plain_ms"], cases, {**extra, "library_ms": None}
+    extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "device_ms",
+                                       "bf16_grouped_mm_ms")}
+    extra.update({"library_ms": None, "max_abs_err_bf16": max(errs_bf16),
+                  "tile_err_bf16": max(c["tile_err"] for c in cases if "tile_err" in c),
+                  "tiling_sweep": k11_tiling_sweep(gen),
+                  "record": {"cases_device_ms": {f"T{c['T']}_{c['matrix']}": c["device_ms"]
+                                                 for c in cases if "device_ms" in c}}})
+    return max(errs), rec["ms"], rec["plain_ms"], cases, extra
 
 
-def k11_tiling_sweep(gen, dtype):
-    """Device ms of K11's two row tilings between the decode and prefill
-    shapes (8 experts, top-2 routing), where the wrapper switches at
-    qg._FEW_ROWS rows; each tiling checked against plain."""
+def k11_tiling_sweep(gen):
+    """K11's regimes between decode and prefill (8 experts, top-2 routing):
+    in bf16 the tensor-core kernel's device ms at the wrapper's (row tile,
+    K split) and beside it with half and twice the row tile and with 1, 2
+    and 3 K parts; in fp32 (T 32 to 512) the SIMT kernel's 16- and 64-row
+    tilings, between which the wrapper switches at ``qg._FEW_ROWS`` rows.
+    Each tiling checked against plain."""
     import torch
 
     from llm_quest_tpu_torch.kernels import quantized_gmm as qg
 
-    e, sweep = 8, []
-    for t in (32, 64, 128, 256, 512):
-        logits = torch.randn(t // 2, e, generator=gen, device=DEVICE)
-        group_sizes = torch.bincount(logits.topk(2, dim=-1).indices.reshape(-1), minlength=e)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sweep = []
+    for t in (8, 32, 64, 128, 256, 512, 1024, 2400):
+        group_sizes = k11_routing(gen, t // 2)
         row = {"T": t, "max_group": int(group_sizes.max())}
-        for mat, (k_dim, n_dim) in (("lin1", (896, 3584)), ("lin2", (3584, 896))):
-            w_q = torch.randint(-127, 128, (e, k_dim, n_dim), generator=gen, device=DEVICE, dtype=torch.int8)
-            scale = torch.rand(e, n_dim, generator=gen, device=DEVICE) * 0.02 + 1e-3
-            x = randn(gen, t, k_dim, dtype=dtype)
+        for mat, (k_dim, n_dim) in K11_MATS.items():
+            w_q, scale = k11_stack(gen, k_dim, n_dim)
+            x = randn(gen, t, k_dim, dtype=torch.bfloat16)
             ref = qg.quantized_ragged_dot(x, w_q, scale, group_sizes, plain=True)
+            rows, split = qg.plan(t, k_dim, n_dim, K11_EXPERTS, sms)
+            max_split = min(qg.MAX_SPLIT, -(-k_dim // qg.K_STAGE))
+            options = {(rows, split)}
+            options |= {(r, split) for r in (rows // 2, rows * 2) if r in qg.ROW_TILES}
+            options |= {(rows, s) for s in (1, 2, 3) if s <= max_split}
             times = {}
-            for rm in (1, 4):
-                fn = lambda rm=rm: qg._launch(x, w_q, scale, group_sizes, rm)  # noqa: E731
-                check(f"K11 sweep T={t} {mat} {16 * rm}-row tiles {dtype}", fn(), ref, dtype)
-                times[16 * rm] = device_ms(fn, "quantized_gmm")
-            row[mat] = times
+            for r, sp in sorted(options):
+                fn = lambda r=r, sp=sp: qg._launch(x, w_q, scale, group_sizes, row_tile=r, split=sp)  # noqa: E731
+                check(f"K11 sweep T={t} {mat} {r} rows x {sp} K parts", fn(), ref, torch.bfloat16)
+                times[f"{r}x{sp}"] = device_ms(fn, "quantized_gmm")
+            row[mat] = {"plan": f"{rows}x{split}", "device_ms": times}
+            if 32 <= t <= 512:
+                x32 = x.float()
+                ref32 = qg.quantized_ragged_dot(x32, w_q, scale, group_sizes, plain=True)
+                simt = {}
+                for rm in (1, 4):
+                    fn = lambda rm=rm: qg._launch(x32, w_q, scale, group_sizes, rows_per_thread=rm)  # noqa: E731
+                    check(f"K11 sweep T={t} {mat} {16 * rm}-row tiles fp32", fn(), ref32, torch.float32)
+                    simt[16 * rm] = device_ms(fn, "quantized_gmm")
+                row[mat]["fp32_simt_device_ms"] = simt
         sweep.append(row)
     return sweep
 
@@ -1686,6 +1797,9 @@ INT8_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/packed_mha_int8_tc.cu",
             "float32": "llm_quest_tpu_torch/csrc/packed_mha_int8.cu"}
 # K1's: bf16 takes the chunked tensor-core kernels, fp32 the SIMT scan
 GDN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/gdn_tc.cu", "float32": "llm_quest_tpu_torch/csrc/gdn.cu"}
+# K11's: bf16 rows take the tensor-core kernel, fp32 rows the SIMT one
+QGMM_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/quantized_gmm_tc.cu",
+            "float32": "llm_quest_tpu_torch/csrc/quantized_gmm.cu"}
 FP32_PATHS = (VIT_TRAIN, CP_FALLBACK)  # the paths that run in fp32
 KERNELS = [
     # name, wrapper (module, attribute[, which launches: "window" = those with a
@@ -1725,7 +1839,7 @@ KERNELS = [
      "llm_quest_tpu/kernels/fused_mha.py:372", partial(kernel_int8, mode="inkernel"), (VIT,)),
     ("flash_decode", ("flash_decode", "flash_decode"), "llm_quest_tpu_torch/csrc/flash_decode.cu",
      "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10, (INT8_GENERATE,)),
-    ("quantized_ragged_dot", ("quantized_gmm", "quantized_ragged_dot"), "llm_quest_tpu_torch/csrc/quantized_gmm.cu",
+    ("quantized_ragged_dot", ("quantized_gmm", "quantized_ragged_dot"), QGMM_SRC,
      "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11, (NEXT_SERVE,)),
     # K4 at one Gemma-3-270M layer: the SWA layers' window, the global layers'
     # causal call at the same shape, and the softcap and sinks (on no path yet)
@@ -1845,7 +1959,8 @@ def kernel_phase():
                         "bound_ms": extra["bound_ms"], "bound_by": extra["bound_by"],
                         "library_ms": extra["library_ms"], "simt_bound_ms": extra["simt_bound_ms"],
                         "tflops": extra.get("tflops", extra["flops"] / ms / 1e9),
-                        **{key: extra[key] for key in ("bf16_sdpa_ms", "max_abs_err_bf16", "tile_err_bf16",
+                        **{key: extra[key] for key in ("bf16_sdpa_ms", "bf16_grouped_mm_ms", "max_abs_err_bf16",
+                                                       "tile_err_bf16",
                                                        "device_ms") if key in extra},
                         **extra.get("record", {}),
                         "paths": list(paths)})
@@ -1863,7 +1978,7 @@ def reset_launches():
 
 
 # the attention wrappers' (K4, K4 bwd, K5, K6 and K7, forward and backward;
-# K8 forward and backward, K9), and K1's (forward and backward) launch
+# K8 forward and backward, K9), K1's (forward and backward) and K11's launch
 # counters (module, wrapper, launches) and, beside each, the count of those
 # that took the bf16 tensor-core kernels
 TC_COUNTERS = (("gdn", "gated_delta_rule_fwd", "launches", "tc_launches"),
@@ -1878,11 +1993,12 @@ TC_COUNTERS = (("gdn", "gated_delta_rule_fwd", "launches", "tc_launches"),
                ("attention", "packed_mha", "bwd_launches", "tc_bwd_launches"),
                ("fused_mha", "packed_mha_int8", "launches", "tc_launches"),
                ("fused_mha", "packed_mha_int8", "bwd_launches", "tc_bwd_launches"),
-               ("fused_mha", "packed_mha_int8_inkernel", "launches", "tc_launches"))
+               ("fused_mha", "packed_mha_int8_inkernel", "launches", "tc_launches"),
+               ("quantized_gmm", "quantized_ragged_dot", "launches", "tc_launches"))
 
 
 def check_routes(path, bf16):
-    """On a bf16 path every K1/K4/K5/K6/K7/K8/K9 launch, forward and
+    """On a bf16 path every K1/K4/K5/K6/K7/K8/K9/K11 launch, forward and
     backward, took the tensor-core kernels; on an fp32 path none did (the
     SIMT kernels)."""
     for module, name, total, tc in TC_COUNTERS:
@@ -1894,13 +2010,15 @@ def check_routes(path, bf16):
 
 
 # K6's plain version, the plain backward of K6, K7 and K8, and the plain
-# version of K8 and K9 run on the card only in comparisons (the kernel
-# records, ``vit_fp32``): after the kernel phase every call of these counts
-# (``install_plain_sentinels``), and a phase in which one ran fails
-# (``phase``).
+# versions of K8, K9 and K11 run on the card only in comparisons (the kernel
+# records, ``vit_fp32``, ``serving_checks_fp32``): after the kernel phase
+# every call of these counts (``install_plain_sentinels``), and a phase in
+# which one ran fails (``phase``).
 PLAIN_SENTINELS = (("attention", "packed_mha_bwd_plain"), ("fused_mha", "packed_mha_bwd_plain"),
-                   ("fused_mha", "fused_mha_plain"), ("fused_mha", "packed_mha_int8_plain"))
-PLAIN_CALLS = {"packed_mha_bwd_plain": 0, "fused_mha_plain": 0, "packed_mha_int8_plain": 0}
+                   ("fused_mha", "fused_mha_plain"), ("fused_mha", "packed_mha_int8_plain"),
+                   ("quantized_gmm", "quantized_ragged_dot_plain"))
+PLAIN_CALLS = {"packed_mha_bwd_plain": 0, "fused_mha_plain": 0, "packed_mha_int8_plain": 0,
+               "quantized_ragged_dot_plain": 0}
 
 
 def install_plain_sentinels():
@@ -3091,15 +3209,19 @@ def int8_copy_ms(model):
     return cuda_ms(lambda: [t.to(torch.bfloat16) for t in mats], iters=5, warmup=1), sum(map(nbytes, mats))
 
 
-def prefill_k1_device_ms(fn, iters=3):
-    """Per call of ``fn`` (a TTFT call: the prefill and one token), the
-    device time of K1's forward kernels and of all its kernels, from one
-    ``torch.profiler`` trace; (None, None) where the profiler gives none."""
+QGMM_KEY = "quantized_gmm"  # the name stem of K11's kernels (csrc/quantized_gmm.cu, csrc/quantized_gmm_tc.cu)
+
+
+def call_device_ms(fn, iters=3):
+    """Per call of ``fn``, the device time of K1's forward kernels, of K11's
+    and of all its kernels, from one ``torch.profiler`` trace; Nones where
+    the profiler gives none."""
     _, events = profiled(fn, iters, GDN_TC_KEY)
     if not events:
-        return None, None
-    k1 = sum(e.time_range.elapsed_us() for e in events if GDN_TC_KEY in e.name) / 1e3 / iters
-    return k1, sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+        return None, None, None
+    ms = [sum(e.time_range.elapsed_us() for e in events if key in e.name) / 1e3 / iters
+          for key in (GDN_TC_KEY, QGMM_KEY, "")]
+    return tuple(ms)
 
 
 def serve_path(phase, path, make_model, entry, cfg_bf16, cfg_int8, ids, records, card, quant_options):
@@ -3125,14 +3247,23 @@ def serve_path(phase, path, make_model, entry, cfg_bf16, cfg_int8, ids, records,
     if tuple(seq.shape) != (ids.shape[0], ids.shape[1] + max_gen) or not bool(
             ((seq >= 0) & (seq < cfg_int8["vocab_size"])).all()):
         raise AssertionError(f"{phase}: bad sequences {tuple(seq.shape)}")
+    tc = {name: getattr(wrapper((module, name)), counter) for module, name, total, counter in TC_COUNTERS
+          if total == "launches"}
     int8 = serve_rates(entry, model, cfg_int8, ids)
-    int8["k1_fwd_device_ms"], int8["ttft_device_ms"] = prefill_k1_device_ms(
+    # a TTFT call (the prefill and one token), then a 17-token call: the
+    # device time a decode step is their difference over 16 steps
+    int8["k1_fwd_device_ms"], int8["k11_device_ms"], int8["ttft_device_ms"] = call_device_ms(
         lambda: generate(entry, model, cfg_int8, ids, 1))
+    _, k11_17, dev_17 = call_device_ms(lambda: generate(entry, model, cfg_int8, ids, 17), iters=1)
+    if dev_17 is not None and int8["ttft_device_ms"] is not None:
+        int8["k11_device_ms_per_step"] = (k11_17 - int8["k11_device_ms"]) / 16
+        int8["device_ms_per_step"] = (dev_17 - int8["ttft_device_ms"]) / 16
     bytes_per_token = F.decode_bytes_per_token(model, cfg_int8, kv_len=kv_len, batch=ids.shape[0])
     int8["mbu"] = F.mbu(int8["tok_s"], bytes_per_token)
     copy_ms, int8_bytes = int8_copy_ms(model)
     emit({"phase": phase, "card": card, "dtype": "bfloat16", "layers": cfg_int8["n_layers"], "b": ids.shape[0],
-          "prompt": ids.shape[1], "max_gen": max_gen, "launches": launches, "tokens": seq[0, -64:-48].tolist(),
+          "prompt": ids.shape[1], "max_gen": max_gen, "launches": launches, "tc_launches": tc,
+          "tokens": seq[0, -64:-48].tolist(),
           "int8": int8, "bf16": bf16, "decode_bytes_per_token": bytes_per_token, "mbu_kv_len": kv_len,
           "int8_weight_bytes": int8_bytes, "int8_to_bf16_copy_ms_per_step": copy_ms,
           "step_ms": 1e3 * ids.shape[0] / int8["tok_s"]})
@@ -3140,20 +3271,23 @@ def serve_path(phase, path, make_model, entry, cfg_bf16, cfg_int8, ids, records,
     torch.cuda.empty_cache()
 
 
-def serving_paths(records, card):
-    """Qwen3.5-0.8B int8 text generation (int8 linears, tied table and KV
-    cache; K1, K2, K10) and Qwen3-Next-small int8 cached decode (int8
-    linears and expert stacks; K1, K2 at dk 64, K11), each first checked in
-    fp32 at 4 layers, kernels against plain."""
+def text_model(cfg):
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    return qwen3_5.init_text(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+
+
+def serving_checks_fp32():
+    """The int8 serving paths at 4 layers in fp32, kernels against plain (the
+    plain versions run here, outside ``phase``): Qwen3.5-0.8B text and
+    Qwen3-Next-small. The tables stay fp32 (an int8 table gathers bf16 rows,
+    which would make them bf16 checks)."""
     import torch
 
     from llm_quest_tpu_torch.models import qwen3_5, qwen3_next
     from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
-
-    # fp32 checks: the tables stay fp32 (an int8 table gathers bf16 rows,
-    # which would make them bf16 checks)
-    def text_model(cfg):
-        return qwen3_5.init_text(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
 
     text = text_int8_cfg(4, torch.float32)
     model = quantize_params_int8(text_model(text))
@@ -3163,6 +3297,16 @@ def serving_paths(records, card):
     serve_check_fp32("next_serve_fp32", qwen3_next, qwen3_next, model, nxt, ids_on_card(2, 64))
     del model
     torch.cuda.empty_cache()
+
+
+def serving_paths(records, card):
+    """Qwen3.5-0.8B int8 text generation (int8 linears, tied table and KV
+    cache; K1, K2, K10) and Qwen3-Next-small int8 cached decode (int8
+    linears and expert stacks; K1, K2 at dk 64, K11), bf16, after
+    ``serving_checks_fp32``."""
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3_5, qwen3_next
 
     text_bf16 = {k: v for k, v in text_int8_cfg(24, torch.bfloat16).items() if k != "kv_quant"}
     serve_path("int8_generate", INT8_GENERATE, text_model, qwen3_5.TextOnly, text_bf16,
@@ -3188,6 +3332,8 @@ PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names
     "gdn_tc_reverse": "gdn_tc_reverse_kernel", "gdn_tc_grad": "gdn_tc_grad_kernel",
     # K8/K9: the int8-score tensor-core kernel (bf16; csrc/packed_mha_int8_tc.cu) and the SIMT one (fp32)
     "packed_mha_int8_tc": "packed_mha_int8_tc_kernel", "packed_mha_int8_simt": "packed_mha_int8_kernel",
+    # K11: the tensor-core kernel (bf16 rows; csrc/quantized_gmm_tc.cu) and the SIMT one (fp32 rows)
+    "qgmm_tc": "quantized_gmm_tc_kernel", "qgmm_simt": "quantized_gmm_kernel",
 }
 
 
@@ -3397,6 +3543,7 @@ def main(argv):
     phase(mimo_paths, records, smi)
     phase(dsv3_paths, records, smi)
     phase(cp_paths, records, smi)
+    serving_checks_fp32()
     phase(serving_paths, records, smi)
 
     emit({"phase": "device_timing", **PROFILER})

@@ -320,13 +320,6 @@ __global__ void __launch_bounds__(NWG * kWG)
 
 // ------------------------------------------------------------------ launches
 
-int device_attr(cudaDeviceAttr attr) {
-  int dev = 0, value = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&value, attr, dev);
-  return value;
-}
-
 constexpr int kNoPlan = -1;  // launch<D, 2>: K and V are not resident, take one warpgroup a block
 
 template <int D, int NWG>

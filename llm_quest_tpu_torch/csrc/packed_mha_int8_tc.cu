@@ -173,12 +173,6 @@ __device__ __forceinline__ void quantize_k(bool div, uint32_t tile, const __nv_b
   fence_async_smem();  // the stores, for wgmma's reads after the caller's barrier
 }
 
-__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
-  return v;
-}
-
 // The 16-byte chunk c8 (bf16 columns 8 * c8 ..) of row r of a bf16 Q tile
 // (Tile<kQT, D>) as TMA wrote it: column block, then the swizzled chunk.
 template <int D>
@@ -460,13 +454,6 @@ __global__ void __launch_bounds__(NWG * kWG, (min_blocks<D, NWG>()))
 }
 
 // ------------------------------------------------------------------ launches
-
-int device_attr(cudaDeviceAttr attr) {
-  int dev = 0, value = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&value, attr, dev);
-  return value;
-}
 
 constexpr int kNoPlan = -1;  // launch<D, 2>: V is not resident, take one warpgroup a block
 

@@ -1,29 +1,30 @@
-// Grouped matmul over int8 expert stacks (MoE serving), for Hopper.
+// Grouped matmul over int8 expert stacks (MoE serving), for Hopper: the C
+// entry point, and the kernel for fp32 rows on the SIMT units. bf16 rows
+// take the tensor-core kernel of quantized_gmm_tc.cu.
 //
 // Replaces llm_quest_tpu/kernels/quantized_gmm.py::quantized_ragged_dot (the
 // Pallas kernel _qgmm_kernel): y[r] = (x[r] @ w_q[e(r)]) * scale[e(r)] for
 // rows x (T, K) sorted by expert, w_q (E, K, N) int8, scale (E, N) fp32 and
-// the device-side group offsets (E + 1,) int32 (offsets[e] .. offsets[e + 1]
-// are expert e's rows). The int8 weights are read once per row tile and
-// converted in registers; the scale is the epilogue.
+// the device-side group sizes (E,) (expert e's rows follow those of experts
+// 0 .. e - 1). The int8 weights are read once per row tile and converted in
+// registers; the scale is the epilogue.
 //
 // Grid: the TPU wrapper scatters the rows into a group-aligned layout and
 // scalar-prefetches an expert id per row tile, so that one expert's whole
 // int8 block stays resident in VMEM. Here grid (ceil(N / kBN), E): each block
-// reads its expert's row range from the offsets (no host sync; the offsets
-// come from a cumsum on the device), returns before reading any weight when
-// the expert has no row (as the TPU kernel never fetches an empty expert),
-// and for every tile of BM = 16 * RM rows walks K in chunks of kBK: the
-// (kBK, kBN) int8 weight tile goes to shared memory with 16-byte loads and
-// the (BM, kBK) row tile as fp32, each thread accumulates RM x 4 outputs in
-// fp32, and the scale multiplies once, before the single rounding to the
-// rows' type (the TPU kernel rounds bf16 rows' product to bf16 first).
+// finds its expert's row range from the group sizes (no host sync), returns
+// before reading any weight when the expert has no row (as the TPU kernel
+// never fetches an empty expert), and for every tile of BM = 16 * RM rows
+// walks K in chunks of kBK: the (kBK, kBN) int8 weight tile goes to shared
+// memory with 16-byte loads and the (BM, kBK) row tile as fp32, each thread
+// accumulates RM x 4 outputs in fp32, and the scale multiplies once, before
+// the single rounding to the rows' type (the TPU kernel rounds bf16 rows'
+// product to bf16 first).
 //
 // Bound: at decode (T = 8 rows) bytes, the int8 weights of the experts hit
 // (at most E*K*N); at prefill (T in the thousands) operations, 2*T*K*N. This
-// first version multiplies on the fp32 SIMT units, far from the tensor-core
-// rate a prefill could reach (wgmma is later work).
-#include "common.cuh"
+// kernel multiplies on the fp32 SIMT units, as fp32 rows need.
+#include "quantized_gmm.cuh"
 
 namespace llmq {
 namespace {
@@ -32,18 +33,30 @@ constexpr int kGmmThreads = 256;  // 16 x 16 threads
 constexpr int kBN = 64;           // output columns per block (4 per thread)
 constexpr int kBK = 64;           // contraction chunk
 
+// rows start .. end - 1 of expert e: the sum of the sizes before it, taken
+// by each warp (the lanes' partial sums, then a shuffle reduction)
+__device__ __forceinline__ int2 group_rows(const void* gs, int gs64, int e) {
+  const int lane = threadIdx.x % 32;
+  int start = 0;
+  for (int i = lane; i < e; i += 32) start += group_size(gs, gs64, i);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) start += __shfl_xor_sync(kFullMask, start, o);
+  return make_int2(start, start + group_size(gs, gs64, e));
+}
+
 // grid (ceil(N / kBN), E), block kGmmThreads. x (T, K) and y (T, N) and
 // w_q (E, K, N) contiguous; N % 16 == 0.
 template <typename T, int RM>
 __global__ void __launch_bounds__(kGmmThreads)
 quantized_gmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
-                     const float* __restrict__ scale, const int* __restrict__ offsets,
+                     const float* __restrict__ scale, const void* __restrict__ gs, int gs64,
                      T* __restrict__ y, int K, int N) {
   constexpr int BM = 16 * RM;
   __shared__ __align__(16) float xs[BM][kBK + 1];  // padded: two row groups per warp, other banks
   __shared__ __align__(16) int8_t ws[kBK][kBN];
   const int e = blockIdx.y, n0 = blockIdx.x * kBN;
-  const int start = offsets[e], end = offsets[e + 1];
+  const int2 rows = group_rows(gs, gs64, e);
+  const int start = rows.x, end = rows.y;
   if (start >= end) return;  // an expert with no rows reads no weight
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int8_t* we = w + (size_t)e * K * N;
@@ -96,15 +109,14 @@ quantized_gmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 template <typename T>
-int launch_gmm(const void* x, const int8_t* w, const float* scale, const int* offsets, void* y,
-               int E, int K, int N, int rm, cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, E);
+int launch_gmm(const QgmmArgs& a, int rm, cudaStream_t stream) {
+  const dim3 grid((a.N + kBN - 1) / kBN, a.E);
+  const T* x = static_cast<const T*>(a.x);
+  T* y = static_cast<T*>(a.y);
   if (rm == 1) {
-    quantized_gmm_kernel<T, 1><<<grid, kGmmThreads, 0, stream>>>(
-        static_cast<const T*>(x), w, scale, offsets, static_cast<T*>(y), K, N);
+    quantized_gmm_kernel<T, 1><<<grid, kGmmThreads, 0, stream>>>(x, a.w, a.scale, a.group_sizes, a.gs64, y, a.K, a.N);
   } else {
-    quantized_gmm_kernel<T, 4><<<grid, kGmmThreads, 0, stream>>>(
-        static_cast<const T*>(x), w, scale, offsets, static_cast<T*>(y), K, N);
+    quantized_gmm_kernel<T, 4><<<grid, kGmmThreads, 0, stream>>>(x, a.w, a.scale, a.group_sizes, a.gs64, y, a.K, a.N);
   }
   return (int)cudaGetLastError();
 }
@@ -115,18 +127,17 @@ int launch_gmm(const void* x, const int8_t* w, const float* scale, const int* of
 using namespace llmq;
 
 // x (T, K), y (T, N), w_q (E, K, N) int8 and scale (E, N) fp32, all
-// contiguous; offsets (E + 1,) int32 on the device, nondecreasing from 0 to T.
-// N % 16 == 0; rm (rows per thread) in {1, 4}.
+// contiguous; group_sizes (E,) int32 (gs64 0) or int64 (gs64 1) on the
+// device, summing to T. N % 16 == 0. fp32 rows take the SIMT kernel with rm
+// (rows per thread) in {1, 4}; bf16 rows the tensor-core kernel with row
+// tiles of br rows and `split` K parts (launch_qgmm_tc), K % 8 == 0.
 extern "C" int llmq_quantized_gmm(int dtype, const void* x, const void* w_q, const float* scale,
-                                  const int* offsets, void* y, int T, int E, int K, int N, int rm,
-                                  void* stream) {
-  if (T < 0 || E < 1 || K < 1 || N < 16 || N % 16 != 0 || (rm != 1 && rm != 4)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (T == 0) return (int)cudaSuccess;
-  const int8_t* w = static_cast<const int8_t*>(w_q);
+                                  const void* group_sizes, int gs64, void* y, int T, int E, int K, int N, int rm,
+                                  int br, int split, void* stream) {
+  if (T < 0 || E < 1 || K < 1 || N < 16 || N % 16 != 0) return (int)cudaErrorInvalidValue;
+  const QgmmArgs a{x, static_cast<const int8_t*>(w_q), scale, group_sizes, gs64, y, T, E, K, N};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_gmm<float>(x, w, scale, offsets, y, E, K, N, rm, s);
-  if (dtype == kBFloat16) return launch_gmm<__nv_bfloat16>(x, w, scale, offsets, y, E, K, N, rm, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == kBFloat16) return T == 0 ? (int)cudaSuccess : launch_qgmm_tc(a, br, split, s);
+  if (dtype != kFloat32 || (rm != 1 && rm != 4)) return (int)cudaErrorInvalidValue;
+  return T == 0 ? (int)cudaSuccess : launch_gmm<float>(a, rm, s);
 }

@@ -1,9 +1,10 @@
 // Hopper primitives shared by the tensor-core kernels (attention_tc.cu,
-// fused_mha_tc.cu, gdn_tc.cu, packed_mha_int8_tc.cu): mbarriers, TMA tile
-// copies through 4-d tensor maps, wgmma.mma_async with bf16 operands and
-// fp32 accumulators or s8 operands and s32 accumulators, the swizzled
-// shared-memory tile layouts that TMA (or the threads) write and wgmma
-// reads, and the host side's tensor-map encoder. sm_90a only.
+// fused_mha_tc.cu, gdn_tc.cu, packed_mha_int8_tc.cu, quantized_gmm_tc.cu):
+// mbarriers, TMA tile copies through 4-d tensor maps, wgmma.mma_async with
+// bf16 operands and fp32 accumulators or s8 operands and s32 accumulators,
+// the swizzled shared-memory tile layouts that TMA (or the threads) write
+// and wgmma reads, and the host side's tensor-map encoder (bf16 or int8
+// elements) and device queries. sm_90a only.
 //
 // Layout: every tile is bf16 rows split into column blocks of 64 (128-byte
 // swizzle) or, where a width is no multiple of 64 (32, 96), of 32 (64-byte
@@ -96,6 +97,12 @@ __device__ __forceinline__ void fence_regs(int (&d)[N]) {
 __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
                : "memory");
+}
+// 16 bytes from shared memory at a 32-bit shared address
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
 }
 // makes this thread's shared-memory stores visible to the async proxy
 // (wgmma's operand reads); a barrier after it orders them for the issuers
@@ -307,6 +314,14 @@ __device__ __forceinline__ void to_a_frags(const float (&s)[32], uint32_t (&a)[4
 
 // ------------------------------------------------------------------ host side
 
+// an attribute of the current device
+int device_attr(cudaDeviceAttr attr) {
+  int dev = 0, value = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&value, attr, dev);
+  return value;
+}
+
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
   // above 48 KB the launch is refused unless the kernel's limit is raised
@@ -330,6 +345,19 @@ EncodeTiled encoder() {
   return fn;
 }
 
+// a 4-d tensor map (innermost dimension first) of `type` elements (bf16
+// operands, or int8 weights as bytes), with the byte strides of dimensions
+// 1 .. 3; out-of-bounds elements arrive as zeros; false if the encoder
+// refuses it
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, const cuuint64_t (&dims)[4],
+                const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encoder();
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode != nullptr &&
+         encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // the 4-d tensor map (columns, seq, head, batch) of a bf16 (b, h, s, C)
 // operand with (batch, head, seq) strides in elements; its box is one column
 // block of a Tile of `rows` rows (at most 256), swizzled as wgmma reads it;
@@ -338,15 +366,11 @@ template <int C>
 bool make_map(CUtensorMap* map, const void* ptr, int B, int H, int S, long long sb, long long sh, long long ss,
               int rows) {
   using T = Tile<16, C>;
-  const EncodeTiled encode = encoder();
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)T::BW, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, T::MODE == 1 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr,
+                    {(cuuint64_t)C, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B},
+                    {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2},
+                    {(cuuint32_t)T::BW, (cuuint32_t)rows, 1, 1},
+                    T::MODE == 1 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 }  // namespace

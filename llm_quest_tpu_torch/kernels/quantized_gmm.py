@@ -1,33 +1,59 @@
-"""Grouped matmul over int8 expert stacks (csrc/quantized_gmm.cu) and its
-plain PyTorch version.
+"""Grouped matmul over int8 expert stacks (csrc/quantized_gmm.cu,
+csrc/quantized_gmm_tc.cu) and its plain PyTorch version.
 
 ``quantized_ragged_dot``: K11, ``ragged_dot`` over an int8 expert stack with
 the dequantization fused; replaces
 ``llm_quest_tpu/kernels/quantized_gmm.py::quantized_ragged_dot``. Rows come
 sorted by expert (``ops/moe.py::dispatch``); row r of expert e gives
-``(x[r] @ w_q[e]) * scale[e]``. The kernel reads the group offsets on the
-device (a ``cumsum`` of the group sizes, no host sync), skips the experts
-with no row, streams the int8 weights and applies the scale before its single
-rounding to the rows' type. Divergence by design: with bf16 rows the TPU
-kernel rounds the product to bf16 before the scale multiplies; the port
-rounds once, after it.
+``(x[r] @ w_q[e]) * scale[e]``. The kernels read the group sizes on the
+device (no host sync, one launch a call), skip the experts with no row,
+stream the int8 weights and apply the scale before their single rounding to
+the rows' type. Divergence by design: with bf16 rows the TPU kernel rounds
+the product to bf16 before the scale multiplies; the port rounds once,
+after it.
+
+Routes by the rows' dtype: bf16 rows take the tensor-core kernel
+(``quantized_gmm_tc.cu``; counted in ``quantized_ragged_dot.tc_launches``),
+with a row tile and a K split that ``plan`` picks from the shapes alone;
+fp32 rows the SIMT kernel (``quantized_gmm.cu``) with 16- or 64-row tiles.
+The tensor-core kernel loads x by TMA, whose row stride must be a multiple
+of 16 bytes: bf16 rows need K % 8 == 0 (every shipped configuration has K
+896 or 3584), and other K raise.
+
+``plan`` makes the tensor-core kernel's host-side choices (its row tile
+and K split); ``tests/test_torch_quantized_gmm.py`` holds the kernel's
+schedule in Python.
 
 Plain version: ``quantized_ragged_dot_plain``, one matmul per expert group in
 fp32 (it reads the group sizes on the host). Device rule: a CUDA tensor
-launches the kernel (or raises), a CPU tensor runs the plain version;
+launches a kernel (or raises), a CPU tensor runs the plain version;
 ``plain=True`` forces the plain version (comparisons only).
 ``quantized_ragged_dot.launches`` counts launches.
 """
+
+import ctypes
+import functools
+import math
 
 import torch
 
 from llm_quest_tpu_torch.kernels import build
 
-# up to this many rows the kernel takes 16-row tiles, above it 64-row tiles.
-# A block walks K once per row tile, so 16-row tiles win while an expert's
-# rows fit one tile. chip_smoke.py's k11_tiling_sweep times both (8 experts,
-# top-2): on an H100 16-row tiles win up to T = 64 and lose from T = 128 on.
+# fp32 rows (the SIMT kernel): up to this many rows 16-row tiles, above it
+# 64-row tiles. A block walks K once per row tile, so 16-row tiles win while
+# an expert's rows fit one tile (on an H100 up to T = 64 with 8 experts, top-2).
 _FEW_ROWS = 64
+
+# the tensor-core kernel's schedule (csrc/quantized_gmm_tc.cu)
+ROW_TILES = (8, 16, 32, 64, 128)  # rows a tile (wgmma's N)
+BLOCK_CHANNELS = 128  # output channels a block (two warpgroups of 64)
+K_STAGE = 64  # K rows a stage
+MAX_SPLIT = 8  # K parts a cluster sums
+MIN_STAGES = 4  # K stages a part keeps at least
+BLOCKS_PER_SM = 2  # blocks an SM the kernel's ring leaves room for (kBlocksPerSM)
+# tiles of up to this many rows stream the weights; larger ones are bound
+# by the products
+STREAM_ROWS = 32
 
 
 def quantized_ragged_dot_plain(x, w_q, scale, group_sizes):
@@ -41,12 +67,50 @@ def quantized_ragged_dot_plain(x, w_q, scale, group_sizes):
     return torch.cat(outs).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=256)
+def plan(t, k, n, e, sms):
+    """(rows a tile, K parts) of the tensor-core kernel for T = ``t`` rows
+    over ``e`` experts, from the shapes alone (no host sync; chip_smoke.py's
+    ``k11_tiling_sweep`` times the choices around it). Rows spread evenly:
+    e·(1 - (1 - 1/e)^t) experts hold rows, m = t / hit each, and a busy
+    expert m + sqrt(m) (one standard deviation more). The row tile is the
+    smallest that holds a busy expert's rows (at most 128); the blocks
+    expected with work are the channel tiles times hit times a busy
+    expert's row tiles. Tiles of up to STREAM_ROWS rows stream the weights:
+    K is split until the blocks cover the ``sms`` SMs. Larger tiles are
+    bound by the products: K is split in two where that cuts the waves (of
+    BLOCKS_PER_SM blocks an SM) a unit of work takes by a fifth or more."""
+    hit = e * (1.0 - (1.0 - 1.0 / e) ** t)
+    busy = t / hit + math.sqrt(t / hit)
+    rows = next((b for b in ROW_TILES if b >= busy), ROW_TILES[-1])
+    blocks = math.ceil(n / BLOCK_CHANNELS) * hit * math.ceil(busy / rows)
+    most = min(MAX_SPLIT, math.ceil(k / K_STAGE) // MIN_STAGES)
+    if rows <= STREAM_ROWS:
+        split = min(most, math.ceil(sms / blocks)) if blocks < sms else 1
+    else:
+        slots = BLOCKS_PER_SM * sms
+        split = 2 if most >= 2 and math.ceil(2 * blocks / slots) / 2 <= 0.8 * math.ceil(blocks / slots) else 1
+    return rows, max(1, split)
+
+
+@functools.cache
+def _sms(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.cache
+def _tc_count():
+    """The library's count of calls that launched the tensor-core kernel,
+    read in place (no call into it)."""
+    return ctypes.c_int.in_dll(build.library().cdll, "llmq_quantized_gmm_tc_launches")
+
+
 def quantized_ragged_dot(x, w_q, scale, group_sizes, *, plain=False):
     """``ragged_dot`` over an int8 expert stack with fused dequantization.
 
     x: (T, K) rows sorted by expert; w_q: (E, K, N) int8; scale: (E, N) fp32;
     group_sizes: (E,) int rows per expert, summing to T. Returns (T, N) in
-    x's dtype. The kernel takes N % 16 == 0."""
+    x's dtype. The kernels take N % 16 == 0; bf16 rows also K % 8 == 0."""
     if plain or not x.is_cuda:
         return quantized_ragged_dot_plain(x, w_q, scale, group_sizes)
     build.require_no_grad("quantized_ragged_dot", x)
@@ -56,29 +120,38 @@ def quantized_ragged_dot(x, w_q, scale, group_sizes, *, plain=False):
     build.require(k == k2, f"x (T, {k}) does not match w_q (E, {k2}, N)")
     build.require(w_q.dtype == torch.int8 and w_q.is_contiguous(), "w_q must be contiguous int8 (E, K, N)")
     build.require(scale.shape == (e, n) and scale.dtype == torch.float32, "scale must be fp32 (E, N)")
-    build.require(group_sizes.shape == (e,), "group_sizes must be (E,)")
+    build.require(group_sizes.shape == (e,) and group_sizes.dtype in (torch.int32, torch.int64),
+                  "group_sizes must be int32 or int64 (E,)")
     build.require(n % 16 == 0 and w_q.data_ptr() % 16 == 0, f"the kernel takes N % 16 == 0 (16-byte rows), got {n}")
+    if x.dtype == torch.bfloat16:
+        build.require(k % 8 == 0, f"bf16 rows take K % 8 == 0 (TMA's 16-byte row stride), got {k}")
     if t == 0:
         return x.new_zeros(0, n)
-    return _launch(x, w_q, scale, group_sizes, 1 if t <= _FEW_ROWS else 4)
+    if x.dtype != torch.bfloat16:
+        return _launch(x, w_q, scale, group_sizes, rows_per_thread=1 if t <= _FEW_ROWS else 4)
+    rows, split = plan(t, k, n, e, _sms(x.device.index))
+    return _launch(x, w_q, scale, group_sizes, row_tile=rows, split=split)
 
 
-def _launch(x, w_q, scale, group_sizes, rows_per_thread):
-    """The kernel on checked inputs, with 16 * ``rows_per_thread`` rows a
-    tile (1 or 4)."""
+def _launch(x, w_q, scale, group_sizes, *, rows_per_thread=1, row_tile=8, split=1):
+    """A kernel on checked inputs: fp32 rows with 16 * ``rows_per_thread``
+    rows a tile (1 or 4); bf16 rows with ``row_tile`` rows a tile (ROW_TILES)
+    and K in ``split`` parts (at most MAX_SPLIT and K's stages)."""
     (t, k), (e, _, n) = x.shape, w_q.shape
-    x = x.contiguous()
-    scale = scale.contiguous()
-    offsets = torch.zeros(e + 1, dtype=torch.int32, device=x.device)
-    torch.cumsum(group_sizes, 0, dtype=torch.int32, out=offsets[1:])
+    x, scale, group_sizes = x.contiguous(), scale.contiguous(), group_sizes.contiguous()
+    build.require(x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0, "x and scale must start 16-byte aligned")
     y = torch.empty(t, n, dtype=x.dtype, device=x.device)
+    count = _tc_count()
+    before = count.value
     build.launch(
-        "llmq_quantized_gmm", build.dtype_code(x),
-        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), offsets.data_ptr(), y.data_ptr(),
-        t, e, k, n, rows_per_thread, build.stream_of(x),
+        "llmq_quantized_gmm", build.dtype_code(x), x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+        group_sizes.data_ptr(), int(group_sizes.dtype == torch.int64), y.data_ptr(), t, e, k, n, rows_per_thread,
+        row_tile, split, build.stream_of(x),
     )
     quantized_ragged_dot.launches += 1
+    quantized_ragged_dot.tc_launches += count.value - before
     return y
 
 
 quantized_ragged_dot.launches = 0
+quantized_ragged_dot.tc_launches = 0  # the launches that took the bf16 tensor-core kernel

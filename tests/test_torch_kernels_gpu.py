@@ -19,6 +19,10 @@ backward to its plain version (the per-chunk replay) on the same anchors;
 K1 in bf16 takes the chunked tensor-core kernels (its cases assert
 ``tc_launches``) and is also held per 64-token tile at the hybrid step's
 shape.
+K11 takes bf16 rows to its tensor-core kernel (``tc_launches``; the row
+tile and K split the wrapper plans, and every tiling forced) and fp32 rows
+to the SIMT one; its bf16 cases at Qwen3-Next-small's widths run twice and
+must be bit-equal.
 K12 (bf16 or int8 scores, no fp32 form) has its own, ``attn_core.py::
 k12_tolerance``: bf16 within one bf16 unit of max |plain|; int8 each output
 within one bf16 unit of its plain value plus the fp32 summation bound of
@@ -932,8 +936,9 @@ def test_flash_decode_kernel(gen, dtype, d, shape):
 @pytest.mark.parametrize("sizes", [[0, 3, 0, 5], [1, 0, 2, 1, 0, 3, 1, 0], [300, 0, 257, 43]])
 @pytest.mark.parametrize("k, n", [(96, 160), (64, 48)])
 def test_quantized_gmm_kernel(gen, dtype, sizes, k, n):
-    """K11 against its plain version: empty experts, ragged groups, both row
-    tilings (few rows and many), a K that is not a multiple of 64."""
+    """K11 against its plain version: empty experts, ragged groups, few rows
+    and many, a K that is not a multiple of 64; bf16 rows take the
+    tensor-core kernel (``tc_launches``), fp32 rows the SIMT one."""
     from llm_quest_tpu_torch.kernels import quantized_gmm
 
     e = len(sizes)
@@ -941,10 +946,76 @@ def test_quantized_gmm_kernel(gen, dtype, sizes, k, n):
     w_q = torch.randint(-127, 128, (e, k, n), generator=gen, device="cuda", dtype=torch.int8)
     scale = torch.rand(e, n, generator=gen, device="cuda") * 0.02 + 0.001
     gs = torch.tensor(sizes, device="cuda")
-    cnt = quantized_gmm.quantized_ragged_dot.launches
-    got = quantized_gmm.quantized_ragged_dot(x, w_q, scale, gs)
-    assert quantized_gmm.quantized_ragged_dot.launches == cnt + 1
-    assert_close(got, quantized_gmm.quantized_ragged_dot(x, w_q, scale, gs, plain=True), dtype)
+    w = quantized_gmm.quantized_ragged_dot
+    cnt, tc = w.launches, w.tc_launches
+    got = w(x, w_q, scale, gs)
+    assert (w.launches, w.tc_launches) == (cnt + 1, tc + (dtype == torch.bfloat16))
+    assert_close(got, w(x, w_q, scale, gs, plain=True), dtype)
+
+
+def routed_sizes(gen, tokens, e=8, top_k=2):
+    """Group sizes (int64, on the card) of a top-k routing by random logits."""
+    logits = torch.randn(tokens, e, generator=gen, device="cuda")
+    return torch.bincount(logits.topk(top_k, dim=-1).indices.reshape(-1), minlength=e)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("routing", ["decode", "prefill", "one row", "one expert"])
+@pytest.mark.parametrize("k, n", [(896, 3584), (3584, 896)])
+def test_quantized_gmm_qwen3_next_widths(gen, dtype, routing, k, n):
+    """K11 at Qwen3-Next-small's widths (8 experts; lin1/gate 896 -> 3584,
+    lin2 3584 -> 896): a top-2 routing of 4 tokens (T 8) and of 1200 (T
+    2400), T 1, and one expert holding all 300 rows; the wrapper's own row
+    tile and K split; bf16 on the tensor cores, two runs bit-equal."""
+    from llm_quest_tpu_torch.kernels import quantized_gmm
+
+    e = 8
+    gs = {"decode": lambda: routed_sizes(gen, 4), "prefill": lambda: routed_sizes(gen, 1200),
+          "one row": lambda: torch.tensor([0, 0, 1, 0, 0, 0, 0, 0], device="cuda"),
+          "one expert": lambda: torch.tensor([0, 0, 0, 0, 0, 300, 0, 0], device="cuda")}[routing]()
+    x = randn(gen, int(gs.sum()), k, dtype=dtype)
+    w_q = torch.randint(-127, 128, (e, k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand(e, n, generator=gen, device="cuda") * 0.02 + 0.001
+    w = quantized_gmm.quantized_ragged_dot
+    tc = w.tc_launches
+    got = w(x, w_q, scale, gs)
+    assert w.tc_launches == tc + (dtype == torch.bfloat16)
+    assert_close(got, w(x, w_q, scale, gs, plain=True), dtype)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, w(x, w_q, scale, gs))
+
+
+@pytest.mark.parametrize("rows", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("split", [1, 2, 3, 8])
+def test_quantized_gmm_tc_tilings(gen, rows, split):
+    """The tensor-core kernel at every row tile and K split, whatever the
+    wrapper would pick: 12 experts (three empty), int32 group sizes, K 1000
+    (16 stages, the last partial), N 272 (a partial channel block); two
+    runs bit-equal."""
+    from llm_quest_tpu_torch.kernels import quantized_gmm
+
+    sizes = [5, 0, 40, 1, 0, 130, 7, 0, 64, 2, 9, 33]
+    x = randn(gen, sum(sizes), 1000, dtype=torch.bfloat16)
+    w_q = torch.randint(-127, 128, (12, 1000, 272), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand(12, 272, generator=gen, device="cuda") * 0.02 + 0.001
+    gs = torch.tensor(sizes, device="cuda", dtype=torch.int32)
+    got = quantized_gmm._launch(x, w_q, scale, gs, row_tile=rows, split=split)
+    assert_close(got, quantized_gmm.quantized_ragged_dot(x, w_q, scale, gs, plain=True), torch.bfloat16)
+    assert torch.equal(got, quantized_gmm._launch(x, w_q, scale, gs, row_tile=rows, split=split))
+
+
+def test_quantized_gmm_bf16_refuses_k_not_multiple_of_8(gen):
+    """bf16 rows reach the tensor-core kernel by TMA, whose row stride is a
+    multiple of 16 bytes: K % 8 != 0 raises (fp32 rows take any K)."""
+    from llm_quest_tpu_torch.kernels import quantized_gmm
+
+    w_q = torch.randint(-127, 128, (2, 20, 32), generator=gen, device="cuda", dtype=torch.int8)
+    scale, gs = torch.rand(2, 32, generator=gen, device="cuda"), torch.tensor([1, 3], device="cuda")
+    with pytest.raises(ValueError):
+        quantized_gmm.quantized_ragged_dot(randn(gen, 4, 20, dtype=torch.bfloat16), w_q, scale, gs)
+    x = randn(gen, 4, 20)
+    assert_close(quantized_gmm.quantized_ragged_dot(x, w_q, scale, gs),
+                 quantized_gmm.quantized_ragged_dot(x, w_q, scale, gs, plain=True), torch.float32)
 
 
 def test_int8_serving_through_kernels_matches_plain(gen):

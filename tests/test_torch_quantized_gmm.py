@@ -8,6 +8,20 @@ max |ref|, because the TPU kernel rounds the product to bf16 before the scale
 multiplies and the port rounds once, after it (a documented divergence).
 ``qwen3_moe`` with int8 stacks (the shared expert included) is held to JAX's
 ``qwen3_moe`` on the same quantized tree within 1e-5.
+
+The bf16 tensor-core kernel (``csrc/quantized_gmm_tc.cu``) runs only on the
+card; here its schedule and its arithmetic are held in Python. Its tile
+walk (``tile_walk``, the kernel's map from a block's row-tile index to
+(expert, first row), ``find_tile``) must store every row exactly once and schedule no
+block of an expert without rows, for every row tile, over empty experts,
+one expert holding every row, T below one tile, 12 experts, and a decode
+(T 8, E 8, top-2) and a prefill routing. ``emulate_tc`` repeats the
+kernel's arithmetic in numpy (int8 widened exactly to bf16, fp32 sums per
+64-row K stage within each of the cluster's K parts, the parts summed in
+rank order, the scale, then one rounding to bf16) and is held to the Pallas
+kernel in interpret mode: fp32 rows within 1e-5 × max(1, max |ref|) (sums in
+another order), bf16 rows within 2e-2 × max |ref| (the TPU kernel rounds to
+bf16 before the scale).
 """
 
 import jax
@@ -105,3 +119,174 @@ def test_cpu_tensors_take_the_plain_version():
     n = kq.quantized_ragged_dot.launches
     kq.quantized_ragged_dot(T(x), T(w_q), T(scale), T(gs).long())
     assert kq.quantized_ragged_dot.launches == n
+
+
+# ------------------------------------------- the tensor-core kernel's schedule
+
+
+def routing(tokens, e, top_k, seed):
+    """The group sizes of a top-k routing of ``tokens`` tokens by seeded logits."""
+    logits = np.random.default_rng(seed).standard_normal((tokens, e))
+    return np.bincount(np.argsort(-logits, axis=1)[:, :top_k].reshape(-1), minlength=e)
+
+
+def grid_row_tiles(t, e, rows):
+    """Row tiles the kernel's grid covers: T / rows, plus one partial tile
+    for each expert that may hold rows."""
+    return (t + min(e, t) * (rows - 1)) // rows
+
+
+def tile_walk(group_sizes, t, rows):
+    """The kernel's map from its row-tile index j (``grid_row_tiles``) to
+    (expert, first row, the expert's end row), or None for a block with no
+    work: each expert's ceil(g / rows) tiles in expert order
+    (``find_tile``)."""
+    jobs, start = [], 0
+    for e, g in enumerate(max(int(g), 0) for g in group_sizes):
+        jobs += [(e, start + i * rows, start + g) for i in range(-(-g // rows))]
+        start += g
+    n = grid_row_tiles(t, len(group_sizes), rows)
+    return [jobs[j] if j < len(jobs) else None for j in range(n)]
+
+
+def k_ranges(k, split):
+    """The K stages [begin, end) of each of the ``split`` blocks of a cluster."""
+    n_k = -(-k // kq.K_STAGE)
+    return [(n_k * q // split, n_k * (q + 1) // split) for q in range(split)]
+
+
+WALKS = {
+    "empty experts": [0, 7, 0, 9, 0],
+    "one expert": [0, 0, 300, 0],
+    "below one tile": [1, 0, 2],
+    "twelve experts": [2, 1, 0, 4, 3, 0, 0, 2, 1, 1, 1, 1],
+    "decode": routing(4, 8, 2, seed=0).tolist(),
+    "prefill": routing(1200, 8, 2, seed=1).tolist(),
+}
+
+
+@pytest.mark.parametrize("rows", kq.ROW_TILES)
+@pytest.mark.parametrize("sizes", list(WALKS.values()), ids=list(WALKS))
+def test_tile_walk_stores_every_row_once(sizes, rows):
+    t = sum(sizes)
+    walk = tile_walk(sizes, t, rows)
+    assert len(walk) == grid_row_tiles(t, len(sizes), rows)
+    stored = np.zeros(t, np.int64)
+    expert_of = np.repeat(np.arange(len(sizes)), sizes)
+    for job in walk:
+        if job is None:
+            continue
+        e, row0, end = job
+        assert sizes[e] > 0, f"a block of expert {e}, which has no row"
+        lo, hi = row0, min(row0 + rows, end, t)
+        assert lo < hi and (expert_of[lo:hi] == e).all()
+        stored[lo:hi] += 1
+    assert (stored == 1).all()
+    jobs = [j for j in walk if j is not None]
+    assert len(jobs) == sum(-(-g // rows) for g in sizes)
+    assert walk[: len(jobs)] == jobs  # the blocks past the last tile are the ones without work
+
+
+@pytest.mark.parametrize("k", [64, 96, 896, 3584])
+def test_k_ranges_cover_k_once(k):
+    n_k = -(-k // kq.K_STAGE)
+    for split in range(1, min(kq.MAX_SPLIT, n_k) + 1):
+        ranges = k_ranges(k, split)
+        assert ranges[0][0] == 0 and ranges[-1][1] == n_k
+        assert all(b < e for b, e in ranges) and all(ranges[i][1] == ranges[i + 1][0] for i in range(split - 1))
+
+
+QWEN3_NEXT = {"lin1": (896, 3584), "lin2": (3584, 896)}
+
+
+@pytest.mark.parametrize("t", [1, 8, 64, 512, 2400])
+@pytest.mark.parametrize("mat", list(QWEN3_NEXT))
+def test_plan_at_qwen3_next_widths(mat, t):
+    """The host's row tile and K split at Qwen3-Next-small's widths (E 8) on
+    an H100's 132 SMs: a row tile in ROW_TILES that holds a busy expert's
+    rows (up to the largest), K parts of at least MIN_STAGES stages, and
+    the choices the card's sweep picked at decode and prefill."""
+    k, n = QWEN3_NEXT[mat]
+    rows, split = kq.plan(t, k, n, 8, 132)
+    assert rows in kq.ROW_TILES and 1 <= split <= kq.MAX_SPLIT
+    m = t / (8 * (1 - (1 - 1 / 8) ** t))
+    busy = m + m**0.5
+    assert rows >= min(busy, kq.ROW_TILES[-1]) and (rows == kq.ROW_TILES[0] or rows / 2 < busy)
+    assert split == 1 or min(e - b for b, e in k_ranges(k, split)) >= kq.MIN_STAGES
+    if t in (8, 512, 2400):  # lin1's channel tiles fill the card; lin2's 7 need K parts below T 2400
+        assert (rows, split) == {(8, "lin1"): (8, 1), (8, "lin2"): (8, 4), (512, "lin1"): (128, 1),
+                                 (512, "lin2"): (128, 2), (2400, "lin1"): (128, 1),
+                                 (2400, "lin2"): (128, 1)}[t, mat]
+
+
+def widen_s8(w):
+    """The kernel's int8 -> float widening: the sign bit flipped, the byte
+    under the exponent of 2^23 (0x4B0000uu = 2^23 + uu), less 2^23 + 128."""
+    u = (w.astype(np.int32) ^ 0x80) & 0xFF
+    return ((u | 0x4B000000).astype(np.uint32).view(np.float32) - np.float32(8388736.0)).astype(np.float32)
+
+
+def test_int8_widens_to_bf16_exactly():
+    w = np.arange(-128, 128).astype(np.int8)
+    f = widen_s8(w)
+    assert (f == w.astype(np.float32)).all()
+    assert torch.equal(torch.from_numpy(f).bfloat16().float(), torch.from_numpy(f))
+
+
+def emulate_tc(x, w_q, scale, sizes, rows, split, bf16):
+    """The tensor-core kernel's arithmetic on numpy inputs (x fp32, its
+    values bf16 already where ``bf16``): per block of the tile walk and of
+    BLOCK_CHANNELS channels, each K part's fp32 sum stage by stage, the
+    parts summed in rank order, times the scale, rounded once (bf16)."""
+    t, k = x.shape
+    n = w_q.shape[-1]
+    n_k = -(-k // kq.K_STAGE)
+    kp, n_pad = n_k * kq.K_STAGE, -(-n // kq.BLOCK_CHANNELS) * kq.BLOCK_CHANNELS
+    w = np.zeros((w_q.shape[0], kp, n_pad), np.float32)
+    w[:, :k, :n] = widen_s8(w_q)
+    xp = np.zeros((t + rows, kp), np.float32)  # rows past T and columns past K arrive as zeros
+    xp[:t, :k] = x
+    s = np.zeros((scale.shape[0], n_pad), np.float32)
+    s[:, :n] = scale
+    y = np.full((t, n), np.nan, np.float32)
+    for job in tile_walk(sizes, t, rows):
+        if job is None:
+            continue
+        e, row0, end = job
+        xt = xp[row0 : row0 + rows]
+        for n0 in range(0, n_pad, kq.BLOCK_CHANNELS):
+            parts = []
+            for b, f in k_ranges(k, split):
+                acc = np.zeros((rows, kq.BLOCK_CHANNELS), np.float32)
+                for st in range(b, f):
+                    ks = slice(st * kq.K_STAGE, (st + 1) * kq.K_STAGE)
+                    acc = acc + xt[:, ks] @ w[e, ks, n0 : n0 + kq.BLOCK_CHANNELS]
+                parts.append(acc)
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p
+            out = total * s[e, n0 : n0 + kq.BLOCK_CHANNELS]
+            hi, nh = min(row0 + rows, end, t), min(n0 + kq.BLOCK_CHANNELS, n)
+            y[row0:hi, n0:nh] = out[: hi - row0, : nh - n0]
+    assert not np.isnan(y).any()
+    return torch.from_numpy(y).bfloat16().float().numpy() if bf16 else y
+
+
+EMULATED = {"decode": (routing(4, 8, 2, seed=2).tolist(), 8, 3),
+            "prefill": (routing(100, 8, 2, seed=3).tolist(), 32, 1),
+            "prefill split": (routing(100, 8, 2, seed=4).tolist(), 16, 2)}
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(EMULATED))
+def test_tc_emulation_matches_pallas(case, bf16):
+    """At narrow widths (K 256: four stages; N 160: a partial channel
+    block), both routings, with the cluster's K split."""
+    sizes, rows, split = EMULATED[case]
+    x, w_q, scale, gs = make(sizes, d=256, n=160, seed=len(case))
+    jx = jnp.asarray(x, jnp.bfloat16 if bf16 else jnp.float32)
+    ref = np.asarray(jqrd(jx, jnp.asarray(w_q), jnp.asarray(scale), jnp.asarray(gs), tile_m=8, interpret=True),
+                     np.float32)
+    got = emulate_tc(np.asarray(jx, np.float32), w_q, scale, sizes, rows, split, bf16)
+    err, top = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+    assert err <= (2e-2 * top if bf16 else 1e-5 * max(1.0, top)), err
