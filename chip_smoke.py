@@ -41,7 +41,13 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    ``sdpa`` (d 64/128/256, key mask on/off, GQA 16/8 and 8/2; and, in bf16,
    one layer of the dense train step at b = 4, s = 2048, output included)
    and timed forward + backward at that shape and at b = 1. K10 (int8 flash
-   decode) at the int8 decode shape, a long context and Qwen3's head dim;
+   decode) at the int8 decode shape, a long context at b 16 and b 1 and
+   Qwen3's head dim, on the cache's layer views: fp32 q on the SIMT kernel,
+   bf16 q on the tensor-core kernel (csrc/flash_decode_tc.cu,
+   ``tc_launches``), each (batch, q head) row within K10_ROW_TOL beside a
+   control with one 64-key tile masked out of the plain version, two runs
+   bit-equal, device ms, share of the bound and host µs a call; then
+   ``split_sweep``: every cluster size at b 1 and 16, S 96 and 8192;
    K11 (int8 grouped matmul) at Qwen3-Next-small's decode and prefill
    shapes: fp32 rows on the SIMT kernel (both its row tilings), bf16 rows
    on the tensor-core kernel (csrc/quantized_gmm_tc.cu, ``tc_launches``) at
@@ -80,11 +86,13 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    tile by tile. K6 (short-sequence MHA) at ViT-B's heads
    (not causal) and causal at b 4, 16 heads of 128, s 300, forward (with
    its row lse) and forward + backward. K12 (the
-   ablation's attention core) at its two shapes, bf16 scores (G 1536, M 208,
-   D 64) and int8 scores (M 224, D 128 zero-padded): bf16 within one bf16
-   unit of max |plain|; int8 each output within one bf16 unit of its plain
-   value plus the fp32 summation bound of p·(v + t) (``kernel_k12``); the
-   bf16 one beside two ``torch.bmm``. Each record
+   ablation's attention core, csrc/attn_core_tc.cu, both variants on the
+   tensor cores) at its two shapes, bf16 scores (G 1536, M 208, D 64) and
+   int8 scores (M 224, D 128 zero-padded): bf16 within one bf16 unit of max
+   |plain|; int8 each output within one bf16 unit of its plain value plus
+   the fp32 summation bound of p·(v + t) (``kernel_k12``), beside a control
+   with one 64-key chunk dropped from the plain version; two runs
+   bit-equal; the bf16 one beside two ``torch.bmm``. Each record
    carries its bound and, where one PyTorch call computes the same
    function, that call's time (none for K8 and K9: ``bf16_sdpa_ms`` stands
    beside them; ``sdpa`` beside K5 returns no lse);
@@ -182,7 +190,7 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
     phase after the kernel phase where plain versions run): int8 Qwen3.5-0.8B
     text and int8 Qwen3-Next-small at full width cut to 4 layers, fp32,
     kernels against plain: prefill logits within INT8_LOGIT_TOL, 16 greedy
-    tokens equal;
+    tokens equal, and no tensor-core launch (K1, K10, K11 on the SIMT kernels);
 18. int8_generate: Qwen3.5-0.8B text, 24 layers, bf16, weights, tied table
     and KV cache int8, b = 1, prompt 32, 64 greedy tokens (K1, K2, K10);
 19. next_serve: Qwen3-Next-small, 8 layers, bf16, linears and expert stacks
@@ -202,7 +210,8 @@ short-sequence tensor-core kernel of ``csrc/fused_mha_tc.cu`` forward and
 two routes the same way: bf16 the chunked kernels of ``csrc/gdn_tc.cu``,
 fp32 the scan of ``csrc/gdn.cu``; K11 too: bf16 rows the tensor-core
 kernel of ``csrc/quantized_gmm_tc.cu``, fp32 rows the SIMT one of
-``csrc/quantized_gmm.cu``. Their
+``csrc/quantized_gmm.cu``; and K10: bf16 q ``csrc/flash_decode_tc.cu``, fp32
+q ``csrc/flash_decode.cu``. K12 has only the tensor-core kernel. Their
 records keep the fp32 error as ``max_abs_err`` and add
 ``max_abs_err_bf16`` (the tensor-core error on the same bf16 inputs); K5's
 bf16 records and the dense train shape's bf16 fwd + bwd are also held tile
@@ -211,7 +220,7 @@ tile dropped, which must exceed those bars, and so are K6's and K7's bf16
 records (against the plain version in fp32 on the same values); the bf16
 backward at the dense train shape runs twice and must be bit-equal; every
 path's reading of the launch counts fails if a bf16 path's
-K1/K4/K5/K6/K7/K8/K9/K11 launches, forward and backward, were not all
+K1/K4–K12 launches, forward and backward, were not all
 tensor-core launches (``tc_launches``, ``tc_bwd_launches``, counted by the
 C library where it launches those kernels), or an fp32 path's were not all
 SIMT; and every phase after the kernel phase fails if K6's plain version,
@@ -1324,34 +1333,126 @@ def int8_cache_inputs(gen, b, hq, hkv, s_len, d, dtype):
     return randn(gen, b, hq, 1, d, dtype=dtype), k, v, bias
 
 
+# K10's shapes: (b, q heads, kv heads, S, d)
+K10_SHAPES = {"decode": (1, 8, 2, 96, 256), "long": (16, 8, 2, 8192, 256), "long_b1": (1, 8, 2, 8192, 256),
+              "qwen3": (4, 16, 8, 300, 128)}
+# K10's bar on each (batch, q head) output row, ||kernel - plain|| / ||plain||:
+# fp32 sums in another order; bf16 rounds p·v_s (relative to each warp's
+# running max, where the plain version rounds it relative to the row's) and
+# the output
+K10_ROW_TOL = {"float32": NEW_TOL, "bfloat16": TILE_TOL}
+
+
+def k10_rows(got, ref):
+    """The largest ||got - ref|| / ||ref|| over the (batch, q head) output rows."""
+    g, r = got.float().flatten(0, 2), ref.float().flatten(0, 2)
+    return float(((g - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def host_us(fn, iters=50):
+    """µs a call takes to return (its launch work), over ``iters`` calls that are not waited for."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / iters
+
+
 def kernel_k10(gen, dtypes):
     """K10 at the int8 generation path's decode shape (b 1, 8/2 heads, d 256,
-    S 96: 32 prompt + 64 generated) and at a long context (b 16, S 8192),
-    and at Qwen3's head dim 128."""
-    from llm_quest_tpu_torch.kernels import flash_decode as fd
+    S 96: 32 prompt + 64 generated), at a long context (b 16 and b 1, S
+    8192) and at Qwen3's head dim 128 (b 4, 16/8 heads, S 300), on the int8
+    cache's strided layer views. fp32 q on the SIMT kernel, bf16 q on the
+    tensor-core kernel (``tc_launches``) at the wrapper's split: within TOL,
+    each (batch, q head) row within K10_ROW_TOL beside a control that masks
+    one 64-key tile out of the plain version, which must read beyond it, two
+    runs bit-equal; bf16 timed by CUDA events and profiler beside its bound
+    and the host's µs a call. Then ``split_sweep``: the tensor-core kernel at
+    every cluster size around the wrapper's plan."""
+    import torch
 
-    errs, cases = [], []
-    shapes = {"decode": (1, 8, 2, 96, 256), "long": (16, 8, 2, 8192, 256), "qwen3": (4, 16, 8, 300, 128)}
+    from llm_quest_tpu_torch.kernels import flash_decode as fd
+    from llm_quest_tpu_torch.ops.masks import mask_value
+
+    w = fd.flash_decode
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs, errs_bf16, cases = [], [], []
     for dtype in dtypes:
-        for name, (b, hq, hkv, s_len, d) in shapes.items():
+        bf16 = dtype == torch.bfloat16
+        row_tol = K10_ROW_TOL[str(dtype).removeprefix("torch.")]
+        for name, (b, hq, hkv, s_len, d) in K10_SHAPES.items():
             q, k, v, bias = int8_cache_inputs(gen, b, hq, hkv, s_len, d, dtype)
-            call = lambda plain=False: fd.flash_decode(q, k.data, k.scale, v.data, v.scale, bias, plain=plain)  # noqa: E731
-            out, ref = call(), call(True)
+            def call(plain=False, bias=bias, q=q, k=k, v=v):
+                return w(q, k.data, k.scale, v.data, v.scale, bias, plain=plain)
+
+            out, tc = tc_count(w, call)
+            ref = call(True)
             torch_sync()
+            tc_moved(f"K10 {name} {dtype}", tc, 0, int(bf16))
             e = check(f"K10 {name} {dtype}", out, ref, dtype)
+            rows = k10_rows(out, ref)
+            if not rows <= row_tol:  # also catches NaN
+                raise AssertionError(f"K10 {name} {dtype}: row error {rows} > {row_tol}")
+            tile = -(-s_len // fd.TILE) // 2  # the middle 64-key tile, masked out of the plain version
+            bias_drop = bias.clone()
+            bias_drop[:, tile * fd.TILE:(tile + 1) * fd.TILE] = mask_value(torch.float32)
+            dropped = k10_rows(out, call(True, bias_drop))
+            if not dropped > row_tol:
+                raise AssertionError(f"K10 {name} {dtype}: a masked key tile reads {dropped}, within {row_tol}")
+            if not torch.equal(out, call()):
+                raise AssertionError(f"K10 {name} {dtype}: two runs differ")
             case = {"shape": name, "b": b, "heads": [hq, hkv], "S": s_len, "d": d, "dtype": str(dtype),
-                    "max_abs_err": e}
-            if dtype == dtypes[-1]:
-                case["ms"], case["plain_ms"] = cuda_ms(call), cuda_ms(lambda: call(True))
-                case["device_ms"] = device_ms(call, "flash_decode")
+                    "max_abs_err": e, "row_err": rows, "dropped_tile_row_err": dropped, "tc_launches": tc}
+            if bf16:
+                case.update(split=fd.plan(b, hkv, s_len, sms), ms=cuda_ms(call), plain_ms=cuda_ms(lambda: call(True)),
+                            device_ms=device_ms(call, "flash_decode"), host_us=host_us(call))
                 # int8 K/V, their scales, the bias and q read once, the output written once
                 case.update(bound(nbytes(q, k.data, k.scale, v.data, v.scale, bias, out), 4 * b * hq * s_len * d))
-            cases.append(case)
-            if dtype == dtypes[0]:
+                case["share_of_bound"] = case["bound_ms"] / case["device_ms"]
+                errs_bf16.append(e)
+            else:
                 errs.append(e)
+            cases.append(case)
+            del q, k, v, bias, bias_drop, out, ref
+    torch.cuda.empty_cache()
     rec = next(c for c in cases if c["shape"] == "decode" and "ms" in c)
     extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "device_ms")}
-    return max(errs), rec["ms"], rec["plain_ms"], cases, {**extra, "library_ms": None}
+    extra.update({"library_ms": None, "max_abs_err_bf16": max(errs_bf16),
+                  "tile_err_bf16": max(c["row_err"] for c in cases if "ms" in c),
+                  "split_sweep": k10_split_sweep(gen),
+                  "record": {"cases_device_ms": {c["shape"]: c["device_ms"] for c in cases if "ms" in c},
+                             "cases_share_of_bound": {c["shape"]: c["share_of_bound"] for c in cases if "ms" in c},
+                             "cases_host_us": {c["shape"]: c["host_us"] for c in cases if "ms" in c}}})
+    return max(errs), rec["ms"], rec["plain_ms"], cases, extra
+
+
+def k10_split_sweep(gen):
+    """The tensor-core kernel's device ms at b 1 and 16 (8/2 heads, d 256)
+    and S 96 and 8192 with each (batch, kv head)'s keys split over 1 to 16
+    blocks of a cluster, beside the wrapper's plan; each checked against plain."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import flash_decode as fd
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sweep = []
+    for b in (1, 16):
+        for s_len in (96, 8192):
+            q, k, v, bias = int8_cache_inputs(gen, b, 8, 2, s_len, 256, torch.bfloat16)
+            args = (q, k.data, k.scale, v.data, v.scale, bias)
+            ref = fd.flash_decode(*args, plain=True)
+            times = {}
+            for split in (1, 2, 4, 8, 16):
+                fn = lambda split=split: fd._launch(*args, 256**-0.5, split=split)  # noqa: E731
+                check(f"K10 sweep b={b} S={s_len} split {split}", fn(), ref, torch.bfloat16)
+                times[split] = device_ms(fn, "flash_decode")
+            sweep.append({"b": b, "S": s_len, "plan": fd.plan(b, 2, s_len, sms), "device_ms": times})
+    return sweep
 
 
 K11_EXPERTS = 8  # Qwen3-Next-small's experts; lin1 and gate 896 -> 3584, lin2 3584 -> 896
@@ -1405,6 +1506,39 @@ def k11_grouped_mm_ms(x, w_q, scale, group_sizes):
     return cuda_ms(lambda: torch._grouped_mm(x, wb, offs=offs) * scale_rows), err
 
 
+# widths the tensor-core kernel's TMA cannot address (K, N): bf16 rows with
+# K % 8 != 0, stacks with N % 16 != 0; K11's SIMT kernel takes them
+K11_TAILS = ((36, 40), (64, 40), (36, 64))
+
+
+def k11_tail_widths():
+    """K11 with bf16 rows (a top-2 routing of 10 tokens) at K11_TAILS: each
+    call one launch of the SIMT kernel and none of the tensor-core kernel,
+    within the bf16 tolerance of the plain version. {"KxN": max abs err}.
+    Its inputs come from a generator of their own, so the records after K11
+    keep theirs."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import quantized_gmm as qg
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    w = qg.quantized_ragged_dot
+    group_sizes = k11_routing(gen, 10)
+    errs = {}
+    for k_dim, n_dim in K11_TAILS:
+        w_q, scale = k11_stack(gen, k_dim, n_dim)
+        x = randn(gen, 20, k_dim, dtype=torch.bfloat16)
+        n = w.launches
+        out, tc = tc_count(w, lambda: w(x, w_q, scale, group_sizes))
+        torch_sync()
+        if w.launches - n != 1:
+            raise AssertionError(f"K11 bf16 K {k_dim} N {n_dim}: {w.launches - n} launches, expected 1")
+        tc_moved(f"K11 bf16 K {k_dim} N {n_dim} (the SIMT kernel)", tc, 0, 0)
+        errs[f"{k_dim}x{n_dim}"] = check(f"K11 bf16 K {k_dim} N {n_dim}", out,
+                                         w(x, w_q, scale, group_sizes, plain=True), torch.bfloat16)
+    return errs
+
+
 def kernel_k11(gen, dtypes):
     """K11 at Qwen3-Next-small's shapes (8 experts, 896 -> 3584 for lin1 and
     gate, 3584 -> 896 for lin2) with a top-2 routing of b 4 tokens (decode,
@@ -1416,7 +1550,8 @@ def kernel_k11(gen, dtypes):
     the largest expert dropped, which must read above the bar; timed by CUDA
     events and profiler, beside ``torch._grouped_mm`` on a bf16 copy of the
     stack (``bf16_grouped_mm_ms``; no PyTorch call takes the int8 stack:
-    library_ms is null)."""
+    library_ms is null). bf16 rows at widths the tensor-core kernel's TMA
+    cannot address take the SIMT kernel (``k11_tail_widths``)."""
     import torch
 
     from llm_quest_tpu_torch.kernels import quantized_gmm as qg
@@ -1477,7 +1612,7 @@ def kernel_k11(gen, dtypes):
                                        "bf16_grouped_mm_ms")}
     extra.update({"library_ms": None, "max_abs_err_bf16": max(errs_bf16),
                   "tile_err_bf16": max(c["tile_err"] for c in cases if "tile_err" in c),
-                  "tiling_sweep": k11_tiling_sweep(gen),
+                  "tiling_sweep": k11_tiling_sweep(gen), "tail_widths_err_bf16": k11_tail_widths(),
                   "record": {"cases_device_ms": {f"T{c['T']}_{c['matrix']}": c["device_ms"]
                                                  for c in cases if "device_ms" in c}}})
     return max(errs), rec["ms"], rec["plain_ms"], cases, extra
@@ -1727,11 +1862,14 @@ def kernel_k6(gen, dtypes, *, causal=False, shape=K6_VIT, backward=False):
 
 def kernel_k12(gen, dtypes, *, int8):
     """K12 at the ablation's shape (bf16: G 1536, M 208, D 64; int8: M 224,
-    D 128 zero-padded), against its plain version within ``k12_tolerance``
-    (bf16: one bf16 unit of max |plain|; int8: one bf16 unit of each plain
-    value plus the fp32 summation bound of p·(v + t)). Timed beside the plain
-    version and, for bf16, two ``torch.bmm`` (no PyTorch call takes int8
-    batched products on the card)."""
+    D 128 zero-padded), on the tensor cores (``tc_launches``), against its
+    plain version within ``k12_tolerance`` (bf16: one bf16 unit of max
+    |plain|; int8: one bf16 unit of each plain value plus the fp32 summation
+    bound of p·(v + t)) beside a control, the plain version with one 64-key
+    chunk dropped (its key rows zeroed, so p = 0 there), which must read
+    beyond it; two runs bit-equal. Timed by CUDA events and profiler beside
+    the plain version and, for bf16, two ``torch.bmm`` (no PyTorch call
+    takes int8 batched products on the card)."""
     import torch
 
     from llm_quest_tpu_torch.kernels import attn_core as ac
@@ -1740,20 +1878,34 @@ def kernel_k12(gen, dtypes, *, int8):
     bf16_inputs, int8_inputs = ab.inputs()
     q, k, v = int8_inputs if int8 else bf16_inputs
     del bf16_inputs, int8_inputs
+    label = f"K12 {'int8' if int8 else 'bf16'}"
     t = torch.full((1, 1, ab.K), 0.01, dtype=torch.bfloat16, device=DEVICE)
-    out, ref = ac.attn_core(t, q, k, v), ac.attn_core(t, q, k, v, plain=True)
+    out, tc = tc_count(ac.attn_core, lambda: ac.attn_core(t, q, k, v))
+    ref = ac.attn_core(t, q, k, v, plain=True)
     torch_sync()
+    tc_moved(label, tc, 0, 1)
     err = (out.float() - ref.float()).abs()
     tol = ac.k12_tolerance(t, q, k, v, ref)
     if not bool((err <= tol).all()):  # also catches NaN
-        raise AssertionError(f"K12 {'int8' if int8 else 'bf16'}: max abs err {float(err.max())}, "
-                             f"{int((err > tol).sum())} outputs beyond the tolerance")
+        raise AssertionError(f"{label}: max abs err {float(err.max())}, {int((err > tol).sum())} outputs beyond "
+                             "the tolerance")
+    if not torch.equal(out, ac.attn_core(t, q, k, v)):
+        raise AssertionError(f"{label}: two runs differ")
     e = float(err.max())
     case = {"shape": list(q.shape), "dtype": str(q.dtype), "max_abs_err": e, "max_abs_plain": float(ref.float().abs().max()),
-            "n_beyond_one_bf16_unit_of_plain": int((err > ac.bf16_unit(ref)).sum())}
-    del out, ref, err, tol
+            "n_beyond_one_bf16_unit_of_plain": int((err > ac.bf16_unit(ref)).sum()), "tc_launches": tc}
+    del ref, err, tol
+    k_drop = k.clone()
+    k_drop[:, ac.CHUNK:2 * ac.CHUNK] = 0
+    ref_drop = ac.attn_core(t, q, k_drop, v, plain=True)
+    beyond = int(((out.float() - ref_drop.float()).abs() > ac.k12_tolerance(t, q, k_drop, v, ref_drop)).sum())
+    if beyond == 0:
+        raise AssertionError(f"{label}: the plain version without one 64-key chunk reads within the tolerance")
+    case["dropped_chunk_outputs_beyond"] = beyond
+    del k_drop, ref_drop, out
     flops = 4 * ab.G * ab.M * ab.M * ab.K  # the useful count, both variants
-    ms = cuda_ms(lambda: ac.attn_core(t, q, k, v), iters=50, warmup=5)
+    call = lambda: ac.attn_core(t, q, k, v)  # noqa: E731
+    ms = cuda_ms(call, iters=50, warmup=5)
     plain_ms = cuda_ms(lambda: ac.attn_core(t, q, k, v, plain=True), iters=5, warmup=1)
     g, m, d = q.shape
     n_bytes = nbytes(q, k, v, v)  # q, k, v read and o (v's shape and type) written
@@ -1762,9 +1914,11 @@ def kernel_k12(gen, dtypes, *, int8):
         extra = {**bound_int8(n_bytes, 2 * g * m * m * d, 2 * g * m * m * kv), "library_ms": None}
     else:
         lib = lambda: torch.bmm(torch.bmm(q, k.transpose(1, 2)), v + t)  # noqa: E731
-        check("K12 vs two bmm (library)", lib(), ac.attn_core(t, q, k, v), torch.bfloat16)
+        check("K12 vs two bmm (library)", lib(), call(), torch.bfloat16)
         extra = {**bound(n_bytes, flops), "library_ms": cuda_ms(lib, iters=50, warmup=5)}
-    extra.update(useful_flops=flops, tflops=flops / ms / 1e9, shape=list(q.shape))
+    extra.update(useful_flops=flops, tflops=flops / ms / 1e9, shape=list(q.shape),
+                 device_ms=device_ms(call, "attn_core"))
+    case["device_ms"] = extra["device_ms"]
     return e, ms, plain_ms, [case], extra
 
 
@@ -1800,6 +1954,9 @@ GDN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/gdn_tc.cu", "float32": "llm_que
 # K11's: bf16 rows take the tensor-core kernel, fp32 rows the SIMT one
 QGMM_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/quantized_gmm_tc.cu",
             "float32": "llm_quest_tpu_torch/csrc/quantized_gmm.cu"}
+# K10's: bf16 q takes the tensor-core kernel, fp32 q the SIMT one
+FD_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/flash_decode_tc.cu",
+          "float32": "llm_quest_tpu_torch/csrc/flash_decode.cu"}
 FP32_PATHS = (VIT_TRAIN, CP_FALLBACK)  # the paths that run in fp32
 KERNELS = [
     # name, wrapper (module, attribute[, which launches: "window" = those with a
@@ -1837,7 +1994,7 @@ KERNELS = [
      "llm_quest_tpu/kernels/fused_mha.py:405", partial(kernel_int8, mode="static"), (VIT,)),
     ("packed_mha_int8_inkernel", ("fused_mha", "packed_mha_int8_inkernel"), INT8_SRC,
      "llm_quest_tpu/kernels/fused_mha.py:372", partial(kernel_int8, mode="inkernel"), (VIT,)),
-    ("flash_decode", ("flash_decode", "flash_decode"), "llm_quest_tpu_torch/csrc/flash_decode.cu",
+    ("flash_decode", ("flash_decode", "flash_decode"), FD_SRC,
      "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10, (INT8_GENERATE,)),
     ("quantized_ragged_dot", ("quantized_gmm", "quantized_ragged_dot"), QGMM_SRC,
      "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11, (NEXT_SERVE,)),
@@ -1907,10 +2064,10 @@ KERNELS = [
      "llm_quest_tpu/kernels/fused_mha.py:126", partial(kernel_k6, backward=True), ()),
     ("fused_mha_fwd_bwd_causal", ("fused_mha", "fused_mha", "causal_bwd"), ATTN_SRC,
      "llm_quest_tpu/kernels/fused_mha.py:126", partial(kernel_k6, causal=True, shape=K6_CAUSAL, backward=True), ()),
-    # K12: the int8-score ablation's attention core, bf16 and int8 scores
-    ("attn_core_bf16", ("attn_core", "attn_core", "bf16"), "llm_quest_tpu_torch/csrc/attn_core.cu",
+    # K12: the int8-score ablation's attention core, bf16 and int8 scores, both on the tensor cores
+    ("attn_core_bf16", ("attn_core", "attn_core", "bf16"), "llm_quest_tpu_torch/csrc/attn_core_tc.cu",
      "scripts/ablate_int8_scores.py:55", partial(kernel_k12, int8=False), (ABLATE,)),
-    ("attn_core_int8", ("attn_core", "attn_core", "int8"), "llm_quest_tpu_torch/csrc/attn_core.cu",
+    ("attn_core_int8", ("attn_core", "attn_core", "int8"), "llm_quest_tpu_torch/csrc/attn_core_tc.cu",
      "scripts/ablate_int8_scores.py:55", partial(kernel_k12, int8=True), (ABLATE,)),
 ]
 
@@ -1978,9 +2135,10 @@ def reset_launches():
 
 
 # the attention wrappers' (K4, K4 bwd, K5, K6 and K7, forward and backward;
-# K8 forward and backward, K9), K1's (forward and backward) and K11's launch
-# counters (module, wrapper, launches) and, beside each, the count of those
-# that took the bf16 tensor-core kernels
+# K8 forward and backward, K9), K1's (forward and backward), K10's, K11's and
+# K12's launch counters (module, wrapper, launches) and, beside each, the
+# count of those that took the tensor-core kernels (K12 has no other: both
+# its variants count)
 TC_COUNTERS = (("gdn", "gated_delta_rule_fwd", "launches", "tc_launches"),
                ("gdn", "gated_delta_rule_bwd", "launches", "tc_launches"),
                ("attention", "flash_attention", "launches", "tc_launches"),
@@ -1994,13 +2152,14 @@ TC_COUNTERS = (("gdn", "gated_delta_rule_fwd", "launches", "tc_launches"),
                ("fused_mha", "packed_mha_int8", "launches", "tc_launches"),
                ("fused_mha", "packed_mha_int8", "bwd_launches", "tc_bwd_launches"),
                ("fused_mha", "packed_mha_int8_inkernel", "launches", "tc_launches"),
-               ("quantized_gmm", "quantized_ragged_dot", "launches", "tc_launches"))
+               ("flash_decode", "flash_decode", "launches", "tc_launches"),
+               ("quantized_gmm", "quantized_ragged_dot", "launches", "tc_launches"),
+               ("attn_core", "attn_core", "launches", "tc_launches"))
 
 
 def check_routes(path, bf16):
-    """On a bf16 path every K1/K4/K5/K6/K7/K8/K9/K11 launch, forward and
-    backward, took the tensor-core kernels; on an fp32 path none did (the
-    SIMT kernels)."""
+    """On a bf16 path every K1/K4–K12 launch, forward and backward, took the
+    tensor-core kernels; on an fp32 path none did (the SIMT kernels)."""
     for module, name, total, tc in TC_COUNTERS:
         w = wrapper((module, name))
         n, n_tc = getattr(w, total), getattr(w, tc)
@@ -2062,7 +2221,8 @@ def read_launches(path, records, *, add=True):
             w = wrapper(spec)
             if len(spec) == 2 and hasattr(w, "tc_launches"):  # all the wrapper's launches: those on the tensor cores
                 rec["tc_launches"] = rec.get("tc_launches", 0) + w.tc_launches
-            elif spec[-1] in ("dynamic", "static"):  # K8's by scales: all or none on the tensor cores (check_routes)
+            elif spec[-1] in ("dynamic", "static", "bf16", "int8"):  # K8's by scales, K12's by scores: all or
+                # none on the tensor cores (check_routes)
                 rec["tc_launches"] = rec.get("tc_launches", 0) + n * (path not in FP32_PATHS)
     missing = [name for (name, *_, paths) in KERNELS if path in paths and counts[name] == 0]
     if missing:
@@ -3291,10 +3451,13 @@ def serving_checks_fp32():
 
     text = text_int8_cfg(4, torch.float32)
     model = quantize_params_int8(text_model(text))
+    reset_launches()
     serve_check_fp32("int8_generate_fp32", qwen3_5, qwen3_5.TextOnly, model, text, ids_on_card(1, 32))
+    check_routes("int8_generate_fp32", bf16=False)  # K1, K10 and K11 on the SIMT kernels
     nxt = next_serve_cfg(4, torch.float32)
     model = quantize_params_int8(init_model(qwen3_next, nxt))
     serve_check_fp32("next_serve_fp32", qwen3_next, qwen3_next, model, nxt, ids_on_card(2, 64))
+    check_routes("next_serve_fp32", bf16=False)
     del model
     torch.cuda.empty_cache()
 

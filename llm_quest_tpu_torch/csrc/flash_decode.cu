@@ -1,4 +1,6 @@
-// Flash-decode over an int8 KV cache, for Hopper.
+// Flash-decode over an int8 KV cache, for Hopper: the C entry point, and
+// the kernel for fp32 q on the SIMT units. bf16 q takes the tensor-core
+// kernel of flash_decode_tc.cu.
 //
 // Replaces llm_quest_tpu/kernels/flash_decode.py::flash_decode (the Pallas
 // kernel _kernel): one decode step of attention, q (b, hq, 1, d) against
@@ -23,10 +25,10 @@
 //
 // Bound: bytes. Each step must read 2*b*hkv*S*d bytes of int8 K/V, 8*b*hkv*S
 // of scales and 4*b*S of bias; the score and value products are 4*b*hq*S*d
-// FLOPs, far below the card's rate for those bytes. This first version
-// converts and multiplies on the fp32 SIMT units with no copy/compute
-// overlap inside a block; the splits give the card enough blocks in flight.
-#include "common.cuh"
+// FLOPs, far below the card's rate for those bytes. fp32 q multiplies on the
+// fp32 SIMT units with no copy/compute overlap inside a block; the splits
+// give the card enough blocks in flight.
+#include "flash_decode.cuh"
 
 namespace llmq {
 namespace {
@@ -249,8 +251,11 @@ using namespace llmq;
 // q (B, HQ, 1, D) by strides (last dim contiguous); k_q/v_q (B, HKV, S, D)
 // int8 by strides, rows 16-byte aligned; k_s/v_s (B, HKV, S) fp32 and bias
 // (B, S) fp32 by strides (last dim contiguous); out (B, HQ, 1, D) contiguous.
-// D in {128, 256}, HQ = G * HKV with G <= 8, the splits cover [0, S) in
-// order, split_len keys each (the last one ragged).
+// D in {128, 256}, HQ = G * HKV with G <= 8. fp32 q (the SIMT kernels): the
+// splits cover [0, S) in order, split_len keys each (the last one ragged),
+// into part_acc/part_ml scratch. bf16 q (the tensor-core kernel): n_splits
+// blocks of a cluster (1 to 16) share each (batch, kv head)'s keys; split_len
+// and the scratch are unused (null).
 extern "C" int llmq_flash_decode(int dtype, const void* q, const void* k_q, const float* k_s,
                                  const void* v_q, const float* v_s, const float* bias,
                                  float* part_acc, float* part_ml, void* out, int B, int HQ,
@@ -260,20 +265,25 @@ extern "C" int llmq_flash_decode(int dtype, const void* q, const void* k_q, cons
                                  long long v_sh, long long v_ss, long long vs_sb, long long vs_sh,
                                  long long bias_sb, float scale, void* stream) {
   if (B < 1 || HKV < 1 || HQ % HKV != 0 || HQ / HKV > kMaxGroup || S < 1 || n_splits < 1 ||
-      split_len < 1 || (long long)n_splits * split_len < S || (long long)(n_splits - 1) * split_len >= S ||
       (D != 128 && D != 256)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int8_t* kq = static_cast<const int8_t*>(k_q);
+  const int8_t* vq = static_cast<const int8_t*>(v_q);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16) {
+    const DecodeArgs a = {q, kq, k_s, vq, v_s, bias, out, B, HQ, HKV, S, D, q_sb, q_sh, k_sb, k_sh, k_ss,
+                          ks_sb, ks_sh, v_sb, v_sh, v_ss, vs_sb, vs_sh, bias_sb, scale};
+    return launch_flash_decode_tc(a, n_splits, s);
+  }
+  if (dtype != kFloat32 || split_len < 1 || (long long)n_splits * split_len < S ||
+      (long long)(n_splits - 1) * split_len >= S) {
     return (int)cudaErrorInvalidValue;
   }
   const long long st[13] = {q_sb, q_sh, k_sb, k_sh, k_ss, ks_sb, ks_sh, v_sb, v_sh, v_ss, vs_sb, vs_sh, bias_sb};
   const int G = HQ / HKV;
-  const int8_t* kq = static_cast<const int8_t*>(k_q);
-  const int8_t* vq = static_cast<const int8_t*>(v_q);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LLMQ_FD(T, DD)                                                                             \
-  launch_flash_decode<T, DD>(q, kq, k_s, vq, v_s, bias, part_acc, part_ml, out, B, HKV, G, S,   \
-                             n_splits, split_len, st, scale, s)
-  if (dtype == kFloat32) return D == 128 ? LLMQ_FD(float, 128) : LLMQ_FD(float, 256);
-  if (dtype == kBFloat16) return D == 128 ? LLMQ_FD(__nv_bfloat16, 128) : LLMQ_FD(__nv_bfloat16, 256);
-#undef LLMQ_FD
-  return (int)cudaErrorInvalidValue;
+  return D == 128 ? launch_flash_decode<float, 128>(q, kq, k_s, vq, v_s, bias, part_acc, part_ml, out, B, HKV, G, S,
+                                                    n_splits, split_len, st, scale, s)
+                  : launch_flash_decode<float, 256>(q, kq, k_s, vq, v_s, bias, part_acc, part_ml, out, B, HKV, G, S,
+                                                    n_splits, split_len, st, scale, s);
 }

@@ -1,6 +1,8 @@
 // Grouped matmul over int8 expert stacks (MoE serving), for Hopper: the C
-// entry point, and the kernel for fp32 rows on the SIMT units. bf16 rows
-// take the tensor-core kernel of quantized_gmm_tc.cu.
+// entry point, and the kernel on the SIMT units for fp32 rows and for bf16
+// rows at widths the tensor-core kernel's TMA cannot address (K % 8 != 0 or
+// N % 16 != 0). Other bf16 rows take the tensor-core kernel of
+// quantized_gmm_tc.cu.
 //
 // Replaces llm_quest_tpu/kernels/quantized_gmm.py::quantized_ragged_dot (the
 // Pallas kernel _qgmm_kernel): y[r] = (x[r] @ w_q[e(r)]) * scale[e(r)] for
@@ -16,14 +18,16 @@
 // before reading any weight when the expert has no row (as the TPU kernel
 // never fetches an empty expert), and for every tile of BM = 16 * RM rows
 // walks K in chunks of kBK: the (kBK, kBN) int8 weight tile goes to shared
-// memory with 16-byte loads and the (BM, kBK) row tile as fp32, each thread
+// memory with 16-byte loads (byte loads where N % 16 != 0) and the
+// (BM, kBK) row tile as fp32, each thread
 // accumulates RM x 4 outputs in fp32, and the scale multiplies once, before
 // the single rounding to the rows' type (the TPU kernel rounds bf16 rows'
 // product to bf16 first).
 //
 // Bound: at decode (T = 8 rows) bytes, the int8 weights of the experts hit
 // (at most E*K*N); at prefill (T in the thousands) operations, 2*T*K*N. This
-// kernel multiplies on the fp32 SIMT units, as fp32 rows need.
+// kernel multiplies on the fp32 SIMT units, as fp32 rows need; bf16 rows
+// come here only at widths no shipped configuration has.
 #include "quantized_gmm.cuh"
 
 namespace llmq {
@@ -45,7 +49,7 @@ __device__ __forceinline__ int2 group_rows(const void* gs, int gs64, int e) {
 }
 
 // grid (ceil(N / kBN), E), block kGmmThreads. x (T, K) and y (T, N) and
-// w_q (E, K, N) contiguous; N % 16 == 0.
+// w_q (E, K, N) contiguous, w_q 16-byte aligned.
 template <typename T, int RM>
 __global__ void __launch_bounds__(kGmmThreads)
 quantized_gmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
@@ -71,9 +75,20 @@ quantized_gmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
       __syncthreads();  // the previous chunk is consumed
       {  // weight tile: thread -> row tid / 4, 16 bytes at column (tid % 4) * 16
         const int r = tid / 4, c = (tid % 4) * 16;
-        int4 raw = make_int4(0, 0, 0, 0);
-        if (k0 + r < K && n0 + c < N) raw = *reinterpret_cast<const int4*>(we + (size_t)(k0 + r) * N + n0 + c);
-        *reinterpret_cast<int4*>(&ws[r][c]) = raw;
+        uint4 raw = make_uint4(0, 0, 0, 0);
+        const int8_t* src = we + (size_t)(k0 + r) * N + n0 + c;
+        if (k0 + r < K && n0 + c < N) {
+          if (N % 16 == 0) {  // 16-byte rows: one aligned load
+            raw = *reinterpret_cast<const uint4*>(src);
+          } else {  // the columns up to N, a byte each
+            uint32_t u[4] = {0, 0, 0, 0};
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+              if (n0 + c + j < N) u[j / 4] |= (uint32_t)(uint8_t)src[j] << (8 * (j % 4));
+            raw = make_uint4(u[0], u[1], u[2], u[3]);
+          }
+        }
+        *reinterpret_cast<uint4*>(&ws[r][c]) = raw;
       }
       for (int i = tid; i < BM * kBK; i += kGmmThreads) {
         const int r = i / kBK, c = i % kBK;
@@ -127,17 +142,24 @@ int launch_gmm(const QgmmArgs& a, int rm, cudaStream_t stream) {
 using namespace llmq;
 
 // x (T, K), y (T, N), w_q (E, K, N) int8 and scale (E, N) fp32, all
-// contiguous; group_sizes (E,) int32 (gs64 0) or int64 (gs64 1) on the
-// device, summing to T. N % 16 == 0. fp32 rows take the SIMT kernel with rm
-// (rows per thread) in {1, 4}; bf16 rows the tensor-core kernel with row
-// tiles of br rows and `split` K parts (launch_qgmm_tc), K % 8 == 0.
+// contiguous and 16-byte aligned; group_sizes (E,) int32 (gs64 0) or int64
+// (gs64 1) on the device, summing to T. br 0: the SIMT kernel, fp32 or bf16
+// rows, with rm (rows per thread) in {1, 4}. br > 0: bf16 rows on the
+// tensor-core kernel with row tiles of br rows and `split` K parts
+// (launch_qgmm_tc), which takes K % 8 == 0 and N % 16 == 0.
 extern "C" int llmq_quantized_gmm(int dtype, const void* x, const void* w_q, const float* scale,
                                   const void* group_sizes, int gs64, void* y, int T, int E, int K, int N, int rm,
                                   int br, int split, void* stream) {
-  if (T < 0 || E < 1 || K < 1 || N < 16 || N % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (T < 0 || E < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
   const QgmmArgs a{x, static_cast<const int8_t*>(w_q), scale, group_sizes, gs64, y, T, E, K, N};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16) return T == 0 ? (int)cudaSuccess : launch_qgmm_tc(a, br, split, s);
-  if (dtype != kFloat32 || (rm != 1 && rm != 4)) return (int)cudaErrorInvalidValue;
-  return T == 0 ? (int)cudaSuccess : launch_gmm<float>(a, rm, s);
+  if (br > 0) {
+    if (dtype != kBFloat16) return (int)cudaErrorInvalidValue;
+    return T == 0 ? (int)cudaSuccess : launch_qgmm_tc(a, br, split, s);
+  }
+  if (rm != 1 && rm != 4) return (int)cudaErrorInvalidValue;
+  if (T == 0) return (int)cudaSuccess;
+  if (dtype == kFloat32) return launch_gmm<float>(a, rm, s);
+  if (dtype == kBFloat16) return launch_gmm<__nv_bfloat16>(a, rm, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -27,7 +27,8 @@ __device__ __forceinline__ int group_size(const void* gs, int gs64, int e) {
 // The bf16 tensor-core kernel (quantized_gmm_tc.cu) with row tiles of br
 // rows (8, 16, 32, 64 or 128) and K cut into `split` parts (1 to 8) that a
 // cluster sums in a fixed order: cudaErrorInvalidValue for an argument it
-// does not take (K % 8 != 0 among them), else the launch's error code.
+// does not take (K % 8 != 0 or N % 16 != 0 among them: TMA's 16-byte row
+// strides), else the launch's error code.
 // Each call that launched adds one to llmq_quantized_gmm_tc_launches.
 int launch_qgmm_tc(const QgmmArgs& a, int br, int split, cudaStream_t stream);
 

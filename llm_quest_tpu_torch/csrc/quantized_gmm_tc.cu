@@ -150,13 +150,6 @@ __device__ __forceinline__ void mma_t(float (&d)[N / 2], uint64_t da, uint64_t d
 #undef QG_F16
 #undef QG_F4
 
-__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
-__device__ __forceinline__ void mbar_init_count(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
 // the consumer warpgroups alone (named barrier 3; wg_sync takes 1 and 2)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 3, %0;\n" ::"n"(kNWG * kWG) : "memory");
@@ -395,7 +388,9 @@ int launch(const QgmmArgs& a, int split, cudaStream_t stream) {
 
 int launch_qgmm_tc(const QgmmArgs& a, int br, int split, cudaStream_t stream) {
   const int n_k = (a.K + kBK - 1) / kBK;
-  if (a.K % 8 != 0 || split < 1 || split > std::min(kMaxSplit, n_k)) return (int)cudaErrorInvalidValue;
+  if (a.K % 8 != 0 || a.N % 16 != 0 || split < 1 || split > std::min(kMaxSplit, n_k)) {
+    return (int)cudaErrorInvalidValue;
+  }
   int err = (int)cudaErrorInvalidValue;
   if (br == 8) err = launch<8>(a, split, stream);
   if (br == 16) err = launch<16>(a, split, stream);

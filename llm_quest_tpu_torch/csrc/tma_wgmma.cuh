@@ -1,6 +1,7 @@
 // Hopper primitives shared by the tensor-core kernels (attention_tc.cu,
-// fused_mha_tc.cu, gdn_tc.cu, packed_mha_int8_tc.cu, quantized_gmm_tc.cu):
-// mbarriers, TMA tile copies through 4-d tensor maps, wgmma.mma_async with
+// attn_core_tc.cu, flash_decode_tc.cu, fused_mha_tc.cu, gdn_tc.cu,
+// packed_mha_int8_tc.cu, quantized_gmm_tc.cu): mbarriers, TMA tile copies
+// (loads, and stores from shared memory) through 4-d tensor maps, wgmma.mma_async with
 // bf16 operands and fp32 accumulators or s8 operands and s32 accumulators,
 // the swizzled shared-memory tile layouts that TMA (or the threads) write
 // and wgmma reads, and the host side's tensor-map encoder (bf16 or int8
@@ -50,6 +51,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
         : "memory");
   }
 }
+// an mbarrier that completes a phase after `count` arrivals (a consumer
+// release counted per warp or warpgroup)
+__device__ __forceinline__ void mbar_init_count(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
 // one box of a 4-d tensor map (columns, seq, head, batch) into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, uint32_t bar, int col, int row,
                                          int head, int batch) {
@@ -58,6 +67,22 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(col), "r"(row), "r"(head), "r"(batch)
       : "memory");
+}
+
+// one box of shared memory at src into a 4-d tensor map (columns, seq, head,
+// batch); the rows past the tensor's end are not written. Issued by one
+// thread, in the bulk group it commits next.
+__device__ __forceinline__ void tma_store(const CUtensorMap& map, uint32_t src, int col, int row, int head,
+                                          int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(&map)), "r"(src), "r"(col), "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// returns once this thread's committed stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // shared memory of a kernel: its tiles start at the dynamic base aligned to
@@ -80,6 +105,7 @@ __device__ __forceinline__ void wg_sync(int wg) { asm volatile("bar.sync %0, %1;
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
 
 // keeps the compiler from moving accumulator accesses across an async product
 template <int N>
@@ -161,16 +187,16 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da, uint64_t db,
 }
 
 // D (64 x N, fp32) += A (64 x 16, bf16 fragments in registers) B (16 x N),
-// B MN-major (transposed) in shared memory
+// B MN-major (transposed) in shared memory; acc 0 overwrites D
 template <int N>
-__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int acc = 1) {
   if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LLMQ_D32
         ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : LLMQ_F8(0), LLMQ_F8(8), LLMQ_F8(16), LLMQ_F8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
   } else {
     static_assert(N == 32, "N chunks are 64 or 32 columns");
     asm volatile(
@@ -178,7 +204,7 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4]
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " LLMQ_D16
         ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
         : LLMQ_F8(0), LLMQ_F8(8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
   }
 }
 

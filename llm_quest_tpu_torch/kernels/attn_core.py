@@ -1,5 +1,5 @@
-"""The attention core of the int8-score ablation (csrc/attn_core.cu, K12) and
-its plain PyTorch version; replaces ``scripts/ablate_int8_scores.py::
+"""The attention core of the int8-score ablation (csrc/attn_core_tc.cu, K12)
+and its plain PyTorch version; replaces ``scripts/ablate_int8_scores.py::
 make_attn_core`` (kernel ``_attn_kernel`` :41, ``pallas_call`` :63).
 
 ``attn_core(t, q, k, v)`` computes, for every group g of G:
@@ -16,19 +16,27 @@ bytes (D 64 in bf16, D 128 in int8) and M a multiple of 16 up to 256: the
 ablation's two shapes, (1536, 208, 64) bf16 and (1536, 224, 128) int8
 zero-padded from 208 × 64.
 
-On a CUDA tensor the wrapper launches ``llmq_attn_core`` (tensor-core
-``mma.sync``: bf16 → fp32 or s8 → s32 scores, then bf16 → fp32 for p·V) and
-raises on a shape the kernel does not take; a CPU tensor runs the plain
-version; ``plain=True`` forces it on any device (comparisons only). The plain
-version is einsum in fp32, the int8 scores in int32 on the CPU and in fp32 on
-the card (exact: |s| ≤ 128·127² < 2²⁴), with TF32 off. ``attn_core.launches``
-counts the kernel's launches, ``attn_core.int8_launches`` the int8 ones
-among them. The kernel has no backward (JAX's has none either): it raises
-where a gradient would be needed. ``k12_tolerance`` is how far the kernel
-may lie from the plain version.
+On a CUDA tensor the wrapper launches ``llmq_attn_core``, both variants on
+the tensor cores (``wgmma``: bf16 → fp32 or s8 → s32 scores in 64-key
+chunks, each rounded to bf16 in registers and fed to bf16 p·(v + t);
+persistent blocks that walk the groups with the next group's tiles in
+flight by TMA), and raises on a shape the kernel does not take; a CPU
+tensor runs the plain version; ``plain=True`` forces it on any device
+(comparisons only). The plain version is einsum in fp32, the int8 scores in
+int32 on the CPU and in fp32 on the card (exact: |s| ≤ 128·127² < 2²⁴), with
+TF32 off. ``attn_core.launches`` counts the kernel's launches,
+``attn_core.int8_launches`` the int8 ones among them and
+``attn_core.tc_launches`` those the library counts as launched on the
+tensor cores (``llmq_attn_core_tc_launches``). ``CHUNK`` is the keys a
+score product covers, whose order the CPU tests hold to the Pallas kernel.
+The kernel has no backward (JAX's has none either): it
+raises where a gradient would be needed. ``k12_tolerance`` is how far the
+kernel may lie from the plain version.
 """
 
 import contextlib
+import ctypes
+import functools
 
 import torch
 
@@ -36,7 +44,8 @@ from llm_quest_tpu_torch.kernels import build
 
 KV = 64  # v/o columns the kernel is built for
 ROW_BYTES = 128  # one q/k row: D 64 in bf16, D 128 in int8
-MAX_ROWS = 256  # M / 16 warps a block, at most 16
+MAX_ROWS = 256  # M at most: one TMA box, four 64-row q tiles
+CHUNK = 64  # keys a score product covers (the last chunk: the keys left)
 
 
 @contextlib.contextmanager
@@ -106,6 +115,13 @@ def _check_cuda(t, q, k, v):
     build.require_no_grad("attn_core", t, v)
 
 
+@functools.cache
+def _tc_count():
+    """The library's count of calls that launched the kernel, read in place
+    (no call into it)."""
+    return ctypes.c_int.in_dll(build.library().cdll, "llmq_attn_core_tc_launches")
+
+
 def attn_core(t, q, k, v, *, plain=False):
     """The ablation's attention core (K12): (G, M, Kv) bf16 out (module docstring)."""
     if plain or not q.is_cuda:
@@ -114,12 +130,16 @@ def attn_core(t, q, k, v, *, plain=False):
     g, m, _ = q.shape
     o = torch.empty(g, m, KV, dtype=torch.bfloat16, device=q.device)
     int8 = q.dtype == torch.int8
+    count = _tc_count()
+    before = count.value
     build.launch("llmq_attn_core", int(int8), t.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  g, m, build.stream_of(q))
     attn_core.launches += 1
     attn_core.int8_launches += int(int8)
+    attn_core.tc_launches += count.value - before
     return o
 
 
 attn_core.launches = 0
 attn_core.int8_launches = 0  # the int8 ones among them
+attn_core.tc_launches = 0  # the launches on the tensor cores (all, since the kernel has no other form)

@@ -12,13 +12,16 @@ the rows' type. Divergence by design: with bf16 rows the TPU kernel rounds
 the product to bf16 before the scale multiplies; the port rounds once,
 after it.
 
-Routes by the rows' dtype: bf16 rows take the tensor-core kernel
+Routes (``tc_route``): bf16 rows take the tensor-core kernel
 (``quantized_gmm_tc.cu``; counted in ``quantized_ragged_dot.tc_launches``),
 with a row tile and a K split that ``plan`` picks from the shapes alone;
 fp32 rows the SIMT kernel (``quantized_gmm.cu``) with 16- or 64-row tiles.
-The tensor-core kernel loads x by TMA, whose row stride must be a multiple
-of 16 bytes: bf16 rows need K % 8 == 0 (every shipped configuration has K
-896 or 3584), and other K raise.
+The tensor-core kernel loads x and the weights by TMA, whose row strides
+must be multiples of 16 bytes: bf16 rows with K % 8 != 0 or a stack with
+N % 16 != 0 take the SIMT kernel too (no shipped configuration has such
+widths: K and N are 896 or 3584), counted in ``launches`` but not in
+``tc_launches``, so a bf16 path that takes it shows in ``chip_smoke.py``.
+Like JAX's kernel, K11 takes every width.
 
 ``plan`` makes the tensor-core kernel's host-side choices (its row tile
 and K split); ``tests/test_torch_quantized_gmm.py`` holds the kernel's
@@ -67,6 +70,13 @@ def quantized_ragged_dot_plain(x, w_q, scale, group_sizes):
     return torch.cat(outs).to(x.dtype)
 
 
+def tc_route(dtype, k, n):
+    """True where rows of ``dtype`` over a (E, ``k``, ``n``) stack take the
+    tensor-core kernel: bf16 rows at widths its TMA addresses (16-byte row
+    strides: K % 8 == 0, N % 16 == 0); else the SIMT kernel."""
+    return dtype == torch.bfloat16 and k % 8 == 0 and n % 16 == 0
+
+
 @functools.lru_cache(maxsize=256)
 def plan(t, k, n, e, sms):
     """(rows a tile, K parts) of the tensor-core kernel for T = ``t`` rows
@@ -110,7 +120,7 @@ def quantized_ragged_dot(x, w_q, scale, group_sizes, *, plain=False):
 
     x: (T, K) rows sorted by expert; w_q: (E, K, N) int8; scale: (E, N) fp32;
     group_sizes: (E,) int rows per expert, summing to T. Returns (T, N) in
-    x's dtype. The kernels take N % 16 == 0; bf16 rows also K % 8 == 0."""
+    x's dtype. Any K and N (``tc_route`` picks the kernel)."""
     if plain or not x.is_cuda:
         return quantized_ragged_dot_plain(x, w_q, scale, group_sizes)
     build.require_no_grad("quantized_ragged_dot", x)
@@ -122,21 +132,21 @@ def quantized_ragged_dot(x, w_q, scale, group_sizes, *, plain=False):
     build.require(scale.shape == (e, n) and scale.dtype == torch.float32, "scale must be fp32 (E, N)")
     build.require(group_sizes.shape == (e,) and group_sizes.dtype in (torch.int32, torch.int64),
                   "group_sizes must be int32 or int64 (E,)")
-    build.require(n % 16 == 0 and w_q.data_ptr() % 16 == 0, f"the kernel takes N % 16 == 0 (16-byte rows), got {n}")
-    if x.dtype == torch.bfloat16:
-        build.require(k % 8 == 0, f"bf16 rows take K % 8 == 0 (TMA's 16-byte row stride), got {k}")
+    build.require(w_q.data_ptr() % 16 == 0, "w_q must start 16-byte aligned")
     if t == 0:
         return x.new_zeros(0, n)
-    if x.dtype != torch.bfloat16:
+    if not tc_route(x.dtype, k, n):
         return _launch(x, w_q, scale, group_sizes, rows_per_thread=1 if t <= _FEW_ROWS else 4)
     rows, split = plan(t, k, n, e, _sms(x.device.index))
     return _launch(x, w_q, scale, group_sizes, row_tile=rows, split=split)
 
 
-def _launch(x, w_q, scale, group_sizes, *, rows_per_thread=1, row_tile=8, split=1):
-    """A kernel on checked inputs: fp32 rows with 16 * ``rows_per_thread``
-    rows a tile (1 or 4); bf16 rows with ``row_tile`` rows a tile (ROW_TILES)
-    and K in ``split`` parts (at most MAX_SPLIT and K's stages)."""
+def _launch(x, w_q, scale, group_sizes, *, rows_per_thread=1, row_tile=0, split=1):
+    """A kernel on checked inputs: ``row_tile`` 0, the SIMT kernel with 16 *
+    ``rows_per_thread`` rows a tile (1 or 4); else bf16 rows on the
+    tensor-core kernel with ``row_tile`` rows a tile (ROW_TILES) and K in
+    ``split`` parts (at most MAX_SPLIT and K's stages), which raises where
+    ``tc_route`` is false."""
     (t, k), (e, _, n) = x.shape, w_q.shape
     x, scale, group_sizes = x.contiguous(), scale.contiguous(), group_sizes.contiguous()
     build.require(x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0, "x and scale must start 16-byte aligned")
@@ -154,4 +164,4 @@ def _launch(x, w_q, scale, group_sizes, *, rows_per_thread=1, row_tile=8, split=
 
 
 quantized_ragged_dot.launches = 0
-quantized_ragged_dot.tc_launches = 0  # the launches that took the bf16 tensor-core kernel
+quantized_ragged_dot.tc_launches = 0  # the launches that took the tensor-core kernel

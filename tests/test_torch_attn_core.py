@@ -6,8 +6,12 @@ form ``make_attn_core`` builds (GB groups per program, VMEM block specs),
 at a small G. The port's plain ``attn_core`` (the CPU path of
 ``kernels/attn_core.py``) is held to it: int8 scores bit for bit, bf16
 scores within one bf16 unit of max |ref| (the fp32 score sums of the two
-may round to neighbouring bf16 values). Also: the wrapper's CPU path
-launches nothing, the CUDA checks refuse what the kernel does not take, and
+may round to neighbouring bf16 values). The tensor-core kernel
+(``csrc/attn_core_tc.cu``) runs only on the card; its order of work, the
+scores of each 64-key chunk rounded to bf16 and the chunks' products summed
+in order (``chunked_plain`` here), is held to the Pallas kernel within
+``k12_tolerance`` at M 80 and 208 (a last chunk of 16 keys). Also: the
+wrapper's CPU path launches nothing, the CUDA checks refuse what the kernel does not take, and
 the port's ablation keeps the JAX script's shapes and FLOP count.
 """
 
@@ -94,6 +98,38 @@ def test_k12_plain_bf16_matches_pallas(jscript, d):
                                       .astype(jnp.float32)))
     got = kac.attn_core(*args).float()
     assert bool(((got - ref).abs() <= kac.k12_tolerance(*args, ref)).all())
+
+
+def chunked_plain(t, q, k, v):
+    """The kernel's order of work in fp32 (comparisons on the CPU): the
+    scores of each ``kac.CHUNK`` keys (exact int32 for int8 q/k), rounded to bf16,
+    times that chunk's rows of the bf16 ``v + t[0]``, the chunks' products
+    summed in order, the sum stored as bf16."""
+    with kac._full_fp32(q.device):
+        vt = (v + t[0]).float()
+        o = torch.zeros(*q.shape[:2], v.shape[-1], dtype=torch.float32, device=q.device)
+        for c in range(0, q.shape[1], kac.CHUNK):
+            kc = k[:, c:c + kac.CHUNK]
+            if q.dtype == torch.int8:
+                s = torch.einsum("gmd,gnd->gmn", q.to(torch.int32), kc.to(torch.int32)).float()
+            else:
+                s = torch.einsum("gmd,gnd->gmn", q.float(), kc.float())
+            o = o + torch.einsum("gmn,gnk->gmk", s.to(torch.bfloat16).float(), vt[:, c:c + kac.CHUNK])
+        return o.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("m", [80, 208])
+def test_k12_chunked_order_matches_pallas(jscript, int8, m):
+    d = 128 if int8 else 64
+    t, q, k, v = inputs(16, m, d, 64, int8=int8, seed=m + int(int8))
+    args = tuple(map(to_torch, (t, q, k, v)))
+    ref = torch.from_numpy(np.asarray(jax_attn_core(jscript, *map(to_jax, (t, q, k, v)),
+                                                    jnp.int32 if int8 else jnp.float32, gb=16).astype(jnp.float32)))
+    got = chunked_plain(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == (16, m, 64)
+    err = (got.float() - ref).abs()
+    assert bool((err <= kac.k12_tolerance(*args, ref)).all()), float(err.max())
 
 
 def test_k12_int8_scores_round_through_fp32():

@@ -8,6 +8,19 @@ differ only in the order of fp32 sums. The int8 cache writes must equal
 JAX's ``write_layer`` bit for bit (the same fp32 division and round half to
 even), and the router's two int8 routes (K10, and dequantize-then-``sdpa``)
 must agree with JAX's ``attention`` within 1e-5.
+
+The bf16 tensor-core kernel (``csrc/flash_decode_tc.cu``) runs only on the
+card; ``emulate_tc`` repeats its arithmetic in torch (the 64-key tiles of
+each block of a cluster, ``block_tiles``, the 16-key units of each warp
+with an online softmax of its own, p·v_s rounded to q's type as the value
+product's operand, the warps' partials combined in warp order and the
+blocks' in rank order) and is held to the Pallas kernel in interpret mode at
+head dims 128 and 256, q-head groups 1 to 8, S no multiple of the tile and
+1 to 3 blocks a cluster: fp32 within 1e-5 × max(1, max |ref|) (sums in
+another order), bf16 within 2e-2 × max |ref| (p·v_s rounds against each
+warp's running max, the TPU kernel's against its block's). ``plan`` and
+``block_tiles`` are held to the schedule: every tile in one block, within
+the cluster limit.
 """
 
 import jax.numpy as jnp
@@ -126,3 +139,104 @@ def test_cpu_tensors_take_the_plain_version():
     n = kfd.flash_decode.launches
     kfd.flash_decode(*args)
     assert kfd.flash_decode.launches == n
+
+
+# ------------------------------------------------ the tensor-core kernel's arithmetic
+
+
+UNIT = 16  # keys a warp takes of a tile (csrc/flash_decode_tc.cu's kUnit)
+WARPS = 8  # consumer warps: 4 units x 2 tile parities (kNW)
+
+
+def block_tiles(s_len, split):
+    """The 64-key tiles [lo, hi) of each block (rank) of a cluster of ``split``, as the kernel takes them."""
+    n = -(-s_len // kfd.TILE)
+    return [(n * r // split, n * (r + 1) // split) for r in range(split)]
+
+
+def _combine(parts):
+    """(max, sum, output) partials combined in their order, as the kernel does:
+    a part with no key (max -inf) weighs nothing."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    out_l, out_acc = torch.zeros_like(parts[0][1]), torch.zeros_like(parts[0][2])
+    for mp, lp, ap in parts:
+        e = torch.where(mp == -torch.inf, torch.zeros_like(mp), torch.exp(mp - m))
+        out_l = out_l + e * lp
+        out_acc = out_acc + e[:, None] * ap
+    return m, out_l, out_acc
+
+
+def emulate_tc(q, k_q, k_s, v_q, v_s, bias, *, scale, split):
+    """The tensor-core kernel's arithmetic in fp32 (p·v_s rounded to q's
+    type), by (batch, kv head): each block's tiles, each warp's units, then
+    the warps' and the blocks' partials in order."""
+    b, hq, _, d = q.shape
+    hkv, s_len = k_q.shape[1], k_q.shape[2]
+    g = hq // hkv
+    out = torch.empty(b, hq, 1, d, dtype=torch.float32)
+    for bi in range(b):
+        for hk in range(hkv):
+            qg = q[bi, hk * g:(hk + 1) * g, 0].float()  # (g, d)
+            blocks = []
+            for lo, hi in block_tiles(s_len, split):
+                key_end = min(s_len, hi * kfd.TILE)
+                warps = []
+                for w in range(WARPS):
+                    m = torch.full((g,), -torch.inf)
+                    l_sum, acc = torch.zeros(g), torch.zeros(g, d)
+                    for tile in range(lo + w // 4, hi, WARPS // 4):
+                        k0 = tile * kfd.TILE + UNIT * (w % 4)
+                        if k0 >= key_end:
+                            continue
+                        keys = torch.arange(k0, k0 + UNIT)
+                        valid = keys < key_end
+                        kk = keys.clamp_max(s_len - 1)
+                        s = qg @ k_q[bi, hk, kk].float().T
+                        x = s * (k_s[bi, hk, kk].float() * scale) + bias[bi, kk].float()
+                        x = torch.where(valid, x, torch.full_like(x, -torch.inf))
+                        m_new = torch.maximum(m, x.amax(1))
+                        m_use = torch.where(m_new == -torch.inf, torch.zeros_like(m_new), m_new)
+                        alpha = torch.exp(m - m_use)
+                        p = torch.exp(x - m_use[:, None])
+                        l_sum = l_sum * alpha + p.sum(1)
+                        pv = (p * v_s[bi, hk, kk].float()).to(q.dtype).float()
+                        acc = acc * alpha[:, None] + pv @ v_q[bi, hk, kk].float()
+                        m = m_new
+                    warps.append((m, l_sum, acc))
+                blocks.append(_combine(warps))
+            _, l_sum, acc = _combine(blocks)
+            out[bi, hk * g:(hk + 1) * g, 0] = acc / l_sum.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d, g, s_len, split", [(128, 1, 75, 1), (256, 2, 200, 2), (128, 4, 300, 3),
+                                                (256, 8, 130, 2)])
+def test_tc_emulation_matches_pallas(d, g, s_len, split, bf16):
+    args = inputs(2, 2 * g, 2, s_len, d, seed=d + g + s_len)
+    jargs = list(map(jnp.asarray, args))
+    targs = list(map(T, args))
+    if bf16:
+        jargs[0] = jargs[0].astype(jnp.bfloat16)
+        targs[0] = T(np.asarray(jargs[0].astype(jnp.float32))).bfloat16()
+    ref = np.asarray(jflash_decode(*jargs, block_k=32, interpret=True).astype(jnp.float32), np.float64)
+    got = emulate_tc(*targs, scale=d**-0.5, split=split)
+    assert got.dtype == targs[0].dtype and got.shape == ref.shape
+    err = max_err(got.float(), ref)
+    bar = 2e-2 * float(np.abs(ref).max()) if bf16 else TOL * max(1.0, float(np.abs(ref).max()))
+    assert err <= bar, err
+
+
+@pytest.mark.parametrize("s_len", [1, 64, 96, 1000, 8192])
+@pytest.mark.parametrize("split", [1, 2, 3, 16])
+def test_block_tiles_cover_every_tile_once(s_len, split):
+    ranges = block_tiles(s_len, split)
+    tiles = [t for lo, hi in ranges for t in range(lo, hi)]
+    assert len(ranges) == split and tiles == list(range(-(-s_len // kfd.TILE)))
+
+
+@pytest.mark.parametrize("b, hkv, s_len", [(1, 2, 96), (16, 2, 8192), (1, 2, 8192), (4, 8, 300), (1, 1, 1)])
+def test_plan_stays_within_the_cluster_and_the_tiles(b, hkv, s_len):
+    split = kfd.plan(b, hkv, s_len, 132)
+    assert split in (1, 2, 4, 8, 16)
+    assert split == 1 or -(-s_len // kfd.TILE) >= 2 * split * kfd.MIN_TILES

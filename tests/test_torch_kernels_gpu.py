@@ -23,8 +23,11 @@ K11 takes bf16 rows to its tensor-core kernel (``tc_launches``; the row
 tile and K split the wrapper plans, and every tiling forced) and fp32 rows
 to the SIMT one; its bf16 cases at Qwen3-Next-small's widths run twice and
 must be bit-equal.
-K12 (bf16 or int8 scores, no fp32 form) has its own, ``attn_core.py::
-k12_tolerance``: bf16 within one bf16 unit of max |plain|; int8 each output
+K10 takes bf16 q to its tensor-core kernel (``tc_launches``; every cluster
+size forced, on strided cache views) and fp32 q to the SIMT one; two runs
+bit-equal. K12 (bf16 or int8 scores, no fp32 form; both on the tensor cores,
+``tc_launches``, and its persistent grid forced) has its own,
+``attn_core.py::k12_tolerance``: bf16 within one bf16 unit of max |plain|; int8 each output
 within one bf16 unit of its plain value plus the fp32 summation bound of
 p·(v + t); and hand-computed roundings bit for bit.
 """
@@ -893,7 +896,7 @@ def test_wrappers_raise_on_unsupported_shapes(gen):
     ks, bias = randn(gen, 1, 2, 8), randn(gen, 1, 8)
     with pytest.raises(ValueError):
         flash_decode.flash_decode(randn(gen, 1, 4, 1, 64), kq, ks, kq, ks, bias)
-    w_q = torch.zeros(2, 32, 24, dtype=torch.int8, device="cuda")  # K11 takes N % 16 == 0
+    w_q = torch.zeros(2, 30, 24, dtype=torch.int8, device="cuda")  # K11: the rows' K is the stack's
     with pytest.raises(ValueError):
         quantized_gmm.quantized_ragged_dot(randn(gen, 4, 32), w_q, randn(gen, 2, 24),
                                            torch.tensor([1, 3], device="cuda"))
@@ -916,29 +919,56 @@ def int8_cache_inputs(gen, b, hq, hkv, s_len, d, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [128, 256])
-@pytest.mark.parametrize("shape", [(1, 8, 2, 96), (3, 4, 4, 75), (2, 16, 2, 1000), (1, 8, 8, 1)])
+@pytest.mark.parametrize("shape", [(1, 8, 2, 96), (3, 4, 4, 75), (2, 16, 2, 1000), (1, 8, 8, 1), (1, 8, 2, 8192),
+                                   (16, 8, 2, 8192)])
 def test_flash_decode_kernel(gen, dtype, d, shape):
     """K10 against its plain version: one or many splits, a ragged tail, GQA
-    groups 1 to 8, one key."""
+    groups 1 to 8, one key, long contexts at b 1 and 16; bf16 on the
+    tensor-core kernel (``tc_launches``), fp32 on the SIMT one; two runs
+    bit-equal."""
     from llm_quest_tpu_torch.kernels import flash_decode
 
     b, hq, hkv, s_len = shape
     q, k, v, bias = int8_cache_inputs(gen, b, hq, hkv, s_len, d, dtype)
-    n = flash_decode.flash_decode.launches
-    got = flash_decode.flash_decode(q, k.data, k.scale, v.data, v.scale, bias)
-    assert flash_decode.flash_decode.launches == n + 1
-    ref = flash_decode.flash_decode(q, k.data, k.scale, v.data, v.scale, bias, plain=True)
+    w = flash_decode.flash_decode
+    n, tc = w.launches, w.tc_launches
+    got = w(q, k.data, k.scale, v.data, v.scale, bias)
+    assert (w.launches, w.tc_launches) == (n + 1, tc + (dtype == torch.bfloat16))
+    ref = w(q, k.data, k.scale, v.data, v.scale, bias, plain=True)
     assert got.dtype == dtype and got.shape == (b, hq, 1, d)
     assert_close(got, ref, dtype)
+    assert torch.equal(got, w(q, k.data, k.scale, v.data, v.scale, bias))
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 4, 8, 16])
+def test_flash_decode_tc_splits_on_strided_views(gen, split):
+    """The tensor-core kernel at every cluster size, whatever the wrapper
+    would pick (3: ragged tile ranges; 16 at S 1000: blocks with one tile or
+    none of some parity), on layer 2 of a 3-layer cache and a q that is a
+    transposed view; two runs bit-equal."""
+    from llm_quest_tpu_torch.inference import cache as kv_cache
+    from llm_quest_tpu_torch.kernels import flash_decode
+
+    b, hq, hkv, s_len, d = 2, 8, 2, 1000, 256
+    cache = kv_cache.init_kv_cache(3, b, hkv, s_len, d, quant="int8", device="cuda")
+    _, k, v = kv_cache.write_layer(cache, 2, randn(gen, b, hkv, s_len, d, dtype=torch.bfloat16),
+                                   randn(gen, b, hkv, s_len, d, dtype=torch.bfloat16), 0)
+    q = randn(gen, b, 1, hq, d, dtype=torch.bfloat16).transpose(1, 2)
+    bias = torch.zeros(b, s_len, device="cuda")
+    args = (q, k.data, k.scale, v.data, v.scale, bias)
+    got = flash_decode._launch(*args, d**-0.5, split=split)
+    assert_close(got, flash_decode.flash_decode(*args, plain=True), torch.bfloat16)
+    assert torch.equal(got, flash_decode._launch(*args, d**-0.5, split=split))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("sizes", [[0, 3, 0, 5], [1, 0, 2, 1, 0, 3, 1, 0], [300, 0, 257, 43]])
-@pytest.mark.parametrize("k, n", [(96, 160), (64, 48)])
+@pytest.mark.parametrize("k, n", [(96, 160), (64, 48), (36, 40)])
 def test_quantized_gmm_kernel(gen, dtype, sizes, k, n):
     """K11 against its plain version: empty experts, ragged groups, few rows
     and many, a K that is not a multiple of 64; bf16 rows take the
-    tensor-core kernel (``tc_launches``), fp32 rows the SIMT one."""
+    tensor-core kernel (``tc_launches``) where its TMA addresses the widths,
+    fp32 rows and K 36, N 40 the SIMT one."""
     from llm_quest_tpu_torch.kernels import quantized_gmm
 
     e = len(sizes)
@@ -949,7 +979,7 @@ def test_quantized_gmm_kernel(gen, dtype, sizes, k, n):
     w = quantized_gmm.quantized_ragged_dot
     cnt, tc = w.launches, w.tc_launches
     got = w(x, w_q, scale, gs)
-    assert (w.launches, w.tc_launches) == (cnt + 1, tc + (dtype == torch.bfloat16))
+    assert (w.launches, w.tc_launches) == (cnt + 1, tc + quantized_gmm.tc_route(dtype, k, n))
     assert_close(got, w(x, w_q, scale, gs, plain=True), dtype)
 
 
@@ -1005,17 +1035,50 @@ def test_quantized_gmm_tc_tilings(gen, rows, split):
 
 
 def test_quantized_gmm_bf16_refuses_k_not_multiple_of_8(gen):
-    """bf16 rows reach the tensor-core kernel by TMA, whose row stride is a
-    multiple of 16 bytes: K % 8 != 0 raises (fp32 rows take any K)."""
+    """The tensor-core kernel reads bf16 rows by TMA, whose row stride is a
+    multiple of 16 bytes: asked for K % 8 != 0 it raises. The wrapper sends
+    such rows to the SIMT kernel (a launch, no tensor-core launch), within
+    the bf16 bar of the plain version; fp32 rows take any K."""
     from llm_quest_tpu_torch.kernels import quantized_gmm
 
     w_q = torch.randint(-127, 128, (2, 20, 32), generator=gen, device="cuda", dtype=torch.int8)
     scale, gs = torch.rand(2, 32, generator=gen, device="cuda"), torch.tensor([1, 3], device="cuda")
-    with pytest.raises(ValueError):
-        quantized_gmm.quantized_ragged_dot(randn(gen, 4, 20, dtype=torch.bfloat16), w_q, scale, gs)
+    xb = randn(gen, 4, 20, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        quantized_gmm._launch(xb, w_q, scale, gs, row_tile=8)
+    w = quantized_gmm.quantized_ragged_dot
+    cnt, tc = w.launches, w.tc_launches
+    got = w(xb, w_q, scale, gs)
+    assert (w.launches, w.tc_launches) == (cnt + 1, tc)
+    assert_close(got, w(xb, w_q, scale, gs, plain=True), torch.bfloat16)
     x = randn(gen, 4, 20)
-    assert_close(quantized_gmm.quantized_ragged_dot(x, w_q, scale, gs),
-                 quantized_gmm.quantized_ragged_dot(x, w_q, scale, gs, plain=True), torch.float32)
+    assert_close(w(x, w_q, scale, gs), w(x, w_q, scale, gs, plain=True), torch.float32)
+
+
+def test_moe_dispatch_runs_tail_stacks_through_k11(gen):
+    """bf16 rows through ``ops/moe.py::dispatch`` over int8 stacks whose
+    widths the tensor-core kernel's TMA cannot address (K 36, N 40; lin2 N
+    36): each of the three stacks is one K11 launch on the SIMT kernel (no
+    tensor-core launch), and the layer matches the same call on the CPU
+    within the bf16 bar."""
+    from llm_quest_tpu_torch.kernels import quantized_gmm
+    from llm_quest_tpu_torch.ops import moe
+
+    e, d, hidden, t = 4, 36, 40, 10
+    experts = {}
+    for name, (k, n) in {"lin1": (d, hidden), "gate": (d, hidden), "lin2": (hidden, d)}.items():
+        experts[name + "_q"] = torch.randint(-127, 128, (e, k, n), generator=gen, device="cuda", dtype=torch.int8)
+        experts[name + "_scale"] = torch.rand(e, n, generator=gen, device="cuda") * 0.02 + 0.001
+    x = randn(gen, t, d, dtype=torch.bfloat16)
+    idx = torch.stack([torch.randperm(e, generator=gen, device="cuda")[:2] for _ in range(t)])
+    wts = torch.rand(t, 2, generator=gen, device="cuda")
+    w = quantized_gmm.quantized_ragged_dot
+    cnt, tc = w.launches, w.tc_launches
+    got = moe.dispatch(experts, x, idx, wts, e)
+    assert (w.launches, w.tc_launches) == (cnt + 3, tc)
+    ref = moe.dispatch({k: v.cpu() for k, v in experts.items()}, x.cpu(), idx.cpu(), wts.cpu(), e)
+    assert got.dtype == torch.bfloat16 and got.shape == (t, d)
+    assert_close(got.cpu(), ref, torch.bfloat16)
 
 
 def test_int8_serving_through_kernels_matches_plain(gen):
@@ -1231,22 +1294,45 @@ def test_attn_core_kernel(gen, int8, g, m):
     summation bound of p·(v + t)."""
     from llm_quest_tpu_torch.kernels import attn_core as ac
 
+    t, q, k, v = k12_inputs(gen, g, m, int8)
+    n, n8, tc = ac.attn_core.launches, ac.attn_core.int8_launches, ac.attn_core.tc_launches
+    out = ac.attn_core(t, q, k, v)
+    assert (ac.attn_core.launches, ac.attn_core.int8_launches, ac.attn_core.tc_launches) == (n + 1, n8 + int(int8),
+                                                                                           tc + 1)
+    ref = ac.attn_core(t, q, k, v, plain=True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (g, m, 64)
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= ac.k12_tolerance(t, q, k, v, ref)).all()), float(err.max())
+    assert torch.equal(out, ac.attn_core(t, q, k, v))
+
+
+def k12_inputs(gen, g, m, int8):
+    """t, q, k, v of K12: bf16 q/k (D 64) or int8 (D 128, scaled by 16)."""
     d = 128 if int8 else 64
     q, k = (randn(gen, g, m, d) for _ in range(2))
     if int8:
         q, k = (torch.clamp(x * 16, -127, 127).to(torch.int8) for x in (q, k))
     else:
         q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
-    v = randn(gen, g, m, 64, dtype=torch.bfloat16)
-    t = randn(gen, 1, 1, 64, dtype=torch.bfloat16, scale=0.01)
-    n, n8 = ac.attn_core.launches, ac.attn_core.int8_launches
+    return randn(gen, 1, 1, 64, dtype=torch.bfloat16, scale=0.01), q, k, randn(gen, g, m, 64, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("g, m", [(300, 208), (300, 224), (37, 64), (1000, 64)])
+def test_attn_core_persistent_grid(gen, int8, g, m):
+    """K12's persistent blocks on the card's own grid walking G groups: fewer
+    groups than blocks (37) and more, no multiple of the grid (300 over one
+    block an SM at M 208 and 224; 1000 over the blocks that fit at M 64),
+    each group within ``k12_tolerance``; two runs bit-equal."""
+    from llm_quest_tpu_torch.kernels import attn_core as ac
+
+    t, q, k, v = k12_inputs(gen, g, m, int8)
     out = ac.attn_core(t, q, k, v)
-    assert (ac.attn_core.launches, ac.attn_core.int8_launches) == (n + 1, n8 + int(int8))
     ref = ac.attn_core(t, q, k, v, plain=True)
-    torch.cuda.synchronize()
-    assert out.dtype == torch.bfloat16 and out.shape == (g, m, 64)
     err = (out.float() - ref.float()).abs()
     assert bool((err <= ac.k12_tolerance(t, q, k, v, ref)).all()), float(err.max())
+    assert torch.equal(out, ac.attn_core(t, q, k, v))
 
 
 def k12_rounding_cases(int8, device):

@@ -7,7 +7,9 @@ fp32 rows within 1e-5 (sums in another order); bf16 rows within 2e-2 ×
 max |ref|, because the TPU kernel rounds the product to bf16 before the scale
 multiplies and the port rounds once, after it (a documented divergence).
 ``qwen3_moe`` with int8 stacks (the shared expert included) is held to JAX's
-``qwen3_moe`` on the same quantized tree within 1e-5.
+``qwen3_moe`` on the same quantized tree within 1e-5, also at a hidden
+width (N 40) that the tensor-core kernel's TMA cannot address and K11's
+SIMT kernel takes on the card (``tc_route``).
 
 The bf16 tensor-core kernel (``csrc/quantized_gmm_tc.cu``) runs only on the
 card; here its schedule and its arithmetic are held in Python. Its tile
@@ -112,6 +114,61 @@ def test_int8_qwen3_moe_matches_jax(capacity_factor):
     err = float(np.abs(got.numpy().astype(np.float64) - np.asarray(ref, np.float64)).max())
     assert err <= 1e-5, err
     assert float(np.abs(aux["gate_probas"].numpy() - np.asarray(raux["gate_probas"])).max()) <= 1e-6
+
+
+# Widths the tensor-core kernel's TMA cannot address (N % 16 != 0; bf16 rows
+# with K % 8 != 0): on the card K11's SIMT kernel takes them (``tc_route``),
+# and the port's ``ops/moe.py::_ragged`` sends them to K11 as any other
+# stack. Held to JAX's ``_ragged`` (on the CPU its dequantized ragged_dot)
+# and to its Pallas kernel in interpret mode (what a TPU runs at these
+# widths): fp32 within 1e-5 × max(1, max |ref|), bf16 within 2e-2 × max |ref|
+# (JAX rounds to bf16 before the scale, the port once after it).
+TAILS = {"n40_fp32": (64, 40, jnp.float32), "k36_bf16": (36, 64, jnp.bfloat16), "n40_bf16": (64, 40, jnp.bfloat16)}
+
+
+@pytest.mark.parametrize("case", list(TAILS))
+def test_tail_stacks_match_jax_ragged(case):
+    k, n, jdtype = TAILS[case]
+    x, w_q, scale, gs = make([3, 0, 5, 4], d=k, n=n, seed=11)
+    jx = jnp.asarray(x, jdtype)
+    refs = [jmoe._ragged({"lin1_q": jnp.asarray(w_q), "lin1_scale": jnp.asarray(scale)}, "lin1", jx,
+                         jnp.asarray(gs), jnp.asarray(np.repeat(np.arange(len(gs)), gs))),
+            jqrd(jx, jnp.asarray(w_q), jnp.asarray(scale), jnp.asarray(gs), tile_m=8, interpret=True)]
+    tx = T(np.asarray(jx.astype(jnp.float32)))
+    if jdtype == jnp.bfloat16:
+        tx = tx.bfloat16()
+    assert not kq.tc_route(tx.dtype, k, n)
+    got = tmoe._ragged({"lin1_q": T(w_q), "lin1_scale": T(scale)}, "lin1", tx, T(gs).long(), False)
+    assert got.dtype == tx.dtype
+    for ref in refs:
+        ref = np.asarray(ref.astype(jnp.float32), np.float64)
+        assert got.shape == ref.shape
+        err, top = float(np.abs(got.float().numpy().astype(np.float64) - ref).max()), float(np.abs(ref).max())
+        assert err <= (1e-5 * max(1.0, top) if jdtype == jnp.float32 else 2e-2 * top), err
+
+
+def test_tc_route_is_the_tma_widths():
+    """bf16 rows take the tensor-core kernel where its TMA addresses the rows
+    and the weights (K % 8 == 0, N % 16 == 0); fp32 rows and other widths
+    the SIMT kernel."""
+    assert kq.tc_route(torch.bfloat16, 64, 64) and kq.tc_route(torch.bfloat16, 896, 3584)
+    assert kq.tc_route(torch.bfloat16, 1000, 272)
+    assert not kq.tc_route(torch.bfloat16, 36, 64) and not kq.tc_route(torch.bfloat16, 64, 40)
+    assert not kq.tc_route(torch.float32, 64, 64) and not kq.tc_route(torch.float32, 36, 40)
+
+
+def test_int8_qwen3_moe_at_refused_width_matches_jax():
+    """A hidden width of 40, which the tensor-core kernel's TMA cannot
+    address (lin1 and gate N 40; lin2 K 40, N 64): K11 (its plain version
+    here) at every stack; the whole layer against JAX's."""
+    cfg = {**TINY, "moe_hidden_dim": 40}
+    jq = jquant.quantize_params_int8(jmoe.init_qwen3_moe(jax.random.PRNGKey(2), cfg), min_size=0)
+    assert jq["experts"]["lin1_q"].shape[-1] == 40
+    x = np.random.default_rng(3).standard_normal((2, 5, 64)).astype(np.float32)
+    ref, _ = jmoe.qwen3_moe(jq, jnp.asarray(x), top_k=2, load_coeff=0.001, training=False)
+    got, _ = tmoe.qwen3_moe(to_port(jq), T(x), top_k=2, load_coeff=0.001, training=False)
+    err = float(np.abs(got.numpy().astype(np.float64) - np.asarray(ref, np.float64)).max())
+    assert err <= 1e-5, err
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -38,33 +38,25 @@ its K1 kernels in one such call. Needs the card and nvcc; each tree builds
 its kernels into its own ``_build``.
 """
 
-import argparse
 import json
-import os
-import re
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(Path(__file__).resolve().parent))  # the harness, also where a measuring process runs this file
+import probe_harness as ph  # noqa: E402
+
+ROOT = ph.ROOT
 SHAPES = {"hybrid": (4, 8, 2048, 64, 64, False), "prefill": (1, 16, 156, 128, 128, True)}
 BAR = 2e-2  # chip_smoke.py's TOL["bfloat16"] and TILE_TOL
 DECAYS = {"fast": 2.0, "slow": 5.0}  # the mean of alpha's logit
 
 
-def kernel_name(name):
-    """A profiler event's kernel function, without namespaces and template arguments."""
-    m = re.search(r"(\w+)(?:<|\()", name)
-    return m.group(1) if m else name[:60]
-
-
 def measure(with_ttft):
     """One JSON line of this process's package (``llm_quest_tpu_torch`` as imported)."""
     import torch
-    from torch.autograd import DeviceType
 
     import llm_quest_tpu_torch
     from llm_quest_tpu_torch.kernels import build, gdn
@@ -76,28 +68,6 @@ def measure(with_ttft):
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
-
-    def events_ms(fn, iters=20, warmup=3):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def host_ms(fn, iters=20):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        return (t1 - t0) * 1e3 / iters
 
     def c_entry_us(fn, iters=20):
         spent, launch = 0.0, build.launch
@@ -120,24 +90,12 @@ def measure(with_ttft):
         return spent * 1e6 / iters
 
     def device(fn, iters=10, key=None):
-        fn()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        for _ in range(3):
-            with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-            events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-            if events:
-                by_name = {}
-                for e in events:
-                    name = kernel_name(e.name)
-                    by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-                if key is not None:
-                    by_name = {n: t for n, t in by_name.items() if key(n)}
-                return sum(by_name.values()), by_name
-        return None, {}
+        by_name = ph.device_split(fn, iters)
+        if not by_name:
+            return None, {}
+        if key is not None:
+            by_name = {n: t for n, t in by_name.items() if key(n)}
+        return sum(by_name.values()), by_name
 
     def inputs(b, h, s, dk, dv, with_prev, decay=DECAYS["fast"]):
         q = l2_norm_clamp(randn(b, h, s, dk)).bfloat16()
@@ -188,7 +146,8 @@ def measure(with_ttft):
         rec = {}
         for call, fn in calls.items():
             dev, split = device(fn)
-            rec[call] = {"ms": events_ms(fn), "host_ms": host_ms(fn), "c_entry_us": c_entry_us(fn),
+            rec[call] = {"ms": ph.events_ms(fn, iters=20, warmup=3), "host_ms": ph.host_ms(fn),
+                         "c_entry_us": c_entry_us(fn),
                          "device_ms": dev, "kernels": split}
         g1 = calls["bwd"]()
         g2 = calls["bwd"]()
@@ -269,34 +228,12 @@ def bf16_alone_tree():
     return tree
 
 
-def run_tree(tree, with_ttft):
-    """``measure`` in a process that imports the package under ``tree``."""
-    env = dict(os.environ, PYTHONPATH=str(tree))
-    cmd = [sys.executable, str(Path(__file__).resolve()), "--measure"] + (["--ttft"] if with_ttft else [])
-    out = subprocess.run(cmd, env=env, cwd=str(tree), capture_output=True, text=True, check=True).stdout
-    line = out.strip().splitlines()[-1]
-    print(json.dumps({"tree": str(tree), **json.loads(line)}), flush=True)
-
-
 def main(argv):
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--against", help="root of another checkout whose package is measured beside this one")
-    parser.add_argument("--bf16-alone", action="store_true",
-                        help="also measure this tree built with every fp32 operand rounded to bf16 alone")
-    parser.add_argument("--ttft", action="store_true", help="also time the generation path's first token")
-    parser.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
-    args = parser.parse_args(argv)
-    if args.measure:
-        measure(args.ttft)
-        return 0
-    trees = [ROOT]
-    if args.against is not None:
-        trees.insert(0, Path(args.against).resolve())
-    if args.bf16_alone:
-        trees.append(bf16_alone_tree())
-    for tree in trees + trees[::-1] if len(trees) > 1 else trees:
-        run_tree(tree, args.ttft)
-    return 0
+    return ph.main(argv, script=__file__, doc=__doc__, measure=lambda args: measure(args.ttft),
+                   options=(("--bf16-alone", "also measure this tree built with every fp32 operand rounded to bf16 "
+                                             "alone"),
+                            ("--ttft", "also time the generation path's first token")),
+                   more_trees=lambda args: [bf16_alone_tree()] if args.bf16_alone else [])
 
 
 if __name__ == "__main__":

@@ -29,17 +29,15 @@ copies that leave out a piece of work give wrong outputs and say what the
 piece costs).
 """
 
-import argparse
 import json
-import os
-import re
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(Path(__file__).resolve().parent))  # the harness, also where a measuring process runs this file
+import probe_harness as ph  # noqa: E402
+
 VIT_B = (128, 197, 12, 64)  # b, s, heads, d
 ENCODES = 4  # encodes in one timed run
 TC_SRC = "packed_mha_int8_tc.cu"
@@ -58,16 +56,9 @@ VARIANTS = {
 }
 
 
-def kernel_name(name):
-    """A profiler event's kernel function, without namespaces and template arguments."""
-    m = re.search(r"(\w+)(?:<|\()", name)
-    return m.group(1) if m else name[:60]
-
-
 def measure():
     """One JSON line of this process's package (``llm_quest_tpu_torch`` as imported)."""
     import torch
-    from torch.autograd import DeviceType
 
     import llm_quest_tpu_torch
     from llm_quest_tpu_torch.config import VIT_BASE_CONFIG
@@ -77,35 +68,9 @@ def measure():
     lib = build.library()
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def events_ms(fn, iters=200, warmup=10):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
     def device(fn, iters=20):
-        fn()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        for _ in range(3):
-            with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-            by_name = {}
-            for e in prof.events():
-                if e.device_type == DeviceType.CUDA:
-                    name = kernel_name(e.name)
-                    by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-            if by_name:
-                return sum(by_name.values()), by_name
-        return None, {}
+        split = ph.device_split(fn, iters)
+        return (sum(split.values()) if split else None), split
 
     b, s, h, d = VIT_B
     q, k, v = (torch.randn(b, s, h * d, generator=gen, device="cuda").bfloat16() for _ in range(3))
@@ -120,7 +85,7 @@ def measure():
               "build_s": lib.build_seconds, "shape": list(VIT_B)}
     for name, fn in calls.items():
         dev, split = device(fn)
-        result[name] = {"ms": events_ms(fn), "device_ms": dev, "kernels": split}
+        result[name] = {"ms": ph.events_ms(fn), "device_ms": dev, "kernels": split}
     del q, k, v
 
     cfg = dict(VIT_BASE_CONFIG, n_layers=12, drop_rate=0.0, dtype=torch.bfloat16)
@@ -156,40 +121,6 @@ def measure():
     print(json.dumps(result), flush=True)
 
 
-def variant_libraries():
-    """{name: the built library} of the tree's int8 sources ("tree") and of
-    each VARIANTS copy, built in parallel."""
-    import shutil
-
-    src = ROOT / "llm_quest_tpu_torch" / "csrc"
-    out = ROOT / "llm_quest_tpu_torch" / "_build" / "int8_variants"
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    texts = {}
-    for name in ("tree", *VARIANTS):  # every copy's source first: a stale edit fails before any build
-        text = (src / TC_SRC).read_text()
-        for old, new in VARIANTS.get(name, []):
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} is not in {TC_SRC}")
-            text = text.replace(old, new)
-        texts[name] = text
-    procs = {}
-    for name, text in texts.items():
-        d = out / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        for f in (*src.glob("*.cuh"), src / "packed_mha_int8.cu"):
-            shutil.copy(f, d / f.name)
-        (d / TC_SRC).write_text(text)
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-               "-shared", "-o", str(d / "lib.so"), str(d / "packed_mha_int8.cu"), str(d / TC_SRC)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    logs = {name: proc.communicate()[0] for name, proc in procs.items()}  # all of them end before any raise
-    for name, proc in procs.items():
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name} did not build:\n{logs[name][-3000:]}")
-    return {name: out / name / "lib.so" for name in procs}
-
-
 def time_variants():
     """One JSON line: K9's bf16 kernel as the tree has it and in each VARIANTS copy."""
     import ctypes
@@ -210,7 +141,8 @@ def time_variants():
     strides = [L(x) for _ in range(4) for x in (s * h * d, d, h * d)]
     stream = torch.cuda.current_stream().cuda_stream
     libs, outs, calls = {}, {}, {}
-    for name, path in variant_libraries().items():
+    copies = {"tree": ([], []), **{name: ([], edits) for name, edits in VARIANTS.items()}}
+    for name, path in ph.variant_libraries("int8_variants", ["packed_mha_int8.cu", TC_SRC], copies, TC_SRC).items():
         lib = ctypes.CDLL(str(path))
         fn = lib.llmq_packed_mha_int8
         fn.argtypes = [I] + [P] * 5 + [F] * 4 + [I] * 4 + [L] * 12 + [P]
@@ -225,19 +157,7 @@ def time_variants():
                 raise RuntimeError(f"variant {name}: the {mode} launch failed")
             outs[name, mode] = o
     torch.cuda.synchronize()
-    ms = {key: [] for key in calls}
-    for _ in range(2):
-        for key, call in calls.items():
-            for _ in range(10):
-                call()
-            for _ in range(3):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(200):
-                    call()
-                end.record()
-                end.synchronize()
-                ms[key].append(start.elapsed_time(end) / 200)
+    ms = ph.time_in_turns(calls)
     variants = {}
     for (name, mode), v in ms.items():
         diff = float((outs[name, mode].float() - outs["tree", mode].float()).abs().max())
@@ -246,34 +166,9 @@ def time_variants():
           flush=True)
 
 
-def run_tree(tree):
-    """``measure`` in a process that imports the package under ``tree``."""
-    env = dict(os.environ, PYTHONPATH=str(tree))
-    cmd = [sys.executable, str(Path(__file__).resolve()), "--measure"]
-    done = subprocess.run(cmd, env=env, cwd=str(tree), capture_output=True, text=True)
-    if done.returncode != 0:
-        sys.stderr.write(done.stderr[-4000:])
-        raise SystemExit(f"{tree}: the measurement failed ({done.returncode})")
-    line = done.stdout.strip().splitlines()[-1]
-    print(json.dumps({"tree": str(tree), **json.loads(line)}), flush=True)
-
-
 def main(argv):
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--against", help="root of another checkout whose package is measured beside this one")
-    parser.add_argument("--variants", action="store_true",
-                        help="also time K9's bf16 kernel in copies each built with one change")
-    parser.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
-    args = parser.parse_args(argv)
-    if args.measure:
-        measure()
-        return 0
-    trees = [ROOT] if args.against is None else [Path(args.against).resolve(), ROOT]
-    for tree in trees + trees[::-1] if len(trees) > 1 else trees:
-        run_tree(tree)
-    if args.variants:
-        time_variants()
-    return 0
+    return ph.main(argv, script=__file__, doc=__doc__, measure=lambda args: measure(),
+                   variants=lambda args: time_variants())
 
 
 if __name__ == "__main__":

@@ -31,17 +31,15 @@ events (200 launches, 3 repeats, twice in turn) and against the tree's
 output.
 """
 
-import argparse
 import json
-import os
-import re
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(Path(__file__).resolve().parent))  # the harness, also where a measuring process runs this file
+import probe_harness as ph  # noqa: E402
+
 E = 8
 MATS = {"lin1": (896, 3584), "lin2": (3584, 896)}
 TOKENS = {"decode": 4, "prefill": 1200}  # top-2: T 8 and T 2400
@@ -58,52 +56,6 @@ VARIANTS = {
     "split2": ([], {"decode_lin1": (None, 2), "decode_lin2": (None, 2), "prefill_lin2": (None, 2)}),
     "split8": ([], {"decode_lin2": (None, 8)}),
 }
-
-
-def kernel_name(name):
-    """A profiler event's kernel function, without namespaces and template arguments."""
-    m = re.search(r"(\w+)(?:<|\()", name)
-    return m.group(1) if m else name[:60]
-
-
-def events_ms(fn, iters=200, warmup=10):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_split(fn, iters=20):
-    """{kernel: device ms per call} from a ``torch.profiler`` trace of
-    ``iters`` calls after one; taken up to three times where a trace comes
-    back without the card's activity ({} after three)."""
-    import torch
-    from torch.autograd import DeviceType
-
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                name = kernel_name(e.name)
-                by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-        if by_name:
-            return by_name
-    return {}
 
 
 def k11_ms(split):
@@ -159,9 +111,9 @@ def serve(result):
     quantize_params_int8(model)
     torch.cuda.empty_cache()
     out["ttft_ms"], out["ttft_samples_ms"] = ttft_ms()
-    first = device_split(lambda: run(1), iters=3)
+    first = ph.device_split(lambda: run(1), iters=3)
     out["ttft_device_ms"], out["k11_device_ms"] = sum(first.values()), k11_ms(first)
-    more = device_split(lambda: run(17), iters=1)
+    more = ph.device_split(lambda: run(17), iters=1)
     out["k11_device_ms_per_step"] = (k11_ms(more) - out["k11_device_ms"]) / 16
     out["device_ms_per_step"] = (sum(more.values()) - out["ttft_device_ms"]) / 16
     result["next_serve"] = out
@@ -183,37 +135,12 @@ def measure():
         fn = lambda x=x, w_q=w_q, scale=scale, gs=gs: w(x, w_q, scale, gs)  # noqa: E731
         tc = getattr(w, "tc_launches", None)
         err = float((fn().float() - w(x, w_q, scale, gs, plain=True).float()).abs().max())
-        split = device_split(fn)
-        result[name] = {"ms": events_ms(fn), "device_ms": k11_ms(split), "call_device_ms": sum(split.values()),
+        split = ph.device_split(fn)
+        result[name] = {"ms": ph.events_ms(fn), "device_ms": k11_ms(split), "call_device_ms": sum(split.values()),
                         "kernels": split, "max_abs_err": err, "group_sizes": gs.tolist(),
                         "tc_launch": None if tc is None else w.tc_launches - tc > 0}
     serve(result)
     print(json.dumps(result), flush=True)
-
-
-def variant_libraries():
-    """{name: the built library} of the tree's K11 sources for each distinct
-    set of -D flags in VARIANTS, built in parallel."""
-    import shutil
-
-    src = ROOT / "llm_quest_tpu_torch" / "csrc"
-    out = ROOT / "llm_quest_tpu_torch" / "_build" / "qgmm_variants"
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    procs = {}
-    for name, (flags, _) in VARIANTS.items():
-        if flags or name == "tree":
-            d = out / name
-            shutil.rmtree(d, ignore_errors=True)
-            d.mkdir(parents=True)
-            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                   *flags, "-shared", "-o", str(d / "lib.so"), str(src / "quantized_gmm.cu"),
-                   str(src / "quantized_gmm_tc.cu")]
-            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    logs = {name: proc.communicate()[0] for name, proc in procs.items()}  # all of them end before any raise
-    for name, proc in procs.items():
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name} did not build:\n{logs[name][-3000:]}")
-    return {name: out / name / "lib.so" for name in procs}
 
 
 def time_variants():
@@ -227,7 +154,9 @@ def time_variants():
 
     P, I = ctypes.c_void_p, ctypes.c_int
     libs = {}
-    for name, path in variant_libraries().items():
+    built = {name: (flags, []) for name, (flags, _) in VARIANTS.items() if flags or name == "tree"}
+    for name, path in ph.variant_libraries("qgmm_variants", ["quantized_gmm.cu", "quantized_gmm_tc.cu"],
+                                           built).items():
         lib = ctypes.CDLL(str(path))
         lib.llmq_quantized_gmm.argtypes = [I] + [P] * 4 + [I, P] + [I] * 7 + [P]
         lib.llmq_quantized_gmm.restype = I
@@ -252,11 +181,7 @@ def time_variants():
                 raise RuntimeError(f"variant {name}: the {case} launch failed")
             calls[name, case], outs[name, case], chosen[name, case] = call, y, (rows, split)
     torch.cuda.synchronize()
-    ms = {key: [] for key in calls}
-    for _ in range(2):
-        for key, call in calls.items():
-            for _ in range(3):
-                ms[key].append(events_ms(call, iters=200, warmup=10))
+    ms = ph.time_in_turns(calls)
     variants = {}
     for (name, case), v in ms.items():
         diff = float((outs[name, case].float() - outs["tree", case].float()).abs().max())
@@ -265,34 +190,9 @@ def time_variants():
     print(json.dumps({"variants": variants, "card": torch.cuda.get_device_name(0)}), flush=True)
 
 
-def run_tree(tree):
-    """``measure`` in a process that imports the package under ``tree``."""
-    env = dict(os.environ, PYTHONPATH=str(tree))
-    cmd = [sys.executable, str(Path(__file__).resolve()), "--measure"]
-    done = subprocess.run(cmd, env=env, cwd=str(tree), capture_output=True, text=True)
-    if done.returncode != 0:
-        sys.stderr.write(done.stderr[-4000:])
-        raise SystemExit(f"{tree}: the measurement failed ({done.returncode})")
-    line = done.stdout.strip().splitlines()[-1]
-    print(json.dumps({"tree": str(tree), **json.loads(line)}), flush=True)
-
-
 def main(argv):
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--against", help="root of another checkout whose package is measured beside this one")
-    parser.add_argument("--variants", action="store_true",
-                        help="also time the tensor-core kernel in copies and choices each with one change")
-    parser.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
-    args = parser.parse_args(argv)
-    if args.measure:
-        measure()
-        return 0
-    trees = [ROOT] if args.against is None else [Path(args.against).resolve(), ROOT]
-    for tree in trees + trees[::-1] if len(trees) > 1 else trees:
-        run_tree(tree)
-    if args.variants:
-        time_variants()
-    return 0
+    return ph.main(argv, script=__file__, doc=__doc__, measure=lambda args: measure(),
+                   variants=lambda args: time_variants())
 
 
 if __name__ == "__main__":

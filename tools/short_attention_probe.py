@@ -39,10 +39,14 @@ import re
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
-from llm_quest_tpu_torch.kernels import attention, build, fused_mha
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import probe_harness as ph  # noqa: E402
+
+from llm_quest_tpu_torch.kernels import attention, build, fused_mha  # noqa: E402
 
 B, S, H, D = 128, 197, 12, 64
 KERNEL_SRC = build.CSRC_DIR / "fused_mha_tc.cu"
@@ -97,12 +101,7 @@ def build_variants(against=None):
         shutil.copytree(package, dst / "llm_quest_tpu_torch", ignore=shutil.ignore_patterns("_build", "__pycache__"))
         if name in VARIANTS:
             src = dst / "llm_quest_tpu_torch" / "csrc" / KERNEL_SRC.name
-            text = src.read_text()
-            for old, new in VARIANTS[name]:
-                if old not in text:
-                    raise RuntimeError(f"variant {name}: {old!r} is not in {KERNEL_SRC.name}")
-                text = text.replace(old, new)
-            src.write_text(text)
+            src.write_text(ph.apply_edits(src.read_text(), VARIANTS[name], f"variant {name}"))
         copies[name] = dst
     procs = {name: subprocess.Popen([sys.executable, "-c", "from llm_quest_tpu_torch.kernels import build; "
                                      "build.library()"], cwd=dst, env=_env(dst))
@@ -124,22 +123,12 @@ def time_variants(copies):
 
 
 def registers():
-    """{kernel instance: (registers, spill stores, spill loads)} from ptxas."""
-    out_dir = build.BUILD_DIR / "probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(out_dir / "ptxas.o"), str(KERNEL_SRC)]
-    log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
-    found, name, spills = {}, None, (0, 0)
-    for line in log.splitlines():
-        if m := re.search(r"Compiling entry function '(\S+)'", line):
-            name = m.group(1)
-        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
-            spills = (int(m.group(1)), int(m.group(2)))
-        elif (m := re.search(r"Used (\d+) registers", line)) and name:
-            inst = re.search(r"fused_mha_tc_kernelILi(\d+)ELi(\d+)E", name)
-            key = f"D {inst.group(1)}, NWG {inst.group(2)}" if inst else name
-            found[key] = {"registers": int(m.group(1)), "spill_stores": spills[0], "spill_loads": spills[1]}
-    return found
+    """{kernel instance: registers and spills} from ptxas."""
+    def label(name):
+        inst = re.search(r"fused_mha_tc_kernelILi(\d+)ELi(\d+)E", name)
+        return f"D {inst.group(1)}, NWG {inst.group(2)}" if inst else name
+
+    return ph.ptxas_registers(KERNEL_SRC.name, label)
 
 
 def backward_breakdown(gen):
@@ -159,21 +148,9 @@ def backward_breakdown(gen):
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3 / 10
+            name = ph.kernel_name(e.name)
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / 10
     return sorted(by_name.items(), key=lambda kv: -kv[1])
-
-
-def cuda_ms(fn, iters):
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
 
 
 def delta_forms(gen):
@@ -186,7 +163,7 @@ def delta_forms(gen):
         "do_cast": lambda: (do.float() * o).sum(-1).contiguous(),
         "bf16_products": lambda: (do * o).sum(-1, dtype=torch.float32).contiguous(),
     }
-    return {name: cuda_ms(fn, 100) for name, fn in forms.items()}
+    return {name: ph.events_ms(fn, 100) for name, fn in forms.items()}
 
 
 def fp64_attention(q, k, v, causal):
@@ -228,8 +205,7 @@ def main():
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("short_attention_probe runs on the card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = ph.card()
     gen = torch.Generator(device="cuda").manual_seed(0)
     print(json.dumps({"card": smi, "errors": errors(gen)}), flush=True)
     print(json.dumps({"card": smi, "backward_ms": backward_breakdown(gen)[:8]}), flush=True)
