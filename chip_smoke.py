@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the port's
-kernels from ``llm_quest_tpu_torch/csrc`` at first use. Thirteen main paths
+kernels from ``llm_quest_tpu_torch/csrc`` at first use. Fourteen main paths
 are driven: the ViT-B/224 encode of bench.py's ViT cell (through K7, K8 and
 K9), the TinyViT CIFAR-10 training loop of ``scripts/vit_training.py``, the
 ViT-B/224 training step at b 128, the int8-score ablation of
-``scripts/ablate_int8_scores.py`` (K12), Qwen3.5-0.8B generation, the dense Qwen3 training step of bench.py's train
+``scripts/ablate_int8_scores.py`` (K12), Qwen3.5-0.8B generation, its batched text decode at b 128 (bench.py's
+decode sweep), the dense Qwen3 training step of bench.py's train
 workload, the Qwen3-Next hybrid training step of
 ``scripts/bench_hybrid_training.py``, the Gemma-3 sliding-window training
 step at Gemma-3-270M's widths, the MiMo-V2-Flash training step of
@@ -57,7 +58,13 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    the stack (``bf16_grouped_mm_ms``); then ``tiling_sweep``: the
    tensor-core kernel's row tiles and K splits around the wrapper's choice
    from T 8 to 2400, and the SIMT tilings (fp32) from T 32 to 512;
-   K2 also at dk 64. K4 at one Gemma-3-270M layer (b 4, q/kv heads 4/1,
+   K2 (the GDN decode step, csrc/gdn.cu) at its four paths' shapes
+   (``K2_SHAPES``: b 1, Qwen3-Next's b 4 at dk 64 with 4 qk heads for 8 v
+   heads, b 32 and b 128), fp32 and bf16, on q/k/v as views of one fused
+   projection and beta in the inputs' dtype, other layers bitwise
+   unchanged, timed with the L2 cold (``step_timing``: launches back to
+   back over distinct states of at least 128 MB in all; the warm time, CUDA
+   events and host µs beside it). K4 at one Gemma-3-270M layer (b 4, q/kv heads 4/1,
    d 256, s 2048), fp32 and bf16, forward and forward + backward, each with
    window 512 and causal, and softcap 30 with sinks (dsink checked); then
    ``k4_window_ratio``: the windowed kernels' device times at most 0.6x the
@@ -78,8 +85,8 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    tensor-core kernel (``tc_launches``), held tile by tile (TILE_TOL) beside
    the plain version with one 64-key piece dropped, and timed by CUDA
    events and profiler (``device_ms``: the kernel; ``call_device_ms``: with
-   K8 dynamic's scale reductions). K3 (one layer's decode step) at b 1 and 32,
-   16 heads of 128. K5 (flash attention with its lse) at one layer of the
+   K8 dynamic's scale reductions). K3 (one layer's decode step, K2's kernel)
+   at b 1 and 32, 16 heads of 128, timed as K2. K5 (flash attention with its lse) at one layer of the
    context-parallel step (b 1, 16/8 heads, d 128, s 8192), causal and not,
    forward and forward + backward with a random lse cotangent, fp32
    against plain within NEW_TOL, bf16 (o, lse, dq, dk, dv) within TOL and
@@ -131,6 +138,10 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
    300-token prompt — and every kernel of the path must have launched, and
    K7 none (the tower's s 576 is above ``fused_mha_max_seq``: ``sdpa``);
 7. timing: tok/s and TTFT of both, with the card's name and power limit;
+7a. text_decode_b128: bench.py's batched decode cell, Qwen3.5-0.8B text (24
+   layers, bf16) at b 128, prompt 32, 8 greedy tokens, counts reset first:
+   K2 launches 18 times a decode step; the device ms a step, K2's part and
+   share of it and the kernels a step (profiler), and tok/s;
 8. train_fp32: a 2-layer Qwen3 at Qwen3-0.6B widths, b = 1, s = 2048, the
    loss and every gradient through the kernels against the plain versions;
 9. train: bench.py's train configuration (16 layers, b = 4, s = 2048, bf16,
@@ -198,9 +209,9 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
     Phases 18 and 19 reset the counts, drive the int8 model once, then print
     tok/s, TTFT and MBU beside the bf16 model's, the per-step cost of the
     int8 → bf16 weight copies, and the device time of K1's forward and of
-    K11 in a TTFT call beside the call's whole device time, and K11's and
-    all device time per decode step (a 17-token call less the TTFT call,
-    over 16 steps; ``torch.profiler``).
+    K11 in a TTFT call beside the call's whole device time, and K11's,
+    K2's and all device time and the kernels launched per decode step (a
+    17-token call less the TTFT call, over 16 steps; ``torch.profiler``).
 
 K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
 tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
@@ -755,64 +766,124 @@ def kernel_k1_bwd(gen, dtypes):
     return max(errs), case["fwd_bwd_ms"], case["plain_fwd_bwd_ms"], cases, extra
 
 
+# K2's shapes: (name, L, b, h, h_qk, dk = dv, layer). Qwen3.5-0.8B generation
+# (b 1; the int8 and bf16 generation paths), Qwen3-Next-small serving (b 4, 8
+# v heads reading 4 qk heads, dk 64), bench.py's decode sweep (b 32 and 128;
+# ``text_decode_b128``). The record's top line is b 128, where the step moves
+# the most bytes.
+K2_SHAPES = (("b1", 18, 1, 16, 16, 128, 7), ("next", 6, 4, 8, 4, 64, 3), ("b32", 18, 32, 16, 16, 128, 7),
+             ("b128", 18, 128, 16, 16, 128, 7))
+K2_KEY = "gdn_step_stacked_kernel"  # the step kernel's name (csrc/gdn.cu), K2's and K3's
+# the distinct states a cold timing rotates over hold at least this many bytes: 2.5 times the H100's 50 MB L2
+ROTATE_BYTES = 128 * 2**20
+
+
+def rotation(state, min_copies=2):
+    """A contiguous (n, *state.shape) stack of copies of ``state``, n large enough that the stack holds
+    ROTATE_BYTES (at least ``min_copies``)."""
+    n = max(min_copies, -(-ROTATE_BYTES // nbytes(state)))
+    return state[None].repeat(n, *(1,) * state.dim())
+
+
+def rotated_device_ms(calls, key):
+    """Device time a call of the kernels whose names contain ``key``, with the
+    L2 cold: ``calls`` (each on its own state, together at least
+    ROTATE_BYTES) made in turn, back to back, twice over (20 at least), in one
+    ``torch.profiler`` trace (``device_ms``). No call finds its state in the
+    L2, and the dirty lines each leaves there are written back inside later
+    calls' time, as in a decode step, so the time a call includes all of its
+    reads and writes of DRAM."""
+    turn = iter(range(10**9))
+    return device_ms(lambda: calls[next(turn) % len(calls)](), key, iters=max(20, 2 * len(calls)))
+
+
+def step_inputs(gen, b, h, h_qk, d, dtype):
+    """K2's and K3's inputs as the models give them: q, k (b, h_qk, d) and v
+    (b, h, d) views of one fused projection, one element in (a bf16 view
+    sits 2 bytes off 4-byte alignment), q and k l2-normalized; beta (b, h)
+    from a sigmoid in ``dtype``; alpha (b, h) fp32, a view of (b, 1, h)."""
+    import torch
+
+    from llm_quest_tpu_torch.ops.gdn import l2_norm_clamp
+
+    n = h_qk * d
+    fused = randn(gen, b, 1 + 2 * n + h * d, dtype=dtype)
+    q, k = fused[:, 1:1 + n].view(b, h_qk, d), fused[:, 1 + n:1 + 2 * n].view(b, h_qk, d)
+    v = fused[:, 1 + 2 * n:].view(b, h, d)
+    q.copy_(l2_norm_clamp(q))
+    k.copy_(l2_norm_clamp(k))
+    beta = torch.sigmoid(randn(gen, b, h)).to(dtype)
+    alpha = torch.sigmoid(randn(gen, b, 1, h, scale=0.3) + 2.0)[:, 0]
+    return q, k, v, beta, alpha
+
+
+def step_timing(call, rotated_calls, plain_call, nbytes_moved, flops):
+    """A K2/K3 call's times: ``ms`` (= ``device_ms``) the step kernel's cold
+    device time (``rotated_device_ms`` over ``rotated_calls``, the same call
+    on distinct states), ``device_ms_warm`` ``call`` launched back to back
+    (a state that fits the L2 stays there), ``events_ms`` CUDA events around
+    calls back to back, ``host_us`` the wrapper's time to return,
+    ``plain_ms`` the plain version by events; and the bound."""
+    cold = rotated_device_ms(rotated_calls, K2_KEY)
+    return {"ms": cold, "device_ms": cold, "device_ms_warm": device_ms(call, K2_KEY), "events_ms": cuda_ms(call),
+            "states_rotated": len(rotated_calls), "host_us": host_us(call), "plain_ms": cuda_ms(plain_call),
+            **bound(nbytes_moved, flops)}
+
+
 def kernel_k2(gen, dtypes):
+    """K2 at K2_SHAPES, fp32 and bf16, on the models' inputs (``step_inputs``:
+    strided views, bf16 beta in bf16, q/k at their own head count for
+    Qwen3-Next) against the plain version: out within TOL (fp32: NEW_TOL),
+    the layer's new state within NEW_TOL, every other layer bitwise
+    unchanged; timed in bf16 at each shape (``step_timing``), the
+    record's line at b 128."""
     import torch
 
     from llm_quest_tpu_torch.kernels import gdn
 
     errs, cases = [], []
-    layer = 7
-    for dtype in dtypes:
-        for b in (1, 32):
-            q, k, v, beta, alpha, _ = gdn_inputs(gen, b, 16, 1, dtype)
-            q, k, v, beta, alpha = q[:, :, 0], k[:, :, 0], v[:, :, 0], beta[:, :, 0], alpha[:, :, 0]
-            stacked = randn(gen, 18, b, 16, 128, 128, scale=0.1)
+    for name, n_layers, b, h, h_qk, d, layer in K2_SHAPES:
+        for dtype in dtypes:
+            q, k, v, beta, alpha = step_inputs(gen, b, h, h_qk, d, dtype)
+            stacked = randn(gen, n_layers, b, h, d, d, scale=0.1)
             before = stacked.clone()
-            ref_stacked = stacked.clone()
+            ref_layer = stacked[layer].clone()
             out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, layer)
-            ref_out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, ref_stacked, layer, plain=True)
+            ref_out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, ref_layer[None], 0, plain=True)
             torch_sync()
-            others = [i for i in range(18) if i != layer]
-            if not torch.equal(stacked[others], before[others]):
-                raise AssertionError(f"K2 b={b} {dtype}: layers other than {layer} changed")
-            e = max(check(f"K2 out b={b} {dtype}", out, ref_out, dtype),
-                    check(f"K2 state b={b} {dtype}", stacked[layer], ref_stacked[layer], torch.float32))
-            cases.append({"b": b, "layer": layer, "dtype": str(dtype), "max_abs_err": e, "others_bitwise_equal": True})
+            if not all(torch.equal(stacked[i], before[i]) for i in range(n_layers) if i != layer):
+                raise AssertionError(f"K2 {name} {dtype}: layers other than {layer} changed")
+            tol = NEW_TOL if dtype == dtypes[0] else None  # bf16 out rounds once more
+            e = max(check(f"K2 out {name} {dtype}", out, ref_out, dtype, tol),
+                    check(f"K2 state {name} {dtype}", stacked[layer], ref_layer, torch.float32, NEW_TOL))
+            case = {"shape": name, "L": n_layers, "b": b, "h": h, "h_qk": h_qk, "dk": d, "layer": layer,
+                    "dtype": str(dtype), "beta_dtype": str(beta.dtype), "max_abs_err": e,
+                    "others_bitwise_equal": True}
+            del before
+            if dtype == dtypes[-1]:
+                def call(q=q, k=k, v=v, beta=beta, alpha=alpha, stacked=stacked, layer=layer):
+                    return gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, layer)
+
+                def plain_call(q=q, k=k, v=v, beta=beta, alpha=alpha, ref=ref_layer):
+                    return gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, ref[None], 0, plain=True)
+
+                rot = rotation(ref_layer)
+                rotated = [lambda i=i, q=q, k=k, v=v, beta=beta, alpha=alpha, rot=rot:
+                           gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, rot, i) for i in range(len(rot))]
+                # one layer's fp32 state read and written in place, q/k/v/beta/alpha read, out written
+                case.update(step_timing(call, rotated, plain_call,
+                                        nbytes(q, k, v, beta, alpha, out) + 2 * nbytes(ref_layer), 8 * d * d * b * h))
+                del rot, rotated
+            cases.append(case)
             if dtype == dtypes[0]:
                 errs.append(e)
-    # dk = dv = 64: Qwen3-Next-small's decode step (6 GDN layers, b 4, 8 v heads)
-    for dtype in dtypes:
-        q, k, v, beta, alpha, _ = gdn_inputs(gen, 4, 8, 1, dtype, dk=64, dv=64)
-        q, k, v, beta, alpha = q[:, :, 0], k[:, :, 0], v[:, :, 0], beta[:, :, 0], alpha[:, :, 0]
-        stacked = randn(gen, 6, 4, 8, 64, 64, scale=0.1)
-        ref_stacked = stacked.clone()
-        out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 3)
-        ref_out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, ref_stacked, 3, plain=True)
-        torch_sync()
-        e = max(check(f"K2 dk=64 out {dtype}", out, ref_out, dtype),
-                check(f"K2 dk=64 state {dtype}", stacked[3], ref_stacked[3], torch.float32))
-        case = {"L": 6, "b": 4, "h": 8, "dk": 64, "dtype": str(dtype), "max_abs_err": e}
-        if dtype == dtypes[-1]:
-            case["ms"] = cuda_ms(lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 3))
-            case["device_ms"] = device_ms(
-                lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 3), "gdn_step_stacked")
-            case["plain_ms"] = cuda_ms(
-                lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 3, plain=True))
-            case.update(bound(nbytes(q, k, v, beta, alpha, out) + 2 * nbytes(stacked[3]), 8 * 64 * 64 * 4 * 8))
-        cases.append(case)
-        if dtype == dtypes[0]:
-            errs.append(e)
-    q, k, v, beta, alpha, _ = gdn_inputs(gen, 1, 16, 1, dtypes[-1])
-    q, k, v, beta, alpha = q[:, :, 0], k[:, :, 0], v[:, :, 0], beta[:, :, 0], alpha[:, :, 0]
-    stacked = randn(gen, 18, 1, 16, 128, 128, scale=0.1)
-    ms = cuda_ms(lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, layer))
-    plain_ms = cuda_ms(lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, layer, plain=True))
-    out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, layer)
-    # one layer's fp32 state read and written in place
-    extra = {**bound(nbytes(q, k, v, beta, alpha, out) + 2 * nbytes(stacked[layer]), 8 * 128 * 128 * 16),
-             "library_ms": None, "device_ms": device_ms(
-                 lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, layer), "gdn_step_stacked")}
-    return max(errs), ms, plain_ms, cases, extra
+            del stacked, ref_layer
+            torch.cuda.empty_cache()
+    rec = next(c for c in cases if c["shape"] == "b128" and "ms" in c)
+    extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "device_ms",
+                                       "device_ms_warm", "events_ms", "host_us")}
+    extra["library_ms"] = None
+    return max(errs), rec["ms"], rec["plain_ms"], cases, extra
 
 
 def attn_inputs(gen, b, hq, hkv, sq, sk, d, dtype):
@@ -1664,8 +1735,9 @@ def k11_tiling_sweep(gen):
 
 def kernel_k3(gen, dtypes):
     """K3, one layer's decode step (16 heads, dk = dv = 128) at b 1 and b 32,
-    fp32 and bf16 against plain, the state updated in place; timed in bf16
-    at both sizes (b 1 is the record's), beside its profiler device time."""
+    fp32 and bf16, on ``step_inputs`` against plain, the state updated in
+    place; timed in bf16 at both sizes with the L2 cold (``step_timing``),
+    the record's line at b 32."""
     import torch
 
     from llm_quest_tpu_torch.kernels import gdn
@@ -1673,8 +1745,7 @@ def kernel_k3(gen, dtypes):
     errs, cases = [], []
     for dtype in dtypes:
         for b in (1, 32):
-            q, k, v, beta, alpha, _ = gdn_inputs(gen, b, 16, 1, dtype)
-            q, k, v, beta, alpha = q[:, :, 0], k[:, :, 0], v[:, :, 0], beta[:, :, 0], alpha[:, :, 0]
+            q, k, v, beta, alpha = step_inputs(gen, b, 16, 16, 128, dtype)
             state = randn(gen, b, 16, 128, 128, scale=0.1)
             ref_state = state.clone()
             out, new = gdn.gated_delta_rule_step(q, k, v, beta, alpha, state)
@@ -1684,22 +1755,28 @@ def kernel_k3(gen, dtypes):
                 raise AssertionError("K3: the state was not updated in place")
             tol = NEW_TOL if dtype == dtypes[0] else None  # bf16 out rounds once more
             e = max(check(f"K3 out b={b} {dtype}", out, ref_out, dtype, tol),
-                    check(f"K3 state b={b} {dtype}", state, ref_state, torch.float32, tol))
+                    check(f"K3 state b={b} {dtype}", state, ref_state, torch.float32, NEW_TOL))
             case = {"b": b, "h": 16, "dk": 128, "dtype": str(dtype), "max_abs_err": e}
             if dtype == dtypes[-1]:
                 def run(q=q, k=k, v=v, beta=beta, alpha=alpha, state=state):
                     return gdn.gated_delta_rule_step(q, k, v, beta, alpha, state)
 
-                case["ms"] = cuda_ms(run)
-                case["device_ms"] = device_ms(run, "gdn_step_stacked")
-                case["plain_ms"] = cuda_ms(lambda: gdn.gated_delta_rule_step(q, k, v, beta, alpha, state, plain=True))
+                def plain_run(q=q, k=k, v=v, beta=beta, alpha=alpha, state=ref_state):
+                    return gdn.gated_delta_rule_step(q, k, v, beta, alpha, state, plain=True)
+
+                rot = rotation(state)
+                rotated = [lambda i=i, q=q, k=k, v=v, beta=beta, alpha=alpha, rot=rot:
+                           gdn.gated_delta_rule_step(q, k, v, beta, alpha, rot[i]) for i in range(len(rot))]
                 # the fp32 state read and written once, q/k/v/β/α read, out written
-                case.update(bound(nbytes(q, k, v, beta, alpha, out) + 2 * nbytes(state), 8 * 128 * 128 * 16 * b))
+                case.update(step_timing(run, rotated, plain_run,
+                                        nbytes(q, k, v, beta, alpha, out) + 2 * nbytes(state), 8 * 128 * 128 * 16 * b))
+                del rot, rotated
             cases.append(case)
             if dtype == dtypes[0]:
                 errs.append(e)
-    rec = next(c for c in cases if c["b"] == 1 and "ms" in c)
-    extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "device_ms")}
+    rec = next(c for c in cases if c["b"] == 32 and "ms" in c)
+    extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "device_ms",
+                                       "device_ms_warm", "events_ms", "host_us")}
     extra["library_ms"] = None
     return max(errs), rec["ms"], rec["plain_ms"], cases, extra
 
@@ -1931,6 +2008,7 @@ def torch_sync():
 # the main paths
 GENERATE, TRAIN, HYBRID = "generate", "train", "hybrid_train"
 INT8_GENERATE, NEXT_SERVE = "int8_generate", "next_serve"
+TEXT_B128 = "text_decode_b128"
 GEMMA = "gemma_train"
 VIT = "vit_encode"
 MIMO = "mimo_train"
@@ -1967,11 +2045,13 @@ KERNELS = [
     # "bf16" those with int8 or bf16 scores]), source (or the source of each
     # dtype's kernel), replaced TPU kernel, check, main paths that launch it
     ("gdn_prefill", ("gdn", "gated_delta_rule_fwd"), GDN_SRC,
-     "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1, (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE)),
+     "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1, (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE, TEXT_B128)),
     ("gdn_prefill_bwd", ("gdn", "gated_delta_rule_bwd"), GDN_SRC,
      "llm_quest_tpu/kernels/gdn_pallas.py:255", kernel_k1_bwd, (HYBRID,)),
+    # K2 and K3: the step kernel (csrc/gdn.cu) for both dtypes; their records' ms is the kernel's
+    # device time with the L2 cold (step_timing)
     ("gdn_step_stacked", ("gdn", "gated_delta_rule_step_stacked"), "llm_quest_tpu_torch/csrc/gdn.cu",
-     "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2, (GENERATE, INT8_GENERATE, NEXT_SERVE)),
+     "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2, (GENERATE, INT8_GENERATE, NEXT_SERVE, TEXT_B128)),
     ("flash_attention_fwd", ("attention", "flash_attention"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4, (GENERATE, TRAIN, HYBRID)),
     ("flash_attention_bwd", ("attention", "flash_attention_bwd"), ATTN_SRC,
@@ -2117,8 +2197,8 @@ def kernel_phase():
                         "library_ms": extra["library_ms"], "simt_bound_ms": extra["simt_bound_ms"],
                         "tflops": extra.get("tflops", extra["flops"] / ms / 1e9),
                         **{key: extra[key] for key in ("bf16_sdpa_ms", "bf16_grouped_mm_ms", "max_abs_err_bf16",
-                                                       "tile_err_bf16",
-                                                       "device_ms") if key in extra},
+                                                       "tile_err_bf16", "device_ms", "device_ms_warm",
+                                                       "events_ms", "host_us") if key in extra},
                         **extra.get("record", {}),
                         "paths": list(paths)})
         torch.cuda.empty_cache()
@@ -2358,6 +2438,44 @@ def main_path(cfg, inputs, records, card):
     emit({"phase": "timing", "card": card, "dtype": "bfloat16",
           "multimodal": {"tok_s": 64 / mm_s, "ttft_ms": mm_ttft * 1e3, "run_s": mm_all},
           "text_b4": {"tok_s": 4 * 64 / tx_s, "ttft_ms": tx_ttft * 1e3, "run_s": tx_all}})
+
+
+def text_decode_b128(records, card, max_gen=8):
+    """``bench.py``'s batched decode cell (its sweep at b 128): Qwen3.5-0.8B
+    text, 24 layers, bf16, random weights from the seed, b 128, prompt 32,
+    ``max_gen`` greedy tokens through ``generate_kv_cache``, launch counts
+    reset first (K1's prefill, 18 K2 steps a token); then a 1-token and a
+    9-token call under the profiler: the device ms a decode step, K2's part
+    of it, its share and the kernels a step; tok/s of 16-token calls."""
+    import torch
+
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    cfg = dict(QWEN3_5_08B_CONFIG, dtype=torch.bfloat16)
+    model = text_model(cfg)
+    ids = ids_on_card(128, 32)
+    reset_launches()
+    seq = generate(qwen3_5.TextOnly, model, cfg, ids, max_gen)
+    torch.cuda.synchronize()
+    launches = read_launches(TEXT_B128, records)
+    n_gdn = len(qwen3_5.gdn_layer_indices(cfg))
+    if launches["gdn_step_stacked"] != n_gdn * (max_gen - 1):
+        raise AssertionError(f"{TEXT_B128}: K2 launched {launches['gdn_step_stacked']} times, "
+                             f"expected {n_gdn} a decode step over {max_gen - 1} steps")
+    if tuple(seq.shape) != (128, 32 + max_gen) or not bool(((seq >= 0) & (seq < cfg["vocab_size"])).all()):
+        raise AssertionError(f"{TEXT_B128}: bad sequences {tuple(seq.shape)}")
+    short = call_device_ms(lambda: generate(qwen3_5.TextOnly, model, cfg, ids, 1), iters=1, keys=(K2_KEY,))
+    long = call_device_ms(lambda: generate(qwen3_5.TextOnly, model, cfg, ids, 9), iters=1, keys=(K2_KEY,))
+    k2_ms, step_ms, kernels = per_step(short, long, 8)
+    run_s, runs = timed(lambda: generate(qwen3_5.TextOnly, model, cfg, ids, 16), 2)
+    emit({"phase": TEXT_B128, "card": card, "dtype": "bfloat16", "layers": cfg["n_layers"], "gdn_layers": n_gdn,
+          "b": 128, "prompt": 32, "launches": launches, "tokens": seq[0, 32:].tolist(),
+          "device_ms_per_step": step_ms, "k2_device_ms_per_step": k2_ms,
+          "k2_share": None if step_ms is None else k2_ms / step_ms, "kernels_per_step": kernels,
+          "tok_s": 128 * 16 / run_s, "run_s": runs})
+    del model
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ ViT encode path
@@ -3372,16 +3490,22 @@ def int8_copy_ms(model):
 QGMM_KEY = "quantized_gmm"  # the name stem of K11's kernels (csrc/quantized_gmm.cu, csrc/quantized_gmm_tc.cu)
 
 
-def call_device_ms(fn, iters=3):
-    """Per call of ``fn``, the device time of K1's forward kernels, of K11's
-    and of all its kernels, from one ``torch.profiler`` trace; Nones where
-    the profiler gives none."""
+def call_device_ms(fn, iters=3, keys=(GDN_TC_KEY, QGMM_KEY)):
+    """Per call of ``fn``, from one ``torch.profiler`` trace: the device
+    time of the kernels whose names contain each of ``keys`` (K1's forward
+    and K11's), of all its work, and the number of kernels it launched (the
+    copies and fills left out); Nones where the profiler gives none."""
     _, events = profiled(fn, iters, GDN_TC_KEY)
     if not events:
-        return None, None, None
-    ms = [sum(e.time_range.elapsed_us() for e in events if key in e.name) / 1e3 / iters
-          for key in (GDN_TC_KEY, QGMM_KEY, "")]
-    return tuple(ms)
+        return (None,) * (len(keys) + 2)
+    ms = [sum(e.time_range.elapsed_us() for e in events if key in e.name) / 1e3 / iters for key in (*keys, "")]
+    kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in events) / iters
+    return (*ms, kernels)
+
+
+def per_step(short, long, steps):
+    """(long - short) / steps for each pair of readings (None where either is)."""
+    return [None if a is None or b is None else (b - a) / steps for a, b in zip(short, long)]
 
 
 def serve_path(phase, path, make_model, entry, cfg_bf16, cfg_int8, ids, records, card, quant_options):
@@ -3411,13 +3535,15 @@ def serve_path(phase, path, make_model, entry, cfg_bf16, cfg_int8, ids, records,
           if total == "launches"}
     int8 = serve_rates(entry, model, cfg_int8, ids)
     # a TTFT call (the prefill and one token), then a 17-token call: the
-    # device time a decode step is their difference over 16 steps
-    int8["k1_fwd_device_ms"], int8["k11_device_ms"], int8["ttft_device_ms"] = call_device_ms(
-        lambda: generate(entry, model, cfg_int8, ids, 1))
-    _, k11_17, dev_17 = call_device_ms(lambda: generate(entry, model, cfg_int8, ids, 17), iters=1)
-    if dev_17 is not None and int8["ttft_device_ms"] is not None:
-        int8["k11_device_ms_per_step"] = (k11_17 - int8["k11_device_ms"]) / 16
-        int8["device_ms_per_step"] = (dev_17 - int8["ttft_device_ms"]) / 16
+    # device time a decode step, and the kernels it launches (K2's step with
+    # q/k at their own heads and beta as it comes: no repeat, no cast), are
+    # their difference over 16 steps
+    ttft = call_device_ms(lambda: generate(entry, model, cfg_int8, ids, 1), keys=(GDN_TC_KEY, QGMM_KEY, K2_KEY))
+    int8["k1_fwd_device_ms"], int8["k11_device_ms"], _, int8["ttft_device_ms"], _ = ttft
+    long = call_device_ms(lambda: generate(entry, model, cfg_int8, ids, 17), iters=1,
+                          keys=(GDN_TC_KEY, QGMM_KEY, K2_KEY))
+    _, int8["k11_device_ms_per_step"], int8["k2_device_ms_per_step"], int8["device_ms_per_step"], \
+        int8["kernels_per_step"] = per_step(ttft, long, 16)
     bytes_per_token = F.decode_bytes_per_token(model, cfg_int8, kv_len=kv_len, batch=ids.shape[0])
     int8["mbu"] = F.mbu(int8["tok_s"], bytes_per_token)
     copy_ms, int8_bytes = int8_copy_ms(model)
@@ -3701,6 +3827,7 @@ def main(argv):
     inputs = make_inputs(cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
     phase(check_fp32, cfg, inputs)
     phase(main_path, cfg, inputs, records, smi)
+    phase(text_decode_b128, records, smi)
     phase(train_paths, records, smi)
     phase(gemma_paths, records, smi)
     phase(mimo_paths, records, smi)

@@ -12,7 +12,11 @@
 //                                 per-chunk vjps from those states); fp32 here
 //   llmq_gdn_step_stacked      <- gated_delta_rule_step_stacked_pallas (the
 //                                 in-place one-token step on the stacked
-//                                 (L, b, h, dv, dk) decode state)
+//                                 (L, b, h, dv, dk) decode state), and
+//                                 gated_delta_rule_step_pallas (one layer's
+//                                 state: the stack at L = 1); q and k at
+//                                 their own head count, beta and alpha in
+//                                 their own dtype
 //
 // Math, per (batch, head), with S the fp32 (dv, dk) state:
 //   S' = a*S + b*(v - a*S k) k^T,    o = S' (q * dk^-1/2)
@@ -47,15 +51,21 @@
 // sequential token loop (one or five interleaved shuffle trees per token,
 // and in the backward one block barrier per token); the decode step is
 // bound by reading and writing the fp32 state once (64 KB per (b, h) at dv =
-// dk = 128), which is the minimum traffic: the state stays in registers
-// between read and write.
+// dk = 128: 2.1 MB at b 1, h 16, 268 MB at b 128), which is the minimum
+// traffic: the state stays in registers between read and write. It does
+// about 6 flops for each 8 bytes of state, far below the tensor cores'
+// ridge: a stream. A warp's one direct load of its row keeps the latency
+// of a small launch low; persistent blocks streaming tiles of rows through
+// a shared-memory ring of bulk async copies were slower at b 1 to 32 and no
+// faster at b 128 on the H100 (PERF.md).
 #include "common.cuh"
 #include "gdn.cuh"
 
 namespace llmq {
 namespace {
 
-constexpr int kRows = 8;        // forward and step: warps (= state rows) per block
+constexpr int kRows = 8;        // forward: warps (= state rows) per block
+constexpr int kStepRows = 8;    // step: warps (= state rows) per block
 constexpr int kChunk = 32;      // forward: tokens staged in shared memory
 constexpr int kMaxAnchor = 32;  // backward: most tokens between two anchors (the replay window)
 
@@ -367,37 +377,88 @@ __global__ void gdn_bwd_reduce_kernel(const float* __restrict__ part, int n_bloc
   }
 }
 
-// grid (dv / kRows, b*h), block kRows warps. Updates layer `layer` of the
-// stacked (L, b, h, dv, dk) fp32 state in place; every other layer is never
-// read or written. q/k: (b, h, dk), v: (b, h, dv) by strides; beta/alpha:
-// (b, h) fp32 contiguous; out: (b, h, dv) contiguous.
-template <typename T, int DK>
-__global__ void __launch_bounds__(kRows * 32)
-gdn_step_stacked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        const float* __restrict__ beta, const float* __restrict__ alpha,
-                        float* __restrict__ stacked, int layer, T* __restrict__ out, int B, int H,
-                        int DV, long long q_sb, long long q_sh, long long k_sb, long long k_sh,
-                        long long v_sb, long long v_sh, float scale) {
-  constexpr int N = DK / 32;
-  const int bh = blockIdx.y;
-  const int bi = bh / H, hi = bh % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRows + warp;
-  float* st_ptr = stacked + (((size_t)layer * B * H + bh) * DV + row) * DK + lane * N;
+// The step's arguments (q/k/v/out of one dtype T, beta and alpha each fp32
+// or bf16), strides in elements: every offset of q, k, v, beta, alpha and
+// out fits an int (the wrapper checks), so the index math before the loads
+// stays 32-bit.
+struct StepArgs {
+  const void *q, *k, *v, *beta, *alpha;
+  float* stacked;
+  void* out;
+  int layer;
+  // ceil(2^32 / rep), rep = h / h_qk: (i * rep_magic) >> 32 = i / rep for
+  // every v head i, exact while i * rep < 2^32 (h at most 65535)
+  unsigned long long rep_magic;
+  int q_sb, q_sh, k_sb, k_sh, v_sb, v_sh, beta_sb, beta_sh, alpha_sb, alpha_sh;
+  float scale;
+};
 
-  const T* qb = q + bi * q_sb + hi * q_sh + lane * N;
-  const T* kb = k + bi * k_sb + hi * k_sh + lane * N;
+// grid (dv / kStepRows, h, b), block kStepRows warps: one warp a state row,
+// a lane's slice of it loaded once (16 or 8 bytes) and stored once. The
+// compiler issues all of a thread's loads together after the index math,
+// and at b 1 to 4 that math is a good part of the time, so it is kept
+// short: indices from the block (no division), 32-bit offsets, the qk head
+// by a multiply and shift, beta's and alpha's dtypes as template arguments
+// (no branch). Updates layer `layer` of the stacked (L, b, h, dv, dk) fp32
+// state in place; every other layer is never read or written. q/k: (b,
+// h / rep, dk), v head h reads qk head h / rep (repeat_interleave's order);
+// v: (b, h, dv); beta (TB) and alpha (TA): (b, h), fp32 or bf16: all by
+// strides, so the models' views of one fused projection and sigmoid's bf16
+// beta are read as they lie, with no copy or cast before the launch; out:
+// (b, h, dv) contiguous.
+template <typename T, typename TB, typename TA, int DK>
+__global__ void __launch_bounds__(kStepRows * 32)
+gdn_step_stacked_kernel(const StepArgs a) {
+  constexpr int N = DK / 32;
+  const int hi = blockIdx.y, bi = blockIdx.z, H = gridDim.y, DV = gridDim.x * kStepRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kStepRows + warp;
+  const int bh = bi * H + hi;
+  float* st_ptr = a.stacked + (((size_t)a.layer * gridDim.z * H + bh) * DV + row) * DK + lane * N;
   float st[N], kv[N], qv[N];
   load_row(st, st_ptr);
+
+  const int hq = (int)((hi * a.rep_magic) >> 32);
+  const T* qb = static_cast<const T*>(a.q) + bi * a.q_sb + hq * a.q_sh + lane * N;
+  const T* kb = static_cast<const T*>(a.k) + bi * a.k_sb + hq * a.k_sh + lane * N;
 #pragma unroll
   for (int e = 0; e < N; ++e) {
-    kv[e] = to_f(kb[e]);
-    qv[e] = to_f(qb[e]);
+    kv[e] = to_f(__ldg(kb + e));
+    qv[e] = to_f(__ldg(qb + e));
   }
-  const float vi = to_f(v[bi * v_sb + hi * v_sh + row]);
-  const float o = row_step(st, kv, qv, alpha[bh], beta[bh], vi, scale);
+  const float vi = to_f(__ldg(static_cast<const T*>(a.v) + bi * a.v_sb + hi * a.v_sh + row));
+  const float bt = to_f(__ldg(static_cast<const TB*>(a.beta) + bi * a.beta_sb + hi * a.beta_sh));
+  const float al = to_f(__ldg(static_cast<const TA*>(a.alpha) + bi * a.alpha_sb + hi * a.alpha_sh));
+  const float o = row_step(st, kv, qv, al, bt, vi, a.scale);
   store_row(st_ptr, st);
-  if (lane == 0) out[(size_t)bh * DV + row] = from_f<T>(o);
+  if (lane == 0) static_cast<T*>(a.out)[bh * DV + row] = from_f<T>(o);
+}
+
+template <typename T, typename TB, typename TA, int DK>
+int launch_step(const StepArgs& a, dim3 grid, cudaStream_t stream) {
+  gdn_step_stacked_kernel<T, TB, TA, DK><<<grid, kStepRows * 32, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the instance for the head dim, then alpha's and beta's dtypes
+template <typename T, typename TB, typename TA>
+int launch_step_dk(int DK, const StepArgs& a, dim3 grid, cudaStream_t stream) {
+  return DK == 64 ? launch_step<T, TB, TA, 64>(a, grid, stream)
+                  : launch_step<T, TB, TA, 128>(a, grid, stream);
+}
+
+template <typename T, typename TB>
+int launch_step_alpha(int alpha_dtype, int DK, const StepArgs& a, dim3 grid, cudaStream_t stream) {
+  return alpha_dtype == kBFloat16 ? launch_step_dk<T, TB, __nv_bfloat16>(DK, a, grid, stream)
+                                  : launch_step_dk<T, TB, float>(DK, a, grid, stream);
+}
+
+template <typename T>
+int launch_step_beta(int beta_dtype, int alpha_dtype, int DK, const StepArgs& a, dim3 grid,
+                     cudaStream_t stream) {
+  return beta_dtype == kBFloat16
+             ? launch_step_alpha<T, __nv_bfloat16>(alpha_dtype, DK, a, grid, stream)
+             : launch_step_alpha<T, float>(alpha_dtype, DK, a, grid, stream);
 }
 
 template <typename T, int DK>
@@ -528,28 +589,28 @@ extern "C" long long llmq_gdn_prefill_bwd_work_bytes(int dtype, int B, int H, in
   return (long long)(DV / rows) * B * H * S * (2 * DK + 4) * (long long)sizeof(float);
 }
 
-// DK in {64, 128} (Qwen3.5 at 128, Qwen3-Next at 64), dv % kRows == 0.
-extern "C" int llmq_gdn_step_stacked(int dtype, const void* q, const void* k, const void* v,
-                                     const float* beta, const float* alpha, float* stacked,
-                                     int layer, void* out, int B, int H, int DK, int DV,
-                                     long long q_sb, long long q_sh, long long k_sb,
-                                     long long k_sh, long long v_sb, long long v_sh, float scale,
-                                     void* stream) {
-  if ((DK != 64 && DK != 128) || DV <= 0 || DV % kRows != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(DV / kRows, B * H), block(kRows * 32);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LLMQ_GDN_STEP(T, D)                                                                    \
-  gdn_step_stacked_kernel<T, D><<<grid, block, 0, st>>>(                                      \
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), beta,     \
-      alpha, stacked, layer, static_cast<T*>(out), B, H, DV, q_sb, q_sh, k_sb, k_sh, v_sb,   \
-      v_sh, scale)
-  if (dtype == kFloat32) {
-    if (DK == 64) LLMQ_GDN_STEP(float, 64); else LLMQ_GDN_STEP(float, 128);
-  } else if (dtype == kBFloat16) {
-    if (DK == 64) LLMQ_GDN_STEP(__nv_bfloat16, 64); else LLMQ_GDN_STEP(__nv_bfloat16, 128);
-  } else {
+// DK in {64, 128} (Qwen3.5 at 128, Qwen3-Next at 64), dv % kStepRows == 0,
+// H % HQK == 0, B and H at most 65535 (the grid's y and z); dtype: q/k/v and
+// out, beta_dtype / alpha_dtype: fp32 or bf16; strides in elements.
+extern "C" int llmq_gdn_step_stacked(int dtype, int beta_dtype, int alpha_dtype, const void* q,
+                                     const void* k, const void* v, const void* beta,
+                                     const void* alpha, float* stacked, int layer, void* out, int B,
+                                     int H, int HQK, int DK, int DV, int q_sb, int q_sh, int k_sb,
+                                     int k_sh, int v_sb, int v_sh, int beta_sb, int beta_sh,
+                                     int alpha_sb, int alpha_sh, float scale, void* stream) {
+  const auto scalar_ok = [](int d) { return d == kFloat32 || d == kBFloat16; };
+  if ((DK != 64 && DK != 128) || DV <= 0 || DV % kStepRows != 0 || HQK <= 0 || H % HQK != 0 ||
+      B > 65535 || H > 65535 || !scalar_ok(beta_dtype) || !scalar_ok(alpha_dtype))
     return (int)cudaErrorInvalidValue;
-  }
-#undef LLMQ_GDN_STEP
-  return (int)cudaGetLastError();
+  const int rep = H / HQK;
+  StepArgs a{q, k, v, beta, alpha, stacked, out, layer, ((1ull << 32) + rep - 1) / rep};
+  a.q_sb = q_sb, a.q_sh = q_sh, a.k_sb = k_sb, a.k_sh = k_sh, a.v_sb = v_sb, a.v_sh = v_sh;
+  a.beta_sb = beta_sb, a.beta_sh = beta_sh, a.alpha_sb = alpha_sb, a.alpha_sh = alpha_sh;
+  a.scale = scale;
+  const dim3 grid(DV / kStepRows, H, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) return launch_step_beta<float>(beta_dtype, alpha_dtype, DK, a, grid, st);
+  if (dtype == kBFloat16)
+    return launch_step_beta<__nv_bfloat16>(beta_dtype, alpha_dtype, DK, a, grid, st);
+  return (int)cudaErrorInvalidValue;
 }

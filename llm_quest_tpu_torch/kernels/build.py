@@ -40,8 +40,9 @@ _SIGNATURES = {
     "llmq_gdn_prefill_bwd": [_I] + [_P] * 16 + [_I] * 6 + [_F, _P],
     # dtype, B, H, S, DK, DV
     "llmq_gdn_prefill_bwd_work_bytes": [_I] * 6,
-    # dtype, q, k, v, beta, alpha, stacked, layer, out, B, H, DK, DV, 6 strides, scale, stream
-    "llmq_gdn_step_stacked": [_I] + [_P] * 6 + [_I, _P] + [_I] * 4 + [_L] * 6 + [_F, _P],
+    # dtypes of q/k/v, beta and alpha, q, k, v, beta, alpha, stacked, layer, out, B, H, HQK, DK, DV,
+    # 10 strides (int), scale, stream
+    "llmq_gdn_step_stacked": [_I] * 3 + [_P] * 6 + [_I, _P] + [_I] * 15 + [_F, _P],
     # dtype, q, k, v, o, lse, key_mask, B, HQ, HKV, SQ, SK, D, DV, 13 strides, causal, q_start, scale,
     # window, softcap, sink, stream
     "llmq_attention_fwd": [_I] + [_P] * 6 + [_I] * 7 + [_L] * 13 + [_I, _I, _F, _I, _F, _P, _P],

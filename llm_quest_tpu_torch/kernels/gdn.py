@@ -25,10 +25,15 @@
 - ``gated_delta_rule_step_stacked``: K2, the one-token decode step on the
   stacked (L, b, h, dv, dk) state, in place at ``layer``; replaces
   ``gdn_pallas.py::gated_delta_rule_step_stacked_pallas``, at dk 64
-  (Qwen3-Next) and 128 (Qwen3.5). Plain version:
-  ``ops/gdn.py::gated_delta_rule_step`` plus an indexed write. A decode step
-  has no backward: on a CUDA tensor it raises ``NotImplementedError`` when
-  grad mode is on and an input requires grad.
+  (Qwen3-Next) and 128 (Qwen3.5). Kernel: ``csrc/gdn.cu``'s step, one warp
+  a state row. q and k may come at their own head count h_qk (h % h_qk ==
+  0; v head i reads qk head i // (h / h_qk), ``repeat_interleave``'s
+  order), as repeated heads (h_qk = h), and q/k/v/beta/alpha as strided
+  views; beta and alpha in fp32 or bf16 each: one launch a call. Plain
+  version: ``ops/gdn.py::gated_delta_rule_step`` (on the repeated heads)
+  plus an indexed write. A decode step has no backward: on a CUDA tensor it
+  raises ``NotImplementedError`` when grad mode is on and an input requires
+  grad.
 - ``gated_delta_rule_step``: K3, the one-token decode step on ONE layer's
   (b, h, dv, dk) state, updated in place and returned (JAX's
   ``input_output_aliases``); replaces
@@ -322,38 +327,55 @@ gated_delta_rule_bwd.launches = 0
 gated_delta_rule_bwd.tc_launches = 0  # the ones that took the bf16 tensor-core kernels
 
 
+def _repeat_heads(q_t, k_t, h):
+    """q and k at v's head count ``h`` (``repeat_interleave``, JAX's order)."""
+    r = h // q_t.shape[1]
+    return (q_t, k_t) if r == 1 else (q_t.repeat_interleave(r, dim=1), k_t.repeat_interleave(r, dim=1))
+
+
 def gated_delta_rule_step_stacked_plain(q_t, k_t, v_t, beta_t, alpha_t, stacked, layer):
+    q_t, k_t = _repeat_heads(q_t, k_t, v_t.shape[1])
     out, new = gdn_ops.gated_delta_rule_step(q_t, k_t, v_t, beta_t, alpha_t, stacked[layer])
     stacked[layer] = new
     return out, stacked
 
 
+def _last_offset(t):
+    """The element offset of ``t``'s last element from its first."""
+    return sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+
+
 def _launch_step(name, q_t, k_t, v_t, beta_t, alpha_t, stacked, layer):
-    """``llmq_gdn_step_stacked`` on layer ``layer`` of ``stacked``, in place; returns out."""
+    """``llmq_gdn_step_stacked`` on layer ``layer`` of ``stacked``, in place: one launch, one ``torch.empty``;
+    returns out."""
     build.require_no_grad(name, q_t, k_t, v_t, beta_t, alpha_t, stacked)
-    b, h, dk = q_t.shape
-    dv = v_t.shape[-1]
-    n_layers = stacked.shape[0]
     build.require_cuda(q_t, k_t, v_t, beta_t, alpha_t, stacked)
-    build.require(k_t.shape == q_t.shape and v_t.shape == (b, h, dv), "q/k (b, h, dk), v (b, h, dv)")
+    b, h, dv = v_t.shape
+    h_qk, dk = q_t.shape[1:]
+    n_layers = stacked.shape[0]
+    build.require(q_t.shape == (b, h_qk, dk) and k_t.shape == q_t.shape and h % h_qk == 0,
+                  "q/k (b, h_qk, dk) with h % h_qk == 0, v (b, h, dv)")
     build.require(beta_t.shape == (b, h) and alpha_t.shape == (b, h), "beta/alpha must be (b, h)")
     build.require(k_t.dtype == q_t.dtype and v_t.dtype == q_t.dtype, "q, k and v must share one dtype")
     build.require(dk in KERNEL_DK and dv % 8 == 0, f"kernel takes dk in {KERNEL_DK} and dv % 8 == 0, got dk={dk} dv={dv}")
     build.require(all(t.stride(-1) == 1 for t in (q_t, k_t, v_t)), "q/k/v need a contiguous last dim")
     build.require(
-        stacked.shape == (n_layers, b, h, dv, dk) and stacked.dtype == torch.float32 and stacked.is_contiguous(),
-        "stacked must be contiguous fp32 (L, b, h, dv, dk)",
+        stacked.shape == (n_layers, b, h, dv, dk) and stacked.dtype == torch.float32 and stacked.is_contiguous()
+        and stacked.data_ptr() % 16 == 0,
+        "stacked must be contiguous fp32 (L, b, h, dv, dk), 16-byte aligned",
     )
     layer = int(layer)
     build.require(0 <= layer < n_layers, f"layer {layer} out of range for {n_layers} layers")
-    beta32 = beta_t.float().contiguous()
-    alpha32 = alpha_t.float().contiguous()
+    # the kernel's offsets into q, k, v, beta, alpha and out are 32-bit
+    build.require(b <= 65535 and h <= 65535 and b * h * dv < 2**31
+                  and all(_last_offset(t) < 2**31 for t in (q_t, k_t, v_t, beta_t, alpha_t)),
+                  "the step takes b and h up to 65535 and offsets into its inputs below 2**31")
     out = torch.empty(b, h, dv, dtype=q_t.dtype, device=q_t.device)
     build.launch(
-        "llmq_gdn_step_stacked", build.dtype_code(q_t),
-        q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), beta32.data_ptr(), alpha32.data_ptr(),
-        stacked.data_ptr(), layer, out.data_ptr(), b, h, dk, dv,
-        *q_t.stride()[:2], *k_t.stride()[:2], *v_t.stride()[:2], dk**-0.5, build.stream_of(q_t),
+        "llmq_gdn_step_stacked", build.dtype_code(q_t), build.dtype_code(beta_t), build.dtype_code(alpha_t),
+        q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), beta_t.data_ptr(), alpha_t.data_ptr(), stacked.data_ptr(),
+        layer, out.data_ptr(), b, h, h_qk, dk, dv, *q_t.stride()[:2], *k_t.stride()[:2],
+        *v_t.stride()[:2], *beta_t.stride(), *alpha_t.stride(), dk**-0.5, build.stream_of(q_t),
     )
     return out
 
@@ -362,9 +384,10 @@ def gated_delta_rule_step_stacked(q_t, k_t, v_t, beta_t, alpha_t, stacked, layer
     """One decode step on the stacked recurrent state, updated IN PLACE at
     ``layer`` (every other layer is left untouched).
 
-    q_t/k_t: (b, h, dk); v_t: (b, h, dv); beta_t/alpha_t: (b, h); stacked:
-    (L, b, h, dv, dk) fp32 contiguous. Returns (out (b, h, dv) in q's dtype,
-    stacked).
+    q_t/k_t: (b, h_qk, dk) with h % h_qk == 0 (h_qk = h: heads already
+    repeated); v_t: (b, h, dv); beta_t/alpha_t: (b, h), fp32 or bf16;
+    stacked: (L, b, h, dv, dk) fp32 contiguous; layer: an int. Returns (out
+    (b, h, dv) in q's dtype, stacked).
     """
     if plain or not q_t.is_cuda:
         return gated_delta_rule_step_stacked_plain(q_t, k_t, v_t, beta_t, alpha_t, stacked, layer)
@@ -377,6 +400,7 @@ gated_delta_rule_step_stacked.launches = 0
 
 
 def gated_delta_rule_step_plain(q_t, k_t, v_t, beta_t, alpha_t, state):
+    q_t, k_t = _repeat_heads(q_t, k_t, v_t.shape[1])
     out, new = gdn_ops.gated_delta_rule_step(q_t, k_t, v_t, beta_t, alpha_t, state)
     state.copy_(new)
     return out, state
@@ -385,12 +409,12 @@ def gated_delta_rule_step_plain(q_t, k_t, v_t, beta_t, alpha_t, state):
 def gated_delta_rule_step(q_t, k_t, v_t, beta_t, alpha_t, state, *, plain=False):
     """One decode step on a single layer's recurrent state, updated IN PLACE.
 
-    q_t/k_t: (b, h, dk); v_t: (b, h, dv); beta_t/alpha_t: (b, h); state:
-    (b, h, dv, dk) fp32 contiguous. Returns (out (b, h, dv) in q's dtype,
-    state)."""
+    q_t/k_t: (b, h_qk, dk) with h % h_qk == 0; v_t: (b, h, dv);
+    beta_t/alpha_t: (b, h); state: (b, h, dv, dk) fp32 contiguous. Returns
+    (out (b, h, dv) in q's dtype, state)."""
     if plain or not q_t.is_cuda:
         return gated_delta_rule_step_plain(q_t, k_t, v_t, beta_t, alpha_t, state)
-    build.require(state.dim() == 4 and state.is_contiguous(), "state must be contiguous (b, h, dv, dk)")
+    build.require(state.dim() == 4, "state must be (b, h, dv, dk)")
     out = _launch_step("gated_delta_rule_step", q_t, k_t, v_t, beta_t, alpha_t, state[None], 0)
     gated_delta_rule_step.launches += 1
     return out, state

@@ -275,19 +275,16 @@ def fused_gdn_step(params, cfg, x, conv_state, rec_stacked, layer):
     Returns (out, new_conv_state, rec_stacked)."""
     b = x.shape[0]
     d_qk, d_vg, _ = _fused_dims(cfg)
-    num_repeat = cfg["linear_num_value_heads"] // cfg["linear_num_qk_heads"]
     nqk, dqk = cfg["linear_num_qk_heads"], cfg["linear_qk_head_dim"]
     nv, dv = cfg["linear_num_value_heads"], cfg["linear_value_head_dim"]
     x_t = x[:, 0, :]
 
     fused_c, conv_state = gdn_ops.causal_conv1d_update(params.conv1d["w"], params.w_qkv(x_t), conv_state)
     q, k, v = torch.split(silu(fused_c), [d_qk, d_qk, d_vg], dim=-1)
+    # q and k stay at their nqk heads: the step reads v head i's at i // (nv / nqk)
     q = gdn_ops.l2_norm_clamp(q.reshape(b, nqk, dqk))
     k = gdn_ops.l2_norm_clamp(k.reshape(b, nqk, dqk))
     v = v.reshape(b, nv, dv)
-    if num_repeat > 1:
-        q = q.repeat_interleave(num_repeat, dim=1)
-        k = k.repeat_interleave(num_repeat, dim=1)
 
     beta = torch.sigmoid(params.w_beta(x_t))
     alpha = gdn_ops.compute_alpha_factor(params.log_A, params.w_alpha(x_t[:, None, :]), params.dt_bias)[:, 0, :]

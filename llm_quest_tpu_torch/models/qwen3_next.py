@@ -207,7 +207,6 @@ def gated_delta_net_step(params, cfg, x, conv_states, rec_stacked, layer):
     (n_gdn, b, h, dv, dk) stacked recurrent cache, updated in place at
     ``layer`` (K2). Returns (out (b, 1, d), new conv dict, rec_stacked)."""
     b = x.shape[0]
-    num_repeat = cfg["linear_num_value_heads"] // cfg["linear_num_qk_heads"]
     nqk, dqk = cfg["linear_num_qk_heads"], cfg["linear_qk_head_dim"]
     nv, dv = cfg["linear_num_value_heads"], cfg["linear_value_head_dim"]
     x_t = x[:, 0, :]
@@ -216,13 +215,11 @@ def gated_delta_net_step(params, cfg, x, conv_states, rec_stacked, layer):
     new_convs, outs = {}, {}
     for n in _CONVS:
         outs[n], new_convs[n] = gdn_ops.causal_conv1d_update(getattr(params, n)["w"], ins[n], conv_states[n])
-    # channel-major head split (c = h·hd with the channels grouped per head)
+    # channel-major head split (c = h·hd with the channels grouped per head); q
+    # and k stay at their nqk heads: the step reads v head i's at i // (nv / nqk)
     q = gdn_ops.l2_norm_clamp(silu(outs["conv_q"]).reshape(b, nqk, dqk))
     k = gdn_ops.l2_norm_clamp(silu(outs["conv_k"]).reshape(b, nqk, dqk))
     v = silu(outs["conv_v"]).reshape(b, nv, dv)
-    if num_repeat > 1:
-        q = q.repeat_interleave(num_repeat, dim=1)
-        k = k.repeat_interleave(num_repeat, dim=1)
 
     beta = torch.sigmoid(params.wb(x_t))
     alpha = gdn_ops.compute_alpha_factor(params.log_A, params.wa(x_t[:, None, :]), params.dt_bias)[:, 0, :]

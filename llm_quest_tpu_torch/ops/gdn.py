@@ -69,9 +69,9 @@ def gated_delta_rule_step(q_t, k_t, v_t, beta_t, alpha_t, state):
 def gated_delta_rule_step_auto(cfg, q_t, k_t, v_t, beta_t, alpha_t, state):
     """Decode step on a SINGLE layer's (b, h, dv, dk) state, updated IN
     PLACE: the step kernel (kernels/gdn.py, K3) unless
-    ``cfg["use_gdn_kernel"]`` is False. Models with a stacked per-layer cache
-    call ``gated_delta_rule_step_stacked_auto``. Returns (out (b, h, dv),
-    state)."""
+    ``cfg["use_gdn_kernel"]`` is False. q_t/k_t at h_qk heads (h % h_qk ==
+    0) or already repeated to h. Models with a stacked per-layer cache call
+    ``gated_delta_rule_step_stacked_auto``. Returns (out (b, h, dv), state)."""
     from llm_quest_tpu_torch.kernels.gdn import gated_delta_rule_step
 
     return gated_delta_rule_step(q_t, k_t, v_t, beta_t, alpha_t, state, plain=not _use_gdn_kernel(cfg))
@@ -80,8 +80,9 @@ def gated_delta_rule_step_auto(cfg, q_t, k_t, v_t, beta_t, alpha_t, state):
 def gated_delta_rule_step_stacked_auto(cfg, q_t, k_t, v_t, beta_t, alpha_t, stacked, layer):
     """Decode step on the stacked (L, b, h, dv, dk) recurrent cache, updated
     IN PLACE at ``layer``: the step kernel (kernels/gdn.py, K2) at every
-    batch size (the JAX package's b·h > 16 gate was a TPU measurement).
-    Returns (out (b, h, dv), stacked)."""
+    batch size (the JAX package's b·h > 16 gate was a TPU measurement). q_t/k_t
+    at h_qk heads (h % h_qk == 0; the models pass them unrepeated) or already
+    repeated to h. Returns (out (b, h, dv), stacked)."""
     from llm_quest_tpu_torch.kernels.gdn import gated_delta_rule_step_stacked
 
     return gated_delta_rule_step_stacked(

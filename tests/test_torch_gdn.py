@@ -11,7 +11,11 @@ plain PyTorch versions; they are held to the Pallas kernels in interpret mode
   ``jax.vjp`` of the Pallas kernel (its custom VJP) in interpret mode: every
   gradient within 1e-5 relative to max(1, max |g|), the same chunk algebra in
   another summation order;
-- K2 (stacked decode step): within 1e-5, and every other layer untouched.
+- K2 (stacked decode step): within 1e-5, and every other layer untouched;
+  also with q and k at their own head count (the plain version repeats them
+  as JAX's caller does), on strided views with beta and alpha in fp32 or
+  bf16 (read as they lie, as the kernel reads them), and K3 the same; the
+  decode-step dispatchers take q/k at either head count.
 """
 
 import jax
@@ -166,6 +170,109 @@ def test_k2_plain_stacked_step_matches_pallas(layer):
     for other in range(n_layers):
         if other != layer:
             assert np.array_equal(new[other].numpy(), stacked[other])
+
+
+# (b, h, h_qk, dk, dv): small ones, Qwen3.5-0.8B's b 1 (16 heads of 128),
+# Qwen3-Next-small's b 4 (8 v heads reading 4 qk heads of 64), odd ones
+QK_SHAPES = [(2, 4, 2, 16, 8), (1, 8, 4, 64, 64), (3, 6, 2, 32, 16), (1, 16, 16, 128, 128), (4, 8, 4, 64, 64),
+             (1, 3, 1, 32, 72), (2, 3, 3, 16, 72), (5, 1, 1, 8, 8)]
+
+
+@pytest.mark.parametrize("b, h, h_qk, dk, dv", QK_SHAPES)
+def test_k2_plain_step_at_qk_heads_matches_pallas(b, h, h_qk, dk, dv):
+    """K2 with q and k at their own h_qk heads (the models' call since the
+    step reads v head i's at i // (h / h_qk)) against the Pallas kernel fed
+    the heads repeated, as JAX's caller repeats them."""
+    n_layers, layer = 3, 1
+    q, k, v, beta, alpha, _ = inputs(b, h, 1, dk, dv, seed=h_qk + dk)
+    q, k = q[:, :h_qk, 0], k[:, :h_qk, 0]
+    v, beta, alpha = v[:, :, 0], beta[:, :, 0], alpha[:, :, 0]
+    stacked = (np.random.default_rng(5).standard_normal((n_layers, b, h, dv, dk)) * 0.1).astype(np.float32)
+    t_stacked = T(stacked)
+    out, new = kgdn.gated_delta_rule_step_stacked(T(q), T(k), T(v), T(beta), T(alpha), t_stacked, layer)
+    r = h // h_qk
+    ref_out, ref_stacked = gated_delta_rule_step_stacked_pallas(
+        *map(jnp.asarray, (np.repeat(q, r, axis=1), np.repeat(k, r, axis=1), v, beta, alpha, stacked)), layer,
+        interpret=True,
+    )
+    assert_close(out, ref_out, K2_TOL)
+    assert_close(new[layer], ref_stacked[layer], K2_TOL)
+    for other in (0, 2):
+        assert np.array_equal(new[other].numpy(), stacked[other])
+
+
+@pytest.mark.parametrize("b, h, h_qk, dk, dv", [(2, 4, 2, 16, 8), (1, 8, 4, 64, 64), (1, 3, 1, 32, 72)])
+def test_k3_plain_step_at_qk_heads_matches_pallas(b, h, h_qk, dk, dv):
+    """K3 with q and k at fewer heads than v against
+    ``gated_delta_rule_step_pallas(interpret=True)`` fed them repeated."""
+    q, k, v, beta, alpha, s0 = inputs(b, h, 1, dk, dv, seed=11)
+    q, k = q[:, :h_qk, 0], k[:, :h_qk, 0]
+    v, beta, alpha = v[:, :, 0], beta[:, :, 0], alpha[:, :, 0]
+    state = T(s0)
+    out, new = kgdn.gated_delta_rule_step(T(q), T(k), T(v), T(beta), T(alpha), state)
+    assert new is state
+    ref_out, ref_state = gated_delta_rule_step_pallas(
+        *map(jnp.asarray, (np.repeat(q, h // h_qk, axis=1), np.repeat(k, h // h_qk, axis=1), v, beta, alpha, s0)),
+        interpret=True,
+    )
+    assert_close(out, ref_out, K3_TOL)
+    assert_close(new, ref_state, K3_TOL)
+
+
+@pytest.mark.parametrize("layer", [0, 2])
+@pytest.mark.parametrize("h_qk", [4, 2])
+@pytest.mark.parametrize("alpha_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("beta_dtype", [torch.float32, torch.bfloat16])
+def test_k2_plain_step_on_views_in_their_own_dtype(beta_dtype, alpha_dtype, h_qk, layer):
+    """K2 as the models call it: q/k/v views of one fused projection one
+    element in, q/k at their own head count, beta and alpha strided views in
+    fp32 or bf16 (the kernel reads each as it lies and widens it to fp32),
+    against the Pallas kernel fed the repeated heads and beta/alpha's values
+    in fp32."""
+    n_layers, b, h, dk, dv = 3, 2, 4, 16, 8
+    q, k, v, beta, alpha, _ = inputs(b, h, 1, dk, dv, seed=h_qk + 7 * layer)
+    q, k = q[:, :h_qk, 0], k[:, :h_qk, 0]
+    v, beta, alpha = v[:, :, 0], beta[:, :, 0], alpha[:, :, 0]
+    n = h_qk * dk
+    fused = torch.cat([torch.zeros(b, 1), T(q).flatten(1), T(k).flatten(1), T(v).flatten(1)], dim=1)
+    views = (fused[:, 1:1 + n].view(b, h_qk, dk), fused[:, 1 + n:1 + 2 * n].view(b, h_qk, dk),
+             fused[:, 1 + 2 * n:].view(b, h, dv))
+    ba = torch.stack([T(beta).to(beta_dtype).float(), T(alpha).to(alpha_dtype).float()], dim=-1)
+    beta_v, alpha_v = ba[..., 0].to(beta_dtype), ba[..., 1].to(alpha_dtype)  # (b, h) views at stride 2
+    stacked = (np.random.default_rng(3).standard_normal((n_layers, b, h, dv, dk)) * 0.1).astype(np.float32)
+    t_stacked = T(stacked)
+    out, new = kgdn.gated_delta_rule_step_stacked(*views, beta_v, alpha_v, t_stacked, layer)
+    r = h // h_qk
+    ref_out, ref_stacked = gated_delta_rule_step_stacked_pallas(
+        *map(jnp.asarray, (np.repeat(q, r, axis=1), np.repeat(k, r, axis=1), v, ba[..., 0].numpy(),
+                           ba[..., 1].numpy(), stacked)), layer, interpret=True,
+    )
+    assert_close(out, ref_out, K2_TOL)
+    assert_close(new[layer], ref_stacked[layer], K2_TOL)
+    for other in set(range(n_layers)) - {layer}:
+        assert np.array_equal(new[other].numpy(), stacked[other])
+
+
+@pytest.mark.parametrize("b, h, h_qk, dk, dv", [(2, 4, 2, 16, 8), (1, 8, 4, 64, 64), (3, 6, 3, 32, 16)])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_step_dispatch_takes_qk_or_repeated_heads(b, h, h_qk, dk, dv, stacked):
+    """``gated_delta_rule_step_stacked_auto`` and ``gated_delta_rule_step_auto``
+    give the same output and state, bit for bit, whether q and k come at
+    their own h_qk heads (the models' call) or repeated to h (JAX's)."""
+    q, k, v, beta, alpha, s0 = (T(x) for x in inputs(b, h, 1, dk, dv, seed=dv + h_qk))
+    q, k = q[:, :h_qk, 0], k[:, :h_qk, 0]
+    v, beta, alpha = v[:, :, 0], beta[:, :, 0], alpha[:, :, 0]
+    r = h // h_qk
+    results = []
+    for qq, kk in ((q, k), (q.repeat_interleave(r, dim=1), k.repeat_interleave(r, dim=1))):
+        if stacked:
+            st = torch.stack([s0, s0 + 1])
+            out, st = tgdn.gated_delta_rule_step_stacked_auto({}, qq, kk, v, beta, alpha, st, 1)
+        else:
+            out, st = tgdn.gated_delta_rule_step_auto({}, qq, kk, v, beta, alpha, s0.clone())
+        results.append((out, st))
+    (out_a, st_a), (out_b, st_b) = results
+    assert torch.equal(out_a, out_b) and torch.equal(st_a, st_b)
 
 
 def test_cpu_tensors_take_the_plain_version():

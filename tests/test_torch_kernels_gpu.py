@@ -23,6 +23,10 @@ K11 takes bf16 rows to its tensor-core kernel (``tc_launches``; the row
 tile and K split the wrapper plans, and every tiling forced) and fp32 rows
 to the SIMT one; its bf16 cases at Qwen3-Next-small's widths run twice and
 must be bit-equal.
+K2 (csrc/gdn.cu's step) at b 1 to 128, dk 64 and 128, q/k at v's head
+count or half of it, beta in either dtype and q/k/v as views of one fused
+projection, against its plain version with every other layer bitwise
+untouched, and one kernel on the card a call (profiler).
 K10 takes bf16 q to its tensor-core kernel (``tc_launches``; every cluster
 size forced, on strided cache views) and fp32 q to the SIMT one; two runs
 bit-equal. K12 (bf16 or int8 scores, no fp32 form; both on the tensor cores,
@@ -201,20 +205,88 @@ def test_gdn_tc_tiles_at_the_hybrid_shape(gen):
         assert_tiles_close(g if g.dim() == 4 else g[..., None], r if r.dim() == 4 else r[..., None])
 
 
+def step_inputs(gen, b, h, h_qk, dk, dtype, beta_dtype):
+    """q, k (b, h_qk, dk) and v (b, h, dk) in ``dtype``, beta (b, h) in ``beta_dtype``, alpha (b, h) fp32."""
+    from llm_quest_tpu_torch.ops.gdn import l2_norm_clamp
+
+    q, k = (l2_norm_clamp(randn(gen, b, h_qk, dk)).to(dtype) for _ in range(2))
+    v = randn(gen, b, h, dk, dtype=dtype)
+    beta = torch.sigmoid(randn(gen, b, h)).to(beta_dtype)
+    alpha = torch.sigmoid(randn(gen, b, h, scale=0.3) + 2.0)
+    return q, k, v, beta, alpha
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("beta_dtype", DTYPES)
 @pytest.mark.parametrize("dk", [64, 128])
-def test_gdn_step_stacked_kernel_in_place(gen, dtype, dk):
+@pytest.mark.parametrize("b", [1, 4, 32, 128])
+@pytest.mark.parametrize("qk_heads", ["h", "h/2"])
+def test_gdn_step_stacked_kernel_in_place(gen, dtype, beta_dtype, dk, b, qk_heads):
+    """K2 (csrc/gdn.cu's step) at the batches of the decode paths, q/k at v's
+    head count or half of it, beta in either dtype: out and the layer's new
+    state against the plain version (which repeats q and k), every other
+    layer bitwise untouched."""
     from llm_quest_tpu_torch.kernels import gdn
 
-    q, k, v, beta, alpha = (x[:, :, 0] for x in gdn_inputs(gen, 3, 4, 1, dtype, dk=dk, dv=dk)[:5])
-    stacked = randn(gen, 5, 3, 4, dk, dk, scale=0.1)
+    h = 8
+    q, k, v, beta, alpha = step_inputs(gen, b, h, h if qk_heads == "h" else h // 2, dk, dtype, beta_dtype)
+    stacked = randn(gen, 3, b, h, dk, dk, scale=0.1)
     before, ref_stacked = stacked.clone(), stacked.clone()
-    out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 2)
-    ref_out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, ref_stacked, 2, plain=True)
+    out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 1)
+    ref_out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, ref_stacked, 1, plain=True)
+    assert out.dtype == dtype and out.shape == (b, h, dk)
     assert_close(out, ref_out, dtype)
-    assert_close(stacked[2], ref_stacked[2], torch.float32)
-    for other in (0, 1, 3, 4):
+    assert_close(stacked[1], ref_stacked[1], torch.float32)
+    for other in (0, 2):
         assert torch.equal(stacked[other], before[other])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dk, h, h_qk", [(128, 16, 16), (64, 8, 4)])
+def test_gdn_step_strided_views(gen, dtype, dk, h, h_qk):
+    """K2 on q/k/v as views of one fused projection starting one element in
+    (a bf16 view 2 bytes off 4-byte alignment), beta and alpha as strided
+    views: the same result as on contiguous copies."""
+    from llm_quest_tpu_torch.kernels import gdn
+
+    b = 3
+    q, k, v, beta, alpha = step_inputs(gen, b, h, h_qk, dk, dtype, torch.bfloat16)
+    fused = torch.cat([randn(gen, b, 1, dtype=dtype), q.flatten(1), k.flatten(1), v.flatten(1)], dim=1)
+    n = h_qk * dk
+    views = (fused[:, 1:1 + n].view(b, h_qk, dk), fused[:, 1 + n:1 + 2 * n].view(b, h_qk, dk),
+             fused[:, 1 + 2 * n:].view(b, h, dk))
+    ba = torch.stack([beta.float(), alpha], dim=-1)  # (b, h, 2): beta and alpha at stride 2
+    stacked = randn(gen, 2, b, h, dk, dk, scale=0.1)
+    ref_stacked = stacked.clone()
+    out, _ = gdn.gated_delta_rule_step_stacked(*views, ba[..., 0], ba[..., 1], stacked, 1)
+    ref_out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta.float(), alpha, ref_stacked, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref_out) and torch.equal(stacked, ref_stacked)
+
+
+def test_gdn_step_one_launch(gen):
+    """A K2 call on bf16 q/k/v with bf16 beta puts exactly one kernel on the
+    card (no cast, no copy; torch.profiler), and K3's call the same."""
+    from torch.autograd import DeviceType
+
+    from llm_quest_tpu_torch.kernels import gdn
+
+    q, k, v, beta, alpha = step_inputs(gen, 4, 8, 4, 64, torch.bfloat16, torch.bfloat16)
+    stacked = randn(gen, 2, 4, 8, 64, 64, scale=0.1)
+    calls = (lambda: gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 1),
+             lambda: gdn.gated_delta_rule_step(q, k, v, beta, alpha, stacked[0]))
+    for call in calls:
+        call()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        for _ in range(3):  # a trace without the card's activity is taken again
+            with torch.profiler.profile(activities=acts) as prof:
+                call()
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if kernels:
+                break
+        assert len(kernels) == 1 and "gdn_step_stacked_kernel" in kernels[0], kernels
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1113,12 +1185,13 @@ def test_int8_serving_through_kernels_matches_plain(gen):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b, dk", [(1, 128), (32, 128), (3, 64)])
-def test_gdn_step_kernel_in_place(gen, dtype, b, dk):
-    """K3: one layer's decode step, the state updated in place."""
+@pytest.mark.parametrize("b, dk, h_qk", [(1, 128, 16), (32, 128, 16), (3, 64, 16), (3, 64, 8)])
+def test_gdn_step_kernel_in_place(gen, dtype, b, dk, h_qk):
+    """K3: one layer's decode step, the state updated in place; q/k at v's
+    head count or half of it."""
     from llm_quest_tpu_torch.kernels import gdn
 
-    q, k, v, beta, alpha = (x[:, :, 0] for x in gdn_inputs(gen, b, 16, 1, dtype, dk=dk, dv=dk)[:5])
+    q, k, v, beta, alpha = step_inputs(gen, b, 16, h_qk, dk, dtype, dtype)
     state = randn(gen, b, 16, dk, dk, scale=0.1)
     ref_state = state.clone()
     n = gdn.gated_delta_rule_step.launches, gdn.gated_delta_rule_step_stacked.launches

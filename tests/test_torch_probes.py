@@ -10,7 +10,8 @@ import pytest
 
 from tools import probe_harness as ph
 
-PROBES = ["gdn_probe", "int8_attention_probe", "qgmm_probe", "short_attention_probe", "k10_k12_probe"]
+PROBES = ["gdn_probe", "int8_attention_probe", "qgmm_probe", "short_attention_probe", "k10_k12_probe",
+          "gdn_step_probe"]
 
 
 @pytest.mark.parametrize("name", PROBES)
@@ -27,10 +28,13 @@ def edits_of(name):
         return [(mod.TC_SRC, edits) for edits in mod.VARIANTS.values()]
     if name == "short_attention_probe":
         return [(mod.KERNEL_SRC.name, edits) for edits in mod.VARIANTS.values()]
+    if name == "gdn_step_probe":
+        return [(mod.SRC, edits) for edits in mod.VARIANTS.values() if edits]
     return [(mod.TARGETS[part], edits) for part, edits in mod.VARIANTS.values() if edits]
 
 
-@pytest.mark.parametrize("name", ["int8_attention_probe", "short_attention_probe", "k10_k12_probe"])
+@pytest.mark.parametrize("name", ["int8_attention_probe", "short_attention_probe", "k10_k12_probe",
+                                  "gdn_step_probe"])
 def test_variant_edits_apply(name):
     for src, edits in edits_of(name):
         text = (ph.CSRC / src).read_text()
