@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the port's
-kernels from ``llm_quest_tpu_torch/csrc`` at first use. Fourteen main paths
+kernels from ``llm_quest_tpu_torch/csrc`` at first use. Seventeen main paths
 are driven: the ViT-B/224 encode of bench.py's ViT cell (through K7, K8 and
 K9), the TinyViT CIFAR-10 training loop of ``scripts/vit_training.py``, the
 ViT-B/224 training step at b 128, the int8-score ablation of
@@ -18,7 +18,9 @@ MTP training step of ``scripts/deepseek_training.py`` at
 ``DEEPSEEK_SMALL_CONFIG`` (and its cached generation), the dense Qwen3 step
 under context parallelism (``scripts/context_parallel_training.py``'s path,
 at world 1 on one card), int8 Qwen3.5-0.8B text generation and int8
-Qwen3-Next cached decode. Phases, one JSON line each on stdout:
+Qwen3-Next cached decode, and the continuous-batching serving engine on
+bench.py's two serving cells and the int8 serve. Phases, one JSON line each
+on stdout:
 
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
@@ -211,7 +213,32 @@ Qwen3-Next cached decode. Phases, one JSON line each on stdout:
     int8 → bf16 weight copies, and the device time of K1's forward and of
     K11 in a TTFT call beside the call's whole device time, and K11's,
     K2's and all device time and the kernels launched per decode step (a
-    17-token call less the TTFT call, over 16 steps; ``torch.profiler``).
+    17-token call less the TTFT call, over 16 steps; ``torch.profiler``);
+20. engine_serve_fp32 (``engine_check_fp32``, outside ``phase``: plain
+    versions run): the continuous-batching engine
+    (``inference/serving.py``) on Qwen3.5-0.8B text cut to 4 layers, fp32,
+    4 slots, buckets 32 and 64, eight requests (three admitted mid-flight),
+    an EOS that retires one: every request's tokens equal
+    ``generate_kv_cache``'s for its prompt alone, through the kernels and
+    through the plain versions; engine_admission_bf16: the same widths at 4
+    layers in bf16, the first wave's admission logits within 5e-2 × max
+    |ref| of a b = 1 prefill (the port's tests' bf16 bar, at their depth),
+    for the uniform and mixed traffic and the int8 serve;
+21. engine_serve_uniform, engine_serve_hetero, engine_serve_int8
+    (``engine_serving``): 24 layers, bf16, 32 slots, chunk 64, 48 requests:
+    ``bench_serving``'s traffic (prompts 32, budgets U[16, 64], greedy;
+    K1, K2), ``bench_serving_hetero``'s (prompts U[8, 200] into buckets 32,
+    64 and 256, the four samplers in turn; K1, K2, K4) and the uniform
+    traffic with int8 weights, tied table and KV cache (K1, K2, K10):
+    ``warmup`` and its resolved ``pipeline_depth``, useful tok/s over the
+    median of 3 serves, ``stats()`` (TTFT p50, chunks, slot utilization),
+    each kernel's launches in the first serve (every request its budget
+    long, every token in the vocabulary; the first wave's admission logits
+    bit-equal to a b = k prefill of the wave and no farther from a b = 1
+    prefill than that is from the fp32 model's), device ms, kernels and
+    busy share a decode step (a profiled 8-step chunk), and the share of
+    greedy tokens equal to ``generate_kv_cache``'s (reported, not gated:
+    random weights give near-tied logits).
 
 K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
 tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
@@ -2016,6 +2043,8 @@ DSV3 = "dsv3_train"
 VIT_TRAIN, VIT_B_TRAIN = "vit_train", "vit_b_train"
 ABLATE = "ablate_int8_scores"
 CP_TRAIN, CP_FALLBACK = "cp_train", "cp_fallback"
+ENGINE_UNIFORM, ENGINE_HETERO, ENGINE_INT8 = "engine_serve_uniform", "engine_serve_hetero", "engine_serve_int8"
+ENGINE_PATHS = (ENGINE_UNIFORM, ENGINE_HETERO, ENGINE_INT8)
 # the attention records' sources by dtype: bf16 takes the tensor-core
 # kernels, fp32 the SIMT ones
 ATTN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/attention_tc.cu",
@@ -2045,15 +2074,17 @@ KERNELS = [
     # "bf16" those with int8 or bf16 scores]), source (or the source of each
     # dtype's kernel), replaced TPU kernel, check, main paths that launch it
     ("gdn_prefill", ("gdn", "gated_delta_rule_fwd"), GDN_SRC,
-     "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1, (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE, TEXT_B128)),
+     "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1,
+     (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE, TEXT_B128, *ENGINE_PATHS)),
     ("gdn_prefill_bwd", ("gdn", "gated_delta_rule_bwd"), GDN_SRC,
      "llm_quest_tpu/kernels/gdn_pallas.py:255", kernel_k1_bwd, (HYBRID,)),
     # K2 and K3: the step kernel (csrc/gdn.cu) for both dtypes; their records' ms is the kernel's
     # device time with the L2 cold (step_timing)
     ("gdn_step_stacked", ("gdn", "gated_delta_rule_step_stacked"), "llm_quest_tpu_torch/csrc/gdn.cu",
-     "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2, (GENERATE, INT8_GENERATE, NEXT_SERVE, TEXT_B128)),
+     "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2,
+     (GENERATE, INT8_GENERATE, NEXT_SERVE, TEXT_B128, *ENGINE_PATHS)),
     ("flash_attention_fwd", ("attention", "flash_attention"), ATTN_SRC,
-     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4, (GENERATE, TRAIN, HYBRID)),
+     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4, (GENERATE, TRAIN, HYBRID, ENGINE_HETERO)),
     ("flash_attention_bwd", ("attention", "flash_attention_bwd"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:175", kernel_k4_bwd, (TRAIN, HYBRID)),
     # K7: its bf16 forward is the short-sequence tensor-core kernel (fp32: the
@@ -2075,7 +2106,7 @@ KERNELS = [
     ("packed_mha_int8_inkernel", ("fused_mha", "packed_mha_int8_inkernel"), INT8_SRC,
      "llm_quest_tpu/kernels/fused_mha.py:372", partial(kernel_int8, mode="inkernel"), (VIT,)),
     ("flash_decode", ("flash_decode", "flash_decode"), FD_SRC,
-     "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10, (INT8_GENERATE,)),
+     "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10, (INT8_GENERATE, ENGINE_INT8)),
     ("quantized_ragged_dot", ("quantized_gmm", "quantized_ragged_dot"), QGMM_SRC,
      "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11, (NEXT_SERVE,)),
     # K4 at one Gemma-3-270M layer: the SWA layers' window, the global layers'
@@ -3605,6 +3636,349 @@ def serving_paths(records, card):
                ids_on_card(4, 300), records, card, {})
 
 
+# ------------------------------------------------- continuous-batching engine
+
+
+SAMPLERS = (dict(temp=0.0), dict(temp=0.8, top_k=50), dict(temp=0.7, top_p=0.9), dict(temp=1.0, min_p=0.05))
+ENGINE_REQUESTS = 48
+ENGINE_CHECK_ROWS = 4  # first-wave rows whose admission logits are held to a b = 1 prefill
+ENGINE_BAR_LAYERS = 4  # the depth at which the port's tests hold bf16 logits to BF16_LOGIT_BAR
+ENGINE_AGREE_ROWS = 4  # greedy requests compared with generate_kv_cache, over their first ENGINE_AGREE_TOKENS
+ENGINE_AGREE_TOKENS = 16
+ENGINE_PROFILE_STEPS = 8  # the profiled chunk's steps
+BF16_LOGIT_BAR = 5e-2  # of max |b = 1 logits|: the port's tests' bf16 bar (test_torch_qwen3_5.py)
+
+
+def engine_traffic(kind):
+    """``bench_serving``'s uniform traffic (48 requests, 32-token prompts,
+    budgets U[16, 64], seed 0) or ``bench_serving_hetero``'s (prompts
+    U[8, 200], budgets U[16, 64], seed 1, the four samplers in turn):
+    [(ids, max_gen, sampler kwargs)]."""
+    import numpy as np
+
+    if kind == "uniform":
+        rng = np.random.default_rng(0)
+        ids = rng.integers(1, 32_000, (ENGINE_REQUESTS, 32))
+        gens = rng.integers(16, 65, ENGINE_REQUESTS)
+        return [(list(map(int, ids[i])), int(gens[i]), {}) for i in range(ENGINE_REQUESTS)]
+    rng = np.random.default_rng(1)
+    lens = rng.integers(8, 201, ENGINE_REQUESTS)
+    gens = rng.integers(16, 65, ENGINE_REQUESTS)
+    return [(list(map(int, rng.integers(1, 32_000, n))), int(g), SAMPLERS[i % len(SAMPLERS)])
+            for i, (n, g) in enumerate(zip(lens, gens))]
+
+
+def engine_for(model, cfg, kind, **kw):
+    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    shape = (dict(n_slots=32, max_len=128, decode_chunk=64, prefill_buckets=(32,)) if kind == "uniform" else
+             dict(n_slots=32, max_len=384, decode_chunk=64, prefill_buckets=(32, 64, 256), per_request_sampling=True))
+    return ContinuousBatchingEngine(qwen3_5.TextOnly, model, cfg, eos_ids=-1, pad_id=0, **{**shape, **kw})
+
+
+def drive(engine, traffic, first_wave=False):
+    """Submit ``traffic`` and step the engine to the end: (tokens a request,
+    seconds, with ``first_wave`` the admission logits of the first wave's
+    slots, read right after its admission)."""
+    import torch
+
+    t0 = time.perf_counter()
+    rids = [engine.submit(ids, gen, **knobs) for ids, gen, knobs in traffic]
+    first = None
+    if first_wave:
+        engine._admit_pending()
+        first = engine.state["last_logits"][: min(engine.n_slots, len(traffic))].clone()
+    while engine.step():
+        pass
+    torch.cuda.synchronize()
+    return [engine.result(r)[0] for r in rids], time.perf_counter() - t0, first
+
+
+def wave_logits(engine, model, cfg, traffic):
+    """The first wave's last-real-token logits from one b = k ``apply_text``
+    prefill of the same right-padded prompts on a fresh max_len cache: what
+    the engine's admission computes, without the engine."""
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    wave = traffic[: engine.n_slots]
+    lb = max(engine._bucket_len(len(ids)) for ids, _, _ in wave)
+    prompt = torch.zeros(len(wave), lb, dtype=torch.long, device=DEVICE)
+    mask = torch.zeros(len(wave), engine.max_len, dtype=torch.bool, device=DEVICE)
+    for j, (ids, _, _) in enumerate(wave):
+        prompt[j, : len(ids)] = torch.tensor(ids, device=DEVICE)
+        mask[j, : len(ids)] = True
+    with torch.inference_mode():
+        cache = qwen3_5.init_cache(cfg, len(wave), engine.max_len, device=DEVICE)
+        logits, _, _ = qwen3_5.apply_text(model, cfg, prompt, attn_mask=mask, cache=cache)
+    return logits[torch.arange(len(wave), device=DEVICE), mask.sum(1) - 1].float()
+
+
+def b1_logits(model, cfg, traffic):
+    """Last-token logits of a b = 1 ``apply_text`` prefill of each of the
+    first ENGINE_CHECK_ROWS prompts, alone and unpadded."""
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    return torch.stack([last_prefill_logits(qwen3_5, model, cfg, torch.tensor([ids], device=DEVICE))[0]
+                        for ids, _, _ in traffic[:ENGINE_CHECK_ROWS]])
+
+
+def fp32_twin(model, cfg):
+    """The bf16 model's weights in an fp32 model of the same config."""
+    import torch
+
+    cfg32 = dict(cfg, dtype=torch.float32)
+    twin = text_model(cfg32)
+    with torch.no_grad():
+        for mine, theirs in zip(twin.parameters(), model.parameters()):
+            mine.copy_(theirs.float())
+    return twin, cfg32
+
+
+def engine_admission_bf16():
+    """engine_admission_bf16: Qwen3.5-0.8B text cut to ENGINE_BAR_LAYERS
+    layers, bf16, the uniform and the mixed traffic and the int8 serve: the
+    first wave's admission logits within BF16_LOGIT_BAR × max |ref| of a
+    b = 1 prefill of each of its first ENGINE_CHECK_ROWS prompts (the port's
+    tests' bf16 bar, at their depth)."""
+    import torch
+
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
+
+    cfg = dict(QWEN3_5_08B_CONFIG, n_layers=ENGINE_BAR_LAYERS, dtype=torch.bfloat16)
+    model = text_model(cfg)
+    readings = {}
+    for name, kind in (("uniform", "uniform"), ("hetero", "hetero"), ("int8", "uniform")):
+        if name == "int8":
+            quantize_params_int8(model, quantize_embeddings=True)
+            cfg = dict(cfg, kv_quant="int8")
+        traffic = engine_traffic(kind)
+        engine = engine_for(model, cfg, kind)
+        for ids, gen, knobs in traffic[: engine.n_slots]:  # the serve's first wave
+            engine.submit(ids, gen, **knobs)
+        engine._admit_pending()
+        got = engine.state["last_logits"][:ENGINE_CHECK_ROWS].float()
+        ref = b1_logits(model, cfg, traffic)
+        err, bar = float((got - ref).abs().max()), BF16_LOGIT_BAR * float(ref.abs().max())
+        if not (torch.isfinite(got).all() and err <= bar):
+            raise AssertionError(f"engine_admission_bf16 ({name}): admission logits differ from the b = 1 "
+                                 f"prefill by {err} > {bar}")
+        readings[name] = {"max_abs_err": err, "bar": bar}
+    emit({"phase": "engine_admission_bf16", "layers": ENGINE_BAR_LAYERS, "rows": ENGINE_CHECK_ROWS, **readings})
+    del model
+    torch.cuda.empty_cache()
+
+
+def engine_chunk_profile(model, cfg, kind, traffic):
+    """A decode chunk of ENGINE_PROFILE_STEPS steps over a pool of 32 live
+    slots (the first 32 requests, budgets past the chunk) under
+    ``torch.profiler``, after one warm-up chunk from the same admitted
+    state: device ms a step (all the card's work), kernels a step and the
+    card's busy share of the chunk's wall. Nones where the profiler gives no
+    trace of the card."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from llm_quest_tpu_torch.inference.serving import _clone
+
+    engine = engine_for(model, cfg, kind, decode_chunk=ENGINE_PROFILE_STEPS)
+    steps = engine.decode_chunk
+    for ids, _, knobs in traffic[: engine.n_slots]:
+        engine.submit(ids, steps + 2, **knobs)
+    engine._admit_pending()
+    admitted = _clone(engine.state)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        engine._decode_chunk(engine.eos_arr)
+        for _ in range(0 if PROFILER["given_up"] else 3):
+            engine.state = _clone(admitted)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                engine._decode_chunk(engine.eos_arr)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if events:
+                break
+            PROFILER["empty_traces"] += 1
+        else:
+            PROFILER["given_up"] = True
+            return {"device_ms_per_step": None, "kernels_per_step": None, "busy_share": None, "chunk_wall_ms": None}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy_us, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:  # union of the device intervals
+        if a > hi:
+            busy_us, lo = busy_us + hi - lo, a
+        hi = max(hi, b)
+    busy_us += hi - lo
+    kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in events)
+    return {"device_ms_per_step": sum(e.time_range.elapsed_us() for e in events) / 1e3 / steps,
+            "kernels_per_step": kernels / steps, "busy_share": busy_us / 1e3 / wall_ms,
+            "chunk_wall_ms": wall_ms, "steps": steps}
+
+
+def engine_record(path, model, cfg, kind, records, card, twin=None):
+    """One serving record: ``warmup`` (resolving ``pipeline_depth``), then
+    three serves on fresh engines at that depth: useful tok/s (generated
+    tokens over each serve's wall; their median and spread) and the last
+    serve's ``stats()``. The first serve runs with the launch counts reset;
+    its tokens must all be vocabulary ids, each request its budget long, and
+    its first wave's admission logits equal, bit for bit, to one b = k
+    ``apply_text`` prefill of the same padded wave and, against a b = 1
+    prefill of each of its first prompts, no farther than that prefill is
+    from the fp32 ``twin``'s (bf16's own rounding at this depth; without a
+    twin only reported). Then the profiled decode chunk, and the share of
+    greedy tokens equal to ``generate_kv_cache``'s (the first
+    ENGINE_AGREE_TOKENS of ENGINE_AGREE_ROWS greedy requests)."""
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    t_start = time.perf_counter()
+    traffic = engine_traffic(kind)
+    engine = engine_for(model, cfg, kind)
+    engine.warmup()
+    depth = engine.pipeline_depth
+    runs = []
+    for i in range(3):
+        if i:
+            engine = engine_for(model, cfg, kind, pipeline_depth=depth)
+        else:
+            reset_launches()
+        got, seconds, wave = drive(engine, traffic, first_wave=not i)
+        runs.append(sum(map(len, got)) / seconds)
+        if not i:
+            toks, first, counted = got, wave, engine.stats()
+            launches = read_launches(path, records)
+            tc = {name: getattr(wrapper((module, name)), counter) for module, name, total, counter in TC_COUNTERS
+                  if total == "launches"}
+    stats = engine.stats()
+    n_gdn = len(qwen3_5.gdn_layer_indices(cfg))
+    if launches["gdn_prefill"] != n_gdn * counted["admit_waves"]:
+        raise AssertionError(f"{path}: K1 launched {launches['gdn_prefill']} times over "
+                             f"{counted['admit_waves']} admission waves of {n_gdn} GDN layers")
+    vocab = cfg["vocab_size"]
+    for (_, gen, _), got in zip(traffic, toks):
+        if len(got) != gen or not all(0 <= t < vocab for t in got):
+            raise AssertionError(f"{path}: a request got {len(got)} tokens for a budget of {gen}, "
+                                 f"or a token outside the vocabulary")
+    if not (torch.isfinite(first).all() and torch.equal(first, wave_logits(engine, model, cfg, traffic))):
+        raise AssertionError(f"{path}: first-wave admission logits differ from a b = k prefill of the wave")
+    refs = b1_logits(model, cfg, traffic)
+    logit_err = float((first[:ENGINE_CHECK_ROWS] - refs).abs().max())
+    bf16_err = None
+    if twin is not None:
+        bf16_err = float((refs - b1_logits(*twin, traffic)).abs().max())
+        if not logit_err <= bf16_err:
+            raise AssertionError(f"{path}: first-wave admission logits {logit_err} from the b = 1 prefill, "
+                                 f"farther than that prefill is from the fp32 model's ({bf16_err})")
+    greedy = [i for i, (_, _, knobs) in enumerate(traffic) if not knobs.get("temp")][:ENGINE_AGREE_ROWS]
+    equal = total = 0
+    for i in greedy:
+        ids, gen, _ = traffic[i]
+        n = min(gen, ENGINE_AGREE_TOKENS)
+        ref = generate(qwen3_5.TextOnly, model, cfg, torch.tensor([ids], device=DEVICE), n)[0, len(ids):].tolist()
+        equal += sum(a == b for a, b in zip(toks[i][:n], ref))
+        total += n
+    profile = engine_chunk_profile(model, cfg, kind, traffic)
+    emit({"phase": path, "card": card, "dtype": "bfloat16", "layers": cfg["n_layers"], "kv_quant": cfg.get("kv_quant"),
+          "requests": len(traffic), "n_slots": engine.n_slots, "max_len": engine.max_len,
+          "decode_chunk": engine.decode_chunk, "buckets": list(engine.buckets),
+          "per_request_sampling": kind != "uniform", "pipeline_depth": depth,
+          "useful_tok_s": statistics.median(runs), "useful_tok_s_runs": runs,
+          "ttft_p50_ms": None if stats.get("ttft_p50_s") is None else stats["ttft_p50_s"] * 1e3,
+          "stats": stats, "decode_chunks": stats["decode_chunks"], "slot_utilization": stats["slot_utilization"],
+          **profile, "launches": launches, "tc_launches": tc,
+          "admission_equals_wave_prefill": True, "admission_vs_b1_max_abs_err": logit_err,
+          "b1_vs_fp32_max_abs_err": bf16_err, "tests_bar": BF16_LOGIT_BAR * float(refs.abs().max()),
+          "greedy_agreement": equal / total, "greedy_compared": total, "seconds": time.perf_counter() - t_start})
+
+
+def engine_check_fp32():
+    """engine_serve_fp32: Qwen3.5-0.8B text cut to 4 layers, fp32, 4 slots,
+    buckets (32, 64), chunk 8: eight requests (three submitted after the
+    first scheduler step), an EOS taken from request 0's free run; every
+    request's greedy tokens equal ``generate_kv_cache``'s for its prompt
+    alone (EOS included, what follows it trimmed), through the kernels and
+    through the plain versions (``use_kernels`` False; run outside
+    ``phase``), and no tensor-core launch."""
+    import numpy as np
+    import torch
+
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+    from llm_quest_tpu_torch.inference import generate as gen_module
+    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    t0 = time.perf_counter()
+    cfg = dict(QWEN3_5_08B_CONFIG, n_layers=4, dtype=torch.float32)
+    model = text_model(cfg)
+    rng = np.random.default_rng(2)
+    traffic = [(list(map(int, rng.integers(1, 32_000, n))), int(g))
+               for n, g in zip(rng.integers(8, 61, 8), rng.integers(8, 25, 8))]
+    free = generate(qwen3_5.TextOnly, model, cfg, torch.tensor([traffic[0][0]], device=DEVICE), traffic[0][1])
+    eos = int(free[0, len(traffic[0][0]) + 4])
+
+    def reference(ids, gen):
+        out = gen_module.generate_kv_cache(qwen3_5.TextOnly, model, cfg, torch.tensor([ids], device=DEVICE),
+                                           max_gen=gen, eos_ids=eos, pad_id=0)["sequences"][0, len(ids):].tolist()
+        return out[: out.index(eos) + 1] if eos in out else out
+
+    refs = [reference(ids, gen) for ids, gen in traffic]
+    reset_launches()
+    for run_cfg in (cfg, dict(cfg, use_kernels=False)):
+        engine = ContinuousBatchingEngine(qwen3_5.TextOnly, model, run_cfg, n_slots=4, max_len=128, decode_chunk=8,
+                                          prefill_buckets=(32, 64), eos_ids=eos, pad_id=0)
+        rids = [engine.submit(ids, gen) for ids, gen in traffic[:5]]
+        engine.step()
+        rids += [engine.submit(ids, gen) for ids, gen in traffic[5:]]
+        while engine.step():
+            pass
+        got = [engine.result(r)[0] for r in rids]
+        got = [g[: g.index(eos) + 1] if eos in g else g for g in got]
+        if got != refs:
+            raise AssertionError(f"engine_serve_fp32 (use_kernels {run_cfg.get('use_kernels', True)}): engine tokens "
+                                 f"differ from generate_kv_cache's:\n{got}\n{refs}")
+    check_routes("engine_serve_fp32", bf16=False)
+    emit({"phase": "engine_serve_fp32", "layers": cfg["n_layers"], "requests": len(traffic), "eos": eos,
+          "retired_by_eos": sum(eos in r for r in refs), "tokens_equal": sum(map(len, refs)),
+          "waves": engine.stats()["admit_waves"], "seconds": time.perf_counter() - t0})
+    del model
+    torch.cuda.empty_cache()
+
+
+def engine_serving(records, card):
+    """Qwen3.5-0.8B text, 24 layers, bf16, through the continuous-batching
+    engine: bench_serving's uniform traffic (K1, K2), bench_serving_hetero's
+    mixed prompts and samplers (K1, K2, K4 at the 256-token bucket), then the
+    uniform traffic with int8 weights (tied table included) and the int8 KV
+    cache (K1, K2, K10)."""
+    import torch
+
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
+
+    t0 = time.perf_counter()
+    cfg = dict(QWEN3_5_08B_CONFIG, dtype=torch.bfloat16)
+    model = text_model(cfg)
+    twin = fp32_twin(model, cfg)
+    engine_record(ENGINE_UNIFORM, model, cfg, "uniform", records, card, twin)
+    engine_record(ENGINE_HETERO, model, cfg, "hetero", records, card, twin)
+    del twin
+    quantize_params_int8(model, quantize_embeddings=True)
+    torch.cuda.empty_cache()
+    engine_record(ENGINE_INT8, model, dict(cfg, kv_quant="int8"), "uniform", records, card)
+    emit({"phase": "engine_serving", "seconds": time.perf_counter() - t0})
+    del model
+    torch.cuda.empty_cache()
+
+
 PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names
     # bf16: the tensor-core kernels (csrc/attention_tc.cu); fp32: the SIMT ones (csrc/attention.cu);
     # K6 and K7 run the short-sequence forward (csrc/fused_mha_tc.cu in bf16; in fp32 K6 csrc/fused_mha.cu,
@@ -3835,6 +4209,9 @@ def main(argv):
     phase(cp_paths, records, smi)
     serving_checks_fp32()
     phase(serving_paths, records, smi)
+    engine_check_fp32()
+    phase(engine_admission_bf16)
+    phase(engine_serving, records, smi)
 
     emit({"phase": "device_timing", **PROFILER})
     emit({"kernels": records})

@@ -14,8 +14,10 @@ once at write time (``ops/quantization.py::quantize_rows_int8``) and the
 layer views come back as ``QuantKV``, which the attention router streams
 through K10 or dequantizes.
 
-Only scalar-position writes are ported; the per-row vector positions of
-continuous-batching serving wait for the serving port.
+``pos`` may also be a (b,) tensor of per-row columns (continuous-batching
+serving, inference/serving.py: each slot writes at its own column). Those
+writes go in place by advanced indexing; the JAX package's positional select
+(``_vector_pos_write``) is a TPU choice, where per-row scatters serialize.
 """
 
 import torch
@@ -54,33 +56,57 @@ def update_layer(cache, layer_idx, k_new, v_new):
     return write_layer(cache, layer_idx, k_new, v_new, cache["pos"])
 
 
+def is_vector(pos):
+    """True for a (b,) tensor of per-row positions."""
+    return torch.is_tensor(pos) and pos.ndim >= 1
+
+
 def write_layer(cache, layer_idx, k_new, v_new, pos):
-    """Write (b, h, s, d) new keys/values at column ``pos`` of layer
-    ``layer_idx`` in place; returns (cache, full max_len k view, v view) —
-    ``QuantKV`` views for an int8 cache. ``pos`` is not advanced here."""
-    s = k_new.shape[2]
+    """Write (b, h, s, d) new keys/values at column ``pos`` (an int, or a
+    (b,) tensor of per-row columns) of layer ``layer_idx`` in place; returns
+    (cache, full max_len k view, v view) — ``QuantKV`` views for an int8
+    cache. ``pos`` is not advanced here."""
     if "k_q" in cache:
         for name, new in (("k", k_new), ("v", v_new)):
             data, scale = quantize_rows_int8(new)
-            cache[f"{name}_q"][layer_idx, :, :, pos : pos + s] = data
-            cache[f"{name}_s"][layer_idx, :, :, pos : pos + s, 0] = scale
+            write_kv(cache[f"{name}_q"], data, layer_idx, pos)
+            write_kv(cache[f"{name}_s"], scale[..., None], layer_idx, pos)
         return (
             cache,
             QuantKV(cache["k_q"][layer_idx], cache["k_s"][layer_idx, ..., 0]),
             QuantKV(cache["v_q"][layer_idx], cache["v_s"][layer_idx, ..., 0]),
         )
-    cache["k"][layer_idx, :, :, pos : pos + s] = k_new
-    cache["v"][layer_idx, :, :, pos : pos + s] = v_new
+    write_kv(cache["k"], k_new, layer_idx, pos)
+    write_kv(cache["v"], v_new, layer_idx, pos)
     return cache, cache["k"][layer_idx], cache["v"][layer_idx]
+
+
+def write_kv(buf, new, layer_idx, pos):
+    """Write (b, h, s, d) ``new`` in place into the stacked (L, b, H, max_len,
+    d) ``buf`` at ``layer_idx`` from column ``pos``: an int (every row at the
+    same column) or a (b,) tensor (each row at its own). Only the first h
+    head rows are written when ``new`` carries fewer heads than the buffer
+    (JAX's rule for models whose layer types differ in KV groups)."""
+    b, h, s = new.shape[:3]
+    if is_vector(pos):
+        rows = torch.arange(b, device=buf.device)[:, None]
+        cols = pos[:, None] + torch.arange(s, device=buf.device)[None, :]
+        buf[layer_idx, rows, :h, cols] = new.transpose(1, 2).to(buf.dtype)  # indexed dims first: (b, s, h, d)
+    else:
+        buf[layer_idx, :, :h, pos : pos + s] = new
+    return buf
 
 
 def cur_token_mask(attn_mask, s, pos0):
     """The s columns of the (b, max_len) validity mask the current call
-    covers, starting at ``pos0``."""
+    covers, starting at ``pos0`` (an int or a (b,) tensor)."""
     if attn_mask is None:
         return None
     if attn_mask.shape[1] == s:
         return attn_mask
+    if is_vector(pos0):
+        cols = pos0[:, None] + torch.arange(s, device=attn_mask.device)[None, :]
+        return torch.gather(attn_mask, 1, cols)
     return attn_mask[:, pos0 : pos0 + s]
 
 

@@ -22,6 +22,11 @@ import torch
 from llm_quest_tpu_torch.ops.sampling import sampling
 
 
+def _is_eos(tokens, eos_arr):
+    """True where ``tokens`` is one of the ids of the 1-d ``eos_arr``."""
+    return (tokens[..., None] == eos_arr).any(dim=-1)
+
+
 def _normalize_eos(eos_ids, pad_id):
     if eos_ids is None:
         return [-1 if pad_id is None else pad_id]
@@ -72,7 +77,7 @@ def generate_batched_kv_cache(
     for i in range(max_gen):
         sampled = sampling(generator, logits, top_k=top_k, top_p=top_p, min_p=min_p, temp=temp)
         next_token = torch.where(finished, pad_id, sampled)
-        finished = finished | (next_token[:, None] == eos_arr[None]).any(dim=-1)
+        finished = finished | _is_eos(next_token, eos_arr)
         mask_buf[:, prompt_len + i] = ~finished
         tokens.append(next_token)
         if i + 1 < max_gen:  # the logits after the last token are never sampled

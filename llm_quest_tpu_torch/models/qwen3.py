@@ -156,7 +156,9 @@ def _attention(att, cfg, x, mask, cos, sin, kv_view, position_ids, attn_mask=Non
 def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, training=False,
           output_hidden_states=False, **_):
     """Forward. x: (b, s) ids; attn_mask: optional (b, k_len) bool, True =
-    real token. The cache, when given, is written in place. Returns (logits,
+    real token. The cache, when given, is written in place; its ``pos`` may
+    be an int or a (b,) tensor of per-row columns (continuous-batching
+    serving). Returns (logits,
     cache with pos advanced, aux), or the final-norm hidden states in place of
     the logits with ``output_hidden_states``. aux is {} (dense model)."""
     b, s = x.shape
@@ -164,10 +166,13 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
     cos, sin = params.rope_cos, params.rope_sin
 
     pos0 = cache["pos"] if cache is not None else 0
+    per_row = kv_cache.is_vector(pos0)
     if position_ids is None and cache is not None:
-        position_ids = (pos0 + torch.arange(s, device=device))[None].expand(b, s)
-    # static query offset for cached prefill (flash over the max_len view)
-    q_start = pos0 if cache is not None and s > 1 else None
+        steps = torch.arange(s, device=device)
+        position_ids = pos0[:, None] + steps[None, :] if per_row else (pos0 + steps)[None].expand(b, s)
+    # static query offset for cached prefill (flash over the max_len view);
+    # per-row positions have none, as in JAX
+    q_start = int(pos0) if cache is not None and s > 1 and not per_row else None
 
     k_len = kv_cache.max_len(cache) if cache is not None else s
     # under context parallelism the dense (s, s) mask is the O(s²) object CP

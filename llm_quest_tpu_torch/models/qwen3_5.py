@@ -420,7 +420,9 @@ def init_cache(cfg, batch, max_len, *, dtype=None, device=None):
 def apply_text(params, cfg, x=None, *, attn_mask=None, inputs_embs=None, position_ids=None, cache=None):
     """Text forward. position_ids: (3, b, s) MRoPE ids, (b, s) 1-D ids
     (→ T=H=W) or None (sequential from the cache position). The cache, when
-    given, is updated in place; returns (logits, cache with pos advanced, {})."""
+    given, is updated in place; its ``pos`` may be an int or a (b,) tensor
+    of per-row columns (continuous-batching serving). Returns (logits, cache
+    with pos advanced, {})."""
     gdn_ops.refuse_context_parallel(cfg, "qwen3_5")
     h = inputs_embs if inputs_embs is not None else embedding(params.tok_emb, x)
     b, s = h.shape[:2]
@@ -428,8 +430,11 @@ def apply_text(params, cfg, x=None, *, attn_mask=None, inputs_embs=None, positio
     cos, sin = params.rope_cos, params.rope_sin
 
     pos0 = cache["pos"] if cache is not None else 0
+    per_row = kv_cache.is_vector(pos0)
     if position_ids is None:
-        position_ids = (pos0 + torch.arange(s, device=device)).expand(3, b, s)
+        steps = torch.arange(s, device=device)
+        seq = pos0[:, None] + steps[None, :] if per_row else (pos0 + steps)[None].expand(b, s)
+        position_ids = seq[None].expand(3, b, s)
     elif position_ids.ndim == 2:  # (b, s) 1-D ids (generic decode engine) → T=H=W
         position_ids = position_ids[None].expand(3, b, s)
     position_ids = position_ids.long()
@@ -437,8 +442,9 @@ def apply_text(params, cfg, x=None, *, attn_mask=None, inputs_embs=None, positio
     k_len = kv_cache.max_len(cache) if cache is not None else s
     mask = causal_mask(s, k_len, q_start=pos0, attn_mask=attn_mask, device=device)
     mask_cur = kv_cache.cur_token_mask(attn_mask, s, pos0)
-    # static query offset for cached prefill (flash over the max_len view)
-    q_start = pos0 if cache is not None and s > 1 else None
+    # static query offset for cached prefill (flash over the max_len view);
+    # per-row positions have none, as in JAX
+    q_start = int(pos0) if cache is not None and s > 1 and not per_row else None
     decode_step = cache is not None and s == 1
 
     attn_i = gdn_i = 0

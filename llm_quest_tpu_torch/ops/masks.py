@@ -20,20 +20,28 @@ def causal_mask(q_len, k_len=None, *, q_start=0, window_size=None, attn_mask=Non
 
     Queries sit at absolute positions q_start .. q_start+q_len-1 against keys
     0 .. k_len-1 (no cache: q_start=0, k_len=q_len; static KV cache:
-    q_start=pos, k_len=max_len). window_size: optional sliding window; keys
-    at or below q_pos - window_size are masked too (Gemma SWA). attn_mask:
-    optional (b, k_len) bool padding mask, True = real token.
+    q_start=pos, k_len=max_len). ``q_start`` may be a (b,) tensor of per-row
+    offsets (continuous-batching serving: each slot at its own position),
+    which gives a (b, 1, q_len, k_len) mask. window_size: optional sliding
+    window; keys at or below q_pos - window_size are masked too (Gemma SWA).
+    attn_mask: optional (b, k_len) bool padding mask, True = real token.
     """
     if k_len is None:
         k_len = q_len
     if attn_mask is not None:
         device = attn_mask.device
+    elif torch.is_tensor(q_start):
+        device = q_start.device
     k_pos = torch.arange(k_len, device=device)
-    q_pos = q_start + torch.arange(q_len, device=device)
-    masked = k_pos[None, :] > q_pos[:, None]
+    q_pos = torch.arange(q_len, device=device)
+    if torch.is_tensor(q_start) and q_start.ndim >= 1:
+        q_pos = q_start[:, None] + q_pos[None, :]  # (b, q)
+    else:
+        q_pos = (q_start + q_pos)[None]  # (1, q)
+    masked = k_pos[None, None, :] > q_pos[:, :, None]
     if window_size is not None:
-        masked = masked | (k_pos[None, :] <= q_pos[:, None] - window_size)
-    masked = masked[None, None]
+        masked = masked | (k_pos[None, None, :] <= q_pos[:, :, None] - window_size)
+    masked = masked[:, None]
     if attn_mask is not None:
         masked = masked | ~attn_mask[:, None, None, :]
     return masked

@@ -95,14 +95,24 @@ def interleave_mrope_coeffs(cos3, sin3, mrope_section):
     [T,H,W, T,H,W, ..., T,T] layout. cos3/sin3: (3, b, s, half_dim) →
     (b, s, half_dim) each. T fills every slot by default; H takes the
     stride-3 slots from 1, W those from 2, each within its section."""
-    half_dim = cos3.shape[-1]
-    feat = np.arange(half_dim)
-    sel = np.zeros(half_dim, dtype=np.int64)
-    sel[(feat % 3 == 1) & (feat < mrope_section[1] * 3)] = 1
-    sel[(feat % 3 == 2) & (feat < mrope_section[2] * 3)] = 2
-    sel = torch.from_numpy(sel).to(cos3.device)
-    feat_t = torch.arange(half_dim, device=cos3.device)
-    return cos3[sel, ..., feat_t].movedim(0, -1), sin3[sel, ..., feat_t].movedim(0, -1)
+    sel, feat = _mrope_select(cos3.shape[-1], tuple(mrope_section), cos3.device)
+    return cos3[sel, ..., feat].movedim(0, -1), sin3[sel, ..., feat].movedim(0, -1)
+
+
+_MROPE_SELECT = {}
+
+
+def _mrope_select(half_dim, mrope_section, device):
+    """(section of each rotary feature, feature index) as tensors on
+    ``device``, made once: a decode step copies nothing from the host."""
+    key = (half_dim, mrope_section, device)
+    if key not in _MROPE_SELECT:
+        feat = np.arange(half_dim)
+        sel = np.zeros(half_dim, dtype=np.int64)
+        sel[(feat % 3 == 1) & (feat < mrope_section[1] * 3)] = 1
+        sel[(feat % 3 == 2) & (feat < mrope_section[2] * 3)] = 2
+        _MROPE_SELECT[key] = (torch.from_numpy(sel).to(device), torch.arange(half_dim, device=device))
+    return _MROPE_SELECT[key]
 
 
 def apply_mrope(x, cos, sin, position_ids, mrope_section):

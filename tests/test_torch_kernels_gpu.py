@@ -34,6 +34,11 @@ bit-equal. K12 (bf16 or int8 scores, no fp32 form; both on the tensor cores,
 ``attn_core.py::k12_tolerance``: bf16 within one bf16 unit of max |plain|; int8 each output
 within one bf16 unit of its plain value plus the fp32 summation bound of
 p·(v + t); and hand-computed roundings bit for bit.
+The serving engine (``inference/serving.py``) at Qwen3.5-0.8B's widths cut
+to 2 layers (one GDN, one attention): fp32 greedy tokens through the kernels
+(K1, K2, and K10 with the int8 cache) equal to those through the plain
+versions; empty slots (every key masked) give finite logits through ``sdpa``
+and K10; and no decode step synchronizes the host with the card.
 """
 
 import pytest
@@ -1505,3 +1510,112 @@ def test_vit_train_step_through_kernels_matches_plain(gen):
         a, b = (vit.apply(model, cfg, batch["image"], deterministic=False,
                           generator=torch.Generator(device="cuda").manual_seed(5)) for _ in range(2))
     assert torch.equal(a, b)
+
+
+def engine_model(kv_quant, dtype=torch.float32):
+    """Qwen3.5-0.8B's text widths cut to 2 layers, one GDN and one attention
+    layer (linear_sdpa_ratio 2), random weights from a seed."""
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    cfg = dict(QWEN3_5_08B_CONFIG, n_layers=2, linear_sdpa_ratio=2, dtype=dtype)
+    if kv_quant:
+        cfg["kv_quant"] = kv_quant
+    model = qwen3_5.init_text(cfg, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    return model, cfg
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_serving_engine_kernels_match_plain(gen, kv_quant):
+    """The continuous-batching engine on the card, fp32, 3 slots, buckets 32
+    and 64, eight requests (three submitted after the first step): the same
+    greedy tokens through the kernels (K1 at each admission, K2 at each
+    decode step, K10 too with the int8 cache) as through the plain versions,
+    each request's budget met."""
+    import numpy as np
+
+    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from llm_quest_tpu_torch.kernels import flash_decode, gdn
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    model, cfg = engine_model(kv_quant)
+    rng = np.random.default_rng(0)
+    traffic = [(rng.integers(1, 32_000, n).tolist(), int(g)) for n, g in zip(rng.integers(5, 61, 8),
+                                                                              rng.integers(6, 21, 8))]
+    outs = {}
+    for use_kernels in (True, False):
+        counts = (gdn.gated_delta_rule_fwd.launches, gdn.gated_delta_rule_step_stacked.launches,
+                  flash_decode.flash_decode.launches)
+        engine = ContinuousBatchingEngine(qwen3_5.TextOnly, model, dict(cfg, use_kernels=use_kernels), n_slots=3,
+                                          max_len=96, decode_chunk=8, prefill_buckets=(32, 64), eos_ids=-1, pad_id=0)
+        rids = [engine.submit(ids, g) for ids, g in traffic[:5]]
+        engine.step()
+        rids += [engine.submit(ids, g) for ids, g in traffic[5:]]
+        while engine.step():
+            pass
+        outs[use_kernels] = [engine.result(r)[0] for r in rids]
+        moved = [a - b for a, b in zip((gdn.gated_delta_rule_fwd.launches,
+                                        gdn.gated_delta_rule_step_stacked.launches,
+                                        flash_decode.flash_decode.launches), counts)]
+        expected = [use_kernels, use_kernels, use_kernels and kv_quant == "int8"]
+        assert [n > 0 for n in moved] == expected, moved
+    assert outs[True] == outs[False]
+    assert [len(t) for t in outs[True]] == [g for _, g in traffic]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_serving_engine_empty_slots_stay_finite(gen, dtype, kv_quant):
+    """One request in a pool of 4: a decode step over the three empty slots
+    (finished, their mask rows all False, so every key is masked) through
+    ``sdpa`` (bf16/fp32 cache) or K10 (int8 cache) gives finite logits in
+    every row, and the live row's token is a vocabulary id."""
+    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from llm_quest_tpu_torch.kernels import flash_decode
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    model, cfg = engine_model(kv_quant, dtype)
+    engine = ContinuousBatchingEngine(qwen3_5.TextOnly, model, cfg, n_slots=4, max_len=64, decode_chunk=1,
+                                      prefill_buckets=(32,), eos_ids=-1, pad_id=0)
+    engine.submit(list(range(1, 20)), 4)
+    engine._admit_pending()
+    assert not bool(engine.state["mask_buf"][1:].any())
+    n = flash_decode.flash_decode.launches
+    with torch.inference_mode():
+        packed = engine._decode_chunk(engine.eos_arr)
+    torch.cuda.synchronize()
+    assert flash_decode.flash_decode.launches - n == (1 if kv_quant else 0)
+    assert bool(torch.isfinite(engine.state["last_logits"]).all())
+    assert 0 <= int(packed[0, 0]) < cfg["vocab_size"] and packed[1:, 0].eq(0).all()
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_serving_engine_decode_steps_never_sync(gen, kv_quant):
+    """bf16, per-request samplers (greedy, top-k, top-p, min-p): no decode
+    step synchronizes the host with the card (``torch.cuda`` sync debug mode
+    "error" raises on a blocking read or copy inside one); the host waits
+    only for the early exit's flag and the chunk's packed copy."""
+    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    model, cfg = engine_model(kv_quant, torch.bfloat16)
+    engine = ContinuousBatchingEngine(qwen3_5.TextOnly, model, cfg, n_slots=4, max_len=96, decode_chunk=8,
+                                      prefill_buckets=(32, 64), eos_ids=-1, pad_id=0, per_request_sampling=True)
+    step = engine._decode_step
+    steps = []
+
+    def checked(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        steps.append(1)
+
+    engine._decode_step = checked
+    knobs = [dict(temp=0.0), dict(temp=0.8, top_k=50), dict(temp=0.7, top_p=0.9), dict(temp=1.0, min_p=0.05)]
+    rids = [engine.submit(list(range(3, 3 + n)), 12, **knobs[i % 4]) for i, n in enumerate((5, 40, 17, 9, 30, 2))]
+    while engine.step():
+        pass
+    assert len(steps) > 8
+    assert [len(engine.result(r)[0]) for r in rids] == [12] * 6
