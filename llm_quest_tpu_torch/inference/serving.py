@@ -18,8 +18,8 @@ refilled while the others keep decoding (iteration-level scheduling).
   ``pad_id`` from then on and stops growing its mask. The chunk ends early
   once every slot is finished. Its tokens (with the bitcast logprobs when
   asked for) and the finished column reach the host in ONE copy a chunk,
-  into pinned memory behind an event, so the host can dispatch the next
-  chunk before reading it (``pipeline_depth`` 2).
+  into pinned memory behind an event, so with ``pipeline_depth`` 2 the
+  host can dispatch the next chunk before reading it.
 - **Retire/refill** on the host: read a chunk, credit its tokens to the
   requests resident at its dispatch, close those that finished, admit
   queued prompts into the freed slots.
@@ -55,8 +55,14 @@ Divergences by design from the JAX engine:
 - ``generator=`` (a ``torch.Generator`` on the engine's device) takes the
   place of ``rng``; draws are the port's (``ops/sampling.py::draw``);
 - ``warmup`` admits one wave of 1 and one of ``n_slots`` rows per bucket
-  and runs one chunk (timed for "auto"), where JAX warms every power-of-two
-  wave size it could compile and runs a second chunk to time.
+  and runs one chunk, where JAX warms every power-of-two wave size it could
+  compile and runs a second chunk to time;
+- ``pipeline_depth`` defaults to 1 and "auto" means 1, with no timing (JAX
+  times a chunk against a round trip and takes 2 when the chunk is
+  shorter). A decode step here already waits on the early-exit flag of the
+  step before it, so a second chunk in flight overlaps only the drain's
+  host work, and it refills freed slots a chunk later: on an H100 depth 2
+  served no faster than depth 1 (``chip_smoke.py``, engine_serve_uniform).
 
 Not ported yet (ROADMAP.md, Queue 1 item 3, in its order): chunked prefill
 (``prefill_chunk``), prefix caching (``register_prefix``, ``submit(prefix=)``),
@@ -134,8 +140,8 @@ class ContinuousBatchingEngine:
         cache_dtype: the pool cache's dtype (default the model's).
         generator: ``torch.Generator`` on ``device`` driving the draws
             (default one seeded with 0).
-        pipeline_depth: decode chunks kept in flight; "auto" resolves it in
-            ``warmup`` (1 when a chunk outlasts a tiny op's round trip, else 2).
+        pipeline_depth: decode chunks kept in flight (1; "auto" means 1:
+            module docstring).
         per_request_sampling: ``submit`` may override the sampler per request.
         return_logprobs: keep the raw-model logprob of each committed token.
         device: where the pool lives (None: the current CUDA device; raises
@@ -146,7 +152,7 @@ class ContinuousBatchingEngine:
     def __init__(
         self, model, params, cfg, *, n_slots, max_len, decode_chunk=8, prefill_buckets=DEFAULT_BUCKETS,
         top_k=None, top_p=None, min_p=None, temp=0.0, eos_ids=None, pad_id=0, cache_dtype=None, generator=None,
-        pipeline_depth="auto", per_request_sampling=False, return_logprobs=False, device=None, mesh=None,
+        pipeline_depth=1, per_request_sampling=False, return_logprobs=False, device=None, mesh=None,
         param_rules=None, draft_model=None, draft_params=None, draft_cfg=None, gamma=None, draft_param_rules=None,
         prefill_chunk=None, pixel_transform=None,
     ):
@@ -209,8 +215,7 @@ class ContinuousBatchingEngine:
         # Finished rows are sticky on the device and each in-flight chunk
         # keeps the slot -> request map of its dispatch, so late admissions
         # never take earlier tokens
-        self._auto_depth = pipeline_depth in (None, "auto")
-        self.pipeline_depth = 2 if self._auto_depth else max(1, pipeline_depth)
+        self.pipeline_depth = 1 if pipeline_depth in (None, "auto") else max(1, int(pipeline_depth))
         self._inflight = deque()  # (pinned packed chunk, its event, slot map)
 
     # ------------------------------------------------------------ device I/O
@@ -276,7 +281,7 @@ class ContinuousBatchingEngine:
                 self.generator, logits, temp=row[:, 0], top_k=row[:, 1].long(), top_p=row[:, 2], min_p=row[:, 3],
                 max_top_k=int(self._slot_sample[:, 1].max()),
             )
-        return sampling(self.generator, logits, **self.sample_kw)
+        return sampling(self.generator, logits, checked=False, **self.sample_kw)
 
     def _decode_step(self, i, eos, toks, lps):
         """One token for every slot; finished rows emit pads and keep their
@@ -334,10 +339,7 @@ class ContinuousBatchingEngine:
         ``n_slots`` rows) and one full decode chunk on a scratch copy of the
         pool, so a live serve meets no first-call costs (kernel library load,
         the allocator's growth, cuBLAS's plans); the generator's state is
-        restored after. With ``pipeline_depth="auto"`` the chunk is timed
-        against a tiny op's round trip and sets the depth: 1 when the chunk
-        takes longer, else 2. (JAX runs a second chunk to time, after the
-        one that compiles; here nothing compiles.)"""
+        restored after."""
         saved, gen_state = self.state, self.generator.get_state()
         self.state = _clone(saved)
         for lb in self.buckets:
@@ -353,19 +355,8 @@ class ContinuousBatchingEngine:
         # and the chunk an eos no token matches
         self.state["budget"].fill_(min(self.decode_chunk + 2, self.max_len - 1))
         self.state["finished"].zero_()
-        self._sync()
-        t0 = time.perf_counter()
         self._decode_chunk(torch.full_like(self.eos_arr, -1))
         self._sync()
-        t_chunk = time.perf_counter() - t0
-        if self._auto_depth:
-            z = torch.zeros(8, dtype=torch.int32, device=self.device)
-            rtts = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                (z + 1).cpu()
-                rtts.append(time.perf_counter() - t0)
-            self.pipeline_depth = 1 if t_chunk >= sorted(rtts)[1] else 2
         self.state = saved
         self.generator.set_state(gen_state)
 

@@ -55,13 +55,19 @@ def filter_probs(probs, *, top_k=None, top_p=None, min_p=None):
     return probs / probs.sum(dim=-1, keepdim=True)
 
 
-def sampling(generator, logits, *, top_k=None, top_p=None, min_p=None, temp=0.0):
-    """Sample next-token ids from (..., v) logits → (...,) int64."""
+def sampling(generator, logits, *, top_k=None, top_p=None, min_p=None, temp=0.0, checked=True):
+    """Sample next-token ids from (..., v) logits → (...,) int64. With
+    ``checked`` the draw is ``torch.multinomial``'s, which raises on inf,
+    NaN or negative probabilities (a host read of the device); without it
+    the same token comes from ``draw``, unchecked and with no host read
+    (the serving engine's decode steps)."""
     if temp == 0.0:
         return logits.argmax(dim=-1)
     probs = torch.softmax(logits.float() / temp, dim=-1)
     probs = filter_probs(probs, top_k=top_k, top_p=top_p, min_p=min_p)
-    return draw(generator, probs.reshape(-1, probs.shape[-1])).reshape(probs.shape[:-1])
+    flat = probs.reshape(-1, probs.shape[-1])
+    ids = torch.multinomial(flat, 1, generator=generator)[:, 0] if checked else draw(generator, flat)
+    return ids.reshape(probs.shape[:-1])
 
 
 def filter_probs_per_row(probs, *, top_k, top_p, min_p=None, head=1024, max_top_k=None):

@@ -169,7 +169,7 @@ def run_all(side, models):
     out["cancel"] = cancel_scenario(engine(side, models, "dense", pipeline_depth=1))
     out["sampling"] = sampling_scenario(engine(side, models, "dense", **SAMPLE_KW))
     out["logprobs"] = logprob_scenario(engine(side, models, "dense", return_logprobs=True))
-    eng = engine(side, models, "dense")
+    eng = engine(side, models, "dense", pipeline_depth=1)  # one schedule on both sides (the port's default)
     eng.serve(list(zip(PROMPTS, GENS)))
     out["stats"] = eng.stats()
     return out
@@ -413,12 +413,13 @@ def test_engine_early_exit(jax_runs, port_runs, models):
 
 
 def test_engine_pipeline_depths(jax_runs, models):
-    """pipeline_depth 1 and 2 and "auto" after ``warmup`` serve JAX's tokens."""
+    """pipeline_depth 1 and 2 and "auto" (which means 1, also after
+    ``warmup``) serve JAX's tokens."""
     for depth in (1, 2, "auto"):
         eng = engine("port", models, "hybrid", pipeline_depth=depth)
         if depth == "auto":
             eng.warmup()
-            assert eng.pipeline_depth in (1, 2)
+            assert eng.pipeline_depth == 1
         assert scenario(eng) == jax_runs["hybrid"], depth
 
 
