@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the port's
-kernels from ``llm_quest_tpu_torch/csrc`` at first use. Seventeen main paths
+kernels from ``llm_quest_tpu_torch/csrc`` at first use. Twenty main paths
 are driven: the ViT-B/224 encode of bench.py's ViT cell (through K7, K8 and
 K9), the TinyViT CIFAR-10 training loop of ``scripts/vit_training.py``, the
 ViT-B/224 training step at b 128, the int8-score ablation of
@@ -19,8 +19,8 @@ MTP training step of ``scripts/deepseek_training.py`` at
 under context parallelism (``scripts/context_parallel_training.py``'s path,
 at world 1 on one card), int8 Qwen3.5-0.8B text generation and int8
 Qwen3-Next cached decode, and the continuous-batching serving engine on
-bench.py's two serving cells and the int8 serve. Phases, one JSON line each
-on stdout:
+bench.py's two serving cells and the int8 serve, and through its chunked,
+prefix and multimodal admissions. Phases, one JSON line each on stdout:
 
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
@@ -249,6 +249,38 @@ on stdout:
     8-step chunk), and the share of greedy tokens equal to
     ``generate_kv_cache``'s (reported, not gated: random weights give
     near-tied logits).
+22. engine_chunked_prefill, engine_prefix, engine_vlm
+    (``engine_admission_paths``): the engine's chunked, prefix and
+    multimodal admissions at full width and depth, bf16. Chunked
+    (``scripts/bench_serving_ttft_long.py``): Qwen3.5-0.8B text, 16 slots,
+    chunk 16, bucket 32, ``prefill_chunk`` 512, max_len 8320; 15 short
+    requests (32 tokens, budget 64) with one long prompt (4096, then 8192
+    tokens) behind them, 5 times a length: the long prompt's TTFT p50/p95,
+    the pool's useful tok/s, K1 and K4 calls a long admission (18 and 6 a
+    chunk, checked) and K4's device ms a chunk index (profiled), beside
+    the K4 record ``flash_attention_fwd_chunked`` (a chunk at every
+    q_start against the 8320 columns, ``sdpa`` with the same mask).
+    Prefix (``scripts/bench_prefix_caching.py``): its dense Qwen3 (16
+    layers), 2 slots, chunk 1, prefixes 1024 and 4096 with a 32-token
+    suffix, and Qwen3.5-0.8B text at prefix 2048: TTFT with and without
+    the prefix (medians of 5), the speedup, the registration's seconds.
+    Multimodal (``scripts/bench_vlm_serving.py``): the Qwen3.5-0.8B VLM,
+    16 slots, bucket 160, max_len 256, chunk 16, 32 requests each with a
+    uint8 384 px image normalized on the card by ``pixel_transform``, after
+    ``warmup(image_shape=, image_dtype=uint8)``: useful tok/s and TTFT
+    p50/p95, and the same prompts without their images. Before timing,
+    each record holds every kernel call of its first admissions (the
+    first long prompt's chunks, the prefix's registration and first
+    suffix wave, the first 16-row multimodal wave) and of one decode step
+    to its plain version (``HeldToPlain``: K1 with a carried state beside
+    the output of its plain version started from zeros), and the logits
+    to ``use_kernels`` False within ENGINE_PLAIN_BAR beside a control:
+    each long prompt against one uncached prefill of it (control: the GDN
+    updates of its last 64-token chunk left out), the suffix admission
+    against a full-prompt admission (control: the suffix on a zeroed
+    prefix row), the multimodal wave against the same wave (control:
+    request 0's image zeroed); every request gets its budget, and the
+    decode position after an image is its largest 3-D position + 1.
 
 K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
 tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
@@ -301,6 +333,7 @@ tensor-core and SIMT kernels, cuBLAS GEMMs, the rest), one JSON line each.
 """
 
 import json
+import math
 import statistics
 from functools import partial
 import subprocess
@@ -967,6 +1000,59 @@ def kernel_k4(gen, dtypes):
              "library_ms": cuda_ms(lib), "max_abs_err_bf16": max(errs_bf16),
              "device_ms": device_ms(lambda: attn.flash_attention(q, k, v, attn_mask=key_mask), TC_KERNELS)}
     return max(errs), ms, plain_ms, cases, extra
+
+
+CHUNK_K4 = (1, 8, 2, 512, 8320, 256)  # b, hq, hkv, sq, sk, d: one chunk of engine_chunked_prefill's long admission
+CHUNK_PROMPT = 8192  # its longest prompt: the keys past it are masked
+
+
+def kernel_k4_chunked(gen, dtypes):
+    """K4 at engine_chunked_prefill's shape: a 512-query chunk at q_start
+    c·512 against the 8320-column cache view, keys past the prompt masked.
+    Checked at three chunk indices in fp32 and bf16 (bf16 also tile by
+    tile); timed at every chunk index (``ms_by_chunk``: the kernel reads
+    only the keys up to its last query, so its time should grow with c),
+    with the record's times, bound and ``sdpa``'s time at the last chunk."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import attention as attn
+
+    b, hq, hkv, sq, sk, d = CHUNK_K4
+    starts = list(range(0, CHUNK_PROMPT, sq))
+    errs, errs_bf16, tiles, cases = [], [], [], []
+    key_mask = (torch.arange(sk, device=DEVICE) < CHUNK_PROMPT)[None].expand(b, sk).contiguous()
+    for dtype in dtypes:
+        q, k, v, _ = attn_inputs(gen, b, hq, hkv, sq, sk, d, dtype)
+        for q_start in (0, starts[len(starts) // 2], starts[-1]):
+            out = attn.flash_attention(q, k, v, attn_mask=key_mask, q_start=q_start)
+            ref = attn.flash_attention(q, k, v, attn_mask=key_mask, q_start=q_start, plain=True)
+            torch_sync()
+            e = check(f"K4 chunked q_start={q_start} {dtype}", out, ref, dtype)
+            cases.append({"q_start": q_start, "dtype": str(dtype), "max_abs_err": e})
+            (errs if dtype == dtypes[0] else errs_bf16).append(e)
+            if dtype == torch.bfloat16:
+                tiles.append(tile_rel_err(out, ref))
+                if not tiles[-1] <= TILE_TOL:
+                    raise AssertionError(f"K4 chunked q_start={q_start}: tile error {tiles[-1]} > {TILE_TOL}")
+    q_start = starts[-1]
+    call = lambda: attn.flash_attention(q, k, v, attn_mask=key_mask, q_start=q_start)  # noqa: E731
+    ms_by_chunk = [cuda_ms(lambda qs=qs: attn.flash_attention(q, k, v, attn_mask=key_mask, q_start=qs))
+                   for qs in starts]
+    plain_ms = cuda_ms(lambda: attn.flash_attention(q, k, v, attn_mask=key_mask, q_start=q_start, plain=True))
+    # the same function in one library call: the causal rule at the offset and the key mask as one bool mask
+    cols, rows = torch.arange(sk, device=DEVICE), torch.arange(sq, device=DEVICE)
+    visible = (cols[None] <= q_start + rows[:, None]) & key_mask[0]
+    k_rep, v_rep = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))  # sdpa's masked kernels take no GQA
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = lambda: sdpa(q, k_rep, v_rep, attn_mask=visible)  # noqa: E731
+    check("K4 chunked vs sdpa (library)", lib(), call(), dtypes[-1])
+    pairs = sq * q_start + sq * (sq + 1) // 2  # (query, key) pairs at or before each query
+    seen = q_start + sq  # the keys the chunk can see
+    moved = 2 * nbytes(q) + nbytes(key_mask[:, :seen]) + 2 * b * hkv * seen * d * q.element_size()  # q, out, mask, k/v
+    extra = {**bound(moved, 4 * d * pairs * b * hq), "library_ms": cuda_ms(lib), "max_abs_err_bf16": max(errs_bf16),
+             "tile_err_bf16": max(tiles), "device_ms": device_ms(call, TC_KERNELS),
+             "record": {"q_starts": starts, "ms_by_chunk": ms_by_chunk, "q_start_timed": q_start}}
+    return max(errs), ms_by_chunk[-1], plain_ms, cases, extra
 
 
 def kernel_k4_bwd(gen, dtypes):
@@ -2054,7 +2140,8 @@ VIT_TRAIN, VIT_B_TRAIN = "vit_train", "vit_b_train"
 ABLATE = "ablate_int8_scores"
 CP_TRAIN, CP_FALLBACK = "cp_train", "cp_fallback"
 ENGINE_UNIFORM, ENGINE_HETERO, ENGINE_INT8 = "engine_serve_uniform", "engine_serve_hetero", "engine_serve_int8"
-ENGINE_PATHS = (ENGINE_UNIFORM, ENGINE_HETERO, ENGINE_INT8)
+ENGINE_CHUNKED, ENGINE_PREFIX, ENGINE_VLM = "engine_chunked_prefill", "engine_prefix", "engine_vlm"
+ENGINE_PATHS = (ENGINE_UNIFORM, ENGINE_HETERO, ENGINE_INT8, ENGINE_CHUNKED, ENGINE_PREFIX, ENGINE_VLM)
 # the attention records' sources by dtype: bf16 takes the tensor-core
 # kernels, fp32 the SIMT ones
 ATTN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/attention_tc.cu",
@@ -2094,7 +2181,11 @@ KERNELS = [
      "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2,
      (GENERATE, INT8_GENERATE, NEXT_SERVE, TEXT_B128, *ENGINE_PATHS)),
     ("flash_attention_fwd", ("attention", "flash_attention"), ATTN_SRC,
-     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4, (GENERATE, TRAIN, HYBRID, ENGINE_HETERO)),
+     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4,
+     (GENERATE, TRAIN, HYBRID, ENGINE_HETERO, ENGINE_CHUNKED, ENGINE_PREFIX)),
+    # K4 at one chunk of the chunked admission (q_start up to 7680 against 8320 cache columns)
+    ("flash_attention_fwd_chunked", ("attention", "flash_attention"), ATTN_SRC,
+     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4_chunked, (ENGINE_CHUNKED,)),
     ("flash_attention_bwd", ("attention", "flash_attention_bwd"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:175", kernel_k4_bwd, (TRAIN, HYBRID)),
     # K7: its bf16 forward is the short-sequence tensor-core kernel (fp32: the
@@ -2246,13 +2337,28 @@ def kernel_phase():
     return records
 
 
+COUNTERS = ("launches", "window_launches", "softcap_sink_launches", "static_launches", "bwd_launches",
+            "causal_launches", "causal_bwd_launches", "int8_launches", "tc_launches", "tc_bwd_launches")
+
+
 def reset_launches():
     for spec in KERNELS:
         w = wrapper(spec[1])
-        for counter in ("launches", "window_launches", "softcap_sink_launches", "static_launches", "bwd_launches",
-                        "causal_launches", "causal_bwd_launches", "int8_launches", "tc_launches", "tc_bwd_launches"):
+        for counter in COUNTERS:
             if hasattr(w, counter):
                 setattr(w, counter, 0)
+
+
+def saved_launches():
+    """Every wrapper's counters, for ``restore_launches``: a check inside a
+    path's run leaves its launches out of the path's counts."""
+    return {(spec[1][:2], counter): getattr(wrapper(spec[1]), counter)
+            for spec in KERNELS for counter in COUNTERS if hasattr(wrapper(spec[1]), counter)}
+
+
+def restore_launches(saved):
+    for (spec, counter), n in saved.items():
+        setattr(wrapper(spec), counter, n)
 
 
 # the attention wrappers' (K4, K4 bwd, K5, K6 and K7, forward and backward;
@@ -3780,10 +3886,19 @@ class HeldToPlain:
     """While entered, the engine path's kernel wrappers (K1's forward, K2,
     K4's forward, K10) launch their kernels as the model calls them, then
     hold each result against the plain version on the same inputs: K1's
-    output and state within TOL and tile by tile within TILE_TOL beside the
-    dropped-chunk control (from a zero state: the state without the last
-    chunk that holds a real token, the output without the chunk before it,
-    where there is one); K2's output and updated layer within TOL; K4's
+    output and state within TOL and tile by tile within TILE_TOL beside
+    controls: from a zero state, the dropped-chunk ones (the state without
+    the last chunk that holds a real token; the output without the chunk
+    before it, where there is one); from a carried nonzero state (a chunked
+    or prefix admission), the output of the plain version started from zeros
+    instead. The state control must read above TILE_TOL at every call. The
+    output controls must at the strongest call of a session (``OUT_CONTROLS``
+    on leaving it): with random weights some GDN layers forget their state
+    within a token or two, so there a missing chunk or state moves the
+    output's 64-token tiles by less than the bar (at b 1, s 512 the
+    dropped-chunk output control reads 0.0005 to 0.41 by layer: CPU, fp32,
+    the plain version), and a kernel that dropped them would be seen at the
+    other layers. K2's output and updated layer within TOL; K4's
     output within TOL and TILE_TOL beside the plain version with the keys
     [64, 128) masked out; K10's within TOL, each (batch, q head) row within
     K10_ROW_TOL beside the plain version with the first 64 keys masked out,
@@ -3792,9 +3907,11 @@ class HeldToPlain:
 
     CHECKED = (("gdn", "gated_delta_rule_fwd"), ("gdn", "gated_delta_rule_step_stacked"),
                ("attention", "flash_attention"), ("flash_decode", "flash_decode"))
+    OUT_CONTROLS = ("dropped_chunk_out", "zero_state_out")
 
     def __init__(self):
         self.readings = {}
+        self.out_controls = {}
 
     def note(self, kernel, shape, errs, controls=None):
         r = self.readings.setdefault(kernel, {"calls": 0, "shapes": [], "worst": {}, "controls": {}})
@@ -3828,9 +3945,14 @@ class HeldToPlain:
             if last:
                 controls["dropped_chunk_out"] = gdn_tiles(
                     (gdn_skip_chunk(q, k, v, beta, alpha, last - 1)[0],), ref[:1], ("out",))["out"]
-            for n, e in controls.items():
-                if not e > TILE_TOL:
-                    raise AssertionError(f"{name}: the {n} control reads {e}, within {TILE_TOL}")
+        else:  # a carried state: the kernel must start from it, not from zeros
+            zero = self.orig["gated_delta_rule_fwd"](q, k, v, beta, alpha, None, chunk_size=chunk_size, plain=True)
+            controls["zero_state_out"] = gdn_tiles(zero[:1], ref[:1], ("out",))["out"]
+        for n, e in controls.items():
+            if n in self.OUT_CONTROLS:
+                self.out_controls.setdefault(n, []).append(e)
+            elif not e > TILE_TOL:
+                raise AssertionError(f"{name}: the {n} control reads {e}, within {TILE_TOL}")
         self.note("K1", q.shape, errs, controls)
         return out, st
 
@@ -3914,6 +4036,13 @@ class HeldToPlain:
     def __exit__(self, *exc):
         for mod, n in self.mods:
             setattr(mod, n, self.orig[n])
+        if exc[0] is None:
+            for n, reads in self.out_controls.items():
+                self.readings["K1"]["controls"][f"{n}_max"] = max(reads)
+                self.readings["K1"][f"{n}_calls"] = len(reads)
+                if not max(reads) > TILE_TOL:
+                    raise AssertionError(f"K1 engine: the {n} control reads at most {max(reads)} over "
+                                         f"{len(reads)} calls, within {TILE_TOL}")
         return False
 
 
@@ -4205,6 +4334,487 @@ def engine_serving(records, card):
     torch.cuda.empty_cache()
 
 
+# ------------------------------- the engine's chunked, prefix and multimodal admissions
+
+
+LONG_PROMPTS = (4096, 8192)  # bench_serving_ttft_long's prompt lengths
+LONG_SLOTS, LONG_REPS, LONG_GEN, SHORT_GEN = 16, 5, 8, 64
+PREFILL_CHUNK = CHUNK_K4[3]
+LONG_MAX_LEN = CHUNK_K4[4]  # the longest prompt + 128, as the script sizes it
+PREFIX_LENS, PREFIX_SUFFIX, PREFIX_REPS = (1024, 4096), 32, 5  # bench_prefix_caching's (its 2048 is the hybrid row)
+HYBRID_PREFIX = 2048
+VLM_REQUESTS, VLM_SLOTS, VLM_RUNS = 32, 16, 2
+VLM_IMAGE = (3, 2, 384, 384)
+
+
+def nearest_rank(values, q):
+    """The ``q`` quantile of ``values`` by the nearest-rank rule (of 5
+    values, p95 is the largest)."""
+    return sorted(values)[math.ceil(q * len(values)) - 1]
+
+
+def long_traffic():
+    """bench_serving_ttft_long's stream (seed 0), drawn in its order: the
+    warm-up pool's 16 short requests (32 tokens, budget 64), then for each
+    length its long prompt and, for each of its LONG_REPS submissions, the
+    LONG_SLOTS - 1 short requests submitted with it."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+
+    def short():
+        return list(map(int, rng.integers(1, 1000, size=32))), SHORT_GEN
+
+    warm = [short() for _ in range(LONG_SLOTS)]
+    longs = []
+    for n in LONG_PROMPTS:
+        ids = list(map(int, rng.integers(1, 1000, size=n)))
+        longs.append((ids, [[short() for _ in range(LONG_SLOTS - 1)] for _ in range(LONG_REPS)]))
+    return warm, longs
+
+
+class DroppedChunk:
+    """While entered, every K1 call runs its plain version with the state
+    updates of the 64 tokens of chunk ``skip`` left out (beta 0 there: the
+    state only decays over them): the control of the chunked admission's
+    logits. The chunk is the one that holds the prompt's last token: with
+    random weights the GDN layers forget their state within a few tokens
+    (``HeldToPlain``), so a chunk further back moves the last token's
+    logits by less than the bar, and the bar could not see it go missing."""
+
+    def __init__(self, skip):
+        self.skip = skip
+
+    def __enter__(self):
+        from llm_quest_tpu_torch.kernels import gdn
+
+        self.mod, self.orig = gdn, gdn.gated_delta_rule_fwd
+
+        def call(q, k, v, beta, alpha, prev_state=None, *, chunk_size=64, plain=False):
+            beta = beta.clone()
+            beta[..., self.skip * 64 : (self.skip + 1) * 64] = 0
+            return self.orig(q, k, v, beta, alpha, prev_state, chunk_size=chunk_size, plain=True)
+
+        call.__dict__.update(self.orig.__dict__)
+        gdn.gated_delta_rule_fwd = call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.gated_delta_rule_fwd = self.orig
+        return False
+
+
+def one_shot_logits(model, cfg, ids, skip=None):
+    """Last-token logits of one uncached b = 1 ``apply_text`` of ``ids``
+    (``skip``: with that chunk's GDN state update left out)."""
+    import contextlib
+
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    with torch.inference_mode(), DroppedChunk(skip) if skip is not None else contextlib.nullcontext():
+        logits, _, _ = qwen3_5.apply_text(model, cfg, torch.tensor([ids], device=DEVICE))
+    return logits[:, -1].float()
+
+
+def counted(fn):
+    """``fn()`` and the K1 and K4 launches it made."""
+    k1, k4 = wrapper(("gdn", "gated_delta_rule_fwd")), wrapper(("attention", "flash_attention"))
+    before = k1.launches, k4.launches
+    fn()
+    return {"K1": k1.launches - before[0], "K4": k4.launches - before[1]}
+
+
+def k4_ms_by_chunk(fn, n_chunks):
+    """Device ms of the K4 kernels in one call of ``fn`` (a chunked
+    admission) summed chunk by chunk (a chunk's calls: one an attention
+    layer), from a ``torch.profiler`` trace; None where the profiler gives
+    no trace of them."""
+    import torch
+    from torch.autograd import DeviceType
+
+    if PROFILER["given_up"]:
+        return None
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and TC_KERNELS in e.name),
+                    key=lambda e: e.time_range.start)
+    if not events or len(events) % n_chunks:
+        PROFILER["empty_traces"] += not events
+        return None
+    per = len(events) // n_chunks
+    return {"ms": [sum(e.time_range.elapsed_us() for e in events[c * per : (c + 1) * per]) / 1e3
+                   for c in range(n_chunks)], "kernels_per_chunk": per}
+
+
+def chunked_engine(model, cfg, **kw):
+    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    return ContinuousBatchingEngine(qwen3_5.TextOnly, model, cfg, **{
+        **dict(n_slots=LONG_SLOTS, max_len=LONG_MAX_LEN, decode_chunk=16, prefill_buckets=(32,),
+               prefill_chunk=PREFILL_CHUNK, eos_ids=-1, pad_id=0), **kw})
+
+
+def chunked_checks(model, cfg, longs):
+    """The first long prompt's chunked admission (k = 1, 4096 tokens: 8
+    chunks) and one decode step with every K1/K2/K4 call held to its plain
+    version (``HeldToPlain``; K1 with a carried state from chunk 2 on,
+    beside its zero-state control; K4 at q_start c·512 against the 8320
+    columns); then the second's (8192 tokens), counted and profiled for
+    K4's device ms a chunk. Each long prompt's admission logits within
+    ENGINE_PLAIN_BAR of one uncached b = 1 prefill of it through the plain
+    versions, beside the same prefill with the GDN state updates of the
+    64-token chunk that holds its last token left out (``DroppedChunk``,
+    the control)."""
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    plain_cfg = dict(cfg, use_kernels=False)
+    engine = chunked_engine(model, cfg, decode_chunk=1)
+    got, calls = [], {}
+    with torch.inference_mode(), HeldToPlain() as held:
+        engine.submit(longs[0][0], LONG_GEN)
+        engine._admit_pending()
+        got.append(engine.state["last_logits"][0:1].clone())
+        toks = torch.full((1, engine.n_slots), engine.pad_id, dtype=torch.long, device=DEVICE)
+        engine._decode_step(0, engine.eos_arr, toks, None)
+    calls[LONG_PROMPTS[0]] = {k: held.readings.get(k, {}).get("calls", 0) for k in ("K1", "K4")}
+    engine.submit(longs[1][0], LONG_GEN)
+    calls[LONG_PROMPTS[1]] = counted(engine._admit_pending)
+    n_gdn, n_attn = len(qwen3_5.gdn_layer_indices(cfg)), len(qwen3_5.attn_layer_indices(cfg))
+    for n, c in calls.items():  # every chunk runs every layer's kernel once
+        chunks = -(-n // PREFILL_CHUNK)
+        if c != {"K1": n_gdn * chunks, "K4": n_attn * chunks}:
+            raise AssertionError(f"{ENGINE_CHUNKED}: the {n}-token admission made {c} calls, not {n_gdn} K1 and "
+                                 f"{n_attn} K4 calls for each of its {chunks} chunks")
+    got.append(engine.state["last_logits"][1:2].clone())
+    engine.submit(longs[1][0], LONG_GEN)
+    k4_chunk_ms = k4_ms_by_chunk(engine._admit_pending, LONG_PROMPTS[1] // PREFILL_CHUNK)
+    del engine
+    torch.cuda.empty_cache()
+    bars = {}
+    for n, (ids, _), logits in zip(LONG_PROMPTS, longs, got):
+        bars[n] = held_to_bar(f"{ENGINE_CHUNKED} {n}", logits, one_shot_logits(model, plain_cfg, ids),
+                              one_shot_logits(model, plain_cfg, ids, skip=(n - 1) // 64))
+        torch.cuda.empty_cache()
+    return {"kernel_calls_vs_plain": held.readings, "calls_per_admission": calls, "logits_vs_plain": bars,
+            "k4_device_ms_by_chunk": k4_chunk_ms}
+
+
+def engine_chunked_prefill(records, card):
+    """engine_chunked_prefill (``scripts/bench_serving_ttft_long.py``'s
+    workload): Qwen3.5-0.8B text, 24 layers, bf16, 16 slots, chunk 16,
+    bucket 32, ``prefill_chunk`` 512, max_len 8320 (the model's RoPE tables
+    taken to 8320 columns: the port refuses positions past them). A busy
+    pool of 15 short requests (32 tokens, budget 64) with one long prompt
+    (4096, then 8192 tokens; budget 8) submitted behind them, LONG_REPS
+    times a length: TTFT p50/p95 of the long prompt, the pool's useful
+    tok/s, after ``chunked_checks``."""
+    import torch
+
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+
+    t_start = time.perf_counter()
+    cfg = dict(QWEN3_5_08B_CONFIG, dtype=torch.bfloat16, context_length=LONG_MAX_LEN)
+    model = text_model(cfg)
+    warm, longs = long_traffic()
+    checks = chunked_checks(model, cfg, longs)
+    engine = chunked_engine(model, cfg)
+    reset_launches()
+    engine.serve(warm)
+    results = {}
+    for n, (ids, reps) in zip(LONG_PROMPTS, longs):
+        t0 = time.perf_counter()
+        engine.serve([(ids, LONG_GEN)])
+        first_s = time.perf_counter() - t0
+        ttfts, rates = [], []
+        for shorts in reps:
+            t0 = time.perf_counter()
+            rids = [engine.submit(*req) for req in shorts + [(ids, LONG_GEN)]]
+            while engine.step():
+                pass
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            reqs = [engine._requests[r] for r in rids]
+            if [len(r.tokens) for r in reqs] != [g for _, g in shorts] + [LONG_GEN]:
+                raise AssertionError(f"{ENGINE_CHUNKED}: a request did not get its budget in tokens")
+            ttfts.append((reqs[-1].t_first - reqs[-1].t_submit) * 1e3)
+            rates.append(sum(len(r.tokens) for r in reqs) / seconds)
+        ttfts.sort()
+        results[str(n)] = {"ttft_p50_ms": statistics.median(ttfts), "ttft_p95_ms": nearest_rank(ttfts, 0.95),
+                           "ttft_ms": ttfts,
+                           "busy_pool_useful_tok_s": statistics.median(rates), "busy_pool_useful_tok_s_runs": rates,
+                           "n_chunks": -(-n // PREFILL_CHUNK), "first_submission_s": first_s}
+    launches = read_launches(ENGINE_CHUNKED, records)
+    emit({"phase": ENGINE_CHUNKED, "card": card, "dtype": "bfloat16", "layers": cfg["n_layers"],
+          "n_slots": LONG_SLOTS, "max_len": LONG_MAX_LEN, "decode_chunk": 16, "buckets": [32],
+          "prefill_chunk": PREFILL_CHUNK, "busy_pool": f"{LONG_SLOTS - 1} short requests (32 tokens, budget 64)",
+          "reps": LONG_REPS, "results": results,
+          **checks, "launches": launches, "seconds": time.perf_counter() - t_start})
+    del engine, model
+    torch.cuda.empty_cache()
+
+
+def prefix_cfg(dtype):
+    """bench_prefix_caching's dense Qwen3 (the bench_int8_kv model)."""
+    return {"vocab_size": 32_000, "context_length": 8192, "emb_dim": 1024, "n_layers": 16, "n_heads": 8,
+            "num_kv_groups": 4, "head_dim": 128, "hidden_dim": 3072, "rope_base": 500_000, "tie_embeddings": True,
+            "qk_norm": True, "dtype": dtype}
+
+
+def prefix_engine(mod, model, cfg, plen, **kw):
+    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    return ContinuousBatchingEngine(mod, model, cfg, **{
+        **dict(n_slots=2, max_len=plen + PREFIX_SUFFIX + 32, decode_chunk=1,
+               prefill_buckets=(PREFIX_SUFFIX, plen + PREFIX_SUFFIX), eos_ids=-1, pad_id=0, pipeline_depth=1),
+        **kw})
+
+
+def prefix_checks(mod, model, cfg, prefix, suffix):
+    """The prefix's registration, its first suffix wave and one decode step
+    with every kernel call held to its plain version (``HeldToPlain``: on
+    the hybrid, K1 at the suffix with the prefix's state); the suffix
+    admission's logits within ENGINE_PLAIN_BAR of a full-prompt admission
+    of prefix + suffix through the plain versions, beside the suffix
+    admitted on a zeroed copy of the prefix row (the control)."""
+    import torch
+
+    engine = prefix_engine(mod, model, cfg, len(prefix))
+    with torch.inference_mode(), HeldToPlain() as held:
+        pid = engine.register_prefix(prefix)
+        engine.submit(suffix, 2, prefix=pid)
+        engine._admit_pending()
+        got = engine.state["last_logits"][0:1].clone()
+        toks = torch.full((1, engine.n_slots), engine.pad_id, dtype=torch.long, device=DEVICE)
+        engine._decode_step(0, engine.eos_arr, toks, None)
+    pcache, plen = engine._prefixes[pid]
+    zeroed = {name: torch.zeros_like(t) if torch.is_tensor(t) else t for name, t in pcache.items()}
+    engine._prefixes[pid + 1] = (zeroed, plen)
+    engine.submit(suffix, 2, prefix=pid + 1)
+    engine._admit_pending()
+    control = engine.state["last_logits"][1:2].clone()
+    plain = prefix_engine(mod, model, dict(cfg, use_kernels=False), len(prefix))
+    plain.submit(prefix + suffix, 2)
+    plain._admit_pending()
+    bar = held_to_bar(f"{ENGINE_PREFIX} {plen}", got, plain.state["last_logits"][0:1], control)
+    return {"kernel_calls_vs_plain": held.readings, "logits_vs_plain": bar}
+
+
+def ttft_once(engine, ids, prefix=None):
+    rid = engine.submit(ids, 2, prefix=prefix)
+    while engine.step():
+        pass
+    req = engine._requests[rid]
+    if len(req.tokens) != 2:
+        raise AssertionError(f"{ENGINE_PREFIX}: a request got {len(req.tokens)} tokens for a budget of 2")
+    return (req.t_first - req.t_submit) * 1e3
+
+
+def prefix_row(mod, model, cfg, plen):
+    """One row of bench_prefix_caching (seed 0): after ``prefix_checks``,
+    the prefix registered once (timed), one full-prompt and one suffix
+    request untimed, then PREFIX_REPS of each: TTFT medians and the
+    speedup."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    prefix = list(map(int, rng.integers(1, 1000, size=plen)))
+    suffix = list(map(int, rng.integers(1, 1000, size=PREFIX_SUFFIX)))
+    saved = saved_launches()
+    checks = prefix_checks(mod, model, cfg, prefix, suffix)
+    restore_launches(saved)
+    torch.cuda.empty_cache()
+    engine = prefix_engine(mod, model, cfg, plen)
+    t0 = time.perf_counter()
+    pid = engine.register_prefix(prefix)
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t0
+    ttft_once(engine, prefix + suffix)
+    ttft_once(engine, suffix, pid)
+    with_prefix = [ttft_once(engine, suffix, pid) for _ in range(PREFIX_REPS)]
+    without = [ttft_once(engine, prefix + suffix) for _ in range(PREFIX_REPS)]
+    row = {"ttft_full_ms": statistics.median(without), "ttft_prefix_ms": statistics.median(with_prefix),
+           "ttft_full_ms_runs": without, "ttft_prefix_ms_runs": with_prefix,
+           "speedup": statistics.median(without) / statistics.median(with_prefix), "register_s": register_s, **checks}
+    del engine
+    torch.cuda.empty_cache()
+    return row
+
+
+def engine_prefix(records, card):
+    """engine_prefix (``scripts/bench_prefix_caching.py``'s workload): its
+    dense Qwen3 in bf16 (vocab 32000, emb 1024, 16 layers, 8/4 heads of
+    128, hidden 3072, tied), 2 slots, chunk 1, pipeline depth 1, buckets
+    (32, plen + 32): prefixes of 1024 and 4096 tokens with a 32-token
+    suffix (K4 in the registration and the full-prompt admission), then
+    one row on Qwen3.5-0.8B text (24 layers) at prefix 2048 (K4; K1 with
+    the prefix's state at the suffix; K2)."""
+    import torch
+
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+    from llm_quest_tpu_torch.models import qwen3, qwen3_5
+
+    t_start = time.perf_counter()
+    cfg = prefix_cfg(torch.bfloat16)
+    model = init_model(qwen3, cfg)
+    reset_launches()
+    rows = {f"dense_{n}": prefix_row(qwen3, model, cfg, n) for n in PREFIX_LENS}
+    del model
+    torch.cuda.empty_cache()
+    hcfg = dict(QWEN3_5_08B_CONFIG, dtype=torch.bfloat16)
+    model = text_model(hcfg)
+    rows[f"hybrid_{HYBRID_PREFIX}"] = prefix_row(qwen3_5.TextOnly, model, hcfg, HYBRID_PREFIX)
+    launches = read_launches(ENGINE_PREFIX, records)
+    emit({"phase": ENGINE_PREFIX, "card": card, "dtype": "bfloat16", "dense_layers": cfg["n_layers"],
+          "hybrid_layers": hcfg["n_layers"], "suffix": PREFIX_SUFFIX, "reps": PREFIX_REPS, "rows": rows,
+          "launches": launches, "seconds": time.perf_counter() - t_start})
+    del model
+    torch.cuda.empty_cache()
+
+
+def vlm_traffic(cfg):
+    """bench_vlm_serving's requests (seed 0): 4 text + 144 image + 8 text
+    tokens, a uint8 (3, 2, 384, 384) image each, budgets U[16, 64]."""
+    import numpy as np
+
+    n_vis = (VLM_IMAGE[-1] // cfg["patch_size"]) ** 2 // cfg["spatial_merge_size"] ** 2
+    rng = np.random.default_rng(0)
+    reqs = []
+    for _ in range(VLM_REQUESTS):
+        prompt = (list(map(int, rng.integers(1, 1000, size=4))) + [cfg["image_token_id"]] * n_vis
+                  + list(map(int, rng.integers(1, 1000, size=8))))
+        image = rng.integers(0, 256, size=VLM_IMAGE, dtype=np.uint8)
+        reqs.append((prompt, int(rng.integers(16, 65)), image))
+    return reqs
+
+
+def vlm_transform(px):
+    import torch
+
+    return (px.to(torch.bfloat16) - 127.5) / 58.0
+
+
+def vlm_engine(model, cfg, **kw):
+    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    return ContinuousBatchingEngine(qwen3_5, model, cfg, **{
+        **dict(n_slots=VLM_SLOTS, max_len=256, decode_chunk=16, prefill_buckets=(160,), eos_ids=-1, pad_id=0,
+               pixel_transform=vlm_transform), **kw})
+
+
+def vlm_checks(model, cfg, reqs):
+    """The first multimodal wave (16 rows) and one decode step with every
+    K1/K2 call held to its plain version (``HeldToPlain``); the wave's
+    logits within ENGINE_PLAIN_BAR of the same wave through the plain
+    versions, beside that wave with request 0's image zeroed (the
+    control)."""
+    import numpy as np
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    def first_wave(engine, zero_first=False):
+        for j, (ids, gen, image) in enumerate(reqs[:VLM_SLOTS]):
+            engine.submit(ids, gen, pixels=np.zeros_like(image) if zero_first and not j else image)
+        engine._admit_pending()
+        return engine.state["last_logits"][:VLM_SLOTS].clone()
+
+    engine = vlm_engine(model, cfg, decode_chunk=1)
+    with torch.inference_mode(), HeldToPlain() as held:
+        got = first_wave(engine)
+        toks = torch.full((1, engine.n_slots), engine.pad_id, dtype=torch.long, device=DEVICE)
+        engine._decode_step(0, engine.eos_arr, toks, None)
+    ids = reqs[0][0]
+    feeds = qwen3_5.get_feeds_3d_shape(cfg, (1,) + VLM_IMAGE)
+    next_pos = int(qwen3_5.compute_3d_position_ids(cfg, [ids], feeds).max()) + 1
+    if int(engine.state["seqpos"][0]) != next_pos + 1:  # one step past the largest 3-D position + 1
+        raise AssertionError(f"{ENGINE_VLM}: decode position {int(engine.state['seqpos'][0])} after one step, "
+                             f"not {next_pos + 1} (the prompt's largest 3-D position + 2)")
+    plain_cfg = dict(cfg, use_kernels=False)
+    bar = held_to_bar(f"{ENGINE_VLM} admission", got, first_wave(vlm_engine(model, plain_cfg)),
+                      first_wave(vlm_engine(model, plain_cfg), zero_first=True))
+    return {"kernel_calls_vs_plain": held.readings, "logits_vs_plain": bar,
+            "decode_position_after_one_step": next_pos + 1, "prompt_tokens": len(ids)}
+
+
+def vlm_serve(engine, reqs, images=True):
+    """Serve ``reqs`` (with their images, or their prompts alone): (useful
+    tok/s, TTFT ms of each request, sorted)."""
+    import torch
+
+    t0 = time.perf_counter()
+    rids = [engine.submit(ids, gen, pixels=image if images else None) for ids, gen, image in reqs]
+    while engine.step():
+        pass
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    done = [engine._requests[r] for r in rids]
+    if [len(r.tokens) for r in done] != [gen for _, gen, _ in reqs]:
+        raise AssertionError(f"{ENGINE_VLM}: a request did not get its budget in tokens")
+    return sum(len(r.tokens) for r in done) / seconds, sorted((r.t_first - r.t_submit) * 1e3 for r in done)
+
+
+def engine_vlm(records, card):
+    """engine_vlm (``scripts/bench_vlm_serving.py``'s workload): the
+    Qwen3.5-0.8B VLM (12 vision blocks, 24 text layers), bf16, 16 slots,
+    max_len 256, bucket 160, chunk 16, uint8 pixels through the on-device
+    ``pixel_transform``; after ``vlm_checks``, ``warmup(image_shape=,
+    image_dtype=uint8)``, then VLM_RUNS serves of the 32 requests (useful
+    tok/s; TTFT p50/p95 of the last; the launch counts of the first) and
+    as many of the same prompts without their images through the same
+    engine (the script's ``VS_TEXT_ONLY`` A/B), the two in turns."""
+    import numpy as np
+    import torch
+
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+
+    t_start = time.perf_counter()
+    cfg = dict(QWEN3_5_08B_CONFIG, dtype=torch.bfloat16)
+    model = build_model(cfg)
+    reqs = vlm_traffic(cfg)
+    checks = vlm_checks(model, cfg, reqs)
+    torch.cuda.empty_cache()
+    engine = vlm_engine(model, cfg)
+    engine.warmup(image_shape=VLM_IMAGE, image_dtype=np.uint8)
+    runs = {"images": [], "text_only": []}
+    reset_launches()
+    runs["images"].append(vlm_serve(engine, reqs))
+    launches = read_launches(ENGINE_VLM, records)
+    for i in range(2 * VLM_RUNS - 1):  # in turns: text, images, text, ...
+        kind = "images" if i % 2 else "text_only"
+        runs[kind].append(vlm_serve(engine, reqs, images=kind == "images"))
+    out = {}
+    for kind, done in runs.items():
+        ttft = done[-1][1]
+        out[kind] = {"useful_tok_s": statistics.median(r[0] for r in done), "useful_tok_s_runs": [r[0] for r in done],
+                     "ttft_p50_ms": statistics.median(ttft), "ttft_p95_ms": nearest_rank(ttft, 0.95)}
+    emit({"phase": ENGINE_VLM, "card": card, "dtype": "bfloat16", "vision_layers": cfg["vision_n_layers"],
+          "layers": cfg["n_layers"], "requests": VLM_REQUESTS, "n_slots": VLM_SLOTS, "max_len": 256,
+          "decode_chunk": 16, "buckets": [160], "image": list(VLM_IMAGE), **out, **checks, "launches": launches,
+          "seconds": time.perf_counter() - t_start})
+    del engine, model
+    torch.cuda.empty_cache()
+
+
+def engine_admission_paths(records, card):
+    """The engine's chunked, prefix and multimodal admissions at full width
+    and depth: ``engine_chunked_prefill``, ``engine_prefix``,
+    ``engine_vlm``."""
+    t0 = time.perf_counter()
+    engine_chunked_prefill(records, card)
+    engine_prefix(records, card)
+    engine_vlm(records, card)
+    emit({"phase": "engine_admission_paths", "seconds": time.perf_counter() - t0})
+
+
 PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names
     # bf16: the tensor-core kernels (csrc/attention_tc.cu); fp32: the SIMT ones (csrc/attention.cu);
     # K6 and K7 run the short-sequence forward (csrc/fused_mha_tc.cu in bf16; in fp32 K6 csrc/fused_mha.cu,
@@ -4438,6 +5048,7 @@ def main(argv):
     engine_check_fp32()
     phase(engine_admission_bf16)
     phase(engine_serving, records, smi)
+    phase(engine_admission_paths, records, smi)
 
     emit({"phase": "device_timing", **PROFILER})
     emit({"kernels": records})

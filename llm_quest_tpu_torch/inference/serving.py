@@ -1,5 +1,5 @@
 """Continuous-batching serving engine (counterpart of
-``llm_quest_tpu/inference/serving.py``): its plain text path.
+``llm_quest_tpu/inference/serving.py``): its single-device paths.
 
 A fixed pool of ``n_slots`` slots, each one in-flight sequence: the model's
 ordinary static cache allocated for ``n_slots`` rows, with the column pointer
@@ -11,7 +11,24 @@ refilled while the others keep decoding (iteration-level scheduling).
   (cache rows, mask row, last-token logits, counters) are then copied into
   the pool at the free slots. The column pointer of a row is its REAL
   prompt length, so decode overwrites the masked bucket-pad columns and the
-  cache columns stay contiguous with the tokens.
+  cache columns stay contiguous with the tokens. A wave is one of four
+  kinds (``step`` groups a take by kind, in FIFO order):
+  - plain: one prefill at the wave's bucket;
+  - chunked (``prefill_chunk``): prompts longer than the largest bucket pad
+    to a multiple of the chunk and prefill through sequential chunk-sized
+    calls on one group cache with the full (k, max_len) mask; each row's
+    last-token logits come from the chunk that holds its last real token.
+    The hybrid's GDN layers carry their recurrent state and conv taps from
+    chunk to chunk through the cache, and the attention layers run at the
+    static query offset c·chunk against the max_len view;
+  - prefix (``register_prefix``, ``submit(prefix=)``): a shared prefix is
+    prefilled once into a b = 1 row; a wave copies that row into k rows
+    and prefills only the suffixes at query offset ``plen``;
+  - multimodal (``submit(pixels=)``): each row carries its own image, kept
+    on the device since ``submit``; the wave stacks them, applies
+    ``pixel_transform`` on the device, and prefills with host-computed 3-D
+    MRoPE positions (shifted by ``plen`` under a text prefix). Decode
+    continues from the largest 3-D position + 1, not the text length.
 - **Decode chunk**: up to ``decode_chunk`` single-token steps over all
   slots. Per-row finished flags and generation budgets live on the device:
   a row that draws an EOS or spends its budget is finished there, emits
@@ -27,8 +44,9 @@ refilled while the others keep decoding (iteration-level scheduling).
 A model serves through the engine when it exposes ``apply(params, cfg, ids,
 attn_mask=, cache=, position_ids=)`` and ``init_cache(cfg, b, max_len,
 dtype=, device=)`` with layer-stacked cache leaves (layers, batch, ...):
-``models.qwen3`` (dense) and ``models.qwen3_5.TextOnly``, int8 checkpoints
-and the int8 KV cache included.
+``models.qwen3`` (dense), ``models.qwen3_5.TextOnly`` and, for multimodal
+requests, ``models.qwen3_5`` itself (its ``apply`` takes ``image_pixels``),
+int8 checkpoints and the int8 KV cache included.
 
 The early exit reads the pool's "all finished" flag one step late: after
 each step the flag is copied to pinned memory without blocking, and the
@@ -44,19 +62,35 @@ Divergences by design from the JAX engine:
 - no compile cache (``_SERVE_JIT_CACHE``, ``_freeze``): eager PyTorch has
   no programs to bound;
 - a wave is admitted at its own size k; JAX pads it to a power of two (by
-  repeating its last request) only to bound its compile count;
+  repeating its last request) only to bound its compile count. So the
+  multimodal warmup has no wave sizes to cover (JAX's warms the powers of
+  two up to ``n_slots`` only, so with ``n_slots`` not a power of two the
+  size that the larger waves pad to is never warmed);
 - the pool state is a dict of tensors updated in place, and rows move by
   index copies and advanced-index writes (JAX: positional selects, since
-  per-row scatters serialize on a TPU);
+  per-row scatters serialize on a TPU). A prefix wave's group cache is a
+  materialised copy of the stored row (JAX broadcasts it): the prefill
+  writes its cache in place, and the stored row must not change;
 - a finished row's column pointer and position stop advancing (JAX lets
   them run on and relies on its gathers clamping out-of-range indices; an
   index write here must stay in range). Only finished rows see this: their
-  state is scratch until an admission overwrites the whole row;
+  state is scratch until an admission overwrites the whole row. For the
+  same reason ``max_len`` may not exceed the RoPE tables' ``context_length``
+  (JAX clamps the positions past it);
 - ``generator=`` (a ``torch.Generator`` on the engine's device) takes the
   place of ``rng``; draws are the port's (``ops/sampling.py::draw``);
 - ``warmup`` admits one wave of 1 and one of ``n_slots`` rows per bucket
-  and runs one chunk, where JAX warms every power-of-two wave size it could
-  compile and runs a second chunk to time;
+  (text, and with ``image_shape`` multimodal) and runs one chunk, where JAX
+  warms every power-of-two wave size it could compile and runs a second
+  chunk to time. It restores everything the scratch admissions touched: the
+  pool, the slot map, the request table, the per-slot sampler rows, the
+  wave count and the generator (JAX's multimodal warmup leaves the wave
+  count and the sampler rows changed);
+- ``submit`` keeps at most ``n_slots`` queued images on the device: an
+  image uploads (from pinned memory, without blocking) at ``submit`` while
+  fewer are there, else when the queue ahead of it drains to that depth
+  (JAX uploads every queued image at ``submit``, without a bound); an
+  admitted image leaves the device with its wave;
 - ``pipeline_depth`` defaults to 1 and "auto" means 1, with no timing (JAX
   times a chunk against a round trip and takes 2 when the chunk is
   shorter). A decode step here already waits on the early-exit flag of the
@@ -64,13 +98,11 @@ Divergences by design from the JAX engine:
   host work, and it refills freed slots a chunk later: on an H100 depth 2
   served no faster than depth 1 (``chip_smoke.py``, engine_serve_uniform).
 
-Not ported yet (ROADMAP.md, Queue 1 item 3, in its order): chunked prefill
-(``prefill_chunk``), prefix caching (``register_prefix``, ``submit(prefix=)``),
-multimodal requests (``submit(pixels=)``, ``pixel_transform``), multi-LoRA
-(``submit(adapter=)``; the port has no stacked adapters yet), speculative
-windows (``draft_*``, ``gamma``) and the mesh / expert-parallel engine
-(``mesh``, ``param_rules``, ``cfg["expert_parallel"]``); each raises
-``NotImplementedError``.
+Not ported yet (ROADMAP.md, Queue 1 item 3): multi-LoRA
+(``submit(adapter=)``, ``register_prefix(adapter=)``; the port has no
+stacked adapters yet), speculative windows (``draft_*``, ``gamma``) and the
+mesh / expert-parallel engine (``mesh``, ``param_rules``,
+``cfg["expert_parallel"]``); each raises ``NotImplementedError``.
 """
 
 import statistics
@@ -104,6 +136,15 @@ def _clone(tree):
     return tree.clone() if torch.is_tensor(tree) else tree
 
 
+def _repeat_row(cache, k):
+    """A b = k group cache whose rows are copies of the b = 1 ``cache``'s
+    (batch on axis 1 of every layer-stacked leaf). Copies, never a
+    broadcast view: the prefill writes the group cache in place, and the
+    stored row must not change (K1 also needs its state contiguous)."""
+    return {name: leaf.repeat(1, k, *(1,) * (leaf.ndim - 2)) if torch.is_tensor(leaf) else leaf
+            for name, leaf in cache.items()}
+
+
 @dataclass
 class _Request:
     rid: int
@@ -112,6 +153,9 @@ class _Request:
     tokens: list = field(default_factory=list)
     logprobs: list = field(default_factory=list)  # per committed token (when enabled)
     done: bool = False
+    prefix: int | None = None  # registered prefix id (register_prefix); ids is then the suffix
+    pixels: np.ndarray | None = None  # multimodal: the prompt's image, on the host
+    pixels_dev: torch.Tensor | None = None  # its copy on the device while queued (submit's bound)
     sample: np.ndarray | None = None  # per-request [temp, top_k, top_p, min_p] override
     # host timestamps (time.monotonic): queued / admitted to a slot / first
     # token credited / retired
@@ -134,6 +178,12 @@ class ContinuousBatchingEngine:
         prefill_buckets: a prompt is right-padded to the smallest bucket that
             holds it (they decide routing: a 256-token bucket takes the flash
             kernel at the attention layers' prefill).
+        prefill_chunk: a prompt longer than the largest bucket pads to a
+            multiple of this and admits through sequential prefills of this
+            many columns (None: such a prompt is refused).
+        pixel_transform: applied on the device to a multimodal wave's stacked
+            pixels before the encode (e.g. uint8 -> normalized bf16, so the
+            upload carries a quarter of the fp32 bytes).
         top_k / top_p / min_p / temp: the engine-wide sampler (temp 0: greedy).
         eos_ids / pad_id: end-of-sequence ids (None: ``pad_id``) and the pad
             a finished row emits.
@@ -159,18 +209,21 @@ class ContinuousBatchingEngine:
         later = [name for name, value in (
             ("mesh", mesh), ("param_rules", param_rules), ("draft_model", draft_model),
             ("draft_params", draft_params), ("draft_cfg", draft_cfg), ("gamma", gamma),
-            ("draft_param_rules", draft_param_rules), ("prefill_chunk", prefill_chunk),
-            ("pixel_transform", pixel_transform), ('cfg["expert_parallel"]', cfg.get("expert_parallel")),
+            ("draft_param_rules", draft_param_rules), ('cfg["expert_parallel"]', cfg.get("expert_parallel")),
         ) if value is not None]
         if later:
             raise NotImplementedError(f"ContinuousBatchingEngine: {', '.join(later)} {LATER}")
         if top_p is not None and min_p is not None:
             raise ValueError("Cannot use top_p and min_p together")
+        if max_len > cfg.get("context_length", max_len):
+            raise ValueError(f"max_len {max_len} exceeds the RoPE tables' context_length {cfg['context_length']}")
         self.device = resolve_device(device)
         self.model, self.params, self.cfg = model, params, cfg
         self.n_slots, self.max_len = n_slots, max_len
         self.decode_chunk = decode_chunk
         self.buckets = tuple(sorted(b for b in prefill_buckets if b <= max_len))
+        self.prefill_chunk = prefill_chunk
+        self._pixel_transform = pixel_transform
         self.sample_kw = dict(top_k=top_k, top_p=top_p, min_p=min_p, temp=temp)
         self._row_sampling = per_request_sampling
         self._logprobs = return_logprobs
@@ -205,6 +258,7 @@ class ContinuousBatchingEngine:
         self._queue = deque()
         self._slot_req = [None] * n_slots
         self._requests = {}
+        self._prefixes = {}  # pid -> (the prefilled b = 1 cache row, the prefix's length)
         self._next_rid = 0
         # observability counters (stats()): admit waves, decode chunks, and
         # per-chunk live-slot occupancy for utilization
@@ -252,25 +306,57 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------- the device
 
-    def _admit_rows(self, prompts, pmasks, slots, budgets):
-        """Prefill a wave (k, lb) on a fresh b = k cache and copy its rows
-        into the pool at ``slots`` (k,)."""
+    def _admit_rows(self, prompts, pmasks, slots, budgets, *, chunk=None, prefix=None, pixels=None,
+                    position_ids=None, next_pos=None):
+        """Prefill a wave (k, lb) on a b = k group cache and copy its rows
+        into the pool at ``slots`` (k,). ``chunk``: prefill through
+        sequential calls of ``chunk`` columns (lb a multiple of it);
+        ``prefix``: (stored b = 1 cache, plen), whose row seeds every group
+        row, the wave holding the suffixes; ``pixels`` (k, ...) with
+        ``position_ids`` (3, k, lb) and ``next_pos`` (k,): a multimodal
+        wave and its 3-D MRoPE positions."""
         st = self.state
         k, lb = prompts.shape
-        grp_cache = self.model.init_cache(self.cfg, k, self.max_len, dtype=self.cache_dtype, device=self.device)
+        if prefix is None:
+            plen = 0
+            grp_cache = self.model.init_cache(self.cfg, k, self.max_len, dtype=self.cache_dtype, device=self.device)
+        else:
+            pcache, plen = prefix
+            grp_cache = _repeat_row(pcache, k)
         grp_mask = torch.zeros(k, self.max_len, dtype=torch.bool, device=self.device)
-        grp_mask[:, :lb] = pmasks
-        logits_all, grp_cache, _ = self.model.apply(self.params, self.cfg, prompts, attn_mask=grp_mask, cache=grp_cache)
+        grp_mask[:, :plen] = True
+        grp_mask[:, plen : plen + lb] = pmasks
         real_len = pmasks.sum(dim=1)
-        logits = logits_all[torch.arange(k, device=self.device), real_len - 1]
+        rows = torch.arange(k, device=self.device)
+        step = chunk or lb
+        kw = {}
+        if pixels is not None:
+            if self._pixel_transform is not None:
+                pixels = self._pixel_transform(pixels)
+            kw["image_pixels"] = pixels
+        logits = None
+        for c0 in range(0, lb, step):
+            # text positions are passed, not left to the model: the VLM's
+            # ``apply`` would count them from 0 rather than from the cache
+            pos = position_ids if pixels is not None else (
+                (plen + c0 + torch.arange(step, device=self.device))[None].expand(k, step))
+            out, grp_cache, _ = self.model.apply(
+                self.params, self.cfg, prompts[:, c0 : c0 + step], attn_mask=grp_mask, cache=grp_cache,
+                position_ids=pos, **kw,
+            )
+            # each row's last-token logits come from the call that holds its
+            # last real token (the rows of a chunked wave end in different chunks)
+            loc = real_len - 1 - c0
+            picked = out[rows, loc.clamp(0, step - 1)].float()
+            logits = picked if logits is None else torch.where(((loc >= 0) & (loc < step))[:, None], picked, logits)
         # the column pointer of a row is its REAL length: decode overwrites
         # the masked bucket-pad columns, so columns stay contiguous with tokens
-        grp_cache["pos"] = real_len
+        grp_cache["pos"] = plen + real_len
         for name, big in st["cache"].items():
             _insert_rows(big, grp_cache[name], slots)
         st["mask_buf"][slots] = grp_mask
-        st["last_logits"][slots] = logits.float()
-        st["seqpos"][slots] = real_len
+        st["last_logits"][slots] = logits
+        st["seqpos"][slots] = plen + real_len if next_pos is None else next_pos
         st["finished"][slots] = False
         st["budget"][slots] = budgets
 
@@ -334,14 +420,32 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------- scheduling
 
     @torch.inference_mode()
-    def warmup(self):
+    def warmup(self, image_shape=None, image_dtype=np.float32):
         """Run every prompt bucket's admission (a wave of 1 and one of
         ``n_slots`` rows) and one full decode chunk on a scratch copy of the
         pool, so a live serve meets no first-call costs (kernel library load,
-        the allocator's growth, cuBLAS's plans); the generator's state is
-        restored after."""
-        saved, gen_state = self.state, self.generator.get_state()
-        self.state = _clone(saved)
+        the allocator's growth, cuBLAS's plans). ``image_shape``: one
+        request's pixel shape (e.g. (3, 2, 384, 384)), in ``image_dtype``,
+        to warm the multimodal admissions too. Everything the scratch
+        admissions touch is restored after: the pool, the slot map, the
+        request table, the per-slot sampler rows, the wave count and the
+        generator."""
+        saved = (self.state, self._slot_req, self._requests, self._slot_sample, self._sample_dev, self._n_waves)
+        gen_state = self.generator.get_state()
+        self.state = _clone(self.state)
+        self._slot_req, self._requests, self._slot_sample = list(self._slot_req), {}, self._slot_sample.copy()
+        if image_shape is not None:
+            cfg = self.cfg
+            n_vis = (image_shape[-2] // cfg["patch_size"]) * (image_shape[-1] // cfg["patch_size"])
+            n_vis //= cfg["spatial_merge_size"] ** 2
+            pixels = np.zeros(image_shape, image_dtype)
+            pixels_dev = self._upload(pixels)
+            for lb in self.buckets:
+                ids = ([cfg["image_token_id"]] * min(n_vis, lb - 1) + [1] * lb)[:lb]
+                for k in sorted({1, self.n_slots}):
+                    reqs = [_Request(-1 - j, np.asarray(ids, np.int64), 1, pixels=pixels, pixels_dev=pixels_dev)
+                            for j in range(k)]
+                    self._admit_group(reqs, list(range(k)))
         for lb in self.buckets:
             for k in sorted({1, self.n_slots}):
                 pmask = np.zeros((k, lb), bool)
@@ -357,7 +461,7 @@ class ContinuousBatchingEngine:
         self.state["finished"].zero_()
         self._decode_chunk(torch.full_like(self.eos_arr, -1))
         self._sync()
-        self.state = saved
+        self.state, self._slot_req, self._requests, self._slot_sample, self._sample_dev, self._n_waves = saved
         self.generator.set_state(gen_state)
 
     def _sync(self):
@@ -368,25 +472,58 @@ class ContinuousBatchingEngine:
         for b in self.buckets:
             if prompt_len <= b:
                 return b
+        if self.prefill_chunk:  # chunked admission: a multiple of the chunk
+            return -(-prompt_len // self.prefill_chunk) * self.prefill_chunk
         raise ValueError(f"prompt_len {prompt_len} exceeds largest bucket {self.buckets[-1]}")
 
+    @torch.inference_mode()
     def register_prefix(self, ids, adapter=None):
-        """Prefix caching: a later slice of the serving port."""
-        raise NotImplementedError(f"register_prefix {LATER}")
+        """Prefill a shared prompt prefix (a system prompt, a few-shot
+        header) once into a b = 1 cache row; requests submitted with
+        ``prefix=pid`` give only their suffix, and their wave copies that row
+        and prefills the suffixes at query offset ``plen``, so its cost
+        scales with the suffix. The hybrid resumes exactly: the suffix's
+        conv taps are seeded from the stored ones and its recurrent state
+        continues from the stored state. Returns the prefix id."""
+        if adapter is not None:
+            raise NotImplementedError(f"register_prefix(adapter=) {LATER}")
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        if "image_token_id" in self.cfg and np.any(ids == self.cfg["image_token_id"]):
+            raise ValueError(
+                "prefixes must be pure text: suffix MRoPE positions are offset by the prefix LENGTH, "
+                "which equals its position count only for text tokens"
+            )
+        plen = len(ids)
+        if plen + min(self.buckets) >= self.max_len:
+            raise ValueError(f"prefix of {plen} leaves no room in max_len {self.max_len}")
+        cache = self.model.init_cache(self.cfg, 1, self.max_len, dtype=self.cache_dtype, device=self.device)
+        mask = torch.zeros(1, self.max_len, dtype=torch.bool, device=self.device)
+        mask[:, :plen] = True
+        _, cache, _ = self.model.apply(
+            self.params, self.cfg, self._upload(ids[None]), attn_mask=mask, cache=cache,
+            position_ids=torch.arange(plen, device=self.device)[None],
+        )
+        cache["pos"] = plen  # suffix waves write from column plen
+        pid = len(self._prefixes)
+        self._prefixes[pid] = (cache, plen)
+        return pid
 
     def submit(self, ids, max_gen, prefix=None, pixels=None, adapter=None, temp=None, top_k=None, top_p=None,
                min_p=None):
-        """Queue a prompt; returns a request id. ``temp``/``top_k``/``top_p``/
-        ``min_p``: per-request sampler overrides (engine built with
+        """Queue a prompt; returns a request id. ``prefix``: an id from
+        ``register_prefix``, ``ids`` being the suffix after it. ``pixels``:
+        the image of a multimodal prompt whose ids carry its placeholders
+        already expanded (the model's ``apply`` takes ``image_pixels``);
+        encoded once, at admission. ``temp``/``top_k``/``top_p``/``min_p``:
+        per-request sampler overrides (engine built with
         ``per_request_sampling=True``; unset knobs take the engine's)."""
-        later = [name for name, value in (("prefix", prefix), ("pixels", pixels), ("adapter", adapter))
-                 if value is not None]
-        if later:
-            raise NotImplementedError(f"submit({'=, '.join(later)}=) {LATER}")
+        if adapter is not None:
+            raise NotImplementedError(f"submit(adapter=) {LATER}")
         ids = np.asarray(ids, np.int64).reshape(-1)
         lb = self._bucket_len(len(ids))
-        if lb + max_gen > self.max_len:
-            raise ValueError(f"bucket {lb} + max_gen {max_gen} exceeds max_len {self.max_len}")
+        plen = self._prefixes[prefix][1] if prefix is not None else 0
+        if plen + lb + max_gen > self.max_len:
+            raise ValueError(f"prefix {plen} + bucket {lb} + max_gen {max_gen} exceeds max_len {self.max_len}")
         sample_row = None
         if any(v is not None for v in (temp, top_k, top_p, min_p)):
             if not self._row_sampling:
@@ -400,14 +537,33 @@ class ContinuousBatchingEngine:
                 raise ValueError("Cannot use top_p and min_p together")
         rid = self._next_rid
         self._next_rid += 1
-        req = _Request(rid, ids, max_gen, sample=sample_row, t_submit=time.monotonic())
+        req = _Request(rid, ids, max_gen, prefix=prefix, pixels=None if pixels is None else np.asarray(pixels),
+                       sample=sample_row, t_submit=time.monotonic())
         self._requests[rid] = req
         self._queue.append(req)
+        if req.pixels is not None:
+            self._feed_pixels()
         return rid
 
+    def _feed_pixels(self):
+        """Start the uploads of queued images, oldest first, while fewer
+        than ``n_slots`` of them are on the device: each overlaps the decode
+        chunks before its wave, and the device holds a bounded number."""
+        on_device = sum(r.pixels_dev is not None for r in self._queue)
+        for r in self._queue:
+            if on_device >= self.n_slots:
+                break
+            if r.pixels is not None and r.pixels_dev is None:
+                r.pixels_dev = self._upload(r.pixels)
+                on_device += 1
+
+    @torch.inference_mode()
     def _admit_group(self, reqs, slots):
-        """Admit ``reqs`` into ``slots`` in one prefill at the group's largest
-        bucket (shorter prompts' pads are masked)."""
+        """Admit ``reqs``, one wave of one kind (``_admit_pending``), into
+        ``slots``: right-padded to the group's largest bucket (shorter
+        prompts' pads are masked); prompts past the largest bucket through
+        chunks, a prefix's suffixes on its stored row, images with their
+        3-D positions."""
         lb = max(self._bucket_len(len(r.ids)) for r in reqs)
         k = len(reqs)
         prompt = np.full((k, lb), self.pad_id, np.int64)
@@ -415,11 +571,41 @@ class ContinuousBatchingEngine:
         for j, r in enumerate(reqs):
             prompt[j, : len(r.ids)] = r.ids
             pmask[j, : len(r.ids)] = True
+        pid = reqs[0].prefix
+        prefix = None if pid is None else self._prefixes[pid]
+        kw = {}
+        if reqs[0].pixels is not None:
+            kw = self._image_wave(reqs, lb, 0 if prefix is None else prefix[1])
+        elif prefix is None and lb > self.buckets[-1]:
+            kw["chunk"] = self.prefill_chunk
         self._admit_rows(
             self._upload(prompt), self._upload(pmask), self._upload(np.asarray(slots, np.int64)),
-            self._upload(np.asarray([r.max_gen for r in reqs], np.int64)),
+            self._upload(np.asarray([r.max_gen for r in reqs], np.int64)), prefix=prefix, **kw,
         )
+        for r in reqs:
+            r.pixels_dev = None  # the wave holds the stacked copy
         self._mark_admitted(reqs, slots)
+
+    def _image_wave(self, reqs, lb, plen):
+        """A multimodal wave's stacked device pixels, (3, k, lb) MRoPE
+        positions (a text prefix shifts them by ``plen``; bucket-pad columns
+        continue sequentially, masked) and decode's first positions."""
+        from llm_quest_tpu_torch.models.qwen3_5 import compute_3d_position_ids, get_feeds_3d_shape
+
+        shape = reqs[0].pixels.shape
+        if any(r.pixels.shape != shape for r in reqs):
+            raise ValueError("a multimodal wave needs one image shape")
+        feeds = get_feeds_3d_shape(self.cfg, (1,) + shape)
+        pos = np.zeros((3, len(reqs), lb), np.int64)
+        next_pos = np.empty(len(reqs), np.int64)
+        for j, r in enumerate(reqs):
+            n = len(r.ids)
+            row = plen + compute_3d_position_ids(self.cfg, r.ids[None], feeds)[:, 0]
+            next_pos[j] = int(row.max()) + 1
+            pos[:, j, :n] = row
+            pos[:, j, n:] = next_pos[j] + np.arange(lb - n)
+        pixels = torch.stack([self._upload(r.pixels) if r.pixels_dev is None else r.pixels_dev for r in reqs])
+        return {"pixels": pixels, "position_ids": self._upload(pos), "next_pos": self._upload(next_pos)}
 
     def _mark_admitted(self, reqs, slots):
         now = time.monotonic()
@@ -434,11 +620,27 @@ class ContinuousBatchingEngine:
 
     @torch.inference_mode()
     def _admit_pending(self):
-        """Admit queued requests into the free slots (one wave)."""
+        """Admit queued requests into the free slots: one wave per kind, in
+        FIFO order of each kind's first request — plain, per registered
+        prefix, chunked by chunk count, multimodal by (image shape,
+        prefix)."""
         free = [s for s in range(self.n_slots) if self._slot_req[s] is None]
-        if free and self._queue:
-            take = [self._queue.popleft() for _ in range(min(len(free), len(self._queue)))]
-            self._admit_group(take, free[: len(take)])
+        if not (free and self._queue):
+            return
+        groups = {}
+        for _ in range(min(len(free), len(self._queue))):
+            r = self._queue.popleft()
+            if r.pixels is not None:
+                key = ("vlm", r.pixels.shape, r.prefix)
+            elif r.prefix is None and len(r.ids) > self.buckets[-1]:
+                key = ("chunked", self._bucket_len(len(r.ids)) // self.prefill_chunk)
+            else:
+                key = r.prefix
+            groups.setdefault(key, []).append(r)
+        for reqs in groups.values():
+            slots, free = free[: len(reqs)], free[len(reqs) :]
+            self._admit_group(reqs, slots)
+        self._feed_pixels()
 
     def _drain_one(self):
         """Wait for the OLDEST in-flight chunk, credit its tokens to the
@@ -499,6 +701,8 @@ class ContinuousBatchingEngine:
             return False
         try:
             self._queue.remove(req)
+            req.pixels_dev = None
+            self._feed_pixels()
         except ValueError:
             pass  # already admitted: free its slot below
         req.done = True

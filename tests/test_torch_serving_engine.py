@@ -484,18 +484,16 @@ def test_engine_stats_keys(jax_runs, port_runs):
 def test_engine_refuses_later_slices_and_bad_requests(models):
     _, _, tm, tp, cfg = models["dense"]
     base = dict(n_slots=2, max_len=32, prefill_buckets=(8,), device="cpu")
-    for kw in (dict(mesh=object()), dict(draft_model=tm), dict(gamma=4), dict(prefill_chunk=8),
-               dict(pixel_transform=abs), dict(param_rules=[])):
+    for kw in (dict(mesh=object()), dict(draft_model=tm), dict(gamma=4), dict(param_rules=[])):
         with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
             ContinuousBatchingEngine(tm, tp, tcfg(cfg), **base, **kw)
     with pytest.raises(NotImplementedError, match="expert_parallel"):
         ContinuousBatchingEngine(tm, tp, dict(tcfg(cfg), expert_parallel={}), **base)
     eng = ContinuousBatchingEngine(tm, tp, tcfg(cfg), **base)
-    for kw in (dict(prefix=0), dict(pixels=np.zeros(3)), dict(adapter=0)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            eng.submit(PROMPTS[0], 4, **kw)
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        eng.register_prefix(PROMPTS[0])
+        eng.submit(PROMPTS[0], 4, adapter=0)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        eng.register_prefix(PROMPTS[0], adapter=0)
     with pytest.raises(ValueError, match="per_request_sampling"):
         eng.submit(PROMPTS[0], 4, temp=0.5)
     with pytest.raises(ValueError, match="exceeds largest bucket"):
@@ -505,6 +503,28 @@ def test_engine_refuses_later_slices_and_bad_requests(models):
     sampled = ContinuousBatchingEngine(tm, tp, tcfg(cfg), per_request_sampling=True, **base)
     with pytest.raises(ValueError, match="top_p and min_p"):
         sampled.submit(PROMPTS[0], 4, top_p=0.9, min_p=0.1)
+
+
+@pytest.mark.parametrize("feature", ["prefill_chunk", "pixel_transform", "prefix", "pixels"])
+def test_engine_takes_the_admission_paths_ported_since(models, feature):
+    """The features the refusal test used to name are taken now (their
+    tokens against JAX's: test_torch_serving_admission.py and
+    test_torch_serving_vlm.py)."""
+    _, _, tm, tp, cfg = models["dense"]
+    base = dict(n_slots=2, max_len=32, prefill_buckets=(8,), device="cpu")
+    if feature == "prefill_chunk":
+        assert ContinuousBatchingEngine(tm, tp, tcfg(cfg), **base, prefill_chunk=8)._bucket_len(9) == 16
+        return
+    if feature == "pixel_transform":
+        assert ContinuousBatchingEngine(tm, tp, tcfg(cfg), **base, pixel_transform=abs)._pixel_transform is abs
+        return
+    eng = ContinuousBatchingEngine(tm, tp, tcfg(cfg), **base)
+    if feature == "prefix":
+        rid = eng.submit(PROMPTS[0], 4, prefix=eng.register_prefix(PROMPTS[1]))
+    else:
+        rid = eng.submit(PROMPTS[0], 4, pixels=np.zeros(3))
+        assert eng._requests[rid].pixels_dev is not None  # uploaded at submit
+    assert eng._queue[-1] is eng._requests[rid]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a CUDA device")
