@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the port's
-kernels from ``llm_quest_tpu_torch/csrc`` at first use. Twenty main paths
+kernels from ``llm_quest_tpu_torch/csrc`` at first use. These main paths
 are driven: the ViT-B/224 encode of bench.py's ViT cell (through K7, K8 and
 K9), the TinyViT CIFAR-10 training loop of ``scripts/vit_training.py``, the
 ViT-B/224 training step at b 128, the int8-score ablation of
@@ -20,7 +20,10 @@ under context parallelism (``scripts/context_parallel_training.py``'s path,
 at world 1 on one card), int8 Qwen3.5-0.8B text generation and int8
 Qwen3-Next cached decode, and the continuous-batching serving engine on
 bench.py's two serving cells and the int8 serve, and through its chunked,
-prefix and multimodal admissions. Phases, one JSON line each on stdout:
+prefix and multimodal admissions, and the MoE families through the engine:
+Qwen3-30B-A3B at full width and depth, int8 and bf16, Qwen3-Next-small,
+Gemma-3-270M, DeepSeek-V3 small and MiMo-V2-Flash small. Phases, one JSON
+line each on stdout:
 
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
@@ -225,7 +228,8 @@ prefix and multimodal admissions. Phases, one JSON line each on stdout:
     |ref| of a b = 1 prefill (the port's tests' bf16 bar, at their depth),
     for the uniform and mixed traffic and the int8 serve;
 21. engine_serve_uniform, engine_serve_hetero, engine_serve_int8
-    (``engine_serving``): 24 layers, bf16, 32 slots, chunk 64, 48 requests:
+    (``engine_serving``): 12 layers (ENGINE_LAYERS; Qwen3.5-0.8B has 24), bf16,
+    32 slots, chunk 64, 48 requests:
     ``bench_serving``'s traffic (prompts 32, budgets U[16, 64], greedy;
     K1, K2), ``bench_serving_hetero``'s (prompts U[8, 200] into buckets 32,
     64 and 256, the four samplers in turn; K1, K2, K4) and the uniform
@@ -251,7 +255,8 @@ prefix and multimodal admissions. Phases, one JSON line each on stdout:
     near-tied logits).
 22. engine_chunked_prefill, engine_prefix, engine_vlm
     (``engine_admission_paths``): the engine's chunked, prefix and
-    multimodal admissions at full width and depth, bf16. Chunked
+    multimodal admissions at full width, bf16 (chunked and multimodal at
+    ENGINE_LAYERS = 12 layers of 24). Chunked
     (``scripts/bench_serving_ttft_long.py``): Qwen3.5-0.8B text, 16 slots,
     chunk 16, bucket 32, ``prefill_chunk`` 512, max_len 8320; 15 short
     requests (32 tokens, budget 64) with one long prompt (4096, then 8192
@@ -281,6 +286,34 @@ prefix and multimodal admissions. Phases, one JSON line each on stdout:
     prefix row), the multimodal wave against the same wave (control:
     request 0's image zeroed); every request gets its budget, and the
     decode position after an image is its largest 3-D position + 1.
+23. engine_serve_moe_bf16, engine_moe_weights, engine_serve_moe_int8,
+    engine_serve_next, engine_serve_next_int8, engine_families
+    (``engine_moe_paths``), ``bench_serving_hetero``'s traffic: Qwen3-30B-A3B
+    (``qwen3_config_creator("30B-A3B")``: 48 layers, d 2048, 32/4 heads of
+    128, 128 experts top-8 of 768, 30.53 B parameters, seeded random
+    weights) in bf16 (16 slots, chunk 16, 16 requests, one serve; K4 at the
+    256 bucket; the experts by the per-expert loop with its host read), then
+    quantized in place (linears and expert stacks; its seconds, peak memory
+    and sizes) with the int8 KV cache (32 slots, 48 requests, median of 3
+    serves; K4, K10 and K11 at E 128), Qwen3-Next-small (8 layers) in bf16
+    (K1, K2) and int8 with the int8 KV cache (K1, K2, K11), whose decode
+    step's control also zeroes the GDN states. Each first
+    ``engine_vs_plain`` with K11 held too (every call within TOL, its
+    (expert, 64-channel) tiles within TILE_TOL beside a control with one
+    K chunk of the largest expert dropped), then the record as phase 21
+    with its peak memory, each kernel's launches a multiple of its calls a
+    forward, and, for the int8 30B pool, one decode step under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync). Then
+    Gemma-3 at Gemma-3-270M's widths (18 layers), DeepSeek-V3 small and
+    MiMo-V2-Flash small (12 layers), bf16, 8 slots, 16 greedy requests: no
+    kernel launches (``sdpa`` on the cache, as in JAX), useful tok/s, the
+    share of tokens equal to ``generate_kv_cache``'s, finite admission
+    logits, MiMo's cached prefill logits beside its uncached forward, and
+    its fp32 cached tokens (4 layers) equal to ``generate_loop_uncached``'s.
+    The kernel phase holds K4 (b 32, 32/4 heads, d 128, 256 queries against
+    384 columns), K10 (b 32, 32/4 heads, d 128, S 384) and K11 (E 128,
+    top-8, 2048 -> 768 and 768 -> 2048 at T 256 and 65,536) at these
+    shapes.
 
 K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
 tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
@@ -332,6 +365,7 @@ bf16 kernels by phase and its fp32 forward, backward and reduction, K8/K9's
 tensor-core and SIMT kernels, cuBLAS GEMMs, the rest), one JSON line each.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -1653,12 +1687,12 @@ K11_EXPERTS = 8  # Qwen3-Next-small's experts; lin1 and gate 896 -> 3584, lin2 3
 K11_MATS = {"lin1": (896, 3584), "lin2": (3584, 896)}
 
 
-def k11_routing(gen, tokens, e=K11_EXPERTS):
-    """The group sizes (int64, on the card) of a top-2 routing of ``tokens`` tokens by random logits."""
+def k11_routing(gen, tokens, e=K11_EXPERTS, top_k=2):
+    """The group sizes (int64, on the card) of a top-``top_k`` routing of ``tokens`` tokens by random logits."""
     import torch
 
     logits = torch.randn(tokens, e, generator=gen, device=DEVICE)
-    return torch.bincount(logits.topk(2, dim=-1).indices.reshape(-1), minlength=e)
+    return torch.bincount(logits.topk(top_k, dim=-1).indices.reshape(-1), minlength=e)
 
 
 def k11_stack(gen, k_dim, n_dim, e=K11_EXPERTS):
@@ -1854,6 +1888,225 @@ def k11_tiling_sweep(gen):
                 row[mat]["fp32_simt_device_ms"] = simt
         sweep.append(row)
     return sweep
+
+
+# Qwen3-30B-A3B in the engine (``engine_moe_paths``): 32 slots, the 256-token admission bucket, 384 cache
+# columns, 32 q heads over 4 kv heads of 128, 128 experts top-8 with lin1/gate 2048 -> 768 and lin2 768 -> 2048
+MOE_SLOTS, MOE_BUCKET, MOE_MAX_LEN = 32, 256, 384
+MOE_HEADS = (32, 4, 128)  # q heads, kv heads, head dim
+MOE_EXPERTS, MOE_TOP_K = 128, 8
+MOE_MATS = {"lin1": (2048, 768), "lin2": (768, 2048)}
+
+
+def prompt_mask(gen, b, s_len, lo=8, hi=200):
+    """(b, s_len) key mask of right-padded prompts of U[lo, hi] real tokens (the hetero traffic's lengths)."""
+    import torch
+
+    lens = torch.randint(lo, hi + 1, (b,), generator=gen, device=DEVICE)
+    return torch.arange(s_len, device=DEVICE)[None] < lens[:, None], lens
+
+
+def kernel_k4_gqa8(gen, dtypes):
+    """K4 at Qwen3-30B-A3B's admission wave: b 32, 32/4 heads of 128 (8 q
+    heads a kv head), 256 queries at q_start 0 against the 384-column view
+    of the wave's fresh cache, each row's keys real up to its prompt length
+    (U[8, 200]). fp32 and bf16 against the plain version, bf16 also tile by
+    tile (TILE_TOL) beside the plain version with the keys [64, 128) masked
+    out, which must read above the bar; timed (events and profiler) beside
+    ``sdpa`` with the same visibility as one boolean mask (k/v repeated to
+    the q heads: the masked kernels take no GQA)."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import attention as attn
+
+    b, (hq, hkv, d), sq, sk = MOE_SLOTS, MOE_HEADS, MOE_BUCKET, MOE_MAX_LEN
+    key_mask, lens = prompt_mask(gen, b, sk)
+    errs, errs_bf16, cases = [], [], []
+    for dtype in dtypes:
+        q, k, v, _ = attn_inputs(gen, b, hq, hkv, sq, sk, d, dtype)
+        out = attn.flash_attention(q, k, v, attn_mask=key_mask)
+        ref = attn.flash_attention(q, k, v, attn_mask=key_mask, plain=True)
+        torch_sync()
+        e = check(f"K4 gqa8 {dtype}", out, ref, dtype)
+        case = {"dtype": str(dtype), "max_abs_err": e}
+        if dtype == torch.bfloat16:
+            case["tile_err"] = tile_rel_err(out, ref)
+            if not case["tile_err"] <= TILE_TOL:
+                raise AssertionError(f"K4 gqa8: tile error {case['tile_err']} > {TILE_TOL}")
+            drop = key_mask.clone()
+            drop[:, 64:128] = False
+            case["dropped_tile"] = tile_rel_err(attn.flash_attention(q, k, v, attn_mask=drop, plain=True), ref)
+            if not case["dropped_tile"] > TILE_TOL:
+                raise AssertionError(f"K4 gqa8: a dropped key tile reads {case['dropped_tile']}, within {TILE_TOL}")
+            errs_bf16.append(e)
+        else:
+            errs.append(e)
+        cases.append(case)
+    call = lambda: attn.flash_attention(q, k, v, attn_mask=key_mask)  # noqa: E731
+    ms, plain_ms = cuda_ms(call), cuda_ms(lambda: attn.flash_attention(q, k, v, attn_mask=key_mask, plain=True))
+    cols, rows = torch.arange(sk, device=DEVICE), torch.arange(sq, device=DEVICE)
+    visible = (cols[None, None] <= rows[None, :, None]) & key_mask[:, None, :]  # (b, sq, sk)
+    k_rep, v_rep = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = lambda: sdpa(q, k_rep, v_rep, attn_mask=visible[:, None])  # noqa: E731
+    check("K4 gqa8 vs sdpa (library)", lib(), call(), dtypes[-1])
+    # each query sees the keys at or before it that are real: sum over queries of min(i + 1, len)
+    pairs = int(torch.minimum(rows[None] + 1, lens[:, None]).sum())
+    moved = 2 * nbytes(q) + nbytes(key_mask[:, :sq]) + 2 * b * hkv * sq * d * q.element_size()  # q, out, mask, k/v
+    extra = {**bound(moved, 4 * d * pairs * hq), "library_ms": cuda_ms(lib), "max_abs_err_bf16": max(errs_bf16),
+             "tile_err_bf16": cases[-1]["tile_err"], "device_ms": device_ms(call, TC_KERNELS),
+             "record": {"shape": {"b": b, "heads": [hq, hkv], "d": d, "sq": sq, "sk": sk}}}
+    return max(errs), ms, plain_ms, cases, extra
+
+
+def kernel_k10_gqa8(gen, dtypes):
+    """K10 on Qwen3-30B-A3B's int8 cache in the engine's decode step: b 32,
+    32/4 heads of 128 (8 q heads a kv head, the kernel's most), 384 columns,
+    on the cache's strided layer views; fp32 q on the SIMT kernel, bf16 q on
+    the tensor-core kernel (``tc_launches``). Checked as ``kernel_k10``:
+    within TOL, each (batch, q head) row within K10_ROW_TOL beside a control
+    with one 64-key tile masked out of the plain version, two runs
+    bit-equal; bf16 timed by events and profiler beside its bound and the
+    host's µs a call."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import flash_decode as fd
+    from llm_quest_tpu_torch.ops.masks import mask_value
+
+    w = fd.flash_decode
+    b, (hq, hkv, d), s_len = MOE_SLOTS, MOE_HEADS, MOE_MAX_LEN
+    errs, errs_bf16, cases = [], [], []
+    for dtype in dtypes:
+        bf16 = dtype == torch.bfloat16
+        row_tol = K10_ROW_TOL[str(dtype).removeprefix("torch.")]
+        q, k, v, bias = int8_cache_inputs(gen, b, hq, hkv, s_len, d, dtype)
+
+        def call(plain=False, bias=bias, q=q, k=k, v=v):
+            return w(q, k.data, k.scale, v.data, v.scale, bias, plain=plain)
+
+        out, tc = tc_count(w, call)
+        ref = call(True)
+        torch_sync()
+        tc_moved(f"K10 gqa8 {dtype}", tc, 0, int(bf16))
+        e = check(f"K10 gqa8 {dtype}", out, ref, dtype)
+        rows = k10_rows(out, ref)
+        if not rows <= row_tol:  # also catches NaN
+            raise AssertionError(f"K10 gqa8 {dtype}: row error {rows} > {row_tol}")
+        bias_drop = bias.clone()
+        bias_drop[:, 128:192] = mask_value(torch.float32)
+        dropped = k10_rows(out, call(True, bias_drop))
+        if not dropped > row_tol:
+            raise AssertionError(f"K10 gqa8 {dtype}: a masked key tile reads {dropped}, within {row_tol}")
+        if not torch.equal(out, call()):
+            raise AssertionError(f"K10 gqa8 {dtype}: two runs differ")
+        case = {"dtype": str(dtype), "max_abs_err": e, "row_err": rows, "dropped_tile_row_err": dropped,
+                "tc_launches": tc}
+        if bf16:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            case.update(split=fd.plan(b, hkv, s_len, sms), ms=cuda_ms(call), plain_ms=cuda_ms(lambda: call(True)),
+                        device_ms=device_ms(call, "flash_decode"), host_us=host_us(call),
+                        **bound(nbytes(q, k.data, k.scale, v.data, v.scale, bias, out), 4 * b * hq * s_len * d))
+            case["share_of_bound"] = case["bound_ms"] / case["device_ms"]
+            errs_bf16.append(e)
+        else:
+            errs.append(e)
+        cases.append(case)
+    rec = cases[-1]
+    extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "device_ms",
+                                       "host_us")}
+    extra.update({"library_ms": None, "max_abs_err_bf16": max(errs_bf16), "tile_err_bf16": rec["row_err"],
+                  "record": {"shape": {"b": b, "heads": [hq, hkv], "d": d, "S": s_len}, "split": rec["split"],
+                             "share_of_bound": rec["share_of_bound"]}})
+    return max(errs), rec["ms"], rec["plain_ms"], cases, extra
+
+
+def k11_drop_control(x, w_q, scale, group_sizes, ref32):
+    """TILE_TOL's reading, against ``ref32`` (the fp32 plain output), of the
+    plain output with the K rows [64, 128) of the largest expert's weights
+    left out: only that expert's rows are recomputed."""
+    sizes = group_sizes.tolist()
+    big = max(range(len(sizes)), key=sizes.__getitem__)
+    lo, hi = sum(sizes[:big]), sum(sizes[: big + 1])
+    wd = w_q[big].float().clone()
+    wd[64:128] = 0
+    ctrl = ref32.clone()
+    ctrl[lo:hi] = (x[lo:hi].float() @ wd) * scale[big].float()
+    return k11_tiles(ctrl, ref32, group_sizes)
+
+
+def kernel_k11_e128(gen, dtypes):
+    """K11 at Qwen3-30B-A3B's expert stacks (128 experts, top-8; lin1 and
+    gate 2048 -> 768, lin2 768 -> 2048) at the engine's two row counts: a
+    decode step of 32 slots (T = 256 rows on about 111 experts) and a full
+    admission wave (32 rows x 256 tokens, T = 65,536 on all 128). fp32 rows
+    on the SIMT kernel, bf16 rows on the tensor-core kernel at the wrapper's
+    ``plan``; two runs bit-equal, each (expert, 64-channel) tile within
+    TILE_TOL of the fp32 plain version beside a control with one 64-deep K
+    chunk of the largest expert dropped; timed by events and profiler beside
+    ``torch._grouped_mm`` on a bf16 copy of the stack. The record's times are
+    the decode step's lin1."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import quantized_gmm as qg
+
+    w = qg.quantized_ragged_dot
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs, errs_bf16, cases = [], [], []
+    for tokens in (MOE_SLOTS, MOE_SLOTS * MOE_BUCKET):
+        group_sizes = k11_routing(gen, tokens, MOE_EXPERTS, MOE_TOP_K)
+        t = MOE_TOP_K * tokens
+        for mat, (k_dim, n_dim) in MOE_MATS.items():
+            w_q, scale = k11_stack(gen, k_dim, n_dim, MOE_EXPERTS)
+            for dtype in dtypes:
+                x = randn(gen, t, k_dim, dtype=dtype)
+                call = lambda plain=False: w(x, w_q, scale, group_sizes, plain=plain)  # noqa: E731
+                out, tc = tc_count(w, call)
+                ref = call(True)
+                torch_sync()
+                bf16 = dtype == torch.bfloat16
+                tc_moved(f"K11 e128 T={t} {mat} {dtype}", tc, 0, int(bf16))
+                err = check(f"K11 e128 T={t} {mat} {dtype}", out, ref, dtype)
+                case = {"T": t, "matrix": mat, "K": k_dim, "N": n_dim, "dtype": str(dtype), "max_abs_err": err,
+                        "experts_hit": int((group_sizes > 0).sum()), "max_group": int(group_sizes.max()),
+                        "tc_launches": tc}
+                if not bf16:
+                    errs.append(err)
+                    cases.append(case)
+                    continue
+                if not torch.equal(out, call()):
+                    raise AssertionError(f"K11 e128 T={t} {mat}: two runs differ")
+                ref32 = qg.quantized_ragged_dot(x.float(), w_q, scale, group_sizes, plain=True)
+                tile_err = k11_tiles(out, ref32, group_sizes)
+                if not tile_err <= TILE_TOL:  # also catches NaN
+                    raise AssertionError(f"K11 e128 T={t} {mat}: tile error {tile_err} > {TILE_TOL}")
+                dropped = k11_drop_control(x, w_q, scale, group_sizes, ref32)
+                if not dropped > TILE_TOL:
+                    raise AssertionError(f"K11 e128 T={t} {mat}: a dropped K chunk reads {dropped}, within {TILE_TOL}")
+                rows, split = qg.plan(t, k_dim, n_dim, MOE_EXPERTS, sms)
+                gmm_ms, gmm_err = k11_grouped_mm_ms(x, w_q, scale, group_sizes)
+                hit = case["experts_hit"]  # the weights of the experts with rows are read
+                case.update({"rows": rows, "split": split, "tile_err": tile_err, "dropped_chunk_tile_err": dropped,
+                             "ms": cuda_ms(call), "plain_ms": cuda_ms(lambda: call(True), iters=3, warmup=1),
+                             "device_ms": device_ms(call, "quantized_gmm"), "bf16_grouped_mm_ms": gmm_ms,
+                             "bf16_grouped_mm_err": gmm_err,
+                             **bound(nbytes(x, out, group_sizes) + hit * (k_dim * n_dim + 4 * n_dim),
+                                     2 * t * k_dim * n_dim)})
+                errs_bf16.append(err)
+                cases.append(case)
+                del ref32
+            del w_q, scale
+    torch.cuda.empty_cache()
+    rec = next(c for c in cases if c["T"] == MOE_TOP_K * MOE_SLOTS and c["matrix"] == "lin1" and "ms" in c)
+    extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "device_ms",
+                                       "bf16_grouped_mm_ms")}
+    extra.update({"library_ms": None, "max_abs_err_bf16": max(errs_bf16),
+                  "tile_err_bf16": max(c["tile_err"] for c in cases if "tile_err" in c),
+                  "record": {key: {f"T{c['T']}_{c['matrix']}": c[val] for c in cases if "ms" in c}
+                             for key, val in (("cases_ms", "ms"), ("cases_device_ms", "device_ms"),
+                                              ("cases_bound_ms", "bound_ms"), ("cases_plain_ms", "plain_ms"),
+                                              ("cases_grouped_mm_ms", "bf16_grouped_mm_ms"),
+                                              ("cases_plan", "rows"), ("cases_split", "split"))}})
+    return max(errs), rec["ms"], rec["plain_ms"], cases, extra
 
 
 def kernel_k3(gen, dtypes):
@@ -2142,6 +2395,11 @@ CP_TRAIN, CP_FALLBACK = "cp_train", "cp_fallback"
 ENGINE_UNIFORM, ENGINE_HETERO, ENGINE_INT8 = "engine_serve_uniform", "engine_serve_hetero", "engine_serve_int8"
 ENGINE_CHUNKED, ENGINE_PREFIX, ENGINE_VLM = "engine_chunked_prefill", "engine_prefix", "engine_vlm"
 ENGINE_PATHS = (ENGINE_UNIFORM, ENGINE_HETERO, ENGINE_INT8, ENGINE_CHUNKED, ENGINE_PREFIX, ENGINE_VLM)
+# the MoE families through the engine: Qwen3-30B-A3B int8 and bf16, Qwen3-Next-small bf16 and int8, and
+# Gemma-3 / DeepSeek-V3 / MiMo-V2-Flash (no kernel: ``sdpa`` on the cache, as in JAX)
+ENGINE_MOE_INT8, ENGINE_MOE_BF16 = "engine_serve_moe_int8", "engine_serve_moe_bf16"
+ENGINE_NEXT, ENGINE_NEXT_INT8 = "engine_serve_next", "engine_serve_next_int8"
+ENGINE_FAMILIES = "engine_families"
 # the attention records' sources by dtype: bf16 takes the tensor-core
 # kernels, fp32 the SIMT ones
 ATTN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/attention_tc.cu",
@@ -2172,14 +2430,14 @@ KERNELS = [
     # dtype's kernel), replaced TPU kernel, check, main paths that launch it
     ("gdn_prefill", ("gdn", "gated_delta_rule_fwd"), GDN_SRC,
      "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1,
-     (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE, TEXT_B128, *ENGINE_PATHS)),
+     (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE, TEXT_B128, *ENGINE_PATHS, ENGINE_NEXT, ENGINE_NEXT_INT8)),
     ("gdn_prefill_bwd", ("gdn", "gated_delta_rule_bwd"), GDN_SRC,
      "llm_quest_tpu/kernels/gdn_pallas.py:255", kernel_k1_bwd, (HYBRID,)),
     # K2 and K3: the step kernel (csrc/gdn.cu) for both dtypes; their records' ms is the kernel's
     # device time with the L2 cold (step_timing)
     ("gdn_step_stacked", ("gdn", "gated_delta_rule_step_stacked"), "llm_quest_tpu_torch/csrc/gdn.cu",
      "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2,
-     (GENERATE, INT8_GENERATE, NEXT_SERVE, TEXT_B128, *ENGINE_PATHS)),
+     (GENERATE, INT8_GENERATE, NEXT_SERVE, TEXT_B128, *ENGINE_PATHS, ENGINE_NEXT, ENGINE_NEXT_INT8)),
     ("flash_attention_fwd", ("attention", "flash_attention"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4,
      (GENERATE, TRAIN, HYBRID, ENGINE_HETERO, ENGINE_CHUNKED, ENGINE_PREFIX)),
@@ -2209,7 +2467,15 @@ KERNELS = [
     ("flash_decode", ("flash_decode", "flash_decode"), FD_SRC,
      "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10, (INT8_GENERATE, ENGINE_INT8)),
     ("quantized_ragged_dot", ("quantized_gmm", "quantized_ragged_dot"), QGMM_SRC,
-     "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11, (NEXT_SERVE,)),
+     "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11, (NEXT_SERVE, ENGINE_NEXT_INT8)),
+    # Qwen3-30B-A3B's shapes in the engine: K4 at the 256-token admission bucket (32/4 heads, d 128), K10 on
+    # its int8 cache (b 32, 32/4 heads, d 128), K11 over its 128 int8 experts (top-8) at decode and admission T
+    ("flash_attention_fwd_gqa8", ("attention", "flash_attention"), ATTN_SRC,
+     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4_gqa8, (ENGINE_MOE_INT8, ENGINE_MOE_BF16)),
+    ("flash_decode_gqa8", ("flash_decode", "flash_decode"), FD_SRC,
+     "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10_gqa8, (ENGINE_MOE_INT8,)),
+    ("quantized_ragged_dot_e128", ("quantized_gmm", "quantized_ragged_dot"), QGMM_SRC,
+     "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11_e128, (ENGINE_MOE_INT8,)),
     # K4 at one Gemma-3-270M layer: the SWA layers' window, the global layers'
     # causal call at the same shape, and the softcap and sinks (on no path yet)
     ("flash_attention_fwd_window", ("attention", "flash_attention", "window"), ATTN_SRC,
@@ -2405,6 +2671,7 @@ PLAIN_SENTINELS = (("attention", "packed_mha_bwd_plain"), ("fused_mha", "packed_
                    ("quantized_gmm", "quantized_ragged_dot_plain"))
 PLAIN_CALLS = {"packed_mha_bwd_plain": 0, "fused_mha_plain": 0, "packed_mha_int8_plain": 0,
                "quantized_ragged_dot_plain": 0}
+PLAIN_ORIGINALS = {}  # (module, name): the plain version itself, uncounted
 
 
 def install_plain_sentinels():
@@ -2419,14 +2686,45 @@ def install_plain_sentinels():
 
     for module, name in PLAIN_SENTINELS:
         mod = importlib.import_module(f"llm_quest_tpu_torch.kernels.{module}")
-        setattr(mod, name, counted(name, getattr(mod, name)))
+        PLAIN_ORIGINALS[module, name] = getattr(mod, name)
+        setattr(mod, name, counted(name, PLAIN_ORIGINALS[module, name]))
+
+
+def plain_version(module, name):
+    """The plain version ``name`` of kernels/``module``.py, uncounted by the sentinels."""
+    import importlib
+
+    return PLAIN_ORIGINALS.get((module, name)) or getattr(
+        importlib.import_module(f"llm_quest_tpu_torch.kernels.{module}"), name)
+
+
+@contextlib.contextmanager
+def unwatched():
+    """A comparison that runs plain versions inside a phase (the model with
+    ``use_kernels`` False beside the kernels): the sentinels uncount it."""
+    import importlib
+
+    mods = {module: importlib.import_module(f"llm_quest_tpu_torch.kernels.{module}") for module, _ in PLAIN_SENTINELS}
+    counted = {key: getattr(mods[key[0]], key[1]) for key in PLAIN_ORIGINALS}
+    for (module, name), fn in PLAIN_ORIGINALS.items():
+        setattr(mods[module], name, fn)
+    try:
+        yield
+    finally:
+        for (module, name), fn in counted.items():
+            setattr(mods[module], name, fn)
+
+
+PHASE_SECONDS = {}  # each phase's wall seconds, printed on the ``phase_seconds`` line
 
 
 def phase(fn, *args):
     """Run a phase after the kernel phase; fails if a plain version that
     ``PLAIN_SENTINELS`` names ran in it."""
     before = dict(PLAIN_CALLS)
+    t0 = time.perf_counter()
     fn(*args)
+    PHASE_SECONDS[fn.__name__] = time.perf_counter() - t0
     if PLAIN_CALLS != before:
         raise AssertionError(f"{fn.__name__}: the plain versions ran on the card: {before} -> {PLAIN_CALLS}")
 
@@ -3774,6 +4072,9 @@ BF16_LOGIT_BAR = 5e-2  # of max |b = 1 logits|: the port's tests' bf16 bar (test
 # decode step. The bar sits twice above the largest reading.
 ENGINE_PLAIN_BAR = 0.2
 ENGINE_DROP_TOKENS = 16
+# Qwen3.5-0.8B's depth in engine_serving, engine_chunked_prefill and engine_vlm: cut from 24 to 12 layers
+# (3 attention layers, 9 GDN) so that the MoE paths fit the run's time; full width
+ENGINE_LAYERS = 12
 
 
 def engine_traffic(kind):
@@ -3795,13 +4096,33 @@ def engine_traffic(kind):
             for i, (n, g) in enumerate(zip(lens, gens))]
 
 
-def engine_for(model, cfg, kind, **kw):
-    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+def model_module(model):
+    """The port's module of ``model`` (``models.qwen3_5`` for its text model)."""
+    from llm_quest_tpu_torch.models import deepseek_v3, gemma3, mimo_v2_flash, qwen3, qwen3_next
+
+    for mod, cls in ((qwen3, qwen3.Qwen3), (qwen3_next, qwen3_next.Qwen3Next), (gemma3, gemma3.Gemma3),
+                     (deepseek_v3, deepseek_v3.DeepSeekV3), (mimo_v2_flash, mimo_v2_flash.MiMoV2Flash)):
+        if isinstance(model, cls):
+            return mod
     from llm_quest_tpu_torch.models import qwen3_5
 
+    return qwen3_5
+
+
+def entry_of(model):
+    """What the engine and ``generate_kv_cache`` drive ``model`` through: its
+    module, or ``qwen3_5.TextOnly`` for Qwen3.5's text model."""
+    mod = model_module(model)
+    return mod.TextOnly if hasattr(mod, "TextOnly") else mod
+
+
+def engine_for(model, cfg, kind, **kw):
+    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+
     shape = (dict(n_slots=32, max_len=128, decode_chunk=64, prefill_buckets=(32,)) if kind == "uniform" else
-             dict(n_slots=32, max_len=384, decode_chunk=64, prefill_buckets=(32, 64, 256), per_request_sampling=True))
-    return ContinuousBatchingEngine(qwen3_5.TextOnly, model, cfg, eos_ids=-1, pad_id=0, **{**shape, **kw})
+             dict(n_slots=32, max_len=384, decode_chunk=64, prefill_buckets=(32, 64, 256),
+                  per_request_sampling=kind == "hetero"))
+    return ContinuousBatchingEngine(entry_of(model), model, cfg, eos_ids=-1, pad_id=0, **{**shape, **kw})
 
 
 def drive(engine, traffic, first_wave=False):
@@ -3830,14 +4151,13 @@ def middle_tokens(n):
 
 
 def wave_logits(engine, model, cfg, wave, drop=False):
-    """The last-real-token logits of one b = k ``apply_text`` prefill of the
-    ``wave``'s prompts, right-padded to its bucket, on a fresh max_len cache:
-    what the engine's admission computes, without the engine. ``drop``
-    masks the ``middle_tokens`` of every prompt out (the control)."""
+    """The last-real-token logits of one b = k prefill of the ``wave``'s
+    prompts, right-padded to its bucket, on a fresh max_len cache: what the
+    engine's admission computes, without the engine. ``drop`` masks the
+    ``middle_tokens`` of every prompt out (the control)."""
     import torch
 
-    from llm_quest_tpu_torch.models import qwen3_5
-
+    entry = entry_of(model)
     lb = max(engine._bucket_len(len(ids)) for ids, _, _ in wave)
     prompt = torch.zeros(len(wave), lb, dtype=torch.long, device=DEVICE)
     mask = torch.zeros(len(wave), engine.max_len, dtype=torch.bool, device=DEVICE)
@@ -3849,19 +4169,17 @@ def wave_logits(engine, model, cfg, wave, drop=False):
             mask[j, middle_tokens(len(ids))] = False
         last.append(len(ids) - 1)
     with torch.inference_mode():
-        cache = qwen3_5.init_cache(cfg, len(wave), engine.max_len, device=DEVICE)
-        logits, _, _ = qwen3_5.apply_text(model, cfg, prompt, attn_mask=mask, cache=cache)
+        cache = entry.init_cache(cfg, len(wave), engine.max_len, device=DEVICE)
+        logits, _, _ = entry.apply(model, cfg, prompt, attn_mask=mask, cache=cache)
     return logits[torch.arange(len(wave), device=DEVICE), torch.tensor(last, device=DEVICE)].float()
 
 
 def b1_logits(model, cfg, traffic):
-    """Last-token logits of a b = 1 ``apply_text`` prefill of each of the
-    first ENGINE_CHECK_ROWS prompts, alone and unpadded."""
+    """Last-token logits of a b = 1 prefill of each of the first
+    ENGINE_CHECK_ROWS prompts, alone and unpadded."""
     import torch
 
-    from llm_quest_tpu_torch.models import qwen3_5
-
-    return torch.stack([last_prefill_logits(qwen3_5, model, cfg, torch.tensor([ids], device=DEVICE))[0]
+    return torch.stack([last_prefill_logits(entry_of(model), model, cfg, torch.tensor([ids], device=DEVICE))[0]
                         for ids, _, _ in traffic[:ENGINE_CHECK_ROWS]])
 
 
@@ -3902,11 +4220,16 @@ class HeldToPlain:
     output within TOL and TILE_TOL beside the plain version with the keys
     [64, 128) masked out; K10's within TOL, each (batch, q head) row within
     K10_ROW_TOL beside the plain version with the first 64 keys masked out,
-    and finite on the fully masked rows of empty slots. ``readings``: per
+    and finite on the fully masked rows of empty slots; K11's within TOL of
+    its plain version in the rows' dtype and each (expert, 64-channel) tile
+    within TILE_TOL of its plain version in fp32, beside that version with
+    one 64-deep K chunk of the largest expert's weights left out (run
+    uncounted by the sentinels: ``plain_version``). ``readings``: per
     kernel, the calls' shapes and their worst readings."""
 
     CHECKED = (("gdn", "gated_delta_rule_fwd"), ("gdn", "gated_delta_rule_step_stacked"),
-               ("attention", "flash_attention"), ("flash_decode", "flash_decode"))
+               ("attention", "flash_attention"), ("flash_decode", "flash_decode"),
+               ("quantized_gmm", "quantized_ragged_dot"))
     OUT_CONTROLS = ("dropped_chunk_out", "zero_state_out")
 
     def __init__(self):
@@ -4017,6 +4340,23 @@ class HeldToPlain:
         self.readings["K10"]["empty_rows"] = int(empty.sum())
         return out
 
+    def k11(self, x, w_q, scale, group_sizes, *, plain=False):
+        gmm = self.orig["quantized_ragged_dot"]
+        out = gmm(x, w_q, scale, group_sizes, plain=plain)
+        if plain:
+            return out
+        plain_fn = plain_version("quantized_gmm", "quantized_ragged_dot_plain")
+        ref, ref32 = plain_fn(x, w_q, scale, group_sizes), plain_fn(x.float(), w_q, scale, group_sizes)
+        name = f"K11 engine {tuple(x.shape)} over {tuple(w_q.shape)}"
+        errs = {"max_abs_err": check(name, out, ref, x.dtype), "tile_err": k11_tiles(out, ref32, group_sizes)}
+        if not errs["tile_err"] <= TILE_TOL:  # also catches NaN
+            raise AssertionError(f"{name}: tile error {errs['tile_err']} > {TILE_TOL}")
+        dropped = k11_drop_control(x, w_q, scale, group_sizes, ref32)
+        if not dropped > TILE_TOL:
+            raise AssertionError(f"{name}: a dropped K chunk reads {dropped}, within {TILE_TOL}")
+        self.note("K11", x.shape, errs, {"dropped_chunk_tile_err": dropped})
+        return out
+
     def __enter__(self):
         import importlib
 
@@ -4029,7 +4369,7 @@ class HeldToPlain:
 
         self.mods = [(importlib.import_module(f"llm_quest_tpu_torch.kernels.{m}"), n) for m, n in self.CHECKED]
         self.orig = {n: getattr(mod, n) for mod, n in self.mods}
-        for (mod, n), method in zip(self.mods, (self.k1, self.k2, self.k4, self.k10)):
+        for (mod, n), method in zip(self.mods, (self.k1, self.k2, self.k4, self.k10, self.k11)):
             setattr(mod, n, hook(method, self.orig[n]))
         return self
 
@@ -4046,7 +4386,7 @@ class HeldToPlain:
         return False
 
 
-def engine_vs_plain(model, cfg, kind, traffic, rows):
+def engine_vs_plain(model, cfg, kind, traffic, rows, step_control="mask", **engine_kw):
     """The engine's first admission wave (the first ``rows`` requests; fewer
     than the slots leaves some empty) and its first decode step, at the
     record's width, depth and dtype, each kernel call in them held to its
@@ -4054,13 +4394,21 @@ def engine_vs_plain(model, cfg, kind, traffic, rows):
     to the same calls through the plain versions (``use_kernels`` False:
     the admission to a b = k prefill of the padded wave, the step to the
     step from the same pool and generator state) within ENGINE_PLAIN_BAR
-    beside the dropped-token control (``held_to_bar``). Plain versions run
-    here: no launch of it is counted (the record resets the counts after)."""
+    beside the dropped-token control (``held_to_bar``). With
+    ``step_control`` "mask_and_state" the decode step's control also starts
+    from zeroed GDN states (conv taps and recurrent states): Qwen3-Next-small's
+    decode step runs its kernels (K2, K11) in the GDN and MoE layers, and
+    its 2 attention layers of 8 see too little of the dropped tokens (13.5 %
+    of max |plain| against the 20 % bar on an H100), nor does a zeroed
+    recurrent state alone move it more (13.9 %: random GDN layers forget
+    their state within a token or two). Plain versions run here, uncounted by
+    the sentinels (``unwatched``): no launch of it is counted (the record
+    resets the counts after)."""
     import torch
 
     from llm_quest_tpu_torch.inference.serving import _clone
 
-    engine = engine_for(model, cfg, kind, decode_chunk=1)
+    engine = engine_for(model, cfg, kind, **{**engine_kw, "decode_chunk": 1})
     wave = traffic[:rows]
     for ids, gen, knobs in wave:
         engine.submit(ids, gen, **knobs)
@@ -4068,9 +4416,10 @@ def engine_vs_plain(model, cfg, kind, traffic, rows):
     with torch.inference_mode():
         with HeldToPlain() as held:
             engine._admit_pending()
-        admission = held_to_bar(f"{kind} admission", engine.state["last_logits"][:rows],
-                                wave_logits(engine, model, plain_cfg, wave),
-                                wave_logits(engine, model, plain_cfg, wave, drop=True))
+        with unwatched():
+            admission = held_to_bar(f"{kind} admission", engine.state["last_logits"][:rows],
+                                    wave_logits(engine, model, plain_cfg, wave),
+                                    wave_logits(engine, model, plain_cfg, wave, drop=True))
         saved, gen_state = _clone(engine.state), engine.generator.get_state()
         logits = {}
         for run in ("kernels", "plain", "control"):
@@ -4079,12 +4428,16 @@ def engine_vs_plain(model, cfg, kind, traffic, rows):
             if run == "control":
                 for j, (ids, _, _) in enumerate(wave):
                     engine.state["mask_buf"][j, middle_tokens(len(ids))] = False
+                if step_control == "mask_and_state":
+                    for leaf in ("conv_q", "conv_k", "conv_v", "recurrent"):
+                        engine.state["cache"][leaf].zero_()
             toks = torch.full((1, engine.n_slots), engine.pad_id, dtype=torch.long, device=DEVICE)
             if run == "kernels":
                 with held:
                     engine._decode_step(0, engine.eos_arr, toks, None)
             else:
-                engine._decode_step(0, engine.eos_arr, toks, None)
+                with unwatched():
+                    engine._decode_step(0, engine.eos_arr, toks, None)
             logits[run] = engine.state["last_logits"].clone()
         engine.cfg = cfg
     if not bool(torch.isfinite(logits["kernels"]).all()):
@@ -4129,9 +4482,9 @@ def engine_admission_bf16():
     torch.cuda.empty_cache()
 
 
-def engine_chunk_profile(model, cfg, kind, traffic):
-    """A decode chunk of ENGINE_PROFILE_STEPS steps over a pool of 32 live
-    slots (the first 32 requests, budgets past the chunk) under
+def engine_chunk_profile(model, cfg, kind, traffic, steps=ENGINE_PROFILE_STEPS, **engine_kw):
+    """A decode chunk of ``steps`` steps over a pool of live slots (the
+    first ``n_slots`` requests, budgets past the chunk) under
     ``torch.profiler``, after one warm-up chunk from the same admitted
     state: device ms a step (all the card's work), kernels a step and the
     card's busy share of the chunk's wall. Nones where the profiler gives no
@@ -4141,8 +4494,7 @@ def engine_chunk_profile(model, cfg, kind, traffic):
 
     from llm_quest_tpu_torch.inference.serving import _clone
 
-    engine = engine_for(model, cfg, kind, decode_chunk=ENGINE_PROFILE_STEPS)
-    steps = engine.decode_chunk
+    engine = engine_for(model, cfg, kind, **{**engine_kw, "decode_chunk": steps})
     for ids, _, knobs in traffic[: engine.n_slots]:
         engine.submit(ids, steps + 2, **knobs)
     engine._admit_pending()
@@ -4178,35 +4530,48 @@ def engine_chunk_profile(model, cfg, kind, traffic):
             "chunk_wall_ms": wall_ms, "steps": steps}
 
 
-def engine_record(path, model, cfg, kind, records, card, check_rows, depths=()):
+def engine_record(path, model, cfg, kind, records, card, check_rows, depths=(), *, requests=ENGINE_REQUESTS,
+                  serves=3, layer_calls=None, sync_check=False, step_control="mask", warm=True, agree=True,
+                  profile_steps=ENGINE_PROFILE_STEPS, **engine_kw):
     """One serving record: the engine held to the plain versions
     (``engine_vs_plain`` over the first ``check_rows`` requests), then
-    ``warmup`` (resolving ``pipeline_depth``) and three serves on fresh
-    engines at that depth, and three at each of ``depths`` in turn with
+    ``warmup`` (resolving ``pipeline_depth``; without ``warm`` none: the
+    plain check has run the first wave's admission and a decode step at
+    the serve's shapes already) and ``serves`` serves on fresh
+    engines at that depth, and as many at each of ``depths`` in turn with
     them: useful tok/s (generated tokens over each serve's wall; their
     median and spread) and the last serve's ``stats()``. The first serve
     runs with the launch counts reset; its tokens must all be vocabulary
     ids, each request its budget long, and its first wave's admission
-    logits equal, bit for bit, to one b = k ``apply_text`` prefill of the
-    same padded wave (their distance from a b = 1 prefill of each of the
-    first prompts is reported). Then the profiled decode chunk, and the
-    share of greedy tokens equal to ``generate_kv_cache``'s (the first
-    ENGINE_AGREE_TOKENS of ENGINE_AGREE_ROWS greedy requests)."""
+    logits equal, bit for bit, to one b = k prefill of the same padded wave
+    (their distance from a b = 1 prefill of each of the first prompts is
+    reported); K1 must launch once per GDN layer and wave, and each kernel
+    of ``layer_calls`` ({record name: calls in one forward}) a multiple of
+    its calls. Then the profiled decode chunk (``profile_steps`` steps), with ``sync_check`` one
+    decode step of the live pool under ``torch.cuda.set_sync_debug_mode``
+    "error" (``decode_step_syncs``), with ``agree`` the share of greedy
+    tokens equal to ``generate_kv_cache``'s (the first ENGINE_AGREE_TOKENS
+    of ENGINE_AGREE_ROWS greedy requests) and the peak memory of the
+    serves.
+    ``requests``: the first of the traffic's 48; ``step_control``:
+    ``engine_vs_plain``'s; ``engine_kw``: the engine's shape over
+    ``engine_for``'s."""
     import torch
 
-    from llm_quest_tpu_torch.models import qwen3_5
-
     t_start = time.perf_counter()
-    traffic = engine_traffic(kind)
-    plain = engine_vs_plain(model, cfg, kind, traffic, check_rows)
-    engine = engine_for(model, cfg, kind)
-    engine.warmup()
+    traffic = engine_traffic(kind)[:requests]
+    plain = engine_vs_plain(model, cfg, kind, traffic, check_rows, step_control, **engine_kw)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = engine_for(model, cfg, kind, **engine_kw)
+    if warm:
+        engine.warmup()
     depth = engine.pipeline_depth
     runs = {d: [] for d in (depth, *depths)}
-    for i in range(3):
+    for i in range(serves):
         for d in runs:
             if i or d != depth:
-                engine = engine_for(model, cfg, kind, pipeline_depth=d)
+                engine = engine_for(model, cfg, kind, **{**engine_kw, "pipeline_depth": d})
             else:
                 reset_launches()
             got, seconds, wave = drive(engine, traffic, first_wave=not i and d == depth)
@@ -4218,10 +4583,16 @@ def engine_record(path, model, cfg, kind, records, card, check_rows, depths=()):
                       in TC_COUNTERS if total == "launches"}
             if d == depth:
                 stats = engine.stats()
-    n_gdn = len(qwen3_5.gdn_layer_indices(cfg))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mod = model_module(model)
+    n_gdn = len(mod.gdn_layer_indices(cfg)) if hasattr(mod, "gdn_layer_indices") else 0
     if launches["gdn_prefill"] != n_gdn * counted["admit_waves"]:
         raise AssertionError(f"{path}: K1 launched {launches['gdn_prefill']} times over "
                              f"{counted['admit_waves']} admission waves of {n_gdn} GDN layers")
+    for name, calls in (layer_calls or {}).items():
+        if launches[name] % calls:
+            raise AssertionError(f"{path}: {name} launched {launches[name]} times, not a multiple of its "
+                                 f"{calls} calls a forward")
     vocab = cfg["vocab_size"]
     for (_, gen, _), got in zip(traffic, toks):
         if len(got) != gen or not all(0 <= t < vocab for t in got):
@@ -4231,19 +4602,22 @@ def engine_record(path, model, cfg, kind, records, card, check_rows, depths=()):
     if not (torch.isfinite(first).all() and torch.equal(first, wave_logits(engine, model, cfg, wave))):
         raise AssertionError(f"{path}: first-wave admission logits differ from a b = k prefill of the wave")
     refs = b1_logits(model, cfg, traffic)
-    greedy = [i for i, (_, _, knobs) in enumerate(traffic) if not knobs.get("temp")][:ENGINE_AGREE_ROWS]
+    greedy = [i for i, (_, _, knobs) in enumerate(traffic) if not knobs.get("temp")][:ENGINE_AGREE_ROWS * agree]
     equal = total = 0
     for i in greedy:
         ids, gen, _ = traffic[i]
         n = min(gen, ENGINE_AGREE_TOKENS)
-        ref = generate(qwen3_5.TextOnly, model, cfg, torch.tensor([ids], device=DEVICE), n)[0, len(ids):].tolist()
+        ref = generate(entry_of(model), model, cfg, torch.tensor([ids], device=DEVICE), n)[0, len(ids):].tolist()
         equal += sum(a == b for a, b in zip(toks[i][:n], ref))
         total += n
-    profile = engine_chunk_profile(model, cfg, kind, traffic)
-    emit({"phase": path, "card": card, "dtype": "bfloat16", "layers": cfg["n_layers"], "kv_quant": cfg.get("kv_quant"),
+    profile = engine_chunk_profile(model, cfg, kind, traffic, profile_steps, **engine_kw)
+    syncs = decode_step_syncs(model, cfg, kind, traffic, **engine_kw) if sync_check else None
+    emit({"phase": path, "card": card, "dtype": "bfloat16", "model": mod.__name__.rsplit(".", 1)[-1],
+          "layers": cfg["n_layers"], "kv_quant": cfg.get("kv_quant"),
+          "int8_weights": any(t.dtype == torch.int8 for t in model.state_dict().values()),
           "requests": len(traffic), "n_slots": engine.n_slots, "max_len": engine.max_len,
           "decode_chunk": engine.decode_chunk, "buckets": list(engine.buckets),
-          "per_request_sampling": kind != "uniform", "pipeline_depth": depth,
+          "per_request_sampling": engine._row_sampling, "pipeline_depth": depth,
           "useful_tok_s": statistics.median(runs[depth]), "useful_tok_s_runs": runs[depth],
           **{f"useful_tok_s_depth{d}": statistics.median(runs[d]) for d in depths},
           **{f"useful_tok_s_depth{d}_runs": runs[d] for d in depths},
@@ -4253,7 +4627,32 @@ def engine_record(path, model, cfg, kind, records, card, check_rows, depths=()):
           "admission_equals_wave_prefill": True,
           "admission_vs_b1_max_abs_err": float((first[:ENGINE_CHECK_ROWS] - refs).abs().max()),
           "tests_bar": BF16_LOGIT_BAR * float(refs.abs().max()),
-          "greedy_agreement": equal / total, "greedy_compared": total, "seconds": time.perf_counter() - t_start})
+          "warmup": warm, "greedy_agreement": equal / total if total else None, "greedy_compared": total,
+          "decode_step_host_syncs": syncs, "peak_memory_gb": peak_gb, "seconds": time.perf_counter() - t_start})
+
+
+def decode_step_syncs(model, cfg, kind, traffic, **engine_kw):
+    """One decode step of a live pool (the traffic's first wave admitted, one
+    step taken to warm it) run again under ``torch.cuda.set_sync_debug_mode``
+    "error", which raises at any operation that makes the host wait for the
+    card: 0 on success (a sync fails the record)."""
+    import torch
+
+    engine = engine_for(model, cfg, kind, **{**engine_kw, "decode_chunk": 2})
+    for ids, gen, knobs in traffic[: engine.n_slots]:
+        engine.submit(ids, gen, **knobs)
+    with torch.inference_mode():
+        engine._admit_pending()
+        toks = torch.full((2, engine.n_slots), engine.pad_id, dtype=torch.long, device=DEVICE)
+        engine._decode_step(0, engine.eos_arr, toks, None)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            engine._decode_step(1, engine.eos_arr, toks, None)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    return 0
 
 
 def engine_check_fp32():
@@ -4310,8 +4709,8 @@ def engine_check_fp32():
 
 
 def engine_serving(records, card):
-    """Qwen3.5-0.8B text, 24 layers, bf16, through the continuous-batching
-    engine: bench_serving's uniform traffic (K1, K2; pipeline depth 2 timed
+    """Qwen3.5-0.8B text at ENGINE_LAYERS layers, bf16, through the
+    continuous-batching engine: bench_serving's uniform traffic (K1, K2; pipeline depth 2 timed
     beside the resolved depth), bench_serving_hetero's mixed prompts and
     samplers (K1, K2, K4 at the 256-token bucket), then the uniform traffic
     with int8 weights (tied table included) and the int8 KV cache (K1, K2,
@@ -4322,7 +4721,7 @@ def engine_serving(records, card):
     from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
 
     t0 = time.perf_counter()
-    cfg = dict(QWEN3_5_08B_CONFIG, dtype=torch.bfloat16)
+    cfg = dict(QWEN3_5_08B_CONFIG, n_layers=ENGINE_LAYERS, dtype=torch.bfloat16)
     model = text_model(cfg)
     engine_record(ENGINE_UNIFORM, model, cfg, "uniform", records, card, 32, depths=(2,))
     engine_record(ENGINE_HETERO, model, cfg, "hetero", records, card, 32)
@@ -4508,7 +4907,7 @@ def chunked_checks(model, cfg, longs):
 
 def engine_chunked_prefill(records, card):
     """engine_chunked_prefill (``scripts/bench_serving_ttft_long.py``'s
-    workload): Qwen3.5-0.8B text, 24 layers, bf16, 16 slots, chunk 16,
+    workload): Qwen3.5-0.8B text, ENGINE_LAYERS layers, bf16, 16 slots, chunk 16,
     bucket 32, ``prefill_chunk`` 512, max_len 8320 (the model's RoPE tables
     taken to 8320 columns: the port refuses positions past them). A busy
     pool of 15 short requests (32 tokens, budget 64) with one long prompt
@@ -4520,7 +4919,7 @@ def engine_chunked_prefill(records, card):
     from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
 
     t_start = time.perf_counter()
-    cfg = dict(QWEN3_5_08B_CONFIG, dtype=torch.bfloat16, context_length=LONG_MAX_LEN)
+    cfg = dict(QWEN3_5_08B_CONFIG, n_layers=ENGINE_LAYERS, dtype=torch.bfloat16, context_length=LONG_MAX_LEN)
     model = text_model(cfg)
     warm, longs = long_traffic()
     checks = chunked_checks(model, cfg, longs)
@@ -4777,7 +5176,7 @@ def engine_vlm(records, card):
     from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
 
     t_start = time.perf_counter()
-    cfg = dict(QWEN3_5_08B_CONFIG, dtype=torch.bfloat16)
+    cfg = dict(QWEN3_5_08B_CONFIG, n_layers=ENGINE_LAYERS, dtype=torch.bfloat16)
     model = build_model(cfg)
     reqs = vlm_traffic(cfg)
     checks = vlm_checks(model, cfg, reqs)
@@ -4813,6 +5212,168 @@ def engine_admission_paths(records, card):
     engine_prefix(records, card)
     engine_vlm(records, card)
     emit({"phase": "engine_admission_paths", "seconds": time.perf_counter() - t0})
+
+
+# ------------------------------------------------- the MoE families through the engine
+
+
+MOE_BF16_SLOTS = 16  # the bf16 30B serve: 16 slots and 16 requests (its per-expert loop is the host's)
+# its decode chunk: a step takes ~0.77 s of host wall (~28,700 kernels; H100 80GB HBM3, 700 W), so the
+# warm-up's chunk and the chunks of the serve are 16 steps, not 64
+MOE_BF16_CHUNK = 16
+FAMILY_SLOTS, FAMILY_REQUESTS = 8, 16
+
+
+def moe_cfg():
+    """Qwen3-30B-A3B as the repo's config gives it (``qwen3_config_creator``;
+    Qwen/Qwen3-30B-A3B's ``config.json``): 48 layers, d 2048, 32/4 heads of
+    128, 128 experts top-8 of hidden 768, untied head, bf16."""
+    from llm_quest_tpu_torch.config import qwen3_config_creator
+
+    return qwen3_config_creator("30B-A3B")
+
+
+def weight_gb(model):
+    return sum(t.numel() * t.element_size() for t in model.state_dict().values()) / 1e9
+
+
+def engine_moe_paths(records, card):
+    """Qwen3-30B-A3B at full width and depth through the engine (the hetero
+    traffic): bf16 (``engine_serve_moe_bf16``: 16 slots, 16 requests, one
+    serve; K4), then the same weights quantized in place, linears and expert
+    stacks, with the int8 KV cache (``engine_serve_moe_int8``: 32 slots, 48
+    requests, median of 3 serves, one decode step under the sync check; K4,
+    K10, K11), neither warmed by ``warmup`` (a 30B step takes 0.3-1 s of
+    host wall; the plain check runs the first wave at the serve's shapes),
+    their profiled chunks 1 and 2 steps (a trace of a bf16 30B step holds
+    ~29,000 kernels: 8 steps took 147 s to record and read on an H100's
+    host); Qwen3-Next-small (8 layers) bf16 (``engine_serve_next``: K1, K2) and
+    int8 with the int8 KV cache (``engine_serve_next_int8``: K1, K2, K11),
+    one serve each, their decode step's control with the GDN states zeroed
+    too (``engine_vs_plain``); then ``engine_families``."""
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3, qwen3_next
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = moe_cfg()
+    model = init_model(qwen3, cfg)
+    weights = {"params": sum(p.numel() for p in model.parameters()), "bf16_gb": weight_gb(model),
+               "init_s": time.perf_counter() - t0}
+    n = cfg["n_layers"]
+    engine_record(ENGINE_MOE_BF16, model, cfg, "hetero", records, card, MOE_BF16_SLOTS, requests=MOE_BF16_SLOTS,
+                  serves=1, layer_calls={"flash_attention_fwd_gqa8": n}, warm=False, agree=False, profile_steps=1,
+                  n_slots=MOE_BF16_SLOTS, decode_chunk=MOE_BF16_CHUNK)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    quantize_params_int8(model)
+    torch.cuda.synchronize()
+    weights.update(quantize_s=time.perf_counter() - t1, quantize_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   int8_gb=weight_gb(model))
+    torch.cuda.empty_cache()
+    emit({"phase": "engine_moe_weights", "card": card, **weights})
+    engine_record(ENGINE_MOE_INT8, model, dict(cfg, kv_quant="int8"), "hetero", records, card,
+                  MOE_SLOTS - ENGINE_EMPTY_SLOTS, sync_check=True, warm=False, profile_steps=2,
+                  layer_calls={"flash_attention_fwd_gqa8": n, "flash_decode_gqa8": n, "quantized_ragged_dot_e128": 3 * n})
+    del model
+    torch.cuda.empty_cache()
+    nxt = next_serve_cfg(8, torch.bfloat16)
+    model = init_model(qwen3_next, nxt)
+    engine_record(ENGINE_NEXT, model, nxt, "hetero", records, card, MOE_SLOTS - ENGINE_EMPTY_SLOTS, serves=1,
+                  step_control="mask_and_state")
+    quantize_params_int8(model)
+    torch.cuda.empty_cache()
+    engine_record(ENGINE_NEXT_INT8, model, dict(nxt, kv_quant="int8"), "hetero", records, card,
+                  MOE_SLOTS - ENGINE_EMPTY_SLOTS, serves=1, layer_calls={"quantized_ragged_dot": 3 * nxt["n_layers"]},
+                  step_control="mask_and_state")
+    del model
+    torch.cuda.empty_cache()
+    engine_families(records, card)
+    emit({"phase": "engine_moe_paths", "seconds": time.perf_counter() - t0})
+
+
+def mimo_cached_check():
+    """MiMo-V2-Flash's cached generation on the card: ``MIMO_V2_SMALL_CONFIG``
+    cut to 4 layers (GA, then SWA with sinks), fp32, b 1, a 100-token
+    prompt: 16 greedy ``generate_kv_cache`` tokens (``sdpa`` on the padded
+    cache) equal to the uncached oracle's (``generate_loop_uncached``)."""
+    import torch
+
+    from llm_quest_tpu_torch.inference import generate as gen
+    from llm_quest_tpu_torch.models import mimo_v2_flash
+
+    cfg = mimo_cfg(4, torch.float32)
+    model = init_model(mimo_v2_flash, cfg)
+    ids = ids_on_card(1, 100, seed=5)
+    cached = generate(mimo_v2_flash, model, cfg, ids, 16)
+    uncached = gen.generate_loop_uncached(mimo_v2_flash, model, cfg, ids, max_gen=16)
+    if not torch.equal(cached, uncached):
+        raise AssertionError(f"mimo fp32 cached vs uncached tokens differ:\n{cached[0, -16:]}\n{uncached[0, -16:]}")
+    return {"layers": cfg["n_layers"], "prompt": ids.shape[1], "greedy_tokens_equal": 16}
+
+
+def engine_families(records, card):
+    """Gemma-3 at Gemma-3-270M's widths (18 layers), DeepSeek-V3 small and
+    MiMo-V2-Flash small (12 layers each), bf16, through the engine: 8 slots,
+    the hetero traffic's first 16 prompts, greedy, buckets 32/64/256. No
+    kernel launches (``sdpa`` on the cache, as in JAX). Per model: useful
+    tok/s of one serve after ``warmup``, every request its budget long in
+    vocabulary ids, the first wave's admission logits finite, and the share
+    of greedy tokens equal to ``generate_kv_cache``'s (ENGINE_AGREE_ROWS
+    requests, ENGINE_AGREE_TOKENS each; reported); MiMo's last prefill
+    logits through its cache beside its uncached forward (within
+    ENGINE_PLAIN_BAR × max |uncached|), and ``mimo_cached_check``."""
+    import torch
+
+    from llm_quest_tpu_torch.models import deepseek_v3, gemma3, mimo_v2_flash
+
+    t0 = time.perf_counter()
+    traffic = [(ids, gen, {}) for ids, gen, _ in engine_traffic("hetero")[:FAMILY_REQUESTS]]
+    out = {}
+    for name, mod, cfg in (("gemma3", gemma3, gemma_cfg(18, torch.bfloat16)),
+                           ("deepseek_v3", deepseek_v3, dsv3_cfg(12, torch.bfloat16)),
+                           ("mimo_v2_flash", mimo_v2_flash, mimo_cfg(12, torch.bfloat16))):
+        model = init_model(mod, cfg)
+        engine = engine_for(model, cfg, "greedy", n_slots=FAMILY_SLOTS, decode_chunk=16)
+        engine.warmup()
+        reset_launches()
+        toks, seconds, first = drive(engine, traffic, first_wave=True)
+        launches = read_launches(ENGINE_FAMILIES, records, add=False)
+        if any(launches.values()):
+            raise AssertionError(f"{ENGINE_FAMILIES} {name}: kernels launched on the cache path: {launches}")
+        for (_, gen, _), got in zip(traffic, toks):
+            if len(got) != gen or not all(0 <= t < cfg["vocab_size"] for t in got):
+                raise AssertionError(f"{ENGINE_FAMILIES} {name}: {len(got)} tokens for a budget of {gen}, "
+                                     f"or a token outside the vocabulary")
+        if not bool(torch.isfinite(first).all()):
+            raise AssertionError(f"{ENGINE_FAMILIES} {name}: first-wave admission logits not finite")
+        equal = total = 0
+        for (ids, gen, _), got in zip(traffic[:ENGINE_AGREE_ROWS], toks):
+            n = min(gen, ENGINE_AGREE_TOKENS)
+            ref = generate(mod, model, cfg, torch.tensor([ids], device=DEVICE), n)[0, len(ids):].tolist()
+            equal += sum(a == b for a, b in zip(got[:n], ref))
+            total += n
+        rec = {"layers": cfg["n_layers"], "useful_tok_s": sum(map(len, toks)) / seconds, "serve_s": seconds,
+               "stats": engine.stats(), "greedy_agreement": equal / total, "greedy_compared": total}
+        if name == "mimo_v2_flash":
+            ids = torch.tensor([traffic[0][0]], device=DEVICE)
+            with torch.inference_mode():
+                uncached = mod.apply(model, cfg, ids)[0][:, -1].float()
+            cached = last_prefill_logits(mod, model, cfg, ids)
+            err, scale = max_err(cached, uncached)
+            if not err <= ENGINE_PLAIN_BAR * scale:
+                raise AssertionError(f"mimo cached prefill logits differ from the uncached forward by {err}")
+            rec["cached_vs_uncached_max_abs_err"], rec["cached_vs_uncached_bar"] = err, ENGINE_PLAIN_BAR * scale
+        out[name] = rec
+        del model, engine
+        torch.cuda.empty_cache()
+    out["mimo_v2_flash"]["fp32_cached_vs_uncached"] = mimo_cached_check()
+    emit({"phase": ENGINE_FAMILIES, "card": card, "dtype": "bfloat16", "n_slots": FAMILY_SLOTS,
+          "requests": len(traffic), **out, "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
 
 
 PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names
@@ -5025,12 +5586,16 @@ def main(argv):
         profile_paths(smi)
         return 0
 
+    t_kernels = time.perf_counter()
     records = kernel_phase()
+    PHASE_SECONDS["kernel_phase"] = time.perf_counter() - t_kernels
     install_plain_sentinels()
     phase(k4_window_ratio, records)
     phase(k4_host_cost)
     phase(int8_vs_bf16_scores, smi)
+    t_vit = time.perf_counter()
     vit_paths(records, smi)
+    PHASE_SECONDS["vit_paths"] = time.perf_counter() - t_vit
     phase(vit_train_paths, records, smi)
     phase(ablate_path, records, smi)
     cfg = dict(QWEN3_5_08B_CONFIG)
@@ -5043,14 +5608,21 @@ def main(argv):
     phase(mimo_paths, records, smi)
     phase(dsv3_paths, records, smi)
     phase(cp_paths, records, smi)
+    t_checks = time.perf_counter()
     serving_checks_fp32()
+    PHASE_SECONDS["serving_checks_fp32"] = time.perf_counter() - t_checks
     phase(serving_paths, records, smi)
+    t_checks = time.perf_counter()
     engine_check_fp32()
+    PHASE_SECONDS["engine_check_fp32"] = time.perf_counter() - t_checks
     phase(engine_admission_bf16)
     phase(engine_serving, records, smi)
     phase(engine_admission_paths, records, smi)
+    phase(engine_moe_paths, records, smi)
 
     emit({"phase": "device_timing", **PROFILER})
+    emit({"phase": "phase_seconds", "build_s": lib.build_seconds, **PHASE_SECONDS,
+          "total_s": time.perf_counter() - t0})
     emit({"kernels": records})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """Model configurations (counterpart of ``llm_quest_tpu/config.py``).
 
 Plain dicts with the reference's keys; dtypes are torch dtypes. Only the
-configurations of the ported slices are here: Qwen3.5-0.8B, the dense Qwen3
-entries, Qwen3-Next-small, Gemma-3-small, DeepSeek-V3 small, MiMo-V2-Flash
-small and the two ViTs (the Qwen3 MoE entries wait for the Qwen3 MoE model).
+configurations of the ported slices are here: Qwen3.5-0.8B, the Qwen3
+entries (dense and MoE), Qwen3-Next-small, Gemma-3-small, DeepSeek-V3 small,
+MiMo-V2-Flash small and the two ViTs.
 A config without a "dtype" key (the ViTs, as in the JAX package) runs in
 torch.float32 (``model_dtype``).
 """
@@ -207,8 +207,9 @@ TINY_VIT_CONFIG = {
 
 
 def qwen3_config_creator(model_size="0.6B", base_model=True):
-    """Qwen3 dense configs with the JAX package's values (HF config.json);
-    model_size: "temp_dense" | "0.6B" | "1.7B" | "4B"."""
+    """Qwen3 configs with the JAX package's values (HF config.json);
+    model_size: "temp_dense" | "0.6B" | "1.7B" | "4B" (dense) or "temp_moe" |
+    "30B-A3B" (MoE: untied head, Qwen3-MoE FFNs without a shared expert)."""
     base_config = {
         "vocab_size": 151_936,
         "rope_base": 1_000_000,
@@ -227,9 +228,15 @@ def qwen3_config_creator(model_size="0.6B", base_model=True):
                  "hidden_dim": 6144, "context_length": 40_960},
         "4B": {"emb_dim": 2560, "n_layers": 36, "n_heads": 32, "num_kv_groups": 8,
                "hidden_dim": 9728, "context_length": 40_960},
+        "temp_moe": {"model_type": "moe", "emb_dim": 896, "n_layers": 12, "n_heads": 8, "num_kv_groups": 4,
+                     "moe_hidden_dim": 4 * 896, "context_length": 512, "tie_embeddings": False,
+                     "num_experts": 16, "top_k": 4, "aux_loss_coef": 0.001},
+        "30B-A3B": {"model_type": "moe", "emb_dim": 2048, "n_layers": 48, "n_heads": 32, "num_kv_groups": 4,
+                    "hidden_dim": 6144, "moe_hidden_dim": 768, "context_length": 40_960, "tie_embeddings": False,
+                    "num_experts": 128, "top_k": 8, "aux_loss_coef": 0.001},
     }
     if model_size not in configs:
-        raise ValueError(f"model_size must be one of {sorted(configs)} (the MoE entries are not ported)")
+        raise ValueError(f"Unknown model size: {model_size}. Available sizes: {list(configs)}")
     return {**base_config, **configs[model_size]}
 
 

@@ -97,6 +97,13 @@ def write_kv(buf, new, layer_idx, pos):
     return buf
 
 
+def positions(pos0, b, s, device=None):
+    """(b, s) RoPE positions of s new tokens written from column ``pos0``
+    (an int, or a (b,) tensor of per-row columns)."""
+    steps = torch.arange(s, device=device)
+    return pos0[:, None] + steps[None] if is_vector(pos0) else (pos0 + steps)[None].expand(b, s)
+
+
 def cur_token_mask(attn_mask, s, pos0):
     """The s columns of the (b, max_len) validity mask the current call
     covers, starting at ``pos0`` (an int or a (b,) tensor)."""

@@ -44,9 +44,13 @@ refilled while the others keep decoding (iteration-level scheduling).
 A model serves through the engine when it exposes ``apply(params, cfg, ids,
 attn_mask=, cache=, position_ids=)`` and ``init_cache(cfg, b, max_len,
 dtype=, device=)`` with layer-stacked cache leaves (layers, batch, ...):
-``models.qwen3`` (dense), ``models.qwen3_5.TextOnly`` and, for multimodal
-requests, ``models.qwen3_5`` itself (its ``apply`` takes ``image_pixels``),
-int8 checkpoints and the int8 KV cache included.
+``models.qwen3`` (dense and MoE, e.g. Qwen3-30B-A3B), ``models.qwen3_next``,
+``models.qwen3_5.TextOnly`` and, for multimodal requests, ``models.qwen3_5``
+itself (its ``apply`` takes ``image_pixels``), ``models.gemma3``,
+``models.deepseek_v3`` and ``models.mimo_v2_flash``, int8 checkpoints
+(linears and expert stacks) and the int8 KV cache included. An int8 MoE
+decode step makes no host sync: the expert group sizes stay on the device
+(``ops/moe.py``); a bf16 MoE reads them on the host once a layer.
 
 The early exit reads the pool's "all finished" flag one step late: after
 each step the flag is copied to pinned memory without blocking, and the
@@ -169,8 +173,8 @@ class ContinuousBatchingEngine:
     """Iteration-level scheduler over a fixed slot pool (module docstring).
 
     Args:
-        model: object with ``apply`` / ``init_cache`` (``models.qwen3``,
-            ``models.qwen3_5.TextOnly``).
+        model: object with ``apply`` / ``init_cache`` (the module
+            docstring lists the models).
         params: the model's weights, on ``device``.
         n_slots: concurrent sequences resident on the device.
         max_len: cache columns a slot (a prompt's bucket + its max_gen must fit).

@@ -225,7 +225,7 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, **_)
     device = x.device
     pos0 = cache["pos"] if cache is not None else 0
     if position_ids is None and cache is not None:
-        position_ids = (pos0 + torch.arange(s, device=device))[None].expand(b, s)
+        position_ids = kv_cache.positions(pos0, b, s, device)
     k_len = kv_cache.max_len(cache) if cache is not None else s
     mask = causal_mask(s, k_len, q_start=pos0, attn_mask=attn_mask, device=device)
 

@@ -1,6 +1,6 @@
 """Xiaomi MiMo-V2-Flash: SWA + sink hybrid with DeepSeek MoE and
-shrinking-slice MTP (counterpart of ``llm_quest_tpu/models/mimo_v2_flash.py``,
-the uncached forward and the training loss).
+shrinking-slice MTP (counterpart of ``llm_quest_tpu/models/mimo_v2_flash.py``:
+the forward, uncached and cached, and the training loss).
 
 - attention: GQA with a decoupled value head dim (``value_head_dim``), QK
   RMSNorm in fp32 (``rms_norm_torch_parity``) BEFORE partial RoPE, and a
@@ -25,15 +25,23 @@ them.
 Kernels on this path: flash attention (K4, forward and backward) through
 the attention router for every call of ``flash_min_seq`` queries or more:
 the main model's layers and both MTP blocks, at d 64 / dv 32, with the
-window and the sinks on the SWA layers and the MTP blocks. The cached path
-(``cache=``) is not ported: it waits for the per-layer-type ``write_kv`` of
-the cache (ROADMAP Queue 1 item 2).
+window and the sinks on the SWA layers and the MTP blocks.
+
+Cached generation (``init_cache``, ``apply(cache=)``), as in JAX: one
+stacked KV cache for every layer, padded to the larger of the two kv-group
+counts, k at ``head_dim`` and v at ``value_head_dim``. A layer writes its
+own groups into the leading head rows (``inference/cache.py::write_kv``)
+and reads back the same leading slice. ``pos`` may be an int or a (b,)
+tensor of per-row columns (the serving engine). Attention on the cache runs
+``sdpa`` on the dense masks (window and sinks included), as JAX's
+``flash_ok=cache is None`` routes it (K10 takes no sinks).
 """
 
 import torch
 from torch import nn
 
 from llm_quest_tpu_torch.config import model_dtype, resolve_device
+from llm_quest_tpu_torch.inference import cache as kv_cache
 from llm_quest_tpu_torch.ops import moe as moe_ops
 from llm_quest_tpu_torch.ops import rope
 from llm_quest_tpu_torch.ops.attention import attention, merge_heads, split_heads
@@ -168,7 +176,17 @@ def rope_tables(cfg, device=None):
     )
 
 
-def _attention(att, cfg, x, mask, cos, sin, position_ids, *, swa, attn_mask=None):
+def init_cache(cfg, batch, max_len, *, dtype=None, device=None):
+    """One KV cache for every layer: max(SWA, GA kv groups) heads, k
+    ``head_dim`` wide and v ``value_head_dim`` wide (JAX's layout)."""
+    return kv_cache.init_kv_cache(
+        cfg["n_layers"], batch, max(cfg["num_swa_kv_groups"], cfg["num_ga_kv_groups"]), max_len, cfg["head_dim"],
+        v_head_dim=cfg.get("value_head_dim") or cfg["head_dim"], dtype=dtype or model_dtype(cfg),
+        device=resolve_device(device),
+    )
+
+
+def _attention(att, cfg, x, mask, cos, sin, position_ids, *, swa, attn_mask=None, cache=None, layer_idx=None):
     groups = cfg["num_swa_kv_groups"] if swa else cfg["num_ga_kv_groups"]
     q = split_heads(att.wq(x), cfg["n_heads"])
     k = split_heads(att.wk(x), groups)
@@ -177,17 +195,24 @@ def _attention(att, cfg, x, mask, cos, sin, position_ids, *, swa, attn_mask=None
     q = rope.apply(rms_norm_torch_parity(q, att.q_norm["scale"]), cos, sin, position_ids)
     k = rope.apply(rms_norm_torch_parity(k, att.k_norm["scale"]), cos, sin, position_ids)
 
+    if cache is not None:
+        # this layer's groups go to the leading head rows of the padded cache, and are read back from there
+        pos = cache["pos"]
+        k = kv_cache.write_kv(cache["k"], k, layer_idx, pos)[layer_idx, :, :groups]
+        v = kv_cache.write_kv(cache["v"], v, layer_idx, pos)[layer_idx, :, :groups]
+
     out = merge_heads(attention(
         q, k, v, cfg=cfg, mask=mask, sink=getattr(att, "sink", None), causal=True,
-        window_size=cfg["window_size"] if swa else None, attn_mask=attn_mask,
+        window_size=cfg["window_size"] if swa else None, attn_mask=attn_mask, flash_ok=cache is None,
     ))
     return att.out_proj(out)
 
 
-def _block(block, cfg, h, mask, cos, sin, position_ids, *, swa, attn_mask=None):
+def _block(block, cfg, h, mask, cos, sin, position_ids, *, swa, attn_mask=None, cache=None, layer_idx=None):
     """One block; returns (h, aux) with aux["counts"] on an MoE block."""
     hn = rms_norm_torch_parity(h, block.norm1["scale"])
-    h = h + _attention(block.att, cfg, hn, mask, cos, sin, position_ids, swa=swa, attn_mask=attn_mask)
+    h = h + _attention(block.att, cfg, hn, mask, cos, sin, position_ids, swa=swa, attn_mask=attn_mask, cache=cache,
+                       layer_idx=layer_idx)
     hn = rms_norm_torch_parity(h, block.norm2["scale"])
     if hasattr(block, "moe"):
         ffn_out, aux = moe_ops.deepseek_moe(block.moe, hn, top_k=cfg["top_k"])
@@ -197,20 +222,23 @@ def _block(block, cfg, h, mask, cos, sin, position_ids, *, swa, attn_mask=None):
 
 
 def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, **_):
-    """Main-model forward, uncached. x: (b, s) ids; attn_mask: optional (b,
-    s) bool, True = real token. Returns (logits, None, aux) with
-    aux["hidden"] (the last block's output, before the final norm) and
-    aux["moe_counts"] (one (E,) fp32 count per MoE block)."""
-    if cache is not None:
-        raise NotImplementedError(
-            "mimo_v2_flash.apply: the cached path waits for the per-layer-type write_kv of the cache "
-            "(ROADMAP Queue 1 item 2)"
-        )
+    """Main-model forward. x: (b, s) ids; attn_mask: optional bool, True =
+    real token, (b, s) without a cache and (b, max_len) with one. The cache
+    (``init_cache``), when given, is written in place; its ``pos`` may be an
+    int or a (b,) tensor of per-row columns. Returns (logits, cache with pos
+    advanced | None, aux) with aux["hidden"] (the last block's output,
+    before the final norm) and aux["moe_counts"] (one (E,) fp32 count per
+    MoE block)."""
     if cfg.get("expert_parallel") is not None:
         raise NotImplementedError("mimo_v2_flash.apply: expert-parallel dispatch waits for the parallel port")
-    s = x.shape[1]
-    mask_ga = causal_mask(s, s, attn_mask=attn_mask, device=x.device)
-    mask_swa = causal_mask(s, s, window_size=cfg["window_size"], attn_mask=attn_mask, device=x.device)
+    b, s = x.shape
+    pos0 = cache["pos"] if cache is not None else 0
+    if position_ids is None and cache is not None:
+        position_ids = kv_cache.positions(pos0, b, s, x.device)
+    k_len = kv_cache.max_len(cache) if cache is not None else s
+    mask_ga = causal_mask(s, k_len, q_start=pos0, attn_mask=attn_mask, device=x.device)
+    mask_swa = causal_mask(s, k_len, q_start=pos0, window_size=cfg["window_size"], attn_mask=attn_mask,
+                           device=x.device)
 
     h = embedding(params.tok_emb, x)
     counts = []
@@ -220,12 +248,15 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, **_)
             mask, cos, sin = mask_swa, params.rope_cos_swa, params.rope_sin_swa
         else:
             mask, cos, sin = mask_ga, params.rope_cos_ga, params.rope_sin_ga
-        h, aux = _block(block, cfg, h, mask, cos, sin, position_ids, swa=swa, attn_mask=attn_mask)
+        h, aux = _block(block, cfg, h, mask, cos, sin, position_ids, swa=swa, attn_mask=attn_mask, cache=cache,
+                        layer_idx=i)
         if "counts" in aux:
             counts.append(aux["counts"])
 
+    if cache is not None:
+        cache = kv_cache.advance(cache, s)
     logits = params.out(rms_norm_torch_parity(h, params.final_norm["scale"]))
-    return logits, None, {"hidden": h, "moe_counts": counts}
+    return logits, cache, {"hidden": h, "moe_counts": counts}
 
 
 def loss(params, cfg, x, targets, *, training=True):

@@ -1,20 +1,26 @@
-"""Qwen3 dense model (counterpart of ``llm_quest_tpu/models/qwen3.py``,
-dense branch).
+"""Qwen3 dense and MoE models (counterpart of ``llm_quest_tpu/models/qwen3.py``).
 
 - GQA with QK-RMSNorm applied BEFORE RoPE, the whole norm in fp32;
 - ``head_dim`` decoupled from ``emb_dim``; all projections bias-free;
 - tied output head: the tied table is re-initialised Xavier-uniform;
-- gradient checkpointing per block through ``ops/remat.py``.
+- gradient checkpointing per block through ``ops/remat.py``;
+- ``model_type="moe"`` (Qwen3-30B-A3B, ``temp_moe``): every block's FFN is
+  ``ops/moe.py::Qwen3MoE`` (no shared expert), the exact dispatch, with
+  ``aux["gate_probas"]`` per block and, when training, ``aux["moe_loss"]``
+  (the blocks' summed load-balance terms); the head is untied.
 
 The ``nn.Module`` classes hold the parameters under the JAX tree's names
 (``blocks.3.att.wq.w`` is ``blocks/3/att/wq/w`` there) and are trainable;
-the functions with the JAX package's names compute on them. The MoE variant
-(``model_type="moe"``) is not ported yet and raises; its layer,
-``ops/moe.py::qwen3_moe``, is ported and runs in Qwen3-Next.
+the functions with the JAX package's names compute on them. JAX's routing
+replay (its ``gate_probas=`` argument) comes with the alignment trainers
+(ROADMAP).
 
 Kernels on this path: flash attention (K4, forward and backward) through the
 attention router, for every call with s ≥ ``flash_min_seq``, and with
-``cfg["kv_quant"] = "int8"`` the decode step over the int8 KV cache (K10).
+``cfg["kv_quant"] = "int8"`` the decode step over the int8 KV cache (K10);
+the MoE model quantized by ``ops/quantization.py::quantize_params_int8``
+also runs its expert stacks through the int8 grouped matmul (K11), the
+group sizes staying on the device.
 
 Context parallelism (JAX's ``cp_active``): under ``cfg["context_parallel"]
 = {"group": ProcessGroup}`` an uncached forward without a padding mask
@@ -34,6 +40,7 @@ from torch import nn
 
 from llm_quest_tpu_torch.config import model_dtype, resolve_device
 from llm_quest_tpu_torch.inference import cache as kv_cache
+from llm_quest_tpu_torch.ops import moe as moe_ops
 from llm_quest_tpu_torch.ops import rope
 from llm_quest_tpu_torch.ops.attention import attention, merge_heads, split_heads
 from llm_quest_tpu_torch.ops.linear import Linear, embedding, params, tied_head
@@ -63,27 +70,35 @@ class Attention(nn.Module):
         self.k_norm = _rms_norm(hd, dtype, device)
 
 
+def is_moe(cfg):
+    return cfg.get("model_type", "dense") == "moe"
+
+
 class Block(nn.Module):
+    """{"pre_att_norm", "att", "pre_ffn_norm", "ffn" | "moe"}."""
+
     def __init__(self, cfg, dtype, device):
         super().__init__()
-        d, hidden = cfg["emb_dim"], cfg["hidden_dim"]
+        d = cfg["emb_dim"]
         self.pre_att_norm = _rms_norm(d, dtype, device)
         self.att = Attention(cfg, dtype, device)
         self.pre_ffn_norm = _rms_norm(d, dtype, device)
-        self.ffn = nn.ModuleDict({
-            "gate": _linear(d, hidden, dtype, device),
-            "up": _linear(d, hidden, dtype, device),
-            "down": _linear(hidden, d, dtype, device),
-        })
+        if is_moe(cfg):
+            self.moe = moe_ops.Qwen3MoE(cfg, dtype, device)
+        else:
+            hidden = cfg["hidden_dim"]
+            self.ffn = nn.ModuleDict({
+                "gate": _linear(d, hidden, dtype, device),
+                "up": _linear(d, hidden, dtype, device),
+                "down": _linear(hidden, d, dtype, device),
+            })
 
 
 class Qwen3(nn.Module):
-    """Dense Qwen3; ``forward`` is ``apply``."""
+    """Qwen3, dense or MoE (``cfg["model_type"]``); ``forward`` is ``apply``."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        if cfg.get("model_type", "dense") != "dense":
-            raise NotImplementedError("qwen3: only the dense model is ported (model_type='moe' is not)")
         dtype, device = model_dtype(cfg), resolve_device(device)
         self.cfg = cfg
         self.tok_emb = params(w=torch.empty(cfg["vocab_size"], cfg["emb_dim"], dtype=dtype, device=device),
@@ -160,7 +175,9 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
     be an int or a (b,) tensor of per-row columns (continuous-batching
     serving). Returns (logits,
     cache with pos advanced, aux), or the final-norm hidden states in place of
-    the logits with ``output_hidden_states``. aux is {} (dense model)."""
+    the logits with ``output_hidden_states``. aux is {} for the dense model;
+    the MoE model's has "gate_probas" (one (b·s, E) fp32 tensor per block)
+    and, when training, "moe_loss"."""
     b, s = x.shape
     device = x.device
     cos, sin = params.rope_cos, params.rope_sin
@@ -168,8 +185,7 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
     pos0 = cache["pos"] if cache is not None else 0
     per_row = kv_cache.is_vector(pos0)
     if position_ids is None and cache is not None:
-        steps = torch.arange(s, device=device)
-        position_ids = pos0[:, None] + steps[None, :] if per_row else (pos0 + steps)[None].expand(b, s)
+        position_ids = kv_cache.positions(pos0, b, s, device)
     # static query offset for cached prefill (flash over the max_len view);
     # per-row positions have none, as in JAX
     q_start = int(pos0) if cache is not None and s > 1 and not per_row else None
@@ -187,6 +203,10 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
         att_cfg = {key: val for key, val in cfg.items() if key != "context_parallel"}
     h = embedding(params.tok_emb, x)
     use_ckpt = cfg.get("gradient_checkpointing", False) and training and cache is None
+    moe = is_moe(cfg)
+    plain = not cfg.get("use_kernels", True)
+    aux = {"gate_probas": []} if moe else {}
+    moe_loss = 0.0
 
     for i, block in enumerate(params.blocks):
         kv_view = None
@@ -199,17 +219,27 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
             hn = rms_norm_torch_parity(h, block.pre_att_norm["scale"])
             h = h + _attention(block.att, att_cfg, hn, mask, cos, sin, kv_view, position_ids, attn_mask, q_start)
             hn = rms_norm_torch_parity(h, block.pre_ffn_norm["scale"])
-            return h + swiglu(block.ffn, hn)
+            if not moe:
+                return h + swiglu(block.ffn, hn), {}
+            ffn_out, moe_aux = moe_ops.qwen3_moe(block.moe, hn, top_k=cfg["top_k"], load_coeff=cfg["aux_loss_coef"],
+                                                 training=training, plain=plain)
+            return h + ffn_out, moe_aux
 
-        h = checkpoint_block(cfg, block_fn)(h) if use_ckpt else block_fn(h)
+        h, moe_aux = checkpoint_block(cfg, block_fn)(h) if use_ckpt else block_fn(h)
+        if moe:
+            aux["gate_probas"].append(moe_aux["gate_probas"])
+            if "moe_loss" in moe_aux:
+                moe_loss = moe_loss + moe_aux["moe_loss"]
 
+    if moe and training:
+        aux["moe_loss"] = moe_loss
     h = rms_norm_torch_parity(h, params.final_norm["scale"])
     if cache is not None:
         cache = kv_cache.advance(cache, s)
     if output_hidden_states:
-        return h, cache, {}
+        return h, cache, aux
     logits = tied_head(params.tok_emb, h) if cfg["tie_embeddings"] else params.out(h)
-    return logits, cache, {}
+    return logits, cache, aux
 
 
 def head_weights(params, cfg):

@@ -345,7 +345,10 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
           output_hidden_states=False, **_):
     """Forward. x: (b, s) ids; attn_mask: optional bool, True = real token,
     (b, s) without a cache and (b, max_len) with one. The cache, when given,
-    is written in place (prefill, or a one-token decode step). Returns
+    is written in place (prefill, or a one-token decode step); its ``pos``
+    may be an int or a (b,) tensor of per-row columns (continuous-batching
+    serving: the GDN layers gate each row's current tokens by the mask at
+    its own columns). Returns
     (logits, cache with pos advanced | None, aux), or the final-norm hidden
     states in place of the logits with ``output_hidden_states``. aux has
     "gate_probas" (one (b·s, E) fp32 tensor per block) and, when training,
@@ -356,7 +359,7 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
     cos, sin = params.rope_cos, params.rope_sin
     pos0 = cache["pos"] if cache is not None else 0
     if position_ids is None and cache is not None:
-        position_ids = (pos0 + torch.arange(s, device=device))[None].expand(b, s)
+        position_ids = kv_cache.positions(pos0, b, s, device)
     k_len = kv_cache.max_len(cache) if cache is not None else s
     mask = causal_mask(s, k_len, q_start=pos0, attn_mask=attn_mask, device=device)
     mask_cur = kv_cache.cur_token_mask(attn_mask, s, pos0)

@@ -12,12 +12,17 @@
   ``lin2``) or not (``lin1``, ``lin2``), optionally with biases ``b1`` (E,
   hidden) and ``b2`` (E, d).
 - ``dispatch``: sort-based dispatch. Assignments are flattened, stably
-  sorted by expert id, run through the experts and scatter-added back to
-  their tokens with their gate weights. ``capacity_factor=None`` is the
+  sorted by expert id, run through the experts and returned to their
+  tokens with their gate weights, each token summing its k rows in rank
+  order (JAX scatter-adds them; on the card a scatter-add's atomics land
+  in any order, so its bits would vary run to run). ``capacity_factor=None`` is the
   exact (ragged) dispatch: every assignment computed, each expert's
   contiguous group through plain matmuls (JAX uses ``lax.ragged_dot``, an XLA
-  op, not a Pallas kernel). The group sizes are read on the host, one device
-  sync per call. A float is the GShard capacity dispatch: each expert takes
+  op, not a Pallas kernel). The group sizes are counted on the device into a
+  fixed (E,) tensor (``assignment_counts``: no host read, where
+  ``torch.bincount`` sizes its output from the ids' max on the card); the fp
+  stacks' exact branch then reads them on the host, one device sync per
+  call (ROADMAP perf note b). A float is the GShard capacity dispatch: each expert takes
   at most C = ceil(int(cf·T·k)/E) rows, rounded up to a multiple of 8 and
   capped at T·k, in a dense (E, C, d) batch; the rows ranked past C within
   their expert (last in stable token order) go to a trash slot and are
@@ -37,8 +42,8 @@
 - int8 expert stacks (``ops/quantization.py::quantize_expert_stack_int8``:
   ``<name>_q`` (E, in, out) int8 and ``<name>_scale`` (E, out)): the exact
   dispatch sends each matrix to the grouped int8 matmul (K11,
-  ``kernels/quantized_gmm.py``), which takes the group sizes on the device
-  (no host sync); they keep the exact dispatch even when a capacity factor
+  ``kernels/quantized_gmm.py``), which takes the group sizes on the device,
+  so an int8 MoE layer makes no host sync; they keep the exact dispatch even when a capacity factor
   is given, and the shared expert's einsums multiply the scale after the
   product.
 
@@ -51,11 +56,20 @@ from torch import nn
 from llm_quest_tpu_torch.ops.activations import silu
 
 
+def assignment_counts(topk_idxs, num_experts):
+    """Assignments per expert, (E,) int64, counted on the device into a
+    tensor of fixed size (``torch.bincount`` gives the same counts but sizes
+    its output from the ids' max, a host read on the card)."""
+    flat = topk_idxs.reshape(-1)
+    return torch.zeros(num_experts, dtype=torch.long, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.long))
+
+
 def load_balance_loss(gate_probas, topk_idxs, num_experts, top_k):
     """N · Σ_i f_i·p_i with f_i the share of assignments to expert i and p_i
     its mean gate probability."""
     t = gate_probas.shape[0]
-    counts = torch.bincount(topk_idxs.reshape(-1), minlength=num_experts).float()
+    counts = assignment_counts(topk_idxs, num_experts).float()
     f_i = counts / (top_k * t)
     p_i = gate_probas.float().mean(dim=0)
     return num_experts * (f_i @ p_i)
@@ -70,8 +84,8 @@ def router_weights_init(weights):
 
 
 def expert_counts(topk_idxs, num_experts):
-    """Assignments per expert (bincount of the top-k ids), fp32; no gradient."""
-    return torch.bincount(topk_idxs.reshape(-1), minlength=num_experts).float()
+    """Assignments per expert (the count of the top-k ids), fp32; no gradient."""
+    return assignment_counts(topk_idxs, num_experts).float()
 
 
 def aux_free_bias_update(biases, counts, rate):
@@ -156,11 +170,11 @@ def dispatch(experts, x2d, topk_idxs, topk_weights, num_experts, *, activation=s
         capacity_factor = None  # int8 stacks keep the exact path (K11)
     flat_expert = topk_idxs.reshape(-1)
     flat_weight = topk_weights.reshape(-1)
-    token_of = torch.arange(t, device=x2d.device).repeat_interleave(k)
+    token_of = torch.arange(t, device=x2d.device)[:, None].expand(t, k).reshape(-1)  # each token k times
 
     order = torch.argsort(flat_expert, stable=True)
     expert_sorted = flat_expert[order]
-    group_sizes = torch.bincount(flat_expert, minlength=num_experts)
+    group_sizes = assignment_counts(flat_expert, num_experts)
     token_sorted = token_of[order]
     x_sorted = x2d[token_sorted]
 
@@ -176,11 +190,22 @@ def dispatch(experts, x2d, topk_idxs, topk_weights, num_experts, *, activation=s
         he = _expert_mlp_dense(experts, xe[: num_experts * cap].reshape(num_experts, cap, -1), activation)
         out_rows = he.reshape(num_experts * cap, d_out)[dest.clamp_max(num_experts * cap - 1)]
         out_rows = out_rows * (flat_weight[order] * keep)[:, None].to(he.dtype)
-        return out_rows.new_zeros(t, d_out).index_add(0, token_sorted, out_rows)
+        return _combine(out_rows, order, t, k)
 
     out_sorted = _expert_mlp_ragged(experts, x_sorted, group_sizes, activation, plain)
     out_sorted = out_sorted * flat_weight[order][:, None].to(out_sorted.dtype)
-    return out_sorted.new_zeros(t, d_out).index_add(0, token_sorted, out_sorted)
+    return _combine(out_sorted, order, t, k)
+
+
+def _combine(rows_sorted, order, t, k):
+    """(T·k, d) weighted expert rows in expert order back to their tokens:
+    each row returns to its assignment slot (``order`` is a permutation, so
+    the write is a plain scatter), then each token sums its k slots in
+    rank order. The same bits every run, where a scatter-add into the
+    tokens adds in the order its atomics land on the card."""
+    rows = torch.empty_like(rows_sorted)
+    rows[order] = rows_sorted
+    return rows.reshape(t, k, -1).sum(dim=1)
 
 
 def _shared_einsum(shared, name, spec, x):

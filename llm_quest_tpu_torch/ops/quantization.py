@@ -192,10 +192,16 @@ def quantize_params_int8(model, *, exclude=r"tok_emb|conv", block_size=None, min
     2-D "w" leaf as a linear — the vision tower's position table
     (``vision/pos_embed``) gets per-column scales there, which its own
     ``embedding`` then reads as per-row scales. Here only ``Linear`` modules
-    are linears; such tables stay in their dtype."""
+    are linears; such tables stay in their dtype.
+
+    The walk holds module names, not modules, and looks each up as it goes:
+    a replaced module has no reference left once its quantized form is in
+    place, so a model at full width needs its own bytes plus one module's
+    conversion at the peak, not the fp and the int8 models side by side."""
     _qmax(bits)
     pat = re.compile(exclude) if exclude else None
-    for name, module in list(model.named_modules()):
+    for name in [name for name, _ in model.named_modules()]:
+        module = model.get_submodule(name)
         path = "/" + name.replace(".", "/")
         excluded = pat is not None and pat.search(path) is not None
         if (quantize_embeddings and path.endswith("tok_emb") and isinstance(module, nn.ParameterDict)

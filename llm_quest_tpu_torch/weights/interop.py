@@ -35,7 +35,7 @@ def _model_for(flat, cfg, device):
         return mimo_v2_flash.MiMoV2Flash(cfg, device)
     if "window_size" in cfg and "local_global_att_ratio" in cfg:  # local/global attention: Gemma-3
         return gemma3.Gemma3(cfg, device)
-    if "linear_sdpa_ratio" not in cfg:  # no GDN/attention hybrid: the dense Qwen3
+    if "linear_sdpa_ratio" not in cfg:  # no GDN/attention hybrid: Qwen3, dense or MoE (cfg["model_type"])
         return qwen3.Qwen3(cfg, device)
     if "num_experts" in cfg or any("/moe/" in name for name in flat):  # the MoE hybrid
         return qwen3_next.Qwen3Next(cfg, device)
@@ -61,8 +61,10 @@ def from_jax_flat(flat, cfg, *, device=None):
     ``qwen3_next.Qwen3Next``; another hybrid (Qwen3.5) config gives a
     ``qwen3_5.Qwen3_5`` for a tree with "vision/" and "text/" prefixes
     (``init``) and a ``qwen3_5.TextModel`` for a bare text tree
-    (``init_text``); a dense Qwen3 config (no ``linear_sdpa_ratio``) gives a
-    ``qwen3.Qwen3``. ``device`` defaults to the current CUDA device
+    (``init_text``); a Qwen3 config (no ``linear_sdpa_ratio``) gives a
+    ``qwen3.Qwen3``, dense or, with ``model_type="moe"``, MoE (its
+    "blocks/<i>/moe/experts/{lin1,gate,lin2}" stacks, int8 ones included,
+    and "blocks/<i>/moe/gate_w" router). ``device`` defaults to the current CUDA device
     (``config.resolve_device``). Raises on a missing, unexpected or
     mis-shaped leaf.
     """

@@ -274,8 +274,12 @@ def test_entry_points_default_to_the_card(jparams, entry):
 
 
 def test_cached_path_raises(model):
-    with pytest.raises(NotImplementedError, match="write_kv"):
-        tm.apply(model, TCFG, T(batch_np(0)["input_ids"]), cache={"pos": 0})
+    """The cached path is ported (tests/test_torch_serving_families.py);
+    expert-parallel dispatch still raises on it."""
+    ids = T(batch_np(0)["input_ids"])
+    with pytest.raises(NotImplementedError, match="expert-parallel"):
+        tm.apply(model, dict(TCFG, expert_parallel={}), ids,
+                 cache=tm.init_cache(TCFG, ids.shape[0], ids.shape[1], device="cpu"))
 
 
 # ------------------------------------------------------------------ forward, loss, gradients

@@ -105,7 +105,9 @@ def test_from_jax_flat_rejects_bad_qwen3_trees(jparams):
 
 
 def test_moe_config_raises():
-    with pytest.raises(NotImplementedError):
+    """The MoE model is ported (tests/test_torch_qwen3_moe.py); a MoE config
+    without its expert keys raises."""
+    with pytest.raises(KeyError, match="num_experts"):
         tq.Qwen3(dict(TCFG, model_type="moe"), device="cpu")
 
 
@@ -305,12 +307,12 @@ def test_flop_counts_match_jax_and_peaks_need_a_card():
 def test_configs_match_jax():
     from llm_quest_tpu import config as jconfig
 
-    for size in ("temp_dense", "0.6B", "1.7B", "4B"):
+    for size in ("temp_dense", "0.6B", "1.7B", "4B", "temp_moe", "30B-A3B"):
         ref = jconfig.qwen3_config_creator(size)
         got = tconfig.qwen3_config_creator(size)
         assert {k: v for k, v in got.items() if k != "dtype"} == {k: v for k, v in ref.items() if k != "dtype"}
     with pytest.raises(ValueError):
-        tconfig.qwen3_config_creator("temp_moe")
+        tconfig.qwen3_config_creator("235B-A22B")
     strip = lambda c: {k: v for k, v in c.items() if k != "dtype"}  # noqa: E731
     assert strip(tconfig.GEMMA3_SMALL_CONFIG) == strip(jconfig.GEMMA3_SMALL_CONFIG)
     assert tconfig.GEMMA3_SMALL_CONFIG["dtype"] == torch.float32
