@@ -2400,6 +2400,8 @@ ENGINE_PATHS = (ENGINE_UNIFORM, ENGINE_HETERO, ENGINE_INT8, ENGINE_CHUNKED, ENGI
 ENGINE_MOE_INT8, ENGINE_MOE_BF16 = "engine_serve_moe_int8", "engine_serve_moe_bf16"
 ENGINE_NEXT, ENGINE_NEXT_INT8 = "engine_serve_next", "engine_serve_next_int8"
 ENGINE_FAMILIES = "engine_families"
+# multi-LoRA: int8 Qwen3.5-0.8B text at 24 layers with 8 stacked adapters, and the same engine without them
+ENGINE_LORA, ENGINE_LORA_BASE = "engine_multi_lora", "engine_multi_lora_base"
 # the attention records' sources by dtype: bf16 takes the tensor-core
 # kernels, fp32 the SIMT ones
 ATTN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/attention_tc.cu",
@@ -2430,14 +2432,16 @@ KERNELS = [
     # dtype's kernel), replaced TPU kernel, check, main paths that launch it
     ("gdn_prefill", ("gdn", "gated_delta_rule_fwd"), GDN_SRC,
      "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1,
-     (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE, TEXT_B128, *ENGINE_PATHS, ENGINE_NEXT, ENGINE_NEXT_INT8)),
+     (GENERATE, HYBRID, INT8_GENERATE, NEXT_SERVE, TEXT_B128, *ENGINE_PATHS, ENGINE_NEXT, ENGINE_NEXT_INT8,
+      ENGINE_LORA, ENGINE_LORA_BASE)),
     ("gdn_prefill_bwd", ("gdn", "gated_delta_rule_bwd"), GDN_SRC,
      "llm_quest_tpu/kernels/gdn_pallas.py:255", kernel_k1_bwd, (HYBRID,)),
     # K2 and K3: the step kernel (csrc/gdn.cu) for both dtypes; their records' ms is the kernel's
     # device time with the L2 cold (step_timing)
     ("gdn_step_stacked", ("gdn", "gated_delta_rule_step_stacked"), "llm_quest_tpu_torch/csrc/gdn.cu",
      "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2,
-     (GENERATE, INT8_GENERATE, NEXT_SERVE, TEXT_B128, *ENGINE_PATHS, ENGINE_NEXT, ENGINE_NEXT_INT8)),
+     (GENERATE, INT8_GENERATE, NEXT_SERVE, TEXT_B128, *ENGINE_PATHS, ENGINE_NEXT, ENGINE_NEXT_INT8, ENGINE_LORA,
+      ENGINE_LORA_BASE)),
     ("flash_attention_fwd", ("attention", "flash_attention"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4,
      (GENERATE, TRAIN, HYBRID, ENGINE_HETERO, ENGINE_CHUNKED, ENGINE_PREFIX)),
@@ -2465,7 +2469,8 @@ KERNELS = [
     ("packed_mha_int8_inkernel", ("fused_mha", "packed_mha_int8_inkernel"), INT8_SRC,
      "llm_quest_tpu/kernels/fused_mha.py:372", partial(kernel_int8, mode="inkernel"), (VIT,)),
     ("flash_decode", ("flash_decode", "flash_decode"), FD_SRC,
-     "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10, (INT8_GENERATE, ENGINE_INT8)),
+     "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10,
+     (INT8_GENERATE, ENGINE_INT8, ENGINE_LORA, ENGINE_LORA_BASE)),
     ("quantized_ragged_dot", ("quantized_gmm", "quantized_ragged_dot"), QGMM_SRC,
      "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11, (NEXT_SERVE, ENGINE_NEXT_INT8)),
     # Qwen3-30B-A3B's shapes in the engine: K4 at the 256-token admission bucket (32/4 heads, d 128), K10 on
@@ -4168,10 +4173,25 @@ def wave_logits(engine, model, cfg, wave, drop=False):
         if drop:
             mask[j, middle_tokens(len(ids))] = False
         last.append(len(ids) - 1)
+    select_rows(model, [knobs for _, _, knobs in wave])
     with torch.inference_mode():
         cache = entry.init_cache(cfg, len(wave), engine.max_len, device=DEVICE)
         logits, _, _ = entry.apply(model, cfg, prompt, attn_mask=mask, cache=cache)
     return logits[torch.arange(len(wave), device=DEVICE), torch.tensor(last, device=DEVICE)].float()
+
+
+def select_rows(model, knobs):
+    """With stacked adapters in ``model``, select the adapter each row's
+    request names (``knobs["adapter"]``; none: the null adapter) for the
+    next direct calls of the model."""
+    import torch
+
+    from llm_quest_tpu_torch.ops.lora import num_adapters, select_adapter
+
+    n = num_adapters(model)
+    if n:
+        select_adapter(model, torch.tensor([n - 1 if k.get("adapter") is None else k["adapter"] for k in knobs],
+                                           device=DEVICE))
 
 
 def b1_logits(model, cfg, traffic):
@@ -4179,8 +4199,11 @@ def b1_logits(model, cfg, traffic):
     ENGINE_CHECK_ROWS prompts, alone and unpadded."""
     import torch
 
-    return torch.stack([last_prefill_logits(entry_of(model), model, cfg, torch.tensor([ids], device=DEVICE))[0]
-                        for ids, _, _ in traffic[:ENGINE_CHECK_ROWS]])
+    rows = []
+    for ids, _, knobs in traffic[:ENGINE_CHECK_ROWS]:
+        select_rows(model, [knobs])
+        rows.append(last_prefill_logits(entry_of(model), model, cfg, torch.tensor([ids], device=DEVICE))[0])
+    return torch.stack(rows)
 
 
 def held_to_bar(name, got, ref, control):
@@ -4532,7 +4555,7 @@ def engine_chunk_profile(model, cfg, kind, traffic, steps=ENGINE_PROFILE_STEPS, 
 
 def engine_record(path, model, cfg, kind, records, card, check_rows, depths=(), *, requests=ENGINE_REQUESTS,
                   serves=3, layer_calls=None, sync_check=False, step_control="mask", warm=True, agree=True,
-                  profile_steps=ENGINE_PROFILE_STEPS, **engine_kw):
+                  profile_steps=ENGINE_PROFILE_STEPS, traffic=None, vs_plain=True, **engine_kw):
     """One serving record: the engine held to the plain versions
     (``engine_vs_plain`` over the first ``check_rows`` requests), then
     ``warmup`` (resolving ``pipeline_depth``; without ``warm`` none: the
@@ -4554,13 +4577,16 @@ def engine_record(path, model, cfg, kind, records, card, check_rows, depths=(), 
     of ENGINE_AGREE_ROWS greedy requests) and the peak memory of the
     serves.
     ``requests``: the first of the traffic's 48; ``step_control``:
-    ``engine_vs_plain``'s; ``engine_kw``: the engine's shape over
-    ``engine_for``'s."""
+    ``engine_vs_plain``'s; ``traffic``: the requests in place of
+    ``engine_traffic(kind)``'s (their knobs go to ``submit``); without
+    ``vs_plain`` no plain check; ``engine_kw``: the engine's shape over
+    ``engine_for``'s. Returns the emitted record and the first serve's
+    tokens."""
     import torch
 
     t_start = time.perf_counter()
-    traffic = engine_traffic(kind)[:requests]
-    plain = engine_vs_plain(model, cfg, kind, traffic, check_rows, step_control, **engine_kw)
+    traffic = (engine_traffic(kind) if traffic is None else traffic)[:requests]
+    plain = engine_vs_plain(model, cfg, kind, traffic, check_rows, step_control, **engine_kw) if vs_plain else None
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     engine = engine_for(model, cfg, kind, **engine_kw)
@@ -4612,7 +4638,7 @@ def engine_record(path, model, cfg, kind, records, card, check_rows, depths=(), 
         total += n
     profile = engine_chunk_profile(model, cfg, kind, traffic, profile_steps, **engine_kw)
     syncs = decode_step_syncs(model, cfg, kind, traffic, **engine_kw) if sync_check else None
-    emit({"phase": path, "card": card, "dtype": "bfloat16", "model": mod.__name__.rsplit(".", 1)[-1],
+    rec = {"phase": path, "card": card, "dtype": "bfloat16", "model": mod.__name__.rsplit(".", 1)[-1],
           "layers": cfg["n_layers"], "kv_quant": cfg.get("kv_quant"),
           "int8_weights": any(t.dtype == torch.int8 for t in model.state_dict().values()),
           "requests": len(traffic), "n_slots": engine.n_slots, "max_len": engine.max_len,
@@ -4628,7 +4654,9 @@ def engine_record(path, model, cfg, kind, records, card, check_rows, depths=(), 
           "admission_vs_b1_max_abs_err": float((first[:ENGINE_CHECK_ROWS] - refs).abs().max()),
           "tests_bar": BF16_LOGIT_BAR * float(refs.abs().max()),
           "warmup": warm, "greedy_agreement": equal / total if total else None, "greedy_compared": total,
-          "decode_step_host_syncs": syncs, "peak_memory_gb": peak_gb, "seconds": time.perf_counter() - t_start})
+          "decode_step_host_syncs": syncs, "peak_memory_gb": peak_gb, "seconds": time.perf_counter() - t_start}
+    emit(rec)
+    return rec, toks
 
 
 def decode_step_syncs(model, cfg, kind, traffic, **engine_kw):
@@ -5242,7 +5270,8 @@ def engine_moe_paths(records, card):
     traffic): bf16 (``engine_serve_moe_bf16``: 16 slots, 16 requests, one
     serve; K4), then the same weights quantized in place, linears and expert
     stacks, with the int8 KV cache (``engine_serve_moe_int8``: 32 slots, 48
-    requests, median of 3 serves, one decode step under the sync check; K4,
+    requests, one serve (the script's time), one decode step under the sync
+    check; K4,
     K10, K11), neither warmed by ``warmup`` (a 30B step takes 0.3-1 s of
     host wall; the plain check runs the first wave at the serve's shapes),
     their profiled chunks 1 and 2 steps (a trace of a bf16 30B step holds
@@ -5276,7 +5305,7 @@ def engine_moe_paths(records, card):
     torch.cuda.empty_cache()
     emit({"phase": "engine_moe_weights", "card": card, **weights})
     engine_record(ENGINE_MOE_INT8, model, dict(cfg, kv_quant="int8"), "hetero", records, card,
-                  MOE_SLOTS - ENGINE_EMPTY_SLOTS, sync_check=True, warm=False, profile_steps=2,
+                  MOE_SLOTS - ENGINE_EMPTY_SLOTS, serves=1, sync_check=True, warm=False, profile_steps=2,
                   layer_calls={"flash_attention_fwd_gqa8": n, "flash_decode_gqa8": n, "quantized_ragged_dot_e128": 3 * n})
     del model
     torch.cuda.empty_cache()
@@ -5373,6 +5402,175 @@ def engine_families(records, card):
     out["mimo_v2_flash"]["fp32_cached_vs_uncached"] = mimo_cached_check()
     emit({"phase": ENGINE_FAMILIES, "card": card, "dtype": "bfloat16", "n_slots": FAMILY_SLOTS,
           "requests": len(traffic), **out, "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+# ------------------------------------------------------------------ multi-LoRA serving
+
+
+LORA_ADAPTERS, LORA_RANK, LORA_ALPHA, LORA_B_STD = 8, 16, 32, 0.02
+# Each first-wave row's admission logits, and its first decode step's, held to a prefill of the same
+# prompt (and the engine's first token) through ``merge_adapter`` of the row's adapter: dense over the
+# dequantized base, fp32 (JAX's oracle, tests/test_serving.py:1214), within LORA_BAR × max |oracle row|
+# of every row; the control holds every row to the NEXT adapter's merge and must read beyond the bar on
+# every row. Set from readings on an H100: the bf16 engine (int8 weights and KV, 24 random layers) sat
+# 25.1-27.1 % from the fp32 oracle; the control 108.9-166.5 %. The bar sits 1.8 times above the largest
+# reading and 2.2 times below the smallest control.
+LORA_BAR = 0.5
+
+
+def lora_filter(path):
+    """JAX test_serving_multi_lora's filter: every attention and MLP linear."""
+    return "att" in path or "ffn" in path
+
+
+def stacked_adapters(model):
+    """LORA_ADAPTERS classic adapters (rank LORA_RANK, α LORA_ALPHA) over
+    ``model``'s ``lora_filter`` linears, each B drawn N(0, LORA_B_STD²) from
+    a generator seeded by its index, stacked with the null adapter: a model
+    that shares ``model``'s base tensors (``model`` keeps no adapter)."""
+    import copy
+    import itertools
+
+    import torch
+
+    from llm_quest_tpu_torch.ops import lora
+
+    shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
+    adapters = []
+    for a in range(LORA_ADAPTERS):
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1 + a)
+        one = lora.replace_with_lora(gen, copy.deepcopy(model, dict(shared)), LORA_RANK, LORA_ALPHA,
+                                     path_filter=lora_filter)
+        with torch.no_grad():
+            for _, ad in lora.lora_modules(one):
+                ad["B"].normal_(0.0, LORA_B_STD, generator=gen)
+        adapters.append(one)
+    return lora.stack_adapters(adapters)
+
+
+def lora_traffic():
+    """``engine_traffic("uniform")``, request i on adapter i mod 9 (8: none)."""
+    n = LORA_ADAPTERS + 1
+    return [(ids, gen, {"adapter": None if i % n == LORA_ADAPTERS else i % n})
+            for i, (ids, gen, _) in enumerate(engine_traffic("uniform"))]
+
+
+def lora_vs_merged(model, cfg, traffic, served):
+    """The first wave's admission logits and first decode step (greedy)
+    through the stacked adapters, each row held to an fp32 prefill of its
+    prompt and the step's token through ``merge_adapter`` of its adapter
+    (``LORA_BAR``), beside the control (the next adapter's merge, beyond
+    the bar on every row); and the greedy agreement of the first
+    ENGINE_AGREE_ROWS requests' ``served`` tokens with ``generate_kv_cache``
+    on their merged weights (reported, not gated)."""
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3_5
+    from llm_quest_tpu_torch.ops.lora import merge_adapter, num_adapters
+
+    n = num_adapters(model)
+    engine = engine_for(model, cfg, "uniform", decode_chunk=1)
+    wave = traffic[: engine.n_slots]
+    for ids, gen, knobs in wave:
+        engine.submit(ids, gen, **knobs)
+    k = len(wave)
+    with torch.inference_mode():
+        engine._admit_pending()
+        admission = engine.state["last_logits"][:k].clone()
+        toks = torch.full((1, engine.n_slots), engine.pad_id, dtype=torch.long, device=DEVICE)
+        engine._decode_step(0, engine.eos_arr, toks, None)
+        step = engine.state["last_logits"][:k].clone()
+    got = torch.stack([admission, step], dim=1)  # (k, 2, vocab)
+    adapter = [n - 1 if knobs.get("adapter") is None else knobs["adapter"] for _, _, knobs in wave]
+    seq = torch.cat([torch.tensor([ids for ids, _, _ in wave], device=DEVICE), toks[0, :k, None]], dim=1)
+    ocfg = {key: v for key, v in cfg.items() if key != "kv_quant"} | {"dtype": torch.float32}
+    right, wrong = torch.empty_like(got), torch.empty_like(got)
+    agree_rows = list(range(min(ENGINE_AGREE_ROWS, len(served))))
+    equal = total = 0
+    for j in range(n):
+        merged = merge_adapter(model, j).float()
+        mine = [i for i in range(k) if adapter[i] == j]
+        theirs = [i for i in range(k) if (adapter[i] + 1) % n == j]
+        rows = mine + theirs
+        with torch.inference_mode():
+            cache = qwen3_5.init_cache(ocfg, len(rows), seq.shape[1], device=DEVICE)
+            logits, _, _ = qwen3_5.apply_text(merged, ocfg, seq[rows], cache=cache)
+        out = logits[:, -2:].float()
+        right[mine], wrong[theirs] = out[: len(mine)], out[len(mine):]
+        for i in agree_rows:
+            if adapter[i] == j:
+                ids = traffic[i][0]
+                m = min(traffic[i][1], ENGINE_AGREE_TOKENS)
+                ref = generate(qwen3_5.TextOnly, merged, ocfg, torch.tensor([ids], device=DEVICE), m)[0, len(ids):]
+                equal += sum(a == b for a, b in zip(served[i][:m], ref.tolist()))
+                total += m
+        del merged, logits
+        torch.cuda.empty_cache()
+    err = (got - right).abs().amax(-1) / right.abs().amax(-1)  # (k, 2): each row's, of its max |oracle|
+    control = (got - wrong).abs().amax(-1) / wrong.abs().amax(-1)
+    null = torch.tensor([a == n - 1 for a in adapter], device=DEVICE)
+
+    def worst(t):
+        return float(t.max()) if t.numel() else None
+
+    readings = {name: {"max_rel_err": float(err[:, c].max()), "max_rel_err_null_rows": worst(err[null, c]),
+                       "max_rel_err_adapter_rows": worst(err[~null, c]),
+                       "control_min_rel": float(control[:, c].min()), "control_max_rel": float(control[:, c].max()),
+                       "bar": LORA_BAR}
+                for c, name in enumerate(("admission", "decode_step"))}
+    if not (torch.isfinite(got).all() and float(err.max()) <= LORA_BAR < float(control.min())):
+        raise AssertionError(f"engine_multi_lora: rows against their merged adapters (within {LORA_BAR} of "
+                             f"max |oracle|) and the wrong-adapter control (beyond it on every row): {readings}")
+    return {"rows": k, "adapters": n, **readings, "greedy_agreement_vs_merged": equal / total if total else None,
+            "greedy_compared": total}
+
+
+def engine_multi_lora(records, card):
+    """Multi-LoRA serving: Qwen3.5-0.8B text at full width and all 24
+    layers, bf16, int8 weights (``quantize_params_int8`` at its defaults)
+    and the int8 KV cache, ``engine_serve_uniform``'s engine shape and
+    traffic: first without adapters (``engine_multi_lora_base``: K1, K2,
+    K10; no plain check, ``engine_serve_int8`` holds this setting to the
+    plain versions), then with LORA_ADAPTERS stacked classic adapters over
+    its attention and MLP linears and request i on adapter i mod 9
+    (``engine_multi_lora``: held to the plain versions, one decode step
+    under the sync check), one warmed serve each (for the script's time);
+    then every first-wave row held to its merged adapter
+    (``lora_vs_merged``). Useful tok/s, kernels and device ms a step of the
+    two records as ratios."""
+    import torch
+
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+    from llm_quest_tpu_torch.ops.lora import lora_modules, num_adapters
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
+
+    t0 = time.perf_counter()
+    cfg = dict(QWEN3_5_08B_CONFIG, dtype=torch.bfloat16)
+    model = text_model(cfg)
+    quantize_params_int8(model)
+    cfg = dict(cfg, kv_quant="int8")
+    torch.cuda.empty_cache()
+    rows = 32 - ENGINE_EMPTY_SLOTS
+    base, _ = engine_record(ENGINE_LORA_BASE, model, cfg, "uniform", records, card, rows, serves=1, vs_plain=False)
+    t_stack = time.perf_counter()
+    stacked = stacked_adapters(model)
+    stack_s = time.perf_counter() - t_stack
+    traffic = lora_traffic()
+    rec, served = engine_record(ENGINE_LORA, stacked, cfg, "uniform", records, card, rows, serves=1, sync_check=True,
+                                agree=False, traffic=traffic)
+    checks = lora_vs_merged(stacked, cfg, traffic, served)
+
+    def ratio(key):
+        return None if base[key] is None or rec[key] is None else rec[key] / base[key]
+
+    emit({"phase": "engine_multi_lora_checks", "card": card, "layers": cfg["n_layers"],
+          "wrapped_linears": len(lora_modules(stacked)), "adapters": num_adapters(stacked),
+          "rank": LORA_RANK, "alpha": LORA_ALPHA, "stack_s": stack_s, "vs_merged": checks,
+          "useful_tok_s_ratio": ratio("useful_tok_s"), "kernels_per_step_ratio": ratio("kernels_per_step"),
+          "device_ms_per_step_ratio": ratio("device_ms_per_step"),
+          "kernels_per_step_added": None if rec["kernels_per_step"] is None or base["kernels_per_step"] is None
+          else rec["kernels_per_step"] - base["kernels_per_step"], "seconds": time.perf_counter() - t0})
+    del model, stacked
     torch.cuda.empty_cache()
 
 
@@ -5619,6 +5817,7 @@ def main(argv):
     phase(engine_serving, records, smi)
     phase(engine_admission_paths, records, smi)
     phase(engine_moe_paths, records, smi)
+    phase(engine_multi_lora, records, smi)
 
     emit({"phase": "device_timing", **PROFILER})
     emit({"phase": "phase_seconds", "build_s": lib.build_seconds, **PHASE_SECONDS,

@@ -29,6 +29,15 @@ refilled while the others keep decoding (iteration-level scheduling).
     ``pixel_transform`` on the device, and prefills with host-computed 3-D
     MRoPE positions (shifted by ``plen`` under a text prefix). Decode
     continues from the largest 3-D position + 1, not the text length.
+- **Multi-LoRA**: stacked adapters in the params (``ops/lora.py::
+  stack_adapters``) are detected at construction; ``submit(adapter=j)``
+  routes a request through adapter j (None: the null adapter, the base
+  model), and adapters mix freely in one pool and one wave. Every model call
+  selects its rows' adapters once (``select_adapter``: one shared index
+  tensor, which the stacked linears gather by row): a wave its requests',
+  a decode step the pool's per-slot adapters (``state["adapter"]``).
+  ``register_prefix(adapter=j)`` prefills the stored row through adapter j;
+  a request on that prefix must name the same adapter.
 - **Decode chunk**: up to ``decode_chunk`` single-token steps over all
   slots. Per-row finished flags and generation budgets live on the device:
   a row that draws an EOS or spends its budget is finished there, emits
@@ -87,9 +96,13 @@ Divergences by design from the JAX engine:
   (text, and with ``image_shape`` multimodal) and runs one chunk, where JAX
   warms every power-of-two wave size it could compile and runs a second
   chunk to time. It restores everything the scratch admissions touched: the
-  pool, the slot map, the request table, the per-slot sampler rows, the
-  wave count and the generator (JAX's multimodal warmup leaves the wave
-  count and the sampler rows changed);
+  pool (the per-slot adapters included), the slot map, the request table,
+  the per-slot sampler rows, the wave count and the generator (JAX's
+  multimodal warmup leaves the wave count, the sampler rows and the slot
+  adapters changed);
+- the per-slot adapters are part of the pool state on the device, written
+  by the admission (JAX keeps them on the host and uploads them with every
+  decode chunk);
 - ``submit`` keeps at most ``n_slots`` queued images on the device: an
   image uploads (from pinned memory, without blocking) at ``submit`` while
   fewer are there, else when the queue ahead of it drains to that depth
@@ -102,11 +115,10 @@ Divergences by design from the JAX engine:
   host work, and it refills freed slots a chunk later: on an H100 depth 2
   served no faster than depth 1 (``chip_smoke.py``, engine_serve_uniform).
 
-Not ported yet (ROADMAP.md, Queue 1 item 3): multi-LoRA
-(``submit(adapter=)``, ``register_prefix(adapter=)``; the port has no
-stacked adapters yet), speculative windows (``draft_*``, ``gamma``) and the
-mesh / expert-parallel engine (``mesh``, ``param_rules``,
-``cfg["expert_parallel"]``); each raises ``NotImplementedError``.
+Not ported yet (ROADMAP.md, Queue 1 item 3): speculative windows
+(``draft_*``, ``gamma``) and the mesh / expert-parallel engine (``mesh``,
+``param_rules``, ``cfg["expert_parallel"]``); each raises
+``NotImplementedError``.
 """
 
 import statistics
@@ -119,6 +131,7 @@ import torch
 
 from llm_quest_tpu_torch.config import resolve_device
 from llm_quest_tpu_torch.inference.generate import _is_eos, _normalize_eos
+from llm_quest_tpu_torch.ops.lora import num_adapters, select_adapter
 from llm_quest_tpu_torch.ops.sampling import sampling, sampling_per_row
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512)
@@ -161,6 +174,7 @@ class _Request:
     pixels: np.ndarray | None = None  # multimodal: the prompt's image, on the host
     pixels_dev: torch.Tensor | None = None  # its copy on the device while queued (submit's bound)
     sample: np.ndarray | None = None  # per-request [temp, top_k, top_p, min_p] override
+    adapter: int | None = None  # multi-LoRA: the stacked adapter of this request (None: the base)
     # host timestamps (time.monotonic): queued / admitted to a slot / first
     # token credited / retired
     t_submit: float = 0.0
@@ -240,6 +254,9 @@ class ContinuousBatchingEngine:
         self.pad_id = pad_id
         self.cache_dtype = cache_dtype
         self.generator = generator if generator is not None else torch.Generator(device=self.device).manual_seed(0)
+        # multi-LoRA: the stacked adapters' count, the null (last) one
+        # included; 0 without adapters
+        self._lora_n = num_adapters(params)
 
         cache = model.init_cache(cfg, n_slots, max_len, dtype=cache_dtype, device=self.device)
         cache["pos"] = torch.zeros(n_slots, dtype=torch.long, device=self.device)  # per-row column pointer
@@ -253,6 +270,8 @@ class ContinuousBatchingEngine:
             # 0, so max_gen retirement (like EOS) needs no write from the host
             "budget": torch.zeros(n_slots, dtype=torch.long, device=self.device),
         }
+        if self._lora_n:  # each slot's adapter, the null one while empty
+            self.state["adapter"] = torch.full((n_slots,), self._lora_n - 1, dtype=torch.long, device=self.device)
         self._rows = torch.arange(n_slots, device=self.device)
         on_card = self.device.type == "cuda"
         # the early exit's flags: one a step (and one for the chunk's start)
@@ -263,6 +282,7 @@ class ContinuousBatchingEngine:
         self._slot_req = [None] * n_slots
         self._requests = {}
         self._prefixes = {}  # pid -> (the prefilled b = 1 cache row, the prefix's length)
+        self._prefix_adapter = {}  # pid -> the adapter its row was prefilled through
         self._next_rid = 0
         # observability counters (stats()): admit waves, decode chunks, and
         # per-chunk live-slot occupancy for utilization
@@ -310,17 +330,20 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------- the device
 
-    def _admit_rows(self, prompts, pmasks, slots, budgets, *, chunk=None, prefix=None, pixels=None,
+    def _admit_rows(self, prompts, pmasks, slots, budgets, *, adapters=None, chunk=None, prefix=None, pixels=None,
                     position_ids=None, next_pos=None):
         """Prefill a wave (k, lb) on a b = k group cache and copy its rows
-        into the pool at ``slots`` (k,). ``chunk``: prefill through
-        sequential calls of ``chunk`` columns (lb a multiple of it);
+        into the pool at ``slots`` (k,). ``adapters`` (k,): the rows'
+        stacked adapters (with adapters in the params); ``chunk``: prefill
+        through sequential calls of ``chunk`` columns (lb a multiple of it);
         ``prefix``: (stored b = 1 cache, plen), whose row seeds every group
         row, the wave holding the suffixes; ``pixels`` (k, ...) with
         ``position_ids`` (3, k, lb) and ``next_pos`` (k,): a multimodal
         wave and its 3-D MRoPE positions."""
         st = self.state
         k, lb = prompts.shape
+        if self._lora_n:
+            select_adapter(self.params, adapters)
         if prefix is None:
             plen = 0
             grp_cache = self.model.init_cache(self.cfg, k, self.max_len, dtype=self.cache_dtype, device=self.device)
@@ -363,6 +386,8 @@ class ContinuousBatchingEngine:
         st["seqpos"][slots] = plen + real_len if next_pos is None else next_pos
         st["finished"][slots] = False
         st["budget"][slots] = budgets
+        if self._lora_n:
+            st["adapter"][slots] = adapters
 
     def _sample(self, logits):
         if self._row_sampling:
@@ -391,6 +416,8 @@ class ContinuousBatchingEngine:
         cache = st["cache"]
         col = cache["pos"]  # where this token's K/V land
         st["mask_buf"][self._rows, col] = ~finished
+        if self._lora_n:
+            select_adapter(self.params, st["adapter"])
         logits, cache, _ = self.model.apply(
             self.params, self.cfg, token[:, None], attn_mask=st["mask_buf"], cache=cache,
             position_ids=st["seqpos"][:, None],
@@ -431,9 +458,9 @@ class ContinuousBatchingEngine:
         the allocator's growth, cuBLAS's plans). ``image_shape``: one
         request's pixel shape (e.g. (3, 2, 384, 384)), in ``image_dtype``,
         to warm the multimodal admissions too. Everything the scratch
-        admissions touch is restored after: the pool, the slot map, the
-        request table, the per-slot sampler rows, the wave count and the
-        generator."""
+        admissions touch is restored after: the pool (the per-slot adapters
+        included), the slot map, the request table, the per-slot sampler
+        rows, the wave count and the generator."""
         saved = (self.state, self._slot_req, self._requests, self._slot_sample, self._sample_dev, self._n_waves)
         gen_state = self.generator.get_state()
         self.state = _clone(self.state)
@@ -457,6 +484,7 @@ class ContinuousBatchingEngine:
                 self._admit_rows(
                     self._upload(np.full((k, lb), self.pad_id, np.int64)), self._upload(pmask),
                     self._upload(np.arange(k, dtype=np.int64)), self._upload(np.ones(k, np.int64)),
+                    adapters=self._upload(np.full(k, self._adapter_id(None), np.int64)) if self._lora_n else None,
                 )
         # every scratch row gets a budget past the chunk (the admissions gave
         # 1, which would end the chunk after one step) but inside its columns,
@@ -488,9 +516,11 @@ class ContinuousBatchingEngine:
         and prefills the suffixes at query offset ``plen``, so its cost
         scales with the suffix. The hybrid resumes exactly: the suffix's
         conv taps are seeded from the stored ones and its recurrent state
-        continues from the stored state. Returns the prefix id."""
-        if adapter is not None:
-            raise NotImplementedError(f"register_prefix(adapter=) {LATER}")
+        continues from the stored state. ``adapter``: the row prefills
+        through stacked adapter ``adapter`` (None: the base), and the
+        requests on this prefix must name the same one (its K/V hold it).
+        Returns the prefix id."""
+        self._check_adapter(adapter)
         ids = np.asarray(ids, np.int64).reshape(-1)
         if "image_token_id" in self.cfg and np.any(ids == self.cfg["image_token_id"]):
             raise ValueError(
@@ -503,6 +533,8 @@ class ContinuousBatchingEngine:
         cache = self.model.init_cache(self.cfg, 1, self.max_len, dtype=self.cache_dtype, device=self.device)
         mask = torch.zeros(1, self.max_len, dtype=torch.bool, device=self.device)
         mask[:, :plen] = True
+        if self._lora_n:
+            select_adapter(self.params, self._upload(np.asarray([self._adapter_id(adapter)], np.int64)))
         _, cache, _ = self.model.apply(
             self.params, self.cfg, self._upload(ids[None]), attn_mask=mask, cache=cache,
             position_ids=torch.arange(plen, device=self.device)[None],
@@ -510,7 +542,21 @@ class ContinuousBatchingEngine:
         cache["pos"] = plen  # suffix waves write from column plen
         pid = len(self._prefixes)
         self._prefixes[pid] = (cache, plen)
+        self._prefix_adapter[pid] = adapter
         return pid
+
+    def _check_adapter(self, adapter):
+        """JAX's checks of a named adapter: stacked adapters exist and it is one of them."""
+        if adapter is None:
+            return
+        if not self._lora_n:
+            raise ValueError("adapter= given but params carry no stacked adapters (ops/lora.py::stack_adapters)")
+        if not 0 <= adapter < self._lora_n - 1:
+            raise ValueError(f"adapter {adapter} out of range [0, {self._lora_n - 1})")
+
+    def _adapter_id(self, adapter):
+        """A request's row in the stacked adapters (None: the null one)."""
+        return self._lora_n - 1 if adapter is None else adapter
 
     def submit(self, ids, max_gen, prefix=None, pixels=None, adapter=None, temp=None, top_k=None, top_p=None,
                min_p=None):
@@ -518,11 +564,18 @@ class ContinuousBatchingEngine:
         ``register_prefix``, ``ids`` being the suffix after it. ``pixels``:
         the image of a multimodal prompt whose ids carry its placeholders
         already expanded (the model's ``apply`` takes ``image_pixels``);
-        encoded once, at admission. ``temp``/``top_k``/``top_p``/``min_p``:
+        encoded once, at admission. ``adapter``: the stacked adapter of this
+        request (None: the base model). ``temp``/``top_k``/``top_p``/``min_p``:
         per-request sampler overrides (engine built with
         ``per_request_sampling=True``; unset knobs take the engine's)."""
-        if adapter is not None:
-            raise NotImplementedError(f"submit(adapter=) {LATER}")
+        self._check_adapter(adapter)
+        if self._lora_n and pixels is not None and prefix is not None:
+            raise ValueError("multi-LoRA does not compose with prefix+multimodal yet")
+        if self._lora_n and prefix is not None and adapter != self._prefix_adapter[prefix]:
+            raise ValueError(
+                f"request adapter {adapter} != adapter {self._prefix_adapter[prefix]} "
+                f"baked into prefix {prefix}'s stored K/V — register a prefix per adapter"
+            )
         ids = np.asarray(ids, np.int64).reshape(-1)
         lb = self._bucket_len(len(ids))
         plen = self._prefixes[prefix][1] if prefix is not None else 0
@@ -542,7 +595,7 @@ class ContinuousBatchingEngine:
         rid = self._next_rid
         self._next_rid += 1
         req = _Request(rid, ids, max_gen, prefix=prefix, pixels=None if pixels is None else np.asarray(pixels),
-                       sample=sample_row, t_submit=time.monotonic())
+                       sample=sample_row, adapter=adapter, t_submit=time.monotonic())
         self._requests[rid] = req
         self._queue.append(req)
         if req.pixels is not None:
@@ -582,6 +635,8 @@ class ContinuousBatchingEngine:
             kw = self._image_wave(reqs, lb, 0 if prefix is None else prefix[1])
         elif prefix is None and lb > self.buckets[-1]:
             kw["chunk"] = self.prefill_chunk
+        if self._lora_n:  # a prefix wave's rows all name the prefix's adapter (submit checks it)
+            kw["adapters"] = self._upload(np.asarray([self._adapter_id(r.adapter) for r in reqs], np.int64))
         self._admit_rows(
             self._upload(prompt), self._upload(pmask), self._upload(np.asarray(slots, np.int64)),
             self._upload(np.asarray([r.max_gen for r in reqs], np.int64)), prefix=prefix, **kw,

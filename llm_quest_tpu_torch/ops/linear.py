@@ -8,7 +8,8 @@ applies them with ``F.linear``. The JAX package stores them ``(in, out)`` for
 ``embedding`` and ``tied_head`` take the table's parameter group and dispatch
 on it: ``{"w"}``, or the int8 ``{"w_q", "w_scale"}`` of
 ``ops/quantization.py`` (per-row scales). The int8 linear is
-``quantization.QuantLinear``.
+``quantization.QuantLinear``. Both add the low-rank update of a ``lora``
+submodule when one is present (``ops/lora.py``), as JAX's ``linear`` does.
 
 Operand types are not promoted: ``linear`` raises on x and w of two types
 (a mis-cast model fails instead of running in fp32). Divergence by design:
@@ -21,6 +22,8 @@ fp32 rows (``embedding(..., dtype=torch.float32)``) as ``inputs_embs``.
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from llm_quest_tpu_torch.ops.lora import lora_delta
 
 
 def linear(x, w, b=None):
@@ -56,7 +59,9 @@ def params(*, trainable=False, **tensors):
 
 class Linear(nn.Module):
     """Parameters {"w": (out, in)[, "b": (out,)]} — the JAX leaf dict
-    {"w", "b"} under the same names. Frozen (inference) unless ``trainable``."""
+    {"w", "b"} under the same names (and a ``lora`` submodule once
+    ``ops/lora.py::replace_with_lora`` wraps it). Frozen (inference) unless
+    ``trainable``."""
 
     def __init__(self, d_in, d_out, *, bias, dtype, device=None, trainable=False):
         super().__init__()
@@ -66,7 +71,9 @@ class Linear(nn.Module):
         )
 
     def forward(self, x):
-        return linear(x, self.w, self.b)
+        y = linear(x, self.w, self.b)
+        lora = self._modules.get("lora")
+        return y if lora is None else y + lora_delta(lora, x)
 
     def reset_parameters(self, generator):
         """torch nn.Linear default init: U(±1/sqrt(in)) for weight and bias."""

@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from llm_quest_tpu_torch.ops.linear import Linear, linear, params
+from llm_quest_tpu_torch.ops.lora import lora_delta
 
 _INT4 = "int4 weights are not ported: torch has no packed int4 dtype and the packing needs its own kernel (ROADMAP)"
 
@@ -149,7 +150,8 @@ def quantize_expert_stack_int8(experts, *, bits=8):
 
 class QuantLinear(nn.Module):
     """A weight-only int8 linear: {"w_q": (out, in) int8, "w_scale": (out,)
-    or (nb, out) fp32[, "b"]}, frozen."""
+    or (nb, out) fp32[, "b"]}, frozen; a ``lora`` submodule adds its
+    update (``ops/lora.py``)."""
 
     def __init__(self, w_q, w_scale, b=None):
         super().__init__()
@@ -159,7 +161,10 @@ class QuantLinear(nn.Module):
 
     def forward(self, x):
         y = int8_matmul(x, self.w_q, self.w_scale)
-        return y if self.b is None else y + self.b
+        if self.b is not None:
+            y = y + self.b
+        lora = self._modules.get("lora")
+        return y if lora is None else y + lora_delta(lora, x)
 
     @classmethod
     def empty_like(cls, d_out, d_in, scale_shape, *, bias_dtype=None, device=None):
@@ -184,7 +189,8 @@ def quantize_params_int8(model, *, exclude=r"tok_emb|conv", block_size=None, min
     """Quantize ``model`` in place and return it, with JAX's selection rule
     over the parameter paths ("/blocks/0/att/wq", as the JAX walk spells
     them): every ``Linear`` with at least ``min_size`` weights whose path the
-    ``exclude`` regex does not match; every expert stack (3-D lin1/gate/lin2)
+    ``exclude`` regex does not match (its ``lora`` adapter, if any, crosses
+    to the ``QuantLinear`` unquantized); every expert stack (3-D lin1/gate/lin2)
     with ``quantize_experts`` unless excluded; the ``tok_emb`` table with
     ``quantize_embeddings`` (per-row scales, at least ``min_size`` entries).
 
@@ -210,7 +216,10 @@ def quantize_params_int8(model, *, exclude=r"tok_emb|conv", block_size=None, min
         elif isinstance(module, Linear) and module.w.numel() >= min_size and not excluded:
             p = {"w": module.w} if module.b is None else {"w": module.w, "b": module.b}
             q = quantize_linear_int8(p, block_size=block_size, bits=bits)
-            _set_module(model, name, QuantLinear(q["w_q"], q["w_scale"], q.get("b")))
+            qlin = QuantLinear(q["w_q"], q["w_scale"], q.get("b"))
+            if "lora" in module._modules:  # the adapter crosses unquantized (JAX copies every key but "w")
+                qlin.lora = module.lora
+            _set_module(model, name, qlin)
         elif quantize_experts and _is_expert_stack(module) and not excluded:
             _set_module(model, name, params(**quantize_expert_stack_int8(dict(module), bits=bits)))
     return model
@@ -226,8 +235,11 @@ def quantized_like(model, names):
         if isinstance(module, Linear) and prefix + "w_q" in names:
             d_out, d_in = module.w.shape
             bias_dtype = None if module.b is None else module.b.dtype
-            _set_module(model, name, QuantLinear.empty_like(
-                d_out, d_in, tuple(names[prefix + "w_scale"].shape), bias_dtype=bias_dtype, device=module.w.device))
+            qlin = QuantLinear.empty_like(
+                d_out, d_in, tuple(names[prefix + "w_scale"].shape), bias_dtype=bias_dtype, device=module.w.device)
+            if "lora" in module._modules:
+                qlin.lora = module.lora
+            _set_module(model, name, qlin)
             transposed.add(prefix + "w_q")
         elif isinstance(module, nn.ParameterDict) and "w" in module and prefix + "w_q" in names:
             w = module["w"]

@@ -15,6 +15,12 @@ A linear's ``w_q`` is transposed like ``w``; its ``w_scale`` ((out,) or
 (nb, out)), an int8 embedding table and its per-row scales, and the expert
 stacks' ``<name>_q`` (E, in, out) and ``<name>_scale`` (E, out) have one
 layout in both packages.
+
+A tree with LoRA adapters (``lora`` sub-dicts of linears, from JAX's
+``ops/lora.py``: classic, XS or Tiny, single or stacked with a leading
+adapter axis, over fp32, bf16 or int8 linears) loads too: the model takes
+the adapters first (``ops/lora.py::lora_like``). Their A (in, r) and B (r,
+out) keep JAX's layout in the port, so no adapter leaf is transposed.
 """
 
 import numpy as np
@@ -23,6 +29,7 @@ import torch
 from llm_quest_tpu_torch.config import resolve_device
 from llm_quest_tpu_torch.models import deepseek_v3, gemma3, mimo_v2_flash, qwen3, qwen3_5, qwen3_next, vit
 from llm_quest_tpu_torch.ops.linear import Linear
+from llm_quest_tpu_torch.ops.lora import lora_like
 from llm_quest_tpu_torch.ops.quantization import quantized_like
 
 
@@ -71,6 +78,7 @@ def from_jax_flat(flat, cfg, *, device=None):
     model = _model_for(flat, cfg, resolve_device(device))
     names = {name.replace("/", "."): arr for name, arr in flat.items()}
     transposed = quantized_like(model, names)
+    lora_like(model, names)
     state = model.state_dict()
     missing, unexpected = sorted(set(state) - set(names)), sorted(set(names) - set(state))
     if missing or unexpected:

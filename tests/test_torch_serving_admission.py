@@ -288,12 +288,14 @@ def test_prefix_refusals(models):
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(draft_model=tq.TextOnly), dict(gamma=4)],
                          ids=["mesh", "draft", "gamma"])
 def test_later_slices_still_refused_with_the_new_paths(models, kw):
-    """Multi-LoRA, speculative windows and the mesh still raise, also on an
-    engine with chunked prefill and prefixes."""
+    """Speculative windows and the mesh still raise, also on an engine with
+    chunked prefill and prefixes; an adapter on a prefix of params without
+    stacked adapters raises JAX's ValueError (multi-LoRA itself is served:
+    test_torch_serving_lora.py)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         engine("port", models, "hybrid", **CHUNKED, **kw)
     eng = engine("port", models, "hybrid", **CHUNKED)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(ValueError, match="no stacked adapters"):
         eng.submit(SHORT, 4, prefix=eng.register_prefix(HYB_PREFIX), adapter=0)
 
 

@@ -490,9 +490,11 @@ def test_engine_refuses_later_slices_and_bad_requests(models):
     with pytest.raises(NotImplementedError, match="expert_parallel"):
         ContinuousBatchingEngine(tm, tp, dict(tcfg(cfg), expert_parallel={}), **base)
     eng = ContinuousBatchingEngine(tm, tp, tcfg(cfg), **base)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    # multi-LoRA is served (test_torch_serving_lora.py); params without
+    # stacked adapters refuse adapter= with JAX's ValueError
+    with pytest.raises(ValueError, match="no stacked adapters"):
         eng.submit(PROMPTS[0], 4, adapter=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(ValueError, match="no stacked adapters"):
         eng.register_prefix(PROMPTS[0], adapter=0)
     with pytest.raises(ValueError, match="per_request_sampling"):
         eng.submit(PROMPTS[0], 4, temp=0.5)

@@ -15,6 +15,8 @@ blocks, 4 text layers, 64 px images of 4 merged vision tokens).
 Each engine runs once a side per module (``runs``).
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from llm_quest_tpu.models import qwen3_5 as jq
 from llm_quest_tpu.weights.interop import flatten_params
 from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine, _clone
 from llm_quest_tpu_torch.models import qwen3_5 as tq
+from llm_quest_tpu_torch.ops import lora as tl
 from llm_quest_tpu_torch.weights.interop import from_jax_flat
 
 TOL = 1e-4
@@ -249,6 +252,17 @@ def test_prefix_with_image_placeholders_refused(models):
         eng.register_prefix([1, IMAGE, 2])
 
 
-def test_multimodal_with_adapter_still_refused(models):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+def test_multimodal_adapter_refusals_match_jax(models):
+    """An image request naming an adapter is refused by params without
+    stacked adapters, and with stacked adapters a prefix + image request is
+    (JAX's two ValueErrors); an image request with an adapter is served
+    (its tokens: test_torch_serving_lora.py)."""
+    with pytest.raises(ValueError, match="no stacked adapters"):
         engine("port", models).submit(PROMPTS[0], 4, pixels=IMAGES[0], adapter=0)
+    model = tl.stack_adapters([tl.replace_with_lora(torch.Generator().manual_seed(0), copy.deepcopy(models[1]), 4, 8,
+                                                    path_filter=lambda p: "/text/" in p and "att" in p)])
+    eng = ContinuousBatchingEngine(tq, model, dict(VLM_CFG, dtype=torch.float32), device="cpu", **ENGINE)
+    pid = eng.register_prefix(SYSPROMPT)
+    with pytest.raises(ValueError, match="prefix\\+multimodal"):
+        eng.submit(SUFFIXES[0], 4, prefix=pid, pixels=PREFIX_IMAGES[0])
+    eng.submit(PROMPTS[0], 4, pixels=IMAGES[0], adapter=0)
