@@ -21,9 +21,10 @@ at world 1 on one card), int8 Qwen3.5-0.8B text generation and int8
 Qwen3-Next cached decode, and the continuous-batching serving engine on
 bench.py's two serving cells and the int8 serve, and through its chunked,
 prefix and multimodal admissions, and the MoE families through the engine:
-Qwen3-30B-A3B at full width and depth, int8 and bf16, Qwen3-Next-small,
-Gemma-3-270M, DeepSeek-V3 small and MiMo-V2-Flash small. Phases, one JSON
-line each on stdout:
+Qwen3-30B-A3B at full width (24 of 48 layers), int8 and bf16, Qwen3-Next-small,
+Gemma-3-270M, DeepSeek-V3 small and MiMo-V2-Flash small, multi-LoRA serving
+of int8 Qwen3.5-0.8B, and speculative serving of Qwen3-4B with a Qwen3-0.6B
+draft. Phases, one JSON line each on stdout:
 
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
@@ -289,13 +290,12 @@ line each on stdout:
 23. engine_serve_moe_bf16, engine_moe_weights, engine_serve_moe_int8,
     engine_serve_next, engine_serve_next_int8, engine_families
     (``engine_moe_paths``), ``bench_serving_hetero``'s traffic: Qwen3-30B-A3B
-    (``qwen3_config_creator("30B-A3B")``: 48 layers, d 2048, 32/4 heads of
-    128, 128 experts top-8 of 768, 30.53 B parameters, seeded random
-    weights) in bf16 (16 slots, chunk 16, 16 requests, one serve; K4 at the
+    (``qwen3_config_creator("30B-A3B")``: d 2048, 32/4 heads of 128, 128
+    experts top-8 of 768, cut to MOE_LAYERS = 24 of its 48 layers, seeded
+    random weights) in bf16 (16 slots, chunk 16, 16 requests, one serve; K4 at the
     256 bucket; the experts by the per-expert loop with its host read), then
     quantized in place (linears and expert stacks; its seconds, peak memory
-    and sizes) with the int8 KV cache (32 slots, 48 requests, median of 3
-    serves; K4, K10 and K11 at E 128), Qwen3-Next-small (8 layers) in bf16
+    and sizes) with the int8 KV cache (32 slots, 48 requests, one serve; K4, K10 and K11 at E 128), Qwen3-Next-small (8 layers) in bf16
     (K1, K2) and int8 with the int8 KV cache (K1, K2, K11), whose decode
     step's control also zeroes the GDN states. Each first
     ``engine_vs_plain`` with K11 held too (every call within TOL, its
@@ -314,6 +314,35 @@ line each on stdout:
     384 columns), K10 (b 32, 32/4 heads, d 128, S 384) and K11 (E 128,
     top-8, 2048 -> 768 and 768 -> 2048 at T 256 and 65,536) at these
     shapes.
+24. engine_multi_lora_base, engine_multi_lora, engine_multi_lora_checks
+    (``engine_multi_lora``): int8 Qwen3.5-0.8B text, 12 layers of 24
+    (ENGINE_LAYERS), int8 KV,
+    uniform traffic, without and with 8 stacked r-16 adapters (request i on
+    adapter i mod 9), every first-wave row against an fp32 prefill through
+    its merged adapter within LORA_BAR beside the next adapter's merge.
+25. engine_spec_fp32, engine_spec, engine_spec_int8, engine_spec_summary
+    (``engine_spec``): speculative serving on
+    ``bench_spec_serving_flagship``'s traffic (32 greedy requests, 16
+    slots, chunk 8, γ 4, budgets U[16, 64]) with prompts U[8, 200]: first
+    a Qwen3.5 target refused for its recurrent cache (engine and
+    ``speculative_generate``); then Qwen3-4B (4 layers) with Qwen3-0.6B (2)
+    in fp32, every request's tokens equal to the plain engine's (a
+    near-tie within SPEC_TIE_BAR excepted and printed), the target as its
+    own draft committing γ + 1 every window, ``speculative_generate``
+    equal to ``generate_kv_cache``; then both at full width and depth in
+    bf16 and, quantized in place, int8 with the int8 KV cache: the first
+    wave's admission (K4 in both models at the 256 bucket) and a window
+    (K10 in the draft's steps over the int8 cache) held to the plain
+    versions (``HeldToPlain``), a window under the sync check, the serve
+    with the counts reset (each request its budget; every committed token's
+    logit, from an uncached forward, within ENGINE_PLAIN_BAR × max |row| of
+    its row's max beside a random-token control), windows and the mean
+    accepted n, the window's wall, device ms, kernels and busy share
+    (profiled), peak memory, useful tok/s beside the plain engine's (both)
+    and the rates projected at acceptance 0.56, 0.8 and 1.0 (not claimed:
+    random weights accept nothing). The kernel phase holds K4 (b 16, 32/8
+    heads, d 128, 256 queries against 384 columns) and K10 (b 16, 16/8
+    heads, d 128, S 384) at these shapes.
 
 K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
 tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
@@ -1893,6 +1922,12 @@ def k11_tiling_sweep(gen):
 # Qwen3-30B-A3B in the engine (``engine_moe_paths``): 32 slots, the 256-token admission bucket, 384 cache
 # columns, 32 q heads over 4 kv heads of 128, 128 experts top-8 with lin1/gate 2048 -> 768 and lin2 768 -> 2048
 MOE_SLOTS, MOE_BUCKET, MOE_MAX_LEN = 32, 256, 384
+# speculative serving (engine_spec): 16 slots, windows of gamma 4, 384 columns (a 256-token bucket, a 64-token
+# budget and the window's 4 columns past it fit); K4 at Qwen3-4B's heads in the admission wave, K10 at
+# Qwen3-0.6B's (the draft's steps over the int8 cache)
+SPEC_SLOTS, SPEC_GAMMA, SPEC_MAX_LEN = 16, 4, 384
+SPEC_K4 = (SPEC_SLOTS, (32, 8, 128), 256, SPEC_MAX_LEN)
+SPEC_K10 = (SPEC_SLOTS, (16, 8, 128), SPEC_MAX_LEN)
 MOE_HEADS = (32, 4, 128)  # q heads, kv heads, head dim
 MOE_EXPERTS, MOE_TOP_K = 128, 8
 MOE_MATS = {"lin1": (2048, 768), "lin2": (768, 2048)}
@@ -1906,20 +1941,21 @@ def prompt_mask(gen, b, s_len, lo=8, hi=200):
     return torch.arange(s_len, device=DEVICE)[None] < lens[:, None], lens
 
 
-def kernel_k4_gqa8(gen, dtypes):
+def kernel_k4_gqa8(gen, dtypes, shape=None, label="K4 gqa8"):
     """K4 at Qwen3-30B-A3B's admission wave: b 32, 32/4 heads of 128 (8 q
     heads a kv head), 256 queries at q_start 0 against the 384-column view
     of the wave's fresh cache, each row's keys real up to its prompt length
-    (U[8, 200]). fp32 and bf16 against the plain version, bf16 also tile by
-    tile (TILE_TOL) beside the plain version with the keys [64, 128) masked
-    out, which must read above the bar; timed (events and profiler) beside
-    ``sdpa`` with the same visibility as one boolean mask (k/v repeated to
-    the q heads: the masked kernels take no GQA)."""
+    (U[8, 200]); or at ``shape`` (b, (q heads, kv heads, d), sq, sk). fp32
+    and bf16 against the plain version, bf16 also tile by tile (TILE_TOL)
+    beside the plain version with the keys [64, 128) masked out, which must
+    read above the bar; timed (events and profiler) beside ``sdpa`` with the
+    same visibility as one boolean mask (k/v repeated to the q heads: the
+    masked kernels take no GQA)."""
     import torch
 
     from llm_quest_tpu_torch.kernels import attention as attn
 
-    b, (hq, hkv, d), sq, sk = MOE_SLOTS, MOE_HEADS, MOE_BUCKET, MOE_MAX_LEN
+    b, (hq, hkv, d), sq, sk = shape or (MOE_SLOTS, MOE_HEADS, MOE_BUCKET, MOE_MAX_LEN)
     key_mask, lens = prompt_mask(gen, b, sk)
     errs, errs_bf16, cases = [], [], []
     for dtype in dtypes:
@@ -1927,17 +1963,17 @@ def kernel_k4_gqa8(gen, dtypes):
         out = attn.flash_attention(q, k, v, attn_mask=key_mask)
         ref = attn.flash_attention(q, k, v, attn_mask=key_mask, plain=True)
         torch_sync()
-        e = check(f"K4 gqa8 {dtype}", out, ref, dtype)
+        e = check(f"{label} {dtype}", out, ref, dtype)
         case = {"dtype": str(dtype), "max_abs_err": e}
         if dtype == torch.bfloat16:
             case["tile_err"] = tile_rel_err(out, ref)
             if not case["tile_err"] <= TILE_TOL:
-                raise AssertionError(f"K4 gqa8: tile error {case['tile_err']} > {TILE_TOL}")
+                raise AssertionError(f"{label}: tile error {case['tile_err']} > {TILE_TOL}")
             drop = key_mask.clone()
             drop[:, 64:128] = False
             case["dropped_tile"] = tile_rel_err(attn.flash_attention(q, k, v, attn_mask=drop, plain=True), ref)
             if not case["dropped_tile"] > TILE_TOL:
-                raise AssertionError(f"K4 gqa8: a dropped key tile reads {case['dropped_tile']}, within {TILE_TOL}")
+                raise AssertionError(f"{label}: a dropped key tile reads {case['dropped_tile']}, within {TILE_TOL}")
             errs_bf16.append(e)
         else:
             errs.append(e)
@@ -1949,20 +1985,23 @@ def kernel_k4_gqa8(gen, dtypes):
     k_rep, v_rep = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = lambda: sdpa(q, k_rep, v_rep, attn_mask=visible[:, None])  # noqa: E731
-    check("K4 gqa8 vs sdpa (library)", lib(), call(), dtypes[-1])
+    check(f"{label} vs sdpa (library)", lib(), call(), dtypes[-1])
     # each query sees the keys at or before it that are real: sum over queries of min(i + 1, len)
     pairs = int(torch.minimum(rows[None] + 1, lens[:, None]).sum())
-    moved = 2 * nbytes(q) + nbytes(key_mask[:, :sq]) + 2 * b * hkv * sq * d * q.element_size()  # q, out, mask, k/v
+    # q, out and the mask whole; of k/v only the real keys a query can see: min(len, sq) columns a row
+    kv_cols = int(lens.clamp_max(sq).sum())
+    moved = 2 * nbytes(q) + nbytes(key_mask[:, :sq]) + 2 * hkv * d * kv_cols * q.element_size()
     extra = {**bound(moved, 4 * d * pairs * hq), "library_ms": cuda_ms(lib), "max_abs_err_bf16": max(errs_bf16),
              "tile_err_bf16": cases[-1]["tile_err"], "device_ms": device_ms(call, TC_KERNELS),
              "record": {"shape": {"b": b, "heads": [hq, hkv], "d": d, "sq": sq, "sk": sk}}}
     return max(errs), ms, plain_ms, cases, extra
 
 
-def kernel_k10_gqa8(gen, dtypes):
+def kernel_k10_gqa8(gen, dtypes, shape=None, label="K10 gqa8"):
     """K10 on Qwen3-30B-A3B's int8 cache in the engine's decode step: b 32,
-    32/4 heads of 128 (8 q heads a kv head, the kernel's most), 384 columns,
-    on the cache's strided layer views; fp32 q on the SIMT kernel, bf16 q on
+    32/4 heads of 128 (8 q heads a kv head, the kernel's most), 384 columns;
+    or at ``shape`` (b, (q heads, kv heads, d), S). On the cache's strided
+    layer views; fp32 q on the SIMT kernel, bf16 q on
     the tensor-core kernel (``tc_launches``). Checked as ``kernel_k10``:
     within TOL, each (batch, q head) row within K10_ROW_TOL beside a control
     with one 64-key tile masked out of the plain version, two runs
@@ -1974,7 +2013,7 @@ def kernel_k10_gqa8(gen, dtypes):
     from llm_quest_tpu_torch.ops.masks import mask_value
 
     w = fd.flash_decode
-    b, (hq, hkv, d), s_len = MOE_SLOTS, MOE_HEADS, MOE_MAX_LEN
+    b, (hq, hkv, d), s_len = shape or (MOE_SLOTS, MOE_HEADS, MOE_MAX_LEN)
     errs, errs_bf16, cases = [], [], []
     for dtype in dtypes:
         bf16 = dtype == torch.bfloat16
@@ -1987,18 +2026,18 @@ def kernel_k10_gqa8(gen, dtypes):
         out, tc = tc_count(w, call)
         ref = call(True)
         torch_sync()
-        tc_moved(f"K10 gqa8 {dtype}", tc, 0, int(bf16))
-        e = check(f"K10 gqa8 {dtype}", out, ref, dtype)
+        tc_moved(f"{label} {dtype}", tc, 0, int(bf16))
+        e = check(f"{label} {dtype}", out, ref, dtype)
         rows = k10_rows(out, ref)
         if not rows <= row_tol:  # also catches NaN
-            raise AssertionError(f"K10 gqa8 {dtype}: row error {rows} > {row_tol}")
+            raise AssertionError(f"{label} {dtype}: row error {rows} > {row_tol}")
         bias_drop = bias.clone()
         bias_drop[:, 128:192] = mask_value(torch.float32)
         dropped = k10_rows(out, call(True, bias_drop))
         if not dropped > row_tol:
-            raise AssertionError(f"K10 gqa8 {dtype}: a masked key tile reads {dropped}, within {row_tol}")
+            raise AssertionError(f"{label} {dtype}: a masked key tile reads {dropped}, within {row_tol}")
         if not torch.equal(out, call()):
-            raise AssertionError(f"K10 gqa8 {dtype}: two runs differ")
+            raise AssertionError(f"{label} {dtype}: two runs differ")
         case = {"dtype": str(dtype), "max_abs_err": e, "row_err": rows, "dropped_tile_row_err": dropped,
                 "tc_launches": tc}
         if bf16:
@@ -2400,8 +2439,10 @@ ENGINE_PATHS = (ENGINE_UNIFORM, ENGINE_HETERO, ENGINE_INT8, ENGINE_CHUNKED, ENGI
 ENGINE_MOE_INT8, ENGINE_MOE_BF16 = "engine_serve_moe_int8", "engine_serve_moe_bf16"
 ENGINE_NEXT, ENGINE_NEXT_INT8 = "engine_serve_next", "engine_serve_next_int8"
 ENGINE_FAMILIES = "engine_families"
-# multi-LoRA: int8 Qwen3.5-0.8B text at 24 layers with 8 stacked adapters, and the same engine without them
+# multi-LoRA: int8 Qwen3.5-0.8B text at ENGINE_LAYERS with 8 stacked adapters, and the same engine without them
 ENGINE_LORA, ENGINE_LORA_BASE = "engine_multi_lora", "engine_multi_lora_base"
+# speculative serving: Qwen3-4B with a Qwen3-0.6B draft, bf16, then int8 weights with the int8 KV cache
+ENGINE_SPEC, ENGINE_SPEC_INT8 = "engine_spec", "engine_spec_int8"
 # the attention records' sources by dtype: bf16 takes the tensor-core
 # kernels, fp32 the SIMT ones
 ATTN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/attention_tc.cu",
@@ -2479,6 +2520,14 @@ KERNELS = [
      "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4_gqa8, (ENGINE_MOE_INT8, ENGINE_MOE_BF16)),
     ("flash_decode_gqa8", ("flash_decode", "flash_decode"), FD_SRC,
      "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10_gqa8, (ENGINE_MOE_INT8,)),
+    # the speculative engine's: K4 at Qwen3-4B's admission wave (its launches count the draft's admission too),
+    # K10 at the Qwen3-0.6B draft's steps over the int8 cache
+    ("flash_attention_fwd_spec", ("attention", "flash_attention"), ATTN_SRC,
+     "llm_quest_tpu/kernels/flash_attention.py:544", partial(kernel_k4_gqa8, shape=SPEC_K4, label="K4 spec"),
+     (ENGINE_SPEC, ENGINE_SPEC_INT8)),
+    ("flash_decode_spec", ("flash_decode", "flash_decode"), FD_SRC,
+     "llm_quest_tpu/kernels/flash_decode.py:91", partial(kernel_k10_gqa8, shape=SPEC_K10, label="K10 spec"),
+     (ENGINE_SPEC_INT8,)),
     ("quantized_ragged_dot_e128", ("quantized_gmm", "quantized_ragged_dot"), QGMM_SRC,
      "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11_e128, (ENGINE_MOE_INT8,)),
     # K4 at one Gemma-3-270M layer: the SWA layers' window, the global layers'
@@ -5245,6 +5294,7 @@ def engine_admission_paths(records, card):
 # ------------------------------------------------- the MoE families through the engine
 
 
+MOE_LAYERS = 24  # of Qwen3-30B-A3B's 48, for the script's time (every layer is alike)
 MOE_BF16_SLOTS = 16  # the bf16 30B serve: 16 slots and 16 requests (its per-expert loop is the host's)
 # its decode chunk: a step takes ~0.77 s of host wall (~28,700 kernels; H100 80GB HBM3, 700 W), so the
 # warm-up's chunk and the chunks of the serve are 16 steps, not 64
@@ -5254,11 +5304,12 @@ FAMILY_SLOTS, FAMILY_REQUESTS = 8, 16
 
 def moe_cfg():
     """Qwen3-30B-A3B as the repo's config gives it (``qwen3_config_creator``;
-    Qwen/Qwen3-30B-A3B's ``config.json``): 48 layers, d 2048, 32/4 heads of
-    128, 128 experts top-8 of hidden 768, untied head, bf16."""
+    Qwen/Qwen3-30B-A3B's ``config.json``: 48 layers, d 2048, 32/4 heads of
+    128, 128 experts top-8 of hidden 768, untied head, bf16), cut to
+    MOE_LAYERS layers."""
     from llm_quest_tpu_torch.config import qwen3_config_creator
 
-    return qwen3_config_creator("30B-A3B")
+    return dict(qwen3_config_creator("30B-A3B"), n_layers=MOE_LAYERS)
 
 
 def weight_gb(model):
@@ -5266,8 +5317,8 @@ def weight_gb(model):
 
 
 def engine_moe_paths(records, card):
-    """Qwen3-30B-A3B at full width and depth through the engine (the hetero
-    traffic): bf16 (``engine_serve_moe_bf16``: 16 slots, 16 requests, one
+    """Qwen3-30B-A3B at full width, MOE_LAYERS of its 48 layers, through the
+    engine (the hetero traffic): bf16 (``engine_serve_moe_bf16``: 16 slots, 16 requests, one
     serve; K4), then the same weights quantized in place, linears and expert
     stacks, with the int8 KV cache (``engine_serve_moe_int8``: 32 slots, 48
     requests, one serve (the script's time), one decode step under the sync
@@ -5526,8 +5577,8 @@ def lora_vs_merged(model, cfg, traffic, served):
 
 
 def engine_multi_lora(records, card):
-    """Multi-LoRA serving: Qwen3.5-0.8B text at full width and all 24
-    layers, bf16, int8 weights (``quantize_params_int8`` at its defaults)
+    """Multi-LoRA serving: Qwen3.5-0.8B text at full width and
+    ENGINE_LAYERS of its 24 layers (the engine records' depth), bf16, int8 weights (``quantize_params_int8`` at its defaults)
     and the int8 KV cache, ``engine_serve_uniform``'s engine shape and
     traffic: first without adapters (``engine_multi_lora_base``: K1, K2,
     K10; no plain check, ``engine_serve_int8`` holds this setting to the
@@ -5545,7 +5596,7 @@ def engine_multi_lora(records, card):
     from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
 
     t0 = time.perf_counter()
-    cfg = dict(QWEN3_5_08B_CONFIG, dtype=torch.bfloat16)
+    cfg = dict(QWEN3_5_08B_CONFIG, n_layers=ENGINE_LAYERS, dtype=torch.bfloat16)
     model = text_model(cfg)
     quantize_params_int8(model)
     cfg = dict(cfg, kv_quant="int8")
@@ -5571,6 +5622,336 @@ def engine_multi_lora(records, card):
           "kernels_per_step_added": None if rec["kernels_per_step"] is None or base["kernels_per_step"] is None
           else rec["kernels_per_step"] - base["kernels_per_step"], "seconds": time.perf_counter() - t0})
     del model, stacked
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- speculative serving
+
+
+SPEC_REQUESTS, SPEC_CHUNK = 32, 8  # scripts/bench_spec_serving_flagship.py's requests and chunk
+SPEC_BUCKETS = (32, 64, 256)
+SPEC_FP32_LAYERS = (4, 2)  # the fp32 check's target and draft depth
+SPEC_PROFILE_WINDOWS = 1  # a traced window holds 16,000-23,000 kernels (the trace's reading is the costly part)
+SPEC_CHECK_BATCH = 8  # requests a batched uncached forward in ``committed_vs_uncached``
+SPEC_ALPHAS = (0.56, 0.8, 1.0)  # the acceptance rates JAX's script projects the window's cost at
+# the fp32 check's near-tie bar: a speculative token may differ from the plain engine's only where the
+# target's two largest logits there (one uncached fp32 forward) lie within SPEC_TIE_BAR × max |logits|: the
+# verify forward's (γ + 1)-query GEMMs and the decode step's 1-query ones sum in other orders (fp32 rounding
+# of ~1e-6 of max |logits| a layer at these widths)
+SPEC_TIE_BAR = 1e-4
+
+
+def spec_traffic():
+    """``bench_spec_serving_flagship``'s 32 greedy requests with budgets
+    U[16, 64], their prompts of ``bench_serving_hetero``'s lengths U[8, 200]
+    (the waves reach the 256 bucket, where K4 runs), seed 0:
+    [(ids, max_gen, {})]."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens, gens = rng.integers(8, 201, SPEC_REQUESTS), rng.integers(16, 65, SPEC_REQUESTS)
+    return [(list(map(int, rng.integers(1, 32_000, n))), int(g), {}) for n, g in zip(lens, gens)]
+
+
+def spec_models(dtype, layers=(None, None)):
+    """Qwen3-4B (target) and Qwen3-0.6B (draft) as the repo's config gives
+    them (``qwen3_config_creator``: Qwen/Qwen3-4B's and Qwen/Qwen3-0.6B's
+    config.json; full width, ``layers`` cuts the depth), seeded random
+    weights (the draft's from the next seed): (target, cfg, draft, cfg)."""
+    import torch
+
+    from llm_quest_tpu_torch.config import qwen3_config_creator
+    from llm_quest_tpu_torch.models import qwen3
+
+    cfgs = []
+    for size, n in zip(("4B", "0.6B"), layers):
+        cfg = dict(qwen3_config_creator(size), dtype=dtype)
+        cfgs.append(cfg if n is None else dict(cfg, n_layers=n))
+    target = init_model(qwen3, cfgs[0])
+    draft = qwen3.init(cfgs[1], generator=torch.Generator(device=DEVICE).manual_seed(SEED + 1), device=DEVICE)
+    return target, cfgs[0], draft, cfgs[1]
+
+
+def spec_engine(target, cfg, draft=None, draft_cfg=None, **kw):
+    """The speculative engine (the plain one without ``draft``) at the
+    record's shape: 16 slots, chunk 8, buckets 32/64/256, max_len 384, γ 4."""
+    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from llm_quest_tpu_torch.models import qwen3
+
+    spec = {} if draft is None else dict(draft_model=qwen3, draft_params=draft, draft_cfg=draft_cfg, gamma=SPEC_GAMMA)
+    shape = dict(n_slots=SPEC_SLOTS, max_len=SPEC_MAX_LEN, decode_chunk=SPEC_CHUNK, prefill_buckets=SPEC_BUCKETS)
+    return ContinuousBatchingEngine(qwen3, target, cfg, eos_ids=-1, pad_id=0, **{**shape, **spec, **kw})
+
+
+def uncached_logits(model, cfg, ids):
+    """(len(ids), vocab) fp32 logits of one uncached forward over ``ids``."""
+    return batch_logits(model, cfg, [ids])[0]
+
+
+def batch_logits(model, cfg, seqs):
+    """Each sequence's (len, vocab) fp32 logits from one uncached forward of
+    the right-padded batch (pads masked out of every key set)."""
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3
+
+    width = max(map(len, seqs))
+    ids = torch.zeros(len(seqs), width, dtype=torch.long, device=DEVICE)
+    mask = torch.zeros(len(seqs), width, dtype=torch.bool, device=DEVICE)
+    for j, seq in enumerate(seqs):
+        ids[j, : len(seq)] = torch.tensor(seq, device=DEVICE)
+        mask[j, : len(seq)] = True
+    with torch.inference_mode():
+        logits, _, _ = qwen3.apply(model, cfg, ids, attn_mask=mask if len(seqs) > 1 else None)
+    return [logits[j, : len(seq)].float() for j, seq in enumerate(seqs)]
+
+
+def near_tie(model, cfg, ids, got, ref, label):
+    """The first position where the token lists ``got`` and ``ref`` of the
+    prompt ``ids`` differ must be a near-tie of the target's: its two largest
+    logits there (one uncached forward) are the two tokens and lie within
+    SPEC_TIE_BAR × max |logits|. Returns the reading (None where equal)."""
+    if got == ref:
+        return None
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} tokens against {len(ref)}")
+    j = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+    logits = uncached_logits(model, cfg, ids + ref[:j])[-1]
+    top = logits.topk(2)
+    gap, bar = float(top.values[0] - top.values[1]), SPEC_TIE_BAR * float(logits.abs().max())
+    reading = {"position": j, "tokens": [got[j], ref[j]], "top2": top.indices.tolist(), "gap": gap, "bar": bar}
+    if not (set(top.indices.tolist()) == {got[j], ref[j]} and gap <= bar):
+        raise AssertionError(f"{label}: tokens differ at {j} where the target's logits are no near-tie: {reading}")
+    emit({"phase": "engine_spec_near_tie", "label": label, **reading})
+    return reading
+
+
+def spec_check_fp32(traffic):
+    """engine_spec_fp32: Qwen3-4B (4 of 36 layers) with Qwen3-0.6B (2 of
+    28), full width, fp32 (TF32 off): every request's speculative tokens
+    equal the plain engine's (a near-tie excepted: ``near_tie``); with the
+    target as its own draft every window commits γ + 1 (the first 16
+    requests: their row-windows are Σ ⌈budget / (γ + 1)⌉); and
+    ``speculative_generate`` on one prompt equals ``generate_kv_cache``.
+    Every K4 launch on the SIMT kernel (fp32)."""
+    import torch
+
+    from llm_quest_tpu_torch.inference.spec_decoding import speculative_generate
+    from llm_quest_tpu_torch.models import qwen3
+
+    t0 = time.perf_counter()
+    target, tcfg, draft, dcfg = spec_models(torch.float32, SPEC_FP32_LAYERS)
+    reset_launches()
+    plain, plain_s, _ = drive(spec_engine(target, tcfg), traffic)
+    eng = spec_engine(target, tcfg, draft, dcfg)
+    spec, spec_s, _ = drive(eng, traffic)
+    ties = [t for (ids, gen, _), a, b in zip(traffic, spec, plain)
+            if (t := near_tie(target, tcfg, ids, a, b, "engine_spec_fp32")) is not None]
+    if sum(map(len, spec)) != sum(gen for _, gen, _ in traffic):
+        raise AssertionError("engine_spec_fp32: a request did not get its budget")
+    selfd = spec_engine(target, tcfg, target, tcfg)
+    drive(selfd, traffic[:SPEC_SLOTS])
+    windows = sum(-(-gen // (SPEC_GAMMA + 1)) for _, gen, _ in traffic[:SPEC_SLOTS])
+    self_stats = selfd.stats()
+    if self_stats["row_windows"] != windows:
+        raise AssertionError(f"engine_spec_fp32: the self-draft took {self_stats['row_windows']} row-windows, "
+                             f"not {windows} (γ + 1 committed a window)")
+    ids, gen = traffic[0][0], 32
+    ref = generate(qwen3, target, tcfg, torch.tensor([ids], device=DEVICE), gen)[0, len(ids):].tolist()
+    out = speculative_generate(qwen3, target, tcfg, qwen3, draft, dcfg, [ids], max_gen=gen, draft_max_gen=SPEC_GAMMA)
+    single = out["sequences"][0, len(ids):].tolist()
+    tie = near_tie(target, tcfg, ids, single, ref, "speculative_generate_fp32")
+    check_routes("engine_spec_fp32", bf16=False)
+    stats = eng.stats()
+    emit({"phase": "engine_spec_fp32", "layers": list(SPEC_FP32_LAYERS), "requests": len(traffic),
+          "tokens": sum(map(len, spec)), "requests_equal": len(traffic) - len(ties), "near_ties": ties,
+          "windows": stats["windows"], "tokens_per_row_window": stats["tokens_per_row_window"],
+          "self_draft_row_windows": self_stats["row_windows"], "self_draft_tokens_per_row_window":
+          self_stats["tokens_per_row_window"], "speculative_generate_equal": tie is None,
+          "speculative_generate_windows": int(out["num_steps"]), "plain_s": plain_s, "spec_s": spec_s,
+          "seconds": time.perf_counter() - t0})
+    del target, draft
+    torch.cuda.empty_cache()
+
+
+def spec_refusal():
+    """The recurrent-cache refusal on the card: a Qwen3.5-0.8B text target
+    (2 of 24 layers, bf16) raises NotImplementedError in the engine and in
+    ``speculative_generate``."""
+    import torch
+
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG, qwen3_config_creator
+    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from llm_quest_tpu_torch.inference.spec_decoding import speculative_generate
+    from llm_quest_tpu_torch.models import qwen3, qwen3_5
+
+    cfg = dict(QWEN3_5_08B_CONFIG, n_layers=2, dtype=torch.bfloat16)
+    hybrid = text_model(cfg)
+    dcfg = dict(qwen3_config_creator("0.6B"), n_layers=2)
+    draft = init_model(qwen3, dcfg)
+    spec = dict(draft_model=qwen3, draft_params=draft, draft_cfg=dcfg, gamma=SPEC_GAMMA)
+    messages = []
+    for call in (lambda: ContinuousBatchingEngine(qwen3_5.TextOnly, hybrid, cfg, n_slots=SPEC_SLOTS,
+                                                  max_len=SPEC_MAX_LEN, **spec),
+                 lambda: speculative_generate(qwen3_5.TextOnly, hybrid, cfg, qwen3, draft, dcfg, [[1, 2, 3]],
+                                              max_gen=4, draft_max_gen=SPEC_GAMMA)):
+        try:
+            call()
+        except NotImplementedError as e:
+            messages.append(str(e))
+        else:
+            raise AssertionError("engine_spec: a Qwen3.5 target was not refused")
+    if not all("the target's cache holds recurrent state" in m for m in messages):
+        raise AssertionError(f"engine_spec: refusals name another fault: {messages}")
+    del hybrid, draft
+    torch.cuda.empty_cache()
+    return messages[0]
+
+
+def committed_vs_uncached(model, cfg, traffic, served):
+    """Each committed token's logit, from one uncached forward over its
+    prompt and committed tokens (SPEC_CHECK_BATCH requests a right-padded
+    batch), within ENGINE_PLAIN_BAR × max |row| of its row's maximum (the
+    engine records' bar); the control, a seeded random token at each
+    position, must read beyond the bar at most positions (else the bar could
+    not see a wrong token). The readings."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    gaps, ctrl, argmax = [], [], 0
+    pairs = [(ids, toks) for (ids, _, _), toks in zip(traffic, served)]
+    for i in range(0, len(pairs), SPEC_CHECK_BATCH):
+        chunk = pairs[i : i + SPEC_CHECK_BATCH]
+        for (ids, toks), logits in zip(chunk, batch_logits(model, cfg, [ids + toks for ids, toks in chunk])):
+            rows = logits[len(ids) - 1 : len(ids) - 1 + len(toks)]
+            top, bar = rows.amax(-1), ENGINE_PLAIN_BAR * rows.abs().amax(-1)
+            tok = torch.tensor(toks, device=DEVICE)
+            gaps.append((top - rows.gather(1, tok[:, None])[:, 0]) / bar)
+            rand = torch.randint(0, rows.shape[1], tok.shape, generator=gen, device=DEVICE)
+            ctrl.append((top - rows.gather(1, rand[:, None])[:, 0]) / bar)
+            argmax += int((rows.argmax(-1) == tok).sum())
+    gaps, ctrl = torch.cat(gaps), torch.cat(ctrl)
+    reading = {"max_gap_over_bar": float(gaps.max()), "tokens": int(gaps.numel()), "argmax_share":
+               argmax / gaps.numel(), "control_beyond_bar_share": float((ctrl > 1).float().mean()),
+               "bar": ENGINE_PLAIN_BAR}
+    if not (bool(torch.isfinite(gaps).all()) and reading["max_gap_over_bar"] <= 1.0):
+        raise AssertionError(f"engine_spec: a committed token's logit lies beyond the bar of its row's max: {reading}")
+    if not reading["control_beyond_bar_share"] > 0.5:
+        raise AssertionError(f"engine_spec: random tokens read within the bar: {reading}")
+    return reading
+
+
+def spec_record(path, target, tcfg, draft, dcfg, traffic, records, card):
+    """One speculative record: the first wave's admission and one window
+    with every K4/K10 call held to its plain version (``HeldToPlain``), the
+    next window under ``torch.cuda.set_sync_debug_mode`` "error" (no host
+    sync inside a chunk), then the serve with the counts reset (each
+    request its budget, every token in the vocabulary, the committed
+    tokens against an uncached forward: ``committed_vs_uncached``), a
+    profiled chunk of SPEC_PROFILE_WINDOWS windows and the plain engine on
+    the same traffic. One serve each (the script's
+    time); neither warmed by ``warmup``: the checks ran the first wave and
+    a window at the serve's shapes."""
+    import torch
+
+    t0 = time.perf_counter()
+    eng = spec_engine(target, tcfg, draft, dcfg, decode_chunk=1)
+    for ids, gen, _ in traffic[:SPEC_SLOTS]:
+        eng.submit(ids, gen)
+    toks = torch.zeros(2, SPEC_SLOTS, SPEC_GAMMA + 1, dtype=torch.long, device=DEVICE)
+    counts = torch.zeros(2, SPEC_SLOTS, dtype=torch.long, device=DEVICE)
+    with torch.inference_mode():
+        with HeldToPlain() as held:
+            eng._admit_pending()
+            eng._window(0, eng.eos_arr, toks, counts)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._window(1, eng.eos_arr, toks, counts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    del eng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = spec_engine(target, tcfg, draft, dcfg)
+    reset_launches()
+    served, seconds, _ = drive(engine, traffic)
+    launches = read_launches(path, records)
+    tc = {name: getattr(wrapper((module, name)), counter) for module, name, total, counter in TC_COUNTERS
+          if total == "launches"}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = engine.stats()
+    vocab = tcfg["vocab_size"]
+    for (_, gen, _), got in zip(traffic, served):
+        if len(got) != gen or not all(0 <= t < vocab for t in got):
+            raise AssertionError(f"{path}: a request got {len(got)} tokens for a budget of {gen}, or a token "
+                                 f"outside the vocabulary")
+    uncached = committed_vs_uncached(target, tcfg, traffic, served)
+    profile = engine_chunk_profile(
+        target, tcfg, "uniform", traffic, SPEC_PROFILE_WINDOWS, n_slots=SPEC_SLOTS, max_len=SPEC_MAX_LEN,
+        prefill_buckets=SPEC_BUCKETS, draft_model=entry_of(target), draft_params=draft, draft_cfg=dcfg,
+        gamma=SPEC_GAMMA)
+    useful = sum(map(len, served)) / seconds
+    ptoks, pseconds, _ = drive(spec_engine(target, tcfg), traffic)
+    plain = sum(map(len, ptoks)) / pseconds
+    tpw = stats["tokens_per_row_window"]
+    floor = useful / tpw  # the rate at one committed token a row-window
+    rec = {"phase": path, "card": card, "target": "Qwen3-4B", "draft": "Qwen3-0.6B", "dtype": "bfloat16",
+           "layers": [tcfg["n_layers"], dcfg["n_layers"]], "kv_quant": tcfg.get("kv_quant"),
+           "int8_weights": any(t.dtype == torch.int8 for t in target.state_dict().values()),
+           "requests": len(traffic), "n_slots": SPEC_SLOTS, "max_len": SPEC_MAX_LEN, "decode_chunk": SPEC_CHUNK,
+           "gamma": SPEC_GAMMA, "buckets": list(SPEC_BUCKETS), "useful_tok_s": useful, "serve_s": seconds,
+           "plain_useful_tok_s": plain, "plain_serve_s": pseconds, "spec_over_plain": useful / plain,
+           "windows": stats["windows"], "row_windows": stats["row_windows"], "decode_chunks": stats["decode_chunks"],
+           "tokens_per_row_window": tpw, "mean_accepted": tpw - 1, "window_wall_ms": seconds / stats["windows"] * 1e3,
+           "projected_tok_s_not_claimed": {f"alpha_{a}": floor * (1 + a * SPEC_GAMMA) for a in SPEC_ALPHAS},
+           "breakeven_alpha": (plain / floor - 1) / SPEC_GAMMA,
+           "ttft_p50_ms": None if stats.get("ttft_p50_s") is None else stats["ttft_p50_s"] * 1e3,
+           "stats": stats, "device_ms_per_window": profile["device_ms_per_step"],
+           "kernels_per_window": profile["kernels_per_step"], "busy_share": profile["busy_share"],
+           "profiled_chunk_wall_ms": profile["chunk_wall_ms"], "profiled_windows": SPEC_PROFILE_WINDOWS,
+           "launches": launches, "tc_launches": tc, "kernel_calls_vs_plain": held.readings,
+           "window_host_syncs": 0, "committed_vs_uncached": uncached, "peak_memory_gb": peak_gb,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
+def engine_spec(records, card):
+    """Speculative serving: the recurrent-cache refusal (Qwen3.5); the fp32
+    check (``spec_check_fp32``); then Qwen3-4B (36 layers, d 2560, 32/8
+    heads of 128, FFN 9728, vocab 151,936) with a Qwen3-0.6B draft (28
+    layers, d 1024, 16/8 heads) at full width and depth, bf16
+    (``engine_spec``: K4 at the 256 bucket in both models' admissions),
+    then both quantized in place (``quantize_params_int8``) with the int8
+    KV cache (``engine_spec_int8``: K4, and K10 in the draft's steps):
+    ``spec_record`` each, beside the plain engine, on ``spec_traffic``,
+    greedy."""
+    import torch
+
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
+
+    t0 = time.perf_counter()
+    traffic = spec_traffic()
+    refusal = spec_refusal()
+    spec_check_fp32(traffic)
+    t_init = time.perf_counter()
+    target, tcfg, draft, dcfg = spec_models(torch.bfloat16)
+    init_s = time.perf_counter() - t_init
+    bf16 = spec_record(ENGINE_SPEC, target, tcfg, draft, dcfg, traffic, records, card)
+    quantize_params_int8(target)
+    quantize_params_int8(draft)
+    torch.cuda.empty_cache()
+    int8 = spec_record(ENGINE_SPEC_INT8, target, dict(tcfg, kv_quant="int8"), draft, dict(dcfg, kv_quant="int8"),
+                       traffic, records, card)
+    emit({"phase": "engine_spec_summary", "card": card, "refusal": refusal, "init_s": init_s,
+          "weights_gb": [weight_gb(target), weight_gb(draft)],
+          "useful_tok_s": {"bf16": bf16["useful_tok_s"], "bf16_plain": bf16["plain_useful_tok_s"],
+                           "int8": int8["useful_tok_s"], "int8_plain": int8["plain_useful_tok_s"]},
+          "mean_accepted": {"bf16": bf16["mean_accepted"], "int8": int8["mean_accepted"]},
+          "seconds": time.perf_counter() - t0})
+    del target, draft
     torch.cuda.empty_cache()
 
 
@@ -5818,6 +6199,7 @@ def main(argv):
     phase(engine_admission_paths, records, smi)
     phase(engine_moe_paths, records, smi)
     phase(engine_multi_lora, records, smi)
+    phase(engine_spec, records, smi)
 
     emit({"phase": "device_timing", **PROFILER})
     emit({"phase": "phase_seconds", "build_s": lib.build_seconds, **PHASE_SECONDS,

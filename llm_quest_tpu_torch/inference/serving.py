@@ -46,6 +46,25 @@ refilled while the others keep decoding (iteration-level scheduling).
   asked for) and the finished column reach the host in ONE copy a chunk,
   into pinned memory behind an event, so with ``pipeline_depth`` 2 the
   host can dispatch the next chunk before reading it.
+- **Speculative windows** (``draft_model``, ``draft_params``,
+  ``draft_cfg``, ``gamma``): a decode chunk is up to ``decode_chunk``
+  draft-and-verify windows over all slots. The admission also prefills the
+  draft's pool cache (``state["d_cache"]``, the same slots and columns) and
+  keeps each row's last committed token (``state["last_tok"]``). A window
+  (``spec_decoding.py::draft_and_verify``, as in ``speculative_generate``):
+  γ draft steps from that token, then the last draft fed too (its K/V must
+  be in the draft cache, else a fully accepted window leaves a stale
+  column); one target forward over [last committed, γ drafted] at
+  positions seqpos − 1 + i, its column pointer at col − 1, against the
+  mask with the window's columns marked; the acceptance length n (greedy:
+  exact match; stochastic: u < p/q on ``spec_decoding.py::modified_probs``
+  of both models, a resample from norm(max(0, p − q)) or the bonus at row
+  position n; with per-request sampling greedy rows match exactly); n + 1
+  candidates cut at an EOS and at the row's budget, none for a finished
+  row; the mask rewound to the committed columns. Greedy tokens equal the
+  plain engine's. The chunk's tokens (n_slots, chunk·(γ+1)), counts
+  (n_slots, chunk) and finished column reach the host in one copy. The
+  target verifies through each slot's adapter; the draft is the base model.
 - **Retire/refill** on the host: read a chunk, credit its tokens to the
   requests resident at its dispatch, close those that finished, admit
   queued prompts into the freed slots.
@@ -115,24 +134,43 @@ Divergences by design from the JAX engine:
   host work, and it refills freed slots a chunk later: on an H100 depth 2
   served no faster than depth 1 (``chip_smoke.py``, engine_serve_uniform).
 
-Not ported yet (ROADMAP.md, Queue 1 item 3): speculative windows
-(``draft_*``, ``gamma``) and the mesh / expert-parallel engine (``mesh``,
-``param_rules``, ``cfg["expert_parallel"]``); each raises
-``NotImplementedError``.
+- the speculative engine refuses a target or draft whose cache holds
+  recurrent state (``inference/spec_decoding.py::check_kv_only``): JAX's
+  windows re-feed the last committed token and leave rejected drafts in the
+  cache, which advances a GDN state and its conv taps (JAX's engine gives
+  such targets wrong tokens);
+- a speculative window writes the γ + 1 columns [col − 1, col + γ) of every
+  row, finished ones included, and RoPE positions up to seqpos − 1 + γ, so
+  ``submit`` refuses a request unless prefix + bucket + max_gen + γ ≤
+  max_len (JAX checks prefix + bucket + max_gen and relies on clamped
+  writes past the end); speculation with chunked prefill and multi-LoRA
+  together is refused there too, where JAX raises when the wave admits;
+- the speculative engine refuses an engine-wide ``min_p`` as it refuses a
+  per-request one (JAX ignores the engine's);
+- a window feeds an empty slot's rows at positions from 0 (JAX feeds
+  them from −1, which its gathers clamp).
+
+Not ported yet (ROADMAP.md, Queue 1 item 3): the mesh / expert-parallel
+engine (``mesh``, ``param_rules``, ``draft_param_rules``,
+``cfg["expert_parallel"]``); each raises ``NotImplementedError``.
 """
 
 import statistics
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from functools import partial
 
 import numpy as np
 import torch
 
 from llm_quest_tpu_torch.config import resolve_device
 from llm_quest_tpu_torch.inference.generate import _is_eos, _normalize_eos
+from llm_quest_tpu_torch.inference.spec_decoding import (
+    accept_greedy, accept_window, check_kv_only, draft_and_verify, modified_probs,
+)
 from llm_quest_tpu_torch.ops.lora import num_adapters, select_adapter
-from llm_quest_tpu_torch.ops.sampling import sampling, sampling_per_row
+from llm_quest_tpu_torch.ops.sampling import draw, filter_probs_per_row, sampling, sampling_per_row
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512)
 LATER = "belongs to a later slice of the serving port (ROADMAP.md, Queue 1 item 3)"
@@ -212,6 +250,9 @@ class ContinuousBatchingEngine:
             module docstring).
         per_request_sampling: ``submit`` may override the sampler per request.
         return_logprobs: keep the raw-model logprob of each committed token.
+        draft_model / draft_params / draft_cfg: a draft model (its weights
+            on ``device``) to serve speculatively, ``gamma`` drafts a window
+            (module docstring); target and draft need KV-only caches.
         device: where the pool lives (None: the current CUDA device; raises
             without one).
     """
@@ -221,20 +262,28 @@ class ContinuousBatchingEngine:
         self, model, params, cfg, *, n_slots, max_len, decode_chunk=8, prefill_buckets=DEFAULT_BUCKETS,
         top_k=None, top_p=None, min_p=None, temp=0.0, eos_ids=None, pad_id=0, cache_dtype=None, generator=None,
         pipeline_depth=1, per_request_sampling=False, return_logprobs=False, device=None, mesh=None,
-        param_rules=None, draft_model=None, draft_params=None, draft_cfg=None, gamma=None, draft_param_rules=None,
+        param_rules=None, draft_model=None, draft_params=None, draft_cfg=None, gamma=4, draft_param_rules=None,
         prefill_chunk=None, pixel_transform=None,
     ):
         later = [name for name, value in (
-            ("mesh", mesh), ("param_rules", param_rules), ("draft_model", draft_model),
-            ("draft_params", draft_params), ("draft_cfg", draft_cfg), ("gamma", gamma),
-            ("draft_param_rules", draft_param_rules), ('cfg["expert_parallel"]', cfg.get("expert_parallel")),
+            ("mesh", mesh), ("param_rules", param_rules), ("draft_param_rules", draft_param_rules),
+            ('cfg["expert_parallel"]', cfg.get("expert_parallel")),
         ) if value is not None]
         if later:
             raise NotImplementedError(f"ContinuousBatchingEngine: {', '.join(later)} {LATER}")
         if top_p is not None and min_p is not None:
             raise ValueError("Cannot use top_p and min_p together")
-        if max_len > cfg.get("context_length", max_len):
-            raise ValueError(f"max_len {max_len} exceeds the RoPE tables' context_length {cfg['context_length']}")
+        self._spec = draft_model is not None
+        if self._spec:
+            if draft_params is None or draft_cfg is None:
+                raise ValueError("speculative serving needs draft_params and draft_cfg beside draft_model")
+            if return_logprobs:
+                raise ValueError("return_logprobs does not compose with speculative serving yet")
+            if min_p:
+                raise ValueError("min_p is not defined for the speculative modified-distribution scheme")
+        for c in (cfg, draft_cfg) if self._spec else (cfg,):
+            if max_len > c.get("context_length", max_len):
+                raise ValueError(f"max_len {max_len} exceeds the RoPE tables' context_length {c['context_length']}")
         self.device = resolve_device(device)
         self.model, self.params, self.cfg = model, params, cfg
         self.n_slots, self.max_len = n_slots, max_len
@@ -258,7 +307,12 @@ class ContinuousBatchingEngine:
         # included; 0 without adapters
         self._lora_n = num_adapters(params)
 
+        self.draft_model, self.draft_params, self.draft_cfg = draft_model, draft_params, draft_cfg
+        self.gamma = gamma
+
         cache = model.init_cache(cfg, n_slots, max_len, dtype=cache_dtype, device=self.device)
+        if self._spec:
+            check_kv_only(cache, "target")
         cache["pos"] = torch.zeros(n_slots, dtype=torch.long, device=self.device)  # per-row column pointer
         self.state = {
             "cache": cache,
@@ -272,7 +326,14 @@ class ContinuousBatchingEngine:
         }
         if self._lora_n:  # each slot's adapter, the null one while empty
             self.state["adapter"] = torch.full((n_slots,), self._lora_n - 1, dtype=torch.long, device=self.device)
+        if self._spec:  # the draft's pool cache (the target's slots and columns) and each row's last token
+            d_cache = draft_model.init_cache(draft_cfg, n_slots, max_len, dtype=cache_dtype, device=self.device)
+            check_kv_only(d_cache, "draft")
+            d_cache["pos"] = torch.zeros(n_slots, dtype=torch.long, device=self.device)
+            self.state["d_cache"] = d_cache
+            self.state["last_tok"] = torch.zeros(n_slots, dtype=torch.long, device=self.device)
         self._rows = torch.arange(n_slots, device=self.device)
+        self._cols = torch.arange(max_len, device=self.device)
         on_card = self.device.type == "cuda"
         # the early exit's flags: one a step (and one for the chunk's start)
         self._flags = torch.zeros(decode_chunk + 1, dtype=torch.bool, pin_memory=on_card)
@@ -289,6 +350,10 @@ class ContinuousBatchingEngine:
         self._n_waves = 0
         self._n_chunks = 0
         self._busy_slot_steps = 0
+        # speculative: windows run, and the tokens and live row-windows credited
+        self._n_windows = 0
+        self._spec_tokens = 0
+        self._spec_row_windows = 0
         # decode chunks in flight: the oldest drains while newer ones run.
         # Finished rows are sticky on the device and each in-flight chunk
         # keeps the slot -> request map of its dispatch, so late admissions
@@ -336,20 +401,14 @@ class ContinuousBatchingEngine:
         into the pool at ``slots`` (k,). ``adapters`` (k,): the rows'
         stacked adapters (with adapters in the params); ``chunk``: prefill
         through sequential calls of ``chunk`` columns (lb a multiple of it);
-        ``prefix``: (stored b = 1 cache, plen), whose row seeds every group
-        row, the wave holding the suffixes; ``pixels`` (k, ...) with
-        ``position_ids`` (3, k, lb) and ``next_pos`` (k,): a multimodal
-        wave and its 3-D MRoPE positions."""
+        ``prefix``: (stored b = 1 cache, plen[, the draft's stored cache]),
+        whose row seeds every group row, the wave holding the suffixes;
+        ``pixels`` (k, ...) with ``position_ids`` (3, k, lb) and ``next_pos``
+        (k,): a multimodal wave and its 3-D MRoPE positions. A speculative
+        engine prefills the draft's group cache through the same calls."""
         st = self.state
         k, lb = prompts.shape
-        if self._lora_n:
-            select_adapter(self.params, adapters)
-        if prefix is None:
-            plen = 0
-            grp_cache = self.model.init_cache(self.cfg, k, self.max_len, dtype=self.cache_dtype, device=self.device)
-        else:
-            pcache, plen = prefix
-            grp_cache = _repeat_row(pcache, k)
+        plen = 0 if prefix is None else prefix[1]
         grp_mask = torch.zeros(k, self.max_len, dtype=torch.bool, device=self.device)
         grp_mask[:, :plen] = True
         grp_mask[:, plen : plen + lb] = pmasks
@@ -361,26 +420,42 @@ class ContinuousBatchingEngine:
             if self._pixel_transform is not None:
                 pixels = self._pixel_transform(pixels)
             kw["image_pixels"] = pixels
-        logits = None
-        for c0 in range(0, lb, step):
-            # text positions are passed, not left to the model: the VLM's
-            # ``apply`` would count them from 0 rather than from the cache
-            pos = position_ids if pixels is not None else (
-                (plen + c0 + torch.arange(step, device=self.device))[None].expand(k, step))
-            out, grp_cache, _ = self.model.apply(
-                self.params, self.cfg, prompts[:, c0 : c0 + step], attn_mask=grp_mask, cache=grp_cache,
-                position_ids=pos, **kw,
-            )
-            # each row's last-token logits come from the call that holds its
-            # last real token (the rows of a chunked wave end in different chunks)
-            loc = real_len - 1 - c0
-            picked = out[rows, loc.clamp(0, step - 1)].float()
-            logits = picked if logits is None else torch.where(((loc >= 0) & (loc < step))[:, None], picked, logits)
-        # the column pointer of a row is its REAL length: decode overwrites
-        # the masked bucket-pad columns, so columns stay contiguous with tokens
-        grp_cache["pos"] = plen + real_len
+
+        def prefill(model, params, cfg, stored):
+            grp_cache = (model.init_cache(cfg, k, self.max_len, dtype=self.cache_dtype, device=self.device)
+                         if stored is None else _repeat_row(stored, k))
+            logits = None
+            for c0 in range(0, lb, step):
+                # text positions are passed, not left to the model: the VLM's
+                # ``apply`` would count them from 0 rather than from the cache
+                pos = position_ids if pixels is not None else (
+                    (plen + c0 + torch.arange(step, device=self.device))[None].expand(k, step))
+                out, grp_cache, _ = model.apply(
+                    params, cfg, prompts[:, c0 : c0 + step], attn_mask=grp_mask, cache=grp_cache, position_ids=pos,
+                    **kw,
+                )
+                # each row's last-token logits come from the call that holds its
+                # last real token (the rows of a chunked wave end in different chunks)
+                loc = real_len - 1 - c0
+                picked = out[rows, loc.clamp(0, step - 1)].float()
+                logits = picked if logits is None else torch.where(((loc >= 0) & (loc < step))[:, None], picked,
+                                                                   logits)
+            # the column pointer of a row is its REAL length: decode overwrites
+            # the masked bucket-pad columns, so columns stay contiguous with tokens
+            grp_cache["pos"] = plen + real_len
+            return logits, grp_cache
+
+        if self._lora_n:
+            select_adapter(self.params, adapters)
+        logits, grp_cache = prefill(self.model, self.params, self.cfg, None if prefix is None else prefix[0])
         for name, big in st["cache"].items():
             _insert_rows(big, grp_cache[name], slots)
+        if self._spec:  # the draft (the base model) prefills the same wave; windows re-feed the last token
+            _, grp_d = prefill(self.draft_model, self.draft_params, self.draft_cfg,
+                               None if prefix is None else prefix[2])
+            for name, big in st["d_cache"].items():
+                _insert_rows(big, grp_d[name], slots)
+            st["last_tok"][slots] = prompts[rows, real_len - 1]
         st["mask_buf"][slots] = grp_mask
         st["last_logits"][slots] = logits
         st["seqpos"][slots] = plen + real_len if next_pos is None else next_pos
@@ -428,23 +503,103 @@ class ContinuousBatchingEngine:
                   budget=budget)
         toks[i] = token
 
+    def _window_probs(self, logits):
+        """The modified distributions (fp32) of (n_slots, ..., v) logits under
+        each row's sampler (per-request sampling: greedy rows at temp 1, their
+        probabilities unused) or the engine's."""
+        if not self._row_sampling:
+            return modified_probs(logits, top_k=self.sample_kw["top_k"], top_p=self.sample_kw["top_p"],
+                                  temp=self.sample_kw["temp"])
+        row = self._sample_dev
+        t_eff = torch.where(row[:, 0] > 0, row[:, 0], 1.0).reshape((-1,) + (1,) * (logits.ndim - 1))
+        return filter_probs_per_row(torch.softmax(logits.float() / t_eff, dim=-1), top_k=row[:, 1].long(),
+                                    top_p=row[:, 2], max_top_k=int(self._slot_sample[:, 1].max()))
+
+    def _window(self, i, eos, toks, counts):
+        """One draft-and-verify window over every slot (module docstring):
+        its tokens (n_slots, γ + 1), pad past each row's count, go to
+        ``toks[i]`` and the counts to ``counts[i]``. Finished rows commit
+        nothing and keep their column, position and budget."""
+        st = self.state
+        g = self.gamma
+        greedy = not (self._row_sampling or self.sample_kw["temp"])
+        stochastic_row = self._sample_dev[:, 0] > 0 if self._row_sampling else None
+
+        def propose(logits):
+            if greedy:
+                return logits.argmax(dim=-1), None
+            probs = self._window_probs(logits)
+            tok = draw(self.generator, probs)
+            if stochastic_row is not None:  # greedy rows draft by argmax
+                tok = torch.where(stochastic_row, tok, logits.argmax(dim=-1))
+            return tok, probs
+
+        def accept(t_logits, drafted, d_probs):
+            if greedy:
+                return accept_greedy(t_logits, drafted)
+            n, corr = accept_window(self.generator, self._window_probs(t_logits), d_probs, drafted)
+            if stochastic_row is not None:  # greedy rows: exact match, the argmax correction
+                g_n, g_corr = accept_greedy(t_logits, drafted)
+                n, corr = torch.where(stochastic_row, n, g_n), torch.where(stochastic_row, corr, g_corr)
+            return n, corr
+
+        finished, budget, seqpos = st["finished"], st["budget"], st["seqpos"]
+        col = st["cache"]["pos"]  # one past each row's last committed column
+        colm1 = (col - 1).clamp_min(0)  # empty slots at 0
+        # the window's columns are valid for the forwards; rewound after the acceptance
+        win = (self._cols >= colm1[:, None]) & (self._cols <= (colm1 + g)[:, None])
+        if self._lora_n:  # the target verifies through each slot's adapter (the draft is the base model)
+            select_adapter(self.params, st["adapter"])
+        cand, num_new, any_eos, cache, d_cache = draft_and_verify(
+            (self.model, self.params, self.cfg, st["cache"]),
+            (self.draft_model, self.draft_params, self.draft_cfg, st["d_cache"]),
+            st["last_tok"], colm1, g, propose=propose, accept=accept, eos=eos, junk=self.pad_id,
+            mask=st["mask_buf"] | win, pos0=(seqpos - 1).clamp_min(0),
+        )
+        num_new = torch.where(finished, 0, torch.minimum(num_new, budget))
+        budget = budget - num_new
+        new_col = col + num_new
+        cache["pos"] = new_col
+        st.update(
+            cache=cache, d_cache=d_cache,
+            mask_buf=torch.where(win, self._cols < new_col[:, None], st["mask_buf"]),  # the committed columns
+            last_tok=torch.where(num_new > 0, cand.gather(1, (num_new - 1).clamp_min(0)[:, None])[:, 0],
+                                 st["last_tok"]),
+            seqpos=seqpos + num_new, finished=finished | ((num_new != 0) & any_eos) | (budget <= 0), budget=budget,
+        )
+        toks[i] = torch.where(self._cols[None, : g + 1] < num_new[:, None], cand, self.pad_id)
+        counts[i] = num_new
+
     def _decode_chunk(self, eos):
-        """Up to ``decode_chunk`` steps, ending one step after the pool is all
-        finished (module docstring). Returns the (n_slots, chunk·(1 or 2) + 1)
+        """Up to ``decode_chunk`` steps (speculative: windows), ending one
+        step after the pool is all finished (module docstring). Returns the
         int32 packing of the tokens, the bitcast logprobs and the finished
-        column, still on the device."""
+        column, (n_slots, chunk·(1 or 2) + 1), or of the windows' tokens,
+        counts and the finished column, (n_slots, chunk·(γ + 2) + 1), still on
+        the device."""
         W = self.decode_chunk
-        toks = torch.full((W, self.n_slots), self.pad_id, dtype=torch.long, device=self.device)
-        lps = torch.zeros(W, self.n_slots, dtype=torch.float32, device=self.device) if self._logprobs else None
+        if self._spec:
+            toks = torch.full((W, self.n_slots, self.gamma + 1), self.pad_id, dtype=torch.long, device=self.device)
+            counts = torch.zeros(W, self.n_slots, dtype=torch.long, device=self.device)
+            step = partial(self._window, eos=eos, toks=toks, counts=counts)
+        else:
+            toks = torch.full((W, self.n_slots), self.pad_id, dtype=torch.long, device=self.device)
+            lps = torch.zeros(W, self.n_slots, dtype=torch.float32, device=self.device) if self._logprobs else None
+            step = partial(self._decode_step, eos=eos, toks=toks, lps=lps)
         self._flag(0, self.state["finished"])
         for i in range(W):
             if i and self._all_finished(i - 1):
                 break
-            self._decode_step(i, eos, toks, lps)
+            step(i)
+            if self._spec:
+                self._n_windows += 1
             self._flag(i + 1, self.state["finished"])
-        cols = [toks.T.int()]
-        if lps is not None:
-            cols.append(lps.T.contiguous().view(torch.int32))
+        if self._spec:
+            cols = [toks.transpose(0, 1).reshape(self.n_slots, -1).int(), counts.T.int()]
+        else:
+            cols = [toks.T.int()]
+            if lps is not None:
+                cols.append(lps.T.contiguous().view(torch.int32))
         cols.append(self.state["finished"][:, None].int())
         return torch.cat(cols, dim=1)
 
@@ -460,8 +615,12 @@ class ContinuousBatchingEngine:
         to warm the multimodal admissions too. Everything the scratch
         admissions touch is restored after: the pool (the per-slot adapters
         included), the slot map, the request table, the per-slot sampler
-        rows, the wave count and the generator."""
-        saved = (self.state, self._slot_req, self._requests, self._slot_sample, self._sample_dev, self._n_waves)
+        rows, the wave count, the window count and the generator. A
+        speculative engine warms the draft's admissions and the windows."""
+        if self._spec and image_shape is not None:
+            raise ValueError("multimodal requests are not supported in speculative serving yet")
+        saved = (self.state, self._slot_req, self._requests, self._slot_sample, self._sample_dev, self._n_waves,
+                 self._n_windows)
         gen_state = self.generator.get_state()
         self.state = _clone(self.state)
         self._slot_req, self._requests, self._slot_sample = list(self._slot_req), {}, self._slot_sample.copy()
@@ -487,13 +646,16 @@ class ContinuousBatchingEngine:
                     adapters=self._upload(np.full(k, self._adapter_id(None), np.int64)) if self._lora_n else None,
                 )
         # every scratch row gets a budget past the chunk (the admissions gave
-        # 1, which would end the chunk after one step) but inside its columns,
-        # and the chunk an eos no token matches
-        self.state["budget"].fill_(min(self.decode_chunk + 2, self.max_len - 1))
+        # 1, which would end the chunk after one step; a window commits up to
+        # γ + 1) but inside its columns (a window writes γ past its row's
+        # last), and the chunk an eos no token matches
+        over = self.gamma if self._spec else 0
+        self.state["budget"].fill_(min((self.decode_chunk + 2) * (over + 1), self.max_len - 1 - over))
         self.state["finished"].zero_()
         self._decode_chunk(torch.full_like(self.eos_arr, -1))
         self._sync()
-        self.state, self._slot_req, self._requests, self._slot_sample, self._sample_dev, self._n_waves = saved
+        (self.state, self._slot_req, self._requests, self._slot_sample, self._sample_dev, self._n_waves,
+         self._n_windows) = saved
         self.generator.set_state(gen_state)
 
     def _sync(self):
@@ -519,7 +681,8 @@ class ContinuousBatchingEngine:
         continues from the stored state. ``adapter``: the row prefills
         through stacked adapter ``adapter`` (None: the base), and the
         requests on this prefix must name the same one (its K/V hold it).
-        Returns the prefix id."""
+        A speculative engine prefills the draft's row beside it. Returns the
+        prefix id."""
         self._check_adapter(adapter)
         ids = np.asarray(ids, np.int64).reshape(-1)
         if "image_token_id" in self.cfg and np.any(ids == self.cfg["image_token_id"]):
@@ -530,18 +693,24 @@ class ContinuousBatchingEngine:
         plen = len(ids)
         if plen + min(self.buckets) >= self.max_len:
             raise ValueError(f"prefix of {plen} leaves no room in max_len {self.max_len}")
-        cache = self.model.init_cache(self.cfg, 1, self.max_len, dtype=self.cache_dtype, device=self.device)
         mask = torch.zeros(1, self.max_len, dtype=torch.bool, device=self.device)
         mask[:, :plen] = True
+        ids_dev = self._upload(ids[None])
+
+        def prefill(model, params, cfg):
+            cache = model.init_cache(cfg, 1, self.max_len, dtype=self.cache_dtype, device=self.device)
+            _, cache, _ = model.apply(params, cfg, ids_dev, attn_mask=mask, cache=cache,
+                                      position_ids=torch.arange(plen, device=self.device)[None])
+            cache["pos"] = plen  # suffix waves write from column plen
+            return cache
+
         if self._lora_n:
             select_adapter(self.params, self._upload(np.asarray([self._adapter_id(adapter)], np.int64)))
-        _, cache, _ = self.model.apply(
-            self.params, self.cfg, self._upload(ids[None]), attn_mask=mask, cache=cache,
-            position_ids=torch.arange(plen, device=self.device)[None],
-        )
-        cache["pos"] = plen  # suffix waves write from column plen
+        rows = (prefill(self.model, self.params, self.cfg), plen)
+        if self._spec:  # the draft's row beside the target's
+            rows += (prefill(self.draft_model, self.draft_params, self.draft_cfg),)
         pid = len(self._prefixes)
-        self._prefixes[pid] = (cache, plen)
+        self._prefixes[pid] = rows
         self._prefix_adapter[pid] = adapter
         return pid
 
@@ -568,6 +737,8 @@ class ContinuousBatchingEngine:
         request (None: the base model). ``temp``/``top_k``/``top_p``/``min_p``:
         per-request sampler overrides (engine built with
         ``per_request_sampling=True``; unset knobs take the engine's)."""
+        if self._spec and pixels is not None:
+            raise ValueError("multimodal requests are not supported in speculative serving yet")
         self._check_adapter(adapter)
         if self._lora_n and pixels is not None and prefix is not None:
             raise ValueError("multi-LoRA does not compose with prefix+multimodal yet")
@@ -581,6 +752,11 @@ class ContinuousBatchingEngine:
         plen = self._prefixes[prefix][1] if prefix is not None else 0
         if plen + lb + max_gen > self.max_len:
             raise ValueError(f"prefix {plen} + bucket {lb} + max_gen {max_gen} exceeds max_len {self.max_len}")
+        if self._spec and plen + lb + max_gen + self.gamma > self.max_len:
+            raise ValueError(f"prefix {plen} + bucket {lb} + max_gen {max_gen} + gamma {self.gamma} exceeds max_len "
+                             f"{self.max_len}: a speculative window writes gamma columns past a row's last")
+        if self._spec and self._lora_n and prefix is None and lb > self.buckets[-1]:
+            raise ValueError("spec + chunked prefill + multi-LoRA is not wired yet")
         sample_row = None
         if any(v is not None for v in (temp, top_k, top_p, min_p)):
             if not self._row_sampling:
@@ -592,6 +768,8 @@ class ContinuousBatchingEngine:
             )
             if sample_row[2] < 1.0 and sample_row[3] > 0.0:  # the effective combination
                 raise ValueError("Cannot use top_p and min_p together")
+            if self._spec and sample_row[3] > 0.0:
+                raise ValueError("min_p is not defined for the speculative modified-distribution scheme")
         rid = self._next_rid
         self._next_rid += 1
         req = _Request(rid, ids, max_gen, prefix=prefix, pixels=None if pixels is None else np.asarray(pixels),
@@ -714,13 +892,23 @@ class ContinuousBatchingEngine:
         toks, finished, lps = packed[:, :W], packed[:, -1].astype(bool), None
         if self._logprobs:
             lps = np.ascontiguousarray(packed[:, W : 2 * W]).view(np.float32)
+        if self._spec:
+            g1 = self.gamma + 1
+            toks, counts = packed[:, : W * g1].reshape(-1, W, g1), packed[:, W * g1 : W * g1 + W]
         for slot, req in enumerate(smap):
             if req is None or req.done:
                 continue
-            take = min(W, req.max_gen - len(req.tokens))
-            req.tokens.extend(int(t) for t in toks[slot, :take])
-            if lps is not None:
-                req.logprobs.extend(float(v) for v in lps[slot, :take])
+            if self._spec:
+                for w in range(W):
+                    take = min(int(counts[slot, w]), req.max_gen - len(req.tokens))
+                    req.tokens.extend(int(t) for t in toks[slot, w, :take])
+                self._spec_tokens += int(counts[slot].sum())
+                self._spec_row_windows += int((counts[slot] > 0).sum())
+            else:
+                take = min(W, req.max_gen - len(req.tokens))
+                req.tokens.extend(int(t) for t in toks[slot, :take])
+                if lps is not None:
+                    req.logprobs.extend(float(v) for v in lps[slot, :take])
             if req.tokens and req.t_first == 0.0:
                 # drain-time stamp: includes the pipeline's lag (depth 1 = true TTFT)
                 req.t_first = now
@@ -786,10 +974,13 @@ class ContinuousBatchingEngine:
 
     def stats(self):
         """Host-side serving statistics: request counts, tokens, admit waves,
-        decode chunks, slot utilization; once a request finished, TTFT,
-        latency and queue-wait percentiles and generated tok/s. Stamps are
-        taken when a chunk drains (with depth > 1 they include the
-        pipeline's lag)."""
+        decode chunks, slot utilization; a speculative engine's windows run,
+        the windows its live rows took part in (``row_windows``) and the
+        tokens committed a row-window (1 to γ + 1: the mean accepted n plus
+        one, less where an EOS or a budget cut a window); once a
+        request finished, TTFT, latency and queue-wait percentiles and
+        generated tok/s. Stamps are taken when a chunk drains (with depth > 1
+        they include the pipeline's lag)."""
         done = [r for r in self._requests.values() if r.done]
         out = {
             "requests_submitted": len(self._requests),
@@ -801,6 +992,9 @@ class ContinuousBatchingEngine:
                 self._busy_slot_steps / (self._n_chunks * self.n_slots) if self._n_chunks else 0.0
             ),
         }
+        if self._spec:
+            out.update(windows=self._n_windows, row_windows=self._spec_row_windows, tokens_per_row_window=(
+                self._spec_tokens / self._spec_row_windows if self._spec_row_windows else None))
         if done:
             ttft = [r.t_first - r.t_submit for r in done if r.t_first]
             lat = [r.t_done - r.t_submit for r in done]

@@ -288,12 +288,23 @@ def test_prefix_refusals(models):
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(draft_model=tq.TextOnly), dict(gamma=4)],
                          ids=["mesh", "draft", "gamma"])
 def test_later_slices_still_refused_with_the_new_paths(models, kw):
-    """Speculative windows and the mesh still raise, also on an engine with
-    chunked prefill and prefixes; an adapter on a prefix of params without
-    stacked adapters raises JAX's ValueError (multi-LoRA itself is served:
+    """The mesh still raises, also on an engine with chunked prefill and
+    prefixes; speculation over this hybrid target raises for its recurrent
+    cache (speculative windows over KV caches are served:
+    test_torch_serving_spec.py); JAX's default γ 4 without a draft builds
+    the plain engine; an adapter on a prefix of params without stacked
+    adapters raises JAX's ValueError (multi-LoRA itself is served:
     test_torch_serving_lora.py)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        engine("port", models, "hybrid", **CHUNKED, **kw)
+    if "gamma" in kw:
+        assert not engine("port", models, "hybrid", **CHUNKED, **kw)._spec
+    elif "draft_model" in kw:
+        _, _, _, tp, cfg = models["hybrid"]
+        with pytest.raises(NotImplementedError, match="the target's cache holds recurrent state"):
+            engine("port", models, "hybrid", **CHUNKED, **kw, draft_params=tp,
+                   draft_cfg=dict(cfg, dtype=torch.float32))
+    else:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+            engine("port", models, "hybrid", **CHUNKED, **kw)
     eng = engine("port", models, "hybrid", **CHUNKED)
     with pytest.raises(ValueError, match="no stacked adapters"):
         eng.submit(SHORT, 4, prefix=eng.register_prefix(HYB_PREFIX), adapter=0)

@@ -484,9 +484,14 @@ def test_engine_stats_keys(jax_runs, port_runs):
 def test_engine_refuses_later_slices_and_bad_requests(models):
     _, _, tm, tp, cfg = models["dense"]
     base = dict(n_slots=2, max_len=32, prefill_buckets=(8,), device="cpu")
-    for kw in (dict(mesh=object()), dict(draft_model=tm), dict(gamma=4), dict(param_rules=[])):
+    for kw in (dict(mesh=object()), dict(param_rules=[]), dict(draft_param_rules=[])):
         with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
             ContinuousBatchingEngine(tm, tp, tcfg(cfg), **base, **kw)
+    # speculation is served (test_torch_serving_spec.py): a draft needs its
+    # weights and config, and JAX's default gamma alone builds the plain engine
+    with pytest.raises(ValueError, match="draft_params and draft_cfg"):
+        ContinuousBatchingEngine(tm, tp, tcfg(cfg), **base, draft_model=tm)
+    assert not ContinuousBatchingEngine(tm, tp, tcfg(cfg), **base, gamma=4)._spec
     with pytest.raises(NotImplementedError, match="expert_parallel"):
         ContinuousBatchingEngine(tm, tp, dict(tcfg(cfg), expert_parallel={}), **base)
     eng = ContinuousBatchingEngine(tm, tp, tcfg(cfg), **base)
