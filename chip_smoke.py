@@ -21,10 +21,13 @@ at world 1 on one card), int8 Qwen3.5-0.8B text generation and int8
 Qwen3-Next cached decode, and the continuous-batching serving engine on
 bench.py's two serving cells and the int8 serve, and through its chunked,
 prefix and multimodal admissions, and the MoE families through the engine:
-Qwen3-30B-A3B at full width (24 of 48 layers), int8 and bf16, Qwen3-Next-small,
+Qwen3-30B-A3B at full width (12 of 48 layers), int8 and bf16, Qwen3-Next-small,
 Gemma-3-270M, DeepSeek-V3 small and MiMo-V2-Flash small, multi-LoRA serving
-of int8 Qwen3.5-0.8B, and speculative serving of Qwen3-4B with a Qwen3-0.6B
-draft. Phases, one JSON line each on stdout:
+of int8 Qwen3.5-0.8B, speculative serving of Qwen3-4B with a Qwen3-0.6B
+draft, GPT-2 124M training (and ``training_eval_loop`` at
+``scripts/gpt_training.py``'s settings), Llama-3.2-1B training and serving,
+and Hyper-Qwen3 training at Qwen3-0.6B's widths. Phases, one JSON line each
+on stdout:
 
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
@@ -252,8 +255,8 @@ draft. Phases, one JSON line each on stdout:
     to a b = k prefill of the wave, their distance from a b = 1 prefill
     reported), device ms, kernels and busy share a decode step (a profiled
     8-step chunk), and the share of greedy tokens equal to
-    ``generate_kv_cache``'s (reported, not gated: random weights give
-    near-tied logits).
+    ``generate_kv_cache``'s (reported, not gated here: random weights give
+    near-tied logits; ``engine_families`` gates it at a bf16 near-tie bar).
 22. engine_chunked_prefill, engine_prefix, engine_vlm
     (``engine_admission_paths``): the engine's chunked, prefix and
     multimodal admissions at full width, bf16 (chunked and multimodal at
@@ -291,7 +294,7 @@ draft. Phases, one JSON line each on stdout:
     engine_serve_next, engine_serve_next_int8, engine_families
     (``engine_moe_paths``), ``bench_serving_hetero``'s traffic: Qwen3-30B-A3B
     (``qwen3_config_creator("30B-A3B")``: d 2048, 32/4 heads of 128, 128
-    experts top-8 of 768, cut to MOE_LAYERS = 24 of its 48 layers, seeded
+    experts top-8 of 768, cut to MOE_LAYERS = 12 of its 48 layers, seeded
     random weights) in bf16 (16 slots, chunk 16, 16 requests, one serve; K4 at the
     256 bucket; the experts by the per-expert loop with its host read), then
     quantized in place (linears and expert stacks; its seconds, peak memory
@@ -304,12 +307,14 @@ draft. Phases, one JSON line each on stdout:
     with its peak memory, each kernel's launches a multiple of its calls a
     forward, and, for the int8 30B pool, one decode step under
     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync). Then
-    Gemma-3 at Gemma-3-270M's widths (18 layers), DeepSeek-V3 small and
-    MiMo-V2-Flash small (12 layers), bf16, 8 slots, 16 greedy requests: no
-    kernel launches (``sdpa`` on the cache, as in JAX), useful tok/s, the
-    share of tokens equal to ``generate_kv_cache``'s, finite admission
-    logits, MiMo's cached prefill logits beside its uncached forward, and
-    its fp32 cached tokens (4 layers) equal to ``generate_loop_uncached``'s.
+    GPT-2 124M (12 layers), Gemma-3 at Gemma-3-270M's widths (18 layers),
+    DeepSeek-V3 small and MiMo-V2-Flash small (12 layers), bf16, 8 slots, 16
+    greedy requests: no kernel launches (``sdpa`` on the cache, as in JAX),
+    useful tok/s, the greedy tokens against ``generate_kv_cache``'s, gated
+    (a request leaves the reference only at a bf16 near-tie: ``near_tie``
+    at BF16_LOGIT_BAR), finite admission logits, MiMo's cached prefill
+    logits beside its uncached forward, and its fp32 cached tokens (4
+    layers) equal to ``generate_loop_uncached``'s.
     The kernel phase holds K4 (b 32, 32/4 heads, d 128, 256 queries against
     384 columns), K10 (b 32, 32/4 heads, d 128, S 384) and K11 (E 128,
     top-8, 2048 -> 768 and 768 -> 2048 at T 256 and 65,536) at these
@@ -343,6 +348,34 @@ draft. Phases, one JSON line each on stdout:
     random weights accept nothing). The kernel phase holds K4 (b 16, 32/8
     heads, d 128, 256 queries against 384 columns) and K10 (b 16, 16/8
     heads, d 128, S 384) at these shapes.
+26. gpt2_fp32, gpt2_train, gpt2_training_eval_loop (``gpt2_train``):
+    GPT-2 124M widths cut to 2 layers, b 2, s 1024, fp32, the loss and every
+    gradient through the kernels against the plain versions; then
+    ``GPT_CONFIG_124M`` at full width and depth, b 8, s 1024, bf16,
+    fused-head CE, as phase 9: K4 forward and backward 12 times a step; then
+    ``training_eval_loop`` at ``scripts/gpt_training.py``'s settings
+    (``GPT_SMALL_CONFIG``, b 8, s 256, 2 epochs of its seeded synthetic
+    corpus, dropout 0.1 from a generator on the card): the evaluated train
+    losses finite and falling, K4 backward 12 times a step;
+27. llama_fp32, llama_train (``llama_train``): Llama-3.2-1B's widths
+    (``LLAMA32_SMALL_CONFIG_1B``) cut to 2 layers in fp32 (b 1, s 2048,
+    kernels against plain), then all 16 layers at b 4, s 2048, bf16, as
+    phase 9: K4 (GQA 32/8, d 64) forward and backward 16 times a step;
+28. hyper_qwen3_fp32_{hc,mhc,mhc-lite}, hyper_qwen3_train
+    (``hyper_qwen3_train``): Hyper-Qwen3 at Qwen3-0.6B's widths with 4
+    streams, each hc_type at 2 layers in fp32 (b 1, s 2048, kernels against
+    plain), then mHC-lite at HYPER_LAYERS = 8 of 28 layers, b 4, s 2048,
+    bf16, as phase 9: K4 forward and backward 8 times a step;
+29. engine_serve_llama, engine_serve_llama_int8 (``engine_llama``, last):
+    Llama-3.2-1B at full width and depth through the engine on
+    ``bench_serving_hetero``'s traffic (32 slots, chunk 64, 48 requests), in
+    bf16 and quantized in place (linears and tied table) with the int8 KV
+    cache, one serve each, each as phase 21 (held to the plain
+    versions first; no kernel runs on this path, as in JAX). The kernel
+    phase holds K4 at one layer of GPT-2 124M's step (b 8, 12/12 heads of
+    64, s 1024; forward, and forward + backward) and of Llama-3.2-1B's (b 4,
+    32/8 heads of 64, s 2048; forward + backward), each bf16 result per
+    64-row tile within TILE_TOL beside the dropped-key-tile control.
 
 K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
 tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
@@ -1214,6 +1247,10 @@ MIMO_WINDOW = 128
 # one attention layer of DeepSeek-V3 small's train step: MLA's 12 heads (as
 # many kv heads), q/k 96 (latent-up 64 and decoupled RoPE 32), v 64, causal
 DSV3_K4 = {"b": 4, "hq": 12, "hkv": 12, "s": 2048, "d": 96, "dv": 64}
+# one attention layer of GPT-2 124M's train step (b 8, s 1024, 12 heads of 64)
+# and of Llama-3.2-1B's (b 4, s 2048, 32 q / 8 kv heads of 64), causal
+GPT2_K4 = {"b": 8, "hq": 12, "hkv": 12, "s": 1024, "d": 64}
+LLAMA_K4 = {"b": 4, "hq": 32, "hkv": 8, "s": 2048, "d": 64}
 
 
 def visible_pairs(s, window=None):
@@ -1222,12 +1259,14 @@ def visible_pairs(s, window=None):
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def k4_case(gen, dtypes, *, shape=GEMMA_K4, window=None, softcap=None, sink=False, backward=False):
+def k4_case(gen, dtypes, *, shape=GEMMA_K4, window=None, softcap=None, sink=False, backward=False, tiles=False):
     """K4 at ``shape`` (v's head dim ``dv``, default d) with the given
     features against its plain version in each dtype (the output, and with
     ``backward`` dq/dk/dv and dsink through autograd), then the kernel, the
     plain version and (without softcap or sinks) ``F.scaled_dot_product_attention``
-    on the dense mask timed in bf16."""
+    on the dense mask timed in bf16. With ``tiles`` (a causal call without
+    window, softcap or sinks) the bf16 results are also held per 64-row tile
+    (TILE_TOL) beside the dropped-key-tile control (``dropped_tile``)."""
     import torch
 
     from llm_quest_tpu_torch.kernels import attention as attn
@@ -1258,6 +1297,9 @@ def k4_case(gen, dtypes, *, shape=GEMMA_K4, window=None, softcap=None, sink=Fals
         err = {n: check(f"{label} {n}", g, r, dtype) for n, g, r in zip(names, got, ref)}
         case = {"dtype": str(dtype), "max_abs_err": err, "max_abs_ref": {n: max_err(g, r)[1]
                                                                         for n, g, r in zip(names, got, ref)}}
+        if tiles and dtype == dtypes[-1]:
+            case["tile_err"] = check_tiles(label, got, ref, names)
+            case["tile_err_dropped_tile"] = dropped_tile(label, leaves[:3], do, ref, names, causal=True)
         del got, ref
         # the record's error is the fp32 (SIMT) one, as for the other kernels; bf16 runs on the tensor cores
         (errs if dtype == dtypes[0] else errs_bf16).append(max(err.values()))
@@ -1302,6 +1344,8 @@ def k4_case(gen, dtypes, *, shape=GEMMA_K4, window=None, softcap=None, sink=Fals
                                        "device_ms")}
     extra["shape"] = {**shape, "window": window, "softcap": softcap, "sink": sink, "backward": backward}
     extra["max_abs_err_bf16"] = max(errs_bf16)
+    if tiles:
+        extra["tile_err_bf16"] = max(rec["tile_err"].values())
     return max(errs), rec["ms"], rec["plain_ms"], cases, extra
 
 
@@ -2443,6 +2487,10 @@ ENGINE_FAMILIES = "engine_families"
 ENGINE_LORA, ENGINE_LORA_BASE = "engine_multi_lora", "engine_multi_lora_base"
 # speculative serving: Qwen3-4B with a Qwen3-0.6B draft, bf16, then int8 weights with the int8 KV cache
 ENGINE_SPEC, ENGINE_SPEC_INT8 = "engine_spec", "engine_spec_int8"
+# GPT-2 124M, Llama-3.2-1B and Hyper-Qwen3 trained; Llama-3.2-1B served, bf16, then int8 weights with the
+# int8 KV cache (no kernel: ``sdpa`` on the cache, as in JAX)
+GPT2_TRAIN, LLAMA_TRAIN, HYPER_TRAIN = "gpt2_train", "llama_train", "hyper_qwen3_train"
+ENGINE_LLAMA, ENGINE_LLAMA_INT8 = "engine_serve_llama", "engine_serve_llama_int8"
 # the attention records' sources by dtype: bf16 takes the tensor-core
 # kernels, fp32 the SIMT ones
 ATTN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/attention_tc.cu",
@@ -2485,12 +2533,22 @@ KERNELS = [
       ENGINE_LORA_BASE)),
     ("flash_attention_fwd", ("attention", "flash_attention"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4,
-     (GENERATE, TRAIN, HYBRID, ENGINE_HETERO, ENGINE_CHUNKED, ENGINE_PREFIX)),
+     (GENERATE, TRAIN, HYBRID, HYPER_TRAIN, ENGINE_HETERO, ENGINE_CHUNKED, ENGINE_PREFIX)),
     # K4 at one chunk of the chunked admission (q_start up to 7680 against 8320 cache columns)
     ("flash_attention_fwd_chunked", ("attention", "flash_attention"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4_chunked, (ENGINE_CHUNKED,)),
     ("flash_attention_bwd", ("attention", "flash_attention_bwd"), ATTN_SRC,
-     "llm_quest_tpu/kernels/flash_attention.py:175", kernel_k4_bwd, (TRAIN, HYBRID)),
+     "llm_quest_tpu/kernels/flash_attention.py:175", kernel_k4_bwd, (TRAIN, HYBRID, HYPER_TRAIN)),
+    # K4 at one layer of GPT-2 124M's train step (forward, and forward + backward) and of Llama-3.2-1B's
+    # (forward + backward), each held per 64-row tile in bf16 beside the dropped-tile control
+    ("flash_attention_fwd_gpt2", ("attention", "flash_attention"), ATTN_SRC,
+     "llm_quest_tpu/kernels/flash_attention.py:544", partial(k4_case, shape=GPT2_K4, tiles=True), (GPT2_TRAIN,)),
+    ("flash_attention_fwd_bwd_gpt2", ("attention", "flash_attention_bwd"), ATTN_SRC,
+     "llm_quest_tpu/kernels/flash_attention.py:175", partial(k4_case, shape=GPT2_K4, backward=True, tiles=True),
+     (GPT2_TRAIN,)),
+    ("flash_attention_fwd_bwd_llama", ("attention", "flash_attention_bwd"), ATTN_SRC,
+     "llm_quest_tpu/kernels/flash_attention.py:175", partial(k4_case, shape=LLAMA_K4, backward=True, tiles=True),
+     (LLAMA_TRAIN,)),
     # K7: its bf16 forward is the short-sequence tensor-core kernel (fp32: the
     # SIMT flash forward of attention.cu); its backward the flash recompute
     # kernels (attention_tc.cu in bf16, attention.cu in fp32), counted as "bwd"
@@ -3310,7 +3368,7 @@ def init_model(model_mod, cfg):
     return model_mod.init(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
 
 
-def grads_check(phase, model_mod, cfg, b, s, *, fused=True, invariant=None, loss_fn=None,
+def grads_check(phase, model_mod, cfg, b, s, *, fused=True, invariant=None, group=None, loss_fn=None,
                 loss_rtol=TRAIN_LOSS_RTOL, grad_rtol=TRAIN_GRAD_RTOL, batch=None):
     """One fp32 step's loss and gradients, kernels vs plain, same weights;
     ``fused``: the fused-head CE (a model without it takes the full logits).
@@ -3319,7 +3377,10 @@ def grads_check(phase, model_mod, cfg, b, s, *, fused=True, invariant=None, loss
     input. ``invariant`` maps the name of a leaf whose gradient
     is zero in exact arithmetic (fp32 noise on both sides, so no relative
     bar) to the leaf that scales it: both its gradients must stay under
-    ``grad_rtol`` times that leaf's (plain) gradient."""
+    ``grad_rtol`` times that leaf's (plain) gradient. ``group`` maps a
+    leaf's name to a group (or None): a grouped leaf's error is taken
+    relative to the largest plain gradient of its group, not its own (for
+    leaves whose own gradient is a sum that cancels down to fp32 noise)."""
     import torch
 
     from llm_quest_tpu_torch.training import engine
@@ -3342,6 +3403,10 @@ def grads_check(phase, model_mod, cfg, b, s, *, fused=True, invariant=None, loss
         raise AssertionError(f"{phase} loss, kernels {lk} vs plain {lp}: rel {loss_rel} > {loss_rtol}")
     worst_name, worst, worst_zero = None, 0.0, 0.0
     by_name = dict(zip(names, gp))
+    group_scale = {}
+    for name, r in by_name.items():
+        if group is not None and group(name) is not None:
+            group_scale[group(name)] = max(group_scale.get(group(name), 0.0), float(r.abs().max()))
     for name, a, r in zip(names, gk, gp):
         ref_name = invariant(name) if invariant else None
         if ref_name is not None:
@@ -3351,6 +3416,8 @@ def grads_check(phase, model_mod, cfg, b, s, *, fused=True, invariant=None, loss
             worst_zero = max(worst_zero, rel)
             continue
         diff, scale = float((a - r).abs().max()), float(r.abs().max())
+        if group is not None and group(name) is not None:
+            scale = group_scale[group(name)]
         rel = diff / scale if scale > 0 else diff  # a leaf no token reached: both must be zero
         if not rel <= grad_rtol:
             raise AssertionError(f"{phase} grad {name}: max |kernel - plain| / max |plain| = {rel} > {grad_rtol}")
@@ -3912,6 +3979,163 @@ def cp_paths(records, card):
         dist.destroy_process_group()
 
 
+# ------------------------------------------ GPT-2, Llama-3.2 and Hyper-Qwen3 training
+
+
+GPT2_STEP = {"flash_attention_fwd_gpt2": 12, "flash_attention_fwd_bwd_gpt2": 12}  # K4 launches a 124M step
+# scripts/gpt_training.py's settings (its synthetic corpus: 40 windows of 256 ids below 1000, seed 0)
+GPT_SCRIPT = {"batch_size": 8, "num_epoch": 2, "peak_lr": 4e-4, "init_lr": 1e-5, "min_lr": 1e-5, "warmup_steps": 10,
+              "decay": "cosine", "weight_decay": 0.1, "eval_freq": 5, "eval_iter": 2, "max_length": 256}
+HC_STREAMS = 4  # Hyper-Qwen3's expansion rate (scripts/hyper_qwen3_training.py's)
+HYPER_LAYERS = 8  # of Qwen3-0.6B's 28
+
+
+def gpt2_cfg(base, n_layers, dtype, **kw):
+    return dict(base, n_layers=n_layers, dtype=dtype, **kw)
+
+
+def gpt_script_corpus():
+    """``scripts/gpt_training.py``'s synthetic fallback corpus and its
+    loaders: 36 training windows (4 batches of 8, shuffled with seed 0) and
+    4 validation windows (no full batch: an empty loader, as in JAX)."""
+    import numpy as np
+
+    from llm_quest_tpu_torch.data.datasets import data_loader
+
+    n = GPT_SCRIPT["max_length"]
+    ids = np.random.default_rng(0).integers(0, 1000, size=(40 * n + 1,))
+    inputs, targets = ids[:-1].reshape(-1, n).astype(np.int32), ids[1:].reshape(-1, n).astype(np.int32)
+    split = int(0.9 * len(inputs))
+    bs = GPT_SCRIPT["batch_size"]
+    return (data_loader((inputs[:split], targets[:split]), bs, shuffle=True),
+            data_loader((inputs[split:], targets[split:]), bs))
+
+
+def gpt2_train(records, card):
+    """GPT-2: the fp32 check (124M widths cut to 2 layers, b 2, s 1024: loss
+    and gradients through the kernels against the plain versions, the key
+    biases' against their weights' scale), then
+    ``GPT_CONFIG_124M`` at full width and depth (12 layers, vocabulary
+    50,257), b 8, s 1024, bf16, fused-head CE, 1 + 4 steps: K4 forward and
+    backward 12 times a step, all on the tensor cores; then
+    ``training_eval_loop`` at ``scripts/gpt_training.py``'s settings on its
+    seeded synthetic corpus (``GPT_SMALL_CONFIG``, bf16, b 8, s 256, 2
+    epochs, dropout 0.1 from a generator on the card): the evaluated train
+    losses finite and falling, K4 on the tensor cores."""
+    import math
+
+    import torch
+
+    from llm_quest_tpu_torch.config import GPT_CONFIG_124M, GPT_SMALL_CONFIG
+    from llm_quest_tpu_torch.models import gpt2
+    from llm_quest_tpu_torch.training import engine
+
+    # a bias common to every key adds one constant to a row's scores, which the softmax cancels: the key
+    # biases' gradients are zero but for noise
+    grads_check("gpt2_fp32", gpt2, gpt2_cfg(GPT_CONFIG_124M, 2, torch.float32), 2, 1024,
+                invariant=lambda n: n[:-2] + ".w" if n.endswith("att.wk.b") else None)
+    train_run(GPT2_TRAIN, gpt2, gpt2_cfg(GPT_CONFIG_124M, 12, torch.bfloat16), records, card, GPT2_TRAIN, GPT2_STEP,
+              b=8, s=1024)
+
+    cfg = gpt2_cfg(GPT_SMALL_CONFIG, GPT_SMALL_CONFIG["n_layers"], torch.bfloat16, drop_rate=0.1)
+    train_loader, val_loader = gpt_script_corpus()
+    model = gpt2.init(cfg, generator=torch.Generator(device=DEVICE).manual_seed(123), device=DEVICE)
+    knobs = {k: GPT_SCRIPT[k] for k in ("num_epoch", "peak_lr", "init_lr", "min_lr", "warmup_steps", "decay",
+                                         "weight_decay", "eval_freq", "eval_iter")}
+    logs = []
+    reset_launches()
+    t0 = time.perf_counter()
+    _, train_losses, val_losses = engine.training_eval_loop(
+        gpt2, cfg, model, train_loader, val_loader, timing=True, log=logs.append,
+        generator=torch.Generator(device=DEVICE).manual_seed(SEED), **knobs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(GPT2_TRAIN, records, add=False)
+    if not all(math.isfinite(x) for x in train_losses) or not train_losses[-1] < train_losses[0]:
+        raise AssertionError(f"gpt2 training_eval_loop: train losses not finite and falling: {train_losses}")
+    steps = len(train_loader) * GPT_SCRIPT["num_epoch"]
+    emit({"phase": "gpt2_training_eval_loop", "card": card, "dtype": "bfloat16", "drop_rate": cfg["drop_rate"],
+          "b": GPT_SCRIPT["batch_size"], "s": GPT_SCRIPT["max_length"], "steps": steps,
+          "train_losses": train_losses, "val_losses": [None if math.isnan(x) else x for x in val_losses], "log": logs,
+          "k4_fwd": launches["flash_attention_fwd_gpt2"], "k4_bwd": launches["flash_attention_fwd_bwd_gpt2"],
+          "seconds": seconds, "tok_s": steps * GPT_SCRIPT["batch_size"] * GPT_SCRIPT["max_length"] / seconds})
+    if launches["flash_attention_fwd_bwd_gpt2"] != 12 * steps:
+        raise AssertionError(f"gpt2 training_eval_loop: {launches['flash_attention_fwd_bwd_gpt2']} K4 backward "
+                             f"launches in {steps} steps")
+    del model
+    torch.cuda.empty_cache()
+
+
+def llama_cfg(n_layers, dtype):
+    """``LLAMA32_SMALL_CONFIG_1B`` (Llama-3.2-1B's widths: d 2048, 32 q / 8 kv
+    heads of 64, FFN 8192, vocabulary 128,256, tied head) at ``n_layers`` of
+    its 16; the model runs the unscaled RoPE tables (its "rope_freq" is
+    refused by ``rope_tables(scaled=True)``, as JAX's is)."""
+    from llm_quest_tpu_torch.config import LLAMA32_SMALL_CONFIG_1B
+
+    return dict(LLAMA32_SMALL_CONFIG_1B, n_layers=n_layers, dtype=dtype)
+
+
+def llama_train(records, card):
+    """Llama-3.2-1B: the fp32 check (2 layers, b 1, s 2048: loss and
+    gradients through the kernels against the plain versions), then the
+    full model (16 layers) at b 4, s 2048, bf16, fused-head CE over the tied
+    table, 1 + 4 steps: K4 forward and backward 16 times a step (GQA 32/8,
+    d 64), all on the tensor cores."""
+    import torch
+
+    from llm_quest_tpu_torch.models import llama3
+
+    grads_check("llama_fp32", llama3, llama_cfg(2, torch.float32), 1, 2048)
+    n = llama_cfg(16, torch.bfloat16)["n_layers"]
+    train_run(LLAMA_TRAIN, llama3, llama_cfg(n, torch.bfloat16), records, card, LLAMA_TRAIN,
+              {"flash_attention_fwd": n, "flash_attention_fwd_bwd_llama": n})
+
+
+def hyper_model(hc_type):
+    """``models.hyper_qwen3`` with ``init`` building ``hc_type`` bundles over
+    HC_STREAMS streams (the entry the train step and ``grads_check`` take)."""
+    import types
+
+    from llm_quest_tpu_torch.models import hyper_qwen3
+
+    return types.SimpleNamespace(
+        __name__=f"hyper_qwen3[{hc_type}]", apply=hyper_qwen3.apply, head_weights=hyper_qwen3.head_weights,
+        init=partial(hyper_qwen3.init, hc_type=hc_type, expansion_rate=HC_STREAMS))
+
+
+def hyper_cfg(n_layers, dtype):
+    """``qwen3_config_creator("0.6B")`` (Qwen/Qwen3-0.6B's widths: d 1024,
+    16 q / 8 kv heads of 128, FFN 3072, vocabulary 151,936, tied head) at
+    ``n_layers`` of its 28."""
+    from llm_quest_tpu_torch.config import qwen3_config_creator
+
+    return dict(qwen3_config_creator("0.6B"), n_layers=n_layers, dtype=dtype)
+
+
+def hyper_qwen3_train(records, card):
+    """Hyper-Qwen3 at Qwen3-0.6B's widths with HC_STREAMS streams: the fp32
+    check of each ``hc_type`` (hc, mhc, mhc-lite; 2 layers, b 1, s 2048:
+    loss and gradients, the bundles' included, through the kernels against
+    the plain versions, each bundle leaf relative to its bundle's largest
+    gradient), then mHC-lite at HYPER_LAYERS of 28 layers, b 4, s
+    2048, bf16, fused-head CE, 1 + 4 steps: K4 forward and backward once a
+    layer a step (16/8 heads of 128), all on the tensor cores."""
+    import torch
+
+    # at init the streams are equal: an H_pre gradient is a sum over tokens that nearly cancels (the
+    # RMSNorm after it is almost scale-invariant), and mHC's H_res gradients pass through a projection
+    # near a permutation (exp(-8) off its diagonal). Such a leaf's fp32 noise is its own scale (0.1 of
+    # it on the CPU, fp32 against fp64), but at most 2e-5 of its bundle's largest gradient: every
+    # bundle leaf is held to that
+    for hc_type in ("hc", "mhc", "mhc-lite"):
+        grads_check(f"hyper_qwen3_fp32_{hc_type}", hyper_model(hc_type), hyper_cfg(2, torch.float32), 1, 2048,
+                    group=lambda n: n.split(".hc_")[0] + ".hc_" + n.split(".hc_")[1].split(".")[0]
+                    if ".hc_" in n else None)
+    train_run(HYPER_TRAIN, hyper_model("mhc-lite"), hyper_cfg(HYPER_LAYERS, torch.bfloat16), records, card,
+              HYPER_TRAIN, {"flash_attention_fwd": HYPER_LAYERS, "flash_attention_bwd": HYPER_LAYERS})
+
+
 # ------------------------------------------------------------ serving paths
 
 
@@ -4152,10 +4376,11 @@ def engine_traffic(kind):
 
 def model_module(model):
     """The port's module of ``model`` (``models.qwen3_5`` for its text model)."""
-    from llm_quest_tpu_torch.models import deepseek_v3, gemma3, mimo_v2_flash, qwen3, qwen3_next
+    from llm_quest_tpu_torch.models import deepseek_v3, gemma3, gpt2, llama3, mimo_v2_flash, qwen3, qwen3_next
 
     for mod, cls in ((qwen3, qwen3.Qwen3), (qwen3_next, qwen3_next.Qwen3Next), (gemma3, gemma3.Gemma3),
-                     (deepseek_v3, deepseek_v3.DeepSeekV3), (mimo_v2_flash, mimo_v2_flash.MiMoV2Flash)):
+                     (deepseek_v3, deepseek_v3.DeepSeekV3), (mimo_v2_flash, mimo_v2_flash.MiMoV2Flash),
+                     (gpt2, gpt2.GPT2), (llama3, llama3.Llama3)):
         if isinstance(model, cls):
             return mod
     from llm_quest_tpu_torch.models import qwen3_5
@@ -4255,14 +4480,14 @@ def b1_logits(model, cfg, traffic):
     return torch.stack(rows)
 
 
-def held_to_bar(name, got, ref, control):
-    """``got`` within ENGINE_PLAIN_BAR × max |ref| of the plain ``ref``, and
-    the ``control`` beyond it (else the bar could not see a fault of its
-    size): the readings."""
+def held_to_bar(name, got, ref, control, rel_bar=ENGINE_PLAIN_BAR):
+    """``got`` within ``rel_bar`` (default ENGINE_PLAIN_BAR) × max |ref| of the
+    plain ``ref``, and the ``control`` beyond it (else the bar could not see
+    a fault of its size): the readings."""
     import torch
 
     err, scale = max_err(got, ref)
-    bar = ENGINE_PLAIN_BAR * scale
+    bar = rel_bar * scale
     per_row = (control.float() - ref.float()).abs().amax(-1)
     if not (torch.isfinite(got).all() and err <= bar):
         raise AssertionError(f"{name}: the engine's logits differ from the plain versions' by {err} > {bar}")
@@ -4458,7 +4683,7 @@ class HeldToPlain:
         return False
 
 
-def engine_vs_plain(model, cfg, kind, traffic, rows, step_control="mask", **engine_kw):
+def engine_vs_plain(model, cfg, kind, traffic, rows, step_control="mask", rel_bar=ENGINE_PLAIN_BAR, **engine_kw):
     """The engine's first admission wave (the first ``rows`` requests; fewer
     than the slots leaves some empty) and its first decode step, at the
     record's width, depth and dtype, each kernel call in them held to its
@@ -4491,7 +4716,7 @@ def engine_vs_plain(model, cfg, kind, traffic, rows, step_control="mask", **engi
         with unwatched():
             admission = held_to_bar(f"{kind} admission", engine.state["last_logits"][:rows],
                                     wave_logits(engine, model, plain_cfg, wave),
-                                    wave_logits(engine, model, plain_cfg, wave, drop=True))
+                                    wave_logits(engine, model, plain_cfg, wave, drop=True), rel_bar)
         saved, gen_state = _clone(engine.state), engine.generator.get_state()
         logits = {}
         for run in ("kernels", "plain", "control"):
@@ -4514,7 +4739,8 @@ def engine_vs_plain(model, cfg, kind, traffic, rows, step_control="mask", **engi
         engine.cfg = cfg
     if not bool(torch.isfinite(logits["kernels"]).all()):
         raise AssertionError(f"{kind}: the decode step's logits are not finite (empty slots included)")
-    step = held_to_bar(f"{kind} decode step", *(logits[run][:rows] for run in ("kernels", "plain", "control")))
+    step = held_to_bar(f"{kind} decode step", *(logits[run][:rows] for run in ("kernels", "plain", "control")),
+                       rel_bar)
     return {"rows": rows, "empty_slots": engine.n_slots - rows, "admission_vs_plain": admission,
             "decode_step_vs_plain": step, "kernel_calls_vs_plain": held.readings}
 
@@ -4604,7 +4830,8 @@ def engine_chunk_profile(model, cfg, kind, traffic, steps=ENGINE_PROFILE_STEPS, 
 
 def engine_record(path, model, cfg, kind, records, card, check_rows, depths=(), *, requests=ENGINE_REQUESTS,
                   serves=3, layer_calls=None, sync_check=False, step_control="mask", warm=True, agree=True,
-                  profile_steps=ENGINE_PROFILE_STEPS, traffic=None, vs_plain=True, **engine_kw):
+                  profile_steps=ENGINE_PROFILE_STEPS, traffic=None, vs_plain=True, plain_bar=ENGINE_PLAIN_BAR,
+                  **engine_kw):
     """One serving record: the engine held to the plain versions
     (``engine_vs_plain`` over the first ``check_rows`` requests), then
     ``warmup`` (resolving ``pipeline_depth``; without ``warm`` none: the
@@ -4628,14 +4855,16 @@ def engine_record(path, model, cfg, kind, records, card, check_rows, depths=(), 
     ``requests``: the first of the traffic's 48; ``step_control``:
     ``engine_vs_plain``'s; ``traffic``: the requests in place of
     ``engine_traffic(kind)``'s (their knobs go to ``submit``); without
-    ``vs_plain`` no plain check; ``engine_kw``: the engine's shape over
+    ``vs_plain`` no plain check; ``plain_bar``: the plain check's relative
+    bar (``held_to_bar``); ``engine_kw``: the engine's shape over
     ``engine_for``'s. Returns the emitted record and the first serve's
     tokens."""
     import torch
 
     t_start = time.perf_counter()
     traffic = (engine_traffic(kind) if traffic is None else traffic)[:requests]
-    plain = engine_vs_plain(model, cfg, kind, traffic, check_rows, step_control, **engine_kw) if vs_plain else None
+    plain = (engine_vs_plain(model, cfg, kind, traffic, check_rows, step_control, plain_bar, **engine_kw)
+             if vs_plain else None)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     engine = engine_for(model, cfg, kind, **engine_kw)
@@ -5294,7 +5523,7 @@ def engine_admission_paths(records, card):
 # ------------------------------------------------- the MoE families through the engine
 
 
-MOE_LAYERS = 24  # of Qwen3-30B-A3B's 48, for the script's time (every layer is alike)
+MOE_LAYERS = 12  # of Qwen3-30B-A3B's 48, for the script's time (every layer is alike)
 MOE_BF16_SLOTS = 16  # the bf16 30B serve: 16 slots and 16 requests (its per-expert loop is the host's)
 # its decode chunk: a step takes ~0.77 s of host wall (~28,700 kernels; H100 80GB HBM3, 700 W), so the
 # warm-up's chunk and the chunks of the serve are 16 steps, not 64
@@ -5396,24 +5625,31 @@ def mimo_cached_check():
 
 
 def engine_families(records, card):
-    """Gemma-3 at Gemma-3-270M's widths (18 layers), DeepSeek-V3 small and
-    MiMo-V2-Flash small (12 layers each), bf16, through the engine: 8 slots,
-    the hetero traffic's first 16 prompts, greedy, buckets 32/64/256. No
-    kernel launches (``sdpa`` on the cache, as in JAX). Per model: useful
-    tok/s of one serve after ``warmup``, every request its budget long in
-    vocabulary ids, the first wave's admission logits finite, and the share
-    of greedy tokens equal to ``generate_kv_cache``'s (ENGINE_AGREE_ROWS
-    requests, ENGINE_AGREE_TOKENS each; reported); MiMo's last prefill
-    logits through its cache beside its uncached forward (within
-    ENGINE_PLAIN_BAR × max |uncached|), and ``mimo_cached_check``."""
+    """GPT-2 124M (12 layers), Gemma-3 at Gemma-3-270M's widths (18 layers),
+    DeepSeek-V3 small and MiMo-V2-Flash small (12 layers each), bf16, through
+    the engine: 8 slots, the hetero traffic's first 16 prompts, greedy,
+    buckets 32/64/256. No kernel launches (``sdpa`` on the cache, as in
+    JAX). Per model: useful tok/s of one serve after ``warmup``, every
+    request its budget long in vocabulary ids, the first wave's admission
+    logits finite, and the greedy tokens of ENGINE_AGREE_ROWS requests
+    (ENGINE_AGREE_TOKENS each) against ``generate_kv_cache``'s, gated: a
+    request's tokens may leave the reference's only at a bf16 near-tie
+    (``near_tie`` without ``top2``: at the first token that differs, both
+    tokens' logits in the model's uncached forward lie within
+    BF16_LOGIT_BAR × max |logits| of the largest; the tokens after it follow
+    other prefixes); MiMo's last prefill logits through its cache beside its
+    uncached forward (within ENGINE_PLAIN_BAR × max |uncached|), and
+    ``mimo_cached_check``."""
     import torch
 
-    from llm_quest_tpu_torch.models import deepseek_v3, gemma3, mimo_v2_flash
+    from llm_quest_tpu_torch.config import GPT_CONFIG_124M
+    from llm_quest_tpu_torch.models import deepseek_v3, gemma3, gpt2, mimo_v2_flash
 
     t0 = time.perf_counter()
     traffic = [(ids, gen, {}) for ids, gen, _ in engine_traffic("hetero")[:FAMILY_REQUESTS]]
     out = {}
-    for name, mod, cfg in (("gemma3", gemma3, gemma_cfg(18, torch.bfloat16)),
+    for name, mod, cfg in (("gpt2", gpt2, gpt2_cfg(GPT_CONFIG_124M, 12, torch.bfloat16)),
+                           ("gemma3", gemma3, gemma_cfg(18, torch.bfloat16)),
                            ("deepseek_v3", deepseek_v3, dsv3_cfg(12, torch.bfloat16)),
                            ("mimo_v2_flash", mimo_v2_flash, mimo_cfg(12, torch.bfloat16))):
         model = init_model(mod, cfg)
@@ -5431,13 +5667,19 @@ def engine_families(records, card):
         if not bool(torch.isfinite(first).all()):
             raise AssertionError(f"{ENGINE_FAMILIES} {name}: first-wave admission logits not finite")
         equal = total = 0
+        ties = []
         for (ids, gen, _), got in zip(traffic[:ENGINE_AGREE_ROWS], toks):
             n = min(gen, ENGINE_AGREE_TOKENS)
             ref = generate(mod, model, cfg, torch.tensor([ids], device=DEVICE), n)[0, len(ids):].tolist()
             equal += sum(a == b for a, b in zip(got[:n], ref))
             total += n
+            tie = near_tie(model, cfg, ids, got[:n], ref, f"{ENGINE_FAMILIES} {name}", mod=mod, bar=BF16_LOGIT_BAR,
+                           top2=False, phase_name="engine_families_near_tie")
+            if tie is not None:
+                ties.append(tie)
         rec = {"layers": cfg["n_layers"], "useful_tok_s": sum(map(len, toks)) / seconds, "serve_s": seconds,
-               "stats": engine.stats(), "greedy_agreement": equal / total, "greedy_compared": total}
+               "stats": engine.stats(), "greedy_agreement": equal / total, "greedy_compared": total,
+               "requests_equal": ENGINE_AGREE_ROWS - len(ties), "near_ties": ties}
         if name == "mimo_v2_flash":
             ids = torch.tensor([traffic[0][0]], device=DEVICE)
             with torch.inference_mode():
@@ -5454,6 +5696,44 @@ def engine_families(records, card):
     emit({"phase": ENGINE_FAMILIES, "card": card, "dtype": "bfloat16", "n_slots": FAMILY_SLOTS,
           "requests": len(traffic), **out, "seconds": time.perf_counter() - t0})
     torch.cuda.empty_cache()
+
+def engine_llama(records, card):
+    """Llama-3.2-1B at full width and depth (``LLAMA32_SMALL_CONFIG_1B``, 16
+    layers), seeded random weights, through the engine on
+    ``bench_serving_hetero``'s traffic (48 requests, prompts U[8, 200], the
+    four samplers, 32 slots, chunk 64, buckets 32/64/256): bf16
+    (``engine_serve_llama``), then quantized in place, linears and tied
+    table, with the int8 KV cache (``engine_serve_llama_int8``; its plain
+    check leaves ENGINE_EMPTY_SLOTS slots empty), one serve each (the
+    script's time). Each is
+    ``engine_record``: first held to the plain versions (``engine_vs_plain``
+    at BF16_LOGIT_BAR: no kernel runs on this path, as in JAX: the cached
+    calls take ``sdpa``, and K10 takes head dims that are multiples of 128,
+    not Llama's 64), then
+    useful tok/s, TTFT p50, device ms, kernels, busy share and wall a
+    decode step (a profiled chunk), peak memory and the greedy agreement
+    with ``generate_kv_cache``."""
+    import torch
+
+    from llm_quest_tpu_torch.models import llama3
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
+
+    t0 = time.perf_counter()
+    cfg = llama_cfg(16, torch.bfloat16)
+    model = init_model(llama3, cfg)
+    # no kernel runs here, so the engine and the plain calls compute the same: the plain check's bar is the
+    # tests' bf16 bar, not ENGINE_PLAIN_BAR (set for kernel rounding through 24 layers). The N(0, 1) tied
+    # table makes each row's largest logit its own token's (~|e|² ≈ 2048): 16 dropped tokens move the
+    # logits by ~20 % of that (H100 80GB HBM3, 700 W), which ENGINE_PLAIN_BAR could not see
+    engine_record(ENGINE_LLAMA, model, cfg, "hetero", records, card, 32, serves=1, plain_bar=BF16_LOGIT_BAR)
+    quantize_params_int8(model, quantize_embeddings=True)
+    torch.cuda.empty_cache()
+    engine_record(ENGINE_LLAMA_INT8, model, dict(cfg, kv_quant="int8"), "hetero", records, card,
+                  32 - ENGINE_EMPTY_SLOTS, serves=1, plain_bar=BF16_LOGIT_BAR)
+    emit({"phase": "engine_llama", "seconds": time.perf_counter() - t0})
+    del model
+    torch.cuda.empty_cache()
+
 
 # ------------------------------------------------------------------ multi-LoRA serving
 
@@ -5683,18 +5963,20 @@ def spec_engine(target, cfg, draft=None, draft_cfg=None, **kw):
     return ContinuousBatchingEngine(qwen3, target, cfg, eos_ids=-1, pad_id=0, **{**shape, **spec, **kw})
 
 
-def uncached_logits(model, cfg, ids):
+def uncached_logits(model, cfg, ids, mod=None):
     """(len(ids), vocab) fp32 logits of one uncached forward over ``ids``."""
-    return batch_logits(model, cfg, [ids])[0]
+    return batch_logits(model, cfg, [ids], mod)[0]
 
 
-def batch_logits(model, cfg, seqs):
+def batch_logits(model, cfg, seqs, mod=None):
     """Each sequence's (len, vocab) fp32 logits from one uncached forward of
-    the right-padded batch (pads masked out of every key set)."""
+    the right-padded batch (pads masked out of every key set) through
+    ``mod`` (default ``models.qwen3``)."""
     import torch
 
     from llm_quest_tpu_torch.models import qwen3
 
+    mod = mod or qwen3
     width = max(map(len, seqs))
     ids = torch.zeros(len(seqs), width, dtype=torch.long, device=DEVICE)
     mask = torch.zeros(len(seqs), width, dtype=torch.bool, device=DEVICE)
@@ -5702,27 +5984,34 @@ def batch_logits(model, cfg, seqs):
         ids[j, : len(seq)] = torch.tensor(seq, device=DEVICE)
         mask[j, : len(seq)] = True
     with torch.inference_mode():
-        logits, _, _ = qwen3.apply(model, cfg, ids, attn_mask=mask if len(seqs) > 1 else None)
+        logits, _, _ = mod.apply(model, cfg, ids, attn_mask=mask if len(seqs) > 1 else None)
     return [logits[j, : len(seq)].float() for j, seq in enumerate(seqs)]
 
 
-def near_tie(model, cfg, ids, got, ref, label):
+def near_tie(model, cfg, ids, got, ref, label, *, mod=None, bar=SPEC_TIE_BAR, top2=True,
+             phase_name="engine_spec_near_tie"):
     """The first position where the token lists ``got`` and ``ref`` of the
-    prompt ``ids`` differ must be a near-tie of the target's: its two largest
-    logits there (one uncached forward) are the two tokens and lie within
-    SPEC_TIE_BAR × max |logits|. Returns the reading (None where equal)."""
+    prompt ``ids`` differ must be a near-tie of the model's (``mod``, default
+    ``models.qwen3``): its two largest logits there (one uncached forward)
+    are the two tokens and lie within ``bar`` × max |logits| (default
+    SPEC_TIE_BAR). Without ``top2`` (bf16, where the uncached forward's own
+    argmax may be a third token) both tokens' logits lie within that bar of
+    the largest. Returns the reading (None where equal)."""
     if got == ref:
         return None
     if len(got) != len(ref):
         raise AssertionError(f"{label}: {len(got)} tokens against {len(ref)}")
     j = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
-    logits = uncached_logits(model, cfg, ids + ref[:j])[-1]
+    logits = uncached_logits(model, cfg, ids + ref[:j], mod)[-1]
     top = logits.topk(2)
-    gap, bar = float(top.values[0] - top.values[1]), SPEC_TIE_BAR * float(logits.abs().max())
-    reading = {"position": j, "tokens": [got[j], ref[j]], "top2": top.indices.tolist(), "gap": gap, "bar": bar}
-    if not (set(top.indices.tolist()) == {got[j], ref[j]} and gap <= bar):
-        raise AssertionError(f"{label}: tokens differ at {j} where the target's logits are no near-tie: {reading}")
-    emit({"phase": "engine_spec_near_tie", "label": label, **reading})
+    limit = bar * float(logits.abs().max())
+    gaps = [float(top.values[0] - logits[t]) for t in (got[j], ref[j])]
+    reading = {"position": j, "tokens": [got[j], ref[j]], "top2": top.indices.tolist(),
+               "gap": float(top.values[0] - top.values[1]) if top2 else max(gaps), "bar": limit}
+    tied = (set(top.indices.tolist()) == {got[j], ref[j]}) if top2 else True
+    if not (tied and reading["gap"] <= limit):
+        raise AssertionError(f"{label}: tokens differ at {j} where the logits are no near-tie: {reading}")
+    emit({"phase": phase_name, "label": label, **reading})
     return reading
 
 
@@ -6187,6 +6476,9 @@ def main(argv):
     phase(mimo_paths, records, smi)
     phase(dsv3_paths, records, smi)
     phase(cp_paths, records, smi)
+    phase(gpt2_train, records, smi)
+    phase(llama_train, records, smi)
+    phase(hyper_qwen3_train, records, smi)
     t_checks = time.perf_counter()
     serving_checks_fp32()
     PHASE_SECONDS["serving_checks_fp32"] = time.perf_counter() - t_checks
@@ -6200,6 +6492,7 @@ def main(argv):
     phase(engine_moe_paths, records, smi)
     phase(engine_multi_lora, records, smi)
     phase(engine_spec, records, smi)
+    phase(engine_llama, records, smi)
 
     emit({"phase": "device_timing", **PROFILER})
     emit({"phase": "phase_seconds", "build_s": lib.build_seconds, **PHASE_SECONDS,

@@ -14,7 +14,10 @@ path (``ops/quantization.py``, the int8 KV cache), the Gemma-3
 sliding-window training step (``models/gemma3.py``), the ViT encode and its
 training (``models/vit.py``, ``training/vit_engine.py``), the MiMo-V2-Flash
 and DeepSeek-V3 MTP training steps, context-parallel training of the dense
-Qwen3 (``parallel/``) and the int8-score ablation (``scripts/``). Every TPU
+Qwen3 (``parallel/``), the int8-score ablation (``scripts/``), the
+continuous-batching engine with its admissions, multi-LoRA and speculative
+windows (``inference/``), and GPT-2, Llama-3.2 (with the YaRN RoPE tables)
+and Hyper-Qwen3 (``ops/hyper_connections.py``). Every TPU
 kernel of the JAX package is rewritten as CUDA C++ for ``sm_90a``
 (``csrc/``, bound in ``kernels/``), flash attention (with its sliding
 window, softcap and sinks) and the GDN prefill with their backward.

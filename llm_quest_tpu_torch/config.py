@@ -1,14 +1,80 @@
 """Model configurations (counterpart of ``llm_quest_tpu/config.py``).
 
 Plain dicts with the reference's keys; dtypes are torch dtypes. Only the
-configurations of the ported slices are here: Qwen3.5-0.8B, the Qwen3
-entries (dense and MoE), Qwen3-Next-small, Gemma-3-small, DeepSeek-V3 small,
-MiMo-V2-Flash small and the two ViTs.
+configurations of the ported slices are here: GPT-2 124M and small,
+Llama-3.2-1B and small, Qwen3.5-0.8B, the Qwen3 entries (dense and MoE),
+Qwen3-Next-small, Gemma-3-small, DeepSeek-V3 small, MiMo-V2-Flash small and
+the two ViTs.
 A config without a "dtype" key (the ViTs, as in the JAX package) runs in
 torch.float32 (``model_dtype``).
 """
 
 import torch
+
+# GPT-2 124M and the small training config (same keys and values as the JAX
+# package's; no "dtype" key: fp32 unless the caller sets one)
+GPT_CONFIG_124M = {
+    "vocab_size": 50257,
+    "context_length": 1024,
+    "emb_dim": 768,
+    "n_heads": 12,
+    "n_layers": 12,
+    "drop_rate": 0.0,
+    "qkv_bias": True,
+}
+
+GPT_SMALL_CONFIG = {
+    "vocab_size": 50304,
+    "context_length": 256,
+    "emb_dim": 768,
+    "n_heads": 12,
+    "n_layers": 12,
+    "drop_rate": 0.0,
+    "qkv_bias": False,
+}
+
+# Llama-3.2-1B (same keys and values as the JAX package's). Its "rope_freq"
+# names "original_context_length", as the JAX config does, and has neither
+# "ctx_len" nor "og_ctx_len": ``llama3.rope_tables(scaled=True)`` refuses it
+# with a ValueError naming the missing keys (JAX raises a bare KeyError).
+LLAMA32_SMALL_CONFIG_1B = {
+    "vocab_size": 128_256,
+    "context_length": 131_072,
+    "emb_dim": 2048,
+    "n_heads": 32,
+    "n_layers": 16,
+    "hidden_dim": 8192,
+    "num_kv_groups": 8,
+    "rope_base": 500_000,
+    "rope_freq": {
+        "factor": 32.0,
+        "alpha": 1.0,
+        "beta": 4.0,
+        "original_context_length": 8192,
+    },
+    "dtype": torch.bfloat16,
+}
+
+# Llama-3.2 small (same keys and values as the JAX package's), with the
+# YaRN / NTK-by-parts context extension of ``rope_tables(scaled=True)``
+LLAMA32_SMALL_CONFIG = {
+    "vocab_size": 50304,
+    "context_length": 512,
+    "emb_dim": 768,
+    "n_heads": 12,
+    "n_layers": 12,
+    "num_kv_groups": 4,
+    "hidden_dim": 4 * 768,
+    "rope_base": 10_000,
+    "rope_freq": {
+        "factor": 32.0,
+        "alpha": 1.0,
+        "beta": 32.0,
+        "og_ctx_len": 4096,
+        "ctx_len": 8192,
+    },
+    "dtype": torch.float32,
+}
 
 # DeepSeek-V3 small (same keys and values as the JAX package's): MLA with the
 # default q_rank 1536, the first num_ffn layers dense SwiGLU, then DeepSeek

@@ -72,6 +72,8 @@ refilled while the others keep decoding (iteration-level scheduling).
 A model serves through the engine when it exposes ``apply(params, cfg, ids,
 attn_mask=, cache=, position_ids=)`` and ``init_cache(cfg, b, max_len,
 dtype=, device=)`` with layer-stacked cache leaves (layers, batch, ...):
+``models.gpt2`` (its learned positions read the per-row ``position_ids``),
+``models.llama3``,
 ``models.qwen3`` (dense and MoE, e.g. Qwen3-30B-A3B), ``models.qwen3_next``,
 ``models.qwen3_5.TextOnly`` and, for multimodal requests, ``models.qwen3_5``
 itself (its ``apply`` takes ``image_pixels``), ``models.gemma3``,

@@ -1,8 +1,15 @@
 """Rotary position embeddings (counterpart of ``llm_quest_tpu/ops/rope.py``):
-partial RoPE, MRoPE-I (interleaved 3-D multimodal) and 2-D axial VisionRoPE.
+classic RoPE, NTK-aware + YaRN by-parts scaling, partial RoPE, MRoPE-I
+(interleaved 3-D multimodal) and 2-D axial VisionRoPE.
 
 Tables are built once in fp32 with numpy, exactly as the JAX package builds
 them. Half-split convention: x = [h1, h2] → cos·x + sin·[-h2, h1].
+
+Divergence by design: a YaRN ``freq_cfg`` that lacks a key the scaling
+reads ("factor", "alpha", "beta", "og_ctx_len", and "ctx_len" when
+``ntk_aware``) raises a ``ValueError`` naming the missing keys, where JAX
+raises a bare ``KeyError`` (``LLAMA32_SMALL_CONFIG_1B``'s "rope_freq" names
+"original_context_length" instead). No other key is mapped onto them.
 """
 
 import numpy as np
@@ -16,15 +23,55 @@ def partial_rotation(head_dim, factor):
     return int(head_dim * factor)
 
 
-def compute_angles(base, head_dim, ctx_len, *, rotation_factor=1.0, device=None):
+def ntk_aware_base_scaling(theta_base, head_dim, ctx_len, old_ctx_len):
+    """Fixed NTK-aware θ-base scaling."""
+    return theta_base * (ctx_len / old_ctx_len) ** (head_dim / (head_dim - 2))
+
+
+_YARN_KEYS = ("factor", "alpha", "beta", "og_ctx_len")
+
+
+def wavelength_scaling(base, head_dim, freq_cfg, ntk_aware=True):
+    """YaRN NTK-by-parts smooth frequency scaling across three wavelength
+    bands: full interpolation θ/factor where og_ctx_len / wavelength < alpha,
+    θ untouched above beta, a linear blend between. Returns θ of shape
+    (head_dim // 2,) fp32. Raises ``ValueError`` when ``freq_cfg`` lacks a
+    key it reads (module docstring)."""
+    missing = [k for k in _YARN_KEYS + (("ctx_len",) if ntk_aware else ()) if k not in freq_cfg]
+    if missing:
+        raise ValueError(f"rope_freq lacks {missing} (has {sorted(freq_cfg)}); the YaRN tables read "
+                         f"{list(_YARN_KEYS)} and, NTK-aware, ctx_len")
+    if ntk_aware:
+        base = ntk_aware_base_scaling(base, head_dim, freq_cfg["ctx_len"], freq_cfg["og_ctx_len"])
+    i = np.arange(0, head_dim // 2, dtype=np.float32)
+    theta = 1.0 / base ** (2 * i / head_dim)
+
+    wavelen = 2 * np.pi / theta
+    ratio = freq_cfg["og_ctx_len"] / wavelen
+    # low freq (ratio < alpha): full interpolation θ/factor; high freq: untouched
+    scaled_theta = np.where(ratio < freq_cfg["alpha"], theta / freq_cfg["factor"], theta)
+    # medium band: smooth blend γ = clamp((r - α)/(β - α), 0, 1)
+    smooth = np.clip((ratio - freq_cfg["alpha"]) / (freq_cfg["beta"] - freq_cfg["alpha"]), 0.0, 1.0)
+    smoothed_theta = (1 - smooth) * (theta / freq_cfg["factor"]) + smooth * theta
+    is_medium = (ratio >= freq_cfg["alpha"]) & (ratio <= freq_cfg["beta"])
+    return np.where(is_medium, smoothed_theta, scaled_theta)
+
+
+def compute_angles(base, head_dim, ctx_len, *, smooth_scaling_cfg=None, ntk_aware=True, rotation_factor=1.0,
+                   device=None):
     """(cos, sin) tables, each (ctx_len, rotation_dim) fp32; rotation_dim =
-    floor(head_dim·rotation_factor) for partial RoPE."""
+    floor(head_dim·rotation_factor) for partial RoPE. ``smooth_scaling_cfg``
+    (a config's "rope_freq") applies ``wavelength_scaling`` to the
+    frequencies, NTK-aware unless ``ntk_aware`` is False."""
     if head_dim % 2:
         raise ValueError("head_dim must be even")
     if rotation_factor != 1.0:
         head_dim = partial_rotation(head_dim, rotation_factor)
-    i = np.arange(0, head_dim // 2, dtype=np.float32)
-    theta = 1.0 / base ** (2 * i / head_dim)
+    if smooth_scaling_cfg is not None:
+        theta = wavelength_scaling(base, head_dim, smooth_scaling_cfg, ntk_aware)
+    else:
+        i = np.arange(0, head_dim // 2, dtype=np.float32)
+        theta = 1.0 / base ** (2 * i / head_dim)
     angles = np.outer(np.arange(0, ctx_len, dtype=np.float32), theta)
     angles = np.concatenate([angles, angles], axis=-1)
     return _tables(angles, device)

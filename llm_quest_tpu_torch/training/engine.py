@@ -17,14 +17,21 @@ Under ``cfg["context_parallel"]`` (the dense Qwen3) the loss and the
 gradients of a rank's slice are summed over the group before the clip
 (``make_value_and_grad``).
 
+Dropout (JAX's ``has_dropout``): ``make_train_step(..., has_dropout=True)``
+gives a step that takes a ``torch.Generator`` on the parameters' device and
+passes ``deterministic=False`` with it to ``model.apply`` (GPT-2 drops at
+``cfg["drop_rate"]``, ``ops/dropout.py``); ``training_eval_loop`` sets it from
+the config and draws from its ``generator=`` (default: seeded 0, as JAX's
+``rng`` defaults to ``PRNGKey(0)``). A config with dropout for a model whose
+``apply`` takes no generator (Qwen3-Next's "p_dropout") still raises there.
+
 Not ported yet: the last-token classification loss (no classifier model is
-ported), dropout in the text models' step (none of the ported text models
-has it; a config asking for it makes ``training_eval_loop`` raise; the ViT
-drops through ``ops/dropout.py`` in ``training/vit_engine.py``), and the
-``checkpoint_every`` and ``profiler`` options of ``training_eval_loop``
-(``training/checkpointing.py`` and ``training/profiling.py``), which raise.
+ported), and the ``checkpoint_every`` and ``profiler`` options of
+``training_eval_loop`` (``training/checkpointing.py`` and
+``training/profiling.py``), which raise.
 """
 
+import inspect
 import math
 import time
 
@@ -175,13 +182,19 @@ def as_tensors(batch, device):
             for k, v in batch.items()}
 
 
-def make_loss_fn(model, cfg, *, fused_head_ce=False):
-    """The training loss of one batch: ``loss_fn(params, batch) -> 0-d
-    tensor``, differentiable in the parameters (see ``make_train_step``)."""
+def make_loss_fn(model, cfg, *, fused_head_ce=False, has_dropout=False):
+    """The training loss of one batch: ``loss_fn(params, batch,
+    generator=None) -> 0-d tensor``, differentiable in the parameters (see
+    ``make_train_step``); with ``has_dropout`` the model drops, drawing from
+    ``generator``."""
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, generator=None):
         # a context-parallel rank's slice carries its global positions (parallel/mesh.py)
         pos = {"position_ids": batch["position_ids"]} if "position_ids" in batch else {}
+        if has_dropout:
+            if generator is None:
+                raise ValueError("a train step with dropout draws from a torch.Generator: pass generator=")
+            pos.update(deterministic=False, generator=generator)
         if fused_head_ce:
             from llm_quest_tpu_torch.ops.losses import cross_entropy_fused_head
 
@@ -200,8 +213,8 @@ def make_loss_fn(model, cfg, *, fused_head_ce=False):
     return loss_fn
 
 
-def make_value_and_grad(model, cfg, *, fused_head_ce=False):
-    """``value_and_grad(params, batch) -> (loss, grads)``: the training loss
+def make_value_and_grad(model, cfg, *, fused_head_ce=False, has_dropout=False):
+    """``value_and_grad(params, batch, generator=None) -> (loss, grads)``: the training loss
     of one batch (a detached 0-d tensor) and its gradient for every
     parameter of ``params`` (``param_leaves`` order; zeros where none reaches).
 
@@ -214,14 +227,14 @@ def make_value_and_grad(model, cfg, *, fused_head_ce=False):
     gradients, which are not summed again."""
     from llm_quest_tpu_torch.parallel.mesh import cp_group, is_sharded
 
-    loss_fn = make_loss_fn(model, cfg, fused_head_ce=fused_head_ce)
+    loss_fn = make_loss_fn(model, cfg, fused_head_ce=fused_head_ce, has_dropout=has_dropout)
     group = cp_group(cfg)
 
-    def value_and_grad(params, batch):
+    def value_and_grad(params, batch, generator=None):
         leaves = param_leaves(params)
         reduce = group is not None and is_sharded(batch) and dist.get_world_size(group) > 1
         with torch.enable_grad():
-            loss = loss_fn(params, batch)
+            loss = loss_fn(params, batch, generator)
             if reduce:
                 loss = loss * _target_share(batch["targets"], group)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
@@ -235,10 +248,13 @@ def make_value_and_grad(model, cfg, *, fused_head_ce=False):
     return value_and_grad
 
 
-def make_train_step(model, cfg, optimizer, *, fused_head_ce=False):
-    """One train step: (params, opt_state, batch) → (params, opt_state,
-    loss). ``params`` (an ``nn.Module``) and ``opt_state`` are updated in
-    place; ``loss`` is a 0-d device tensor (reading it synchronises).
+def make_train_step(model, cfg, optimizer, *, fused_head_ce=False, has_dropout=False):
+    """One train step: (params, opt_state, batch, generator=None) → (params,
+    opt_state, loss). ``params`` (an ``nn.Module``) and ``opt_state`` are
+    updated in place; ``loss`` is a 0-d device tensor (reading it
+    synchronises). With ``has_dropout`` the model runs with
+    ``deterministic=False`` and draws its masks from ``generator`` (a
+    ``torch.Generator`` on the parameters' device), which it then needs.
 
     fused_head_ce: CE fused with the LM head over row chunks
     (ops/losses.py::cross_entropy_fused_head), so the (tokens, vocab) logits
@@ -246,10 +262,10 @@ def make_train_step(model, cfg, optimizer, *, fused_head_ce=False):
     ``model.head_weights``. Under ``cfg["context_parallel"]`` the loss and
     the gradients are summed over the group before the clip
     (``make_value_and_grad``)."""
-    value_and_grad = make_value_and_grad(model, cfg, fused_head_ce=fused_head_ce)
+    value_and_grad = make_value_and_grad(model, cfg, fused_head_ce=fused_head_ce, has_dropout=has_dropout)
 
-    def train_step(params, opt_state, batch):
-        loss, grads = value_and_grad(params, as_tensors(batch, device_of(params)))
+    def train_step(params, opt_state, batch, generator=None):
+        loss, grads = value_and_grad(params, as_tensors(batch, device_of(params)), generator)
         opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, loss
 
@@ -297,10 +313,13 @@ def evaluate(train_loader, val_loader, eval_step, params, eval_iter):
 def training_eval_loop(
     model, cfg, params, train_loader, val_loader, *, num_epoch, peak_lr=4e-4, init_lr=1e-5, min_lr=None,
     warmup_steps=0, decay=None, weight_decay=0.1, accumulation_steps=1, eval_freq=5, eval_iter=5,
-    log=print, timing=False, checkpoint_every=None, checkpoint_path=None, profiler=None,
+    generator=None, log=print, timing=False, checkpoint_every=None, checkpoint_path=None, profiler=None,
 ):
     """Training loop with LR schedule, gradient accumulation, clipping and
     periodic evaluation (at step 1 and every ``eval_freq`` optimizer steps).
+    A config with dropout ("drop_rate" or "p_dropout" above 0) trains with
+    it, drawing from ``generator`` (a ``torch.Generator`` on the parameters'
+    device; default one seeded 0); the evaluation is deterministic.
 
     train_loader / val_loader: re-iterable iterables of dict batches with
     "input_ids", "targets" and an optional "attn_mask" (numpy arrays or
@@ -314,9 +333,11 @@ def training_eval_loop(
             "training_eval_loop: checkpoint_every= and profiler= wait for training/checkpointing.py "
             "and training/profiling.py"
         )
-    if cfg.get("drop_rate", cfg.get("p_dropout", 0.0)) > 0:
-        raise NotImplementedError("training_eval_loop: no ported text model takes dropout (the ViT trains "
-                                  "with it through training/vit_engine.py)")
+    has_dropout = cfg.get("drop_rate", cfg.get("p_dropout", 0.0)) > 0
+    if has_dropout and "generator" not in inspect.signature(model.apply).parameters:
+        name = getattr(model, "__name__", model)
+        raise NotImplementedError(f"training_eval_loop: {name}.apply takes no dropout generator (the ViT trains "
+                                  "with dropout through training/vit_engine.py)")
     del checkpoint_path  # used only with checkpoint_every
     train_batches = list(train_loader)
     steps_per_epoch = math.ceil(len(train_batches) / accumulation_steps)
@@ -326,8 +347,10 @@ def training_eval_loop(
     optimizer = make_optimizer(schedule, weight_decay=weight_decay, accumulation_steps=accumulation_steps)
     opt_state = optimizer.init(params)
 
-    train_step = make_train_step(model, cfg, optimizer)
+    train_step = make_train_step(model, cfg, optimizer, has_dropout=has_dropout)
     eval_step = make_eval_step(model, cfg)
+    if has_dropout and generator is None:
+        generator = torch.Generator(device=device_of(params)).manual_seed(0)
 
     train_losses, val_losses = [], []
     step = 0
@@ -337,7 +360,7 @@ def training_eval_loop(
 
     for epoch in range(1, num_epoch + 1):
         for i, batch in enumerate(prefetch_to_device(iter(train_batches), device=device_of(params))):
-            params, opt_state, loss = train_step(params, opt_state, batch)
+            params, opt_state, loss = train_step(params, opt_state, batch, generator)
             tokens_seen += batch["input_ids"].numel()
 
             micro_step = i + 1 + (epoch - 1) * len(train_batches)

@@ -10,8 +10,11 @@ FLOP counts are analytic from the model config (matmul FLOPs only: norms,
 softmax, activations and RoPE are small next to the matmuls), 2·m·n·k per
 matmul and 3× forward for a train step (backward ≈ 2× forward); the same
 formulas as the JAX package for GQA attention (gated in the hybrids), SwiGLU,
-GeGLU or Qwen3-MoE FFNs and GatedDeltaNet layers, and for the ViT (per
-image). The GPT-2 MLP count comes with the first ported path that reads it.
+GeGLU, GPT-2's GELU MLP (a config without "hidden_dim": 2·2·d·4d) or
+Qwen3-MoE FFNs and GatedDeltaNet layers, and for the ViT (per image). A
+Hyper-Qwen3 counts as its Qwen3: the hyper-connections' maps (n·d by n! +
+2n a sub-block for mHC-lite) and stream mixes are left out, as JAX leaves
+them.
 
 Divergence by design: the train count takes a sliding-window layer (Gemma-3's
 ``is_swa_layer``) at its mean visible context, the mean over positions of
@@ -97,9 +100,9 @@ def _ffn_flops(cfg):
         experts = cfg["top_k"] * 3 * 2 * d * cfg["moe_hidden_dim"]  # SwiGLU per routed expert
         shared = 3 * 2 * d * cfg["shared_expert_hidden_dim"] if cfg.get("shared_expert_hidden_dim") else 0
         return router + experts + shared
-    if "hidden_dim" not in cfg:
-        raise NotImplementedError("_ffn_flops: the GPT-2 MLP count comes with the GPT-2 model")
-    return 3 * 2 * d * cfg["hidden_dim"]  # SwiGLU: gate/up/down
+    if "hidden_dim" in cfg:
+        return 3 * 2 * d * cfg["hidden_dim"]  # SwiGLU: gate/up/down
+    return 2 * 2 * d * 4 * d  # GPT-2 GELU MLP (up + down at 4·d)
 
 
 def _attn_layer_flops(cfg, kv_len):

@@ -143,11 +143,19 @@ def test_init_draws_the_jax_distributions():
 
 
 def test_scaled_rope_tables_raise():
-    with pytest.raises(NotImplementedError, match="YaRN"):
-        tg.rope_tables(TCFG, scaled=True, device="cpu")
+    """``scaled=True`` gives JAX's YaRN tables (the unscaled ones for a config
+    without "rope_freq"); a "rope_freq" that lacks a key the scaling reads
+    raises ValueError, where JAX raises KeyError."""
     cos, sin = tg.rope_tables(TCFG, device="cpu")
     jcos, jsin = jg.rope_tables(JCFG)
     assert max_err(cos, jcos) == 0.0 and max_err(sin, jsin) == 0.0
+    assert all(max_err(a, b) == 0.0 for a, b in zip(tg.rope_tables(TCFG, scaled=True, device="cpu"), (cos, sin)))
+    freq = {"factor": 8.0, "alpha": 1.0, "beta": 4.0, "og_ctx_len": 16, "ctx_len": 64}
+    got = tg.rope_tables(dict(TCFG, rope_freq=freq), scaled=True, device="cpu")
+    ref = jg.rope_tables(dict(JCFG, rope_freq=freq), scaled=True)
+    assert all(max_err(a, b) <= 1e-6 for a, b in zip(got, ref)) and max_err(got[0], cos) > 0.1
+    with pytest.raises(ValueError, match="ctx_len"):
+        tg.rope_tables(dict(TCFG, rope_freq={"factor": 8.0, "alpha": 1.0, "beta": 4.0}), scaled=True, device="cpu")
 
 
 # Gemma-3-270M's published widths (google/gemma-3-270m config.json)

@@ -47,3 +47,17 @@ def test_turns_and_stale_edits():
         ph.apply_edits("x = 1", [("y", "z")], "probe")
     assert ph.kernel_name("void llmq::(anonymous namespace)::flash_decode_tc_kernel<256>(args)") == \
         "flash_decode_tc_kernel"
+
+
+def test_smoke_phases_takes_only_records_and_phases_of_chip_smoke():
+    """``tools/smoke_phases.py`` refuses a name that is neither a kernel record
+    nor a phase of ``chip_smoke.py`` before it builds anything, and needs the
+    card for the others."""
+    from tools import smoke_phases
+
+    with pytest.raises(SystemExit, match="bogus"):
+        smoke_phases.main(["gpt2_train", "bogus"])
+    with pytest.raises(SystemExit, match="none given"):
+        smoke_phases.main([])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        smoke_phases.main(["flash_attention_fwd_gpt2", "engine_llama"])

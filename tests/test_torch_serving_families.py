@@ -1,15 +1,20 @@
-"""The ported serving engine on Gemma-3, DeepSeek-V3 and MiMo-V2-Flash, and
-MiMo-V2-Flash's cached generation, against the JAX package, on the CPU in
-fp32.
+"""The ported serving engine on GPT-2, Llama-3.2, Gemma-3, DeepSeek-V3 and
+MiMo-V2-Flash, and MiMo-V2-Flash's cached generation, against the JAX
+package, on the CPU in fp32.
 
 ``tests/test_serving.py::test_serving_every_model_family``'s tiny configs
-(``_GEMMA_TINY``: window 8, every layer SWA and global in turn;
+(``_GPT2_TINY``: learned positions offset by the per-row columns;
+``_LLAMA_TINY``: GQA 4/2 with a biased ``out_proj``;
+``_GEMMA_TINY``: window 8, every layer SWA and global in turn;
 ``_DSV3_TINY``: MLA with q/k 18 and v 12 in one cache; ``_MIMO_TINY``: SWA
 with sinks and GA layers with 4 and 2 kv groups in one cache padded to 4,
 head dim 12, value head dim 8) and its traffic (five prompts of 3 to 12
 tokens, budgets 4 to 11, 2 slots, buckets 8 and 16, chunk 3), each model
 initialised in JAX and loaded into the port: every request's greedy tokens
-equal JAX's ``generate_kv_cache`` for its prompt alone.
+equal JAX's ``generate_kv_cache`` for its prompt alone. The int8 Llama
+(linears and tied table quantized, the int8 KV cache at head dim 16, which
+the router dequantizes) serves the same traffic with every request's
+tokens equal to the port's own ``generate_kv_cache``.
 
 MiMo-V2-Flash's cache on its own: ``init_cache`` against JAX's (shapes and
 dtypes), a right-padded cached prefill and three decode steps at per-row
@@ -55,7 +60,12 @@ _MIMO_TINY = {
     "num_shared_experts": 0, "moe_scaling_factor": 1,
     "moe_bias_update_rate": 1e-3,
 }
-FAMILIES = {"gemma3": _GEMMA_TINY, "deepseek_v3": _DSV3_TINY, "mimo_v2_flash": _MIMO_TINY}
+_GPT2_TINY = {
+    "vocab_size": 128, "context_length": 64, "emb_dim": 16, "n_heads": 2,
+    "n_layers": 2, "drop_rate": 0.0, "qkv_bias": True,
+}
+FAMILIES = {"gpt2": _GPT2_TINY, "llama3": _LLAMA_TINY, "gemma3": _GEMMA_TINY, "deepseek_v3": _DSV3_TINY,
+            "mimo_v2_flash": _MIMO_TINY}
 _rng = np.random.default_rng(3)
 PROMPTS = [_rng.integers(1, 128, size=n).tolist() for n in (5, 9, 3, 12, 7)]
 GENS = [8, 5, 11, 4, 9]
@@ -94,6 +104,26 @@ def test_engine_tokens_equal_jax_generate_kv_cache(family):
         )["sequences"][0, len(ids):].tolist()
         assert got == ref, (family, ids, got, ref)
     assert engine.stats()["admit_waves"] >= 3  # five requests through two slots
+
+
+def test_int8_llama_engine_tokens_equal_its_generate_kv_cache():
+    from llm_quest_tpu_torch.inference import generate as tgen
+    from llm_quest_tpu_torch.models import llama3
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
+
+    _, _, model = load("llama3", _LLAMA_TINY)
+    quantize_params_int8(model, quantize_embeddings=True, min_size=0)
+    cfg = dict(_LLAMA_TINY, dtype=torch.float32, kv_quant="int8")
+    assert isinstance(model.tok_emb["w_q"], torch.nn.Parameter) and "w_q" in dict(model.blocks[0].att.wq.named_parameters())
+    engine = ContinuousBatchingEngine(
+        llama3, model, cfg, n_slots=2, max_len=48, decode_chunk=3, prefill_buckets=(8, 16), temp=0.0, eos_ids=-1,
+        pad_id=0, device="cpu",
+    )
+    assert "k_q" in engine.state["cache"]
+    outs = engine.serve(list(zip(PROMPTS, GENS)))
+    for ids, n, got in zip(PROMPTS, GENS, outs):
+        ref = tgen.generate_kv_cache(llama3, model, cfg, torch.tensor([ids]), max_gen=n, eos_ids=-1, pad_id=0)
+        assert got == ref["sequences"][0, len(ids):].tolist(), ids
 
 
 # ------------------------------------------------------------------ MiMo-V2-Flash's cache
