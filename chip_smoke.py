@@ -26,8 +26,9 @@ Gemma-3-270M, DeepSeek-V3 small and MiMo-V2-Flash small, multi-LoRA serving
 of int8 Qwen3.5-0.8B, speculative serving of Qwen3-4B with a Qwen3-0.6B
 draft, GPT-2 124M training (and ``training_eval_loop`` at
 ``scripts/gpt_training.py``'s settings), Llama-3.2-1B training and serving,
-and Hyper-Qwen3 training at Qwen3-0.6B's widths. Phases, one JSON line each
-on stdout:
+Hyper-Qwen3 training at Qwen3-0.6B's widths, and the alignment stack over
+GPT-2 124M (classifier tuning, DPO, the reward model, RLHF-GRPO with its
+losses, RLVR and RPT). Phases, one JSON line each on stdout:
 
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
@@ -376,6 +377,34 @@ on stdout:
     64, s 1024; forward, and forward + backward) and of Llama-3.2-1B's (b 4,
     32/8 heads of 64, s 2048; forward + backward), each bf16 result per
     64-row tile within TILE_TOL beside the dropped-key-tile control.
+30. classifier_train, dpo_train, rm_train, grpo_rlhf, rlvr_rpt (after
+    hyper_qwen3_train): the alignment stack over GPT-2 124M
+    (``GPT_SMALL_CONFIG`` at context 512, seeded random weights and ids),
+    each first an fp32 check at 2 layers (the loss and every gradient
+    through the kernels against the plain versions), then K4 forward and
+    backward in bf16 at the phase's own (b, s) and key mask (the batch's
+    padding mask, the sampled experience's holed one, none in DPO) against
+    the plain version (``phase_k4``: within TOL, per 64-row tile within
+    TILE_TOL beside the dropped-tile control, masked keys' dk/dv exactly
+    zero), then 12 layers in bf16: classifier tuning (b 8, U[200, 512] right-padded, 1 + 4 steps and
+    ``classifier_accuracy``), DPO (8 pairs, prompts U[64, 128], responses
+    U[128, 384], 1 + 4 steps and ``dpo_evaluate``), the reward model (the
+    same pairs through ``pref_reward_collate``, a step of each readout and
+    ``rm_evaluate``), RLHF-GRPO (4 prompts U[128, 256] × 4 samples, 128
+    tokens at temperature 1.0, a reward model of the same widths: one
+    ``rlhf_grpo_training_loop`` batch with 2 updates, then one update of
+    dapo, dr_grpo, sapo, gspo, OPSM 0.5 and the unbiased KL on a new
+    experience, whose masks, finite log-probabilities and zero-mean
+    advantages are checked), and one ``rlvr_grpo_training_loop`` batch each
+    with the verifier and with RPT's prefix-matching reward (2 prompts × 4,
+    64 tokens, a byte tokenizer). Every loss finite; K4 (with the padding
+    or holed key masks, or causal alone in DPO) launches the counts each
+    docstring gives, all on the tensor cores; step ms, tokens a second,
+    peak GB. The kernel phase holds K4 at the GRPO update's shape (b 16,
+    12/12 heads of 64, s 384) on a holed key mask, forward and backward
+    (``flash_attention_fwd_bwd_grpo``): a masked key's dk/dv exactly zero,
+    bf16 per 64-row tile within TILE_TOL beside the dropped-tile control,
+    timed beside ``sdpa`` + backward on the same bool mask.
 
 K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
 tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
@@ -632,19 +661,24 @@ def check_tiles(name, got, ref, names):
     return readings
 
 
-def dropped_tile(name, leaves, do, ref, names, *, causal, g_lse=None):
+def dropped_tile(name, leaves, do, ref, names, *, causal, g_lse=None, attn_mask=None):
     """The readings of ``check_tiles`` for a deliberately wrong result: the
-    plain version with the 64 keys [s - 128, s - 64) dropped (a key mask),
-    against the plain reference ``ref``. Each must exceed its bar, or the
-    bar could not see such a fault; returns the readings."""
+    plain version with the 64 keys [e - 128, e - 64) dropped (a key mask,
+    over ``attn_mask`` when the call has one; e is s, or one past the last
+    column any row of ``attn_mask`` keeps), against the plain reference
+    ``ref``. Each must exceed its bar, or the bar could not see such a
+    fault; returns the readings."""
     import torch
 
     from llm_quest_tpu_torch.kernels import attention as attn
 
     q, k, v = (t.detach().requires_grad_() for t in leaves)
     b, s = k.shape[0], k.shape[2]
+    e = s if attn_mask is None else int(attn_mask.any(0).nonzero().max()) + 1
     keep = torch.ones(b, s, dtype=torch.bool, device=DEVICE)
-    keep[:, s - 128 : s - 64] = False
+    keep[:, e - 128 : e - 64] = False
+    if attn_mask is not None:
+        keep &= attn_mask
     with torch.enable_grad():
         outs = [attn.flash_attention(q, k, v, attn_mask=keep, causal=causal, plain=True)]
         cts = [do]
@@ -1251,6 +1285,27 @@ DSV3_K4 = {"b": 4, "hq": 12, "hkv": 12, "s": 2048, "d": 96, "dv": 64}
 # and of Llama-3.2-1B's (b 4, s 2048, 32 q / 8 kv heads of 64), causal
 GPT2_K4 = {"b": 8, "hq": 12, "hkv": 12, "s": 1024, "d": 64}
 LLAMA_K4 = {"b": 4, "hq": 32, "hkv": 8, "s": 2048, "d": 64}
+# one attention layer of the GRPO update over GPT-2 124M (``grpo_rlhf``): 4 prompts × 4 samples, 12/12 heads
+# of 64, prompts padded to 256 columns and 128 generated ones
+GRPO_PROMPT, GRPO_GEN, GRPO_PROMPTS, GRPO_SAMPLES = 256, 128, 4, 4
+GRPO_K4 = {"b": GRPO_PROMPTS * GRPO_SAMPLES, "hq": 12, "hkv": 12, "s": GRPO_PROMPT + GRPO_GEN, "d": 64}
+
+
+def grpo_key_mask(b, s, prompt=GRPO_PROMPT, seed=SEED):
+    """A GRPO update's key mask (``alignment/grpo.py::batched_responses_collator``)
+    with holes: each row's real prompt tokens (U[128, 256]), its pads up to
+    ``prompt`` columns, then its response, every other row cut after a first
+    EoS at U[0, s - prompt)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    mask = torch.zeros(b, s, dtype=torch.bool)
+    for i in range(b):
+        mask[i, : int(rng.integers(128, prompt + 1))] = True
+        cut = int(rng.integers(0, s - prompt)) if i % 2 else s - prompt - 1
+        mask[i, prompt : prompt + cut + 1] = True
+    return mask.to(DEVICE)
 
 
 def visible_pairs(s, window=None):
@@ -1259,20 +1314,27 @@ def visible_pairs(s, window=None):
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def k4_case(gen, dtypes, *, shape=GEMMA_K4, window=None, softcap=None, sink=False, backward=False, tiles=False):
+def k4_case(gen, dtypes, *, shape=GEMMA_K4, window=None, softcap=None, sink=False, backward=False, tiles=False,
+            key_mask=None, timed=True):
     """K4 at ``shape`` (v's head dim ``dv``, default d) with the given
     features against its plain version in each dtype (the output, and with
     ``backward`` dq/dk/dv and dsink through autograd), then the kernel, the
     plain version and (without softcap or sinks) ``F.scaled_dot_product_attention``
     on the dense mask timed in bf16. With ``tiles`` (a causal call without
     window, softcap or sinks) the bf16 results are also held per 64-row tile
-    (TILE_TOL) beside the dropped-key-tile control (``dropped_tile``)."""
+    (TILE_TOL) beside the dropped-key-tile control (``dropped_tile``).
+    ``key_mask(b, s)``: a (b, s) key mask (True = real key) for every call,
+    the library's included; then the visible pairs and the K/V bytes count
+    only the real keys, and with ``backward`` a masked key's dk and dv must
+    be exactly zero. Without ``timed`` nothing is timed and the last dtype's
+    readings are returned."""
     import torch
 
     from llm_quest_tpu_torch.kernels import attention as attn
 
     b, hq, hkv, s, d = (shape[key] for key in ("b", "hq", "hkv", "s", "d"))
     dv = shape.get("dv", d)
+    mask = None if key_mask is None else key_mask(b, s)
     errs, errs_bf16, cases = [], [], []
     for dtype in dtypes:
         # a softcap of 30 bends scores only where they reach its scale
@@ -1281,7 +1343,7 @@ def k4_case(gen, dtypes, *, shape=GEMMA_K4, window=None, softcap=None, sink=Fals
         do = randn(gen, b, hq, s, dv, dtype=dtype)
         # sinks near the rows' logsumexp, so their share and dsink are not negligible
         sk = randn(gen, hq, scale=0.5) + 5.0 if sink else None
-        kw = {"window_size": window, "softcap": softcap}
+        kw = {"window_size": window, "softcap": softcap, "attn_mask": mask}
         leaves = [t.clone().requires_grad_(backward) for t in (q, k, v) + ((sk,) if sink else ())]
 
         def run(plain, leaves=leaves, kw=kw, do=do):
@@ -1297,33 +1359,51 @@ def k4_case(gen, dtypes, *, shape=GEMMA_K4, window=None, softcap=None, sink=Fals
         err = {n: check(f"{label} {n}", g, r, dtype) for n, g, r in zip(names, got, ref)}
         case = {"dtype": str(dtype), "max_abs_err": err, "max_abs_ref": {n: max_err(g, r)[1]
                                                                         for n, g, r in zip(names, got, ref)}}
+        if mask is not None and backward:  # a masked key reaches no output: its dk and dv are exactly zero
+            hidden = ~mask[:, None, :, None]
+            case["masked_keys"] = int((~mask).sum())
+            case["masked_key_grad_max"] = max((float(h.abs().max()) for h in
+                                               (g.masked_select(hidden.expand_as(g)) for g in got[2:4]) if h.numel()),
+                                              default=0.0)
+            if case["masked_key_grad_max"] != 0.0:
+                raise AssertionError(f"{label}: a masked key's dk/dv reads {case['masked_key_grad_max']}")
         if tiles and dtype == dtypes[-1]:
             case["tile_err"] = check_tiles(label, got, ref, names)
-            case["tile_err_dropped_tile"] = dropped_tile(label, leaves[:3], do, ref, names, causal=True)
+            case["tile_err_dropped_tile"] = dropped_tile(label, leaves[:3], do, ref, names, causal=True,
+                                                         attn_mask=mask)
         del got, ref
         # the record's error is the fp32 (SIMT) one, as for the other kernels; bf16 runs on the tensor cores
         (errs if dtype == dtypes[0] else errs_bf16).append(max(err.values()))
-        if dtype == dtypes[-1]:
+        if timed and dtype == dtypes[-1]:
             iters = (5, 1) if backward else (10, 2)
             case["ms"] = cuda_ms(lambda: run(False), *iters)
             case["plain_ms"] = cuda_ms(lambda: run(True), *iters)
             # the kernels' own device time (CUDA events also count the card
             # waiting on the host between the wrapper's launches)
             case["device_ms"] = device_ms(lambda: run(False), TC_KERNELS)
-            pairs = visible_pairs(s, window)
+            if mask is None:
+                pairs, kv_bytes = visible_pairs(s, window) * b, nbytes(k, v)
+            else:  # each query sees the real keys at or before it; of K/V only the real keys are read
+                pairs = int(mask.long().cumsum(-1).sum())
+                kv_bytes = nbytes(k, v) * float(mask.float().mean()) + nbytes(mask)
             # forward 2·(d + dv) FLOPs per visible pair and head (QKᵀ, PV);
             # backward 2× that (dV and dP over dv, dQ and dK over d)
-            flops = (3 if backward else 1) * 2 * (d + dv) * pairs * b * hq
-            # do stands for o (both (b, hq, s, dv)); the fp32 lse
-            n_bytes = 2 * nbytes(q, k, v, do) if backward else nbytes(q, k, v, do) + 4 * b * hq * s
+            flops = (3 if backward else 1) * 2 * (d + dv) * pairs * hq
+            # do stands for o (both (b, hq, s, dv)); the fp32 lse. With the backward: q, k, v, do read and
+            # dq, dk, dv, o written
+            n_bytes = nbytes(q, do) + kv_bytes + (nbytes(q, k, v, do) if backward else 4 * b * hq * s)
             case.update(bound(n_bytes, flops, "bfloat16"))
             case["library_ms"] = None
             if softcap is None and not sink:
                 sdpa = torch.nn.functional.scaled_dot_product_attention
                 allowed = None
-                if window is not None:
+                if window is not None or mask is not None:
                     pos = torch.arange(s, device=DEVICE)
-                    allowed = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+                    allowed = pos[None, :] <= pos[:, None]
+                    if window is not None:
+                        allowed = allowed & (pos[None, :] > pos[:, None] - window)
+                    if mask is not None:  # the same bool mask, (b, 1, s, s)
+                        allowed = allowed[None, None] & mask[:, None, None, :]
 
                 def lib():
                     lq, lk, lv = leaves[:3]
@@ -1340,9 +1420,12 @@ def k4_case(gen, dtypes, *, shape=GEMMA_K4, window=None, softcap=None, sink=Fals
         del q, k, v, do, leaves
         torch.cuda.empty_cache()
     rec = cases[-1]
+    if not timed:
+        return rec
     extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "library_ms",
                                        "device_ms")}
-    extra["shape"] = {**shape, "window": window, "softcap": softcap, "sink": sink, "backward": backward}
+    extra["shape"] = {**shape, "window": window, "softcap": softcap, "sink": sink, "backward": backward,
+                      "key_mask": mask is not None}
     extra["max_abs_err_bf16"] = max(errs_bf16)
     if tiles:
         extra["tile_err_bf16"] = max(rec["tile_err"].values())
@@ -2314,6 +2397,8 @@ def kernel_k5(gen, dtypes, *, causal, backward=False, shape=CP_K5):
         del q, k, v, do, leaves
         torch.cuda.empty_cache()
     rec = cases[-1]
+    if not timed:
+        return rec
     extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "library_ms",
                                        "device_ms")}
     extra["shape"] = {**shape, "causal": causal, "backward": backward}
@@ -2491,6 +2576,11 @@ ENGINE_SPEC, ENGINE_SPEC_INT8 = "engine_spec", "engine_spec_int8"
 # int8 KV cache (no kernel: ``sdpa`` on the cache, as in JAX)
 GPT2_TRAIN, LLAMA_TRAIN, HYPER_TRAIN = "gpt2_train", "llama_train", "hyper_qwen3_train"
 ENGINE_LLAMA, ENGINE_LLAMA_INT8 = "engine_serve_llama", "engine_serve_llama_int8"
+# the alignment stack over GPT-2 124M (``GPT_SMALL_CONFIG`` at context 512): classifier tuning, DPO, the reward
+# model, RLHF-GRPO, and RLVR with RPT
+CLASSIFIER_TRAIN, DPO_TRAIN, RM_TRAIN = "classifier_train", "dpo_train", "rm_train"
+GRPO_RLHF, RLVR_RPT = "grpo_rlhf", "rlvr_rpt"
+ALIGN_PATHS = (CLASSIFIER_TRAIN, DPO_TRAIN, RM_TRAIN, GRPO_RLHF, RLVR_RPT)
 # the attention records' sources by dtype: bf16 takes the tensor-core
 # kernels, fp32 the SIMT ones
 ATTN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/attention_tc.cu",
@@ -2540,15 +2630,23 @@ KERNELS = [
     ("flash_attention_bwd", ("attention", "flash_attention_bwd"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:175", kernel_k4_bwd, (TRAIN, HYBRID, HYPER_TRAIN)),
     # K4 at one layer of GPT-2 124M's train step (forward, and forward + backward) and of Llama-3.2-1B's
-    # (forward + backward), each held per 64-row tile in bf16 beside the dropped-tile control
+    # (forward + backward), each held per 64-row tile in bf16 beside the dropped-tile control. The alignment
+    # paths count their launches here and in the GRPO record; each also holds K4 at its own (b, s) and key
+    # mask to plain before its counted window (``phase_k4``)
     ("flash_attention_fwd_gpt2", ("attention", "flash_attention"), ATTN_SRC,
-     "llm_quest_tpu/kernels/flash_attention.py:544", partial(k4_case, shape=GPT2_K4, tiles=True), (GPT2_TRAIN,)),
+     "llm_quest_tpu/kernels/flash_attention.py:544", partial(k4_case, shape=GPT2_K4, tiles=True),
+     (GPT2_TRAIN, *ALIGN_PATHS)),
     ("flash_attention_fwd_bwd_gpt2", ("attention", "flash_attention_bwd"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:175", partial(k4_case, shape=GPT2_K4, backward=True, tiles=True),
-     (GPT2_TRAIN,)),
+     (GPT2_TRAIN, CLASSIFIER_TRAIN, DPO_TRAIN, RM_TRAIN)),
     ("flash_attention_fwd_bwd_llama", ("attention", "flash_attention_bwd"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:175", partial(k4_case, shape=LLAMA_K4, backward=True, tiles=True),
      (LLAMA_TRAIN,)),
+    # K4 at one layer of the GRPO update over GPT-2 124M, on its key mask with holes (the prompts' pads between
+    # prompt and response, the cut after the first EoS), forward and backward, held per 64-row tile in bf16
+    ("flash_attention_fwd_bwd_grpo", ("attention", "flash_attention_bwd"), ATTN_SRC,
+     "llm_quest_tpu/kernels/flash_attention.py:175",
+     partial(k4_case, shape=GRPO_K4, backward=True, tiles=True, key_mask=grpo_key_mask), (GRPO_RLHF, RLVR_RPT)),
     # K7: its bf16 forward is the short-sequence tensor-core kernel (fp32: the
     # SIMT flash forward of attention.cu); its backward the flash recompute
     # kernels (attention_tc.cu in bf16, attention.cu in fp32), counted as "bwd"
@@ -3395,7 +3493,8 @@ def grads_check(phase, model_mod, cfg, b, s, *, fused=True, invariant=None, grou
             loss = engine.make_loss_fn(model_mod, run_cfg, fused_head_ce=fused)(model, batch)
         else:
             loss = loss_fn(run_cfg, model, batch)
-        grads = torch.autograd.grad(loss, list(model.parameters()))
+        # a leaf the loss does not read (the reward model's unused vocabulary head) gets zeros
+        grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True, materialize_grads=True)
         results.append((float(loss.detach()), [g.detach() for g in grads]))
     (lk, gk), (lp, gp) = results
     loss_rel = abs(lk - lp) / abs(lp)
@@ -4134,6 +4233,523 @@ def hyper_qwen3_train(records, card):
                     if ".hc_" in n else None)
     train_run(HYPER_TRAIN, hyper_model("mhc-lite"), hyper_cfg(HYPER_LAYERS, torch.bfloat16), records, card,
               HYPER_TRAIN, {"flash_attention_fwd": HYPER_LAYERS, "flash_attention_bwd": HYPER_LAYERS})
+
+
+# ------------------------------------------ the alignment stack over GPT-2 124M
+
+ALIGN_CONTEXT = 512  # the alignment scripts' context (scripts/dpo_training.py:23 and the others)
+ALIGN_PAD = 50256  # GPT-2's <|endoftext|>: the pad and the EoS
+# the loops' learning rates: classifier_training_loop's, dpo_training_loop's, and scripts/rlhf_grpo_training.py's
+# RM_LR and POLICY_LR (RLVR's peak_lr default too)
+CLASSIFIER_LR, DPO_LR, RM_LR, POLICY_LR = 5e-5, 5e-6, 1e-5, 1e-6
+RM_READOUTS = ("scores_mean_pooling", "hidden_states_pooling", "last_token")
+# the update's other losses, each run once on the GRPO phase's experience
+GRPO_OTHER_LOSSES = ({"variant": "dapo"}, {"variant": "dr_grpo"}, {"variant": "sapo"}, {"variant": "gspo"},
+                     {"opsm_delta": 0.5}, {"unbiased_kl": True})
+RLVR_GEN, RLVR_PROMPTS = 64, 2
+# GSM8K-like entries for RLVR and RPT: no dataset ships with the repository (the scripts' synthetic fallback)
+RLVR_ENTRIES = [
+    {"question": "Natalia sold clips to 48 of her friends in April, and then she sold half as many clips in May. "
+                 "How many clips did Natalia sell altogether in April and May? Answer with one number only.",
+     "answer": "In May she sold 48 / 2 = 24 clips. Altogether she sold 48 + 24 = 72 clips.\n#### 72"},
+    {"question": "Weng earns 12 dollars an hour for babysitting. Yesterday, she just did 50 minutes of babysitting. "
+                 "How much did she earn? Answer with one number only, in dollars, without the unit.",
+     "answer": "She earns 12 / 60 = 0.2 dollars a minute. For 50 minutes she earned 0.2 x 50 = 10 dollars.\n#### 10"},
+]
+
+
+class ByteTokenizer:
+    """UTF-8 bytes as ids 0-255, inside GPT-2's vocabulary (the scripts'
+    ``_ByteTok``); decoding drops any other id."""
+
+    def encode(self, text):
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids):
+        return bytes(int(i) for i in ids if int(i) < 256).decode("utf-8", errors="ignore")
+
+
+def align_cfg(n_layers, dtype):
+    """The alignment scripts' model: ``GPT_SMALL_CONFIG`` (GPT-2 124M's
+    widths: d 768, 12 heads of 64, vocabulary 50,304, no q/k/v bias) at
+    context 512 and ``n_layers`` of its 12."""
+    from llm_quest_tpu_torch.config import GPT_SMALL_CONFIG
+
+    return dict(GPT_SMALL_CONFIG, context_length=ALIGN_CONTEXT, n_layers=n_layers, dtype=dtype)
+
+
+def classifier_batch(b, seed=SEED):
+    """``b`` texts of U[200, 512] random ids right-padded with the EoS id,
+    with 0/1 labels (``spam_dataset``'s layout)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(200, ALIGN_CONTEXT + 1, b)
+    ids = np.full((b, lens.max()), ALIGN_PAD, np.int32)
+    mask = np.zeros(ids.shape, bool)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.integers(0, ALIGN_PAD, n)
+        mask[i, :n] = True
+    return {"input_ids": ids, "targets": rng.integers(0, 2, b).astype(np.int32), "attn_mask": mask}
+
+
+def pref_pairs(n, seed=SEED):
+    """``n`` preference pairs: prompts of U[64, 128] random ids, chosen and
+    rejected each the prompt and a response of U[128, 384]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        prompt = rng.integers(0, ALIGN_PAD, rng.integers(64, 129)).tolist()
+        out.append({"prompt": prompt, **{key: prompt + rng.integers(0, ALIGN_PAD, rng.integers(128, 385)).tolist()
+                                         for key in ("chosen", "rejected")}})
+    return out
+
+
+def grpo_prompt_batch(seed=SEED):
+    """GRPO_PROMPTS prompts of U[128, 256] random ids (the last 256 long, so
+    the phase pads to GRPO_PROMPT columns), ``prompt_collator``'s."""
+    import numpy as np
+
+    from llm_quest_tpu_torch.alignment import grpo
+
+    rng = np.random.default_rng(seed)
+    lens = [*rng.integers(128, GRPO_PROMPT + 1, GRPO_PROMPTS - 1), GRPO_PROMPT]
+    return grpo.prompt_collator([rng.integers(0, ALIGN_PAD, n).tolist() for n in lens], ALIGN_PAD)
+
+
+def rm_module():
+    """``alignment.grpo`` as a model module for ``init_model`` / ``grads_check``: the reward model."""
+    import types
+
+    from llm_quest_tpu_torch.alignment import grpo
+
+    return types.SimpleNamespace(__name__="reward_model", init=grpo.init_reward_model)
+
+
+def rm_loss(cfg, model, batch, readout="scores_mean_pooling"):
+    """The Bradley–Terry loss of a ``pref_reward_collate`` batch."""
+    from llm_quest_tpu_torch.alignment import grpo
+
+    rewards = [grpo.reward_model_apply(model, cfg, batch[key], attn_mask=batch[f"{key}_attn_mask"],
+                                       reward_mask=batch[f"{key}_mask"], readout=readout)
+               for key in ("chosen", "rejected")]
+    return grpo.bt_loss(*rewards)
+
+
+def rm_reward(rm, cfg):
+    """The RLHF loop's reward function over ``rm`` (the default readout)."""
+    from llm_quest_tpu_torch.alignment import grpo
+
+    return lambda responses, reward_masks, attn_masks: grpo.reward_model_apply(
+        rm, cfg, responses, attn_mask=attn_masks, reward_mask=reward_masks)
+
+
+def on_card(batch, rows=None):
+    from llm_quest_tpu_torch.training import engine
+
+    return engine.as_tensors({k: v[:rows] for k, v in batch.items()}, DEVICE)
+
+
+def timed_steps(step, n):
+    """``step()`` ``n`` times, each ended by a device sync: (its results, the ms of each)."""
+    import torch
+
+    outs, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        outs.append(step())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+def finite(phase, values):
+    """``values`` (numbers or 0-d tensors) as floats; fails unless all are finite."""
+    values = [float(x) for x in values]
+    if not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"{phase}: values not finite: {values}")
+    return values
+
+
+def align_launches(phase, records, expect):
+    """``read_launches`` of the path just driven; each count of ``expect``
+    (record name: launches) must be exact. Returns the counts, with the K4
+    launches on the tensor cores."""
+    from llm_quest_tpu_torch.kernels import attention as attn
+
+    launches = read_launches(phase, records)
+    for name, n in expect.items():
+        if launches[name] != n:
+            raise AssertionError(f"{phase} {name}: {launches[name]} launches, expected {n}")
+    return {"k4_fwd": attn.flash_attention.launches, "k4_fwd_tc": attn.flash_attention.tc_launches,
+            "k4_bwd": attn.flash_attention_bwd.launches, "k4_bwd_tc": attn.flash_attention_bwd.tc_launches}
+
+
+def phase_k4(mask=None, s=None, b=8):
+    """K4 forward and backward in bf16 at a phase's own (b, s) (the shape of
+    ``mask``, its batch's key mask, where the phase has one), GPT-2's 12 heads
+    of 64, causal, against the plain version: within TOL, per 64-row tile within
+    TILE_TOL beside the dropped-tile control, a masked key's dk and dv exactly
+    zero. Run before the phase's counted window, so its launches are not the
+    path's. Returns the readings."""
+    import torch
+
+    if mask is not None:
+        b, s = mask.shape
+    case = k4_case(torch.Generator(device=DEVICE).manual_seed(SEED + 4), (torch.bfloat16,),
+                   shape=dict(GPT2_K4, b=b, s=s), backward=True, tiles=True,
+                   key_mask=None if mask is None else lambda *_: mask, timed=False)
+    reading = {"b": b, "s": s, "key_mask": mask is not None, "max_abs_err": case["max_abs_err"],
+               "tile_err": case["tile_err"], "tile_err_dropped_tile": case["tile_err_dropped_tile"]}
+    if mask is not None:
+        reading.update({key: case[key] for key in ("masked_keys", "masked_key_grad_max")})
+    return reading
+
+
+def align_emit(phase, card, launches, ms, tokens, **extra):
+    """The phase's line: step ms (the mean past the first step), tokens a
+    second over the step, peak memory and the K4 launches."""
+    import torch
+
+    step_ms = statistics.mean(ms[1:]) if len(ms) > 1 else ms[0]
+    emit({"phase": phase, "card": card, "dtype": "bfloat16", "layers": 12, "step_ms": step_ms, "step_ms_each": ms,
+          "tokens_per_step": tokens, "tok_s": tokens / step_ms * 1e3,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **launches, **extra})
+
+
+def classifier_train(records, card):
+    """Classifier tuning (``training/classifier.py``) over GPT-2 124M: the
+    fp32 check (2 layers, 2 rows: the last-token CE and every gradient
+    through the kernels against the plain versions), then 12 layers in bf16
+    at b 8, texts of U[200, 512] ids right-padded (K4 with the padding key
+    mask), 1 + 4 steps of ``make_classifier_train_step`` at
+    ``classifier_training_loop``'s settings and ``classifier_accuracy``: K4
+    forward and backward 12 times a step, 12 more forwards in the accuracy."""
+    import torch
+
+    from llm_quest_tpu_torch.models import gpt2
+    from llm_quest_tpu_torch.training import classifier, engine
+
+    batch = classifier_batch(8)
+    small = on_card(batch, 2)
+    grads_check("classifier_fp32", gpt2, align_cfg(2, torch.float32), 2, small["input_ids"].shape[1],
+                loss_fn=lambda cfg, model, b: engine.make_loss_fn(gpt2, cfg, classification=True)(model, b),
+                batch=small)
+    tb = on_card(batch)
+    k4 = phase_k4(tb["attn_mask"])
+    cfg = align_cfg(12, torch.bfloat16)
+    model = init_model(gpt2, cfg)
+    optimizer = engine.adamw(CLASSIFIER_LR, weight_decay=0.1)
+    state = optimizer.init(model)
+    step = classifier.make_classifier_train_step(gpt2, cfg, optimizer)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = timed_steps(lambda: step(model, state, tb)[2], 5)
+    accuracy = classifier.classifier_accuracy([tb], classifier.make_classifier_eval_step(gpt2, cfg), model)
+    torch.cuda.synchronize()
+    launches = align_launches(CLASSIFIER_TRAIN, records, {"flash_attention_fwd_gpt2": 12 * 6,
+                                                          "flash_attention_fwd_bwd_gpt2": 12 * 5})
+    align_emit(CLASSIFIER_TRAIN, card, launches, ms, tb["input_ids"].numel(), b=8, s=tb["input_ids"].shape[1],
+               lr=CLASSIFIER_LR, losses=finite(CLASSIFIER_TRAIN, losses), accuracy=accuracy, k4_check=k4)
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def dpo_train(records, card):
+    """DPO (``alignment/dpo.py``) over GPT-2 124M: the fp32 check (2 layers,
+    2 pairs, a reference of other weights: the loss and every policy
+    gradient through the kernels against the plain versions), then 12
+    layers in bf16 at b 8 pairs (prompts U[64, 128], responses U[128, 384],
+    ``dpo_collate`` cut at 512), 1 + 4 steps of ``make_dpo_train_step`` at
+    ``dpo_training_loop``'s settings (the reference a copy of the policy)
+    and one ``dpo_evaluate``: K4 (causal, no key mask) 48 forwards and 24
+    backwards a step, 48 forwards in the evaluation."""
+    import copy
+
+    import torch
+
+    from llm_quest_tpu_torch.alignment import dpo
+    from llm_quest_tpu_torch.data.datasets import dpo_collate
+    from llm_quest_tpu_torch.models import gpt2
+    from llm_quest_tpu_torch.training import engine
+
+    batch = dpo_collate(pref_pairs(8), ALIGN_PAD, allowed_max_length=ALIGN_CONTEXT)
+    cfg32 = align_cfg(2, torch.float32)
+    ref32 = gpt2.init(cfg32, generator=torch.Generator(device=DEVICE).manual_seed(SEED + 1), device=DEVICE)
+    small = on_card(batch, 2)
+    grads_check("dpo_fp32", gpt2, cfg32, 2, small["chosen"].shape[1], batch=small,
+                loss_fn=lambda cfg, model, b: dpo.dpo_forward(gpt2, cfg, model, ref32, b)[0])
+    del ref32
+    tb = on_card(batch)
+    k4 = phase_k4(s=tb["chosen"].shape[1])  # chosen and rejected share the length; causal, no key mask
+    cfg = align_cfg(12, torch.bfloat16)
+    policy = init_model(gpt2, cfg)
+    reference = copy.deepcopy(policy)
+    optimizer = engine.adamw(DPO_LR)
+    state = optimizer.init(policy)
+    step = dpo.make_dpo_train_step(gpt2, cfg, optimizer)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, ms = timed_steps(lambda: step(policy, state, reference, tb)[2], 5)
+    val_loss, val_margin = dpo.dpo_evaluate(gpt2, cfg, policy, reference, [tb])
+    launches = align_launches(DPO_TRAIN, records, {"flash_attention_fwd_gpt2": 48 * 6,
+                                                   "flash_attention_fwd_bwd_gpt2": 24 * 5})
+    align_emit(DPO_TRAIN, card, launches, ms, tb["chosen"].numel() + tb["rejected"].numel(), b=8,
+               s=tb["chosen"].shape[1], lr=DPO_LR, losses=finite(DPO_TRAIN, [m["loss"] for m in metrics]),
+               margins=finite(DPO_TRAIN, [m["chosen_rewards"] - m["rejected_rewards"] for m in metrics]),
+               val_loss=finite(DPO_TRAIN, [val_loss])[0], val_margin=val_margin, k4_check=k4)
+    del policy, reference, state
+    torch.cuda.empty_cache()
+
+
+def rm_train(records, card):
+    """The reward model (``alignment/grpo.py``: a GPT-2 body and a scalar
+    head): the fp32 check (2 layers, 2 pairs of ``pref_reward_collate``,
+    right-padded: the BT loss and every gradient through the kernels
+    against the plain versions; the head's bias and the final LayerNorm's
+    shift, which the loss's reward differences cancel, against the head's
+    scale), then 12 layers in bf16 on ``dpo_train``'s 8 pairs, one step of
+    ``make_rm_train_step`` for each readout (the RLHF script's RM_LR) and
+    ``rm_evaluate``: K4 with the padding key mask 24 forwards and 24
+    backwards a step, 24 forwards in the evaluation."""
+    import torch
+
+    from llm_quest_tpu_torch.alignment import grpo
+    from llm_quest_tpu_torch.data.datasets import pref_reward_collate
+    from llm_quest_tpu_torch.training import engine
+
+    batch = pref_reward_collate(pref_pairs(8), ALIGN_PAD, allowed_max_length=ALIGN_CONTEXT)
+    small = on_card(batch, 2)
+    grads_check("rm_fp32", rm_module(), align_cfg(2, torch.float32), 2, small["chosen"].shape[1], batch=small,
+                loss_fn=rm_loss, invariant=lambda n: "head.w" if n in ("head.b", "body.final_ln.shift") else None)
+    tb = on_card(batch)
+    k4 = [phase_k4(tb[f"{key}_attn_mask"]) for key in ("chosen", "rejected")]
+    cfg = align_cfg(12, torch.bfloat16)
+    rm = init_model(rm_module(), cfg)
+    optimizer = engine.adamw(RM_LR)
+    state = optimizer.init(rm)
+    steps = [grpo.make_rm_train_step(cfg, optimizer, readout=r) for r in RM_READOUTS]
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = [], []
+    for step in steps:
+        o, t = timed_steps(lambda step=step: step(rm, state, tb)[2:], 1)
+        out += o
+        ms += t
+    val_loss, val_acc = grpo.rm_evaluate(rm, cfg, [tb])
+    launches = align_launches(RM_TRAIN, records, {"flash_attention_fwd_gpt2": 24 * 4,
+                                                  "flash_attention_fwd_bwd_gpt2": 24 * 3})
+    align_emit(RM_TRAIN, card, launches, ms, tb["chosen"].numel() + tb["rejected"].numel(), b=8,
+               s=tb["chosen"].shape[1], lr=RM_LR, readouts=list(RM_READOUTS),
+               losses=finite(RM_TRAIN, [o[0] for o in out]), accuracies=[float(o[1]) for o in out],
+               val_loss=finite(RM_TRAIN, [val_loss])[0], val_accuracy=val_acc, k4_check=k4)
+    del rm, state
+    torch.cuda.empty_cache()
+
+
+def experience_checks(phase, exp, num_samples, prompt_masks):
+    """What can be checked of a sampled experience: the key masks keep each
+    prompt's own mask (holes where it was padded) and one first-EoS-cut
+    response after it, the log-probabilities are finite, and each group's
+    advantages average to zero. Returns readings."""
+    import torch
+
+    masks, reward = exp["attn_masks"], exp["reward_masks"]
+    p = prompt_masks.shape[1]
+    prompt = torch.as_tensor(prompt_masks, device=DEVICE).repeat_interleave(num_samples, 0)
+    if not torch.equal(masks[:, :p], prompt) or reward[:, :p].any() or not torch.equal(reward[:, p:], masks[:, p:]):
+        raise AssertionError(f"{phase}: the key masks do not keep the prompts' masks before the responses")
+    kept = masks[:, p:].long()
+    if not bool((kept[:, 1:] <= kept[:, :-1]).all()) or not bool(kept[:, 0].all()):
+        raise AssertionError(f"{phase}: a response's mask is not one run from its first token")
+    holes = int((~prompt).sum())
+    for key in ("old_logprobs", "ref_logprobs", "advantages", "rewards"):
+        if not bool(torch.isfinite(exp[key]).all()):
+            raise AssertionError(f"{phase}: {key} not finite")
+    group_mean = float(exp["advantages"].view(-1, num_samples).mean(1).abs().max())
+    if not group_mean <= 1e-5:
+        raise AssertionError(f"{phase}: advantages' group means {group_mean} away from zero")
+    return {"holes": holes, "response_tokens": int(kept.sum()), "advantage_group_mean_max": group_mean,
+            "reward_mean": float(exp["rewards"].float().mean())}
+
+
+def grpo_fp32(phase, exp, num_samples, **kw):
+    """``grads_check`` of the GRPO update's loss on an experience sampled
+    from the 2-layer fp32 policy (``init_model``'s weights), its old and
+    reference log-probabilities moved by seeded noise (σ 0.3) and its
+    advantages the z-scores of seeded rewards: as sampled, the ratio is 1,
+    the KL 0 and (RLVR's unanswered responses) the rewards equal, and the
+    loss nearly vanishes."""
+    import torch
+
+    from llm_quest_tpu_torch.alignment import grpo
+    from llm_quest_tpu_torch.models import gpt2
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    old = exp["old_logprobs"] + randn(gen, *exp["old_logprobs"].shape, scale=0.3)
+    exp = dict(exp, old_logprobs=old, ref_logprobs=old + randn(gen, *old.shape, scale=0.3),
+               advantages=grpo.z_scores(randn(gen, old.shape[0]), num_samples))
+    grads_check(phase, gpt2, align_cfg(2, torch.float32), *exp["responses"].shape, batch=exp,
+                loss_fn=lambda cfg, model, b: grpo.grpo_loss(gpt2, cfg, model, b, num_samples=num_samples, **kw)[0])
+
+
+def grpo_rlhf(records, card):
+    """RLHF-GRPO (``alignment/grpo.py``) over GPT-2 124M, on GRPO_PROMPTS
+    prompts of U[128, 256] ids × GRPO_SAMPLES samples, 128 generated tokens
+    at temperature 1.0 from a generator on the card, the reward model of
+    the same widths: the fp32 check (2 layers: the update's loss and every
+    gradient on a sampled experience with holed key masks, through the
+    kernels against the plain versions), then 12 layers in bf16: one batch
+    of ``rlhf_grpo_training_loop`` (sampling through the cache, scoring,
+    2 updates; timed as one GRPO iteration: K4 60 forwards and 24 backwards
+    on the holed key masks), then ``grpo_experience`` again (its masks,
+    finite log-probabilities, advantages' group means zero) and one update
+    of each other loss (dapo, dr_grpo, sapo, gspo, OPSM at 0.5, the
+    unbiased KL) on it: 36 + 72 forwards, 72 backwards."""
+    import copy
+
+    import torch
+
+    from llm_quest_tpu_torch.alignment import grpo
+    from llm_quest_tpu_torch.models import gpt2
+    from llm_quest_tpu_torch.training import engine
+
+    prompts = grpo_prompt_batch()
+    kw = dict(num_samples=GRPO_SAMPLES, max_gen=GRPO_GEN, temp=1.0, eos_id=ALIGN_PAD, pad_id=ALIGN_PAD)
+    cfg32 = align_cfg(2, torch.float32)
+    policy = init_model(gpt2, cfg32)
+    rm = rm_module().init(cfg32, generator=torch.Generator(device=DEVICE).manual_seed(SEED + 2), device=DEVICE)
+    exp = grpo.grpo_experience(gpt2, cfg32, policy, copy.deepcopy(policy), prompts, rm_reward(rm, cfg32),
+                               generator=torch.Generator(device=DEVICE).manual_seed(SEED), **kw)
+    experience_checks("grpo_fp32", exp, GRPO_SAMPLES, prompts["prompt_masks"])
+    grpo_fp32("grpo_fp32", exp, GRPO_SAMPLES, max_gen=GRPO_GEN)
+    k4 = phase_k4(exp["attn_masks"])  # the sampled experience's holed key mask
+    del policy, rm, exp
+
+    cfg = align_cfg(12, torch.bfloat16)
+    policy = init_model(gpt2, cfg)
+    reference = copy.deepcopy(policy)
+    rm = rm_module().init(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED + 2), device=DEVICE)
+    generator = torch.Generator(device=DEVICE).manual_seed(SEED)
+    logs = []
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    policy, metrics = grpo.rlhf_grpo_training_loop(
+        gpt2, cfg, policy, reference, rm, cfg, [prompts], num_grad_updates=2, lr=POLICY_LR, generator=generator,
+        log=logs.append, **kw)
+    torch.cuda.synchronize()
+    iteration_s = time.perf_counter() - t0
+    iteration_peak = torch.cuda.max_memory_allocated() / 1e9
+    loop_launches = align_launches(GRPO_RLHF, records, {"flash_attention_fwd_gpt2": 60,
+                                                        "flash_attention_fwd_bwd_grpo": 24})
+    finite(GRPO_RLHF, [metrics[0][k] for k in ("loss", "kl", "reward")])
+
+    reset_launches()
+    t0 = time.perf_counter()
+    exp = grpo.grpo_experience(gpt2, cfg, policy, reference, prompts, rm_reward(rm, cfg), generator=generator, **kw)
+    torch.cuda.synchronize()
+    experience_s = time.perf_counter() - t0
+    readings = experience_checks(GRPO_RLHF, exp, GRPO_SAMPLES, prompts["prompt_masks"])
+    optimizer = engine.adamw(POLICY_LR)
+    state = optimizer.init(policy)
+    updates = [grpo.make_grpo_update_step(gpt2, cfg, optimizer, num_samples=GRPO_SAMPLES, max_gen=GRPO_GEN, **o)
+               for o in GRPO_OTHER_LOSSES]
+    out, ms = [], []
+    for update in updates:
+        o, t = timed_steps(lambda update=update: update(policy, state, exp)[2], 1)
+        out += o
+        ms += t
+    launches = align_launches(GRPO_RLHF, records, {"flash_attention_fwd_gpt2": 36 + 72,
+                                                   "flash_attention_fwd_bwd_grpo": 72})
+    align_emit(GRPO_RLHF, card, launches, ms, exp["responses"].numel(), b=GRPO_K4["b"],
+               s=exp["responses"].shape[1], lr=POLICY_LR, iteration_s=iteration_s, iteration_metrics=metrics[0],
+               iteration_launches=loop_launches, iteration_peak_mem_gb=iteration_peak, experience_s=experience_s,
+               losses={json.dumps(o): finite(GRPO_RLHF, [m["loss"], m["kl"]]) for o, m in zip(GRPO_OTHER_LOSSES, out)},
+               k4_check=k4, **readings)
+    del policy, reference, rm, exp, state
+    torch.cuda.empty_cache()
+
+
+def rlvr_batches(tok):
+    """One RLVR batch (RLVR_ENTRIES' questions in the DeepSeek format, their
+    gold answers) and one RPT batch (two of ``rpt_structured_dataset``'s
+    pairs over the same entries, contexts up to 448 tokens with the
+    default instruction, 8-token labels), ``rlvr_prompt_collator``'s."""
+    from llm_quest_tpu_torch.alignment import rlvr
+    from llm_quest_tpu_torch.data.datasets import rpt_structured_dataset
+    from llm_quest_tpu_torch.utils import alpaca_deepseek_format
+
+    items = [{"prompt": tok.encode(alpaca_deepseek_format(e, include_response=False)),
+              "answer": e["answer"].rpartition("####")[2].strip()} for e in RLVR_ENTRIES]
+    _, allowed, getter = rpt_structured_dataset(RLVR_ENTRIES, tok, ALIGN_CONTEXT - RLVR_GEN, labels_length=8)
+    pairs = [getter(len(allowed) // 3), getter(2 * len(allowed) // 3)]
+    return rlvr.rlvr_prompt_collator(items, ALIGN_PAD), rlvr.rlvr_prompt_collator(pairs, ALIGN_PAD)
+
+
+def rlvr_rpt(records, card):
+    """RLVR and RPT (``alignment/rlvr.py``, ``alignment/rpt.py``) over GPT-2
+    124M with a byte tokenizer: the fp32 check (2 layers: the update's loss
+    and every gradient on an RLVR experience, through the kernels against
+    the plain versions), then 12 layers in bf16: one batch of
+    ``rlvr_grpo_training_loop`` with the verifier (RLVR_PROMPTS prompts × 4
+    samples, 64 generated tokens at temperature 1.0, 2 updates) and one with
+    the prefix-matching reward over RPT pairs: K4 48 forwards and 24
+    backwards a loop."""
+    import copy
+
+    import torch
+
+    from llm_quest_tpu_torch.alignment import grpo, rlvr, rpt
+    from llm_quest_tpu_torch.models import gpt2
+
+    tok = ByteTokenizer()
+    rlvr_batch, rpt_batch = rlvr_batches(tok)
+    kw = dict(num_samples=GRPO_SAMPLES, max_gen=RLVR_GEN, temp=1.0, eos_id=ALIGN_PAD, pad_id=ALIGN_PAD)
+    verifier = rlvr.VerifiableRewardCalculator(tok, pad_token_id=ALIGN_PAD)
+    rewards = {"rlvr": verifier, "rpt": rpt.PrefixMatchingReward(tok, pad_token_id=ALIGN_PAD)}
+    cfg32 = align_cfg(2, torch.float32)
+    policy = init_model(gpt2, cfg32)
+    k4 = {}
+    for (name, reward), batch in zip(rewards.items(), (rlvr_batch, rpt_batch)):
+        answers = [a for a in batch["answers"] for _ in range(GRPO_SAMPLES)]
+        exp = grpo.grpo_experience(
+            gpt2, cfg32, policy, copy.deepcopy(policy), batch,
+            lambda r, m, a, reward=reward, answers=answers: reward(torch.where(m, r, ALIGN_PAD), answers),
+            generator=torch.Generator(device=DEVICE).manual_seed(SEED), **kw)
+        experience_checks(f"{name}_fp32", exp, GRPO_SAMPLES, batch["prompt_masks"])
+        if name == "rlvr":
+            grpo_fp32("rlvr_fp32", exp, GRPO_SAMPLES, max_gen=RLVR_GEN, opsm_delta=0.5)
+        k4[name] = phase_k4(exp["attn_masks"])  # the sampled experience's holed key mask
+    del policy, exp
+
+    cfg = align_cfg(12, torch.bfloat16)
+    policy = init_model(gpt2, cfg)
+    reference = copy.deepcopy(policy)
+    generator = torch.Generator(device=DEVICE).manual_seed(SEED)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = [], []
+    for batch, reward in zip((rlvr_batch, rpt_batch), rewards.values()):
+        o, t = timed_steps(lambda batch=batch, reward=reward: rlvr.rlvr_grpo_training_loop(
+            gpt2, cfg, policy, reference, [batch], reward, num_grad_updates=2, peak_lr=POLICY_LR,
+            generator=generator, log=lambda _: None, **kw)[1][0], 1)
+        out += o
+        ms += t
+    launches = align_launches(RLVR_RPT, records, {"flash_attention_fwd_gpt2": 2 * 48,
+                                                  "flash_attention_fwd_bwd_grpo": 2 * 24})
+    for m in out:
+        finite(RLVR_RPT, [m[k] for k in ("loss", "kl", "reward")])
+    emit({"phase": RLVR_RPT, "card": card, "dtype": "bfloat16", "layers": 12, "lr": POLICY_LR,
+          "loop_ms": dict(zip(("rlvr", "rpt"), ms)), "rows": GRPO_SAMPLES * RLVR_PROMPTS, "max_gen": RLVR_GEN,
+          "prompt_columns": [b["padded_prompts"].shape[1] for b in (rlvr_batch, rpt_batch)],
+          "metrics": dict(zip(("rlvr", "rpt"), out)), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "k4_check": k4, **launches})
+    del policy, reference
+    torch.cuda.empty_cache()
+
 
 
 # ------------------------------------------------------------ serving paths
@@ -6479,6 +7095,11 @@ def main(argv):
     phase(gpt2_train, records, smi)
     phase(llama_train, records, smi)
     phase(hyper_qwen3_train, records, smi)
+    phase(classifier_train, records, smi)
+    phase(dpo_train, records, smi)
+    phase(rm_train, records, smi)
+    phase(grpo_rlhf, records, smi)
+    phase(rlvr_rpt, records, smi)
     t_checks = time.perf_counter()
     serving_checks_fp32()
     PHASE_SECONDS["serving_checks_fp32"] = time.perf_counter() - t_checks

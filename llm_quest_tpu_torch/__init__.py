@@ -16,8 +16,10 @@ training (``models/vit.py``, ``training/vit_engine.py``), the MiMo-V2-Flash
 and DeepSeek-V3 MTP training steps, context-parallel training of the dense
 Qwen3 (``parallel/``), the int8-score ablation (``scripts/``), the
 continuous-batching engine with its admissions, multi-LoRA and speculative
-windows (``inference/``), and GPT-2, Llama-3.2 (with the YaRN RoPE tables)
-and Hyper-Qwen3 (``ops/hyper_connections.py``). Every TPU
+windows (``inference/``), GPT-2, Llama-3.2 (with the YaRN RoPE tables)
+and Hyper-Qwen3 (``ops/hyper_connections.py``), and the fine-tuning and
+alignment stack over GPT-2 (``training/classifier.py``, checkpoints and
+profiling, ``alignment/``: DPO, the reward model, GRPO, RLVR, RPT). Every TPU
 kernel of the JAX package is rewritten as CUDA C++ for ``sm_90a``
 (``csrc/``, bound in ``kernels/``), flash attention (with its sliding
 window, softcap and sinks) and the GDN prefill with their backward.

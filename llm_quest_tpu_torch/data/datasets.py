@@ -1,17 +1,38 @@
-"""Collators and the batching loader (counterpart of
-``llm_quest_tpu/data/datasets.py``, the parts the training paths use).
+"""Dataset functions, collators and the batching loader (counterpart of
+``llm_quest_tpu/data/datasets.py``).
 
 numpy only, and the port's own copies: the port imports nothing of the JAX
-package. ``collate_*`` turn sample lists into padded numpy batches;
+package. The dataset functions return lists or numpy arrays, as JAX's do; the
+``collate_*`` functions turn sample lists into padded numpy batches;
 ``data_loader`` shuffles and batches; ``normalize_images`` prepares the ViT
-trainer's images. The other dataset functions come with the trainers that
-read them.
+trainer's images. Here: the text collators, the instruction, spam,
+preference, reasoning and RPT datasets and the DPO and reward-model
+collators. Not ported yet (ROADMAP Queue 1 item 9): ``gpt_windows``,
+``gpt_stream_windows``, ``load_jsonl_gz``, ``pad_to_multiple`` and
+``multimodal_batches``.
 """
+
+import json
 
 import numpy as np
 
 PAD_TOKEN_ID = 50256  # GPT-2 "<|endoftext|>"
 NO_LOSS_ID = -100
+
+
+def load_instruction_data(path):
+    """JSON (a list) or JSONL instruction data."""
+    with open(path, encoding="utf-8") as f:
+        first = f.read(1)
+        f.seek(0)
+        if first == "[":
+            return json.load(f)
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def instruction_dataset(data, tokenizer, format_fn):
+    """Tokenized formatted instruction samples → list[list[int]]."""
+    return [tokenizer.encode(format_fn(entry)) for entry in data]
 
 
 def collate_function(batch, custom_max_len=None, pad_token_id=PAD_TOKEN_ID):
@@ -35,6 +56,73 @@ def collate_function(batch, custom_max_len=None, pad_token_id=PAD_TOKEN_ID):
         targets[i, n - 1] = pad_token_id  # one pad target after the sequence's end
         mask[i, :n] = True
     return {"input_ids": inputs, "targets": targets, "attn_mask": mask}
+
+
+def dpo_collate(batch, pad_token_id=PAD_TOKEN_ID, allowed_max_length=None, mask_prompt_tokens=True):
+    """DPO collator: chosen and rejected padded to one length (the longer of
+    the two plus one, for the label shift; cut at ``allowed_max_length``);
+    the loss masks are False on padding and (``mask_prompt_tokens``) on the
+    prompt's tokens.
+
+    batch: list of {"prompt": ids, "chosen": ids, "rejected": ids}, chosen
+    and rejected each holding the prompt. Returns {"chosen", "rejected"}
+    (int32) and {"chosen_mask", "rejected_mask"} (bool)."""
+    max_common = max(max(len(x["chosen"]), len(x["rejected"])) for x in batch) + 1
+    if allowed_max_length is not None:
+        max_common = min(max_common, allowed_max_length)
+
+    bsz = len(batch)
+    chosen = np.full((bsz, max_common), pad_token_id, dtype=np.int32)
+    rejected = np.full((bsz, max_common), pad_token_id, dtype=np.int32)
+    chosen_mask = np.ones((bsz, max_common), dtype=bool)
+    rejected_mask = np.ones((bsz, max_common), dtype=bool)
+
+    for i, item in enumerate(batch):
+        prompt_len = len(item["prompt"])
+        chos = item["chosen"][:max_common]
+        rej = item["rejected"][:max_common]
+        chosen[i, : len(chos)] = chos
+        rejected[i, : len(rej)] = rej
+        chosen_mask[i, len(chos) :] = False
+        rejected_mask[i, len(rej) :] = False
+        if mask_prompt_tokens:
+            chosen_mask[i, :prompt_len] = False
+            rejected_mask[i, :prompt_len] = False
+
+    return {
+        "chosen": chosen,
+        "rejected": rejected,
+        "chosen_mask": chosen_mask,
+        "rejected_mask": rejected_mask,
+    }
+
+
+def pref_reward_collate(batch, pad_token_id=PAD_TOKEN_ID, allowed_max_length=None):
+    """Reward-model collator: ``dpo_collate``'s padding with the EoS token
+    (``pad_token_id``) appended to each sequence; the loss masks
+    ("<key>_mask") cover the response and its EoS, the attention masks
+    ("<key>_attn_mask") every real token. Right-padded."""
+    max_common = max(max(len(x["chosen"]), len(x["rejected"])) for x in batch) + 1  # +1 EoS
+    if allowed_max_length is not None:
+        max_common = min(max_common, allowed_max_length)
+
+    bsz = len(batch)
+    out = {}
+    for key in ("chosen", "rejected"):
+        toks = np.full((bsz, max_common), pad_token_id, dtype=np.int32)
+        loss_mask = np.zeros((bsz, max_common), dtype=bool)
+        attn_mask = np.zeros((bsz, max_common), dtype=bool)
+        for i, item in enumerate(batch):
+            prompt_len = len(item["prompt"])
+            seq = list(item[key])[: max_common - 1] + [pad_token_id]  # append EoS
+            n = len(seq)
+            toks[i, :n] = seq
+            attn_mask[i, :n] = True
+            loss_mask[i, min(prompt_len, n) : n] = True  # response + EoS
+        out[key] = toks
+        out[f"{key}_mask"] = loss_mask
+        out[f"{key}_attn_mask"] = attn_mask
+    return out
 
 
 def collate_function_mtp(batch, mtp_depth, custom_max_len=None, pad_token_id=PAD_TOKEN_ID):
@@ -86,6 +174,208 @@ def data_loader(samples, batch_size, *, shuffle=False, drop_last=True, collate_f
             chunk = [samples[j] for j in sel]
             batches.append(collate_fn(chunk) if collate_fn else chunk)
     return batches
+
+
+def spam_dataset(rows, tokenizer, max_length=None, pad_token=PAD_TOKEN_ID):
+    """Text classification data (the spam CSV's rows).
+
+    rows: iterable of (text, label) pairs. Returns {"input_ids" (n,
+    max_length) int32 right-padded, "targets" (n,) int32 labels, "attn_mask"
+    (n, max_length) bool, "max_length"}; pass the training set's
+    "max_length" to pad the validation and test sets alike."""
+    texts, labels = zip(*rows)
+    ids = [tokenizer.encode(t) for t in texts]
+    if max_length:
+        ids = [v[:max_length] for v in ids]
+    else:
+        max_length = max(len(v) for v in ids)
+
+    inputs = np.full((len(ids), max_length), pad_token, dtype=np.int32)
+    mask = np.zeros((len(ids), max_length), dtype=bool)
+    for i, v in enumerate(ids):
+        inputs[i, : len(v)] = v[:max_length]
+        mask[i, : min(len(v), max_length)] = True
+    return {
+        "input_ids": inputs,
+        "targets": np.asarray(labels, dtype=np.int32),
+        "attn_mask": mask,
+        "max_length": max_length,
+    }
+
+
+def load_csv_rows(path, text_col="text", label_col="label"):
+    """(text, int label) rows of a CSV file (the standard library's reader)."""
+    import csv
+
+    with open(path, newline="", encoding="utf-8") as f:
+        reader = csv.DictReader(f)
+        return [(row[text_col], int(row[label_col])) for row in reader]
+
+
+def reasoning_dataset(path, tokenizer):
+    """GSM8K JSONL → samples in the DeepSeek <think>/<answer> format: a list
+    of {"prompt": ids (up to "### Response:"), "full_response": ids, "answer":
+    the gold answer string}."""
+    from llm_quest_tpu_torch.utils import ResponseExtractor, alpaca_deepseek_format
+
+    out = []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            entry = json.loads(line)
+            formatted = alpaca_deepseek_format(entry, include_response=True)
+            prompt, sep, response = formatted.partition("### Response:")
+            prompt = prompt + sep
+            full_response = response.strip()
+            answer = ResponseExtractor.get_answer(full_response)
+            out.append(
+                {
+                    "prompt": tokenizer.encode(prompt),
+                    "full_response": tokenizer.encode(full_response),
+                    "answer": answer,
+                }
+            )
+    return out
+
+
+def preference_dataset(path, tokenizer, prompts_only=False):
+    """Alpaca-format preference triplets from a JSON list: {"prompt",
+    "chosen", "rejected"} ids, chosen and rejected holding the formatted
+    prompt; with ``prompts_only`` the prompts' ids alone (for RLHF)."""
+    from llm_quest_tpu_torch.utils import alpaca_prompt_format
+
+    with open(path, encoding="utf-8") as f:
+        entries = json.load(f)
+
+    out = []
+    for entry in entries:
+        formatted = alpaca_prompt_format(entry, include_output=False)
+        prompt_ids = tokenizer.encode(formatted)
+        if prompts_only:
+            out.append(prompt_ids)
+        else:
+            out.append(
+                {
+                    "prompt": prompt_ids,
+                    "chosen": tokenizer.encode(f"{formatted}{entry['chosen']}"),
+                    "rejected": tokenizer.encode(f"{formatted}{entry['rejected']}"),
+                }
+            )
+    return out
+
+
+RPT_DEFAULT_INSTRUCTION = (
+    "### Instruction:\n"
+    "Complete the given text under '### Context' by predicting the next token. "
+    "Please reason step by step and list multiple candidates first. "
+    "Select the most probable one as your final prediction by wrapping it in <answer> </answer> tags. "
+    "(note: the token may begin with a space, e.g., '<answer> para</answer>' or '<answer> =</answer>'.\n\n"
+    "### Context\n"
+)
+
+
+def rpt_structured_dataset(
+    entries,
+    tokenizer,
+    max_context_length,
+    *,
+    labels_length=25,
+    instruction=None,
+    valid_indices=None,
+    apply_chat_template=False,
+    truncate_sample=None,
+    min_context_tokens=None,
+):
+    """Reinforcement-pretraining (context, label string) pairs at every valid
+    token position of GSM8K entries ({"question", "answer"} dicts).
+
+    Returns (samples, allowed, getter): the tokenized samples, the allowed
+    (sample, position) pairs, and ``getter(i)`` → {"prompt": ids (the
+    instruction and up to the context budget of tokens ending at the
+    position), "labels": the next ``labels_length`` tokens decoded}.
+    ``apply_chat_template`` budgets the context by the templated
+    instruction's length and templates each instruction + context string
+    as one user turn (Qwen3's RPT variant)."""
+    instruction = instruction if instruction is not None else RPT_DEFAULT_INSTRUCTION
+    if apply_chat_template:
+        out = tokenizer.apply_chat_template(
+            [{"role": "user", "content": instruction}],
+            tokenize=True, add_generation_prompt=True, enable_thinking=True,
+        )
+        templated_len = len(out["input_ids"] if hasattr(out, "keys") and "input_ids" in out else out)
+        instr_ids = None
+        available = max_context_length - templated_len
+    else:
+        instr_ids = tokenizer.encode(instruction)
+        available = max_context_length - len(instr_ids)
+
+    samples = []
+    for data in entries:
+        solution, _, answer = data["answer"].rpartition("\n#### ")
+        full = data["question"] + "\n\n" + f"{solution} So the answer is <answer>{answer}</answer>"
+        if truncate_sample is not None:
+            start, end = truncate_sample
+            full = full[max(0, start) : min(len(full), end)]
+        samples.append(tokenizer.encode(full))
+
+    if valid_indices is not None:
+        allowed = [(s, t) for s, t in valid_indices if t < len(samples[s]) - labels_length]
+    else:
+        allowed = []
+        for s_idx, toks in enumerate(samples):
+            last_valid = len(toks) - labels_length
+            if last_valid < 1:
+                continue
+            for t_idx in range(last_valid):
+                start_ctx = max(0, t_idx + 1 - max_context_length)
+                if min_context_tokens is not None and (t_idx + 1 - start_ctx) < min_context_tokens:
+                    continue
+                allowed.append((s_idx, t_idx))
+
+    def getter(index):
+        s_idx, t_idx = allowed[index]
+        end_ctx = t_idx + 1
+        start_ctx = max(0, end_ctx - available)
+        context_ids = samples[s_idx][start_ctx:end_ctx]
+        labels_ids = samples[s_idx][end_ctx : end_ctx + labels_length]
+        if apply_chat_template:
+            full_prompt = tokenizer.apply_chat_template(
+                [{"role": "user", "content": instruction + tokenizer.decode(context_ids)}],
+                tokenize=False, add_generation_prompt=True, enable_thinking=True,
+            )
+            prompt_ids = tokenizer.encode(full_prompt)
+        else:
+            prompt_ids = instr_ids + context_ids
+        return {"prompt": prompt_ids, "labels": tokenizer.decode(labels_ids)}
+
+    return samples, allowed, getter
+
+
+def rpt_continuous_dataset(text, tokenizer, max_context_length, *, labels_length=25, instruction=None,
+                           min_context_tokens=None):
+    """``rpt_structured_dataset``'s pairs over one continuous corpus.
+    Returns (tokens, allowed positions, getter)."""
+    instruction = instruction if instruction is not None else RPT_DEFAULT_INSTRUCTION
+    instr_ids = tokenizer.encode(instruction)
+    available = max_context_length - len(instr_ids)
+    toks = tokenizer.encode(text)
+
+    allowed = []
+    for t_idx in range(len(toks) - labels_length):
+        start_ctx = max(0, t_idx + 1 - max_context_length)
+        if min_context_tokens is not None and (t_idx + 1 - start_ctx) < min_context_tokens:
+            continue
+        allowed.append(t_idx)
+
+    def getter(index):
+        t_idx = allowed[index]
+        end_ctx = t_idx + 1
+        start_ctx = max(0, end_ctx - available)
+        return {
+            "prompt": instr_ids + toks[start_ctx:end_ctx],
+            "labels": tokenizer.decode(toks[end_ctx : end_ctx + labels_length]),
+        }
+
+    return toks, allowed, getter
 
 
 CIFAR10_MEAN = np.asarray([0.4914, 0.4822, 0.4465], np.float32)

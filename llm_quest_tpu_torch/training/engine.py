@@ -25,10 +25,15 @@ the config and draws from its ``generator=`` (default: seeded 0, as JAX's
 ``rng`` defaults to ``PRNGKey(0)``). A config with dropout for a model whose
 ``apply`` takes no generator (Qwen3-Next's "p_dropout") still raises there.
 
-Not ported yet: the last-token classification loss (no classifier model is
-ported), and the ``checkpoint_every`` and ``profiler`` options of
-``training_eval_loop`` (``training/checkpointing.py`` and
-``training/profiling.py``), which raise.
+Classification (JAX's ``classification=``): the model gives the logits of
+each row's last real token (``last_token_only``, which needs the batch's
+"attn_mask") and the loss is their CE against (b,) targets
+(``training/classifier.py`` trains over the vocabulary head this way).
+``training_eval_loop`` saves (params, optimizer state, step) every
+``checkpoint_every`` optimizer steps and at its end
+(``training/checkpointing.py``; the saves are synchronous) and advances a
+``training/profiling.py::ScheduledProfiler`` once an optimizer step, after a
+device sync so the traced window holds the step's device work.
 """
 
 import inspect
@@ -154,9 +159,21 @@ def make_optimizer(
     )
 
 
-def global_loss(logits, targets, aux=None):
-    """CE + the model's MoE auxiliary loss (aux["moe_loss"]) when present."""
-    loss = cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+def adamw(lr_or_schedule, *, weight_decay=1e-4, b1=0.9, b2=0.999):
+    """``optax.adamw`` at its defaults, as the classifier, DPO, reward-model
+    and GRPO loops take it: no gradient clipping, both moments in the
+    parameters' dtype, ε 1e-8, decoupled weight decay 1e-4."""
+    return AdamW(lr_or_schedule, weight_decay=weight_decay, b1=b1, b2=b2, eps=1e-8, grad_clip_norm=None,
+                 accumulation_steps=1, mu_dtype=None)
+
+
+def global_loss(logits, targets, aux=None, *, classification=False):
+    """CE + the model's MoE auxiliary loss (aux["moe_loss"]) when present.
+    ``classification``: (b, v) logits against (b,) targets."""
+    if classification:
+        loss = cross_entropy(logits, targets)
+    else:
+        loss = cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
     if aux and "moe_loss" in aux:
         loss = loss + aux["moe_loss"]
     return loss
@@ -182,11 +199,14 @@ def as_tensors(batch, device):
             for k, v in batch.items()}
 
 
-def make_loss_fn(model, cfg, *, fused_head_ce=False, has_dropout=False):
+def make_loss_fn(model, cfg, *, fused_head_ce=False, has_dropout=False, classification=False):
     """The training loss of one batch: ``loss_fn(params, batch,
     generator=None) -> 0-d tensor``, differentiable in the parameters (see
     ``make_train_step``); with ``has_dropout`` the model drops, drawing from
-    ``generator``."""
+    ``generator``; with ``classification`` the CE of each row's last real
+    token's logits against its (b,) target."""
+    if classification and fused_head_ce:
+        raise ValueError("make_loss_fn: classification reads the last token's logits; fused_head_ce has none")
 
     def loss_fn(params, batch, generator=None):
         # a context-parallel rank's slice carries its global positions (parallel/mesh.py)
@@ -206,14 +226,16 @@ def make_loss_fn(model, cfg, *, fused_head_ce=False, has_dropout=False):
             if aux and "moe_loss" in aux:
                 loss = loss + aux["moe_loss"]
             return loss
+        if classification:
+            pos["last_token_only"] = True
         logits, _, aux = model.apply(params, cfg, batch["input_ids"], attn_mask=batch.get("attn_mask"), training=True,
                                      **pos)
-        return global_loss(logits, batch["targets"], aux)
+        return global_loss(logits, batch["targets"], aux, classification=classification)
 
     return loss_fn
 
 
-def make_value_and_grad(model, cfg, *, fused_head_ce=False, has_dropout=False):
+def make_value_and_grad(model, cfg, *, fused_head_ce=False, has_dropout=False, classification=False):
     """``value_and_grad(params, batch, generator=None) -> (loss, grads)``: the training loss
     of one batch (a detached 0-d tensor) and its gradient for every
     parameter of ``params`` (``param_leaves`` order; zeros where none reaches).
@@ -227,7 +249,8 @@ def make_value_and_grad(model, cfg, *, fused_head_ce=False, has_dropout=False):
     gradients, which are not summed again."""
     from llm_quest_tpu_torch.parallel.mesh import cp_group, is_sharded
 
-    loss_fn = make_loss_fn(model, cfg, fused_head_ce=fused_head_ce, has_dropout=has_dropout)
+    loss_fn = make_loss_fn(model, cfg, fused_head_ce=fused_head_ce, has_dropout=has_dropout,
+                           classification=classification)
     group = cp_group(cfg)
 
     def value_and_grad(params, batch, generator=None):
@@ -248,7 +271,7 @@ def make_value_and_grad(model, cfg, *, fused_head_ce=False, has_dropout=False):
     return value_and_grad
 
 
-def make_train_step(model, cfg, optimizer, *, fused_head_ce=False, has_dropout=False):
+def make_train_step(model, cfg, optimizer, *, classification=False, fused_head_ce=False, has_dropout=False):
     """One train step: (params, opt_state, batch, generator=None) → (params,
     opt_state, loss). ``params`` (an ``nn.Module``) and ``opt_state`` are
     updated in place; ``loss`` is a 0-d device tensor (reading it
@@ -261,8 +284,10 @@ def make_train_step(model, cfg, optimizer, *, fused_head_ce=False, has_dropout=F
     never exist. Needs ``output_hidden_states`` in ``model.apply`` and
     ``model.head_weights``. Under ``cfg["context_parallel"]`` the loss and
     the gradients are summed over the group before the clip
-    (``make_value_and_grad``)."""
-    value_and_grad = make_value_and_grad(model, cfg, fused_head_ce=fused_head_ce, has_dropout=has_dropout)
+    (``make_value_and_grad``). ``classification``: the last-token CE
+    (module docstring)."""
+    value_and_grad = make_value_and_grad(model, cfg, fused_head_ce=fused_head_ce, has_dropout=has_dropout,
+                                         classification=classification)
 
     def train_step(params, opt_state, batch, generator=None):
         loss, grads = value_and_grad(params, as_tensors(batch, device_of(params)), generator)
@@ -281,12 +306,13 @@ def _target_share(targets, group):
     return valid / total.clamp_min(1.0)
 
 
-def make_eval_step(model, cfg):
+def make_eval_step(model, cfg, *, classification=False):
     @torch.no_grad()
     def eval_step(params, batch):
         batch = as_tensors(batch, device_of(params))
-        logits, _, _ = model.apply(params, cfg, batch["input_ids"], attn_mask=batch.get("attn_mask"))
-        return global_loss(logits, batch["targets"])
+        logits, _, _ = model.apply(params, cfg, batch["input_ids"], attn_mask=batch.get("attn_mask"),
+                                   last_token_only=classification)
+        return global_loss(logits, batch["targets"], classification=classification)
 
     return eval_step
 
@@ -313,7 +339,8 @@ def evaluate(train_loader, val_loader, eval_step, params, eval_iter):
 def training_eval_loop(
     model, cfg, params, train_loader, val_loader, *, num_epoch, peak_lr=4e-4, init_lr=1e-5, min_lr=None,
     warmup_steps=0, decay=None, weight_decay=0.1, accumulation_steps=1, eval_freq=5, eval_iter=5,
-    generator=None, log=print, timing=False, checkpoint_every=None, checkpoint_path=None, profiler=None,
+    generator=None, classification=False, log=print, timing=False, checkpoint_every=None, checkpoint_path=None,
+    profiler=None,
 ):
     """Training loop with LR schedule, gradient accumulation, clipping and
     periodic evaluation (at step 1 and every ``eval_freq`` optimizer steps).
@@ -325,20 +352,23 @@ def training_eval_loop(
     "input_ids", "targets" and an optional "attn_mask" (numpy arrays or
     tensors); the training batches reach the device through
     ``data/prefetch.py``. ``params`` (an ``nn.Module``) is trained in place.
+    ``classification``: the last-token CE (module docstring).
+
+    checkpoint_every / checkpoint_path: every N optimizer steps, and once at
+    the end, (params, optimizer state, step) are saved to checkpoint_path
+    (``training/checkpointing.py::save_checkpoint``, synchronously).
+    profiler: a ``training/profiling.py::ScheduledProfiler``, whose
+    ``step()`` is called once an optimizer step after a device sync.
 
     Returns (params, train_losses, val_losses).
     """
-    if checkpoint_every is not None or profiler is not None:
-        raise NotImplementedError(
-            "training_eval_loop: checkpoint_every= and profiler= wait for training/checkpointing.py "
-            "and training/profiling.py"
-        )
+    if checkpoint_every and checkpoint_path is None:
+        raise ValueError("training_eval_loop: checkpoint_every needs checkpoint_path")
     has_dropout = cfg.get("drop_rate", cfg.get("p_dropout", 0.0)) > 0
     if has_dropout and "generator" not in inspect.signature(model.apply).parameters:
         name = getattr(model, "__name__", model)
         raise NotImplementedError(f"training_eval_loop: {name}.apply takes no dropout generator (the ViT trains "
                                   "with dropout through training/vit_engine.py)")
-    del checkpoint_path  # used only with checkpoint_every
     train_batches = list(train_loader)
     steps_per_epoch = math.ceil(len(train_batches) / accumulation_steps)
     total_steps = steps_per_epoch * num_epoch
@@ -347,8 +377,8 @@ def training_eval_loop(
     optimizer = make_optimizer(schedule, weight_decay=weight_decay, accumulation_steps=accumulation_steps)
     opt_state = optimizer.init(params)
 
-    train_step = make_train_step(model, cfg, optimizer, has_dropout=has_dropout)
-    eval_step = make_eval_step(model, cfg)
+    train_step = make_train_step(model, cfg, optimizer, classification=classification, has_dropout=has_dropout)
+    eval_step = make_eval_step(model, cfg, classification=classification)
     if has_dropout and generator is None:
         generator = torch.Generator(device=device_of(params)).manual_seed(0)
 
@@ -366,6 +396,10 @@ def training_eval_loop(
             micro_step = i + 1 + (epoch - 1) * len(train_batches)
             if micro_step % accumulation_steps == 0:
                 step += 1
+                if profiler is not None:
+                    if loss.is_cuda:
+                        torch.cuda.synchronize(loss.device)  # the step's device work lands inside the trace
+                    profiler.step()
                 if step == 1 or step % eval_freq == 0:
                     tr, va = evaluate(train_batches, val_loader, eval_step, params, eval_iter)
                     train_losses.append(tr)
@@ -379,4 +413,13 @@ def training_eval_loop(
                         elapsed = time.time() - t0
                         msg += f"  | tok/s: {tokens_seen / max(elapsed, 1e-9):.0f}"
                     log(msg)
+                if checkpoint_every and step % checkpoint_every == 0:
+                    from llm_quest_tpu_torch.training.checkpointing import save_checkpoint
+
+                    save_checkpoint(checkpoint_path, params, opt_state=opt_state, step=step)
+
+    if checkpoint_every:
+        from llm_quest_tpu_torch.training.checkpointing import save_checkpoint
+
+        save_checkpoint(checkpoint_path, params, opt_state=opt_state, step=step)
     return params, train_losses, val_losses

@@ -53,6 +53,10 @@ def _hc_bundle(flat, cfg):
 
 
 def _model_for(flat, cfg, device):
+    if "head/w" in flat and any(name.startswith("body/") for name in flat):  # a GPT-2 body, a scalar head
+        from llm_quest_tpu_torch.alignment.grpo import RewardModel
+
+        return RewardModel(cfg, device)
     if "img_width" in cfg and "vocab_size" not in cfg:  # an image model with no text side: the ViT
         return vit.ViT(cfg, device)
     if "num_ffn" in cfg:  # dense blocks, then DeepSeek MoE, with MLA and MTP: DeepSeek-V3
@@ -105,7 +109,9 @@ def from_jax_flat(flat, cfg, *, device=None):
     """Build a model from a flattened JAX param tree.
 
     flat: {"/"-joined path: numpy array}, i.e. ``flatten_params`` of the
-    JAX params converted with ``np.asarray``. An image config with no
+    JAX params converted with ``np.asarray``. A tree of a GPT-2 "body" and
+    a "head" linear (``alignment/grpo.py::init_reward_model``'s) gives an
+    ``alignment.grpo.RewardModel``. An image config with no
     vocabulary (``img_width``, no ``vocab_size``) gives a ``vit.ViT`` (its
     patch conv weight keeps its conv layout). A config with ``num_ffn``
     gives a ``deepseek_v3.DeepSeekV3`` and one with ``hybrid_ratio`` a

@@ -363,6 +363,48 @@ def test_flash_attention_backward_kernel(gen, dtype, d, heads, with_mask):
         assert_close(got, ref, dtype)
 
 
+def holed_key_mask(b, prompt, lens, gen_len, cut):
+    """GRPO's key mask (``alignment/grpo.py::batched_responses_collator``):
+    each row's real prompt tokens, its pads up to ``prompt`` columns (the
+    holes), then its response up to and including the first EoS at ``cut``."""
+    mask = torch.zeros(b, prompt + gen_len, dtype=torch.bool, device="cuda")
+    for i in range(b):
+        mask[i, : lens[i]] = True
+        mask[i, prompt : prompt + cut[i] + 1] = True
+    return mask
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_holed_key_mask_forward_and_backward(gen, dtype):
+    """K4 on a GRPO update's key mask (96 prompt columns, of which the rows'
+    prompts fill 96, 40, 71 and 1; 160 generated columns, each row cut
+    after its first EoS): the output and
+    dq/dk/dv held to the plain version; a masked key's dk and dv exactly
+    zero; a query row at a pad or past the cut still sees the real keys
+    before it (its output is the plain version's, not zero)."""
+    from llm_quest_tpu_torch.kernels import attention
+
+    b, h, d, prompt, gen_len = 4, 4, 64, 96, 160
+    mask = holed_key_mask(b, prompt, [96, 40, 71, 1], gen_len, [159, 20, 100, 0])
+    s = prompt + gen_len
+    q, k, v, do = (randn(gen, b, h, s, d, dtype=dtype) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n_fwd, n_bwd, tc = attention.flash_attention.launches, attention.flash_attention_bwd.launches, tc_counts()
+    out = attention.flash_attention(*leaves, attn_mask=mask)
+    out.backward(do)
+    assert (attention.flash_attention.launches, attention.flash_attention_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    assert_tc_moved(tc, dtype, k4=1, k4_bwd=1)
+    ref = attention.flash_attention(q, k, v, attn_mask=mask, plain=True)
+    assert_close(out, ref, dtype)
+    for got, r in zip((t.grad for t in leaves), attention.flash_attention_bwd_plain(q, k, v, do, attn_mask=mask)):
+        assert_close(got, r, dtype)
+    masked = ~mask[:, None, :, None].expand(b, h, s, d)
+    for grad in (leaves[1].grad, leaves[2].grad):
+        assert int((grad[masked] != 0).sum()) == 0
+    pads = out.detach()[1, :, 40:96]  # row 1's queries at its pads, between its prompt and its response
+    assert bool((pads.abs().amax(-1) > 0).all()) and bool(torch.isfinite(out).all())
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_backward_q_start_and_delta_shift(gen, dtype):
     """Cached-prefill geometry (sq < sk, q_start > 0) and the lse cotangent."""
@@ -1604,10 +1646,10 @@ def test_serving_engine_decode_steps_never_sync(gen, kv_quant):
     step = engine._decode_step
     steps = []
 
-    def checked(*args):
+    def checked(*args, **kwargs):  # the chunk binds the step's buffers as keywords
         torch.cuda.set_sync_debug_mode("error")
         try:
-            step(*args)
+            step(*args, **kwargs)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         steps.append(1)

@@ -274,11 +274,25 @@ def test_training_eval_loop_matches_jax(jparams):
     np.testing.assert_allclose(tva, jva, rtol=0, atol=1e-5)
 
 
-def test_training_eval_loop_unported_options_raise(jparams):
+def test_training_eval_loop_unported_options_raise(jparams, tmp_path):
+    """Of the options that raised before ``training/checkpointing.py`` and
+    ``training/profiling.py`` were ported, checkpointing and the profiler
+    now run (a checkpoint at the last step; the profiler stepped once an
+    optimizer step); a checkpoint period without a path, and dropout for a
+    model whose ``apply`` takes no generator, still raise."""
+    from llm_quest_tpu_torch.training.checkpointing import load_checkpoint
+
     model = from_jax_flat(flat(jparams), TCFG, device="cpu")
-    for kw in ({"checkpoint_every": 1, "checkpoint_path": "x"}, {"profiler": object()}):
-        with pytest.raises(NotImplementedError):
-            tengine.training_eval_loop(tq, TCFG, model, [batch_np(0, False)], [], num_epoch=1, **kw)
+    batches = [batch_np(0, False), batch_np(1, False)]
+    stepped = []
+    profiler = type("Spy", (), {"step": lambda self: stepped.append(1)})()
+    tengine.training_eval_loop(tq, TCFG, model, batches, [], num_epoch=1, checkpoint_every=1,
+                               checkpoint_path=str(tmp_path / "ckpt"), profiler=profiler, log=lambda _: None)
+    state = load_checkpoint(tmp_path / "ckpt", device="cpu")
+    assert state["step"] == 2 and len(stepped) == 2 and state["opt_state"]["count"] == 2
+    assert all(torch.equal(state["params"][k], v) for k, v in model.state_dict().items())
+    with pytest.raises(ValueError, match="checkpoint_path"):
+        tengine.training_eval_loop(tq, TCFG, model, batches, [], num_epoch=1, checkpoint_every=1)
     with pytest.raises(NotImplementedError, match="dropout"):
         tengine.training_eval_loop(tq, dict(TCFG, drop_rate=0.1), model, [batch_np(0, False)], [], num_epoch=1)
 
