@@ -28,7 +28,9 @@ draft, GPT-2 124M training (and ``training_eval_loop`` at
 ``scripts/gpt_training.py``'s settings), Llama-3.2-1B training and serving,
 Hyper-Qwen3 training at Qwen3-0.6B's widths, and the alignment stack over
 GPT-2 124M (classifier tuning, DPO, the reward model, RLHF-GRPO with its
-losses, RLVR and RPT). Phases, one JSON line each on stdout:
+losses, RLVR and RPT), the ViT→GPT-2 VLM trained and captioning, the folded
+uint8 ViT-B encoder, the HF checkpoint loaders and the model-agnostic
+training ops. Phases, one JSON line each on stdout:
 
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
@@ -405,6 +407,35 @@ losses, RLVR and RPT). Phases, one JSON line each on stdout:
     (``flash_attention_fwd_bwd_grpo``): a masked key's dk/dv exactly zero,
     bf16 per 64-row tile within TILE_TOL beside the dropped-tile control,
     timed beside ``sdpa`` + backward on the same bool mask.
+31. vlm_fp32, vlm_train, vlm_generate, uint8_encode, hf_loaders,
+    training_ops (after rlvr_rpt): the ViT→GPT-2 VLM (``multimodal/vlm.py``:
+    ViT-B/16 at 224 px frozen, an "ffn" adapter 768 → 3,072 → 768, GPT-2
+    124M, seeded random weights, b 32, captions of U[8, 64] random ids
+    right-padded to 64: the fused s 261). ``vlm_train``: an fp32 check at 2
+    layers (b 4: the loss and the adapter's and GPT-2's gradients through
+    the kernels against the plain versions), K4 fwd + bwd and K7 in bf16 at
+    the step's shapes and key mask against plain (``phase_k4``,
+    ``phase_k7``), then 12 layers in bf16 through
+    ``scripts/vlm_training.py``'s step (``adamw(1e-4)``), 1 + 3 steps: K4
+    forward and backward 12 times a step, K7 12 times, all on the tensor
+    cores, the loss finite and falling. ``vlm_generate``: greedy captions
+    (b 32, 30 tokens) against the reference's re-run of the whole fused
+    sequence each step, fp32 at 2 layers (equal but at a near-tie within
+    SPEC_TIE_BAR, also with an EOS mid-caption) and bf16 at 12 (rows leave
+    it only at near-ties within BF16_LOGIT_BAR); K7 12 launches a call, no
+    K4; ms a call. ``uint8_encode``: ``make_uint8_encoder`` on 256-pixel
+    uint8 images resized to 224 against resize, normalize, ``vit.apply``
+    (fp32 2 layers, bf16 12 layers), K7 12 launches an encode, img/s at b
+    128 beside ``vit.apply`` on the same images pre-normalized.
+    ``hf_loaders``: HF-named bf16 state dicts written from seeded GPT-2 124M
+    and Qwen3.5-0.8B VLM models, loaded into models of another seed: every
+    leaf bit-equal, nothing missing, equal greedy tokens. ``training_ops``:
+    QK-Clip on Llama-3.2-1B (16 layers, fp32) capping at τ·1.01 the maxima
+    on the collecting forward's inputs and layer 0's in the next forward, the Number-Token Loss against JAX's full-softmax form
+    and RAL on GPT-2 124M at b 8, s 1,024, ``l2_norm`` and DyT against
+    fp64. The kernel phase holds K4 at the fused shape and mask (b 32,
+    12/12 heads of 64, s 261; forward, and forward + backward, bf16 per
+    64-row tile beside the dropped-tile control) and K7 at b 32, s 197.
 
 K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
 tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
@@ -1289,6 +1320,36 @@ LLAMA_K4 = {"b": 4, "hq": 32, "hkv": 8, "s": 2048, "d": 64}
 # of 64, prompts padded to 256 columns and 128 generated ones
 GRPO_PROMPT, GRPO_GEN, GRPO_PROMPTS, GRPO_SAMPLES = 256, 128, 4, 4
 GRPO_K4 = {"b": GRPO_PROMPTS * GRPO_SAMPLES, "hq": 12, "hkv": 12, "s": GRPO_PROMPT + GRPO_GEN, "d": 64}
+
+
+# the ViT→GPT-2 VLM (``multimodal/vlm.py``): ViT-B/16 at 224 px (196 patches + CLS), captions right-padded to
+# 64 tokens, b 32; GPT-2 124M's attention over the fused [vision ‖ text] sequence of 261 (not a multiple of 64)
+VLM_B, VLM_VISION, VLM_TEXT = 32, 197, 64
+VLM_K4 = {"b": VLM_B, "hq": 12, "hkv": 12, "s": VLM_VISION + VLM_TEXT, "d": 64}
+VLM_K7 = (VLM_B, VLM_VISION, 12, 64)
+
+
+def vlm_caption_lens(b, seed=SEED):
+    """``b`` caption lengths U[8, VLM_TEXT], the first VLM_TEXT (the padded width)."""
+    import numpy as np
+
+    lens = np.random.default_rng(seed).integers(8, VLM_TEXT + 1, b)
+    lens[0] = VLM_TEXT
+    return lens
+
+
+def vlm_key_mask(b, s):
+    """The VLM's fused key mask (``multimodal/vlm.py::fuse``): the s - VLM_TEXT
+    vision columns all real, then each row's caption (``vlm_caption_lens``)
+    right-padded."""
+    import torch
+
+    nv = s - VLM_TEXT
+    mask = torch.zeros(b, s, dtype=torch.bool)
+    mask[:, :nv] = True
+    for i, n in enumerate(vlm_caption_lens(b)):
+        mask[i, nv : nv + n] = True
+    return mask.to(DEVICE)
 
 
 def grpo_key_mask(b, s, prompt=GRPO_PROMPT, seed=SEED):
@@ -2581,6 +2642,8 @@ ENGINE_LLAMA, ENGINE_LLAMA_INT8 = "engine_serve_llama", "engine_serve_llama_int8
 CLASSIFIER_TRAIN, DPO_TRAIN, RM_TRAIN = "classifier_train", "dpo_train", "rm_train"
 GRPO_RLHF, RLVR_RPT = "grpo_rlhf", "rlvr_rpt"
 ALIGN_PATHS = (CLASSIFIER_TRAIN, DPO_TRAIN, RM_TRAIN, GRPO_RLHF, RLVR_RPT)
+# the ViT→GPT-2 VLM trained and captioning, and the folded uint8 ViT-B encoder
+VLM_TRAIN, VLM_GENERATE, UINT8_ENCODE = "vlm_train", "vlm_generate", "uint8_encode"
 # the attention records' sources by dtype: bf16 takes the tensor-core
 # kernels, fp32 the SIMT ones
 ATTN_SRC = {"bfloat16": "llm_quest_tpu_torch/csrc/attention_tc.cu",
@@ -2647,11 +2710,22 @@ KERNELS = [
     ("flash_attention_fwd_bwd_grpo", ("attention", "flash_attention_bwd"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:175",
      partial(k4_case, shape=GRPO_K4, backward=True, tiles=True, key_mask=grpo_key_mask), (GRPO_RLHF, RLVR_RPT)),
+    # K4 at one layer of the VLM's GPT-2 124M over the fused sequence (b 32, s 261: 197 vision columns, then
+    # captions right-padded to 64), forward and forward + backward, held per 64-row tile in bf16
+    ("flash_attention_fwd_vlm", ("attention", "flash_attention"), ATTN_SRC,
+     "llm_quest_tpu/kernels/flash_attention.py:544",
+     partial(k4_case, shape=VLM_K4, tiles=True, key_mask=vlm_key_mask), (VLM_TRAIN,)),
+    ("flash_attention_fwd_bwd_vlm", ("attention", "flash_attention_bwd"), ATTN_SRC,
+     "llm_quest_tpu/kernels/flash_attention.py:175",
+     partial(k4_case, shape=VLM_K4, backward=True, tiles=True, key_mask=vlm_key_mask), (VLM_TRAIN,)),
     # K7: its bf16 forward is the short-sequence tensor-core kernel (fp32: the
     # SIMT flash forward of attention.cu); its backward the flash recompute
     # kernels (attention_tc.cu in bf16, attention.cu in fp32), counted as "bwd"
     ("packed_mha", ("attention", "packed_mha"), PACKED_SRC,
-     "llm_quest_tpu/kernels/fused_mha.py:422", kernel_k7, (VIT, VIT_B_TRAIN)),
+     "llm_quest_tpu/kernels/fused_mha.py:422", kernel_k7, (VIT, VIT_B_TRAIN, UINT8_ENCODE)),
+    # K7 at the VLM's frozen ViT-B/16 encode (b 32), in training and captioning
+    ("packed_mha_vlm", ("attention", "packed_mha"), PACKED_SRC,
+     "llm_quest_tpu/kernels/fused_mha.py:422", partial(kernel_k7, shape=VLM_K7), (VLM_TRAIN, VLM_GENERATE)),
     ("packed_mha_d32", ("attention", "packed_mha"), PACKED_SRC,
      "llm_quest_tpu/kernels/fused_mha.py:422", partial(kernel_k7, shape=VIT_D32), (VIT_TRAIN,)),
     ("packed_mha_fwd_bwd", ("attention", "packed_mha", "bwd"), ATTN_SRC,
@@ -4753,6 +4827,645 @@ def rlvr_rpt(records, card):
 
 
 # ------------------------------------------------------------ serving paths
+
+
+# ------------------------------------------------------------ the ViT→GPT-2 VLM, the uint8 encoder, the HF
+# loaders, the training ops
+
+VLM_STEPS = 3  # timed steps after the warm-up
+VLM_LR = 1e-4  # scripts/vlm_training.py's optax.adamw(1e-4)
+VLM_GEN = 30  # caption tokens
+UINT8_B, UINT8_SIDE = 128, 256  # the encoder's batch and its raw images' side, resized to 224
+DIGIT_IDS = range(15, 25)  # GPT-2's "0".."9"
+
+
+def vlm_models(n_layers, dtype):
+    """The VLM at ``n_layers`` (ViT and GPT-2 alike), seeded: ViT-B/16 at 224
+    px without dropout (``vit_cfg``), an "ffn" adapter (768 → 3,072 → 768)
+    and GPT-2 124M's widths. Returns (vit cfg, ViT, adapter, GPT-2 cfg, GPT-2)."""
+    import torch
+
+    from llm_quest_tpu_torch.config import GPT_CONFIG_124M
+    from llm_quest_tpu_torch.models import gpt2, vit
+    from llm_quest_tpu_torch.multimodal import vlm
+
+    vcfg, gcfg = vit_cfg(n_layers, dtype), gpt2_cfg(GPT_CONFIG_124M, n_layers, dtype)
+    adapter = vlm.init_adapter(vcfg["emb_dim"], gcfg["emb_dim"], adapter_type="ffn", dtype=dtype, device=DEVICE,
+                               generator=torch.Generator(device=DEVICE).manual_seed(SEED + 2))
+    return vcfg, init_model(vit, vcfg), adapter, gcfg, init_model(gpt2, gcfg)
+
+
+def vlm_batch(b, dtype, seed=SEED):
+    """``b`` N(0, 1) images at 224 px and captions of ``vlm_caption_lens``
+    random ids right-padded with GPT-2's EoS to VLM_TEXT, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ids = np.full((b, VLM_TEXT), ALIGN_PAD, np.int64)
+    mask = np.zeros((b, VLM_TEXT), bool)
+    for i, n in enumerate(vlm_caption_lens(b)):
+        ids[i, :n] = rng.integers(0, ALIGN_PAD, n)
+        mask[i, :n] = True
+    return {"image": images(b, dtype), "input_ids": torch.as_tensor(ids, device=DEVICE),
+            "attention_mask": torch.as_tensor(mask, device=DEVICE)}
+
+
+def vlm_parts():
+    """A ``grads_check`` model module over the VLM: its ``init(cfg)`` gives
+    one ModuleDict {"vit", "adapter", "gpt2"} at cfg's depth and dtype."""
+    import types
+
+    import torch
+
+    def init(cfg, **_):
+        _, vit_m, adapter, _, gpt = vlm_models(cfg["n_layers"], cfg["dtype"])
+        return torch.nn.ModuleDict({"vit": vit_m, "adapter": adapter, "gpt2": gpt})
+
+    return types.SimpleNamespace(init=init)
+
+
+def vlm_loss_fn(vcfg):
+    """``grads_check``'s loss over ``vlm_parts``: the captioning loss, the ViT
+    and GPT-2 through the kernels or both through the plain versions."""
+    from llm_quest_tpu_torch.models import vit
+    from llm_quest_tpu_torch.multimodal import vlm
+
+    def loss_fn(cfg, model, batch):
+        run_vcfg = dict(vcfg, use_kernels=cfg.get("use_kernels", True))
+        return vlm.vlm_forward_loss(vit, model["vit"], run_vcfg, model["adapter"], model["gpt2"], cfg, batch)
+
+    return loss_fn
+
+
+def phase_k7(shape):
+    """K7's bf16 forward at a phase's own shape against the plain version in
+    fp32 on the same values (``short_check``: within TOL, per 64-row tile
+    within TILE_TOL), beside the tile readings of the plain version with the
+    64 keys [s - 128, s - 64) dropped, which must exceed TILE_TOL. Run before
+    the phase's counted window. Returns the readings."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import attention as attn
+    from llm_quest_tpu_torch.ops.attention import merge_heads, sdpa, split_heads
+
+    b, s, h, d = shape
+    q, k, v = packed_inputs(torch.Generator(device=DEVICE).manual_seed(SEED + 5), shape, torch.bfloat16)
+    got = attn.packed_mha(q, k, v, h)
+    ref = attn.packed_mha(q.float(), k.float(), v.float(), h, plain=True)
+    err, tiles = short_check(f"K7 {shape} (phase)", (got,), (ref,), ("o",), torch.bfloat16, s)
+    dropped = torch.zeros(1, 1, 1, s, dtype=torch.bool, device=DEVICE)
+    dropped[..., s - 128 : s - 64] = True  # True = masked
+    control = merge_heads(sdpa(*(split_heads(t.float(), h) for t in (q, k, v)), mask=dropped))
+    control_tiles = tile_readings([control.unflatten(-1, (-1, d)).transpose(1, 2)],
+                                  [ref.unflatten(-1, (-1, d)).transpose(1, 2)], ("o",))
+    if not control_tiles["o"] > TILE_TOL:
+        raise AssertionError(f"K7 {shape} (phase): a dropped key tile reads {control_tiles}, within {TILE_TOL}")
+    return {"shape": list(shape), "max_abs_err": err, "tile_err": tiles, "tile_err_dropped_tile": control_tiles}
+
+
+def vlm_train(records, card):
+    """The ViT→GPT-2 VLM trained (``multimodal/vlm.py``, the step of
+    ``scripts/vlm_training.py``): the fp32 check (2 layers, b 4, the fused s
+    261: the loss and the adapter's and GPT-2's gradients through the
+    kernels against the plain versions; GPT-2's key biases, zero in exact
+    arithmetic, against their weights' scale; the frozen ViT gets none),
+    then K4 forward + backward and K7 in bf16 at the step's own shapes (b
+    32; the batch's fused key mask) against their plain versions
+    (``phase_k4``, ``phase_k7``), then 12 layers in bf16: ViT-B/16 frozen,
+    the "ffn" adapter and GPT-2 124M trained by ``adamw(1e-4)``, b 32,
+    captions right-padded to 64, 1 + VLM_STEPS steps: K4 forward and
+    backward 12 times a step, K7 12 times (the encode), all on the tensor
+    cores; the loss finite and falling; step ms, fused tokens, caption
+    tokens and images a second, peak GB."""
+    import torch
+
+    from llm_quest_tpu_torch.config import GPT_CONFIG_124M
+    from llm_quest_tpu_torch.kernels import attention as attn
+    from llm_quest_tpu_torch.scripts import vlm_training
+    from llm_quest_tpu_torch.training import engine
+
+    s = VLM_VISION + VLM_TEXT
+    grads_check("vlm_fp32", vlm_parts(), gpt2_cfg(GPT_CONFIG_124M, 2, torch.float32), 4, s,
+                loss_fn=vlm_loss_fn(vit_cfg(2, torch.float32)), batch=vlm_batch(4, torch.float32),
+                invariant=lambda n: n[:-2] + ".w" if n.startswith("gpt2.") and n.endswith("att.wk.b") else None)
+    batch = vlm_batch(VLM_B, torch.bfloat16)
+    fused_mask = torch.cat([torch.ones(VLM_B, VLM_VISION, dtype=torch.bool, device=DEVICE), batch["attention_mask"]],
+                           dim=1)
+    if not torch.equal(fused_mask, vlm_key_mask(VLM_B, s)):
+        raise AssertionError(f"{VLM_TRAIN}: the batch's fused mask is not the K4 records' key mask")
+    k4, k7 = phase_k4(fused_mask), phase_k7(VLM_K7)
+
+    vcfg, vit_m, adapter, gcfg, gpt = vlm_models(12, torch.bfloat16)
+    optimizer = engine.adamw(VLM_LR)
+    state = optimizer.init([*adapter.parameters(), *gpt.parameters()])
+    step = vlm_training.make_train_step(vit_m, vcfg, gcfg, optimizer)
+    n = 1 + VLM_STEPS
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = timed_steps(lambda: step(adapter, gpt, state, batch)[3], n)
+    launches = align_launches(VLM_TRAIN, records, {"flash_attention_fwd_vlm": 12 * n,
+                                                   "flash_attention_fwd_bwd_vlm": 12 * n, "packed_mha_vlm": 12 * n})
+    launches.update(k7=attn.packed_mha.launches, k7_tc=attn.packed_mha.tc_launches)
+    losses = finite(VLM_TRAIN, losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{VLM_TRAIN}: the loss did not fall: {losses}")
+    step_ms = statistics.mean(ms[1:])
+    captions = int(batch["attention_mask"].sum())
+    align_emit(VLM_TRAIN, card, launches, ms, VLM_B * s, b=VLM_B, s=s, lr=VLM_LR, losses=losses,
+               caption_tokens_per_step=captions, caption_tok_s=captions / step_ms * 1e3, img_s=VLM_B / step_ms * 1e3,
+               k4_check=k4, k7_check=k7)
+    del vit_m, adapter, gpt, state
+    torch.cuda.empty_cache()
+
+
+def vlm_rerun(parts, images_, max_gen, eos=None):
+    """The reference's captioning form (JAX ``vlm.py``'s docstring): each
+    step re-runs the whole fused sequence uncached, with ``vlm_generate``'s
+    pad and mask rules (BOS and pad GPT-2's EoS). Returns the (b, max_gen)
+    tokens and each step's fp32 logits."""
+    import torch
+
+    from llm_quest_tpu_torch.models import gpt2, vit
+    from llm_quest_tpu_torch.multimodal import vlm
+
+    vcfg, vit_m, adapter, gcfg, gpt = parts
+    b = images_.shape[0]
+    table = gpt.tok_emb["w"]
+    with torch.inference_mode():
+        vision = vlm.adapter_apply(adapter, vit.apply(vit_m, vcfg, images_, output_hidden_states=True))
+        seq = torch.cat([vision.to(table.dtype), table[torch.full((b, 1), ALIGN_PAD, device=DEVICE)]], dim=1)
+        mask = torch.ones(b, seq.shape[1], dtype=torch.bool, device=DEVICE)
+        finished = torch.zeros(b, dtype=torch.bool, device=DEVICE)
+        tokens, logits_at = [], []
+        for _ in range(max_gen):
+            # a copy: a view of the last column would keep the whole (b, s, vocab) logits alive
+            logits = gpt2.apply(gpt, gcfg, seq, attn_mask=mask, input_embedded=True)[0][:, -1].to(torch.float32,
+                                                                                               copy=True)
+            tok = torch.where(finished, ALIGN_PAD, logits.argmax(-1))
+            finished = finished | (tok == (-1 if eos is None else eos))
+            tokens.append(tok)
+            logits_at.append(logits)
+            seq = torch.cat([seq, table[tok][:, None]], dim=1)
+            mask = torch.cat([mask, ~finished[:, None]], dim=1)
+    return torch.stack(tokens, dim=1), logits_at
+
+
+def caption_ties(label, got, ref, logits_at, bar, top2):
+    """Rows whose cached tokens ``got`` leave the re-run's ``ref``: at the
+    first step where they differ the two tokens must be a near-tie of the
+    re-run's logits there (with ``top2`` its two largest, within ``bar`` ×
+    max |logits| of each other; without, both within that of the largest).
+    The tokens after it follow other prefixes. Returns the near-ties."""
+    ties = []
+    for row, (g, r) in enumerate(zip(got.tolist(), ref.tolist())):
+        if g == r:
+            continue
+        j = next(i for i, (a, c) in enumerate(zip(g, r)) if a != c)
+        logits = logits_at[j][row]
+        top = logits.topk(2)
+        limit = bar * float(logits.abs().max())
+        gap = (float(top.values[0] - top.values[1]) if top2 else
+               max(float(top.values[0] - logits[t]) for t in (g[j], r[j])))
+        tied = set(top.indices.tolist()) == {g[j], r[j]} if top2 else True
+        reading = {"row": row, "step": j, "tokens": [g[j], r[j]], "gap": gap, "bar": limit}
+        if not (tied and gap <= limit):
+            raise AssertionError(f"{label}: row {row} leaves the re-run at step {j} where the logits are no "
+                                 f"near-tie: {reading}")
+        ties.append(reading)
+    return ties
+
+
+def vlm_generate(records, card):
+    """Greedy captions (``multimodal/vlm.py::vlm_generate``: one encode, the
+    [vision ‖ BOS] prefill into ``gpt2.init_cache``, one-token steps in
+    embedding space) at b 32, VLM_GEN tokens, BOS and pad GPT-2's EoS. In
+    fp32 at 2 layers the tokens equal the reference's re-run of the whole
+    fused sequence at each step (``vlm_rerun``; a near-tie within
+    SPEC_TIE_BAR of the re-run's two largest logits excepted), also with an
+    EOS that row 0 emits mid-caption; in bf16 at 12 layers a row leaves the
+    re-run only at a near-tie within BF16_LOGIT_BAR (``near_tie``'s rule
+    without ``top2``). Launches: K7 once a layer (the encode), no K4 (the
+    cached prefill of 198 and the steps take ``sdpa``, as in JAX); in bf16
+    all on the tensor cores. Then ms a call (32 captions) and a caption,
+    caption tokens a second."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import attention as attn
+    from llm_quest_tpu_torch.models import vit
+    from llm_quest_tpu_torch.multimodal import vlm
+
+    readings = {}
+    for n_layers, dtype in ((2, torch.float32), (12, torch.bfloat16)):
+        parts = vlm_models(n_layers, dtype)
+        vcfg, vit_m, adapter, gcfg, gpt = parts
+        x = images(VLM_B, dtype)
+
+        def caption(eos=None):
+            return vlm.vlm_generate(vit, vit_m, vcfg, adapter, gpt, gcfg, x, ALIGN_PAD, max_gen=VLM_GEN, eos_id=eos,
+                                    pad_id=ALIGN_PAD)
+
+        reset_launches()
+        got = caption()
+        torch.cuda.synchronize()
+        if attn.packed_mha.launches != vcfg["n_layers"] or attn.flash_attention.launches:
+            raise AssertionError(f"{VLM_GENERATE}: K7 {attn.packed_mha.launches} launches (expected {vcfg['n_layers']}), "
+                                 f"K4 {attn.flash_attention.launches} (expected 0: the cache path)")
+        if dtype == torch.bfloat16:
+            read_launches(VLM_GENERATE, records)
+        ref, logits_at = vlm_rerun(parts, x, VLM_GEN)
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        bar, top2 = (SPEC_TIE_BAR, True) if dtype == torch.float32 else (BF16_LOGIT_BAR, False)
+        rec = {"layers": n_layers, "near_ties": caption_ties(f"{VLM_GENERATE} {name}", got, ref, logits_at, bar, top2),
+               "tokens_equal": float((got == ref).float().mean()), "k7_launches": vcfg["n_layers"]}
+        del logits_at
+        if dtype == torch.float32:
+            eos = int(ref[0, 3])  # row 0's fourth token, as an EOS
+            got_eos = caption(eos)
+            ref_eos, logits_eos = vlm_rerun(parts, x, VLM_GEN, eos=eos)
+            first = int((got_eos[0] == eos).nonzero()[0])
+            if not bool((got_eos[0, first + 1:] == ALIGN_PAD).all()):
+                raise AssertionError(f"{VLM_GENERATE}: row 0 did not pad after its EOS: {got_eos[0].tolist()}")
+            rec["eos"] = {"id": eos, "row0_eos_step": first, "rows_finished": int((got_eos == eos).any(1).sum()),
+                          "near_ties": caption_ties(f"{VLM_GENERATE} fp32 eos", got_eos, ref_eos, logits_eos, bar,
+                                                    top2)}
+        else:
+            caption()  # warm
+            _, runs = timed(caption, 3)
+            call_ms = 1e3 * statistics.median(runs)
+            rec.update(call_ms=call_ms, call_ms_each=[1e3 * r for r in runs], ms_per_caption=call_ms / VLM_B,
+                       caption_tok_s=VLM_B * VLM_GEN / call_ms * 1e3)
+        readings[name] = rec
+        del parts, vit_m, adapter, gpt
+        torch.cuda.empty_cache()
+    emit({"phase": VLM_GENERATE, "card": card, "b": VLM_B, "max_gen": VLM_GEN, **readings})
+
+
+def uint8_encode(records, card, b=UINT8_B):
+    """The folded uint8 ViT-B/16 encoder (``multimodal/preprocessing.py::
+    make_uint8_encoder``, ImageNet's statistics, ``resize_to`` (224, 224))
+    on UINT8_SIDE-pixel uint8 images, against resize, then normalize, then
+    ``vit.apply``: in fp32 at 2 layers (8 images) within 10·NEW_TOL of max
+    |ref|, in bf16 at 12 layers (b 128) within BF16_LOGIT_BAR of it; the
+    model's own conv weights untouched. Then in bf16 at b 128: K7 12
+    launches an encode on the tensor cores, img/s beside ``vit.apply`` on
+    the same images already resized and normalized (``vit_encode``'s
+    ViT-B/224 encode, timed in the same call)."""
+    import torch
+
+    from llm_quest_tpu_torch.data.datasets import IMAGENET_MEAN, IMAGENET_STD
+    from llm_quest_tpu_torch.models import vit
+    from llm_quest_tpu_torch.multimodal import preprocessing
+
+    mean = torch.as_tensor(IMAGENET_MEAN, device=DEVICE)[None, :, None, None]
+    std = torch.as_tensor(IMAGENET_STD, device=DEVICE)[None, :, None, None]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    raw = torch.randint(0, 256, (b, 3, UINT8_SIDE, UINT8_SIDE), generator=gen, device=DEVICE, dtype=torch.uint8)
+    rec = {}
+    for n_layers, dtype, bar in ((2, torch.float32, 10 * NEW_TOL), (12, torch.bfloat16, BF16_LOGIT_BAR)):
+        cfg = vit_cfg(n_layers, dtype)
+        model = init_model(vit, cfg)
+        conv_w = model.patch_emb["conv_w"].detach().clone()
+        side = (cfg["img_height"], cfg["img_width"])
+        encode = preprocessing.make_uint8_encoder(vit, model, cfg, IMAGENET_MEAN, IMAGENET_STD, resize_to=side)
+        rows = raw if dtype == torch.bfloat16 else raw[:8]
+        with torch.inference_mode():
+            normalized = ((preprocessing.resize_bilinear(rows, *side) / 255.0 - mean) / std).to(dtype)
+            ref = vit.apply(model, cfg, normalized, output_hidden_states=True).float()
+        reset_launches()
+        got = encode(rows).float()
+        torch.cuda.synchronize()
+        launches = read_launches(UINT8_ENCODE, records) if dtype == torch.bfloat16 else None
+        err, scale = max_err(got, ref)
+        if not err <= bar * scale or not torch.equal(model.patch_emb["conv_w"], conv_w):
+            raise AssertionError(f"{UINT8_ENCODE} {dtype}: {err} > {bar} × {scale}, or the model's weights moved")
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        rec[name] = {"layers": n_layers, "b": rows.shape[0], "max_abs_err": err, "max_abs_ref": scale,
+                     "bar": bar * scale}
+        if launches is not None:
+            if launches["packed_mha"] != 12:
+                raise AssertionError(f"{UINT8_ENCODE}: {launches['packed_mha']} K7 launches an encode, expected 12")
+
+            def encodes():
+                for _ in range(VIT_ENCODES):
+                    encode(raw)
+
+            def plain_encodes():
+                with torch.inference_mode():
+                    for _ in range(VIT_ENCODES):
+                        vit.apply(model, cfg, normalized, output_hidden_states=True)
+
+            for fn in (encodes, plain_encodes):
+                fn()  # warm
+            run_s, runs = timed(encodes, 3)
+            vit_s, vit_runs = timed(plain_encodes, 3)
+            rec[name].update(img_s=b * VIT_ENCODES / run_s, run_s=runs, vit_apply_img_s=b * VIT_ENCODES / vit_s,
+                             vit_apply_run_s=vit_runs, k7_launches=launches["packed_mha"],
+                             uint8_input_mb=raw.numel() / 2**20, bf16_input_mb=normalized.numel() * 2 / 2**20)
+        del model, encode
+        torch.cuda.empty_cache()
+    emit({"phase": UINT8_ENCODE, "card": card, "raw_side": UINT8_SIDE, "encodes_per_run": VIT_ENCODES, **rec})
+
+
+def hf_state_dict(model, rules, *, skip=lambda path, rule: False):
+    """A synthetic HF state dict of ``model``'s leaves, torch tensors on the
+    card: each JAX path (``weights/interop.py::flatten_params``, JAX's
+    layout) renamed by the loader's ``rules`` walked backwards (each
+    replacement back into its pattern; ``skip(path, rule)`` passes a rule
+    over) and, where the rule transposes, transposed back into torch's (out,
+    in); a depthwise conv (``_squeeze1``'s rule) gets its (c, 1, k) axis
+    back. A leaf no rule names keeps its JAX path."""
+    from llm_quest_tpu_torch.weights import interop
+
+    state = {}
+    for path, t in interop.flatten_params(model).items():
+        name, transform = path, None
+        for rule in reversed(rules):
+            if rule[1] in name and not skip(path, rule):
+                name = name.replace(rule[1], rule[0])
+                transform = rule[2] if len(rule) > 2 else transform
+        if transform is True:
+            t = t.T
+        elif callable(transform):
+            t = t[:, None, :]
+        state[name] = t.detach().clone()
+    return state
+
+
+def gpt2_hf_state(model):
+    """HF GPT-2's state dict of a port GPT-2: ``GPT2_HF_RULES`` walked back,
+    q/k/v fused into ``c_attn`` (in, 3d), no ``out`` head (HF's is ``wte``)."""
+    import torch
+
+    from llm_quest_tpu_torch.weights import interop
+
+    state = {name: t for name, t in hf_state_dict(model, interop.GPT2_HF_RULES).items()
+             if "/att/w" not in name and name != "out/w"}
+    for i, block in enumerate(model.blocks):
+        att = block.att
+        state[f"h.{i}.attn.c_attn.weight"] = torch.cat([att.wq.w.T, att.wk.w.T, att.wv.w.T], dim=1).detach().clone()
+        state[f"h.{i}.attn.c_attn.bias"] = torch.cat([att.wq.b, att.wk.b, att.wv.b]).detach().clone()
+    return state
+
+
+def loaded_check(label, source, target, logs):
+    """Every leaf of ``target`` bit-equal to ``source``'s, and the loader's
+    report all loaded, nothing missing. Returns the number of leaves."""
+    import torch
+
+    want = source.state_dict()
+    for name, t in target.state_dict().items():
+        if t.dtype != want[name].dtype or not torch.equal(t, want[name]):
+            raise AssertionError(f"{label}: {name} differs from the source after the load")
+    if logs != [f"Loaded {len(want)}/{len(want)} weights successfully"]:
+        raise AssertionError(f"{label}: the loader reported {logs}")
+    return len(want)
+
+
+def hf_load(label, load, source, target, state):
+    """``load(target, state, logs)`` timed, then ``loaded_check``."""
+    import torch
+
+    logs = []
+    t0 = time.perf_counter()
+    load(target, state, logs.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"hf_tensors": len(state), "leaves": loaded_check(label, source, target, logs), "load_s": seconds,
+            "log": logs}
+
+
+def hf_loaders(records, card):
+    """HF checkpoints into the port (``weights/interop.py``): synthetic state
+    dicts in HF's names and layouts, torch bf16 on the card, written by this
+    script from seeded port models (GPT-2 124M with its head tied to
+    ``wte``, as HF's is, and the Qwen3.5-0.8B VLM, text and vision), loaded
+    into models of another seed: every leaf bit-equal to the source's, all
+    loaded and nothing missing (as JAX's loaders report for such complete
+    dicts), and the greedy tokens of the source and the loaded model
+    identical (GPT-2: 16 tokens from b 4 prompts of 64; Qwen3.5: the main
+    path's multimodal and text prompts, 8 tokens). Seconds of each load."""
+    import torch
+
+    from llm_quest_tpu_torch.config import GPT_CONFIG_124M, QWEN3_5_08B_CONFIG
+    from llm_quest_tpu_torch.models import gpt2, qwen3_5
+    from llm_quest_tpu_torch.weights import interop
+
+    def other_seed(mod, cfg):
+        return mod.init(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED + 7), device=DEVICE)
+
+    out = {}
+    cfg = gpt2_cfg(GPT_CONFIG_124M, 12, torch.bfloat16)
+    source = init_model(gpt2, cfg)
+    with torch.no_grad():
+        source.out.w.copy_(source.tok_emb["w"])
+    target = other_seed(gpt2, cfg)
+    out["gpt2"] = hf_load("hf_loaders gpt2", lambda m, s, log: interop.load_hf_gpt2(m, s, log=log), source, target,
+                          gpt2_hf_state(source))
+    ids = ids_on_card(4, 64)
+    if not torch.equal(generate(gpt2, source, cfg, ids, 16), generate(gpt2, target, cfg, ids, 16)):
+        raise AssertionError("hf_loaders gpt2: the loaded model's greedy tokens differ from the source's")
+    del source, target
+
+    cfg = dict(QWEN3_5_08B_CONFIG)
+    source = build_model(cfg)
+    attention = {path.split("/att/")[0] for path in interop.flatten_params(source.text) if "/att/wqg/" in path}
+
+    def skip(path, rule):  # an attention layer's names are self_attn's, a GDN layer's linear_attn's
+        layer = path.split("/att/")[0]
+        return ("linear_attn" in rule[0] and layer in attention) or ("self_attn" in rule[0] and layer not in attention)
+
+    state = {**hf_state_dict(source.text, interop.qwen3_5_text_rules(), skip=skip),
+             **hf_state_dict(source.vision, interop.qwen3_5_vision_rules())}
+    target = other_seed(qwen3_5, cfg)
+    out["qwen3_5_vlm"] = hf_load("hf_loaders qwen3_5",
+                                 lambda m, s, log: interop.load_hf_qwen3_5_vlm(m, cfg, s, log=log), source, target,
+                                 state)
+    out["qwen3_5_vlm"]["hf_names_sample"] = sorted(state)[:3]
+    inputs = make_inputs(cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    for got, want in zip(run_main_path(target, cfg, *inputs, 8), run_main_path(source, cfg, *inputs, 8)):
+        if not torch.equal(got, want):
+            raise AssertionError("hf_loaders qwen3_5: the loaded model's greedy tokens differ from the source's")
+    del source, target, state
+    torch.cuda.empty_cache()
+    emit({"phase": "hf_loaders", "card": card, "dtype": "bfloat16", **out})
+
+
+class DigitTokenizer:
+    """GPT-2's single-digit tokens ("0".."9" are ids 15..24) and nothing else."""
+
+    def get_vocab(self):
+        return {str(d): i for d, i in enumerate(DIGIT_IDS)}
+
+
+def qk_clip_llama(out):
+    """``training_ops``' QK-Clip reading on Llama-3.2-1B (16 layers, fp32, b
+    2, s 512: in bf16 the maxima and the rescaled weights round by up to
+    2⁻⁹ each, which the 1 % margin does not hold), the workflow of JAX's
+    end-to-end test (``tests/test_common_techniques.py``): a forward with
+    ``collect_max_logits``, then ``apply_qk_clip`` at τ = half the largest
+    collected logit. The clip rescales each layer's q/k by the maxima of the
+    inputs that forward fed it, so its cap holds on those: every layer's
+    per-head maxima recomputed with the clipped weights on those inputs
+    (hooked) must be ≤ τ·1.01, and so must the next forward's in layer 0,
+    whose input the clip leaves as it was. The next forward's later layers
+    see inputs the clipped layers before them changed: their maxima are
+    read (``max_after``), not held to the cap."""
+    import torch
+
+    from llm_quest_tpu_torch.models import llama3
+    from llm_quest_tpu_torch.ops import qk_clip, rope
+    from llm_quest_tpu_torch.ops.attention import split_heads
+
+    cfg = llama_cfg(16, torch.float32)
+    model = init_model(llama3, cfg)
+    batch = train_batch(2, 512)
+    inputs = []
+    hooks = [block.att.wq.register_forward_hook(lambda m, args, _: inputs.append(args[0]))
+             for block in model.blocks]
+    with torch.inference_mode():
+        aux = llama3.apply(model, cfg, batch["input_ids"], collect_max_logits=True)[2]
+    for hook in hooks:
+        hook.remove()
+    before = torch.stack(aux["max_attn_logits"]).float()
+    tau = float(before.max()) / 2
+    qk_clip.apply_qk_clip(model, list(before), tau, num_heads=cfg["n_heads"], num_kv_heads=cfg["num_kv_groups"])
+    with torch.inference_mode():
+        same_inputs = torch.stack([
+            llama3._max_logits(rope.apply(split_heads(block.att.wq(x), cfg["n_heads"]), model.rope_cos, model.rope_sin),
+                               rope.apply(split_heads(block.att.wk(x), cfg["num_kv_groups"]), model.rope_cos,
+                                          model.rope_sin), cfg)
+            for block, x in zip(model.blocks, inputs)]).float()
+        after = torch.stack(llama3.apply(model, cfg, batch["input_ids"], collect_max_logits=True)[2][
+            "max_attn_logits"]).float()
+    if not (float(same_inputs.max()) <= tau * 1.01 and float(after[0].max()) <= tau * 1.01):
+        raise AssertionError(f"training_ops qk_clip: maxima after the clip {float(same_inputs.max())} on the "
+                             f"collecting forward's inputs, {float(after[0].max())} in layer 0's next forward, "
+                             f"> {tau} · 1.01")
+    out["qk_clip"] = {"layers": 16, "b": 2, "s": 512, "tau": tau, "max_before": float(before.max()),
+                      "max_same_inputs": float(same_inputs.max()), "max_after_layer0": float(after[0].max()),
+                      "max_after": float(after.max()), "max_after_by_layer": after.amax(1).tolist(),
+                      "heads_clipped": int((before > tau).sum()), "heads": before.numel()}
+
+
+def ntl_ral_gpt2(out):
+    """``training_ops``' Number-Token Loss and RAL readings on GPT-2 124M (bf16, b 8, s 1024)."""
+    import torch
+
+    from llm_quest_tpu_torch.config import GPT_CONFIG_124M
+    from llm_quest_tpu_torch.models import gpt2
+    from llm_quest_tpu_torch.ops import num_token_loss, reinforced_attention
+    from llm_quest_tpu_torch.ops.attention import split_heads
+    from llm_quest_tpu_torch.ops.losses import cross_entropy
+    from llm_quest_tpu_torch.ops.masks import causal_mask
+    from llm_quest_tpu_torch.ops.norms import layer_norm
+
+    cfg = gpt2_cfg(GPT_CONFIG_124M, 12, torch.bfloat16)
+    model = init_model(gpt2, cfg)
+    batch = train_batch(8, 1024)
+    targets = batch["targets"].clone()
+    pick = torch.arange(targets.numel(), device=DEVICE).reshape(targets.shape) % 10 == 0
+    targets[pick] = torch.tensor(list(DIGIT_IDS), device=DEVICE)[torch.arange(int(pick.sum()), device=DEVICE) % 10]
+    vocab = num_token_loss.build_num_vocab(DigitTokenizer(), cfg["vocab_size"], device=DEVICE)
+    logits, _, _ = gpt2.apply(model, cfg, batch["input_ids"])
+    total = (cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+             + num_token_loss.num_token_loss(logits, targets, vocab))
+    grads = torch.autograd.grad(total, list(model.parameters()), allow_unused=True, materialize_grads=True)
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("training_ops ntl: a gradient of CE + NTL is not finite")
+    del grads
+    leaf = logits.detach().requires_grad_()
+    del logits
+    got = num_token_loss.num_token_loss(leaf, targets, vocab)
+    (g_got,) = torch.autograd.grad(got, leaf)
+    is_num = ~torch.isnan(vocab)
+    label = vocab[targets]
+    valid = ~torch.isnan(label)
+    # JAX's form: the whole row softmaxed with the non-number columns at -inf
+    probs = torch.softmax(torch.where(is_num, leaf.float(), float("-inf")), dim=-1)
+    dist = (torch.where(valid, label, 0.0)[..., None] - torch.where(is_num, vocab, 0.0)).abs()
+    ref = torch.where(valid, torch.where(is_num, dist * probs, 0.0).sum(-1), 0.0).sum() / valid.sum()
+    (g_ref,) = torch.autograd.grad(ref, leaf)
+    del probs, dist, leaf
+    got, ref = float(got.detach()), float(ref.detach())
+    value_err = abs(got - ref)
+    grad_err, grad_scale = max_err(g_got, g_ref)
+    if not (value_err <= NEW_TOL * max(1.0, abs(ref)) and grad_err <= NEW_TOL * max(1.0, grad_scale)):
+        raise AssertionError(f"training_ops ntl: {got} against JAX's form {ref}, gradient {grad_err}")
+    out["ntl"] = {"b": 8, "s": 1024, "number_labels": int(pick.sum()), "loss": got, "jax_form": ref,
+                  "value_err": value_err, "grad_max_abs_err": grad_err}
+    del g_got, g_ref
+
+    att, ln = model.blocks[0].att, model.blocks[0].ln_1
+    ids = batch["input_ids"]
+    s = ids.shape[1]
+    hn = layer_norm(model.tok_emb["w"][ids] + model.pos_emb["w"][:s], ln["scale"], ln["shift"])
+    mask = causal_mask(s, s, device=DEVICE)
+
+    def maps(q_scale=1.0):
+        q = split_heads(att.wq(hn), cfg["n_heads"]).float() * q_scale
+        k = split_heads(att.wk(hn), cfg["n_heads"]).float()
+        return torch.softmax((q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5).masked_fill(mask, float("-inf")), -1)
+
+    policy = maps()
+    with torch.no_grad():
+        old = maps(0.9)
+    adv = torch.linspace(0.5, 1.5, ids.shape[0], device=DEVICE)  # one sign: no cancellation in the mean
+    loss_mask = (torch.arange(s, device=DEVICE) % 7 != 0)[None].expand(ids.shape[0], -1)
+    ral = reinforced_attention.attention_divergence_loss(policy, old, adv, loss_mask)
+    gq, gk = torch.autograd.grad(ral, [att.wq.w, att.wk.w])
+    ral = ral.detach()
+    policy = policy.detach()
+    ral64 = reinforced_attention.attention_divergence_loss(policy.double(), old.double(), adv.double(), loss_mask)
+    same = reinforced_attention.attention_divergence_loss(old, old, adv, loss_mask)
+    ral_err = abs(float(ral) - float(ral64))
+    if not (ral_err <= NEW_TOL * abs(float(ral64)) and abs(float(same)) < 1e-6
+            and all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 for g in (gq, gk))):
+        raise AssertionError(f"training_ops ral: {float(ral)} against fp64 {float(ral64)}, equal maps {float(same)}")
+    out["ral"] = {"b": 8, "heads": cfg["n_heads"], "s": s, "loss": float(ral), "fp64": float(ral64),
+                  "rel_err": ral_err / abs(float(ral64)), "equal_maps": float(same)}
+
+
+def training_ops(records, card):
+    """The model-agnostic training ops on the card, at full width.
+    QK-Clip on Llama-3.2-1B (16 layers, fp32, b 2, s 512): a forward with
+    ``collect_max_logits``, then ``apply_qk_clip`` (per head, the min over
+    each kv group) at τ = half the largest collected logit; every layer's
+    maxima on that forward's inputs, and layer 0's in the next forward, ≤
+    τ·1.01 (``qk_clip_llama``). The Number-Token Loss and RAL on GPT-2 124M
+    (bf16, b 8, s 1024): NTL over GPT-2's digit tokens (every tenth label a digit), its
+    value and logits gradient against JAX's form (the softmax over all
+    columns, the others at −inf) within NEW_TOL of max(1, |ref|), and the
+    gradients of CE + NTL finite; RAL between block 0's attention maps (12
+    heads, fp32) and those with its q scaled by 0.9, the value within
+    NEW_TOL of fp64's, 0 for equal maps, the gradients of wq and wk finite
+    and nonzero. ``l2_norm`` in bf16 on an (8, 1024, 768) card tensor
+    within 2⁻⁸ of fp64, DyT's gradients in fp32 within NEW_TOL of fp64's."""
+    import torch
+
+    from llm_quest_tpu_torch.ops import norms
+
+    out = {}
+    qk_clip_llama(out)
+    torch.cuda.empty_cache()
+    ntl_ral_gpt2(out)
+    torch.cuda.empty_cache()
+    x = randn(torch.Generator(device=DEVICE).manual_seed(SEED + 6), 8, 1024, 768)
+    w = randn(torch.Generator(device=DEVICE).manual_seed(SEED + 7), 8, 1024, 768)
+    l2_err = float((norms.l2_norm(x.to(torch.bfloat16)).double() - norms.l2_norm(x.double())).abs().max())
+    dyt = norms.init_dynamic_tanh(768, alpha0=0.7, device=DEVICE)
+    xg = x.clone().requires_grad_()
+    grads = torch.autograd.grad((dyt(xg) * w).sum(), [xg, dyt.alpha, dyt.gamma, dyt.beta])
+    dyt64 = {k: p.detach().double().requires_grad_() for k, p in dyt.named_parameters()}
+    x64 = x.double().requires_grad_()
+    grads64 = torch.autograd.grad((norms.dynamic_tanh(dyt64, x64) * w.double()).sum(),
+                                  [x64, dyt64["alpha"], dyt64["gamma"], dyt64["beta"]])
+    dyt_err = max(float((a.double() - r).abs().max()) / max(1.0, float(r.abs().max())) for a, r in zip(grads, grads64))
+    if not (l2_err <= 2**-8 and dyt_err <= NEW_TOL):
+        raise AssertionError(f"training_ops norms: l2_norm bf16 err {l2_err}, DyT gradient rel err {dyt_err}")
+    out["norms"] = {"l2_norm_bf16_max_abs_err": l2_err, "dyt_grad_rel_err": dyt_err}
+    torch.cuda.empty_cache()
+    emit({"phase": "training_ops", "card": card, **out})
 
 
 def ids_on_card(b, s, seed=SEED):
@@ -7100,6 +7813,11 @@ def main(argv):
     phase(rm_train, records, smi)
     phase(grpo_rlhf, records, smi)
     phase(rlvr_rpt, records, smi)
+    phase(vlm_train, records, smi)
+    phase(vlm_generate, records, smi)
+    phase(uint8_encode, records, smi)
+    phase(hf_loaders, records, smi)
+    phase(training_ops, records, smi)
     t_checks = time.perf_counter()
     serving_checks_fp32()
     PHASE_SECONDS["serving_checks_fp32"] = time.perf_counter() - t_checks

@@ -5,19 +5,61 @@ numpy only, and the port's own copies: the port imports nothing of the JAX
 package. The dataset functions return lists or numpy arrays, as JAX's do; the
 ``collate_*`` functions turn sample lists into padded numpy batches;
 ``data_loader`` shuffles and batches; ``normalize_images`` prepares the ViT
-trainer's images. Here: the text collators, the instruction, spam,
+trainer's images and ``multimodal_batches`` the VLM trainer's image-caption
+batches. Every function of JAX's file is here: the pretraining windows
+(``gpt_windows``, ``gpt_stream_windows``) and the gzip JSONL corpus reader,
+the text collators and ``pad_to_multiple``, the instruction, spam,
 preference, reasoning and RPT datasets and the DPO and reward-model
-collators. Not ported yet (ROADMAP Queue 1 item 9): ``gpt_windows``,
-``gpt_stream_windows``, ``load_jsonl_gz``, ``pad_to_multiple`` and
-``multimodal_batches``.
+collators.
 """
 
+import gzip
 import json
 
 import numpy as np
 
 PAD_TOKEN_ID = 50256  # GPT-2 "<|endoftext|>"
 NO_LOSS_ID = -100
+
+
+def gpt_windows(text, tokenizer, max_length, stride):
+    """Sliding-window next-token pairs over a tokenized corpus: (inputs,
+    targets) int32 arrays of shape (n, max_length)."""
+    ids = tokenizer.encode(text)
+    inputs, targets = [], []
+    for i in range(0, len(ids) - max_length, stride):
+        inputs.append(ids[i : i + max_length])
+        targets.append(ids[i + 1 : i + max_length + 1])
+    return np.asarray(inputs, dtype=np.int32), np.asarray(targets, dtype=np.int32)
+
+
+def gpt_stream_windows(stream, tokenizer, max_length, stride, text_key="text"):
+    """The streaming form over an iterable of {"text": ...} samples: yields
+    (input, target) int32 arrays a window; a sample whose text is not a
+    string is skipped, one without the key raises KeyError."""
+    for sample in stream:
+        if text_key not in sample:
+            raise KeyError(f'Missing "{text_key}" key in sample.')
+        text = sample[text_key]
+        if not isinstance(text, str):
+            continue
+        ids = tokenizer.encode(text)
+        for i in range(0, len(ids) - max_length, stride):
+            yield (
+                np.asarray(ids[i : i + max_length], dtype=np.int32),
+                np.asarray(ids[i + 1 : i + max_length + 1], dtype=np.int32),
+            )
+
+
+def load_jsonl_gz(path, max_samples=None, text_key="text"):
+    """The ``text_key`` field of each line of a gzip JSONL corpus, up to ``max_samples`` lines."""
+    out = []
+    with gzip.open(path, "rt", encoding="utf-8") as f:
+        for i, line in enumerate(f):
+            if max_samples is not None and i >= max_samples:
+                break
+            out.append(json.loads(line)[text_key])
+    return out
 
 
 def load_instruction_data(path):
@@ -152,6 +194,22 @@ def collate_function_mtp(batch, mtp_depth, custom_max_len=None, pad_token_id=PAD
         "shifted_inputs": shifted_inputs,
         "shifted_targets": shifted_targets,
     }
+
+
+def pad_to_multiple(batch_dict, multiple=128, pad_token_id=PAD_TOKEN_ID):
+    """Pad the sequence dim of a collated batch ({"input_ids", "targets",
+    "attn_mask"}) up to a multiple of ``multiple``: ids with the pad, targets
+    with -100, the mask with False."""
+    s = batch_dict["input_ids"].shape[1]
+    target = ((s + multiple - 1) // multiple) * multiple
+    if target == s:
+        return batch_dict
+    pad = target - s
+    out = dict(batch_dict)
+    out["input_ids"] = np.pad(batch_dict["input_ids"], ((0, 0), (0, pad)), constant_values=pad_token_id)
+    out["targets"] = np.pad(batch_dict["targets"], ((0, 0), (0, pad)), constant_values=NO_LOSS_ID)
+    out["attn_mask"] = np.pad(batch_dict["attn_mask"], ((0, 0), (0, pad)), constant_values=False)
+    return out
 
 
 def data_loader(samples, batch_size, *, shuffle=False, drop_last=True, collate_fn=None, seed=0):
@@ -380,6 +438,8 @@ def rpt_continuous_dataset(text, tokenizer, max_context_length, *, labels_length
 
 CIFAR10_MEAN = np.asarray([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR10_STD = np.asarray([0.2470, 0.2435, 0.2616], np.float32)
+IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 
 
 def normalize_images(images, mean=CIFAR10_MEAN, std=CIFAR10_STD):
@@ -392,3 +452,26 @@ def normalize_images(images, mean=CIFAR10_MEAN, std=CIFAR10_STD):
     if images.ndim == 4 and images.shape[-1] in (1, 3):  # NHWC → NCHW
         images = images.transpose(0, 3, 1, 2)
     return (images - mean[None, :, None, None]) / std[None, :, None, None]
+
+
+def multimodal_batches(images, captions, tokenizer, batch_size, *, max_caption_len=None,
+                       pad_token_id=PAD_TOKEN_ID, mean=IMAGENET_MEAN, std=IMAGENET_STD):
+    """Image-caption pairs → full batches of {"image" (b, c, h, w) float32
+    normalized, "input_ids" (b, max_len) int32 right-padded with
+    ``pad_token_id``, "attention_mask" (b, max_len) bool}; a caption longer
+    than ``max_caption_len`` (default: the longest) is cut, a last partial
+    batch dropped. Resizing is the caller's concern."""
+    images = normalize_images(images, mean, std)
+    ids = [tokenizer.encode(c) for c in captions]
+    max_len = max_caption_len or max(len(v) for v in ids)
+
+    batches = []
+    for i in range(0, len(ids) - len(ids) % batch_size, batch_size):
+        inp = np.full((batch_size, max_len), pad_token_id, dtype=np.int32)
+        mask = np.zeros((batch_size, max_len), dtype=bool)
+        for j, v in enumerate(ids[i : i + batch_size]):
+            v = v[:max_len]
+            inp[j, : len(v)] = v
+            mask[j, : len(v)] = True
+        batches.append({"image": images[i : i + batch_size], "input_ids": inp, "attention_mask": mask})
+    return batches

@@ -227,9 +227,7 @@ def quantize_params_int8(model, *, exclude=r"tok_emb|conv", block_size=None, min
 
 def quantized_like(model, names):
     """Give ``model`` the quantized structure of a JAX tree in place: names
-    maps each "."-joined leaf name to its array (``from_jax_flat``).
-    Returns the state-dict names whose arrays come transposed (linear w_q)."""
-    transposed = set()
+    maps each "."-joined leaf name to its array (``from_jax_flat``)."""
     for name, module in list(model.named_modules()):
         prefix = f"{name}." if name else ""
         if isinstance(module, Linear) and prefix + "w_q" in names:
@@ -240,7 +238,6 @@ def quantized_like(model, names):
             if "lora" in module._modules:
                 qlin.lora = module.lora
             _set_module(model, name, qlin)
-            transposed.add(prefix + "w_q")
         elif isinstance(module, nn.ParameterDict) and "w" in module and prefix + "w_q" in names:
             w = module["w"]
             _set_module(model, name, params(
@@ -252,7 +249,6 @@ def quantized_like(model, names):
                 group[k + "_q"] = torch.empty(w.shape, dtype=torch.int8, device=w.device)
                 group[k + "_scale"] = torch.empty(w.shape[0], w.shape[2], dtype=torch.float32, device=w.device)
             _set_module(model, name, params(**group))
-    return transposed
 
 
 def param_bytes(params):

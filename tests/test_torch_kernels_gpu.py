@@ -405,6 +405,43 @@ def test_flash_attention_holed_key_mask_forward_and_backward(gen, dtype):
     assert bool((pads.abs().amax(-1) > 0).all()) and bool(torch.isfinite(out).all())
 
 
+def vlm_key_mask(b, n_vision, text_lens, s_text):
+    """The ViT→GPT-2 VLM's fused key mask (``multimodal/vlm.py::fuse``): the
+    vision columns all real, then each row's caption right-padded."""
+    mask = torch.zeros(b, n_vision + s_text, dtype=torch.bool, device="cuda")
+    mask[:, :n_vision] = True
+    for i, n in enumerate(text_lens):
+        mask[i, n_vision : n_vision + n] = True
+    return mask
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_vlm_fused_mask_forward_and_backward(gen, dtype):
+    """K4 at the VLM's fused sequence: 197 ViT-B/16 tokens then 64 caption
+    columns (s 261, not a multiple of 64), 12 heads of 64, each caption
+    right-padded (64, 20, 1 and 37 real tokens): the output and dq/dk/dv
+    held to the plain version, a masked key's dk and dv exactly zero."""
+    from llm_quest_tpu_torch.kernels import attention
+
+    b, h, d, nv, st = 4, 12, 64, 197, 64
+    mask = vlm_key_mask(b, nv, [64, 20, 1, 37], st)
+    s = nv + st
+    q, k, v, do = (randn(gen, b, h, s, d, dtype=dtype) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n_fwd, n_bwd, tc = attention.flash_attention.launches, attention.flash_attention_bwd.launches, tc_counts()
+    out = attention.flash_attention(*leaves, attn_mask=mask)
+    out.backward(do)
+    assert (attention.flash_attention.launches, attention.flash_attention_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    assert_tc_moved(tc, dtype, k4=1, k4_bwd=1)
+    assert_close(out, attention.flash_attention(q, k, v, attn_mask=mask, plain=True), dtype)
+    for got, r in zip((t.grad for t in leaves), attention.flash_attention_bwd_plain(q, k, v, do, attn_mask=mask)):
+        assert_close(got, r, dtype)
+    masked = ~mask[:, None, :, None].expand(b, h, s, d)
+    for grad in (leaves[1].grad, leaves[2].grad):
+        assert int((grad[masked] != 0).sum()) == 0
+    assert bool(torch.isfinite(out).all())
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_backward_q_start_and_delta_shift(gen, dtype):
     """Cached-prefill geometry (sq < sk, q_start > 0) and the lse cotangent."""
