@@ -332,12 +332,12 @@ training ops. Phases, one JSON line each on stdout:
     (``engine_spec``): speculative serving on
     ``bench_spec_serving_flagship``'s traffic (32 greedy requests, 16
     slots, chunk 8, γ 4, budgets U[16, 64]) with prompts U[8, 200]: first
-    a Qwen3.5 target refused for its recurrent cache (engine and
-    ``speculative_generate``); then Qwen3-4B (4 layers) with Qwen3-0.6B (2)
+    Qwen3-4B (4 layers) with Qwen3-0.6B (2)
     in fp32, every request's tokens equal to the plain engine's (a
     near-tie within SPEC_TIE_BAR excepted and printed), the target as its
     own draft committing γ + 1 every window, ``speculative_generate``
-    equal to ``generate_kv_cache``; then both at full width and depth in
+    equal to ``generate_kv_cache``; then both at full width, 18 and 14
+    layers (SPEC_LAYERS: half their depth, for the script's time), in
     bf16 and, quantized in place, int8 with the int8 KV cache: the first
     wave's admission (K4 in both models at the 256 bucket) and a window
     (K10 in the draft's steps over the int8 cache) held to the plain
@@ -436,6 +436,33 @@ training ops. Phases, one JSON line each on stdout:
     fp64. The kernel phase holds K4 at the fused shape and mask (b 32,
     12/12 heads of 64, s 261; forward, and forward + backward, bf16 per
     64-row tile beside the dropped-tile control) and K7 at b 32, s 197.
+32. engine_spec_hybrid_fp32, engine_spec_hybrid_plain, engine_spec_hybrid,
+    engine_spec_hybrid_small, engine_spec_next, engine_spec_hybrid
+    (``engine_spec_hybrid``, after ``engine_spec``): speculative serving
+    over hybrid caches, each window rolling every row's GDN states and conv
+    taps back to its committed tokens. First Qwen3.5-0.8B's widths at 4
+    layers and Qwen3-Next-small's at 2, fp32, each its own draft on 8 of
+    ``bench_spec_serving_flagship``'s requests: tokens equal to the plain
+    engine's (a near-tie within SPEC_TIE_BAR excepted), γ + 1 committed in
+    every window no budget cuts, both pools' states and taps a prefill of
+    each row's committed tokens but the last within HSPEC_STATE_TOL, and a
+    control keeping every window token beyond it. Then that script's
+    workload (32 greedy requests, 32-token prompts of ids in [1, 1000),
+    budgets U[16, 64], 16 slots, chunk 8, γ 4, 160 columns, bucket 32) on
+    Qwen3.5-0.8B at full width and depth, bf16: the plain engine, the model
+    as its own draft and the script's 4-layer, 512-d draft, each with
+    useful tok/s, tokens a row-window, a profiled window's device ms and
+    kernels, the rollback's ms (a captured window's ``roll_window`` calls
+    and the draft's state copy replayed) and its share, the greedy tokens
+    against the plain engine's by ``bf16_tie`` (the first difference within
+    twice the bf16 forward's error of the fp32 twin's largest logit, beside
+    a random-token control); Qwen3-Next-small (8 layers, bf16) as its own
+    draft on 16 requests; ``speculative_generate`` of Qwen3.5-0.8B as its
+    own draft (b 1, 64 tokens) against ``generate``; and
+    ``scripts/spec_decoding_generate.py`` at γ 4, max_gen 50. The kernel
+    phase holds K1 at a window's shapes (b 16, s 2, 5, 9 from a carried
+    state with a frozen tail; 16 heads of 128, 8 of 64) and K2 at the small
+    draft's (3 layers, b 16, 8 heads of 64).
 
 K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
 tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
@@ -1004,8 +1031,62 @@ def kernel_k1_bwd(gen, dtypes):
 # the most bytes.
 K2_SHAPES = (("b1", 18, 1, 16, 16, 128, 7), ("next", 6, 4, 8, 4, 64, 3), ("b32", 18, 32, 16, 16, 128, 7),
              ("b128", 18, 128, 16, 16, 128, 7))
+# K2 at the flagship's small draft's steps (``engine_spec_hybrid``): its 3 GDN layers, 16 slots, 8/8 heads of 64
+HSPEC_K2 = (("spec_draft", 3, 16, 8, 8, 64, 1),)
 K2_KEY = "gdn_step_stacked_kernel"  # the step kernel's name (csrc/gdn.cu), K2's and K3's
 # the distinct states a cold timing rotates over hold at least this many bytes: 2.5 times the H100's 50 MB L2
+# K1 at a speculative window over a hybrid pool (``engine_spec_hybrid``): b, h, s = γ + 1, dk, dv of the
+# Qwen3.5-0.8B target's verify and re-advance at 16 slots, and of the flagship's small draft (8 heads of 64);
+# each also held at s 2 and 9
+HSPEC_K1 = (16, 16, 5, 128, 128)
+HSPEC_K1_D64 = (16, 8, 5, 64, 64)
+HSPEC_K1_S = (2, 9)
+
+
+def kernel_k1_spec(gen, dtypes, shape=HSPEC_K1):
+    """K1 as a speculative window runs it: s = γ + 1 tokens from a carried
+    state, each row's tail past a random count in [0, s] frozen (β 0, α 1,
+    as ``ops/gdn.py::roll_window`` freezes rejected drafts), fp32 and bf16
+    against the plain version at s 2, γ + 1 and 9 (out and state within
+    TOL; a row with count 0 keeps its state within TOL); bf16 calls all on
+    the tensor cores. Timed in bf16 at ``shape``."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import gdn
+    from llm_quest_tpu_torch.ops.gdn import freeze_masked_updates
+
+    fwd = gdn.gated_delta_rule_fwd
+    b, h, s, dk, dv = shape
+    errs, errs_bf16, cases = [], [], []
+    for dtype in dtypes:
+        for s_len in (HSPEC_K1_S[0], s, HSPEC_K1_S[1]):
+            q, k, v, beta, alpha, s0 = gdn_inputs(gen, b, h, s_len, dtype, dk=dk, dv=dv)
+            counts = torch.randint(0, s_len + 1, (b,), generator=gen, device=DEVICE)
+            counts[0] = 0
+            beta, alpha = freeze_masked_updates(beta, alpha, torch.arange(s_len, device=DEVICE) < counts[:, None])
+            (out, st), tc = tc_count(fwd, lambda: fwd(q, k, v, beta, alpha, s0))
+            ref_out, ref_st = fwd(q, k, v, beta, alpha, s0, plain=True)
+            torch_sync()
+            if tc != int(dtype == torch.bfloat16):
+                raise AssertionError(f"K1 spec {dtype}: {tc} tensor-core launches of 1")
+            label = f"K1 spec b={b} h={h} s={s_len} dk={dk} dv={dv} {dtype}"
+            e = max(check(f"{label} out", out, ref_out, dtype), check(f"{label} state", st, ref_st, dtype),
+                    check(f"{label} frozen row", st[0], s0[0], dtype))
+            cases.append({"b": b, "h": h, "s": s_len, "dk": dk, "dv": dv, "dtype": str(dtype), "max_abs_err": e,
+                          "counts": counts.tolist(), "tc_launches": tc})
+            (errs if dtype == dtypes[0] else errs_bf16).append(e)
+    q, k, v, beta, alpha, s0 = gdn_inputs(gen, b, h, s, dtypes[-1], dk=dk, dv=dv)
+
+    def call():
+        return fwd(q, k, v, beta, alpha, s0)
+
+    out, st = call()
+    extra = {**bound(nbytes(q, k, v, beta, alpha, s0, out, st), gdn_flops(*shape)), "library_ms": None,
+             "max_abs_err_bf16": max(errs_bf16), "device_ms": device_ms(call, GDN_TC_KEY),
+             "record": {"shape": list(shape)}}
+    return max(errs), cuda_ms(call), cuda_ms(lambda: fwd(q, k, v, beta, alpha, s0, plain=True)), cases, extra
+
+
 ROTATE_BYTES = 128 * 2**20
 
 
@@ -1061,19 +1142,19 @@ def step_timing(call, rotated_calls, plain_call, nbytes_moved, flops):
             **bound(nbytes_moved, flops)}
 
 
-def kernel_k2(gen, dtypes):
-    """K2 at K2_SHAPES, fp32 and bf16, on the models' inputs (``step_inputs``:
-    strided views, bf16 beta in bf16, q/k at their own head count for
-    Qwen3-Next) against the plain version: out within TOL (fp32: NEW_TOL),
-    the layer's new state within NEW_TOL, every other layer bitwise
-    unchanged; timed in bf16 at each shape (``step_timing``), the
-    record's line at b 128."""
+def kernel_k2(gen, dtypes, shapes=K2_SHAPES, timed="b128"):
+    """K2 at ``shapes`` (K2_SHAPES), fp32 and bf16, on the models' inputs
+    (``step_inputs``: strided views, bf16 beta in bf16, q/k at their own
+    head count for Qwen3-Next) against the plain version: out within TOL
+    (fp32: NEW_TOL), the layer's new state within NEW_TOL, every other layer
+    bitwise unchanged; timed in bf16 at each shape (``step_timing``), the
+    record's line at the shape named ``timed``."""
     import torch
 
     from llm_quest_tpu_torch.kernels import gdn
 
     errs, cases = [], []
-    for name, n_layers, b, h, h_qk, d, layer in K2_SHAPES:
+    for name, n_layers, b, h, h_qk, d, layer in shapes:
         for dtype in dtypes:
             q, k, v, beta, alpha = step_inputs(gen, b, h, h_qk, d, dtype)
             stacked = randn(gen, n_layers, b, h, d, d, scale=0.1)
@@ -1110,7 +1191,7 @@ def kernel_k2(gen, dtypes):
                 errs.append(e)
             del stacked, ref_layer
             torch.cuda.empty_cache()
-    rec = next(c for c in cases if c["shape"] == "b128" and "ms" in c)
+    rec = next(c for c in cases if c["shape"] == timed and "ms" in c)
     extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "device_ms",
                                        "device_ms_warm", "events_ms", "host_us")}
     extra["library_ms"] = None
@@ -2633,6 +2714,10 @@ ENGINE_FAMILIES = "engine_families"
 ENGINE_LORA, ENGINE_LORA_BASE = "engine_multi_lora", "engine_multi_lora_base"
 # speculative serving: Qwen3-4B with a Qwen3-0.6B draft, bf16, then int8 weights with the int8 KV cache
 ENGINE_SPEC, ENGINE_SPEC_INT8 = "engine_spec", "engine_spec_int8"
+# speculative serving over hybrid caches (bench_spec_serving_flagship.py's workload): Qwen3.5-0.8B as its own
+# draft and with the flagship's small draft, Qwen3-Next-small as its own draft, and ``speculative_generate``
+ENGINE_SPEC_HYBRID, ENGINE_SPEC_HYBRID_SMALL = "engine_spec_hybrid", "engine_spec_hybrid_small"
+ENGINE_SPEC_NEXT, SPEC_GENERATE_HYBRID = "engine_spec_next", "speculative_generate_hybrid"
 # GPT-2 124M, Llama-3.2-1B and Hyper-Qwen3 trained; Llama-3.2-1B served, bf16, then int8 weights with the
 # int8 KV cache (no kernel: ``sdpa`` on the cache, as in JAX)
 GPT2_TRAIN, LLAMA_TRAIN, HYPER_TRAIN = "gpt2_train", "llama_train", "hyper_qwen3_train"
@@ -2683,7 +2768,19 @@ KERNELS = [
     ("gdn_step_stacked", ("gdn", "gated_delta_rule_step_stacked"), "llm_quest_tpu_torch/csrc/gdn.cu",
      "llm_quest_tpu/kernels/gdn_pallas.py:350", kernel_k2,
      (GENERATE, INT8_GENERATE, NEXT_SERVE, TEXT_B128, *ENGINE_PATHS, ENGINE_NEXT, ENGINE_NEXT_INT8, ENGINE_LORA,
-      ENGINE_LORA_BASE)),
+      ENGINE_LORA_BASE, ENGINE_SPEC_HYBRID, ENGINE_SPEC_NEXT, SPEC_GENERATE_HYBRID)),
+    # the speculative windows over hybrid pools: K1 at s = γ + 1 from a carried state with a frozen tail (the
+    # verify and the re-advance), at the Qwen3.5-0.8B target's heads and at the small draft's (which Qwen3-Next
+    # shares); K2 at the small draft's steps. A path's count is all of its wrapper's launches
+    ("gdn_prefill_spec", ("gdn", "gated_delta_rule_fwd"), GDN_SRC,
+     "llm_quest_tpu/kernels/gdn_pallas.py:205", kernel_k1_spec,
+     (ENGINE_SPEC_HYBRID, ENGINE_SPEC_HYBRID_SMALL, SPEC_GENERATE_HYBRID)),
+    ("gdn_prefill_spec_d64", ("gdn", "gated_delta_rule_fwd"), GDN_SRC,
+     "llm_quest_tpu/kernels/gdn_pallas.py:205", partial(kernel_k1_spec, shape=HSPEC_K1_D64),
+     (ENGINE_SPEC_HYBRID_SMALL, ENGINE_SPEC_NEXT)),
+    ("gdn_step_stacked_spec", ("gdn", "gated_delta_rule_step_stacked"), "llm_quest_tpu_torch/csrc/gdn.cu",
+     "llm_quest_tpu/kernels/gdn_pallas.py:350", partial(kernel_k2, shapes=HSPEC_K2, timed="spec_draft"),
+     (ENGINE_SPEC_HYBRID_SMALL,)),
     ("flash_attention_fwd", ("attention", "flash_attention"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4,
      (GENERATE, TRAIN, HYBRID, HYPER_TRAIN, ENGINE_HETERO, ENGINE_CHUNKED, ENGINE_PREFIX)),
@@ -7240,6 +7337,7 @@ def engine_multi_lora(records, card):
 SPEC_REQUESTS, SPEC_CHUNK = 32, 8  # scripts/bench_spec_serving_flagship.py's requests and chunk
 SPEC_BUCKETS = (32, 64, 256)
 SPEC_FP32_LAYERS = (4, 2)  # the fp32 check's target and draft depth
+SPEC_LAYERS = (18, 14)  # the bf16 and int8 records' depth, half of each model's (the script's time)
 SPEC_PROFILE_WINDOWS = 1  # a traced window holds 16,000-23,000 kernels (the trace's reading is the costly part)
 SPEC_CHECK_BATCH = 8  # requests a batched uncached forward in ``committed_vs_uncached``
 SPEC_ALPHAS = (0.56, 0.8, 1.0)  # the acceptance rates JAX's script projects the window's cost at
@@ -7392,40 +7490,6 @@ def spec_check_fp32(traffic):
     torch.cuda.empty_cache()
 
 
-def spec_refusal():
-    """The recurrent-cache refusal on the card: a Qwen3.5-0.8B text target
-    (2 of 24 layers, bf16) raises NotImplementedError in the engine and in
-    ``speculative_generate``."""
-    import torch
-
-    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG, qwen3_config_creator
-    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
-    from llm_quest_tpu_torch.inference.spec_decoding import speculative_generate
-    from llm_quest_tpu_torch.models import qwen3, qwen3_5
-
-    cfg = dict(QWEN3_5_08B_CONFIG, n_layers=2, dtype=torch.bfloat16)
-    hybrid = text_model(cfg)
-    dcfg = dict(qwen3_config_creator("0.6B"), n_layers=2)
-    draft = init_model(qwen3, dcfg)
-    spec = dict(draft_model=qwen3, draft_params=draft, draft_cfg=dcfg, gamma=SPEC_GAMMA)
-    messages = []
-    for call in (lambda: ContinuousBatchingEngine(qwen3_5.TextOnly, hybrid, cfg, n_slots=SPEC_SLOTS,
-                                                  max_len=SPEC_MAX_LEN, **spec),
-                 lambda: speculative_generate(qwen3_5.TextOnly, hybrid, cfg, qwen3, draft, dcfg, [[1, 2, 3]],
-                                              max_gen=4, draft_max_gen=SPEC_GAMMA)):
-        try:
-            call()
-        except NotImplementedError as e:
-            messages.append(str(e))
-        else:
-            raise AssertionError("engine_spec: a Qwen3.5 target was not refused")
-    if not all("the target's cache holds recurrent state" in m for m in messages):
-        raise AssertionError(f"engine_spec: refusals name another fault: {messages}")
-    del hybrid, draft
-    torch.cuda.empty_cache()
-    return messages[0]
-
-
 def committed_vs_uncached(model, cfg, traffic, served):
     """Each committed token's logit, from one uncached forward over its
     prompt and committed tokens (SPEC_CHECK_BATCH requests a right-padded
@@ -7537,10 +7601,10 @@ def spec_record(path, target, tcfg, draft, dcfg, traffic, records, card):
 
 
 def engine_spec(records, card):
-    """Speculative serving: the recurrent-cache refusal (Qwen3.5); the fp32
-    check (``spec_check_fp32``); then Qwen3-4B (36 layers, d 2560, 32/8
-    heads of 128, FFN 9728, vocab 151,936) with a Qwen3-0.6B draft (28
-    layers, d 1024, 16/8 heads) at full width and depth, bf16
+    """Speculative serving: the fp32 check (``spec_check_fp32``); then
+    Qwen3-4B (SPEC_LAYERS: 18 of 36 layers, d 2560, 32/8 heads of 128, FFN
+    9728, vocab 151,936) with a Qwen3-0.6B draft (14 of 28 layers, d 1024,
+    16/8 heads) at full width, bf16
     (``engine_spec``: K4 at the 256 bucket in both models' admissions),
     then both quantized in place (``quantize_params_int8``) with the int8
     KV cache (``engine_spec_int8``: K4, and K10 in the draft's steps):
@@ -7552,10 +7616,9 @@ def engine_spec(records, card):
 
     t0 = time.perf_counter()
     traffic = spec_traffic()
-    refusal = spec_refusal()
     spec_check_fp32(traffic)
     t_init = time.perf_counter()
-    target, tcfg, draft, dcfg = spec_models(torch.bfloat16)
+    target, tcfg, draft, dcfg = spec_models(torch.bfloat16, SPEC_LAYERS)
     init_s = time.perf_counter() - t_init
     bf16 = spec_record(ENGINE_SPEC, target, tcfg, draft, dcfg, traffic, records, card)
     quantize_params_int8(target)
@@ -7563,7 +7626,7 @@ def engine_spec(records, card):
     torch.cuda.empty_cache()
     int8 = spec_record(ENGINE_SPEC_INT8, target, dict(tcfg, kv_quant="int8"), draft, dict(dcfg, kv_quant="int8"),
                        traffic, records, card)
-    emit({"phase": "engine_spec_summary", "card": card, "refusal": refusal, "init_s": init_s,
+    emit({"phase": "engine_spec_summary", "card": card, "layers": list(SPEC_LAYERS), "init_s": init_s,
           "weights_gb": [weight_gb(target), weight_gb(draft)],
           "useful_tok_s": {"bf16": bf16["useful_tok_s"], "bf16_plain": bf16["plain_useful_tok_s"],
                            "int8": int8["useful_tok_s"], "int8_plain": int8["plain_useful_tok_s"]},
@@ -7571,6 +7634,395 @@ def engine_spec(records, card):
           "seconds": time.perf_counter() - t0})
     del target, draft
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------- speculative serving over hybrid caches
+
+
+# scripts/bench_spec_serving_flagship.py's workload: 32 greedy requests, 32-token prompts of ids in [1, 1000),
+# budgets U[16, 64], seed 0; 16 slots, chunk 8, γ 4 (SPEC_GAMMA), 160 columns, the 32-token bucket
+HSPEC_REQUESTS, HSPEC_PROMPT, HSPEC_SLOTS, HSPEC_CHUNK, HSPEC_MAX_LEN = 32, 32, 16, 8, 160
+HSPEC_BUCKETS = (32,)
+HSPEC_FP32_REQUESTS = 8
+HSPEC_FP32_LAYERS = {"qwen3_5": 4, "qwen3_next": 2}  # Qwen3.5: 3 GDN + 1 attention; Qwen3-Next: 2 GDN
+HSPEC_NEXT_LAYERS, HSPEC_NEXT_REQUESTS = 8, 16
+HSPEC_GENERATE = 64  # speculative_generate's max_gen (b 1)
+# the flagship's small draft (bench_spec_serving_flagship.py:70-73): 4 layers (3 GDN), d 512, 4/2 heads of
+# 128, GDN 8/8 heads of 64
+HSPEC_SMALL_DRAFT = dict(n_layers=4, emb_dim=512, hidden_dim=1536, n_heads=4, num_kv_groups=2, head_dim=128,
+                         linear_num_qk_heads=8, linear_num_value_heads=8, linear_qk_head_dim=64,
+                         linear_value_head_dim=64)
+# after a fp32 serve each row's GDN states and conv taps against a fp32 prefill of its committed tokens but
+# the last: max |Δ| within HSPEC_STATE_TOL × max(1, max |prefill|) (K1's scan over the whole sequence against
+# its re-advances window by window: fp32 sums in another order); the control that keeps every window token
+# must read beyond it
+HSPEC_STATE_TOL = 1e-4
+HSPEC_TIE_CONTROL = 256  # ``bf16_tie``'s random control tokens
+
+
+def hspec_traffic(n=HSPEC_REQUESTS):
+    """``bench_spec_serving_flagship``'s requests, drawn as it draws them:
+    [(ids, max_gen, {})]."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(1, 1000, size=HSPEC_PROMPT).tolist(), int(rng.integers(16, 65)))
+            for _ in range(HSPEC_REQUESTS)]
+    return [(list(map(int, ids)), gen, {}) for ids, gen in reqs[:n]]
+
+
+def hspec_engine(target, cfg, draft=None, draft_cfg=None, **kw):
+    """The flagship's engine over ``target`` (speculative with ``draft``)."""
+    from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    spec = {} if draft is None else dict(draft_model=entry_of(draft), draft_params=draft, draft_cfg=draft_cfg,
+                                         gamma=SPEC_GAMMA)
+    shape = dict(n_slots=HSPEC_SLOTS, max_len=HSPEC_MAX_LEN, decode_chunk=HSPEC_CHUNK, prefill_buckets=HSPEC_BUCKETS)
+    return ContinuousBatchingEngine(entry_of(target), target, cfg, eos_ids=-1, pad_id=0, **{**shape, **spec, **kw})
+
+
+def hybrid_model(family, n_layers, dtype, **widths):
+    """Qwen3.5-0.8B's text model or Qwen3-Next-small at ``n_layers``, seeded random weights: (model, cfg)."""
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+    from llm_quest_tpu_torch.models import qwen3_next
+
+    if family == "qwen3_5":
+        cfg = dict(QWEN3_5_08B_CONFIG, n_layers=n_layers, dtype=dtype, **widths)
+        return text_model(cfg), cfg
+    cfg = dict(next_serve_cfg(n_layers, dtype), **widths)
+    return init_model(qwen3_next, cfg), cfg
+
+
+@contextlib.contextmanager
+def windows_keep_all():
+    """The control: every window keeps all γ + 1 tokens it fed in the GDN
+    states and taps (JAX's windows), whatever the counts."""
+    import torch
+
+    from llm_quest_tpu_torch.ops import gdn as gdn_ops
+
+    real = gdn_ops.roll_window
+
+    def keep_all(cfg, cache, counts, before=None):
+        return real(cfg, cache, torch.full_like(counts, SPEC_GAMMA + 1), before)
+
+    gdn_ops.roll_window = keep_all
+    try:
+        yield
+    finally:
+        gdn_ops.roll_window = real
+
+
+def states_vs_prefill(pool, model, cfg, seqs):
+    """max |Δ| over the GDN state and tap leaves of ``pool``'s first
+    len(seqs) rows against one right-padded fp32 prefill of ``seqs``
+    through ``model``, over max(1, max |prefill|) (the reading against
+    HSPEC_STATE_TOL)."""
+    import torch
+
+    from llm_quest_tpu_torch.ops import gdn as gdn_ops
+
+    entry = entry_of(model)
+    width = max(map(len, seqs))
+    ids = torch.zeros(len(seqs), width, dtype=torch.long, device=DEVICE)
+    mask = torch.zeros(len(seqs), width, dtype=torch.bool, device=DEVICE)
+    for j, seq in enumerate(seqs):
+        ids[j, : len(seq)] = torch.tensor(seq, device=DEVICE)
+        mask[j, : len(seq)] = True
+    with torch.inference_mode():
+        cache = entry.init_cache(cfg, len(seqs), width, device=DEVICE)
+        _, cache, _ = entry.apply(model, cfg, ids, attn_mask=mask, cache=cache)
+    reading = 0.0
+    for name in gdn_ops.state_leaves(cache):
+        err, scale = max_err(pool[name][:, : len(seqs)], cache[name])
+        reading = max(reading, err / max(1.0, scale))
+    return reading
+
+
+def hspec_check_fp32(family):
+    """``engine_spec_hybrid_fp32``: the family's full widths at
+    HSPEC_FP32_LAYERS, fp32, the model as its own draft on the flagship's
+    first 8 requests: tokens equal to the plain engine's (a near-tie within
+    SPEC_TIE_BAR excepted), every window γ + 1 where no budget cuts it (row
+    windows Σ ⌈budget / (γ + 1)⌉), both pools' states and taps a prefill
+    of each row's committed tokens but the last (HSPEC_STATE_TOL), and the
+    control that keeps every window token beyond that bar."""
+    import torch
+
+    t0 = time.perf_counter()
+    model, cfg = hybrid_model(family, HSPEC_FP32_LAYERS[family], torch.float32)
+    traffic = hspec_traffic(HSPEC_FP32_REQUESTS)
+    reset_launches()
+    plain, _, _ = drive(hspec_engine(model, cfg), traffic)
+    eng = hspec_engine(model, cfg, model, cfg)
+    spec, spec_s, _ = drive(eng, traffic)
+    ties = [t for (ids, _, _), a, b in zip(traffic, spec, plain)
+            if (t := near_tie(model, cfg, ids, a, b, f"engine_spec_hybrid_fp32_{family}", mod=entry_of(model),
+                              phase_name="engine_spec_hybrid_near_tie")) is not None]
+    windows = sum(-(-gen // (SPEC_GAMMA + 1)) for _, gen, _ in traffic)
+    stats = eng.stats()
+    if stats["row_windows"] != windows:
+        raise AssertionError(f"engine_spec_hybrid_fp32 {family}: the self-draft took {stats['row_windows']} "
+                             f"row-windows, not {windows} (γ + 1 committed a window)")
+    seqs = [ids + toks[:-1] for (ids, _, _), toks in zip(traffic, spec)]
+    state = {pool: states_vs_prefill(eng.state[pool], model, cfg, seqs) for pool in ("cache", "d_cache")}
+    if not max(state.values()) <= HSPEC_STATE_TOL:
+        raise AssertionError(f"engine_spec_hybrid_fp32 {family}: states against the prefill {state}")
+    with windows_keep_all():
+        ctrl_eng = hspec_engine(model, cfg, model, cfg)
+        ctrl, _, _ = drive(ctrl_eng, traffic)
+    ctrl_seqs = [ids + toks[:-1] for (ids, _, _), toks in zip(traffic, ctrl)]
+    control = {pool: states_vs_prefill(ctrl_eng.state[pool], model, cfg, ctrl_seqs) for pool in ("cache", "d_cache")}
+    if not min(control.values()) > HSPEC_STATE_TOL:
+        raise AssertionError(f"engine_spec_hybrid_fp32 {family}: the keep-all control reads {control}")
+    check_routes(f"engine_spec_hybrid_fp32_{family}", bf16=False)
+    emit({"phase": "engine_spec_hybrid_fp32", "family": family, "layers": cfg["n_layers"],
+          "requests": len(traffic), "requests_equal": len(traffic) - len(ties), "near_ties": ties,
+          "row_windows": stats["row_windows"], "expected_row_windows": windows,
+          "tokens_per_row_window": stats["tokens_per_row_window"], "state_vs_prefill": state,
+          "keep_all_control": control, "bar": HSPEC_STATE_TOL, "spec_s": spec_s,
+          "seconds": time.perf_counter() - t0})
+    del model, eng, ctrl_eng
+    torch.cuda.empty_cache()
+
+
+def bf16_tie(model, cfg, twin, ids, got, ref, label):
+    """The bf16 near-tie rule of the flagship serves: where the token lists
+    ``got`` and ``ref`` of the prompt ``ids`` first differ, both tokens'
+    logits lie within twice the bf16 forward's own error of the fp32
+    forward's largest (any bf16 argmax lies that close to the fp32 one). The
+    error is max |bf16 − fp32| over that row's logits, one uncached forward
+    each through ``model`` and its fp32 ``twin``; most of HSPEC_TIE_CONTROL
+    seeded random tokens there must lie beyond the bar (random weights give
+    flat logits, so the bar is wide). Returns the reading (None where equal)."""
+    import torch
+
+    if got == ref:
+        return None
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} tokens against {len(ref)}")
+    j = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+    mod = entry_of(model)
+    seq = ids + ref[:j]
+    l16 = uncached_logits(model, cfg, seq, mod)[-1]
+    l32 = uncached_logits(twin, dict(cfg, dtype=torch.float32), seq, mod)[-1]
+    noise, top = float((l16 - l32).abs().max()), float(l32.max())
+    rand = torch.randint(0, l32.numel(), (HSPEC_TIE_CONTROL,), generator=torch.Generator().manual_seed(SEED + j))
+    reading = {"position": j, "tokens": [got[j], ref[j]], "gap": max(top - float(l32[t]) for t in (got[j], ref[j])),
+               "bar": 2 * noise, "bf16_error": noise,
+               "control_beyond_bar_share": float((top - l32[rand.to(l32.device)] > 2 * noise).float().mean())}
+    if not reading["gap"] <= reading["bar"]:
+        raise AssertionError(f"{label}: tokens differ at {j} where the logits are no near-tie: {reading}")
+    if not reading["control_beyond_bar_share"] > 0.5:
+        raise AssertionError(f"{label}: random tokens read within the near-tie bar: {reading}")
+    emit({"phase": "engine_spec_hybrid_near_tie", "label": label, **reading})
+    return reading
+
+
+def fp32_twin(model):
+    """An fp32 copy of ``model`` (``bf16_tie``'s reference), on the card."""
+    import copy
+
+    return copy.deepcopy(model).float()
+
+
+def prefix_agreement(a_lists, b_lists):
+    """The flagship script's agreement: tokens before each pair's first
+    difference over the longer list's length, summed over the requests."""
+    matched = total = 0
+    for a, b in zip(a_lists, b_lists):
+        total += max(len(a), len(b))
+        for x, y in zip(a, b):
+            if x != y:
+                break
+            matched += 1
+    return matched / max(total, 1)
+
+
+def rollback_cost(target, tcfg, draft, dcfg, traffic):
+    """One window's rollback at the serve's shapes: a window over the first
+    wave with ``roll_window``'s calls captured, then those calls (both
+    pools) and the draft's state copy replayed: their CUDA-event ms and
+    device ms (profiler), and the K1 launches a window they make."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import gdn
+    from llm_quest_tpu_torch.ops import gdn as gdn_ops
+
+    eng = hspec_engine(target, tcfg, draft, dcfg, decode_chunk=1)
+    for ids, gen, _ in traffic[:HSPEC_SLOTS]:
+        eng.submit(ids, gen)
+    grabbed, real = [], gdn_ops.roll_window
+
+    def grab(cfg, cache, counts, before=None):
+        leaves = {n: cache[n] for n in gdn_ops.state_leaves(cache)}
+        grabbed.append((cfg, leaves, dict(cache[gdn_ops.WINDOW]), counts.clone(), before))
+        return real(cfg, cache, counts, before)
+
+    toks = torch.zeros(1, HSPEC_SLOTS, SPEC_GAMMA + 1, dtype=torch.long, device=DEVICE)
+    counts = torch.zeros(1, HSPEC_SLOTS, dtype=torch.long, device=DEVICE)
+    with torch.inference_mode():
+        eng._admit_pending()
+        gdn_ops.roll_window = grab
+        try:
+            eng._window(0, eng.eos_arr, toks, counts)
+        finally:
+            gdn_ops.roll_window = real
+        d_cache = eng.state["d_cache"]
+
+        def rollback():
+            if gdn_ops.has_gdn_state(d_cache):  # the draft's state kept before the window
+                _ = [d_cache[n].clone() for n in gdn_ops.state_leaves(d_cache)]
+            for cfg, leaves, window, n, before in grabbed:
+                real(cfg, {**leaves, gdn_ops.WINDOW: dict(window)}, n, before)
+
+        k1 = gdn.gated_delta_rule_fwd.launches
+        rollback()
+        torch_sync()
+        out = {"k1_launches": gdn.gated_delta_rule_fwd.launches - k1, "ms": cuda_ms(rollback, iters=10),
+               "device_ms": device_ms(rollback, "", iters=5)}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def hspec_record(path, target, tcfg, draft, dcfg, traffic, records, card, plain, twin=None):
+    """One flagship serve: the rollback's cost first (``rollback_cost``),
+    then the serve with the counts reset (each request its budget, every
+    token in the vocabulary, greedy tokens against ``plain``'s by
+    ``bf16_tie`` with the target's fp32 ``twin``: the verify runs K1's
+    chunked bf16 form, the plain engine K2's steps), a profiled window.
+    Without ``draft`` the plain engine itself (a profiled step). Returns the
+    record, the tokens and the useful tok/s."""
+    import torch
+
+    t0 = time.perf_counter()
+    rollback = None if draft is None else rollback_cost(target, tcfg, draft, dcfg, traffic)
+    torch.cuda.reset_peak_memory_stats()
+    engine = hspec_engine(target, tcfg, draft, dcfg)
+    reset_launches()
+    served, seconds, _ = drive(engine, traffic)
+    launches = read_launches(path, records) if path else None
+    k1_tc = wrapper(("gdn", "gated_delta_rule_fwd")).tc_launches  # the serve's (read_launches checked all are)
+    vocab = tcfg["vocab_size"]
+    for (_, gen, _), got in zip(traffic, served):
+        if len(got) != gen or not all(0 <= t < vocab for t in got):
+            raise AssertionError(f"{path}: a request got {len(got)} tokens for a budget of {gen}, or a token "
+                                 f"outside the vocabulary")
+    ties = []
+    if plain is not None:
+        ties = [t for (ids, _, _), a, b in zip(traffic, served, plain[0])
+                if (t := bf16_tie(target, tcfg, twin, ids, a, b, path)) is not None]
+    spec = {} if draft is None else dict(draft_model=entry_of(draft), draft_params=draft, draft_cfg=dcfg,
+                                         gamma=SPEC_GAMMA)
+    profile = engine_chunk_profile(target, tcfg, "uniform", traffic, 1, n_slots=HSPEC_SLOTS, max_len=HSPEC_MAX_LEN,
+                                   prefill_buckets=HSPEC_BUCKETS, **spec)
+    stats = engine.stats()
+    useful = sum(map(len, served)) / seconds
+    rec = {"phase": path or "engine_spec_hybrid_plain", "card": card, "dtype": str(tcfg["dtype"]),
+           "layers": tcfg["n_layers"], "requests": len(traffic), "n_slots": HSPEC_SLOTS, "gamma": SPEC_GAMMA,
+           "useful_tok_s": useful, "serve_s": seconds, "stats": stats, "launches": launches,
+           "k1_tc_launches": k1_tc, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "device_ms_per_window" if draft is not None else "device_ms_per_step": profile["device_ms_per_step"],
+           "kernels_per_window" if draft is not None else "kernels_per_step": profile["kernels_per_step"],
+           "busy_share": profile["busy_share"], "profiled_wall_ms": profile["chunk_wall_ms"]}
+    if draft is not None:
+        dev = profile["device_ms_per_step"]
+        rec.update(tokens_per_row_window=stats["tokens_per_row_window"], windows=stats["windows"],
+                   row_windows=stats["row_windows"], window_wall_ms=seconds / stats["windows"] * 1e3,
+                   useful_over_plain=useful / plain[1], prefix_agreement_with_plain=prefix_agreement(served, plain[0]),
+                   requests_equal_to_plain=sum(a == b for a, b in zip(served, plain[0])), near_ties=ties,
+                   rollback=rollback, rollback_share_of_window_device_ms=(
+                       None if dev is None or rollback["device_ms"] is None else rollback["device_ms"] / dev))
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec, served, useful
+
+
+def engine_spec_hybrid(records, card):
+    """Speculative serving over hybrid caches: the fp32 checks (Qwen3.5 and
+    Qwen3-Next, ``hspec_check_fp32``); the flagship workload
+    (``bench_spec_serving_flagship.py``) on Qwen3.5-0.8B text at full width
+    and depth, bf16: the plain engine, the model as its own draft
+    (``engine_spec_hybrid``) and the flagship's small draft
+    (``engine_spec_hybrid_small``), each ``hspec_record``; Qwen3-Next-small
+    (8 layers, bf16) as its own draft on 16 of the requests
+    (``engine_spec_next``); ``speculative_generate`` of Qwen3.5-0.8B with
+    itself as the draft, b 1, HSPEC_GENERATE tokens, against ``generate``'s
+    (``speculative_generate_hybrid``, near-tie gate); and the standalone
+    script ``scripts/spec_decoding_generate.py`` at γ 4 and max_gen 50."""
+    import torch
+
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+    from llm_quest_tpu_torch.inference.spec_decoding import speculative_generate
+    from llm_quest_tpu_torch.scripts import spec_decoding_generate
+
+    t0 = time.perf_counter()
+    for family in HSPEC_FP32_LAYERS:
+        hspec_check_fp32(family)
+    traffic = hspec_traffic()
+    target, tcfg = hybrid_model("qwen3_5", QWEN3_5_08B_CONFIG["n_layers"], torch.bfloat16)
+    small = qwen3_5_small_draft()
+    twin = fp32_twin(target)
+    plain_rec, plain_toks, plain_rate = hspec_record(None, target, tcfg, None, None, traffic, records, card, None)
+    plain = (plain_toks, plain_rate)
+    selfd = hspec_record(ENGINE_SPEC_HYBRID, target, tcfg, target, tcfg, traffic, records, card, plain, twin)[0]
+    smalld = hspec_record(ENGINE_SPEC_HYBRID_SMALL, target, tcfg, *small, traffic, records, card, plain, twin)[0]
+    # speculative_generate, b 1, the model as its own draft
+    ids = traffic[0][0]
+    ref = generate(entry_of(target), target, tcfg, torch.tensor([ids], device=DEVICE), HSPEC_GENERATE)
+    ref = ref[0, len(ids):].tolist()
+    reset_launches()
+    t1 = time.perf_counter()
+    out = speculative_generate(entry_of(target), target, tcfg, entry_of(target), target, tcfg, [ids],
+                               max_gen=HSPEC_GENERATE, draft_max_gen=SPEC_GAMMA)
+    single = out["sequences"][0, len(ids):].tolist()
+    single_s = time.perf_counter() - t1
+    gen_launches = read_launches(SPEC_GENERATE_HYBRID, records)
+    tie = bf16_tie(target, tcfg, twin, ids, single, ref, SPEC_GENERATE_HYBRID)
+    del target, small, twin
+    torch.cuda.empty_cache()
+    # Qwen3-Next-small as its own draft
+    nxt, ncfg = hybrid_model("qwen3_next", HSPEC_NEXT_LAYERS, torch.bfloat16)
+    ntraffic = traffic[:HSPEC_NEXT_REQUESTS]
+    nplain, nplain_s, _ = drive(hspec_engine(nxt, ncfg), ntraffic)
+    next_rec = hspec_record(ENGINE_SPEC_NEXT, nxt, ncfg, nxt, ncfg, ntraffic, records, card,
+                            (nplain, sum(map(len, nplain)) / nplain_s), fp32_twin(nxt))[0]
+    del nxt
+    torch.cuda.empty_cache()
+    # the standalone script (GPT-2 355M target, 124M draft; KV caches, no hand kernel on its path)
+    t2 = time.perf_counter()
+    script = spec_decoding_generate.main(gammas=(SPEC_GAMMA,), max_gens=(50,))[50]
+    script_s = time.perf_counter() - t2
+    row = script["gammas"][SPEC_GAMMA]
+    emit({"phase": "engine_spec_hybrid", "card": card,
+          "useful_tok_s": {"plain": plain_rate, "self_draft": selfd["useful_tok_s"],
+                           "small_draft": smalld["useful_tok_s"], "next_self_draft": next_rec["useful_tok_s"]},
+          "tokens_per_row_window": {"self_draft": selfd["tokens_per_row_window"],
+                                    "small_draft": smalld["tokens_per_row_window"],
+                                    "next_self_draft": next_rec["tokens_per_row_window"]},
+          "rollback_ms": {"self_draft": selfd["rollback"], "small_draft": smalld["rollback"]},
+          "self_draft_prefix_agreement": selfd["prefix_agreement_with_plain"],
+          "speculative_generate": {"tokens": len(single), "windows": int(out["num_steps"]), "seconds": single_s,
+                                   "tok_s": len(single) / single_s, "equal_to_generate": tie is None,
+                                   "near_tie": tie, "launches": gen_launches},
+          "spec_decoding_generate": {"plain_tok_s": script["plain_tok_s"], "tok_s": row["tok_s"],
+                                     "speedup": row["speedup"], "steps": row["steps"],
+                                     "equal_to_plain": row["equal_to_plain"], "seconds": script_s},
+          "plain_device_ms_per_step": plain_rec["device_ms_per_step"], "seconds": time.perf_counter() - t0})
+
+
+def qwen3_5_small_draft():
+    """The flagship's small draft: Qwen3.5-0.8B's config at HSPEC_SMALL_DRAFT's
+    widths, bf16, seeded from the next seed: (model, cfg)."""
+    import torch
+
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+    from llm_quest_tpu_torch.models import qwen3_5
+
+    cfg = dict(QWEN3_5_08B_CONFIG, dtype=torch.bfloat16, **HSPEC_SMALL_DRAFT)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    return qwen3_5.init_text(cfg, generator=gen, device=DEVICE), cfg
 
 
 PROFILE_GROUPS = {  # kernel group: a substring of its kernels' names
@@ -7831,6 +8283,7 @@ def main(argv):
     phase(engine_moe_paths, records, smi)
     phase(engine_multi_lora, records, smi)
     phase(engine_spec, records, smi)
+    phase(engine_spec_hybrid, records, smi)
     phase(engine_llama, records, smi)
 
     emit({"phase": "device_timing", **PROFILER})

@@ -1,7 +1,8 @@
 """Model configurations (counterpart of ``llm_quest_tpu/config.py``).
 
 Plain dicts with the reference's keys; dtypes are torch dtypes. Only the
-configurations of the ported slices are here: GPT-2 124M and small,
+configurations of the ported slices are here: GPT-2 124M and small (and
+the family's sizes, ``gpt2_config_creator``),
 Llama-3.2-1B and small, Qwen3.5-0.8B, the Qwen3 entries (dense and MoE),
 Qwen3-Next-small, Gemma-3-small, DeepSeek-V3 small, MiMo-V2-Flash small and
 the two ViTs.
@@ -270,6 +271,19 @@ TINY_VIT_CONFIG = {
     "qkv_bias": True,
     "num_classes": 10,
 }
+
+
+def gpt2_config_creator(gpt_size):
+    """GPT-2 family configs with the JAX package's values (``GPT_CONFIG_124M``
+    at another size); gpt_size: "gpt_s" (124M) | "gpt_m" (355M) | "gpt_l"
+    (774M) | "gpt_xl" (1558M)."""
+    model_configs = {
+        "gpt_s": {"emb_dim": 768, "n_layers": 12, "n_heads": 12, "qkv_bias": True},
+        "gpt_m": {"emb_dim": 1024, "n_layers": 24, "n_heads": 16, "qkv_bias": True},
+        "gpt_l": {"emb_dim": 1280, "n_layers": 36, "n_heads": 20, "qkv_bias": True},
+        "gpt_xl": {"emb_dim": 1600, "n_layers": 48, "n_heads": 25, "qkv_bias": True},
+    }
+    return {**GPT_CONFIG_124M, **model_configs[gpt_size]}
 
 
 def qwen3_config_creator(model_size="0.6B", base_model=True):

@@ -61,8 +61,15 @@ refilled while the others keep decoding (iteration-level scheduling).
   of both models, a resample from norm(max(0, p − q)) or the bonus at row
   position n; with per-request sampling greedy rows match exactly); n + 1
   candidates cut at an EOS and at the row's budget, none for a finished
-  row; the mask rewound to the committed columns. Greedy tokens equal the
-  plain engine's. The chunk's tokens (n_slots, chunk·(γ+1)), counts
+  row; the mask rewound to the committed columns. A hybrid target or draft
+  (Qwen3.5, Qwen3-Next) has its GDN states and conv taps rolled back to
+  each row's committed tokens once these final counts are known
+  (``spec_decoding.py``'s docstring), and every admission leaves them
+  without the prompt's last real token, which the first window re-feeds:
+  the wave prefills with that column out of the GDN layers' state mask
+  (``ops/gdn.py::STATE_MASK``; the attention layers see it, and the window
+  rewrites its K/V). A speculative engine reads no admission logits. Greedy
+  tokens equal the plain engine's. The chunk's tokens (n_slots, chunk·(γ+1)), counts
   (n_slots, chunk) and finished column reach the host in one copy. The
   target verifies through each slot's adapter; the draft is the base model.
 - **Retire/refill** on the host: read a chunk, credit its tokens to the
@@ -136,11 +143,10 @@ Divergences by design from the JAX engine:
   host work, and it refills freed slots a chunk later: on an H100 depth 2
   served no faster than depth 1 (``chip_smoke.py``, engine_serve_uniform).
 
-- the speculative engine refuses a target or draft whose cache holds
-  recurrent state (``inference/spec_decoding.py::check_kv_only``): JAX's
-  windows re-feed the last committed token and leave rejected drafts in the
-  cache, which advances a GDN state and its conv taps (JAX's engine gives
-  such targets wrong tokens);
+- a speculative window rolls a hybrid model's GDN states and conv taps
+  back to each row's committed tokens, and an admission leaves out the
+  token the first window re-feeds (JAX keeps every token its windows feed,
+  so its engine gives such models other tokens than plain decoding);
 - a speculative window writes the γ + 1 columns [col − 1, col + γ) of every
   row, finished ones included, and RoPE positions up to seqpos − 1 + γ, so
   ``submit`` refuses a request unless prefix + bucket + max_gen + γ ≤
@@ -168,9 +174,8 @@ import torch
 
 from llm_quest_tpu_torch.config import resolve_device
 from llm_quest_tpu_torch.inference.generate import _is_eos, _normalize_eos
-from llm_quest_tpu_torch.inference.spec_decoding import (
-    accept_greedy, accept_window, check_kv_only, draft_and_verify, modified_probs,
-)
+from llm_quest_tpu_torch.inference.spec_decoding import accept_greedy, accept_window, draft_and_verify, modified_probs
+from llm_quest_tpu_torch.ops import gdn as gdn_ops
 from llm_quest_tpu_torch.ops.lora import num_adapters, select_adapter
 from llm_quest_tpu_torch.ops.sampling import draw, filter_probs_per_row, sampling, sampling_per_row
 
@@ -254,7 +259,7 @@ class ContinuousBatchingEngine:
         return_logprobs: keep the raw-model logprob of each committed token.
         draft_model / draft_params / draft_cfg: a draft model (its weights
             on ``device``) to serve speculatively, ``gamma`` drafts a window
-            (module docstring); target and draft need KV-only caches.
+            (module docstring); either may hold recurrent state.
         device: where the pool lives (None: the current CUDA device; raises
             without one).
     """
@@ -313,8 +318,6 @@ class ContinuousBatchingEngine:
         self.gamma = gamma
 
         cache = model.init_cache(cfg, n_slots, max_len, dtype=cache_dtype, device=self.device)
-        if self._spec:
-            check_kv_only(cache, "target")
         cache["pos"] = torch.zeros(n_slots, dtype=torch.long, device=self.device)  # per-row column pointer
         self.state = {
             "cache": cache,
@@ -330,7 +333,6 @@ class ContinuousBatchingEngine:
             self.state["adapter"] = torch.full((n_slots,), self._lora_n - 1, dtype=torch.long, device=self.device)
         if self._spec:  # the draft's pool cache (the target's slots and columns) and each row's last token
             d_cache = draft_model.init_cache(draft_cfg, n_slots, max_len, dtype=cache_dtype, device=self.device)
-            check_kv_only(d_cache, "draft")
             d_cache["pos"] = torch.zeros(n_slots, dtype=torch.long, device=self.device)
             self.state["d_cache"] = d_cache
             self.state["last_tok"] = torch.zeros(n_slots, dtype=torch.long, device=self.device)
@@ -407,7 +409,10 @@ class ContinuousBatchingEngine:
         whose row seeds every group row, the wave holding the suffixes;
         ``pixels`` (k, ...) with ``position_ids`` (3, k, lb) and ``next_pos``
         (k,): a multimodal wave and its 3-D MRoPE positions. A speculative
-        engine prefills the draft's group cache through the same calls."""
+        engine prefills the draft's group cache through the same calls,
+        and a hybrid model's GDN state and taps there without each row's
+        last real token (module docstring): the logits at that token are
+        not read."""
         st = self.state
         k, lb = prompts.shape
         plen = 0 if prefix is None else prefix[1]
@@ -426,6 +431,8 @@ class ContinuousBatchingEngine:
         def prefill(model, params, cfg, stored):
             grp_cache = (model.init_cache(cfg, k, self.max_len, dtype=self.cache_dtype, device=self.device)
                          if stored is None else _repeat_row(stored, k))
+            if self._spec and gdn_ops.has_gdn_state(grp_cache):  # the first window re-feeds the last token
+                grp_cache[gdn_ops.STATE_MASK] = grp_mask & (self._cols != (plen + real_len - 1)[:, None])
             logits = None
             for c0 in range(0, lb, step):
                 # text positions are passed, not left to the model: the VLM's
@@ -445,6 +452,7 @@ class ContinuousBatchingEngine:
             # the column pointer of a row is its REAL length: decode overwrites
             # the masked bucket-pad columns, so columns stay contiguous with tokens
             grp_cache["pos"] = plen + real_len
+            grp_cache.pop(gdn_ops.STATE_MASK, None)
             return logits, grp_cache
 
         if self._lora_n:
@@ -556,9 +564,9 @@ class ContinuousBatchingEngine:
             (self.model, self.params, self.cfg, st["cache"]),
             (self.draft_model, self.draft_params, self.draft_cfg, st["d_cache"]),
             st["last_tok"], colm1, g, propose=propose, accept=accept, eos=eos, junk=self.pad_id,
+            cap=lambda n: torch.where(finished, 0, torch.minimum(n, budget)),  # the counts a row keeps
             mask=st["mask_buf"] | win, pos0=(seqpos - 1).clamp_min(0),
         )
-        num_new = torch.where(finished, 0, torch.minimum(num_new, budget))
         budget = budget - num_new
         new_col = col + num_new
         cache["pos"] = new_col

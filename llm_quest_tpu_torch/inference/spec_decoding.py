@@ -12,19 +12,25 @@ Behaviour of the reference (speculative_decoding/spec_decoding_engine.py):
 
 Both models run cached with fixed (γ+1)-token windows, as in JAX: a window
 re-feeds the last committed token at column cur_len − 1, so a rejected
-draft needs no cache rollback (the next window overwrites its K/V, and
-columns past the committed length are causally masked). The acceptance
+draft needs no rollback of a KV cache (the next window overwrites its K/V,
+and columns past the committed length are causally masked). The acceptance
 length n is a cumulative product, and the γ+1 candidates [accepted…,
 correction | bonus, junk…] are written at once; cur_len advances by n + 1.
 
-That holds only for a KV cache, where rewriting a column is idempotent and a
-masked column is invisible. A recurrent cache (the GDN state and conv taps of
-Qwen3.5 and Qwen3-Next) advances with every token fed, the re-fed one and
-the rejected drafts included, and has no rollback to the accepted length:
-JAX's windows give such a target wrong tokens from the first one on. The
-port refuses a target or draft whose cache holds recurrent state
-(``check_kv_only``; ROADMAP.md, Queue 1, "speculative windows over
-recurrent caches").
+A recurrent cache (the GDN state and conv taps of Qwen3.5 and Qwen3-Next)
+advances with every token fed, the re-fed one and the rejected drafts
+included, so it is rolled back (``draft_and_verify``). The invariant: at the
+start of a window each row's state holds exactly the tokens before the one
+the window re-feeds. The draft's state, which its steps advance in place
+(K2), is copied before the window; the target's verify (one K1 call a GDN
+layer) leaves its state as it was. Both models record each GDN layer's
+window inputs in the cache (``ops/gdn.py::WINDOW``), and once the caller's
+final counts are known each pool is advanced from the state before the
+window over each row's first count tokens (the re-fed token and the
+accepted drafts; the correction or bonus is fed by the next window), the
+rest frozen as pads are (``ops/gdn.py::roll_window``: one K1 call a GDN
+layer). JAX's windows keep every token fed and give such models other
+tokens than plain decoding (ROADMAP.md, reference faults fixed by design).
 
 Divergence by design: the draft is also fed its last drafted token (output
 discarded), as JAX's serving engine does (``serving.py:861-870``) and JAX's
@@ -39,23 +45,8 @@ import torch
 
 from llm_quest_tpu_torch.config import resolve_device
 from llm_quest_tpu_torch.inference.generate import _is_eos
+from llm_quest_tpu_torch.ops import gdn as gdn_ops
 from llm_quest_tpu_torch.ops.sampling import draw, filter_probs
-
-RECURRENT_FAULT = (
-    "a speculative window re-feeds the last committed token and leaves rejected drafts in the cache, "
-    "and a recurrent cache (GDN state, conv taps) advances with every token fed and has no rollback to the "
-    "accepted length (JAX's engine gives such targets wrong tokens; ROADMAP.md, Queue 1: speculative windows "
-    "over recurrent caches)"
-)
-
-
-def check_kv_only(cache, who):
-    """Raise ``NotImplementedError`` when ``cache`` (a model's ``init_cache``)
-    holds recurrent state: a leaf named ``recurrent`` or ``conv*``."""
-    recurrent = [name for name in cache if name == "recurrent" or name.startswith("conv")]
-    if recurrent:
-        raise NotImplementedError(f"speculative decoding: the {who}'s cache holds recurrent state "
-                                  f"({', '.join(recurrent)}): {RECURRENT_FAULT}")
 
 
 def modified_probs(logits, *, top_k=None, top_p=None, temp=1.0):
@@ -121,7 +112,8 @@ def window_tokens(drafted, n, corr, eos, junk):
     return cand, torch.where(any_eos, is_eos.int().argmax(dim=1) + 1, n + 1), any_eos
 
 
-def draft_and_verify(target, draft, last_tok, colm1, gamma, *, propose, accept, eos, junk, mask=None, pos0=None):
+def draft_and_verify(target, draft, last_tok, colm1, gamma, *, propose, accept, eos, junk, cap=None, mask=None,
+                     pos0=None):
     """One draft-and-verify window (module docstring), the one both
     ``speculative_generate`` and the serving engine run. ``target`` and
     ``draft``: (model, params, cfg, cache) each; ``last_tok`` (b,): the
@@ -133,8 +125,10 @@ def draft_and_verify(target, draft, last_tok, colm1, gamma, *, propose, accept, 
     at ``colm1``, row i predicting the token after window[i]; then
     ``accept(t_logits (b, γ+1, v), drafted (b, γ), d_probs (b, γ, v) or
     None)`` → (n (b,), the token at row position n (b,)) and
-    ``window_tokens`` (``eos``, ``junk``). The caller caps the counts (the
-    budget) and advances its columns.
+    ``window_tokens`` (``eos``, ``junk``); ``cap(counts (b,))`` gives the
+    caller's final counts (its budget; None: the counts as they are). A
+    recurrent cache is rolled back to each row's final count (module
+    docstring). The caller advances its columns.
 
     ``mask`` (b, L): the keys valid for both forwards, and ``pos0`` (b,):
     ``last_tok``'s position, for a ragged pool (the serving engine); None
@@ -143,6 +137,13 @@ def draft_and_verify(target, draft, last_tok, colm1, gamma, *, propose, accept, 
     hit (b,), the target's cache, the draft's)."""
     t_model, t_params, t_cfg, t_cache = target
     d_model, d_params, d_cfg, d_cache = draft
+    # the draft's steps advance its state in place: kept for the rollback
+    before = None
+    if gdn_ops.has_gdn_state(d_cache):
+        before = {n: d_cache[n].clone() for n in gdn_ops.state_leaves(d_cache)}
+    for cache in (t_cache, d_cache):
+        if gdn_ops.has_gdn_state(cache):
+            cache[gdn_ops.WINDOW] = {}
     steps = torch.arange(gamma + 1, device=colm1.device)
     tok, drafted, d_probs = last_tok, [], []
     for t in range(gamma + 1):  # γ drafts, then the last one fed too (its output unused)
@@ -162,7 +163,14 @@ def draft_and_verify(target, draft, last_tok, colm1, gamma, *, propose, accept, 
         position_ids=None if pos0 is None else pos0[:, None] + steps[None],
     )
     n, corr = accept(t_logits, drafted, torch.stack(d_probs, dim=1) if d_probs else None)
-    return (*window_tokens(drafted, n, corr, eos, junk), t_cache, d_cache)
+    cand, counts, any_eos = window_tokens(drafted, n, corr, eos, junk)
+    if cap is not None:
+        counts = cap(counts)
+    if gdn_ops.WINDOW in t_cache:
+        gdn_ops.roll_window(t_cfg, t_cache, counts)
+    if gdn_ops.WINDOW in d_cache:
+        gdn_ops.roll_window(d_cfg, d_cache, counts, before)
+    return cand, counts, any_eos, t_cache, d_cache
 
 
 @torch.inference_mode()
@@ -203,9 +211,8 @@ def speculative_generate(
     buf[:, :prompt_len] = prompt
     t_cache = target_model.init_cache(target_cfg, 1, max_total, device=device)
     d_cache = draft_model.init_cache(draft_cfg, 1, max_total, device=device)
-    check_kv_only(t_cache, "target")
-    check_kv_only(d_cache, "draft")
-    # prefill both with prompt[:-1]: each window re-feeds the last committed token
+    # prefill both with prompt[:-1]: each window re-feeds the last committed token (a recurrent state must not
+    # hold it yet)
     if prompt_len > 1:
         _, t_cache, _ = target_model.apply(target_params, target_cfg, prompt[:, :-1], cache=t_cache)
         _, d_cache, _ = draft_model.apply(draft_params, draft_cfg, prompt[:, :-1], cache=d_cache)
@@ -233,8 +240,8 @@ def speculative_generate(
         colm1 = cur_len - 1  # the caches hold exactly the verified prefix [0, cur_len - 1)
         cand, num_new, any_eos, t_cache, d_cache = draft_and_verify(
             (target_model, target_params, target_cfg, t_cache), (draft_model, draft_params, draft_cfg, d_cache),
-            buf.gather(1, colm1[:, None])[:, 0], colm1, gamma, propose=propose, accept=accept, eos=eos, junk=0)
-        num_new = torch.minimum(num_new, end - cur_len)  # the max_gen cap
+            buf.gather(1, colm1[:, None])[:, 0], colm1, gamma, propose=propose, accept=accept, eos=eos, junk=0,
+            cap=lambda n, cur_len=cur_len: torch.minimum(n, end - cur_len))  # the max_gen cap
         finished = finished | any_eos
         buf.scatter_(1, cur_len[:, None] + idx[None], cand)
         cur_len = cur_len + num_new

@@ -227,8 +227,10 @@ def _fused_gdn_heads(cfg, q, k, v):
     return q, k, v
 
 
-def fused_gdn(params, cfg, x, attn_mask_cur, gdn_state):
-    """Full-sequence FusedGDN (prefill). Returns (out, new_state | None)."""
+def fused_gdn(params, cfg, x, attn_mask_cur, gdn_state, record=None):
+    """Full-sequence FusedGDN (prefill). Returns (out, new_state | None).
+    ``record`` (``ops/gdn.py::window_recorder``): the call's state inputs go
+    to it and no new state is made (a speculative window's verify)."""
     d_qk, d_vg, _ = _fused_dims(cfg)
     num_repeat = cfg["linear_num_value_heads"] // cfg["linear_num_qk_heads"]
     ksz = cfg["linear_conv_kernel_size"]
@@ -262,16 +264,20 @@ def fused_gdn(params, cfg, x, attn_mask_cur, gdn_state):
     ctx, final_state = gdn_ops.gated_delta_rule_dispatch(cfg, q, k, v, beta, alpha, prev)
 
     out = _gdn_output(params, cfg, x, ctx)
+    if record is not None:
+        record(k, v, beta, alpha, {"conv": fused_in})
+        return out, None
     new_state = None
     if gdn_state is not None:
         new_state = {"conv": gdn_ops.conv_state_from_prefill(conv_ext, ksz, mask=ext_mask), "recurrent": final_state}
     return out, new_state
 
 
-def fused_gdn_step(params, cfg, x, conv_state, rec_stacked, layer):
+def fused_gdn_step(params, cfg, x, conv_state, rec_stacked, layer, record=None):
     """Single-token FusedGDN decode step. x: (b, 1, d); ``conv_state`` is
     THIS layer's rolling taps, ``rec_stacked`` the (n_gdn, b, h, dv, dk)
-    stacked recurrent cache, updated in place at ``layer``.
+    stacked recurrent cache, updated in place at ``layer``; ``record``
+    (``ops/gdn.py::window_recorder``) also gets the step's state inputs.
     Returns (out, new_conv_state, rec_stacked)."""
     b = x.shape[0]
     d_qk, d_vg, _ = _fused_dims(cfg)
@@ -279,7 +285,8 @@ def fused_gdn_step(params, cfg, x, conv_state, rec_stacked, layer):
     nv, dv = cfg["linear_num_value_heads"], cfg["linear_value_head_dim"]
     x_t = x[:, 0, :]
 
-    fused_c, conv_state = gdn_ops.causal_conv1d_update(params.conv1d["w"], params.w_qkv(x_t), conv_state)
+    fused_in = params.w_qkv(x_t)
+    fused_c, conv_state = gdn_ops.causal_conv1d_update(params.conv1d["w"], fused_in, conv_state)
     q, k, v = torch.split(silu(fused_c), [d_qk, d_qk, d_vg], dim=-1)
     # q and k stay at their nqk heads: the step reads v head i's at i // (nv / nqk)
     q = gdn_ops.l2_norm_clamp(q.reshape(b, nqk, dqk))
@@ -289,6 +296,8 @@ def fused_gdn_step(params, cfg, x, conv_state, rec_stacked, layer):
     beta = torch.sigmoid(params.w_beta(x_t))
     alpha = gdn_ops.compute_alpha_factor(params.log_A, params.w_alpha(x_t[:, None, :]), params.dt_bias)[:, 0, :]
 
+    if record is not None:
+        record(k[:, :, None], v[:, :, None], beta[:, :, None], alpha[:, :, None], {"conv": fused_in[:, None]})
     ctx, rec_stacked = gdn_ops.gated_delta_rule_step_stacked_auto(cfg, q, k, v, beta, alpha, rec_stacked, layer)
     out = _gdn_output(params, cfg, x, ctx[:, :, None, :])
     return out, conv_state, rec_stacked
@@ -441,7 +450,7 @@ def apply_text(params, cfg, x=None, *, attn_mask=None, inputs_embs=None, positio
 
     k_len = kv_cache.max_len(cache) if cache is not None else s
     mask = causal_mask(s, k_len, q_start=pos0, attn_mask=attn_mask, device=device)
-    mask_cur = kv_cache.cur_token_mask(attn_mask, s, pos0)
+    mask_cur = kv_cache.cur_token_mask(gdn_ops.state_mask(cache, attn_mask), s, pos0)  # the GDN layers' tokens
     # static query offset for cached prefill (flash over the max_len view);
     # per-row positions have none, as in JAX
     q_start = int(pos0) if cache is not None and s > 1 and not per_row else None
@@ -453,19 +462,21 @@ def apply_text(params, cfg, x=None, *, attn_mask=None, inputs_embs=None, positio
         hn = zero_centered_rms_norm(h, block.norm1["scale"])
 
         if is_gdn_layer(cfg, i):
+            record = gdn_ops.window_recorder(cache, gdn_i)
             if cache is None:
                 att_out, _ = fused_gdn(block.att, cfg, hn, mask_cur, None)
             elif decode_step:
                 hn_m = hn if mask_cur is None else hn * mask_cur[..., None].to(hn.dtype)
                 att_out, new_conv, _ = fused_gdn_step(
-                    block.att, cfg, hn_m, cache["conv"][gdn_i], cache["recurrent"], gdn_i
+                    block.att, cfg, hn_m, cache["conv"][gdn_i], cache["recurrent"], gdn_i, record
                 )
                 cache["conv"][gdn_i] = new_conv
             else:
                 st = {"conv": cache["conv"][gdn_i], "recurrent": cache["recurrent"][gdn_i]}
-                att_out, st = fused_gdn(block.att, cfg, hn, mask_cur, st)
-                cache["conv"][gdn_i] = st["conv"]
-                cache["recurrent"][gdn_i] = st["recurrent"]
+                att_out, st = fused_gdn(block.att, cfg, hn, mask_cur, st, record)
+                if st is not None:  # a recorded window leaves the state to ``roll_window``
+                    cache["conv"][gdn_i] = st["conv"]
+                    cache["recurrent"][gdn_i] = st["recurrent"]
             gdn_i += 1
         else:
             kv_view = None

@@ -156,13 +156,15 @@ def _gdn_heads(cfg, q, k, v):
 _CONVS = ("conv_q", "conv_k", "conv_v")
 
 
-def gated_delta_net(params, cfg, x, attn_mask_cur, gdn_state):
+def gated_delta_net(params, cfg, x, attn_mask_cur, gdn_state, record=None):
     """GDN over a full sequence (training / prefill).
 
     attn_mask_cur: (b, s) bool for the current tokens, True = real, or None.
     gdn_state: None (from a zero state), or {"conv_q", "conv_k", "conv_v",
     "recurrent"}: the convs continue from the stored taps, the recurrence
-    from the stored state, and the new state is returned.
+    from the stored state, and the new state is returned. ``record``
+    (``ops/gdn.py::window_recorder``): the call's state inputs go to it and
+    no new state is made (a speculative window's verify).
     Returns (out, new_gdn_state | None)."""
     num_repeat = cfg["linear_num_value_heads"] // cfg["linear_num_qk_heads"]
     ksz = cfg["linear_conv_kernel_size"]
@@ -195,17 +197,21 @@ def gated_delta_net(params, cfg, x, attn_mask_cur, gdn_state):
     prev = gdn_state["recurrent"] if gdn_state is not None else None
     ctx, final_state = gdn_ops.gated_delta_rule_dispatch(cfg, q, k, v, beta, alpha, prev)
     out = _gdn_output(params, cfg, x, ctx)
-    if gdn_state is None:
+    if record is not None:
+        record(k, v, beta, alpha, ins)
+    if gdn_state is None or record is not None:
         return out, None
     new_state = {n: gdn_ops.conv_state_from_prefill(conv[n][1], ksz, mask=ext_mask) for n in _CONVS}
     return out, {**new_state, "recurrent": final_state}
 
 
-def gated_delta_net_step(params, cfg, x, conv_states, rec_stacked, layer):
+def gated_delta_net_step(params, cfg, x, conv_states, rec_stacked, layer, record=None):
     """Single-token GDN decode step. x: (b, 1, d); ``conv_states``: this
     layer's {"conv_q", "conv_k", "conv_v"} taps; ``rec_stacked``: the
     (n_gdn, b, h, dv, dk) stacked recurrent cache, updated in place at
-    ``layer`` (K2). Returns (out (b, 1, d), new conv dict, rec_stacked)."""
+    ``layer`` (K2); ``record`` (``ops/gdn.py::window_recorder``) also gets
+    the step's state inputs. Returns (out (b, 1, d), new conv dict,
+    rec_stacked)."""
     b = x.shape[0]
     nqk, dqk = cfg["linear_num_qk_heads"], cfg["linear_qk_head_dim"]
     nv, dv = cfg["linear_num_value_heads"], cfg["linear_value_head_dim"]
@@ -223,6 +229,9 @@ def gated_delta_net_step(params, cfg, x, conv_states, rec_stacked, layer):
 
     beta = torch.sigmoid(params.wb(x_t))
     alpha = gdn_ops.compute_alpha_factor(params.log_A, params.wa(x_t[:, None, :]), params.dt_bias)[:, 0, :]
+    if record is not None:
+        record(k[:, :, None], v[:, :, None], beta[:, :, None], alpha[:, :, None],
+               {n: t[:, None] for n, t in ins.items()})
     ctx, rec_stacked = gdn_ops.gated_delta_rule_step_stacked_auto(cfg, q, k, v, beta, alpha, rec_stacked, layer)
     return _gdn_output(params, cfg, x, ctx[:, :, None, :]), new_convs, rec_stacked
 
@@ -323,20 +332,22 @@ def init_cache(cfg, batch, max_len, *, dtype=None, device=None):
 
 def _gdn_block(block, cfg, hn, mask_cur, cache, gdn_i, decode_step):
     """A GDN layer's attention output; with a cache, its state is read and
-    written in place at ``gdn_i``."""
+    written in place at ``gdn_i`` (a recorded window's multi-token call
+    leaves it to ``ops/gdn.py::roll_window``)."""
     if cache is None:
         return gated_delta_net(block.att, cfg, hn, mask_cur, None)[0]
+    record = gdn_ops.window_recorder(cache, gdn_i)
     if decode_step:
         hn_m = hn if mask_cur is None else hn * mask_cur[..., None].to(hn.dtype)
         out, convs, _ = gated_delta_net_step(
-            block.att, cfg, hn_m, {n: cache[n][gdn_i] for n in _CONVS}, cache["recurrent"], gdn_i
+            block.att, cfg, hn_m, {n: cache[n][gdn_i] for n in _CONVS}, cache["recurrent"], gdn_i, record
         )
         for n in _CONVS:
             cache[n][gdn_i] = convs[n]
         return out
     state = {n: cache[n][gdn_i] for n in (*_CONVS, "recurrent")}
-    out, state = gated_delta_net(block.att, cfg, hn, mask_cur, state)
-    for n, t in state.items():
+    out, state = gated_delta_net(block.att, cfg, hn, mask_cur, state, record)
+    for n, t in (state or {}).items():
         cache[n][gdn_i] = t
     return out
 
@@ -362,7 +373,7 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
         position_ids = kv_cache.positions(pos0, b, s, device)
     k_len = kv_cache.max_len(cache) if cache is not None else s
     mask = causal_mask(s, k_len, q_start=pos0, attn_mask=attn_mask, device=device)
-    mask_cur = kv_cache.cur_token_mask(attn_mask, s, pos0)
+    mask_cur = kv_cache.cur_token_mask(gdn_ops.state_mask(cache, attn_mask), s, pos0)  # the GDN layers' tokens
     decode_step = cache is not None and s == 1
     plain = not cfg.get("use_kernels", True)
 

@@ -11,6 +11,15 @@
 - depthwise causal conv1d with a rolling (b, kernel_size-1, c) state, oldest
   tap first.
 
+Speculative windows over a hybrid cache (inference/spec_decoding.py): a
+model's GDN layers read two optional cache leaves. Under ``WINDOW`` each
+layer records the state inputs of every call (``window_recorder``), and a
+multi-token call leaves the layer's state and taps as they were;
+``roll_window`` then advances them from the state before the window over
+each row's committed tokens only. ``STATE_MASK`` narrows the mask of the
+tokens a call takes into the state (an admission leaves out the token the
+first window re-feeds).
+
 The chunked form and the step are the plain versions of the CUDA kernels
 (kernels/gdn.py); the ``*_auto`` / ``*_dispatch`` functions route to them:
 the prefill (K1), the stacked decode step (K2) and the single-layer decode
@@ -187,6 +196,75 @@ def conv_state_from_prefill(x, kernel_size, mask=None):
     if s < k1:
         tail = torch.cat([tail.new_zeros(b, k1 - s, c), tail], dim=1)
     return tail
+
+
+WINDOW = "gdn_window"  # cache leaf: {GDN layer: [(k, v, beta, alpha, {tap leaf: conv input}) a call]}
+STATE_MASK = "gdn_state_mask"  # cache leaf: (b, max_len) bool, the columns whose tokens enter the GDN state
+
+
+def has_gdn_state(cache):
+    """Whether ``cache`` (a model's ``init_cache``) holds GDN states and conv taps."""
+    return "recurrent" in cache
+
+
+def state_leaves(cache):
+    """The names of the leaves a window advances: the recurrent states and every conv-tap leaf."""
+    return [name for name in cache if name == "recurrent" or name.startswith("conv")]
+
+
+def state_mask(cache, attn_mask):
+    """The (b, ·) mask of the tokens the GDN layers take into their state:
+    the cache's ``STATE_MASK`` where it has one, else ``attn_mask``."""
+    return attn_mask if cache is None or STATE_MASK not in cache else cache[STATE_MASK]
+
+
+def window_recorder(cache, layer):
+    """The ``record`` callable of GDN layer ``layer`` while ``cache`` carries
+    a ``WINDOW`` leaf, else None: it keeps the call's state inputs, k (b,
+    h_qk, s, dk), v (b, h, s, dv), beta and alpha (b, h, s, after the pad
+    freeze) and each tap leaf's conv input (b, s, c), in call order."""
+    if cache is None or WINDOW not in cache:
+        return None
+
+    def record(k, v, beta, alpha, taps):
+        cache[WINDOW].setdefault(layer, []).append((k, v, beta, alpha, taps))
+
+    return record
+
+
+def roll_window(cfg, cache, counts, before=None):
+    """Advance every GDN layer of ``cache`` over each row's first
+    ``counts`` (b,) tokens of the window its ``WINDOW`` leaf recorded, from
+    the states and taps of ``before`` (a dict of those leaves; None: the
+    cache's own, which a multi-token call leaves untouched), in place; the
+    ``WINDOW`` leaf is removed. The tokens past a row's count are frozen as
+    pads are (``freeze_masked_updates``), and a row's taps are the k − 1
+    conv inputs ending at its last kept token, [old taps ‖ window inputs]
+    at [count, count + k − 1): one K1 call a layer (its output is not read,
+    and k stands in for q) and one gather a tap leaf."""
+    window = cache.pop(WINDOW)
+    src = cache if before is None else before
+    keep = tap_idx = None
+    for layer, calls in window.items():
+        k, v, beta, alpha = (_along_time([call[i] for call in calls], 2) for i in range(4))
+        if keep is None:
+            keep = torch.arange(k.shape[2], device=k.device)[None] < counts[:, None]
+        beta, alpha = freeze_masked_updates(beta, alpha, keep)
+        if k.shape[1] != v.shape[1]:
+            k = k.repeat_interleave(v.shape[1] // k.shape[1], dim=1)
+        _, state = gated_delta_rule_dispatch(cfg, k, k, v, beta, alpha, src["recurrent"][layer])
+        for name in calls[0][4]:
+            x = _along_time([call[4][name] for call in calls], 1)
+            taps = src[name][layer]
+            if tap_idx is None:
+                tap_idx = counts[:, None] + torch.arange(taps.shape[1], device=counts.device)
+            ext = torch.cat([taps.to(x.dtype), x], dim=1)
+            cache[name][layer] = ext.gather(1, tap_idx[:, :, None].expand(-1, -1, ext.shape[2]))
+        cache["recurrent"][layer] = state
+
+
+def _along_time(parts, dim):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
 def freeze_masked_updates(beta, alpha, mask):

@@ -23,8 +23,10 @@ K11 takes bf16 rows to its tensor-core kernel (``tc_launches``; the row
 tile and K split the wrapper plans, and every tiling forced) and fp32 rows
 to the SIMT one; its bf16 cases at Qwen3-Next-small's widths run twice and
 must be bit-equal.
-K2 (csrc/gdn.cu's step) at b 1 to 128, dk 64 and 128, q/k at v's head
-count or half of it, beta in either dtype and q/k/v as views of one fused
+K1 also at a speculative window's shapes (s 2, 5 and 9 from a carried
+state with a frozen tail, 16 heads of 128 and 8 of 64).
+K2 (csrc/gdn.cu's step) at b 1 to 128, dk 64 and 128 (and the small
+draft's 3 layers at b 16, 8 heads of 64), q/k at v's head count or half of it, beta in either dtype and q/k/v as views of one fused
 projection, against its plain version with every other layer bitwise
 untouched, and one kernel on the card a call (profiler).
 K10 takes bf16 q to its tensor-core kernel (``tc_launches``; every cluster
@@ -208,6 +210,51 @@ def test_gdn_tc_tiles_at_the_hybrid_shape(gen):
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     for g, r in zip(got[:5], ref):
         assert_tiles_close(g if g.dim() == 4 else g[..., None], r if r.dim() == 4 else r[..., None])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [2, 5, 9])
+@pytest.mark.parametrize("h, dk", [(16, 128), (8, 64)])
+def test_gdn_prefill_speculative_window(gen, dtype, s, h, dk):
+    """K1 as a speculative window over a hybrid pool runs it (the verify and
+    ``ops/gdn.py::roll_window``'s re-advance): b 16, s = γ + 1 and around
+    it, a carried state, each row's tail past a count in [0, s] frozen (β 0,
+    α 1); at the Qwen3.5-0.8B target's heads and the small draft's. Out and
+    state against the plain version, a row with count 0 keeping its state;
+    bf16 on the tensor cores."""
+    from llm_quest_tpu_torch.kernels import gdn
+    from llm_quest_tpu_torch.ops.gdn import freeze_masked_updates
+
+    b = 16
+    q, k, v, beta, alpha, s0 = gdn_inputs(gen, b, h, s, dtype, dk=dk, dv=dk)
+    counts = torch.randint(0, s + 1, (b,), generator=gen, device="cuda")
+    counts[0] = 0
+    beta, alpha = freeze_masked_updates(beta, alpha, torch.arange(s, device="cuda") < counts[:, None])
+    tc = gdn.gated_delta_rule_fwd.tc_launches
+    out, st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0)
+    assert gdn.gated_delta_rule_fwd.tc_launches == tc + (dtype == torch.bfloat16)
+    ref_out, ref_st = gdn.gated_delta_rule_fwd(q, k, v, beta, alpha, s0, plain=True)
+    assert_close(out, ref_out, dtype)
+    assert_close(st, ref_st, dtype)
+    assert_close(st[0], s0[0], dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gdn_step_at_the_small_draft(gen, dtype):
+    """K2 at the flagship's small draft's steps: 3 GDN layers, b 16, 8/8
+    heads of 64, bf16 beta: out and the layer's state against the plain
+    version, the other layers bitwise untouched."""
+    from llm_quest_tpu_torch.kernels import gdn
+
+    b, h, dk = 16, 8, 64
+    q, k, v, beta, alpha = step_inputs(gen, b, h, h, dk, dtype, torch.bfloat16)
+    stacked = randn(gen, 3, b, h, dk, dk, scale=0.1)
+    before, ref_stacked = stacked.clone(), stacked.clone()
+    out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, stacked, 2)
+    ref_out, _ = gdn.gated_delta_rule_step_stacked(q, k, v, beta, alpha, ref_stacked, 2, plain=True)
+    assert_close(out, ref_out, dtype)
+    assert_close(stacked[2], ref_stacked[2], torch.float32)
+    assert torch.equal(stacked[:2], before[:2])
 
 
 def step_inputs(gen, b, h, h_qk, dk, dtype, beta_dtype):

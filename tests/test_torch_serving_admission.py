@@ -289,9 +289,10 @@ def test_prefix_refusals(models):
                          ids=["mesh", "draft", "gamma"])
 def test_later_slices_still_refused_with_the_new_paths(models, kw):
     """The mesh still raises, also on an engine with chunked prefill and
-    prefixes; speculation over this hybrid target raises for its recurrent
-    cache (speculative windows over KV caches are served:
-    test_torch_serving_spec.py); JAX's default γ 4 without a draft builds
+    prefixes; this hybrid target with itself as the draft is built with
+    those paths and serves a chunked, a prefix and a plain request with the
+    plain engine's tokens (its recurrent caches rolled back:
+    test_torch_spec_hybrid.py); JAX's default γ 4 without a draft builds
     the plain engine; an adapter on a prefix of params without stacked
     adapters raises JAX's ValueError (multi-LoRA itself is served:
     test_torch_serving_lora.py)."""
@@ -299,9 +300,12 @@ def test_later_slices_still_refused_with_the_new_paths(models, kw):
         assert not engine("port", models, "hybrid", **CHUNKED, **kw)._spec
     elif "draft_model" in kw:
         _, _, _, tp, cfg = models["hybrid"]
-        with pytest.raises(NotImplementedError, match="the target's cache holds recurrent state"):
-            engine("port", models, "hybrid", **CHUNKED, **kw, draft_params=tp,
-                   draft_cfg=dict(cfg, dtype=torch.float32))
+        served = []
+        for spec in (dict(kw, draft_params=tp, draft_cfg=dict(cfg, dtype=torch.float32)), {}):
+            eng = engine("port", models, "hybrid", **CHUNKED, **spec)
+            pid = eng.register_prefix(HYB_PREFIX)
+            served.append(eng.serve([(LONG_A, 6), (HYB_SUFFIXES[0], 5, pid), (SHORT, 4)]))
+        assert served[0] == served[1]
     else:
         with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
             engine("port", models, "hybrid", **CHUNKED, **kw)

@@ -17,8 +17,10 @@ under speculation.
 
 Also: the reference fault (JAX's engine on the hybrid Qwen3.5 with the
 target as its own draft gives other tokens than its ``generate_kv_cache``;
-the port refuses recurrent caches), the overhang rule, JAX's refusals, and
-``warmup``, ``cancel`` and ``stats`` with speculation.
+the port rolls the recurrent caches back and serves a Qwen3.5 or Qwen3-Next
+target or draft losslessly: ``test_recurrent_caches_served``, and
+``tests/test_torch_spec_hybrid.py``), the overhang rule, JAX's refusals,
+and ``warmup``, ``cancel`` and ``stats`` with speculation.
 """
 
 import jax
@@ -294,8 +296,8 @@ def test_jax_hybrid_self_draft_differs_from_generate():
     its own draft (2 slots, chunk 2, γ 3, greedy) gives other tokens than
     JAX's ``generate_kv_cache``: its windows advance the GDN state and conv
     taps with the re-fed token and the rejected drafts. Lossless speculation
-    would give the same tokens; the port refuses such a target
-    (``test_recurrent_caches_refused``)."""
+    would give the same tokens, as the port's does
+    (``test_recurrent_caches_served``)."""
 
     class Text:
         apply = staticmethod(jq35.apply_text)
@@ -313,9 +315,11 @@ def test_jax_hybrid_self_draft_differs_from_generate():
 
 @pytest.mark.parametrize("role,family", [("target", "qwen3_5"), ("target", "qwen3_next"), ("draft", "qwen3_5"),
                                          ("draft", "qwen3_next")])
-def test_recurrent_caches_refused(models, role, family):
-    """A Qwen3.5 or Qwen3-Next target or draft raises NotImplementedError
-    naming the fault, before any pool is served."""
+def test_recurrent_caches_served(models, refs, role, family):
+    """A Qwen3.5 or Qwen3-Next target or draft is served (its GDN states and
+    conv taps rolled back to each row's committed tokens): a hybrid target's
+    tokens equal its plain engine's, the dense target's with a hybrid draft
+    equal JAX's plain greedy tokens."""
     gen = torch.Generator().manual_seed(0)
     if family == "qwen3_5":
         mod, cfg = tq35.TextOnly, tcfg(HYBRID_CFG)
@@ -324,12 +328,17 @@ def test_recurrent_caches_refused(models, role, family):
         mod, cfg = tqn, tcfg(NEXT_CFG)
         hybrid = tqn.init(cfg, generator=gen, device="cpu")
     ported = models[1]
+    traffic = list(zip(LOSSLESS[:3], LOSSLESS_GEN[:3]))
+    kw = dict(n_slots=2, max_len=40, decode_chunk=2, prefill_buckets=(8, 16), **BASE, device="cpu")
     if role == "target":
-        args, kw = (mod, hybrid, cfg), dict(draft_model=tq3, draft_params=ported["draft"], draft_cfg=tcfg(DRAFT_CFG))
+        eng = ContinuousBatchingEngine(mod, hybrid, cfg, draft_model=tq3, draft_params=ported["draft"],
+                                       draft_cfg=tcfg(DRAFT_CFG), gamma=3, **kw)
+        assert eng.serve(traffic) == ContinuousBatchingEngine(mod, hybrid, cfg, **kw).serve(traffic)
     else:
-        args, kw = (tq3, ported["target"], tcfg(CFG)), dict(draft_model=mod, draft_params=hybrid, draft_cfg=cfg)
-    with pytest.raises(NotImplementedError, match=f"the {role}'s cache holds recurrent state"):
-        ContinuousBatchingEngine(*args, n_slots=2, max_len=32, prefill_buckets=(8,), device="cpu", **kw)
+        eng = ContinuousBatchingEngine(tq3, ported["target"], tcfg(CFG), draft_model=mod, draft_params=hybrid,
+                                       draft_cfg=cfg, gamma=3, **kw)
+        assert eng.serve(traffic) == [ref(refs, p, g) for p, g in traffic]
+    assert eng.stats()["windows"] > 0
 
 
 def test_overhang_rule(models, refs):

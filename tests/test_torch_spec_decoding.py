@@ -17,7 +17,8 @@ CPU in fp32.
   fixed logits, the first and second committed tokens are distributed as
   ``modified_probs`` of the target within a total-variation bound, which a
   draft's own tokens read beyond;
-- the recurrent-cache refusal (Qwen3.5 target, Qwen3-Next draft).
+- a Qwen3.5 target and a Qwen3-Next draft, whose recurrent caches the
+  windows roll back: the tokens equal plain greedy decoding's.
 
 The weights are JAX's ``init`` carried to the port by ``from_jax_flat``;
 the JAX references are computed once per module (``jax_refs``).
@@ -33,6 +34,7 @@ from llm_quest_tpu.inference import generate as jgen
 from llm_quest_tpu.inference import spec_decoding as jspec
 from llm_quest_tpu.models import qwen3 as jq3
 from llm_quest_tpu.weights.interop import flatten_params
+from llm_quest_tpu_torch.inference import generate as tgen
 from llm_quest_tpu_torch.inference import spec_decoding as tspec
 from llm_quest_tpu_torch.models import qwen3 as tq3
 from llm_quest_tpu_torch.models import qwen3_5 as tq35
@@ -236,19 +238,25 @@ def test_greedy_acceptance_takes_the_longest_matching_prefix():
 
 
 @pytest.mark.parametrize("role", ["target", "draft"])
-def test_recurrent_caches_refused(models, role):
-    """A Qwen3.5 target or a Qwen3-Next draft: their caches hold GDN states
-    and conv taps, which a window advances with every token it feeds (the
-    reference fault, tests/test_torch_serving_spec.py)."""
+def test_recurrent_caches_served(models, jax_refs, role):
+    """A Qwen3.5 target (with the weak dense draft) or a Qwen3-Next draft
+    (with the dense target): their caches hold GDN states and conv taps,
+    which each window rolls back to the committed tokens, and the greedy
+    tokens equal plain decoding's (the hybrid's ``generate_kv_cache``; JAX's
+    for the dense target)."""
     _, _, tt, td = models
+    ids = prompt("gamma")
     if role == "target":
         hybrid = tq35.init_text(HYBRID_CFG, generator=torch.Generator().manual_seed(0), device="cpu")
         args = (tq35.TextOnly, hybrid, HYBRID_CFG, tq3, td, tcfg(DRAFT_CFG))
+        ref = tgen.generate_kv_cache(tq35.TextOnly, hybrid, HYBRID_CFG, torch.as_tensor(ids).long(), max_gen=MAX_GEN,
+                                     temp=0.0, eos_ids=-1, pad_id=0)["sequences"][0, ids.shape[1]:].tolist()
     else:
         nxt = tqn.init(NEXT_CFG, generator=torch.Generator().manual_seed(0), device="cpu")
         args = (tq3, tt, tcfg(CFG), tqn, nxt, NEXT_CFG)
-    with pytest.raises(NotImplementedError, match=f"the {role}'s cache holds recurrent state"):
-        tspec.speculative_generate(*args, prompt("gamma"), max_gen=4, draft_max_gen=2, device="cpu")
+        ref = jax_refs["plain"]["gamma"][:MAX_GEN]
+    out = tspec.speculative_generate(*args, ids, max_gen=MAX_GEN, draft_max_gen=2, device="cpu")
+    assert out["sequences"][0, ids.shape[1]:].tolist() == ref
 
 
 def test_default_device_is_the_card(models):
