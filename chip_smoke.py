@@ -30,7 +30,9 @@ Hyper-Qwen3 training at Qwen3-0.6B's widths, and the alignment stack over
 GPT-2 124M (classifier tuning, DPO, the reward model, RLHF-GRPO with its
 losses, RLVR and RPT), the ViT→GPT-2 VLM trained and captioning, the folded
 uint8 ViT-B encoder, the HF checkpoint loaders and the model-agnostic
-training ops. Phases, one JSON line each on stdout:
+training ops, int4 serving of Qwen3.5-0.8B text and Qwen3-30B-A3B (its
+expert stacks streamed packed through K11), and the classic and latent MoE
+layers with the 30B routing replay. Phases, one JSON line each on stdout:
 
 1. device: the card's name and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version on the
@@ -463,6 +465,45 @@ training ops. Phases, one JSON line each on stdout:
     phase holds K1 at a window's shapes (b 16, s 2, 5, 9 from a carried
     state with a frozen tail; 16 heads of 128, 8 of 64) and K2 at the small
     draft's (3 layers, b 16, 8 heads of 64).
+33. engine_serve_int4_fp32 (``engine_check_fp32(bits=4)``, after
+    ``engine_serving``, outside ``phase``): phase 20's check with the
+    linears quantized to int4 (block scales of INT4_BLOCK = 128): the
+    engine's tokens equal ``generate_kv_cache``'s of the same int4 model,
+    through the kernels and the plain versions.
+34. engine_serve_int8_hetero, engine_serve_int4, engine_serve_moe_int4
+    (``engine_int4_paths``, after ``engine_moe_paths``), each int4 record
+    beside the int8 record of the same model and traffic
+    (``<path>_beside_int8``: useful tok/s, TTFT p50, device ms, kernels and
+    busy share a step, weight GB, K11's ms and share a step, peak memory):
+    Qwen3.5-0.8B text at ENGINE_LAYERS, bf16, quantized as phase 21's
+    engine_serve_int8 (a copy of the model) and then in place with
+    ``bits=4``, block scales of 128 and the int4 tied table, the int8 KV
+    cache, both on ``bench_serving_hetero``'s traffic (K1, K2, K4, K10); then
+    Qwen3-30B-A3B at MOE_LAYERS quantized in place from bf16 (linears with
+    block scales of 128, expert stacks per (expert, channel), all 4-bit),
+    the int8 KV cache, 32 slots, one serve and one decode step under the
+    sync check (K4, K10 and K11 over the packed stacks: every K11 launch
+    an int4 one on the tensor cores). Each first held to the plain versions
+    as phase 21.
+35. moe_variants (after ``engine_int4_paths``): the classic MoE at GPT-2
+    124M's widths (emb 768, 8 experts top-2 of 1,536, x (8, 1,024, 768))
+    and the latent MoE at Qwen3-30B-A3B's (emb 2,048, 128 experts top-8 of
+    768 in the latent width 512, x (4, 2,048, 2,048)): bf16 forward and
+    backward against fp32 on the tokens both route alike (at least
+    MOE_ROUTE_AGREE of them), the output and every gradient within
+    MOE_VARIANT_BAR beside a control; int8 and int4 (quantized in place
+    from the bf16 copy) forwards through K11 against K11's plain version,
+    the int4 ones counted (every K11 launch an int4 one on the tensor
+    cores); and the routing replay: Qwen3-30B-A3B at MOE_LAYERS, b 2,
+    s 64, fed its own ``gate_probas`` gives the same logits bit for bit,
+    another batch's move them by more than REPLAY_CONTROL.
+    The kernel phase holds K11 over int4 stacks (``k11_int4``) at E 8
+    (T 8 and 2,400; 896 <-> 3,584) and E 128 (T 256 and 65,536; 2,048 <->
+    768), fp32 and bf16 rows, an odd K and tail widths: within the
+    tolerances of the plain version, per (expert, 64-channel) tile beside
+    the dropped-chunk control, timed beside the int8 kernel on the same
+    values, warm and (T up to 4,096) with the L2 cold, and beside
+    ``torch._grouped_mm`` on a bf16 copy.
 
 K4, K5, K6 and K7 take two routes by dtype: in bf16, K4 and K5 run the
 tensor-core kernels of ``csrc/attention_tc.cu``, K6 and K7 the
@@ -515,6 +556,7 @@ tensor-core and SIMT kernels, cuBLAS GEMMs, the rest), one JSON line each.
 """
 
 import contextlib
+import copy
 import json
 import math
 import statistics
@@ -2331,11 +2373,16 @@ def kernel_k10_gqa8(gen, dtypes, shape=None, label="K10 gqa8"):
 def k11_drop_control(x, w_q, scale, group_sizes, ref32):
     """TILE_TOL's reading, against ``ref32`` (the fp32 plain output), of the
     plain output with the K rows [64, 128) of the largest expert's weights
-    left out: only that expert's rows are recomputed."""
+    (an int4 stack's unpacked) left out: only that expert's rows are
+    recomputed."""
+    import torch
+
+    from llm_quest_tpu_torch.ops.int4 import integer_weight
+
     sizes = group_sizes.tolist()
     big = max(range(len(sizes)), key=sizes.__getitem__)
     lo, hi = sum(sizes[:big]), sum(sizes[: big + 1])
-    wd = w_q[big].float().clone()
+    wd = integer_weight(w_q[big:big + 1], x.shape[1], torch.float32)[0].clone()
     wd[64:128] = 0
     ctrl = ref32.clone()
     ctrl[lo:hi] = (x[lo:hi].float() @ wd) * scale[big].float()
@@ -2414,6 +2461,156 @@ def kernel_k11_e128(gen, dtypes):
                                               ("cases_bound_ms", "bound_ms"), ("cases_plain_ms", "plain_ms"),
                                               ("cases_grouped_mm_ms", "bf16_grouped_mm_ms"),
                                               ("cases_plan", "rows"), ("cases_split", "split"))}})
+    return max(errs), rec["ms"], rec["plain_ms"], cases, extra
+
+
+# K11 over packed int4 stacks: (experts, top-k, tokens, matrices) at Qwen3-Next-small's widths (decode T 8,
+# prefill T 2400) and Qwen3-30B-A3B's (a decode step of 32 slots, T 256; a full admission wave, T 65,536)
+K11_INT4_CASES = ((K11_EXPERTS, 2, 4, K11_MATS), (K11_EXPERTS, 2, 1200, K11_MATS),
+                  (MOE_EXPERTS, MOE_TOP_K, MOE_SLOTS, MOE_MATS),
+                  (MOE_EXPERTS, MOE_TOP_K, MOE_SLOTS * MOE_BUCKET, MOE_MATS))
+# an odd K (its pad nibble), and widths TMA cannot address (bf16 rows on the SIMT kernel)
+K11_INT4_TAILS = ((37, 64), (36, 40), (64, 40))
+K11_COLD_ROWS = 4096  # up to this many rows a case is also timed with the L2 cold (its weights stream)
+
+
+def k11_int4_stack(gen, k_dim, n_dim, e):
+    """An int8 stack of values in [-7, 7] and the same values packed int4, and the scales."""
+    import torch
+
+    from llm_quest_tpu_torch.ops.int4 import pack_int4
+
+    w8 = torch.randint(-7, 8, (e, k_dim, n_dim), generator=gen, device=DEVICE, dtype=torch.int8)
+    return w8, pack_int4(w8), torch.rand(e, n_dim, generator=gen, device=DEVICE) * 0.2 + 1e-2
+
+
+def k11_int4_tails(gen):
+    """K11 int4 at K11_INT4_TAILS (a top-2 routing of 10 tokens over 8
+    experts), fp32 and bf16 rows: one launch each, counted in
+    ``int4_launches``, on the tensor cores only where ``tc_route`` says,
+    within the tolerance of the plain version. {"KxN dtype": max abs err}."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import quantized_gmm as qg
+
+    w = qg.quantized_ragged_dot
+    group_sizes = k11_routing(gen, 10)
+    errs = {}
+    for k_dim, n_dim in K11_INT4_TAILS:
+        _, w4, scale = k11_int4_stack(gen, k_dim, n_dim, K11_EXPERTS)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(gen, 20, k_dim, dtype=dtype)
+            n, n4 = w.launches, w.int4_launches
+            out, tc = tc_count(w, lambda: w(x, w4, scale, group_sizes))
+            torch_sync()
+            if (w.launches - n, w.int4_launches - n4) != (1, 1):
+                raise AssertionError(f"K11 int4 K {k_dim} N {n_dim} {dtype}: {w.launches - n} launches, "
+                                     f"{w.int4_launches - n4} int4 ones, expected 1 and 1")
+            tc_moved(f"K11 int4 K {k_dim} N {n_dim} {dtype}", tc, 0, int(qg.tc_route(dtype, k_dim, n_dim)))
+            errs[f"{k_dim}x{n_dim} {dtype}"] = check(f"K11 int4 K {k_dim} N {n_dim} {dtype}", out,
+                                                    w(x, w4, scale, group_sizes, plain=True), dtype)
+    return errs
+
+
+def kernel_k11_int4(gen, dtypes):
+    """K11 over packed int4 stacks (``pack_int4``: half a byte a weight) at
+    K11_INT4_CASES, fp32 rows on the SIMT kernel and bf16 rows on the
+    tensor-core kernel at the wrapper's ``plan`` for 4-bit weights: every
+    call one launch counted in ``int4_launches``; in bf16 two runs bit-equal,
+    each (expert, 64-channel) tile within TILE_TOL of the fp32 plain version
+    beside the control with one 64-deep K chunk of the largest expert
+    dropped; timed by events and profiler (``device_ms``, warm: the calls
+    back to back, as the int8 records are timed), beside the int8 kernel on
+    the same values at the same shape (``int8_device_ms``), and, up to
+    K11_COLD_ROWS rows, both with the L2 cold (``rotated_device_ms`` over
+    copies of the stack); ``torch._grouped_mm`` on a bf16 copy of the stack
+    (``bf16_grouped_mm_ms``). The bound: the packed bytes of the experts hit,
+    x and y over the memory rate, or the products over the bf16 peak.
+    ``tail_widths_err``: ``k11_int4_tails``. The record's times are
+    Qwen3-30B-A3B's decode step's lin1 (T 256)."""
+    import torch
+
+    from llm_quest_tpu_torch.kernels import quantized_gmm as qg
+
+    w = qg.quantized_ragged_dot
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs, errs_bf16, cases = [], [], []
+    for e, top_k, tokens, mats in K11_INT4_CASES:
+        group_sizes = k11_routing(gen, tokens, e, top_k)
+        t = top_k * tokens
+        for mat, (k_dim, n_dim) in mats.items():
+            w8, w4, scale = k11_int4_stack(gen, k_dim, n_dim, e)
+            for dtype in dtypes:
+                bf16 = dtype == torch.bfloat16
+                x = randn(gen, t, k_dim, dtype=dtype)
+                call = lambda plain=False: w(x, w4, scale, group_sizes, plain=plain)  # noqa: E731
+                n4 = w.int4_launches
+                out, tc = tc_count(w, call)
+                ref = call(True)
+                torch_sync()
+                label = f"K11 int4 E {e} T={t} {mat} {dtype}"
+                if w.int4_launches - n4 != 1:
+                    raise AssertionError(f"{label}: {w.int4_launches - n4} int4 launches, expected 1")
+                tc_moved(label, tc, 0, int(bf16))
+                err = check(label, out, ref, dtype)
+                case = {"E": e, "T": t, "matrix": mat, "K": k_dim, "N": n_dim, "dtype": str(dtype), "max_abs_err": err,
+                        "experts_hit": int((group_sizes > 0).sum()), "max_group": int(group_sizes.max()),
+                        "tc_launches": tc}
+                if not bf16:
+                    errs.append(err)
+                    cases.append(case)
+                    continue
+                if not torch.equal(out, call()):
+                    raise AssertionError(f"{label}: two runs differ")
+                ref32 = qg.quantized_ragged_dot(x.float(), w4, scale, group_sizes, plain=True)
+                tile_err = k11_tiles(out, ref32, group_sizes)
+                if not tile_err <= TILE_TOL:  # also catches NaN
+                    raise AssertionError(f"{label}: tile error {tile_err} > {TILE_TOL}")
+                dropped = k11_drop_control(x, w4, scale, group_sizes, ref32)
+                if not dropped > TILE_TOL:
+                    raise AssertionError(f"{label}: a dropped K chunk reads {dropped}, within {TILE_TOL}")
+                del ref32
+                int8_call = lambda: w(x, w8, scale, group_sizes)  # noqa: E731
+                gmm_ms, gmm_err = k11_grouped_mm_ms(x, w8, scale, group_sizes)
+                hit = case["experts_hit"]  # the packed weights of the experts with rows are read
+                case.update({"plan": list(qg.plan(t, k_dim, n_dim, e, sms, 4)),
+                             "plan_int8": list(qg.plan(t, k_dim, n_dim, e, sms)),
+                             "tile_err": tile_err, "dropped_chunk_tile_err": dropped,
+                             "ms": cuda_ms(call), "plain_ms": cuda_ms(lambda: call(True), iters=3, warmup=1),
+                             "device_ms": device_ms(call, QGMM_KEY), "int8_device_ms": device_ms(int8_call, QGMM_KEY),
+                             "bf16_grouped_mm_ms": gmm_ms, "bf16_grouped_mm_err": gmm_err,
+                             **bound(nbytes(x, out, group_sizes) + hit * (w4.shape[1] * n_dim + 4 * n_dim),
+                                     2 * t * k_dim * n_dim)})
+                if t <= K11_COLD_ROWS:
+                    cold = {}
+                    for bits, stack in ((4, w4), (8, w8)):
+                        copies = rotation(stack)
+                        cold[bits] = rotated_device_ms(
+                            [lambda c=c: w(x, c, scale, group_sizes) for c in copies], QGMM_KEY)
+                        del copies
+                    case.update({"device_ms_cold": cold[4], "int8_device_ms_cold": cold[8]})
+                errs_bf16.append(err)
+                cases.append(case)
+            del w8, w4, scale
+    torch.cuda.empty_cache()
+    rec = next(c for c in cases if c["E"] == MOE_EXPERTS and c["T"] == MOE_TOP_K * MOE_SLOTS
+               and c["matrix"] == "lin1" and "ms" in c)
+    extra = {key: rec[key] for key in ("bound_ms", "bound_by", "simt_bound_ms", "bytes", "flops", "device_ms",
+                                       "bf16_grouped_mm_ms")}
+    key = lambda c: f"E{c['E']}_T{c['T']}_{c['matrix']}"  # noqa: E731
+    extra.update({"library_ms": rec["bf16_grouped_mm_ms"], "max_abs_err_bf16": max(errs_bf16),
+                  "tile_err_bf16": max(c["tile_err"] for c in cases if "tile_err" in c),
+                  "tail_widths_err": k11_int4_tails(gen),
+                  "record": {"int8_device_ms": rec["int8_device_ms"], "device_ms_cold": rec["device_ms_cold"],
+                             "int8_device_ms_cold": rec["int8_device_ms_cold"],
+                             **{name: {key(c): c.get(val) for c in cases if "ms" in c}
+                                for name, val in (("cases_ms", "ms"), ("cases_device_ms", "device_ms"),
+                                                  ("cases_int8_device_ms", "int8_device_ms"),
+                                                  ("cases_device_ms_cold", "device_ms_cold"),
+                                                  ("cases_int8_device_ms_cold", "int8_device_ms_cold"),
+                                                  ("cases_bound_ms", "bound_ms"), ("cases_plain_ms", "plain_ms"),
+                                                  ("cases_grouped_mm_ms", "bf16_grouped_mm_ms"),
+                                                  ("cases_plan", "plan"))}}})
     return max(errs), rec["ms"], rec["plain_ms"], cases, extra
 
 
@@ -2704,10 +2901,17 @@ ABLATE = "ablate_int8_scores"
 CP_TRAIN, CP_FALLBACK = "cp_train", "cp_fallback"
 ENGINE_UNIFORM, ENGINE_HETERO, ENGINE_INT8 = "engine_serve_uniform", "engine_serve_hetero", "engine_serve_int8"
 ENGINE_CHUNKED, ENGINE_PREFIX, ENGINE_VLM = "engine_chunked_prefill", "engine_prefix", "engine_vlm"
-ENGINE_PATHS = (ENGINE_UNIFORM, ENGINE_HETERO, ENGINE_INT8, ENGINE_CHUNKED, ENGINE_PREFIX, ENGINE_VLM)
+ENGINE_INT4 = "engine_serve_int4"  # int4 Qwen3.5-0.8B text (block scales of 128, the int4 table), int8 KV
+ENGINE_INT8_HETERO = "engine_serve_int8_hetero"  # ENGINE_INT8's model on the int4 serve's traffic
+ENGINE_PATHS = (ENGINE_UNIFORM, ENGINE_HETERO, ENGINE_INT8, ENGINE_INT8_HETERO, ENGINE_INT4, ENGINE_CHUNKED,
+                ENGINE_PREFIX, ENGINE_VLM)
 # the MoE families through the engine: Qwen3-30B-A3B int8 and bf16, Qwen3-Next-small bf16 and int8, and
 # Gemma-3 / DeepSeek-V3 / MiMo-V2-Flash (no kernel: ``sdpa`` on the cache, as in JAX)
 ENGINE_MOE_INT8, ENGINE_MOE_BF16 = "engine_serve_moe_int8", "engine_serve_moe_bf16"
+# int4 Qwen3-30B-A3B (its expert stacks streamed packed through K11) with the int8 KV cache; the classic and
+# latent MoE layers
+ENGINE_MOE_INT4, MOE_VARIANTS = "engine_serve_moe_int4", "moe_variants"
+INT4_PATHS = (ENGINE_MOE_INT4, MOE_VARIANTS)  # every K11 launch of these is over an int4 stack
 ENGINE_NEXT, ENGINE_NEXT_INT8 = "engine_serve_next", "engine_serve_next_int8"
 ENGINE_FAMILIES = "engine_families"
 # multi-LoRA: int8 Qwen3.5-0.8B text at ENGINE_LAYERS with 8 stacked adapters, and the same engine without them
@@ -2783,7 +2987,8 @@ KERNELS = [
      (ENGINE_SPEC_HYBRID_SMALL,)),
     ("flash_attention_fwd", ("attention", "flash_attention"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4,
-     (GENERATE, TRAIN, HYBRID, HYPER_TRAIN, ENGINE_HETERO, ENGINE_CHUNKED, ENGINE_PREFIX)),
+     (GENERATE, TRAIN, HYBRID, HYPER_TRAIN, ENGINE_HETERO, ENGINE_INT8_HETERO, ENGINE_INT4, ENGINE_CHUNKED,
+      ENGINE_PREFIX)),
     # K4 at one chunk of the chunked admission (q_start up to 7680 against 8320 cache columns)
     ("flash_attention_fwd_chunked", ("attention", "flash_attention"), ATTN_SRC,
      "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4_chunked, (ENGINE_CHUNKED,)),
@@ -2838,15 +3043,16 @@ KERNELS = [
      "llm_quest_tpu/kernels/fused_mha.py:372", partial(kernel_int8, mode="inkernel"), (VIT,)),
     ("flash_decode", ("flash_decode", "flash_decode"), FD_SRC,
      "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10,
-     (INT8_GENERATE, ENGINE_INT8, ENGINE_LORA, ENGINE_LORA_BASE)),
+     (INT8_GENERATE, ENGINE_INT8, ENGINE_INT8_HETERO, ENGINE_INT4, ENGINE_LORA, ENGINE_LORA_BASE)),
     ("quantized_ragged_dot", ("quantized_gmm", "quantized_ragged_dot"), QGMM_SRC,
      "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11, (NEXT_SERVE, ENGINE_NEXT_INT8)),
     # Qwen3-30B-A3B's shapes in the engine: K4 at the 256-token admission bucket (32/4 heads, d 128), K10 on
     # its int8 cache (b 32, 32/4 heads, d 128), K11 over its 128 int8 experts (top-8) at decode and admission T
     ("flash_attention_fwd_gqa8", ("attention", "flash_attention"), ATTN_SRC,
-     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4_gqa8, (ENGINE_MOE_INT8, ENGINE_MOE_BF16)),
+     "llm_quest_tpu/kernels/flash_attention.py:544", kernel_k4_gqa8,
+     (ENGINE_MOE_INT8, ENGINE_MOE_BF16, ENGINE_MOE_INT4)),
     ("flash_decode_gqa8", ("flash_decode", "flash_decode"), FD_SRC,
-     "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10_gqa8, (ENGINE_MOE_INT8,)),
+     "llm_quest_tpu/kernels/flash_decode.py:91", kernel_k10_gqa8, (ENGINE_MOE_INT8, ENGINE_MOE_INT4)),
     # the speculative engine's: K4 at Qwen3-4B's admission wave (its launches count the draft's admission too),
     # K10 at the Qwen3-0.6B draft's steps over the int8 cache
     ("flash_attention_fwd_spec", ("attention", "flash_attention"), ATTN_SRC,
@@ -2857,6 +3063,9 @@ KERNELS = [
      (ENGINE_SPEC_INT8,)),
     ("quantized_ragged_dot_e128", ("quantized_gmm", "quantized_ragged_dot"), QGMM_SRC,
      "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11_e128, (ENGINE_MOE_INT8,)),
+    # K11 over packed int4 stacks (JAX sends those to ragged_dot; the port to K11): its int4 launches
+    ("k11_int4", ("quantized_gmm", "quantized_ragged_dot", "int4"), QGMM_SRC,
+     "llm_quest_tpu/kernels/quantized_gmm.py:71", kernel_k11_int4, (ENGINE_MOE_INT4, MOE_VARIANTS)),
     # K4 at one Gemma-3-270M layer: the SWA layers' window, the global layers'
     # causal call at the same shape, and the softcap and sinks (on no path yet)
     ("flash_attention_fwd_window", ("attention", "flash_attention", "window"), ATTN_SRC,
@@ -2985,7 +3194,8 @@ def kernel_phase():
 
 
 COUNTERS = ("launches", "window_launches", "softcap_sink_launches", "static_launches", "bwd_launches",
-            "causal_launches", "causal_bwd_launches", "int8_launches", "tc_launches", "tc_bwd_launches")
+            "causal_launches", "causal_bwd_launches", "int8_launches", "int4_launches", "tc_launches",
+            "tc_bwd_launches")
 
 
 def reset_launches():
@@ -3114,9 +3324,10 @@ def read_launches(path, records, *, add=True):
     """The launch counts of the path just driven, added to ``records`` (with
     ``add``; a record of all its wrapper's launches also adds those that took
     the tensor-core kernels, ``tc_launches``); fails if a kernel of the path
-    never launched, or if the path's K1 and attention launches did not take
+    never launched, if the path's K1 and attention launches did not take
     the route of its dtype (bf16: the tensor-core kernels; the FP32_PATHS:
-    the SIMT ones)."""
+    the SIMT ones), or if a K11 launch of an INT4_PATHS path was over an
+    int8 stack."""
     check_routes(path, path not in FP32_PATHS)
     counts = {}
     for (name, spec, *_, paths), rec in zip(KERNELS, records):
@@ -3127,12 +3338,15 @@ def read_launches(path, records, *, add=True):
             w = wrapper(spec)
             if len(spec) == 2 and hasattr(w, "tc_launches"):  # all the wrapper's launches: those on the tensor cores
                 rec["tc_launches"] = rec.get("tc_launches", 0) + w.tc_launches
-            elif spec[-1] in ("dynamic", "static", "bf16", "int8"):  # K8's by scales, K12's by scores: all or
-                # none on the tensor cores (check_routes)
+            elif spec[-1] in ("dynamic", "static", "bf16", "int8", "int4"):  # K8's by scales, K12's by scores,
+                # K11's by weights: all or none on the tensor cores (check_routes)
                 rec["tc_launches"] = rec.get("tc_launches", 0) + n * (path not in FP32_PATHS)
     missing = [name for (name, *_, paths) in KERNELS if path in paths and counts[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: {counts}")
+    k11 = wrapper(("quantized_gmm", "quantized_ragged_dot"))
+    if path in INT4_PATHS and k11.int4_launches != k11.launches:  # and check_routes: all on the tensor cores
+        raise AssertionError(f"{path}: {k11.launches} K11 launches, {k11.int4_launches} of them over int4 stacks")
     return counts
 
 
@@ -6210,9 +6424,10 @@ def engine_chunk_profile(model, cfg, kind, traffic, steps=ENGINE_PROFILE_STEPS, 
     """A decode chunk of ``steps`` steps over a pool of live slots (the
     first ``n_slots`` requests, budgets past the chunk) under
     ``torch.profiler``, after one warm-up chunk from the same admitted
-    state: device ms a step (all the card's work), kernels a step and the
-    card's busy share of the chunk's wall. Nones where the profiler gives no
-    trace of the card."""
+    state: device ms a step (all the card's work), kernels a step, the
+    card's busy share of the chunk's wall, and K11's device ms a step and
+    share of the device time. Nones where the profiler gives no trace of the
+    card."""
     import torch
     from torch.autograd import DeviceType
 
@@ -6240,7 +6455,8 @@ def engine_chunk_profile(model, cfg, kind, traffic, steps=ENGINE_PROFILE_STEPS, 
             PROFILER["empty_traces"] += 1
         else:
             PROFILER["given_up"] = True
-            return {"device_ms_per_step": None, "kernels_per_step": None, "busy_share": None, "chunk_wall_ms": None}
+            return {"device_ms_per_step": None, "kernels_per_step": None, "busy_share": None, "chunk_wall_ms": None,
+                    "k11_ms_per_step": None, "k11_share": None}
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:  # union of the device intervals
@@ -6249,9 +6465,10 @@ def engine_chunk_profile(model, cfg, kind, traffic, steps=ENGINE_PROFILE_STEPS, 
         hi = max(hi, b)
     busy_us += hi - lo
     kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in events)
-    return {"device_ms_per_step": sum(e.time_range.elapsed_us() for e in events) / 1e3 / steps,
-            "kernels_per_step": kernels / steps, "busy_share": busy_us / 1e3 / wall_ms,
-            "chunk_wall_ms": wall_ms, "steps": steps}
+    device = sum(e.time_range.elapsed_us() for e in events) / 1e3 / steps
+    k11 = sum(e.time_range.elapsed_us() for e in events if QGMM_KEY in e.name) / 1e3 / steps
+    return {"device_ms_per_step": device, "kernels_per_step": kernels / steps, "busy_share": busy_us / 1e3 / wall_ms,
+            "chunk_wall_ms": wall_ms, "steps": steps, "k11_ms_per_step": k11, "k11_share": k11 / device}
 
 
 def engine_record(path, model, cfg, kind, records, card, check_rows, depths=(), *, requests=ENGINE_REQUESTS,
@@ -6286,6 +6503,8 @@ def engine_record(path, model, cfg, kind, records, card, check_rows, depths=(), 
     ``engine_for``'s. Returns the emitted record and the first serve's
     tokens."""
     import torch
+
+    from llm_quest_tpu_torch.ops.int4 import is_int4
 
     t_start = time.perf_counter()
     traffic = (engine_traffic(kind) if traffic is None else traffic)[:requests]
@@ -6345,6 +6564,7 @@ def engine_record(path, model, cfg, kind, records, card, check_rows, depths=(), 
     rec = {"phase": path, "card": card, "dtype": "bfloat16", "model": mod.__name__.rsplit(".", 1)[-1],
           "layers": cfg["n_layers"], "kv_quant": cfg.get("kv_quant"),
           "int8_weights": any(t.dtype == torch.int8 for t in model.state_dict().values()),
+          "int4_weights": any(is_int4(t) for t in model.state_dict().values()),
           "requests": len(traffic), "n_slots": engine.n_slots, "max_len": engine.max_len,
           "decode_chunk": engine.decode_chunk, "buckets": list(engine.buckets),
           "per_request_sampling": engine._row_sampling, "pipeline_depth": depth,
@@ -6358,9 +6578,14 @@ def engine_record(path, model, cfg, kind, records, card, check_rows, depths=(), 
           "admission_vs_b1_max_abs_err": float((first[:ENGINE_CHECK_ROWS] - refs).abs().max()),
           "tests_bar": BF16_LOGIT_BAR * float(refs.abs().max()),
           "warmup": warm, "greedy_agreement": equal / total if total else None, "greedy_compared": total,
-          "decode_step_host_syncs": syncs, "peak_memory_gb": peak_gb, "seconds": time.perf_counter() - t_start}
+          "decode_step_host_syncs": syncs, "peak_memory_gb": peak_gb, "weight_gb": weight_gb(model),
+          "seconds": time.perf_counter() - t_start}
     emit(rec)
+    SERVED[path] = rec
     return rec, toks
+
+
+SERVED = {}  # each serving record emitted, by path (the int4 records stand beside the int8 ones)
 
 
 def decode_step_syncs(model, cfg, kind, traffic, **engine_kw):
@@ -6387,14 +6612,18 @@ def decode_step_syncs(model, cfg, kind, traffic, **engine_kw):
     return 0
 
 
-def engine_check_fp32():
+def engine_check_fp32(bits=None):
     """engine_serve_fp32: Qwen3.5-0.8B text cut to 4 layers, fp32, 4 slots,
     buckets (32, 64), chunk 8: eight requests (three submitted after the
     first scheduler step), an EOS taken from request 0's free run; every
     request's greedy tokens equal ``generate_kv_cache``'s for its prompt
     alone (EOS included, what follows it trimmed), through the kernels and
     through the plain versions (``use_kernels`` False; run outside
-    ``phase``), and no tensor-core launch."""
+    ``phase``), and no tensor-core launch. With ``bits`` 4
+    (engine_serve_int4_fp32) its linears are quantized to int4 first, with
+    block scales of INT4_BLOCK (the table stays fp32: a quantized table
+    gathers bf16 rows), and the reference is ``generate_kv_cache`` of the
+    same int4 model."""
     import numpy as np
     import torch
 
@@ -6402,10 +6631,14 @@ def engine_check_fp32():
     from llm_quest_tpu_torch.inference import generate as gen_module
     from llm_quest_tpu_torch.inference.serving import ContinuousBatchingEngine
     from llm_quest_tpu_torch.models import qwen3_5
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
 
     t0 = time.perf_counter()
+    name = "engine_serve_fp32" if bits is None else f"engine_serve_int{bits}_fp32"
     cfg = dict(QWEN3_5_08B_CONFIG, n_layers=4, dtype=torch.float32)
     model = text_model(cfg)
+    if bits is not None:
+        quantize_params_int8(model, bits=bits, block_size=INT4_BLOCK)
     rng = np.random.default_rng(2)
     traffic = [(list(map(int, rng.integers(1, 32_000, n))), int(g))
                for n, g in zip(rng.integers(8, 61, 8), rng.integers(8, 25, 8))]
@@ -6430,10 +6663,10 @@ def engine_check_fp32():
         got = [engine.result(r)[0] for r in rids]
         got = [g[: g.index(eos) + 1] if eos in g else g for g in got]
         if got != refs:
-            raise AssertionError(f"engine_serve_fp32 (use_kernels {run_cfg.get('use_kernels', True)}): engine tokens "
+            raise AssertionError(f"{name} (use_kernels {run_cfg.get('use_kernels', True)}): engine tokens "
                                  f"differ from generate_kv_cache's:\n{got}\n{refs}")
-    check_routes("engine_serve_fp32", bf16=False)
-    emit({"phase": "engine_serve_fp32", "layers": cfg["n_layers"], "requests": len(traffic), "eos": eos,
+    check_routes(name, bf16=False)
+    emit({"phase": name, "int4_weights": bits == 4, "layers": cfg["n_layers"], "requests": len(traffic), "eos": eos,
           "retired_by_eos": sum(eos in r for r in refs), "tokens_equal": sum(map(len, refs)),
           "waves": engine.stats()["admit_waves"], "seconds": time.perf_counter() - t0})
     del model
@@ -7028,6 +7261,234 @@ def engine_moe_paths(records, card):
     torch.cuda.empty_cache()
     engine_families(records, card)
     emit({"phase": "engine_moe_paths", "seconds": time.perf_counter() - t0})
+
+
+# ------------------------------------------------- int4 serving and the classic and latent MoE
+
+
+INT4_BLOCK = 128  # the int4 linears' block scales (JAX pairs int4 with block_size <= 128)
+INT4_BESIDE = ("useful_tok_s", "ttft_p50_ms", "device_ms_per_step", "kernels_per_step", "busy_share", "weight_gb",
+               "k11_ms_per_step", "k11_share", "peak_memory_gb")
+
+
+def int4_beside_int8(path, int8_path):
+    """The int4 serving record's readings beside the int8 record's of the
+    same model and traffic, and their ratios; raises where the two served
+    different traffic."""
+    a, b = SERVED[path], SERVED.get(int8_path, {})  # the int8 record where the run made one
+    if b and (a["buckets"], a["requests"], a["max_len"]) != (b["buckets"], b["requests"], b["max_len"]):
+        raise AssertionError(f"{path} and {int8_path} served different traffic")
+    ratio = {k: a[k] / b[k] for k in INT4_BESIDE if a.get(k) is not None and b.get(k)}
+    emit({"phase": f"{path}_beside_int8", "int8_path": int8_path, **{k: [a.get(k), b.get(k)] for k in INT4_BESIDE},
+          "int4_over_int8": ratio, "buckets": [a["buckets"], b.get("buckets")]})
+
+
+def engine_int4_paths(records, card):
+    """int4 serving with the int8 KV cache, each record beside an int8 one
+    of the same model and traffic: Qwen3.5-0.8B text at ENGINE_LAYERS
+    layers, bf16, a copy quantized as ``engine_serve_int8``
+    (``engine_serve_int8_hetero``) and the model in place with ``bits=4``,
+    block scales of INT4_BLOCK and the int4 table (``engine_serve_int4``),
+    both on bench_serving_hetero's traffic (K1, K2, K4, K10; their plain
+    checks leave ENGINE_EMPTY_SLOTS slots empty), then
+    Qwen3-30B-A3B at MOE_LAYERS, bf16 quantized in place, linears at 4 bits
+    with block scales of INT4_BLOCK and the expert stacks at 4 bits
+    (``engine_serve_moe_int4``: 32 slots, one serve and one decode step
+    under the sync check, as ``engine_serve_moe_int8``; K4, K10 and K11 over
+    the packed stacks, every K11 launch an int4 one on the tensor cores),
+    with K11's device ms a step and share."""
+    import torch
+
+    from llm_quest_tpu_torch.config import QWEN3_5_08B_CONFIG
+    from llm_quest_tpu_torch.models import qwen3
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
+
+    t0 = time.perf_counter()
+    cfg = dict(QWEN3_5_08B_CONFIG, n_layers=ENGINE_LAYERS, dtype=torch.bfloat16)
+    model = text_model(cfg)
+    int8_model = quantize_params_int8(copy.deepcopy(model), quantize_embeddings=True)
+    engine_record(ENGINE_INT8_HETERO, int8_model, dict(cfg, kv_quant="int8"), "hetero", records, card,
+                  32 - ENGINE_EMPTY_SLOTS)
+    del int8_model
+    quantize_params_int8(model, bits=4, block_size=INT4_BLOCK, quantize_embeddings=True)
+    torch.cuda.empty_cache()
+    engine_record(ENGINE_INT4, model, dict(cfg, kv_quant="int8"), "hetero", records, card, 32 - ENGINE_EMPTY_SLOTS)
+    int4_beside_int8(ENGINE_INT4, ENGINE_INT8_HETERO)
+    del model
+    torch.cuda.empty_cache()
+    cfg = moe_cfg()
+    model = init_model(qwen3, cfg)
+    t1 = time.perf_counter()
+    quantize_params_int8(model, bits=4, block_size=INT4_BLOCK)
+    torch.cuda.synchronize()
+    emit({"phase": "engine_moe_int4_weights", "card": card, "quantize_s": time.perf_counter() - t1,
+          "int4_gb": weight_gb(model)})
+    torch.cuda.empty_cache()
+    n = cfg["n_layers"]
+    engine_record(ENGINE_MOE_INT4, model, dict(cfg, kv_quant="int8"), "hetero", records, card,
+                  MOE_SLOTS - ENGINE_EMPTY_SLOTS, serves=1, sync_check=True, warm=False, profile_steps=2,
+                  layer_calls={"flash_attention_fwd_gqa8": n, "flash_decode_gqa8": n, "k11_int4": 3 * n})
+    int4_beside_int8(ENGINE_MOE_INT4, ENGINE_MOE_INT8)
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "engine_int4_paths", "seconds": time.perf_counter() - t0})
+
+
+# the classic MoE at GPT-2 124M's widths (8 experts top-2 of int(4 · 1/2 · 768) = 1,536) and the latent MoE at
+# Qwen3-30B-A3B's (d 2048, 128 experts top-8 of 768 in the latent width 512); x (b, s, d) each
+CLASSIC_MOE, CLASSIC_E, CLASSIC_K, CLASSIC_X = {"emb_dim": 768}, 8, 2, (8, 1024, 768)
+LATENT_MOE, LATENT_X = {"emb_dim": 2048, "moe_hidden_dim": 768, "num_experts": 128, "top_k": 8}, (4, 2048, 2048)
+MOE_VARIANT_BAR = 5e-2  # bf16 against fp32: ||bf16 - fp32|| / ||fp32||, output and each gradient
+MOE_ROUTE_AGREE = 0.9  # the share of tokens whose expert set bf16 and fp32 routing agree on, at least
+REPLAY_CONTROL = 1e-2  # another batch's probabilities move the replayed logits by more than this (max abs)
+
+
+def variant_routes(name, layer, x2d):
+    """The (T, k) expert ids a layer picks for rows ``x2d``, sorted (sets compare)."""
+    import torch
+
+    from llm_quest_tpu_torch.ops.moe import latent_top_k
+
+    if name == "classic":
+        probas = torch.softmax((x2d @ layer.gate_w + layer.gate_b).float(), -1)
+        return torch.topk(probas, CLASSIC_K).indices.sort(-1)[0]
+    scores = torch.sigmoid((x2d @ layer.gate_w).float()) + layer.biases
+    return torch.topk(scores, latent_top_k(LATENT_MOE), -1).indices.sort(-1)[0]
+
+
+def rel_err(got, ref):
+    return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+
+def variant_bf16_vs_fp32(name, fn, layer32, x32, cot):
+    """The layer forward and backward in bf16 against fp32 on the same
+    inputs, the loss taken over the tokens both precisions route alike (a
+    near-tie routes otherwise in bf16): the output on those tokens and every
+    gradient within MOE_VARIANT_BAR, beside a control (the fp32 output of
+    another input) that must read above it."""
+    import copy
+
+    import torch
+
+    layer16 = copy.deepcopy(layer32)
+    for p in layer16.parameters():  # the parameters in bf16; a latent layer's biases stay an fp32 buffer
+        p.data = p.data.to(torch.bfloat16)
+    x16 = x32.to(torch.bfloat16)
+    d = x32.shape[-1]
+    with torch.no_grad():
+        agree = (variant_routes(name, layer32, x32.reshape(-1, d)) ==
+                 variant_routes(name, layer16, x16.reshape(-1, d))).all(-1).reshape(x32.shape[:-1])
+    share = float(agree.float().mean())
+    if share < MOE_ROUTE_AGREE:
+        raise AssertionError(f"moe_variants {name}: bf16 and fp32 routing agree on {share} of the tokens")
+    outs, grads = {}, {}
+    for key, layer, x in (("fp32", layer32, x32), ("bf16", layer16, x16)):
+        layer.zero_grad(set_to_none=True)
+        out, aux = fn(layer, x)
+        loss = (out.float() * cot)[agree].sum() + aux.get("moe_loss", 0.0)
+        loss.backward()
+        outs[key] = out.detach()[agree]
+        grads[key] = {n: p.grad.float() for n, p in layer.named_parameters()}
+    readings = {"out": rel_err(outs["bf16"], outs["fp32"]),
+                **{f"grad_{n}": rel_err(grads["bf16"][n], g) for n, g in grads["fp32"].items()}}
+    worst = max(readings, key=readings.get)
+    if not readings[worst] <= MOE_VARIANT_BAR:  # also catches NaN
+        raise AssertionError(f"moe_variants {name}: bf16 {worst} reads {readings[worst]} of fp32, > {MOE_VARIANT_BAR}")
+    with torch.no_grad():
+        control = rel_err(fn(layer32, torch.roll(x32, 1, dims=0))[0][agree], outs["fp32"])
+    if not control > MOE_VARIANT_BAR:
+        raise AssertionError(f"moe_variants {name}: the control reads {control}, within {MOE_VARIANT_BAR}")
+    del layer16
+    return {"routes_agree": share, "bf16_vs_fp32": readings, "control": control}
+
+
+def replay_30b():
+    """Qwen3-30B-A3B at MOE_LAYERS, bf16, b 2, s 64: a forward fed its own
+    ``aux["gate_probas"]`` (the RL routing replay) gives the same logits bit
+    for bit; fed another batch's probabilities (the control), logits that
+    move by more than REPLAY_CONTROL."""
+    import torch
+
+    from llm_quest_tpu_torch.models import qwen3
+
+    cfg = moe_cfg()
+    model = init_model(qwen3, cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 27)
+    ids = torch.randint(1, 32_000, (2, 64), generator=gen, device=DEVICE)
+    other = torch.randint(1, 32_000, (2, 64), generator=gen, device=DEVICE)
+    with torch.inference_mode():
+        logits, _, aux = qwen3.apply(model, cfg, ids)
+        replayed, _, _ = qwen3.apply(model, cfg, ids, gate_probas=aux["gate_probas"])
+        _, _, aux_other = qwen3.apply(model, cfg, other)
+        control, _, _ = qwen3.apply(model, cfg, ids, gate_probas=aux_other["gate_probas"])
+        broadcast, _, _ = qwen3.apply(model, cfg, ids, gate_probas=aux["gate_probas"][0])
+    moved = float((control.float() - logits.float()).abs().max())
+    if not (torch.isfinite(logits).all() and torch.equal(replayed, logits)):
+        raise AssertionError("moe_variants: the 30B forward fed its own gate_probas gives other logits")
+    if not moved > REPLAY_CONTROL:
+        raise AssertionError(f"moe_variants: another batch's gate_probas move the logits by {moved} only")
+    del model
+    torch.cuda.empty_cache()
+    return {"layers": cfg["n_layers"], "tokens": ids.numel(), "replay_equal": True, "control_max_abs": moved,
+            "broadcast_layer0_max_abs": float((broadcast.float() - logits.float()).abs().max())}
+
+
+def moe_variants(records, card):
+    """The classic MoE at GPT-2 124M's widths (x (8, 1024, 768)) and the
+    latent MoE at Qwen3-30B-A3B's (x (4, 2048, 2048)), random weights from
+    the seed: bf16 forward + backward against fp32 (``variant_bf16_vs_fp32``);
+    then each quantized in place from its bf16 copy, int8 and int4, its
+    forward through K11 against the same forward through K11's plain
+    version (run uncounted) within the bf16 tolerance, the int4 forwards with
+    the counts reset first (every K11 launch an int4 one on the tensor
+    cores); then the 30B routing replay (``replay_30b``)."""
+    import copy
+    from functools import partial as bind
+
+    import torch
+
+    from llm_quest_tpu_torch.ops import moe
+    from llm_quest_tpu_torch.ops.quantization import quantize_params_int8
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    layers = {
+        "classic": (moe.init_classic_moe(CLASSIC_MOE, num_experts=CLASSIC_E, top_k=CLASSIC_K, generator=gen,
+                                         device=DEVICE), bind(moe.classic_moe, top_k=CLASSIC_K), CLASSIC_X),
+        "latent": (moe.init_latent_moe(LATENT_MOE, generator=gen, device=DEVICE),
+                   bind(moe.latent_moe, top_k=moe.latent_top_k(LATENT_MOE)), LATENT_X),
+    }
+    rec = {"phase": MOE_VARIANTS, "card": card}
+    inputs = {}
+    for name, (layer, fn, shape) in layers.items():
+        x, cot = randn(gen, *shape), randn(gen, *shape)
+        inputs[name] = x.to(torch.bfloat16)
+        rec[name] = {"x": list(shape), **variant_bf16_vs_fp32(name, fn, layer, x, cot)}
+        torch.cuda.empty_cache()
+    quantized = {}
+    for bits in (8, 4):
+        if bits == 4:
+            reset_launches()
+        for name, (layer, fn, _) in layers.items():
+            q = copy.deepcopy(layer)
+            for p in q.parameters():
+                p.data = p.data.to(torch.bfloat16)
+            quantize_params_int8(q, bits=bits)
+            with torch.no_grad():
+                out = fn(q, inputs[name])[0]
+            quantized[name, bits] = (q, out)
+        if bits == 4:
+            rec["launches"] = read_launches(MOE_VARIANTS, records)
+    for (name, bits), (q, out) in quantized.items():
+        with torch.no_grad(), unwatched():
+            ref = layers[name][1](q, inputs[name], plain=True)[0]
+        rec[name][f"int{bits}_vs_plain_max_abs_err"] = check(f"moe_variants {name} int{bits}", out, ref,
+                                                             torch.bfloat16)
+    del quantized
+    torch.cuda.empty_cache()
+    rec["replay"] = replay_30b()
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
 
 
 def mimo_cached_check():
@@ -8279,8 +8740,13 @@ def main(argv):
     PHASE_SECONDS["engine_check_fp32"] = time.perf_counter() - t_checks
     phase(engine_admission_bf16)
     phase(engine_serving, records, smi)
+    t_checks = time.perf_counter()
+    engine_check_fp32(bits=4)
+    PHASE_SECONDS["engine_check_int4_fp32"] = time.perf_counter() - t_checks
     phase(engine_admission_paths, records, smi)
     phase(engine_moe_paths, records, smi)
+    phase(engine_int4_paths, records, smi)
+    phase(moe_variants, records, smi)
     phase(engine_multi_lora, records, smi)
     phase(engine_spec, records, smi)
     phase(engine_spec_hybrid, records, smi)

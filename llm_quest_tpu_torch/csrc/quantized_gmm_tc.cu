@@ -1,5 +1,5 @@
-// Grouped matmul over int8 expert stacks for bf16 rows on Hopper's tensor
-// cores (sm_90a): K11 for bf16.
+// Grouped matmul over int8 and int4 expert stacks for bf16 rows on Hopper's
+// tensor cores (sm_90a): K11 for bf16.
 //
 // Replaces, for bf16 rows, llm_quest_tpu/kernels/quantized_gmm.py::
 // quantized_ragged_dot (the Pallas kernel _qgmm_kernel, pallas_call :105):
@@ -8,6 +8,9 @@
 // int8 -> bf16 is exact (|w| <= 127 < 2^8) and so are the bf16 products in
 // fp32; the sums are fp32 and the scale multiplies them before the one
 // rounding to bf16 (the TPU kernel rounds to bf16 before the scale).
+// int4 stacks (BITS 4; JAX sends those to ragged_dot, not to its kernel):
+// (E, ceil(K / 2), N) bytes, K rows 2i and 2i + 1 in the low and high
+// nibbles of byte row i; values in [-8, 7] are exact in bf16 too.
 //
 // Bound: at decode (T 8 rows) the int8 weights of the experts hit, which
 // no tile may read twice: at Qwen3-Next-small's widths (E 8, 896 <-> 3584)
@@ -43,6 +46,13 @@
 //   after a cluster barrier each sums its share of the tile's rows over the
 //   cluster's partials in rank order (distributed shared memory): the same
 //   order every run, no atomics, one launch.
+// - int4: the weight format is the template argument BITS. A stage's
+//   weight box is kBK / 2 byte rows of 64 channels (TMA's row stride stays
+//   N bytes, so K % 8 and N % 16 are still the only width rules), half the
+//   int8 box, and widen4 turns each byte row into two bf16 rows of the same
+//   widened tile; the rest of the kernel is the int8 one. Box rows past
+//   ceil(K / 2) load as zeros; the pad nibble of an odd K never reaches
+//   here (K % 8 == 0).
 // - Epilogue: the fp32 tile goes to shared memory, then rows are summed,
 //   scaled by scale[e, n], rounded once to bf16 and stored 16 bytes a thread
 //   (coalesced), only rows of the tile's expert.
@@ -81,19 +91,28 @@ constexpr int kStages = LLMQ_QGMM_STAGES;     // the ring's stages at most (fewe
 // prologue then overlap another's products and loads
 constexpr int kBlocksPerSM = LLMQ_QGMM_BLOCKS_PER_SM;
 constexpr int kMaxSplit = 8;                  // a portable cluster
-constexpr int kWB = kBK * 64;                 // bytes of one warpgroup's int8 box of a stage
 constexpr int kCB = kBK * 128;                // bytes of a widened bf16 tile (kBK rows of 64 channels)
 constexpr int kPR = kBNo + 4;                 // floats of a row of the fp32 partial tile (padded: other banks)
 
-// bytes of a stage (the x box, then the warpgroups' int8 boxes) and of the
-// region the stages share with the fp32 partial tile
-template <int BR>
-__host__ __device__ constexpr int stage_bytes() {
-  return BR * 128 + kNWG * kWB;
+// byte rows of a warpgroup's weight box of a stage (int8: kBK; int4: kBK / 2), and its bytes
+template <int BITS>
+__host__ __device__ constexpr int box_rows() {
+  return BITS == 8 ? kBK : kBK / 2;
 }
-template <int BR>
+template <int BITS>
+__host__ __device__ constexpr int box_bytes() {
+  return box_rows<BITS>() * 64;
+}
+
+// bytes of a stage (the x box, then the warpgroups' weight boxes) and of the
+// region the stages share with the fp32 partial tile
+template <int BR, int BITS>
+__host__ __device__ constexpr int stage_bytes() {
+  return BR * 128 + kNWG * box_bytes<BITS>();
+}
+template <int BR, int BITS>
 __host__ __device__ constexpr uint32_t area_bytes(int stages) {
-  const uint32_t ring = stages * stage_bytes<BR>(), part = BR * kPR * 4;
+  const uint32_t ring = stages * stage_bytes<BR, BITS>(), part = BR * kPR * 4;
   return ((ring > part ? ring : part) + 1023u) & ~1023u;
 }
 
@@ -154,15 +173,19 @@ __device__ __forceinline__ void mma_t(float (&d)[N / 2], uint64_t da, uint64_t d
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 3, %0;\n" ::"n"(kNWG * kWG) : "memory");
 }
-// bytes `sel` and sel + 1 of u (int8 values with their sign bit flipped) as
+// bytes `sel` and sel + 1 of u (values v with the bias B added: int8 with
+// their sign bit flipped, B 128; int4 nibbles with theirs flipped, B 8) as
 // two bf16 values, exactly: 0x4B0000uu is 2^23 + uu as a float, and
-// uu - 128 is the int8 value; full-rate float operations where the int
-// conversion runs at a quarter of their rate
-__device__ __forceinline__ uint32_t s8x2_bf16(uint32_t u, int sel) {
-  const float lo = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + sel)), 8388736.f);
-  const float hi = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541 + sel)), 8388736.f);
+// uu - B is v; full-rate float operations where the int conversion runs at
+// a quarter of their rate
+template <int B>
+__device__ __forceinline__ uint32_t biased_x2_bf16(uint32_t u, int sel) {
+  constexpr float kBias = 8388608.f + B;
+  const float lo = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + sel)), kBias);
+  const float hi = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541 + sel)), kBias);
   return pack_bf16(lo, hi);
 }
+__device__ __forceinline__ uint32_t s8x2_bf16(uint32_t u, int sel) { return biased_x2_bf16<128>(u, sel); }
 
 // The warpgroup's (kBK x 64) int8 box at src (rows of 64 bytes) widened into
 // the bf16 tile at dst: kBK rows of 64 channels in the 128-byte swizzle (the
@@ -170,7 +193,7 @@ __device__ __forceinline__ uint32_t s8x2_bf16(uint32_t u, int sel) {
 // operand. 16 int8 values a step, two steps a thread.
 __device__ __forceinline__ void widen(uint32_t dst, uint32_t src, int tid) {
 #pragma unroll
-  for (int j = 0; j < kWB / 16 / kWG; ++j) {
+  for (int j = 0; j < box_bytes<8>() / 16 / kWG; ++j) {
     const int i = tid + j * kWG, k = i / 4, c = i % 4;
     const uint4 raw = ld_shared_v4(src + 16 * i);
     const uint32_t u[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
@@ -179,6 +202,33 @@ __device__ __forceinline__ void widen(uint32_t dst, uint32_t src, int tid) {
                  make_uint4(s8x2_bf16(u[0], 0), s8x2_bf16(u[0], 2), s8x2_bf16(u[1], 0), s8x2_bf16(u[1], 2)));
     st_shared_v4(row + 16 * ((2 * c + 1) ^ (k & 7)),
                  make_uint4(s8x2_bf16(u[2], 0), s8x2_bf16(u[2], 2), s8x2_bf16(u[3], 0), s8x2_bf16(u[3], 2)));
+  }
+}
+
+// The warpgroup's (kBK / 2 x 64) int4 box at src (byte rows of 64 bytes)
+// widened into the same bf16 tile as `widen`: byte row r gives K rows 2r
+// (its low nibbles) and 2r + 1 (its high ones). 16 bytes a thread: their
+// 16 channels in both rows, two 16-byte chunks each.
+__device__ __forceinline__ void widen4(uint32_t dst, uint32_t src, int tid) {
+#pragma unroll
+  for (int j = 0; j < box_bytes<4>() / 16 / kWG; ++j) {
+    const int i = tid + j * kWG, r = i / 4, c = i % 4;
+    const uint4 raw = ld_shared_v4(src + 16 * i);
+    const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the low nibbles to row 2r, the high ones to row 2r + 1
+      uint32_t b[4];  // the nibbles as bytes v + 8
+#pragma unroll
+      for (int q = 0; q < 4; ++q) b[q] = ((h ? u[q] >> 4 : u[q]) & 0x0F0F0F0Fu) ^ 0x08080808u;
+      const int k = 2 * r + h;
+      const uint32_t row = dst + k * 128;
+      st_shared_v4(row + 16 * ((2 * c) ^ (k & 7)),
+                   make_uint4(biased_x2_bf16<8>(b[0], 0), biased_x2_bf16<8>(b[0], 2), biased_x2_bf16<8>(b[1], 0),
+                              biased_x2_bf16<8>(b[1], 2)));
+      st_shared_v4(row + 16 * ((2 * c + 1) ^ (k & 7)),
+                   make_uint4(biased_x2_bf16<8>(b[2], 0), biased_x2_bf16<8>(b[2], 2), biased_x2_bf16<8>(b[3], 0),
+                              biased_x2_bf16<8>(b[3], 2)));
+    }
   }
 }
 
@@ -218,11 +268,11 @@ __device__ __forceinline__ Job find_tile(const QgmmArgs& a, int br, int j) {
 // grid (split * ceil(N / kBNo), row tiles), clusters of `split` blocks along
 // x, block kThreads, dynamic shared memory as launch plans it. Block x
 // takes channels (x / split) * kBNo .. and K part x % split of row tile y.
-template <int BR>
+template <int BR, int BITS>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     quantized_gmm_tc_kernel(const QgmmArgs a, const int stages, const int split,
                             const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw) {
-  constexpr int SB = stage_bytes<BR>();
+  constexpr int SB = stage_bytes<BR, BITS>(), WB = box_bytes<BITS>();
   extern __shared__ uint8_t smem_raw[];
   if (threadIdx.x == kNWG * kWG) {  // the producer's descriptors, on their way while the walk reads the sizes
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tx)) : "memory");
@@ -232,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   if (job.e < 0) return;  // past the last tile: no weight is read
 
   const uint32_t base = smem_base(smem_raw);
-  const uint32_t area = area_bytes<BR>(stages);
+  const uint32_t area = area_bytes<BR, BITS>(stages);
   const uint32_t conv = base + area;             // kNWG x 2 widened tiles
   const uint32_t full = conv + kNWG * 2 * kCB;   // the stages' mbarriers: loaded,
   const uint32_t empty = full + 8 * stages;      // and released by both warpgroups
@@ -261,7 +311,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
         mbar_expect(bar, SB);
         tma_load(st, tx, bar, k0, job.row0, 0, 0);
 #pragma unroll
-        for (int w = 0; w < kNWG; ++w) tma_load(st + BR * 128 + w * kWB, tw, bar, n0 + 64 * w, k0, job.e, 0);
+        for (int w = 0; w < kNWG; ++w)
+          tma_load(st + BR * 128 + w * WB, tw, bar, n0 + 64 * w, k0 * BITS / 8, job.e, 0);  // byte row of K row k0
       }
     }
     __syncwarp();
@@ -276,7 +327,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
       const int s = i % stages;
       const uint32_t st = base + s * SB, cv = mine + (i & 1) * kCB;
       mbar_wait(full + 8 * s, (i / stages) & 1);
-      widen(cv, st + BR * 128 + wg * kWB, tid);  // the products of stage i - 2, which read cv, are done
+      // the products of stage i - 2, which read cv, are done
+      if constexpr (BITS == 8) {
+        widen(cv, st + BR * 128 + wg * WB, tid);
+      } else {
+        widen4(cv, st + BR * 128 + wg * WB, tid);
+      }
       fence_async_smem();
       wg_sync(wg);
       wg_fence();
@@ -340,28 +396,31 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 
 // ------------------------------------------------------------------ launches
 
-template <int BR>
+template <int BR, int BITS>
 int launch(const QgmmArgs& a, int split, cudaStream_t stream) {
   static const int smem_max = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
   static const int smem_sm = device_attr(cudaDevAttrMaxSharedMemoryPerMultiprocessor);
   static const int reserved = device_attr(cudaDevAttrReservedSharedMemoryPerBlock);
-  auto smem_of = [](int s) { return kAlignSlack + area_bytes<BR>(s) + kNWG * 2 * kCB + 16 * s; };
+  auto smem_of = [](int s) { return kAlignSlack + area_bytes<BR, BITS>(s) + kNWG * 2 * kCB + 16 * s; };
   int stages = kStages;  // the most that leave room for kBlocksPerSM blocks (2 at least)
   while (stages > 2 && kBlocksPerSM * (smem_of(stages) + reserved) > (size_t)smem_sm) --stages;
   const size_t smem = smem_of(stages);
   if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
 
   // x (T, K) bf16: boxes of kBK columns by BR rows, 128-byte swizzle;
-  // w_q (E, K, N) int8: boxes of 64 channels by kBK rows, as they lie
-  const cuuint64_t tk = (cuuint64_t)a.T * a.K * 2, ekn = (cuuint64_t)a.E * a.K * a.N;
+  // w_q (E, KS, N) bytes (KS = K, or ceil(K / 2) packed int4): boxes of 64
+  // channels by box_rows byte rows, as they lie
+  const int ks = stored_rows(a.K, BITS);
+  const cuuint64_t tk = (cuuint64_t)a.T * a.K * 2, ekn = (cuuint64_t)a.E * ks * a.N;
   CUtensorMap tx, tw;
   if (!encode_map(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, {(cuuint64_t)a.K, (cuuint64_t)a.T, 1, 1},
               {(cuuint64_t)a.K * 2, tk, tk}, {kBK, BR, 1, 1}, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, {(cuuint64_t)a.N, (cuuint64_t)a.K, (cuuint64_t)a.E, 1},
-              {(cuuint64_t)a.N, (cuuint64_t)a.K * a.N, ekn}, {64, kBK, 1, 1}, CU_TENSOR_MAP_SWIZZLE_NONE)) {
+      !encode_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, {(cuuint64_t)a.N, (cuuint64_t)ks, (cuuint64_t)a.E, 1},
+              {(cuuint64_t)a.N, (cuuint64_t)ks * a.N, ekn}, {64, box_rows<BITS>(), 1, 1},
+              CU_TENSOR_MAP_SWIZZLE_NONE)) {
     return (int)cudaErrorInvalidValue;
   }
-  auto kernel = quantized_gmm_tc_kernel<BR>;
+  auto kernel = quantized_gmm_tc_kernel<BR, BITS>;
   static const int attr_err = set_smem(kernel, smem_max);  // once: the limit, not this call's size
   if (attr_err) return attr_err;
 
@@ -384,6 +443,16 @@ int launch(const QgmmArgs& a, int split, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int BITS>
+int launch_bits(const QgmmArgs& a, int br, int split, cudaStream_t stream) {
+  if (br == 8) return launch<8, BITS>(a, split, stream);
+  if (br == 16) return launch<16, BITS>(a, split, stream);
+  if (br == 32) return launch<32, BITS>(a, split, stream);
+  if (br == 64) return launch<64, BITS>(a, split, stream);
+  if (br == 128) return launch<128, BITS>(a, split, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 int launch_qgmm_tc(const QgmmArgs& a, int br, int split, cudaStream_t stream) {
@@ -391,12 +460,7 @@ int launch_qgmm_tc(const QgmmArgs& a, int br, int split, cudaStream_t stream) {
   if (a.K % 8 != 0 || a.N % 16 != 0 || split < 1 || split > std::min(kMaxSplit, n_k)) {
     return (int)cudaErrorInvalidValue;
   }
-  int err = (int)cudaErrorInvalidValue;
-  if (br == 8) err = launch<8>(a, split, stream);
-  if (br == 16) err = launch<16>(a, split, stream);
-  if (br == 32) err = launch<32>(a, split, stream);
-  if (br == 64) err = launch<64>(a, split, stream);
-  if (br == 128) err = launch<128>(a, split, stream);
+  const int err = a.bits == 4 ? launch_bits<4>(a, br, split, stream) : launch_bits<8>(a, br, split, stream);
   if (err == 0) __atomic_fetch_add(&llmq_quantized_gmm_tc_launches, 1, __ATOMIC_RELAXED);
   return err;
 }

@@ -54,9 +54,9 @@ _SIGNATURES = {
     # dtype, q, k_q, k_s, v_q, v_s, bias, part_acc, part_ml, out, B, HQ, HKV, S, D, n_splits, split_len,
     # 13 strides, scale, stream
     "llmq_flash_decode": [_I] + [_P] * 9 + [_I] * 7 + [_L] * 13 + [_F, _P],
-    # dtype, x, w_q, scale, group_sizes, group sizes int64, y, T, E, K, N, rows per thread (fp32), row tile
-    # and K splits (bf16), stream
-    "llmq_quantized_gmm": [_I] + [_P] * 4 + [_I, _P] + [_I] * 7 + [_P],
+    # dtype, x, w_q, scale, group_sizes, group sizes int64, y, T, E, K, N, bits (8 or 4), rows per thread
+    # (fp32), row tile and K splits (bf16), stream
+    "llmq_quantized_gmm": [_I] + [_P] * 4 + [_I, _P] + [_I] * 8 + [_P],
     # dtype, q, k, v, o, dyn_scales, dq_static, inv_q, inv_k, scale, B, S, H, D, 12 strides, stream
     "llmq_packed_mha_int8": [_I] + [_P] * 5 + [_F] * 4 + [_I] * 4 + [_L] * 12 + [_P],
     # the calls of the above that launched the bf16 tensor-core kernel

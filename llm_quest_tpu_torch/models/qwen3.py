@@ -11,16 +11,17 @@
 
 The ``nn.Module`` classes hold the parameters under the JAX tree's names
 (``blocks.3.att.wq.w`` is ``blocks/3/att/wq/w`` there) and are trainable;
-the functions with the JAX package's names compute on them. JAX's routing
-replay (its ``gate_probas=`` argument) comes with the alignment trainers
-(ROADMAP).
+the functions with the JAX package's names compute on them. The MoE
+model's ``apply(gate_probas=)`` replays a routing (JAX's RL routing
+replay): a list of one (b·s, E) tensor per block, or one tensor for every
+block, in place of the routers' probabilities.
 
 Kernels on this path: flash attention (K4, forward and backward) through the
 attention router, for every call with s ≥ ``flash_min_seq``, and with
 ``cfg["kv_quant"] = "int8"`` the decode step over the int8 KV cache (K10);
 the MoE model quantized by ``ops/quantization.py::quantize_params_int8``
-also runs its expert stacks through the int8 grouped matmul (K11), the
-group sizes staying on the device.
+also runs its expert stacks, int8 or int4, through the grouped matmul
+(K11), the group sizes staying on the device.
 
 Context parallelism (JAX's ``cp_active``): under ``cfg["context_parallel"]
 = {"group": ProcessGroup}`` an uncached forward without a padding mask
@@ -168,7 +169,7 @@ def _attention(att, cfg, x, mask, cos, sin, kv_view, position_ids, attn_mask=Non
     return att.out_proj(out)
 
 
-def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, training=False,
+def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, gate_probas=None, training=False,
           output_hidden_states=False, **_):
     """Forward. x: (b, s) ids; attn_mask: optional (b, k_len) bool, True =
     real token. The cache, when given, is written in place; its ``pos`` may
@@ -177,7 +178,9 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
     cache with pos advanced, aux), or the final-norm hidden states in place of
     the logits with ``output_hidden_states``. aux is {} for the dense model;
     the MoE model's has "gate_probas" (one (b·s, E) fp32 tensor per block)
-    and, when training, "moe_loss"."""
+    and, when training, "moe_loss". ``gate_probas``: a list of one (b·s, E)
+    tensor per block, or one tensor for every block, replays that routing
+    (the MoE model; JAX's RL routing replay)."""
     b, s = x.shape
     device = x.device
     cos, sin = params.rope_cos, params.rope_sin
@@ -215,14 +218,16 @@ def apply(params, cfg, x, *, attn_mask=None, cache=None, position_ids=None, trai
                 _, kc, vc = kv_cache.update_layer(cache, idx, k_new, v_new)
                 return kc, vc
 
-        def block_fn(h, block=block, kv_view=kv_view):
+        layer_probas = gate_probas[i] if isinstance(gate_probas, (list, tuple)) else gate_probas
+
+        def block_fn(h, block=block, kv_view=kv_view, layer_probas=layer_probas):
             hn = rms_norm_torch_parity(h, block.pre_att_norm["scale"])
             h = h + _attention(block.att, att_cfg, hn, mask, cos, sin, kv_view, position_ids, attn_mask, q_start)
             hn = rms_norm_torch_parity(h, block.pre_ffn_norm["scale"])
             if not moe:
                 return h + swiglu(block.ffn, hn), {}
             ffn_out, moe_aux = moe_ops.qwen3_moe(block.moe, hn, top_k=cfg["top_k"], load_coeff=cfg["aux_loss_coef"],
-                                                 training=training, plain=plain)
+                                                 gate_probas=layer_probas, training=training, plain=plain)
             return h + ffn_out, moe_aux
 
         h, moe_aux = checkpoint_block(cfg, block_fn)(h) if use_ckpt else block_fn(h)

@@ -6,8 +6,8 @@ applies them with ``F.linear``. The JAX package stores them ``(in, out)`` for
 ``Linear`` weight on the way in. Embedding tables are ``(num, dim)`` in both.
 
 ``embedding`` and ``tied_head`` take the table's parameter group and dispatch
-on it: ``{"w"}``, or the int8 ``{"w_q", "w_scale"}`` of
-``ops/quantization.py`` (per-row scales). The int8 linear is
+on it: ``{"w"}``, or the int8 or packed int4 ``{"w_q", "w_scale"}`` of
+``ops/quantization.py`` (per-row scales). The quantized linear is
 ``quantization.QuantLinear``. Both add the low-rank update of a ``lora``
 submodule when one is present (``ops/lora.py``), as JAX's ``linear`` does.
 
@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from llm_quest_tpu_torch.ops.int4 import is_int4, unpack_int4
 from llm_quest_tpu_torch.ops.lora import lora_delta
 
 
@@ -32,21 +33,30 @@ def linear(x, w, b=None):
 
 
 def embedding(table, ids, *, dtype=None):
-    """Token-id lookup. ids: (...,) int → (..., dim). An int8 table
-    dequantizes only the gathered rows, in bf16 unless ``dtype`` says
-    otherwise (JAX's rule: quantized tables are a bf16 serving transform)."""
+    """Token-id lookup. ids: (...,) int → (..., dim). A quantized table
+    dequantizes only the gathered rows (an int4 table unpacks only those),
+    in bf16 unless ``dtype`` says otherwise (JAX's rule: quantized tables
+    are a bf16 serving transform)."""
     if "w_q" in table:
         dt = dtype or torch.bfloat16
-        return table["w_q"][ids].to(dt) * table["w_scale"][ids][..., None].to(dt)
+        rows = table["w_q"][ids]
+        if is_int4(rows):  # to the group's recorded row width (a group that records none: an even one)
+            rows = unpack_int4(rows, getattr(table, "width", 2 * rows.shape[-1]), dim=-1, dtype=dt)
+        else:
+            rows = rows.to(dt)
+        return rows * table["w_scale"][ids][..., None].to(dt)
     w = table["w"][ids]
     return w if dtype is None else w.to(dtype)
 
 
 def tied_head(table, h):
-    """Tied-embedding output head ``h @ wᵀ``; an int8 table gives ``(h @
-    w_qᵀ) · scale``, its per-row scale being the head's output-channel scale."""
+    """Tied-embedding output head ``h @ wᵀ``; a quantized table gives ``(h
+    @ w_qᵀ) · scale`` (an int4 table unpacked first), its per-row scale
+    being the head's output-channel scale."""
     if "w_q" in table:
-        return linear(h, table["w_q"].to(h.dtype)) * table["w_scale"].to(h.dtype)
+        from llm_quest_tpu_torch.ops.quantization import int8_matmul
+
+        return int8_matmul(h, table["w_q"], table["w_scale"])
     return linear(h, table["w"])
 
 

@@ -93,12 +93,12 @@ def _linear_classes():
 
 
 def _dense_weight(linear):
-    """The (in, out) fp32 weight of a plain or int8 linear (JAX's layout):
-    what the SVD inits and the merge read."""
+    """The (in, out) fp32 weight of a plain or quantized (int8 or int4)
+    linear (JAX's layout): what the SVD inits and the merge read."""
     if hasattr(linear, "w_q"):
         from llm_quest_tpu_torch.ops.quantization import dequantize_int8
 
-        return dequantize_int8(linear.w_q, linear.w_scale).T
+        return dequantize_int8(linear.w_q, linear.w_scale, linear.d_in).T
     return linear.w.T
 
 
@@ -114,11 +114,11 @@ def _svd(linear, r):
 
 
 def init_lora(generator, linear, r, alpha, *, dtype=None):
-    """Classic LoRA for a ``Linear`` (or int8 ``QuantLinear``, whose factors
-    take its scales' dtype, fp32, as JAX's)."""
+    """Classic LoRA for a ``Linear`` (or quantized ``QuantLinear``, whose
+    factors take its scales' dtype, fp32, as JAX's)."""
     w = linear.w_q if hasattr(linear, "w_q") else linear.w
     dtype = dtype or (linear.w_scale.dtype if hasattr(linear, "w_q") else w.dtype)
-    k, d = w.shape
+    k, d = w.shape[0], getattr(linear, "d_in", w.shape[1])  # an int4 weight's in-width is its logical one
     return LoRA(A=0.02 * _randn(generator, (d, r), dtype, w.device),
                 B=torch.zeros(r, k, dtype=dtype, device=w.device),
                 scale=torch.tensor(alpha / r, dtype=torch.float32, device=w.device))

@@ -45,3 +45,20 @@ def causal_mask(q_len, k_len=None, *, q_start=0, window_size=None, attn_mask=Non
     if attn_mask is not None:
         masked = masked | ~attn_mask[:, None, None, :]
     return masked
+
+
+def bidirectional_mask(attn_mask):
+    """(b, k) padding mask, True = real token → (b, 1, 1, k), True = masked
+    (the vision encoder's); None stays None."""
+    if attn_mask is None:
+        return None
+    return ~attn_mask[:, None, None, :]
+
+
+def swa_causal_mask_table(ctx_len, window_size, *, device=None):
+    """The materialized (ctx, ctx) sliding-window causal mask, True = masked:
+    future keys and keys at or below q_pos - window_size. Built on the
+    device (kept for parity checks against the buffer variant)."""
+    pos = torch.arange(ctx_len, device=device)
+    offset = pos[None, :] - pos[:, None]  # key - query
+    return (offset > 0) | (offset <= -window_size)

@@ -1,5 +1,5 @@
-"""Qwen3 and DeepSeek Mixture-of-Experts (counterpart of
-``llm_quest_tpu/ops/moe.py``, the parts Qwen3-Next and MiMo-V2-Flash call).
+"""Mixture-of-Experts layers: Qwen3, DeepSeek, classic and Latent (counterpart
+of ``llm_quest_tpu/ops/moe.py``).
 
 - ``load_balance_loss``: N·Σ_i f_i·p_i; ``router_weights_init``: the
   sigma-MoE router re-init.
@@ -28,7 +28,8 @@
   their expert (last in stable token order) go to a trash slot and are
   dropped.
 - ``qwen3_moe``: fp32 gate softmax, top-k renormalised, LBL auxiliary loss,
-  and the sigmoid-weighted shared expert.
+  and the sigmoid-weighted shared expert; ``gate_probas=`` replays a
+  routing (the RL routing replay).
 - ``deepseek_moe``: fp32 gate softmax of ``x @ gate_w + gate_b``; the
   top-k taken on the probabilities plus the balancing ``biases``, the
   weights the unbiased probabilities renormalised; exact dispatch of the
@@ -39,21 +40,33 @@
   Divergence by design: JAX keeps ``biases`` as a leaf of ``params``, so
   its AdamW (no mask) decays it by lr·wd·b every step; the reference keeps
   a non-gradient buffer, as the port does.
-- int8 expert stacks (``ops/quantization.py::quantize_expert_stack_int8``:
-  ``<name>_q`` (E, in, out) int8 and ``<name>_scale`` (E, out)): the exact
-  dispatch sends each matrix to the grouped int8 matmul (K11,
+- int8 and int4 expert stacks (``ops/quantization.py::quantize_expert_stack_int8``:
+  ``<name>_q`` (E, in, out) int8 or (E, ⌈in/2⌉, out) packed int4, and
+  ``<name>_scale`` (E, out)): the exact
+  dispatch sends each matrix to the grouped quantized matmul (K11,
   ``kernels/quantized_gmm.py``), which takes the group sizes on the device,
-  so an int8 MoE layer makes no host sync; they keep the exact dispatch even when a capacity factor
+  so a quantized MoE layer makes no host sync; they keep the exact dispatch even when a capacity factor
   is given, and the shared expert's einsums multiply the scale after the
-  product.
-
-Classic and Latent MoE come with the models that call them.
+  product (an int4 shared stack unpacked into x's dtype first).
+- ``classic_moe``: a softmax router with a bias, top-k renormalised, the
+  exact dispatch of non-gated biased GELU experts, and the z-router loss
+  (``z_router_loss``) plus the LBL; ``init_classic_moe`` / ``ClassicMoE``.
+- ``latent_moe``: Nvidia's LatentMoE, routed experts in the latent width
+  behind the down and up projections, a sigmoid router with balancing
+  ``biases`` (an fp32 buffer, as ``DeepSeekMoE``'s: the same divergence by
+  design), ``routed_scaling_factor``, squared-ReLU experts (``squared_relu``)
+  and a full-width shared expert; ``init_latent_moe`` / ``LatentMoE``,
+  ``latent_top_k``.
+- Quantized stacks of every form (gated or not, with biases or not, int8 or
+  int4) go through K11 in the exact dispatch; the non-gated biased form is
+  act(lin1(x) + b1), then lin2, then + b2, for bf16 stacks as for quantized
+  ones and in the capacity batch (``_mlp``).
 """
 
 import torch
 from torch import nn
 
-from llm_quest_tpu_torch.ops.activations import silu
+from llm_quest_tpu_torch.ops.activations import gelu_erf, silu
 
 
 def assignment_counts(topk_idxs, num_experts):
@@ -121,32 +134,42 @@ class ExpertStack(nn.ParameterDict):
             p.uniform_(-bound, bound, generator=generator)
 
 
-def _expert_mlp(x, lin1, gate, lin2, activation):
-    """lin2(lin1(x) · act(gate(x))), the gate branch activated as in the
-    reference Expert."""
-    return (x @ lin1 * activation(x @ gate)) @ lin2
+def _mlp(experts, x, mm, bias, activation):
+    """An expert MLP over rows ``x`` through ``mm(name, x)`` (one stacked
+    matrix) and ``bias(name)`` (the bias rows that meet x's rows): gated,
+    lin2(lin1(x) · act(gate(x))), the gate branch activated as in the
+    reference Expert; or not, act(lin1(x) + b1), then lin2, then + b2
+    (the classic and shared experts)."""
+    h = mm("lin1", x)
+    if "b1" in experts:
+        h = h + bias("b1")
+    if "gate" in experts or "gate_q" in experts:
+        h = h * activation(mm("gate", x))
+    else:
+        h = activation(h)
+    out = mm("lin2", h)
+    return out + bias("b2") if "b2" in experts else out
 
 
 def _ragged(experts, name, x, group_sizes, plain):
-    """One int8 stacked matrix over expert-sorted rows: K11 (the scale is its
-    epilogue; each output row belongs to one expert group)."""
+    """One int8 or int4 stacked matrix over expert-sorted rows: K11 (the
+    scale is its epilogue; each output row belongs to one expert group)."""
     from llm_quest_tpu_torch.kernels.quantized_gmm import quantized_ragged_dot
 
     return quantized_ragged_dot(x, experts[name + "_q"], experts[name + "_scale"], group_sizes, plain=plain)
 
 
-def _expert_mlp_ragged(experts, x_sorted, group_sizes, activation, plain=False):
-    """The expert MLP over expert-sorted rows. group_sizes: (E,) tensor.
-    int8 stacks go through K11 with the sizes on the device; fp stacks take
-    one expert's contiguous group at a time (the sizes read on the host)."""
+def _expert_mlp_ragged(experts, x_sorted, group_sizes, expert_sorted, activation, plain=False):
+    """The expert MLP over expert-sorted rows. group_sizes: (E,) tensor;
+    expert_sorted: each row's expert (its bias rows). int8 and int4 stacks
+    go through K11 with the sizes on the device; fp stacks take one expert's
+    contiguous group at a time (the sizes read on the host)."""
     if "lin1_q" in experts:
-        h = _ragged(experts, "lin1", x_sorted, group_sizes, plain)
-        h = h * activation(_ragged(experts, "gate", x_sorted, group_sizes, plain))
-        return _ragged(experts, "lin2", h, group_sizes, plain)
-    group_sizes = group_sizes.tolist()
+        return _mlp(experts, x_sorted, lambda name, x: _ragged(experts, name, x, group_sizes, plain),
+                    lambda name: experts[name][expert_sorted], activation)
     outs = [
-        _expert_mlp(xg, experts["lin1"][e], experts["gate"][e], experts["lin2"][e], activation)
-        for e, xg in enumerate(torch.split(x_sorted, group_sizes))
+        _mlp(experts, xg, lambda name, x, e=e: x @ experts[name][e], lambda name, e=e: experts[name][e], activation)
+        for e, xg in enumerate(torch.split(x_sorted, group_sizes.tolist()))
         if xg.shape[0]
     ]
     if not outs:
@@ -156,18 +179,18 @@ def _expert_mlp_ragged(experts, x_sorted, group_sizes, activation, plain=False):
 
 def _expert_mlp_dense(experts, xe, activation):
     """The expert MLP over a dense (E, C, d) capacity batch: batched matmuls."""
-    return _expert_mlp(xe, experts["lin1"], experts["gate"], experts["lin2"], activation)
+    return _mlp(experts, xe, lambda name, x: x @ experts[name], lambda name: experts[name][:, None], activation)
 
 
 def dispatch(experts, x2d, topk_idxs, topk_weights, num_experts, *, activation=silu, capacity_factor=None,
              plain=False):
     """x2d: (T, d); topk_idxs/topk_weights: (T, k). Returns (T, d_out): the
     sum over each token's k experts of weight·expert(x). ``plain`` runs K11's
-    plain version (int8 stacks; comparisons only)."""
+    plain version (quantized stacks; comparisons only)."""
     t, k = topk_idxs.shape
     d_out = (experts["lin2"] if "lin2" in experts else experts["lin2_q"]).shape[-1]
     if "lin1" not in experts:
-        capacity_factor = None  # int8 stacks keep the exact path (K11)
+        capacity_factor = None  # quantized stacks keep the exact path (K11)
     flat_expert = topk_idxs.reshape(-1)
     flat_weight = topk_weights.reshape(-1)
     token_of = torch.arange(t, device=x2d.device)[:, None].expand(t, k).reshape(-1)  # each token k times
@@ -192,7 +215,7 @@ def dispatch(experts, x2d, topk_idxs, topk_weights, num_experts, *, activation=s
         out_rows = out_rows * (flat_weight[order] * keep)[:, None].to(he.dtype)
         return _combine(out_rows, order, t, k)
 
-    out_sorted = _expert_mlp_ragged(experts, x_sorted, group_sizes, activation, plain)
+    out_sorted = _expert_mlp_ragged(experts, x_sorted, group_sizes, expert_sorted, activation, plain)
     out_sorted = out_sorted * flat_weight[order][:, None].to(out_sorted.dtype)
     return _combine(out_sorted, order, t, k)
 
@@ -209,27 +232,22 @@ def _combine(rows_sorted, order, t, k):
 
 
 def _shared_einsum(shared, name, spec, x):
-    """A batched-over-experts einsum on one stacked matrix; an int8 stack
-    multiplies its (E, out) scale into the product."""
+    """A batched-over-experts einsum on one stacked matrix; a quantized
+    stack (int4 unpacked into x's dtype) multiplies its (E, out) scale into
+    the product."""
     if name + "_q" in shared:
-        y = torch.einsum(spec, x, shared[name + "_q"].to(x.dtype))
-        return y * shared[name + "_scale"][None].to(y.dtype)
+        from llm_quest_tpu_torch.ops.quantization import integer_weight
+
+        w = integer_weight(shared[name + "_q"], x.shape[-1], x.dtype)
+        return torch.einsum(spec, x, w) * shared[name + "_scale"][None].to(x.dtype)
     return torch.einsum(spec, x, shared[name])
 
 
 def _shared_experts_sum(shared, x2d, activation=silu):
-    """Every shared expert on every token, summed over the experts: gated,
-    lin2(lin1(x) · act(gate(x))), or not, lin2(act(lin1(x) + b1)) + b2."""
-    h = _shared_einsum(shared, "lin1", "td,edh->teh", x2d)
-    if "b1" in shared:
-        h = h + shared["b1"][None]
-    if "gate" in shared or "gate_q" in shared:
-        h = h * activation(_shared_einsum(shared, "gate", "td,edh->teh", x2d))
-    else:
-        h = activation(h)
-    out = _shared_einsum(shared, "lin2", "teh,ehd->ted", h)
-    if "b2" in shared:
-        out = out + shared["b2"][None]
+    """Every shared expert on every token (``_mlp``'s forms), summed over the experts."""
+    out = _mlp(shared, x2d,
+               lambda name, x: _shared_einsum(shared, name, "teh,ehd->ted" if name == "lin2" else "td,edh->teh", x),
+               lambda name: shared[name][None], activation)
     return out.sum(dim=1)
 
 
@@ -259,16 +277,21 @@ class Qwen3MoE(nn.Module):
             self.shared_gate_w.uniform_(-bound, bound, generator=generator)
 
 
-def qwen3_moe(params, x, *, top_k, load_coeff, training=True, capacity_factor=None, plain=False):
+def qwen3_moe(params, x, *, top_k, load_coeff, gate_probas=None, training=True, capacity_factor=None,
+              plain=False):
     """x: (b, s, d). Returns (out, aux); aux has "gate_probas" (T, E) fp32 and,
-    when training, "moe_loss" = load_coeff · LBL. (JAX's ``gate_probas``
-    argument, the RL routing replay, comes with the alignment trainers.)
-    ``plain`` runs K11's plain version (int8 stacks; comparisons only)."""
+    when training, "moe_loss" = load_coeff · LBL. ``gate_probas`` (b·s, E),
+    the RL routing replay, takes the place of the router's probabilities:
+    the same experts and weights as the run that returned them.
+    ``plain`` runs K11's plain version (quantized stacks; comparisons only)."""
     b, s, d = x.shape
     experts = params.experts
     num_experts = (experts["lin1"] if "lin1" in experts else experts["lin1_q"]).shape[0]
     x2d = x.reshape(-1, d)
-    gate_probas = torch.softmax((x2d @ params.gate_w).float(), dim=-1)
+    if gate_probas is None:
+        gate_probas = torch.softmax((x2d @ params.gate_w).float(), dim=-1)
+    elif gate_probas.ndim != 2:
+        raise ValueError(f"gate_probas must be (batch*seq, num_experts), got {tuple(gate_probas.shape)}")
 
     topk_probas, topk_idxs = torch.topk(gate_probas, top_k, dim=-1)
     topk_probas = topk_probas / topk_probas.sum(dim=-1, keepdim=True)
@@ -332,3 +355,151 @@ def deepseek_moe(params, x, *, top_k):
         out = _shared_experts_sum(params.shared, x2d) + out
     counts = expert_counts(topk_idxs, num_routed)
     return out.reshape(b, s, d), {"counts": counts, "max_vio": max_violation(counts)}
+
+
+# ------------------------------------------------------------------ classic MoE
+
+
+def z_router_loss(gate_logits):
+    """mean(logsumexp(logits)²), in fp32."""
+    return (torch.logsumexp(gate_logits.float(), dim=-1) ** 2).mean()
+
+
+class ClassicMoE(nn.Module):
+    """Parameters {"experts" (non-gated stack with biases), "gate_w" (d, E),
+    "gate_b" (E,)} under the JAX tree's names."""
+
+    def __init__(self, d, num_experts, hidden, dtype, device=None):
+        super().__init__()
+        self.experts = ExpertStack(num_experts, d, hidden, dtype=dtype, device=device, gated=False, bias=True)
+        self.gate_w = nn.Parameter(torch.empty(d, num_experts, dtype=dtype, device=device))
+        self.gate_b = nn.Parameter(torch.empty(num_experts, dtype=dtype, device=device))
+
+    def reset_parameters(self, generator):
+        """The router's weight and bias U(±1/sqrt(d)), the experts as ``ExpertStack``."""
+        bound = 1.0 / self.gate_w.shape[0] ** 0.5
+        self.experts.reset_parameters(generator)
+        self.gate_w.uniform_(-bound, bound, generator=generator)
+        self.gate_b.uniform_(-bound, bound, generator=generator)
+
+
+def init_classic_moe(cfg, *, num_experts=8, top_k=2, scaling_factor="auto", dtype=torch.float32, generator=None,
+                     device=None):
+    """A classic sparse MoE of GELU experts: "auto" scaling is 1/top_k, so
+    the active experts' width matches one GPT-2 FFN; each expert is
+    int(4·sf·emb_dim) wide. Random weights from ``generator``."""
+    from llm_quest_tpu_torch.config import resolve_device
+
+    if scaling_factor == "auto":
+        scaling_factor = 1 / top_k
+    module = ClassicMoE(cfg["emb_dim"], num_experts, int(4 * scaling_factor * cfg["emb_dim"]), dtype,
+                        resolve_device(device))
+    with torch.no_grad():
+        module.reset_parameters(generator)
+    return module
+
+
+def classic_moe(params, x, *, top_k, load_coeff=10e-2, z_router_coeff=1e-3, plain=False):
+    """x: (b, s, d). Returns (out, aux) with aux["moe_loss"] = z_router_coeff
+    · z-loss + load_coeff · LBL: the softmax router with a bias, top-k
+    renormalised, the exact dispatch of GELU (erf) experts. ``plain`` runs
+    K11's plain version (quantized stacks; comparisons only)."""
+    b, s, d = x.shape
+    num_experts = params.gate_w.shape[-1]
+    x2d = x.reshape(-1, d)
+    gate_logits = x2d @ params.gate_w + params.gate_b
+    gate_probas = torch.softmax(gate_logits.float(), dim=-1)
+    topk_probas, topk_idxs = torch.topk(gate_probas, top_k, dim=-1)
+    topk_probas = topk_probas / topk_probas.sum(dim=-1, keepdim=True)
+    moe_loss = (z_router_coeff * z_router_loss(gate_logits)
+                + load_coeff * load_balance_loss(gate_probas, topk_idxs, num_experts, top_k))
+    out = dispatch(params.experts, x2d, topk_idxs, topk_probas, num_experts, activation=gelu_erf, plain=plain)
+    return out.reshape(b, s, d), {"moe_loss": moe_loss}
+
+
+# ------------------------------------------------------------------- Latent MoE
+
+
+def squared_relu(x):
+    """ReLU(x)² (Nemotron's expert activation)."""
+    return torch.relu(x).square()
+
+
+class LatentMoE(nn.Module):
+    """Parameters {"routed" (gated stack in the latent width: (E, latent,
+    hidden) and (E, hidden, latent)), "shared" (one gated expert at full
+    width), "gate_w" (d, E), "down_proj" (d, latent), "up_proj" (latent,
+    d)} and the fp32 buffer "biases" (E,), under the JAX tree's names; the
+    projections are raw matrices in JAX's layout (``x @ w``), as ``gate_w``.
+    Divergence by design: JAX keeps ``biases`` as a leaf of ``params``, which
+    its AdamW decays; here it is a buffer, as in ``DeepSeekMoE``."""
+
+    def __init__(self, d, num_experts, latent, hidden, shared_hidden, dtype, device=None):
+        super().__init__()
+        self.routed = ExpertStack(num_experts, latent, hidden, dtype=dtype, device=device)
+        self.shared = ExpertStack(1, d, shared_hidden, dtype=dtype, device=device)
+        self.gate_w = nn.Parameter(torch.empty(d, num_experts, dtype=dtype, device=device))
+        self.down_proj = nn.Parameter(torch.empty(d, latent, dtype=dtype, device=device))
+        self.up_proj = nn.Parameter(torch.empty(latent, d, dtype=dtype, device=device))
+        self.register_buffer("biases", torch.zeros(num_experts, dtype=torch.float32, device=device))
+
+    def reset_parameters(self, generator):
+        """The stacks as ``ExpertStack``; the router and the down projection
+        U(±1/sqrt(d)), the up projection U(±1/sqrt(latent)); the biases zero."""
+        d, latent = self.down_proj.shape
+        self.routed.reset_parameters(generator)
+        self.shared.reset_parameters(generator)
+        for p, fan_in in ((self.gate_w, d), (self.down_proj, d), (self.up_proj, latent)):
+            p.uniform_(-fan_in**-0.5, fan_in**-0.5, generator=generator)
+        self.biases.zero_()
+
+
+def init_latent_moe(cfg, *, num_experts=4, latent_ratio=4, shared_expert_hidden_dim=None, dtype=torch.float32,
+                    generator=None, device=None):
+    """Nvidia's LatentMoE: experts in the latent width emb_dim / latent_ratio
+    behind shared down and up projections, JAX's defaults: num_experts
+    scaled by latent_ratio unless the config gives it (the layer's top_k,
+    scaled alike, is ``latent_top_k``'s), routed experts
+    ``routed_expert_hidden_dim`` or ``moe_hidden_dim`` wide, the shared one
+    ``shared_expert_hidden_dim`` or ``moe_hidden_dim``. Random weights from
+    ``generator``."""
+    from llm_quest_tpu_torch.config import resolve_device
+
+    d = cfg["emb_dim"]
+    num_experts = cfg.get("num_experts", num_experts * latent_ratio)
+    hidden = cfg.get("routed_expert_hidden_dim") or cfg["moe_hidden_dim"]
+    shared_hidden = cfg.get("shared_expert_hidden_dim", shared_expert_hidden_dim) or cfg["moe_hidden_dim"]
+    module = LatentMoE(d, num_experts, d // latent_ratio, hidden, shared_hidden, dtype, resolve_device(device))
+    with torch.no_grad():
+        module.reset_parameters(generator)
+    return module
+
+
+def latent_top_k(cfg):
+    """The latent layer's top_k: the config's, else JAX's default top_k 2
+    scaled by its default latent_ratio 4."""
+    return cfg.get("top_k", 2 * 4)
+
+
+def latent_moe(params, x, *, top_k, routed_scaling_factor=2.5, training=True, plain=False):
+    """x: (b, s, d). Returns (out, aux): the shared expert (squared ReLU) on
+    every token plus, in the latent width, the routed experts (squared
+    ReLU) picked by top-k of sigmoid(x @ gate_w) + biases, weighted by the
+    unbiased probabilities renormalised times ``routed_scaling_factor``, the
+    sum projected back up. aux has "counts" (E,) when training, to fold into
+    the biases with ``aux_free_bias_update`` after the optimizer step.
+    ``plain`` runs K11's plain version (quantized stacks; comparisons only)."""
+    b, s, d = x.shape
+    num_experts = params.gate_w.shape[-1]
+    x2d = x.reshape(-1, d)
+    out = _shared_experts_sum(params.shared, x2d, activation=squared_relu)
+    x_latent = x2d @ params.down_proj
+    gate_probas = torch.sigmoid((x2d @ params.gate_w).float())
+    topk_idxs = torch.topk(gate_probas + params.biases, top_k, dim=-1).indices  # biases kept at inference too
+    topk_probas = gate_probas.gather(-1, topk_idxs)
+    topk_probas = topk_probas / topk_probas.sum(dim=-1, keepdim=True) * routed_scaling_factor
+    latent_out = dispatch(params.routed, x_latent, topk_idxs, topk_probas, num_experts, activation=squared_relu,
+                          plain=plain)
+    out = out + latent_out @ params.up_proj
+    aux = {"counts": expert_counts(topk_idxs, num_experts)} if training else {}
+    return out.reshape(b, s, d), aux

@@ -49,7 +49,10 @@ Decode bytes count the KV cache as it is stored: bf16 (or the model's type)
 at its element size, an int8 cache (``cfg["kv_quant"] = "int8"``) at one
 byte an element plus its fp32 k and v scales. Divergence by design: the JAX
 count takes 2 bytes an element whatever the cache holds and leaves the
-scales out, so it overstates an int8 cache's bytes and MBU.
+scales out, so it overstates an int8 cache's bytes and MBU. Weights count
+as stored too: an int4 weight packed, half a byte an element (as JAX's
+``quantized_byte_fraction`` counts it). Divergence by design: JAX's count
+takes ml_dtypes' itemsize, one byte an int4 element.
 
 Peaks are those of the card present, looked up by
 ``torch.cuda.get_device_name()``; an unknown card, or no card, raises.
@@ -233,9 +236,9 @@ def text_train_flops_per_token(cfg, *, seq_len):
 
 def decode_bytes_per_token(params, cfg, *, kv_len, batch=1):
     """Device-memory bytes read per decode step ÷ batch: one pass over the
-    weights, shared by the batch, plus each sequence's KV cache at context
-    kv_len (as stored: see the module docstring) and the hybrids' fp32 GDN
-    states."""
+    weights as stored (int4 packed), shared by the batch, plus each
+    sequence's KV cache at context kv_len (as stored: see the module
+    docstring) and the hybrids' fp32 GDN states."""
     weights = param_bytes(params)
     ratio = cfg.get("linear_sdpa_ratio")
     layers = cfg["n_layers"]

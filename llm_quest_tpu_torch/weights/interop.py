@@ -9,12 +9,16 @@ keeps its conv layout and the depthwise conv1d weight its ``(channels,
 kernel)`` layout in both packages. The GDN recurrent state is ``(dv, dk)`` in
 both, so cache states compare directly.
 
-A tree quantized by the JAX ``quantize_params_int8`` loads too: the model
-takes the quantized structure first (``ops/quantization.py::quantized_like``).
-A linear's ``w_q`` is transposed like ``w``; its ``w_scale`` ((out,) or
-(nb, out)), an int8 embedding table and its per-row scales, and the expert
-stacks' ``<name>_q`` (E, in, out) and ``<name>_scale`` (E, out) have one
-layout in both packages.
+A tree quantized by the JAX ``quantize_params_int8`` loads too, int8 or
+int4: the model takes the quantized structure first
+(``ops/quantization.py::quantized_like``). A linear's ``w_q`` is transposed
+like ``w``; its ``w_scale`` ((out,) or (nb, out)), a quantized embedding
+table and its per-row scales, and the expert stacks' ``<name>_q`` (E, in,
+out) and ``<name>_scale`` (E, out), gated or not, with their biases, have
+one layout in both packages. A JAX int4 leaf (``np.asarray`` gives
+ml_dtypes ``int4``, told by its dtype's name, so ml_dtypes is never
+imported) is read as int8 and packed two a byte along dim 1 of the port's
+layout, the contraction axis (``ops/int4.py::pack_int4``).
 
 A position table that the JAX quantizer took for a linear (GPT-2's
 ``pos_emb``: any 2-D table but ``tok_emb``) is dequantized on the way in,
@@ -25,6 +29,11 @@ A tree with LoRA adapters (``lora`` sub-dicts of linears, from JAX's
 adapter axis, over fp32, bf16 or int8 linears) loads too: the model takes
 the adapters first (``ops/lora.py::lora_like``). Their A (in, r) and B (r,
 out) keep JAX's layout in the port, so no adapter leaf is transposed.
+
+A standalone MoE layer's tree loads too: {"experts", "gate_w", "gate_b"}
+gives an ``ops/moe.py::ClassicMoE`` and {"routed", "shared", "gate_w",
+"down_proj", "up_proj", "biases"} a ``LatentMoE`` (its ``biases`` into the
+buffer), their widths and dtype read from the arrays.
 
 A JAX VLM crosses over as its three trees: the ViT and GPT-2 as above, the
 adapter tree ({"proj"} or {"fc", "proj"}, ``multimodal/vlm.py``) as a
@@ -61,6 +70,7 @@ from llm_quest_tpu_torch.models import (
 )
 from llm_quest_tpu_torch.ops.linear import Linear
 from llm_quest_tpu_torch.ops.lora import lora_like
+from llm_quest_tpu_torch.ops.int4 import is_int4, pack_int4
 from llm_quest_tpu_torch.ops.quantization import QuantLinear, quantized_like
 
 
@@ -83,16 +93,46 @@ def _adapter_for(flat, device):
 
     first = flat["fc/w"] if "fc/w" in flat else flat["proj/w"]
     vit_d, llm_d = np.shape(first)[0], np.shape(flat["proj/w"])[1]
-    dtype = torch.bfloat16 if np.asarray(first).dtype.name == "bfloat16" else _as_tensor(first).dtype
+    dtype = _dtype_of(first)
     if "fc/w" not in flat:
         return ViTAdapter(vit_d, llm_d, adapter_type="simple", bias="proj/b" in flat, dtype=dtype, device=device)
     return ViTAdapter(vit_d, llm_d, adapter_type="ffn", hidden_size_factor=np.shape(first)[1] // vit_d,
                       bias="fc/b" in flat, dtype=dtype, device=device)
 
 
+def _dtype_of(arr):
+    """The torch dtype of a JAX leaf (numpy's bf16 is ml_dtypes', told by name)."""
+    return torch.bfloat16 if np.asarray(arr).dtype.name == "bfloat16" else _as_tensor(arr).dtype
+
+
+def _stack_dims(flat, prefix):
+    """(E, in, out) of a stack's lin1, quantized or not (a JAX int4 array has its logical shape)."""
+    return np.shape(flat[prefix + "lin1"] if prefix + "lin1" in flat else flat[prefix + "lin1_q"])
+
+
+def _moe_layer_for(flat, device):
+    """A standalone classic or latent MoE layer of a JAX tree, or None."""
+    from llm_quest_tpu_torch.ops.moe import ClassicMoE, LatentMoE
+
+    top, dtype = {name.split("/")[0] for name in flat}, None
+    if "gate_w" in flat:
+        dtype = _dtype_of(flat["gate_w"])
+    if top == {"experts", "gate_w", "gate_b"}:
+        e, d, hidden = _stack_dims(flat, "experts/")
+        return ClassicMoE(d, e, hidden, dtype, device)
+    if top == {"routed", "shared", "gate_w", "down_proj", "up_proj", "biases"}:
+        e, latent, hidden = _stack_dims(flat, "routed/")
+        _, d, shared_hidden = _stack_dims(flat, "shared/")
+        return LatentMoE(d, e, latent, hidden, shared_hidden, dtype, device)
+    return None
+
+
 def _model_for(flat, cfg, device):
     if {name.split("/")[0] for name in flat} <= {"fc", "proj"}:  # a ViT→LLM adapter (multimodal/vlm.py)
         return _adapter_for(flat, device)
+    moe_layer = _moe_layer_for(flat, device)
+    if moe_layer is not None:
+        return moe_layer
     if "head/w" in flat and any(name.startswith("body/") for name in flat):  # a GPT-2 body, a scalar head
         from llm_quest_tpu_torch.alignment.grpo import RewardModel
 
@@ -151,7 +191,9 @@ def from_jax_flat(flat, cfg, *, device=None):
     flat: {"/"-joined path: numpy array}, i.e. ``flatten_params`` of the
     JAX params converted with ``np.asarray``. An adapter tree ({"proj"} or
     {"fc", "proj"}, JAX's ``multimodal/vlm.py::init_adapter``) gives a
-    ``multimodal.vlm.ViTAdapter`` (``cfg`` unread). A tree of a GPT-2 "body" and
+    ``multimodal.vlm.ViTAdapter`` (``cfg`` unread); a standalone MoE layer's
+    tree (JAX's ``init_classic_moe`` / ``init_latent_moe``) an
+    ``ops/moe.py::ClassicMoE`` / ``LatentMoE`` (``cfg`` unread). A tree of a GPT-2 "body" and
     a "head" linear (``alignment/grpo.py::init_reward_model``'s) gives an
     ``alignment.grpo.RewardModel``. An image config with no
     vocabulary (``img_width``, no ``vocab_size``) gives a ``vit.ViT`` (its
@@ -172,8 +214,9 @@ def from_jax_flat(flat, cfg, *, device=None):
     bias without a q/k norm a ``llama3.Llama3``; and a Qwen3 config (no
     ``linear_sdpa_ratio``) a
     ``qwen3.Qwen3``, dense or, with ``model_type="moe"``, MoE (its
-    "blocks/<i>/moe/experts/{lin1,gate,lin2}" stacks, int8 ones included,
-    and "blocks/<i>/moe/gate_w" router). ``device`` defaults to the current CUDA device
+    "blocks/<i>/moe/experts/{lin1,gate,lin2}" stacks, int8 and int4 ones
+    included, and "blocks/<i>/moe/gate_w" router). Any tree may hold JAX
+    int4 leaves (packed on the way in). ``device`` defaults to the current CUDA device
     (``config.resolve_device``). Raises on a missing, unexpected or
     mis-shaped leaf.
     """
@@ -193,7 +236,7 @@ def from_jax_flat(flat, cfg, *, device=None):
 
 def _linear_weights(model):
     """State-dict names of the port's ``(out, in)`` linear weights: a
-    ``Linear``'s ``w`` and an int8 ``QuantLinear``'s ``w_q``."""
+    ``Linear``'s ``w`` and a quantized ``QuantLinear``'s ``w_q``."""
     return ({f"{name}.w" for name, m in model.named_modules() if isinstance(m, Linear)}
             | {f"{name}.w_q" for name, m in model.named_modules() if isinstance(m, QuantLinear)})
 
@@ -205,15 +248,20 @@ def _as_tensor(arr):
     arr = np.array(arr)  # a writable copy
     if arr.dtype.name == "bfloat16":  # numpy's bf16 (ml_dtypes) has no torch view
         arr = arr.astype(np.float32)
+    elif arr.dtype.name == "int4":  # ml_dtypes' int4 (one value a byte in numpy): packed by ``_write_leaf``
+        arr = arr.astype(np.int8)
     return torch.from_numpy(arr)
 
 
 @torch.no_grad()
 def _write_leaf(state, name, t, transpose):
     """``from_jax_flat``'s per-leaf rule: a JAX-layout leaf into the port's
-    state tensor ``name`` (a linear weight transposed), cast to its dtype."""
+    state tensor ``name`` (a linear weight transposed), cast to its dtype;
+    int4 values into a packed (``uint8``) leaf are packed along dim 1."""
     if transpose:
         t = t.T
+    if is_int4(state[name]) and not is_int4(t):
+        t = pack_int4(t)
     if t.shape != state[name].shape:
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(state[name].shape)}")
     state[name].copy_(t)

@@ -21,8 +21,10 @@ K1 in bf16 takes the chunked tensor-core kernels (its cases assert
 shape.
 K11 takes bf16 rows to its tensor-core kernel (``tc_launches``; the row
 tile and K split the wrapper plans, and every tiling forced) and fp32 rows
-to the SIMT one; its bf16 cases at Qwen3-Next-small's widths run twice and
-must be bit-equal.
+to the SIMT one; its bf16 cases at Qwen3-Next-small's and Qwen3-30B-A3B's
+widths run twice and must be bit-equal; packed int4 stacks likewise
+(``int4_launches``), at odd K and tail widths, and equal to the int8 stack
+of the same values.
 K1 also at a speculative window's shapes (s 2, 5 and 9 from a carried
 state with a frozen tail, 16 heads of 128 and 8 of 64).
 K2 (csrc/gdn.cu's step) at b 1 to 128, dk 64 and 128 (and the small
@@ -1256,6 +1258,135 @@ def test_quantized_gmm_bf16_refuses_k_not_multiple_of_8(gen):
     assert_close(got, w(xb, w_q, scale, gs, plain=True), torch.bfloat16)
     x = randn(gen, 4, 20)
     assert_close(w(x, w_q, scale, gs), w(x, w_q, scale, gs, plain=True), torch.float32)
+
+
+def int4_stack(gen, e, k, n):
+    """A packed int4 stack (E, ceil(K / 2), N) of values in [-7, 7], as
+    ``quantize_expert_stack_int8(bits=4)`` stores it."""
+    from llm_quest_tpu_torch.ops.int4 import pack_int4
+
+    return pack_int4(torch.randint(-7, 8, (e, k, n), generator=gen, device="cuda", dtype=torch.int8))
+
+
+def int4_call(w, x, w_q, scale, gs, dtype, k, n):
+    """One K11 call over an int4 stack: one launch, counted in int4_launches, on the tensor cores where
+    ``tc_route`` says; returns the output and the plain version's."""
+    from llm_quest_tpu_torch.kernels import quantized_gmm
+
+    cnt, tc, i4 = w.launches, w.tc_launches, w.int4_launches
+    got = w(x, w_q, scale, gs)
+    assert (w.launches, w.tc_launches, w.int4_launches) == (cnt + 1, tc + quantized_gmm.tc_route(dtype, k, n), i4 + 1)
+    return got, w(x, w_q, scale, gs, plain=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("routing", ["decode", "prefill", "one row"])
+@pytest.mark.parametrize("e, k, n", [(8, 896, 3584), (8, 3584, 896), (128, 2048, 768), (128, 768, 2048)])
+def test_quantized_gmm_int4_widths(gen, dtype, routing, e, k, n):
+    """K11 over packed int4 stacks at Qwen3-Next-small's widths (8 experts
+    top-2; decode T 8, prefill T 2400) and Qwen3-30B-A3B's (128 experts
+    top-8; decode T 256, an admission T 8192), and one row: the wrapper's
+    plan for 4-bit weights, bf16 on the tensor cores, two runs bit-equal."""
+    from llm_quest_tpu_torch.kernels import quantized_gmm
+
+    top_k = 2 if e == 8 else 8
+    tokens = {"decode": 4 if e == 8 else 32, "prefill": 1200 if e == 8 else 1024, "one row": 0}[routing]
+    gs = routed_sizes(gen, tokens, e, top_k) if tokens else torch.eye(e, device="cuda", dtype=torch.long)[e // 3]
+    x = randn(gen, int(gs.sum()), k, dtype=dtype)
+    w_q = int4_stack(gen, e, k, n)
+    scale = torch.rand(e, n, generator=gen, device="cuda") * 0.2 + 0.01
+    w = quantized_gmm.quantized_ragged_dot
+    got, ref = int4_call(w, x, w_q, scale, gs, dtype, k, n)
+    assert_close(got, ref, dtype)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, w(x, w_q, scale, gs))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k, n", [(37, 64), (36, 40), (96, 40), (1000, 272)])
+def test_quantized_gmm_int4_odd_and_tail_widths(gen, dtype, k, n):
+    """int4 at an odd K (its pad nibble meets the zero column past K), K % 8
+    != 0 and N % 16 != 0 (the SIMT kernel for bf16 rows too: a launch, no
+    tensor-core launch), and K 1000 / N 272 (partial stages and channel
+    blocks on the tensor cores)."""
+    from llm_quest_tpu_torch.kernels import quantized_gmm
+
+    sizes = [5, 0, 40, 1, 0, 130, 7, 3]
+    x = randn(gen, sum(sizes), k, dtype=dtype)
+    w_q = int4_stack(gen, len(sizes), k, n)
+    assert w_q.shape == (len(sizes), (k + 1) // 2, n)
+    scale = torch.rand(len(sizes), n, generator=gen, device="cuda") * 0.2 + 0.01
+    got, ref = int4_call(quantized_gmm.quantized_ragged_dot, x, w_q, scale, torch.tensor(sizes, device="cuda"), dtype,
+                         k, n)
+    assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("rows", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("split", [1, 2, 8])
+def test_quantized_gmm_int4_tc_tilings(gen, rows, split):
+    """The tensor-core kernel over an int4 stack at every row tile and K
+    split (12 experts, three empty, int32 sizes, K 1000, N 272); fp32 rows on
+    the SIMT kernel at both its row tilings; two runs bit-equal."""
+    from llm_quest_tpu_torch.kernels import quantized_gmm
+
+    sizes = [5, 0, 40, 1, 0, 130, 7, 0, 64, 2, 9, 33]
+    x = randn(gen, sum(sizes), 1000, dtype=torch.bfloat16)
+    w_q = int4_stack(gen, 12, 1000, 272)
+    scale = torch.rand(12, 272, generator=gen, device="cuda") * 0.2 + 0.01
+    gs = torch.tensor(sizes, device="cuda", dtype=torch.int32)
+    got = quantized_gmm._launch(x, w_q, scale, gs, row_tile=rows, split=split)
+    assert_close(got, quantized_gmm.quantized_ragged_dot(x, w_q, scale, gs, plain=True), torch.bfloat16)
+    assert torch.equal(got, quantized_gmm._launch(x, w_q, scale, gs, row_tile=rows, split=split))
+    if (rows, split) == (8, 1):
+        x32 = x.float()
+        ref32 = quantized_gmm.quantized_ragged_dot(x32, w_q, scale, gs, plain=True)
+        for rm in (1, 4):
+            assert_close(quantized_gmm._launch(x32, w_q, scale, gs, rows_per_thread=rm), ref32, torch.float32)
+
+
+def test_quantized_gmm_int4_equals_int8_of_the_same_values(gen):
+    """The same values in [-7, 7] as an int8 stack and packed, at one tiling
+    (the plan's for int8; the plan for int4 may split K otherwise, which
+    sums in another order): equal outputs, the widened tiles being the same
+    bf16 values; fp32 rows on the SIMT kernel likewise."""
+    from llm_quest_tpu_torch.kernels import quantized_gmm
+    from llm_quest_tpu_torch.ops.int4 import pack_int4
+
+    gs = routed_sizes(gen, 64, 16, 4)
+    w8 = torch.randint(-7, 8, (16, 512, 768), generator=gen, device="cuda", dtype=torch.int8)
+    w4 = pack_int4(w8)
+    scale = torch.rand(16, 768, generator=gen, device="cuda") * 0.2 + 0.01
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, split = quantized_gmm.plan(int(gs.sum()), 512, 768, 16, sms)
+    x = randn(gen, int(gs.sum()), 512, dtype=torch.bfloat16)
+    assert torch.equal(quantized_gmm._launch(x, w4, scale, gs, row_tile=rows, split=split),
+                       quantized_gmm._launch(x, w8, scale, gs, row_tile=rows, split=split))
+    x = x.float()
+    for rm in (1, 4):
+        assert torch.equal(quantized_gmm._launch(x, w4, scale, gs, rows_per_thread=rm),
+                           quantized_gmm._launch(x, w8, scale, gs, rows_per_thread=rm))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tokens", [32, 1024])
+@pytest.mark.parametrize("k, n", [(2048, 768), (768, 2048)])
+def test_quantized_gmm_int8_e128_widths(gen, dtype, tokens, k, n):
+    """int8 K11 at Qwen3-30B-A3B's stacks (128 experts top-8): a decode step
+    of 32 slots (T 256) and an admission of 1024 tokens (T 8192), the
+    wrapper's plan; bf16 on the tensor cores, two runs bit-equal."""
+    from llm_quest_tpu_torch.kernels import quantized_gmm
+
+    gs = routed_sizes(gen, tokens, 128, 8)
+    x = randn(gen, 8 * tokens, k, dtype=dtype)
+    w_q = torch.randint(-127, 128, (128, k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand(128, n, generator=gen, device="cuda") * 0.02 + 0.001
+    w = quantized_gmm.quantized_ragged_dot
+    tc, i4 = w.tc_launches, w.int4_launches
+    got = w(x, w_q, scale, gs)
+    assert (w.tc_launches, w.int4_launches) == (tc + (dtype == torch.bfloat16), i4)
+    assert_close(got, w(x, w_q, scale, gs, plain=True), dtype)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, w(x, w_q, scale, gs))
 
 
 def test_moe_dispatch_runs_tail_stacks_through_k11(gen):

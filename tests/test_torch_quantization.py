@@ -140,17 +140,6 @@ def test_quantize_expert_stack_matches_jax():
     assert torch.equal(tp["b1"], T(experts["b1"]))
 
 
-def test_int4_raises():
-    w = {"w": torch.ones(4, 4)}
-    for fn in (tquant.quantize_linear_int8, tquant.quantize_embedding_int8):
-        with pytest.raises(NotImplementedError, match="int4"):
-            fn(w, bits=4)
-    with pytest.raises(NotImplementedError, match="int4"):
-        tquant.quantize_expert_stack_int8({"lin1": torch.ones(2, 4, 4)}, bits=4)
-    with pytest.raises(NotImplementedError, match="int4"):
-        tquant.quantize_params_int8(torch.nn.Linear(2, 2), bits=4)
-
-
 # ------------------------------------------------------------------ whole models
 
 

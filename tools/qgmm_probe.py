@@ -158,7 +158,7 @@ def time_variants():
     for name, path in ph.variant_libraries("qgmm_variants", ["quantized_gmm.cu", "quantized_gmm_tc.cu"],
                                            built).items():
         lib = ctypes.CDLL(str(path))
-        lib.llmq_quantized_gmm.argtypes = [I] + [P] * 4 + [I, P] + [I] * 7 + [P]
+        lib.llmq_quantized_gmm.argtypes = [I] + [P] * 4 + [I, P] + [I] * 8 + [P]
         lib.llmq_quantized_gmm.restype = I
         libs[name] = lib
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -175,7 +175,7 @@ def time_variants():
             lib = libs[name if flags else "tree"]
             y = torch.empty(t, n, dtype=x.dtype, device="cuda")
             args = [I(1), x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), gs.data_ptr(), I(1), y.data_ptr(), I(t),
-                    I(e), I(k), I(n), I(1), I(rows), I(split), stream]
+                    I(e), I(k), I(n), I(8), I(1), I(rows), I(split), stream]
             call = lambda fn=lib.llmq_quantized_gmm, args=args: fn(*args)  # noqa: E731
             if call() != 0:
                 raise RuntimeError(f"variant {name}: the {case} launch failed")
